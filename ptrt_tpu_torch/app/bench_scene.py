@@ -1,0 +1,63 @@
+"""Canonical benchmark scene builder — a copy of
+``ptrt_tpu/app/bench_scene.py``: a 4x4 grid of lat-long spheres and cubes
+with 16 materials over a ground plane, two spot lights and two point
+lights, and a gradient sky.  Triangle count is controlled by
+``target_tris``."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ptrt_tpu_torch.scene.materials import Material, Materials
+from ptrt_tpu_torch.scene.pt_scene import Scene
+
+
+def build_bench_scene(width: int, height: int,
+                      target_tris: int = 1_000_000, device="cpu") -> Scene:
+    sc = Scene(width, height, device=device)
+    sc.set_sky_gradient((0.35, 0.45, 0.65), (0.05, 0.05, 0.08))
+
+    grid = 4  # 4x4 objects + floor
+    # (gx + gz) % 3 == 2 cells are 12-tri cubes; the rest are lat-long
+    # spheres (2*seg^2 tris each) that carry the triangle budget
+    n_spheres = sum(1 for gz in range(grid) for gx in range(grid)
+                    if (gx + gz) % 3 != 2)
+    per_sphere = max(200, target_tris // max(n_spheres, 1))
+    seg = max(8, int(np.ceil(np.sqrt(per_sphere / 2.0))))
+
+    mats = [
+        Materials.Gold(), Materials.PlasticRed(), Materials.Glass(),
+        Materials.Chrome(), Materials.CarPaint((0.8, 0.1, 0.1)),
+        Materials.Copper(), Materials.PlasticBlue(), Materials.FrostedGlass(),
+        Materials.Silver(), Materials.Jade(), Materials.PlasticGreen(),
+        Materials.EmissiveLamp((1.0, 0.8, 0.6), 4.0), Materials.Iron(),
+        Materials.MarbleCarrara(), Materials.RubberBlack(), Materials.WoodOak(),
+    ]
+    rng = np.random.default_rng(42)
+    k = 0
+    for gz in range(grid):
+        for gx in range(grid):
+            x = (gx - (grid - 1) / 2.0) * 2.2
+            z = 4.0 + gz * 2.2
+            if (gx + gz) % 3 == 2:
+                m = sc.add_cube(mats[k % len(mats)])
+                m.transform.set_position(x, -0.5, z).set_scale(1.2)
+                m.transform.set_rotation(0.0, float(rng.uniform(0, 3.1)), 0.0)
+            else:
+                m = sc.add_sphere(seg, mats[k % len(mats)])
+                m.transform.set_position(x, -0.4, z)
+            k += 1
+
+    sc.add_plane_xz(-1.0, 60.0, Material.make((0.8, 0.8, 0.8), 0.7))
+
+    sc.add_spot_light((0, 6.5, 6), (0, -1, 0), (1.0, 0.95, 0.9), 6.0,
+                      inner_cone=0.44, outer_cone=0.70, radius=0.2)
+    sc.add_spot_light((-6, 6.5, 8), (0.3, -1, 0), (0.9, 0.9, 1.0), 4.0,
+                      inner_cone=0.44, outer_cone=0.70, radius=0.2)
+    sc.add_point_light((0, 2, 1), (0.8, 0.8, 0.8), 5.0, range=20.0,
+                       radius=0.1)
+    sc.add_point_light((6, 1, 8), (0.5, 0.5, 0.5), 3.0, range=20.0,
+                       radius=0.1)
+
+    sc.set_camera((0, 1.2, -1.5), (0, 0, 6), fov=60)
+    return sc

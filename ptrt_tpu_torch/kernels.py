@@ -1,0 +1,99 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+All kernels (``csrc/*.cu``) compile at first use with ``nvcc`` into one
+shared library with a plain C interface in the port's build directory
+(``build.BUILD_DIR``), loaded with ``ctypes``.  Each C entry point launches
+on the stream it is given, allocates nothing, and returns
+``cudaGetLastError()``; ``check`` raises if that is not 0.
+
+``launches`` counts kernel launches by name.  A wrapper adds one exactly
+where it launches its kernel, so a run can show which kernels its path went
+through.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import os
+import shutil
+
+import torch
+
+from ptrt_tpu_torch.build import BuildError, build_shared_library
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCES = [os.path.join(CSRC, f) for f in ("traverse.cu", "tonemap.cu")]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+LIBRARY = "libptrt_kernels.so"
+
+launches: collections.Counter = collections.Counter()
+
+_lib = None
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise BuildError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def get_lib() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        path = build_shared_library(LIBRARY, SOURCES,
+                                    [nvcc_path(), *NVCC_FLAGS, *SOURCES])
+        lib = ctypes.CDLL(path)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ptrt_max_stack.restype = i
+        lib.ptrt_max_stack.argtypes = []
+        lib.ptrt_error_string.restype = ctypes.c_char_p
+        lib.ptrt_error_string.argtypes = [i]
+        lib.ptrt_closest_hit.restype = i
+        lib.ptrt_closest_hit.argtypes = ([p, i, p, i] + [p] * 7 + [i]
+                                         + [p] * 5 + [p])
+        lib.ptrt_any_hit.restype = i
+        lib.ptrt_any_hit.argtypes = [p, i, p, i] + [p] * 7 + [i, p, p]
+        lib.ptrt_tonemap_rgb8.restype = i
+        lib.ptrt_tonemap_rgb8.argtypes = [p, p, p, i, i, ctypes.c_float, p, p]
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = get_lib().ptrt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc} "
+                           f"({msg})")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` is what a kernel takes: the given dtype, rank and
+    device, and contiguous."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def require_supported(device: torch.device) -> None:
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or plain version for device {device}")

@@ -1,0 +1,89 @@
+"""Carry the reference's scene state across into the port's tensors.
+
+``from_reference`` takes the JAX package's device state as plain numpy —
+each object as a mapping of its field names to arrays, a ``Vec3`` as an
+``(x, y, z)`` triple — and returns the port's objects, byte for byte, on a
+given device.  ``to_numpy`` turns a port object back into the same form,
+so a conversion can be round-tripped.  Neither imports the JAX package:
+the caller flattens the reference's objects.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ptrt_tpu_torch.core.vec import Vec3
+from ptrt_tpu_torch.geometry.scene_geom import SceneGeometry
+from ptrt_tpu_torch.render.sky import SkyConfig
+from ptrt_tpu_torch.scene.camera import Camera
+from ptrt_tpu_torch.scene.lights import LightTable
+from ptrt_tpu_torch.scene.materials import MaterialTable
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a, order="C")  # a writable copy; keeps 0-d arrays 0-d
+    if a.dtype == np.uint32:
+        # PCG state: the port carries it as int64 in [0, 2^32)
+        a = a.astype(np.int64)
+    return torch.from_numpy(a).to(device)
+
+
+def _build(cls, fields: dict, device):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        val = fields[f.name]
+        if isinstance(val, tuple):  # a flattened Vec3
+            kw[f.name] = Vec3(*[_tensor(c, device) for c in val])
+        elif isinstance(val, int):  # static metadata (stack_depth)
+            kw[f.name] = val
+        else:
+            kw[f.name] = _tensor(val, device)
+    return cls(**kw)
+
+
+def from_reference(*, device, geometry=None, materials=None, lights=None,
+                   sky=None, camera=None, rng_state=None,
+                   blue_noise=None) -> dict:
+    """Convert the reference's state (flattened to numpy) to the port's.
+
+    ``geometry``: ``SceneGeometry`` fields; ``materials`` / ``lights``: the
+    tables' fields (only ``packed`` is used); ``sky``: a gradient
+    ``SkyConfig``'s fields; ``camera``: ``Camera`` fields (the
+    view/projection matrices are dropped); ``rng_state``: the (H, W) uint32
+    PCG state; ``blue_noise``: the (64, 64, 2) table.  Returns a dict with
+    the converted entries under the same names."""
+    out = {}
+    if geometry is not None:
+        out["geometry"] = _build(SceneGeometry, geometry, device)
+    if materials is not None:
+        out["materials"] = MaterialTable(_tensor(materials["packed"], device))
+    if lights is not None:
+        out["lights"] = LightTable(_tensor(lights["packed"], device))
+    if sky is not None:
+        if sky.get("env") is not None:
+            raise NotImplementedError(
+                "HDRI skies are not ported yet (ROADMAP A4)")
+        out["sky"] = _build(SkyConfig, sky, device)
+    if camera is not None:
+        out["camera"] = _build(Camera, camera, device)
+    if rng_state is not None:
+        out["rng_state"] = _tensor(rng_state, device)
+    if blue_noise is not None:
+        out["blue_noise"] = _tensor(blue_noise, device)
+    return out
+
+
+def to_numpy(obj):
+    """A port object back to numpy: dataclasses as field dicts, ``Vec3`` as
+    an (x, y, z) triple of arrays, tensors as arrays."""
+    if isinstance(obj, Vec3):
+        return tuple(to_numpy(c) for c in (obj.x, obj.y, obj.z))
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if dataclasses.is_dataclass(obj):
+        return {f.name: to_numpy(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    return obj

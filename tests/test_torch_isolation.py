@@ -1,0 +1,89 @@
+"""ptrt_tpu_torch must run where JAX is not installed.
+
+The machine with the GPU has no JAX, and importing any ``ptrt_tpu`` module
+imports JAX, so the port may import neither.  One check imports the package
+and every submodule in a fresh interpreter and inspects ``sys.modules``;
+another scans the sources (and ``chip_smoke.py``) for such imports.  The
+smoke script itself must refuse to run without a GPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "ptrt_tpu_torch")
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import ptrt_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ptrt_tpu_torch.__path__,
+                                               "ptrt_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "ptrt_tpu"
+             or m.startswith("ptrt_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_import_pulls_in_no_jax():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 25  # every submodule was imported
+    assert bad == "[]", bad
+
+
+def _sources():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.") or name == "ptrt_tpu"
+            or name.startswith("ptrt_tpu."))
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_has_no_jax_or_reference_import(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (
+            f"{path}:{node.lineno} imports {names}")
+
+
+def test_chip_smoke_fails_without_gpu():
+    """No CUDA here: the smoke run must exit non-zero and print no result."""
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    """Copied alone into an empty directory, the script cannot pass."""
+    src = os.path.join(REPO, "chip_smoke.py")
+    dst = tmp_path / "chip_smoke.py"
+    dst.write_text(open(src).read())
+    out = subprocess.run([sys.executable, str(dst)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,191 @@
+"""The whole frame: ptrt_tpu_torch against the JAX reference.
+
+The bench scene at 64x48 with ~2000 triangles (above the reference's
+brute-force threshold of 192, so the reference walks its BVH), 2 spp,
+depth 3.  The port's ``trace_frame`` runs on the reference's own tables
+(carried across by ``tables.from_reference``) and is compared with the
+reference's trace-only program; the port's ``Scene.render_frame`` builds
+its own tables and is compared with the reference's ``render_frame``.
+
+Bounds: the sample-0 G-buffer is deterministic given the camera rays —
+object id exact, depth and normal to rtol=1e-5.  Radiance is compared
+statistically: a float-level difference (see test_torch_shading.py) can
+flip one lane's Russian-roulette or lobe choice, after which that path
+diverges completely.  Rays traced within 0.5%, frame energy within 1% per
+channel, at least 97% of pixels within 1e-3 relative, and the uint8 image
+within 1 LSB on at least 99% of pixels.  Measured on this configuration:
+rays traced equal (15187), energy within 2.3e-7, 99.93% of pixels within
+1e-3, and the uint8 image identical.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from ptrt_tpu.app.bench_scene import build_bench_scene as ref_bench_scene
+from ptrt_tpu.core.vec import Vec3 as RefVec3
+from ptrt_tpu.render import pipeline as ref_pipeline
+
+from ptrt_tpu_torch import tables
+from ptrt_tpu_torch.app.bench_scene import build_bench_scene
+from ptrt_tpu_torch.render import pipeline
+
+W, H, SPP, DEPTH, TRIS = 64, 48, 2, 3, 2000
+CPU = torch.device("cpu")
+
+
+def ref_np(obj):
+    if isinstance(obj, RefVec3):
+        return tuple(np.asarray(c) for c in (obj.x, obj.y, obj.z))
+    if dataclasses.is_dataclass(obj):
+        return {f.name: ref_np(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if obj is None or isinstance(obj, (int, tuple)):
+        return obj
+    return np.asarray(obj)
+
+
+def _bench_perf(sc):
+    """bench.py's settings: post stack off, spp, depth, full resolution."""
+    sc.perf.enable_denoiser = False
+    sc.perf.enable_bloom = False
+    sc.perf.enable_motion_vectors = False
+    sc.perf.samples_per_pixel = SPP
+    sc.perf.max_bounce_depth = DEPTH
+    sc.perf.resolution_scale = 1.0
+    return sc
+
+
+@pytest.fixture(scope="module")
+def ref_scene():
+    sc = _bench_perf(ref_bench_scene(W, H, target_tris=TRIS))
+    sc._ensure_device_state()
+    assert not sc._use_brute()
+    return sc
+
+
+@pytest.fixture(scope="module")
+def traced(ref_scene):
+    """(reference FrameBuffers, port FrameBuffers, both new rng states)."""
+    sc = ref_scene
+    fn = jax.jit(lambda g, m, l, s, c, st, bn: ref_pipeline.trace_frame(
+        g, m, l, len(sc.lights), s, c, st, jnp.int32(0), W, H, SPP, DEPTH,
+        split=False, use_brute=False, blue_noise_tbl=bn))
+    ref_state, ref_bufs = fn(sc._geom, sc._mat_table, sc._light_table,
+                             sc._sky(), sc.camera, sc._rng_state,
+                             sc._blue_noise)
+    port = tables.from_reference(
+        device=CPU, geometry=ref_np(sc._geom),
+        materials=ref_np(sc._mat_table), lights=ref_np(sc._light_table),
+        sky=ref_np(sc._sky()), camera=ref_np(sc.camera),
+        rng_state=np.asarray(sc._rng_state),
+        blue_noise=np.asarray(sc._blue_noise))
+    state, bufs = pipeline.trace_frame(
+        port["geometry"], port["materials"], port["lights"], len(sc.lights),
+        port["sky"], port["camera"], port["rng_state"], 0, W, H, SPP, DEPTH,
+        port["blue_noise"])
+    return ref_bufs, bufs, np.asarray(ref_state), state.numpy()
+
+
+def _v(v):
+    if isinstance(v, RefVec3):
+        return np.stack([np.asarray(c) for c in (v.x, v.y, v.z)])
+    return np.stack([c.numpy() for c in (v.x, v.y, v.z)])
+
+
+def test_rng_state_advances_like_reference(traced):
+    _, _, ref_state, state = traced
+    assert np.array_equal(ref_state, state.astype(np.uint32))
+
+
+def test_gbuffer_object_id_exact(traced):
+    ref, got, _, _ = traced
+    oid = got.object_id.numpy()
+    assert np.array_equal(oid, np.asarray(ref.object_id))
+    assert len(np.unique(oid)) > 8  # the grid, the floor and the sky
+
+
+def test_gbuffer_depth_normal(traced):
+    ref, got, _, _ = traced
+    hit = np.asarray(ref.object_id) >= 0
+    np.testing.assert_allclose(got.depth.numpy(), np.asarray(ref.depth),
+                               rtol=1e-5)
+    np.testing.assert_allclose(_v(got.normal)[:, hit], _v(ref.normal)[:, hit],
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.roughness.numpy(),
+                               np.asarray(ref.roughness), rtol=1e-6)
+    np.testing.assert_allclose(got.transmission.numpy(),
+                               np.asarray(ref.transmission), rtol=1e-6)
+
+
+def test_rays_traced(traced):
+    ref, got, _, _ = traced
+    r, g = float(ref.rays_traced), int(got.rays_traced)
+    assert g > W * H * SPP  # camera rays + bounces + shadow rays
+    assert abs(g - r) <= 0.005 * r, (g, r)
+
+
+def test_radiance_statistics(traced):
+    ref, got, _, _ = traced
+    rc, gc = _v(ref.color), _v(got.color)
+    assert np.isfinite(gc).all()
+    energy_r, energy_g = rc.sum(axis=(1, 2)), gc.sum(axis=(1, 2))
+    np.testing.assert_allclose(energy_g, energy_r, rtol=0.01)
+    close = np.isclose(gc, rc, rtol=1e-3, atol=1e-6).all(axis=0)
+    assert close.mean() >= 0.97, close.mean()
+
+
+@pytest.fixture(scope="module")
+def rendered(ref_scene):
+    ref_img = ref_scene.render_frame()
+    sc = _bench_perf(build_bench_scene(W, H, target_tris=TRIS))
+    img = sc.render_frame()
+    return ref_img, img, sc
+
+
+def test_render_frame_image(rendered):
+    ref_img, img, _ = rendered
+    assert img.shape == (H, W, 3) and img.dtype == np.uint8
+    assert img.std() > 5.0
+    diff = np.abs(img.astype(np.int16) - ref_img.astype(np.int16)).max(-1)
+    assert (diff <= 1).mean() >= 0.99, (diff <= 1).mean()
+
+
+def test_render_frame_exposes_last_frame(rendered):
+    _, _, sc = rendered
+    bufs = sc.last_frame
+    assert bufs.color.x.shape == (H, W)
+    assert int(bufs.rays_traced) > W * H * SPP
+    assert sc.frame_count == 1
+
+
+def test_render_frame_progressive_average():
+    """Frame 2 displays the mean of frames 1 and 2; an edit restarts it."""
+    sc = _bench_perf(build_bench_scene(32, 24, target_tris=500))
+    sc.perf.samples_per_pixel = 1
+    sc.perf.max_bounce_depth = 2
+    sc.render_frame()
+    c1 = sc.last_frame.color
+    img2 = sc.render_frame_device()
+    c2 = sc.last_frame.color
+    want = pipeline.tonemap_rgb8(c1 + c2, 0.5)
+    assert torch.equal(img2, want)
+    sc.set_camera((0, 1.0, -1.0), (0, 0, 6), fov=50)
+    assert sc.frame_count == 0
+    sc.render_frame()
+    assert sc._accum[1] == 1
+
+
+@pytest.mark.parametrize("setting,value", [
+    ("enable_denoiser", True), ("enable_bloom", True),
+    ("enable_motion_vectors", True), ("resolution_scale", 0.5),
+    ("samples_per_pixel", 17)])
+def test_unported_settings_raise(setting, value):
+    sc = _bench_perf(build_bench_scene(16, 12, target_tris=300))
+    setattr(sc.perf, setting, value)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sc.render_frame()

@@ -1,0 +1,162 @@
+"""ptrt_tpu_torch host tables against the JAX reference.
+
+Both packages build the same scene through their own host code (numpy
+copies + the same native BVH builder source and flags), so the packed
+tables must be byte-identical; ``tables.from_reference`` must carry the
+reference's state across unchanged and round-trip through ``to_numpy``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from ptrt_tpu.app.bench_scene import build_bench_scene as ref_bench_scene
+from ptrt_tpu.core.vec import Vec3 as RefVec3
+from ptrt_tpu.scene.materials import Material as RefMaterial
+from ptrt_tpu.scene.materials import Materials as RefMaterials
+from ptrt_tpu.scene.pt_scene import Scene as RefScene
+
+from ptrt_tpu_torch import tables
+from ptrt_tpu_torch.app.bench_scene import build_bench_scene
+from ptrt_tpu_torch.core.bluenoise import blue_noise_table
+from ptrt_tpu_torch.scene.materials import Material, Materials
+from ptrt_tpu_torch.scene.pt_scene import Scene
+
+CPU = torch.device("cpu")
+
+
+def ref_np(obj):
+    """Flatten a reference object to numpy: dataclasses as field dicts,
+    Vec3 as an (x, y, z) triple."""
+    if isinstance(obj, RefVec3):
+        return tuple(np.asarray(c) for c in (obj.x, obj.y, obj.z))
+    if dataclasses.is_dataclass(obj):
+        return {f.name: ref_np(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if obj is None or isinstance(obj, (int, tuple)):
+        return obj
+    return np.asarray(obj)
+
+
+def _small_scenes(ref: bool):
+    sc_cls, mat, mats = ((RefScene, RefMaterial, RefMaterials) if ref
+                         else (Scene, Material, Materials))
+    sc = sc_cls(48, 32)
+    sc.add_plane_xz(-1.0, 10.0, mat.make((0.8, 0.8, 0.8), 0.7))
+    sc.add_sphere(12, mats.Glass()).transform.set_position(0, -0.5, 4)
+    cube = sc.add_cube(mats.Gold())
+    cube.transform.set_position(1.5, 0.2, 5).set_rotation(0.3, 0.7, 0.0)
+    sc.add_point_light((2, 4, 2), (1, 1, 1), 3.0, radius=0.2)
+    sc.add_spot_light((0, 5, 4), (0, -1, 0), (1, 0.9, 0.8), 4.0,
+                      inner_cone=0.3, outer_cone=0.6)
+    sc.set_sky_gradient((0.4, 0.5, 0.7), (0.1, 0.1, 0.1))
+    sc.set_camera((0, 0.5, 0), (0, 0, 4), fov=55)
+    return sc
+
+
+SCENES = {
+    "primitives": _small_scenes,
+    "bench_2k": lambda ref: (ref_bench_scene if ref else build_bench_scene)(
+        64, 48, target_tris=2000),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def pair(request):
+    ref = SCENES[request.param](True)
+    ref._ensure_device_state()
+    port = SCENES[request.param](False)
+    port._ensure_device_state()
+    return ref, port
+
+
+def _same(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("field", ["node_rows", "tri_rows", "v0", "e1", "e2",
+                                   "tri_mesh_id", "tri_shadow_opaque",
+                                   "stack_depth"])
+def test_geometry_tables_byte_identical(pair, field):
+    ref, port = pair
+    a = ref_np(ref._geom)[field]
+    b = tables.to_numpy(port._geom)[field]
+    if isinstance(a, tuple):
+        for ca, cb in zip(a, b):
+            _same(ca, cb)
+    elif isinstance(a, int):
+        assert a == b
+    else:
+        _same(a, b)
+
+
+def test_material_light_sky_tables_byte_identical(pair):
+    ref, port = pair
+    _same(ref._mat_table.packed, port._mat_table.packed.numpy())
+    _same(ref._light_table.packed, port._light_table.packed.numpy())
+    rs, ps = ref_np(ref._sky()), tables.to_numpy(port.sky())
+    for key in ("top", "bottom"):
+        for ca, cb in zip(rs[key], ps[key]):
+            _same(ca, cb)
+    _same(rs["use_sky"], ps["use_sky"])
+
+
+def test_camera_matches(pair):
+    ref, port = pair
+    rc, pc = ref_np(ref.camera), tables.to_numpy(port.camera)
+    for key in ("origin", "lower_left_corner", "horizontal", "vertical", "u",
+                "v", "w"):
+        np.testing.assert_allclose(np.stack(pc[key]), np.stack(rc[key]),
+                                   rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(pc["lens_radius"], rc["lens_radius"],
+                               rtol=1e-6)
+
+
+def test_rng_state_and_blue_noise_identical(pair):
+    ref, port = pair
+    _same(np.asarray(ref._rng_state),
+          port._rng_state.numpy().astype(np.uint32))
+    assert int(port._rng_state.max()) < 2 ** 32
+    _same(np.asarray(ref._blue_noise), blue_noise_table(CPU).numpy())
+
+
+def test_from_reference_round_trip(pair):
+    ref, _ = pair
+    state = dict(geometry=ref_np(ref._geom), materials=ref_np(ref._mat_table),
+                 lights=ref_np(ref._light_table), sky=ref_np(ref._sky()),
+                 camera=ref_np(ref.camera),
+                 rng_state=np.asarray(ref._rng_state),
+                 blue_noise=np.asarray(ref._blue_noise))
+    port = tables.from_reference(device=CPU, **state)
+    back = {k: tables.to_numpy(v) for k, v in port.items()}
+    for key, src in state["geometry"].items():
+        if key.startswith("_"):
+            continue
+        got = back["geometry"][key]
+        if isinstance(src, tuple):
+            for ca, cb in zip(src, got):
+                _same(ca, cb)
+        elif isinstance(src, int):
+            assert src == got
+        else:
+            _same(src, got)
+    _same(state["materials"]["packed"], back["materials"]["packed"])
+    _same(state["lights"]["packed"], back["lights"]["packed"])
+    for key in ("top", "bottom"):
+        for ca, cb in zip(state["sky"][key], back["sky"][key]):
+            _same(ca, cb)
+    for key in ("origin", "lower_left_corner", "horizontal", "vertical", "u",
+                "v", "w"):
+        for ca, cb in zip(state["camera"][key], back["camera"][key]):
+            _same(ca, cb)
+    _same(state["rng_state"], back["rng_state"].astype(np.uint32))
+    _same(state["blue_noise"], back["blue_noise"])
+
+
+def test_from_reference_rejects_hdri():
+    with pytest.raises(NotImplementedError):
+        tables.from_reference(device=CPU, sky={"env": np.zeros((4, 8, 3))})
