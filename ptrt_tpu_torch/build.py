@@ -12,7 +12,9 @@ fallback.
 from __future__ import annotations
 
 import os
+import shutil
 import subprocess
+import tempfile
 import threading
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,6 +36,41 @@ def _stale(out: str, sources: list[str]) -> bool:
     return any(os.path.getmtime(s) > t for s in sources)
 
 
+def _start(command: list[str]) -> subprocess.Popen:
+    try:
+        return subprocess.Popen(command, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    except FileNotFoundError as e:
+        raise BuildError(f"compiler not found: {command[0]}") from e
+
+
+def _finish(proc: subprocess.Popen, what: str, timeout: int) -> None:
+    """Wait for a compiler process; raise with its output if it failed."""
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise BuildError(f"{what} timed out after {timeout} s") from None
+    if proc.returncode != 0:
+        raise BuildError(f"{what} failed ({' '.join(proc.args)}):\n"
+                         f"{stdout}{stderr}")
+
+
+def _link(name: str, command: list[str], timeout: int) -> str:
+    """Run ``command -o <tmp>`` and rename the result into place."""
+    out = os.path.join(BUILD_DIR, name)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        _finish(_start(command + ["-o", tmp]), f"building {name}", timeout)
+    except BuildError:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+    os.replace(tmp, out)
+    return out
+
+
 def build_shared_library(name: str, sources: list[str],
                          command: list[str], timeout: int = 900) -> str:
     """Compile ``sources`` into ``BUILD_DIR/name`` unless it is up to date.
@@ -45,17 +82,34 @@ def build_shared_library(name: str, sources: list[str],
         if not _stale(out, sources):
             return out
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
+        return _link(name, command, timeout)
+
+
+def build_linked_library(name: str, compile_commands: dict[str, list[str]],
+                         link_command: list[str], timeout: int = 900) -> str:
+    """Compile each source with its own command (``-o <object>`` appended),
+    all compilers started together, then link the objects into
+    ``BUILD_DIR/name`` with ``link_command`` (objects and ``-o <tmp>``
+    appended), unless the library is up to date.  Returns its path."""
+    out = os.path.join(BUILD_DIR, name)
+    with _lock:
+        if not _stale(out, list(compile_commands)):
+            return out
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        objdir = tempfile.mkdtemp(prefix=f"{name}.obj.", dir=BUILD_DIR)
+        procs = []
         try:
-            proc = subprocess.run(command + ["-o", tmp], capture_output=True,
-                                  text=True, timeout=timeout)
-        except FileNotFoundError as e:
-            raise BuildError(f"compiler not found: {command[0]}") from e
-        if proc.returncode != 0:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            raise BuildError(
-                f"building {name} failed ({' '.join(command)}):\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-        return out
+            objects = []
+            for src, command in compile_commands.items():
+                obj = os.path.join(objdir, os.path.basename(src) + ".o")
+                objects.append(obj)
+                procs.append((src, _start(command + ["-o", obj])))
+            for src, proc in procs:
+                _finish(proc, f"compiling {os.path.basename(src)}", timeout)
+            return _link(name, link_command + objects, timeout)
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+            shutil.rmtree(objdir, ignore_errors=True)

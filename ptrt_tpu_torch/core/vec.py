@@ -127,6 +127,9 @@ class Vec3:
     def exp(self) -> "Vec3":
         return self.map(torch.exp)
 
+    def sqrt(self) -> "Vec3":
+        return self.map(torch.sqrt)
+
     def max_component(self):
         return fmax(self.x, fmax(self.y, self.z))
 
@@ -155,6 +158,14 @@ def clamp01(v):
     if isinstance(v, Vec3):
         return v.map(lambda c: torch.clamp(c, 0.0, 1.0))
     return torch.clamp(v, 0.0, 1.0)
+
+
+def vmin(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(fmin(a.x, b.x), fmin(a.y, b.y), fmin(a.z, b.z))
+
+
+def vmax(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(fmax(a.x, b.x), fmax(a.y, b.y), fmax(a.z, b.z))
 
 
 def where(cond, a, b) -> Vec3:

@@ -1,7 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-All kernels (``csrc/*.cu``) compile at first use with ``nvcc`` into one
-shared library with a plain C interface in the port's build directory
+All kernels (``csrc/*.cu``) compile at first use with ``nvcc`` — one
+process per source, all started together — and link into one shared
+library with a plain C interface in the port's build directory
 (``build.BUILD_DIR``), loaded with ``ctypes``.  Each C entry point launches
 on the stream it is given, allocates nothing, and returns
 ``cudaGetLastError()``; ``check`` raises if that is not 0.
@@ -20,12 +21,18 @@ import shutil
 
 import torch
 
-from ptrt_tpu_torch.build import BuildError, build_shared_library
+from ptrt_tpu_torch.build import BuildError, build_linked_library
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = [os.path.join(CSRC, f) for f in ("traverse.cu", "tonemap.cu")]
+# source -> its own nvcc flags: the post-stack kernels follow their plain
+# versions' float order, so no multiply may fuse into an add
+SOURCE_FLAGS = {
+    "traverse.cu": [], "tonemap.cu": [], "gather.cu": [],
+    "svgf.cu": ["-fmad=false"], "bloom.cu": ["-fmad=false"],
+}
+SOURCES = [os.path.join(CSRC, f) for f in SOURCE_FLAGS]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 LIBRARY = "libptrt_kernels.so"
 
 launches: collections.Counter = collections.Counter()
@@ -47,8 +54,12 @@ def get_lib() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
     global _lib
     if _lib is None:
-        path = build_shared_library(LIBRARY, SOURCES,
-                                    [nvcc_path(), *NVCC_FLAGS, *SOURCES])
+        nvcc = nvcc_path()
+        path = build_linked_library(
+            LIBRARY,
+            {src: [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS[os.path.basename(src)],
+                   "-c", src] for src in SOURCES},
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a"])
         lib = ctypes.CDLL(path)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ptrt_max_stack.restype = i
@@ -62,6 +73,15 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_any_hit.argtypes = [p, i, p, i] + [p] * 7 + [i, p, p]
         lib.ptrt_tonemap_rgb8.restype = i
         lib.ptrt_tonemap_rgb8.argtypes = [p, p, p, i, i, ctypes.c_float, p, p]
+        lib.ptrt_row_gather.restype = i
+        lib.ptrt_row_gather.argtypes = [p, i, i, i, p, ctypes.c_longlong, p,
+                                        i, p]
+        lib.ptrt_svgf_temporal.restype = i
+        lib.ptrt_svgf_temporal.argtypes = [p, p]
+        lib.ptrt_svgf_atrous.restype = i
+        lib.ptrt_svgf_atrous.argtypes = [p, p]
+        lib.ptrt_bloom_blur_down.restype = i
+        lib.ptrt_bloom_blur_down.argtypes = [p, p, p, i, i, p, p, p, p]
         _lib = lib
     return _lib
 

@@ -1,7 +1,8 @@
 """BSDF evaluation, sampling and pdfs — the multi-lobe PBR material model.
 
 Counterpart of ``ptrt_tpu/render/bsdf.py`` (``mis_weight``,
-``evaluate_bsdf``, ``material_pdf``, ``material_scatter``), branchless and
+``evaluate_bsdf``, ``evaluate_bsdf_split``, ``material_pdf``,
+``material_scatter``), branchless and
 term for term: every lobe is evaluated for every lane and masked.  Plain
 torch here; the fused shade kernel (K3) is later work.
 """
@@ -93,6 +94,39 @@ def evaluate_bsdf(n: Vec3, front_face, mat, l: Vec3, v: Vec3) -> Vec3:
     result = where(is_trans, trans_result, opaque_result)
     zero_mask = (ndotv <= 0.0) | (~is_trans & (ndotl_s <= 0.0))
     return where(zero_mask, 0.0, result)
+
+
+def evaluate_bsdf_split(n: Vec3, front_face, mat, l: Vec3, v: Vec3):
+    """Diffuse/specular split of ``evaluate_bsdf`` for the denoiser's
+    channels; transmissive lanes route everything to specular.  Returns
+    (diffuse, specular), each f * NdotL."""
+    full = evaluate_bsdf(n, front_face, mat, l, v)
+
+    ndotv = fmax(n.dot(v), 0.0)
+    metal = clamp01(mat.metallic)
+    rough = fmax(mat.roughness, MIN_ROUGH)
+    trans = clamp01(mat.transmission)
+    f0_base = _f0_base(mat, ndotv)
+    is_trans = (trans > 0.0) & (metal < 0.1)
+
+    ndotl = fmax(n.dot(l), 0.0)
+    h = normalize(l + v, 1e-20)
+    vdoth = fmax(v.dot(h), 0.0)
+    d = distribution_ggx(n, h, rough)
+    g = geometry_smith(n, v, l, rough)
+    f = fresnel_schlick(vdoth, f0_base)
+    out_spec = f * (d * g / (4.0 * ndotv * ndotl + 0.001)) * ndotl
+    kd = (Vec3.full(1.0) - f) * (1.0 - metal)
+    out_diff = kd * mat.albedo * (1.0 / PI) * ndotl
+
+    zero = (ndotv <= 0.0) | (ndotl <= 0.0)
+    out_spec = where(zero, 0.0, out_spec)
+    out_diff = where(zero, 0.0, out_diff)
+
+    # transmissive: all in the specular channel, via the full evaluator
+    out_spec = where(is_trans & (ndotv > 0.0), full, out_spec)
+    out_diff = where(is_trans, 0.0, out_diff)
+    return out_diff, out_spec
 
 
 def pdf_ggx_reflect(n: Vec3, v: Vec3, l: Vec3, roughness):

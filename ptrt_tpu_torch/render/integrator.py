@@ -1,5 +1,5 @@
 """Wavefront path integrator — counterpart of ``ptrt_tpu/render/integrator.py``
-(``trace_path`` with ``split=False`` and no environment NEE).
+(``trace_path`` without environment NEE).
 
 Each bounce is one pass of elementwise torch work over every lane of the
 wavefront, with the two walks — closest hit (K1) and the NEE shadow ray
@@ -8,7 +8,10 @@ they trace with ``t_max = -1`` and come back as misses, and every
 accumulation is masked.  Radiometry matches the reference: Beer–Lambert
 interior absorption, emission on bounce 0 / after specular, one-sample NEE
 with power-2 MIS, Russian roulette from ``rr_start``, throughput soft clamp
-50, NEE clamp 500, final clamp 100.
+50, NEE clamp 500, final clamp 100.  With ``split`` the radiance is also
+routed into the denoiser's diffuse, specular and emission channels: bounce-0
+emission to emission; later emission and sky by whether the path has been
+specular throughout; NEE by the BSDF's diffuse/specular split.
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ MAX_FINAL_RADIANCE = 100.0
 class PathOutput(NamedTuple):
     rays_traced: torch.Tensor  # int64 scalar: closest-hit + shadow rays
     radiance: Vec3
+    # split channels (None unless split=True)
+    diffuse: Vec3 | None
+    specular: Vec3 | None
+    emission: Vec3 | None
     first_normal: Vec3
     first_depth: torch.Tensor
     first_object_id: torch.Tensor
@@ -43,7 +50,8 @@ class PathOutput(NamedTuple):
 
 
 def trace_path(geom, materials, lights, n_lights: int, sky: SkyConfig,
-               ray: RayBatch, state, max_depth: int, rr_enabled: bool = True,
+               ray: RayBatch, state, max_depth: int, split: bool = False,
+               rr_enabled: bool = True,
                rr_start: int = RUSSIAN_ROULETTE_START_BOUNCE,
                camera_nee: bool = True):
     """Trace the wavefront to completion.  Returns (rng_state, PathOutput).
@@ -62,7 +70,9 @@ def trace_path(geom, materials, lights, n_lights: int, sky: SkyConfig,
     throughput = Vec3.ones(shape, dev)
     alive = torch.ones(shape, dtype=torch.bool, device=dev)
     accum = zero3
+    acc_diff = acc_spec = acc_emis = zero3
     prev_was_specular = torch.ones(shape, dtype=torch.bool, device=dev)
+    path_still_specular = torch.ones(shape, dtype=torch.bool, device=dev)
     first_normal, first_depth = zero3, full(1e30)
     first_object_id = torch.full(shape, -1, dtype=torch.int32, device=dev)
     first_roughness, first_transmission = full(1.0), full(0.0)
@@ -88,7 +98,13 @@ def trace_path(geom, materials, lights, n_lights: int, sky: SkyConfig,
 
         # sky on miss
         miss = alive & ~hit.hit
-        accum = accum + where(miss, sample_sky(d, sky) * throughput, zero3)
+        sky_c = sample_sky(d, sky) * throughput
+        accum = accum + where(miss, sky_c, zero3)
+        if split:
+            acc_spec = acc_spec + where(miss & path_still_specular, sky_c,
+                                        zero3)
+            acc_diff = acc_diff + where(miss & ~path_still_specular, sky_c,
+                                        zero3)
         alive = alive & hit.hit
 
         # interior Beer–Lambert absorption, coefficient -log(albedo)
@@ -101,7 +117,15 @@ def trace_path(geom, materials, lights, n_lights: int, sky: SkyConfig,
         emissive = ((mat.emission.x > 0.0) | (mat.emission.y > 0.0)
                     | (mat.emission.z > 0.0))
         emit_on = alive & emissive & (is_first | prev_was_specular)
-        accum = accum + where(emit_on, throughput * mat.emission, zero3)
+        contrib_e = throughput * mat.emission
+        accum = accum + where(emit_on, contrib_e, zero3)
+        if split and is_first:
+            acc_emis = acc_emis + where(emit_on, contrib_e, zero3)
+        elif split:
+            acc_spec = acc_spec + where(emit_on & path_still_specular,
+                                        contrib_e, zero3)
+            acc_diff = acc_diff + where(emit_on & ~path_still_specular,
+                                        contrib_e, zero3)
 
         # NEE with MIS
         do_nee = alive & ~ray_spec
@@ -109,11 +133,18 @@ def trace_path(geom, materials, lights, n_lights: int, sky: SkyConfig,
             rays = rays + do_nee.sum()
             state, l_nee, pdf_nee, nee_c = sample_direct_lighting(
                 state, hit.point, hit.normal, hit.front_face, mat, d, lights,
-                n_lights, any_hit, active=do_nee)
+                n_lights, any_hit, split=split, active=do_nee)
             pdf_brdf = material_pdf(hit.normal, hit.front_face, mat, -d,
                                     l_nee)
             w = mis_weight(pdf_nee, pdf_brdf)
             gate = do_nee & (pdf_nee > 0.0)
+            if split:
+                nee_d, nee_s = nee_c
+                acc_diff = acc_diff + where(gate, throughput * nee_d * w,
+                                            zero3)
+                acc_spec = acc_spec + where(gate, throughput * nee_s * w,
+                                            zero3)
+                nee_c = nee_d + nee_s
             accum = accum + where(gate, throughput * nee_c * w, zero3)
 
         # scatter
@@ -122,6 +153,8 @@ def trace_path(geom, materials, lights, n_lights: int, sky: SkyConfig,
         alive = alive & sc.valid
         prev_was_specular = torch.where(alive, sc.is_specular,
                                         prev_was_specular)
+        path_still_specular = path_still_specular & torch.where(
+            alive, sc.is_specular, True)
 
         # Russian roulette
         state, u_rr = prng.uniform(state)
@@ -142,7 +175,10 @@ def trace_path(geom, materials, lights, n_lights: int, sky: SkyConfig,
 
     radiance = clamp_vector_soft(accum, MAX_FINAL_RADIANCE)
     return state, PathOutput(
-        rays_traced=rays, radiance=radiance, first_normal=first_normal,
+        rays_traced=rays, radiance=radiance,
+        diffuse=acc_diff if split else None,
+        specular=acc_spec if split else None,
+        emission=acc_emis if split else None, first_normal=first_normal,
         first_depth=first_depth, first_object_id=first_object_id,
         first_roughness=first_roughness,
         first_transmission=first_transmission)

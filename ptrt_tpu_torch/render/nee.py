@@ -12,7 +12,7 @@ import torch
 from ptrt_tpu_torch.core import rng as prng
 from ptrt_tpu_torch.core.vec import (TWO_PI, Vec3, clamp_vector_soft, fmax,
                                      fmin, sdiv, where)
-from ptrt_tpu_torch.render.bsdf import evaluate_bsdf
+from ptrt_tpu_torch.render.bsdf import evaluate_bsdf, evaluate_bsdf_split
 from ptrt_tpu_torch.scene.lights import LightTable, LightType
 
 MAX_NEE_CONTRIBUTION = 500.0
@@ -100,12 +100,14 @@ def sample_light(state, lights: LightTable, n_lights: int, point: Vec3):
 
 def sample_direct_lighting(state, point: Vec3, normal: Vec3, front_face, mat,
                            ray_dir: Vec3, lights: LightTable, n_lights: int,
-                           any_hit_fn, active=None):
+                           any_hit_fn, split: bool = False, active=None):
     """One-sample NEE estimate.
 
     ``any_hit_fn(origin, direction, t_max) -> bool`` is the shadow walk.
     ``active`` masks lanes that need NEE: the others get ``t_max = -1`` so
-    their shadow rays are dead lanes.  Returns (state, L, pdf, contribution).
+    their shadow rays are dead lanes.  Returns (state, L, pdf, contribution)
+    with the contribution a Vec3, or a (diffuse, specular) pair when
+    ``split``.
     """
     v = -ray_dir
     state, l, pdf_sample, radiance, att, dist = sample_light(
@@ -121,6 +123,12 @@ def sample_direct_lighting(state, point: Vec3, normal: Vec3, front_face, mat,
     lit = ~in_shadow & (pdf_sample > 0.0)
     scale = att / fmax(pdf_sample, 1e-12)
 
+    if split:
+        bd, bs = evaluate_bsdf_split(normal, front_face, mat, l, v)
+        out_d = clamp_vector_soft(bd * radiance * scale, MAX_NEE_CONTRIBUTION)
+        out_s = clamp_vector_soft(bs * radiance * scale, MAX_NEE_CONTRIBUTION)
+        return state, l, pdf_sample, (where(lit, out_d, 0.0),
+                                      where(lit, out_s, 0.0))
     bsdf = evaluate_bsdf(normal, front_face, mat, l, v)
     out = clamp_vector_soft(bsdf * radiance * scale, MAX_NEE_CONTRIBUTION)
     return state, l, pdf_sample, where(lit, out, 0.0)

@@ -1,10 +1,13 @@
-"""The per-frame trace and the K6 tonemap wrapper.
+"""The per-frame trace, the upscale and the K6 tonemap wrapper.
 
 Counterpart of ``ptrt_tpu/render/pipeline.py``: ``trace_frame`` generates
 jittered camera rays (TAA + blue noise, one PCG sub-stream per sample),
-runs the integrator and averages the samples; ``tonemap_to_rgb8`` turns HDR
-into the display image through the hand-written ``csrc/tonemap.cu`` kernel
-(K6) for CUDA tensors, or its plain version for CPU tensors.
+runs the integrator and averages the samples (and, with ``split``, the
+denoiser's diffuse/specular/emission channels); ``upscale_bilinear`` is
+``jax.image.resize(..., "bilinear")`` in plain torch; ``tonemap_to_rgb8``
+turns HDR into the display image through the hand-written
+``csrc/tonemap.cu`` kernel (K6) for CUDA tensors, or its plain version for
+CPU tensors.
 
 Each sample is traced as its own (H, W) wavefront.  Every lane's arithmetic
 depends only on its own pixel and sample, so the result is the same as the
@@ -27,9 +30,13 @@ from ptrt_tpu_torch.render.integrator import trace_path
 
 
 class FrameBuffers(NamedTuple):
-    """Per-frame HDR radiance (mean over spp) + the sample-0 G-buffer."""
+    """Per-frame HDR radiance (mean over spp), the split channels (None
+    unless traced with ``split``) and the sample-0 G-buffer."""
 
     color: Vec3
+    diffuse: Vec3 | None
+    specular: Vec3 | None
+    emission: Vec3 | None
     normal: Vec3
     depth: torch.Tensor
     object_id: torch.Tensor
@@ -62,32 +69,80 @@ def camera_rays(camera, rng_state: torch.Tensor, frame_index: int,
 def trace_frame(geom, materials, lights, n_lights: int, sky, camera,
                 rng_state: torch.Tensor, frame_index: int, width: int,
                 height: int, spp: int, max_depth: int,
-                blue_noise_tbl: torch.Tensor, rr_enabled: bool = True,
-                rr_start: int = 2, camera_nee: bool = True):
+                blue_noise_tbl: torch.Tensor, split: bool = False,
+                rr_enabled: bool = True, rr_start: int = 2,
+                camera_nee: bool = True):
     """One frame of ``spp`` samples.  Returns (rng_state, FrameBuffers)."""
     dev = rng_state.device
     if tuple(rng_state.shape) != (height, width):
         raise ValueError(f"rng_state {tuple(rng_state.shape)} does not match "
                          f"the {height}x{width} frame")
-    color = None
+    sums = None
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(spp):
         sub, ray = camera_rays(camera, rng_state, frame_index, s,
                                blue_noise_tbl)
         _, out = trace_path(geom, materials, lights, n_lights, sky, ray, sub,
-                            max_depth, rr_enabled=rr_enabled,
+                            max_depth, split=split, rr_enabled=rr_enabled,
                             rr_start=rr_start, camera_nee=camera_nee)
-        color = out.radiance if color is None else color + out.radiance
+        parts = (out.radiance, out.diffuse, out.specular, out.emission)
+        sums = parts if sums is None else tuple(
+            a if b is None else a + b for a, b in zip(sums, parts))
         rays = rays + out.rays_traced
         if s == 0:
             first = out
     # the persistent per-pixel stream advances once per frame
     state, _ = prng.uniform(rng_state)
+    inv = 1.0 / float(spp)
+    color, diff, spec, emis = (None if a is None else a * inv for a in sums)
     return state, FrameBuffers(
-        color=color * (1.0 / float(spp)), normal=first.first_normal,
+        color=color, diffuse=diff, specular=spec, emission=emis,
+        normal=first.first_normal,
         depth=first.first_depth, object_id=first.first_object_id,
         roughness=first.first_roughness,
         transmission=first.first_transmission, rays_traced=rays)
+
+
+def _resize_axis(a: torch.Tensor, dim: int, out_n: int) -> torch.Tensor:
+    """Linear resize of one axis as ``jax.image.resize``'s bilinear: sample
+    positions ``(j + 0.5) * in / out - 0.5``, triangle weights on the two
+    neighbouring input samples, taps outside the input dropped and the
+    rest renormalised."""
+    in_n = a.shape[dim]
+    if out_n < in_n:
+        # jax's downscale widens the triangle (antialias); not ported
+        raise ValueError(f"upscale only: {in_n} -> {out_n}")
+    dev = a.device
+    # jax: arange(out) + 0.5, times float32(1 / scale), minus 0.5
+    inv_scale = torch.tensor(1.0 / (out_n / in_n), dtype=torch.float32)
+    f = (torch.arange(out_n, dtype=torch.float32, device=dev) + 0.5) \
+        * inv_scale.to(dev) - 0.5
+    i0 = torch.floor(f)
+    taps = []
+    for i in (i0, i0 + 1.0):
+        wgt = torch.clamp(1.0 - torch.abs(f - i), min=0.0)
+        inside = (i >= 0) & (i <= in_n - 1)
+        taps.append((i.clamp(0, in_n - 1).long(),
+                     torch.where(inside, wgt, 0.0)))
+    total = taps[0][1] + taps[1][1]
+    norm = torch.where(total != 0, total, 1.0)
+    shape = [1] * a.dim()
+    shape[dim] = out_n
+    out = None
+    for idx, wgt in taps:
+        wn = torch.where(torch.abs(total) > 1000.0 * 1.1920929e-07,
+                         wgt / norm, 0.0).view(shape)
+        term = a.index_select(dim, idx) * wn
+        out = term if out is None else out + term
+    return out
+
+
+def upscale_bilinear(img: Vec3, out_h: int, out_w: int) -> Vec3:
+    """Bilinear resize of (h, w) planes to (out_h, out_w), as the
+    reference's ``jax.image.resize(..., "bilinear")`` (rows, then
+    columns)."""
+    return img.map(lambda c: _resize_axis(_resize_axis(c, 0, out_h), 1,
+                                          out_w))
 
 
 # -- K6 ----------------------------------------------------------------------

@@ -2,7 +2,9 @@
 
 Host side: the ``Material`` record with the reference's defaults and the
 named presets the bench scene uses.  Device side: ``MaterialTable``, one
-packed (M, 32) row per material, fetched per ray by id in one row gather.
+packed (M, 32) row per material, fetched per ray by id in one row gather
+(``core/gather.row_gather``, field-major, so each field is a contiguous
+plane).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ptrt_tpu_torch.core.gather import row_gather
 from ptrt_tpu_torch.core.vec import Vec3
 
 Color = Tuple[float, float, float]
@@ -116,9 +119,11 @@ class MaterialTable:
 
     def gather(self, mat_id: torch.Tensor) -> MaterialLanes:
         """Per-ray material lanes by id, as one row gather."""
-        row = self.packed[mat_id.to(torch.int64)]
-        c3 = lambda i: Vec3(row[..., i], row[..., i + 1], row[..., i + 2])
-        c1 = {name: row[..., 15 + k] for k, name in enumerate(FIELDS_F)}
+        shape = mat_id.shape
+        planes = row_gather(self.packed, mat_id.reshape(-1), field_major=True)
+        col = lambda i: planes[i].view(shape)
+        c3 = lambda i: Vec3(col(i), col(i + 1), col(i + 2))
+        c1 = {name: col(15 + k) for k, name in enumerate(FIELDS_F)}
         return MaterialLanes(
             **{name: c3(3 * k) for k, name in enumerate(FIELDS_V3)}, **c1)
 

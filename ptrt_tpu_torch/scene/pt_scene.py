@@ -3,9 +3,12 @@
 
 Owns meshes, materials, lights, camera and sky on the host, assembles the
 device tables on first render (all meshes static: one flat BVH), and runs
-the frame: trace (``render/pipeline.trace_frame``), then the progressive
-running average, then the tonemap (K6).  The post stack is not ported yet:
-the settings that would need it raise ``NotImplementedError``.
+the frame in the reference's order: trace at the render size
+(``render/pipeline.trace_frame``, split into the denoiser's channels when
+the denoiser is on), the progressive running average (only with the
+denoiser off), motion vectors, SVGF, bloom, the bilinear upscale to the
+display size, and the tonemap (K6).  Frames above 16 spp (the reference's
+chunked post program) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,10 @@ from ptrt_tpu_torch.core.bluenoise import blue_noise_table
 from ptrt_tpu_torch.geometry.mesh import Mesh
 from ptrt_tpu_torch.geometry.scene_geom import assemble_geometry
 from ptrt_tpu_torch.render import pipeline as pl
+from ptrt_tpu_torch.render.bloom import apply_bloom
+from ptrt_tpu_torch.render.denoiser import (DEFAULT_SETTINGS, denoise_frame,
+                                            init_denoiser_state)
+from ptrt_tpu_torch.render.motion import motion_vectors
 from ptrt_tpu_torch.render.sky import SkyConfig
 from ptrt_tpu_torch.scene.camera import Camera
 from ptrt_tpu_torch.scene.lights import Light, LightTable
@@ -42,24 +49,16 @@ class PerformanceSettings:
     # True: bounce-0 hits receive analytic NEE (the reference's fix of its
     # camera-ray spec flag)
     camera_nee_fix: bool = True
+    # with the denoiser OFF, display the running average of the frames since
+    # the last edit or camera move; with it on, temporal history converges
+    progressive_accumulation: bool = True
 
     def check_ported(self) -> None:
         """Raise for settings whose code is not ported yet."""
-        todo = []
-        if self.enable_denoiser:
-            todo.append("enable_denoiser (ROADMAP A6: SVGF)")
-        if self.enable_bloom:
-            todo.append("enable_bloom (ROADMAP A6: bloom)")
-        if self.enable_motion_vectors:
-            todo.append("enable_motion_vectors (ROADMAP A6: motion vectors)")
-        if self.resolution_scale != 1.0:
-            todo.append("resolution_scale != 1 (ROADMAP A5: upscale)")
         if self.samples_per_pixel > SPP_DISPATCH_MAX:
-            todo.append(f"samples_per_pixel > {SPP_DISPATCH_MAX} (ROADMAP A6: "
-                        "chunked-spp post program)")
-        if todo:
             raise NotImplementedError(
-                "not ported yet: " + "; ".join(todo))
+                f"not ported yet: samples_per_pixel > {SPP_DISPATCH_MAX} "
+                "(ROADMAP A6: chunked-spp post program)")
 
 
 class Scene:
@@ -84,8 +83,16 @@ class Scene:
         self._dirty = True
         self._rng_state = None
         self._blue_noise = blue_noise_table(self.device)
-        # progressive accumulation: (radiance sum, frame count, camera)
+        # SVGF history; survives camera moves and reset_accumulation
+        self._denoiser_state = None
+        # SVGF tunables: None = render/denoiser.DEFAULT_SETTINGS (frozen;
+        # replace it with dataclasses.replace)
+        self.denoiser_settings = None
+        # progressive accumulation: (radiance sum, frame count), and the
+        # view-projection (host numpy) it was accumulated under
         self._accum = None
+        self._accum_view_proj = None
+        self.prev_view_proj = self.camera.get_view_proj()
         # the FrameBuffers of the last rendered frame
         self.last_frame: pl.FrameBuffers | None = None
 
@@ -144,10 +151,56 @@ class Scene:
         self.use_sky = True
         self.reset_accumulation()
 
+    # -- settings ------------------------------------------------------------
+    def set_performance_preset(self, preset: str) -> None:
+        """The reference's five presets: "ultra", "quality", "balanced",
+        "performance", "fast"."""
+        p = self.perf
+        if preset == "ultra":
+            p.enable_denoiser, p.enable_bloom = False, True
+            p.enable_motion_vectors = True
+            p.samples_per_pixel, p.max_bounce_depth = 128, 32
+            p.resolution_scale, p.russian_roulette_start_bounce = 1.0, 8
+        elif preset == "quality":
+            p.enable_denoiser, p.enable_bloom = True, True
+            p.enable_motion_vectors = True
+            p.max_bounce_depth, p.resolution_scale = 6, 1.0
+            p.russian_roulette_start_bounce = 2
+        elif preset == "balanced":
+            p.enable_denoiser, p.enable_bloom = True, True
+            p.enable_motion_vectors = True
+            p.max_bounce_depth, p.resolution_scale = 4, 1.0
+            p.russian_roulette_start_bounce = 1
+        elif preset == "performance":
+            p.enable_denoiser, p.enable_bloom = True, False
+            p.enable_motion_vectors = True
+            p.max_bounce_depth, p.resolution_scale = 3, 0.75
+            p.russian_roulette_start_bounce = 1
+        elif preset == "fast":
+            p.enable_denoiser, p.enable_bloom = False, False
+            p.enable_motion_vectors = False
+            p.max_bounce_depth, p.resolution_scale = 2, 0.35
+            p.russian_roulette_start_bounce = 1
+
+    def set_resolution_scale(self, scale: float) -> None:
+        self.perf.resolution_scale = float(np.clip(scale, 0.25, 1.0))
+
+    @property
+    def render_size(self) -> tuple:
+        """(height, width) the frame is traced and denoised at."""
+        s = self.perf.resolution_scale
+        return (max(1, int(self.height * s)), max(1, int(self.width * s)))
+
     def reset_accumulation(self) -> None:
-        """Restart the progressive average and the jitter frame counter."""
+        """Restart the progressive average and the jitter frame counter.
+        SVGF history is NOT cleared: it is motion-compensated and exists
+        for the moving camera; ``reset_denoiser_history`` clears it."""
         self.frame_count = 0
         self._accum = None
+
+    def reset_denoiser_history(self) -> None:
+        """Drop SVGF temporal history (a hard cut: teleport, scene load)."""
+        self._denoiser_state = None
 
     def _edited(self) -> None:
         self._dirty = True
@@ -163,10 +216,12 @@ class Scene:
             self._light_table = LightTable.from_lights(self.lights,
                                                        self.device)
             self._dirty = False
-        if self._rng_state is None:
-            ys, xs = torch.meshgrid(
-                torch.arange(self.height, device=self.device),
-                torch.arange(self.width, device=self.device), indexing="ij")
+        rh, rw = self.render_size
+        if self._rng_state is None or tuple(self._rng_state.shape) != (rh,
+                                                                       rw):
+            ys, xs = torch.meshgrid(torch.arange(rh, device=self.device),
+                                    torch.arange(rw, device=self.device),
+                                    indexing="ij")
             self._rng_state = prng.seed(xs, ys, 0)
 
     def sky(self) -> SkyConfig:
@@ -176,27 +231,62 @@ class Scene:
     # -- rendering -----------------------------------------------------------
     def render_frame_device(self) -> torch.Tensor:
         """One frame -> (H, W, 3) uint8 tensor on the scene's device."""
-        self.perf.check_ported()
+        p = self.perf
+        p.check_ported()
         self._ensure_device_state()
+        rh, rw = self.render_size
+        denoise = bool(p.enable_denoiser)
+        if denoise and (self._denoiser_state is None
+                        or tuple(self._denoiser_state.depth.shape)
+                        != (rh, rw)):
+            self._denoiser_state = init_denoiser_state(rh, rw, self.device)
         self._rng_state, bufs = pl.trace_frame(
             self._geom, self._mat_table, self._light_table, len(self.lights),
-            self.sky(), self.camera, self._rng_state, self.frame_count,
-            self.width, self.height, int(self.perf.samples_per_pixel),
-            int(self.perf.max_bounce_depth), self._blue_noise,
-            rr_enabled=bool(self.perf.enable_russian_roulette),
-            rr_start=int(self.perf.russian_roulette_start_bounce),
-            camera_nee=bool(self.perf.camera_nee_fix))
+            self.sky(), self.camera, self._rng_state, self.frame_count, rw,
+            rh, int(p.samples_per_pixel), int(p.max_bounce_depth),
+            self._blue_noise, split=denoise,
+            rr_enabled=bool(p.enable_russian_roulette),
+            rr_start=int(p.russian_roulette_start_bounce),
+            camera_nee=bool(p.camera_nee_fix))
         self.last_frame = bufs
-        # progressive accumulation: display the running average of the
-        # frames since the last edit; it restarts when the camera changes
-        if self._accum is None or self._accum[2] is not self.camera:
-            self._accum = (bufs.color, 1, self.camera)
-        else:
-            acc_sum, n, cam = self._accum
-            self._accum = (acc_sum + bufs.color, n + 1, cam)
-        img = pl.tonemap_rgb8(self._accum[0], 1.0 / self._accum[1])
+
+        current = bufs.color
+        if bool(p.progressive_accumulation) and not denoise:
+            current = self._accumulate(current, rh, rw)
+        if denoise:
+            if p.enable_motion_vectors:
+                mv = motion_vectors(bufs.depth, self.camera,
+                                    self.prev_view_proj, rw, rh)
+            else:  # static-camera reprojection
+                zero = torch.zeros((rh, rw), dtype=torch.float32,
+                                   device=self.device)
+                mv = (zero, zero)
+            current, self._denoiser_state = denoise_frame(
+                bufs, mv, self._denoiser_state, self.camera, self.frame_count,
+                settings=self.denoiser_settings or DEFAULT_SETTINGS)
+        if p.enable_bloom:
+            current = apply_bloom(current)
+        if (rh, rw) != (self.height, self.width):
+            current = pl.upscale_bilinear(current, self.height, self.width)
+        img = pl.tonemap_rgb8(current, 1.0)
         self.frame_count += 1
+        self.prev_view_proj = self.camera.get_view_proj()
         return img
+
+    def _accumulate(self, color, rh: int, rw: int):
+        """Add the frame to the progressive sum and return the running
+        average.  The sum restarts when the view-projection's VALUES change
+        (the camera moved, whichever way it was set) or the render size
+        changed."""
+        view_proj = self.camera.get_view_proj().cpu().numpy()
+        if (self._accum is None or self._accum_view_proj is None
+                or not np.array_equal(view_proj, self._accum_view_proj)
+                or tuple(self._accum[0].x.shape) != (rh, rw)):
+            self._accum = (color, 1)
+        else:
+            self._accum = (self._accum[0] + color, self._accum[1] + 1)
+        self._accum_view_proj = view_proj
+        return self._accum[0] * (1.0 / self._accum[1])
 
     def render_frame(self) -> np.ndarray:
         """One interactive frame -> (H, W, 3) uint8 on the host."""

@@ -17,6 +17,7 @@ import torch
 
 from ptrt_tpu_torch.core.vec import Vec3
 from ptrt_tpu_torch.geometry.scene_geom import SceneGeometry
+from ptrt_tpu_torch.render.denoiser import ChannelHistory, DenoiserState
 from ptrt_tpu_torch.render.sky import SkyConfig
 from ptrt_tpu_torch.scene.camera import Camera
 from ptrt_tpu_torch.scene.lights import LightTable
@@ -37,6 +38,8 @@ def _build(cls, fields: dict, device):
         val = fields[f.name]
         if isinstance(val, tuple):  # a flattened Vec3
             kw[f.name] = Vec3(*[_tensor(c, device) for c in val])
+        elif isinstance(val, ChannelHistory):  # already converted
+            kw[f.name] = val
         elif isinstance(val, int):  # static metadata (stack_depth)
             kw[f.name] = val
         else:
@@ -45,16 +48,18 @@ def _build(cls, fields: dict, device):
 
 
 def from_reference(*, device, geometry=None, materials=None, lights=None,
-                   sky=None, camera=None, rng_state=None,
-                   blue_noise=None) -> dict:
+                   sky=None, camera=None, rng_state=None, blue_noise=None,
+                   denoiser_state=None) -> dict:
     """Convert the reference's state (flattened to numpy) to the port's.
 
     ``geometry``: ``SceneGeometry`` fields; ``materials`` / ``lights``: the
     tables' fields (only ``packed`` is used); ``sky``: a gradient
-    ``SkyConfig``'s fields; ``camera``: ``Camera`` fields (the
-    view/projection matrices are dropped); ``rng_state``: the (H, W) uint32
-    PCG state; ``blue_noise``: the (64, 64, 2) table.  Returns a dict with
-    the converted entries under the same names."""
+    ``SkyConfig``'s fields; ``camera``: ``Camera`` fields (the reference's
+    fov, aspect and clip planes are dropped: the port keeps them in the
+    matrices); ``rng_state``: the (H, W) uint32 PCG state; ``blue_noise``:
+    the (64, 64, 2) table; ``denoiser_state``: ``DenoiserState`` fields,
+    its two ``ChannelHistory`` entries as field dicts of their own.
+    Returns a dict with the converted entries under the same names."""
     out = {}
     if geometry is not None:
         out["geometry"] = _build(SceneGeometry, geometry, device)
@@ -73,6 +78,11 @@ def from_reference(*, device, geometry=None, materials=None, lights=None,
         out["rng_state"] = _tensor(rng_state, device)
     if blue_noise is not None:
         out["blue_noise"] = _tensor(blue_noise, device)
+    if denoiser_state is not None:
+        fields = dict(denoiser_state)
+        for ch in ("diffuse", "specular"):
+            fields[ch] = _build(ChannelHistory, fields[ch], device)
+        out["denoiser_state"] = _build(DenoiserState, fields, device)
     return out
 
 

@@ -20,6 +20,7 @@ from ptrt_tpu_torch import kernels
 from ptrt_tpu_torch.app.bench_scene import build_bench_scene
 from ptrt_tpu_torch.core.vec import Vec3
 from ptrt_tpu_torch.render import pipeline, traverse
+from test_torch_shading import torch_one_thread  # noqa: F401
 
 
 def _hdr(h, w, seed):

@@ -20,6 +20,7 @@ from ptrt_tpu_torch.core import rng
 from ptrt_tpu_torch.core.bluenoise import blue_noise_table, next_blue_noise
 from ptrt_tpu_torch.core.taa import taa_jitter
 from ptrt_tpu_torch.scene.camera import Camera
+from test_torch_shading import torch_one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 N = 100_000

@@ -41,6 +41,20 @@ from ptrt_tpu_torch.scene.materials import MaterialTable
 
 N = 8192
 ATOL = 1e-6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_one_thread():
+    """One torch intra-op thread per test module.  The suite runs in several
+    worker processes at once, and torch's default of a thread per core makes
+    their OpenMP pools spin against each other: six concurrent runs of
+    ``test_torch_scene.py`` took 752 s with the default and 27 s with one
+    thread on an 8-core host.  The other ``test_torch_*`` modules import
+    this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 # (rtol, least share of lanes within it)
 DIRECTION = ((1e-5, 1.0),)
 VALUE = ((1e-5, 0.995), (1e-3, 1.0))

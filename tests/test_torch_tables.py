@@ -23,6 +23,7 @@ from ptrt_tpu_torch.app.bench_scene import build_bench_scene
 from ptrt_tpu_torch.core.bluenoise import blue_noise_table
 from ptrt_tpu_torch.scene.materials import Material, Materials
 from ptrt_tpu_torch.scene.pt_scene import Scene
+from test_torch_shading import torch_one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 
@@ -160,3 +161,54 @@ def test_from_reference_round_trip(pair):
 def test_from_reference_rejects_hdri():
     with pytest.raises(NotImplementedError):
         tables.from_reference(device=CPU, sky={"env": np.zeros((4, 8, 3))})
+
+
+def test_camera_view_projection_matches(pair):
+    """The port's own view, projection and inverse view-projection (motion
+    vectors reproject through them) against the reference's, and carried
+    across unchanged by ``from_reference``."""
+    ref, port = pair
+    rc, pc = ref_np(ref.camera), tables.to_numpy(port.camera)
+    for key in ("view", "proj", "inv_view_proj"):
+        np.testing.assert_allclose(pc[key], rc[key], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(port.camera.get_view_proj().numpy(),
+                               np.asarray(ref.camera.get_view_proj()),
+                               rtol=1e-5, atol=1e-6)
+    back = tables.to_numpy(tables.from_reference(device=CPU,
+                                                 camera=rc)["camera"])
+    for key in ("view", "proj", "inv_view_proj"):
+        _same(rc[key], back[key])
+
+
+def test_from_reference_denoiser_state():
+    from ptrt_tpu.render import denoiser as ref_den
+
+    g = np.random.default_rng(9)
+    h, w = 6, 10
+    z = ref_den.init_denoiser_state(h, w)
+    rnd3 = lambda: RefVec3(*[g.normal(size=(h, w)).astype(np.float32)
+                             for _ in range(3)])
+    hist = lambda: ref_den.ChannelHistory(
+        mean=rnd3(), m2=rnd3(),
+        length=g.integers(1, 30, (h, w)).astype(np.float32))
+    ref_state = dataclasses.replace(
+        z, diffuse=hist(), specular=hist(), normal=rnd3(),
+        object_id=g.integers(-1, 9, (h, w)).astype(np.int32),
+        first_frame=np.asarray(False))
+    src = ref_np(ref_state)
+    port = tables.from_reference(device=CPU,
+                                 denoiser_state=src)["denoiser_state"]
+    assert isinstance(port.diffuse.length, torch.Tensor)
+    assert port.depth.dtype == torch.float32
+    assert port.object_id.dtype == torch.int32
+    assert not bool(port.first_frame)
+    back = tables.to_numpy(port)
+    for ch in ("diffuse", "specular"):
+        for key in ("mean", "m2"):
+            for ca, cb in zip(src[ch][key], back[ch][key]):
+                _same(ca, cb)
+        _same(src[ch]["length"], back[ch]["length"])
+    for ca, cb in zip(src["normal"], back["normal"]):
+        _same(ca, cb)
+    for key in ("depth", "object_id", "first_frame"):
+        _same(src[key], back[key])

@@ -26,6 +26,7 @@ from ptrt_tpu.render import traverse as ref_traverse
 from ptrt_tpu_torch import tables
 from ptrt_tpu_torch.core.vec import Vec3
 from ptrt_tpu_torch.render import traverse
+from test_torch_shading import torch_one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 
