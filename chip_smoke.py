@@ -13,24 +13,36 @@ Phases (any failure raises, so the exit code is non-zero):
      card, on the inputs the path gives it: K1 closest_hit and K2 any_hit on
      a full 256x144 frame of camera, bounce and shadow rays over a ~20k
      triangle bench scene and on a 4096-ray sample of the full scene; K6
-     tonemap_rgb8 on a 1920x1080 HDR frame; row_gather at the Pallas
-     probes' shapes (ptrt_tpu_torch/tools/probe_gather.py) and at the
-     material gather's (the scene's table, 2,073,600 ids), bit for bit;
+     tonemap_rgb8 on a 1920x1080 HDR frame; row_gather (off the main path
+     since K3) at the Pallas probes' shapes
+     (ptrt_tpu_torch/tools/probe_gather.py) and at the material gather's
+     (the scene's table, 2,073,600 ids), bit for bit;
+  3b. K3, shade_nee and shade_scatter, against their plain stages on the
+     full 1920x1080 bench scene (bounces 0 and 1, split off and on, the
+     same state and hit records for both) and on 65,536 random lanes of
+     every material lobe and light type: PCG states bit-exact, flags and
+     lobes agreeing on at least 99.99% of lanes, values within the tiers
+     of tests/test_torch_shading.py;
   4. the bench path: Scene.render_frame() on the bench scene at 1920x1080,
      4 spp, depth 4, ~1M triangles, post stack off — one warm-up and three
      timed frames, with the kernels' launch counts taken over exactly that
-     run;
+     run (K3 once a bounce of each sample, no material-plane gather), then
+     one frame under torch.profiler (device time, launches);
   5. the balanced path: the same scene under the reference's default
      ("balanced") preset — 1 spp, depth 4, split trace, motion vectors,
      SVGF, bloom, tonemap — one warm-up and five timed frames with the
      camera orbiting 0.5 degrees before each, launch counts taken over the
-     timed frames; then the post stages timed one by one;
+     timed frames; then the post stages timed one by one and one profiled
+     frame;
   6. svgf_temporal, svgf_atrous and bloom_blur_down against their plain
      versions on the 1920x1080 buffers of a balanced frame;
   7. end to end on small inputs: the bench frame and three balanced frames
      rendered on the GPU and on the CPU (plain versions) must agree.
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.  Without a GPU, or outside the repository,
+Every kernel's line carries its bound: the bytes it must move (each input
+read once, each output written once) over 3.35 TB/s or its float operations
+over 67 TFLOP/s, whichever is larger (the walks: rays, answers and the
+BVH's rows read once).  The line before the last is the kernel table as
+JSON; the last line is {"ok": true, "device": {...}}.  Without a GPU, or outside the repository,
 the script fails.
 """
 
@@ -56,6 +68,92 @@ LOOKAT, ORBIT_R, EYE_Y = (0.0, 0.0, 6.0), 7.5, 1.2
 # rounded reciprocal on the card; the kernel divides), and of equal
 # history lengths
 SVGF_AGREE = 0.9999
+# shade_nee / shade_scatter vs their plain stages: least share of lanes
+# whose flags (alive, specular, NEE, t_max < 0) agree and whose lobe agrees
+# (sampled direction within rtol 1e-3); on those lanes the values are held
+# to test_torch_shading.py's tiers, (rtol, least share of lanes)
+SHADE_AGREE = 0.9999
+DIRECTION = ((1e-5, 1.0),)
+VALUE = ((1e-5, 0.995), (1e-3, 1.0))
+AT_PEAK = ((1e-5, 0.85), (1e-3, 0.995), (0.5, 1.0))
+SHADE_RANDOM_LANES = 1 << 16
+# the card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet, at
+# its 700 W limit): device memory, and float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float operations per item, for the operations side of a bound: a floor
+# counted from each kernel's source.  Every float add, multiply, divide,
+# compare, min/max, abs and square root that the item runs whatever its
+# data counts one, a transcendental (exp, log, pow) one; code behind a
+# data-dependent branch or a short-circuited test counts nothing, and a
+# term the compiler may share between two inlined functions counts once,
+# so the bound stays a least time.
+OPS_PER_ITEM = {
+    # tonemap.cu, a pixel: scale 3; ACES input matrix 3 x 5; the fitted
+    # curve 3 x 10 (7 adds and multiplies, a divide, a clamp of 2); output
+    # matrix and clamp 3 x 7; the sRGB encode 3 x 7 (max, the branch test,
+    # the linear branch's multiply, x 255 + 0.5, a clamp of 2)
+    "tonemap_rgb8": 3 + 15 + 30 + 21 + 21,
+    # svgf.cu temporal, a pixel: the 3x3 window 9 x 16 (the weighted sums
+    # of colour 6 and its square 9, the count 1; the edge tests
+    # short-circuit); the window's mean, variance and clamp box 36; the
+    # reprojection 7; the bilinear set-up 22 and weights' sum, fallback
+    # test, nearest pixel and reciprocal 12 (the history fetch branches);
+    # the variance-adaptive alpha 23; the new length 2; the blend 22; the
+    # sky test 1
+    "svgf_temporal": 144 + 36 + 7 + 34 + 23 + 2 + 22 + 1,
+    # bloom.cu, an output pixel: 3 channels x (5 rows x (the 5-tap
+    # horizontal blur 7 + the row weight 1) + 4 row sums)
+    "bloom_blur_down": 3 * (5 * 8 + 4),
+    # shade.cu shade_nee, every lane: the hit record's normal normalised
+    # 10, the facing test 6 and the hit point 6 (the rest is behind the
+    # alive, hit and NEE branches)
+    "shade_nee": 22,
+    # shade.cu shade_scatter, a live lane: material_scatter's code outside
+    # its lobe branches (the Fresnel, coat and dielectric terms 76; three
+    # draws and the lobe test 4; the sampled direction normalised, its
+    # cosines and half vector 42; the coat attenuation 11; the base lobe's
+    # D 10, G 14, F 12 and pdf 4 past the terms shared above; the sums 4)
+    # and the roulette's 5
+    "shade_scatter": 76 + 4 + 42 + 11 + 40 + 4 + 5,
+}
+# svgf.cu a-trous, a pixel: the centre's luminance and edge-stopping
+# scale 14 and the normalisation 7, and per tap inside the image (see
+# atrous_taps) 21: the kernel weight 1, the luminance difference 7, its
+# exp weight 3, the tap weight 1, the colour sum 6, the variance sum 2,
+# the weight sum 1 (the edge tests short-circuit)
+ATROUS_OPS_PIXEL, ATROUS_OPS_TAP = 21, 21
+SHADE_STAGED_BYTES = 48 * 1024  # shade.cu stages tables up to this size
+
+
+def atrous_taps(h: int, w: int, step: int) -> int:
+    """Taps an a-trous pass of ``step`` reads inside an (h, w) image: per
+    axis, the pixels whose tap at each of the offsets -2..2 lies inside."""
+    axis = lambda n: sum(max(0, n - abs(o) * step) for o in range(-2, 3))
+    return axis(h) * axis(w)
+
+
+def bound(nbytes: float, ops: float = 0.0) -> dict:
+    """The least time the card could take: bytes moved (each input read
+    once, each output written once) over the memory rate, or operations
+    over the float32 rate, whichever is larger."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*ts) -> int:
+    """Bytes of tensors and Vec3s (None counts nothing)."""
+    from ptrt_tpu_torch.core.vec import Vec3
+
+    total = 0
+    for t in ts:
+        if isinstance(t, Vec3):
+            total += nbytes(t.x, t.y, t.z)
+        elif t is not None:
+            total += t.element_size() * t.numel()
+    return total
 
 
 def log(*a):
@@ -136,7 +234,8 @@ def check_row_gather(dev, mat_table, card, rng):
     probes = run_probes(dev)
     for row in probes:
         log(f"  row_gather {row['probe']}: exact, kernel {row['ms']:.4f} ms "
-            f"vs index_select {row['plain_ms']:.4f} ms [{card}]")
+            f"vs index_select {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms [{card}]")
     table = mat_table.packed
     ids = torch.from_numpy(rng.integers(0, table.shape[0], W * H)).to(dev)
     got = row_gather(table, ids, field_major=True)
@@ -145,10 +244,16 @@ def check_row_gather(dev, mat_table, card, rng):
     ms = cuda_ms(lambda: row_gather(table, ids, field_major=True), 20)
     plain_ms = cuda_ms(lambda: row_gather_plain(table, ids, field_major=True),
                        20)
+    library_ms = cuda_ms(lambda: table.t().contiguous().index_select(1, ids),
+                         20)
+    bnd = bound(nbytes(table, ids, got))
     log(f"  row_gather material ({tuple(table.shape)} table, {W * H} ids, "
         f"field-major): exact, kernel {ms:.4f} ms vs index_select + "
-        f"transpose {plain_ms:.4f} ms [{card}]")
-    return {"ms": ms, "plain_ms": plain_ms, "probes": probes}
+        f"transpose {plain_ms:.4f} ms, table.t().contiguous().index_select "
+        f"{library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}) [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bnd,
+            "probes": probes}
 
 
 def check_post_kernels(sc, state0, prev_vp, card):
@@ -239,9 +344,22 @@ def check_post_kernels(sc, state0, prev_vp, card):
     blur["ms"] = cuda_ms(lambda: bloom.blur_down(first), 50)
     blur["plain_ms"] = cuda_ms(lambda: bloom.blur_down_plain(first), 10)
     out["bloom_blur_down"] = blur
+    # planes read and written per pixel (f32 or int32): temporal reads
+    # colour, two history moments, length, motion, depth, normal, id and
+    # their previous-frame copies (22) and writes 7; a trous reads 9, writes 4
+    px = rh * rw
+    out["svgf_temporal"].update(bound(29 * 4 * px,
+                                      OPS_PER_ITEM["svgf_temporal"] * px))
+    out["svgf_atrous"].update(bound(13 * 4 * px, ATROUS_OPS_PIXEL * px
+                                    + ATROUS_OPS_TAP * atrous_taps(rh, rw, 1)))
+    half = (rh // 2) * ((rw + 1) // 2)
+    out["bloom_blur_down"].update(bound(3 * 4 * (px + half),
+                                        OPS_PER_ITEM["bloom_blur_down"]
+                                        * half))
     for k, v in out.items():
         log(f"  {k} at {rh}x{rw}: kernel {v['ms']:.4f} ms vs plain "
-            f"{v['plain_ms']:.4f} ms [{card}]")
+            f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+            f"({v['bound_by']}) [{card}]")
     return out
 
 
@@ -326,6 +444,421 @@ def check_k2(geom, rays, tag, stats):
     assert frac >= K1_K2_AGREE, f"K2 {tag} {name}: agreement {frac}"
     stats["mismatches"] += mism
     stats["max_abs_err"] = max(stats["max_abs_err"], float(mism > 0))
+
+
+# -- K3: shade_nee and shade_scatter against their plain stages ---------------
+
+
+def lane_err(got, want):
+    """Per-lane |error| (a Vec3's largest component) and |want|."""
+    import torch
+    from ptrt_tpu_torch.core.vec import Vec3
+
+    stack = lambda v: (torch.stack([v.x, v.y, v.z]) if isinstance(v, Vec3)
+                       else v[None])
+    g, w = stack(got).double(), stack(want).double()
+    return (g - w).abs().amax(0), w.abs().amax(0)
+
+
+def hold(what, got, want, lanes, tiers, stats) -> None:
+    """Assert the tiers on ``lanes`` (bool mask); keep the max error."""
+    err, mag = lane_err(got, want)
+    err, mag = err[lanes], mag[lanes]
+    if err.numel() == 0:
+        return
+    for rtol, share in tiers:
+        ok = float((err <= rtol * mag + 1e-6).double().mean())
+        assert ok >= share, (what, rtol, ok, share)
+    stats["max_abs_err"] = max(stats["max_abs_err"], float(err.max()))
+
+
+def agree(what, a, b, stats) -> "torch.Tensor":
+    """Lanes where two bool planes agree; asserts SHADE_AGREE of them."""
+    same = a == b
+    share = float(same.double().mean())
+    assert share >= SHADE_AGREE, (what, share)
+    stats["flag_mismatches"] += int((~same).sum())
+    return same
+
+
+def compare_nee(tag, ka, pa, kn, pn, bounce, stats) -> None:
+    """shade_nee's kernel (state ``ka``, record ``kn``) against its plain
+    stage (``pa``, ``pn``)."""
+    import torch
+
+    assert torch.equal(ka.rng, pa.rng), f"{tag}: PCG states differ"
+    ok = agree(f"{tag} alive", ka.alive, pa.alive, stats)
+    ok &= agree(f"{tag} hit", kn.hit.hit, pn.hit.hit, stats)
+    ok &= agree(f"{tag} front", kn.hit.front_face, pn.hit.front_face, stats)
+    ok &= agree(f"{tag} do_nee", kn.do_nee, pn.do_nee, stats)
+    if pn.shadow_t is not None:
+        ok &= agree(f"{tag} t_max < 0", kn.shadow_t < 0, pn.shadow_t < 0,
+                    stats)
+    hits = ok & pn.hit.hit
+    hold(f"{tag} point", kn.hit.point, pn.hit.point, hits, DIRECTION, stats)
+    hold(f"{tag} normal", kn.hit.normal, pn.hit.normal, hits, DIRECTION,
+         stats)
+    for name in ("throughput", "accum", "diffuse", "specular", "emission"):
+        if getattr(pa, name) is not None:
+            hold(f"{tag} {name}", getattr(ka, name), getattr(pa, name), ok,
+                 VALUE, stats)
+    if bounce == 0:
+        for name in ("first_depth", "first_object_id", "first_roughness",
+                     "first_transmission"):
+            assert torch.equal(getattr(ka, name), getattr(pa, name)), name
+        hold(f"{tag} first_normal", ka.first_normal, pa.first_normal, ok,
+             DIRECTION, stats)
+    if pn.shadow_t is None:
+        return
+    nee = ok & pn.do_nee
+    err, mag = lane_err(kn.shadow_d, pn.shadow_d)
+    diverged = nee & ~(err <= 1e-3 * mag + 1e-6)
+    share = 1.0 - float((diverged | ~ok).double().mean())
+    assert share >= SHADE_AGREE, (tag, "light samples agree on", share)
+    stats["diverged"] += int((diverged | ~ok).sum())
+    stats["lanes"] += ok.numel()
+    nee &= ~diverged
+    hold(f"{tag} L", kn.shadow_d, pn.shadow_d, nee, DIRECTION, stats)
+    hold(f"{tag} shadow origin", kn.shadow_o, pn.shadow_o, nee, DIRECTION,
+         stats)
+    for name in ("shadow_t", "pdf", "contrib", "contrib_s"):
+        if getattr(pn, name) is not None:
+            hold(f"{tag} {name}", getattr(kn, name), getattr(pn, name), nee,
+                 VALUE, stats)
+
+
+def compare_scatter(tag, ka, pa, stats) -> None:
+    """shade_scatter's kernel (state ``ka``) against its plain stage."""
+    import torch
+
+    assert torch.equal(ka.rng, pa.rng), f"{tag}: PCG states differ"
+    ok = agree(f"{tag} alive", ka.alive, pa.alive, stats)
+    for name in ("ray_spec", "prev_was_specular", "path_still_specular"):
+        ok &= agree(f"{tag} {name}", getattr(ka, name), getattr(pa, name),
+                    stats)
+    err, mag = lane_err(ka.d, pa.d)
+    diverged = ok & pa.alive & ~(err <= 1e-3 * mag + 1e-6)
+    share = 1.0 - float((diverged | ~ok).double().mean())
+    assert share >= SHADE_AGREE, (tag, "lobes agree on", share)
+    stats["diverged"] += int((diverged | ~ok).sum())
+    stats["lanes"] += ok.numel()
+    ok &= ~diverged
+    for name in ("accum", "diffuse", "specular", "emission"):
+        if getattr(pa, name) is not None:
+            hold(f"{tag} {name}", getattr(ka, name), getattr(pa, name), ok,
+                 VALUE, stats)
+    hold(f"{tag} origin", ka.o, pa.o, ok, DIRECTION, stats)
+    hold(f"{tag} direction", ka.d, pa.d, ok, DIRECTION, stats)
+    # a lane that dies keeps its old throughput in the kernel
+    hold(f"{tag} throughput", ka.throughput, pa.throughput, ok & pa.alive,
+         AT_PEAK, stats)
+
+
+def kernel_ms(fn, states, kernel):
+    """Mean device ms of ``kernel``'s launches in ``fn(state)`` over fresh
+    copies of the state, as torch.profiler records them (the kernel alone,
+    without the wrapper's host work between launches); None where the
+    profiler does not see every launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(states[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for s in states[1:]:
+            fn(s)
+        torch.cuda.synchronize()
+    ev = [e.time_range.elapsed_us() for e in prof.events()
+          if getattr(e, "device_type", None) == DeviceType.CUDA
+          and kernel in e.name]
+    if len(ev) != len(states) - 1:
+        log(f"  (the profiler saw {len(ev)} of {len(states) - 1} {kernel} "
+            f"launches: its device time is not measured)")
+        return None
+    return sum(ev) / 1e3 / len(ev)
+
+
+def clones_ms(fn, states) -> float:
+    """Mean ms of a call ``fn(state)`` over fresh copies of the state (the
+    stages update it in place), CUDA events around the whole run."""
+    import torch
+
+    fn(states[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for s in states[1:]:
+        fn(s)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (len(states) - 1)
+
+
+def shade_bytes(stage, pre, post, rec, k1=None, first=False) -> int:
+    """Bytes a K3 stage must move on these inputs, from the state before
+    (``pre``) and after (``post``) it and the NEE record: each plane read
+    once and written once on the lanes that need it.  Every lane reads its
+    alive flag and moves its PCG state; a dead lane needs nothing else but
+    its NEE flag and shadow t_max; accumulators move only where a term is
+    added, the throughput where it changes; the shadow record only on lanes
+    with NEE.  The tables (a few KB) are left out."""
+    n, split = pre.alive.numel(), pre.split
+    cnt = lambda m: int(m.sum())
+    changed = lambda a, b: (a.x != b.x) | (a.y != b.y) | (a.z != b.z)
+    # accum and the one split channel a term feeds, each read and written
+    b = cnt(changed(post.accum, pre.accum)) * 24 * (2 if split else 1)
+    nee = rec.shadow_t is not None
+    live = pre.alive
+    if stage == "shade_nee":
+        hit = live & (k1.slot >= 0)
+        b += n * 2 + (n * 16 if nee else 0)  # alive, do_nee; PCG state
+        # K1's answer, origin, direction, throughput, flags, alive
+        b += cnt(live) * (12 + 24 + 12 + 3 + 1)
+        b += cnt(hit) * (24 + 25)  # triangle edges; point, normal, front
+        b += cnt(changed(post.throughput, pre.throughput)) * 12
+        if first:
+            b += n * 28  # the G-buffer
+        if nee:  # every t_max; origin, L, pdf, contribution where NEE
+            b += n * 4 + cnt(rec.do_nee) * (40 + (12 if split else 0))
+        return b
+    after = post.alive
+    b += n * (1 + 16)  # alive, PCG state
+    # material id, normal, front, direction, throughput, alive, flags
+    b += cnt(live) * (4 + 12 + 1 + 12 + 12 + 1 + 2)
+    if nee:  # NEE flag and pdf; occlusion, L and contribution where lit
+        lit = rec.do_nee & live
+        b += cnt(lit) * 5 + cnt(lit & (rec.pdf > 0)) * (
+            1 + 12 + (24 if split else 12))
+    # hit point read; throughput, origin, direction, ray flag written
+    return b + cnt(after) * (12 + 12 + 12 + 12 + 1)
+
+
+def shade_bounces(tag, geom, closest, occluded, mats, lights, n_lights, sky,
+                  ps, bounces, rr_start, stats, times=None):
+    """Run ``bounces`` of the shading stages, kernel and plain on the same
+    inputs (the plain stage's output feeds the next bounce), comparing each.
+    ``closest(ps)`` gives K1's answer, ``occluded(record)`` the shadow
+    walk's.  With ``times`` (a dict), the stages of the last bounce are
+    timed at this width."""
+    from ptrt_tpu_torch.render import shade
+
+    for bounce in bounces:
+        k1 = closest(ps)
+        ka, pa = ps.clone(), ps.clone()
+        kn = shade.shade_nee(ka, geom, k1, mats, lights, n_lights, sky,
+                             bounce)
+        pn = shade.shade_nee_plain(pa, geom, k1, mats, lights, n_lights, sky,
+                                   bounce)
+        compare_nee(f"{tag} bounce {bounce} nee", ka, pa, kn, pn, bounce,
+                    stats["shade_nee"])
+        # the scatter kernel continues the kernels' own chain: their state
+        # and NEE record, and the shadow walk of the kernel's shadow rays
+        occl, occl_k = occluded(pn), occluded(kn)
+        agree(f"{tag} bounce {bounce} occluded", occl_k, occl,
+              stats["shade_nee"])
+        before = pa.clone()
+        shade.shade_scatter(ka, kn, occl_k, mats, bounce, True, rr_start)
+        shade.shade_scatter_plain(pa, pn, occl, mats, bounce, True, rr_start)
+        compare_scatter(f"{tag} bounce {bounce} scatter", ka, pa,
+                        stats["shade_scatter"])
+        if times is not None and bounce == bounces[-1]:
+            nee = lambda s: shade.shade_nee(s, geom, k1, mats, lights,
+                                            n_lights, sky, bounce)
+            nee_p = lambda s: shade.shade_nee_plain(s, geom, k1, mats, lights,
+                                                    n_lights, sky, bounce)
+            sca = lambda s: shade.shade_scatter(s, kn, occl_k, mats, bounce,
+                                                True, rr_start)
+            sca_p = lambda s: shade.shade_scatter_plain(s, pn, occl, mats,
+                                                        bounce, True,
+                                                        rr_start)
+
+            def fresh(state, k):  # checked once, as trace_path does
+                out = [state.clone() for _ in range(k)]
+                for s in out:
+                    shade.check_state(s, mats)
+                return out
+
+            for name, fn, fn_p, pre, moved, ops in (
+                    ("shade_nee", nee, nee_p, ps,
+                     shade_bytes("shade_nee", ps, before, pn, k1=k1,
+                                 first=bounce == 0),
+                     OPS_PER_ITEM["shade_nee"] * ps.alive.numel()),
+                    ("shade_scatter", sca, sca_p, before,
+                     shade_bytes("shade_scatter", before, pa, pn),
+                     OPS_PER_ITEM["shade_scatter"] * int(before.alive.sum()))):
+                times[name] = {
+                    "ms": clones_ms(fn, fresh(pre, 11)),
+                    "kernel_ms": kernel_ms(fn, fresh(pre, 11),
+                                           f"{name}_kernel"),
+                    "plain_ms": clones_ms(fn_p, [pre.clone()
+                                                 for _ in range(3)]),
+                    **bound(moved, ops)}
+        ps = pa
+    return ps
+
+
+def random_lanes(dev, n, seed, n_mats):
+    """``n`` lanes of random hits on per-lane triangles, with ``n_mats``
+    random materials of every lobe (sheen, iridescence, clear coat, glass,
+    metal, emission) and every light type, for the lobes the bench scene
+    lacks.  Returns (geometry, closest(ps), materials, lights, n_lights,
+    sky, state)."""
+    import types
+
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.render import shade, traverse
+    from ptrt_tpu_torch.render.sky import SkyConfig
+    from ptrt_tpu_torch.scene.lights import Light, LightTable, LightType
+    from ptrt_tpu_torch.scene.materials import Material, MaterialTable
+
+    r = np.random.default_rng(seed)
+    mats = [Material.make(
+        tuple(r.uniform(0.05, 1.0, 3)), float(r.uniform(0.0, 1.0)),
+        float(r.choice([0.0, r.uniform(0, 1)])),
+        transmission=float(r.choice([0.0, 0.0, r.uniform(0.3, 1.0)])),
+        ior=float(r.uniform(1.1, 2.4)),
+        clearcoat=float(r.choice([0.0, r.uniform(0, 1)])),
+        clearcoat_roughness=float(r.uniform(0.0, 0.4)),
+        sheen=float(r.choice([0.0, r.uniform(0, 1)])),
+        sheen_tint=tuple(r.uniform(0, 1, 3)),
+        iridescence=float(r.choice([0.0, r.uniform(0, 1)])),
+        iridescence_thickness=float(r.uniform(250, 800)),
+        emission=tuple(r.choice([0.0, 2.0]) * r.uniform(0, 1, 3)))
+        for _ in range(n_mats)]
+    lights = [Light.point((0.0, 4.0, 5.0), (1.0, 0.9, 0.8), 5.0, 20.0, 0.1),
+              Light.spot((1.0, 6.0, 6.0), (0.1, -1.0, 0.2), (0.9, 0.9, 1.0),
+                         6.0, 20.0, 0.3, 0.6, 0.2),
+              Light(LightType.DIRECTIONAL, (0.0, 0.0, 0.0),
+                    tuple(np.array([0.3, -1.0, 0.4]) / np.sqrt(1.25)),
+                    (1.0, 0.95, 0.9), 2.0),
+              Light(LightType.AREA, (-2.0, 5.0, 6.0), (0.0, -1.0, 0.0),
+                    (1.0, 1.0, 0.9), 8.0, 100.0, radius=0.55, width=1.5,
+                    height=0.8)]
+    unit = lambda: (lambda a: a / np.linalg.norm(a, axis=1, keepdims=True))(
+        r.normal(size=(n, 3)))
+    n_geo, d = unit(), unit()
+    flip = (np.sum(n_geo * d, 1) > 0) & (r.random(n) < 0.8)
+    d[flip] = -d[flip]
+    t = r.uniform(0.5, 5.0, n)
+    o = r.uniform(-4, 4, (n, 3)) + [0, 0.5, 6] - d * t[:, None]
+    e1 = unit()
+    e1 -= n_geo * np.sum(e1 * n_geo, 1, keepdims=True)
+    e1 /= np.linalg.norm(e1, axis=1, keepdims=True)
+    e2 = np.cross(n_geo, e1)
+    v3 = lambda a: Vec3(*[torch.tensor(a[:, k], dtype=torch.float32,
+                                       device=dev) for k in range(3)])
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    ps = shade.PathState.start(
+        types.SimpleNamespace(origin=v3(o), direction=v3(d),
+                              spec=torch.tensor(r.random(n) < 0.2,
+                                                device=dev)),
+        torch.tensor(r.integers(0, 2 ** 32, n), device=dev), split=True,
+        camera_nee=False)
+    ps.throughput = v3(r.uniform(0.05, 3.0, (n, 3)))
+    ps.alive = torch.tensor(r.random(n) < 0.9, device=dev)
+    ps.prev_was_specular = torch.tensor(r.random(n) < 0.5, device=dev)
+    ps.path_still_specular = torch.tensor(r.random(n) < 0.3, device=dev)
+    slot = torch.tensor(np.where(r.random(n) < 0.1, -1, np.arange(n)),
+                        dtype=torch.int32, device=dev)
+    ids = torch.tensor(r.integers(0, len(mats), n), dtype=torch.int32,
+                       device=dev)
+
+    def hits(state):
+        return traverse.Closest(
+            t=torch.where(slot >= 0, f32(t),
+                          torch.where(state.alive, 1e30, -1.0)),
+            u=torch.zeros(n, device=dev), v=torch.zeros(n, device=dev),
+            slot=slot, mesh=torch.where(slot >= 0, ids, -1))
+
+    geom = types.SimpleNamespace(e1=v3(e1), e2=v3(e2), num_tri_slots=n)
+    return (geom, hits, MaterialTable.from_materials(mats, dev),
+            LightTable.from_lights(lights, dev), len(lights),
+            SkyConfig.gradient((0.35, 0.45, 0.65), (0.05, 0.05, 0.08),
+                               device=dev), ps)
+
+
+def check_shade(full, dev, card):
+    """Phase 3b: the two K3 kernels against their plain stages on the full
+    1080p bench scene (bounces 0 and 1, split off and on) and on random
+    lanes of every lobe and light type.  Returns {kernel: stats}."""
+    import torch
+    from ptrt_tpu_torch.render import pipeline, shade, traverse
+
+    stats = {k: {"max_abs_err": 0.0, "flag_mismatches": 0, "diverged": 0,
+                 "lanes": 0} for k in ("shade_nee", "shade_scatter")}
+    times = {}
+    sc, g = full, full._geom
+    closest = lambda ps: traverse.closest_hit(
+        g, ps.o, ps.d, torch.where(ps.alive, 1e30, -1.0))
+    occluded = lambda rec: traverse.any_hit(g, rec.shadow_o, rec.shadow_d,
+                                            rec.shadow_t)
+    for split in (False, True):
+        st, ray = pipeline.camera_rays(sc.camera, sc._rng_state, 0, 0,
+                                       sc._blue_noise)
+        ps = shade.PathState.start(ray, st, split)
+        shade_bounces(f"bench split={split}", g, closest, occluded,
+                      sc._mat_table, sc._light_table, len(sc.lights),
+                      sc.sky(), ps, (0, 1),
+                      sc.perf.russian_roulette_start_bounce, stats,
+                      times if split else None)
+        del ps
+        torch.cuda.empty_cache()
+    # random lanes of every lobe; the second set's material table is too
+    # large for shared memory, so the kernels read both tables from global
+    # memory
+    for tag, lanes, n_mats in (("random lanes", SHADE_RANDOM_LANES, 24),
+                               ("random lanes, tables in global memory",
+                                SHADE_RANDOM_LANES // 4, 400)):
+        geom, hits, mats, lights, n_lights, sky, ps = random_lanes(
+            dev, lanes, 7, n_mats)
+        staged = nbytes(mats.packed, lights.packed) <= SHADE_STAGED_BYTES
+        assert staged == (n_mats == 24), (tag, nbytes(mats.packed,
+                                                      lights.packed))
+        mask = lambda rec, n=lanes: torch.arange(n, device=dev) % 3 == 0
+        shade_bounces(tag, geom, hits, mask, mats, lights, n_lights, sky, ps,
+                      (0, 2), 1, stats)
+    for k, s in stats.items():
+        s.update(times[k])
+        kms = ("not measured" if s["kernel_ms"] is None
+               else f"{s['kernel_ms']:.4f} ms")
+        log(f"  {k}: PCG states bit-exact; flags differ on "
+            f"{s['flag_mismatches']} lanes, lobes diverge on {s['diverged']} "
+            f"of {s['lanes']} lane-stages; max |err| on agreeing lanes "
+            f"{s['max_abs_err']:.3g}; {W}x{H} split bounce 1: a wrapper call "
+            f"{s['ms']:.4f} ms (CUDA events), the kernel alone {kms} "
+            f"(profiler) vs plain {s['plain_ms']:.2f} ms, bound "
+            f"{s['bound_ms']:.4f} ms ({s['bound_by']}) [{card}]")
+    return stats
+
+
+def profile_frame(sc) -> dict:
+    """One frame under torch.profiler: device kernel ms, kernel launches and
+    the five kernels with the most device time (None where the profiler
+    saw no device kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sc.render_frame()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+    if not kern:
+        return {"device_ms": None, "launches": None, "top": None}
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"device_ms": sum(by_name.values()) / 1e3, "launches": len(kern),
+            "top": [(k[:60], round(v / 1e3, 3)) for k, v in top]}
 
 
 def main() -> int:
@@ -426,9 +959,21 @@ def main() -> int:
         log(f"  {'K2' if name == 'shadow' else 'K1'} full {name}: "
             f"{t.numel()} rays, {main_ms[name]:.3f} ms "
             f"({t.numel() / main_ms[name] / 1e3:.1f} Mrays/s) [{card}]")
+    # the walks' bound: rays (origin, direction, t_max) and answers (K1: t,
+    # u, v, slot, mesh; K2: a byte) at these widths, and the BVH's node and
+    # triangle rows each read once
+    rows = nbytes(g.node_rows, g.tri_rows)
+    walk_bound = lambda n, shadow: bound(n * (28 + (1 if shadow else 20))
+                                         + rows)
+    k1_bound, k2_bound = (walk_bound(SAMPLE_RAYS, False),
+                          walk_bound(SAMPLE_RAYS, True))
+    main_bound = {k: walk_bound(W * H, k == "shadow")["bound_ms"]
+                  for k in main_ms}
     log(f"  K1 bounce sample: kernel {k1_ms:.4f} ms vs plain {k1_plain_ms:.2f}"
-        f" ms on {SAMPLE_RAYS} rays; K2 shadow sample: kernel {k2_ms:.4f} ms "
-        f"vs plain {k2_plain_ms:.2f} ms [{card}]")
+        f" ms on {SAMPLE_RAYS} rays, bound {k1_bound['bound_ms']:.4f} ms; K2 "
+        f"shadow sample: kernel {k2_ms:.4f} ms vs plain {k2_plain_ms:.2f} ms,"
+        f" bound {k2_bound['bound_ms']:.4f} ms; full wavefronts' bounds "
+        f"{ {k: round(v, 4) for k, v in main_bound.items()} } ms [{card}]")
 
     hdr = Vec3(*[torch.from_numpy(rng.lognormal(-1.0, 1.5, (H, W)).astype(
         np.float32)).to(dev) for _ in range(3)])
@@ -441,11 +986,16 @@ def main() -> int:
     log(f"  K6 {H}x{W}: max |diff| {k6_err} LSB, exact on {k6_exact:.6f} of "
         f"pixels; kernel {k6_ms:.4f} ms vs plain {k6_plain_ms:.4f} ms [{card}]")
     assert k6_err <= 1, f"K6 differs from its plain version by {k6_err} LSB"
+    k6_bound = bound(nbytes(hdr, img_k), OPS_PER_ITEM["tonemap_rgb8"] * W * H)
     gather = check_row_gather(dev, full._mat_table, card, rng)
 
-    # -- 4. the bench path at full size --------------------------------------
+    # -- 3b. K3: the shading stages against their plain versions -------------
     del small_rays, full_rays, sampled, hdr
     torch.cuda.empty_cache()
+    shade_stats = check_shade(full, dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 4. the bench path at full size --------------------------------------
     torch.cuda.reset_peak_memory_stats()
     kernels.launches.clear()
     t0 = time.time()
@@ -474,8 +1024,16 @@ def main() -> int:
     assert img.shape == (H, W, 3) and img.dtype == np.uint8, img.shape
     assert img.std() > 1.0, "the image is constant"
     assert all(bool(torch.isfinite(c).all()) for c in (hdr.x, hdr.y, hdr.z))
-    for k in ("closest_hit", "any_hit", "tonemap_rgb8", "row_gather"):
+    for k in ("closest_hit", "any_hit", "tonemap_rgb8"):
         assert launches.get(k, 0) > 0, f"{k} was not launched by the main path"
+    for k in ("shade_nee", "shade_scatter"):  # once a bounce of each sample
+        assert launches.get(k, 0) == 4 * SPP * DEPTH, (k, launches)
+    assert launches.get("row_gather", 0) == 0, "the main path gathers planes"
+    prof = profile_frame(full)
+    log(f"[main] one profiled frame: device kernel time {prof['device_ms']} "
+        f"ms in {prof['launches']} kernel launches (busy share "
+        f"{None if prof['device_ms'] is None else round(prof['device_ms'] / frame_ms, 3)}"
+        f" of the unprofiled frame); top kernels (ms) {prof['top']} [{card}]")
     for r in rays:
         assert abs(r - BENCH_RAYS_PER_FRAME) <= 0.1 * BENCH_RAYS_PER_FRAME, r
 
@@ -526,10 +1084,11 @@ def main() -> int:
     log(f"[balanced] launches over the {BAL_FRAMES} timed frames: "
         f"{bal_launches}")
     per_frame = {"closest_hit": BAL_DEPTH, "any_hit": BAL_DEPTH,
-                 "row_gather": BAL_DEPTH, "svgf_temporal": 2,
-                 "svgf_atrous": 7, "tonemap_rgb8": 1}
+                 "shade_nee": BAL_DEPTH, "shade_scatter": BAL_DEPTH,
+                 "svgf_temporal": 2, "svgf_atrous": 7, "tonemap_rgb8": 1}
     for k, n in per_frame.items():
         assert bal_launches.get(k, 0) == n * BAL_FRAMES, (k, bal_launches)
+    assert bal_launches.get("row_gather", 0) == 0, bal_launches
     assert bal_launches.get("bloom_blur_down", 0) >= BAL_FRAMES
     assert img.shape == (H, W, 3) and img.dtype == np.uint8, img.shape
     assert img.std() > 1.0, "the balanced image is constant"
@@ -543,17 +1102,26 @@ def main() -> int:
         f"{kept:.4f}, specular on {kept_s:.4f} of {int(surface.sum())} "
         f"surface pixels")
     assert kept > 0.5, f"SVGF history kept on only {kept:.4f} of pixels"
+    orbit(bal, BAL_FRAMES + 1)
+    bal_prof = profile_frame(bal)
+    log(f"[balanced] one profiled frame: device kernel time "
+        f"{bal_prof['device_ms']} ms in {bal_prof['launches']} kernel "
+        f"launches (busy share "
+        f"{None if bal_prof['device_ms'] is None else round(bal_prof['device_ms'] / bal_ms, 3)}"
+        f" of the unprofiled frame); top kernels (ms) {bal_prof['top']} "
+        f"[{card}]")
 
     # -- 6. the post kernels against their plain versions, 1080p buffers -----
     state0, prev_vp = bal._denoiser_state, bal.prev_view_proj
-    orbit(bal, BAL_FRAMES + 1)
+    orbit(bal, BAL_FRAMES + 2)
     bal.render_frame()
     post = check_post_kernels(bal, state0, prev_vp, card)
     del bufs, state, state0, mv
     torch.cuda.empty_cache()
 
     # -- 7. end to end on small inputs: GPU kernels vs CPU plain -------------
-    cpu_sc = bench_perf(build_bench_scene(64, 48, target_tris=2000), 2, 3)
+    cpu_sc = bench_perf(build_bench_scene(64, 48, target_tris=2000,
+                                          device="cpu"), 2, 3)
     gpu_sc = bench_perf(build_bench_scene(64, 48, target_tris=2000,
                                           device=dev), 2, 3)
     img_c, img_g = cpu_sc.render_frame(), gpu_sc.render_frame()
@@ -600,45 +1168,59 @@ def main() -> int:
     src = lambda f: os.path.join("ptrt_tpu_torch", "csrc", f)
     both = lambda k: {"launches": launches.get(k, 0) + bal_launches.get(k, 0),
                       "launches_bench": launches.get(k, 0),
-                      "launches_balanced": bal_launches.get(k, 0)}
+                      "launches_balanced": bal_launches.get(k, 0),
+                      "frames_bench": 4, "frames_balanced": BAL_FRAMES}
     table = {"kernels": [
         {"name": "closest_hit", "route": "cuda", "source": src("traverse.cu"),
          "replaces": "ptrt_tpu/render/traverse.py:1267",
          **both("closest_hit"),
          "max_abs_err": k1["max_abs_err"], "mismatches": k1["mismatches"],
          "ms": k1_ms, "plain_ms": k1_plain_ms, "rays": SAMPLE_RAYS,
+         **k1_bound, "library_ms": None,
          "main_camera_ms": main_ms["camera"],
-         "main_bounce_ms": main_ms["bounce"], "main_rays": W * H},
+         "main_bounce_ms": main_ms["bounce"], "main_rays": W * H,
+         "main_bound_ms": main_bound["bounce"]},
         {"name": "any_hit", "route": "cuda", "source": src("traverse.cu"),
          "replaces": "ptrt_tpu/render/traverse.py:1601",
          **both("any_hit"),
          "max_abs_err": k2["max_abs_err"], "mismatches": k2["mismatches"],
          "ms": k2_ms, "plain_ms": k2_plain_ms, "rays": SAMPLE_RAYS,
-         "main_shadow_ms": main_ms["shadow"], "main_rays": W * H},
+         **k2_bound, "library_ms": None,
+         "main_shadow_ms": main_ms["shadow"], "main_rays": W * H,
+         "main_bound_ms": main_bound["shadow"]},
         {"name": "tonemap_rgb8", "route": "cuda", "source": src("tonemap.cu"),
          "replaces": "ptrt_tpu/render/pipeline.py:181",
          **both("tonemap_rgb8"), "max_abs_err": k6_err,
-         "ms": k6_ms, "plain_ms": k6_plain_ms, "pixels": W * H},
+         "ms": k6_ms, "plain_ms": k6_plain_ms, **k6_bound,
+         "library_ms": None, "pixels": W * H},
         {"name": "row_gather", "route": "cuda", "source": src("gather.cu"),
          "replaces": "tools/probe_pallas_gather_r5.py:42",
          "also_replaces": ["tools/probe_pallas_gather2_r5.py:38,133,158",
                            "tools/prof_pallas_gather.py:79,107,138,166"],
          **both("row_gather"), "max_abs_err": 0.0,
          "ms": gather["ms"], "plain_ms": gather["plain_ms"],
+         "bound_ms": gather["bound_ms"], "bound_by": gather["bound_by"],
+         "library_ms": gather["library_ms"],
          "shape": "material table, 2,073,600 ids, field-major",
-         "probes": [{k: r[k] for k in ("probe", "ms", "plain_ms")}
+         "probes": [{k: r[k] for k in ("probe", "ms", "plain_ms",
+                                       "library_ms", "bound_ms")}
                     for r in gather["probes"]]},
         {"name": "svgf_temporal", "route": "cuda", "source": src("svgf.cu"),
          "replaces": "ptrt_tpu/render/denoiser.py:276",
          **both("svgf_temporal"), **post["svgf_temporal"],
-         "pixels": W * H},
+         "library_ms": None, "pixels": W * H},
         {"name": "svgf_atrous", "route": "cuda", "source": src("svgf.cu"),
          "replaces": "ptrt_tpu/render/denoiser.py:425",
-         **both("svgf_atrous"), **post["svgf_atrous"], "pixels": W * H},
+         **both("svgf_atrous"), **post["svgf_atrous"], "library_ms": None,
+         "pixels": W * H},
         {"name": "bloom_blur_down", "route": "cuda", "source": src("bloom.cu"),
          "replaces": "ptrt_tpu/render/bloom.py:30,47",
          **both("bloom_blur_down"), **post["bloom_blur_down"],
-         "pixels": W * H},
+         "library_ms": None, "pixels": W * H},
+        *[{"name": k, "route": "cuda", "source": src("shade.cu"),
+           "replaces": "ptrt_tpu/render/integrator.py:285",
+           **both(k), **shade_stats[k], "library_ms": None, "lanes": W * H}
+          for k in ("shade_nee", "shade_scatter")],
     ]}
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,8 @@ from ptrt_tpu_torch.scene.pt_scene import Scene
 
 
 def build_bench_scene(width: int, height: int,
-                      target_tris: int = 1_000_000, device="cpu") -> Scene:
+                      target_tris: int = 1_000_000, device="cuda") -> Scene:
+    """The bench scene on ``device`` (the card by default)."""
     sc = Scene(width, height, device=device)
     sc.set_sky_gradient((0.35, 0.45, 0.65), (0.05, 0.05, 0.08))
 

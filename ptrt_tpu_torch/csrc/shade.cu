@@ -1,0 +1,1075 @@
+// shade_nee and shade_scatter: the per-bounce shading of the wavefront path
+// tracer (K3), the two stages around the shadow walk.
+//
+// Replaces: the bounce body of ptrt_tpu/render/integrator.py trace_path
+// (:285-466) between the walks, which XLA compiles into the fusions of the
+// jitted trace program: the material fetch (scene/materials.py:147), the
+// bounce-0 G-buffer, sky on miss (render/sky.py sample_sky), Beer-Lambert,
+// emission, next-event estimation (render/nee.py sample_light :21 and
+// sample_direct_lighting :101), MIS (render/bsdf.py material_pdf :157,
+// mis_weight :27), material_scatter (:222), Russian roulette and the ray
+// advance.  Per bounce:  K1 closest_hit -> shade_nee -> K2 any_hit ->
+// shade_scatter.
+//
+// What bounds them on the card: memory traffic.  A lane's arithmetic is a
+// few thousand float operations at most, while each stage reads and writes
+// the lane's PathState planes (origin, direction, throughput, four
+// accumulators, flags, PCG state: up to ~140 bytes in, ~100 out) and the
+// records between the stages (hit: ~30 bytes; NEE: ~50 bytes).  The plain
+// torch version runs the same work as ~2,700 elementwise launches a bounce,
+// each a round trip of whole planes through device memory, and its material
+// fetch alone writes 32 planes (265 MB at 1080p) that the shading reads back.
+//
+// What this design does about it: one thread per lane, every intermediate
+// in registers.  The material table (M x 32 floats) and the light table are
+// staged in shared memory when they fit (read through __ldg when not), so
+// the material fetch is a shared-memory row read folded into each stage.
+// The hit record (point, face-forwarded normal, front flag) is rebuilt here
+// from K1's triangle slot, so no torch op runs between the kernels.  Planes
+// are updated in place.  Dead lanes (and lanes without NEE) skip the
+// shading whose result the plain version masks away, but still draw their
+// PCG numbers, so the streams stay bit-exact on every lane.
+//
+// Float order: this file builds with -fmad=false and follows the plain torch
+// version operation by operation, including how torch on the card rounds
+// scalars: `x / c` for a Python scalar c multiplies by the float reciprocal
+// of float(c); `c / x` is (1 / x) * c; `vec.sdiv` divides.  Python-side
+// constants are rounded from double, as torch does (F below).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define F(x) static_cast<float>(x)
+
+struct ShadeArgs {
+    long long n;
+    // tables
+    const float* mat;          // (n_mats, mat_width) material rows
+    const float* lights;       // (n_light_rows, light_width) light rows
+    const float* sky;          // top xyz, bottom xyz, use_sky
+    const float* e1[3];        // triangle edges by slot (hit normal)
+    const float* e2[3];
+    int n_mats, mat_width, n_light_rows, light_width;
+    int n_lights;              // lights to pick from; 0: no NEE
+    float pdf_pick;            // float(1.0 / n_lights)
+    // K1's answer
+    const float* hit_t;
+    const int* hit_slot;
+    const int* hit_mesh;
+    // PathState, updated in place
+    float* o[3];
+    float* d[3];
+    float* thr[3];
+    float* acc[3];
+    float* acc_d[3];           // split channels (null unless split)
+    float* acc_s[3];
+    float* acc_e[3];
+    uint8_t* alive;
+    uint8_t* ray_spec;
+    uint8_t* prev_spec;
+    uint8_t* path_spec;
+    long long* rng;            // PCG state, values in [0, 2^32)
+    float* first_normal[3];
+    float* first_depth;
+    int* first_obj;
+    float* first_rough;
+    float* first_trans;
+    // hit record: written by shade_nee, read by shade_scatter
+    uint8_t* hit;
+    float* point[3];
+    float* normal[3];
+    uint8_t* front;
+    // NEE record: written by shade_nee, read by shade_scatter
+    uint8_t* do_nee;
+    float* shadow_o[3];
+    float* l[3];
+    float* shadow_t;
+    float* pdf_nee;
+    float* nee_c[3];           // unshadowed, clamped (the diffuse half if split)
+    float* nee_s[3];           // the specular half (split only)
+    const uint8_t* in_shadow;  // K2's answer (shade_scatter)
+    int split, bounce, rr_enabled, rr_start;
+};
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kMaxStagedBytes = 48 * 1024;
+constexpr float kPi = F(3.141592653589793);
+constexpr float kTwoPi = F(2.0 * 3.141592653589793);
+constexpr float kInvPi = F(1.0 / 3.141592653589793);  // (1.0 / PI)
+constexpr float kMinRough = F(0.02);
+constexpr float kMaxBounceWeight = 50.0f;
+constexpr float kMaxNee = 500.0f;
+constexpr float kRrMin = F(0.05), kRrMax = F(0.95);
+// light types (scene/lights.py)
+constexpr int kDirectional = 1, kSpot = 2, kArea = 3;
+
+struct V3 {
+    float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float s) { return V3{s, s, s}; }
+__device__ __forceinline__ V3 add(V3 a, V3 b) {
+    return V3{a.x + b.x, a.y + b.y, a.z + b.z};
+}
+__device__ __forceinline__ V3 sub(V3 a, V3 b) {
+    return V3{a.x - b.x, a.y - b.y, a.z - b.z};
+}
+__device__ __forceinline__ V3 mul(V3 a, V3 b) {
+    return V3{a.x * b.x, a.y * b.y, a.z * b.z};
+}
+__device__ __forceinline__ V3 mul(V3 a, float s) {
+    return V3{a.x * s, a.y * s, a.z * s};
+}
+__device__ __forceinline__ V3 div(V3 a, float s) {
+    return V3{a.x / s, a.y / s, a.z / s};
+}
+__device__ __forceinline__ V3 neg(V3 a) { return V3{-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V3 sel(bool c, V3 a, V3 b) { return c ? a : b; }
+__device__ __forceinline__ float dot(V3 a, V3 b) {
+    return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+    return V3{a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+              a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ V3 ld3(const float* const p[3], long long i) {
+    return V3{p[0][i], p[1][i], p[2][i]};
+}
+__device__ __forceinline__ void st3(float* const p[3], long long i, V3 v) {
+    p[0][i] = v.x;
+    p[1][i] = v.y;
+    p[2][i] = v.z;
+}
+
+// torch's clamp_min / clamp_max / clamp / maximum: NaN propagates
+__device__ __forceinline__ float cmax(float x, float s) {
+    return isnan(x) ? x : fmaxf(x, s);
+}
+__device__ __forceinline__ float cmin(float x, float s) {
+    return isnan(x) ? x : fminf(x, s);
+}
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+    return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ float clamp01(float x) {
+    return clampf(x, 0.0f, 1.0f);
+}
+__device__ __forceinline__ float tmaximum(float a, float b) {
+    return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float max_component(V3 v) {
+    return tmaximum(v.x, tmaximum(v.y, v.z));
+}
+__device__ __forceinline__ V3 normalize(V3 a, float eps) {
+    return mul(a, rsqrtf(dot(a, a) + eps));
+}
+__device__ __forceinline__ V3 reflect(V3 i, V3 n) {
+    return sub(i, mul(n, 2.0f * dot(i, n)));
+}
+__device__ __forceinline__ V3 lerp(V3 a, V3 b, float t) {
+    return add(a, mul(sub(b, a), t));
+}
+__device__ __forceinline__ float luminance(V3 c) {
+    return F(0.2126) * c.x + F(0.7152) * c.y + F(0.0722) * c.z;
+}
+// vec.clamp_vector_soft
+__device__ __forceinline__ V3 clamp_soft(V3 v, float max_lum) {
+    const float lum = luminance(v);
+    const float scale =
+        (lum > max_lum && lum > 0.0f) ? max_lum / cmax(lum, F(1e-30)) : 1.0f;
+    return mul(v, scale);
+}
+
+// -- PCG (core/rng.py) --------------------------------------------------------
+
+__device__ __forceinline__ float uniform(uint32_t& s) {
+    s = s * 747796405u + 2891336453u;
+    uint32_t word = ((s >> ((s >> 28) + 4)) ^ s) * 277803737u;
+    word = (word >> 22) ^ word;
+    return static_cast<float>(word) * F(2.3283064365386963e-10);
+}
+__device__ __forceinline__ void skip(uint32_t& s, int k) {
+    for (int j = 0; j < k; ++j) uniform(s);
+}
+
+__device__ __forceinline__ void ortho_normal_basis(V3 n, V3& t, V3& bt) {
+    const float len2 = dot(n, n);
+    const V3 nn = mul(n, rsqrtf(cmax(len2, F(1e-30))));
+    const float s = nn.z >= 0.0f ? 1.0f : -1.0f;
+    const float a = -(1.0f / (s + nn.z));
+    const float b = nn.x * nn.y * a;
+    t = V3{1.0f + s * nn.x * nn.x * a, s * b, -s * nn.x};
+    bt = cross(nn, t);
+    if (len2 < F(1e-20)) {
+        t = V3{1.0f, 0.0f, 0.0f};
+        bt = V3{0.0f, 1.0f, 0.0f};
+    }
+}
+__device__ __forceinline__ V3 to_world(V3 t, V3 b, V3 n, V3 s) {
+    return add(add(mul(t, s.x), mul(b, s.y)), mul(n, s.z));
+}
+__device__ __forceinline__ V3 hemisphere_to_world(V3 s, V3 n) {
+    V3 t, b;
+    ortho_normal_basis(n, t, b);
+    return to_world(t, b, n, s);
+}
+__device__ __forceinline__ V3 cone_direction_from(float u1, float u2, V3 dir,
+                                                  float cos_max) {
+    const float ct = 1.0f - u1 * (1.0f - cos_max);
+    const float st = sqrtf(cmax(1.0f - ct * ct, 0.0f));
+    const float phi = u2 * kTwoPi;
+    return hemisphere_to_world(V3{st * cosf(phi), st * sinf(phi), ct}, dir);
+}
+__device__ __forceinline__ V3 cosine_hemisphere_from(float u1, float u2) {
+    const float r = sqrtf(u1);
+    const float phi = u2 * kTwoPi;
+    return V3{r * cosf(phi), r * sinf(phi), sqrtf(cmax(1.0f - u1, 0.0f))};
+}
+__device__ __forceinline__ V3 ggx_half_vector_from(float u1, float u2, V3 n,
+                                                   float rough) {
+    const float a = rough * rough;
+    const float a2 = a * a;
+    const float u2c = cmin(u2, F(0.9999999));
+    const float phi = u1 * kTwoPi;
+    const float ct = sqrtf((1.0f - u2c) / ((a2 - 1.0f) * u2c + 1.0f));
+    const float st = sqrtf(cmax(1.0f - ct * ct, 0.0f));
+    return hemisphere_to_world(V3{st * cosf(phi), st * sinf(phi), ct}, n);
+}
+
+// -- tables -------------------------------------------------------------------
+
+struct Mat {
+    V3 albedo, specular, emission, sheen_tint;
+    float metallic, roughness, ior, transmission, transmission_roughness;
+    float clearcoat, clearcoat_roughness, sheen, iridescence,
+        iridescence_thickness;
+};
+
+// scene/materials.py packed row: albedo 0-2, specular 3-5, emission 6-8,
+// subsurface_color 9-11, sheen_tint 12-14, then the scalars from 15
+__device__ __forceinline__ Mat load_mat(const float* r) {
+    Mat m;
+    m.albedo = V3{r[0], r[1], r[2]};
+    m.specular = V3{r[3], r[4], r[5]};
+    m.emission = V3{r[6], r[7], r[8]};
+    m.sheen_tint = V3{r[12], r[13], r[14]};
+    m.metallic = r[15];
+    m.roughness = r[16];
+    m.ior = r[17];
+    m.transmission = r[18];
+    m.transmission_roughness = r[19];
+    m.clearcoat = r[20];
+    m.clearcoat_roughness = r[21];
+    m.sheen = r[24];
+    m.iridescence = r[25];
+    m.iridescence_thickness = r[26];
+    return m;
+}
+
+// stage the material and light tables in shared memory when they fit;
+// returns whether they were staged
+__device__ bool stage_tables(const ShadeArgs& a, float* smem,
+                             const float*& mat, const float*& lights) {
+    const int n_mat = a.n_mats * a.mat_width;
+    const int n_light = a.lights ? a.n_light_rows * a.light_width : 0;
+    mat = a.mat;
+    lights = a.lights;
+    if ((n_mat + n_light) * 4 > kMaxStagedBytes) return false;
+    for (int k = threadIdx.x; k < n_mat; k += blockDim.x)
+        smem[k] = __ldg(a.mat + k);
+    for (int k = threadIdx.x; k < n_light; k += blockDim.x)
+        smem[n_mat + k] = __ldg(a.lights + k);
+    __syncthreads();
+    mat = smem;
+    lights = smem + n_mat;
+    return true;
+}
+__device__ __forceinline__ float tload(const float* p, bool staged) {
+    return staged ? *p : __ldg(p);
+}
+__device__ Mat fetch_mat(const ShadeArgs& a, const float* table, bool staged,
+                         int id) {
+    id = min(max(id, 0), a.n_mats - 1);
+    const float* r = table + static_cast<long long>(id) * a.mat_width;
+    if (staged) return load_mat(r);
+    float row[27];
+#pragma unroll
+    for (int k = 0; k < 27; ++k) row[k] = __ldg(r + k);
+    return load_mat(row);
+}
+
+// -- render/pbr.py ------------------------------------------------------------
+
+__device__ __forceinline__ float pow5(float f) { return (f * f) * (f * f) * f; }
+__device__ __forceinline__ V3 fresnel_schlick(float cos_theta, V3 f0) {
+    const float f5 = pow5(1.0f - clamp01(cos_theta));
+    return add(f0, mul(sub(v3(1.0f), f0), f5));
+}
+// fresnel_schlick(c, Vec3.full(0.04)): Python computes 1.0 - 0.04 in double
+__device__ __forceinline__ float fresnel_coat(float cos_theta) {
+    const float f5 = pow5(1.0f - clamp01(cos_theta));
+    return f5 * F(1.0 - 0.04) + F(0.04);
+}
+__device__ __forceinline__ float distribution_ggx(V3 n, V3 h, float rough) {
+    const float a = rough * rough;
+    const float a2 = a * a;
+    const float ndoth = cmax(dot(n, h), 0.0f);
+    float denom = ndoth * ndoth * (a2 - 1.0f) + 1.0f;
+    denom = denom * kPi * denom;
+    return a2 / cmax(denom, F(1e-6));
+}
+__device__ __forceinline__ float schlick_ggx(float ndotv, float rough) {
+    const float r = rough + 1.0f;
+    const float k = (r * r) * F(0.125);
+    return ndotv / (ndotv * (1.0f - k) + k + F(1e-6));
+}
+__device__ __forceinline__ float geometry_smith(V3 n, V3 v, V3 l,
+                                               float rough) {
+    const float ndotv = cmax(dot(n, v), 0.0f);
+    const float ndotl = cmax(dot(n, l), 0.0f);
+    return schlick_ggx(ndotl, rough) * schlick_ggx(ndotv, rough);
+}
+__device__ __forceinline__ float geometry_smith_transmission(V3 n, V3 v, V3 l,
+                                                            float rough) {
+    const float ndotv = cmax(dot(n, v), 0.0f);
+    const float ndotl = fabsf(dot(n, l));
+    return schlick_ggx(ndotl, rough) * schlick_ggx(ndotv, rough);
+}
+__device__ __forceinline__ float schlick_dielectric(float cos_theta,
+                                                   float ior_i, float ior_t) {
+    const float c = clamp01(cos_theta);
+    float r0 = (ior_i - ior_t) / (ior_i + ior_t);
+    r0 = r0 * r0;
+    return r0 + (1.0f - r0) * pow5(1.0f - c);
+}
+
+// calculate_iridescence(thickness, cos_theta, 1.3, ior)
+__device__ V3 iridescence(float thickness, float cos_theta, float base_ior) {
+    constexpr double film = 1.3;
+    constexpr double r_af_d = ((1.0 - film) / (1.0 + film)) *
+                              ((1.0 - film) / (1.0 + film));
+    const float r_af = F(r_af_d);
+    const float c = clamp01(cos_theta);
+    const float sin_theta = sqrtf(cmax(1.0f - c * c, 0.0f));
+    const float sin_film = sin_theta * (1.0f / F(film));
+    const bool tir = sin_film * sin_film > 1.0f;
+    const float cos_film = sqrtf(cmax(1.0f - sin_film * sin_film, 0.0f));
+    const float opd = thickness * F(2.0 * film) * cos_film;
+    float r_fb = (F(film) - base_ior) / (base_ior + F(film));
+    r_fb = r_fb * r_fb;
+    const float sqrt_r1r2 = sqrtf(r_fb * r_af);
+    float r_max = sqrtf(r_af) + sqrtf(r_fb);
+    r_max = r_max * r_max;
+    const float inv_r_max = 1.0f / (r_max + F(1e-6));
+    float out[3];
+    const float wl[3] = {650.0f, 550.0f, 450.0f};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        const float delta = opd * kTwoPi * (1.0f / wl[k]);
+        const float r_total = (r_fb + r_af) + sqrt_r1r2 * 2.0f * cosf(delta);
+        out[k] = tir ? 1.0f : clamp01(r_total * inv_r_max);
+    }
+    return V3{out[0], out[1], out[2]};
+}
+
+// -- render/bsdf.py -----------------------------------------------------------
+
+__device__ __forceinline__ float mis_weight(float pdf1, float pdf2) {
+    const float p1 = pdf1 * pdf1;
+    const float p2 = pdf2 * pdf2;
+    return p1 / (p1 + p2 + F(1e-10));
+}
+
+__device__ V3 f0_base(const Mat& m, float ndotv) {
+    const float metal = clamp01(m.metallic);
+    const V3 f0 = lerp(m.specular, m.albedo, metal);
+    const float irid = clamp01(m.iridescence);
+    if (!(irid > 0.0f)) return f0;
+    return lerp(f0, iridescence(m.iridescence_thickness, ndotv, m.ior), irid);
+}
+
+__device__ __forceinline__ bool is_transmissive(const Mat& m) {
+    return clamp01(m.transmission) > 0.0f && clamp01(m.metallic) < F(0.1);
+}
+
+// evaluate_bsdf (full) for a transmissive lane; returns f * |NdotL|
+__device__ V3 bsdf_transmissive(V3 n, bool front, const Mat& m, V3 l, V3 v,
+                                float ndotv, V3 f0b, V3 f_r, float d_r,
+                                float g_r) {
+    const float metal = clamp01(m.metallic);
+    const float rough = cmax(m.roughness, kMinRough);
+    const float ndotl_s = dot(n, l);
+    if (ndotv <= 0.0f) return v3(0.0f);
+    if (ndotl_s > 0.0f) {
+        const V3 spec_refl = mul(
+            f_r, d_r * g_r / (ndotv * 4.0f * cmax(ndotl_s, 0.0f) + F(1e-6)));
+        return mul(spec_refl, cmax(ndotl_s, 0.0f));
+    }
+    const float trans_rough = tmaximum(m.transmission_roughness, rough);
+    const float eta = front ? 1.0f / m.ior : m.ior;
+    V3 h_t = normalize(neg(add(mul(v, eta), l)), F(1e-20));
+    h_t = sel(dot(n, h_t) < 0.0f, neg(h_t), h_t);
+    const float vdoth_t = cmax(dot(v, h_t), 0.0f);
+    const float ldoth_t = fabsf(dot(l, h_t));
+    const float ndotl_abs = fabsf(ndotl_s);
+    const float k = 1.0f - eta * eta * (1.0f - vdoth_t * vdoth_t);
+    const float d_t = distribution_ggx(n, h_t, trans_rough);
+    const float g_t = geometry_smith_transmission(n, v, l, trans_rough);
+    const V3 f_t = sub(v3(1.0f), fresnel_schlick(vdoth_t, f0b));
+    const float numer =
+        eta * eta * (1.0f - metal) * g_t * d_t * vdoth_t * ldoth_t;
+    const float sq = eta * vdoth_t + ldoth_t;
+    const float denom = ndotv * ndotl_abs * (sq * sq);
+    const V3 btdf = mul(mul(m.albedo, f_t), numer / (denom + F(1e-6)));
+    return k >= 0.0f ? mul(btdf, ndotl_abs) : v3(0.0f);
+}
+
+// evaluate_bsdf, or evaluate_bsdf_split's (diffuse, specular) when split;
+// `diff` is zero unless split
+__device__ void evaluate_bsdf(V3 n, bool front, const Mat& m, V3 l, V3 v,
+                              bool split, V3& diff, V3& spec) {
+    const float ndotv = cmax(dot(n, v), 0.0f);
+    const float metal = clamp01(m.metallic);
+    const float rough = cmax(m.roughness, kMinRough);
+    const V3 f0b = f0_base(m, ndotv);
+    const float ndotl_s = dot(n, l);
+    const V3 h_r = normalize(add(l, v), F(1e-20));
+    const float d_r = distribution_ggx(n, h_r, rough);
+    const float g_r = geometry_smith(n, v, l, rough);
+    const float vdoth_r = cmax(dot(v, h_r), 0.0f);
+    const V3 f_r = fresnel_schlick(vdoth_r, f0b);
+    diff = v3(0.0f);
+    if (is_transmissive(m)) {
+        // split: all of it in the specular channel
+        spec = bsdf_transmissive(n, front, m, l, v, ndotv, f0b, f_r, d_r, g_r);
+        return;
+    }
+    const float ndotl = cmax(ndotl_s, 0.0f);
+    const bool zero = ndotv <= 0.0f || ndotl_s <= 0.0f;
+    const V3 s = mul(f_r, d_r * g_r / (ndotv * 4.0f * ndotl + F(0.001)));
+    const V3 kd = mul(sub(v3(1.0f), f_r), 1.0f - metal);
+    const V3 dif = mul(mul(kd, m.albedo), kInvPi);
+    if (zero) {
+        spec = v3(0.0f);
+    } else if (split) {
+        spec = mul(s, ndotl);
+        diff = mul(dif, ndotl);
+    } else {
+        spec = mul(add(dif, s), ndotl);
+    }
+}
+
+__device__ float pdf_ggx_reflect(V3 n, V3 v, V3 l, float rough) {
+    const float ndotv = cmax(dot(n, v), 0.0f);
+    const V3 h = normalize(add(v, l), F(1e-20));
+    const float ndoth = cmax(dot(n, h), 0.0f);
+    const float vdoth = cmax(dot(v, h), 0.0f);
+    const float d = distribution_ggx(n, h, rough);
+    const float pdf = d * ndoth / (vdoth * 4.0f + F(1e-6));
+    return ndotv == 0.0f ? 0.0f : pdf;
+}
+
+__device__ float pdf_ggx_refract(V3 n, V3 v, V3 l, float rough, float eta) {
+    const float ndotv = cmax(dot(n, v), 0.0f);
+    const float ndotl = dot(n, l);
+    V3 h = normalize(neg(add(mul(v, eta), l)), F(1e-20));
+    h = sel(dot(n, h) < 0.0f, neg(h), h);
+    const float vdoth = cmax(dot(v, h), 0.0f);
+    const float ldoth = fabsf(dot(l, h));
+    const float ndoth = cmax(dot(n, h), 0.0f);
+    const float d = distribution_ggx(n, h, rough);
+    const float sq = eta * vdoth + ldoth;
+    const float dwh_dwo = (eta * eta * ldoth) / (sq * sq + F(1e-12));
+    const float pdf = d * ndoth * fabsf(dwh_dwo);
+    return (ndotv <= 0.0f || ndotl >= 0.0f) ? 0.0f : pdf;
+}
+
+__device__ float material_pdf(V3 n, bool front, const Mat& m, V3 v, V3 l) {
+    const float ndotv = cmax(dot(n, v), 0.0f);
+    if (ndotv == 0.0f) return 0.0f;
+    const float ndotl_s = dot(n, l);
+    const float ndotl = cmax(ndotl_s, 0.0f);
+    const float metal = clamp01(m.metallic);
+    const float rough = cmax(m.roughness, kMinRough);
+
+    const float clearcoat = clamp01(m.clearcoat);
+    const float cc_rough = cmax(m.clearcoat_roughness, F(0.001));
+    const float fc = fresnel_coat(ndotv);
+    const float f_coat_avg = (fc + fc + fc) * F(1.0 / 3.0);
+    const bool has_coat = clearcoat > 0.0f;
+    const float p_coat = has_coat ? clamp01(f_coat_avg * clearcoat) : 0.0f;
+    float total = 0.0f;
+    total = total + ((has_coat && ndotl_s > 0.0f)
+                         ? p_coat * pdf_ggx_reflect(n, v, l, cc_rough)
+                         : 0.0f);
+    const float prob_base = has_coat ? 1.0f - p_coat : 1.0f;
+
+    if (is_transmissive(m)) {
+        const float trans_rough = tmaximum(m.transmission_roughness, rough);
+        const float ior_ratio = front ? 1.0f / m.ior : m.ior;
+        const float reflect_prob = schlick_dielectric(ndotv, 1.0f, ior_ratio);
+        if (ndotl_s > 0.0f) {
+            const float pdf_reflect = pdf_ggx_reflect(n, v, l, rough);
+            const V3 h = normalize(add(v, l), F(1e-20));
+            const float vdoth = cmax(dot(v, h), 0.0f);
+            const float k =
+                1.0f - ior_ratio * ior_ratio * (1.0f - vdoth * vdoth);
+            const float pdf_tir = pdf_ggx_reflect(n, v, l, trans_rough);
+            const float trans_pos =
+                prob_base * reflect_prob * pdf_reflect +
+                (k < 0.0f ? prob_base * (1.0f - reflect_prob) * pdf_tir
+                          : 0.0f);
+            return total + trans_pos;
+        }
+        const float pdf_refract =
+            pdf_ggx_refract(n, v, l, trans_rough, ior_ratio);
+        return total + prob_base * (1.0f - reflect_prob) * pdf_refract;
+    }
+    const V3 f_base = fresnel_schlick(ndotv, f0_base(m, ndotv));
+    const float specular_prob = metal > 0.0f ? 1.0f : max_component(f_base);
+    if (!(ndotl_s > 0.0f)) return total + 0.0f;
+    const float pdf_spec = pdf_ggx_reflect(n, v, l, rough);
+    const float pdf_diff = cmax(ndotl, 0.0f) * kInvPi;
+    return total + prob_base * (specular_prob * pdf_spec +
+                                (1.0f - specular_prob) * pdf_diff);
+}
+
+struct Scatter {
+    V3 direction, attenuation;
+    bool is_specular, valid;
+};
+
+__device__ Scatter material_scatter(uint32_t& s, V3 n, bool front,
+                                    const Mat& m, V3 ray_dir) {
+    const V3 v = neg(ray_dir);
+    const float ndotv = cmax(dot(n, v), 0.0f);
+    const float metal = clamp01(m.metallic);
+    const float rough = cmax(m.roughness, kMinRough);
+    const V3 f0b = f0_base(m, ndotv);
+    const V3 f_base_nv = fresnel_schlick(ndotv, f0b);
+
+    const float clearcoat = clamp01(m.clearcoat);
+    const float cc_rough = cmax(m.clearcoat_roughness, F(0.001));
+    const float fc_nv = fresnel_coat(ndotv);
+    const float f_coat_avg = (fc_nv + fc_nv + fc_nv) * F(1.0 / 3.0);
+    const float p_coat =
+        clearcoat > 0.0f ? clamp01(f_coat_avg * clearcoat) : 0.0f;
+    const float prob_base = 1.0f - p_coat;
+
+    const bool is_trans = is_transmissive(m);
+    const float trans_rough = tmaximum(m.transmission_roughness, rough);
+    const float eta = front ? 1.0f / m.ior : m.ior;
+    const float ior_i = front ? 1.0f : m.ior;
+    const float ior_t = front ? m.ior : 1.0f;
+    const float reflect_prob = schlick_dielectric(ndotv, ior_i, ior_t);
+    const float p_trans_reflect = prob_base * reflect_prob;
+
+    const float specular_prob =
+        metal > 0.0f ? 1.0f : max_component(f_base_nv);
+    const float p_opq_spec = prob_base * specular_prob;
+    const float p_opq_diff = prob_base * (1.0f - specular_prob);
+
+    // lobe selection: 0 coat, 1 base reflect, 2 refract, 3 diffuse, 4 absorb
+    const float u = uniform(s);
+    const float g1 = uniform(s);
+    const float g2 = uniform(s);
+    int lobe;
+    if (u < p_coat) {
+        lobe = 0;
+    } else if (is_trans) {
+        lobe = u < p_coat + p_trans_reflect ? 1 : 2;
+    } else {
+        lobe = u < p_coat + p_opq_spec ? 1 : (p_opq_diff > F(1e-6) ? 3 : 4);
+    }
+
+    V3 scattered;
+    bool tir = false;
+    if (lobe == 3) {
+        scattered = hemisphere_to_world(cosine_hemisphere_from(g1, g2), n);
+    } else {
+        const float sample_rough =
+            lobe == 0 ? cc_rough : (lobe == 2 ? trans_rough : rough);
+        const V3 h = ggx_half_vector_from(g1, g2, n, sample_rough);
+        if (lobe == 2) {
+            const V3 h_refr = sel(dot(v, h) < 0.0f, neg(h), h);
+            const float vdoth_tir = fabsf(dot(v, h_refr));
+            const float k_tir =
+                1.0f - eta * eta * (1.0f - vdoth_tir * vdoth_tir);
+            tir = k_tir < 0.0f;
+            if (tir) {
+                scattered = reflect(neg(v), h_refr);
+            } else {
+                const float cos_t = sqrtf(cmax(k_tir, 0.0f));
+                scattered = normalize(
+                    add(mul(neg(v), eta),
+                        mul(h_refr, eta * vdoth_tir - cos_t)),
+                    F(1e-20));
+            }
+        } else {
+            scattered = reflect(neg(v), h);
+        }
+    }
+    scattered = normalize(scattered, F(1e-20));
+
+    const bool is_refraction = lobe == 2 && !tir;
+    bool is_specular = false;
+    if (lobe == 0) is_specular = cc_rough < F(0.1);
+    if (lobe == 1) is_specular = rough < F(0.1);
+    if (lobe == 2) is_specular = tir || trans_rough < F(0.1);
+
+    const float ndotl_s = dot(n, scattered);
+    const float ndotl = cmax(ndotl_s, 0.0f);
+    const float ndotl_abs = fabsf(ndotl_s);
+
+    const V3 h_refl = normalize(add(v, scattered), F(1e-20));
+    const float ndoth_refl = cmax(dot(n, h_refl), 0.0f);
+    const float vdoth_refl = cmax(dot(v, h_refl), 0.0f);
+
+    // clearcoat attenuation of the base
+    const float vdoth_for_coat =
+        is_refraction
+            ? cmax(dot(v, normalize(add(mul(v, eta), scattered), F(1e-20))),
+                   0.0f)
+            : vdoth_refl;
+    const float base_atten = 1.0f - fresnel_coat(vdoth_for_coat) * clearcoat;
+
+    // coat lobe (NdotL > 0)
+    float pdf_total = 0.0f;
+    V3 f_total = v3(0.0f);
+    const bool coat_on = p_coat > 0.0f && ndotl_s > 0.0f;
+    if (coat_on) {
+        const float d_coat = distribution_ggx(n, h_refl, cc_rough);
+        const float g_coat = geometry_smith(n, v, scattered, cc_rough);
+        const float f_coat = fresnel_coat(vdoth_refl);
+        const float pdf_coat =
+            d_coat * ndoth_refl / (vdoth_refl * 4.0f + F(1e-6));
+        pdf_total = pdf_total + p_coat * pdf_coat;
+        const float brdf_coat =
+            f_coat * (d_coat * g_coat / (ndotv * 4.0f * ndotl + F(1e-6)));
+        f_total = add(f_total, v3(brdf_coat * (clearcoat * ndotl)));
+    } else {
+        pdf_total = pdf_total + 0.0f;
+        f_total = add(f_total, v3(0.0f));
+    }
+
+    // base reflection terms, shared by both cases
+    const float d_refl_t = distribution_ggx(n, h_refl, rough);
+    const float g_refl_t = geometry_smith(n, v, scattered, rough);
+    const V3 f_refl_t = fresnel_schlick(vdoth_refl, f0b);
+    const float pdf_refl_t =
+        d_refl_t * ndoth_refl / (vdoth_refl * 4.0f + F(1e-6));
+
+    float pdf_case;
+    V3 f_case;
+    if (is_trans) {
+        const bool refl_on_t = p_trans_reflect > 0.0f && ndotl_s > 0.0f;
+        float pdf_t = refl_on_t ? p_trans_reflect * pdf_refl_t : 0.0f;
+        V3 f_t = v3(0.0f);
+        if (refl_on_t) {
+            const V3 brdf_refl_t =
+                mul(f_refl_t, d_refl_t * g_refl_t /
+                                  (ndotv * 4.0f * ndotl + F(1e-6)));
+            f_t = mul(mul(brdf_refl_t, base_atten), ndotl);
+        }
+        // refraction btdf
+        const float p_trans_refract = prob_base * (1.0f - reflect_prob);
+        V3 h_rf = normalize(neg(add(mul(v, eta), scattered)), F(1e-20));
+        h_rf = sel(dot(n, h_rf) < 0.0f, neg(h_rf), h_rf);
+        const float vdoth_rf = cmax(dot(v, h_rf), 0.0f);
+        const float ldoth_rf = fabsf(dot(scattered, h_rf));
+        const float ndoth_rf = cmax(dot(n, h_rf), 0.0f);
+        const float k_rf = 1.0f - eta * eta * (1.0f - vdoth_rf * vdoth_rf);
+        const bool refr_on =
+            p_trans_refract > 0.0f && ndotl_s < 0.0f && k_rf >= 0.0f;
+        if (refr_on) {
+            const float d_rf = distribution_ggx(n, h_rf, trans_rough);
+            const float g_rf =
+                geometry_smith_transmission(n, v, scattered, trans_rough);
+            const float sq = eta * vdoth_rf + ldoth_rf;
+            const float dwh_dwo = (eta * eta * ldoth_rf) / (sq * sq + F(1e-12));
+            const float pdf_rf = d_rf * ndoth_rf * fabsf(dwh_dwo);
+            pdf_t = pdf_t + p_trans_refract * pdf_rf;
+            const V3 f_rf_fres =
+                sub(v3(1.0f), fresnel_schlick(vdoth_rf, f0b));
+            const float numer_rf = eta * eta * (1.0f - metal) * g_rf * d_rf *
+                                   vdoth_rf * ldoth_rf;
+            const float denom_rf = ndotv * ndotl_abs * (sq * sq);
+            const V3 btdf = mul(mul(m.albedo, f_rf_fres),
+                                numer_rf / (denom_rf + F(1e-6)));
+            f_t = add(f_t, mul(mul(btdf, base_atten), ndotl_abs));
+        } else {
+            pdf_t = pdf_t + 0.0f;
+            f_t = add(f_t, v3(0.0f));
+        }
+        // TIR / refraction sampled as reflection
+        const bool tir_on = lobe == 2 && ndotl_s > 0.0f;
+        if (tir_on) {
+            const float d_tirr = distribution_ggx(n, h_refl, trans_rough);
+            const float g_tirr = geometry_smith(n, v, scattered, trans_rough);
+            const float pdf_tirr =
+                d_tirr * ndoth_refl / (vdoth_refl * 4.0f + F(1e-6));
+            pdf_t = pdf_t + p_trans_refract * pdf_tirr;
+            const float brdf_tirr =
+                d_tirr * g_tirr / (ndotv * 4.0f * ndotl + F(1e-6));
+            f_t = add(f_t, mul(v3(brdf_tirr * base_atten), ndotl));
+        } else {
+            pdf_t = pdf_t + 0.0f;
+            f_t = add(f_t, v3(0.0f));
+        }
+        pdf_case = pdf_t;
+        f_case = f_t;
+    } else {
+        float pdf_o = p_opq_spec * pdf_refl_t;
+        V3 f_o = mul(f_refl_t,
+                     d_refl_t * g_refl_t / (ndotv * 4.0f * ndotl + F(1e-6)));
+        f_o = mul(mul(f_o, base_atten), ndotl);
+        // diffuse + sheen
+        const bool diff_on = p_opq_diff > F(1e-6);
+        const float pdf_diff = ndotl * kInvPi;
+        pdf_o = pdf_o + (diff_on ? p_opq_diff * pdf_diff : 0.0f);
+        if (diff_on) {
+            const float sheen = clamp01(m.sheen);
+            const V3 kd = mul(sub(v3(1.0f), f_base_nv), 1.0f - metal);
+            // ndotl / PI: torch multiplies by the reciprocal of float(PI)
+            V3 f_diff = mul(mul(kd, m.albedo), ndotl * (1.0f / kPi));
+            const float fh = 1.0f - cmax(dot(v, h_refl), 0.0f);
+            const float fh5 = pow5(fh);
+            const V3 csheen = add(v3(1.0f), mul(sub(m.sheen_tint, v3(1.0f)),
+                                                F(0.5)));
+            f_diff = add(f_diff, mul(csheen, sheen * fh5 * ndotl));
+            f_o = add(f_o, mul(f_diff, base_atten));
+        } else {
+            f_o = add(f_o, v3(0.0f));
+        }
+        pdf_case = pdf_o;
+        f_case = f_o;
+    }
+    pdf_total = pdf_total + pdf_case;
+    f_total = add(f_total, f_case);
+
+    Scatter out;
+    out.direction = scattered;
+    out.valid = !(!is_trans && lobe == 4);
+    out.attenuation =
+        out.valid ? div(f_total, cmax(pdf_total, F(1e-6))) : v3(0.0f);
+    out.is_specular = is_specular && out.valid;
+    return out;
+}
+
+// -- render/nee.py sample_light -----------------------------------------------
+
+struct LightSample {
+    V3 l, radiance;
+    float pdf, att, dist;
+};
+
+__device__ LightSample sample_light(uint32_t& s, const ShadeArgs& a,
+                                    const float* table, bool staged,
+                                    V3 point) {
+    float r = uniform(s);
+    r = cmin(r, F(0.99999994));
+    int li = static_cast<int>(r * static_cast<float>(a.n_lights));
+    li = min(max(li, 0), a.n_light_rows - 1);
+    const float* row = table + static_cast<long long>(li) * a.light_width;
+    float w[17];
+#pragma unroll
+    for (int k = 0; k < 17; ++k) w[k] = tload(row + k, staged);
+    const int ltype = static_cast<int>(w[0]);
+    const V3 lpos{w[1], w[2], w[3]};
+    const V3 ldir{w[4], w[5], w[6]};
+    const V3 lcol{w[7], w[8], w[9]};
+    const float lint = w[10], lrange = w[11], linner = w[12], louter = w[13];
+    const float lradius = w[14], lwidth = w[15], lheight = w[16];
+    const float pdf_pick = a.pdf_pick;
+
+    LightSample out;
+    out.radiance = mul(lcol, lint);
+
+    const V3 to_light = sub(lpos, point);
+    const float dist_sq = cmax(dot(to_light, to_light), F(1e-12));
+    float dist = sqrtf(dist_sq);
+    const V3 l_point = mul(to_light, 1.0f / dist);
+
+    // soft-shadow cone sample for radius > 0
+    const float sin2 = cmin(lradius * lradius / dist_sq, F(0.9999));
+    const float cos_max = sqrtf(1.0f - sin2);
+    const float cu1 = uniform(s);
+    const float cu2 = uniform(s);
+    const bool soft = lradius > 0.0f;
+    V3 l_local = l_point;
+    float pdf_local = pdf_pick;
+    if (soft) {
+        l_local = cone_direction_from(cu1, cu2, l_point, cos_max);
+        const float solid_angle = (1.0f - cos_max) * kTwoPi;
+        pdf_local = solid_angle > F(1e-6) ? pdf_pick / solid_angle : pdf_pick;
+    }
+
+    // rect area lights: uniform point on the rect, solid-angle pdf
+    const float ua = uniform(s);
+    const float va = uniform(s);
+    if (ltype == kArea) {
+        V3 tb_u, tb_v;
+        ortho_normal_basis(ldir, tb_u, tb_v);
+        const V3 q = add(add(lpos, mul(tb_u, lwidth * (ua - F(0.5)))),
+                         mul(tb_v, lheight * (va - F(0.5))));
+        const V3 to_q = sub(q, point);
+        const float dist_q_sq = cmax(dot(to_q, to_q), F(1e-12));
+        const float dist_q = sqrtf(dist_q_sq);
+        const V3 l_area = mul(to_q, 1.0f / dist_q);
+        const float cos_emit = dot(neg(l_area), ldir);
+        const float area = cmax(lwidth * lheight, F(1e-12));
+        const float pdf_area_sa =
+            dist_q_sq * pdf_pick / (area * cmax(cos_emit, F(1e-6)));
+        l_local = l_area;
+        pdf_local = cos_emit > F(1e-6) ? pdf_area_sa : 0.0f;
+        dist = dist_q;
+    }
+
+    float att = lrange / (lrange + dist);
+    att = att * att;
+    if (ltype == kSpot) {
+        const float theta = dot(l_local, neg(ldir));
+        const float eps_cone = linner - louter;
+        const float spot_smooth = clampf(
+            (theta - louter) / (fabsf(eps_cone) < F(1e-12) ? 1.0f : eps_cone),
+            0.0f, 1.0f);
+        const float spot_hard = theta >= louter ? 1.0f : 0.0f;
+        att = att * (eps_cone <= F(1e-6) ? spot_hard : spot_smooth);
+    }
+
+    const bool is_dir = ltype == kDirectional;
+    out.l = is_dir ? neg(ldir) : l_local;
+    out.pdf = is_dir ? pdf_pick : pdf_local;
+    out.att = is_dir ? 1.0f : att;
+    out.dist = is_dir ? F(1e30) : dist;
+    return out;
+}
+
+// gradient sky (render/sky.py sample_sky)
+__device__ __forceinline__ V3 sample_sky(V3 d, const float* sky) {
+    const float t = (d.y + 1.0f) * F(0.5);
+    const V3 top{sky[0], sky[1], sky[2]};
+    const V3 bottom{sky[3], sky[4], sky[5]};
+    return mul(lerp(bottom, top, t), sky[6]);
+}
+
+// -- the two stages -----------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+shade_nee_kernel(const ShadeArgs a) {
+    extern __shared__ float smem[];
+    const float *mat_table, *light_table;
+    const bool staged = stage_tables(a, smem, mat_table, light_table);
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+    if (i >= a.n) return;
+    const bool split = a.split != 0;
+    const bool is_first = a.bounce == 0;
+
+    // hit record (traverse.hit_record)
+    const float t = a.hit_t[i];
+    const int slot = a.hit_slot[i];
+    const int mesh = a.hit_mesh[i];
+    const bool found = slot >= 0;
+    const int idx = max(slot, 0);
+    const V3 nrm = found ? cross(ld3(a.e1, idx), ld3(a.e2, idx)) : v3(0.0f);
+    V3 n = normalize(nrm, F(1e-30));
+    const V3 o = ld3(a.o, i);
+    const V3 d = ld3(a.d, i);
+    const bool front = dot(d, n) < 0.0f;
+    n = front ? n : neg(n);
+    const V3 point = add(o, mul(d, t));
+    a.hit[i] = found;
+    st3(a.point, i, point);
+    st3(a.normal, i, n);
+    a.front[i] = front;
+
+    const Mat m = fetch_mat(a, mat_table, staged, mesh);
+    if (is_first) {
+        st3(a.first_normal, i, found ? n : v3(0.0f));
+        a.first_depth[i] = found ? t : F(1e30);
+        a.first_obj[i] = found ? mesh : -1;
+        a.first_rough[i] = found ? m.roughness : 1.0f;
+        a.first_trans[i] = found ? m.transmission : 0.0f;
+    }
+
+    uint32_t s = static_cast<uint32_t>(a.rng[i]);
+    const bool alive_in = a.alive[i] != 0;
+    const bool path_spec = a.path_spec[i] != 0;
+    const bool alive = alive_in && found;
+    a.alive[i] = alive;
+    const bool do_nee = alive && a.ray_spec[i] == 0;
+    a.do_nee[i] = do_nee;
+
+    // sky on miss
+    if (alive_in && !found) {
+        const V3 sky_c = mul(sample_sky(d, a.sky), ld3(a.thr, i));
+        st3(a.acc, i, add(ld3(a.acc, i), sky_c));
+        if (split) {
+            float* const* ch = path_spec ? a.acc_s : a.acc_d;
+            st3(ch, i, add(ld3(ch, i), sky_c));
+        }
+    }
+
+    if (alive) {
+        // interior Beer-Lambert absorption, coefficient -log(albedo)
+        V3 thr = ld3(a.thr, i);
+        if (!front) {
+            const V3 c{cmax(-logf(cmax(m.albedo.x, F(1e-6))), 0.0f),
+                       cmax(-logf(cmax(m.albedo.y, F(1e-6))), 0.0f),
+                       cmax(-logf(cmax(m.albedo.z, F(1e-6))), 0.0f)};
+            const V3 absorb{expf(-c.x * t), expf(-c.y * t), expf(-c.z * t)};
+            thr = mul(thr, absorb);
+            st3(a.thr, i, thr);
+        }
+        // emission (bounce 0 or after a specular bounce)
+        const bool emissive = m.emission.x > 0.0f || m.emission.y > 0.0f ||
+                              m.emission.z > 0.0f;
+        if (emissive && (is_first || a.prev_spec[i] != 0)) {
+            const V3 ce = mul(thr, m.emission);
+            st3(a.acc, i, add(ld3(a.acc, i), ce));
+            if (split) {
+                float* const* ch =
+                    is_first ? a.acc_e : (path_spec ? a.acc_s : a.acc_d);
+                st3(ch, i, add(ld3(ch, i), ce));
+            }
+        }
+    }
+
+    if (a.n_lights > 0) {
+        if (do_nee) {
+            const LightSample ls =
+                sample_light(s, a, light_table, staged, point);
+            const V3 offset = dot(n, ls.l) > 0.0f ? mul(n, F(1e-4))
+                                                  : mul(n, F(-1e-4));
+            st3(a.shadow_o, i, add(point, offset));
+            st3(a.l, i, ls.l);
+            a.shadow_t[i] = ls.dist - F(1e-3);
+            a.pdf_nee[i] = ls.pdf;
+            const float scale = ls.att / cmax(ls.pdf, F(1e-12));
+            V3 bd, bs;
+            evaluate_bsdf(n, front, m, ls.l, neg(d), split, bd, bs);
+            if (split) {
+                st3(a.nee_c, i,
+                    clamp_soft(mul(mul(bd, ls.radiance), scale), kMaxNee));
+                st3(a.nee_s, i,
+                    clamp_soft(mul(mul(bs, ls.radiance), scale), kMaxNee));
+            } else {
+                st3(a.nee_c, i,
+                    clamp_soft(mul(mul(bs, ls.radiance), scale), kMaxNee));
+            }
+        } else {
+            // no shadow ray: a dead walk; the record is masked downstream
+            skip(s, 5);
+            st3(a.shadow_o, i, point);
+            st3(a.l, i, v3(0.0f));
+            a.shadow_t[i] = -1.0f;
+            a.pdf_nee[i] = 0.0f;
+            st3(a.nee_c, i, v3(0.0f));
+            if (split) st3(a.nee_s, i, v3(0.0f));
+        }
+    }
+    a.rng[i] = static_cast<long long>(s);
+}
+
+__global__ void __launch_bounds__(kThreads)
+shade_scatter_kernel(const ShadeArgs a) {
+    extern __shared__ float smem[];
+    const float *mat_table, *light_table;
+    const bool staged = stage_tables(a, smem, mat_table, light_table);
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+    if (i >= a.n) return;
+    const bool split = a.split != 0;
+
+    uint32_t s = static_cast<uint32_t>(a.rng[i]);
+    if (a.alive[i] == 0) {
+        // dead: only the PCG stream moves (scatter 3, roulette 1)
+        skip(s, 4);
+        a.rng[i] = static_cast<long long>(s);
+        return;
+    }
+    const Mat m = fetch_mat(a, mat_table, staged, a.hit_mesh[i]);
+    const V3 n = ld3(a.normal, i);
+    const bool front = a.front[i] != 0;
+    const V3 d = ld3(a.d, i);
+    V3 thr = ld3(a.thr, i);
+
+    // NEE with MIS
+    if (a.n_lights > 0 && a.do_nee[i] != 0) {
+        const float pdf = a.pdf_nee[i];
+        if (pdf > 0.0f) {
+            const bool lit = a.in_shadow[i] == 0;
+            const V3 l = ld3(a.l, i);
+            const float w = mis_weight(pdf, material_pdf(n, front, m, neg(d),
+                                                         l));
+            V3 nee_c = lit ? ld3(a.nee_c, i) : v3(0.0f);
+            if (split) {
+                const V3 nee_s = lit ? ld3(a.nee_s, i) : v3(0.0f);
+                st3(a.acc_d, i, add(ld3(a.acc_d, i), mul(mul(thr, nee_c), w)));
+                st3(a.acc_s, i, add(ld3(a.acc_s, i), mul(mul(thr, nee_s), w)));
+                nee_c = add(nee_c, nee_s);
+            }
+            st3(a.acc, i, add(ld3(a.acc, i), mul(mul(thr, nee_c), w)));
+        }
+    }
+
+    // scatter
+    const Scatter sc = material_scatter(s, n, front, m, d);
+    bool alive = sc.valid;
+    if (alive) {
+        a.prev_spec[i] = sc.is_specular;
+        if (!sc.is_specular) a.path_spec[i] = 0;
+    }
+
+    // Russian roulette
+    const float u_rr = uniform(s);
+    const float p = clampf(max_component(thr), kRrMin, kRrMax);
+    if (a.rr_enabled && a.bounce >= a.rr_start) {
+        alive = alive && !(u_rr > p);
+        if (alive) thr = div(thr, p);
+    }
+
+    // advance the ray
+    if (alive) {
+        st3(a.thr, i, clamp_soft(mul(thr, sc.attenuation), kMaxBounceWeight));
+        const V3 offset = dot(sc.direction, n) > 0.0f ? mul(n, F(1e-4))
+                                                      : mul(n, F(-1e-4));
+        st3(a.o, i, add(ld3(a.point, i), offset));
+        st3(a.d, i, sc.direction);
+        a.ray_spec[i] = sc.is_specular;
+    }
+    a.alive[i] = alive;
+    a.rng[i] = static_cast<long long>(s);
+}
+
+// dynamic shared memory for stage_tables: the tables when they fit, else 0
+int table_bytes(const ShadeArgs* a) {
+    const int n = a->n_mats * a->mat_width +
+                  (a->lights ? a->n_light_rows * a->light_width : 0);
+    return n * 4 <= kMaxStagedBytes ? n * 4 : 0;
+}
+
+}  // namespace
+
+extern "C" int ptrt_shade_nee(const ShadeArgs* args, void* stream) {
+    if (args->n > 0) {
+        const long long blocks = (args->n + kThreads - 1) / kThreads;
+        shade_nee_kernel<<<static_cast<unsigned>(blocks), kThreads,
+                           table_bytes(args),
+                           static_cast<cudaStream_t>(stream)>>>(*args);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ptrt_shade_scatter(const ShadeArgs* args, void* stream) {
+    if (args->n > 0) {
+        const long long blocks = (args->n + kThreads - 1) / kThreads;
+        shade_scatter_kernel<<<static_cast<unsigned>(blocks), kThreads,
+                               table_bytes(args),
+                               static_cast<cudaStream_t>(stream)>>>(*args);
+    }
+    return static_cast<int>(cudaGetLastError());
+}

@@ -24,11 +24,12 @@ import torch
 from ptrt_tpu_torch.build import BuildError, build_linked_library
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-# source -> its own nvcc flags: the post-stack kernels follow their plain
-# versions' float order, so no multiply may fuse into an add
+# source -> its own nvcc flags: the post-stack and shading kernels follow
+# their plain versions' float order, so no multiply may fuse into an add
 SOURCE_FLAGS = {
     "traverse.cu": [], "tonemap.cu": [], "gather.cu": [],
     "svgf.cu": ["-fmad=false"], "bloom.cu": ["-fmad=false"],
+    "shade.cu": ["-fmad=false"],
 }
 SOURCES = [os.path.join(CSRC, f) for f in SOURCE_FLAGS]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -82,6 +83,10 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_svgf_atrous.argtypes = [p, p]
         lib.ptrt_bloom_blur_down.restype = i
         lib.ptrt_bloom_blur_down.argtypes = [p, p, p, i, i, p, p, p, p]
+        lib.ptrt_shade_nee.restype = i
+        lib.ptrt_shade_nee.argtypes = [p, p]
+        lib.ptrt_shade_scatter.restype = i
+        lib.ptrt_shade_scatter.argtypes = [p, p]
         _lib = lib
     return _lib
 

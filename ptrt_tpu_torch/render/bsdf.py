@@ -4,7 +4,8 @@ Counterpart of ``ptrt_tpu/render/bsdf.py`` (``mis_weight``,
 ``evaluate_bsdf``, ``evaluate_bsdf_split``, ``material_pdf``,
 ``material_scatter``), branchless and
 term for term: every lobe is evaluated for every lane and masked.  Plain
-torch here; the fused shade kernel (K3) is later work.
+torch here; on the card the K3 kernels (``csrc/shade.cu``) repeat this
+arithmetic operation by operation.
 """
 
 from __future__ import annotations

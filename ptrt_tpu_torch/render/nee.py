@@ -98,6 +98,45 @@ def sample_light(state, lights: LightTable, n_lights: int, point: Vec3):
     return state, l_out, pdf_out, radiance, att_out, dist_out
 
 
+def direct_lighting_setup(state, point: Vec3, normal: Vec3, front_face, mat,
+                          ray_dir: Vec3, lights: LightTable, n_lights: int,
+                          split: bool = False, active=None):
+    """The half of ``sample_direct_lighting`` before the shadow walk.
+
+    Returns (state, L, pdf, shadow origin, shadow t_max, contribution): the
+    contribution is the clamped, unshadowed estimate (a Vec3, or a
+    (diffuse, specular) pair when ``split``); ``direct_lighting_lit`` masks
+    it with the walk's answer."""
+    v = -ray_dir
+    state, l, pdf_sample, radiance, att, dist = sample_light(
+        state, lights, n_lights, point)
+
+    offset = where(normal.dot(l) > 0.0, normal * 1e-4, normal * -1e-4)
+    shadow_o = point + offset
+    shadow_t = dist - 1e-3
+    if active is not None:
+        shadow_t = torch.where(active, shadow_t, -1.0)
+
+    scale = att / fmax(pdf_sample, 1e-12)
+    if split:
+        bd, bs = evaluate_bsdf_split(normal, front_face, mat, l, v)
+        out = (clamp_vector_soft(bd * radiance * scale, MAX_NEE_CONTRIBUTION),
+               clamp_vector_soft(bs * radiance * scale, MAX_NEE_CONTRIBUTION))
+    else:
+        bsdf = evaluate_bsdf(normal, front_face, mat, l, v)
+        out = clamp_vector_soft(bsdf * radiance * scale, MAX_NEE_CONTRIBUTION)
+    return state, l, pdf_sample, shadow_o, shadow_t, out
+
+
+def direct_lighting_lit(contribution, pdf, in_shadow):
+    """The unshadowed contribution where the light is visible and its pdf
+    positive, else zero (a Vec3 or a (diffuse, specular) pair)."""
+    lit = ~in_shadow & (pdf > 0.0)
+    if isinstance(contribution, tuple):
+        return tuple(where(lit, c, 0.0) for c in contribution)
+    return where(lit, contribution, 0.0)
+
+
 def sample_direct_lighting(state, point: Vec3, normal: Vec3, front_face, mat,
                            ray_dir: Vec3, lights: LightTable, n_lights: int,
                            any_hit_fn, split: bool = False, active=None):
@@ -109,26 +148,9 @@ def sample_direct_lighting(state, point: Vec3, normal: Vec3, front_face, mat,
     with the contribution a Vec3, or a (diffuse, specular) pair when
     ``split``.
     """
-    v = -ray_dir
-    state, l, pdf_sample, radiance, att, dist = sample_light(
-        state, lights, n_lights, point)
-
-    offset = where(normal.dot(l) > 0.0, normal * 1e-4, normal * -1e-4)
-    shadow_o = point + offset
-    shadow_t = dist - 1e-3
-    if active is not None:
-        shadow_t = torch.where(active, shadow_t, -1.0)
+    state, l, pdf_sample, shadow_o, shadow_t, out = direct_lighting_setup(
+        state, point, normal, front_face, mat, ray_dir, lights, n_lights,
+        split=split, active=active)
     in_shadow = any_hit_fn(shadow_o, l, shadow_t)
-
-    lit = ~in_shadow & (pdf_sample > 0.0)
-    scale = att / fmax(pdf_sample, 1e-12)
-
-    if split:
-        bd, bs = evaluate_bsdf_split(normal, front_face, mat, l, v)
-        out_d = clamp_vector_soft(bd * radiance * scale, MAX_NEE_CONTRIBUTION)
-        out_s = clamp_vector_soft(bs * radiance * scale, MAX_NEE_CONTRIBUTION)
-        return state, l, pdf_sample, (where(lit, out_d, 0.0),
-                                      where(lit, out_s, 0.0))
-    bsdf = evaluate_bsdf(normal, front_face, mat, l, v)
-    out = clamp_vector_soft(bsdf * radiance * scale, MAX_NEE_CONTRIBUTION)
-    return state, l, pdf_sample, where(lit, out, 0.0)
+    return state, l, pdf_sample, direct_lighting_lit(out, pdf_sample,
+                                                     in_shadow)

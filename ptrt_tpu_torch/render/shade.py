@@ -1,0 +1,487 @@
+"""Per-bounce shading (K3): the two stages of a bounce around the shadow
+walk, over a struct-of-arrays ``PathState``.
+
+A bounce is  K1 ``closest_hit`` -> ``shade_nee`` -> K2 ``any_hit`` ->
+``shade_scatter``:
+
+* ``shade_nee`` — the hit record from K1's triangle slot, the material
+  fetch, the bounce-0 G-buffer, sky on a miss (routed into the split
+  channels), the alive update, Beer–Lambert absorption, emission, and the
+  NEE light sample: the shadow rays (``t_max = -1`` where NEE is off or the
+  lane is dead), the light direction, its pdf and the clamped, unshadowed
+  contribution (its diffuse and specular halves when ``split``).
+* ``shade_scatter`` — the lit test, MIS against ``material_pdf``, the NEE
+  accumulation, ``material_scatter``, Russian roulette, the throughput soft
+  clamp and the ray advance.
+
+On CUDA tensors each wrapper launches its hand-written kernel
+(``csrc/shade.cu``); on CPU tensors it runs the plain version beside it,
+which is the reference's integrator body in plain torch.  There is no
+fallback between the two.
+
+The kernels update the ``PathState`` planes in place; the plain versions
+rebind the ``PathState`` fields to new tensors.  Either way the state holds
+the new values after the call, but a caller that kept a reference to an old
+plane sees it change on the card and not on the CPU: clone first
+(``PathState.clone``) where that matters.  Planes the plain version
+computes and masks away are left as they were by the kernels: the
+throughput of a lane that dies in the stage, and the NEE record of a lane
+without NEE (zeros, ``t_max = -1``).  Every lane still draws the same PCG
+numbers in both.
+
+The wrappers check the ``PathState`` planes once a trace: the checked
+pointers are kept on the state and used again while its fields are the same
+tensors, which on the card they stay for the whole trace.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from ptrt_tpu_torch import kernels
+from ptrt_tpu_torch.core import rng as prng
+from ptrt_tpu_torch.core.vec import Vec3, clamp_vector_soft, fmax, where
+from ptrt_tpu_torch.render import traverse
+from ptrt_tpu_torch.render.bsdf import material_pdf, material_scatter, mis_weight
+from ptrt_tpu_torch.render.nee import direct_lighting_lit, direct_lighting_setup
+from ptrt_tpu_torch.render.pbr import beer_lambert
+from ptrt_tpu_torch.render.sky import SkyConfig, sample_sky
+from ptrt_tpu_torch.scene.lights import LightTable
+from ptrt_tpu_torch.scene.materials import MaterialTable
+
+RUSSIAN_ROULETTE_MIN_PROB = 0.05
+MAX_BOUNCE_WEIGHT = 50.0
+
+
+@dataclass
+class PathState:
+    """Every lane's path, as flat (N,) planes.  ``diffuse``, ``specular``
+    and ``emission`` are the split channels (None unless split); ``rng`` is
+    the PCG state (int64 holding values in [0, 2^32)); ``first_*`` is the
+    bounce-0 G-buffer."""
+
+    o: Vec3
+    d: Vec3
+    throughput: Vec3
+    accum: Vec3
+    diffuse: Vec3 | None
+    specular: Vec3 | None
+    emission: Vec3 | None
+    alive: torch.Tensor
+    ray_spec: torch.Tensor
+    prev_was_specular: torch.Tensor
+    path_still_specular: torch.Tensor
+    rng: torch.Tensor
+    first_normal: Vec3
+    first_depth: torch.Tensor
+    first_object_id: torch.Tensor
+    first_roughness: torch.Tensor
+    first_transmission: torch.Tensor
+
+    @staticmethod
+    def start(ray, rng: torch.Tensor, split: bool,
+              camera_nee: bool = True) -> "PathState":
+        """The state before bounce 0 for the rays of a ``RayBatch`` of any
+        shape, every plane its own contiguous tensor.  ``camera_nee=True``
+        keeps the reference's fix: the camera ray's spec flag does not
+        suppress bounce-0 NEE."""
+        shape = ray.direction.x.shape
+        dev = ray.direction.x.device
+        n = ray.direction.x.numel()
+        flat = lambda c: c.expand(shape).reshape(-1).clone()
+        full = lambda v, dt=torch.float32: torch.full((n,), v, dtype=dt,
+                                                      device=dev)
+        v3 = lambda v: Vec3(full(v), full(v), full(v))
+        ray_spec = (full(False, torch.bool) if camera_nee
+                    else flat(ray.spec))
+        return PathState(
+            o=ray.origin.map(flat), d=ray.direction.map(flat),
+            throughput=v3(1.0), accum=v3(0.0),
+            diffuse=v3(0.0) if split else None,
+            specular=v3(0.0) if split else None,
+            emission=v3(0.0) if split else None,
+            alive=full(True, torch.bool), ray_spec=ray_spec,
+            prev_was_specular=full(True, torch.bool),
+            path_still_specular=full(True, torch.bool),
+            rng=flat(rng), first_normal=v3(0.0), first_depth=full(1e30),
+            first_object_id=full(-1, torch.int32), first_roughness=full(1.0),
+            first_transmission=full(0.0))
+
+    @property
+    def split(self) -> bool:
+        return self.diffuse is not None
+
+    def clone(self) -> "PathState":
+        cp = lambda v: (None if v is None else v.map(torch.clone)
+                        if isinstance(v, Vec3) else v.clone())
+        return PathState(**{f.name: cp(getattr(self, f.name))
+                            for f in dataclasses.fields(self)})
+
+
+class NeeRecord(NamedTuple):
+    """What ``shade_nee`` hands the shadow walk and ``shade_scatter``.  The
+    shadow fields are None when there is no light to sample."""
+
+    hit: traverse.Hit
+    do_nee: torch.Tensor  # bool: the lane casts a shadow ray
+    shadow_o: Vec3 | None
+    shadow_d: Vec3 | None  # the light direction L
+    shadow_t: torch.Tensor | None  # -1 where NEE is off
+    pdf: torch.Tensor | None
+    contrib: Vec3 | None  # unshadowed, clamped; the diffuse half if split
+    contrib_s: Vec3 | None  # the specular half (split only)
+
+
+# -- the plain stages ----------------------------------------------------------
+
+
+def shade_nee_plain(ps: PathState, geom, k1: traverse.Closest,
+                    materials: MaterialTable, lights: LightTable,
+                    n_lights: int, sky: SkyConfig, bounce: int) -> NeeRecord:
+    """Plain version of ``shade_nee``: the integrator's torch code from the
+    hit to the NEE light sample."""
+    split = ps.split
+    is_first = bounce == 0
+    d = ps.d
+    hit = traverse.hit_record(geom, ps.o, d, k1)
+
+    mat = materials.gather(hit.mesh_index.clamp_min(0))
+    if is_first:
+        # bounce-0 G-buffer export
+        ps.first_normal = where(hit.hit, hit.normal, 0.0)
+        ps.first_depth = torch.where(hit.hit, hit.t, 1e30)
+        ps.first_object_id = torch.where(hit.hit, hit.mesh_index, -1)
+        ps.first_roughness = torch.where(hit.hit, mat.roughness, 1.0)
+        ps.first_transmission = torch.where(hit.hit, mat.transmission, 0.0)
+
+    # sky on miss
+    miss = ps.alive & ~hit.hit
+    sky_c = sample_sky(d, sky) * ps.throughput
+    ps.accum = ps.accum + where(miss, sky_c, 0.0)
+    if split:
+        ps.specular = ps.specular + where(miss & ps.path_still_specular,
+                                          sky_c, 0.0)
+        ps.diffuse = ps.diffuse + where(miss & ~ps.path_still_specular,
+                                        sky_c, 0.0)
+    ps.alive = ps.alive & hit.hit
+
+    # interior Beer–Lambert absorption, coefficient -log(albedo)
+    t_unit = mat.albedo.map(lambda a: fmax(a, 1e-6))
+    absorb = beer_lambert(t_unit.map(lambda a: -torch.log(a)), hit.t)
+    inside = ps.alive & ~hit.front_face
+    ps.throughput = where(inside, ps.throughput * absorb, ps.throughput)
+
+    # emission (bounce 0 or after a specular bounce)
+    emissive = ((mat.emission.x > 0.0) | (mat.emission.y > 0.0)
+                | (mat.emission.z > 0.0))
+    emit_on = ps.alive & emissive & (is_first | ps.prev_was_specular)
+    contrib_e = ps.throughput * mat.emission
+    ps.accum = ps.accum + where(emit_on, contrib_e, 0.0)
+    if split and is_first:
+        ps.emission = ps.emission + where(emit_on, contrib_e, 0.0)
+    elif split:
+        ps.specular = ps.specular + where(emit_on & ps.path_still_specular,
+                                          contrib_e, 0.0)
+        ps.diffuse = ps.diffuse + where(emit_on & ~ps.path_still_specular,
+                                        contrib_e, 0.0)
+
+    # the NEE light sample and its shadow ray
+    do_nee = ps.alive & ~ps.ray_spec
+    if n_lights == 0:
+        return NeeRecord(hit, do_nee, None, None, None, None, None, None)
+    ps.rng, l, pdf, shadow_o, shadow_t, out = direct_lighting_setup(
+        ps.rng, hit.point, hit.normal, hit.front_face, mat, d, lights,
+        n_lights, split=split, active=do_nee)
+    c, c_s = out if split else (out, None)
+    return NeeRecord(hit, do_nee, shadow_o, l, shadow_t, pdf, c, c_s)
+
+
+def shade_scatter_plain(ps: PathState, nee: NeeRecord, in_shadow,
+                        materials: MaterialTable, bounce: int,
+                        rr_enabled: bool, rr_start: int) -> None:
+    """Plain version of ``shade_scatter``: the integrator's torch code from
+    the shadow walk's answer to the next ray."""
+    hit, d = nee.hit, ps.d
+    mat = materials.gather(hit.mesh_index.clamp_min(0))
+
+    # NEE with MIS
+    if nee.shadow_t is not None:
+        contrib = (nee.contrib, nee.contrib_s) if ps.split else nee.contrib
+        nee_c = direct_lighting_lit(contrib, nee.pdf, in_shadow)
+        pdf_brdf = material_pdf(hit.normal, hit.front_face, mat, -d,
+                                nee.shadow_d)
+        w = mis_weight(nee.pdf, pdf_brdf)
+        gate = nee.do_nee & (nee.pdf > 0.0)
+        if ps.split:
+            nee_d, nee_s = nee_c
+            ps.diffuse = ps.diffuse + where(gate, ps.throughput * nee_d * w,
+                                            0.0)
+            ps.specular = ps.specular + where(
+                gate, ps.throughput * nee_s * w, 0.0)
+            nee_c = nee_d + nee_s
+        ps.accum = ps.accum + where(gate, ps.throughput * nee_c * w, 0.0)
+
+    # scatter
+    ps.rng, sc = material_scatter(ps.rng, hit.normal, hit.front_face, mat, d)
+    alive = ps.alive & sc.valid
+    ps.prev_was_specular = torch.where(alive, sc.is_specular,
+                                       ps.prev_was_specular)
+    ps.path_still_specular = ps.path_still_specular & torch.where(
+        alive, sc.is_specular, True)
+
+    # Russian roulette
+    ps.rng, u_rr = prng.uniform(ps.rng)
+    throughput = ps.throughput
+    p = torch.clamp(throughput.max_component(), RUSSIAN_ROULETTE_MIN_PROB,
+                    0.95)
+    if rr_enabled and bounce >= rr_start:
+        alive = alive & ~(u_rr > p)
+        throughput = where(alive, throughput / p, throughput)
+
+    # advance the ray
+    ps.throughput = clamp_vector_soft(throughput * sc.attenuation,
+                                      MAX_BOUNCE_WEIGHT)
+    offset = where(sc.direction.dot(hit.normal) > 0.0, hit.normal * 1e-4,
+                   hit.normal * -1e-4)
+    ps.o = where(alive, hit.point + offset, ps.o)
+    ps.d = where(alive, sc.direction, d)
+    ps.ray_spec = torch.where(alive, sc.is_specular, ps.ray_spec)
+    ps.alive = alive
+
+
+# -- the kernel wrappers ---------------------------------------------------------
+
+_P3 = ctypes.c_void_p * 3
+_P = ctypes.c_void_p
+
+
+class ShadeArgs(ctypes.Structure):
+    """``struct ShadeArgs`` of ``csrc/shade.cu``."""
+
+    _fields_ = [
+        ("n", ctypes.c_longlong),
+        ("mat", _P), ("lights", _P), ("sky", _P), ("e1", _P3), ("e2", _P3),
+        ("n_mats", ctypes.c_int), ("mat_width", ctypes.c_int),
+        ("n_light_rows", ctypes.c_int), ("light_width", ctypes.c_int),
+        ("n_lights", ctypes.c_int), ("pdf_pick", ctypes.c_float),
+        ("hit_t", _P), ("hit_slot", _P), ("hit_mesh", _P),
+        ("o", _P3), ("d", _P3), ("thr", _P3), ("acc", _P3), ("acc_d", _P3),
+        ("acc_s", _P3), ("acc_e", _P3),
+        ("alive", _P), ("ray_spec", _P), ("prev_spec", _P),
+        ("path_spec", _P), ("rng", _P),
+        ("first_normal", _P3), ("first_depth", _P), ("first_obj", _P),
+        ("first_rough", _P), ("first_trans", _P),
+        ("hit", _P), ("point", _P3), ("normal", _P3), ("front", _P),
+        ("do_nee", _P), ("shadow_o", _P3), ("l", _P3), ("shadow_t", _P),
+        ("pdf_nee", _P), ("nee_c", _P3), ("nee_s", _P3), ("in_shadow", _P),
+        ("split", ctypes.c_int), ("bounce", ctypes.c_int),
+        ("rr_enabled", ctypes.c_int), ("rr_start", ctypes.c_int),
+    ]
+
+
+_F32, _BOOL, _I32 = torch.float32, torch.bool, torch.int32
+# PathState field -> (ShadeArgs field, dtype); the split channels may be None
+_STATE = (("o", "o", _F32), ("d", "d", _F32), ("throughput", "thr", _F32),
+          ("accum", "acc", _F32), ("diffuse", "acc_d", _F32),
+          ("specular", "acc_s", _F32), ("emission", "acc_e", _F32),
+          ("alive", "alive", _BOOL), ("ray_spec", "ray_spec", _BOOL),
+          ("prev_was_specular", "prev_spec", _BOOL),
+          ("path_still_specular", "path_spec", _BOOL),
+          ("rng", "rng", torch.int64), ("first_normal", "first_normal", _F32),
+          ("first_depth", "first_depth", _F32),
+          ("first_object_id", "first_obj", _I32),
+          ("first_roughness", "first_rough", _F32),
+          ("first_transmission", "first_trans", _F32))
+_OPTIONAL = ("diffuse", "specular", "emission", "contrib_s")
+
+
+def _ptrs(name: str, v, n: int, dtype, dev) -> list:
+    """Check the flat (n,) planes of a Vec3 or tensor; return their
+    pointers (three nulls for an optional Vec3 that is None)."""
+    if v is None and name in _OPTIONAL:
+        return [None] * 3
+    comps = [v.x, v.y, v.z] if isinstance(v, Vec3) else [v]
+    for k, c in enumerate(comps):
+        if (isinstance(c, torch.Tensor) and c.dtype == dtype
+                and c.dim() == 1 and c.shape[0] == n and c.device == dev
+                and c.is_contiguous()):
+            continue
+        cname = f"{name}.{'xyz'[k]}" if isinstance(v, Vec3) else name
+        kernels.check_tensor(cname, c, dtype, 1, dev)
+        raise ValueError(f"{cname}: length {c.shape[0]} != {n} lanes")
+    return [c.data_ptr() for c in comps]
+
+
+def _set(a: ShadeArgs, field: str, ptrs: list) -> None:
+    setattr(a, field, _P3(*ptrs) if len(ptrs) == 3 else ptrs[0])
+
+
+def _out(v) -> list:
+    """Pointers of an output the wrapper allocated (None: three nulls)."""
+    if v is None:
+        return [None] * 3
+    return ([c.data_ptr() for c in (v.x, v.y, v.z)] if isinstance(v, Vec3)
+            else [v.data_ptr()])
+
+
+def _check_table(name: str, t: torch.Tensor, min_width: int, dev) -> None:
+    kernels.check_tensor(name, t, _F32, 2, dev)
+    if t.shape[0] < 1 or t.shape[1] < min_width:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, need at least "
+                         f"(1, {min_width})")
+
+
+def _kept(ps: PathState, tag: str, key: tuple, build):
+    """``build()``, kept on ``ps`` under ``tag`` and rebuilt only when an
+    object of ``key`` is not the one it was built from.  On the card the
+    kernels update the planes in place, so a trace checks its planes and
+    fills their pointers once, not once a stage; the plain stages rebind
+    the planes, so on the CPU every call checks them again.  (A plane
+    resized or restrided in place is not seen.)"""
+    kept = ps.__dict__.setdefault("_kernel_args", {})
+    entry = kept.get(tag)
+    if entry is None or any(a is not b for a, b in zip(entry[0], key)):
+        entry = kept[tag] = (key, build())
+    return entry[1]
+
+
+def _checked(ps: PathState, materials: MaterialTable, inputs) -> tuple:
+    """Check every plane of ``ps``, the material table and ``inputs``
+    ((ShadeArgs field, name, value, dtype) of the stage's records) as the
+    kernels take them: the dtype, flat, one length, one device, contiguous.
+    Returns (lanes, device, a fresh ShadeArgs with their pointers)."""
+    key = (materials.packed, *(getattr(ps, name) for name, _, _ in _STATE))
+
+    def build():
+        dev = ps.alive.device
+        kernels.require_supported(dev)
+        kernels.check_tensor("alive", ps.alive, _BOOL, 1, dev)
+        n = ps.alive.shape[0]
+        if not (ps.diffuse is None) == (ps.specular is None) == (
+                ps.emission is None):
+            raise ValueError("the split channels are all set or all None")
+        _check_table("materials.packed", materials.packed, 27, dev)
+        a = ShadeArgs()
+        for name, field, dtype in _STATE:
+            _set(a, field, _ptrs(name, getattr(ps, name), n, dtype, dev))
+        a.n = n
+        a.mat = materials.packed.data_ptr()
+        a.n_mats, a.mat_width = materials.packed.shape
+        a.split = int(ps.split)
+        return n, dev, a
+
+    n, dev, kept = _kept(ps, "state", key, build)
+    a = ShadeArgs.from_buffer_copy(kept)
+    for field, name, v, dtype in inputs:
+        _set(a, field, _ptrs(name, v, n, dtype, dev))
+    return n, dev, a
+
+
+def check_state(ps: PathState, materials: MaterialTable) -> None:
+    """Check ``ps``'s planes and the material table as the kernels take
+    them and keep their pointers on ``ps`` (the wrappers do it at their
+    first call on a state, and again only when a plane is replaced)."""
+    _checked(ps, materials, [])
+
+
+def _planes(n: int, dev, dtype, rows: int) -> list:
+    """``rows`` fresh (n,) planes from one allocation."""
+    return list(torch.empty((rows, n), dtype=dtype, device=dev).unbind(0))
+
+
+def shade_nee(ps: PathState, geom, k1: traverse.Closest,
+              materials: MaterialTable, lights: LightTable, n_lights: int,
+              sky: SkyConfig, bounce: int) -> NeeRecord:
+    """The first stage of a bounce (kernel ``shade_nee``), after K1 gave
+    ``k1`` for the rays ``ps.o``, ``ps.d``.  Updates ``ps`` (in place on the
+    card) and returns the hit record and the shadow rays.  ``n_lights == 0``
+    means no NEE: no shadow rays and no PCG draws for it."""
+    n, dev, a = _checked(ps, materials, [
+        ("hit_t", "k1.t", k1.t, _F32), ("hit_slot", "k1.slot", k1.slot, _I32),
+        ("hit_mesh", "k1.mesh", k1.mesh, _I32)])
+    if n_lights > 0:
+        _check_table("lights.packed", lights.packed, 17, dev)
+    if dev.type == "cpu":
+        return shade_nee_plain(ps, geom, k1, materials, lights, n_lights,
+                               sky, bounce)
+
+    def scene_args():  # the triangle edges and the sky: once a trace
+        m = geom.num_tri_slots
+        sky_v = torch.stack([sky.top.x, sky.top.y, sky.top.z, sky.bottom.x,
+                             sky.bottom.y, sky.bottom.z, sky.use_sky]).to(
+            device=dev, dtype=_F32)
+        return (_ptrs("geom.e1", geom.e1, m, _F32, dev),
+                _ptrs("geom.e2", geom.e2, m, _F32, dev), sky_v)
+
+    e1, e2, sky_v = _kept(ps, "scene", (geom.e1, geom.e2, sky.top, sky.bottom,
+                                        sky.use_sky), scene_args)
+    _set(a, "e1", e1)
+    _set(a, "e2", e2)
+    a.sky = sky_v.data_ptr()
+    a.bounce = int(bounce)
+    found, front, do_nee = _planes(n, dev, _BOOL, 3)
+    nee = n_lights > 0
+    f = _planes(n, dev, _F32, 6 + (14 + 3 * ps.split if nee else 0))
+    v3 = lambda k: Vec3(*f[k:k + 3])
+    point, normal = v3(0), v3(3)
+    for field, v in (("hit", found), ("front", front), ("do_nee", do_nee),
+                     ("point", point), ("normal", normal)):
+        _set(a, field, _out(v))
+    shadow = [None] * 6
+    if nee:
+        a.lights = lights.packed.data_ptr()
+        a.n_light_rows, a.light_width = lights.packed.shape
+        a.n_lights = int(n_lights)
+        a.pdf_pick = 1.0 / float(n_lights)
+        shadow = [v3(6), v3(9), f[12], f[13], v3(14),
+                  v3(17) if ps.split else None]
+        for field, v in zip(("shadow_o", "l", "shadow_t", "pdf_nee", "nee_c",
+                             "nee_s"), shadow):
+            _set(a, field, _out(v))
+    rc = kernels.get_lib().ptrt_shade_nee(ctypes.addressof(a),
+                                          kernels.stream_ptr(dev))
+    kernels.launches["shade_nee"] += 1
+    kernels.check(rc, "shade_nee")
+    hit = traverse.Hit(hit=found, t=k1.t, point=point, normal=normal,
+                       front_face=front, mesh_index=k1.mesh, u=k1.u, v=k1.v)
+    return NeeRecord(hit, do_nee, *shadow)
+
+
+def shade_scatter(ps: PathState, nee: NeeRecord, in_shadow,
+                  materials: MaterialTable, bounce: int,
+                  rr_enabled: bool = True, rr_start: int = 2) -> None:
+    """The second stage of a bounce (kernel ``shade_scatter``): ``in_shadow``
+    is K2's answer for ``nee``'s shadow rays (None without NEE).  Updates
+    ``ps`` (in place on the card)."""
+    hit = nee.hit
+    inputs = [("point", "hit.point", hit.point, _F32),
+              ("normal", "hit.normal", hit.normal, _F32),
+              ("front", "hit.front_face", hit.front_face, _BOOL),
+              ("hit_mesh", "hit.mesh_index", hit.mesh_index, _I32),
+              ("do_nee", "do_nee", nee.do_nee, _BOOL)]
+    has_nee = nee.shadow_t is not None
+    if has_nee:
+        if ps.split != (nee.contrib_s is not None):
+            raise ValueError("contrib_s: the split state needs the specular "
+                             "half of the NEE record, and only it")
+        inputs += [("in_shadow", "in_shadow", in_shadow, _BOOL),
+                   ("l", "shadow_d", nee.shadow_d, _F32),
+                   ("pdf_nee", "pdf", nee.pdf, _F32),
+                   ("nee_c", "contrib", nee.contrib, _F32),
+                   ("nee_s", "contrib_s", nee.contrib_s, _F32)]
+    n, dev, a = _checked(ps, materials, inputs)
+    if dev.type == "cpu":
+        return shade_scatter_plain(ps, nee, in_shadow, materials, bounce,
+                                   rr_enabled, rr_start)
+    a.n_lights = int(has_nee)  # > 0: the NEE record is there
+    a.bounce = int(bounce)
+    a.rr_enabled, a.rr_start = int(bool(rr_enabled)), int(rr_start)
+    rc = kernels.get_lib().ptrt_shade_scatter(ctypes.addressof(a),
+                                              kernels.stream_ptr(dev))
+    kernels.launches["shade_scatter"] += 1
+    kernels.check(rc, "shade_scatter")

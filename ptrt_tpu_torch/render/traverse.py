@@ -14,7 +14,8 @@ hit normal reconstructed from the winning triangle slot in torch.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
+from typing import NamedTuple
 
 import torch
 
@@ -43,6 +44,16 @@ class Hit:
     mesh_index: torch.Tensor  # int32 object/material id, -1 on a miss
     u: torch.Tensor
     v: torch.Tensor
+
+
+class Closest(NamedTuple):
+    """K1's answer for flat rays."""
+
+    t: torch.Tensor  # float32, t_max on a miss
+    u: torch.Tensor
+    v: torch.Tensor
+    slot: torch.Tensor  # int32 triangle slot, -1 on a miss
+    mesh: torch.Tensor  # int32 mesh id, -1 on a miss
 
 
 def mt_test(v0: Vec3, e1: Vec3, e2: Vec3, o: Vec3, d: Vec3, t_min, t_max):
@@ -100,9 +111,9 @@ def _ray_args(geom: SceneGeometry, o: Vec3, d: Vec3, t_max: torch.Tensor):
 def closest_hit(geom: SceneGeometry, o: Vec3, d: Vec3, t_max: torch.Tensor):
     """Nearest hit per ray.  Rays are flat (R,) float32 SoA tensors.
 
-    Returns (t, u, v, slot, mesh): float32 t (``t_max`` on a miss), u, v,
-    int32 triangle slot into the SoA views and int32 mesh id, both -1 on a
-    miss."""
+    Returns ``Closest(t, u, v, slot, mesh)``: float32 t (``t_max`` on a
+    miss), u, v, int32 triangle slot into the SoA views and int32 mesh id,
+    both -1 on a miss."""
     n = _check_rays(geom, o, d, t_max)
     if geom.device.type == "cpu":
         return closest_hit_plain(geom, o, d, t_max)
@@ -119,7 +130,7 @@ def closest_hit(geom: SceneGeometry, o: Vec3, d: Vec3, t_max: torch.Tensor):
         kernels.stream_ptr(dev))
     kernels.launches["closest_hit"] += 1
     kernels.check(rc, "closest_hit")
-    return t, u, v, slot, mesh
+    return Closest(t, u, v, slot, mesh)
 
 
 def closest_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
@@ -154,9 +165,9 @@ def closest_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
             best_t[rs] = torch.where(found, tbest, best_t[rs])
     found = best_tri >= 0
     mesh = torch.where(found, geom.tri_mesh_id[best_tri.clamp_min(0)], -1)
-    return (best_t, torch.where(found, best_u, 0.0),
-            torch.where(found, best_v, 0.0), best_tri.to(torch.int32),
-            mesh.to(torch.int32))
+    return Closest(best_t, torch.where(found, best_u, 0.0),
+                   torch.where(found, best_v, 0.0), best_tri.to(torch.int32),
+                   mesh.to(torch.int32))
 
 
 # -- K2 ----------------------------------------------------------------------
@@ -209,22 +220,29 @@ def _flat(o: Vec3, d: Vec3, t_max):
     return shape, o.map(flat), d.map(flat), flat(t)
 
 
-def intersect_closest(geom: SceneGeometry, o: Vec3, d: Vec3,
-                      t_max=T_MAX) -> Hit:
-    """Closest hit over a wavefront of any shape (K1)."""
-    shape, of, df, tf = _flat(o, d, t_max)
-    t, u, v, slot, mesh = closest_hit(geom, of, df, tf)
+def hit_record(geom: SceneGeometry, o: Vec3, d: Vec3, k1: Closest) -> Hit:
+    """The ``Hit`` of flat rays from K1's answer: the face-forwarded
+    geometric normal of the winning triangle slot, the hit point, the
+    front-face flag."""
+    t, u, v, slot, mesh = k1
     found = slot >= 0
     idx = slot.clamp_min(0).to(torch.int64)
     take = lambda vv: vv.map(lambda c: c[idx])
     nrm = where(found, cross(take(geom.e1), take(geom.e2)), 0.0)
     n = nrm.normalized(1e-30)
-    front = df.dot(n) < 0.0
+    front = d.dot(n) < 0.0
     n = where(front, n, -n)
-    rs = lambda a: a.reshape(shape)
-    return Hit(hit=rs(found), t=rs(t), point=(of + df * t).map(rs),
-               normal=n.map(rs), front_face=rs(front), mesh_index=rs(mesh),
-               u=rs(u), v=rs(v))
+    return Hit(hit=found, t=t, point=o + d * t, normal=n, front_face=front,
+               mesh_index=mesh, u=u, v=v)
+
+
+def intersect_closest(geom: SceneGeometry, o: Vec3, d: Vec3,
+                      t_max=T_MAX) -> Hit:
+    """Closest hit over a wavefront of any shape (K1)."""
+    shape, of, df, tf = _flat(o, d, t_max)
+    h = hit_record(geom, of, df, closest_hit(geom, of, df, tf))
+    rs = lambda a: a.map(rs) if isinstance(a, Vec3) else a.reshape(shape)
+    return Hit(**{f.name: rs(getattr(h, f.name)) for f in fields(Hit)})
 
 
 def intersect_any(geom: SceneGeometry, o: Vec3, d: Vec3,

@@ -4,7 +4,7 @@ Host side: the ``Material`` record with the reference's defaults and the
 named presets the bench scene uses.  Device side: ``MaterialTable``, one
 packed (M, 32) row per material, fetched per ray by id in one row gather
 (``core/gather.row_gather``, field-major, so each field is a contiguous
-plane).
+plane) by the plain shading; the K3 kernels read the rows themselves.
 """
 
 from __future__ import annotations

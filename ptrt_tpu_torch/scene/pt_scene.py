@@ -62,10 +62,15 @@ class PerformanceSettings:
 
 
 class Scene:
-    def __init__(self, width: int, height: int, device="cpu"):
+    def __init__(self, width: int, height: int, device="cuda"):
+        """A scene rendered on ``device``: the card by default; pass
+        ``device="cpu"`` for the plain torch versions of the kernels."""
         self.width = int(width)
         self.height = int(height)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Scene: no CUDA device here; pass "
+                               "device=\"cpu\" to render on the CPU")
         self.meshes: list[Mesh] = []
         self.mesh_materials: list[Material] = []
         self.lights: list[Light] = []

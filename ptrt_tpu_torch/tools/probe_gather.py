@@ -25,6 +25,9 @@ from ptrt_tpu_torch.core.gather import row_gather, row_gather_plain
 # prof_pallas_gather.py: 8 dependent gathers, each index fed back as
 # (i + int(row sum)) % N
 CHAIN = 8
+# H100 SXM device memory rate, for a probe's bound (a gather does no
+# arithmetic, so its bytes bound it)
+HBM_BYTES_PER_S = 3.35e12
 
 
 class Probe(NamedTuple):
@@ -110,6 +113,18 @@ PROBES = [
 ]
 
 
+def moved_bytes(p: Probe, table, idx, out) -> int:
+    """Bytes a probe must move: the table and the indices read once, the
+    gathered rows written once (for the chain, each of its gathers)."""
+    nb = lambda t: t.element_size() * t.numel()
+    if p.run is chained:
+        row = table.shape[1] * table.element_size()
+        return nb(table) + CHAIN * (nb(idx) + idx.numel() * row)
+    if p.run is lane_form:
+        return nb(table) + table.shape[1] * idx.element_size() + nb(out)
+    return nb(table) + nb(idx) + nb(out)
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean device ms of ``fn()`` over ``iters`` calls after one warm-up,
     timed with CUDA events."""
@@ -126,7 +141,9 @@ def cuda_ms(fn, iters: int) -> float:
 
 def run_probes(dev, iters: int = 20) -> list[dict]:
     """Every probe on ``dev`` (a CUDA device): the kernel against its plain
-    version, bit for bit, and both times.  Raises if any disagrees."""
+    version, bit for bit, both times and the probe's bound.  Where the plain
+    version is one ``index_select`` call, its time is also the library
+    call's (``library_ms``).  Raises if any disagrees."""
     rows = []
     for p in PROBES:
         table, idx = p.make(dev)
@@ -136,13 +153,17 @@ def run_probes(dev, iters: int = 20) -> list[dict]:
         if not torch.equal(got, want):
             raise AssertionError(f"row_gather differs from index_select on "
                                  f"{p.name}")
+        plain_ms = cuda_ms(lambda: p.run(row_gather_plain, table, idx),
+                           iters)
         rows.append({
             "probe": p.name, "replaces": p.source,
             "table": list(table.shape), "dtype": str(table.dtype),
             "idx": int(idx.numel()), "exact": True,
             "ms": cuda_ms(lambda: p.run(row_gather, table, idx), iters),
-            "plain_ms": cuda_ms(lambda: p.run(row_gather_plain, table, idx),
-                                iters)})
+            "plain_ms": plain_ms,
+            "library_ms": plain_ms if p.run is _single else None,
+            "bound_ms": 1e3 * moved_bytes(p, table, idx, want)
+            / HBM_BYTES_PER_S, "bound_by": "bytes"})
     return rows
 
 
@@ -153,7 +174,8 @@ def main() -> int:
     print(torch.cuda.get_device_name(0), flush=True)
     for row in run_probes(dev):
         print(f"{row['probe']:52s} kernel {row['ms']:.4f} ms  "
-              f"index_select {row['plain_ms']:.4f} ms  exact", flush=True)
+              f"index_select {row['plain_ms']:.4f} ms  bound "
+              f"{row['bound_ms']:.4f} ms  exact", flush=True)
         print(json.dumps(row), flush=True)
     return 0
 

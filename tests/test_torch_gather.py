@@ -252,7 +252,7 @@ def test_row_gather_clamps_and_checks():
 
 def test_material_gather_matches_reference():
     ref = ref_bench_scene(16, 12, target_tris=300)
-    port = build_bench_scene(16, 12, target_tris=300)
+    port = build_bench_scene(16, 12, target_tris=300, device="cpu")
     ref._ensure_device_state()
     port._ensure_device_state()
     packed = np.array(ref._mat_table.packed)

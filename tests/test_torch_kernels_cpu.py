@@ -53,7 +53,7 @@ def test_tonemap_flips_y():
 
 @pytest.fixture(scope="module")
 def geom():
-    sc = build_bench_scene(16, 12, target_tris=300)
+    sc = build_bench_scene(16, 12, target_tris=300, device="cpu")
     sc._ensure_device_state()
     return sc._geom
 

@@ -72,7 +72,7 @@ def _rv(a):
 def _frames(w, h):
     """Three traced frames (numpy) under the orbiting cameras, plus the
     motion vectors of frames 1 and 2 against their predecessors."""
-    sc = build_bench_scene(w, h, target_tris=1500)
+    sc = build_bench_scene(w, h, target_tris=1500, device="cpu")
     sc.set_performance_preset("balanced")
     sc._ensure_device_state()
     out = []

@@ -43,7 +43,7 @@ CPU = torch.device("cpu")
 
 
 def _small(preset: str = "balanced") -> Scene:
-    sc = build_bench_scene(W, H, target_tris=500)
+    sc = build_bench_scene(W, H, target_tris=500, device="cpu")
     sc.set_performance_preset(preset)
     sc.perf.samples_per_pixel = 1
     return sc
@@ -61,7 +61,7 @@ def _orbit(sc: Scene, deg: float) -> None:
 @pytest.mark.parametrize("preset", ["ultra", "quality", "balanced",
                                     "performance", "fast"])
 def test_presets_match_reference(preset):
-    ref, sc = RefScene(40, 30), Scene(40, 30)
+    ref, sc = RefScene(40, 30), Scene(40, 30, device="cpu")
     ref.set_performance_preset(preset)
     sc.set_performance_preset(preset)
     for f in dataclasses.fields(PerformanceSettings):
@@ -72,13 +72,13 @@ def test_presets_match_reference(preset):
 def test_defaults_match_reference():
     ref = RefScene(40, 30)
     for f in dataclasses.fields(PerformanceSettings):
-        assert getattr(Scene(40, 30).perf, f.name) == getattr(ref.perf,
-                                                              f.name), f.name
+        assert getattr(Scene(40, 30, device="cpu").perf, f.name) == getattr(
+            ref.perf, f.name), f.name
 
 
 @pytest.mark.parametrize("scale", [0.1, 0.35, 0.75, 1.0, 2.0])
 def test_set_resolution_scale(scale):
-    ref, sc = RefScene(37, 23), Scene(37, 23)
+    ref, sc = RefScene(37, 23), Scene(37, 23, device="cpu")
     ref.set_resolution_scale(scale)
     sc.set_resolution_scale(scale)
     assert sc.perf.resolution_scale == ref.perf.resolution_scale

@@ -143,7 +143,7 @@ def test_radiance_statistics(traced):
 @pytest.fixture(scope="module")
 def rendered(ref_scene):
     ref_img = ref_scene.render_frame()
-    sc = _bench_perf(build_bench_scene(W, H, target_tris=TRIS))
+    sc = _bench_perf(build_bench_scene(W, H, target_tris=TRIS, device="cpu"))
     img = sc.render_frame()
     return ref_img, img, sc
 
@@ -166,7 +166,7 @@ def test_render_frame_exposes_last_frame(rendered):
 
 def test_render_frame_progressive_average():
     """Frame 2 displays the mean of frames 1 and 2; an edit restarts it."""
-    sc = _bench_perf(build_bench_scene(32, 24, target_tris=500))
+    sc = _bench_perf(build_bench_scene(32, 24, target_tris=500, device="cpu"))
     sc.perf.samples_per_pixel = 1
     sc.perf.max_bounce_depth = 2
     sc.render_frame()
@@ -189,7 +189,7 @@ def test_unported_settings_raise(setting, value):
     """Of the settings that needed unported code, only frames above 16 spp
     (the reference's chunked post program) still raise; the post stack and
     the resolution scale render."""
-    sc = _bench_perf(build_bench_scene(16, 12, target_tris=300))
+    sc = _bench_perf(build_bench_scene(16, 12, target_tris=300, device="cpu"))
     setattr(sc.perf, setting, value)
     if setting == "samples_per_pixel":
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -200,7 +200,7 @@ def _ref_frames(sc, trace, n):
 
 def test_balanced_scene_three_frames(ref_scene, ref_trace):
     ref_imgs, ref_state = _ref_frames(ref_scene, ref_trace, 3)
-    sc = _balanced(build_bench_scene(W, H, target_tris=TRIS))
+    sc = _balanced(build_bench_scene(W, H, target_tris=TRIS, device="cpu"))
     assert (sc.perf.enable_denoiser and sc.perf.enable_bloom
             and sc.perf.enable_motion_vectors)
     for k, want in enumerate(ref_imgs):

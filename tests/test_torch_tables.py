@@ -42,9 +42,9 @@ def ref_np(obj):
 
 
 def _small_scenes(ref: bool):
-    sc_cls, mat, mats = ((RefScene, RefMaterial, RefMaterials) if ref
-                         else (Scene, Material, Materials))
-    sc = sc_cls(48, 32)
+    sc = RefScene(48, 32) if ref else Scene(48, 32, device="cpu")
+    mat, mats = ((RefMaterial, RefMaterials) if ref
+                 else (Material, Materials))
     sc.add_plane_xz(-1.0, 10.0, mat.make((0.8, 0.8, 0.8), 0.7))
     sc.add_sphere(12, mats.Glass()).transform.set_position(0, -0.5, 4)
     cube = sc.add_cube(mats.Gold())
@@ -59,8 +59,9 @@ def _small_scenes(ref: bool):
 
 SCENES = {
     "primitives": _small_scenes,
-    "bench_2k": lambda ref: (ref_bench_scene if ref else build_bench_scene)(
-        64, 48, target_tris=2000),
+    "bench_2k": lambda ref: (ref_bench_scene(64, 48, target_tris=2000) if ref
+                             else build_bench_scene(64, 48, target_tris=2000,
+                                                    device="cpu")),
 }
 
 
