@@ -12,7 +12,14 @@ Phases (any failure raises, so the exit code is non-zero):
   3. every kernel of the main path against its plain torch version on the
      card, on the inputs the path gives it: K1 closest_hit and K2 any_hit on
      a full 256x144 frame of camera, bounce and shadow rays over a ~20k
-     triangle bench scene and on a 4096-ray sample of the full scene; K6
+     triangle bench scene, and on the full scene's four 1920x1080
+     wavefronts (camera, bounce 1, bounce 3 of a sample's PathState,
+     shadow): on a 4096-ray sample, at full width held at those rays to
+     the plain answers, permuted (bit for bit the unpermuted answers),
+     through the alive plane (K1, bit for bit the t_max plane's), timed,
+     and counted (nodes visited and triangles tested a ray, K1 also in
+     slot order; the counting walk held to its plain walk on 256 rays);
+     the walks' registers and occupancy; K6
      tonemap_rgb8 on a 1920x1080 HDR frame; row_gather (off the main path
      since K3) at the Pallas probes' shapes
      (ptrt_tpu_torch/tools/probe_gather.py) and at the material gather's
@@ -26,8 +33,10 @@ Phases (any failure raises, so the exit code is non-zero):
   4. the bench path: Scene.render_frame() on the bench scene at 1920x1080,
      4 spp, depth 4, ~1M triangles, post stack off — one warm-up and three
      timed frames, with the kernels' launch counts taken over exactly that
-     run (K3 once a bounce of each sample, no material-plane gather), then
-     one frame under torch.profiler (device time, launches);
+     run (K1, K2 and K3 once a bounce of each sample, no material-plane
+     gather), then one frame under torch.profiler (device time, launches,
+     and 10 launches a later bounce: no t_max select before K1, no bool
+     cast after K2);
   5. the balanced path: the same scene under the reference's default
      ("balanced") preset — 1 spp, depth 4, split trace, motion vectors,
      SVGF, bloom, tonemap — one warm-up and five timed frames with the
@@ -41,8 +50,9 @@ Phases (any failure raises, so the exit code is non-zero):
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (the walks: rays, answers and the
-BVH's rows read once).  The line before the last is the kernel table as
-JSON; the last line is {"ok": true, "device": {...}}.  Without a GPU, or outside the repository,
+BVH's rows read once, at the full 2,073,600-ray wavefront).  The line
+before the last is the kernel table as JSON; the last line is
+{"ok": true, "device": {...}}.  Without a GPU, or outside the repository,
 the script fails.
 """
 
@@ -59,6 +69,15 @@ W, H, SPP, DEPTH, TRIS = 1920, 1080, 4, 4, 1_000_000
 BENCH_RAYS_PER_FRAME = 20.59e6  # the reference's count for this config
 SAMPLE_RAYS = 4096
 K1_K2_AGREE = 0.9999
+# the counting walks against their plain walk on this many sampled rays:
+# node and triangle tallies within COUNT_RTOL (FMA contraction on the card
+# can move a grazing slab or triangle test either way)
+COUNT_SAMPLE, COUNT_RTOL = 256, 0.01
+# kernels a later bounce of the bench frame launches (K1 of bounce 1 or 2
+# to the next K1): K1, shade_nee, the NEE ray count (a cast, a sum, an add),
+# K2, shade_scatter, the next bounce's ray count (3 more); without the t_max
+# select before K1 and the bool cast after K2
+BOUNCE_LAUNCHES = 10
 # the balanced path: timed frames, orbit step about the bench camera's
 # look-at point, and its bounce depth (the preset's)
 BAL_FRAMES, ORBIT_DEG, BAL_DEPTH = 5, 0.5, 4
@@ -363,87 +382,199 @@ def check_post_kernels(sc, state0, prev_vp, card):
     return out
 
 
-def wavefronts(sc):
-    """Sample-0 camera rays of the scene, one bounce of scattered rays and
-    the NEE shadow rays from the camera hits — the three ray sets the main
-    path hands K1 and K2, as flat (R,) tensors: [(name, o, d, t_max)]."""
-    import torch
-    from ptrt_tpu_torch.core.vec import Vec3, where
-    from ptrt_tpu_torch.render import pipeline, traverse
-    from ptrt_tpu_torch.render.bsdf import material_scatter
-    from ptrt_tpu_torch.render.nee import sample_light
-
-    sc._ensure_device_state()
-    state, ray = pipeline.camera_rays(sc.camera, sc._rng_state, 0, 0,
-                                      sc._blue_noise)
-    flat = lambda v: v.map(lambda c: c.reshape(-1).contiguous())
-    o, d = flat(ray.origin), flat(ray.direction)
-    state = state.reshape(-1)
-    t_cam = torch.full_like(o.x, 1e30)
-    hit = traverse.intersect_closest(sc._geom, o, d, t_cam)
-    mat = sc._mat_table.gather(hit.mesh_index.clamp_min(0))
-    state, sc_res = material_scatter(state, hit.normal, hit.front_face, mat,
-                                     d)
-    alive = hit.hit & sc_res.valid
-    off = where(sc_res.direction.dot(hit.normal) > 0.0, hit.normal * 1e-4,
-                hit.normal * -1e-4)
-    o_b = flat(where(alive, hit.point + off, o))
-    d_b = flat(where(alive, sc_res.direction, d))
-    t_b = torch.where(alive, 1e30, -1.0).contiguous()
-    _, l, _, _, _, dist = sample_light(state, sc._light_table,
-                                       len(sc.lights), hit.point)
-    off = where(hit.normal.dot(l) > 0.0, hit.normal * 1e-4,
-                hit.normal * -1e-4)
-    o_s = flat(hit.point + off)
-    t_s = torch.where(hit.hit, dist - 1e-3, -1.0).contiguous()
-    return [("camera", o, d, t_cam), ("bounce", o_b, d_b, t_b),
-            ("shadow", o_s, flat(l), t_s)]
-
-
 def take(rays, idx):
     name, o, d, t = rays
     pick = lambda c: c[idx].contiguous()
     return name, o.map(pick), d.map(pick), pick(t)
 
 
-def check_k1(geom, rays, tag, stats):
+def walk(geom, rays):
+    """The main path's walk of a ray set: K2 for shadow rays, else K1."""
     from ptrt_tpu_torch.render import traverse
 
     name, o, d, t = rays
-    tk, _, _, slot_k, mesh_k = traverse.closest_hit(geom, o, d, t)
-    tp, _, _, slot_p, mesh_p = traverse.closest_hit_plain(geom, o, d, t)
+    if name == "shadow":
+        return (traverse.any_hit(geom, o, d, t),)
+    return tuple(traverse.closest_hit(geom, o, d, t))
+
+
+def walk_plain(geom, rays):
+    from ptrt_tpu_torch.render import traverse
+
+    name, o, d, t = rays
+    if name == "shadow":
+        return (traverse.any_hit_plain(geom, o, d, t),)
+    return tuple(traverse.closest_hit_plain(geom, o, d, t))
+
+
+def compare_walk(tag, got, want, stats):
+    """Hold a walk's answer to another's (the plain version's): K1's hit
+    flag and mesh id, and K2's flag, equal on K1_K2_AGREE of the rays, K1's
+    t within rtol 1e-4 where both hit."""
+    if len(want) == 1:
+        mism = int((got[0] != want[0]).sum())
+        frac = 1.0 - mism / want[0].numel()
+        log(f"  K2 {tag}: {want[0].numel()} rays, occluded "
+            f"{float(got[0].float().mean()):.4f}, mismatches {mism} "
+            f"(agree {frac:.6f})")
+        assert frac >= K1_K2_AGREE, f"K2 {tag}: agreement {frac}"
+        stats["mismatches"] += mism
+        stats["max_abs_err"] = max(stats["max_abs_err"], float(mism > 0))
+        return
+    tk, _, _, slot_k, mesh_k = got
+    tp, _, _, slot_p, mesh_p = want
     hit_k, hit_p = slot_k >= 0, slot_p >= 0
     agree = (hit_k == hit_p) & (mesh_k == mesh_p)
     both = agree & hit_k
     t_err = (tk - tp).abs()[both]
     t_ok = bool(((tk - tp).abs() <= 1e-4 * tp.abs())[both].all())
-    n = t.numel()
+    n = tp.numel()
     mism = int((~agree).sum())
     frac = 1.0 - mism / n
     max_err = float(t_err.max()) if t_err.numel() else 0.0
-    log(f"  K1 {tag} {name}: {n} rays, hit {float(hit_k.float().mean()):.4f}, "
+    log(f"  K1 {tag}: {n} rays, hit {float(hit_k.float().mean()):.4f}, "
         f"hit/mesh mismatches {mism} (agree {frac:.6f}), "
         f"max |dt| {max_err:.3g}, t within rtol 1e-4: {t_ok}")
-    assert frac >= K1_K2_AGREE, f"K1 {tag} {name}: agreement {frac}"
-    assert t_ok, f"K1 {tag} {name}: t differs beyond rtol 1e-4"
+    assert frac >= K1_K2_AGREE, f"K1 {tag}: agreement {frac}"
+    assert t_ok, f"K1 {tag}: t differs beyond rtol 1e-4"
     stats["mismatches"] += mism
     stats["max_abs_err"] = max(stats["max_abs_err"], max_err)
 
 
-def check_k2(geom, rays, tag, stats):
+def walk_stats(rays, stats):
+    return stats["any_hit" if rays[0] == "shadow" else "closest_hit"]
+
+
+def check_counts(geom, rays, idx):
+    """The counting walks over a full wavefront (K1 near-first and in slot
+    order, or K2): nodes visited and triangles tested a live ray; on the
+    sampled rays ``idx`` the counting kernel is held to its plain version
+    (the same walk, one ray at a time on the host): answers on
+    K1_K2_AGREE of the rays, tallies within COUNT_RTOL."""
+    import torch
     from ptrt_tpu_torch.render import traverse
 
     name, o, d, t = rays
-    hk = traverse.any_hit(geom, o, d, t)
-    hp = traverse.any_hit_plain(geom, o, d, t)
-    mism = int((hk != hp).sum())
-    frac = 1.0 - mism / t.numel()
-    log(f"  K2 {tag} {name}: {t.numel()} rays, occluded "
-        f"{float(hk.float().mean()):.4f}, mismatches {mism} "
-        f"(agree {frac:.6f})")
-    assert frac >= K1_K2_AGREE, f"K2 {tag} {name}: agreement {frac}"
-    stats["mismatches"] += mism
-    stats["max_abs_err"] = max(stats["max_abs_err"], float(mism > 0))
+    live = int((t > 0).sum())
+    cpu = torch.device("cpu")
+    small = take(rays, idx[:COUNT_SAMPLE])
+    small_cpu = (name, small[1].map(lambda c: c.to(cpu)),
+                 small[2].map(lambda c: c.to(cpu)), small[3].to(cpu))
+    out = {}
+    for w in (("any",) if name == "shadow"
+              else ("closest", "closest_slot_order")):
+        full = traverse.walk_counts(geom, o, d, t, w)
+        if w != "closest_slot_order":  # the same walk as the main path's
+            want = walk(geom, rays)
+            got = (full.answer,) if w == "any" else tuple(full.answer)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                f"{w} counting walk differs from the main path's on {name}")
+        k = traverse.walk_counts(geom, *small[1:], w)
+        p = traverse.walk_counts_plain(geom, *small_cpu[1:], w)
+        kk = (k.answer,) if w == "any" else tuple(k.answer)
+        pp = (p.answer,) if w == "any" else tuple(p.answer)
+        compare_walk(f"counting walk {w}, {name} sample vs its plain walk",
+                     tuple(x.cpu() for x in kk), pp,
+                     {"mismatches": 0, "max_abs_err": 0.0})
+        for what, a, b in (("nodes", k.nodes, p.nodes),
+                           ("triangles", k.tris, p.tris)):
+            assert abs(a - b) <= COUNT_RTOL * max(b, 1), (w, name, what, a, b)
+        out[w] = {"nodes_per_ray": full.nodes / max(live, 1),
+                  "tris_per_ray": full.tris / max(live, 1)}
+        log(f"  {'K2' if w == 'any' else 'K1'} {w} {name}: "
+            f"{out[w]['nodes_per_ray']:.3f} nodes and "
+            f"{out[w]['tris_per_ray']:.3f} triangles a live ray ({live} "
+            f"live of {t.numel()}); on {COUNT_SAMPLE} sampled rays kernel "
+            f"{k.nodes} / {k.tris} vs plain walk {p.nodes} / {p.tris}")
+    return out
+
+
+def check_full_walks(full, rng, card, stats):
+    """Phase 3's walks on the full bench scene: the main path's four
+    wavefronts (camera, bounce 1, bounce 3 of a sample's PathState, shadow)
+    each on a SAMPLE_RAYS sample against the plain version, at full width
+    held at the sampled rays to those plain answers, permuted (answers bit
+    for bit the unpermuted run's), through the live-lane entry (K1: bit for
+    bit the t_max plane's), timed at full width, and counted; adds the
+    mismatches and the largest t error into ``stats``.  Returns the kernel
+    table's numbers."""
+    import torch
+    from ptrt_tpu_torch.render import traverse
+    from ptrt_tpu_torch.tools.walks import late_bounce, wavefronts
+
+    g = full._geom
+    rays = wavefronts(full)
+    lname, lo, ld, alive = late_bounce(full, 3)
+    rays.insert(2, (lname, lo, ld,
+                    torch.where(alive, traverse.T_MAX, -1.0).contiguous()))
+    n = rays[0][3].numel()
+    idx = torch.from_numpy(rng.choice(n, min(n, SAMPLE_RAYS),
+                                      replace=False)).to(g.device)
+    res = {"ms": {}, "live_ms": {}, "counts": {}, "live": {}}
+    for r in rays:
+        name, o, d, t = r
+        st = walk_stats(r, stats)
+        sample = take(r, idx)
+        want = walk_plain(g, sample)
+        compare_walk(f"full {name} sample", walk(g, sample), want, st)
+        got = walk(g, r)
+        compare_walk(f"full {name} at full width, at the sampled rays",
+                     tuple(x[idx] for x in got), want, st)
+        perm = torch.from_numpy(rng.permutation(n)).to(g.device)
+        shuffled = walk(g, take(r, perm))
+        back = tuple(torch.empty_like(x).index_copy_(0, perm, y)
+                     for x, y in zip(got, shuffled))
+        assert all(torch.equal(a, b) for a, b in zip(back, got)), (
+            f"{name}: a permuted wavefront's answers differ")
+        if name != "shadow":
+            live = traverse.closest_hit_live(g, o, d, t > 0)
+            assert all(torch.equal(a, b) for a, b in zip(live, got)), (
+                f"{name}: closest_hit_live differs from closest_hit")
+        res["ms"][name] = cuda_ms(lambda r=r: walk(g, r), 20)
+        res["live"][name] = int((t > 0).sum())
+        live_ms = ""
+        if name != "shadow":
+            res["live_ms"][name] = cuda_ms(
+                lambda o=o, d=d, a=t > 0: traverse.closest_hit_live(g, o, d, a),
+                20)
+            live_ms = (f", {res['live_ms'][name]:.4f} ms through the alive "
+                       f"plane")
+        log(f"  {'K2' if name == 'shadow' else 'K1'} full {name}: {n} rays "
+            f"({res['live'][name]} live), bit-identical when permuted"
+            f"{'' if name == 'shadow' else ' and through the alive plane'}; "
+            f"{res['ms'][name]:.4f} ms ({n / res['ms'][name] / 1e3:.1f} "
+            f"Mrays/s){live_ms} [{card}]")
+        res["counts"][name] = check_counts(g, r, idx)
+    # times on the same sample: kernel and plain
+    _, o, d, t = take(rays[1], idx)
+    res["k1_sample_ms"] = cuda_ms(lambda: traverse.closest_hit(g, o, d, t), 20)
+    res["k1_plain_ms"] = cuda_ms(lambda: traverse.closest_hit_plain(g, o, d, t),
+                                 1)
+    _, o, d, t = take(rays[3], idx)
+    res["k2_sample_ms"] = cuda_ms(lambda: traverse.any_hit(g, o, d, t), 20)
+    res["k2_plain_ms"] = cuda_ms(lambda: traverse.any_hit_plain(g, o, d, t), 1)
+    return res
+
+
+def walk_info():
+    """Registers, local bytes a thread and resident blocks a SM of K1 (on
+    the alive plane, as the bounce loop calls it, and on a t_max plane) and
+    K2."""
+    import ctypes
+    from ptrt_tpu_torch import kernels
+
+    lib = kernels.get_lib()
+    out = {}
+    for k, name in enumerate(("closest_hit", "closest_hit t_max plane",
+                              "any_hit")):
+        regs, local, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        kernels.check(lib.ptrt_walk_info(k, ctypes.byref(regs),
+                                         ctypes.byref(local),
+                                         ctypes.byref(per_sm)), name)
+        out[name] = {"registers": regs.value, "local_bytes": local.value,
+                     "blocks_per_sm": per_sm.value,
+                     "warps_per_scheduler": per_sm.value * 4 // 4}
+    return out
 
 
 # -- K3: shade_nee and shade_scatter against their plain stages ---------------
@@ -852,13 +983,34 @@ def profile_frame(sc) -> dict:
             if getattr(e, "device_type", None) == DeviceType.CUDA
             and not e.name.startswith(("Memcpy", "Memset"))]
     if not kern:
-        return {"device_ms": None, "launches": None, "top": None}
+        return {"device_ms": None, "launches": None, "top": None,
+                "names": None, "walk_ms": None}
     by_name = {}
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    walk_us = sum(v for k, v in by_name.items()
+                  if "closest_hit_kernel" in k or "any_hit_kernel" in k)
     return {"device_ms": sum(by_name.values()) / 1e3, "launches": len(kern),
-            "top": [(k[:60], round(v / 1e3, 3)) for k, v in top]}
+            "top": [(k[:60], round(v / 1e3, 3)) for k, v in top],
+            "names": [e.name for e in sorted(kern,
+                                             key=lambda e: e.time_range.start)],
+            "walk_ms": walk_us / 1e3}
+
+
+def bounce_launches(names, samples, depth):
+    """Kernel launches from each of a sample's K1 launches to its next (one
+    bounce), in a profiled frame's timeline."""
+    at = [i for i, n in enumerate(names) if "closest_hit_kernel" in n]
+    assert len(at) == samples * depth, (len(at), samples, depth)
+    return [at[j + 1] - at[j] for j in range(len(at) - 1)
+            if j % depth != depth - 1]
+
+
+def later_bounces(per_bounce, depth):
+    """The launch counts of the bounces from bounce 1 on (bounce 0 of a
+    sample launches one kernel more)."""
+    return [k for j, k in enumerate(per_bounce) if j % (depth - 1) != 0]
 
 
 def main() -> int:
@@ -878,7 +1030,8 @@ def main() -> int:
     from ptrt_tpu_torch.app.bench_scene import build_bench_scene
     from ptrt_tpu_torch.build import BUILD_DIR
     from ptrt_tpu_torch.core.vec import Vec3
-    from ptrt_tpu_torch.render import pipeline, traverse
+    from ptrt_tpu_torch.render import pipeline
+    from ptrt_tpu_torch.tools.walks import wavefronts
 
     assert os.path.dirname(os.path.abspath(ptrt_tpu_torch.__file__)) == pkg
     dev = torch.device("cuda", 0)
@@ -908,19 +1061,18 @@ def main() -> int:
 
     # -- 3. kernels against their plain versions -----------------------------
     rng = np.random.default_rng(0)
-    k1 = {"mismatches": 0, "max_abs_err": 0.0}
-    k2 = {"mismatches": 0, "max_abs_err": 0.0}
     small = bench_perf(build_bench_scene(256, 144, target_tris=20_000,
                                          device=dev), SPP, DEPTH)
-    small_rays = wavefronts(small)
+    small._ensure_device_state()
     log(f"[kernels] small scene: {sum(m.num_triangles for m in small.meshes)} "
         f"triangles, {small._geom.num_tri_slots} tri slots, "
         f"{small._geom.num_nodes} nodes, stack bound "
         f"{small._geom.stack_depth}")
-    for r in small_rays:
-        (check_k2 if r[0] == "shadow" else check_k1)(small._geom, r, "small",
-                                                      k2 if r[0] == "shadow"
-                                                      else k1)
+    stats = {k: {"mismatches": 0, "max_abs_err": 0.0}
+             for k in ("closest_hit", "any_hit")}
+    for r in wavefronts(small):
+        compare_walk(f"small {r[0]}", walk(small._geom, r),
+                     walk_plain(small._geom, r), walk_stats(r, stats))
 
     t0 = time.time()
     full = bench_perf(build_bench_scene(W, H, target_tris=TRIS, device=dev),
@@ -932,48 +1084,26 @@ def main() -> int:
     log(f"[kernels] full scene: {n_tris} triangles, "
         f"{full._geom.num_tri_slots} tri slots, {full._geom.num_nodes} "
         f"nodes, stack bound {full._geom.stack_depth}; set-up {setup_s:.2f} s")
-    full_rays = wavefronts(full)
-    idx = torch.from_numpy(rng.choice(W * H, SAMPLE_RAYS, replace=False)).to(
-        dev)
-    sampled = [take(r, idx) for r in full_rays]
-    for r in sampled:
-        (check_k2 if r[0] == "shadow" else check_k1)(full._geom, r, "full",
-                                                      k2 if r[0] == "shadow"
-                                                      else k1)
-
-    # times: kernel and plain on the same 4096-ray sample of the full
-    # scene, and the kernel alone at the main path's full wavefronts
-    g = full._geom
-    _, o, d, t = sampled[1]
-    k1_ms = cuda_ms(lambda: traverse.closest_hit(g, o, d, t), 20)
-    k1_plain_ms = cuda_ms(lambda: traverse.closest_hit_plain(g, o, d, t), 1)
-    _, so, sd, st = sampled[2]
-    k2_ms = cuda_ms(lambda: traverse.any_hit(g, so, sd, st), 20)
-    k2_plain_ms = cuda_ms(lambda: traverse.any_hit_plain(g, so, sd, st), 1)
-    main_ms = {}
-    for name, o, d, t in full_rays:
-        fn = ((lambda o=o, d=d, t=t: traverse.any_hit(g, o, d, t))
-              if name == "shadow"
-              else (lambda o=o, d=d, t=t: traverse.closest_hit(g, o, d, t)))
-        main_ms[name] = cuda_ms(fn, 5)
-        log(f"  {'K2' if name == 'shadow' else 'K1'} full {name}: "
-            f"{t.numel()} rays, {main_ms[name]:.3f} ms "
-            f"({t.numel() / main_ms[name] / 1e3:.1f} Mrays/s) [{card}]")
+    walks = check_full_walks(full, rng, card, stats)
+    info = walk_info()
     # the walks' bound: rays (origin, direction, t_max) and answers (K1: t,
     # u, v, slot, mesh; K2: a byte) at these widths, and the BVH's node and
     # triangle rows each read once
+    g = full._geom
     rows = nbytes(g.node_rows, g.tri_rows)
     walk_bound = lambda n, shadow: bound(n * (28 + (1 if shadow else 20))
                                          + rows)
-    k1_bound, k2_bound = (walk_bound(SAMPLE_RAYS, False),
-                          walk_bound(SAMPLE_RAYS, True))
-    main_bound = {k: walk_bound(W * H, k == "shadow")["bound_ms"]
-                  for k in main_ms}
-    log(f"  K1 bounce sample: kernel {k1_ms:.4f} ms vs plain {k1_plain_ms:.2f}"
-        f" ms on {SAMPLE_RAYS} rays, bound {k1_bound['bound_ms']:.4f} ms; K2 "
-        f"shadow sample: kernel {k2_ms:.4f} ms vs plain {k2_plain_ms:.2f} ms,"
-        f" bound {k2_bound['bound_ms']:.4f} ms; full wavefronts' bounds "
-        f"{ {k: round(v, 4) for k, v in main_bound.items()} } ms [{card}]")
+    k1_bound, k2_bound = walk_bound(W * H, False), walk_bound(W * H, True)
+    log(f"  K1 bounce sample: kernel {walks['k1_sample_ms']:.4f} ms vs plain "
+        f"{walks['k1_plain_ms']:.2f} ms on {SAMPLE_RAYS} rays; K2 shadow "
+        f"sample: kernel {walks['k2_sample_ms']:.4f} ms vs plain "
+        f"{walks['k2_plain_ms']:.2f} ms; bounds at {W * H} rays: K1 "
+        f"{k1_bound['bound_ms']:.4f} ms, K2 {k2_bound['bound_ms']:.4f} ms "
+        f"({k1_bound['bound_by']}) [{card}]")
+    for k, v in info.items():
+        log(f"  {k}: {v['registers']} registers, {v['local_bytes']} bytes of "
+            f"local memory a thread, {v['blocks_per_sm']} resident blocks of "
+            f"128 threads a SM ({v['warps_per_scheduler']} warps a scheduler)")
 
     hdr = Vec3(*[torch.from_numpy(rng.lognormal(-1.0, 1.5, (H, W)).astype(
         np.float32)).to(dev) for _ in range(3)])
@@ -990,7 +1120,7 @@ def main() -> int:
     gather = check_row_gather(dev, full._mat_table, card, rng)
 
     # -- 3b. K3: the shading stages against their plain versions -------------
-    del small_rays, full_rays, sampled, hdr
+    del hdr
     torch.cuda.empty_cache()
     shade_stats = check_shade(full, dev, card)
     torch.cuda.empty_cache()
@@ -1024,16 +1154,26 @@ def main() -> int:
     assert img.shape == (H, W, 3) and img.dtype == np.uint8, img.shape
     assert img.std() > 1.0, "the image is constant"
     assert all(bool(torch.isfinite(c).all()) for c in (hdr.x, hdr.y, hdr.z))
-    for k in ("closest_hit", "any_hit", "tonemap_rgb8"):
-        assert launches.get(k, 0) > 0, f"{k} was not launched by the main path"
-    for k in ("shade_nee", "shade_scatter"):  # once a bounce of each sample
+    assert launches.get("tonemap_rgb8", 0) > 0, "tonemap_rgb8 not launched"
+    for k in ("closest_hit", "any_hit", "shade_nee", "shade_scatter"):
+        # once a bounce of each sample
         assert launches.get(k, 0) == 4 * SPP * DEPTH, (k, launches)
     assert launches.get("row_gather", 0) == 0, "the main path gathers planes"
     prof = profile_frame(full)
     log(f"[main] one profiled frame: device kernel time {prof['device_ms']} "
         f"ms in {prof['launches']} kernel launches (busy share "
         f"{None if prof['device_ms'] is None else round(prof['device_ms'] / frame_ms, 3)}"
-        f" of the unprofiled frame); top kernels (ms) {prof['top']} [{card}]")
+        f" of the unprofiled frame), the walks {prof['walk_ms']} ms; top "
+        f"kernels (ms) {prof['top']} [{card}]")
+    assert prof["names"] is not None, "the profiler saw no device kernels"
+    per_bounce = bounce_launches(prof["names"], SPP, DEPTH)
+    k1_at = [i for i, nm in enumerate(prof["names"])
+             if "closest_hit_kernel" in nm]
+    log(f"[main] launches a bounce (K1 to the next K1 of a sample): "
+        f"{per_bounce}; the second bounce's: "
+        f"{[nm[:48] for nm in prof['names'][k1_at[1]:k1_at[2]]]}")
+    assert all(k == BOUNCE_LAUNCHES
+               for k in later_bounces(per_bounce, DEPTH)), per_bounce
     for r in rays:
         assert abs(r - BENCH_RAYS_PER_FRAME) <= 0.1 * BENCH_RAYS_PER_FRAME, r
 
@@ -1173,21 +1313,24 @@ def main() -> int:
     table = {"kernels": [
         {"name": "closest_hit", "route": "cuda", "source": src("traverse.cu"),
          "replaces": "ptrt_tpu/render/traverse.py:1267",
-         **both("closest_hit"),
-         "max_abs_err": k1["max_abs_err"], "mismatches": k1["mismatches"],
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "rays": SAMPLE_RAYS,
-         **k1_bound, "library_ms": None,
-         "main_camera_ms": main_ms["camera"],
-         "main_bounce_ms": main_ms["bounce"], "main_rays": W * H,
-         "main_bound_ms": main_bound["bounce"]},
+         **both("closest_hit"), **stats["closest_hit"],
+         "ms": walks["live_ms"]["bounce"], "rays": W * H, **k1_bound,
+         "plain_ms": walks["k1_plain_ms"], "sample_ms": walks["k1_sample_ms"],
+         "plain_rays": SAMPLE_RAYS, "library_ms": None,
+         "wavefront_ms": walks["live_ms"],
+         "t_max_plane_ms": {k: v for k, v in walks["ms"].items()
+                            if k != "shadow"},
+         "per_ray": {k: v for k, v in walks["counts"].items()
+                     if k != "shadow"},
+         **info["closest_hit"],
+         "t_max_plane_kernel": info["closest_hit t_max plane"]},
         {"name": "any_hit", "route": "cuda", "source": src("traverse.cu"),
          "replaces": "ptrt_tpu/render/traverse.py:1601",
-         **both("any_hit"),
-         "max_abs_err": k2["max_abs_err"], "mismatches": k2["mismatches"],
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "rays": SAMPLE_RAYS,
-         **k2_bound, "library_ms": None,
-         "main_shadow_ms": main_ms["shadow"], "main_rays": W * H,
-         "main_bound_ms": main_bound["shadow"]},
+         **both("any_hit"), **stats["any_hit"],
+         "ms": walks["ms"]["shadow"], "rays": W * H, **k2_bound,
+         "plain_ms": walks["k2_plain_ms"], "sample_ms": walks["k2_sample_ms"],
+         "plain_rays": SAMPLE_RAYS, "library_ms": None,
+         "per_ray": walks["counts"]["shadow"]["any"], **info["any_hit"]},
         {"name": "tonemap_rgb8", "route": "cuda", "source": src("tonemap.cu"),
          "replaces": "ptrt_tpu/render/pipeline.py:181",
          **both("tonemap_rgb8"), "max_abs_err": k6_err,

@@ -7,28 +7,53 @@
 // compaction ladders, which exist to work around TPU gather costs.
 //
 // What bounds it on the card: dependent, data-driven loads.  Each visited
-// node is one 256-byte row (52 used floats read as 13 float4 loads), each
-// visited leaf one 320-byte triangle row; the next address depends on the
-// slab test of the previous row, so a warp waits on memory latency and
-// diverges as its rays take different paths.  The node and triangle
-// tables of the 1M-triangle bench scene (~100 MB) exceed the 50 MB L2.
+// node is one 256-byte row (52 used floats read as 13 float4 loads, and for
+// K1 the ray octant's order word), each visited leaf one 320-byte triangle
+// row; the next address depends on the slab test of the previous row, so a
+// warp waits on load latency and diverges as its rays take different
+// paths.  The 12.6 MB node table of the 1M-triangle bench scene fits the
+// 50 MB L2; its triangle rows (~53 MB) do not.  No tiles: wgmma and TMA
+// have no work.  The levers are the nodes a ray visits, the warps in flight
+// to hide the latency, and how long a warp waits for its slowest ray.
 //
-// What this design does about it: one thread per ray (no lock-step: a
-// finished ray frees its lane at once), a short per-thread stack of
-// (child_base, pending_slot_mask) entries so one entry covers up to eight
-// siblings, all eight child boxes tested from one node row, and leaves of a
-// node tested as soon as their box is hit so t shrinks early.  Ordered
-// (near-first) descent, cp.async/TMA staging, persistent threads and
-// wavefront compaction are later work.
+// What this design does about it (each part kept because it measured
+// faster at 2,073,600 rays on an H100; see PERF.md):
+//  * near-first descent (K1): the ray's octant picks one of the row's eight
+//    precomputed child orders (columns 52:60); the internal children's hit
+//    mask is permuted into rank space and popped lowest rank first, so the
+//    nearest subtree shrinks t before farther siblings are slab-tested
+//    (the reference's _descend with ``octant``).  K2 keeps slot order: any
+//    hit ends it, as in the reference's unordered any-hit walk;
+//  * persistent warps: the grid fills the card once (SMs x resident
+//    blocks), and each warp takes its next 32 rays with one atomicAdd on a
+//    counter that the C entry zeroes on the stream before the launch, so a
+//    warp never waits for the other warps of its block and no block is
+//    scheduled after the first wave.  Refilling single finished lanes at
+//    once, or once fewer than 8, 16 or 24 lanes walk, measured slower: the
+//    lanes of a warp then walk unrelated rays and stop sharing node rows;
+//  * occupancy: __launch_bounds__ holds K1 to 7 and K2 to 9 resident
+//    blocks a SM (7 and 9 warps a scheduler, no spills), each faster than
+//    fewer blocks with more registers or more blocks with spills (K1 at 8
+//    blocks spills 100 bytes a thread);
+//  * each thread's stack of 8-byte entries (child base; order word << 8 |
+//    mask), a node's remaining siblings in one entry.  It cannot overflow:
+//    the wrapper refuses a tree whose depth bound exceeds kMaxStack, so no
+//    push is ever dropped; a trap in the loop instead made the compiler
+//    give up reconverging the warp each node (2.2-2.6x slower on an H100).
+//    Its first entries in shared memory measured no faster than the
+//    local-memory stack, which L1 holds; nor did leaf rows read as float4;
+//  * leaves tested as soon as their box is hit (t shrinks early).
 //
 // Semantics match the reference bit for bit where the arithmetic allows:
 // _safe_inv's signed 1e-12, slab test t_enter = max(0, ..) <= t_exit =
 // min(t_bound, ..), Möller–Trumbore with _MT_EPS = 1e-9, inclusive
 // barycentric epsilon 1e-6, T_MIN < t < t_max with t_max shrinking as hits
 // come in, and table ints decoded by float->int VALUE conversion (never a
-// bitcast).  Lanes with t_max <= 0 are dead and return a miss.  The build
-// uses no fast-math; nvcc's default FMA contraction can still move a
-// grazing ray across an edge, which the callers' tolerances allow.
+// bitcast).  Lanes with t_max <= 0 (or not alive) are dead and return a
+// miss, with every output written.  The build uses no fast-math; nvcc's
+// default FMA contraction can still move a grazing ray across an edge,
+// which the callers' tolerances allow.  Which of two triangles at exactly
+// the same t wins depends on the visit order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,15 +63,48 @@ namespace {
 constexpr int kLeaf = 8;              // LEAF_SIZE (geometry/bvh.py)
 constexpr int kTriRow = 10 * kLeaf;   // tri_rows width
 constexpr int kNodeRow = 64;          // node_rows width
+constexpr int kOrderCol = 52;         // first per-octant order column
 constexpr int kMaxStack = 64;         // must be >= SceneGeometry.stack_depth
 constexpr float kTMin = 1e-4f;        // traverse.T_MIN
+constexpr float kTMax = 1e30f;        // traverse.T_MAX: a live lane's t_max
 constexpr float kMtEps = 1e-9f;       // traverse._MT_EPS
 constexpr float kBaryLo = -1e-6f;     // -beps
 constexpr float kBaryHi = 1.000001f;  // 1 + beps
 constexpr int kThreads = 128;
+constexpr int kK1Blocks = 7;          // resident blocks a SM (launch bounds)
+constexpr int kK2Blocks = 9;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
 struct Ray {
     float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+// Everything a walk reads and writes.  K1 takes rays with either a t_max
+// plane or an alive plane (exactly one is non-null) and writes t, u, v,
+// slot, mesh; K2 takes t_max and writes one byte a ray.  ``next_ray`` is
+// the work counter (zero at launch); ``counts`` (counting walks only)
+// receives the nodes visited and triangles tested.
+struct WalkArgs {
+    const float* __restrict__ nodes;
+    const float* __restrict__ tris;
+    const float* __restrict__ ox;
+    const float* __restrict__ oy;
+    const float* __restrict__ oz;
+    const float* __restrict__ dx;
+    const float* __restrict__ dy;
+    const float* __restrict__ dz;
+    const float* __restrict__ t_max;
+    const uint8_t* __restrict__ alive;
+    float* __restrict__ t_out;
+    float* __restrict__ u_out;
+    float* __restrict__ v_out;
+    int* __restrict__ slot_out;
+    int* __restrict__ mesh_out;
+    uint8_t* __restrict__ hit_out;
+    unsigned* next_ray;
+    unsigned long long* counts;
+    int n_nodes, n_blocks, n;
 };
 
 __device__ __forceinline__ float safe_inv(float c) {
@@ -86,14 +144,12 @@ __device__ __forceinline__ bool mt_test(const float* __restrict__ row, int j,
 }
 
 // Slab-test the eight child boxes of one node row against (0, t_bound];
-// returns the hit bitmask and the row's metadata.
-__device__ __forceinline__ uint32_t visit_node(const float* __restrict__ nodes,
-                                               int node, const Ray& r,
-                                               float t_bound, int& cba, int& lb,
+// returns the hit bitmask (used slots only) and the row's metadata.
+__device__ __forceinline__ uint32_t visit_node(const float4* __restrict__ row,
+                                               const Ray& r, float t_bound,
+                                               int& cba, int& lb,
                                                uint32_t& lmask,
                                                uint32_t& imask) {
-    const float4* row = reinterpret_cast<const float4*>(
-        nodes + static_cast<size_t>(node) * kNodeRow);
     float4 q[13];
 #pragma unroll
     for (int k = 0; k < 13; ++k) q[k] = __ldg(row + k);
@@ -133,49 +189,77 @@ __device__ __forceinline__ uint32_t visit_node(const float* __restrict__ nodes,
     return hit & (lmask | imask);
 }
 
-// The walk.  Closest (kAny = false): t shrinks to the nearest hit, best
-// receives its tri slot (block * kLeaf + j).  Any (kAny = true): returns
-// true on the first hit of an opaque triangle.
-template <bool kAny>
+// Slot-space bitmask -> rank space under an order word: bit k of the
+// result is bit ((ord >> 3k) & 7) of ``m``.
+__device__ __forceinline__ uint32_t to_rank(uint32_t m, uint32_t ord) {
+    uint32_t out = 0u;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+        out |= ((m >> ((ord >> (3 * k)) & 7u)) & 1u) << k;
+    return out;
+}
+
+// One ray's walk.  Closest (kAny = false): t shrinks to the nearest hit,
+// best receives its tri slot (block * kLeaf + j).  Any (kAny = true):
+// returns true on the first hit of an opaque triangle.  The current entry
+// (base, mask, ord) holds the children ``base + slot`` still to visit; in
+// near-first order ``mask`` is in rank space and ``ord`` the parent row's
+// order word (rank k -> slot (ord >> 3k) & 7), in slot order ``ord`` is 0.
+// ``tally`` (nodes, triangles) is null unless kCount.
+template <bool kAny, bool kOrdered, bool kCount>
 __device__ bool walk(const float* __restrict__ nodes, int n_nodes,
                      const float* __restrict__ tris, int n_blocks,
                      const Ray& r, float& t, int& best, int& best_mesh,
-                     float& best_u, float& best_v) {
-    int stack_base[kMaxStack];
-    uint32_t stack_mask[kMaxStack];
+                     float& best_u, float& best_v,
+                     unsigned long long* tally) {
+    uint2 stack[kMaxStack];
+    const int oct = (r.dx < 0.0f ? 1 : 0) | (r.dy < 0.0f ? 2 : 0) |
+                    (r.dz < 0.0f ? 4 : 0);
     int sp = 0;
-    int base = 0;       // the root is node 0 = base 0 + slot 0
-    uint32_t mask = 1u;
+    int base = 0;  // the root is node 0 = base 0 + slot 0
+    uint32_t mask = 1u, ord = 0u;
     while (true) {
         if (mask == 0u) {
             if (sp == 0) break;
-            --sp;
-            base = stack_base[sp];
-            mask = stack_mask[sp];
+            const uint2 e = stack[--sp];
+            base = static_cast<int>(e.x);
+            mask = e.y & 0xffu;
+            ord = e.y >> 8;
         }
-        const int node = base + __ffs(mask) - 1;
+        const int rank = __ffs(mask) - 1;
         mask &= mask - 1u;
+        const int node =
+            base + (kOrdered ? static_cast<int>((ord >> (3 * rank)) & 7u)
+                             : rank);
         if (static_cast<unsigned>(node) >= static_cast<unsigned>(n_nodes))
             continue;
+        const float* row = nodes + static_cast<size_t>(node) * kNodeRow;
+        const uint32_t word =
+            kOrdered ? static_cast<uint32_t>(
+                           static_cast<int>(__ldg(row + kOrderCol + oct)))
+                     : 0u;
         int cba, lb;
         uint32_t lmask, imask;
-        const uint32_t hit = visit_node(nodes, node, r, t, cba, lb, lmask,
-                                        imask);
+        const uint32_t hit =
+            visit_node(reinterpret_cast<const float4*>(row), r, t, cba, lb,
+                       lmask, imask);
+        if (kCount) ++tally[0];
         uint32_t leaves = hit & lmask;
         while (leaves) {
             const int blk = lb + __ffs(leaves) - 1;
             leaves &= leaves - 1u;
             if (static_cast<unsigned>(blk) >= static_cast<unsigned>(n_blocks))
                 continue;
-            const float* row = tris + static_cast<size_t>(blk) * kTriRow;
+            const float* tri = tris + static_cast<size_t>(blk) * kTriRow;
 #pragma unroll
             for (int j = 0; j < kLeaf; ++j) {
-                const int packed = static_cast<int>(__ldg(row + 9 * kLeaf + j));
+                const int packed = static_cast<int>(__ldg(tri + 9 * kLeaf + j));
                 const int mesh = packed >> 1;  // pad ids stay negative
                 if (mesh < 0) continue;
                 if (kAny && (packed & 1) == 0) continue;  // not an occluder
+                if (kCount) ++tally[1];
                 float tt, uu, vv;
-                if (!mt_test(row, j, r, t, tt, uu, vv)) continue;
+                if (!mt_test(tri, j, r, t, tt, uu, vv)) continue;
                 if (kAny) return true;
                 t = tt;
                 best = blk * kLeaf + j;
@@ -186,85 +270,153 @@ __device__ bool walk(const float* __restrict__ nodes, int n_nodes,
         }
         const uint32_t ints = hit & imask;
         if (ints) {
-            if (mask && sp < kMaxStack) {
-                stack_base[sp] = base;
-                stack_mask[sp] = mask;
-                ++sp;
-            }
+            if (mask)  // sp < kMaxStack: the wrapper checks the tree depth
+                stack[sp++] = make_uint2(static_cast<unsigned>(base),
+                                         (ord << 8) | mask);
             base = cba;
-            mask = ints;
+            mask = kOrdered ? to_rank(ints, word) : ints;
+            ord = word;
         }
     }
     return false;
 }
 
-__device__ __forceinline__ Ray load_ray(const float* ox, const float* oy,
-                                        const float* oz, const float* dx,
-                                        const float* dy, const float* dz,
-                                        int i) {
-    Ray r;
-    r.ox = ox[i];
-    r.oy = oy[i];
-    r.oz = oz[i];
-    r.dx = dx[i];
-    r.dy = dy[i];
-    r.dz = dz[i];
-    r.ix = safe_inv(r.dx);
-    r.iy = safe_inv(r.dy);
-    r.iz = safe_inv(r.dz);
-    return r;
-}
-
-__global__ void __launch_bounds__(kThreads)
-closest_hit_kernel(const float* __restrict__ nodes, int n_nodes,
-                   const float* __restrict__ tris, int n_blocks,
-                   const float* __restrict__ ox, const float* __restrict__ oy,
-                   const float* __restrict__ oz, const float* __restrict__ dx,
-                   const float* __restrict__ dy, const float* __restrict__ dz,
-                   const float* __restrict__ t_max, int n,
-                   float* __restrict__ t_out, float* __restrict__ u_out,
-                   float* __restrict__ v_out, int* __restrict__ slot_out,
-                   int* __restrict__ mesh_out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    float t = t_max[i];
-    int best = -1, best_mesh = -1;
-    float bu = 0.0f, bv = 0.0f;
-    if (t > 0.0f) {
-        const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        walk<false>(nodes, n_nodes, tris, n_blocks, r, t, best, best_mesh,
-                    bu, bv);
+// The persistent warps: each warp takes the next 32 ray indices with one
+// atomicAdd, walks them one a lane, and writes every answer once, at its
+// ray's own index, until the rays are gone.
+template <bool kAny, bool kOrdered, bool kCount, bool kLive = false>
+__device__ __forceinline__ void walk_rays(const WalkArgs& a) {
+    const int lane = threadIdx.x & 31;
+    unsigned long long tally[2] = {0ull, 0ull};
+    while (true) {
+        unsigned first = 0u;
+        if (lane == 0) first = atomicAdd(a.next_ray, 32u);
+        first = __shfl_sync(kAll, first, 0);
+        if (first >= static_cast<unsigned>(a.n)) break;
+        const int i = static_cast<int>(first) + lane;
+        if (i < a.n) {
+            float t = kLive ? (a.alive[i] ? kTMax : -1.0f) : a.t_max[i];
+            int best = -1, best_mesh = -1;
+            float bu = 0.0f, bv = 0.0f;
+            bool hit = false;
+            if (t > 0.0f) {
+                Ray r;
+                r.ox = a.ox[i];
+                r.oy = a.oy[i];
+                r.oz = a.oz[i];
+                r.dx = a.dx[i];
+                r.dy = a.dy[i];
+                r.dz = a.dz[i];
+                r.ix = safe_inv(r.dx);
+                r.iy = safe_inv(r.dy);
+                r.iz = safe_inv(r.dz);
+                hit = walk<kAny, kOrdered, kCount>(
+                    a.nodes, a.n_nodes, a.tris, a.n_blocks, r, t, best,
+                    best_mesh, bu, bv, kCount ? tally : nullptr);
+            }
+            if (kAny) {
+                a.hit_out[i] = hit ? 1 : 0;
+            } else {
+                a.t_out[i] = t;
+                a.u_out[i] = bu;
+                a.v_out[i] = bv;
+                a.slot_out[i] = best;
+                a.mesh_out[i] = best_mesh;
+            }
+        }
+        __syncwarp();
     }
-    t_out[i] = t;
-    u_out[i] = bu;
-    v_out[i] = bv;
-    slot_out[i] = best;
-    mesh_out[i] = best_mesh;
-}
-
-__global__ void __launch_bounds__(kThreads)
-any_hit_kernel(const float* __restrict__ nodes, int n_nodes,
-               const float* __restrict__ tris, int n_blocks,
-               const float* __restrict__ ox, const float* __restrict__ oy,
-               const float* __restrict__ oz, const float* __restrict__ dx,
-               const float* __restrict__ dy, const float* __restrict__ dz,
-               const float* __restrict__ t_max, int n,
-               uint8_t* __restrict__ hit_out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    float t = t_max[i];
-    bool hit = false;
-    if (t > 0.0f) {
-        const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        int best, best_mesh;
-        float bu, bv;
-        hit = walk<true>(nodes, n_nodes, tris, n_blocks, r, t, best,
-                         best_mesh, bu, bv);
+    if (kCount) {
+        atomicAdd(a.counts, tally[0]);
+        atomicAdd(a.counts + 1, tally[1]);
     }
-    hit_out[i] = hit ? 1 : 0;
 }
 
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+// The main path's walks (K1 near-first, K2 in slot order), and the walks
+// with a tally for measurement.
+template <bool kLive>
+__global__ void __launch_bounds__(kThreads, kK1Blocks)
+closest_hit_kernel(WalkArgs a) {
+    walk_rays<false, true, false, kLive>(a);
+}
+
+__global__ void __launch_bounds__(kThreads, kK2Blocks)
+any_hit_kernel(WalkArgs a) {
+    walk_rays<true, false, false>(a);
+}
+
+template <bool kAny, bool kOrdered>
+__global__ void __launch_bounds__(kThreads, kAny ? kK2Blocks : kK1Blocks)
+walk_counts_kernel(WalkArgs a) {
+    walk_rays<kAny, kOrdered, true>(a);
+}
+
+using Kernel = void (*)(WalkArgs);
+// K1 on a t_max plane, K2, the counting walks in the order of
+// ptrt_walk_counts' ``walk``, then K1 on an alive plane
+constexpr int kKernels = 6;
+const Kernel kWalks[kKernels] = {closest_hit_kernel<false>, any_hit_kernel,
+                                 walk_counts_kernel<false, true>,
+                                 walk_counts_kernel<false, false>,
+                                 walk_counts_kernel<true, false>,
+                                 closest_hit_kernel<true>};
+
+// Blocks of walk ``k`` that one SM holds at once, per device, asked once.
+cudaError_t blocks_per_sm(int k, int dev, int* per_sm) {
+    static int cache[kKernels][kMaxDevices];
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (cache[k][dev] == 0) {
+        int got = 0;
+        const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &got, kWalks[k], kThreads, 0);
+        if (e != cudaSuccess) return e;
+        cache[k][dev] = got > 0 ? got : 1;
+    }
+    *per_sm = cache[k][dev];
+    return cudaSuccess;
+}
+
+int launch(int k, const WalkArgs& a, void* stream) {
+    if (a.n <= 0) return static_cast<int>(cudaGetLastError());
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = blocks_per_sm(k, dev, &per_sm);
+    if (e == cudaSuccess)
+        e = cudaMemsetAsync(a.next_ray, 0, sizeof(unsigned), st);
+    if (e == cudaSuccess && a.counts != nullptr)
+        e = cudaMemsetAsync(a.counts, 0, 2 * sizeof(unsigned long long), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    // the grid fills the card once, or covers the rays if they are fewer
+    const int need = (a.n + kThreads - 1) / kThreads;
+    const int grid = sms * per_sm < need ? sms * per_sm : need;
+    kWalks[k]<<<grid, kThreads, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+}
+
+WalkArgs walk_args(const float* nodes, int n_nodes, const float* tris,
+                   int n_blocks, const float* ox, const float* oy,
+                   const float* oz, const float* dx, const float* dy,
+                   const float* dz, const float* t_max, int n,
+                   unsigned* next_ray) {
+    WalkArgs a = {};
+    a.nodes = nodes;
+    a.n_nodes = n_nodes;
+    a.tris = tris;
+    a.n_blocks = n_blocks;
+    a.ox = ox;
+    a.oy = oy;
+    a.oz = oz;
+    a.dx = dx;
+    a.dy = dy;
+    a.dz = dz;
+    a.t_max = t_max;
+    a.n = n;
+    a.next_ray = next_ray;
+    return a;
+}
 
 }  // namespace
 
@@ -276,33 +428,84 @@ const char* ptrt_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// K1.  Exactly one of ``t_max`` and ``alive`` (a torch.bool plane) is
+// non-null; a live lane walks with t_max = 1e30, a dead one returns t = -1.
+// ``next_ray`` is 4 bytes of device scratch, zeroed here on the stream.
 int ptrt_closest_hit(const float* nodes, int n_nodes, const float* tris,
                      int n_blocks, const float* ox, const float* oy,
                      const float* oz, const float* dx, const float* dy,
-                     const float* dz, const float* t_max, int n, float* t_out,
-                     float* u_out, float* v_out, int* slot_out, int* mesh_out,
-                     void* stream) {
-    if (n > 0) {
-        closest_hit_kernel<<<blocks_for(n), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-            nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy, dz, t_max, n,
-            t_out, u_out, v_out, slot_out, mesh_out);
-    }
-    return static_cast<int>(cudaGetLastError());
+                     const float* dz, const float* t_max,
+                     const uint8_t* alive, int n, float* t_out, float* u_out,
+                     float* v_out, int* slot_out, int* mesh_out,
+                     unsigned* next_ray, void* stream) {
+    if ((t_max == nullptr) == (alive == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    WalkArgs a = walk_args(nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy,
+                           dz, t_max, n, next_ray);
+    a.alive = alive;
+    a.t_out = t_out;
+    a.u_out = u_out;
+    a.v_out = v_out;
+    a.slot_out = slot_out;
+    a.mesh_out = mesh_out;
+    return launch(alive ? 5 : 0, a, stream);
 }
 
+// K2: one byte a ray (a torch.bool plane), 1 when an opaque triangle lies
+// in (T_MIN, t_max).
 int ptrt_any_hit(const float* nodes, int n_nodes, const float* tris,
                  int n_blocks, const float* ox, const float* oy,
                  const float* oz, const float* dx, const float* dy,
                  const float* dz, const float* t_max, int n, uint8_t* hit_out,
-                 void* stream) {
-    if (n > 0) {
-        any_hit_kernel<<<blocks_for(n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-            nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy, dz, t_max, n,
-            hit_out);
-    }
-    return static_cast<int>(cudaGetLastError());
+                 unsigned* next_ray, void* stream) {
+    if (t_max == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    WalkArgs a = walk_args(nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy,
+                           dz, t_max, n, next_ray);
+    a.hit_out = hit_out;
+    return launch(1, a, stream);
+}
+
+// The walks with a tally, for measurement only: ``walk`` 0 is K1 in
+// near-first order, 1 K1 in slot order, 2 K2.  Writes the same answers as
+// the walk (K1: t, u, v, slot, mesh; K2: hit_out) and the nodes visited
+// and triangles tested over all rays into counts[0] and counts[1] (zeroed
+// here first).
+int ptrt_walk_counts(int walk, const float* nodes, int n_nodes,
+                     const float* tris, int n_blocks, const float* ox,
+                     const float* oy, const float* oz, const float* dx,
+                     const float* dy, const float* dz, const float* t_max,
+                     int n, float* t_out, float* u_out, float* v_out,
+                     int* slot_out, int* mesh_out, uint8_t* hit_out,
+                     unsigned* next_ray, unsigned long long* counts,
+                     void* stream) {
+    if (t_max == nullptr || counts == nullptr || walk < 0 || walk > 2)
+        return static_cast<int>(cudaErrorInvalidValue);
+    WalkArgs a = walk_args(nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy,
+                           dz, t_max, n, next_ray);
+    a.t_out = t_out;
+    a.u_out = u_out;
+    a.v_out = v_out;
+    a.slot_out = slot_out;
+    a.mesh_out = mesh_out;
+    a.hit_out = hit_out;
+    a.counts = counts;
+    return launch(2 + walk, a, stream);
+}
+
+// Registers, local-memory bytes a thread and resident blocks a SM of the
+// main-path walks: ``walk`` 0 is K1 on an alive plane (the bounce loop's),
+// 1 K1 on a t_max plane, 2 K2.
+int ptrt_walk_info(int walk, int* regs, int* local_bytes, int* per_sm) {
+    if (walk < 0 || walk > 2) return static_cast<int>(cudaErrorInvalidValue);
+    const int k = walk == 0 ? 5 : walk - 1;
+    cudaFuncAttributes attr = {};
+    cudaError_t e = cudaFuncGetAttributes(&attr, kWalks[k]);
+    int dev = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = blocks_per_sm(k, dev, per_sm);
+    *regs = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    return static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -68,10 +68,15 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_error_string.restype = ctypes.c_char_p
         lib.ptrt_error_string.argtypes = [i]
         lib.ptrt_closest_hit.restype = i
-        lib.ptrt_closest_hit.argtypes = ([p, i, p, i] + [p] * 7 + [i]
-                                         + [p] * 5 + [p])
+        lib.ptrt_closest_hit.argtypes = ([p, i, p, i] + [p] * 8 + [i]
+                                         + [p] * 5 + [p, p])
         lib.ptrt_any_hit.restype = i
-        lib.ptrt_any_hit.argtypes = [p, i, p, i] + [p] * 7 + [i, p, p]
+        lib.ptrt_any_hit.argtypes = [p, i, p, i] + [p] * 7 + [i, p, p, p]
+        lib.ptrt_walk_counts.restype = i
+        lib.ptrt_walk_counts.argtypes = ([i, p, i, p, i] + [p] * 7 + [i]
+                                         + [p] * 6 + [p, p, p])
+        lib.ptrt_walk_info.restype = i
+        lib.ptrt_walk_info.argtypes = [i, p, p, p]
         lib.ptrt_tonemap_rgb8.restype = i
         lib.ptrt_tonemap_rgb8.argtypes = [p, p, p, i, i, ctypes.c_float, p, p]
         lib.ptrt_row_gather.restype = i

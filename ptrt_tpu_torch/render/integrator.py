@@ -5,8 +5,9 @@ Each bounce is four steps over every lane of the wavefront: the closest-hit
 walk (K1), ``shade_nee``, the NEE shadow walk (K2) and ``shade_scatter``
 (``render/shade.py``; on the card the two shading stages are the
 hand-written K3 kernels).  Terminated lanes stay in the wavefront as dead
-lanes: they trace with ``t_max = -1`` and come back as misses, and every
-accumulation is masked.  Radiometry matches the reference: Beer–Lambert
+lanes: K1 takes the alive plane (``traverse.closest_hit_live``), so they
+come back as misses at ``t = -1``, and every accumulation is masked.
+Radiometry matches the reference: Beer–Lambert
 interior absorption, emission on bounce 0 / after specular, one-sample NEE
 with power-2 MIS, Russian roulette from ``rr_start``, throughput soft clamp
 50, NEE clamp 500, final clamp 100.  With ``split`` the radiance is also
@@ -62,9 +63,8 @@ def trace_path(geom, materials, lights, n_lights: int, sky: SkyConfig,
 
     for bounce in range(max_depth):
         rays = rays + ps.alive.sum()
-        # dead lanes walk with t_max = -1 and return misses
-        k1 = traverse.closest_hit(geom, ps.o, ps.d,
-                                  torch.where(ps.alive, 1e30, -1.0))
+        # dead lanes return misses at t = -1
+        k1 = traverse.closest_hit_live(geom, ps.o, ps.d, ps.alive)
         nee = shade_nee(ps, geom, k1, materials, lights, n_lights, sky,
                         bounce)
         in_shadow = None

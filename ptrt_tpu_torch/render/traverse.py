@@ -1,11 +1,14 @@
 """Ray/scene intersection: the K1 (closest-hit) and K2 (any-hit) wrappers.
 
 Counterpart of ``ptrt_tpu/render/traverse.py`` on a flat ``SceneGeometry``.
-``closest_hit`` and ``any_hit`` launch the hand-written 8-wide BVH walks of
-``csrc/traverse.cu`` for CUDA tensors and run their plain versions — a
-chunked brute-force Möller–Trumbore over the SoA triangle views, after
-``traverse._brute_closest_state`` / ``_brute_any_state`` — for CPU tensors.
-There is no fallback between the two.
+``closest_hit``, ``closest_hit_live`` and ``any_hit`` launch the
+hand-written 8-wide BVH walks of ``csrc/traverse.cu`` for CUDA tensors and
+run their plain versions — a chunked brute-force Möller–Trumbore over the
+SoA triangle views, after ``traverse._brute_closest_state`` /
+``_brute_any_state`` — for CPU tensors.  There is no fallback between the
+two.  ``walk_counts`` (measurement only) runs a walk with a tally of the
+nodes it visits and the triangles it tests; its plain version is the
+kernel's walk itself, one ray at a time in numpy.
 
 ``intersect_closest`` / ``intersect_any`` keep the reference's entry-point
 contract (``Hit``, dead lanes with ``t_max <= 0`` return misses), with the
@@ -17,6 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass, fields
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ptrt_tpu_torch import kernels
@@ -32,6 +36,14 @@ BARY_EPS = 1e-6
 # plain-version tile: rays x triangle slots per elementwise pass
 _RAY_CHUNK = 4096
 _TRI_CHUNK = 2048
+# the counting walks: K1 near-first (the main path's), K1 in slot order,
+# K2 (the C entry's ``walk`` argument is the index)
+WALKS = ("closest", "closest_slot_order", "any")
+_ORDER_COL = 52  # first per-octant child-order column of a node row
+
+# the walks' ray counter, 4 bytes a device: zeroed on the stream before
+# each launch, so launches on one stream may share it
+_counters: dict[torch.device, torch.Tensor] = {}
 
 
 @dataclass(frozen=True)
@@ -74,16 +86,19 @@ def mt_test(v0: Vec3, e1: Vec3, e2: Vec3, o: Vec3, d: Vec3, t_min, t_max):
     return ok, t, u, v
 
 
-def _check_rays(geom: SceneGeometry, o: Vec3, d: Vec3, t_max: torch.Tensor):
+def _check_rays(geom: SceneGeometry, o: Vec3, d: Vec3, plane: torch.Tensor,
+                name: str = "t_max", dtype: torch.dtype = torch.float32):
+    """Raise unless the rays and their per-ray ``plane`` (t_max, or the
+    alive flags) are what the walks take.  Returns the ray count."""
     dev = geom.device
     kernels.require_supported(dev)
-    kernels.check_tensor("t_max", t_max, torch.float32, 1, dev)
-    n = t_max.shape[0]
-    for name, c in (("o.x", o.x), ("o.y", o.y), ("o.z", o.z), ("d.x", d.x),
-                    ("d.y", d.y), ("d.z", d.z)):
-        kernels.check_tensor(name, c, torch.float32, 1, dev)
+    kernels.check_tensor(name, plane, dtype, 1, dev)
+    n = plane.shape[0]
+    for cname, c in (("o.x", o.x), ("o.y", o.y), ("o.z", o.z), ("d.x", d.x),
+                     ("d.y", d.y), ("d.z", d.z)):
+        kernels.check_tensor(cname, c, torch.float32, 1, dev)
         if c.shape[0] != n:
-            raise ValueError(f"{name}: length {c.shape[0]} != t_max's {n}")
+            raise ValueError(f"{cname}: length {c.shape[0]} != {name}'s {n}")
     kernels.check_tensor("node_rows", geom.node_rows, torch.float32, 2, dev)
     kernels.check_tensor("tri_rows", geom.tri_rows, torch.float32, 2, dev)
     if geom.node_rows.shape[1] != 64:
@@ -93,16 +108,29 @@ def _check_rays(geom: SceneGeometry, o: Vec3, d: Vec3, t_max: torch.Tensor):
     return n
 
 
-def _ray_args(geom: SceneGeometry, o: Vec3, d: Vec3, t_max: torch.Tensor):
+def _ray_args(geom: SceneGeometry, o: Vec3, d: Vec3, t_max):
+    """The C entries' leading arguments (tables, rays, t_max or 0, and for
+    K1 the alive plane or 0 follows)."""
     lib = kernels.get_lib()
     if geom.stack_depth > lib.ptrt_max_stack():
         raise ValueError(f"BVH depth bound {geom.stack_depth} exceeds the "
                          f"walk's stack of {lib.ptrt_max_stack()}")
+    for name, rows in (("node_rows", geom.node_rows),
+                       ("tri_rows", geom.tri_rows)):
+        if rows.data_ptr() % 16:  # read as float4
+            raise ValueError(f"{name} must be 16-byte aligned")
     return [geom.node_rows.data_ptr(), geom.num_nodes,
             geom.tri_rows.data_ptr(), int(geom.tri_rows.shape[0]),
             o.x.data_ptr(), o.y.data_ptr(), o.z.data_ptr(),
             d.x.data_ptr(), d.y.data_ptr(), d.z.data_ptr(),
-            t_max.data_ptr(), int(t_max.shape[0])]
+            0 if t_max is None else t_max.data_ptr()]
+
+
+def _counter(dev: torch.device) -> int:
+    c = _counters.get(dev)
+    if c is None:
+        c = _counters[dev] = torch.empty(1, dtype=torch.int32, device=dev)
+    return c.data_ptr()
 
 
 # -- K1 ----------------------------------------------------------------------
@@ -117,17 +145,31 @@ def closest_hit(geom: SceneGeometry, o: Vec3, d: Vec3, t_max: torch.Tensor):
     n = _check_rays(geom, o, d, t_max)
     if geom.device.type == "cpu":
         return closest_hit_plain(geom, o, d, t_max)
+    return _closest_kernel(geom, o, d, t_max, None, n)
+
+
+def closest_hit_live(geom: SceneGeometry, o: Vec3, d: Vec3,
+                     alive: torch.Tensor):
+    """``closest_hit`` of the lanes flagged in ``alive`` (bool): a live lane
+    walks with t_max = ``T_MAX``, a dead one returns a miss at t = -1 — the
+    answer of ``closest_hit(geom, o, d, torch.where(alive, T_MAX, -1.0))``
+    without building that plane."""
+    n = _check_rays(geom, o, d, alive, "alive", torch.bool)
+    if geom.device.type == "cpu":
+        return closest_hit_plain(geom, o, d, torch.where(alive, T_MAX, -1.0))
+    return _closest_kernel(geom, o, d, None, alive, n)
+
+
+def _closest_kernel(geom, o, d, t_max, alive, n) -> Closest:
     dev = geom.device
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    slot = torch.empty(n, dtype=torch.int32, device=dev)
-    mesh = torch.empty_like(slot)
-    lib = kernels.get_lib()
-    rc = lib.ptrt_closest_hit(
-        *_ray_args(geom, o, d, t_max), t.data_ptr(), u.data_ptr(),
-        v.data_ptr(), slot.data_ptr(), mesh.data_ptr(),
-        kernels.stream_ptr(dev))
+    out = torch.empty((5, n), dtype=torch.float32, device=dev)
+    t, u, v = out[0], out[1], out[2]
+    slot, mesh = out[3].view(torch.int32), out[4].view(torch.int32)
+    args = _ray_args(geom, o, d, t_max)
+    rc = kernels.get_lib().ptrt_closest_hit(
+        *args, 0 if alive is None else alive.data_ptr(), n, t.data_ptr(),
+        u.data_ptr(), v.data_ptr(), slot.data_ptr(), mesh.data_ptr(),
+        _counter(dev), kernels.stream_ptr(dev))
     kernels.launches["closest_hit"] += 1
     kernels.check(rc, "closest_hit")
     return Closest(t, u, v, slot, mesh)
@@ -180,13 +222,14 @@ def any_hit(geom: SceneGeometry, o: Vec3, d: Vec3,
     n = _check_rays(geom, o, d, t_max)
     if geom.device.type == "cpu":
         return any_hit_plain(geom, o, d, t_max)
-    hit = torch.empty(n, dtype=torch.uint8, device=geom.device)
-    lib = kernels.get_lib()
-    rc = lib.ptrt_any_hit(*_ray_args(geom, o, d, t_max), hit.data_ptr(),
-                          kernels.stream_ptr(geom.device))
+    hit = torch.empty(n, dtype=torch.bool, device=geom.device)
+    args = _ray_args(geom, o, d, t_max)
+    rc = kernels.get_lib().ptrt_any_hit(*args, n, hit.data_ptr(),
+                                        _counter(geom.device),
+                                        kernels.stream_ptr(geom.device))
     kernels.launches["any_hit"] += 1
     kernels.check(rc, "any_hit")
-    return hit.bool()
+    return hit
 
 
 def any_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
@@ -207,6 +250,161 @@ def any_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
             ok = ok & geom.tri_shadow_opaque[None, cs]
             hit[rs] |= ok.any(dim=1)
     return hit
+
+
+# -- the walks with a tally (measurement only) -------------------------------
+
+
+class WalkCount(NamedTuple):
+    """A counting walk's answer (``Closest`` for K1, the bool plane for
+    K2) and the nodes it visited and triangles it tested over all rays."""
+
+    answer: object
+    nodes: int
+    tris: int
+
+
+def walk_counts(geom: SceneGeometry, o: Vec3, d: Vec3, t_max: torch.Tensor,
+                walk: str) -> WalkCount:
+    """Run one of ``WALKS`` with a tally: the main path's K1 ("closest",
+    near-first), K1 in slot order ("closest_slot_order") or K2 ("any").
+    The answer is the walk's own."""
+    kind = WALKS.index(walk)
+    n = _check_rays(geom, o, d, t_max)
+    if geom.device.type == "cpu":
+        return walk_counts_plain(geom, o, d, t_max, walk)
+    dev = geom.device
+    out = torch.empty((5, n), dtype=torch.float32, device=dev)
+    t, u, v = out[0], out[1], out[2]
+    slot, mesh = out[3].view(torch.int32), out[4].view(torch.int32)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    counts = torch.empty(2, dtype=torch.int64, device=dev)
+    rc = kernels.get_lib().ptrt_walk_counts(
+        kind, *_ray_args(geom, o, d, t_max), n, t.data_ptr(), u.data_ptr(),
+        v.data_ptr(), slot.data_ptr(), mesh.data_ptr(), hit.data_ptr(),
+        _counter(dev), counts.data_ptr(), kernels.stream_ptr(dev))
+    kernels.launches["walk_counts"] += 1
+    kernels.check(rc, "walk_counts")
+    nodes, tris = counts.tolist()
+    return WalkCount(hit if walk == "any" else Closest(t, u, v, slot, mesh),
+                     nodes, tris)
+
+
+def _mt8(v0, e1, e2, o, d):
+    """``mt_test`` in numpy float32 against the triangles of one leaf
+    (fields (3, L)), without the ``t < t_max`` test."""
+    hx = d[1] * e2[2] - d[2] * e2[1]
+    hy = d[2] * e2[0] - d[0] * e2[2]
+    hz = d[0] * e2[1] - d[1] * e2[0]
+    a = e1[0] * hx + e1[1] * hy + e1[2] * hz
+    valid = np.abs(a) > np.float32(MT_EPS)
+    f = np.float32(1.0) / np.where(valid, a, np.float32(1.0))
+    sx, sy, sz = o[0] - v0[0], o[1] - v0[1], o[2] - v0[2]
+    u = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1[2] - sz * e1[1]
+    qy = sz * e1[0] - sx * e1[2]
+    qz = sx * e1[1] - sy * e1[0]
+    v = f * (d[0] * qx + d[1] * qy + d[2] * qz)
+    t = f * (e2[0] * qx + e2[1] * qy + e2[2] * qz)
+    lo, hi = np.float32(-BARY_EPS), np.float32(1.0 + BARY_EPS)
+    ok = (valid & (u >= lo) & (u <= hi) & (v >= lo) & (u + v <= hi)
+          & (t > np.float32(T_MIN)))
+    return ok, t, u, v
+
+
+def _to_rank(m: int, order: int) -> int:
+    """Slot-space bitmask -> rank space: bit k is bit ``order[k]`` of m."""
+    return sum(((m >> ((order >> (3 * k)) & 7)) & 1) << k for k in range(8))
+
+
+def walk_counts_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
+                      t_max: torch.Tensor, walk: str) -> WalkCount:
+    """Plain version of ``walk_counts``: the kernel's walk itself, one ray
+    at a time in numpy float32 — the same nodes in the same order
+    (near-first by the ray octant's order word in columns 52:60, or slot
+    order), a node's hit leaves tested before it descends, t shrinking as
+    hits come in — so its tallies are the kernel's."""
+    kind = WALKS.index(walk)
+    ordered, any_hit = kind == 0, kind == 2
+    f32 = lambda c: c.detach().cpu().numpy().astype(np.float32)
+    rows = f32(geom.node_rows)
+    lo, hi = rows[:, 0:24].reshape(-1, 3, 8), rows[:, 24:48].reshape(-1, 3, 8)
+    meta = rows[:, 48:_ORDER_COL + 8].astype(np.int64)  # decoded by value
+    leaf = f32(geom.tri_rows).reshape(-1, 10, LEAF_SIZE)
+    packed = leaf[:, 9].astype(np.int64)
+    used = (packed >> 1) >= 0
+    if any_hit:
+        used &= (packed & 1) == 1
+    n_nodes, n_blocks = rows.shape[0], leaf.shape[0]
+    org = np.stack([f32(c) for c in (o.x, o.y, o.z)], 1)
+    dirs = np.stack([f32(c) for c in (d.x, d.y, d.z)], 1)
+    t_out = f32(t_max).copy()
+    n = t_out.shape[0]
+    u_out, v_out = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    slot_out, mesh_out = np.full(n, -1, np.int32), np.full(n, -1, np.int32)
+    hit_out = np.zeros(n, bool)
+    bits = 1 << np.arange(8)
+    nodes = tris = 0
+    for i in range(n):
+        t = t_out[i]
+        if not t > 0.0:
+            continue
+        ro, rd = org[i], dirs[i]
+        inv = np.float32(1.0) / (rd + np.where(rd >= 0.0, np.float32(1e-12),
+                                               np.float32(-1e-12)))
+        octant = int(rd[0] < 0) | int(rd[1] < 0) << 1 | int(rd[2] < 0) << 2
+        base, mask, order, stack = 0, 1, 0, []
+        done = False
+        while not done:
+            rank = (mask & -mask).bit_length() - 1
+            mask &= mask - 1
+            node = base + ((order >> (3 * rank)) & 7 if ordered else rank)
+            if 0 <= node < n_nodes:
+                nodes += 1
+                cba, lb, lmask, imask = (int(x) for x in meta[node, :4])
+                row_order = int(meta[node, 4 + octant]) if ordered else 0
+                t0 = (lo[node] - ro[:, None]) * inv[:, None]
+                t1 = (hi[node] - ro[:, None]) * inv[:, None]
+                te = np.fmax(np.float32(0.0),
+                             np.fmax.reduce(np.fmin(t0, t1), axis=0))
+                tx = np.fmin(t, np.fmin.reduce(np.fmax(t0, t1), axis=0))
+                hitm = int(bits[te <= tx].sum()) & (lmask | imask)
+                leaves = hitm & lmask
+                while leaves and not done:
+                    blk = lb + (leaves & -leaves).bit_length() - 1
+                    leaves &= leaves - 1
+                    if not 0 <= blk < n_blocks:
+                        continue
+                    f = leaf[blk]
+                    ok, tt, uu, vv = _mt8(f[0:3], f[3:6], f[6:9], ro, rd)
+                    for j in np.flatnonzero(used[blk]):
+                        tris += 1
+                        if not (ok[j] and tt[j] < t):
+                            continue
+                        if any_hit:
+                            hit_out[i] = done = True
+                            break
+                        t = tt[j]
+                        u_out[i], v_out[i] = uu[j], vv[j]
+                        slot_out[i] = blk * LEAF_SIZE + j
+                        mesh_out[i] = packed[blk, j] >> 1
+                ints = hitm & imask
+                if ints and not done:
+                    if mask:
+                        stack.append((base, mask, order))
+                    base, order = cba, row_order
+                    mask = _to_rank(ints, row_order) if ordered else ints
+            if mask == 0 and not done:
+                if not stack:
+                    break
+                base, mask, order = stack.pop()
+        t_out[i] = t
+    dev = t_max.device
+    if any_hit:
+        return WalkCount(torch.from_numpy(hit_out).to(dev), nodes, tris)
+    tt = lambda a: torch.from_numpy(a).to(dev)
+    return WalkCount(Closest(tt(t_out), tt(u_out), tt(v_out), tt(slot_out),
+                             tt(mesh_out)), nodes, tris)
 
 
 # -- entry points ------------------------------------------------------------

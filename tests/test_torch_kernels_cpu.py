@@ -97,6 +97,45 @@ def test_any_hit_uses_plain_on_cpu(geom, no_kernels):
     assert got.any() and not got.all()
 
 
+def test_closest_hit_live_uses_plain_on_cpu(geom, no_kernels):
+    o, d, _ = _rays(300, 2)
+    alive = torch.arange(300) % 5 != 0
+    got = traverse.closest_hit_live(geom, o, d, alive)
+    want = traverse.closest_hit_plain(geom, o, d,
+                                      torch.where(alive, 1e30, -1.0))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (got.slot[alive] >= 0).any() and (got.slot[~alive] < 0).all()
+
+
+@pytest.mark.parametrize("walk", traverse.WALKS)
+def test_walk_counts_uses_plain_on_cpu(geom, no_kernels, walk):
+    o, d, t = _rays(40, 3)
+    got = traverse.walk_counts(geom, o, d, t, walk)
+    want = traverse.walk_counts_plain(geom, o, d, t, walk)
+    assert (got.nodes, got.tris) == (want.nodes, want.tris) and got.nodes > 0
+    pairs = [(got.answer, want.answer)] if walk == "any" else zip(
+        got.answer, want.answer)
+    for a, b in pairs:
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["float alive", "short alive", "2-D alive"])
+def test_closest_hit_live_refuses_bad_alive(geom, no_kernels, bad):
+    o, d, _ = _rays(30)
+    alive = {"float alive": torch.ones(30),
+             "short alive": torch.ones(29, dtype=torch.bool),
+             "2-D alive": torch.ones(6, 5, dtype=torch.bool)}[bad]
+    with pytest.raises((TypeError, ValueError)):
+        traverse.closest_hit_live(geom, o, d, alive)
+
+
+def test_walk_counts_refuses_unknown_walk(geom, no_kernels):
+    o, d, t = _rays(8)
+    with pytest.raises(ValueError):
+        traverse.walk_counts(geom, o, d, t, "nearest")
+
+
 def test_tonemap_uses_plain_on_cpu(no_kernels):
     hdr = Vec3(*[torch.from_numpy(c) for c in _hdr(12, 20, 3)])
     assert torch.equal(pipeline.tonemap_rgb8(hdr, 0.5),

@@ -9,6 +9,11 @@ rtol=1e-4 on hits — the bound the reference holds its own BVH walk to
 against brute force (tests/test_geometry.py) — and the any-hit flag exactly
 equal.  u, v are not compared: at pre-split seams coplanar triangles tie
 and either walk may pick either.
+
+The CUDA walks rely on the node rows' per-octant child orders (columns
+52:60) and are measured by counting walks whose plain version is the walk
+itself, one ray at a time: both are checked here, with the live-lane entry
+``closest_hit_live``.
 """
 
 import dataclasses
@@ -24,8 +29,10 @@ from ptrt_tpu.core.vec import Vec3 as RefVec3
 from ptrt_tpu.render import traverse as ref_traverse
 
 from ptrt_tpu_torch import tables
+from ptrt_tpu_torch.app.bench_scene import build_bench_scene
 from ptrt_tpu_torch.core.vec import Vec3
 from ptrt_tpu_torch.render import traverse
+from ptrt_tpu_torch.tools.walks import wavefronts
 from test_torch_shading import torch_one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
@@ -160,3 +167,109 @@ def test_any_hit_skips_transmissive_occluders(scene):
     got = traverse.any_hit(geom, _vec(o), _vec(d),
                            torch.tensor([5.0, 5.0]))
     assert got.tolist() == [True, False]
+
+
+@pytest.mark.parametrize("kind", ["random", "camera"])
+def test_closest_hit_live_matches_t_max_plane(scene, kind):
+    """The alive-plane entry answers as closest_hit does with the plane
+    torch.where(alive, 1e30, -1), and so as the reference's walk."""
+    sc, geom = scene
+    o, d, t_max = _rays(sc, kind)
+    alive = torch.from_numpy(t_max > 0)
+    got = traverse.closest_hit_live(geom, _vec(o), _vec(d), alive)
+    want = traverse.closest_hit(geom, _vec(o), _vec(d),
+                                torch.where(alive, 1e30, -1.0))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    ref = jax.jit(lambda g, oo, dd, tt: ref_traverse.intersect_closest(
+        g, oo, dd, tt))(sc._geom, _ref_vec(o), _ref_vec(d),
+                        jnp.asarray(t_max))
+    hit = got.slot.numpy() >= 0
+    assert np.array_equal(hit, np.asarray(ref.hit)) and hit.mean() > 0.2
+    assert np.array_equal(got.mesh.numpy(), np.asarray(ref.mesh_index))
+    np.testing.assert_allclose(got.t.numpy()[hit], np.asarray(ref.t)[hit],
+                               rtol=1e-4)
+    assert (got.t.numpy()[~alive.numpy()] == -1.0).all()
+
+
+@pytest.mark.parametrize("n", [0, 37])
+def test_any_hit_returns_bool(scene, n):
+    _, geom = scene
+    o, d = _random_rays(n, 5)
+    got = traverse.any_hit(geom, _vec(o), _vec(d),
+                           torch.full((n,), 8.0, dtype=torch.float32))
+    assert got.dtype == torch.bool and got.shape == (n,)
+
+
+def _popcount(m):
+    return np.array([bin(int(x)).count("1") for x in m])
+
+
+@pytest.mark.parametrize("target_tris", [2000, 60_000])
+def test_node_order_words_are_permutations(target_tris):
+    """For every node row and octant, column 52 + o decodes by value to a
+    permutation of 0..7 whose first leaf_count + int_count entries are the
+    used slots — what K1's near-first descent relies on."""
+    sc = build_bench_scene(32, 24, target_tris=target_tris, device="cpu")
+    sc._ensure_device_state()
+    rows = sc._geom.node_rows.numpy()
+    meta = rows[:, 48:60].astype(np.int64)
+    assert np.array_equal(meta, rows[:, 48:60])  # exact small ints
+    lmask, imask = meta[:, 2], meta[:, 3]
+    used = _popcount(lmask) + _popcount(imask)
+    # the layout contract: leaves in slots [0, lc), internals after them
+    assert np.array_equal(lmask, (1 << _popcount(lmask)) - 1)
+    assert np.array_equal(lmask | imask, (1 << used) - 1)
+    assert (lmask & imask == 0).all() and (used >= 1).all()
+    for o in range(8):
+        word = meta[:, 4 + o]
+        assert ((word >= 0) & (word < 1 << 24)).all()
+        slots = (word[:, None] >> (3 * np.arange(8))[None, :]) & 7
+        assert (np.sort(slots, axis=1) == np.arange(8)).all()
+        first = np.arange(8)[None, :] < used[:, None]
+        assert (np.where(first, slots, -1).max(1) == used - 1).all()
+        rest = np.where(first, 8, slots).min(1)
+        assert (rest[used < 8] == used[used < 8]).all()
+
+
+@pytest.mark.parametrize("kind", ["random", "camera"])
+@pytest.mark.parametrize("walk", traverse.WALKS)
+def test_walk_counts_plain_matches_brute_force(scene, kind, walk):
+    """The counting walk's plain version (the kernel's walk, one ray at a
+    time) finds the brute force's hits, in either child order."""
+    sc, geom = scene
+    o, d, t_max = _rays(sc, kind)
+    t = torch.from_numpy(t_max)
+    if walk == "any":
+        t = torch.from_numpy(np.where(
+            t_max > 0, np.random.default_rng(3).uniform(0.5, 12.0, t.shape),
+            -1.0).astype(np.float32))
+    got = traverse.walk_counts(geom, _vec(o), _vec(d), t, walk)
+    live = int((t > 0).sum())
+    assert live <= got.nodes and got.tris > 0
+    if walk == "any":
+        want = traverse.any_hit(geom, _vec(o), _vec(d), t)
+        assert got.answer.dtype == torch.bool
+        assert torch.equal(got.answer, want)
+        return
+    want = traverse.closest_hit(geom, _vec(o), _vec(d), t)
+    assert torch.equal(got.answer.slot >= 0, want.slot >= 0)
+    assert torch.equal(got.answer.mesh, want.mesh)
+    hit = want.slot >= 0
+    np.testing.assert_allclose(got.answer.t[hit].numpy(),
+                               want.t[hit].numpy(), rtol=1e-4)
+    assert torch.equal(got.answer.t[~hit], want.t[~hit])
+
+
+def test_near_first_visits_fewer_nodes():
+    """On camera rays of a 60k-triangle bench scene, near-first descent
+    visits fewer nodes and tests fewer triangles than slot order, and
+    finds the same hits."""
+    sc = build_bench_scene(40, 30, target_tris=60_000, device="cpu")
+    _, o, d, t = wavefronts(sc)[0]
+    near = traverse.walk_counts(sc._geom, o, d, t, "closest")
+    slot = traverse.walk_counts(sc._geom, o, d, t, "closest_slot_order")
+    assert near.nodes < slot.nodes and near.tris < slot.tris
+    assert torch.equal(near.answer.mesh, slot.answer.mesh)
+    np.testing.assert_allclose(near.answer.t.numpy(), slot.answer.t.numpy(),
+                               rtol=1e-6)
