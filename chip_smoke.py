@@ -15,12 +15,13 @@ Phases (any failure raises, so the exit code is non-zero):
      triangle bench scene, and on the full scene's four 1920x1080
      wavefronts (camera, bounce 1, bounce 3 of a sample's PathState,
      shadow): on a 4096-ray sample, at full width held at those rays to
-     the plain answers, permuted (bit for bit the unpermuted answers),
-     through the alive plane (K1, bit for bit the t_max plane's), timed,
-     and counted (nodes visited and triangles tested a ray, K1 also in
-     slot order; the counting walk held to its plain walk on 256 rays);
-     the walks' registers and occupancy; K6
-     tonemap_rgb8 on a 1920x1080 HDR frame; row_gather (off the main path
+     the plain answers, permuted and on two streams at once (bit for bit
+     the unpermuted answers), through the alive plane (K1, bit for bit
+     the t_max plane's), timed beside each wavefront's own bound, and
+     counted (nodes visited and triangles tested a ray, K1 also in slot
+     order; the counting walk held to its plain walk on 256 rays); the
+     walks' registers and occupancy; K6 tonemap_rgb8 on a 1920x1080 HDR
+     frame; row_gather (off the main path
      since K3) at the Pallas probes' shapes
      (ptrt_tpu_torch/tools/probe_gather.py) and at the material gather's
      (the scene's table, 2,073,600 ids), bit for bit;
@@ -49,8 +50,9 @@ Phases (any failure raises, so the exit code is non-zero):
      rendered on the GPU and on the CPU (plain versions) must agree.
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
-over 67 TFLOP/s, whichever is larger (the walks: rays, answers and the
-BVH's rows read once, at the full 2,073,600-ray wavefront).  The line
+over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
+plane for every ray, origin and direction only for its live rays, the
+answers, and the BVH's rows read once).  The line
 before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Without a GPU, or outside the repository,
 the script fails.
@@ -441,6 +443,18 @@ def compare_walk(tag, got, want, stats):
     stats["max_abs_err"] = max(stats["max_abs_err"], max_err)
 
 
+def walk_bound(geom, n: int, live: int, plane_bytes: int,
+               shadow: bool) -> dict:
+    """The bound of one walk over a wavefront of ``n`` rays of which
+    ``live`` are live: the ray plane read for every ray (``plane_bytes``: 1
+    for the alive flags, 4 for t_max), origin and direction (24 bytes) for
+    the live rays only (a dead lane never loads them), the answers written
+    for every ray (K1: t, u, v, slot, mesh; K2: a byte), and the BVH's node
+    and triangle rows read once."""
+    return bound(n * (plane_bytes + (1 if shadow else 20)) + live * 24
+                 + nbytes(geom.node_rows, geom.tri_rows))
+
+
 def walk_stats(rays, stats):
     return stats["any_hit" if rays[0] == "shadow" else "closest_hit"]
 
@@ -494,10 +508,12 @@ def check_full_walks(full, rng, card, stats):
     wavefronts (camera, bounce 1, bounce 3 of a sample's PathState, shadow)
     each on a SAMPLE_RAYS sample against the plain version, at full width
     held at the sampled rays to those plain answers, permuted (answers bit
-    for bit the unpermuted run's), through the live-lane entry (K1: bit for
-    bit the t_max plane's), timed at full width, and counted; adds the
+    for bit the unpermuted run's), on two streams at once (bit for bit),
+    through the live-lane entry (K1: bit for bit the t_max plane's), timed
+    at full width, and counted; adds the
     mismatches and the largest t error into ``stats``.  Returns the kernel
-    table's numbers."""
+    table's numbers, each time with the bound of its own entry and
+    wavefront."""
     import torch
     from ptrt_tpu_torch.render import traverse
     from ptrt_tpu_torch.tools.walks import late_bounce, wavefronts
@@ -510,7 +526,8 @@ def check_full_walks(full, rng, card, stats):
     n = rays[0][3].numel()
     idx = torch.from_numpy(rng.choice(n, min(n, SAMPLE_RAYS),
                                       replace=False)).to(g.device)
-    res = {"ms": {}, "live_ms": {}, "counts": {}, "live": {}}
+    res = {"ms": {}, "live_ms": {}, "counts": {}, "live": {}, "bound": {},
+           "live_bound": {}}
     for r in rays:
         name, o, d, t = r
         st = walk_stats(r, stats)
@@ -526,24 +543,39 @@ def check_full_walks(full, rng, card, stats):
                      for x, y in zip(got, shuffled))
         assert all(torch.equal(a, b) for a, b in zip(back, got)), (
             f"{name}: a permuted wavefront's answers differ")
+        # the same walk on two streams at once: each launch takes its rays
+        # from a counter of its own
+        both = []
+        for s in (torch.cuda.Stream(g.device), torch.cuda.Stream(g.device)):
+            s.wait_stream(torch.cuda.current_stream(g.device))
+            with torch.cuda.stream(s):
+                both.append(walk(g, r))
+        torch.cuda.synchronize(g.device)
+        assert all(torch.equal(a, b) for ans in both
+                   for a, b in zip(ans, got)), (
+            f"{name}: walks on two streams at once differ")
         if name != "shadow":
             live = traverse.closest_hit_live(g, o, d, t > 0)
             assert all(torch.equal(a, b) for a, b in zip(live, got)), (
                 f"{name}: closest_hit_live differs from closest_hit")
         res["ms"][name] = cuda_ms(lambda r=r: walk(g, r), 20)
-        res["live"][name] = int((t > 0).sum())
+        live = res["live"][name] = int((t > 0).sum())
+        res["bound"][name] = walk_bound(g, n, live, 4, name == "shadow")
         live_ms = ""
         if name != "shadow":
             res["live_ms"][name] = cuda_ms(
                 lambda o=o, d=d, a=t > 0: traverse.closest_hit_live(g, o, d, a),
                 20)
+            res["live_bound"][name] = walk_bound(g, n, live, 1, False)
             live_ms = (f", {res['live_ms'][name]:.4f} ms through the alive "
-                       f"plane")
+                       f"plane (bound "
+                       f"{res['live_bound'][name]['bound_ms']:.4f} ms)")
         log(f"  {'K2' if name == 'shadow' else 'K1'} full {name}: {n} rays "
-            f"({res['live'][name]} live), bit-identical when permuted"
+            f"({live} live), bit-identical when permuted, on two streams"
             f"{'' if name == 'shadow' else ' and through the alive plane'}; "
             f"{res['ms'][name]:.4f} ms ({n / res['ms'][name] / 1e3:.1f} "
-            f"Mrays/s){live_ms} [{card}]")
+            f"Mrays/s; bound {res['bound'][name]['bound_ms']:.4f} ms, "
+            f"{res['bound'][name]['bound_by']}){live_ms} [{card}]")
         res["counts"][name] = check_counts(g, r, idx)
     # times on the same sample: kernel and plain
     _, o, d, t = take(rays[1], idx)
@@ -1086,20 +1118,19 @@ def main() -> int:
         f"nodes, stack bound {full._geom.stack_depth}; set-up {setup_s:.2f} s")
     walks = check_full_walks(full, rng, card, stats)
     info = walk_info()
-    # the walks' bound: rays (origin, direction, t_max) and answers (K1: t,
-    # u, v, slot, mesh; K2: a byte) at these widths, and the BVH's node and
-    # triangle rows each read once
-    g = full._geom
-    rows = nbytes(g.node_rows, g.tri_rows)
-    walk_bound = lambda n, shadow: bound(n * (28 + (1 if shadow else 20))
-                                         + rows)
-    k1_bound, k2_bound = walk_bound(W * H, False), walk_bound(W * H, True)
+    # the kernel table's walk times and their bounds: K1 on the bounce-1
+    # rays through the alive plane (as the bounce loop calls it), K2 on the
+    # shadow rays
+    k1_bound = walks["live_bound"]["bounce"]
+    k2_bound = walks["bound"]["shadow"]
     log(f"  K1 bounce sample: kernel {walks['k1_sample_ms']:.4f} ms vs plain "
         f"{walks['k1_plain_ms']:.2f} ms on {SAMPLE_RAYS} rays; K2 shadow "
         f"sample: kernel {walks['k2_sample_ms']:.4f} ms vs plain "
-        f"{walks['k2_plain_ms']:.2f} ms; bounds at {W * H} rays: K1 "
-        f"{k1_bound['bound_ms']:.4f} ms, K2 {k2_bound['bound_ms']:.4f} ms "
-        f"({k1_bound['bound_by']}) [{card}]")
+        f"{walks['k2_plain_ms']:.2f} ms; at {W * H} rays K1 bounce 1 "
+        f"through the alive plane {walks['live_ms']['bounce']:.4f} ms "
+        f"(bound {k1_bound['bound_ms']:.4f} ms, {k1_bound['bound_by']}), K2 "
+        f"shadow {walks['ms']['shadow']:.4f} ms (bound "
+        f"{k2_bound['bound_ms']:.4f} ms, {k2_bound['bound_by']}) [{card}]")
     for k, v in info.items():
         log(f"  {k}: {v['registers']} registers, {v['local_bytes']} bytes of "
             f"local memory a thread, {v['blocks_per_sm']} resident blocks of "
@@ -1314,12 +1345,18 @@ def main() -> int:
         {"name": "closest_hit", "route": "cuda", "source": src("traverse.cu"),
          "replaces": "ptrt_tpu/render/traverse.py:1267",
          **both("closest_hit"), **stats["closest_hit"],
-         "ms": walks["live_ms"]["bounce"], "rays": W * H, **k1_bound,
+         "ms": walks["live_ms"]["bounce"], "rays": W * H,
+         "live_rays": walks["live"]["bounce"], **k1_bound,
          "plain_ms": walks["k1_plain_ms"], "sample_ms": walks["k1_sample_ms"],
          "plain_rays": SAMPLE_RAYS, "library_ms": None,
          "wavefront_ms": walks["live_ms"],
+         "wavefront_bound_ms": {k: v["bound_ms"]
+                                for k, v in walks["live_bound"].items()},
          "t_max_plane_ms": {k: v for k, v in walks["ms"].items()
                             if k != "shadow"},
+         "t_max_plane_bound_ms": {k: v["bound_ms"]
+                                  for k, v in walks["bound"].items()
+                                  if k != "shadow"},
          "per_ray": {k: v for k, v in walks["counts"].items()
                      if k != "shadow"},
          **info["closest_hit"],
@@ -1327,7 +1364,8 @@ def main() -> int:
         {"name": "any_hit", "route": "cuda", "source": src("traverse.cu"),
          "replaces": "ptrt_tpu/render/traverse.py:1601",
          **both("any_hit"), **stats["any_hit"],
-         "ms": walks["ms"]["shadow"], "rays": W * H, **k2_bound,
+         "ms": walks["ms"]["shadow"], "rays": W * H,
+         "live_rays": walks["live"]["shadow"], **k2_bound,
          "plain_ms": walks["k2_plain_ms"], "sample_ms": walks["k2_sample_ms"],
          "plain_rays": SAMPLE_RAYS, "library_ms": None,
          "per_ray": walks["counts"]["shadow"]["any"], **info["any_hit"]},

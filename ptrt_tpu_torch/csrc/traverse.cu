@@ -25,10 +25,11 @@
 //    (the reference's _descend with ``octant``).  K2 keeps slot order: any
 //    hit ends it, as in the reference's unordered any-hit walk;
 //  * persistent warps: the grid fills the card once (SMs x resident
-//    blocks), and each warp takes its next 32 rays with one atomicAdd on a
-//    counter that the C entry zeroes on the stream before the launch, so a
-//    warp never waits for the other warps of its block and no block is
-//    scheduled after the first wave.  Refilling single finished lanes at
+//    blocks), and each warp takes its next 32 rays with one atomicAdd on
+//    the call's own counter (4 bytes the wrapper allocates for each call,
+//    zeroed here on the stream before the launch, so launches on other
+//    streams never share it), so a warp never waits for the other warps
+//    of its block and no block is scheduled after the first wave.  Refilling single finished lanes at
 //    once, or once fewer than 8, 16 or 24 lanes walk, measured slower: the
 //    lanes of a warp then walk unrelated rays and stop sharing node rows;
 //  * occupancy: __launch_bounds__ holds K1 to 7 and K2 to 9 resident

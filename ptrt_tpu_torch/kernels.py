@@ -61,22 +61,8 @@ def get_lib() -> ctypes.CDLL:
             {src: [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS[os.path.basename(src)],
                    "-c", src] for src in SOURCES},
             [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a"])
-        lib = ctypes.CDLL(path)
+        lib = bind_walks(ctypes.CDLL(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ptrt_max_stack.restype = i
-        lib.ptrt_max_stack.argtypes = []
-        lib.ptrt_error_string.restype = ctypes.c_char_p
-        lib.ptrt_error_string.argtypes = [i]
-        lib.ptrt_closest_hit.restype = i
-        lib.ptrt_closest_hit.argtypes = ([p, i, p, i] + [p] * 8 + [i]
-                                         + [p] * 5 + [p, p])
-        lib.ptrt_any_hit.restype = i
-        lib.ptrt_any_hit.argtypes = [p, i, p, i] + [p] * 7 + [i, p, p, p]
-        lib.ptrt_walk_counts.restype = i
-        lib.ptrt_walk_counts.argtypes = ([i, p, i, p, i] + [p] * 7 + [i]
-                                         + [p] * 6 + [p, p, p])
-        lib.ptrt_walk_info.restype = i
-        lib.ptrt_walk_info.argtypes = [i, p, p, p]
         lib.ptrt_tonemap_rgb8.restype = i
         lib.ptrt_tonemap_rgb8.argtypes = [p, p, p, i, i, ctypes.c_float, p, p]
         lib.ptrt_row_gather.restype = i
@@ -94,6 +80,27 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_shade_scatter.argtypes = [p, p]
         _lib = lib
     return _lib
+
+
+def bind_walks(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``csrc/traverse.cu`` (the walks, the stack
+    bound, the error string) on a library that holds it."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ptrt_max_stack.restype = i
+    lib.ptrt_max_stack.argtypes = []
+    lib.ptrt_error_string.restype = ctypes.c_char_p
+    lib.ptrt_error_string.argtypes = [i]
+    lib.ptrt_closest_hit.restype = i
+    lib.ptrt_closest_hit.argtypes = ([p, i, p, i] + [p] * 8 + [i] + [p] * 5
+                                     + [p, p])
+    lib.ptrt_any_hit.restype = i
+    lib.ptrt_any_hit.argtypes = [p, i, p, i] + [p] * 7 + [i, p, p, p]
+    lib.ptrt_walk_counts.restype = i
+    lib.ptrt_walk_counts.argtypes = ([i, p, i, p, i] + [p] * 7 + [i]
+                                     + [p] * 6 + [p, p, p])
+    lib.ptrt_walk_info.restype = i
+    lib.ptrt_walk_info.argtypes = [i, p, p, p]
+    return lib
 
 
 def check(rc: int, name: str) -> None:

@@ -8,7 +8,7 @@ SoA triangle views, after ``traverse._brute_closest_state`` /
 ``_brute_any_state`` — for CPU tensors.  There is no fallback between the
 two.  ``walk_counts`` (measurement only) runs a walk with a tally of the
 nodes it visits and the triangles it tests; its plain version is the
-kernel's walk itself, one ray at a time in numpy.
+kernel's walk itself, one ray at a time on the host.
 
 ``intersect_closest`` / ``intersect_any`` keep the reference's entry-point
 contract (``Hit``, dead lanes with ``t_max <= 0`` return misses), with the
@@ -40,10 +40,6 @@ _TRI_CHUNK = 2048
 # K2 (the C entry's ``walk`` argument is the index)
 WALKS = ("closest", "closest_slot_order", "any")
 _ORDER_COL = 52  # first per-octant child-order column of a node row
-
-# the walks' ray counter, 4 bytes a device: zeroed on the stream before
-# each launch, so launches on one stream may share it
-_counters: dict[torch.device, torch.Tensor] = {}
 
 
 @dataclass(frozen=True)
@@ -126,11 +122,12 @@ def _ray_args(geom: SceneGeometry, o: Vec3, d: Vec3, t_max):
             0 if t_max is None else t_max.data_ptr()]
 
 
-def _counter(dev: torch.device) -> int:
-    c = _counters.get(dev)
-    if c is None:
-        c = _counters[dev] = torch.empty(1, dtype=torch.int32, device=dev)
-    return c.data_ptr()
+def _counter(dev: torch.device) -> torch.Tensor:
+    """A walk's ray counter: 4 bytes of its own for each launch (the C entry
+    zeroes it on the stream), so walks on different streams, or a captured
+    graph beside eager work, never take each other's rays.  The caching
+    allocator orders its reuse by stream and launches nothing."""
+    return torch.empty(1, dtype=torch.int32, device=dev)
 
 
 # -- K1 ----------------------------------------------------------------------
@@ -166,10 +163,11 @@ def _closest_kernel(geom, o, d, t_max, alive, n) -> Closest:
     t, u, v = out[0], out[1], out[2]
     slot, mesh = out[3].view(torch.int32), out[4].view(torch.int32)
     args = _ray_args(geom, o, d, t_max)
+    counter = _counter(dev)
     rc = kernels.get_lib().ptrt_closest_hit(
         *args, 0 if alive is None else alive.data_ptr(), n, t.data_ptr(),
         u.data_ptr(), v.data_ptr(), slot.data_ptr(), mesh.data_ptr(),
-        _counter(dev), kernels.stream_ptr(dev))
+        counter.data_ptr(), kernels.stream_ptr(dev))
     kernels.launches["closest_hit"] += 1
     kernels.check(rc, "closest_hit")
     return Closest(t, u, v, slot, mesh)
@@ -224,8 +222,9 @@ def any_hit(geom: SceneGeometry, o: Vec3, d: Vec3,
         return any_hit_plain(geom, o, d, t_max)
     hit = torch.empty(n, dtype=torch.bool, device=geom.device)
     args = _ray_args(geom, o, d, t_max)
+    counter = _counter(geom.device)
     rc = kernels.get_lib().ptrt_any_hit(*args, n, hit.data_ptr(),
-                                        _counter(geom.device),
+                                        counter.data_ptr(),
                                         kernels.stream_ptr(geom.device))
     kernels.launches["any_hit"] += 1
     kernels.check(rc, "any_hit")
@@ -279,37 +278,16 @@ def walk_counts(geom: SceneGeometry, o: Vec3, d: Vec3, t_max: torch.Tensor,
     slot, mesh = out[3].view(torch.int32), out[4].view(torch.int32)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     counts = torch.empty(2, dtype=torch.int64, device=dev)
+    counter = _counter(dev)
     rc = kernels.get_lib().ptrt_walk_counts(
         kind, *_ray_args(geom, o, d, t_max), n, t.data_ptr(), u.data_ptr(),
         v.data_ptr(), slot.data_ptr(), mesh.data_ptr(), hit.data_ptr(),
-        _counter(dev), counts.data_ptr(), kernels.stream_ptr(dev))
+        counter.data_ptr(), counts.data_ptr(), kernels.stream_ptr(dev))
     kernels.launches["walk_counts"] += 1
     kernels.check(rc, "walk_counts")
     nodes, tris = counts.tolist()
     return WalkCount(hit if walk == "any" else Closest(t, u, v, slot, mesh),
                      nodes, tris)
-
-
-def _mt8(v0, e1, e2, o, d):
-    """``mt_test`` in numpy float32 against the triangles of one leaf
-    (fields (3, L)), without the ``t < t_max`` test."""
-    hx = d[1] * e2[2] - d[2] * e2[1]
-    hy = d[2] * e2[0] - d[0] * e2[2]
-    hz = d[0] * e2[1] - d[1] * e2[0]
-    a = e1[0] * hx + e1[1] * hy + e1[2] * hz
-    valid = np.abs(a) > np.float32(MT_EPS)
-    f = np.float32(1.0) / np.where(valid, a, np.float32(1.0))
-    sx, sy, sz = o[0] - v0[0], o[1] - v0[1], o[2] - v0[2]
-    u = f * (sx * hx + sy * hy + sz * hz)
-    qx = sy * e1[2] - sz * e1[1]
-    qy = sz * e1[0] - sx * e1[2]
-    qz = sx * e1[1] - sy * e1[0]
-    v = f * (d[0] * qx + d[1] * qy + d[2] * qz)
-    t = f * (e2[0] * qx + e2[1] * qy + e2[2] * qz)
-    lo, hi = np.float32(-BARY_EPS), np.float32(1.0 + BARY_EPS)
-    ok = (valid & (u >= lo) & (u <= hi) & (v >= lo) & (u + v <= hi)
-          & (t > np.float32(T_MIN)))
-    return ok, t, u, v
 
 
 def _to_rank(m: int, order: int) -> int:
@@ -320,7 +298,8 @@ def _to_rank(m: int, order: int) -> int:
 def walk_counts_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
                       t_max: torch.Tensor, walk: str) -> WalkCount:
     """Plain version of ``walk_counts``: the kernel's walk itself, one ray
-    at a time in numpy float32 — the same nodes in the same order
+    at a time in float32 on the host (the triangles of a leaf through
+    ``mt_test``) — the same nodes in the same order
     (near-first by the ray octant's order word in columns 52:60, or slot
     order), a node's hit leaves tested before it descends, t shrinking as
     hits come in — so its tallies are the kernel's."""
@@ -330,8 +309,8 @@ def walk_counts_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
     rows = f32(geom.node_rows)
     lo, hi = rows[:, 0:24].reshape(-1, 3, 8), rows[:, 24:48].reshape(-1, 3, 8)
     meta = rows[:, 48:_ORDER_COL + 8].astype(np.int64)  # decoded by value
-    leaf = f32(geom.tri_rows).reshape(-1, 10, LEAF_SIZE)
-    packed = leaf[:, 9].astype(np.int64)
+    leaf = geom.tri_rows.detach().cpu().float().reshape(-1, 10, LEAF_SIZE)
+    packed = leaf[:, 9].numpy().astype(np.int64)
     used = (packed >> 1) >= 0
     if any_hit:
         used &= (packed & 1) == 1
@@ -350,6 +329,7 @@ def walk_counts_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
         if not t > 0.0:
             continue
         ro, rd = org[i], dirs[i]
+        ray_o, ray_d = Vec3(*torch.from_numpy(ro)), Vec3(*torch.from_numpy(rd))
         inv = np.float32(1.0) / (rd + np.where(rd >= 0.0, np.float32(1e-12),
                                                np.float32(-1e-12)))
         octant = int(rd[0] < 0) | int(rd[1] < 0) << 1 | int(rd[2] < 0) << 2
@@ -376,7 +356,9 @@ def walk_counts_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
                     if not 0 <= blk < n_blocks:
                         continue
                     f = leaf[blk]
-                    ok, tt, uu, vv = _mt8(f[0:3], f[3:6], f[6:9], ro, rd)
+                    ok, tt, uu, vv = (x.numpy() for x in mt_test(
+                        Vec3(*f[0:3]), Vec3(*f[3:6]), Vec3(*f[6:9]), ray_o,
+                        ray_d, T_MIN, torch.inf))
                     for j in np.flatnonzero(used[blk]):
                         tris += 1
                         if not (ok[j] and tt[j] < t):

@@ -1,2 +1,18 @@
 """Probes and measurement tools of the port; each runs as a module
 (``python -m ptrt_tpu_torch.tools.<name>``)."""
+
+import torch
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device ms of ``fn()`` over ``iters`` calls after one warm-up,
+    timed with CUDA events."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

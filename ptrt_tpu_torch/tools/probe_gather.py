@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ptrt_tpu_torch.core.gather import row_gather, row_gather_plain
+from ptrt_tpu_torch.tools import cuda_ms
 
 # prof_pallas_gather.py: 8 dependent gathers, each index fed back as
 # (i + int(row sum)) % N
@@ -123,20 +124,6 @@ def moved_bytes(p: Probe, table, idx, out) -> int:
     if p.run is lane_form:
         return nb(table) + table.shape[1] * idx.element_size() + nb(out)
     return nb(table) + nb(idx) + nb(out)
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device ms of ``fn()`` over ``iters`` calls after one warm-up,
-    timed with CUDA events."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def run_probes(dev, iters: int = 20) -> list[dict]:

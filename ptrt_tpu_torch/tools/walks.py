@@ -3,27 +3,27 @@ card.
 
 ``wavefronts`` and ``late_bounce`` give the ray sets that the main path
 hands K1 and K2 on a scene; ``chip_smoke.py`` checks and times the walks on
-them.  Run as a module on a GPU, this file compares builds of a walk
-source side by side:
+them.  Run as a module on a GPU, this file compares sources of the walks
+side by side:
 
-    python3 -m ptrt_tpu_torch.tools.walks [NAME=SOURCE[:FLAG,FLAG...] ...]
+    python3 -m ptrt_tpu_torch.tools.walks [NAME=SOURCE ...]
 
 Each argument names a CUDA source with the C interface of
-``csrc/traverse.cu`` (or of its first version, which took no alive plane
-and no ray counter) and extra nvcc flags such as ``-DNAME=1``; with no
-argument, this tree's ``csrc/traverse.cu``.  Every build is compiled with
-``-Xptxas -v`` (all nvcc processes started together) into its own library
-under the build directory, and its registers, stack frame and spills are
-printed.  On the 1920x1080 bench scene (~1M triangles) each build runs the
-main path's four wavefronts at full width — camera, bounce 1 and bounce 3
-rays for K1 (bounce 3 through the alive plane where the build takes one)
-and the shadow rays for K2 — timed with CUDA events, build by build, then
-again in reverse order; every answer is held to the first build's.  The
-card's name and power limit lead the output; the last line is JSON.
+``csrc/traverse.cu`` (a variant of it, say); with no argument, this tree's
+``csrc/traverse.cu``.  Every source is compiled with ``-Xptxas -v`` (all
+nvcc processes started together) into its own library under the build
+directory, and its registers, stack frame and spills are printed.  On the
+1920x1080 bench scene (~1M triangles) each build runs, through the port's
+own wrappers, the main path's four wavefronts at full width — camera and
+bounce 1 rays for K1 on their t_max planes, bounce 3 rays through the alive
+plane, and the shadow rays for K2 — timed with CUDA events, build by build,
+then again in reverse order; every answer is held to the first build's.
+The card's name and power limit lead the output; the last line is JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -35,8 +35,9 @@ import torch
 
 from ptrt_tpu_torch import kernels
 from ptrt_tpu_torch.build import BUILD_DIR
-from ptrt_tpu_torch.core.vec import Vec3, where
+from ptrt_tpu_torch.core.vec import where
 from ptrt_tpu_torch.render import pipeline, shade, traverse
+from ptrt_tpu_torch.tools import cuda_ms
 
 W, H, TRIS = 1920, 1080, 1_000_000
 ITERS = 20
@@ -99,89 +100,31 @@ def late_bounce(sc, bounces: int = 3):
     return f"bounce {bounces}", ps.o, ps.d, ps.alive
 
 
-def cuda_ms(fn, iters: int = ITERS) -> float:
-    """Mean device ms of ``fn()`` over ``iters`` calls after one warm-up,
-    by CUDA events."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-class Build:
-    """One build of a walk source, loaded with ctypes."""
-
-    def __init__(self, name: str, path: str):
-        self.name = name
-        self.lib = ctypes.CDLL(path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        # the first version took neither the alive plane nor a ray counter
-        self.legacy = not hasattr(self.lib, "ptrt_walk_counts")
-        k1 = [p, i, p, i] + [p] * (7 if self.legacy else 8) + [i] + [p] * 5
-        k2 = [p, i, p, i] + [p] * 7 + [i, p]
-        extra = [p] if self.legacy else [p, p]
-        self.lib.ptrt_closest_hit.argtypes = k1 + extra
-        self.lib.ptrt_any_hit.argtypes = k2 + extra
-        self.lib.ptrt_closest_hit.restype = i
-        self.lib.ptrt_any_hit.restype = i
-        self.counter = torch.zeros(1, dtype=torch.int32, device="cuda")
-
-    def _tail(self):
-        stream = torch.cuda.current_stream().cuda_stream
-        return [stream] if self.legacy else [self.counter.data_ptr(), stream]
-
-    def closest(self, g, o, d, t_max=None, alive=None):
-        n = (t_max if alive is None else alive).shape[0]
-        if self.legacy and alive is not None:
-            t_max, alive = torch.where(alive, traverse.T_MAX, -1.0), None
-        out = torch.empty((5, n), dtype=torch.float32, device="cuda")
-        planes = [0 if t_max is None else t_max.data_ptr()]
-        if not self.legacy:
-            planes.append(0 if alive is None else alive.data_ptr())
-        rc = self.lib.ptrt_closest_hit(
-            *_tables(g), *_rays(o, d), *planes, n,
-            *[out[k].data_ptr() for k in range(5)], *self._tail())
-        kernels.check(rc, f"{self.name} closest_hit")
-        return (out[0], out[1], out[2], out[3].view(torch.int32),
-                out[4].view(torch.int32))
-
-    def any(self, g, o, d, t_max):
-        n = t_max.shape[0]
-        hit = torch.empty(n, dtype=torch.uint8, device="cuda")
-        rc = self.lib.ptrt_any_hit(*_tables(g), *_rays(o, d), t_max.data_ptr(),
-                                   n, hit.data_ptr(), *self._tail())
-        kernels.check(rc, f"{self.name} any_hit")
-        return (hit.bool(),)
-
-
-def _tables(g):
-    return [g.node_rows.data_ptr(), g.num_nodes, g.tri_rows.data_ptr(),
-            int(g.tri_rows.shape[0])]
-
-
-def _rays(o: Vec3, d: Vec3):
-    return [c.data_ptr() for c in (o.x, o.y, o.z, d.x, d.y, d.z)]
+@contextlib.contextmanager
+def _walks_from(lib: ctypes.CDLL):
+    """Run the walk wrappers on ``lib`` (a build of a walk source) instead
+    of the port's library."""
+    saved, kernels._lib = kernels._lib, lib
+    try:
+        yield
+    finally:
+        kernels._lib = saved
 
 
 def compile_builds(specs):
-    """Compile every (name, source, flags) with its own nvcc, all started
-    together.  Returns {name: library path} and {name: ptxas report}; a
-    build that fails is reported and left out."""
+    """Compile every (name, source) with its own nvcc, all started together.
+    Returns {name: library path} and {name: ptxas report}; a build that
+    fails is reported and left out."""
     nvcc = kernels.nvcc_path()
     out_dir = os.path.join(BUILD_DIR, "walk_builds")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, src, flags in specs:
+    for name, src in specs:
         lib = os.path.join(out_dir, f"lib{name}.so")
         procs[name] = (lib, subprocess.Popen(
-            [nvcc, *kernels.NVCC_FLAGS, "-shared", "-Xptxas", "-v", *flags,
-             src, "-o", lib], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+            [nvcc, *kernels.NVCC_FLAGS, *kernels.SOURCE_FLAGS["traverse.cu"],
+             "-shared", "-Xptxas", "-v", src, "-o", lib],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs, reports = {}, {}
     for name, (lib, proc) in procs.items():
         text, _ = proc.communicate(timeout=900)
@@ -205,6 +148,20 @@ def ptxas_report(text: str) -> list[str]:
     return lines
 
 
+def _disagreement(got, want):
+    """(rays that disagree, t within rtol 1e-4 where both hit, identical):
+    K2 by its flag, K1 by hit and mesh."""
+    if len(want) == 1:
+        same, t_ok = got[0] == want[0], True
+    else:
+        same = ((got[3] >= 0) == (want[3] >= 0)) & (got[4] == want[4])
+        both = same & (want[3] >= 0)
+        t_ok = bool(((got[0] - want[0]).abs()
+                     <= 1e-4 * want[0].abs())[both].all())
+    return (int((~same).sum()), t_ok,
+            all(torch.equal(x, y) for x, y in zip(got, want)))
+
+
 def main(argv: list[str]) -> int:
     from ptrt_tpu_torch.app.bench_scene import build_bench_scene
 
@@ -214,69 +171,52 @@ def main(argv: list[str]) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    specs = []
-    for arg in argv or ["this=" + os.path.join(kernels.CSRC, "traverse.cu")]:
-        name, _, rest = arg.partition("=")
-        src, _, flags = rest.partition(":")
-        specs.append((name, src, [f for f in flags.split(",") if f]))
+    specs = ([tuple(arg.split("=", 1)) for arg in argv]
+             or [("this", os.path.join(kernels.CSRC, "traverse.cu"))])
     libs, reports = compile_builds(specs)
-    specs = [s for s in specs if s[0] in libs]
-    for name, _, flags in specs:
-        print(f"[ptxas] {name} {' '.join(flags)}", flush=True)
-        for line in reports[name]:
-            print(f"  {line}", flush=True)
-    builds = [Build(name, libs[name]) for name, _, _ in specs]
+    builds = {}
+    for name, _ in specs:
+        if name in libs:
+            print(f"[ptxas] {name}", flush=True)
+            for line in reports[name]:
+                print(f"  {line}", flush=True)
+            builds[name] = kernels.bind_walks(ctypes.CDLL(libs[name]))
 
     sc = build_bench_scene(W, H, target_tris=TRIS, device="cuda")
     rays = wavefronts(sc)
     g = sc._geom
-    name3, o3, d3, alive3 = late_bounce(sc, 3)
-    t3 = torch.where(alive3, traverse.T_MAX, -1.0)
-    runs = {}
+    runs, live = {}, {}
     for name, o, d, t in rays:
         if name == "shadow":
-            runs[name] = lambda b, o=o, d=d, t=t: b.any(g, o, d, t)
+            runs[name] = lambda o=o, d=d, t=t: (traverse.any_hit(g, o, d, t),)
         else:
-            runs[name] = lambda b, o=o, d=d, t=t: b.closest(g, o, d, t_max=t)
-    runs[name3] = lambda b: b.closest(g, o3, d3, alive=alive3)
-    live = {name: int((t > 0).sum()) for name, _, _, t in rays}
+            runs[name] = lambda o=o, d=d, t=t: traverse.closest_hit(g, o, d, t)
+        live[name] = int((t > 0).sum())
+    name3, o3, d3, alive3 = late_bounce(sc, 3)
+    runs[name3] = lambda: traverse.closest_hit_live(g, o3, d3, alive3)
     live[name3] = int(alive3.sum())
-    print(f"[rays] {W}x{H}: live rays {live}; the late bounce checked "
-          f"against its t_max plane", flush=True)
+    print(f"[rays] {W}x{H}: live rays {live}", flush=True)
 
-    first = {w: run(builds[0]) for w, run in runs.items()}
-    via_t = builds[0].closest(g, o3, d3, t_max=t3)
-    assert all(torch.equal(a, b) for a, b in zip(via_t, first[name3]))
-    agree = {}
-    for b in builds:
-        for w, run in runs.items():
-            got, want = run(b), first[w]
-            if len(want) == 1:  # K2: the flag
-                same = got[0] == want[0]
-                t_ok = True
-            else:  # K1: hit and mesh; t to rtol 1e-4 where both hit
-                same = ((got[3] >= 0) == (want[3] >= 0)) & (got[4] == want[4])
-                both = same & (want[3] >= 0)
-                t_ok = bool(((got[0] - want[0]).abs()
-                             <= 1e-4 * want[0].abs())[both].all())
-            agree[(b.name, w)] = (int((~same).sum()), t_ok,
-                                  all(torch.equal(x, y)
-                                      for x, y in zip(got, want)))
+    answers = {}
+    for b, lib in builds.items():
+        with _walks_from(lib):
+            answers[b] = {w: tuple(run()) for w, run in runs.items()}
+    first = answers[next(iter(builds))]
     times = {}
-    for order in (builds, builds[::-1]):
+    for order in (list(builds), list(builds)[::-1]):
         for b in order:
-            for w, run in runs.items():
-                times.setdefault((b.name, w), []).append(
-                    cuda_ms(lambda b=b, run=run: run(b)))
+            with _walks_from(builds[b]):
+                for w, run in runs.items():
+                    times.setdefault((b, w), []).append(cuda_ms(run, ITERS))
     result = []
     for b in builds:
-        row = {"build": b.name}
+        row = {"build": b}
         for w in runs:
-            mism, t_ok, exact = agree[(b.name, w)]
-            row[w] = {"ms": times[(b.name, w)], "mismatches": mism,
-                      "t_ok": t_ok, "exact": exact}
+            mism, t_ok, exact = _disagreement(answers[b][w], first[w])
+            row[w] = {"ms": times[(b, w)], "mismatches": mism, "t_ok": t_ok,
+                      "exact": exact}
         result.append(row)
-        print(f"[time] {b.name}: " + "; ".join(
+        print(f"[time] {b}: " + "; ".join(
             f"{w} {'/'.join(f'{x:.4f}' for x in row[w]['ms'])} ms "
             f"({row[w]['mismatches']} mismatches, t ok {row[w]['t_ok']}, "
             f"identical {row[w]['exact']})" for w in runs)
