@@ -26,11 +26,15 @@ Phases (any failure raises, so the exit code is non-zero):
      (ptrt_tpu_torch/tools/probe_gather.py) and at the material gather's
      (the scene's table, 2,073,600 ids), bit for bit;
   3b. K3, shade_nee and shade_scatter, against their plain stages on the
-     full 1920x1080 bench scene (bounces 0 and 1, split off and on, the
-     same state and hit records for both) and on 65,536 random lanes of
-     every material lobe and light type: PCG states bit-exact, flags and
-     lobes agreeing on at least 99.99% of lanes, values within the tiers
-     of tests/test_torch_shading.py;
+     full 1920x1080 bench scene (the wavefronts of bounces 0-3 of sample 0,
+     split off and on, the same state and hit records for both; each stage
+     timed on each wavefront beside that wavefront's bound) and on random
+     lanes of every material lobe and light type (65,536; a ragged 16,421
+     with the tables in global memory; 65,536 all dead): PCG states
+     bit-exact, flags and lobes agreeing on at least 99.99% of lanes, values
+     within the tiers of tests/test_torch_shading.py, under the record's
+     contract (render/shade.py: a dead lane's record is unspecified); the
+     K3 kernels' registers and resident blocks a SM;
   4. the bench path: Scene.render_frame() on the bench scene at 1920x1080,
      4 spp, depth 4, ~1M triangles, post stack off — one warm-up and three
      timed frames, with the kernels' launch counts taken over exactly that
@@ -45,7 +49,12 @@ Phases (any failure raises, so the exit code is non-zero):
      timed frames; then the post stages timed one by one and one profiled
      frame;
   6. svgf_temporal, svgf_atrous and bloom_blur_down against their plain
-     versions on the 1920x1080 buffers of a balanced frame;
+     versions on the 1920x1080 buffers of a balanced frame: svgf_atrous
+     exactly, at each of the seven passes a frame runs (diffuse at steps 1,
+     2, 4, 8, 16, specular at 1, 2), each timed beside its own bound, and
+     at odd sizes (crops that are no multiple of a tile, smaller than the
+     halo, one pixel; steps without a kernel of their own; object ids on
+     and off); the a-trous kernels' tiles, registers and occupancy;
   7. end to end on small inputs: the bench frame and three balanced frames
      rendered on the GPU and on the CPU (plain versions) must agree.
 Every kernel's line carries its bound: the bytes it must move (each input
@@ -98,10 +107,6 @@ DIRECTION = ((1e-5, 1.0),)
 VALUE = ((1e-5, 0.995), (1e-3, 1.0))
 AT_PEAK = ((1e-5, 0.85), (1e-3, 0.995), (0.5, 1.0))
 SHADE_RANDOM_LANES = 1 << 16
-# the card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet, at
-# its 700 W limit): device memory, and float32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 # float operations per item, for the operations side of a bound: a floor
 # counted from each kernel's source.  Every float add, multiply, divide,
 # compare, min/max, abs and square root that the item runs whatever its
@@ -126,10 +131,6 @@ OPS_PER_ITEM = {
     # bloom.cu, an output pixel: 3 channels x (5 rows x (the 5-tap
     # horizontal blur 7 + the row weight 1) + 4 row sums)
     "bloom_blur_down": 3 * (5 * 8 + 4),
-    # shade.cu shade_nee, every lane: the hit record's normal normalised
-    # 10, the facing test 6 and the hit point 6 (the rest is behind the
-    # alive, hit and NEE branches)
-    "shade_nee": 22,
     # shade.cu shade_scatter, a live lane: material_scatter's code outside
     # its lobe branches (the Fresnel, coat and dielectric terms 76; three
     # draws and the lobe test 4; the sampled direction normalised, its
@@ -138,30 +139,15 @@ OPS_PER_ITEM = {
     # and the roulette's 5
     "shade_scatter": 76 + 4 + 42 + 11 + 40 + 4 + 5,
 }
-# svgf.cu a-trous, a pixel: the centre's luminance and edge-stopping
-# scale 14 and the normalisation 7, and per tap inside the image (see
-# atrous_taps) 21: the kernel weight 1, the luminance difference 7, its
-# exp weight 3, the tap weight 1, the colour sum 6, the variance sum 2,
-# the weight sum 1 (the edge tests short-circuit)
-ATROUS_OPS_PIXEL, ATROUS_OPS_TAP = 21, 21
 SHADE_STAGED_BYTES = 48 * 1024  # shade.cu stages tables up to this size
 
 
-def atrous_taps(h: int, w: int, step: int) -> int:
-    """Taps an a-trous pass of ``step`` reads inside an (h, w) image: per
-    axis, the pixels whose tap at each of the offsets -2..2 lies inside."""
-    axis = lambda n: sum(max(0, n - abs(o) * step) for o in range(-2, 3))
-    return axis(h) * axis(w)
-
-
 def bound(nbytes: float, ops: float = 0.0) -> dict:
-    """The least time the card could take: bytes moved (each input read
-    once, each output written once) over the memory rate, or operations
-    over the float32 rate, whichever is larger."""
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops / FP32_OPS_PER_S
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    """The least time the card could take for these bytes and float
+    operations (``tools/stages.bound``, which holds the card's peaks)."""
+    from ptrt_tpu_torch.tools.stages import bound as stages_bound
+
+    return stages_bound(nbytes, ops)
 
 
 def nbytes(*ts) -> int:
@@ -277,6 +263,40 @@ def check_row_gather(dev, mat_table, card, rng):
             "probes": probes}
 
 
+def check_atrous_sizes(inputs, cfg) -> list:
+    """svgf_atrous against its plain version, exactly, at sizes that stress
+    its tiles: crops of the 1080p a-trous inputs whose width and height are
+    no multiple of a tile, smaller than the halo of step 16, a single
+    pixel; every instantiated step and two that run the kernel with a
+    run-time step (3, 5); object ids on and off.  Returns what was run."""
+    import dataclasses
+
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.render import denoiser as den
+
+    ch, img, var, depth, normal, obj = inputs
+    full_h, full_w = depth.shape
+    ran = []
+    for h, w in ((23, 37), (75, 101), (1, 1), (270, 333)):
+        y0, x0 = (full_h - h) // 2, (full_w - w) // 2
+        crop = lambda c: (c.map(crop) if isinstance(c, Vec3)
+                          else c[y0:y0 + h, x0:x0 + w].contiguous())
+        planes = [crop(c) for c in (img, var, depth, normal, obj)]
+        for use_ids in (True, False):
+            c2 = dataclasses.replace(cfg, use_object_ids=use_ids)
+            for step in (1, 2, 3, 4, 5, 8, 16):
+                got = den.atrous_iteration(*planes, step, ch, c2)
+                want = den.atrous_iteration_plain(*planes, step, ch, c2)
+                for gv, wv in ((got[0].x, want[0].x), (got[0].y, want[0].y),
+                               (got[0].z, want[0].z), (got[1], want[1])):
+                    assert bool(((gv == wv) | (gv.isnan() & wv.isnan()))
+                                .all()), ("svgf_atrous", h, w, step, use_ids)
+        ran.append(f"{h}x{w}")
+    log(f"  svgf_atrous at {ran}, steps 1, 2, 3, 4, 5, 8, 16, object ids on "
+        f"and off: exact")
+    return ran
+
+
 def check_post_kernels(sc, state0, prev_vp, card):
     """svgf_temporal, svgf_atrous and bloom_blur_down against their plain
     versions on the buffers of the scene's last frame (traced after
@@ -285,6 +305,7 @@ def check_post_kernels(sc, state0, prev_vp, card):
     from ptrt_tpu_torch.render import bloom
     from ptrt_tpu_torch.render import denoiser as den
     from ptrt_tpu_torch.render.motion import motion_vectors
+    from ptrt_tpu_torch.tools import stages
 
     bufs = sc.last_frame
     rh, rw = sc.render_size
@@ -328,25 +349,48 @@ def check_post_kernels(sc, state0, prev_vp, card):
                 5)
     out["svgf_temporal"] = temporal
 
-    atrous = {"max_abs_err": 0.0}
-    img = hists["diffuse"].mean
-    var = den.estimate_variance(hists["diffuse"], *g, cfg)
-    for step in (1, 2, 4, 8, 16):
-        a = (img, var, *g, step, cfg.diffuse, cfg)
-        got, want = den.atrous_iteration(*a), den.atrous_iteration_plain(*a)
-        for part, gv, wv in (("image", got[0], want[0]),
-                             ("variance", got[1], want[1])):
-            err, rel, share = agreement(gv, wv)
-            log(f"  svgf_atrous step {step} {part}: max |err| {err:.3g}, "
-                f"max rel {rel:.3g}, {share:.6f} of pixels within rtol "
-                f"1e-5 (bound {SVGF_AGREE})")
-            assert share >= SVGF_AGREE, (step, part, share)
-            atrous["max_abs_err"] = max(atrous["max_abs_err"], err)
-        if step == 1:
-            atrous["ms"] = cuda_ms(lambda: den.atrous_iteration(*a), 20)
-            atrous["plain_ms"] = cuda_ms(
-                lambda: den.atrous_iteration_plain(*a), 5)
-        img, var = got
+    # the seven passes a balanced frame runs (diffuse 1-16, specular 1-2),
+    # each fed the pass before it: exact against the plain version, timed,
+    # beside its own bound
+    inputs = {name: (ch, hists[name].mean,
+                     den.estimate_variance(hists[name], *g, cfg), *g)
+              for name, ch in (("diffuse", cfg.diffuse),
+                               ("specular", cfg.specular))}
+    passes = stages.time_atrous(inputs, iters=20, plain_iters=3)
+    for r in passes:
+        log(f"  svgf_atrous {r['channel']} step {r['step']}: exact "
+            f"{r['exact']} (max |err| {r['max_abs_err']:.3g}); kernel "
+            f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.2f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+        assert r["exact"], (r["channel"], r["step"], r["max_abs_err"])
+    first_pass = passes[0]
+    atrous = {"max_abs_err": max(r["max_abs_err"] for r in passes),
+              "ms": first_pass["ms"], "plain_ms": first_pass["plain_ms"],
+              "bound_ms": first_pass["bound_ms"],
+              "bound_by": first_pass["bound_by"],
+              "pass_ms": {f"{r['channel']} {r['step']}": r["ms"]
+                          for r in passes},
+              "pass_bound_ms": {f"{r['channel']} {r['step']}": r["bound_ms"]
+                                for r in passes},
+              "frame_ms": sum(r["ms"] for r in passes),
+              "frame_bound_ms": sum(r["bound_ms"] for r in passes),
+              "sky_share": first_pass["sky_share"]}
+    # a step no frame runs takes the kernel with a run-time step
+    ch, *planes = inputs["diffuse"]
+    atrous["other_step_ms"] = cuda_ms(
+        lambda: den.atrous_iteration(*planes, 3, ch, cfg), 20)
+    log(f"  svgf_atrous step 3 (the run-time-step kernel, off the frame's "
+        f"path): {atrous['other_step_ms']:.4f} ms [{card}]")
+    atrous["odd_sizes"] = check_atrous_sizes(inputs["diffuse"], cfg)
+    atrous["step_kernels"] = {
+        str(step): den.atrous_kernel_info(rh, rw, step)
+        for step in den.ATROUS_STEPS}
+    for step, v in atrous["step_kernels"].items():
+        log(f"  svgf_atrous step {step}: tile {v['tile']}, "
+            f"{v['shared_bytes']} bytes of shared memory a block, "
+            f"{v['registers']} registers, {v['local_bytes']} bytes of local "
+            f"memory a thread, {v['blocks_per_sm']} resident blocks of 256 "
+            f"threads a SM")
     out["svgf_atrous"] = atrous
 
     blur = {"max_abs_err": 0.0}
@@ -367,12 +411,10 @@ def check_post_kernels(sc, state0, prev_vp, card):
     out["bloom_blur_down"] = blur
     # planes read and written per pixel (f32 or int32): temporal reads
     # colour, two history moments, length, motion, depth, normal, id and
-    # their previous-frame copies (22) and writes 7; a trous reads 9, writes 4
+    # their previous-frame copies (22) and writes 7 (a trous: stages.py)
     px = rh * rw
     out["svgf_temporal"].update(bound(29 * 4 * px,
                                       OPS_PER_ITEM["svgf_temporal"] * px))
-    out["svgf_atrous"].update(bound(13 * 4 * px, ATROUS_OPS_PIXEL * px
-                                    + ATROUS_OPS_TAP * atrous_taps(rh, rw, 1)))
     half = (rh // 2) * ((rw + 1) // 2)
     out["bloom_blur_down"].update(bound(3 * 4 * (px + half),
                                         OPS_PER_ITEM["bloom_blur_down"]
@@ -635,9 +677,12 @@ def hold(what, got, want, lanes, tiers, stats) -> None:
     stats["max_abs_err"] = max(stats["max_abs_err"], float(err.max()))
 
 
-def agree(what, a, b, stats) -> "torch.Tensor":
-    """Lanes where two bool planes agree; asserts SHADE_AGREE of them."""
+def agree(what, a, b, stats, where=None) -> "torch.Tensor":
+    """Lanes where two bool planes agree (of the lanes ``where``, if given:
+    the others count as agreeing); asserts SHADE_AGREE of them."""
     same = a == b
+    if where is not None:
+        same = same | ~where
     share = float(same.double().mean())
     assert share >= SHADE_AGREE, (what, share)
     stats["flag_mismatches"] += int((~same).sum())
@@ -646,18 +691,22 @@ def agree(what, a, b, stats) -> "torch.Tensor":
 
 def compare_nee(tag, ka, pa, kn, pn, bounce, stats) -> None:
     """shade_nee's kernel (state ``ka``, record ``kn``) against its plain
-    stage (``pa``, ``pn``)."""
+    stage (``pa``, ``pn``) under the record's contract (render/shade.py):
+    the alive, hit and NEE flags and the sign of t_max are held on every
+    lane, the hit record on the lanes alive after the stage, the shadow
+    record where the plain stage casts a shadow ray."""
     import torch
 
     assert torch.equal(ka.rng, pa.rng), f"{tag}: PCG states differ"
     ok = agree(f"{tag} alive", ka.alive, pa.alive, stats)
     ok &= agree(f"{tag} hit", kn.hit.hit, pn.hit.hit, stats)
-    ok &= agree(f"{tag} front", kn.hit.front_face, pn.hit.front_face, stats)
     ok &= agree(f"{tag} do_nee", kn.do_nee, pn.do_nee, stats)
     if pn.shadow_t is not None:
         ok &= agree(f"{tag} t_max < 0", kn.shadow_t < 0, pn.shadow_t < 0,
                     stats)
-    hits = ok & pn.hit.hit
+    ok &= agree(f"{tag} front", kn.hit.front_face, pn.hit.front_face, stats,
+                where=pa.alive)
+    hits = ok & pa.alive
     hold(f"{tag} point", kn.hit.point, pn.hit.point, hits, DIRECTION, stats)
     hold(f"{tag} normal", kn.hit.normal, pn.hit.normal, hits, DIRECTION,
          stats)
@@ -717,95 +766,16 @@ def compare_scatter(tag, ka, pa, stats) -> None:
          AT_PEAK, stats)
 
 
-def kernel_ms(fn, states, kernel):
-    """Mean device ms of ``kernel``'s launches in ``fn(state)`` over fresh
-    copies of the state, as torch.profiler records them (the kernel alone,
-    without the wrapper's host work between launches); None where the
-    profiler does not see every launch."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn(states[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for s in states[1:]:
-            fn(s)
-        torch.cuda.synchronize()
-    ev = [e.time_range.elapsed_us() for e in prof.events()
-          if getattr(e, "device_type", None) == DeviceType.CUDA
-          and kernel in e.name]
-    if len(ev) != len(states) - 1:
-        log(f"  (the profiler saw {len(ev)} of {len(states) - 1} {kernel} "
-            f"launches: its device time is not measured)")
-        return None
-    return sum(ev) / 1e3 / len(ev)
-
-
-def clones_ms(fn, states) -> float:
-    """Mean ms of a call ``fn(state)`` over fresh copies of the state (the
-    stages update it in place), CUDA events around the whole run."""
-    import torch
-
-    fn(states[0])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for s in states[1:]:
-        fn(s)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (len(states) - 1)
-
-
-def shade_bytes(stage, pre, post, rec, k1=None, first=False) -> int:
-    """Bytes a K3 stage must move on these inputs, from the state before
-    (``pre``) and after (``post``) it and the NEE record: each plane read
-    once and written once on the lanes that need it.  Every lane reads its
-    alive flag and moves its PCG state; a dead lane needs nothing else but
-    its NEE flag and shadow t_max; accumulators move only where a term is
-    added, the throughput where it changes; the shadow record only on lanes
-    with NEE.  The tables (a few KB) are left out."""
-    n, split = pre.alive.numel(), pre.split
-    cnt = lambda m: int(m.sum())
-    changed = lambda a, b: (a.x != b.x) | (a.y != b.y) | (a.z != b.z)
-    # accum and the one split channel a term feeds, each read and written
-    b = cnt(changed(post.accum, pre.accum)) * 24 * (2 if split else 1)
-    nee = rec.shadow_t is not None
-    live = pre.alive
-    if stage == "shade_nee":
-        hit = live & (k1.slot >= 0)
-        b += n * 2 + (n * 16 if nee else 0)  # alive, do_nee; PCG state
-        # K1's answer, origin, direction, throughput, flags, alive
-        b += cnt(live) * (12 + 24 + 12 + 3 + 1)
-        b += cnt(hit) * (24 + 25)  # triangle edges; point, normal, front
-        b += cnt(changed(post.throughput, pre.throughput)) * 12
-        if first:
-            b += n * 28  # the G-buffer
-        if nee:  # every t_max; origin, L, pdf, contribution where NEE
-            b += n * 4 + cnt(rec.do_nee) * (40 + (12 if split else 0))
-        return b
-    after = post.alive
-    b += n * (1 + 16)  # alive, PCG state
-    # material id, normal, front, direction, throughput, alive, flags
-    b += cnt(live) * (4 + 12 + 1 + 12 + 12 + 1 + 2)
-    if nee:  # NEE flag and pdf; occlusion, L and contribution where lit
-        lit = rec.do_nee & live
-        b += cnt(lit) * 5 + cnt(lit & (rec.pdf > 0)) * (
-            1 + 12 + (24 if split else 12))
-    # hit point read; throughput, origin, direction, ray flag written
-    return b + cnt(after) * (12 + 12 + 12 + 12 + 1)
-
-
 def shade_bounces(tag, geom, closest, occluded, mats, lights, n_lights, sky,
                   ps, bounces, rr_start, stats, times=None):
     """Run ``bounces`` of the shading stages, kernel and plain on the same
     inputs (the plain stage's output feeds the next bounce), comparing each.
     ``closest(ps)`` gives K1's answer, ``occluded(record)`` the shadow
-    walk's.  With ``times`` (a dict), the stages of the last bounce are
-    timed at this width."""
+    walk's.  With ``times`` (a dict), the stages of every bounce are timed
+    at this width, each beside the bound of its own wavefront:
+    ``times[stage][bounce]``."""
     from ptrt_tpu_torch.render import shade
+    from ptrt_tpu_torch.tools import stages
 
     for bounce in bounces:
         k1 = closest(ps)
@@ -826,7 +796,7 @@ def shade_bounces(tag, geom, closest, occluded, mats, lights, n_lights, sky,
         shade.shade_scatter_plain(pa, pn, occl, mats, bounce, True, rr_start)
         compare_scatter(f"{tag} bounce {bounce} scatter", ka, pa,
                         stats["shade_scatter"])
-        if times is not None and bounce == bounces[-1]:
+        if times is not None:
             nee = lambda s: shade.shade_nee(s, geom, k1, mats, lights,
                                             n_lights, sky, bounce)
             nee_p = lambda s: shade.shade_nee_plain(s, geom, k1, mats, lights,
@@ -845,19 +815,19 @@ def shade_bounces(tag, geom, closest, occluded, mats, lights, n_lights, sky,
 
             for name, fn, fn_p, pre, moved, ops in (
                     ("shade_nee", nee, nee_p, ps,
-                     shade_bytes("shade_nee", ps, before, pn, k1=k1,
-                                 first=bounce == 0),
-                     OPS_PER_ITEM["shade_nee"] * ps.alive.numel()),
+                     stages.shade_bytes("shade_nee", ps, before, pn, k1=k1,
+                                        first=bounce == 0),
+                     stages.SHADE_NEE_OPS_LANE * ps.alive.numel()),
                     ("shade_scatter", sca, sca_p, before,
-                     shade_bytes("shade_scatter", before, pa, pn),
+                     stages.shade_bytes("shade_scatter", before, pa, pn),
                      OPS_PER_ITEM["shade_scatter"] * int(before.alive.sum()))):
-                times[name] = {
-                    "ms": clones_ms(fn, fresh(pre, 11)),
-                    "kernel_ms": kernel_ms(fn, fresh(pre, 11),
-                                           f"{name}_kernel"),
-                    "plain_ms": clones_ms(fn_p, [pre.clone()
-                                                 for _ in range(3)]),
-                    **bound(moved, ops)}
+                times.setdefault(name, {})[bounce] = {
+                    "ms": stages.clones_ms(fn, fresh(pre, 11)),
+                    "kernel_ms": stages.kernel_ms(fn, fresh(pre, 11),
+                                                  f"{name}_kernel"),
+                    "plain_ms": stages.clones_ms(
+                        fn_p, [pre.clone() for _ in range(3)]),
+                    "alive": int(pre.alive.sum()), **bound(moved, ops)}
         ps = pa
     return ps
 
@@ -946,17 +916,19 @@ def random_lanes(dev, n, seed, n_mats):
 
 def check_shade(full, dev, card):
     """Phase 3b: the two K3 kernels against their plain stages on the full
-    1080p bench scene (bounces 0 and 1, split off and on) and on random
-    lanes of every lobe and light type.  Returns {kernel: stats}."""
+    1080p bench scene (the wavefronts of bounces 0-3 of sample 0, split off
+    and on, each stage timed on each beside that wavefront's bound) and on
+    random lanes of every lobe and light type: a set whose length is no
+    multiple of a block, with the tables in global memory, and a wavefront
+    that is wholly dead.  Returns {kernel: stats}."""
     import torch
     from ptrt_tpu_torch.render import pipeline, shade, traverse
 
     stats = {k: {"max_abs_err": 0.0, "flag_mismatches": 0, "diverged": 0,
                  "lanes": 0} for k in ("shade_nee", "shade_scatter")}
-    times = {}
+    times = {False: {}, True: {}}
     sc, g = full, full._geom
-    closest = lambda ps: traverse.closest_hit(
-        g, ps.o, ps.d, torch.where(ps.alive, 1e30, -1.0))
+    closest = lambda ps: traverse.closest_hit_live(g, ps.o, ps.d, ps.alive)
     occluded = lambda rec: traverse.any_hit(g, rec.shadow_o, rec.shadow_d,
                                             rec.shadow_t)
     for split in (False, True):
@@ -965,36 +937,57 @@ def check_shade(full, dev, card):
         ps = shade.PathState.start(ray, st, split)
         shade_bounces(f"bench split={split}", g, closest, occluded,
                       sc._mat_table, sc._light_table, len(sc.lights),
-                      sc.sky(), ps, (0, 1),
+                      sc.sky(), ps, tuple(range(DEPTH)),
                       sc.perf.russian_roulette_start_bounce, stats,
-                      times if split else None)
+                      times[split])
         del ps
         torch.cuda.empty_cache()
-    # random lanes of every lobe; the second set's material table is too
-    # large for shared memory, so the kernels read both tables from global
-    # memory
-    for tag, lanes, n_mats in (("random lanes", SHADE_RANDOM_LANES, 24),
-                               ("random lanes, tables in global memory",
-                                SHADE_RANDOM_LANES // 4, 400)):
+    # random lanes of every lobe; the second set is ragged (no multiple of
+    # a block) and its material table is too large for shared memory, so
+    # the kernels read both tables from global memory; then the first set
+    # again with every lane dead
+    for tag, lanes, n_mats, dead in (
+            ("random lanes", SHADE_RANDOM_LANES, 24, False),
+            ("random lanes, ragged, tables in global memory",
+             SHADE_RANDOM_LANES // 4 + 37, 400, False),
+            ("random lanes, all dead", SHADE_RANDOM_LANES, 24, True)):
         geom, hits, mats, lights, n_lights, sky, ps = random_lanes(
             dev, lanes, 7, n_mats)
         staged = nbytes(mats.packed, lights.packed) <= SHADE_STAGED_BYTES
         assert staged == (n_mats == 24), (tag, nbytes(mats.packed,
                                                       lights.packed))
+        if dead:
+            ps.alive = torch.zeros_like(ps.alive)
         mask = lambda rec, n=lanes: torch.arange(n, device=dev) % 3 == 0
         shade_bounces(tag, geom, hits, mask, mats, lights, n_lights, sky, ps,
-                      (0, 2), 1, stats)
+                      (2, 3) if dead else (0, 2), 1, stats)
+    info = shade.kernel_info(sc._mat_table, sc._light_table)
     for k, s in stats.items():
-        s.update(times[k])
-        kms = ("not measured" if s["kernel_ms"] is None
-               else f"{s['kernel_ms']:.4f} ms")
+        head = times[True][k][1]  # the table's line: split, bounce 1
+        s.update(head)
+        s["bounce_kernel_ms"], s["bounce_call_ms"] = {}, {}
+        s["bounce_bound_ms"], s["bounce_alive"] = {}, {}
+        for split, name in ((False, "bench"), (True, "split")):
+            for b, t in times[split][k].items():
+                s["bounce_kernel_ms"][f"{name} {b}"] = t["kernel_ms"]
+                s["bounce_call_ms"][f"{name} {b}"] = t["ms"]
+                s["bounce_bound_ms"][f"{name} {b}"] = t["bound_ms"]
+                s["bounce_alive"][f"{name} {b}"] = t["alive"]
+                kms = ("not measured" if t["kernel_ms"] is None
+                       else f"{t['kernel_ms']:.4f} ms")
+                log(f"  {k} {W}x{H} {name} bounce {b} ({t['alive']} alive): "
+                    f"a wrapper call {t['ms']:.4f} ms (CUDA events), the "
+                    f"kernel alone {kms} (profiler) vs plain "
+                    f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms "
+                    f"({t['bound_by']}) [{card}]")
+        s.update(info[k])
         log(f"  {k}: PCG states bit-exact; flags differ on "
             f"{s['flag_mismatches']} lanes, lobes diverge on {s['diverged']} "
             f"of {s['lanes']} lane-stages; max |err| on agreeing lanes "
-            f"{s['max_abs_err']:.3g}; {W}x{H} split bounce 1: a wrapper call "
-            f"{s['ms']:.4f} ms (CUDA events), the kernel alone {kms} "
-            f"(profiler) vs plain {s['plain_ms']:.2f} ms, bound "
-            f"{s['bound_ms']:.4f} ms ({s['bound_by']}) [{card}]")
+            f"{s['max_abs_err']:.3g}; {s['registers']} registers, "
+            f"{s['local_bytes']} bytes of local memory a thread, "
+            f"{s['blocks_per_sm']} resident blocks of {s['threads']} "
+            f"threads a SM")
     return stats
 
 
@@ -1090,6 +1083,20 @@ def main() -> int:
     t_gxx = time.time() - t0
     log(f"[build] CUDA kernels {t_nvcc:.1f} s (nvcc), native BVH builder "
         f"{t_gxx:.1f} s (g++), into {os.path.relpath(BUILD_DIR, HERE)}")
+
+    # what was compiled: registers, stack and static SASS instructions of
+    # the a-trous and K3 kernels (the a-trous taps are unrolled, so its
+    # count is close to what a surface pixel runs)
+    from ptrt_tpu_torch.tools import stages
+    resources = stages.kernel_resources(
+        os.path.join(BUILD_DIR, kernels.LIBRARY),
+        ("svgf_atrous", "shade_nee", "shade_scatter"))
+    for k, fns in resources.items():
+        for fn, r in fns.items():
+            log(f"[build] {k} ({fn[-40:]}): {r['registers']} registers, "
+                f"stack {r['stack_bytes']} bytes, SASS {r['sass']}")
+    sass = {k: {fn[-40:]: r["sass"].get("all") for fn, r in fns.items()}
+            for k, fns in resources.items()}
 
     # -- 3. kernels against their plain versions -----------------------------
     rng = np.random.default_rng(0)
@@ -1393,16 +1400,45 @@ def main() -> int:
         {"name": "svgf_atrous", "route": "cuda", "source": src("svgf.cu"),
          "replaces": "ptrt_tpu/render/denoiser.py:425",
          **both("svgf_atrous"), **post["svgf_atrous"], "library_ms": None,
-         "pixels": W * H},
+         "pixels": W * H, "sass_instructions": sass["svgf_atrous"],
+         "redesigned": True,
+         "earlier": "PERF.md keeps the times of the design before"},
         {"name": "bloom_blur_down", "route": "cuda", "source": src("bloom.cu"),
          "replaces": "ptrt_tpu/render/bloom.py:30,47",
          **both("bloom_blur_down"), **post["bloom_blur_down"],
          "library_ms": None, "pixels": W * H},
         *[{"name": k, "route": "cuda", "source": src("shade.cu"),
            "replaces": "ptrt_tpu/render/integrator.py:285",
-           **both(k), **shade_stats[k], "library_ms": None, "lanes": W * H}
+           **both(k), **shade_stats[k], "library_ms": None, "lanes": W * H,
+           "sass_instructions": sass[k],
+           **({"redesigned": True,
+               "earlier": "PERF.md keeps the times of the design before"}
+              if k == "shade_nee" else {})}
           for k in ("shade_nee", "shade_scatter")],
     ]}
+    # the ranking: device ms a frame that each kernel stands over its bound,
+    # summed over the passes and bounces the frames really run (a bench
+    # frame: SPP samples of DEPTH unsplit bounces; a balanced frame: one
+    # split sample and the seven a-trous passes)
+    over = {"svgf_atrous": {"balanced": post["svgf_atrous"]["frame_ms"]
+                            - post["svgf_atrous"]["frame_bound_ms"]}}
+    for k in ("shade_nee", "shade_scatter"):
+        gap = lambda name: sum(
+            (shade_stats[k]["bounce_kernel_ms"][f"{name} {b}"]
+             or shade_stats[k]["bounce_call_ms"][f"{name} {b}"])
+            - shade_stats[k]["bounce_bound_ms"][f"{name} {b}"]
+            for b in range(DEPTH))
+        over[k] = {"bench": SPP * gap("bench"), "balanced": gap("split")}
+    for k in ("svgf_temporal", "bloom_blur_down", "tonemap_rgb8"):
+        row = next(r for r in table["kernels"] if r["name"] == k)
+        over[k] = {"balanced": (row["ms"] - row["bound_ms"])
+                   * row["launches_balanced"] / BAL_FRAMES}
+    log("[rank] device ms a frame over the bound (launches x (time - "
+        "bound), each pass and bounce at its own time): "
+        + "; ".join(f"{k} " + ", ".join(f"{f} {v:.3f}" for f, v in d.items())
+                    for k, d in sorted(over.items(),
+                                       key=lambda kv: -max(kv[1].values())))
+        + f" [{card}]")
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

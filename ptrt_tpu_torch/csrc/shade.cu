@@ -11,24 +11,47 @@
 // advance.  Per bounce:  K1 closest_hit -> shade_nee -> K2 any_hit ->
 // shade_scatter.
 //
-// What bounds them on the card: memory traffic.  A lane's arithmetic is a
-// few thousand float operations at most, while each stage reads and writes
-// the lane's PathState planes (origin, direction, throughput, four
-// accumulators, flags, PCG state: up to ~140 bytes in, ~100 out) and the
-// records between the stages (hit: ~30 bytes; NEE: ~50 bytes).  The plain
-// torch version runs the same work as ~2,700 elementwise launches a bounce,
-// each a round trip of whole planes through device memory, and its material
-// fetch alone writes 32 planes (265 MB at 1080p) that the shading reads back.
+// What bounds them on the card: memory traffic, and from bounce 1 on how
+// sparsely it is used.  A lane's arithmetic is a few thousand float
+// operations at most, while each stage reads and writes the lane's PathState
+// planes (origin, direction, throughput, four accumulators, flags, PCG
+// state: up to ~140 bytes in, ~100 out) and the records between the stages
+// (hit: ~30 bytes; NEE: ~50 bytes).  After bounce 0 most lanes are dead (at
+// 1080p on the bench scene 61%, 8% and 4% of the lanes are alive at
+// bounces 1, 2 and 3) and lie scattered among the live ones, so a live
+// lane's 4-byte reads each cost a 32-byte sector and its chain of dependent
+// loads (alive, K1's slot, the triangle, the material, the light) runs for
+// a warp that holds one or two such lanes.  The plain torch version runs the
+// same work as ~2,700 elementwise launches a bounce, each a round trip of
+// whole planes through device memory, and its material fetch alone writes
+// 32 planes (265 MB at 1080p) that the shading reads back.
 //
-// What this design does about it: one thread per lane, every intermediate
-// in registers.  The material table (M x 32 floats) and the light table are
-// staged in shared memory when they fit (read through __ldg when not), so
-// the material fetch is a shared-memory row read folded into each stage.
-// The hit record (point, face-forwarded normal, front flag) is rebuilt here
-// from K1's triangle slot, so no torch op runs between the kernels.  Planes
-// are updated in place.  Dead lanes (and lanes without NEE) skip the
-// shading whose result the plain version masks away, but still draw their
-// PCG numbers, so the streams stay bit-exact on every lane.
+// What this design does about it: every intermediate in registers.  The
+// material table (M x 32 floats) and the light table are staged in shared
+// memory when they fit (read through __ldg when not), so the material fetch
+// is a shared-memory row read folded into each stage.  The hit record
+// (point, face-forwarded normal, front flag) is rebuilt here from K1's
+// triangle slot, so no torch op runs between the kernels.  Planes are
+// updated in place.  Dead lanes (and lanes without NEE) skip the shading
+// whose result the plain version masks away, but still draw their PCG
+// numbers, so the streams stay bit-exact on every lane.
+//
+// shade_nee moves for a dead lane only what nothing can spare: it reads the
+// alive flag and the PCG state and writes the hit and NEE flags, the state
+// and t_max = -1.  K1's answer, the ray and the record's other planes are
+// never touched there (the record's contract in render/shade.py says which
+// planes hold where); a live lane that misses writes no hit record, one
+// without NEE no shadow record.  A block stages the tables once for 512
+// lanes, two to a thread.  Bounce 0 shades every lane (the G-buffer is
+// written on every lane).  A 1080p wavefront takes 0.12, 0.10, 0.07 and
+// 0.06 ms at bounces 0-3.  What is left at the sparse bounces is
+// the sectors: counted at 32 bytes for each scattered 4-byte access, bounce
+// 3 moves ~150 MB, 0.045 ms at the card's rate.  Filling warps with live
+// lanes from a block-local list (only the NEE part, or the whole live path)
+// gained 2-4% at bounces 1-3 and lost 1-3% at bounce 0, asking for the next
+// lanes' flags ahead lost 3%, and more resident blocks spilled: all left
+// out, with their times in PERF.md.  shade_scatter is the earlier design
+// still: one thread a lane, a dead lane returns after its PCG draws.
 //
 // Float order: this file builds with -fmad=false and follows the plain torch
 // version operation by operation, including how torch on the card rounds
@@ -93,7 +116,10 @@ struct ShadeArgs {
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;      // shade_scatter's block
+constexpr int kNeeThreads = 256;   // shade_nee's block
+constexpr int kNeeChunk = 512;     // lanes a block takes
+constexpr int kNeeBlocks = 4;      // resident blocks a SM it is compiled for
 constexpr int kMaxStagedBytes = 48 * 1024;
 constexpr float kPi = F(3.141592653589793);
 constexpr float kTwoPi = F(2.0 * 3.141592653589793);
@@ -857,121 +883,170 @@ __device__ __forceinline__ V3 sample_sky(V3 d, const float* sky) {
 
 // -- the two stages -----------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ const float* mat_row(const ShadeArgs& a,
+                                                const float* table, int id) {
+    id = min(max(id, 0), a.n_mats - 1);
+    return table + static_cast<long long>(id) * a.mat_width;
+}
+
+// The NEE light sample of lane i and its record (shadow origin, L, t_max,
+// pdf, the clamped unshadowed contribution); draws the lane's five PCG
+// numbers and stores its state.
+__device__ void nee_sample(const ShadeArgs& a, const float* mat_table,
+                           const float* light_table, bool staged, long long i,
+                           V3 point, V3 n, bool front, V3 d, int mesh,
+                           uint32_t s) {
+    const bool split = a.split != 0;
+    const Mat m = fetch_mat(a, mat_table, staged, mesh);
+    const LightSample ls = sample_light(s, a, light_table, staged, point);
+    a.rng[i] = static_cast<long long>(s);
+    const V3 offset = dot(n, ls.l) > 0.0f ? mul(n, F(1e-4)) : mul(n, F(-1e-4));
+    st3(a.shadow_o, i, add(point, offset));
+    st3(a.l, i, ls.l);
+    a.shadow_t[i] = ls.dist - F(1e-3);
+    a.pdf_nee[i] = ls.pdf;
+    const float scale = ls.att / cmax(ls.pdf, F(1e-12));
+    V3 bd, bs;
+    evaluate_bsdf(n, front, m, ls.l, neg(d), split, bd, bs);
+    if (split) {
+        st3(a.nee_c, i, clamp_soft(mul(mul(bd, ls.radiance), scale), kMaxNee));
+        st3(a.nee_s, i, clamp_soft(mul(mul(bs, ls.radiance), scale), kMaxNee));
+    } else {
+        st3(a.nee_c, i, clamp_soft(mul(mul(bs, ls.radiance), scale), kMaxNee));
+    }
+}
+
+// A lane dead on entry (from bounce 1 on): its flags, the five PCG draws of
+// the NEE it does not do, t_max = -1.  It reads nothing of K1's answer or
+// the state and writes nothing else of the record.
+__device__ __forceinline__ void dead_lane(const ShadeArgs& a, long long i,
+                                          uint32_t s) {
+    a.hit[i] = 0;
+    a.do_nee[i] = 0;
+    if (a.n_lights > 0) {
+        skip(s, 5);
+        a.rng[i] = static_cast<long long>(s);
+        a.shadow_t[i] = -1.0f;
+    }
+}
+
+// One lane that shade_nee has to shade: alive on entry, or any lane at
+// bounce 0 (whose G-buffer is written on every lane).
+__device__ void nee_lane(const ShadeArgs& a, const float* mat_table,
+                         const float* light_table, bool staged, long long i,
+                         uint32_t s) {
+    const bool split = a.split != 0;
+    const bool is_first = a.bounce == 0;
+    const bool nee_on = a.n_lights > 0;
+    const bool alive_in = !is_first || a.alive[i] != 0;
+
+    // hit record (traverse.hit_record)
+    const int slot = a.hit_slot[i];
+    const V3 d = ld3(a.d, i);
+    const bool found = slot >= 0;
+    a.hit[i] = found;
+    if (!found) {
+        if (is_first) {
+            st3(a.first_normal, i, v3(0.0f));
+            a.first_depth[i] = F(1e30);
+            a.first_obj[i] = -1;
+            a.first_rough[i] = 1.0f;
+            a.first_trans[i] = 0.0f;
+        }
+        if (alive_in) {  // sky on miss; the lane dies
+            a.alive[i] = 0;
+            const V3 sky_c = mul(sample_sky(d, a.sky), ld3(a.thr, i));
+            st3(a.acc, i, add(ld3(a.acc, i), sky_c));
+            if (split) {
+                float* const* ch = a.path_spec[i] != 0 ? a.acc_s : a.acc_d;
+                st3(ch, i, add(ld3(ch, i), sky_c));
+            }
+        }
+    }
+    const float t = found ? a.hit_t[i] : 0.0f;
+    const int mesh = found ? a.hit_mesh[i] : 0;
+    V3 n = v3(0.0f), point = v3(0.0f);
+    bool front = false, do_nee = false;
+    if (found) {
+        const V3 o = ld3(a.o, i);
+        n = normalize(cross(ld3(a.e1, slot), ld3(a.e2, slot)), F(1e-30));
+        front = dot(d, n) < 0.0f;
+        n = front ? n : neg(n);
+        point = add(o, mul(d, t));
+        const float* const row = mat_row(a, mat_table, mesh);
+        if (is_first) {
+            st3(a.first_normal, i, n);
+            a.first_depth[i] = t;
+            a.first_obj[i] = mesh;
+            a.first_rough[i] = tload(row + 16, staged);
+            a.first_trans[i] = tload(row + 18, staged);
+        }
+        if (alive_in) {
+            st3(a.point, i, point);
+            st3(a.normal, i, n);
+            a.front[i] = front;
+            do_nee = a.ray_spec[i] == 0;
+            // interior Beer-Lambert absorption, coefficient -log(albedo)
+            V3 thr = ld3(a.thr, i);
+            if (!front) {
+                const V3 alb{tload(row + 0, staged), tload(row + 1, staged),
+                             tload(row + 2, staged)};
+                const V3 c{cmax(-logf(cmax(alb.x, F(1e-6))), 0.0f),
+                           cmax(-logf(cmax(alb.y, F(1e-6))), 0.0f),
+                           cmax(-logf(cmax(alb.z, F(1e-6))), 0.0f)};
+                const V3 absorb{expf(-c.x * t), expf(-c.y * t),
+                                expf(-c.z * t)};
+                thr = mul(thr, absorb);
+                st3(a.thr, i, thr);
+            }
+            // emission (bounce 0 or after a specular bounce)
+            const V3 emission{tload(row + 6, staged), tload(row + 7, staged),
+                              tload(row + 8, staged)};
+            const bool emissive = emission.x > 0.0f || emission.y > 0.0f ||
+                                  emission.z > 0.0f;
+            if (emissive && (is_first || a.prev_spec[i] != 0)) {
+                const V3 ce = mul(thr, emission);
+                st3(a.acc, i, add(ld3(a.acc, i), ce));
+                if (split) {
+                    float* const* ch =
+                        is_first ? a.acc_e
+                                 : (a.path_spec[i] != 0 ? a.acc_s : a.acc_d);
+                    st3(ch, i, add(ld3(ch, i), ce));
+                }
+            }
+        }
+    }
+    a.do_nee[i] = do_nee;
+    if (!nee_on) return;
+    if (do_nee) {
+        nee_sample(a, mat_table, light_table, staged, i, point, n, front, d,
+                   mesh, s);
+    } else {
+        skip(s, 5);
+        a.rng[i] = static_cast<long long>(s);
+        a.shadow_t[i] = -1.0f;
+    }
+}
+
+// A block stages the tables once and takes kNeeChunk neighbouring lanes,
+// kNeeChunk / kNeeThreads to a thread.
+__global__ void __launch_bounds__(kNeeThreads, kNeeBlocks)
 shade_nee_kernel(const ShadeArgs a) {
     extern __shared__ float smem[];
     const float *mat_table, *light_table;
     const bool staged = stage_tables(a, smem, mat_table, light_table);
-    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                        threadIdx.x;
-    if (i >= a.n) return;
-    const bool split = a.split != 0;
-    const bool is_first = a.bounce == 0;
-
-    // hit record (traverse.hit_record)
-    const float t = a.hit_t[i];
-    const int slot = a.hit_slot[i];
-    const int mesh = a.hit_mesh[i];
-    const bool found = slot >= 0;
-    const int idx = max(slot, 0);
-    const V3 nrm = found ? cross(ld3(a.e1, idx), ld3(a.e2, idx)) : v3(0.0f);
-    V3 n = normalize(nrm, F(1e-30));
-    const V3 o = ld3(a.o, i);
-    const V3 d = ld3(a.d, i);
-    const bool front = dot(d, n) < 0.0f;
-    n = front ? n : neg(n);
-    const V3 point = add(o, mul(d, t));
-    a.hit[i] = found;
-    st3(a.point, i, point);
-    st3(a.normal, i, n);
-    a.front[i] = front;
-
-    const Mat m = fetch_mat(a, mat_table, staged, mesh);
-    if (is_first) {
-        st3(a.first_normal, i, found ? n : v3(0.0f));
-        a.first_depth[i] = found ? t : F(1e30);
-        a.first_obj[i] = found ? mesh : -1;
-        a.first_rough[i] = found ? m.roughness : 1.0f;
-        a.first_trans[i] = found ? m.transmission : 0.0f;
+    const bool nee_on = a.n_lights > 0;
+    const long long base = static_cast<long long>(blockIdx.x) * kNeeChunk;
+    const int lanes = static_cast<int>(
+        a.n - base < kNeeChunk ? a.n - base : kNeeChunk);
+    for (int j = threadIdx.x; j < lanes; j += kNeeThreads) {
+        const long long i = base + j;
+        const uint32_t s = nee_on ? static_cast<uint32_t>(a.rng[i]) : 0u;
+        if (a.bounce == 0 || a.alive[i] != 0)
+            nee_lane(a, mat_table, light_table, staged, i, s);
+        else
+            dead_lane(a, i, s);
     }
-
-    uint32_t s = static_cast<uint32_t>(a.rng[i]);
-    const bool alive_in = a.alive[i] != 0;
-    const bool path_spec = a.path_spec[i] != 0;
-    const bool alive = alive_in && found;
-    a.alive[i] = alive;
-    const bool do_nee = alive && a.ray_spec[i] == 0;
-    a.do_nee[i] = do_nee;
-
-    // sky on miss
-    if (alive_in && !found) {
-        const V3 sky_c = mul(sample_sky(d, a.sky), ld3(a.thr, i));
-        st3(a.acc, i, add(ld3(a.acc, i), sky_c));
-        if (split) {
-            float* const* ch = path_spec ? a.acc_s : a.acc_d;
-            st3(ch, i, add(ld3(ch, i), sky_c));
-        }
-    }
-
-    if (alive) {
-        // interior Beer-Lambert absorption, coefficient -log(albedo)
-        V3 thr = ld3(a.thr, i);
-        if (!front) {
-            const V3 c{cmax(-logf(cmax(m.albedo.x, F(1e-6))), 0.0f),
-                       cmax(-logf(cmax(m.albedo.y, F(1e-6))), 0.0f),
-                       cmax(-logf(cmax(m.albedo.z, F(1e-6))), 0.0f)};
-            const V3 absorb{expf(-c.x * t), expf(-c.y * t), expf(-c.z * t)};
-            thr = mul(thr, absorb);
-            st3(a.thr, i, thr);
-        }
-        // emission (bounce 0 or after a specular bounce)
-        const bool emissive = m.emission.x > 0.0f || m.emission.y > 0.0f ||
-                              m.emission.z > 0.0f;
-        if (emissive && (is_first || a.prev_spec[i] != 0)) {
-            const V3 ce = mul(thr, m.emission);
-            st3(a.acc, i, add(ld3(a.acc, i), ce));
-            if (split) {
-                float* const* ch =
-                    is_first ? a.acc_e : (path_spec ? a.acc_s : a.acc_d);
-                st3(ch, i, add(ld3(ch, i), ce));
-            }
-        }
-    }
-
-    if (a.n_lights > 0) {
-        if (do_nee) {
-            const LightSample ls =
-                sample_light(s, a, light_table, staged, point);
-            const V3 offset = dot(n, ls.l) > 0.0f ? mul(n, F(1e-4))
-                                                  : mul(n, F(-1e-4));
-            st3(a.shadow_o, i, add(point, offset));
-            st3(a.l, i, ls.l);
-            a.shadow_t[i] = ls.dist - F(1e-3);
-            a.pdf_nee[i] = ls.pdf;
-            const float scale = ls.att / cmax(ls.pdf, F(1e-12));
-            V3 bd, bs;
-            evaluate_bsdf(n, front, m, ls.l, neg(d), split, bd, bs);
-            if (split) {
-                st3(a.nee_c, i,
-                    clamp_soft(mul(mul(bd, ls.radiance), scale), kMaxNee));
-                st3(a.nee_s, i,
-                    clamp_soft(mul(mul(bs, ls.radiance), scale), kMaxNee));
-            } else {
-                st3(a.nee_c, i,
-                    clamp_soft(mul(mul(bs, ls.radiance), scale), kMaxNee));
-            }
-        } else {
-            // no shadow ray: a dead walk; the record is masked downstream
-            skip(s, 5);
-            st3(a.shadow_o, i, point);
-            st3(a.l, i, v3(0.0f));
-            a.shadow_t[i] = -1.0f;
-            a.pdf_nee[i] = 0.0f;
-            st3(a.nee_c, i, v3(0.0f));
-            if (split) st3(a.nee_s, i, v3(0.0f));
-        }
-    }
-    a.rng[i] = static_cast<long long>(s);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -1056,12 +1131,37 @@ int table_bytes(const ShadeArgs* a) {
 
 extern "C" int ptrt_shade_nee(const ShadeArgs* args, void* stream) {
     if (args->n > 0) {
-        const long long blocks = (args->n + kThreads - 1) / kThreads;
-        shade_nee_kernel<<<static_cast<unsigned>(blocks), kThreads,
+        const long long blocks = (args->n + kNeeChunk - 1) / kNeeChunk;
+        shade_nee_kernel<<<static_cast<unsigned>(blocks), kNeeThreads,
                            table_bytes(args),
                            static_cast<cudaStream_t>(stream)>>>(*args);
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, local-memory bytes a thread, threads a block and resident
+// blocks a SM (with this launch's tables staged) of shade_nee (stage 0) or
+// shade_scatter (stage 1).
+extern "C" int ptrt_shade_info(int stage, const ShadeArgs* args, int* regs,
+                               int* local_bytes, int* threads, int* per_sm) {
+    cudaFuncAttributes attr = {};
+    cudaError_t e;
+    if (stage == 0) {
+        e = cudaFuncGetAttributes(&attr, shade_nee_kernel);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                per_sm, shade_nee_kernel, kNeeThreads, table_bytes(args));
+        *threads = kNeeThreads;
+    } else {
+        e = cudaFuncGetAttributes(&attr, shade_scatter_kernel);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                per_sm, shade_scatter_kernel, kThreads, table_bytes(args));
+        *threads = kThreads;
+    }
+    *regs = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    return static_cast<int>(e);
 }
 
 extern "C" int ptrt_shade_scatter(const ShadeArgs* args, void* stream) {

@@ -6,25 +6,40 @@
 // :490) and atrous_iteration (:425).  Under XLA each is a fusion of dozens
 // of shifted copies, gathers and selects over (H, W) planes.
 //
-// What bounds them on the card: memory traffic and load count.  The
-// temporal stage reads a 3x3 neighbourhood of colour, depth, normal and id
+// What bounds them on the card.  The temporal stage: memory traffic and
+// load count.  It reads a 3x3 neighbourhood of colour, depth, normal and id
 // (9 x 8 floats) and four bilinear corners of eight history planes per
-// pixel; an à-trous pass reads up to 25 taps of nine planes.  The plain
-// torch versions write every shifted plane and every intermediate to device
-// memory (hundreds of 8 MB planes per pass at 1080p).
+// pixel.  The a-trous pass: instruction rate, not bytes.  Its 13 planes
+// (9 read, 4 written) take 0.032 ms at the card's memory rate, but a pixel
+// runs 25 taps of an IEEE division, an accurate expf, two dot products and
+// nine unfused multiplies and adds into the sums (this file builds with
+// -fmad=false): about 88 SASS instructions a tap as built, 2,200 a surface
+// pixel, which over the 1,260,000 surface pixels of a 1080p bench view is
+// ~0.09 ms at one warp instruction a cycle on each of 132 SMs x 4
+// schedulers at ~1.75 GHz.  The plain torch versions write
+// every shifted plane and every intermediate to device memory (hundreds of
+// 8 MB planes per pass at 1080p).
 //
-// What this design does about it: one thread per pixel, every intermediate
-// in registers; neighbour loads hit L1/L2 because the threads of a 32x8
-// block share their windows; each output plane is written once.  The
-// temporal kernel fetches its own history (four corners plus the
+// What this design does about it.  The temporal stage: one thread per
+// pixel, every intermediate in registers; neighbour loads hit L1/L2 because
+// the threads of a 32x8 block share their windows; each output plane is
+// written once.  It fetches its own history (four corners plus the
 // nearest-pixel fallback) and applies the first-frame rule from a device
-// flag, so the frame needs no host round trip.  Border rules follow the
-// reference exactly: the temporal 3x3 window clamps coordinates, the
-// bilinear corners clip after floor, the à-trous taps outside the image
-// are skipped (zero-padded and masked), including dilations past the
-// image.  The float operations follow the plain version's order; this file
-// builds with -fmad=false, so no product is fused into an add the plain
-// version rounds separately.
+// flag, so the frame needs no host round trip.  The a-trous pass cuts
+// instructions a pixel (see "the a-trous pass" below): a block filters from
+// a shared-memory tile that holds, once for each pixel and not once for
+// each of its 25 neighbours, the luminance and a skip mark that replaces
+// the bounds compares and the sky test of a tap; the taps are three wide
+// shared-memory reads at compile-time offsets, with every edge test of a
+// tap evaluated without a branch between them; a sky pixel copies its
+// input and skips the taps.  A 1080p pass takes 0.09-0.11 ms (PERF.md).
+//
+// Border rules follow the reference exactly: the temporal 3x3 window clamps
+// coordinates, the bilinear corners clip after floor, the a-trous taps
+// outside the image are masked (zero-padded cells whose weight is 0),
+// including dilations past the image.  The float operations follow the plain
+// version's order; this file builds with -fmad=false, so no product is
+// fused into an add the plain version rounds separately.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,6 +81,7 @@ struct SvgfAtrousArgs {
     int h, w, step;
     float sigma_l, edge_depth, edge_normal, sky_depth;
     int use_obj;
+    int tile_w, tile_h;  // the block's tile: an instantiated one (see below)
 };
 
 namespace {
@@ -281,69 +297,178 @@ svgf_temporal_kernel(const SvgfTemporalArgs a) {
     a.out_len[p] = new_len;
 }
 
-// 5x5 B-spline weights outer((1,4,6,4,1))/256 * 256, exact in float
-__constant__ float kAtrousW[5] = {1.0f / 16.0f, 4.0f / 16.0f, 6.0f / 16.0f,
-                                  4.0f / 16.0f, 1.0f / 16.0f};
+// -- the à-trous pass ---------------------------------------------------------
+//
+// A block owns TW neighbouring columns of TH rows that lie `step` apart
+// (blockIdx.y = row chunk * step + the rows' residue; at step 1 that is a
+// plain TH x TW tile).  The 25 taps of its pixels then fall on
+// (TH + 4) x (TW + 4 step) pixels, which the block loads once, row by row,
+// into shared memory as cells of 40 bytes:
+//     colour and its luminance | normal and depth | variance and object id.
+// What depends on the tap's pixel alone is computed here, once a cell and
+// not once for each of its 25 neighbours: the luminance, and the tap's two
+// skip rules.  A cell outside the image (zero colour and variance) or of a
+// sky pixel carries NaN in normal.x, so its normal test `dot(n, n_n) >=
+// threshold` fails by itself: that mark takes the place of four bounds
+// compares and a sky test a tap.  (The reference zero-pads and masks; a
+// masked tap adds colour * 0, which this keeps, NaN colours included.)  A
+// centre pixel that carries the mark is sky, or has a NaN normal that no tap
+// passes: both keep their colour and variance, and skip the taps.  With the
+// step a template parameter every tap is a shared-memory read at a
+// compile-time offset.  Tiles (render/denoiser.py ATROUS_TILES): 32 x 16 at
+// steps 1 and 2, 64 x 8 at steps 4, 8 and 16 (61 KB at step 16, three
+// blocks a SM).  A taller or wider tile loads fewer halo cells a pixel but
+// holds fewer blocks a SM, and measured slower; so did 128 and 512 threads
+// a block and a launch bound for 5 or 6 blocks (PERF.md).
 
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-svgf_atrous_kernel(const SvgfAtrousArgs a) {
-    const int x = blockIdx.x * kBlockX + threadIdx.x;
-    const int y = blockIdx.y * kBlockY + threadIdx.y;
-    const int w = a.w, h = a.h;
-    if (x >= w || y >= h) return;
-    const int p = y * w + x;
-    const bool use_obj = a.use_obj != 0;
+constexpr int kAtrousThreads = 256;
+constexpr int kAtrousCellBytes = 40;
+constexpr int kMaxSharedBytes = 232448;  // a block's most on this card
 
-    const V3 c = ld3(a.img, p);
-    const float variance = a.var[p];
-    const float d = a.depth[p];
-    const V3 n = ld3(a.normal, p);
-    const int o = a.obj[p];
-
-    const float center_lum = luminance(c);
-    const float var_scale = sqrtf(fmaxf(variance, 1e-6f));
-    const float adaptive_sigma = a.sigma_l * (1.0f + var_scale * 2.0f);
-    const float inv_sigma_sq =
-        1.0f / (2.0f * adaptive_sigma * adaptive_sigma + 1e-6f);
-
-    V3 acc{0.0f, 0.0f, 0.0f};
-    float acc_var = 0.0f, total_w = 0.0f;
-#pragma unroll
-    for (int dy = -2; dy <= 2; ++dy) {
-        const int qy = y - dy * a.step;
-        if (qy < 0 || qy >= h) continue;
-#pragma unroll
-        for (int dx = -2; dx <= 2; ++dx) {
-            const int qx = x - dx * a.step;
-            if (qx < 0 || qx >= w) continue;
-            const int q = qy * w + qx;
-            const float k_w = kAtrousW[dy + 2] * kAtrousW[dx + 2];
-            const V3 n_c = ld3(a.img, q);
-            const float n_d = a.depth[q];
-            const V3 n_n = ld3(a.normal, q);
-            bool keep = true;
-            if (use_obj) {
-                const int n_o = a.obj[q];
-                keep = !(o != n_o && o >= 0 && n_o >= 0);
-            }
-            const float max_d = fmaxf(d, n_d);
-            keep = keep && !(max_d > 1e-6f &&
-                             fabsf(d - n_d) / fmaxf(max_d, 1e-6f) > a.edge_depth);
-            keep = keep && dot(n, n_n) >= a.edge_normal;
-            keep = keep && !is_sky(n_d, n_n, a.sky_depth);
-            const float lum_diff = fabsf(center_lum - luminance(n_c));
-            const float w_l = expf(-lum_diff * lum_diff * inv_sigma_sq);
-            const float wgt = keep ? k_w * w_l : 0.0f;
-            acc = add(acc, mul(n_c, wgt));
-            acc_var = acc_var + a.var[q] * wgt;
-            total_w = total_w + wgt;
-        }
-    }
-    const bool ok = total_w >= 1e-6f && !is_sky(d, n, a.sky_depth);
-    const float inv_w = 1.0f / fmaxf(total_w, 1e-6f);
-    st3(a.out_img, p, ok ? mul(acc, inv_w) : c);
-    a.out_var[p] = ok ? acc_var * inv_w : variance;
+// 5x5 B-spline weights outer((1,4,6,4,1)) / 256, exact in float
+__host__ __device__ constexpr float atrous_weight(int k) {
+    return (k == 0 || k == 4) ? 1.0f / 16.0f
+                              : ((k == 1 || k == 3) ? 4.0f / 16.0f
+                                                    : 6.0f / 16.0f);
 }
+
+// STEP 0: the step is args.step (any other dilation than the instantiated)
+template <int STEP, int TW, int TH>
+__global__ void __launch_bounds__(kAtrousThreads)
+svgf_atrous_kernel(const SvgfAtrousArgs a) {
+    extern __shared__ float4 atrous_tile[];
+    const int step = STEP ? STEP : a.step;
+    const int pitch = TW + 4 * step;  // cells a tile row
+    const int cells = (TH + 4) * pitch;
+    float4* const colour = atrous_tile;          // rgb, luminance
+    float4* const surface = atrous_tile + cells; // normal (x NaN: skip), depth
+    float2* const rest =                         // variance, object id bits
+        reinterpret_cast<float2*>(atrous_tile + 2 * cells);
+    const int w = a.w, h = a.h;
+    const int chunk = blockIdx.y / step;
+    const int y0 = chunk * (step * TH) + (blockIdx.y - chunk * step);
+    const int x0 = blockIdx.x * TW;
+    if (y0 >= h) return;  // the whole block: no row of this residue
+    const bool use_obj = a.use_obj != 0;
+    const float nan = __int_as_float(0x7fc00000);
+
+    for (int c = threadIdx.x; c < cells; c += kAtrousThreads) {
+        const int r = c / pitch;
+        const int y = y0 + (r - 2) * step;
+        const int x = x0 - 2 * step + (c - r * pitch);
+        float4 cl = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        float4 sf = make_float4(nan, 0.0f, 0.0f, 0.0f);
+        float2 rs = make_float2(0.0f, 0.0f);
+        if (y >= 0 && y < h && x >= 0 && x < w) {
+            const int q = y * w + x;
+            const V3 t_c = ld3(a.img, q);
+            const V3 t_n = ld3(a.normal, q);
+            const float t_d = a.depth[q];
+            cl = make_float4(t_c.x, t_c.y, t_c.z, luminance(t_c));
+            sf = make_float4(is_sky(t_d, t_n, a.sky_depth) ? nan : t_n.x,
+                             t_n.y, t_n.z, t_d);
+            rs = make_float2(a.var[q],
+                             __int_as_float(use_obj ? a.obj[q] : 0));
+        }
+        colour[c] = cl;
+        surface[c] = sf;
+        rest[c] = rs;
+    }
+    __syncthreads();
+
+    for (int p = threadIdx.x; p < TW * TH; p += kAtrousThreads) {
+        const int j = p / TW, i = p - j * TW;
+        const int y = y0 + j * step, x = x0 + i;
+        if (y >= h || x >= w) continue;
+        const int cc = (j + 2) * pitch + i + 2 * step;
+        const int q = y * w + x;
+        const float4 c_cl = colour[cc];
+        const float4 c_sf = surface[cc];
+        const float2 c_rs = rest[cc];
+        const V3 c{c_cl.x, c_cl.y, c_cl.z};
+        const float variance = c_rs.x;
+        if (isnan(c_sf.x)) {  // sky, or no tap passes the normal test
+            st3(a.out_img, q, c);
+            a.out_var[q] = variance;
+            continue;
+        }
+        const float center_lum = c_cl.w;
+        const V3 n{c_sf.x, c_sf.y, c_sf.z};
+        const float d = c_sf.w;
+        const int o = __float_as_int(c_rs.y);
+
+        const float var_scale = sqrtf(fmaxf(variance, 1e-6f));
+        const float adaptive_sigma = a.sigma_l * (1.0f + var_scale * 2.0f);
+        const float inv_sigma_sq =
+            1.0f / (2.0f * adaptive_sigma * adaptive_sigma + 1e-6f);
+
+        V3 acc{0.0f, 0.0f, 0.0f};
+        float acc_var = 0.0f, total_w = 0.0f;
+#pragma unroll
+        for (int dy = -2; dy <= 2; ++dy) {
+#pragma unroll
+            for (int dx = -2; dx <= 2; ++dx) {
+                const int t = cc - dy * pitch - dx * step;
+                const float4 t_cl = colour[t];
+                const float4 t_sf = surface[t];
+                const float2 t_rs = rest[t];
+                const float k_w = atrous_weight(dy + 2) * atrous_weight(dx + 2);
+                const V3 n_c{t_cl.x, t_cl.y, t_cl.z};
+                const V3 n_n{t_sf.x, t_sf.y, t_sf.z};
+                const float n_d = t_sf.w;
+                // every test of every tap, with no branch between them
+                const int n_o = __float_as_int(t_rs.y);
+                const bool obj_edge =
+                    use_obj & (o != n_o) & (o >= 0) & (n_o >= 0);
+                const float max_d = fmaxf(d, n_d);
+                const bool depth_edge =
+                    (max_d > 1e-6f) &
+                    (fabsf(d - n_d) / fmaxf(max_d, 1e-6f) > a.edge_depth);
+                // false on a marked cell: outside the image, or sky
+                const bool keep = !obj_edge & !depth_edge &
+                                  (dot(n, n_n) >= a.edge_normal);
+                const float lum_diff = fabsf(center_lum - t_cl.w);
+                const float w_l = expf(-lum_diff * lum_diff * inv_sigma_sq);
+                const float wgt = keep ? k_w * w_l : 0.0f;
+                acc = add(acc, mul(n_c, wgt));
+                acc_var = acc_var + t_rs.x * wgt;
+                total_w = total_w + wgt;
+            }
+        }
+        const bool ok = total_w >= 1e-6f;
+        const float inv_w = 1.0f / fmaxf(total_w, 1e-6f);
+        st3(a.out_img, q, ok ? mul(acc, inv_w) : c);
+        a.out_var[q] = ok ? acc_var * inv_w : variance;
+    }
+}
+
+template <int STEP, int TW, int TH>
+cudaError_t launch_atrous(const SvgfAtrousArgs& a, cudaStream_t stream) {
+    const int step = STEP ? STEP : a.step;
+    const long long bytes = static_cast<long long>(TH + 4) *
+                            (TW + 4LL * step) * kAtrousCellBytes;
+    if (step < 1 || bytes > kMaxSharedBytes) return cudaErrorInvalidValue;
+    const auto kernel = svgf_atrous_kernel<STEP, TW, TH>;
+    if (bytes > 48 * 1024) {  // a cheap call, per device: every launch
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(bytes));
+        if (e != cudaSuccess) return e;
+    }
+    const long long span = static_cast<long long>(step) * TH;
+    const dim3 grid((a.w + TW - 1) / TW,
+                    static_cast<unsigned>((a.h + span - 1) / span * step));
+    kernel<<<grid, kAtrousThreads, bytes, stream>>>(a);
+    return cudaGetLastError();
+}
+
+// (step, tile width, tile height) of every instantiated pass; step 0 takes
+// any step at run time: no frame runs one (denoise_channel's steps are the
+// five above), it keeps atrous_iteration's any-step interface, untuned (109
+// registers, about twice a templated pass's time).  The wrapper picks one
+// (render/denoiser.py atrous_tile).
+#define PTRT_ATROUS_TILES(X)                                                  \
+    X(1, 32, 16) X(2, 32, 16) X(4, 64, 8) X(8, 64, 8) X(16, 64, 8) X(0, 32, 4)
 
 dim3 grid_for(int h, int w) {
     return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
@@ -361,10 +486,40 @@ extern "C" int ptrt_svgf_temporal(const SvgfTemporalArgs* args, void* stream) {
 }
 
 extern "C" int ptrt_svgf_atrous(const SvgfAtrousArgs* args, void* stream) {
-    if (args->h > 0 && args->w > 0) {
-        svgf_atrous_kernel<<<grid_for(args->h, args->w),
-                             dim3(kBlockX, kBlockY), 0,
-                             static_cast<cudaStream_t>(stream)>>>(*args);
+    if (args->h <= 0 || args->w <= 0)
+        return static_cast<int>(cudaGetLastError());
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PTRT_ATROUS_LAUNCH(S, TW, TH)                                         \
+    if ((S == 0 || args->step == S) && args->tile_w == TW &&                  \
+        args->tile_h == TH)                                                   \
+        return static_cast<int>(launch_atrous<S, TW, TH>(*args, s));
+    PTRT_ATROUS_TILES(PTRT_ATROUS_LAUNCH)
+#undef PTRT_ATROUS_LAUNCH
+    return static_cast<int>(cudaErrorInvalidValue);  // no such tile
+}
+
+// Registers, local-memory bytes a thread, and resident blocks a SM at
+// `shared_bytes` of dynamic shared memory, of the à-trous kernel of a tile.
+extern "C" int ptrt_svgf_atrous_info(int step, int tile_w, int tile_h,
+                                     int shared_bytes, int* regs,
+                                     int* local_bytes, int* per_sm) {
+#define PTRT_ATROUS_INFO(S, TW, TH)                                           \
+    if (step == S && tile_w == TW && tile_h == TH) {                          \
+        const auto kernel = svgf_atrous_kernel<S, TW, TH>;                    \
+        cudaFuncAttributes attr = {};                                         \
+        cudaError_t e = cudaFuncGetAttributes(&attr, kernel);                 \
+        if (e == cudaSuccess && shared_bytes > 48 * 1024)                     \
+            e = cudaFuncSetAttribute(                                         \
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,          \
+                kMaxSharedBytes);                                             \
+        if (e == cudaSuccess)                                                 \
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                \
+                per_sm, kernel, kAtrousThreads, shared_bytes);                \
+        *regs = attr.numRegs;                                                 \
+        *local_bytes = static_cast<int>(attr.localSizeBytes);                 \
+        return static_cast<int>(e);                                           \
     }
-    return static_cast<int>(cudaGetLastError());
+    PTRT_ATROUS_TILES(PTRT_ATROUS_INFO)
+#undef PTRT_ATROUS_INFO
+    return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -72,12 +72,16 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_svgf_temporal.argtypes = [p, p]
         lib.ptrt_svgf_atrous.restype = i
         lib.ptrt_svgf_atrous.argtypes = [p, p]
+        lib.ptrt_svgf_atrous_info.restype = i
+        lib.ptrt_svgf_atrous_info.argtypes = [i, i, i, i, p, p, p]
         lib.ptrt_bloom_blur_down.restype = i
         lib.ptrt_bloom_blur_down.argtypes = [p, p, p, i, i, p, p, p, p]
         lib.ptrt_shade_nee.restype = i
         lib.ptrt_shade_nee.argtypes = [p, p]
         lib.ptrt_shade_scatter.restype = i
         lib.ptrt_shade_scatter.argtypes = [p, p]
+        lib.ptrt_shade_info.restype = i
+        lib.ptrt_shade_info.argtypes = [i, p, p, p, p, p]
         _lib = lib
     return _lib
 

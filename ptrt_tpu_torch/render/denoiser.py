@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -464,6 +465,7 @@ class AtrousArgs(ctypes.Structure):
         ("sigma_l", ctypes.c_float), ("edge_depth", ctypes.c_float),
         ("edge_normal", ctypes.c_float), ("sky_depth", ctypes.c_float),
         ("use_obj", ctypes.c_int),
+        ("tile_w", ctypes.c_int), ("tile_h", ctypes.c_int),
     ]
 
 
@@ -547,6 +549,52 @@ def temporal_accumulation(cur: Vec3, hist: ChannelHistory, mvx, mvy, depth,
     return ChannelHistory(mean=out_mean, m2=out_m2, length=out_len)
 
 
+# The a-trous kernel's tiles.  A block owns ``tile_w`` neighbouring columns
+# of ``tile_h`` rows that lie ``step`` apart, and loads the pixels its taps
+# fall on, (tile_h + 4) x (tile_w + 4 step) cells of ATROUS_CELL_BYTES, into
+# shared memory.  ``csrc/svgf.cu`` instantiates each (step, tile) named here;
+# any other step runs the kernel that reads its step at run time.
+ATROUS_CELL_BYTES = 40
+ATROUS_TILES = {1: (32, 16), 2: (32, 16), 4: (64, 8), 8: (64, 8),
+                16: (64, 8)}
+ATROUS_OTHER_TILE = (32, 4)
+MAX_SHARED_BYTES = 232_448  # a block's most on an H100
+
+
+class AtrousLaunch(NamedTuple):
+    """How ``svgf_atrous`` cuts an (h, w) image at ``step`` into blocks."""
+
+    step: int
+    tile_w: int
+    tile_h: int
+    grid_x: int
+    grid_y: int  # row chunks x step: one block a residue of a chunk's rows
+    shared_bytes: int
+
+    def block_pixels(self, bx: int, by: int, h: int, w: int):
+        """(rows, columns) of the image that block (bx, by) writes."""
+        chunk, residue = divmod(by, self.step)
+        y0 = chunk * self.step * self.tile_h + residue
+        rows = range(y0, min(h, y0 + self.step * self.tile_h), self.step)
+        return rows, range(bx * self.tile_w, min(w, (bx + 1) * self.tile_w))
+
+
+def atrous_launch(h: int, w: int, step: int) -> AtrousLaunch:
+    """The tile, grid and dynamic shared memory of one a-trous pass; raises
+    if the step's tile does not fit a block's shared memory."""
+    if step < 1:
+        raise ValueError(f"a-trous step {step} < 1")
+    tw, th = ATROUS_TILES.get(step, ATROUS_OTHER_TILE)
+    nbytes = (th + 4) * (tw + 4 * step) * ATROUS_CELL_BYTES
+    if nbytes > MAX_SHARED_BYTES:
+        raise ValueError(f"a-trous step {step}: its tile takes {nbytes} "
+                         f"bytes of shared memory, a block has "
+                         f"{MAX_SHARED_BYTES}")
+    span = step * th
+    return AtrousLaunch(step, tw, th, -(-w // tw), -(-h // span) * step,
+                        nbytes)
+
+
 def atrous_iteration(img: Vec3, variance, depth, normal: Vec3, obj_id,
                      step: int, ch: ChannelSettings, cfg: DenoiserSettings):
     """One à-trous pass (``svgf_atrous``).  Returns (image, variance)."""
@@ -556,6 +604,7 @@ def atrous_iteration(img: Vec3, variance, depth, normal: Vec3, obj_id,
         return atrous_iteration_plain(img, variance, depth, normal, obj_id,
                                       step, ch, cfg)
     h, w = depth.shape
+    launch = atrous_launch(h, w, int(step))
     f32 = torch.float32
     a = AtrousArgs()
     a.img = _P3(*_planes("img", img, (h, w), f32, dev))
@@ -567,7 +616,8 @@ def atrous_iteration(img: Vec3, variance, depth, normal: Vec3, obj_id,
     out_var = torch.empty((h, w), dtype=f32, device=dev)
     a.out_img = _P3(*[c.data_ptr() for c in (out.x, out.y, out.z)])
     a.out_var = out_var.data_ptr()
-    a.h, a.w, a.step = h, w, int(step)
+    a.h, a.w, a.step = h, w, launch.step
+    a.tile_w, a.tile_h = launch.tile_w, launch.tile_h
     a.sigma_l = ch.sigma_luminance
     a.edge_depth = cfg.edge_depth_threshold
     a.edge_normal = cfg.edge_normal_threshold
@@ -578,6 +628,22 @@ def atrous_iteration(img: Vec3, variance, depth, normal: Vec3, obj_id,
     kernels.launches["svgf_atrous"] += 1
     kernels.check(rc, "svgf_atrous")
     return out, out_var
+
+
+def atrous_kernel_info(h: int, w: int, step: int) -> dict:
+    """Registers, local-memory bytes a thread and resident blocks a SM of
+    the a-trous kernel that an (h, w) pass at ``step`` launches, as built
+    (measurement only; needs the card)."""
+    launch = atrous_launch(h, w, step)
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = kernels.get_lib().ptrt_svgf_atrous_info(
+        step if step in ATROUS_TILES else 0, launch.tile_w, launch.tile_h,
+        launch.shared_bytes, *[ctypes.byref(v) for v in vals])
+    kernels.check(rc, "svgf_atrous info")
+    return {**dict(zip(("registers", "local_bytes", "blocks_per_sm"),
+                       (v.value for v in vals))),
+            "tile": (launch.tile_w, launch.tile_h),
+            "shared_bytes": launch.shared_bytes}
 
 
 # -- the channel and the frame -----------------------------------------------

@@ -23,11 +23,22 @@ The kernels update the ``PathState`` planes in place; the plain versions
 rebind the ``PathState`` fields to new tensors.  Either way the state holds
 the new values after the call, but a caller that kept a reference to an old
 plane sees it change on the card and not on the CPU: clone first
-(``PathState.clone``) where that matters.  Planes the plain version
-computes and masks away are left as they were by the kernels: the
-throughput of a lane that dies in the stage, and the NEE record of a lane
-without NEE (zeros, ``t_max = -1``).  Every lane still draws the same PCG
+(``PathState.clone``) where that matters.  Every lane draws the same PCG
 numbers in both.
+
+The record's contract (``NeeRecord``): ``do_nee`` and ``shadow_t`` hold on
+every lane (``shadow_t = -1`` where ``do_nee`` is false), and so does
+``hit.hit``: K1 found a triangle and, from bounce 1 on, the lane was alive
+on entry (K1 through the alive plane reports no hit on a dead lane; the
+stage does not read K1's planes there).  The hit point, normal and front flag are specified only on lanes
+still alive after the stage; the shadow origin, L, pdf and contribution
+only where ``do_nee`` is true.  Elsewhere the plain stage holds what it
+computed and masks away, and the kernel's planes are never written: a dead
+lane moves only its flags, its PCG state and its ``shadow_t``.  Nothing
+downstream reads an unspecified value: ``shade_scatter`` gates on ``alive``
+and ``do_nee``, and the shadow walk skips a ray with ``t_max < 0`` before
+it loads the ray.  Likewise the kernels leave the throughput of a lane that
+dies in a stage as it was.
 
 The wrappers check the ``PathState`` planes once a trace: the checked
 pointers are kept on the state and used again while its fields are the same
@@ -125,7 +136,10 @@ class PathState:
 
 class NeeRecord(NamedTuple):
     """What ``shade_nee`` hands the shadow walk and ``shade_scatter``.  The
-    shadow fields are None when there is no light to sample."""
+    shadow fields are None when there is no light to sample.  Only
+    ``do_nee``, ``shadow_t`` and ``hit.hit`` hold on every lane; the rest is
+    unspecified where the lane is dead or ``do_nee`` is false (the module's
+    note has the contract)."""
 
     hit: traverse.Hit
     do_nee: torch.Tensor  # bool: the lane casts a shadow ray
@@ -149,6 +163,10 @@ def shade_nee_plain(ps: PathState, geom, k1: traverse.Closest,
     is_first = bounce == 0
     d = ps.d
     hit = traverse.hit_record(geom, ps.o, d, k1)
+    if not is_first:
+        # a lane dead on entry reports no hit, whatever K1's planes hold
+        # there (through the alive plane K1 reports none either)
+        hit = dataclasses.replace(hit, hit=hit.hit & ps.alive)
 
     mat = materials.gather(hit.mesh_index.clamp_min(0))
     if is_first:
@@ -399,8 +417,9 @@ def shade_nee(ps: PathState, geom, k1: traverse.Closest,
               sky: SkyConfig, bounce: int) -> NeeRecord:
     """The first stage of a bounce (kernel ``shade_nee``), after K1 gave
     ``k1`` for the rays ``ps.o``, ``ps.d``.  Updates ``ps`` (in place on the
-    card) and returns the hit record and the shadow rays.  ``n_lights == 0``
-    means no NEE: no shadow rays and no PCG draws for it."""
+    card) and returns the hit record and the shadow rays, specified as the
+    module's note says.  ``n_lights == 0`` means no NEE: no shadow rays and
+    no PCG draws for it."""
     n, dev, a = _checked(ps, materials, [
         ("hit_t", "k1.t", k1.t, _F32), ("hit_slot", "k1.slot", k1.slot, _I32),
         ("hit_mesh", "k1.mesh", k1.mesh, _I32)])
@@ -485,3 +504,24 @@ def shade_scatter(ps: PathState, nee: NeeRecord, in_shadow,
                                               kernels.stream_ptr(dev))
     kernels.launches["shade_scatter"] += 1
     kernels.check(rc, "shade_scatter")
+
+
+def kernel_info(materials: MaterialTable, lights: LightTable) -> dict:
+    """{kernel: registers, local-memory bytes a thread, threads a block and
+    resident blocks a SM} of the two K3 kernels as built, with these tables
+    staged (measurement only; needs the card)."""
+    a = ShadeArgs()
+    a.n = 1
+    a.mat = materials.packed.data_ptr()
+    a.n_mats, a.mat_width = materials.packed.shape
+    a.lights = lights.packed.data_ptr()
+    a.n_light_rows, a.light_width = lights.packed.shape
+    out = {}
+    for stage, name in enumerate(("shade_nee", "shade_scatter")):
+        vals = [ctypes.c_int() for _ in range(4)]
+        rc = kernels.get_lib().ptrt_shade_info(
+            stage, ctypes.addressof(a), *[ctypes.byref(v) for v in vals])
+        kernels.check(rc, f"{name} info")
+        out[name] = dict(zip(("registers", "local_bytes", "threads",
+                              "blocks_per_sm"), (v.value for v in vals)))
+    return out

@@ -1,0 +1,166 @@
+"""The contract of the record between the two K3 stages
+(``ptrt_tpu_torch/render/shade.py``): only ``do_nee``, ``shadow_t`` and
+``hit.hit`` hold on every lane.  The hit point, normal and front flag are
+unspecified where the lane is dead after ``shade_nee``; the shadow origin,
+L, pdf and contribution where ``do_nee`` is false.  The ``shade_nee`` kernel
+never writes those values, so whatever reads the record must not depend on
+them.  Here the plain stages and the plain shadow walk, which the kernels
+are held to on the card, are fed a record poisoned exactly there (NaN in the
+float planes, the opposite flag in ``front_face``) and must give what the
+clean record gives, bit for bit: per bounce and for a whole frame.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ptrt_tpu_torch.app.bench_scene import build_bench_scene
+from ptrt_tpu_torch.core.vec import Vec3
+from ptrt_tpu_torch.render import integrator, pipeline, shade, traverse
+from test_torch_shading import torch_one_thread  # noqa: F401
+
+DEPTH = 4
+
+
+def poisoned(nee: shade.NeeRecord, alive_after) -> shade.NeeRecord:
+    """``nee`` with every value the contract leaves unspecified replaced:
+    NaN (floats) or the opposite flag where the lane is dead after the
+    stage (hit record) or casts no shadow ray (shadow record)."""
+    dead, off = ~alive_after, ~nee.do_nee
+    nan = float("nan")
+    bad = lambda v, m: (None if v is None else v.map(lambda c: bad(c, m))
+                        if isinstance(v, Vec3) else torch.where(m, nan, v))
+    hit = nee.hit
+    hit = traverse.Hit(hit=hit.hit, t=hit.t, point=bad(hit.point, dead),
+                       normal=bad(hit.normal, dead),
+                       front_face=hit.front_face ^ dead,
+                       mesh_index=hit.mesh_index, u=hit.u, v=hit.v)
+    return shade.NeeRecord(hit, nee.do_nee, bad(nee.shadow_o, off),
+                           bad(nee.shadow_d, off), nee.shadow_t,
+                           bad(nee.pdf, off), bad(nee.contrib, off),
+                           bad(nee.contrib_s, off))
+
+
+@pytest.fixture(scope="module")
+def scene():
+    sc = build_bench_scene(40, 28, target_tris=600, device="cpu")
+    sc._ensure_device_state()
+    return sc
+
+
+@pytest.fixture(scope="module")
+def chains(scene):
+    """{split: [(state before the bounce, K1's answer)] for bounces 0-3} of
+    sample 0 of the scene's camera, through the plain stages."""
+    sc, g = scene, scene._geom
+    out = {}
+    for split in (False, True):
+        st, ray = pipeline.camera_rays(sc.camera, sc._rng_state, 0, 0,
+                                       sc._blue_noise)
+        ps = shade.PathState.start(ray, st, split)
+        steps = []
+        for bounce in range(DEPTH):
+            k1 = traverse.closest_hit_live(g, ps.o, ps.d, ps.alive)
+            steps.append((ps.clone(), k1))
+            nee = shade.shade_nee(ps, g, k1, sc._mat_table, sc._light_table,
+                                  len(sc.lights), sc.sky(), bounce)
+            occl = traverse.any_hit(g, nee.shadow_o, nee.shadow_d,
+                                    nee.shadow_t)
+            shade.shade_scatter(ps, nee, occl, sc._mat_table, bounce, True, 1)
+        out[split] = steps
+    return out
+
+
+def _equal(a, b, lanes=None):
+    comps = (lambda v: [v.x, v.y, v.z]) if isinstance(a, Vec3) else (
+        lambda v: [v])
+    pick = (lambda c: c) if lanes is None else (lambda c: c[lanes])
+    return all(torch.equal(pick(x), pick(y))
+               for x, y in zip(comps(a), comps(b)))
+
+
+@pytest.mark.parametrize("bounce", range(DEPTH))
+@pytest.mark.parametrize("split", [False, True])
+def test_unspecified_record_values_are_never_read(scene, chains, split,
+                                                  bounce):
+    sc, g = scene, scene._geom
+    pre, k1 = chains[split][bounce]
+    clean_state = pre.clone()
+    nee = shade.shade_nee(clean_state, g, k1, sc._mat_table, sc._light_table,
+                          len(sc.lights), sc.sky(), bounce)
+    bad = poisoned(nee, clean_state.alive)
+    # there is something to poison, and something left to shade
+    assert bool((~clean_state.alive).any()) and bool((~nee.do_nee).any())
+    assert bool(torch.isnan(bad.hit.point.x).any())
+    assert bool(torch.isnan(bad.pdf).any())
+    if bounce < DEPTH - 1:
+        assert bool(nee.do_nee.any())
+
+    # the shadow walk: a ray with t_max < 0 is skipped whatever it holds
+    occl = traverse.any_hit(g, nee.shadow_o, nee.shadow_d, nee.shadow_t)
+    occl_bad = traverse.any_hit(g, bad.shadow_o, bad.shadow_d, bad.shadow_t)
+    assert torch.equal(occl, occl_bad)
+    assert torch.equal(nee.shadow_t < 0, ~nee.do_nee)
+
+    bad_state = clean_state.clone()
+    shade.shade_scatter(clean_state, nee, occl, sc._mat_table, bounce, True,
+                        1)
+    shade.shade_scatter(bad_state, bad, occl_bad, sc._mat_table, bounce, True,
+                        1)
+    for name in ("alive", "rng", "ray_spec", "prev_was_specular",
+                 "path_still_specular", "accum", "diffuse", "specular",
+                 "emission"):
+        a, b = getattr(clean_state, name), getattr(bad_state, name)
+        if a is not None:
+            assert _equal(a, b), name
+            assert not isinstance(a, Vec3) or bool(torch.isfinite(b.x).all())
+    # the next ray, where there is one
+    live = clean_state.alive
+    for name in ("o", "d", "throughput"):
+        assert _equal(getattr(clean_state, name), getattr(bad_state, name),
+                      live), name
+    # rays traced: this bounce's shadow rays and the next bounce's rays
+    assert int(nee.do_nee.sum()) == int(bad.do_nee.sum())
+    assert int(clean_state.alive.sum()) == int(bad_state.alive.sum())
+
+
+@pytest.mark.parametrize("preset", ["bench", "balanced"])
+def test_frame_with_poisoned_records_is_the_same_frame(monkeypatch, preset):
+    """A 64x48 frame (2 spp, depth 4; the balanced preset with its split
+    trace and post stack, or the bare bench settings) whose every record is
+    poisoned between the stages equals the normal frame: image, radiance and
+    rays traced."""
+
+    def render(poison: bool):
+        sc = build_bench_scene(64, 48, target_tris=800, device="cpu")
+        if preset == "balanced":
+            sc.set_performance_preset("balanced")
+        else:
+            sc.perf.enable_denoiser = sc.perf.enable_bloom = False
+            sc.perf.enable_motion_vectors = False
+        sc.perf.samples_per_pixel, sc.perf.max_bounce_depth = 2, DEPTH
+        calls = []
+        if poison:
+            real = shade.shade_nee
+
+            def shade_nee(ps, *args):
+                nee = real(ps, *args)
+                calls.append(1)
+                return poisoned(nee, ps.alive)
+
+            monkeypatch.setattr(integrator, "shade_nee", shade_nee)
+        img = sc.render_frame()
+        monkeypatch.undo()
+        return img, sc.last_frame, len(calls)
+
+    img, frame, _ = render(False)
+    img_bad, frame_bad, calls = render(True)
+    assert calls == 2 * DEPTH
+    assert np.array_equal(img, img_bad)
+    assert int(frame.rays_traced) == int(frame_bad.rays_traced)
+    for name in ("color", "diffuse", "specular", "emission"):
+        a, b = getattr(frame, name), getattr(frame_bad, name)
+        if a is not None:
+            assert _equal(a, b), name
+            assert bool(torch.isfinite(b.x).all()), name
+    assert img.std() > 1.0
