@@ -28,20 +28,23 @@ Phases (any failure raises, so the exit code is non-zero):
   3b. K3, shade_nee and shade_scatter, against their plain stages on the
      full 1920x1080 bench scene (the wavefronts of bounces 0-3 of sample 0,
      split off and on, the same state and hit records for both; each stage
-     timed on each wavefront beside that wavefront's bound) and on random
+     timed on each wavefront beside that wavefront's bound, with the share
+     of warps that hold a live lane) and on random
      lanes of every material lobe and light type (65,536; a ragged 16,421
      with the tables in global memory; 65,536 all dead): PCG states
      bit-exact, flags and lobes agreeing on at least 99.99% of lanes, values
      within the tiers of tests/test_torch_shading.py, under the record's
-     contract (render/shade.py: a dead lane's record is unspecified); the
-     K3 kernels' registers and resident blocks a SM;
+     contract (render/shade.py: a dead lane's record is unspecified);
+     shade_scatter also on the plain stage's own inputs, equal on every
+     lane; the K3 kernels' registers and resident blocks a SM;
   4. the bench path: Scene.render_frame() on the bench scene at 1920x1080,
      4 spp, depth 4, ~1M triangles, post stack off — one warm-up and three
      timed frames, with the kernels' launch counts taken over exactly that
      run (K1, K2 and K3 once a bounce of each sample, no material-plane
      gather), then one frame under torch.profiler (device time, launches,
      and 10 launches a later bounce: no t_max select before K1, no bool
-     cast after K2);
+     cast after K2), then the progressive average once more under
+     torch.cuda.set_sync_debug_mode("error") (no host copy);
   5. the balanced path: the same scene under the reference's default
      ("balanced") preset — 1 spp, depth 4, split trace, motion vectors,
      SVGF, bloom, tonemap — one warm-up and five timed frames with the
@@ -49,19 +52,26 @@ Phases (any failure raises, so the exit code is non-zero):
      timed frames; then the post stages timed one by one and one profiled
      frame;
   6. svgf_temporal, svgf_atrous and bloom_blur_down against their plain
-     versions on the 1920x1080 buffers of a balanced frame: svgf_atrous
+     versions on the 1920x1080 buffers of a balanced frame: svgf_temporal
+     on each channel with and without a history cap and on both channels
+     in one launch (bit for bit each channel alone), first frame off and
+     on, at 1920x1080 and at odd sizes, timed queued (two readings) beside
+     each launch's own bound; svgf_atrous
      exactly, at each of the seven passes a frame runs (diffuse at steps 1,
      2, 4, 8, 16, specular at 1, 2), each timed beside its own bound, and
      at odd sizes (crops that are no multiple of a tile, smaller than the
      halo, one pixel; steps without a kernel of their own; object ids on
-     and off); the a-trous kernels' tiles, registers and occupancy;
+     and off); bloom_blur_down exactly at each of the six mips, each timed
+     queued (two readings) beside its own bound; the temporal and a-trous
+     kernels' tiles, registers and occupancy;
   7. end to end on small inputs: the bench frame and three balanced frames
      rendered on the GPU and on the CPU (plain versions) must agree.
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
 plane for every ray, origin and direction only for its live rays, the
-answers, and the BVH's rows read once).  The line
+answers, and the BVH's rows read once).  A `[rank]` line gives the device
+ms a frame each kernel stands over its bound.  The line
 before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Without a GPU, or outside the repository,
 the script fails.
@@ -120,17 +130,6 @@ OPS_PER_ITEM = {
     # matrix and clamp 3 x 7; the sRGB encode 3 x 7 (max, the branch test,
     # the linear branch's multiply, x 255 + 0.5, a clamp of 2)
     "tonemap_rgb8": 3 + 15 + 30 + 21 + 21,
-    # svgf.cu temporal, a pixel: the 3x3 window 9 x 16 (the weighted sums
-    # of colour 6 and its square 9, the count 1; the edge tests
-    # short-circuit); the window's mean, variance and clamp box 36; the
-    # reprojection 7; the bilinear set-up 22 and weights' sum, fallback
-    # test, nearest pixel and reciprocal 12 (the history fetch branches);
-    # the variance-adaptive alpha 23; the new length 2; the blend 22; the
-    # sky test 1
-    "svgf_temporal": 144 + 36 + 7 + 34 + 23 + 2 + 22 + 1,
-    # bloom.cu, an output pixel: 3 channels x (5 rows x (the 5-tap
-    # horizontal blur 7 + the row weight 1) + 4 row sums)
-    "bloom_blur_down": 3 * (5 * 8 + 4),
     # shade.cu shade_scatter, a live lane: material_scatter's code outside
     # its lobe branches (the Fresnel, coat and dielectric terms 76; three
     # draws and the lobe test 4; the sampled direction normalised, its
@@ -140,6 +139,9 @@ OPS_PER_ITEM = {
     "shade_scatter": 76 + 4 + 42 + 11 + 40 + 4 + 5,
 }
 SHADE_STAGED_BYTES = 48 * 1024  # shade.cu stages tables up to this size
+# the odd sizes the post kernels are held at besides 1920x1080: crops that
+# are no multiple of a tile, smaller than a halo, one pixel
+ODD_SIZES = ((23, 37), (75, 101), (1, 1), (270, 333))
 
 
 def bound(nbytes: float, ops: float = 0.0) -> dict:
@@ -277,7 +279,7 @@ def check_atrous_sizes(inputs, cfg) -> list:
     ch, img, var, depth, normal, obj = inputs
     full_h, full_w = depth.shape
     ran = []
-    for h, w in ((23, 37), (75, 101), (1, 1), (270, 333)):
+    for h, w in ODD_SIZES:
         y0, x0 = (full_h - h) // 2, (full_w - w) // 2
         crop = lambda c: (c.map(crop) if isinstance(c, Vec3)
                           else c[y0:y0 + h, x0:x0 + w].contiguous())
@@ -297,65 +299,156 @@ def check_atrous_sizes(inputs, cfg) -> list:
     return ran
 
 
+def crop_temporal(t_inputs, h, w, first):
+    """The temporal stage's inputs (``stages.temporal_inputs``) cut to their
+    central (h, w) pixels, with the first-frame flag ``first``."""
+    import dataclasses
+
+    import torch
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.render import denoiser as den
+
+    mvx, mvy, depth, normal, obj, state0, cfg = t_inputs["args"]
+    full_h, full_w = depth.shape
+    y0, x0 = (full_h - h) // 2, (full_w - w) // 2
+
+    def cut(v):
+        if v is None:
+            return None
+        if isinstance(v, Vec3):
+            return v.map(cut)
+        if isinstance(v, den.ChannelHistory):
+            return den.ChannelHistory(cut(v.mean), cut(v.m2), cut(v.length))
+        return v[y0:y0 + h, x0:x0 + w].contiguous()
+
+    state = dataclasses.replace(
+        state0, diffuse=cut(state0.diffuse), specular=cut(state0.specular),
+        normal=cut(state0.normal), depth=cut(state0.depth),
+        object_id=cut(state0.object_id),
+        first_frame=torch.tensor(first, device=depth.device))
+    return {"args": (cut(mvx), cut(mvy), cut(depth), cut(normal), cut(obj),
+                     state, cfg),
+            "channels": {k: (cut(src), cut(hist), ch, cut(cap))
+                         for k, (src, hist, ch, cap)
+                         in t_inputs["channels"].items()}}
+
+
+def check_temporal(t_inputs) -> dict:
+    """svgf_temporal against its plain version, at 1920x1080 and at
+    ODD_SIZES, with the first-frame flag off and on: each channel alone with
+    and without a history cap and both channels in one launch (bit for bit
+    the channels alone), on SVGF_AGREE of the pixels within rtol 1e-5 and
+    with equal history lengths.  Returns the largest error and what was
+    run."""
+    import torch
+    from ptrt_tpu_torch.render import denoiser as den
+
+    full_h, full_w = t_inputs["args"][2].shape
+    out = {"max_abs_err": 0.0, "least_share": 1.0, "sizes": []}
+    for h, w in ((full_h, full_w), *ODD_SIZES):
+        for first in (False, True):
+            inp = crop_temporal(t_inputs, h, w, first)
+            mvx, mvy, depth, normal, obj, state, cfg = inp["args"]
+            flag = state.first_frame
+            g = (mvx, mvy, depth, normal, obj, state)
+            d, sp = inp["channels"]["diffuse"], inp["channels"]["specular"]
+            runs = {"diffuse": d, "specular": sp,
+                    "specular without its cap": (*sp[:3], None),
+                    "diffuse with the specular cap": (*d[:3], sp[3])}
+            got = {k: den.temporal_accumulation(c[0], c[1], *g, c[2], cfg,
+                                                hist_cap=c[3], first=flag)
+                   for k, c in runs.items()}
+            pair = den.temporal_accumulation_pair((d, sp), *g, cfg,
+                                                  first=flag)
+            for k, c in runs.items():
+                hist = c[1]
+                if first:  # the first frame's history is the current frame
+                    hist = den.ChannelHistory(c[0], c[0] * c[0],
+                                              torch.ones_like(depth))
+                want = den.temporal_accumulation_plain(c[0], hist, *g, c[2],
+                                                       cfg, hist_cap=c[3])
+                for part in ("mean", "m2"):
+                    err, rel, share = agreement(getattr(got[k], part),
+                                                getattr(want, part))
+                    assert share >= SVGF_AGREE, (h, w, first, k, part, share,
+                                                 err, rel)
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
+                    out["least_share"] = min(out["least_share"], share)
+                same_len = float((got[k].length == want.length).float()
+                                 .mean())
+                assert same_len >= SVGF_AGREE, (h, w, first, k, same_len)
+            for k, p in zip(("diffuse", "specular"), pair):
+                for a, b in ((p.mean, got[k].mean), (p.m2, got[k].m2),
+                             (p.length, got[k].length)):
+                    assert exact(k, a, b) == 0, (
+                        f"svgf_temporal at {h}x{w}, first={first}: the "
+                        f"two-channel launch differs from {k} alone")
+        out["sizes"].append(f"{h}x{w}")
+    log(f"  svgf_temporal at {out['sizes']}, first frame off and on, each "
+        f"channel with and without a history cap: at least "
+        f"{out['least_share']:.6f} of pixels within rtol 1e-5 (bound "
+        f"{SVGF_AGREE}), max |err| {out['max_abs_err']:.3g}; both channels "
+        f"in one launch equal to each alone")
+    out["kernels"] = {n: den.temporal_kernel_info(n) for n in (1, 2)}
+    for n, v in out["kernels"].items():
+        log(f"  svgf_temporal of {n} channel(s): {v['registers']} registers, "
+            f"{v['local_bytes']} bytes of local memory a thread, "
+            f"{v['shared_bytes']} bytes of shared memory a block, "
+            f"{v['blocks_per_sm']} resident blocks of {v['threads']} threads "
+            f"a SM")
+    return out
+
+
 def check_post_kernels(sc, state0, prev_vp, card):
     """svgf_temporal, svgf_atrous and bloom_blur_down against their plain
     versions on the buffers of the scene's last frame (traced after
-    ``state0`` / ``prev_vp``).  Returns {kernel: stats}."""
-    import torch
+    ``state0`` / ``prev_vp``), each timed beside its own bound.  Returns
+    {kernel: stats}."""
     from ptrt_tpu_torch.render import bloom
     from ptrt_tpu_torch.render import denoiser as den
-    from ptrt_tpu_torch.render.motion import motion_vectors
     from ptrt_tpu_torch.tools import stages
 
     bufs = sc.last_frame
     rh, rw = sc.render_size
     cfg = den.DEFAULT_SETTINGS
     assert not bool(state0.first_frame)
-    mvx, mvy = motion_vectors(bufs.depth, sc.camera, prev_vp, rw, rh)
-    g = (bufs.depth, bufs.normal, bufs.object_id)
-    spec_cap = den.specular_history_cap(bufs.roughness, bufs.transmission,
-                                        cfg)
+    t_inputs = stages.temporal_inputs(sc, state0, prev_vp)
+    mvx, mvy, *g, _, _ = t_inputs["args"]
+    first = state0.first_frame
     out = {}
 
-    temporal = {"max_abs_err": 0.0}
-    hists = {}
-    for name, ch, cap in (("diffuse", cfg.diffuse, None),
-                          ("specular", cfg.specular, spec_cap)):
-        src = den.firefly_suppression(getattr(bufs, name), bufs.depth,
-                                      bufs.normal, ch.firefly_threshold,
-                                      cfg.sky_depth_threshold)
-        hist = getattr(state0, name)
-        args = (src, hist, mvx, mvy, *g, state0, ch, cfg)
-        got = den.temporal_accumulation(*args, hist_cap=cap,
-                                        first=state0.first_frame)
-        want = den.temporal_accumulation_plain(*args, hist_cap=cap)
-        hists[name] = got
-        for part in ("mean", "m2"):
-            err, rel, share = agreement(getattr(got, part),
-                                        getattr(want, part))
-            log(f"  svgf_temporal {name} {part}: max |err| {err:.3g}, max "
-                f"rel {rel:.3g}, {share:.6f} of pixels within rtol 1e-5 "
-                f"(bound {SVGF_AGREE})")
-            assert share >= SVGF_AGREE, (name, part, share)
-            temporal["max_abs_err"] = max(temporal["max_abs_err"], err)
-        same_len = float((got.length == want.length).float().mean())
-        log(f"  svgf_temporal {name} length: equal on {same_len:.6f}")
-        assert same_len >= SVGF_AGREE, (name, same_len)
-        if name == "diffuse":
-            temporal["ms"] = cuda_ms(lambda: den.temporal_accumulation(
-                *args, hist_cap=cap, first=state0.first_frame), 20)
-            temporal["plain_ms"] = cuda_ms(
-                lambda: den.temporal_accumulation_plain(*args, hist_cap=cap),
-                5)
+    temporal = check_temporal(t_inputs)
+    rows = {r["channels"]: r for r in stages.time_temporal(t_inputs, first)}
+    for k, r in rows.items():
+        kms = ("not measured" if r["kernel_ms"] is None
+               else f"{r['kernel_ms']:.4f} ms")
+        log(f"  svgf_temporal {k} at {rh}x{rw}: queued "
+            f"{' / '.join(f'{t:.4f}' for t in r['queued_ms'])} ms, the "
+            f"kernel alone {kms}, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) [{card}]")
+    pair = rows["diffuse+specular"]
+    plain = {k: cuda_ms(lambda c=c: den.temporal_accumulation_plain(
+        c[0], c[1], mvx, mvy, *g, state0, c[2], cfg, hist_cap=c[3]), 5)
+        for k, c in t_inputs["channels"].items()}
+    # the kernel table's row: a balanced frame's temporal stage, both
+    # channels in one launch
+    temporal.update(
+        ms=sum(pair["queued_ms"]) / 2, queued_ms=pair["queued_ms"],
+        kernel_ms=pair["kernel_ms"], plain_ms=sum(plain.values()),
+        bound_ms=pair["bound_ms"], bound_by=pair["bound_by"],
+        channel_queued_ms={k: rows[k]["queued_ms"]
+                           for k in ("diffuse", "specular")},
+        channel_kernel_ms={k: rows[k]["kernel_ms"]
+                           for k in ("diffuse", "specular")},
+        channel_bound_ms={k: rows[k]["bound_ms"]
+                          for k in ("diffuse", "specular")},
+        channel_plain_ms=plain)
     out["svgf_temporal"] = temporal
 
     # the seven passes a balanced frame runs (diffuse 1-16, specular 1-2),
     # each fed the pass before it: exact against the plain version, timed,
     # beside its own bound
-    inputs = {name: (ch, hists[name].mean,
-                     den.estimate_variance(hists[name], *g, cfg), *g)
-              for name, ch in (("diffuse", cfg.diffuse),
-                               ("specular", cfg.specular))}
+    inputs = stages.atrous_inputs(t_inputs, first)
     passes = stages.time_atrous(inputs, iters=20, plain_iters=3)
     for r in passes:
         log(f"  svgf_atrous {r['channel']} step {r['step']}: exact "
@@ -393,32 +486,36 @@ def check_post_kernels(sc, state0, prev_vp, card):
             f"threads a SM")
     out["svgf_atrous"] = atrous
 
+    # bloom_blur_down at each mip of the frame's chain: exact against the
+    # plain version, timed queued, beside its own bound
+    mips = stages.time_blur_down(bufs.color)
     blur = {"max_abs_err": 0.0}
-    cur = bloom.bright_pass(bufs.color)
-    first = cur
-    sizes = []
-    while cur.x.shape[0] // 2 and cur.x.shape[1] // 2 and len(sizes) < 6:
-        got, want = bloom.blur_down(cur), bloom.blur_down_plain(cur)
+    for r in mips:
+        got, want = bloom.blur_down(r["input"]), bloom.blur_down_plain(
+            r["input"])
         err, rel, share = agreement(got, want, rtol=1e-6, atol=1e-7)
-        assert share == 1.0, (tuple(cur.x.shape), err, rel)
+        assert share == 1.0, (r["shape"], err, rel)
         blur["max_abs_err"] = max(blur["max_abs_err"], err)
-        sizes.append(tuple(got.x.shape))
-        cur = got
-    log(f"  bloom_blur_down mips {sizes}: max |err| {blur['max_abs_err']:.3g}"
-        f" (rtol 1e-6 on every pixel)")
-    blur["ms"] = cuda_ms(lambda: bloom.blur_down(first), 50)
-    blur["plain_ms"] = cuda_ms(lambda: bloom.blur_down_plain(first), 10)
+        r["plain_ms"] = cuda_ms(lambda r=r: bloom.blur_down_plain(
+            r["input"]), 5)
+        kms = ("not measured" if r["kernel_ms"] is None
+               else f"{r['kernel_ms']:.4f} ms")
+        log(f"  bloom_blur_down {r['shape'][0]}x{r['shape'][1]}: exact "
+            f"(rtol 1e-6, max |err| {err:.3g}); queued "
+            f"{' / '.join(f'{t:.4f}' for t in r['queued_ms'])} ms, the "
+            f"kernel alone {kms} vs plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+        del r["input"]
+    # the kernel table's row: the 1080p mip, with every mip beside it
+    blur.update(ms=sum(mips[0]["queued_ms"]) / 2,
+                queued_ms=mips[0]["queued_ms"],
+                kernel_ms=mips[0]["kernel_ms"],
+                plain_ms=mips[0]["plain_ms"], bound_ms=mips[0]["bound_ms"],
+                bound_by=mips[0]["bound_by"],
+                mips=[{k: r[k] for k in ("shape", "queued_ms", "kernel_ms",
+                                         "plain_ms", "bound_ms")}
+                      for r in mips])
     out["bloom_blur_down"] = blur
-    # planes read and written per pixel (f32 or int32): temporal reads
-    # colour, two history moments, length, motion, depth, normal, id and
-    # their previous-frame copies (22) and writes 7 (a trous: stages.py)
-    px = rh * rw
-    out["svgf_temporal"].update(bound(29 * 4 * px,
-                                      OPS_PER_ITEM["svgf_temporal"] * px))
-    half = (rh // 2) * ((rw + 1) // 2)
-    out["bloom_blur_down"].update(bound(3 * 4 * (px + half),
-                                        OPS_PER_ITEM["bloom_blur_down"]
-                                        * half))
     for k, v in out.items():
         log(f"  {k} at {rh}x{rw}: kernel {v['ms']:.4f} ms vs plain "
             f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
@@ -766,6 +863,50 @@ def compare_scatter(tag, ka, pa, stats) -> None:
          AT_PEAK, stats)
 
 
+def exact(what, got, want, lanes=None) -> int:
+    """Lanes (of ``lanes``, if given) where two planes or Vec3s differ in
+    value (NaN only against NaN)."""
+    import torch
+    from ptrt_tpu_torch.core.vec import Vec3
+
+    comps = ((got.x, want.x), (got.y, want.y), (got.z, want.z)) if isinstance(
+        want, Vec3) else ((got, want),)
+    bad = torch.zeros_like(comps[0][1], dtype=torch.bool)
+    for a, b in comps:
+        fa, fb = a.is_floating_point(), b.is_floating_point()
+        same = (a == b) | (a.isnan() & b.isnan()) if fa and fb else a == b
+        bad |= ~same
+    if lanes is not None:
+        bad &= lanes
+    return int(bad.sum())
+
+
+def exact_scatter(tag, state, rec, occluded, mats, bounce, rr_start,
+                  stats) -> None:
+    """shade_scatter's kernel and its plain stage on the same state, NEE
+    record and shadow answer: every plane, flag and PCG state equal on
+    every lane, the throughput on the lanes alive after the stage (the
+    record's contract: a lane that dies keeps its old throughput in the
+    kernel)."""
+    from ptrt_tpu_torch.render import shade
+
+    ka, pa = state.clone(), state.clone()
+    shade.shade_scatter(ka, rec, occluded, mats, bounce, True, rr_start)
+    shade.shade_scatter_plain(pa, rec, occluded, mats, bounce, True,
+                              rr_start)
+    bad = {name: exact(name, getattr(ka, name), getattr(pa, name))
+           for name in ("rng", "alive", "ray_spec", "prev_was_specular",
+                        "path_still_specular", "o", "d", "accum", "diffuse",
+                        "specular", "emission")
+           if getattr(pa, name) is not None}
+    bad["throughput"] = exact("throughput", ka.throughput, pa.throughput,
+                              pa.alive)
+    stats["exact_lanes"] += pa.alive.numel()
+    stats["inexact"] += sum(bad.values())
+    assert not any(bad.values()), (f"{tag}: shade_scatter differs from its "
+                                   f"plain stage on the same inputs", bad)
+
+
 def shade_bounces(tag, geom, closest, occluded, mats, lights, n_lights, sky,
                   ps, bounces, rr_start, stats, times=None):
     """Run ``bounces`` of the shading stages, kernel and plain on the same
@@ -792,6 +933,8 @@ def shade_bounces(tag, geom, closest, occluded, mats, lights, n_lights, sky,
         agree(f"{tag} bounce {bounce} occluded", occl_k, occl,
               stats["shade_nee"])
         before = pa.clone()
+        exact_scatter(f"{tag} bounce {bounce} scatter", before, pn, occl,
+                      mats, bounce, rr_start, stats["shade_scatter"])
         shade.shade_scatter(ka, kn, occl_k, mats, bounce, True, rr_start)
         shade.shade_scatter_plain(pa, pn, occl, mats, bounce, True, rr_start)
         compare_scatter(f"{tag} bounce {bounce} scatter", ka, pa,
@@ -819,15 +962,24 @@ def shade_bounces(tag, geom, closest, occluded, mats, lights, n_lights, sky,
                                         first=bounce == 0),
                      stages.SHADE_NEE_OPS_LANE * ps.alive.numel()),
                     ("shade_scatter", sca, sca_p, before,
-                     stages.shade_bytes("shade_scatter", before, pa, pn),
+                     stages.shade_bytes("shade_scatter", before, pa, pn,
+                                        occluded=occl),
                      OPS_PER_ITEM["shade_scatter"] * int(before.alive.sum()))):
+                direct, packed = stages.live_warps(
+                    pre.alive, shade.scatter_launch(
+                        pre.alive.numel(), mats, 1).chunk)
                 times.setdefault(name, {})[bounce] = {
                     "ms": stages.clones_ms(fn, fresh(pre, 11)),
+                    "queued_ms": stages.clones_ms(fn, fresh(pre, 11),
+                                                  stages.SPIN_CYCLES),
                     "kernel_ms": stages.kernel_ms(fn, fresh(pre, 11),
                                                   f"{name}_kernel"),
                     "plain_ms": stages.clones_ms(
                         fn_p, [pre.clone() for _ in range(3)]),
-                    "alive": int(pre.alive.sum()), **bound(moved, ops)}
+                    "alive": int(pre.alive.sum()),
+                    "warps": -(-pre.alive.numel() // 32),
+                    "live_warps": direct, "packed_warps": packed,
+                    **bound(moved, ops)}
         ps = pa
     return ps
 
@@ -926,6 +1078,7 @@ def check_shade(full, dev, card):
 
     stats = {k: {"max_abs_err": 0.0, "flag_mismatches": 0, "diverged": 0,
                  "lanes": 0} for k in ("shade_nee", "shade_scatter")}
+    stats["shade_scatter"].update(exact_lanes=0, inexact=0)
     times = {False: {}, True: {}}
     sc, g = full, full._geom
     closest = lambda ps: traverse.closest_hit_live(g, ps.o, ps.d, ps.alive)
@@ -962,32 +1115,53 @@ def check_shade(full, dev, card):
         shade_bounces(tag, geom, hits, mask, mats, lights, n_lights, sky, ps,
                       (2, 3) if dead else (0, 2), 1, stats)
     info = shade.kernel_info(sc._mat_table, sc._light_table)
+    for bounce, name in ((0, "shade_scatter"),
+                         (1, "shade_scatter from bounce 1")):
+        launch = shade.scatter_launch(W * H, sc._mat_table, bounce)
+        got = info[name]
+        assert (got["threads"], got["block_lanes"], got["shared_bytes"]) == (
+            launch.threads, launch.chunk, launch.staged_bytes), (got, launch)
+    later = info["shade_scatter from bounce 1"]
+    log(f"  shade_scatter from bounce 1: {later['registers']} registers, "
+        f"{later['local_bytes']} bytes of local memory a thread, "
+        f"{later['blocks_per_sm']} resident blocks of {later['threads']} "
+        f"threads ({later['block_lanes']} lanes a block) a SM")
     for k, s in stats.items():
         head = times[True][k][1]  # the table's line: split, bounce 1
         s.update(head)
-        s["bounce_kernel_ms"], s["bounce_call_ms"] = {}, {}
-        s["bounce_bound_ms"], s["bounce_alive"] = {}, {}
+        for key in ("kernel_ms", "call_ms", "queued_ms", "bound_ms", "alive",
+                    "live_warps", "packed_warps"):
+            s[f"bounce_{key}"] = {}
         for split, name in ((False, "bench"), (True, "split")):
             for b, t in times[split][k].items():
-                s["bounce_kernel_ms"][f"{name} {b}"] = t["kernel_ms"]
+                for key in ("kernel_ms", "queued_ms", "bound_ms", "alive",
+                            "live_warps", "packed_warps"):
+                    s[f"bounce_{key}"][f"{name} {b}"] = t[key]
                 s["bounce_call_ms"][f"{name} {b}"] = t["ms"]
-                s["bounce_bound_ms"][f"{name} {b}"] = t["bound_ms"]
-                s["bounce_alive"][f"{name} {b}"] = t["alive"]
                 kms = ("not measured" if t["kernel_ms"] is None
                        else f"{t['kernel_ms']:.4f} ms")
-                log(f"  {k} {W}x{H} {name} bounce {b} ({t['alive']} alive): "
-                    f"a wrapper call {t['ms']:.4f} ms (CUDA events), the "
+                log(f"  {k} {W}x{H} {name} bounce {b} ({t['alive']} alive; "
+                    f"{t['live_warps']} of {t['warps']} warps hold a live "
+                    f"lane, {t['live_warps'] / t['warps']:.3f}; packed "
+                    f"{t['packed_warps']}): a wrapper call {t['ms']:.4f} ms "
+                    f"(CUDA events), queued {t['queued_ms']:.4f} ms, the "
                     f"kernel alone {kms} (profiler) vs plain "
                     f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms "
                     f"({t['bound_by']}) [{card}]")
         s.update(info[k])
+        if k == "shade_scatter":
+            s["from_bounce_1"] = later
         log(f"  {k}: PCG states bit-exact; flags differ on "
             f"{s['flag_mismatches']} lanes, lobes diverge on {s['diverged']} "
             f"of {s['lanes']} lane-stages; max |err| on agreeing lanes "
             f"{s['max_abs_err']:.3g}; {s['registers']} registers, "
             f"{s['local_bytes']} bytes of local memory a thread, "
             f"{s['blocks_per_sm']} resident blocks of {s['threads']} "
-            f"threads a SM")
+            f"threads ({s['block_lanes']} lanes a block) a SM")
+    sc_stats = stats["shade_scatter"]
+    log(f"  shade_scatter on the plain stage's own inputs: equal on every "
+        f"lane of {sc_stats['exact_lanes']} lane-stages (planes, flags, PCG "
+        f"states; the throughput where the lane lives on)")
     return stats
 
 
@@ -1085,12 +1259,14 @@ def main() -> int:
         f"{t_gxx:.1f} s (g++), into {os.path.relpath(BUILD_DIR, HERE)}")
 
     # what was compiled: registers, stack and static SASS instructions of
-    # the a-trous and K3 kernels (the a-trous taps are unrolled, so its
-    # count is close to what a surface pixel runs)
+    # every kernel (the a-trous taps are unrolled, so its count is close to
+    # what a surface pixel runs)
     from ptrt_tpu_torch.tools import stages
     resources = stages.kernel_resources(
         os.path.join(BUILD_DIR, kernels.LIBRARY),
-        ("svgf_atrous", "shade_nee", "shade_scatter"))
+        ("closest_hit", "any_hit", "walk_count", "tonemap_rgb8",
+         "gather_rows", "svgf_temporal", "svgf_atrous", "bloom_blur_down",
+         "shade_nee", "shade_scatter"))
     for k, fns in resources.items():
         for fn, r in fns.items():
             log(f"[build] {k} ({fn[-40:]}): {r['registers']} registers, "
@@ -1149,10 +1325,16 @@ def main() -> int:
     img_p = pipeline.tonemap_rgb8_plain(hdr, 0.25)
     k6_err = int((img_k.int() - img_p.int()).abs().max())
     k6_exact = float((img_k == img_p).all(-1).float().mean())
-    k6_ms = cuda_ms(lambda: pipeline.tonemap_rgb8(hdr, 0.25), 50)
+    # queued behind a spin of the card, two readings: its wrapper's host
+    # time outlasts the kernel
+    k6_queued = [stages.clones_ms(lambda _: pipeline.tonemap_rgb8(hdr, 0.25),
+                                  [None] * 51, stages.SPIN_CYCLES)
+                 for _ in range(2)]
+    k6_ms = sum(k6_queued) / 2
     k6_plain_ms = cuda_ms(lambda: pipeline.tonemap_rgb8_plain(hdr, 0.25), 10)
     log(f"  K6 {H}x{W}: max |diff| {k6_err} LSB, exact on {k6_exact:.6f} of "
-        f"pixels; kernel {k6_ms:.4f} ms vs plain {k6_plain_ms:.4f} ms [{card}]")
+        f"pixels; kernel queued {k6_queued[0]:.4f} / {k6_queued[1]:.4f} ms "
+        f"vs plain {k6_plain_ms:.4f} ms [{card}]")
     assert k6_err <= 1, f"K6 differs from its plain version by {k6_err} LSB"
     k6_bound = bound(nbytes(hdr, img_k), OPS_PER_ITEM["tonemap_rgb8"] * W * H)
     gather = check_row_gather(dev, full._mat_table, card, rng)
@@ -1162,6 +1344,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     shade_stats = check_shade(full, dev, card)
     torch.cuda.empty_cache()
+    # shade_scatter's issue time at each bounce if every warp its live lanes
+    # occupy ran the kernel's whole static SASS (every lobe: more than a
+    # warp runs, so an upper estimate), over the card's rate: a warp for
+    # every warp of lanes that holds one (one thread a lane) or packed in
+    # each block's list
+    sass_live = max(r["sass"]["all"]
+                    for r in resources["shade_scatter"].values())
+    warps = shade_stats["shade_scatter"]
+    floor = lambda w: f"{w * sass_live / stages.WARP_ISSUE_PER_S * 1e3:.4f}"
+    log(f"  shade_scatter issue time at {sass_live} instructions a warp, a "
+        f"thread a lane vs packed: " + "; ".join(
+            f"{b} {floor(w)} vs {floor(warps['bounce_packed_warps'][b])} ms"
+            for b, w in warps["bounce_live_warps"].items()
+            if b.startswith("bench")) + f" [{card}]")
 
     # -- 4. the bench path at full size --------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1214,6 +1410,19 @@ def main() -> int:
                for k in later_bounces(per_bounce, DEPTH)), per_bounce
     for r in rays:
         assert abs(r - BENCH_RAYS_PER_FRAME) <= 0.1 * BENCH_RAYS_PER_FRAME, r
+    # the progressive average copies nothing to the host: a still camera's
+    # second frame (sum and count selected on the card) under the sync
+    # debug mode, which raises on any synchronising call
+    assert full.perf.progressive_accumulation and not full.perf.enable_denoiser
+    count = full._accum[1].clone()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        full._accumulate(full.last_frame.color, H, W)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(full._accum[1]) == float(count) + 1, (count, full._accum[1])
+    log(f"[main] the progressive average of frame {int(count) + 1} ran under "
+        f"torch.cuda.set_sync_debug_mode(\"error\"): no host copy")
 
     # -- 5. the balanced path at full size -----------------------------------
     from ptrt_tpu_torch.render import denoiser as den
@@ -1263,7 +1472,7 @@ def main() -> int:
         f"{bal_launches}")
     per_frame = {"closest_hit": BAL_DEPTH, "any_hit": BAL_DEPTH,
                  "shade_nee": BAL_DEPTH, "shade_scatter": BAL_DEPTH,
-                 "svgf_temporal": 2, "svgf_atrous": 7, "tonemap_rgb8": 1}
+                 "svgf_temporal": 1, "svgf_atrous": 7, "tonemap_rgb8": 1}
     for k, n in per_frame.items():
         assert bal_launches.get(k, 0) == n * BAL_FRAMES, (k, bal_launches)
     assert bal_launches.get("row_gather", 0) == 0, bal_launches
@@ -1396,7 +1605,9 @@ def main() -> int:
         {"name": "svgf_temporal", "route": "cuda", "source": src("svgf.cu"),
          "replaces": "ptrt_tpu/render/denoiser.py:276",
          **both("svgf_temporal"), **post["svgf_temporal"],
-         "library_ms": None, "pixels": W * H},
+         "library_ms": None, "pixels": W * H,
+         "sass_instructions": sass["svgf_temporal"], "redesigned": True,
+         "earlier": "PERF.md keeps the times of the design before"},
         {"name": "svgf_atrous", "route": "cuda", "source": src("svgf.cu"),
          "replaces": "ptrt_tpu/render/denoiser.py:425",
          **both("svgf_atrous"), **post["svgf_atrous"], "library_ms": None,
@@ -1411,9 +1622,8 @@ def main() -> int:
            "replaces": "ptrt_tpu/render/integrator.py:285",
            **both(k), **shade_stats[k], "library_ms": None, "lanes": W * H,
            "sass_instructions": sass[k],
-           **({"redesigned": True,
-               "earlier": "PERF.md keeps the times of the design before"}
-              if k == "shade_nee" else {})}
+           "redesigned": True,
+           "earlier": "PERF.md keeps the times of the design before"}
           for k in ("shade_nee", "shade_scatter")],
     ]}
     # the ranking: device ms a frame that each kernel stands over its bound,
@@ -1425,17 +1635,30 @@ def main() -> int:
     for k in ("shade_nee", "shade_scatter"):
         gap = lambda name: sum(
             (shade_stats[k]["bounce_kernel_ms"][f"{name} {b}"]
-             or shade_stats[k]["bounce_call_ms"][f"{name} {b}"])
+             or shade_stats[k]["bounce_queued_ms"][f"{name} {b}"])
             - shade_stats[k]["bounce_bound_ms"][f"{name} {b}"]
             for b in range(DEPTH))
         over[k] = {"bench": SPP * gap("bench"), "balanced": gap("split")}
-    for k in ("svgf_temporal", "bloom_blur_down", "tonemap_rgb8"):
-        row = next(r for r in table["kernels"] if r["name"] == k)
-        over[k] = {"balanced": (row["ms"] - row["bound_ms"])
-                   * row["launches_balanced"] / BAL_FRAMES}
+    # the small kernels on their queued times, each of two readings: the
+    # temporal stage's one launch, the six bloom mips at their own sizes,
+    # K6 once a frame of either path
+    blur = post["bloom_blur_down"]["mips"]
+    readings = {
+        "svgf_temporal": [post["svgf_temporal"]["queued_ms"][j]
+                          - post["svgf_temporal"]["bound_ms"]
+                          for j in range(2)],
+        "bloom_blur_down": [sum(m["queued_ms"][j] - m["bound_ms"]
+                                for m in blur) for j in range(2)],
+        "tonemap_rgb8": [t - k6_bound["bound_ms"] for t in k6_queued]}
+    for k, v in readings.items():
+        over[k] = {"balanced": sum(v) / 2}
+    over["tonemap_rgb8"]["bench"] = over["tonemap_rgb8"]["balanced"]
     log("[rank] device ms a frame over the bound (launches x (time - "
-        "bound), each pass and bounce at its own time): "
+        "bound), each pass, bounce, channel pair and mip at its own time; "
+        "the small kernels queued, the two readings in brackets): "
         + "; ".join(f"{k} " + ", ".join(f"{f} {v:.3f}" for f, v in d.items())
+                    + (f" ({readings[k][0]:.3f}, {readings[k][1]:.3f})"
+                       if k in readings else "")
                     for k, d in sorted(over.items(),
                                        key=lambda kv: -max(kv[1].values())))
         + f" [{card}]")

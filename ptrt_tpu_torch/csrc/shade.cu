@@ -50,9 +50,31 @@
 // lanes from a block-local list (only the NEE part, or the whole live path)
 // gained 2-4% at bounces 1-3 and lost 1-3% at bounce 0, asking for the next
 // lanes' flags ahead lost 3%, and more resident blocks spilled: all left
-// out, with their times in PERF.md.  shade_scatter is the earlier design
-// still: one thread a lane, a dead lane returns after its PCG draws.
+// out, with their times in PERF.md.
 //
+// shade_scatter waits on the chain of loads of its live lanes, so what sets
+// its time is how many lanes a SM has in flight and how sparsely they lie.
+// A block of 256 threads asks for every lane's alive flag and PCG state and
+// for the material table at once (shade_scatter reads no light), finishes
+// the dead lanes (their PCG stream only) and then runs the live path.  At
+// bounce 0, where 61% of the lanes live, side by side, each thread keeps
+// its one lane and the kernel is held to 64 registers, 4 blocks a SM.  From
+// bounce 1 on a block takes 1,024 lanes, four a thread, and lists its live
+// lanes with their PCG states in shared memory, so a warp runs the lobe
+// code for 32 live lanes and not for the one or two among dead ones it
+// held (at bounce 1, 11% of the lanes live and 39% of the warps hold one);
+// 80 registers, 3 blocks a SM.  A live lane reads its NEE record only where
+// do_nee and pdf > 0 (its contribution only where lit) and the hit point
+// only where it survives, and writes its alive flag only where it dies.
+// Each lane carries its own PCG state, so its numbers do not depend on the
+// thread that runs it.  A 1080p wavefront takes 0.113, 0.076, 0.060 and
+// 0.044 ms at bounces 0-3, against 0.121, 0.096, 0.077 and 0.061 for the
+// earlier design's one thread a lane in 128-thread blocks.  Asking for every plane a live
+// lane may need at once (its NEE record, accumulators and hit point) lost
+// 5-25% at bounces 1-3, with or without spills; 2 lanes a thread measured
+// within 3% of 4; the bounce-0 kernel at 3 blocks a SM (70-80 registers)
+// lost 8-14% (PERF.md).
+
 // Float order: this file builds with -fmad=false and follows the plain torch
 // version operation by operation, including how torch on the card rounds
 // scalars: `x / c` for a Python scalar c multiplies by the float reciprocal
@@ -116,10 +138,14 @@ struct ShadeArgs {
 
 namespace {
 
-constexpr int kThreads = 128;      // shade_scatter's block
 constexpr int kNeeThreads = 256;   // shade_nee's block
 constexpr int kNeeChunk = 512;     // lanes a block takes
 constexpr int kNeeBlocks = 4;      // resident blocks a SM it is compiled for
+constexpr int kScatterThreads = 256;  // shade_scatter's block
+constexpr int kScatterLanes = 4;      // lanes a thread from bounce 1 on
+// resident blocks a SM each shade_scatter is compiled for: bounce 0 (64
+// registers) and from bounce 1 on (80)
+constexpr int kScatterB0Blocks = 4, kScatterBlocks = 3;
 constexpr int kMaxStagedBytes = 48 * 1024;
 constexpr float kPi = F(3.141592653589793);
 constexpr float kTwoPi = F(2.0 * 3.141592653589793);
@@ -1049,23 +1075,13 @@ shade_nee_kernel(const ShadeArgs a) {
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-shade_scatter_kernel(const ShadeArgs a) {
-    extern __shared__ float smem[];
-    const float *mat_table, *light_table;
-    const bool staged = stage_tables(a, smem, mat_table, light_table);
-    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                        threadIdx.x;
-    if (i >= a.n) return;
+// One lane alive on entry to shade_scatter, with its PCG state: MIS and the
+// NEE sum, the scatter, Russian roulette and the ray advance.  It writes a
+// flag only where the plain stage may change it (alive only where the lane
+// dies), and the ray and throughput only where the lane lives on.
+__device__ void scatter_lane(const ShadeArgs& a, const float* mat_table,
+                             bool staged, long long i, uint32_t s) {
     const bool split = a.split != 0;
-
-    uint32_t s = static_cast<uint32_t>(a.rng[i]);
-    if (a.alive[i] == 0) {
-        // dead: only the PCG stream moves (scatter 3, roulette 1)
-        skip(s, 4);
-        a.rng[i] = static_cast<long long>(s);
-        return;
-    }
     const Mat m = fetch_mat(a, mat_table, staged, a.hit_mesh[i]);
     const V3 n = ld3(a.normal, i);
     const bool front = a.front[i] != 0;
@@ -1115,9 +1131,82 @@ shade_scatter_kernel(const ShadeArgs a) {
         st3(a.o, i, add(ld3(a.point, i), offset));
         st3(a.d, i, sc.direction);
         a.ray_spec[i] = sc.is_specular;
+    } else {
+        a.alive[i] = 0;
     }
-    a.alive[i] = alive;
     a.rng[i] = static_cast<long long>(s);
+}
+
+// A block takes LANES lanes a thread, kScatterThreads * LANES neighbouring
+// lanes (see the note at the top).  It asks for every lane's alive flag and
+// PCG state and for the material table at once, finishes the dead lanes,
+// and runs the live path: with LANES == 1 (bounce 0) each thread its own
+// lane, else from a list of the block's live lanes (and their PCG states)
+// in shared memory, 32 to a warp.
+template <int LANES>
+__global__ void __launch_bounds__(kScatterThreads,
+                                  LANES == 1 ? kScatterB0Blocks
+                                             : kScatterBlocks)
+shade_scatter_kernel(const ShadeArgs a) {
+    constexpr int kChunk = kScatterThreads * LANES;
+    extern __shared__ float smem[];
+    __shared__ int live_lane[LANES > 1 ? kChunk : 1];
+    __shared__ uint32_t live_state[LANES > 1 ? kChunk : 1];
+    __shared__ int n_live;
+    const long long base = static_cast<long long>(blockIdx.x) * kChunk;
+    const int lanes = static_cast<int>(
+        a.n - base < kChunk ? a.n - base : kChunk);
+    if (LANES > 1 && threadIdx.x == 0) n_live = 0;
+    bool live[LANES];
+    uint32_t state[LANES];
+#pragma unroll
+    for (int k = 0; k < LANES; ++k) {
+        const int j = threadIdx.x + k * kScatterThreads;
+        live[k] = false;
+        state[k] = 0u;
+        if (j < lanes) {
+            live[k] = a.alive[base + j] != 0;
+            state[k] = static_cast<uint32_t>(a.rng[base + j]);
+        }
+    }
+    const int n_mat = a.n_mats * a.mat_width;
+    const bool staged = n_mat * 4 <= kMaxStagedBytes;
+    if (staged)
+        for (int k = threadIdx.x; k < n_mat; k += kScatterThreads)
+            smem[k] = __ldg(a.mat + k);
+    const float* const mat_table = staged ? smem : a.mat;
+    const int warp_lane = threadIdx.x & 31;
+#pragma unroll
+    for (int k = 0; k < LANES; ++k) {
+        const int j = threadIdx.x + k * kScatterThreads;
+        if (j < lanes && !live[k]) {  // only the PCG stream moves
+            uint32_t s = state[k];    // (scatter 3, roulette 1)
+            skip(s, 4);
+            a.rng[base + j] = static_cast<long long>(s);
+        }
+        if (LANES > 1) {
+            if (k == 0) __syncthreads();  // n_live = 0 is seen
+            const unsigned ballot = __ballot_sync(0xffffffffu, live[k]);
+            int at = 0;
+            if (warp_lane == 0 && ballot != 0u)
+                at = atomicAdd(&n_live, __popc(ballot));
+            at = __shfl_sync(0xffffffffu, at, 0);
+            if (live[k]) {
+                at += __popc(ballot & ((1u << warp_lane) - 1u));
+                live_lane[at] = j;
+                live_state[at] = state[k];
+            }
+        }
+    }
+    __syncthreads();
+    if (LANES == 1) {
+        if (live[0])
+            scatter_lane(a, mat_table, staged, base + threadIdx.x, state[0]);
+    } else {
+        for (int k = threadIdx.x; k < n_live; k += kScatterThreads)
+            scatter_lane(a, mat_table, staged, base + live_lane[k],
+                         live_state[k]);
+    }
 }
 
 // dynamic shared memory for stage_tables: the tables when they fit, else 0
@@ -1125,6 +1214,15 @@ int table_bytes(const ShadeArgs* a) {
     const int n = a->n_mats * a->mat_width +
                   (a->lights ? a->n_light_rows * a->light_width : 0);
     return n * 4 <= kMaxStagedBytes ? n * 4 : 0;
+}
+// and for shade_scatter's material table
+int material_bytes(const ShadeArgs* a) {
+    const int n = a->n_mats * a->mat_width;
+    return n * 4 <= kMaxStagedBytes ? n * 4 : 0;
+}
+// lanes a shade_scatter block takes at this bounce
+int scatter_chunk(const ShadeArgs* a) {
+    return kScatterThreads * (a->bounce == 0 ? 1 : kScatterLanes);
 }
 
 }  // namespace
@@ -1139,25 +1237,33 @@ extern "C" int ptrt_shade_nee(const ShadeArgs* args, void* stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
-// Registers, local-memory bytes a thread, threads a block and resident
-// blocks a SM (with this launch's tables staged) of shade_nee (stage 0) or
-// shade_scatter (stage 1).
+// Registers, local-memory bytes a thread, threads and lanes a block,
+// resident blocks a SM and the dynamic shared bytes a block asks for (with
+// this launch's tables) of shade_nee (stage 0) or shade_scatter (stage 1).
 extern "C" int ptrt_shade_info(int stage, const ShadeArgs* args, int* regs,
-                               int* local_bytes, int* threads, int* per_sm) {
+                               int* local_bytes, int* threads, int* lanes,
+                               int* per_sm, int* shared_bytes) {
     cudaFuncAttributes attr = {};
     cudaError_t e;
     if (stage == 0) {
+        *threads = kNeeThreads;
+        *lanes = kNeeChunk;
+        *shared_bytes = table_bytes(args);
         e = cudaFuncGetAttributes(&attr, shade_nee_kernel);
         if (e == cudaSuccess)
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                per_sm, shade_nee_kernel, kNeeThreads, table_bytes(args));
-        *threads = kNeeThreads;
+                per_sm, shade_nee_kernel, kNeeThreads, *shared_bytes);
     } else {
-        e = cudaFuncGetAttributes(&attr, shade_scatter_kernel);
+        *threads = kScatterThreads;
+        *lanes = scatter_chunk(args);
+        *shared_bytes = material_bytes(args);
+        const auto kernel = args->bounce == 0
+                                ? shade_scatter_kernel<1>
+                                : shade_scatter_kernel<kScatterLanes>;
+        e = cudaFuncGetAttributes(&attr, kernel);
         if (e == cudaSuccess)
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                per_sm, shade_scatter_kernel, kThreads, table_bytes(args));
-        *threads = kThreads;
+                per_sm, kernel, kScatterThreads, *shared_bytes);
     }
     *regs = attr.numRegs;
     *local_bytes = static_cast<int>(attr.localSizeBytes);
@@ -1166,10 +1272,17 @@ extern "C" int ptrt_shade_info(int stage, const ShadeArgs* args, int* regs,
 
 extern "C" int ptrt_shade_scatter(const ShadeArgs* args, void* stream) {
     if (args->n > 0) {
-        const long long blocks = (args->n + kThreads - 1) / kThreads;
-        shade_scatter_kernel<<<static_cast<unsigned>(blocks), kThreads,
-                               table_bytes(args),
-                               static_cast<cudaStream_t>(stream)>>>(*args);
+        const int chunk = scatter_chunk(args);
+        const unsigned blocks =
+            static_cast<unsigned>((args->n + chunk - 1) / chunk);
+        const cudaStream_t s = static_cast<cudaStream_t>(stream);
+        if (args->bounce == 0)
+            shade_scatter_kernel<1><<<blocks, kScatterThreads,
+                                      material_bytes(args), s>>>(*args);
+        else
+            shade_scatter_kernel<kScatterLanes><<<blocks, kScatterThreads,
+                                                  material_bytes(args), s>>>(
+                *args);
     }
     return static_cast<int>(cudaGetLastError());
 }

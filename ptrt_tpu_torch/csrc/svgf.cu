@@ -7,9 +7,12 @@
 // of shifted copies, gathers and selects over (H, W) planes.
 //
 // What bounds them on the card.  The temporal stage: memory traffic and
-// load count.  It reads a 3x3 neighbourhood of colour, depth, normal and id
-// (9 x 8 floats) and four bilinear corners of eight history planes per
-// pixel.  The a-trous pass: instruction rate, not bytes.  Its 13 planes
+// the latency of its dependent loads.  A channel reads 22 planes (23 with a
+// history cap) and writes 7, 0.072 ms at 1080p at the card's memory rate;
+// a pixel reads a 3x3 window of colour, depth, normal and id and, at four
+// bilinear corners that the motion vectors choose, the previous frame's
+// depth, normal and id and three history planes.  The a-trous pass:
+// instruction rate, not bytes.  Its 13 planes
 // (9 read, 4 written) take 0.032 ms at the card's memory rate, but a pixel
 // runs 25 taps of an IEEE division, an accurate expf, two dot products and
 // nine unfused multiplies and adds into the sums (this file builds with
@@ -20,12 +23,15 @@
 // every shifted plane and every intermediate to device memory (hundreds of
 // 8 MB planes per pass at 1080p).
 //
-// What this design does about it.  The temporal stage: one thread per
-// pixel, every intermediate in registers; neighbour loads hit L1/L2 because
-// the threads of a 32x8 block share their windows; each output plane is
-// written once.  It fetches its own history (four corners plus the
-// nearest-pixel fallback) and applies the first-frame rule from a device
-// flag, so the frame needs no host round trip.  The a-trous pass cuts
+// What this design does about it.  The temporal stage (see "the temporal
+// stage" below): a block fills the 3x3 windows of its pixels from a tile in
+// shared memory, loaded once; every history load of a pixel is issued at
+// once, since the nearest-pixel fallback and the rejection read one of the
+// four corners already loaded; and one launch runs both channels of a
+// split frame, whose geometry (G-buffers, motion, the previous frame's
+// surface, every edge and rejection test) is the same, so it is read and
+// tested once.  It applies the first-frame rule from a device flag, so the
+// frame needs no host round trip.  The a-trous pass cuts
 // instructions a pixel (see "the a-trous pass" below): a block filters from
 // a shared-memory tile that holds, once for each pixel and not once for
 // each of its 25 neighbours, the luminance and a skip mark that replaces
@@ -33,7 +39,7 @@
 // shared-memory reads at compile-time offsets, with every edge test of a
 // tap evaluated without a branch between them; a sky pixel copies its
 // input and skips the taps.  A 1080p pass takes 0.09-0.11 ms (PERF.md).
-//
+
 // Border rules follow the reference exactly: the temporal 3x3 window clamps
 // coordinates, the bilinear corners clip after floor, the a-trous taps
 // outside the image are masked (zero-padded cells whose weight is 0),
@@ -44,11 +50,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-struct SvgfTemporalArgs {
+// one channel of the temporal stage: its colour, history, cap, outputs and
+// settings
+struct SvgfChannel {
     const float* cur[3];
     const float* hist_mean[3];
     const float* hist_m2[3];
     const float* hist_len;
+    const float* cap;            // per-pixel history cap, or null
+    float* out_mean[3];
+    float* out_m2[3];
+    float* out_len;
+    float clamp_scale, tau, min_alpha, max_history;
+};
+
+struct SvgfTemporalArgs {
+    SvgfChannel ch[2];           // ch[1] is read only when channels == 2
     const float* mv_x;
     const float* mv_y;
     const float* depth;
@@ -57,13 +74,8 @@ struct SvgfTemporalArgs {
     const float* prev_depth;
     const float* prev_normal[3];
     const int* prev_obj;
-    const float* cap;            // per-pixel history cap, or null
     const unsigned char* first;  // 0-d bool: history := current, or null
-    float* out_mean[3];
-    float* out_m2[3];
-    float* out_len;
-    int h, w;
-    float clamp_scale, tau, min_alpha, max_history;
+    int h, w, channels;
     float edge_depth, edge_normal;
     float reject_abs, reject_rel, reject_normal;
     float sky_depth;
@@ -85,8 +97,6 @@ struct SvgfAtrousArgs {
 };
 
 namespace {
-
-constexpr int kBlockX = 32, kBlockY = 8;
 
 struct V3 {
     float x, y, z;
@@ -148,64 +158,109 @@ __device__ __forceinline__ bool edge_discontinuity(float d0, float d1, V3 n0,
     return edge || dot(n0, n1) < normal_thr;
 }
 
-// one history plane, with the first-frame rule applied
-struct History {
-    const SvgfTemporalArgs* a;
-    bool first;
-    __device__ V3 mean(int i) const {
-        return first ? ld3(a->cur, i) : ld3(a->hist_mean, i);
-    }
-    __device__ V3 m2(int i) const {
-        if (first) {
-            const V3 c = ld3(a->cur, i);
-            return mul(c, c);
-        }
-        return ld3(a->hist_m2, i);
-    }
-    __device__ float len(int i) const { return first ? 1.0f : a->hist_len[i]; }
-};
+// -- the temporal stage ---------------------------------------------------------
+//
+// A block takes a TW x TH tile of pixels and loads the clamped 3x3 windows
+// of all of them, (TW + 2) x (TH + 2) cells of depth, normal, id and each
+// channel's colour, into shared memory once; at the image's edge a cell
+// holds the clamped pixel, as the reference's window does.  A pixel then
+// tests its window once for both channels (a 9-bit mask of the same
+// surface) and its four bilinear corners once: the previous frame's depth,
+// normal and id there give the corner weights, the fetched depth and the
+// rejection.  The nearest pixel of the fallback and of the rejection is
+// always one of the corners: floor(pu) is floor(pu - 0.5) or that plus 1
+// (pu - 0.5 is exact below 2^23; beyond it, and for NaN or infinite
+// motion, both clip to the same border), and clipping keeps the order; so
+// no load waits for the corner weights.  Each channel then sums its window,
+// fetches its history at the corners (its current colour on the first
+// frame) and blends, in the plain version's float order.
+//
+// The stage waits on its loads, so the number of threads a SM keeps in
+// flight sets its time: at 4 blocks of 256 (64 registers) a 1080p channel
+// takes 0.150 ms and both channels in one launch 0.218 ms, against 0.179 ms
+// a channel for the earlier design (one thread a pixel, its window through
+// L1, 60 registers).  3 blocks (71-80 registers) took 0.172 and 0.240; 5
+// and 6 blocks spilled and took 0.174-0.228 and 0.287-0.500; asking for
+// the motion and the corners before the tile's barrier gained nothing
+// (PERF.md).
 
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+constexpr int kTemporalW = 32, kTemporalH = 8;  // a block's tile
+constexpr int kTemporalThreads = kTemporalW * kTemporalH;
+constexpr int kTemporalBlocks = 4;  // resident blocks a SM: 64 registers
+constexpr int kTemporalPitch = kTemporalW + 2;
+constexpr int kTemporalCells = kTemporalPitch * (kTemporalH + 2);
+
+// one channel's history at a pixel: its planes, or on the first frame its
+// current colour (mean c, second moment c * c, length 1)
+__device__ __forceinline__ void history_at(const SvgfChannel& c, bool first,
+                                           int q, V3& mean, V3& m2,
+                                           float& len) {
+    if (first) {
+        mean = ld3(c.cur, q);
+        m2 = mul(mean, mean);
+        len = 1.0f;
+    } else {
+        mean = ld3(c.hist_mean, q);
+        m2 = ld3(c.hist_m2, q);
+        len = c.hist_len[q];
+    }
+}
+
+// v[k] for a k known only at run time, without a local-memory array
+template <typename T>
+__device__ __forceinline__ T pick4(const T (&v)[4], int k) {
+    return k == 0 ? v[0] : (k == 1 ? v[1] : (k == 2 ? v[2] : v[3]));
+}
+
+template <int CH>
+__global__ void __launch_bounds__(kTemporalThreads, kTemporalBlocks)
 svgf_temporal_kernel(const SvgfTemporalArgs a) {
-    const int x = blockIdx.x * kBlockX + threadIdx.x;
-    const int y = blockIdx.y * kBlockY + threadIdx.y;
+    __shared__ float s_d[kTemporalCells];
+    __shared__ float s_n[3][kTemporalCells];
+    __shared__ int s_o[kTemporalCells];
+    __shared__ float s_c[CH][3][kTemporalCells];
     const int w = a.w, h = a.h;
+    const int bx = blockIdx.x * kTemporalW, by = blockIdx.y * kTemporalH;
+    const bool use_obj = a.use_obj != 0;
+    for (int c = threadIdx.y * kTemporalW + threadIdx.x; c < kTemporalCells;
+         c += kTemporalThreads) {
+        const int r = c / kTemporalPitch;
+        const int q = clampi(by - 1 + r, 0, h - 1) * w +
+                      clampi(bx - 1 + (c - r * kTemporalPitch), 0, w - 1);
+        s_d[c] = a.depth[q];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) s_n[k][c] = a.normal[k][q];
+        s_o[c] = a.obj[q];
+#pragma unroll
+        for (int ch = 0; ch < CH; ++ch)
+#pragma unroll
+            for (int k = 0; k < 3; ++k) s_c[ch][k][c] = a.ch[ch].cur[k][q];
+    }
+    __syncthreads();
+    const int x = bx + threadIdx.x;
+    const int y = by + threadIdx.y;
     if (x >= w || y >= h) return;
     const int p = y * w + x;
-    const bool use_obj = a.use_obj != 0;
-    const History hist{&a, a.first != nullptr && *a.first != 0};
+    const int cc = (threadIdx.y + 1) * kTemporalPitch + threadIdx.x + 1;
+    const bool first = a.first != nullptr && *a.first != 0;
+    const float d = s_d[cc];
+    const V3 n{s_n[0][cc], s_n[1][cc], s_n[2][cc]};
+    const int o = s_o[cc];
 
-    const V3 cur = ld3(a.cur, p);
-    const float d = a.depth[p];
-    const V3 n = ld3(a.normal, p);
-    const int o = a.obj[p];
-
-    // 3x3 same-surface statistics of the current frame, clamped window
-    V3 n_mean{0.0f, 0.0f, 0.0f}, n_m2{0.0f, 0.0f, 0.0f};
-    float n_cnt = 0.0f;
+    // the 3x3 window's same-surface cells (clamped window), bit (dy+1)*3+dx+1
+    unsigned same = 0;
 #pragma unroll
     for (int dy = -1; dy <= 1; ++dy) {
 #pragma unroll
         for (int dx = -1; dx <= 1; ++dx) {
-            const int q = clampi(y - dy, 0, h - 1) * w + clampi(x - dx, 0, w - 1);
-            const V3 nc = ld3(a.cur, q);
-            const bool same = !edge_discontinuity(
-                d, a.depth[q], n, ld3(a.normal, q), o, a.obj[q], a.edge_depth,
-                a.edge_normal, use_obj);
-            const float wgt = same ? 1.0f : 0.0f;
-            n_mean = add(n_mean, mul(nc, wgt));
-            n_m2 = add(n_m2, mul(mul(nc, nc), wgt));
-            n_cnt = n_cnt + wgt;
+            const int t = cc - dy * kTemporalPitch - dx;
+            if (!edge_discontinuity(d, s_d[t],
+                                    n, V3{s_n[0][t], s_n[1][t], s_n[2][t]},
+                                    o, s_o[t], a.edge_depth, a.edge_normal,
+                                    use_obj))
+                same |= 1u << ((dy + 1) * 3 + dx + 1);
         }
     }
-    const bool empty = n_cnt == 0.0f;
-    const float inv = 1.0f / fmaxf(n_cnt, 1.0f);
-    n_mean = sel(empty, cur, mul(n_mean, inv));
-    n_m2 = sel(empty, mul(cur, cur), mul(n_m2, inv));
-    const V3 n_var = vmax(sub(n_m2, mul(n_mean, n_mean)), V3{0.0f, 0.0f, 0.0f});
-    const V3 n_std{sqrtf(n_var.x), sqrtf(n_var.y), sqrtf(n_var.z)};
-    const V3 soft_min = sub(n_mean, mul(n_std, a.clamp_scale));
-    const V3 soft_max = add(n_mean, mul(n_std, a.clamp_scale));
 
     // reproject
     const float pu = (static_cast<float>(x) + 0.5f) - a.mv_x[p] * static_cast<float>(w);
@@ -214,7 +269,8 @@ svgf_temporal_kernel(const SvgfTemporalArgs a) {
                            pu < static_cast<float>(w) - 0.5f &&
                            pv < static_cast<float>(h) - 0.5f;
 
-    // edge-aware bilinear history fetch
+    // the four bilinear corners, the previous frame's surface there and
+    // the corner weights it leaves
     const float fx = pu - 0.5f, fy = pv - 0.5f;
     const float x0 = floorf(fx), y0 = floorf(fy);
     const float sx = fx - x0, sy = fy - y0;
@@ -224,77 +280,128 @@ svgf_temporal_kernel(const SvgfTemporalArgs a) {
                        y1c * w + x1c};
     float cw[4] = {(1.0f - sx) * (1.0f - sy), sx * (1.0f - sy),
                    (1.0f - sx) * sy, sx * sy};
+    float pd[4];
+    V3 pn[4];
+    int po[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-        const int q = cq[c];
-        if (edge_discontinuity(d, a.prev_depth[q], n, ld3(a.prev_normal, q), o,
-                               a.prev_obj[q], a.edge_depth, a.edge_normal,
-                               use_obj))
-            cw[c] = 0.0f;
+        pd[c] = a.prev_depth[cq[c]];
+        pn[c] = ld3(a.prev_normal, cq[c]);
+        po[c] = a.prev_obj[cq[c]];
     }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+        if (edge_discontinuity(d, pd[c], n, pn[c], o, po[c], a.edge_depth,
+                               a.edge_normal, use_obj))
+            cw[c] = 0.0f;
     const float total_w = cw[0] + cw[1] + cw[2] + cw[3];
     const bool fallback = total_w < 1e-6f;
-    const int nx = clip_index(floorf(pu), w), ny = clip_index(floorf(pv), h);
-    const int nq = ny * w + nx;
+    // the nearest pixel: the corner at (clip(floor(pu)), clip(floor(pv)))
+    const int k_near = (clip_index(floorf(pv), h) == y0c ? 0 : 2) +
+                       (clip_index(floorf(pu), w) == x0c ? 0 : 1);
     const float inv_w = 1.0f / fmaxf(total_w, 1e-6f);
-
-    V3 h_mean, h_m2;
-    float h_len, h_d;
-    if (fallback) {
-        h_mean = hist.mean(nq);
-        h_m2 = hist.m2(nq);
-        h_len = hist.len(nq);
-        h_d = a.prev_depth[nq];
-    } else {
-        V3 am = mul(hist.mean(cq[0]), cw[0]);
-        V3 a2 = mul(hist.m2(cq[0]), cw[0]);
-        float al = hist.len(cq[0]) * cw[0];
-        float ad = a.prev_depth[cq[0]] * cw[0];
-#pragma unroll
-        for (int c = 1; c < 4; ++c) {
-            am = add(am, mul(hist.mean(cq[c]), cw[c]));
-            a2 = add(a2, mul(hist.m2(cq[c]), cw[c]));
-            al = al + hist.len(cq[c]) * cw[c];
-            ad = ad + a.prev_depth[cq[c]] * cw[c];
-        }
-        h_mean = mul(am, inv_w);
-        h_m2 = mul(a2, inv_w);
-        h_len = al * inv_w;
-        h_d = ad * inv_w;
-    }
+    const float h_d =
+        fallback ? pick4(pd, k_near)
+                 : (((pd[0] * cw[0] + pd[1] * cw[1]) + pd[2] * cw[2]) +
+                    pd[3] * cw[3]) * inv_w;
 
     // rejection: object id and normal at the nearest previous pixel, depth
     // against the fetched history depth
     bool valid = in_bounds;
-    if (use_obj) valid = valid && a.prev_obj[nq] == o;
+    if (use_obj) valid = valid && pick4(po, k_near) == o;
     const float dd = fabsf(d - h_d);
     valid = valid && !(dd > a.reject_abs || dd > a.reject_rel * fmaxf(d, 1e-6f));
-    valid = valid && dot(n, ld3(a.prev_normal, nq)) >= a.reject_normal;
+    valid = valid && dot(n, pick4(pn, k_near)) >= a.reject_normal;
+    const bool sky = is_sky(d, n, a.sky_depth);
 
-    if (valid) h_mean = vmin(vmax(h_mean, soft_min), soft_max);
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) {
+        const SvgfChannel& c = a.ch[ch];
+        const V3 cur{s_c[ch][0][cc], s_c[ch][1][cc], s_c[ch][2][cc]};
 
-    // variance-adaptive alpha; the cap clamps the length first
-    const float cap = a.cap != nullptr ? a.cap[p] : a.max_history;
-    h_len = fminf(h_len, cap);
-    const V3 var = vmax(sub(h_m2, mul(h_mean, h_mean)), V3{0.0f, 0.0f, 0.0f});
-    const float std_approx = (sqrtf(var.x) + sqrtf(var.y) + sqrtf(var.z)) / 3.0f;
-    const float variance_alpha = std_approx / (std_approx + a.tau);
-    const float history_alpha = 1.0f / (h_len + 1.0f);
-    float alpha = fminf(fmaxf(fmaxf(variance_alpha, history_alpha), a.min_alpha),
-                        1.0f);
-    alpha = valid ? alpha : 1.0f;
-    float new_len = valid ? fminf(h_len + 1.0f, cap) : 1.0f;
+        // 3x3 same-surface statistics of the current frame
+        V3 n_mean{0.0f, 0.0f, 0.0f}, n_m2{0.0f, 0.0f, 0.0f};
+        float n_cnt = 0.0f;
+#pragma unroll
+        for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll
+            for (int dx = -1; dx <= 1; ++dx) {
+                const int t = cc - dy * kTemporalPitch - dx;
+                const V3 nc{s_c[ch][0][t], s_c[ch][1][t], s_c[ch][2][t]};
+                const float wgt =
+                    (same >> ((dy + 1) * 3 + dx + 1)) & 1u ? 1.0f : 0.0f;
+                n_mean = add(n_mean, mul(nc, wgt));
+                n_m2 = add(n_m2, mul(mul(nc, nc), wgt));
+                n_cnt = n_cnt + wgt;
+            }
+        }
+        const bool empty = n_cnt == 0.0f;
+        const float inv = 1.0f / fmaxf(n_cnt, 1.0f);
+        n_mean = sel(empty, cur, mul(n_mean, inv));
+        n_m2 = sel(empty, mul(cur, cur), mul(n_m2, inv));
+        const V3 n_var = vmax(sub(n_m2, mul(n_mean, n_mean)), V3{0.0f, 0.0f, 0.0f});
+        const V3 n_std{sqrtf(n_var.x), sqrtf(n_var.y), sqrtf(n_var.z)};
+        const V3 soft_min = sub(n_mean, mul(n_std, c.clamp_scale));
+        const V3 soft_max = add(n_mean, mul(n_std, c.clamp_scale));
 
-    V3 out_mean = add(mul(h_mean, 1.0f - alpha), mul(cur, alpha));
-    V3 out_m2 = add(mul(h_m2, 1.0f - alpha), mul(mul(cur, cur), alpha));
-    if (is_sky(d, n, a.sky_depth)) {
-        out_mean = cur;
-        out_m2 = mul(cur, cur);
-        new_len = 1.0f;
+        // edge-aware bilinear history fetch, or the nearest corner
+        V3 hm[4], h2[4];
+        float hl[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) history_at(c, first, cq[k], hm[k], h2[k], hl[k]);
+        V3 h_mean, h_m2;
+        float h_len;
+        if (fallback) {
+            h_mean = pick4(hm, k_near);
+            h_m2 = pick4(h2, k_near);
+            h_len = pick4(hl, k_near);
+        } else {
+            V3 am = mul(hm[0], cw[0]);
+            V3 a2 = mul(h2[0], cw[0]);
+            float al = hl[0] * cw[0];
+#pragma unroll
+            for (int k = 1; k < 4; ++k) {
+                am = add(am, mul(hm[k], cw[k]));
+                a2 = add(a2, mul(h2[k], cw[k]));
+                al = al + hl[k] * cw[k];
+            }
+            h_mean = mul(am, inv_w);
+            h_m2 = mul(a2, inv_w);
+            h_len = al * inv_w;
+        }
+        if (valid) h_mean = vmin(vmax(h_mean, soft_min), soft_max);
+
+        // variance-adaptive alpha; the cap clamps the length first
+        const float cap = c.cap != nullptr ? c.cap[p] : c.max_history;
+        h_len = fminf(h_len, cap);
+        const V3 var = vmax(sub(h_m2, mul(h_mean, h_mean)), V3{0.0f, 0.0f, 0.0f});
+        const float std_approx = (sqrtf(var.x) + sqrtf(var.y) + sqrtf(var.z)) / 3.0f;
+        const float variance_alpha = std_approx / (std_approx + c.tau);
+        const float history_alpha = 1.0f / (h_len + 1.0f);
+        float alpha = fminf(fmaxf(fmaxf(variance_alpha, history_alpha), c.min_alpha),
+                            1.0f);
+        alpha = valid ? alpha : 1.0f;
+        float new_len = valid ? fminf(h_len + 1.0f, cap) : 1.0f;
+
+        V3 out_mean = add(mul(h_mean, 1.0f - alpha), mul(cur, alpha));
+        V3 out_m2 = add(mul(h_m2, 1.0f - alpha), mul(mul(cur, cur), alpha));
+        if (sky) {
+            out_mean = cur;
+            out_m2 = mul(cur, cur);
+            new_len = 1.0f;
+        }
+        st3(c.out_mean, p, out_mean);
+        st3(c.out_m2, p, out_m2);
+        c.out_len[p] = new_len;
     }
-    st3(a.out_mean, p, out_mean);
-    st3(a.out_m2, p, out_m2);
-    a.out_len[p] = new_len;
+}
+
+template <int CH>
+cudaError_t launch_temporal(const SvgfTemporalArgs& a, cudaStream_t stream) {
+    const dim3 grid((a.w + kTemporalW - 1) / kTemporalW,
+                    (a.h + kTemporalH - 1) / kTemporalH);
+    svgf_temporal_kernel<CH><<<grid, dim3(kTemporalW, kTemporalH), 0, stream>>>(a);
+    return cudaGetLastError();
 }
 
 // -- the à-trous pass ---------------------------------------------------------
@@ -462,27 +569,47 @@ cudaError_t launch_atrous(const SvgfAtrousArgs& a, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-// (step, tile width, tile height) of every instantiated pass; step 0 takes
-// any step at run time: no frame runs one (denoise_channel's steps are the
-// five above), it keeps atrous_iteration's any-step interface, untuned (109
-// registers, about twice a templated pass's time).  The wrapper picks one
-// (render/denoiser.py atrous_tile).
+// (step, tile width, tile height) of every instantiated pass.  Step 0 takes
+// any other step at run time.  No frame runs one (denoise_channel's steps
+// are the five above), but atrous_iteration keeps the reference's any-step
+// interface, which the tile test and chip_smoke.py's steps 3 and 5 reach;
+// it is exact and untuned: 109 registers, 0.1955 ms at step 3 at 1080p
+// (PERF.md).  The wrapper picks one (render/denoiser.py atrous_launch).
 #define PTRT_ATROUS_TILES(X)                                                  \
     X(1, 32, 16) X(2, 32, 16) X(4, 64, 8) X(8, 64, 8) X(16, 64, 8) X(0, 32, 4)
-
-dim3 grid_for(int h, int w) {
-    return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
-}
 
 }  // namespace
 
 extern "C" int ptrt_svgf_temporal(const SvgfTemporalArgs* args, void* stream) {
-    if (args->h > 0 && args->w > 0) {
-        svgf_temporal_kernel<<<grid_for(args->h, args->w),
-                               dim3(kBlockX, kBlockY), 0,
-                               static_cast<cudaStream_t>(stream)>>>(*args);
-    }
-    return static_cast<int>(cudaGetLastError());
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (args->channels != 1 && args->channels != 2)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (args->h <= 0 || args->w <= 0)
+        return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(args->channels == 2 ? launch_temporal<2>(*args, s)
+                                                : launch_temporal<1>(*args, s));
+}
+
+// Registers, local-memory bytes a thread, threads a block, static shared
+// bytes a block and resident blocks a SM of the temporal kernel of one or
+// two channels.
+extern "C" int ptrt_svgf_temporal_info(int channels, int* regs,
+                                       int* local_bytes, int* threads,
+                                       int* shared_bytes, int* per_sm) {
+    if (channels != 1 && channels != 2)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto kernel = channels == 2 ? svgf_temporal_kernel<2>
+                                      : svgf_temporal_kernel<1>;
+    cudaFuncAttributes attr = {};
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            per_sm, kernel, kTemporalThreads, 0);
+    *regs = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    *threads = kTemporalThreads;
+    *shared_bytes = static_cast<int>(attr.sharedSizeBytes);
+    return static_cast<int>(e);
 }
 
 extern "C" int ptrt_svgf_atrous(const SvgfAtrousArgs* args, void* stream) {

@@ -70,6 +70,8 @@ def get_lib() -> ctypes.CDLL:
                                         i, p]
         lib.ptrt_svgf_temporal.restype = i
         lib.ptrt_svgf_temporal.argtypes = [p, p]
+        lib.ptrt_svgf_temporal_info.restype = i
+        lib.ptrt_svgf_temporal_info.argtypes = [i, p, p, p, p, p]
         lib.ptrt_svgf_atrous.restype = i
         lib.ptrt_svgf_atrous.argtypes = [p, p]
         lib.ptrt_svgf_atrous_info.restype = i
@@ -81,7 +83,7 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_shade_scatter.restype = i
         lib.ptrt_shade_scatter.argtypes = [p, p]
         lib.ptrt_shade_info.restype = i
-        lib.ptrt_shade_info.argtypes = [i, p, p, p, p, p]
+        lib.ptrt_shade_info.argtypes = [i, p, p, p, p, p, p, p]
         _lib = lib
     return _lib
 

@@ -9,11 +9,13 @@ variance-adaptive alpha), variance estimation, then five (diffuse) or two
 
 Two stages are hand-written kernels (``csrc/svgf.cu``):
 ``temporal_accumulation`` launches ``svgf_temporal`` (the whole temporal
-stage, one launch per channel, with its own history fetches) and
-``atrous_iteration`` launches ``svgf_atrous`` (one filter pass) for CUDA
-tensors; for CPU tensors they run their plain versions,
-``temporal_accumulation_plain`` and ``atrous_iteration_plain``.  Firefly
-suppression and variance estimation are plain torch.
+stage of a channel, with its own history fetches),
+``temporal_accumulation_pair`` the same kernel for both channels of a split
+frame at once (``denoise_frame`` takes it), and ``atrous_iteration``
+launches ``svgf_atrous`` (one filter pass) for CUDA tensors; for CPU
+tensors they run their plain versions, ``temporal_accumulation_plain``
+(twice for the pair) and ``atrous_iteration_plain``.  Firefly suppression
+and variance estimation are plain torch.
 
 Border rules, as in the reference: the 3x3 windows of the temporal and
 variance stages clamp coordinates to the image (``_shift_clamp``), the
@@ -432,21 +434,28 @@ def atrous_iteration_plain(img: Vec3, variance, depth, normal: Vec3, obj_id,
 _P3 = ctypes.c_void_p * 3
 
 
+class TemporalChannel(ctypes.Structure):
+    """``struct SvgfChannel`` of ``csrc/svgf.cu``."""
+
+    _fields_ = [
+        ("cur", _P3), ("hist_mean", _P3), ("hist_m2", _P3),
+        ("hist_len", ctypes.c_void_p), ("cap", ctypes.c_void_p),
+        ("out_mean", _P3), ("out_m2", _P3), ("out_len", ctypes.c_void_p),
+        ("clamp_scale", ctypes.c_float), ("tau", ctypes.c_float),
+        ("min_alpha", ctypes.c_float), ("max_history", ctypes.c_float),
+    ]
+
+
 class TemporalArgs(ctypes.Structure):
     """``struct SvgfTemporalArgs`` of ``csrc/svgf.cu``."""
 
     _fields_ = [
-        ("cur", _P3), ("hist_mean", _P3), ("hist_m2", _P3),
-        ("hist_len", ctypes.c_void_p), ("mv_x", ctypes.c_void_p),
-        ("mv_y", ctypes.c_void_p), ("depth", ctypes.c_void_p),
-        ("normal", _P3), ("obj", ctypes.c_void_p),
+        ("ch", TemporalChannel * 2),
+        ("mv_x", ctypes.c_void_p), ("mv_y", ctypes.c_void_p),
+        ("depth", ctypes.c_void_p), ("normal", _P3), ("obj", ctypes.c_void_p),
         ("prev_depth", ctypes.c_void_p), ("prev_normal", _P3),
-        ("prev_obj", ctypes.c_void_p), ("cap", ctypes.c_void_p),
-        ("first", ctypes.c_void_p), ("out_mean", _P3), ("out_m2", _P3),
-        ("out_len", ctypes.c_void_p),
-        ("h", ctypes.c_int), ("w", ctypes.c_int),
-        ("clamp_scale", ctypes.c_float), ("tau", ctypes.c_float),
-        ("min_alpha", ctypes.c_float), ("max_history", ctypes.c_float),
+        ("prev_obj", ctypes.c_void_p), ("first", ctypes.c_void_p),
+        ("h", ctypes.c_int), ("w", ctypes.c_int), ("channels", ctypes.c_int),
         ("edge_depth", ctypes.c_float), ("edge_normal", ctypes.c_float),
         ("reject_abs", ctypes.c_float), ("reject_rel", ctypes.c_float),
         ("reject_normal", ctypes.c_float), ("sky_depth", ctypes.c_float),
@@ -504,13 +513,60 @@ def temporal_accumulation(cur: Vec3, hist: ChannelHistory, mvx, mvy, depth,
         return temporal_accumulation_plain(cur, hist, mvx, mvy, depth,
                                            normal, obj_id, state, ch, cfg,
                                            hist_cap)
+    (out,) = _temporal_launch(((cur, hist, ch, hist_cap),), mvx, mvy, depth,
+                              normal, obj_id, state, cfg, first)
+    return out
+
+
+def temporal_accumulation_pair(channels, mvx, mvy, depth, normal: Vec3,
+                               obj_id, state: DenoiserState,
+                               cfg: DenoiserSettings, first=None) -> tuple:
+    """The temporal stage of two channels of one frame in one launch
+    (``svgf_temporal`` of two channels).  ``channels`` holds two
+    ``(cur, hist, ch, hist_cap)``, each as ``temporal_accumulation`` takes
+    them; the geometry, motion, previous state and ``first`` are shared.
+    Returns the two new histories, each equal to what
+    ``temporal_accumulation`` gives for that channel alone."""
+    if len(channels) != 2:
+        raise ValueError(f"two channels, got {len(channels)}")
+    dev = depth.device
+    kernels.require_supported(dev)
+    if dev.type == "cpu":
+        return tuple(temporal_accumulation(cur, hist, mvx, mvy, depth, normal,
+                                           obj_id, state, ch, cfg,
+                                           hist_cap=cap, first=first)
+                     for cur, hist, ch, cap in channels)
+    return _temporal_launch(channels, mvx, mvy, depth, normal, obj_id, state,
+                            cfg, first)
+
+
+def _temporal_launch(channels, mvx, mvy, depth, normal: Vec3, obj_id,
+                     state: DenoiserState, cfg: DenoiserSettings,
+                     first) -> tuple:
+    """Check and launch ``svgf_temporal`` for one or two channels."""
+    dev = depth.device
     h, w = depth.shape
     f32 = torch.float32
     a = TemporalArgs()
-    a.cur = _P3(*_planes("cur", cur, (h, w), f32, dev))
-    a.hist_mean = _P3(*_planes("hist.mean", hist.mean, (h, w), f32, dev))
-    a.hist_m2 = _P3(*_planes("hist.m2", hist.m2, (h, w), f32, dev))
-    (a.hist_len,) = _planes("hist.length", hist.length, (h, w), f32, dev)
+    out = []
+    for c, (cur, hist, ch, cap) in zip(a.ch, channels):
+        c.cur = _P3(*_planes("cur", cur, (h, w), f32, dev))
+        c.hist_mean = _P3(*_planes("hist.mean", hist.mean, (h, w), f32, dev))
+        c.hist_m2 = _P3(*_planes("hist.m2", hist.m2, (h, w), f32, dev))
+        (c.hist_len,) = _planes("hist.length", hist.length, (h, w), f32, dev)
+        if cap is not None:
+            (c.cap,) = _planes("hist_cap", cap, (h, w), f32, dev)
+        new = ChannelHistory(mean=_empty3((h, w), dev),
+                             m2=_empty3((h, w), dev),
+                             length=torch.empty((h, w), dtype=f32, device=dev))
+        c.out_mean = _P3(*[t.data_ptr() for t in (new.mean.x, new.mean.y,
+                                                  new.mean.z)])
+        c.out_m2 = _P3(*[t.data_ptr() for t in (new.m2.x, new.m2.y,
+                                                new.m2.z)])
+        c.out_len = new.length.data_ptr()
+        c.clamp_scale, c.tau = ch.clamp_scale, ch.tau
+        c.min_alpha, c.max_history = ch.min_alpha, ch.max_history
+        out.append(new)
     (a.mv_x,) = _planes("mvx", mvx, (h, w), f32, dev)
     (a.mv_y,) = _planes("mvy", mvy, (h, w), f32, dev)
     (a.depth,) = _planes("depth", depth, (h, w), f32, dev)
@@ -521,20 +577,10 @@ def temporal_accumulation(cur: Vec3, hist: ChannelHistory, mvx, mvy, depth,
                                  dev))
     (a.prev_obj,) = _planes("state.object_id", state.object_id, (h, w),
                             torch.int32, dev)
-    if hist_cap is not None:
-        (a.cap,) = _planes("hist_cap", hist_cap, (h, w), f32, dev)
     if first is not None:
         kernels.check_tensor("first", first, torch.bool, 0, dev)
         a.first = first.data_ptr()
-    out_mean, out_m2 = _empty3((h, w), dev), _empty3((h, w), dev)
-    out_len = torch.empty((h, w), dtype=f32, device=dev)
-    a.out_mean = _P3(*[c.data_ptr() for c in (out_mean.x, out_mean.y,
-                                              out_mean.z)])
-    a.out_m2 = _P3(*[c.data_ptr() for c in (out_m2.x, out_m2.y, out_m2.z)])
-    a.out_len = out_len.data_ptr()
-    a.h, a.w = h, w
-    a.clamp_scale, a.tau = ch.clamp_scale, ch.tau
-    a.min_alpha, a.max_history = ch.min_alpha, ch.max_history
+    a.h, a.w, a.channels = h, w, len(channels)
     a.edge_depth = cfg.edge_depth_threshold
     a.edge_normal = cfg.edge_normal_threshold
     a.reject_abs = cfg.depth_reject_absolute
@@ -546,14 +592,30 @@ def temporal_accumulation(cur: Vec3, hist: ChannelHistory, mvx, mvy, depth,
                                               kernels.stream_ptr(dev))
     kernels.launches["svgf_temporal"] += 1
     kernels.check(rc, "svgf_temporal")
-    return ChannelHistory(mean=out_mean, m2=out_m2, length=out_len)
+    return tuple(out)
+
+
+def temporal_kernel_info(channels: int) -> dict:
+    """Registers, local-memory bytes a thread, threads a block, static
+    shared bytes a block and resident blocks a SM of the temporal kernel of
+    ``channels`` (1 or 2) channels, as built (measurement only; needs the
+    card)."""
+    vals = [ctypes.c_int() for _ in range(5)]
+    rc = kernels.get_lib().ptrt_svgf_temporal_info(
+        int(channels), *[ctypes.byref(v) for v in vals])
+    kernels.check(rc, "svgf_temporal info")
+    return dict(zip(("registers", "local_bytes", "threads", "shared_bytes",
+                     "blocks_per_sm"), (v.value for v in vals)))
 
 
 # The a-trous kernel's tiles.  A block owns ``tile_w`` neighbouring columns
 # of ``tile_h`` rows that lie ``step`` apart, and loads the pixels its taps
 # fall on, (tile_h + 4) x (tile_w + 4 step) cells of ATROUS_CELL_BYTES, into
 # shared memory.  ``csrc/svgf.cu`` instantiates each (step, tile) named here;
-# any other step runs the kernel that reads its step at run time.
+# any other step runs the kernel that reads its step at run time, with
+# ATROUS_OTHER_TILE.  No frame runs such a step (ATROUS_STEPS), but
+# ``atrous_iteration`` keeps the reference's any-step interface; that kernel
+# is exact and untuned (0.1955 ms at step 3 at 1080p, PERF.md).
 ATROUS_CELL_BYTES = 40
 ATROUS_TILES = {1: (32, 16), 2: (32, 16), 4: (64, 8), 8: (64, 8),
                 16: (64, 8)}
@@ -581,7 +643,8 @@ class AtrousLaunch(NamedTuple):
 
 def atrous_launch(h: int, w: int, step: int) -> AtrousLaunch:
     """The tile, grid and dynamic shared memory of one a-trous pass; raises
-    if the step's tile does not fit a block's shared memory."""
+    if the step's tile does not fit a block's shared memory.  A step outside
+    ``ATROUS_TILES`` takes the run-time-step kernel (see above)."""
     if step < 1:
         raise ValueError(f"a-trous step {step} < 1")
     tw, th = ATROUS_TILES.get(step, ATROUS_OTHER_TILE)
@@ -657,19 +720,31 @@ def denoise_channel(src: Vec3, hist: ChannelHistory, mvx, mvy, depth,
                     hist_cap=None):
     """Firefly clamp, temporal stage (history := current on the first
     frame), variance, à-trous passes.  Returns (image, new history)."""
-    if cfg.enable_firefly_suppression:
-        src = firefly_suppression(src, depth, normal, ch.firefly_threshold,
-                                  cfg.sky_depth_threshold)
+    src = _firefly(src, depth, normal, ch, cfg)
     new_hist = temporal_accumulation(src, hist, mvx, mvy, depth, normal,
                                      obj_id, state, ch, cfg,
                                      hist_cap=hist_cap,
                                      first=state.first_frame)
-    variance = estimate_variance(new_hist, depth, normal, obj_id, cfg)
-    img = new_hist.mean
+    return _filter(new_hist, depth, normal, obj_id, ch, cfg), new_hist
+
+
+def _firefly(src: Vec3, depth, normal: Vec3, ch: ChannelSettings,
+             cfg: DenoiserSettings) -> Vec3:
+    if not cfg.enable_firefly_suppression:
+        return src
+    return firefly_suppression(src, depth, normal, ch.firefly_threshold,
+                               cfg.sky_depth_threshold)
+
+
+def _filter(hist: ChannelHistory, depth, normal: Vec3, obj_id,
+            ch: ChannelSettings, cfg: DenoiserSettings) -> Vec3:
+    """The variance estimate and the channel's à-trous passes."""
+    variance = estimate_variance(hist, depth, normal, obj_id, cfg)
+    img = hist.mean
     for step in ATROUS_STEPS[:min(ch.atrous_iterations, 5)]:
         img, variance = atrous_iteration(img, variance, depth, normal, obj_id,
                                          step, ch, cfg)
-    return img, new_hist
+    return img
 
 
 def specular_history_cap(roughness, transmission,
@@ -698,12 +773,21 @@ def denoise_frame(bufs, mv, state: DenoiserState, camera=None,
     spec_cap = specular_history_cap(bufs.roughness, bufs.transmission,
                                     settings)
     if settings.enable_split_denoising:
-        out_d, hist_d = denoise_channel(
-            bufs.diffuse, state.diffuse, mvx, mvy, depth, normal, obj_id,
-            state, settings.diffuse, settings)
-        out_s, hist_s = denoise_channel(
-            bufs.specular, state.specular, mvx, mvy, depth, normal, obj_id,
-            state, settings.specular, settings, hist_cap=spec_cap)
+        # the reference runs the channels one after the other; here both
+        # firefly clamps come first, so one launch takes both temporal
+        # stages (the stages are independent: the numbers are the same)
+        hist_d, hist_s = temporal_accumulation_pair(
+            ((_firefly(bufs.diffuse, depth, normal, settings.diffuse,
+                       settings), state.diffuse, settings.diffuse, None),
+             (_firefly(bufs.specular, depth, normal, settings.specular,
+                       settings), state.specular, settings.specular,
+              spec_cap)),
+            mvx, mvy, depth, normal, obj_id, state, settings,
+            first=state.first_frame)
+        out_d = _filter(hist_d, depth, normal, obj_id, settings.diffuse,
+                        settings)
+        out_s = _filter(hist_s, depth, normal, obj_id, settings.specular,
+                        settings)
         out = out_d + out_s + bufs.emission
     else:
         out, hist_d = denoise_channel(

@@ -506,10 +506,42 @@ def shade_scatter(ps: PathState, nee: NeeRecord, in_shadow,
     kernels.check(rc, "shade_scatter")
 
 
+# shade_scatter's launch (csrc/shade.cu kScatterThreads, kScatterLanes,
+# kMaxStagedBytes): a block of SCATTER_THREADS threads takes one lane a
+# thread at bounce 0 and SCATTER_LANES from bounce 1 on, and stages the
+# material table when it fits
+SCATTER_THREADS, SCATTER_LANES = 256, 4
+MAX_STAGED_BYTES = 48 * 1024
+
+
+class ScatterLaunch(NamedTuple):
+    """How ``shade_scatter`` cuts ``n`` lanes into blocks."""
+
+    threads: int
+    chunk: int  # lanes a block
+    blocks: int
+    staged_bytes: int  # the material table in shared memory, 0: not staged
+
+    def block_lanes(self, b: int, n: int) -> range:
+        """The lanes block ``b`` takes."""
+        return range(b * self.chunk, min(n, (b + 1) * self.chunk))
+
+
+def scatter_launch(n: int, materials: MaterialTable,
+                   bounce: int) -> ScatterLaunch:
+    """The blocks and shared memory of a ``shade_scatter`` launch over ``n``
+    lanes at ``bounce`` with this material table."""
+    chunk = SCATTER_THREADS * (1 if bounce == 0 else SCATTER_LANES)
+    nbytes = materials.packed.numel() * materials.packed.element_size()
+    return ScatterLaunch(SCATTER_THREADS, chunk, -(-n // chunk),
+                         nbytes if nbytes <= MAX_STAGED_BYTES else 0)
+
+
 def kernel_info(materials: MaterialTable, lights: LightTable) -> dict:
-    """{kernel: registers, local-memory bytes a thread, threads a block and
-    resident blocks a SM} of the two K3 kernels as built, with these tables
-    staged (measurement only; needs the card)."""
+    """{kernel: registers, local-memory bytes a thread, threads and lanes a
+    block, resident blocks a SM and dynamic shared bytes a block} of the K3
+    kernels as built, with these tables: ``shade_nee``, ``shade_scatter``
+    at bounce 0 and from bounce 1 on (measurement only; needs the card)."""
     a = ShadeArgs()
     a.n = 1
     a.mat = materials.packed.data_ptr()
@@ -517,11 +549,14 @@ def kernel_info(materials: MaterialTable, lights: LightTable) -> dict:
     a.lights = lights.packed.data_ptr()
     a.n_light_rows, a.light_width = lights.packed.shape
     out = {}
-    for stage, name in enumerate(("shade_nee", "shade_scatter")):
-        vals = [ctypes.c_int() for _ in range(4)]
+    for stage, bounce, name in ((0, 0, "shade_nee"), (1, 0, "shade_scatter"),
+                                (1, 1, "shade_scatter from bounce 1")):
+        a.bounce = bounce
+        vals = [ctypes.c_int() for _ in range(6)]
         rc = kernels.get_lib().ptrt_shade_info(
             stage, ctypes.addressof(a), *[ctypes.byref(v) for v in vals])
         kernels.check(rc, f"{name} info")
         out[name] = dict(zip(("registers", "local_bytes", "threads",
-                              "blocks_per_sm"), (v.value for v in vals)))
+                              "block_lanes", "blocks_per_sm", "shared_bytes"),
+                             (v.value for v in vals)))
     return out

@@ -20,6 +20,7 @@ import torch
 
 from ptrt_tpu_torch.core import rng as prng
 from ptrt_tpu_torch.core.bluenoise import blue_noise_table
+from ptrt_tpu_torch.core.vec import where
 from ptrt_tpu_torch.geometry.mesh import Mesh
 from ptrt_tpu_torch.geometry.scene_geom import assemble_geometry
 from ptrt_tpu_torch.render import pipeline as pl
@@ -93,8 +94,8 @@ class Scene:
         # SVGF tunables: None = render/denoiser.DEFAULT_SETTINGS (frozen;
         # replace it with dataclasses.replace)
         self.denoiser_settings = None
-        # progressive accumulation: (radiance sum, frame count), and the
-        # view-projection (host numpy) it was accumulated under
+        # progressive accumulation: (radiance sum, frame count as a 0-d
+        # float32 tensor), and the view-projection it was accumulated under
         self._accum = None
         self._accum_view_proj = None
         self.prev_view_proj = self.camera.get_view_proj()
@@ -282,16 +283,21 @@ class Scene:
         """Add the frame to the progressive sum and return the running
         average.  The sum restarts when the view-projection's VALUES change
         (the camera moved, whichever way it was set) or the render size
-        changed."""
-        view_proj = self.camera.get_view_proj().cpu().numpy()
+        changed.  The values are compared on the device and the sum and its
+        count selected there, as the reference does inside its program: no
+        copy to the host, so the frame never waits for the card here."""
+        view_proj = self.camera.get_view_proj()
         if (self._accum is None or self._accum_view_proj is None
-                or not np.array_equal(view_proj, self._accum_view_proj)
                 or tuple(self._accum[0].x.shape) != (rh, rw)):
-            self._accum = (color, 1)
+            self._accum = (color, torch.ones((), dtype=torch.float32,
+                                             device=color.x.device))
         else:
-            self._accum = (self._accum[0] + color, self._accum[1] + 1)
+            same = (view_proj == self._accum_view_proj).all()
+            total, count = self._accum
+            self._accum = (where(same, total + color, color),
+                           torch.where(same, count + 1.0, 1.0))
         self._accum_view_proj = view_proj
-        return self._accum[0] * (1.0 / self._accum[1])
+        return self._accum[0] * self._accum[1].reciprocal()
 
     def render_frame(self) -> np.ndarray:
         """One interactive frame -> (H, W, 3) uint8 on the host."""

@@ -1,18 +1,19 @@
-"""The à-trous passes and the K3 shading stages, timed pass by pass and
-bounce by bounce on the card, for this tree or another one.
+"""The post kernels and the K3 shading stages, timed pass by pass, channel
+by channel and bounce by bounce on the card, for this tree or another one.
 
 ``chip_smoke.py`` uses the helpers here (``atrous_taps``, ``shade_bytes``,
-``time_atrous``, ``clones_ms``, ``kernel_ms``, ``kernel_resources``).  Run
-as a script on a GPU, this file measures one tree's kernels:
+``live_warps``, ``temporal_inputs``, ``time_temporal``, ``time_atrous``,
+``time_blur_down``, ``clones_ms``, ``kernel_ms``, ``kernel_resources``).
+Run as a script on a GPU, this file measures one tree's kernels:
 
     python3 ptrt_tpu_torch/tools/stages.py [--tree DIR] [--out DIR]
 
 ``--tree DIR`` measures the checkout in ``DIR`` (an older commit unpacked
 with ``git archive``, say) in a process of its own that imports that tree's
 package; this file uses only what the port's wrappers have offered since
-the K3 kernels were written, so it drives either tree, and the bounds are
-this file's for both.  ``--out DIR`` also appends the log to
-``DIR/stages.log``.
+the K3 kernels were written (and the two-channel temporal launch where the
+tree has one), so it drives either tree, and the bounds are this file's for
+both.  ``--out DIR`` also appends the log to ``DIR/stages.log``.
 
 On the 1920x1080 bench scene (~1M triangles) it prints:
 
@@ -20,14 +21,19 @@ On the 1920x1080 bench scene (~1M triangles) it prints:
   --dump-resource-usage``), its static SASS instruction count by class
   (``cuobjdump -sass``; the à-trous tap loop is unrolled, so its count is
   close to the instructions a surface pixel runs);
-* ``svgf_atrous`` at each of the seven passes a balanced frame runs (diffuse
-  settings at steps 1, 2, 4, 8, 16, specular at 1, 2, each fed the pass
-  before it), held to the plain version, with each pass's own bound;
 * ``shade_nee`` and ``shade_scatter`` on the wavefront of each bounce 0-3
   of sample 0, unsplit (the bench path) and split (the balanced path): a
   wrapper call (CUDA events), the calls queued behind a spin of the card
   (CUDA events around launches back to back: device time), and the kernel
-  alone (torch.profiler), with the bytes that wavefront must move.
+  alone (torch.profiler), with the bytes that wavefront must move and the
+  warps that hold a live lane;
+* ``svgf_temporal`` on each channel of a balanced frame and on both in one
+  launch (where the tree has it), queued twice and alone, each beside its
+  own bound;
+* ``svgf_atrous`` at each of the seven passes a balanced frame runs (diffuse
+  settings at steps 1, 2, 4, 8, 16, specular at 1, 2, each fed the pass
+  before it), held to the plain version, with each pass's own bound;
+* ``bloom_blur_down`` at each of a frame's six mips, queued twice and alone.
 
 The card's name and power limit lead the output; the last line is JSON.
 """
@@ -53,8 +59,28 @@ ATROUS_PASSES = (("diffuse", (1, 2, 4, 8, 16)), ("specular", (1, 2)))
 # the colour sum 6, the variance sum 2, the weight sum 1 (the edge tests
 # short-circuit)
 ATROUS_OPS_PIXEL, ATROUS_OPS_TAP = 21, 21
+# bloom.cu, an output pixel: 3 channels x (5 rows x (the 5-tap horizontal
+# blur 7 + the row weight 1) + 4 row sums)
+BLUR_DOWN_OPS_PIXEL = 3 * (5 * 8 + 4)
+# svgf.cu temporal, a pixel and channel: the 3x3 window 9 x 16 (the weighted
+# sums of colour 6 and its square 9, the count 1; the edge tests
+# short-circuit); the window's mean, variance and clamp box 36; the
+# reprojection 7; the bilinear set-up 22 and weights' sum, fallback test,
+# nearest pixel and reciprocal 12 (the history fetch branches); the
+# variance-adaptive alpha 23; the new length 2; the blend 22; the sky test 1
+TEMPORAL_OPS_PIXEL = 144 + 36 + 7 + 34 + 23 + 2 + 22 + 1
 SHADE_NEE_OPS_LANE = 22  # the hit record's normal, facing test and point
 SPIN_CYCLES = 20_000_000  # ~11 ms: the host enqueues ten calls meanwhile
+# warp instructions the card issues a second: 132 SMs x 4 schedulers at the
+# H100 SXM's 1.755 GHz boost clock (the issue floor of a kernel's warps)
+WARP_ISSUE_PER_S = 132 * 4 * 1.755e9
+# svgf_temporal's planes at a pixel (f32 or int32), each read or written
+# once: the geometry the channels share (depth, normal, id, motion, and the
+# previous frame's depth, normal and id), and a channel's own (colour,
+# history mean, second moment and length read; mean, second moment and
+# length written; its history cap, where it has one)
+TEMPORAL_SHARED_PLANES = 1 + 3 + 1 + 2 + 1 + 3 + 1
+TEMPORAL_CHANNEL_PLANES = 3 + 3 + 3 + 1 + 7
 
 
 def atrous_taps(h: int, w: int, step: int) -> int:
@@ -80,21 +106,27 @@ def atrous_bound(h: int, w: int, step: int) -> dict:
                  + ATROUS_OPS_TAP * atrous_taps(h, w, step))
 
 
-def shade_bytes(stage, pre, post, rec, k1=None, first=False) -> int:
+def shade_bytes(stage, pre, post, rec, k1=None, first=False,
+                occluded=None) -> int:
     """Bytes a K3 stage must move on these inputs, from the state before
-    (``pre``) and after (``post``) it and the NEE record: each plane read
-    once and written once on the lanes that need it.  Every lane reads its
-    alive flag and moves its PCG state; a dead lane needs nothing else but
-    its hit and NEE flags and shadow t_max; a live lane that misses needs
-    only K1's slot, its direction and throughput for the sky term;
-    accumulators move only where a term is added, the throughput where it
-    changes; the shadow record only on lanes with NEE.  The tables (a few
-    KB) are left out."""
+    (``pre``) and after (``post``) it, the NEE record and (``shade_scatter``)
+    the shadow walk's answer: each plane read once and written once on the
+    lanes that need it.  Every lane reads its alive flag and moves its PCG
+    state; a dead lane needs nothing else but (``shade_nee``) its hit and
+    NEE flags and shadow t_max; a live lane that misses needs only K1's
+    slot, its direction and throughput for the sky term; an accumulator
+    moves only where a term changes it, a flag only where its value
+    changes; ``shade_scatter`` reads the NEE record only where the lane
+    casts a shadow ray with a positive pdf (the contribution only where it
+    is lit) and the hit point and writes the ray only where the lane lives
+    on.  The tables (a few KB) are left out."""
     n, split = pre.alive.numel(), pre.split
     cnt = lambda m: int(m.sum())
     changed = lambda a, b: (a.x != b.x) | (a.y != b.y) | (a.z != b.z)
-    # accum and the one split channel a term feeds, each read and written
-    b = cnt(changed(post.accum, pre.accum)) * 24 * (2 if split else 1)
+    # each accumulator a term changes, read and written
+    b = sum(cnt(changed(getattr(post, k), getattr(pre, k))) * 24
+            for k in ("accum", "diffuse", "specular", "emission")
+            if getattr(pre, k) is not None)
     nee = rec.shadow_t is not None
     live = pre.alive
     if stage == "shade_nee":
@@ -113,16 +145,51 @@ def shade_bytes(stage, pre, post, rec, k1=None, first=False) -> int:
         if nee:  # every t_max; origin, L, pdf, contribution where NEE
             b += n * 4 + cnt(rec.do_nee) * (40 + (12 if split else 0))
         return b
-    after = post.alive
     b += n * (1 + 16)  # alive, PCG state
-    # material id, normal, front, direction, throughput, alive, flags
-    b += cnt(live) * (4 + 12 + 1 + 12 + 12 + 1 + 2)
-    if nee:  # NEE flag and pdf; occlusion, L and contribution where lit
-        lit = rec.do_nee & live
-        b += cnt(lit) * 5 + cnt(lit & (rec.pdf > 0)) * (
-            1 + 12 + (24 if split else 12))
-    # hit point read; throughput, origin, direction, ray flag written
-    return b + cnt(after) * (12 + 12 + 12 + 12 + 1)
+    # material id, normal, front, direction, throughput
+    b += cnt(live) * (4 + 12 + 1 + 12 + 12)
+    if nee:  # the NEE flag; its pdf; occlusion and L; the contribution
+        cast = rec.do_nee & live
+        sampled = cast & (rec.pdf > 0)
+        b += cnt(live) + cnt(cast) * 4 + cnt(sampled) * (1 + 12)
+        b += cnt(sampled & ~occluded) * (24 if split else 12)
+    # the flags that change: alive, the three specular flags
+    b += sum(cnt(getattr(post, k) != getattr(pre, k))
+             for k in ("alive", "ray_spec", "prev_was_specular",
+                       "path_still_specular"))
+    # hit point read; throughput, origin, direction written
+    return b + cnt(post.alive) * (12 + 12 + 12 + 12)
+
+
+def live_warps(alive, chunk: int) -> tuple:
+    """(warps that hold a live lane when each lane keeps its thread, warps
+    the live lanes fill when each block of ``chunk`` lanes packs them
+    together) of a wavefront's alive plane."""
+    import torch
+
+    n = alive.numel()
+    padded = lambda m: torch.nn.functional.pad(alive.reshape(-1).int(),
+                                               (0, -n % m)).view(-1, m)
+    direct = int(padded(32).any(1).sum())
+    packed = int(((padded(chunk).sum(1) + 31) // 32).sum())
+    return direct, packed
+
+
+def temporal_bound(h: int, w: int, caps) -> dict:
+    """The bound of one ``svgf_temporal`` launch over an (h, w) frame for
+    the channels ``caps`` (whether each reads a history cap): the shared
+    planes once, each channel's own planes."""
+    planes = TEMPORAL_SHARED_PLANES + sum(TEMPORAL_CHANNEL_PLANES + int(c)
+                                          for c in caps)
+    return bound(4 * h * w * planes, TEMPORAL_OPS_PIXEL * h * w * len(caps))
+
+
+def blur_down_bound(h: int, w: int) -> dict:
+    """One ``bloom_blur_down`` mip of an (h, w) input: the input's three
+    planes read once, the (h // 2, (w + 1) // 2) output's written once, and
+    the 5x5 blur's operations at each output pixel."""
+    half = (h // 2) * ((w + 1) // 2)
+    return bound(3 * 4 * (h * w + half), BLUR_DOWN_OPS_PIXEL * half)
 
 
 def kernel_ms(fn, states, kernel):
@@ -219,43 +286,128 @@ def kernel_resources(lib_path: str, names) -> dict:
     return out
 
 
-# -- the a-trous passes --------------------------------------------------------
+# -- the post stages ------------------------------------------------------------
 
 
-def atrous_inputs(sc, frames: int = 3):
-    """Render ``frames`` balanced frames with the camera orbiting, then the
-    a-trous inputs of each channel of the last one, as ``denoise_channel``
-    builds them: {channel: (settings, image, variance, depth, normal, id)}."""
+def orbit_frames(sc, frames: int = 3):
+    """Render ``frames`` balanced frames with the camera orbiting 0.5
+    degrees a frame; returns the denoiser state and view-projection the
+    last one started from."""
     import math
-
-    from ptrt_tpu_torch.render import denoiser as den
-    from ptrt_tpu_torch.render.motion import motion_vectors
 
     sc.set_performance_preset("balanced")
     sc.perf.samples_per_pixel = 1
     for k in range(frames):
         a = math.radians(0.5 * k)
-        if k == frames - 1:
-            state0, prev_vp = sc._denoiser_state, sc.prev_view_proj
+        state0, prev_vp = sc._denoiser_state, sc.prev_view_proj
         sc.set_camera((7.5 * math.sin(a), 1.2, 6.0 - 7.5 * math.cos(a)),
                       (0.0, 0.0, 6.0), fov=60)
         sc.render_frame()
+    return state0, prev_vp
+
+
+def temporal_inputs(sc, state0, prev_vp) -> dict:
+    """What the temporal stage of ``sc``'s last frame takes, as
+    ``denoise_frame`` builds it from the state ``state0`` and the
+    view-projection ``prev_vp`` that frame started from:
+    {"args": (mvx, mvy, depth, normal, id, state0, cfg), "channels":
+    {channel: (firefly-clamped colour, history, settings, cap)}}."""
+    from ptrt_tpu_torch.render import denoiser as den
+    from ptrt_tpu_torch.render.motion import motion_vectors
+
     bufs, cfg = sc.last_frame, den.DEFAULT_SETTINGS
     rh, rw = bufs.depth.shape
     mvx, mvy = motion_vectors(bufs.depth, sc.camera, prev_vp, rw, rh)
-    g = (bufs.depth, bufs.normal, bufs.object_id)
-    out = {}
-    for name, ch, cap in (
-            ("diffuse", cfg.diffuse, None),
-            ("specular", cfg.specular, den.specular_history_cap(
-                bufs.roughness, bufs.transmission, cfg))):
+    caps = {"diffuse": None, "specular": den.specular_history_cap(
+        bufs.roughness, bufs.transmission, cfg)}
+    channels = {}
+    for name in ("diffuse", "specular"):
+        ch = getattr(cfg, name)
         src = den.firefly_suppression(getattr(bufs, name), bufs.depth,
                                       bufs.normal, ch.firefly_threshold,
                                       cfg.sky_depth_threshold)
-        hist = den.temporal_accumulation(
-            src, getattr(state0, name), mvx, mvy, *g, state0, ch, cfg,
-            hist_cap=cap, first=state0.first_frame)
-        out[name] = (ch, hist.mean, den.estimate_variance(hist, *g, cfg), *g)
+        channels[name] = (src, getattr(state0, name), ch, caps[name])
+    return {"args": (mvx, mvy, bufs.depth, bufs.normal, bufs.object_id,
+                     state0, cfg), "channels": channels}
+
+
+def time_temporal(inputs, first, iters: int = 20) -> list:
+    """``svgf_temporal`` on each channel alone and, where the tree has the
+    two-channel launch, on both at once (held bit for bit to the channels
+    alone): queued behind a spin of the card, two readings, and alone
+    (profiler), each beside its own bound.  Returns one row a launch."""
+    from ptrt_tpu_torch.render import denoiser as den
+
+    mvx, mvy, depth, normal, obj, state0, cfg = inputs["args"]
+    h, w = depth.shape
+    chans = inputs["channels"]
+    runs = [(name, [c], lambda c=c: den.temporal_accumulation(
+        c[0], c[1], mvx, mvy, depth, normal, obj, state0, c[2], cfg,
+        hist_cap=c[3], first=first)) for name, c in chans.items()]
+    pair = getattr(den, "temporal_accumulation_pair", None)
+    if pair is not None:
+        both = (chans["diffuse"], chans["specular"])
+        runs.append(("diffuse+specular", list(both), lambda: pair(
+            both, mvx, mvy, depth, normal, obj, state0, cfg, first=first)))
+        got = runs[-1][2]()
+        for a, b in zip(got, (runs[0][2](), runs[1][2]())):
+            for x, y in ((a.mean.x, b.mean.x), (a.mean.y, b.mean.y),
+                         (a.mean.z, b.mean.z), (a.m2.x, b.m2.x),
+                         (a.m2.y, b.m2.y), (a.m2.z, b.m2.z),
+                         (a.length, b.length)):
+                assert bool(((x == y) | (x.isnan() & y.isnan())).all()), (
+                    "svgf_temporal: the two-channel launch differs from the "
+                    "channels alone")
+    rows = []
+    for name, cs, fn in runs:
+        calls = [None] * (iters + 1)
+        rows.append({"channels": name,
+                     "queued_ms": [clones_ms(lambda _: fn(), calls,
+                                             SPIN_CYCLES) for _ in range(2)],
+                     "kernel_ms": kernel_ms(lambda _: fn(), calls[:11],
+                                            "svgf_temporal_kernel"),
+                     **temporal_bound(h, w, [c[3] is not None for c in cs])})
+    return rows
+
+
+def time_blur_down(color, iters: int = 20) -> list:
+    """``bloom_blur_down`` at each mip of a frame's bloom chain (the bright
+    pass of ``color``, then each mip from the one before): queued behind a
+    spin of the card, two readings, and alone (profiler), each beside its
+    own bound.  Returns one row a mip, with its input."""
+    from ptrt_tpu_torch.render import bloom
+
+    cur = bloom.bright_pass(color)
+    rows = []
+    for _ in range(bloom.BLOOM_MIP_LEVELS):
+        h, w = cur.x.shape
+        if h // 2 == 0 or w // 2 == 0:
+            break
+        calls = [None] * (iters + 1)
+        fn = lambda _, img=cur: bloom.blur_down(img)
+        rows.append({"shape": (h, w), "input": cur,
+                     "queued_ms": [clones_ms(fn, calls, SPIN_CYCLES)
+                                   for _ in range(2)],
+                     "kernel_ms": kernel_ms(fn, calls[:11],
+                                            "bloom_blur_down"),
+                     **blur_down_bound(h, w)})
+        cur = bloom.blur_down(cur)
+    return rows
+
+
+def atrous_inputs(t_inputs, first) -> dict:
+    """The a-trous inputs of each channel, as ``denoise_channel`` builds
+    them from the temporal stage's: {channel: (settings, image, variance,
+    depth, normal, id)}."""
+    from ptrt_tpu_torch.render import denoiser as den
+
+    mvx, mvy, depth, normal, obj, state0, cfg = t_inputs["args"]
+    g = (depth, normal, obj)
+    out = {}
+    for name, (src, hist, ch, cap) in t_inputs["channels"].items():
+        new = den.temporal_accumulation(src, hist, mvx, mvy, *g, state0, ch,
+                                        cfg, hist_cap=cap, first=first)
+        out[name] = (ch, new.mean, den.estimate_variance(new, *g, cfg), *g)
     return out
 
 
@@ -364,7 +516,8 @@ def time_shading(sc, split: bool, depth: int = DEPTH,
             "ms": clones_ms(sca, fresh(ps)),
             "queued_ms": clones_ms(sca, fresh(ps), SPIN_CYCLES),
             "kernel_ms": kernel_ms(sca, fresh(ps), "shade_scatter_kernel"),
-            **bound(shade_bytes("shade_scatter", before, pa, pn))}
+            **bound(shade_bytes("shade_scatter", before, pa, pn,
+                                occluded=occl_p))}
         sca(ps)
         assert torch.equal(ps.rng, pa.rng), f"bounce {bounce}: PCG differs"
         row.update(times)
@@ -398,12 +551,15 @@ def measure(tag: str, card: str) -> dict:
     from ptrt_tpu_torch.build import BUILD_DIR
 
     sc = build_bench_scene(W, H, target_tris=TRIS, device="cuda")
-    inputs = atrous_inputs(sc)
+    state0, prev_vp = orbit_frames(sc)
+    t_inputs = temporal_inputs(sc, state0, prev_vp)
+    first = state0.first_frame
+    color = sc.last_frame.color
     log = lambda *a: say(f"[{tag}]", *a)
     out = {"tag": tag, "card": card, "shading": []}
     out["resources"] = kernel_resources(
         os.path.join(BUILD_DIR, kernels.LIBRARY),
-        ("svgf_atrous", "shade_nee", "shade_scatter"))
+        ("svgf_temporal", "svgf_atrous", "shade_nee", "shade_scatter"))
     for k, fns in out["resources"].items():
         for fn, r in fns.items():
             log(f"{k} {fn[-48:]}: {r['registers']} registers, stack "
@@ -428,7 +584,13 @@ def measure(tag: str, card: str) -> dict:
             f" queued {sum(r[k]['queued_ms'] for r in rows):.4f}"
             f" bound {sum(r[k]['bound_ms'] for r in rows):.4f} ms"
             for k in ("shade_nee", "shade_scatter")))
-    out["atrous"] = time_atrous(inputs)
+    out["temporal"] = time_temporal(t_inputs, first)
+    for r in out["temporal"]:
+        log(f"svgf_temporal {r['channels']}: queued "
+            f"{' / '.join(f'{t:.4f}' for t in r['queued_ms'])} ms, kernel "
+            f"{r['kernel_ms'] or float('nan'):.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    out["atrous"] = time_atrous(atrous_inputs(t_inputs, first))
     for r in out["atrous"]:
         log(f"svgf_atrous {r['channel']} step {r['step']}: {r['ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), exact "
@@ -437,6 +599,13 @@ def measure(tag: str, card: str) -> dict:
     log(f"svgf_atrous, the seven passes: "
         f"{sum(r['ms'] for r in out['atrous']):.4f} ms, bound "
         f"{sum(r['bound_ms'] for r in out['atrous']):.4f} ms")
+    out["blur_down"] = time_blur_down(color)
+    for r in out["blur_down"]:
+        r.pop("input")
+        log(f"bloom_blur_down {r['shape'][0]}x{r['shape'][1]}: queued "
+            f"{' / '.join(f'{t:.4f}' for t in r['queued_ms'])} ms, kernel "
+            f"{r['kernel_ms'] or float('nan'):.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
     return out
 
 

@@ -20,6 +20,8 @@ within 3.4e-7 relative everywhere.  Bloom and the bilinear upscale: rtol
 1e-5, atol 1e-6.  This file runs in ~45 s on one CPU core.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -297,6 +299,47 @@ def test_temporal_first_frame_flag(frames):
         assert np.array_equal(_np(a), _np(b))
 
 
+@pytest.mark.parametrize("first", [False, True])
+def test_temporal_pair_is_each_channel_alone(frames, first):
+    """``temporal_accumulation_pair`` (one launch on the card for both
+    channels of a split frame) equals the one-channel entry on each channel,
+    which equals the reference, with the specular cap on its channel and
+    the first-frame flag off or on."""
+    f = frames[1]
+    h, w = f["depth"].shape
+    lens = np.random.default_rng(9).integers(1, 40, (h, w)).astype(np.float32)
+    rs, ps = _states(frames[0], lens, first=first)
+    cap = np.clip(f["roughness"] / 0.35, 0, 1) * 5.0 + 1.0
+    mv = tuple(torch.from_numpy(m) for m in f["mv"])
+    chans = [(_pv(f[c]), getattr(ps, c), getattr(P, c), k)
+             for c, k in (("diffuse", None),
+                          ("specular", torch.from_numpy(cap)))]
+    pair = denoiser.temporal_accumulation_pair(
+        chans, *mv, *_g(f, True), ps, P, first=ps.first_frame)
+    for (cur, hist, ch, k), got, name in zip(chans, pair,
+                                             ("diffuse", "specular")):
+        alone = denoiser.temporal_accumulation(
+            cur, hist, *mv, *_g(f, True), ps, ch, P, hist_cap=k,
+            first=ps.first_frame)
+        for a, b in ((got.mean, alone.mean), (got.m2, alone.m2),
+                     (got.length, alone.length)):
+            assert np.array_equal(_np(a), _np(b))
+        # the reference's denoise_channel: history := current on the first
+        # frame, before its temporal stage
+        rh = getattr(rs, name)
+        if first:
+            rh = ref_den.ChannelHistory(mean=_rv(f[name]),
+                                        m2=_rv(f[name] * f[name]),
+                                        length=jnp.ones((h, w)))
+        want = ref_den.temporal_accumulation(
+            _rv(f[name]), rh, *(jnp.asarray(m) for m in f["mv"]),
+            *_g(f, False), rs, getattr(S, name), S,
+            hist_cap=None if k is None else jnp.asarray(cap))
+        _tiers(_np(got.mean), want.mean, f"{name} mean")
+        _tiers(_np(got.m2), want.m2, f"{name} m2")
+        assert np.array_equal(_np(got.length), _np(want.length))
+
+
 def test_estimate_variance(frames):
     f = frames[1]
     lens = np.random.default_rng(8).integers(1, 8, f["depth"].shape).astype(
@@ -371,6 +414,33 @@ def test_denoise_frame_three_frames(frames, small_frames, size):
     # test_temporal_accumulation)
     surface = fs[-1]["depth"] < 1e9
     assert (_np(ps.diffuse.length)[surface] > 1).mean() > 0.03
+
+
+def test_denoise_frame_unsplit(small_frames):
+    """Split denoising off: one channel, the colour, through the one-channel
+    temporal stage (the split frame takes the two-channel launch), on a
+    frame with history; one à-trous pass (the eager reference takes seconds
+    a pass)."""
+    f = small_frames[1]
+    lens = np.random.default_rng(10).integers(1, 40, f["depth"].shape).astype(
+        np.float32)
+    rs, ps = _states(small_frames[0], lens)
+    unsplit = lambda m: m.DenoiserSettings(
+        diffuse=dataclasses.replace(m.DEFAULT_SETTINGS.diffuse,
+                                    atrous_iterations=1),
+        enable_split_denoising=False)
+    rc, rs = ref_den.denoise_frame(
+        _ref_bufs(f), tuple(jnp.asarray(m) for m in f["mv"]), rs, None, 1,
+        unsplit(ref_den))
+    pc, ps = denoiser.denoise_frame(
+        _port_bufs(f), tuple(torch.from_numpy(m) for m in f["mv"]), ps, None,
+        1, unsplit(denoiser))
+    tiers = ((1e-5, 0.999), (1e-3, 1.0))
+    _tiers(_np(pc), rc, "color", tiers, atol=1e-6)
+    _tiers(_np(ps.diffuse.mean), rs.diffuse.mean, "mean", tiers, atol=1e-6)
+    assert np.array_equal(_np(ps.diffuse.length), _np(rs.diffuse.length))
+    # the specular history is carried, untouched
+    assert np.array_equal(_np(ps.specular.length), _np(rs.specular.length))
 
 
 # -- bloom and upscale ---------------------------------------------------------

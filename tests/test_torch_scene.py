@@ -152,6 +152,47 @@ def test_accumulation_follows_view_proj_values():
     assert torch.equal(img3, pipeline.tonemap_rgb8(sc.last_frame.color, 1.0))
 
 
+def test_accumulation_averages_a_still_camera_and_restarts_on_a_move():
+    """Three frames under one camera show the running average of the three
+    traces, at the values of a host-side sum times ``1.0 / count``; a moved
+    camera's frame starts over."""
+    sc = _progressive(bloom=False)
+    sc.perf.max_bounce_depth = 1
+    colors = []
+    for _ in range(3):
+        img = sc.render_frame_device()
+        colors.append(sc.last_frame.color)
+    total = colors[0] + colors[1] + colors[2]
+    assert torch.equal(img, pipeline.tonemap_rgb8(total * (1.0 / 3), 1.0))
+    assert sc._accum[1].dtype == torch.float32 and float(sc._accum[1]) == 3
+    sc.camera = Camera.make((0.3, 1.2, -1.5), (0.0, 0.0, 6.0), vfov=60,
+                            aspect_ratio=W / H, focus_dist=7.5, device=CPU)
+    img = sc.render_frame_device()
+    assert float(sc._accum[1]) == 1
+    assert torch.equal(img, pipeline.tonemap_rgb8(sc.last_frame.color, 1.0))
+
+
+def test_accumulation_copies_nothing_to_the_host(monkeypatch):
+    """The progressive average compares the view-projections and selects
+    the sum and its count on the device: no tensor is read back (on the
+    card that would wait for the frame)."""
+    sc = _progressive(bloom=False)
+    sc.perf.max_bounce_depth = 1
+    sc.render_frame()
+    color = sc.last_frame.color
+
+    def refuse(*a, **k):
+        raise AssertionError("a tensor was read back to the host")
+
+    for name in ("cpu", "numpy", "item", "tolist", "__bool__", "__float__",
+                 "__int__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    sc._accumulate(color, H, W)
+    sc._accumulate(color, H, W)
+    monkeypatch.undo()
+    assert float(sc._accum[1]) == 3
+
+
 def test_accumulation_comes_before_bloom_and_upscale():
     sc = _progressive(bloom=True, scale=0.5)
     sc.render_frame()
