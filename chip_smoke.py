@@ -21,8 +21,9 @@ Phases (any failure raises, so the exit code is non-zero):
      counted (nodes visited and triangles tested a ray, K1 also in slot
      order; the counting walk held to its plain walk on 256 rays); the
      walks' registers and occupancy; K6 tonemap_rgb8 on a 1920x1080 HDR
-     frame; row_gather (off the main path
-     since K3) at the Pallas probes' shapes
+     frame (within 1 LSB, its exact share, beside its bound and the issue
+     time of the SASS instructions a thread runs); row_gather (off the
+     main path since K3) at the Pallas probes' shapes
      (ptrt_tpu_torch/tools/probe_gather.py) and at the material gather's
      (the scene's table, 2,073,600 ids), bit for bit;
   3b. K3, shade_nee and shade_scatter, against their plain stages on the
@@ -49,9 +50,10 @@ Phases (any failure raises, so the exit code is non-zero):
      ("balanced") preset — 1 spp, depth 4, split trace, motion vectors,
      SVGF, bloom, tonemap — one warm-up and five timed frames with the
      camera orbiting 0.5 degrees before each, launch counts taken over the
-     timed frames; then the post stages timed one by one and one profiled
-     frame;
-  6. svgf_temporal, svgf_atrous and bloom_blur_down against their plain
+     timed frames (the bloom one launch a frame and K6 one: no plain-torch
+     bloom op); then the post stages timed one by one and one profiled
+     frame, whose one bloom launch must come right before K6;
+  6. svgf_temporal, svgf_atrous, the bloom chain and K6 against their plain
      versions on the 1920x1080 buffers of a balanced frame: svgf_temporal
      on each channel with and without a history cap and on both channels
      in one launch (bit for bit each channel alone), first frame off and
@@ -61,9 +63,13 @@ Phases (any failure raises, so the exit code is non-zero):
      2, 4, 8, 16, specular at 1, 2), each timed beside its own bound, and
      at odd sizes (crops that are no multiple of a tile, smaller than the
      halo, one pixel; steps without a kernel of their own; object ids on
-     and off); bloom_blur_down exactly at each of the six mips, each timed
-     queued (two readings) beside its own bound; the temporal and a-trous
-     kernels' tiles, registers and occupancy;
+     and off); bloom_chain (one cooperative launch: the bright pass, six
+     mips, the upsample-add) bit for bit at every mip, at mip 0 after the
+     upsample-add and on the composite, at 1920x1080 and the odd sizes, and
+     K6 with the bloom's mip 0 within 1 LSB (its exact share), both timed
+     queued (two readings) beside their bounds, then captured in a CUDA
+     graph and replayed bit-identically; the temporal and a-trous kernels'
+     tiles, registers and occupancy;
   7. end to end on small inputs: the bench frame and three balanced frames
      rendered on the GPU and on the CPU (plain versions) must agree.
 Every kernel's line carries its bound: the bytes it must move (each input
@@ -125,11 +131,6 @@ SHADE_RANDOM_LANES = 1 << 16
 # term the compiler may share between two inlined functions counts once,
 # so the bound stays a least time.
 OPS_PER_ITEM = {
-    # tonemap.cu, a pixel: scale 3; ACES input matrix 3 x 5; the fitted
-    # curve 3 x 10 (7 adds and multiplies, a divide, a clamp of 2); output
-    # matrix and clamp 3 x 7; the sRGB encode 3 x 7 (max, the branch test,
-    # the linear branch's multiply, x 255 + 0.5, a clamp of 2)
-    "tonemap_rgb8": 3 + 15 + 30 + 21 + 21,
     # shade.cu shade_scatter, a live lane: material_scatter's code outside
     # its lobe branches (the Fresnel, coat and dielectric terms 76; three
     # draws and the lobe test 4; the sampled direction normalised, its
@@ -177,19 +178,11 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds of ``fn()`` over ``iters`` launches (after
-    one warm-up call), timed with CUDA events."""
-    import torch
+    """Mean device ms of ``fn()`` over ``iters`` calls after a warm-up, by
+    CUDA events (``ptrt_tpu_torch.tools.cuda_ms``)."""
+    from ptrt_tpu_torch.tools import cuda_ms as tools_cuda_ms
 
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return tools_cuda_ms(fn, iters)
 
 
 def bench_perf(sc, spp, depth):
@@ -399,12 +392,135 @@ def check_temporal(t_inputs) -> dict:
     return out
 
 
+def equal_vec(a, b) -> bool:
+    import torch
+
+    return all(bool(torch.equal(x, y)) for x, y in zip((a.x, a.y, a.z),
+                                                       (b.x, b.y, b.z)))
+
+
+def k6_agreement(got, want) -> tuple:
+    """(largest byte difference, share of pixels with every byte equal)."""
+    d = (got.int() - want.int()).abs()
+    return int(d.max()), float((d == 0).all(-1).float().mean())
+
+
+def check_bloom(color, card):
+    """The bloom chain (one launch) against its plain version on a frame's
+    colour: every blurred mip, mip 0 after the upsample-add chain and the
+    composite hdr + up(mip 0) bit for bit, at 1920x1080 and at crops of
+    the odd sizes; K6 with the bloom's mip 0 within 1 LSB of its plain
+    version (its exact share); both timed queued beside their bounds (K6's
+    also beside its SASS issue time); then bloom and K6 captured in a CUDA
+    graph and replayed, bit-identical.  Returns (chain stats, K6-with-bloom
+    stats)."""
+    import torch
+
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.build import BUILD_DIR
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.render import bloom, pipeline
+    from ptrt_tpu_torch.tools import stages
+
+    h, w = color.x.shape
+    sizes = [(h, w)] + [s for s in ODD_SIZES]
+    for sh, sw in sizes:
+        x = Vec3(*[c[:sh, :sw].contiguous() for c in (color.x, color.y,
+                                                       color.z)])
+        km, kt, ko = bloom.bloom_chain(x, composite=True)
+        pm, pt, po = bloom.bloom_chain_plain(x, composite=True)
+        _, kt2, _ = bloom.bloom_chain(x)
+        assert len(km) == len(pm), (sh, sw, len(km), len(pm))
+        assert all(equal_vec(a, b) for a, b in zip(km, pm)), (sh, sw, "mips")
+        assert pt is None or (equal_vec(kt, pt) and equal_vec(kt2, pt)), (
+            sh, sw, "mip 0 after the upsample-add")
+        assert equal_vec(ko, po), (sh, sw, "composite")
+        lsb, share = k6_agreement(pipeline.tonemap_rgb8(x, 1.0, bloom=kt),
+                                  pipeline.tonemap_rgb8_plain(x, 1.0, pt))
+        assert lsb <= 1, (sh, sw, lsb)
+        log(f"  bloom_chain {sh}x{sw}: {len(km)} mips, every mip, mip 0 "
+            f"after the chain and the composite equal to the plain chain "
+            f"bit for bit; K6 with its bloom within {lsb} LSB, exact on "
+            f"{share:.6f} of pixels")
+        if (sh, sw) == (h, w):
+            k6_err, k6_exact = lsb, share
+    info = bloom.chain_info(torch.cuda.current_device())
+    launch = bloom.chain_launch(h, w, False, info["blocks_per_sm"],
+                                info["sms"])
+    log(f"  bloom_chain at {h}x{w}: grid {launch.grid} blocks of "
+        f"{info['threads']} ({info['blocks_per_sm']} resident a SM on "
+        f"{info['sms']} SMs), {info['registers']} registers, "
+        f"{info['local_bytes']} bytes of local memory a thread, "
+        f"{info['shared_bytes']} bytes of shared memory a block; phases "
+        + ", ".join(f"{n} {b} blocks" for n, _, b in launch.phases))
+    # the kernels' times, queued, beside their bounds (K6's also beside the
+    # issue time of the SASS a thread of its 4-pixel vector path runs)
+    body = stages.tonemap_sass(stages.kernel_resources(
+        os.path.join(BUILD_DIR, kernels.LIBRARY),
+        ("tonemap_rgb8",))["tonemap_rgb8"])
+    t = stages.time_bloom(color, body)
+    k6, k6_alone = t["k6"], t["k6_alone"]
+    m0 = bloom.bloom_mips(color)
+    chain = {**t["bloom"], "max_abs_err": 0.0,
+             "ms": sum(t["bloom"]["queued_ms"]) / 2,
+             "plain_ms": cuda_ms(lambda: bloom.bloom_chain_plain(color), 3),
+             "grid": launch.grid, "registers": info["registers"],
+             "blocks_per_sm": info["blocks_per_sm"],
+             "host_ms_bloom_and_k6": t["host_ms"],
+             "frame_queued_ms": t["frame_queued_ms"]}
+    k6.update(ms=sum(k6["queued_ms"]) / 2, max_abs_err=k6_err,
+              exact_share=k6_exact,
+              plain_ms=cuda_ms(lambda: pipeline.tonemap_rgb8_plain(
+                  color, 1.0, m0), 5),
+              sass_instructions_a_thread=body[True],
+              alone_queued_ms=k6_alone["queued_ms"],
+              alone_bound_ms=k6_alone["bound_ms"],
+              alone_bound_by=k6_alone["bound_by"],
+              alone_sass_issue_ms=k6_alone["sass_issue_ms"],
+              alone_sass_instructions_a_thread=body[False])
+    for name, r in (("bloom_chain", chain), ("K6 with the bloom", k6),
+                    ("K6 alone", k6_alone)):
+        kms = ("not measured" if r["kernel_ms"] is None
+               else f"{r['kernel_ms']:.4f} ms")
+        extra = (f"; the SASS issues in {r['sass_issue_ms']:.4f} ms"
+                 if "sass_issue_ms" in r else "")
+        log(f"  {name} at {h}x{w}: queued "
+            f"{' / '.join(f'{q:.4f}' for q in r['queued_ms'])} ms, the "
+            f"kernel alone {kms}, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}{extra}) [{card}]")
+    log(f"  bloom + K6 of a frame: queued "
+        f"{' / '.join(f'{q:.4f}' for q in t['frame_queued_ms'])} ms, host "
+        f"{t['host_ms']:.3f} ms a call; plain chain {chain['plain_ms']:.3f}"
+        f" ms, plain K6 with the bloom {k6['plain_ms']:.3f} ms; K6 SASS "
+        f"{body[True]} instructions a thread with the bloom, {body[False]} "
+        f"without (4 pixels) [{card}]")
+
+    # a CUDA graph holds the chain's cooperative launch and K6: replays are
+    # bit-identical to the eager calls
+    want = pipeline.tonemap_rgb8(color, 1.0, bloom=bloom.bloom_mips(color))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pipeline.tonemap_rgb8(color, 1.0, bloom=bloom.bloom_mips(color))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = pipeline.tonemap_rgb8(color, 1.0, bloom=bloom.bloom_mips(color))
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), "the graph's replay differs"
+    log("  bloom_chain and K6 captured in a CUDA graph: three replays "
+        "bit-identical to the eager calls")
+    chain["graph_replay_equal"] = True
+    return chain, k6
+
+
 def check_post_kernels(sc, state0, prev_vp, card):
-    """svgf_temporal, svgf_atrous and bloom_blur_down against their plain
-    versions on the buffers of the scene's last frame (traced after
-    ``state0`` / ``prev_vp``), each timed beside its own bound.  Returns
-    {kernel: stats}."""
-    from ptrt_tpu_torch.render import bloom
+    """svgf_temporal, svgf_atrous, bloom_chain and K6 with the bloom
+    against their plain versions on the buffers of the scene's last frame
+    (traced after ``state0`` / ``prev_vp``), each timed beside its own
+    bound.  Returns {kernel: stats}."""
     from ptrt_tpu_torch.render import denoiser as den
     from ptrt_tpu_torch.tools import stages
 
@@ -486,36 +602,7 @@ def check_post_kernels(sc, state0, prev_vp, card):
             f"threads a SM")
     out["svgf_atrous"] = atrous
 
-    # bloom_blur_down at each mip of the frame's chain: exact against the
-    # plain version, timed queued, beside its own bound
-    mips = stages.time_blur_down(bufs.color)
-    blur = {"max_abs_err": 0.0}
-    for r in mips:
-        got, want = bloom.blur_down(r["input"]), bloom.blur_down_plain(
-            r["input"])
-        err, rel, share = agreement(got, want, rtol=1e-6, atol=1e-7)
-        assert share == 1.0, (r["shape"], err, rel)
-        blur["max_abs_err"] = max(blur["max_abs_err"], err)
-        r["plain_ms"] = cuda_ms(lambda r=r: bloom.blur_down_plain(
-            r["input"]), 5)
-        kms = ("not measured" if r["kernel_ms"] is None
-               else f"{r['kernel_ms']:.4f} ms")
-        log(f"  bloom_blur_down {r['shape'][0]}x{r['shape'][1]}: exact "
-            f"(rtol 1e-6, max |err| {err:.3g}); queued "
-            f"{' / '.join(f'{t:.4f}' for t in r['queued_ms'])} ms, the "
-            f"kernel alone {kms} vs plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
-        del r["input"]
-    # the kernel table's row: the 1080p mip, with every mip beside it
-    blur.update(ms=sum(mips[0]["queued_ms"]) / 2,
-                queued_ms=mips[0]["queued_ms"],
-                kernel_ms=mips[0]["kernel_ms"],
-                plain_ms=mips[0]["plain_ms"], bound_ms=mips[0]["bound_ms"],
-                bound_by=mips[0]["bound_by"],
-                mips=[{k: r[k] for k in ("shape", "queued_ms", "kernel_ms",
-                                         "plain_ms", "bound_ms")}
-                      for r in mips])
-    out["bloom_blur_down"] = blur
+    out["bloom_chain"], out["tonemap_rgb8"] = check_bloom(bufs.color, card)
     for k, v in out.items():
         log(f"  {k} at {rh}x{rw}: kernel {v['ms']:.4f} ms vs plain "
             f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
@@ -1165,38 +1252,6 @@ def check_shade(full, dev, card):
     return stats
 
 
-def profile_frame(sc) -> dict:
-    """One frame under torch.profiler: device kernel ms, kernel launches and
-    the five kernels with the most device time (None where the profiler
-    saw no device kernels)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sc.render_frame()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events()
-            if getattr(e, "device_type", None) == DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset"))]
-    if not kern:
-        return {"device_ms": None, "launches": None, "top": None,
-                "names": None, "walk_ms": None}
-    by_name = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    walk_us = sum(v for k, v in by_name.items()
-                  if "closest_hit_kernel" in k or "any_hit_kernel" in k)
-    return {"device_ms": sum(by_name.values()) / 1e3, "launches": len(kern),
-            "top": [(k[:60], round(v / 1e3, 3)) for k, v in top],
-            "names": [e.name for e in sorted(kern,
-                                             key=lambda e: e.time_range.start)],
-            "walk_ms": walk_us / 1e3}
-
-
 def bounce_launches(names, samples, depth):
     """Kernel launches from each of a sample's K1 launches to its next (one
     bounce), in a profiled frame's timeline."""
@@ -1265,7 +1320,7 @@ def main() -> int:
     resources = stages.kernel_resources(
         os.path.join(BUILD_DIR, kernels.LIBRARY),
         ("closest_hit", "any_hit", "walk_count", "tonemap_rgb8",
-         "gather_rows", "svgf_temporal", "svgf_atrous", "bloom_blur_down",
+         "gather_rows", "svgf_temporal", "svgf_atrous", "bloom_chain",
          "shade_nee", "shade_scatter"))
     for k, fns in resources.items():
         for fn, r in fns.items():
@@ -1336,7 +1391,12 @@ def main() -> int:
         f"pixels; kernel queued {k6_queued[0]:.4f} / {k6_queued[1]:.4f} ms "
         f"vs plain {k6_plain_ms:.4f} ms [{card}]")
     assert k6_err <= 1, f"K6 differs from its plain version by {k6_err} LSB"
-    k6_bound = bound(nbytes(hdr, img_k), OPS_PER_ITEM["tonemap_rgb8"] * W * H)
+    # its bound, and the issue time of the SASS a thread runs (4 pixels)
+    k6_body = stages.tonemap_sass(resources["tonemap_rgb8"])[False]
+    k6_bound = stages.tonemap_bound(H, W, False, k6_body)
+    log(f"  K6 bound {k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']});"
+        f" its {k6_body} SASS instructions a thread issue in "
+        f"{k6_bound['sass_issue_ms']:.4f} ms [{card}]")
     gather = check_row_gather(dev, full._mat_table, card, rng)
 
     # -- 3b. K3: the shading stages against their plain versions -------------
@@ -1393,7 +1453,7 @@ def main() -> int:
         # once a bounce of each sample
         assert launches.get(k, 0) == 4 * SPP * DEPTH, (k, launches)
     assert launches.get("row_gather", 0) == 0, "the main path gathers planes"
-    prof = profile_frame(full)
+    prof = stages.frame_profile(full)
     log(f"[main] one profiled frame: device kernel time {prof['device_ms']} "
         f"ms in {prof['launches']} kernel launches (busy share "
         f"{None if prof['device_ms'] is None else round(prof['device_ms'] / frame_ms, 3)}"
@@ -1426,7 +1486,7 @@ def main() -> int:
 
     # -- 5. the balanced path at full size -----------------------------------
     from ptrt_tpu_torch.render import denoiser as den
-    from ptrt_tpu_torch.render.bloom import apply_bloom
+    from ptrt_tpu_torch.render.bloom import bloom_mips
     from ptrt_tpu_torch.render.motion import motion_vectors
 
     bal = balanced(full)
@@ -1451,13 +1511,14 @@ def main() -> int:
     bal_ms = 1e3 * sum(bal_s) / len(bal_s)
     bufs, state = bal.last_frame, bal._denoiser_state
     mv = motion_vectors(bufs.depth, bal.camera, bal.prev_view_proj, W, H)
+    mip0 = bloom_mips(bufs.color)
     post_ms = {
         "motion_vectors": cuda_ms(lambda: motion_vectors(
             bufs.depth, bal.camera, bal.prev_view_proj, W, H), 10),
         "svgf": cuda_ms(lambda: den.denoise_frame(bufs, mv, state), 5),
-        "bloom": cuda_ms(lambda: apply_bloom(bufs.color), 10),
-        "tonemap": cuda_ms(lambda: pipeline.tonemap_rgb8(bufs.color, 1.0),
-                           20)}
+        "bloom": cuda_ms(lambda: bloom_mips(bufs.color), 10),
+        "tonemap": cuda_ms(lambda: pipeline.tonemap_rgb8(
+            bufs.color, 1.0, bloom=mip0), 20)}
     log(f"[balanced] {W}x{H} 1 spp depth {BAL_DEPTH}, denoiser + bloom + "
         f"motion vectors, {ORBIT_DEG} deg orbit per frame: frame "
         f"{bal_ms:.1f} ms (frames {[round(1e3 * s, 1) for s in bal_s]} ms, "
@@ -1470,13 +1531,18 @@ def main() -> int:
         f" [{card}]")
     log(f"[balanced] launches over the {BAL_FRAMES} timed frames: "
         f"{bal_launches}")
+    # the bloom is one launch a frame (at most two allowed) and K6 one, with
+    # the composite: no plain-torch bloom op between them
     per_frame = {"closest_hit": BAL_DEPTH, "any_hit": BAL_DEPTH,
                  "shade_nee": BAL_DEPTH, "shade_scatter": BAL_DEPTH,
-                 "svgf_temporal": 1, "svgf_atrous": 7, "tonemap_rgb8": 1}
+                 "svgf_temporal": 1, "svgf_atrous": 7, "tonemap_rgb8": 1,
+                 "bloom_chain": 1}
     for k, n in per_frame.items():
         assert bal_launches.get(k, 0) == n * BAL_FRAMES, (k, bal_launches)
     assert bal_launches.get("row_gather", 0) == 0, bal_launches
-    assert bal_launches.get("bloom_blur_down", 0) >= BAL_FRAMES
+    bloom_launches = sum(v for k, v in bal_launches.items()
+                         if k.startswith("bloom"))
+    assert bloom_launches <= 2 * BAL_FRAMES, bal_launches
     assert img.shape == (H, W, 3) and img.dtype == np.uint8, img.shape
     assert img.std() > 1.0, "the balanced image is constant"
     for v in (bufs.color, bufs.diffuse, bufs.specular, bufs.emission,
@@ -1490,7 +1556,21 @@ def main() -> int:
         f"surface pixels")
     assert kept > 0.5, f"SVGF history kept on only {kept:.4f} of pixels"
     orbit(bal, BAL_FRAMES + 1)
-    bal_prof = profile_frame(bal)
+    bal_prof = stages.frame_profile(bal)
+    # the profiled frame's bloom is the chain's one launch, right before K6
+    # (what comes between the last a-trous pass and the chain is the
+    # denoiser's remodulation)
+    names = bal_prof["names"]
+    assert names is not None, "the profiler saw no device kernels"
+    last_atrous = max(i for i, nm in enumerate(names) if "atrous" in nm)
+    k6_at = max(i for i, nm in enumerate(names) if "tonemap_rgb8" in nm)
+    after = [nm[:40] for nm in names[last_atrous + 1:k6_at + 1]]
+    log(f"[balanced] launches from the last a-trous pass to K6: {after}")
+    assert "bloom_chain" in names[k6_at - 1], after
+    assert sum("bloom" in nm for nm in names) == 1, after
+    log(f"[balanced] one profiled frame: {bal_prof['launches']} kernel "
+        f"launches, against 2,057 with the bloom of the design before (six "
+        f"bloom_blur_down launches and ~440 plain-torch bloom ops)")
     log(f"[balanced] one profiled frame: device kernel time "
         f"{bal_prof['device_ms']} ms in {bal_prof['launches']} kernel "
         f"launches (busy share "
@@ -1588,8 +1668,9 @@ def main() -> int:
         {"name": "tonemap_rgb8", "route": "cuda", "source": src("tonemap.cu"),
          "replaces": "ptrt_tpu/render/pipeline.py:181",
          **both("tonemap_rgb8"), "max_abs_err": k6_err,
-         "ms": k6_ms, "plain_ms": k6_plain_ms, **k6_bound,
-         "library_ms": None, "pixels": W * H},
+         "exact_share": k6_exact, "ms": k6_ms, "plain_ms": k6_plain_ms,
+         **k6_bound, "sass_instructions_a_thread": k6_body,
+         "library_ms": None, "pixels": W * H, "redesigned": True},
         {"name": "row_gather", "route": "cuda", "source": src("gather.cu"),
          "replaces": "tools/probe_pallas_gather_r5.py:42",
          "also_replaces": ["tools/probe_pallas_gather2_r5.py:38,133,158",
@@ -1614,10 +1695,18 @@ def main() -> int:
          "pixels": W * H, "sass_instructions": sass["svgf_atrous"],
          "redesigned": True,
          "earlier": "PERF.md keeps the times of the design before"},
-        {"name": "bloom_blur_down", "route": "cuda", "source": src("bloom.cu"),
-         "replaces": "ptrt_tpu/render/bloom.py:30,47",
-         **both("bloom_blur_down"), **post["bloom_blur_down"],
-         "library_ms": None, "pixels": W * H},
+        {"name": "bloom_chain", "route": "cuda", "source": src("bloom.cu"),
+         "replaces": "ptrt_tpu/render/bloom.py:92",
+         **both("bloom_chain"), **post["bloom_chain"],
+         "library_ms": None, "pixels": W * H, "redesigned": True,
+         "earlier": "PERF.md keeps the times of bloom_blur_down, the "
+                    "design before"},
+        {"name": "tonemap_rgb8 with the bloom", "route": "cuda",
+         "source": src("tonemap.cu"),
+         "replaces": "ptrt_tpu/render/pipeline.py:181, "
+                     "ptrt_tpu/render/bloom.py:118",
+         **both("tonemap_rgb8"), **post["tonemap_rgb8"],
+         "library_ms": None, "pixels": W * H, "redesigned": True},
         *[{"name": k, "route": "cuda", "source": src("shade.cu"),
            "replaces": "ptrt_tpu/render/integrator.py:285",
            **both(k), **shade_stats[k], "library_ms": None, "lanes": W * H,
@@ -1640,19 +1729,15 @@ def main() -> int:
             for b in range(DEPTH))
         over[k] = {"bench": SPP * gap("bench"), "balanced": gap("split")}
     # the small kernels on their queued times, each of two readings: the
-    # temporal stage's one launch, the six bloom mips at their own sizes,
-    # K6 once a frame of either path
-    blur = post["bloom_blur_down"]["mips"]
-    readings = {
-        "svgf_temporal": [post["svgf_temporal"]["queued_ms"][j]
-                          - post["svgf_temporal"]["bound_ms"]
-                          for j in range(2)],
-        "bloom_blur_down": [sum(m["queued_ms"][j] - m["bound_ms"]
-                                for m in blur) for j in range(2)],
-        "tonemap_rgb8": [t - k6_bound["bound_ms"] for t in k6_queued]}
+    # temporal stage's one launch, the bloom chain's, K6 with the bloom (a
+    # balanced frame) and without (a bench frame)
+    readings = {k: [post[k]["queued_ms"][j] - post[k]["bound_ms"]
+                    for j in range(2)]
+                for k in ("svgf_temporal", "bloom_chain", "tonemap_rgb8")}
     for k, v in readings.items():
         over[k] = {"balanced": sum(v) / 2}
-    over["tonemap_rgb8"]["bench"] = over["tonemap_rgb8"]["balanced"]
+    over["tonemap_rgb8"]["bench"] = sum(
+        t - k6_bound["bound_ms"] for t in k6_queued) / 2
     log("[rank] device ms a frame over the bound (launches x (time - "
         "bound), each pass, bounce, channel pair and mip at its own time; "
         "the small kernels queued, the two readings in brackets): "

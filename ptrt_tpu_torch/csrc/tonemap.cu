@@ -1,27 +1,52 @@
-// K6 tonemap_rgb8: HDR -> display uint8 in one pass.
+// K6 tonemap_rgb8: HDR -> display uint8 in one pass, with the bloom's
+// composite folded in.
 //
 // Replaces: ptrt_tpu/render/pipeline.py:tonemap_to_rgb8, i.e. the XLA
 // fusion of core/color.py:aces_tonemap, srgb_oetf and to_rgb8 plus the
-// Y-flip.
+// Y-flip; and, given the bloom chain's mip 0, the last step of
+// ptrt_tpu/render/bloom.py:apply_bloom (:118), hdr + up(mip 0).
 //
-// What bounds it on the card: memory traffic.  Per pixel it reads 12 bytes
-// (three float planes) and writes 3 bytes; the arithmetic (two 3x3
-// matrices, one rational fit and a powf per channel) is small beside that.
-// A 1920x1080 frame moves about 31 MB, ~10 us at the H100's 3.35 TB/s.
+// What bounds it on the card: per pixel it reads 12 bytes (three float
+// planes), with the bloom 3 more (mip 0 is a quarter of the image), and
+// writes 3 bytes: 31 MB (37 MB with the bloom) at 1080p, 9.3 us (11.1 us)
+// at the H100's 3.35 TB/s.  The arithmetic is not small beside that: two
+// 3x3 matrices and three IEEE divisions (the ACES fit) a pixel, and the
+// exact sRGB OETF's three powf, ~85 instructions a channel with the
+// quantisation, no fast-math: with powf the warps' instructions bound it
+// (tools/stages.py counts them from the SASS).
 //
-// What this design does about it: one thread per pixel, coalesced loads
-// of the three SoA planes, every intermediate kept in registers (the plain
-// torch version writes each of its ~60 intermediates to device memory), and
-// the flipped interleaved RGB written directly.  The exact sRGB OETF keeps
-// powf (no fast-math); constants are the float32 roundings of the
-// reference's Python literals.
+// What this design does about it: a thread takes four neighbouring pixels
+// of one row (the row is the block's y, so no division finds it): 16-byte
+// loads of the three planes and three 4-byte stores of the 12 interleaved
+// bytes where the width is a multiple of 4 (one pixel at a time, byte
+// stores, otherwise).  The bloom composite reads its four taps a channel
+// from mip 0 through L1, with the wrapper's upsample tables (row once a
+// thread).  The OETF and quantisation are a table built by the wrapper
+// from the plain encode itself (pipeline.encode_lut): the float's top 16
+// bits index a word that holds the byte and the one threshold the bucket
+// may hold, read through L1 — seven instructions a channel.  It equals the
+// plain encode wherever that is monotone.  This file builds with
+// -fmad=false so the composite and the matrices round as the plain version
+// does; constants are the float32 roundings of the reference's literals.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+struct TonemapArgs {
+    const float* hdr[3];
+    const float* bloom[3];  // mip 0 after the upsample-add chain, or null
+    const int* bx;          // upsample columns: x0, x1, uf bits; 3 rows of w
+    const int* by;          // upsample rows: y0, y1, vf bits; 3 rows of h
+    const int* lut;         // the encode's table (pipeline.encode_lut)
+    uint8_t* out;
+    int h, w, bw;
+    float scale;
+};
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kPix = 4;  // pixels a thread
 
 __device__ __forceinline__ float clamp01(float v) {
     return fminf(fmaxf(v, 0.0f), 1.0f);
@@ -33,45 +58,120 @@ __device__ __forceinline__ float aces_fit(float ac) {
     return clamp01(a / b);
 }
 
-__device__ __forceinline__ uint8_t encode(float v) {
-    v = fmaxf(v, 0.0f);
-    v = v <= 0.0031308f ? 12.92f * v
-                        : 1.055f * powf(v, 0.41666666666666667f) - 0.055f;
-    const float q = fminf(fmaxf(v * 255.0f + 0.5f, 0.0f), 255.0f);
-    return static_cast<uint8_t>(__float2uint_rz(q));
+// the byte from the encode's table (pipeline.encode_lut): one word for each
+// 2^16 float bit patterns of [0, 1], the byte at the bucket's start (bits
+// 17 up) and where in the bucket the one threshold it may hold lies (low
+// 17 bits; 2^16 where none)
+__device__ __forceinline__ uint32_t encode_lut(float v, const int* lut) {
+    const uint32_t b = __float_as_uint(v) & 0x7fffffffu;  // -0 is 0
+    const uint32_t e = static_cast<uint32_t>(__ldg(lut + (b >> 16)));
+    return (e >> 17) + ((b & 0xffffu) >= (e & 0x1ffffu) ? 1u : 0u);
 }
 
+template <bool kBloom, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-tonemap_rgb8_kernel(const float* __restrict__ r, const float* __restrict__ g,
-                    const float* __restrict__ b, int h, int w, float scale,
-                    uint8_t* __restrict__ out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= h * w) return;
-    const float x = r[i] * scale, y = g[i] * scale, z = b[i] * scale;
-    // ACES input matrix, fitted curve, output matrix
-    const float ax = aces_fit(0.59719f * x + 0.35458f * y + 0.04823f * z);
-    const float ay = aces_fit(0.07600f * x + 0.90834f * y + 0.01566f * z);
-    const float az = aces_fit(0.02840f * x + 0.13383f * y + 0.83777f * z);
-    const float ox = clamp01(1.60475f * ax + -0.53108f * ay + -0.07367f * az);
-    const float oy = clamp01(-0.10208f * ax + 1.10813f * ay + -0.00605f * az);
-    const float oz = clamp01(-0.00327f * ax + -0.07276f * ay + 1.07602f * az);
-    const int py = i / w, px = i - py * w;
-    uint8_t* dst = out + (static_cast<size_t>(h - 1 - py) * w + px) * 3;
-    dst[0] = encode(ox);
-    dst[1] = encode(oy);
-    dst[2] = encode(oz);
+tonemap_rgb8_kernel(const TonemapArgs a) {
+    const int y = blockIdx.y;
+    const int x = (blockIdx.x * kThreads + threadIdx.x) * kPix;
+    if (x >= a.w) return;
+    const int n = min(kPix, a.w - x);
+    const size_t at = static_cast<size_t>(y) * a.w + x;
+    float c[3][kPix];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        if (kVec) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(a.hdr[k]
+                                                                   + at));
+            c[k][0] = v.x;
+            c[k][1] = v.y;
+            c[k][2] = v.z;
+            c[k][3] = v.w;
+        } else {
+#pragma unroll
+            for (int p = 0; p < kPix; ++p)
+                c[k][p] = p < n ? __ldg(a.hdr[k] + at + p) : 0.0f;
+        }
+    }
+    if (kBloom) {
+        // hdr + up(mip 0), as render/bloom.py upsample_bilinear
+        const int h = a.h, w = a.w;
+        const size_t r0 = static_cast<size_t>(__ldg(a.by + y)) * a.bw;
+        const size_t r1 = static_cast<size_t>(__ldg(a.by + h + y)) * a.bw;
+        const float vf = __int_as_float(__ldg(a.by + 2 * h + y));
+#pragma unroll
+        for (int p = 0; p < kPix; ++p) {
+            if (!kVec && p >= n) break;
+            const int x0 = __ldg(a.bx + x + p), x1 = __ldg(a.bx + w + x + p);
+            const float uf = __int_as_float(__ldg(a.bx + 2 * w + x + p));
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                const float* m = a.bloom[k];
+                const float a00 = __ldg(m + r0 + x0), a10 = __ldg(m + r0 + x1);
+                const float a01 = __ldg(m + r1 + x0), a11 = __ldg(m + r1 + x1);
+                const float top = a00 + (a10 - a00) * uf;
+                const float bot = a01 + (a11 - a01) * uf;
+                c[k][p] = c[k][p] + (top + (bot - top) * vf);
+            }
+        }
+    }
+    uint32_t px[kPix][3];
+#pragma unroll
+    for (int p = 0; p < kPix; ++p) {
+        const float r = c[0][p] * a.scale, g = c[1][p] * a.scale,
+                    b = c[2][p] * a.scale;
+        // ACES input matrix, fitted curve, output matrix
+        const float ax = aces_fit(0.59719f * r + 0.35458f * g + 0.04823f * b);
+        const float ay = aces_fit(0.07600f * r + 0.90834f * g + 0.01566f * b);
+        const float az = aces_fit(0.02840f * r + 0.13383f * g + 0.83777f * b);
+        const float o[3] = {
+            clamp01(1.60475f * ax + -0.53108f * ay + -0.07367f * az),
+            clamp01(-0.10208f * ax + 1.10813f * ay + -0.00605f * az),
+            clamp01(-0.00327f * ax + -0.07276f * ay + 1.07602f * az)};
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+            px[p][k] = encode_lut(o[k], a.lut);
+    }
+    uint8_t* dst = a.out + (static_cast<size_t>(a.h - 1 - y) * a.w + x) * 3;
+    if (kVec) {
+        // r0 g0 b0 r1 | g1 b1 r2 g2 | b2 r3 g3 b3, little-endian words
+        uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+        d[0] = px[0][0] | px[0][1] << 8 | px[0][2] << 16 | px[1][0] << 24;
+        d[1] = px[1][1] | px[1][2] << 8 | px[2][0] << 16 | px[2][1] << 24;
+        d[2] = px[2][2] | px[3][0] << 8 | px[3][1] << 16 | px[3][2] << 24;
+    } else {
+#pragma unroll
+        for (int p = 0; p < kPix; ++p) {
+            if (p >= n) break;
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+                dst[3 * p + k] = static_cast<uint8_t>(px[p][k]);
+        }
+    }
+}
+
+template <bool kBloom, bool kVec>
+cudaError_t launch(const TonemapArgs& a, cudaStream_t s) {
+    const dim3 grid((a.w + kThreads * kPix - 1) / (kThreads * kPix), a.h);
+    tonemap_rgb8_kernel<kBloom, kVec><<<grid, kThreads, 0, s>>>(a);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ptrt_tonemap_rgb8(const float* r, const float* g,
-                                 const float* b, int h, int w, float scale,
-                                 uint8_t* out, void* stream) {
-    const int n = h * w;
-    if (n > 0) {
-        tonemap_rgb8_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-            r, g, b, h, w, scale, out);
-    }
-    return static_cast<int>(cudaGetLastError());
+// The vector path needs 16-byte aligned planes and rows (w a multiple of
+// 4) and 4-byte aligned output rows (which w a multiple of 4 gives).
+extern "C" int ptrt_tonemap_rgb8(const TonemapArgs* args, void* stream) {
+    const TonemapArgs& a = *args;
+    if (a.h <= 0 || a.w <= 0) return static_cast<int>(cudaGetLastError());
+    if (a.h > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    bool vec = a.w % kPix == 0 &&
+               reinterpret_cast<uintptr_t>(a.out) % 4 == 0;
+    for (int k = 0; k < 3; ++k)
+        vec = vec && reinterpret_cast<uintptr_t>(a.hdr[k]) % 16 == 0;
+    const bool bloom = a.bloom[0] != nullptr;
+    const cudaError_t e =
+        bloom ? (vec ? launch<true, true>(a, s) : launch<true, false>(a, s))
+              : (vec ? launch<false, true>(a, s) : launch<false, false>(a, s));
+    return static_cast<int>(e);
 }

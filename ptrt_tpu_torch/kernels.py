@@ -27,7 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 # source -> its own nvcc flags: the post-stack and shading kernels follow
 # their plain versions' float order, so no multiply may fuse into an add
 SOURCE_FLAGS = {
-    "traverse.cu": [], "tonemap.cu": [], "gather.cu": [],
+    "traverse.cu": [], "tonemap.cu": ["-fmad=false"], "gather.cu": [],
     "svgf.cu": ["-fmad=false"], "bloom.cu": ["-fmad=false"],
     "shade.cu": ["-fmad=false"],
 }
@@ -64,7 +64,7 @@ def get_lib() -> ctypes.CDLL:
         lib = bind_walks(ctypes.CDLL(path))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ptrt_tonemap_rgb8.restype = i
-        lib.ptrt_tonemap_rgb8.argtypes = [p, p, p, i, i, ctypes.c_float, p, p]
+        lib.ptrt_tonemap_rgb8.argtypes = [p, p]
         lib.ptrt_row_gather.restype = i
         lib.ptrt_row_gather.argtypes = [p, i, i, i, p, ctypes.c_longlong, p,
                                         i, p]
@@ -76,8 +76,10 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_svgf_atrous.argtypes = [p, p]
         lib.ptrt_svgf_atrous_info.restype = i
         lib.ptrt_svgf_atrous_info.argtypes = [i, i, i, i, p, p, p]
-        lib.ptrt_bloom_blur_down.restype = i
-        lib.ptrt_bloom_blur_down.argtypes = [p, p, p, i, i, p, p, p, p]
+        lib.ptrt_bloom_chain.restype = i
+        lib.ptrt_bloom_chain.argtypes = [p, p]
+        lib.ptrt_bloom_chain_info.restype = i
+        lib.ptrt_bloom_chain_info.argtypes = [p] * 6
         lib.ptrt_shade_nee.restype = i
         lib.ptrt_shade_nee.argtypes = [p, p]
         lib.ptrt_shade_scatter.restype = i

@@ -7,7 +7,8 @@ denoiser's diffuse/specular/emission channels); ``upscale_bilinear`` is
 ``jax.image.resize(..., "bilinear")`` in plain torch; ``tonemap_to_rgb8``
 turns HDR into the display image through the hand-written
 ``csrc/tonemap.cu`` kernel (K6) for CUDA tensors, or its plain version for
-CPU tensors.
+CPU tensors; given the bloom chain's mip 0, K6 first adds its upsample to
+the image (the last step of ``bloom.apply_bloom``).
 
 Each sample is traced as its own (H, W) wavefront.  Every lane's arithmetic
 depends only on its own pixel and sample, so the result is the same as the
@@ -16,6 +17,7 @@ reference's single (spp, H, W) wavefront.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -26,6 +28,7 @@ from ptrt_tpu_torch.core.bluenoise import next_blue_noise
 from ptrt_tpu_torch.core.color import aces_tonemap, srgb_oetf, to_rgb8
 from ptrt_tpu_torch.core.taa import taa_jitter
 from ptrt_tpu_torch.core.vec import Vec3
+from ptrt_tpu_torch.render import bloom as bloom_mod
 from ptrt_tpu_torch.render.integrator import trace_path
 
 
@@ -147,31 +150,139 @@ def upscale_bilinear(img: Vec3, out_h: int, out_w: int) -> Vec3:
 
 # -- K6 ----------------------------------------------------------------------
 
+# the encode table's buckets: float bits of [0, 1] shifted right by LUT_SHIFT
+LUT_SHIFT = 16
 
-def tonemap_rgb8(hdr: Vec3, scale: float) -> torch.Tensor:
-    """(H, W) float32 HDR planes, times ``scale`` -> ACES -> exact sRGB OETF
-    -> uint8 -> Y-flip.  Returns (H, W, 3) uint8."""
+_P3 = ctypes.c_void_p * 3
+
+
+class TonemapArgs(ctypes.Structure):
+    """``struct TonemapArgs`` of ``csrc/tonemap.cu``."""
+
+    _fields_ = [
+        ("hdr", _P3), ("bloom", _P3), ("bx", ctypes.c_void_p),
+        ("by", ctypes.c_void_p), ("lut", ctypes.c_void_p),
+        ("out", ctypes.c_void_p), ("h", ctypes.c_int), ("w", ctypes.c_int),
+        ("bw", ctypes.c_int), ("scale", ctypes.c_float),
+    ]
+
+
+def encode_plain(v: torch.Tensor) -> torch.Tensor:
+    """The plain sRGB OETF and 8-bit quantisation of one plane of
+    tonemapped values (``srgb_oetf`` then ``to_rgb8``, the same
+    operations)."""
+    return to_rgb8(srgb_oetf(Vec3(v, v, v)))[..., 0]
+
+
+_thresholds: dict = {}
+
+
+def encode_thresholds(device) -> torch.Tensor:
+    """(256,) float32 on ``device``: entry k >= 1 is the least float in
+    [0, 1] that the plain encode, run on ``device``, maps to k or more
+    (entry 0 is 0 and unused).  A bisection over the floats' bit patterns
+    (which order as the floats do), 31 steps for every k at once; where the
+    plain encode is monotone, the count of thresholds at or below v is its
+    byte."""
+    key = str(device)
+    if key not in _thresholds:
+        k = torch.arange(1, 256, dtype=torch.int32, device=device)
+        lo = torch.zeros_like(k)
+        hi = torch.full_like(k, 0x3F800000)  # 1.0, which encodes to 255
+        for _ in range(31):
+            mid = (lo + hi) // 2
+            ge = encode_plain(mid.view(torch.float32)).to(torch.int32) >= k
+            hi = torch.where(ge, mid, hi)
+            lo = torch.where(ge, lo, mid + 1)
+        _thresholds[key] = torch.cat([torch.zeros(1, device=device),
+                                      hi.view(torch.float32)])
+    return _thresholds[key]
+
+
+_luts: dict = {}
+
+
+def encode_lut(device) -> torch.Tensor:
+    """The encode's table as ``csrc/tonemap.cu`` reads it, int32 on
+    ``device``: one word for each bucket of 2^LUT_SHIFT float bit patterns
+    of [0, 1] (the bucket of 1.0 last), holding the byte at the bucket's
+    start (the thresholds at or below it, bits 17 up) and the offset in the
+    bucket of the next threshold (low 17 bits; 2^16 where the bucket holds
+    none).  The byte of v is then the number of thresholds at or below v;
+    raises if a bucket holds two thresholds."""
+    key = str(device)
+    if key not in _luts:
+        bits = encode_thresholds(device)[1:].view(torch.int32)
+        if not bool((bits[1:] >= bits[:-1]).all()):
+            raise RuntimeError("the encode's thresholds are not in order")
+        span = 1 << LUT_SHIFT
+        starts = torch.arange((0x3F800000 >> LUT_SHIFT) + 1,
+                              dtype=torch.int32, device=device) * span
+        base = torch.searchsorted(bits, starts, right=True)
+        nxt = bits[base.clamp(max=254)]
+        inside = (base < 255) & (nxt < starts + span)
+        after = bits[(base + 1).clamp(max=254)]
+        if bool((inside & (base < 254) & (after < starts + span)).any()):
+            raise RuntimeError("a bucket of the encode's table holds two "
+                               "thresholds")
+        offset = torch.where(inside, nxt - starts, span)
+        _luts[key] = ((base.to(torch.int32) << 17) | offset).to(torch.int32)
+    return _luts[key]
+
+
+def encode_lut_plain(v: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """The byte ``csrc/tonemap.cu`` reads from ``lut`` for values of [0, 1]
+    (its bucket's byte, plus one at or past the bucket's threshold)."""
+    b = v.view(torch.int32) & 0x7FFFFFFF
+    e = lut[(b >> LUT_SHIFT).long()]
+    return ((e >> 17) + ((b & 0xFFFF) >= (e & 0x1FFFF)).int()).to(
+        torch.uint8)
+
+
+def tonemap_rgb8(hdr: Vec3, scale: float,
+                 bloom: Vec3 | None = None) -> torch.Tensor:
+    """(H, W) float32 HDR planes, plus ``up(bloom)`` where the bloom
+    chain's mip 0 is given, times ``scale`` -> ACES -> exact sRGB OETF ->
+    uint8 -> Y-flip.  Returns (H, W, 3) uint8."""
     dev = hdr.x.device
     kernels.require_supported(dev)
-    for name, c in (("hdr.x", hdr.x), ("hdr.y", hdr.y), ("hdr.z", hdr.z)):
-        kernels.check_tensor(name, c, torch.float32, 2, dev)
-        if c.shape != hdr.x.shape:
-            raise ValueError(f"{name}: shape {tuple(c.shape)} != "
-                             f"{tuple(hdr.x.shape)}")
+    comps = [("hdr", hdr)] + ([("bloom", bloom)] if bloom is not None
+                              else [])
+    for what, v in comps:
+        for i, c in enumerate((v.x, v.y, v.z)):
+            name = f"{what}.{'xyz'[i]}"
+            kernels.check_tensor(name, c, torch.float32, 2, dev)
+            if c.shape != v.x.shape:
+                raise ValueError(f"{name}: shape {tuple(c.shape)} != "
+                                 f"{tuple(v.x.shape)}")
     if dev.type == "cpu":
-        return tonemap_rgb8_plain(hdr, scale)
+        return tonemap_rgb8_plain(hdr, scale, bloom)
     h, w = hdr.x.shape
     out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
-    rc = kernels.get_lib().ptrt_tonemap_rgb8(
-        hdr.x.data_ptr(), hdr.y.data_ptr(), hdr.z.data_ptr(), h, w,
-        float(scale), out.data_ptr(), kernels.stream_ptr(dev))
+    a = TonemapArgs()
+    a.hdr = _P3(hdr.x.data_ptr(), hdr.y.data_ptr(), hdr.z.data_ptr())
+    if bloom is not None:
+        bh, bw = bloom.x.shape
+        a.bloom = _P3(bloom.x.data_ptr(), bloom.y.data_ptr(),
+                      bloom.z.data_ptr())
+        a.bx = bloom_mod.axis_table(bw, w, dev).data_ptr()
+        a.by = bloom_mod.axis_table(bh, h, dev).data_ptr()
+        a.bw = bw
+    a.lut = encode_lut(dev).data_ptr()
+    a.out, a.h, a.w, a.scale = out.data_ptr(), h, w, float(scale)
+    rc = kernels.get_lib().ptrt_tonemap_rgb8(ctypes.addressof(a),
+                                             kernels.stream_ptr(dev))
     kernels.launches["tonemap_rgb8"] += 1
     kernels.check(rc, "tonemap_rgb8")
     return out
 
 
-def tonemap_rgb8_plain(hdr: Vec3, scale: float) -> torch.Tensor:
-    """Plain version of K6 (``pipeline.tonemap_to_rgb8``)."""
+def tonemap_rgb8_plain(hdr: Vec3, scale: float,
+                       bloom: Vec3 | None = None) -> torch.Tensor:
+    """Plain version of K6 (``pipeline.tonemap_to_rgb8``), after
+    ``hdr + up(bloom)`` where ``bloom`` is given."""
+    if bloom is not None:
+        hdr = hdr + bloom_mod.upsample_bilinear(bloom, *hdr.x.shape)
     c = aces_tonemap(hdr * scale)
     return to_rgb8(srgb_oetf(c)).flip(0)
 

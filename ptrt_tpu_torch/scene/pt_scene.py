@@ -24,7 +24,7 @@ from ptrt_tpu_torch.core.vec import where
 from ptrt_tpu_torch.geometry.mesh import Mesh
 from ptrt_tpu_torch.geometry.scene_geom import assemble_geometry
 from ptrt_tpu_torch.render import pipeline as pl
-from ptrt_tpu_torch.render.bloom import apply_bloom
+from ptrt_tpu_torch.render.bloom import apply_bloom, bloom_mips
 from ptrt_tpu_torch.render.denoiser import (DEFAULT_SETTINGS, denoise_frame,
                                             init_denoiser_state)
 from ptrt_tpu_torch.render.motion import motion_vectors
@@ -270,11 +270,17 @@ class Scene:
             current, self._denoiser_state = denoise_frame(
                 bufs, mv, self._denoiser_state, self.camera, self.frame_count,
                 settings=self.denoiser_settings or DEFAULT_SETTINGS)
-        if p.enable_bloom:
+        # at full size K6 adds the bloom's mip 0 itself; before an upscale
+        # the chain writes the composite
+        bloom = None
+        full_size = (rh, rw) == (self.height, self.width)
+        if p.enable_bloom and full_size:
+            bloom = bloom_mips(current)
+        elif p.enable_bloom:
             current = apply_bloom(current)
-        if (rh, rw) != (self.height, self.width):
+        if not full_size:
             current = pl.upscale_bilinear(current, self.height, self.width)
-        img = pl.tonemap_rgb8(current, 1.0)
+        img = pl.tonemap_rgb8(current, 1.0, bloom=bloom)
         self.frame_count += 1
         self.prev_view_proj = self.camera.get_view_proj()
         return img

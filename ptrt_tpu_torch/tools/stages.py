@@ -3,17 +3,19 @@ by channel and bounce by bounce on the card, for this tree or another one.
 
 ``chip_smoke.py`` uses the helpers here (``atrous_taps``, ``shade_bytes``,
 ``live_warps``, ``temporal_inputs``, ``time_temporal``, ``time_atrous``,
-``time_blur_down``, ``clones_ms``, ``kernel_ms``, ``kernel_resources``).
+``time_bloom``, ``bloom_bound``, ``tonemap_bound``, ``clones_ms``,
+``kernel_ms``, ``kernel_resources``, ``frame_profile``).
 Run as a script on a GPU, this file measures one tree's kernels:
 
-    python3 ptrt_tpu_torch/tools/stages.py [--tree DIR] [--out DIR]
+    python3 ptrt_tpu_torch/tools/stages.py [--tree DIR] [--out DIR] [--bloom]
 
-``--tree DIR`` measures the checkout in ``DIR`` (an older commit unpacked
-with ``git archive``, say) in a process of its own that imports that tree's
-package; this file uses only what the port's wrappers have offered since
-the K3 kernels were written (and the two-channel temporal launch where the
-tree has one), so it drives either tree, and the bounds are this file's for
-both.  ``--out DIR`` also appends the log to ``DIR/stages.log``.
+``--tree DIR`` measures the checkout in ``DIR`` (a variant of this tree or
+a later commit unpacked with ``git archive``, say) in a process of its own
+that imports that tree's package, with this file's bounds; it needs the
+wrappers this tree offers (``bloom_mips`` and K6's bloom composite among
+them), so a tree before them is measured by its own copy of this file.
+``--out DIR`` also appends the log to ``DIR/stages.log``.  ``--bloom``
+measures only the bloom and K6 (and the kernels' resources).
 
 On the 1920x1080 bench scene (~1M triangles) it prints:
 
@@ -33,7 +35,12 @@ On the 1920x1080 bench scene (~1M triangles) it prints:
 * ``svgf_atrous`` at each of the seven passes a balanced frame runs (diffuse
   settings at steps 1, 2, 4, 8, 16, specular at 1, 2, each fed the pass
   before it), held to the plain version, with each pass's own bound;
-* ``bloom_blur_down`` at each of a frame's six mips, queued twice and alone.
+* the bloom and K6 of a balanced frame: ``bloom_chain`` (one launch) and
+  K6 with and without the bloom composite, queued behind a spin twice,
+  alone (profiler), the host's time of a call, each beside its bound (K6
+  also beside the issue time of the SASS instructions a thread runs);
+* one profiled balanced and one profiled bench frame (device ms, kernel
+  launches) and three timed frames of each.
 
 The card's name and power limit lead the output; the last line is JSON.
 """
@@ -59,9 +66,18 @@ ATROUS_PASSES = (("diffuse", (1, 2, 4, 8, 16)), ("specular", (1, 2)))
 # the colour sum 6, the variance sum 2, the weight sum 1 (the edge tests
 # short-circuit)
 ATROUS_OPS_PIXEL, ATROUS_OPS_TAP = 21, 21
-# bloom.cu, an output pixel: 3 channels x (5 rows x (the 5-tap horizontal
-# blur 7 + the row weight 1) + 4 row sums)
+# bloom.cu, float operations: the bright pass an input pixel (max 2, the
+# knee 3, the clamp 2, 3 products), a mip's output pixel 3 channels x (5
+# rows x (the 5-tap horizontal blur 7 + the row weight 1) + 4 row sums), and
+# an output pixel of the upsample-add 3 x (the bilinear 9 + the add 1)
+BLOOM_BRIGHT_OPS_PIXEL = 10
 BLUR_DOWN_OPS_PIXEL = 3 * (5 * 8 + 4)
+UPSAMPLE_ADD_OPS_PIXEL = 3 * 10
+# tonemap.cu, a pixel: scale 3; ACES input matrix 3 x 5; the fitted curve 3
+# x 10 (7 adds and multiplies, a divide, a clamp of 2); output matrix and
+# clamp 3 x 7; the encode table's bucket compare 3
+TONEMAP_OPS_PIXEL = 3 + 15 + 30 + 21 + 3
+TONEMAP_PIXELS = 4  # K6's pixels a thread (csrc/tonemap.cu)
 # svgf.cu temporal, a pixel and channel: the 3x3 window 9 x 16 (the weighted
 # sums of colour 6 and its square 9, the count 1; the edge tests
 # short-circuit); the window's mean, variance and clamp box 36; the
@@ -184,12 +200,61 @@ def temporal_bound(h: int, w: int, caps) -> dict:
     return bound(4 * h * w * planes, TEMPORAL_OPS_PIXEL * h * w * len(caps))
 
 
-def blur_down_bound(h: int, w: int) -> dict:
-    """One ``bloom_blur_down`` mip of an (h, w) input: the input's three
-    planes read once, the (h // 2, (w + 1) // 2) output's written once, and
-    the 5x5 blur's operations at each output pixel."""
-    half = (h // 2) * ((w + 1) // 2)
-    return bound(3 * 4 * (h * w + half), BLUR_DOWN_OPS_PIXEL * half)
+def bloom_bound(h: int, w: int) -> dict:
+    """The bloom chain of an (h, w) image to mip 0 after the upsample-add:
+    the image's three planes read once and that mip 0 written once (the
+    smaller mips need not leave the chip); operations: the bright pass a
+    pixel, each mip's blur an output, the upsample-add an output of every
+    level but the coarsest."""
+    from ptrt_tpu_torch.render.bloom import mip_shapes
+
+    shapes = mip_shapes(h, w)
+    mh, mw = shapes[0]
+    ops = (BLOOM_BRIGHT_OPS_PIXEL * h * w
+           + sum(BLUR_DOWN_OPS_PIXEL * a * b for a, b in shapes)
+           + sum(UPSAMPLE_ADD_OPS_PIXEL * a * b for a, b in shapes[:-1]))
+    return bound(3 * 4 * (h * w + mh * mw), ops)
+
+
+def tonemap_bound(h: int, w: int, bloom: bool, instructions=None) -> dict:
+    """K6 over an (h, w) image: its three planes read once, the bytes
+    written once and, with the bloom, mip 0 read once; its float operations
+    (with the bloom, the composite's too).  With the SASS ``instructions``
+    a thread of the kernel runs, also ``sass_issue_ms``, those warps'
+    instructions over the card's issue rate: reported beside the bound,
+    never as it, since it counts the kernel's own address arithmetic and
+    repeated taps and so grows with what the kernel wastes."""
+    from ptrt_tpu_torch.render.bloom import mip_shapes
+
+    mh, mw = mip_shapes(h, w)[0] if bloom else (0, 0)
+    out = bound(3 * 4 * h * w + 3 * h * w + 3 * 4 * mh * mw,
+                (TONEMAP_OPS_PIXEL + bloom * UPSAMPLE_ADD_OPS_PIXEL) * h * w)
+    if instructions:
+        threads = -(-w // TONEMAP_PIXELS)  # a row's
+        warps = -(-threads // 32) * h
+        out["sass_issue_ms"] = 1e3 * warps * instructions / WARP_ISSUE_PER_S
+    return out
+
+
+def profiled_kernels(fn, calls: int = 1) -> list:
+    """The device kernels torch.profiler records over ``calls`` calls of
+    ``fn()`` (no warm-up; memory copies and sets left out), in launch
+    order: [(name, device us)]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+    return [(e.name, e.time_range.elapsed_us())
+            for e in sorted(kern, key=lambda e: e.time_range.start)]
 
 
 def kernel_ms(fn, states, kernel):
@@ -197,19 +262,11 @@ def kernel_ms(fn, states, kernel):
     copies of the state, as torch.profiler records them (the kernel alone,
     without the wrapper's host work between launches); None where the
     profiler does not see every launch."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn(states[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for s in states[1:]:
-            fn(s)
-        torch.cuda.synchronize()
-    ev = [e.time_range.elapsed_us() for e in prof.events()
-          if getattr(e, "device_type", None) == DeviceType.CUDA
-          and kernel in e.name]
+    rest = iter(states[1:])
+    ev = [us for name, us in profiled_kernels(lambda: fn(next(rest)),
+                                               len(states) - 1)
+          if kernel in name]
     if len(ev) != len(states) - 1:
         say(f"  (the profiler saw {len(ev)} of {len(states) - 1} {kernel} "
             f"launches: its device time is not measured)")
@@ -251,7 +308,10 @@ _SASS_CLASSES = (("global_load", r"LDG"), ("global_store", r"STG"),
 def kernel_resources(lib_path: str, names) -> dict:
     """{kernel: registers, stack and static shared bytes, SASS instruction
     counts} of the kernels whose (mangled) name holds one of ``names``,
-    read from the built library with ``cuobjdump``."""
+    read from the built library with ``cuobjdump``.  ``sass["body"]``
+    counts the instructions a thread runs through a kernel without loops:
+    those before its first called subroutine, less each call to one (the
+    division's slow path: the CALL and the moves before it) and NOPs."""
     from ptrt_tpu_torch import kernels
 
     tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
@@ -269,20 +329,35 @@ def kernel_resources(lib_path: str, names) -> dict:
                 "registers": int(m.group(1)), "stack_bytes": int(m.group(2)),
                 "shared_bytes": int(m.group(3)),
                 "local_bytes": int(m.group(4)), "sass": {}}
-    fn = None
+    listing, fn = {}, None
     for line in run("-sass").splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
             continue
-        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
-                     line)
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][\w.]*)(.*)", line)
         if m and fn and key(fn) and fn in out[key(fn)]:
+            listing.setdefault(fn, []).append(
+                (int(m.group(1), 16), m.group(2), m.group(3)))
             sass = out[key(fn)][fn]["sass"]
             sass["all"] = sass.get("all", 0) + 1
             for cls, pat in _SASS_CLASSES:
-                if re.match(pat, m.group(1)):
+                if re.match(pat, m.group(2)):
                     sass[cls] = sass.get(cls, 0) + 1
+    for fn, ins in listing.items():
+        calls = [int(t, 16) for _, op, rest in ins if op.startswith("CALL")
+                 for t in re.findall(r"0x([0-9a-f]+)", rest)[:1]]
+        end = min(calls, default=ins[-1][0] + 1)
+        body = [op for at, op, _ in ins if at < end]
+        skipped = 0
+        for j, op in enumerate(body):
+            if op.startswith("CALL"):
+                skipped += 1
+                while j > 0 and body[j - 1].startswith("MOV"):
+                    skipped, j = skipped + 1, j - 1
+        out[key(fn)][fn]["sass"]["body"] = (
+            len(body) - skipped - sum(op.startswith("NOP") for op in body))
     return out
 
 
@@ -370,29 +445,110 @@ def time_temporal(inputs, first, iters: int = 20) -> list:
     return rows
 
 
-def time_blur_down(color, iters: int = 20) -> list:
-    """``bloom_blur_down`` at each mip of a frame's bloom chain (the bright
-    pass of ``color``, then each mip from the one before): queued behind a
-    spin of the card, two readings, and alone (profiler), each beside its
-    own bound.  Returns one row a mip, with its input."""
-    from ptrt_tpu_torch.render import bloom
+def host_ms(fn, calls: int = 10) -> float:
+    """Mean host ms of a call ``fn()``, enqueued back to back (no
+    synchronisation between them)."""
+    import time
 
-    cur = bloom.bright_pass(color)
-    rows = []
-    for _ in range(bloom.BLOOM_MIP_LEVELS):
-        h, w = cur.x.shape
-        if h // 2 == 0 or w // 2 == 0:
-            break
-        calls = [None] * (iters + 1)
-        fn = lambda _, img=cur: bloom.blur_down(img)
-        rows.append({"shape": (h, w), "input": cur,
-                     "queued_ms": [clones_ms(fn, calls, SPIN_CYCLES)
-                                   for _ in range(2)],
-                     "kernel_ms": kernel_ms(fn, calls[:11],
-                                            "bloom_blur_down"),
-                     **blur_down_bound(h, w)})
-        cur = bloom.blur_down(cur)
-    return rows
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / calls
+
+
+def tonemap_sass(resources) -> dict:
+    """{with the bloom: the SASS instructions a thread of K6's vector path
+    runs (4 pixels)} from ``kernel_resources``' "tonemap_rgb8"."""
+    return {b: r["sass"]["body"] for fn, r in resources.items()
+            for b in (False, True) if f"ILb{int(b)}ELb1EEEv" in fn}
+
+
+def time_bloom(color, sass=None, iters: int = 10) -> dict:
+    """The bloom and K6 of a balanced frame from its colour ``color``:
+    ``bloom_chain`` (``bloom_mips``, held bit for bit to the plain chain),
+    K6 with its composite and K6 alone.  Each queued behind a spin of the
+    card, two readings, and alone (profiler), with its bound (K6's also
+    with the issue time of ``sass``, ``tonemap_sass``); the bloom and K6 of
+    a frame together queued, by the profiler's kernels and on the host.
+    Returns {"bloom", "k6", "k6_alone" (each {"queued_ms", "kernel_ms",
+    bound}; the bloom's with its "device_ms"), "host_ms",
+    "frame_queued_ms", "frame_device_ms"}."""
+    import torch
+
+    from ptrt_tpu_torch.render import bloom, pipeline
+
+    h, w = color.x.shape
+    run_bloom = lambda: bloom.bloom_mips(color)
+    mip0 = run_bloom()
+    want = bloom.bloom_chain_plain(color)[1]
+    assert all(torch.equal(a, b) for a, b in zip(
+        (mip0.x, mip0.y, mip0.z), (want.x, want.y, want.z))), (
+        "bloom_chain: mip 0 after the chain differs from the plain version")
+    run_k6 = lambda: pipeline.tonemap_rgb8(color, 1.0, bloom=mip0)
+    frame = lambda: pipeline.tonemap_rgb8(color, 1.0,
+                                          bloom=bloom.bloom_mips(color))
+    calls = [None] * (iters + 1)
+    row = lambda fn, kernel: {
+        "queued_ms": [clones_ms(lambda _: fn(), calls, SPIN_CYCLES)
+                      for _ in range(2)],
+        "kernel_ms": kernel_ms(lambda _: fn(), calls[:6], kernel)}
+    return {"bloom": {**row(run_bloom, "bloom_chain_kernel"),
+                      **bloom_bound(h, w), "device_ms": device_ms(run_bloom)},
+            "k6": {**row(run_k6, "tonemap_rgb8_kernel"),
+                   **tonemap_bound(h, w, True, sass and sass[True])},
+            "k6_alone": {**row(lambda: pipeline.tonemap_rgb8(color, 1.0),
+                               "tonemap_rgb8_kernel"),
+                         **tonemap_bound(h, w, False, sass and sass[False])},
+            "host_ms": host_ms(frame),
+            "frame_queued_ms": [clones_ms(lambda _: frame(), calls,
+                                          SPIN_CYCLES) for _ in range(2)],
+            "frame_device_ms": device_ms(frame)}
+
+
+def device_ms(fn, calls: int = 3) -> float:
+    """Device ms of a call ``fn()`` (after one warm-up call): the kernels
+    the profiler sees over ``calls`` calls, summed, over ``calls``."""
+    fn()
+    return sum(us for _, us in profiled_kernels(fn, calls)) / 1e3 / calls
+
+
+def frame_profile(sc, frames: int = 0) -> dict:
+    """One frame of ``sc`` under torch.profiler, then ``frames`` frames
+    timed on the host clock, each ending in a synchronisation: {"device_ms",
+    "launches", "top" (the five kernels with the most device time, ms),
+    "names" (every kernel in launch order), "walk_ms" (K1 and K2),
+    "frame_ms"}; the profiled values are None where the profiler saw no
+    device kernel."""
+    import time
+
+    import torch
+
+    kern = profiled_kernels(sc.render_frame)
+    ms = []
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc.render_frame()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    if not kern:
+        return {"device_ms": None, "launches": None, "top": None,
+                "names": None, "walk_ms": None, "frame_ms": ms}
+    by_name = {}
+    for name, us in kern:
+        by_name[name] = by_name.get(name, 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    walk_us = sum(v for k, v in by_name.items()
+                  if "closest_hit_kernel" in k or "any_hit_kernel" in k)
+    return {"device_ms": sum(by_name.values()) / 1e3, "launches": len(kern),
+            "top": [(k[:60], round(v / 1e3, 3)) for k, v in top],
+            "names": [name for name, _ in kern], "walk_ms": walk_us / 1e3,
+            "frame_ms": ms}
 
 
 def atrous_inputs(t_inputs, first) -> dict:
@@ -544,8 +700,9 @@ def say(*a) -> None:
 say.out = None
 
 
-def measure(tag: str, card: str) -> dict:
-    """Build the imported tree's kernels and run the measurements."""
+def measure(tag: str, card: str, bloom_only: bool = False) -> dict:
+    """Build the imported tree's kernels and run the measurements (with
+    ``bloom_only``, only the kernels' resources and the bloom and K6)."""
     from ptrt_tpu_torch import kernels
     from ptrt_tpu_torch.app.bench_scene import build_bench_scene
     from ptrt_tpu_torch.build import BUILD_DIR
@@ -559,12 +716,31 @@ def measure(tag: str, card: str) -> dict:
     out = {"tag": tag, "card": card, "shading": []}
     out["resources"] = kernel_resources(
         os.path.join(BUILD_DIR, kernels.LIBRARY),
-        ("svgf_temporal", "svgf_atrous", "shade_nee", "shade_scatter"))
+        ("svgf_temporal", "svgf_atrous", "shade_nee", "shade_scatter",
+         "tonemap_rgb8", "bloom"))
     for k, fns in out["resources"].items():
         for fn, r in fns.items():
             log(f"{k} {fn[-48:]}: {r['registers']} registers, stack "
                 f"{r['stack_bytes']}, static shared {r['shared_bytes']} "
                 f"bytes; SASS {r['sass']}")
+    out["bloom"] = time_bloom(color, tonemap_sass(
+        out["resources"]["tonemap_rgb8"]))
+    for name, r in out["bloom"].items():
+        if name in ("bloom", "k6", "k6_alone"):
+            issue = (f"; the SASS issues in {r['sass_issue_ms']:.4f} ms"
+                     if "sass_issue_ms" in r else "")
+            log(f"{name}: queued "
+                f"{' / '.join(f'{t:.4f}' for t in r['queued_ms'])} ms, "
+                f"kernel {r['kernel_ms'] or float('nan'):.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}{issue}) [{card}]")
+    b = out["bloom"]
+    log(f"bloom + K6 of a frame: queued "
+        f"{' / '.join(f'{t:.4f}' for t in b['frame_queued_ms'])} ms, device "
+        f"{b['frame_device_ms']:.4f} ms (the bloom "
+        f"{b['bloom']['device_ms']:.4f}), host {b['host_ms']:.3f} ms a call "
+        f"[{card}]")
+    if bloom_only:
+        return out
     for split in (False, True):
         rows = time_shading(sc, split)
         out["shading"] += rows
@@ -599,13 +775,17 @@ def measure(tag: str, card: str) -> dict:
     log(f"svgf_atrous, the seven passes: "
         f"{sum(r['ms'] for r in out['atrous']):.4f} ms, bound "
         f"{sum(r['bound_ms'] for r in out['atrous']):.4f} ms")
-    out["blur_down"] = time_blur_down(color)
-    for r in out["blur_down"]:
-        r.pop("input")
-        log(f"bloom_blur_down {r['shape'][0]}x{r['shape'][1]}: queued "
-            f"{' / '.join(f'{t:.4f}' for t in r['queued_ms'])} ms, kernel "
-            f"{r['kernel_ms'] or float('nan'):.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    sc.render_frame()
+    out["frames"] = {"balanced": frame_profile(sc, 3)}
+    sc.perf.enable_denoiser = sc.perf.enable_bloom = False
+    sc.perf.enable_motion_vectors = False
+    sc.perf.samples_per_pixel, sc.perf.max_bounce_depth = 4, DEPTH
+    sc.render_frame()
+    out["frames"]["bench"] = frame_profile(sc, 3)
+    for name, r in out["frames"].items():
+        log(f"{name} frame: device {r['device_ms']:.3f} ms in "
+            f"{r['launches']} launches; frames "
+            f"{[round(t, 1) for t in r['frame_ms']]} ms [{card}]")
     return out
 
 
@@ -613,6 +793,8 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", help="measure the checkout in this directory")
     ap.add_argument("--out", help="also append the log to DIR/stages.log")
+    ap.add_argument("--bloom", action="store_true",
+                    help="measure only the bloom and K6")
     args = ap.parse_args(argv)
     say.out = args.out and os.path.abspath(args.out)
     here = os.path.abspath(__file__)
@@ -620,8 +802,9 @@ def main(argv) -> int:
         # a process of its own, which finds the other tree's package first
         tree = os.path.abspath(args.tree)
         proc = subprocess.Popen(
-            [sys.executable, here], cwd=tree, stdout=subprocess.PIPE,
-            text=True, env={**os.environ, "PYTHONPATH": tree})
+            [sys.executable, here] + ["--bloom"] * args.bloom, cwd=tree,
+            stdout=subprocess.PIPE, text=True,
+            env={**os.environ, "PYTHONPATH": tree})
         for line in proc.stdout:  # the log is kept here
             say(line.rstrip("\n"))
         return proc.wait()
@@ -639,7 +822,7 @@ def main(argv) -> int:
     say(card)
     tag = os.path.basename(os.path.dirname(os.path.dirname(
         os.path.abspath(ptrt_tpu_torch.__file__))))
-    say(json.dumps(measure(tag, card)))
+    say(json.dumps(measure(tag, card, args.bloom)))
     return 0
 
 

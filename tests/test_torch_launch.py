@@ -2,7 +2,8 @@
 measurements compute in Python: how ``shade_scatter`` cuts a wavefront
 into blocks and what a block stages (``shade.scatter_launch``), the warps a
 wavefront's live lanes fill (``tools/stages.live_warps``), the planes a
-temporal launch must move (``stages.temporal_bound``), and the fact the
+temporal launch must move (``stages.temporal_bound``), K6's bound beside
+its SASS issue time (``stages.tonemap_bound``), and the fact the
 temporal kernel builds on: the nearest pixel of its fallback is one of its
 four bilinear corners."""
 
@@ -68,6 +69,32 @@ def test_temporal_bound_counts_each_plane_once():
                                             * 1e3)
     assert pair["bound_ms"] == pytest.approx(
         (29 + 17 + 1) * 4 * px / stages.HBM_BYTES_PER_S * 1e3)
+
+
+@pytest.mark.parametrize("bloom", [False, True])
+def test_k6_bound_is_its_bytes_not_its_own_sass(bloom):
+    """K6's bound is its bytes (its float operations take less); the issue
+    time of the kernel's own SASS is reported beside it and never raises
+    it, however many instructions the kernel runs."""
+    px, mip0 = 1080 * 1920, 540 * 960
+    plain = stages.tonemap_bound(1080, 1920, bloom)
+    nbytes = 15 * px + (12 * mip0 if bloom else 0)
+    assert plain["bound_by"] == "bytes"
+    assert plain["bound_ms"] == pytest.approx(
+        nbytes / stages.HBM_BYTES_PER_S * 1e3)
+    for n in (100, 878, 5000):
+        got = stages.tonemap_bound(1080, 1920, bloom, n)
+        assert {k: got[k] for k in plain} == plain
+        warps = -(-1920 // stages.TONEMAP_PIXELS // 32) * 1080
+        assert got["sass_issue_ms"] == pytest.approx(
+            warps * n / stages.WARP_ISSUE_PER_S * 1e3)
+    names = {"_Z19tonemap_rgb8_kernelILb0ELb0EEEv11TonemapArgs": 10,
+             "_Z19tonemap_rgb8_kernelILb1ELb0EEEv11TonemapArgs": 11,
+             "_Z19tonemap_rgb8_kernelILb0ELb1EEEv11TonemapArgs": 12,
+             "_Z19tonemap_rgb8_kernelILb1ELb1EEEv11TonemapArgs": 13}
+    assert stages.tonemap_sass({fn: {"sass": {"body": n}}
+                                for fn, n in names.items()}) == {False: 12,
+                                                                 True: 13}
 
 
 def test_nearest_pixel_is_a_bilinear_corner():

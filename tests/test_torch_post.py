@@ -455,12 +455,16 @@ def _hdr(h, w, seed):
 
 @pytest.mark.parametrize("shape", [(67, 45), (33, 31), (5, 4)])
 def test_blur_down(shape):
+    """One mip step (on the card a phase of the bloom chain's launch)."""
     a = _hdr(*shape, 1)
     want = ref_bloom._downsample_v(ref_bloom._blur_h(_rv(a)))
-    got = bloom.blur_down(_pv(a))
+    got = bloom.blur_down_plain(_pv(a))
     assert _np(got).shape == (3, shape[0] // 2, (shape[1] + 1) // 2)
     _close(_np(got), want, 1e-6, atol=1e-7)
-    assert np.array_equal(_np(got), _np(bloom.blur_down_plain(_pv(a))))
+    # the chain's mip 0 is this step on the bright pass of its input
+    mips, _, _ = bloom.bloom_chain(_pv(a))
+    assert np.array_equal(_np(mips[0]), _np(bloom.blur_down_plain(
+        bloom.bright_pass(_pv(a)))))
 
 
 @pytest.mark.parametrize("shape", [(67, 45), (48, 64), (3, 7)])
