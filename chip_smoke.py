@@ -38,6 +38,23 @@ Phases (any failure raises, so the exit code is non-zero):
      contract (render/shade.py: a dead lane's record is unspecified);
      shade_scatter also on the plain stage's own inputs, equal on every
      lane; the K3 kernels' registers and resident blocks a SM;
+  3c. K3's HDRI instantiations (shade_nee<true>, shade_scatter<true>: the
+     HDRI sky fetch, env NEE through the alias table, the env MIS) against
+     their plain stages on the "hdri" scene (the bench scene at 1920x1080
+     with a directional and an area light besides its four, under a seeded
+     4096x2048 float32 map at rotation 0.7: app/bench_scene.py
+     build_hdri_scene): the wavefronts of bounces 0-3, split off and on,
+     each stage and K2 on the env shadow rays timed beside its bound; random
+     lanes of every lobe under maps at rotations 0.7 and -3.0 with
+     directions at the map's wrap (once ragged with the tables in global
+     memory), and all dead: PCG states bit-exact, the env record under its
+     contract (t_max equal on every lane, the rest where NEE, with the
+     share of bit-exact lanes a field), shade_scatter equal to its plain
+     stage on the same inputs on every lane; K2 on the env shadow rays
+     against its plain walk on a sample; the registers and blocks a SM of
+     both instantiations (those without env NEE held to what they had
+     before the HDRI one existed: shade_nee 64 and 4, shade_scatter 64 and
+     4 at bounce 0, 80 and 3 after);
   4. the bench path: Scene.render_frame() on the bench scene at 1920x1080,
      4 spp, depth 4, ~1M triangles, post stack off — one warm-up and three
      timed frames, with the kernels' launch counts taken over exactly that
@@ -70,8 +87,16 @@ Phases (any failure raises, so the exit code is non-zero):
      queued (two readings) beside their bounds, then captured in a CUDA
      graph and replayed bit-identically; the temporal and a-trous kernels'
      tiles, registers and occupancy;
-  7. end to end on small inputs: the bench frame and three balanced frames
-     rendered on the GPU and on the CPU (plain versions) must agree.
+  7. the hdri scene's balanced path: one warm-up and five timed frames
+     with the camera orbiting, launch counts taken over the timed frames
+     (a bounce: K1, K2 twice, the HDRI instantiations of K3, never the
+     others), then one profiled frame;
+  8. the ultra preset on the hdri scene (1920x1080, 128 spp in eight
+     chunks of 16, depth 32, roulette from bounce 8, bloom): one profiled
+     warm-up frame and one timed frame, with its launches;
+  9. end to end on small inputs: the bench frame, three balanced frames and
+     an hdri frame rendered on the GPU and on the CPU (plain versions) must
+     agree.
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
@@ -669,18 +694,6 @@ def compare_walk(tag, got, want, stats):
     stats["max_abs_err"] = max(stats["max_abs_err"], max_err)
 
 
-def walk_bound(geom, n: int, live: int, plane_bytes: int,
-               shadow: bool) -> dict:
-    """The bound of one walk over a wavefront of ``n`` rays of which
-    ``live`` are live: the ray plane read for every ray (``plane_bytes``: 1
-    for the alive flags, 4 for t_max), origin and direction (24 bytes) for
-    the live rays only (a dead lane never loads them), the answers written
-    for every ray (K1: t, u, v, slot, mesh; K2: a byte), and the BVH's node
-    and triangle rows read once."""
-    return bound(n * (plane_bytes + (1 if shadow else 20)) + live * 24
-                 + nbytes(geom.node_rows, geom.tri_rows))
-
-
 def walk_stats(rays, stats):
     return stats["any_hit" if rays[0] == "shadow" else "closest_hit"]
 
@@ -742,6 +755,7 @@ def check_full_walks(full, rng, card, stats):
     wavefront."""
     import torch
     from ptrt_tpu_torch.render import traverse
+    from ptrt_tpu_torch.tools.stages import walk_bound
     from ptrt_tpu_torch.tools.walks import late_bounce, wavefronts
 
     g = full._geom
@@ -856,8 +870,10 @@ def hold(what, got, want, lanes, tiers, stats) -> None:
     if err.numel() == 0:
         return
     for rtol, share in tiers:
-        ok = float((err <= rtol * mag + 1e-6).double().mean())
-        assert ok >= share, (what, rtol, ok, share)
+        # counted, not averaged: a mean on the card multiplies by 1/n
+        ok = int((err <= rtol * mag + 1e-6).sum())
+        assert ok >= share * err.numel(), (what, rtol, ok, err.numel(),
+                                           share)
     stats["max_abs_err"] = max(stats["max_abs_err"], float(err.max()))
 
 
@@ -904,6 +920,8 @@ def compare_nee(tag, ka, pa, kn, pn, bounce, stats) -> None:
             assert torch.equal(getattr(ka, name), getattr(pa, name)), name
         hold(f"{tag} first_normal", ka.first_normal, pa.first_normal, ok,
              DIRECTION, stats)
+    if pn.env_t is not None:
+        compare_env(tag, kn, pn, ok, stats)
     if pn.shadow_t is None:
         return
     nee = ok & pn.do_nee
@@ -921,6 +939,44 @@ def compare_nee(tag, ka, pa, kn, pn, bounce, stats) -> None:
         if getattr(pn, name) is not None:
             hold(f"{tag} {name}", getattr(kn, name), getattr(pn, name), nee,
                  VALUE, stats)
+
+
+ENV_FIELDS = ("env_o", "env_d", "env_t", "env_pdf", "env_w", "env_c",
+              "env_cs")
+
+
+def compare_env(tag, kn, pn, ok, stats) -> None:
+    """The env sample's record of shade_nee's HDRI instantiation against the
+    plain stage's under the contract: the t_max plane equal on every lane
+    (1e28 or -1), the rest on the lanes that cast a ray, where the sampled
+    directions agree (on SHADE_AGREE of the lanes) held to the tiers, and
+    the share of those lanes bit-exact kept a field in
+    ``stats["env_exact"]`` as [exact lanes, lanes]."""
+    bad_t = exact("env_t", kn.env_t, pn.env_t)
+    assert bad_t == 0, (tag, "env t_max differs on", bad_t)
+    nee = ok & pn.do_nee
+    err, mag = lane_err(kn.env_d, pn.env_d)
+    diverged = nee & ~(err <= 1e-3 * mag + 1e-6)
+    share = 1.0 - float((diverged | ~ok).double().mean())
+    assert share >= SHADE_AGREE, (tag, "env samples agree on", share)
+    stats["env_diverged"] = stats.get("env_diverged", 0) + int(
+        diverged.sum())
+    nee &= ~diverged
+    hold(f"{tag} env L", kn.env_d, pn.env_d, nee, DIRECTION, stats)
+    hold(f"{tag} env shadow origin", kn.env_o, pn.env_o, nee, DIRECTION,
+         stats)
+    for name in ("env_pdf", "env_w", "env_c", "env_cs"):
+        if getattr(pn, name) is not None:
+            hold(f"{tag} {name}", getattr(kn, name), getattr(pn, name), nee,
+                 VALUE, stats)
+    tally = stats.setdefault("env_exact", {})
+    lanes = int(nee.sum())
+    for name in ENV_FIELDS:
+        if getattr(pn, name) is not None:
+            got = tally.setdefault(name, [0, 0])
+            got[0] += lanes - exact(name, getattr(kn, name),
+                                    getattr(pn, name), nee)
+            got[1] += lanes
 
 
 def compare_scatter(tag, ka, pa, stats) -> None:
@@ -948,6 +1004,11 @@ def compare_scatter(tag, ka, pa, stats) -> None:
     # a lane that dies keeps its old throughput in the kernel
     hold(f"{tag} throughput", ka.throughput, pa.throughput, ok & pa.alive,
          AT_PEAK, stats)
+    if pa.prev_pdf is not None:  # the env MIS carries, where the lane lives
+        agree(f"{tag} prev_did_nee", ka.prev_did_nee, pa.prev_did_nee, stats,
+              where=pa.alive)
+        hold(f"{tag} prev_pdf", ka.prev_pdf, pa.prev_pdf, ok & pa.alive,
+             AT_PEAK, stats)
 
 
 def exact(what, got, want, lanes=None) -> int:
@@ -969,24 +1030,28 @@ def exact(what, got, want, lanes=None) -> int:
 
 
 def exact_scatter(tag, state, rec, occluded, mats, bounce, rr_start,
-                  stats) -> None:
+                  stats, env_occluded=None) -> None:
     """shade_scatter's kernel and its plain stage on the same state, NEE
-    record and shadow answer: every plane, flag and PCG state equal on
-    every lane, the throughput on the lanes alive after the stage (the
-    record's contract: a lane that dies keeps its old throughput in the
-    kernel)."""
+    record and shadow answers: every plane, flag and PCG state equal on
+    every lane, the throughput and the env MIS carries on the lanes alive
+    after the stage (the record's contract: a lane that dies keeps its old
+    throughput in the kernel, and its carries where it died in the
+    roulette)."""
     from ptrt_tpu_torch.render import shade
 
     ka, pa = state.clone(), state.clone()
-    shade.shade_scatter(ka, rec, occluded, mats, bounce, True, rr_start)
+    shade.shade_scatter(ka, rec, occluded, mats, bounce, True, rr_start,
+                        env_shadow=env_occluded)
     shade.shade_scatter_plain(pa, rec, occluded, mats, bounce, True,
-                              rr_start)
+                              rr_start, env_shadow=env_occluded)
     bad = {name: exact(name, getattr(ka, name), getattr(pa, name))
            for name in ("rng", "alive", "ray_spec", "prev_was_specular",
                         "path_still_specular", "o", "d", "accum", "diffuse",
                         "specular", "emission")
            if getattr(pa, name) is not None}
-    bad["throughput"] = exact("throughput", ka.throughput, pa.throughput,
+    for name in ("throughput", "prev_pdf", "prev_did_nee"):
+        if getattr(pa, name) is not None:
+            bad[name] = exact(name, getattr(ka, name), getattr(pa, name),
                               pa.alive)
     stats["exact_lanes"] += pa.alive.numel()
     stats["inexact"] += sum(bad.values())
@@ -995,11 +1060,13 @@ def exact_scatter(tag, state, rec, occluded, mats, bounce, rr_start,
 
 
 def shade_bounces(tag, geom, closest, occluded, mats, lights, n_lights, sky,
-                  ps, bounces, rr_start, stats, times=None):
+                  ps, bounces, rr_start, stats, times=None,
+                  env_occluded=None):
     """Run ``bounces`` of the shading stages, kernel and plain on the same
     inputs (the plain stage's output feeds the next bounce), comparing each.
     ``closest(ps)`` gives K1's answer, ``occluded(record)`` the shadow
-    walk's.  With ``times`` (a dict), the stages of every bounce are timed
+    walk's, ``env_occluded(record)`` the env shadow walk's (a state with env
+    NEE).  With ``times`` (a dict), the stages of every bounce are timed
     at this width, each beside the bound of its own wavefront:
     ``times[stage][bounce]``."""
     from ptrt_tpu_torch.render import shade
@@ -1019,11 +1086,19 @@ def shade_bounces(tag, geom, closest, occluded, mats, lights, n_lights, sky,
         occl, occl_k = occluded(pn), occluded(kn)
         agree(f"{tag} bounce {bounce} occluded", occl_k, occl,
               stats["shade_nee"])
+        env_occl = env_occl_k = None
+        if ps.env_nee:
+            env_occl, env_occl_k = env_occluded(pn), env_occluded(kn)
+            agree(f"{tag} bounce {bounce} env occluded", env_occl_k,
+                  env_occl, stats["shade_nee"])
         before = pa.clone()
         exact_scatter(f"{tag} bounce {bounce} scatter", before, pn, occl,
-                      mats, bounce, rr_start, stats["shade_scatter"])
-        shade.shade_scatter(ka, kn, occl_k, mats, bounce, True, rr_start)
-        shade.shade_scatter_plain(pa, pn, occl, mats, bounce, True, rr_start)
+                      mats, bounce, rr_start, stats["shade_scatter"],
+                      env_occl)
+        shade.shade_scatter(ka, kn, occl_k, mats, bounce, True, rr_start,
+                            env_shadow=env_occl_k)
+        shade.shade_scatter_plain(pa, pn, occl, mats, bounce, True, rr_start,
+                                  env_shadow=env_occl)
         compare_scatter(f"{tag} bounce {bounce} scatter", ka, pa,
                         stats["shade_scatter"])
         if times is not None:
@@ -1032,10 +1107,11 @@ def shade_bounces(tag, geom, closest, occluded, mats, lights, n_lights, sky,
             nee_p = lambda s: shade.shade_nee_plain(s, geom, k1, mats, lights,
                                                     n_lights, sky, bounce)
             sca = lambda s: shade.shade_scatter(s, kn, occl_k, mats, bounce,
-                                                True, rr_start)
-            sca_p = lambda s: shade.shade_scatter_plain(s, pn, occl, mats,
-                                                        bounce, True,
-                                                        rr_start)
+                                                True, rr_start,
+                                                env_shadow=env_occl_k)
+            sca_p = lambda s: shade.shade_scatter_plain(
+                s, pn, occl, mats, bounce, True, rr_start,
+                env_shadow=env_occl)
 
             def fresh(state, k):  # checked once, as trace_path does
                 out = [state.clone() for _ in range(k)]
@@ -1043,14 +1119,22 @@ def shade_bounces(tag, geom, closest, occluded, mats, lights, n_lights, sky,
                     shade.check_state(s, mats)
                 return out
 
+            if ps.env_nee:  # K2 on this bounce's env shadow rays
+                live = int((kn.env_t > 0).sum())
+                times.setdefault("env_any_hit", {})[bounce] = {
+                    "ms": cuda_ms(lambda: env_occluded(kn), 10),
+                    "live": live,
+                    **stages.walk_bound(geom, kn.env_t.numel(), live, 4,
+                                        True)}
             for name, fn, fn_p, pre, moved, ops in (
                     ("shade_nee", nee, nee_p, ps,
                      stages.shade_bytes("shade_nee", ps, before, pn, k1=k1,
-                                        first=bounce == 0),
+                                        first=bounce == 0, sky=sky),
                      stages.SHADE_NEE_OPS_LANE * ps.alive.numel()),
                     ("shade_scatter", sca, sca_p, before,
                      stages.shade_bytes("shade_scatter", before, pa, pn,
-                                        occluded=occl),
+                                        occluded=occl,
+                                        env_occluded=env_occl),
                      OPS_PER_ITEM["shade_scatter"] * int(before.alive.sum()))):
                 direct, packed = stages.live_warps(
                     pre.alive, shade.scatter_launch(
@@ -1071,12 +1155,12 @@ def shade_bounces(tag, geom, closest, occluded, mats, lights, n_lights, sky,
     return ps
 
 
-def random_lanes(dev, n, seed, n_mats):
+def random_lanes(dev, n, seed, n_mats, misses=0):
     """``n`` lanes of random hits on per-lane triangles, with ``n_mats``
     random materials of every lobe (sheen, iridescence, clear coat, glass,
     metal, emission) and every light type, for the lobes the bench scene
-    lacks.  Returns (geometry, closest(ps), materials, lights, n_lights,
-    sky, state)."""
+    lacks; the first ``misses`` lanes miss.  Returns (geometry,
+    closest(ps), materials, lights, n_lights, sky, state)."""
     import types
 
     import numpy as np
@@ -1134,7 +1218,9 @@ def random_lanes(dev, n, seed, n_mats):
     ps.alive = torch.tensor(r.random(n) < 0.9, device=dev)
     ps.prev_was_specular = torch.tensor(r.random(n) < 0.5, device=dev)
     ps.path_still_specular = torch.tensor(r.random(n) < 0.3, device=dev)
-    slot = torch.tensor(np.where(r.random(n) < 0.1, -1, np.arange(n)),
+    slot = torch.tensor(np.where((r.random(n) < 0.1) | (np.arange(n)
+                                                         < misses),
+                                 -1, np.arange(n)),
                         dtype=torch.int32, device=dev)
     ids = torch.tensor(r.integers(0, len(mats), n), dtype=torch.int32,
                        device=dev)
@@ -1252,6 +1338,177 @@ def check_shade(full, dev, card):
     return stats
 
 
+def edge_directions(n: int, rot: float):
+    """``n`` unit directions whose map coordinate u sits just above 0 and
+    just below 1 at rotation ``rot`` (where u wraps), over the map's rows."""
+    import numpy as np
+
+    phi = -np.pi - rot + np.tile([1e-6, -1e-6, 3e-4, -3e-4],
+                                 -(-n // 4))[:n] * 2 * np.pi
+    th = np.linspace(0.05, np.pi - 0.05, n)
+    return np.stack([np.sin(th) * np.cos(phi), np.cos(th),
+                     np.sin(th) * np.sin(phi)], 1)
+
+
+def env_lanes(dev, n, seed, n_mats, rot):
+    """``random_lanes`` with env NEE: a seeded 256x512 HDRI at rotation
+    ``rot``, random MIS carries, and the first 256 lanes missing along
+    ``edge_directions``."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch.app.hdri import synthetic_env
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.render.sky import SkyConfig
+
+    edge = min(256, n)
+    geom, hits, mats, lights, n_lights, _, ps = random_lanes(
+        dev, n, seed, n_mats, misses=edge)
+    r = np.random.default_rng(seed + 1)
+    ps.prev_pdf = torch.tensor(r.exponential(1.0, n), dtype=torch.float32,
+                               device=dev)
+    ps.prev_did_nee = torch.tensor(r.random(n) < 0.6, device=dev)
+    d = np.stack([c.cpu().numpy() for c in (ps.d.x, ps.d.y, ps.d.z)], 1)
+    d[:edge] = edge_directions(edge, rot)
+    ps.d = Vec3(*[torch.tensor(d[:, k], dtype=torch.float32, device=dev)
+                  for k in range(3)])
+    sky = SkyConfig.hdri(synthetic_env(256, 512, seed=seed), rot, device=dev)
+    return geom, hits, mats, lights, n_lights, sky, ps
+
+
+def check_hdri(hdri, dev, card, rng):
+    """Phase 3c: K3's HDRI instantiations (shade_nee<true>,
+    shade_scatter<true>) against their plain stages on the 1080p "hdri"
+    scene's wavefronts of bounces 0-3, split off and on (each stage and the
+    env K2 walk timed at each bounce beside its bound), and on random lanes
+    of every lobe under HDRIs at rotations 0.7 and -3.0 with edge
+    directions (once ragged with the tables in global memory) and all dead;
+    K2 on the env shadow rays against its plain walk on a sample.  Returns
+    (stats by kernel, times by split)."""
+    import ctypes
+
+    import torch
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.render import pipeline, shade, traverse
+
+    stats = {k: {"max_abs_err": 0.0, "flag_mismatches": 0, "diverged": 0,
+                 "lanes": 0} for k in ("shade_nee", "shade_scatter")}
+    stats["shade_scatter"].update(exact_lanes=0, inexact=0)
+    times = {False: {}, True: {}}
+    sc, g = hdri, hdri._geom
+    sky = sc.sky()
+    assert sky.has_env_sampling
+    closest = lambda ps: traverse.closest_hit_live(g, ps.o, ps.d, ps.alive)
+    occluded = lambda rec: traverse.any_hit(g, rec.shadow_o, rec.shadow_d,
+                                            rec.shadow_t)
+    env_occluded = lambda rec: traverse.any_hit(g, rec.env_o, rec.env_d,
+                                                rec.env_t)
+    for split in (False, True):
+        st, ray = pipeline.camera_rays(sc.camera, sc._rng_state, 0, 0,
+                                       sc._blue_noise)
+        ps = shade.PathState.start(ray, st, split, env_nee=True)
+        shade_bounces(f"hdri split={split}", g, closest, occluded,
+                      sc._mat_table, sc._light_table, len(sc.lights), sky, ps,
+                      tuple(range(DEPTH)),
+                      sc.perf.russian_roulette_start_bounce, stats,
+                      times[split], env_occluded)
+        del ps
+        torch.cuda.empty_cache()
+    for tag, lanes, n_mats, dead, rot in (
+            ("hdri random lanes, rotation 0.7", SHADE_RANDOM_LANES, 24,
+             False, 0.7),
+            ("hdri random lanes, rotation -3.0, ragged, tables in global "
+             "memory", SHADE_RANDOM_LANES // 4 + 37, 400, False, -3.0),
+            ("hdri random lanes, all dead", SHADE_RANDOM_LANES, 24, True,
+             0.0)):
+        geom, hits, mats, lights, n_lights, env_sky, ps = env_lanes(
+            dev, lanes, 9, n_mats, rot)
+        if dead:
+            ps.alive = torch.zeros_like(ps.alive)
+        mask = lambda rec, n=lanes, k=3: torch.arange(n, device=dev) % k == 0
+        env_mask = lambda rec, n=lanes: torch.arange(n, device=dev) % 4 == 1
+        shade_bounces(tag, geom, hits, mask, mats, lights, n_lights, env_sky,
+                      ps, (2, 3) if dead else (0, 2), 1, stats,
+                      env_occluded=env_mask)
+    # K2 on bounce 0's env shadow rays: a sample against the plain walk, the
+    # full wavefront held at the sampled rays
+    st, ray = pipeline.camera_rays(sc.camera, sc._rng_state, 0, 0,
+                                   sc._blue_noise)
+    ps = shade.PathState.start(ray, st, False, env_nee=True)
+    rec = shade.shade_nee(ps, g, closest(ps), sc._mat_table, sc._light_table,
+                          len(sc.lights), sky, 0)
+    rays = ("shadow", rec.env_o, rec.env_d, rec.env_t)
+    n = rec.env_t.numel()
+    idx = torch.from_numpy(rng.choice(n, min(n, SAMPLE_RAYS),
+                                      replace=False)).to(dev)
+    walk_st = {"mismatches": 0, "max_abs_err": 0.0}
+    sample = take(rays, idx)
+    want = walk_plain(g, sample)
+    compare_walk("hdri env shadow rays, bounce 0, sample", walk(g, sample),
+                 want, walk_st)
+    compare_walk("hdri env shadow rays, bounce 0, full width at the sampled "
+                 "rays", tuple(x[idx] for x in walk(g, rays)), want, walk_st)
+    walk_st["sample_ms"] = cuda_ms(lambda: walk(g, sample), 20)
+    walk_st["plain_ms"] = cuda_ms(lambda: walk_plain(g, sample), 1)
+    stats["env_any_hit"] = walk_st
+    info = shade.kernel_info(sc._mat_table, sc._light_table)
+    info_h = shade.kernel_info(sc._mat_table, sc._light_table, hdri=True)
+    for name, got in {**info, **info_h}.items():
+        log(f"  {name}: {got['registers']} registers, {got['local_bytes']} "
+            f"bytes of local memory a thread, {got['blocks_per_sm']} "
+            f"resident blocks of {got['threads']} threads "
+            f"({got['block_lanes']} lanes a block) a SM")
+    # one predicate picks both kernels' instantiation: shade_nee refuses an
+    # HDRI map without env NEE and env NEE without a map (rc 1, invalid
+    # value) before it launches anything
+    for env_map, env_nee in ((sc._mat_table.packed.data_ptr(), 0), (None, 1)):
+        a = shade.ShadeArgs(n=0, env_map=env_map, env_nee=env_nee)
+        rc = kernels.get_lib().ptrt_shade_nee(ctypes.addressof(a),
+                                              kernels.stream_ptr(dev))
+        assert rc == 1, (env_map, env_nee, rc)
+    # the instantiations without env NEE keep the registers and blocks they
+    # had before the HDRI instantiation existed
+    for name, regs, blocks in (("shade_nee", 64, 4), ("shade_scatter", 64, 4),
+                               ("shade_scatter from bounce 1", 80, 3)):
+        got = info[name]
+        assert (got["registers"], got["blocks_per_sm"]) == (regs, blocks), (
+            name, got)
+    for k in ("shade_nee", "shade_scatter"):
+        s = stats[k]
+        s.update(info_h[f"{k} (hdri)"])
+        if k == "shade_scatter":
+            s["from_bounce_1"] = info_h["shade_scatter (hdri) from bounce 1"]
+        exact_share = {f: round(a / max(b, 1), 6)
+                       for f, (a, b) in s.get("env_exact", {}).items()}
+        s["env_exact_share"] = exact_share
+        log(f"  {k} (hdri): PCG states bit-exact; flags differ on "
+            f"{s['flag_mismatches']} lanes, lobes diverge on {s['diverged']} "
+            f"of {s['lanes']} lane-stages, env samples on "
+            f"{s.get('env_diverged', 0)}; max |err| on agreeing lanes "
+            f"{s['max_abs_err']:.3g}; bit-exact share of the env record's "
+            f"NEE lanes: {exact_share}")
+    log(f"  shade_scatter (hdri) on the plain stage's own inputs: equal on "
+        f"every lane of {stats['shade_scatter']['exact_lanes']} lane-stages "
+        f"(planes, flags, PCG states; the throughput and the MIS carries "
+        f"where the lane lives on)")
+    for split in (False, True):
+        for b in range(DEPTH):
+            line = []
+            for k in ("shade_nee", "shade_scatter"):
+                t = times[split][k][b]
+                kms = ("not measured" if t["kernel_ms"] is None
+                       else f"{t['kernel_ms']:.4f}")
+                line.append(f"{k} (hdri) queued {t['queued_ms']:.4f} ms, "
+                            f"kernel {kms} vs plain {t['plain_ms']:.2f} ms, "
+                            f"bound {t['bound_ms']:.4f} ms ({t['alive']} "
+                            f"alive)")
+            w = times[split]["env_any_hit"][b]
+            line.append(f"K2 env shadow rays {w['ms']:.4f} ms ({w['live']} "
+                        f"live), bound {w['bound_ms']:.4f} ms")
+            log(f"  hdri {W}x{H} split={split} bounce {b}: "
+                + "; ".join(line) + f" [{card}]")
+    return stats, times
+
+
 def bounce_launches(names, samples, depth):
     """Kernel launches from each of a sample's K1 launches to its next (one
     bounce), in a profiled frame's timeline."""
@@ -1281,7 +1538,9 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import ptrt_tpu_torch
     from ptrt_tpu_torch import kernels, native
-    from ptrt_tpu_torch.app.bench_scene import build_bench_scene
+    from ptrt_tpu_torch.app.bench_scene import (HDRI_HW, HDRI_ROTATION,
+                                                build_bench_scene,
+                                                build_hdri_scene)
     from ptrt_tpu_torch.build import BUILD_DIR
     from ptrt_tpu_torch.core.vec import Vec3
     from ptrt_tpu_torch.render import pipeline
@@ -1403,6 +1662,21 @@ def main() -> int:
     del hdr
     torch.cuda.empty_cache()
     shade_stats = check_shade(full, dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 3c. K3's HDRI instantiations on the "hdri" scene ---------------------
+    t0 = time.time()
+    hdri = balanced(build_hdri_scene(W, H, target_tris=TRIS, device=dev))
+    hdri._ensure_device_state()
+    hdri_sky = hdri.sky()
+    torch.cuda.synchronize()
+    hdri_setup_s = time.time() - t0
+    log(f"[hdri] {W}x{H} bench scene + a directional and an area light + a "
+        f"{HDRI_HW[1]}x{HDRI_HW[0]} float32 map at rotation "
+        f"{HDRI_ROTATION} (importance map {hdri_sky.env_sample_hw[1]}x"
+        f"{hdri_sky.env_sample_hw[0]}): set-up {hdri_setup_s:.2f} s, "
+        f"{len(hdri.lights)} lights")
+    hstats, htimes = check_hdri(hdri, dev, card, rng)
     torch.cuda.empty_cache()
     # shade_scatter's issue time at each bounce if every warp its live lanes
     # occupy ran the kernel's whole static SASS (every lobe: more than a
@@ -1586,7 +1860,89 @@ def main() -> int:
     del bufs, state, state0, mv
     torch.cuda.empty_cache()
 
-    # -- 7. end to end on small inputs: GPU kernels vs CPU plain -------------
+    # -- 7. the hdri scene's balanced path -----------------------------------
+    orbit(hdri, 0)
+    hdri.render_frame()
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    hdri_s, hdri_rays = [], []
+    for k in range(1, BAL_FRAMES + 1):
+        orbit(hdri, k)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = hdri.render_frame()
+        torch.cuda.synchronize()
+        hdri_s.append(time.time() - t0)
+        hdri_rays.append(int(hdri.last_frame.rays_traced))
+    hdri_launches = dict(kernels.launches)
+    hdri_ms = 1e3 * sum(hdri_s) / len(hdri_s)
+    log(f"[hdri] {W}x{H} balanced, 1 spp depth {BAL_DEPTH}, env NEE, "
+        f"{ORBIT_DEG} deg orbit per frame: frame {hdri_ms:.1f} ms (frames "
+        f"{[round(1e3 * s, 1) for s in hdri_s]} ms), {hdri_rays[-1]} "
+        f"rays/frame, {sum(hdri_rays) / sum(hdri_s) / 1e6:.1f} Mrays/s "
+        f"[{card}]")
+    log(f"[hdri] launches over the {BAL_FRAMES} timed frames: "
+        f"{hdri_launches}")
+    # a bounce: K1, K2 on the env and on the light shadow rays, the HDRI
+    # instantiations of both K3 stages and never the others
+    per_frame = {"closest_hit": BAL_DEPTH, "any_hit": 2 * BAL_DEPTH,
+                 "shade_nee (hdri)": BAL_DEPTH,
+                 "shade_scatter (hdri)": BAL_DEPTH, "svgf_temporal": 1,
+                 "svgf_atrous": 7, "tonemap_rgb8": 1, "bloom_chain": 1,
+                 "shade_nee": 0, "shade_scatter": 0}
+    for k, n in per_frame.items():
+        assert hdri_launches.get(k, 0) == n * BAL_FRAMES, (k, hdri_launches)
+    assert img.shape == (H, W, 3) and img.std() > 1.0, "hdri image"
+    for v in (hdri.last_frame.color, hdri.last_frame.diffuse,
+              hdri.last_frame.specular):
+        assert all(bool(torch.isfinite(c).all()) for c in (v.x, v.y, v.z))
+    orbit(hdri, BAL_FRAMES + 1)
+    hdri_prof = stages.frame_profile(hdri)
+    assert hdri_prof["names"] is not None, "the profiler saw no kernels"
+    log(f"[hdri] one profiled balanced frame: device kernel time "
+        f"{hdri_prof['device_ms']:.3f} ms in {hdri_prof['launches']} kernel "
+        f"launches (busy share {hdri_prof['device_ms'] / hdri_ms:.3f} of "
+        f"the unprofiled frame), the walks {hdri_prof['walk_ms']:.3f} ms; "
+        f"top kernels (ms) {hdri_prof['top']} [{card}]")
+
+    # -- 8. the ultra preset on the hdri scene --------------------------------
+    ultra = hdri
+    ultra.set_performance_preset("ultra")
+    up = ultra.perf
+    assert (up.samples_per_pixel, up.max_bounce_depth,
+            up.russian_roulette_start_bounce) == (128, 32, 8)
+    assert up.enable_bloom and not up.enable_denoiser
+    ultra_prof = stages.frame_profile(ultra)  # the warm-up frame, profiled
+    assert ultra_prof["names"] is not None, "the profiler saw no kernels"
+    kernels.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img = ultra.render_frame()
+    torch.cuda.synchronize()
+    ultra_s = time.time() - t0
+    ultra_launches = dict(kernels.launches)
+    ultra_rays = int(ultra.last_frame.rays_traced)
+    log(f"[ultra] {W}x{H} 128 spp depth 32, roulette from bounce 8, bloom, "
+        f"the hdri scene: frame {1e3 * ultra_s:.0f} ms, {ultra_rays} rays "
+        f"({ultra_rays / ultra_s / 1e6:.1f} Mrays/s); the profiled warm-up "
+        f"frame: device {ultra_prof['device_ms']:.1f} ms in "
+        f"{ultra_prof['launches']} kernel launches (busy share "
+        f"{ultra_prof['device_ms'] / (1e3 * ultra_s):.3f}), the walks "
+        f"{ultra_prof['walk_ms']:.1f} ms; top kernels (ms) "
+        f"{ultra_prof['top']} [{card}]")
+    log(f"[ultra] launches of the timed frame: {ultra_launches}")
+    for k, n in (("closest_hit", 128 * 32), ("any_hit", 2 * 128 * 32),
+                 ("shade_nee (hdri)", 128 * 32),
+                 ("shade_scatter (hdri)", 128 * 32), ("bloom_chain", 1),
+                 ("tonemap_rgb8", 1)):
+        assert ultra_launches.get(k, 0) == n, (k, ultra_launches)
+    hdr = ultra.last_frame.color
+    assert all(bool(torch.isfinite(c).all()) for c in (hdr.x, hdr.y, hdr.z))
+    assert img.shape == (H, W, 3) and img.std() > 1.0, "ultra image"
+    del hdr
+    torch.cuda.empty_cache()
+
+    # -- 9. end to end on small inputs: GPU kernels vs CPU plain -------------
     cpu_sc = bench_perf(build_bench_scene(64, 48, target_tris=2000,
                                           device="cpu"), 2, 3)
     gpu_sc = bench_perf(build_bench_scene(64, 48, target_tris=2000,
@@ -1632,6 +1988,40 @@ def main() -> int:
     assert oid_agree >= 0.999 and hist_agree >= 0.99
     assert e_rel <= 0.02 and lsb2 >= 0.95
 
+    small_hdri = {}
+    for name, d in (("cpu", torch.device("cpu")), ("gpu", dev)):
+        sc = bench_perf(build_hdri_scene(64, 48, target_tris=2000, device=d,
+                                         env_hw=(256, 512)), 2, 3)
+        small_hdri[name] = (sc, sc.render_frame())
+    (sc_c, img_c), (sc_g, img_g) = small_hdri["cpu"], small_hdri["gpu"]
+    fc, fg = sc_c.last_frame, sc_g.last_frame
+    oid_agree = float((fc.object_id == fg.object_id.cpu()).float().mean())
+    e_c = np.array([float(c.sum()) for c in (fc.color.x, fc.color.y,
+                                              fc.color.z)])
+    e_g = np.array([float(c.sum()) for c in (fg.color.x, fg.color.y,
+                                              fg.color.z)])
+    e_rel = float(np.abs(e_g / e_c - 1.0).max())
+    lsb = float((np.abs(img_c.astype(int) - img_g.astype(int)).max(-1) <= 1)
+                .mean())
+    log(f"[e2e] 64x48 hdri scene (a 512x256 map, env NEE, 6 lights of four "
+        f"types), GPU vs CPU: object id agree {oid_agree:.5f}, energy rel "
+        f"diff {e_rel:.2e}, image within 1 LSB on {lsb:.4f} of pixels, rays "
+        f"{int(fg.rays_traced)} vs {int(fc.rays_traced)}")
+    assert oid_agree >= 0.999 and e_rel <= 0.02 and lsb >= 0.97
+
+    for k in ("shade_nee", "shade_scatter"):
+        hs = hstats[k]
+        hs.update(htimes[True][k][1])  # the table's line: split, bounce 1
+        for key in ("kernel_ms", "queued_ms", "bound_ms", "plain_ms",
+                    "alive"):
+            hs[f"bounce_{key}"] = {
+                f"{'split' if split else 'unsplit'} {b}": t[key]
+                for split in (False, True)
+                for b, t in htimes[split][k].items()}
+    hstats["env_any_hit"]["bounce_ms"] = {
+        f"{'split' if split else 'unsplit'} {b}": t["ms"]
+        for split in (False, True)
+        for b, t in htimes[split]["env_any_hit"].items()}
     src = lambda f: os.path.join("ptrt_tpu_torch", "csrc", f)
     both = lambda k: {"launches": launches.get(k, 0) + bal_launches.get(k, 0),
                       "launches_bench": launches.get(k, 0),
@@ -1664,7 +2054,10 @@ def main() -> int:
          "live_rays": walks["live"]["shadow"], **k2_bound,
          "plain_ms": walks["k2_plain_ms"], "sample_ms": walks["k2_sample_ms"],
          "plain_rays": SAMPLE_RAYS, "library_ms": None,
-         "per_ray": walks["counts"]["shadow"]["any"], **info["any_hit"]},
+         "per_ray": walks["counts"]["shadow"]["any"], **info["any_hit"],
+         "env_shadow_rays": hstats["env_any_hit"],
+         "launches_hdri_balanced": hdri_launches.get("any_hit", 0),
+         "launches_ultra": ultra_launches.get("any_hit", 0)},
         {"name": "tonemap_rgb8", "route": "cuda", "source": src("tonemap.cu"),
          "replaces": "ptrt_tpu/render/pipeline.py:181",
          **both("tonemap_rgb8"), "max_abs_err": k6_err,
@@ -1714,6 +2107,23 @@ def main() -> int:
            "redesigned": True,
            "earlier": "PERF.md keeps the times of the design before"}
           for k in ("shade_nee", "shade_scatter")],
+        *[{"name": f"{k} (hdri)", "route": "cuda",
+           "source": src("shade.cu"),
+           "replaces": ("ptrt_tpu/render/integrator.py:326"
+                        if k == "shade_nee" else
+                        "ptrt_tpu/render/integrator.py:375"),
+           "also_replaces": (["ptrt_tpu/render/sky.py:171,215,232",
+                              "ptrt_tpu/render/nee.py:164"]
+                             if k == "shade_nee" else
+                             ["ptrt_tpu/render/integrator.py:431"]),
+           "launches": hdri_launches.get(f"{k} (hdri)", 0)
+           + ultra_launches.get(f"{k} (hdri)", 0),
+           "launches_hdri_balanced": hdri_launches.get(f"{k} (hdri)", 0),
+           "frames_hdri_balanced": BAL_FRAMES,
+           "launches_ultra": ultra_launches.get(f"{k} (hdri)", 0),
+           "frames_ultra": 1, **hstats[k], "library_ms": None,
+           "lanes": W * H, "sass_instructions": sass[k]}
+          for k in ("shade_nee", "shade_scatter")],
     ]}
     # the ranking: device ms a frame that each kernel stands over its bound,
     # summed over the passes and bounces the frames really run (a bench
@@ -1728,6 +2138,10 @@ def main() -> int:
             - shade_stats[k]["bounce_bound_ms"][f"{name} {b}"]
             for b in range(DEPTH))
         over[k] = {"bench": SPP * gap("bench"), "balanced": gap("split")}
+    for k in ("shade_nee", "shade_scatter"):
+        over[f"{k} (hdri)"] = {"hdri balanced": sum(
+            (htimes[True][k][b]["kernel_ms"] or htimes[True][k][b]["queued_ms"])
+            - htimes[True][k][b]["bound_ms"] for b in range(DEPTH))}
     # the small kernels on their queued times, each of two readings: the
     # temporal stage's one launch, the bloom chain's, K6 with the bloom (a
     # balanced frame) and without (a bench frame)

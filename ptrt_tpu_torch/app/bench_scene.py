@@ -2,12 +2,15 @@
 ``ptrt_tpu/app/bench_scene.py``: a 4x4 grid of lat-long spheres and cubes
 with 16 materials over a ground plane, two spot lights and two point
 lights, and a gradient sky.  Triangle count is controlled by
-``target_tris``."""
+``target_tris``.  ``build_hdri_scene`` lights the same scene with an HDRI
+and adds a directional and an area light (the port's "hdri"
+configuration)."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from ptrt_tpu_torch.app.hdri import synthetic_env
 from ptrt_tpu_torch.scene.materials import Material, Materials
 from ptrt_tpu_torch.scene.pt_scene import Scene
 
@@ -61,4 +64,23 @@ def build_bench_scene(width: int, height: int,
                        radius=0.1)
 
     sc.set_camera((0, 1.2, -1.5), (0, 0, 6), fov=60)
+    return sc
+
+
+# the "hdri" configuration's map: a common "4k HDRI" size, 100 MB as float32
+HDRI_HW = (2048, 4096)
+HDRI_ROTATION = 0.7
+
+
+def build_hdri_scene(width: int, height: int, target_tris: int = 1_000_000,
+                     device="cuda", env_hw=HDRI_HW, seed: int = 0) -> Scene:
+    """The bench scene lit by a seeded (H, W) equirect map (``synthetic_env``:
+    a gradient, low-frequency noise, a sun of a few texels at ~1e4) at
+    rotation ``HDRI_ROTATION``, with one directional and one area light
+    besides its two spot and two point lights."""
+    sc = build_bench_scene(width, height, target_tris, device)
+    sc.add_directional_light((0.4, -1.0, 0.3), (1.0, 0.96, 0.9), 1.5)
+    sc.add_area_light((3.0, 4.0, 7.0), (-0.3, -1.0, 0.1), 2.0, 1.0,
+                      (1.0, 0.9, 0.8), 6.0)
+    sc.set_environment_map(synthetic_env(*env_hw, seed=seed), HDRI_ROTATION)
     return sc

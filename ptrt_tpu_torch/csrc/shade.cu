@@ -75,6 +75,22 @@
 // within 3% of 4; the bounce-0 kernel at 3 blocks a SM (70-80 registers)
 // lost 8-14% (PERF.md).
 
+// The HDRI instantiation (template <bool ENV>, launched where the sky is an
+// HDRI, which always comes with env NEE: env_nee set, env_map set; the
+// instantiation without it compiles to the same code as before it existed): also replaces the env parts of integrator.py (:326-345,
+// :375-399, :431-437), render/sky.py sample_env :171, env_pdf_dir :215 and
+// the HDRI sample_sky :232, and render/nee.py sample_env_lighting :164.  A
+// miss fetches the map bilinearly through the read-only cache (the map,
+// 25-100 MB, is never staged), MIS-weighted against the env sampler where
+// the lane drew an env sample at its last hit and did not scatter
+// specularly.  A NEE lane draws its env sample (four PCG numbers, before the
+// light's five) from the alias table and writes the env record; shade_scatter
+// adds the env term before the light's and, where the lane survives its
+// scatter, writes the MIS carries (prev_pdf, prev_nee).  A simple design: a
+// NEE lane runs a second BSDF evaluation and material_pdf, and both HDRI
+// kernels are compiled for 3 blocks a SM (80 registers; shade_scatter's
+// list-driven form spills 32 bytes).  Their times are in PERF.md.
+
 // Float order: this file builds with -fmad=false and follows the plain torch
 // version operation by operation, including how torch on the card rounds
 // scalars: `x / c` for a Python scalar c multiplies by the float reciprocal
@@ -91,7 +107,7 @@ struct ShadeArgs {
     // tables
     const float* mat;          // (n_mats, mat_width) material rows
     const float* lights;       // (n_light_rows, light_width) light rows
-    const float* sky;          // top xyz, bottom xyz, use_sky
+    const float* sky;          // top xyz, bottom xyz, use_sky (, rotation)
     const float* e1[3];        // triangle edges by slot (hit normal)
     const float* e2[3];
     int n_mats, mat_width, n_light_rows, light_width;
@@ -134,6 +150,26 @@ struct ShadeArgs {
     float* nee_s[3];           // the specular half (split only)
     const uint8_t* in_shadow;  // K2's answer (shade_scatter)
     int split, bounce, rr_enabled, rr_start;
+    // the HDRI sky and its env NEE, both on or both off (env_nee 0 and
+    // env_map null: the gradient); env_nee picks the kernels' instantiation
+    const float* env_map;        // (env_map_h, env_map_w, 3) linear HDR
+    const float* env_alias;      // (env_sh * env_sw, 2): keep prob, alias index
+    const float* env_pdf_table;  // (env_sh * env_sw,) solid-angle pdf
+    int env_map_h, env_map_w, env_sh, env_sw;
+    float env_inv_sh, env_inv_sw, env_pi_sh;  // float(1/sh), (1/sw), (pi/sh)
+    int env_nee;
+    // the env MIS carries (PathState), updated in place by shade_scatter
+    float* prev_pdf;
+    uint8_t* prev_nee;
+    // the env sample's record: written by shade_nee, read by shade_scatter
+    float* env_o[3];
+    float* env_l[3];
+    float* env_t;
+    float* env_pdf;
+    float* env_mis;            // mis_weight(env pdf, material_pdf)
+    float* env_c[3];           // unshadowed, clamped (the diffuse half if split)
+    float* env_cs[3];          // the specular half (split only)
+    const uint8_t* in_shadow_env;  // K2's answer for the env shadow rays
 };
 
 namespace {
@@ -146,10 +182,13 @@ constexpr int kScatterLanes = 4;      // lanes a thread from bounce 1 on
 // resident blocks a SM each shade_scatter is compiled for: bounce 0 (64
 // registers) and from bounce 1 on (80)
 constexpr int kScatterB0Blocks = 4, kScatterBlocks = 3;
+// resident blocks a SM the HDRI instantiations of both are compiled for
+constexpr int kEnvBlocks = 3;
 constexpr int kMaxStagedBytes = 48 * 1024;
 constexpr float kPi = F(3.141592653589793);
 constexpr float kTwoPi = F(2.0 * 3.141592653589793);
 constexpr float kInvPi = F(1.0 / 3.141592653589793);  // (1.0 / PI)
+constexpr float kInvTwoPi = F(1.0 / (2.0 * 3.141592653589793));  // 1/TWO_PI
 constexpr float kMinRough = F(0.02);
 constexpr float kMaxBounceWeight = 50.0f;
 constexpr float kMaxNee = 500.0f;
@@ -907,6 +946,100 @@ __device__ __forceinline__ V3 sample_sky(V3 d, const float* sky) {
     return mul(lerp(bottom, top, t), sky[6]);
 }
 
+// -- the HDRI (render/sky.py) ---------------------------------------------------
+//
+// torch.remainder / jnp.mod, which C's fmod and % are not: a negative
+// remainder moves up by the divisor
+__device__ __forceinline__ float rem1(float x) {
+    float r = fmodf(x, 1.0f);
+    if (r != 0.0f && r < 0.0f) r += 1.0f;
+    return r;
+}
+__device__ __forceinline__ int imod(int x, int m) {
+    const int r = x % m;
+    return r < 0 ? r + m : r;
+}
+
+// (u, v) of a direction on the rotated equirect map (sky[7]: the rotation)
+__device__ __forceinline__ void env_uv(const ShadeArgs& a, V3 d, float& u,
+                                       float& v) {
+    const float phi = atan2f(d.z, d.x) + a.sky[7];
+    const float theta = acosf(clampf(d.y, -1.0f, 1.0f));
+    u = rem1((phi + kPi) * kInvTwoPi);
+    v = theta * kInvPi;
+}
+
+__device__ __forceinline__ V3 env_texel(const ShadeArgs& a, int y, int x) {
+    const float* p =
+        a.env_map + (static_cast<long long>(y) * a.env_map_w + x) * 3;
+    return V3{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+}
+
+// the HDRI's radiance along d: bilinear, wrap in u, clamp in v; the map is
+// read through the read-only cache, never staged (25-100 MB)
+__device__ V3 env_sky(const ShadeArgs& a, V3 d) {
+    float u, v;
+    env_uv(a, d, u, v);
+    const int h = a.env_map_h, w = a.env_map_w;
+    const float fx = u * static_cast<float>(w) - F(0.5);
+    const float fy = v * static_cast<float>(h) - F(0.5);
+    const float x0 = floorf(fx), y0 = floorf(fy);
+    const float tx = fx - x0, ty = fy - y0;
+    const int x0i = imod(static_cast<int>(x0), w);
+    const int x1i = imod(x0i + 1, w);
+    const int y0i = min(max(static_cast<int>(y0), 0), h - 1);
+    const int y1i = min(max(y0i + 1, 0), h - 1);
+    const V3 top = lerp(env_texel(a, y0i, x0i), env_texel(a, y0i, x1i), tx);
+    const V3 bot = lerp(env_texel(a, y1i, x0i), env_texel(a, y1i, x1i), tx);
+    return mul(lerp(top, bot, ty), a.sky[6]);
+}
+
+// env_pdf_dir: the solid-angle pdf the env sampler gives direction d
+__device__ float env_pdf_dir(const ShadeArgs& a, V3 d) {
+    float u, v;
+    env_uv(a, d, u, v);
+    const int sh = a.env_sh, sw = a.env_sw;
+    const int tx = min(max(static_cast<int>(u * static_cast<float>(sw)), 0),
+                       sw - 1);
+    const int ty = min(max(static_cast<int>(v * static_cast<float>(sh)), 0),
+                       sh - 1);
+    const float sin_c = sinf((static_cast<float>(ty) + F(0.5)) * a.env_pi_sh);
+    const float sin_t = sqrtf(cmax(1.0f - d.y * d.y, 0.0f));
+    return __ldg(a.env_pdf_table + ty * sw + tx) * sin_c /
+           cmax(sin_t, F(1e-6));
+}
+
+struct EnvSample {
+    V3 l, radiance;
+    float pdf;
+};
+
+// sample_env: four PCG draws (texel pick, alias test, jitter in u and v)
+__device__ EnvSample sample_env(uint32_t& s, const ShadeArgs& a) {
+    const int sh = a.env_sh, sw = a.env_sw, n = sh * sw;
+    const float u1 = uniform(s);
+    const float u2 = uniform(s);
+    const float ju = uniform(s);
+    const float jv = uniform(s);
+    const int k = min(static_cast<int>(u1 * static_cast<float>(n)), n - 1);
+    const float2 row = __ldg(reinterpret_cast<const float2*>(a.env_alias) + k);
+    const int j = u2 < row.x ? k : static_cast<int>(row.y);  // C2: a value
+    const int ty = j / sw;
+    const int tx = j - ty * sw;
+    const float v = (static_cast<float>(ty) + jv) * a.env_inv_sh;
+    const float u = (static_cast<float>(tx) + ju) * a.env_inv_sw;
+    const float theta = v * kPi;
+    const float phi = u * kTwoPi - kPi - a.sky[7];
+    const float sin_t = sinf(theta);
+    EnvSample out;
+    out.l = V3{sin_t * cosf(phi), cosf(theta), sin_t * sinf(phi)};
+    // the texel-centre sin (the tabulated pdf's normalisation)
+    const float sin_c = sinf((static_cast<float>(ty) + F(0.5)) * a.env_pi_sh);
+    out.pdf = __ldg(a.env_pdf_table + j) * sin_c / cmax(sin_t, F(1e-6));
+    out.radiance = env_sky(a, out.l);
+    return out;
+}
+
 // -- the two stages -----------------------------------------------------------
 
 __device__ __forceinline__ const float* mat_row(const ShadeArgs& a,
@@ -942,13 +1075,46 @@ __device__ void nee_sample(const ShadeArgs& a, const float* mat_table,
     }
 }
 
-// A lane dead on entry (from bounce 1 on): its flags, the five PCG draws of
-// the NEE it does not do, t_max = -1.  It reads nothing of K1's answer or
-// the state and writes nothing else of the record.
+// The env sample of lane i and its record (shadow origin, direction, t_max,
+// pdf, MIS weight, the clamped unshadowed contribution); draws the lane's
+// four PCG numbers.
+__device__ void env_sample(const ShadeArgs& a, const float* mat_table,
+                           bool staged, long long i, V3 point, V3 n,
+                           bool front, V3 d, int mesh, uint32_t& s) {
+    const bool split = a.split != 0;
+    const Mat m = fetch_mat(a, mat_table, staged, mesh);
+    const EnvSample es = sample_env(s, a);
+    const V3 offset = dot(n, es.l) > 0.0f ? mul(n, F(1e-4)) : mul(n, F(-1e-4));
+    st3(a.env_o, i, add(point, offset));
+    st3(a.env_l, i, es.l);
+    a.env_t[i] = F(1e28);
+    a.env_pdf[i] = es.pdf;
+    const float scale = 1.0f / cmax(es.pdf, F(1e-12));
+    V3 bd, bs;
+    evaluate_bsdf(n, front, m, es.l, neg(d), split, bd, bs);
+    if (split) {
+        st3(a.env_c, i, clamp_soft(mul(mul(bd, es.radiance), scale), kMaxNee));
+        st3(a.env_cs, i, clamp_soft(mul(mul(bs, es.radiance), scale), kMaxNee));
+    } else {
+        st3(a.env_c, i, clamp_soft(mul(mul(bs, es.radiance), scale), kMaxNee));
+    }
+    a.env_mis[i] = mis_weight(es.pdf, material_pdf(n, front, m, neg(d), es.l));
+}
+
+// A lane dead on entry (from bounce 1 on): its flags, the PCG draws of the
+// NEE it does not do (four of the env sample, five of the light's), the
+// t_max planes = -1.  It reads nothing of K1's answer or the state and
+// writes nothing else of the record.
+template <bool ENV>
 __device__ __forceinline__ void dead_lane(const ShadeArgs& a, long long i,
                                           uint32_t s) {
     a.hit[i] = 0;
     a.do_nee[i] = 0;
+    if (ENV) {
+        skip(s, 4);
+        a.env_t[i] = -1.0f;
+        if (a.n_lights == 0) a.rng[i] = static_cast<long long>(s);
+    }
     if (a.n_lights > 0) {
         skip(s, 5);
         a.rng[i] = static_cast<long long>(s);
@@ -957,7 +1123,10 @@ __device__ __forceinline__ void dead_lane(const ShadeArgs& a, long long i,
 }
 
 // One lane that shade_nee has to shade: alive on entry, or any lane at
-// bounce 0 (whose G-buffer is written on every lane).
+// bounce 0 (whose G-buffer is written on every lane).  ENV: the sky is the
+// HDRI, its term MIS-weighted against env NEE, and the env sample drawn
+// before the light's.
+template <bool ENV>
 __device__ void nee_lane(const ShadeArgs& a, const float* mat_table,
                          const float* light_table, bool staged, long long i,
                          uint32_t s) {
@@ -981,7 +1150,17 @@ __device__ void nee_lane(const ShadeArgs& a, const float* mat_table,
         }
         if (alive_in) {  // sky on miss; the lane dies
             a.alive[i] = 0;
-            const V3 sky_c = mul(sample_sky(d, a.sky), ld3(a.thr, i));
+            V3 sky_c;
+            if (ENV) {
+                sky_c = mul(env_sky(a, d), ld3(a.thr, i));
+                // MIS against the env sampler after a non-specular scatter
+                // from a hit that drew an env sample
+                if (a.prev_nee[i] != 0 && a.prev_spec[i] == 0)
+                    sky_c = mul(sky_c, mis_weight(a.prev_pdf[i],
+                                                  env_pdf_dir(a, d)));
+            } else {
+                sky_c = mul(sample_sky(d, a.sky), ld3(a.thr, i));
+            }
             st3(a.acc, i, add(ld3(a.acc, i), sky_c));
             if (split) {
                 float* const* ch = a.path_spec[i] != 0 ? a.acc_s : a.acc_d;
@@ -1043,6 +1222,18 @@ __device__ void nee_lane(const ShadeArgs& a, const float* mat_table,
         }
     }
     a.do_nee[i] = do_nee;
+    if (ENV) {  // the env sample, before the light's
+        if (do_nee) {
+            env_sample(a, mat_table, staged, i, point, n, front, d, mesh, s);
+        } else {
+            skip(s, 4);
+            a.env_t[i] = -1.0f;
+        }
+        if (!nee_on) {
+            a.rng[i] = static_cast<long long>(s);
+            return;
+        }
+    }
     if (!nee_on) return;
     if (do_nee) {
         nee_sample(a, mat_table, light_table, staged, i, point, n, front, d,
@@ -1055,13 +1246,15 @@ __device__ void nee_lane(const ShadeArgs& a, const float* mat_table,
 }
 
 // A block stages the tables once and takes kNeeChunk neighbouring lanes,
-// kNeeChunk / kNeeThreads to a thread.
-__global__ void __launch_bounds__(kNeeThreads, kNeeBlocks)
+// kNeeChunk / kNeeThreads to a thread.  ENV (the HDRI instantiation) is
+// compiled for fewer resident blocks: its env sample needs more registers.
+template <bool ENV>
+__global__ void __launch_bounds__(kNeeThreads, ENV ? kEnvBlocks : kNeeBlocks)
 shade_nee_kernel(const ShadeArgs a) {
     extern __shared__ float smem[];
     const float *mat_table, *light_table;
     const bool staged = stage_tables(a, smem, mat_table, light_table);
-    const bool nee_on = a.n_lights > 0;
+    const bool nee_on = a.n_lights > 0 || ENV;
     const long long base = static_cast<long long>(blockIdx.x) * kNeeChunk;
     const int lanes = static_cast<int>(
         a.n - base < kNeeChunk ? a.n - base : kNeeChunk);
@@ -1069,16 +1262,18 @@ shade_nee_kernel(const ShadeArgs a) {
         const long long i = base + j;
         const uint32_t s = nee_on ? static_cast<uint32_t>(a.rng[i]) : 0u;
         if (a.bounce == 0 || a.alive[i] != 0)
-            nee_lane(a, mat_table, light_table, staged, i, s);
+            nee_lane<ENV>(a, mat_table, light_table, staged, i, s);
         else
-            dead_lane(a, i, s);
+            dead_lane<ENV>(a, i, s);
     }
 }
 
 // One lane alive on entry to shade_scatter, with its PCG state: MIS and the
-// NEE sum, the scatter, Russian roulette and the ray advance.  It writes a
-// flag only where the plain stage may change it (alive only where the lane
-// dies), and the ray and throughput only where the lane lives on.
+// NEE sums (ENV: the env sample's first), the scatter, Russian
+// roulette and the ray advance.  It writes a flag only where the plain stage
+// may change it (alive only where the lane dies), and the ray and
+// throughput (and the env MIS carries) only where the lane lives on.
+template <bool ENV>
 __device__ void scatter_lane(const ShadeArgs& a, const float* mat_table,
                              bool staged, long long i, uint32_t s) {
     const bool split = a.split != 0;
@@ -1087,9 +1282,28 @@ __device__ void scatter_lane(const ShadeArgs& a, const float* mat_table,
     const bool front = a.front[i] != 0;
     const V3 d = ld3(a.d, i);
     V3 thr = ld3(a.thr, i);
+    bool env_did_nee = false;
+
+    // the env sample with MIS (its weight from shade_nee)
+    if (ENV && a.do_nee[i] != 0) {
+        env_did_nee = true;
+        const float pdf = a.env_pdf[i];
+        if (pdf > 0.0f) {
+            const bool lit = a.in_shadow_env[i] == 0 && pdf > F(1e-12);
+            const float w = a.env_mis[i];
+            V3 env_c = lit ? ld3(a.env_c, i) : v3(0.0f);
+            if (split) {
+                const V3 env_s = lit ? ld3(a.env_cs, i) : v3(0.0f);
+                st3(a.acc_d, i, add(ld3(a.acc_d, i), mul(mul(thr, env_c), w)));
+                st3(a.acc_s, i, add(ld3(a.acc_s, i), mul(mul(thr, env_s), w)));
+                env_c = add(env_c, env_s);
+            }
+            st3(a.acc, i, add(ld3(a.acc, i), mul(mul(thr, env_c), w)));
+        }
+    }
 
     // NEE with MIS
-    if (a.n_lights > 0 && a.do_nee[i] != 0) {
+    if (a.n_lights > 0 && (ENV ? env_did_nee : a.do_nee[i] != 0)) {
         const float pdf = a.pdf_nee[i];
         if (pdf > 0.0f) {
             const bool lit = a.in_shadow[i] == 0;
@@ -1113,6 +1327,10 @@ __device__ void scatter_lane(const ShadeArgs& a, const float* mat_table,
     if (alive) {
         a.prev_spec[i] = sc.is_specular;
         if (!sc.is_specular) a.path_spec[i] = 0;
+        if (ENV) {  // the env MIS carries
+            a.prev_pdf[i] = material_pdf(n, front, m, neg(d), sc.direction);
+            a.prev_nee[i] = env_did_nee;
+        }
     }
 
     // Russian roulette
@@ -1143,10 +1361,11 @@ __device__ void scatter_lane(const ShadeArgs& a, const float* mat_table,
 // and runs the live path: with LANES == 1 (bounce 0) each thread its own
 // lane, else from a list of the block's live lanes (and their PCG states)
 // in shared memory, 32 to a warp.
-template <int LANES>
+template <int LANES, bool ENV>
 __global__ void __launch_bounds__(kScatterThreads,
-                                  LANES == 1 ? kScatterB0Blocks
-                                             : kScatterBlocks)
+                                  ENV ? kEnvBlocks
+                                      : (LANES == 1 ? kScatterB0Blocks
+                                                    : kScatterBlocks))
 shade_scatter_kernel(const ShadeArgs a) {
     constexpr int kChunk = kScatterThreads * LANES;
     extern __shared__ float smem[];
@@ -1201,11 +1420,12 @@ shade_scatter_kernel(const ShadeArgs a) {
     __syncthreads();
     if (LANES == 1) {
         if (live[0])
-            scatter_lane(a, mat_table, staged, base + threadIdx.x, state[0]);
+            scatter_lane<ENV>(a, mat_table, staged, base + threadIdx.x,
+                              state[0]);
     } else {
         for (int k = threadIdx.x; k < n_live; k += kScatterThreads)
-            scatter_lane(a, mat_table, staged, base + live_lane[k],
-                         live_state[k]);
+            scatter_lane<ENV>(a, mat_table, staged, base + live_lane[k],
+                              live_state[k]);
     }
 }
 
@@ -1224,15 +1444,27 @@ int material_bytes(const ShadeArgs* a) {
 int scatter_chunk(const ShadeArgs* a) {
     return kScatterThreads * (a->bounce == 0 ? 1 : kScatterLanes);
 }
+// Both K3 kernels take their HDRI instantiation where env_nee is set;
+// shade_nee refuses an HDRI sky without env NEE and env NEE without the map
+bool env_args_ok(const ShadeArgs* a) {
+    return (a->env_nee != 0) == (a->env_map != nullptr);
+}
 
 }  // namespace
 
 extern "C" int ptrt_shade_nee(const ShadeArgs* args, void* stream) {
+    if (!env_args_ok(args))
+        return static_cast<int>(cudaErrorInvalidValue);
     if (args->n > 0) {
-        const long long blocks = (args->n + kNeeChunk - 1) / kNeeChunk;
-        shade_nee_kernel<<<static_cast<unsigned>(blocks), kNeeThreads,
-                           table_bytes(args),
-                           static_cast<cudaStream_t>(stream)>>>(*args);
+        const unsigned blocks =
+            static_cast<unsigned>((args->n + kNeeChunk - 1) / kNeeChunk);
+        const cudaStream_t s = static_cast<cudaStream_t>(stream);
+        if (args->env_nee)
+            shade_nee_kernel<true><<<blocks, kNeeThreads, table_bytes(args),
+                                     s>>>(*args);
+        else
+            shade_nee_kernel<false><<<blocks, kNeeThreads, table_bytes(args),
+                                      s>>>(*args);
     }
     return static_cast<int>(cudaGetLastError());
 }
@@ -1249,17 +1481,23 @@ extern "C" int ptrt_shade_info(int stage, const ShadeArgs* args, int* regs,
         *threads = kNeeThreads;
         *lanes = kNeeChunk;
         *shared_bytes = table_bytes(args);
-        e = cudaFuncGetAttributes(&attr, shade_nee_kernel);
+        const auto kernel = args->env_nee ? shade_nee_kernel<true>
+                                          : shade_nee_kernel<false>;
+        e = cudaFuncGetAttributes(&attr, kernel);
         if (e == cudaSuccess)
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                per_sm, shade_nee_kernel, kNeeThreads, *shared_bytes);
+                per_sm, kernel, kNeeThreads, *shared_bytes);
     } else {
         *threads = kScatterThreads;
         *lanes = scatter_chunk(args);
         *shared_bytes = material_bytes(args);
-        const auto kernel = args->bounce == 0
-                                ? shade_scatter_kernel<1>
-                                : shade_scatter_kernel<kScatterLanes>;
+        const bool env = args->env_nee != 0;
+        const auto kernel =
+            args->bounce == 0
+                ? (env ? shade_scatter_kernel<1, true>
+                       : shade_scatter_kernel<1, false>)
+                : (env ? shade_scatter_kernel<kScatterLanes, true>
+                       : shade_scatter_kernel<kScatterLanes, false>);
         e = cudaFuncGetAttributes(&attr, kernel);
         if (e == cudaSuccess)
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -1276,13 +1514,20 @@ extern "C" int ptrt_shade_scatter(const ShadeArgs* args, void* stream) {
         const unsigned blocks =
             static_cast<unsigned>((args->n + chunk - 1) / chunk);
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
-        if (args->bounce == 0)
-            shade_scatter_kernel<1><<<blocks, kScatterThreads,
-                                      material_bytes(args), s>>>(*args);
+        const int smem = material_bytes(args);
+        const bool env = args->env_nee != 0;
+        if (args->bounce == 0 && env)
+            shade_scatter_kernel<1, true>
+                <<<blocks, kScatterThreads, smem, s>>>(*args);
+        else if (args->bounce == 0)
+            shade_scatter_kernel<1, false>
+                <<<blocks, kScatterThreads, smem, s>>>(*args);
+        else if (env)
+            shade_scatter_kernel<kScatterLanes, true>
+                <<<blocks, kScatterThreads, smem, s>>>(*args);
         else
-            shade_scatter_kernel<kScatterLanes><<<blocks, kScatterThreads,
-                                                  material_bytes(args), s>>>(
-                *args);
+            shade_scatter_kernel<kScatterLanes, false>
+                <<<blocks, kScatterThreads, smem, s>>>(*args);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,17 @@
 """Wavefront path integrator — counterpart of ``ptrt_tpu/render/integrator.py``
-(``trace_path`` without environment NEE).
+(``trace_path``).
 
 Each bounce is four steps over every lane of the wavefront: the closest-hit
-walk (K1), ``shade_nee``, the NEE shadow walk (K2) and ``shade_scatter``
-(``render/shade.py``; on the card the two shading stages are the
-hand-written K3 kernels).  Terminated lanes stay in the wavefront as dead
+walk (K1), ``shade_nee``, the NEE shadow walks (K2: the env sample's rays
+with env NEE, then the light's) and ``shade_scatter`` (``render/shade.py``;
+on the card the two shading stages are the hand-written K3 kernels).  Terminated lanes stay in the wavefront as dead
 lanes: K1 takes the alive plane (``traverse.closest_hit_live``), so they
 come back as misses at ``t = -1``, and every accumulation is masked.
 Radiometry matches the reference: Beer–Lambert
 interior absorption, emission on bounce 0 / after specular, one-sample NEE
-with power-2 MIS, Russian roulette from ``rr_start``, throughput soft clamp
+with power-2 MIS (with an HDRI, also the alias-sampled env NEE, MIS-weighted
+against the BSDF, and BSDF-sampled sky hits weighted against it), Russian
+roulette from ``rr_start``, throughput soft clamp
 50, NEE clamp 500, final clamp 100.  With ``split`` the radiance is also
 routed into the denoiser's diffuse, specular and emission channels: bounce-0
 emission to emission; later emission and sky by whether the path has been
@@ -55,9 +57,14 @@ def trace_path(geom, materials, lights, n_lights: int, sky: SkyConfig,
     """Trace the wavefront to completion.  Returns (rng_state, PathOutput).
 
     ``camera_nee=True`` keeps the reference's fix: the camera ray's spec
-    flag does not suppress bounce-0 NEE."""
+    flag does not suppress bounce-0 NEE.  An HDRI sky turns on its
+    importance-sampled NEE (env NEE).
+
+    Every bounce of ``max_depth`` runs, also once no lane is alive: reading
+    the alive plane back to stop early would wait for the card."""
+    env_nee = sky.has_env_sampling
     shape = ray.direction.x.shape
-    ps = PathState.start(ray, state, split, camera_nee)
+    ps = PathState.start(ray, state, split, camera_nee, env_nee)
     check_state(ps, materials)  # once: the kernels update ps in place
     rays = torch.zeros((), dtype=torch.int64, device=ps.alive.device)
 
@@ -67,13 +74,21 @@ def trace_path(geom, materials, lights, n_lights: int, sky: SkyConfig,
         k1 = traverse.closest_hit_live(geom, ps.o, ps.d, ps.alive)
         nee = shade_nee(ps, geom, k1, materials, lights, n_lights, sky,
                         bounce)
-        in_shadow = None
+        # a shadow ray a NEE lane for each of the env and the light sample
+        casts = int(env_nee) + int(n_lights > 0)
+        if casts:
+            n_nee = nee.do_nee.sum()
+            rays = rays + (n_nee if casts == 1 else n_nee * 2)
+        in_shadow = env_shadow = None
+        if env_nee:
+            env_shadow = traverse.any_hit(geom, nee.env_o, nee.env_d,
+                                          nee.env_t)
         if n_lights > 0:
-            rays = rays + nee.do_nee.sum()
             in_shadow = traverse.any_hit(geom, nee.shadow_o, nee.shadow_d,
                                          nee.shadow_t)
         shade_scatter(ps, nee, in_shadow, materials, bounce,
-                      rr_enabled=rr_enabled, rr_start=rr_start)
+                      rr_enabled=rr_enabled, rr_start=rr_start,
+                      env_shadow=env_shadow)
 
     rs = lambda v: (None if v is None else v.map(rs)
                     if isinstance(v, Vec3) else v.reshape(shape))

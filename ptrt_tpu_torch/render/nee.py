@@ -1,9 +1,13 @@
-"""Next-event estimation: direct-light sampling with shadow rays.
+"""Next-event estimation: direct-light and env-map sampling with shadow rays.
 
 Counterpart of ``ptrt_tpu/render/nee.py`` (``sample_light``,
-``sample_direct_lighting``): uniform light pick, cone sampling of spherical
-lights, range attenuation, smooth spot cones, rect area lights, and the
-shadow ray through the any-hit walk (K2)."""
+``sample_direct_lighting``, ``sample_env_lighting``): uniform light pick,
+cone sampling of spherical lights, range attenuation, smooth spot cones,
+rect area lights, the HDRI's alias-method sample, and the shadow rays
+through the any-hit walk (K2).  Each estimate is cut in two around its
+walk: a setup part (the PCG draws, the shadow ray and the unshadowed,
+clamped contribution) and a lit part (the walk's answer and the pdf
+gate)."""
 
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from ptrt_tpu_torch.core import rng as prng
 from ptrt_tpu_torch.core.vec import (TWO_PI, Vec3, clamp_vector_soft, fmax,
                                      fmin, sdiv, where)
 from ptrt_tpu_torch.render.bsdf import evaluate_bsdf, evaluate_bsdf_split
+from ptrt_tpu_torch.render.sky import SkyConfig, sample_env
 from ptrt_tpu_torch.scene.lights import LightTable, LightType
 
 MAX_NEE_CONTRIBUTION = 500.0
@@ -98,6 +103,17 @@ def sample_light(state, lights: LightTable, n_lights: int, point: Vec3):
     return state, l_out, pdf_out, radiance, att_out, dist_out
 
 
+def _contribution(normal, front_face, mat, l, v, radiance, scale, split):
+    """The clamped, unshadowed estimate ``bsdf * radiance * scale`` (a
+    (diffuse, specular) pair when ``split``)."""
+    if split:
+        bd, bs = evaluate_bsdf_split(normal, front_face, mat, l, v)
+        return (clamp_vector_soft(bd * radiance * scale, MAX_NEE_CONTRIBUTION),
+                clamp_vector_soft(bs * radiance * scale, MAX_NEE_CONTRIBUTION))
+    bsdf = evaluate_bsdf(normal, front_face, mat, l, v)
+    return clamp_vector_soft(bsdf * radiance * scale, MAX_NEE_CONTRIBUTION)
+
+
 def direct_lighting_setup(state, point: Vec3, normal: Vec3, front_face, mat,
                           ray_dir: Vec3, lights: LightTable, n_lights: int,
                           split: bool = False, active=None):
@@ -118,13 +134,7 @@ def direct_lighting_setup(state, point: Vec3, normal: Vec3, front_face, mat,
         shadow_t = torch.where(active, shadow_t, -1.0)
 
     scale = att / fmax(pdf_sample, 1e-12)
-    if split:
-        bd, bs = evaluate_bsdf_split(normal, front_face, mat, l, v)
-        out = (clamp_vector_soft(bd * radiance * scale, MAX_NEE_CONTRIBUTION),
-               clamp_vector_soft(bs * radiance * scale, MAX_NEE_CONTRIBUTION))
-    else:
-        bsdf = evaluate_bsdf(normal, front_face, mat, l, v)
-        out = clamp_vector_soft(bsdf * radiance * scale, MAX_NEE_CONTRIBUTION)
+    out = _contribution(normal, front_face, mat, l, v, radiance, scale, split)
     return state, l, pdf_sample, shadow_o, shadow_t, out
 
 
@@ -132,6 +142,36 @@ def direct_lighting_lit(contribution, pdf, in_shadow):
     """The unshadowed contribution where the light is visible and its pdf
     positive, else zero (a Vec3 or a (diffuse, specular) pair)."""
     lit = ~in_shadow & (pdf > 0.0)
+    if isinstance(contribution, tuple):
+        return tuple(where(lit, c, 0.0) for c in contribution)
+    return where(lit, contribution, 0.0)
+
+
+def env_lighting_setup(state, point: Vec3, normal: Vec3, front_face, mat,
+                       ray_dir: Vec3, sky: SkyConfig, split: bool = False,
+                       active=None):
+    """The half of the reference's ``sample_env_lighting`` before the
+    shadow walk: the env sample through the alias table (four PCG draws),
+    its shadow ray (``t_max = 1e28``; -1 where ``active`` is false) and the
+    unshadowed contribution ``bsdf * radiance / max(pdf, 1e-12)``,
+    soft-clamped.  Returns (state, L, pdf, shadow origin, shadow t_max,
+    contribution); ``env_lighting_lit`` masks it with the walk's answer."""
+    v = -ray_dir
+    state, l, pdf_sa, radiance = sample_env(state, sky)
+    offset = where(normal.dot(l) > 0.0, normal * 1e-4, normal * -1e-4)
+    shadow_o = point + offset
+    shadow_t = torch.full_like(pdf_sa, 1e28)
+    if active is not None:
+        shadow_t = torch.where(active, shadow_t, -1.0)
+    scale = sdiv(1.0, fmax(pdf_sa, 1e-12))
+    out = _contribution(normal, front_face, mat, l, v, radiance, scale, split)
+    return state, l, pdf_sa, shadow_o, shadow_t, out
+
+
+def env_lighting_lit(contribution, pdf, in_shadow):
+    """The unshadowed env contribution where the sample is visible and its
+    pdf above 1e-12, else zero."""
+    lit = ~in_shadow & (pdf > 1e-12)
     if isinstance(contribution, tuple):
         return tuple(where(lit, c, 0.0) for c in contribution)
     return where(lit, contribution, 0.0)

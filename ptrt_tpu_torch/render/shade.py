@@ -6,13 +6,28 @@ A bounce is  K1 ``closest_hit`` -> ``shade_nee`` -> K2 ``any_hit`` ->
 
 * ``shade_nee`` — the hit record from K1's triangle slot, the material
   fetch, the bounce-0 G-buffer, sky on a miss (routed into the split
-  channels), the alive update, Beer–Lambert absorption, emission, and the
-  NEE light sample: the shadow rays (``t_max = -1`` where NEE is off or the
-  lane is dead), the light direction, its pdf and the clamped, unshadowed
-  contribution (its diffuse and specular halves when ``split``).
-* ``shade_scatter`` — the lit test, MIS against ``material_pdf``, the NEE
-  accumulation, ``material_scatter``, Russian roulette, the throughput soft
-  clamp and the ray advance.
+  channels; with env NEE MIS-weighted against the env sampler where the
+  previous hit drew an env sample off a non-specular scatter), the alive
+  update, Beer–Lambert absorption, emission, and the NEE samples: with env
+  NEE first the env sample (four PCG draws: its shadow ray, direction, pdf,
+  MIS weight against ``material_pdf`` and clamped, unshadowed
+  contribution), then the light sample: the shadow rays (``t_max = -1``
+  where NEE is off or the lane is dead), the light direction, its pdf and
+  the clamped, unshadowed contribution (its diffuse and specular halves
+  when ``split``).
+* ``shade_scatter`` — the lit tests, the env sample's accumulation, MIS
+  against ``material_pdf`` and the light's accumulation,
+  ``material_scatter``, the env MIS carries (the scatter direction's
+  ``material_pdf`` and whether the lane drew an env sample), Russian
+  roulette, the throughput soft clamp and the ray advance.
+
+Both follow the reference's order of operations
+(``ptrt_tpu/render/integrator.py:307-466``): the env sample's numbers are
+drawn before the light's, and its term is added before the light's.  Env
+NEE runs exactly where the sky is an HDRI: such a trace starts with
+``PathState.start(..., env_nee=True)`` and carries ``prev_pdf`` and
+``prev_did_nee``; the stages refuse an HDRI sky without env NEE and env NEE
+without one.
 
 On CUDA tensors each wrapper launches its hand-written kernel
 (``csrc/shade.cu``); on CPU tensors it runs the plain version beside it,
@@ -27,18 +42,23 @@ plane sees it change on the card and not on the CPU: clone first
 numbers in both.
 
 The record's contract (``NeeRecord``): ``do_nee`` and ``shadow_t`` hold on
-every lane (``shadow_t = -1`` where ``do_nee`` is false), and so does
+every lane (``shadow_t = -1`` where ``do_nee`` is false), and so do
+``env_t`` with env NEE (1e28 where ``do_nee``, -1 elsewhere) and
 ``hit.hit``: K1 found a triangle and, from bounce 1 on, the lane was alive
 on entry (K1 through the alive plane reports no hit on a dead lane; the
 stage does not read K1's planes there).  The hit point, normal and front flag are specified only on lanes
-still alive after the stage; the shadow origin, L, pdf and contribution
+still alive after the stage; the shadow origin, L, pdf and contribution,
+and the env sample's origin, direction, pdf, MIS weight and contribution,
 only where ``do_nee`` is true.  Elsewhere the plain stage holds what it
 computed and masks away, and the kernel's planes are never written: a dead
-lane moves only its flags, its PCG state and its ``shadow_t``.  Nothing
+lane moves only its flags, its PCG state and its ``shadow_t`` and
+``env_t``.  Nothing
 downstream reads an unspecified value: ``shade_scatter`` gates on ``alive``
-and ``do_nee``, and the shadow walk skips a ray with ``t_max < 0`` before
-it loads the ray.  Likewise the kernels leave the throughput of a lane that
-dies in a stage as it was.
+and ``do_nee``, and the shadow walks skip a ray with ``t_max < 0`` before
+they load the ray.  Likewise the kernels leave the throughput of a lane that
+dies in a stage as it was, and ``prev_pdf`` and ``prev_did_nee`` are
+written only where the lane survives its scatter (the plain stage keeps
+the old values elsewhere).
 
 The wrappers check the ``PathState`` planes once a trace: the checked
 pointers are kept on the state and used again while its fields are the same
@@ -56,12 +76,14 @@ import torch
 
 from ptrt_tpu_torch import kernels
 from ptrt_tpu_torch.core import rng as prng
-from ptrt_tpu_torch.core.vec import Vec3, clamp_vector_soft, fmax, where
+from ptrt_tpu_torch.core.vec import PI, Vec3, clamp_vector_soft, fmax, where
 from ptrt_tpu_torch.render import traverse
 from ptrt_tpu_torch.render.bsdf import material_pdf, material_scatter, mis_weight
-from ptrt_tpu_torch.render.nee import direct_lighting_lit, direct_lighting_setup
+from ptrt_tpu_torch.render.nee import (direct_lighting_lit,
+                                       direct_lighting_setup, env_lighting_lit,
+                                       env_lighting_setup)
 from ptrt_tpu_torch.render.pbr import beer_lambert
-from ptrt_tpu_torch.render.sky import SkyConfig, sample_sky
+from ptrt_tpu_torch.render.sky import SkyConfig, env_pdf_dir, sample_sky
 from ptrt_tpu_torch.scene.lights import LightTable
 from ptrt_tpu_torch.scene.materials import MaterialTable
 
@@ -74,7 +96,9 @@ class PathState:
     """Every lane's path, as flat (N,) planes.  ``diffuse``, ``specular``
     and ``emission`` are the split channels (None unless split); ``rng`` is
     the PCG state (int64 holding values in [0, 2^32)); ``first_*`` is the
-    bounce-0 G-buffer."""
+    bounce-0 G-buffer; ``prev_pdf`` and ``prev_did_nee`` are the env MIS
+    carries (None unless the trace does env NEE): the ``material_pdf`` of
+    the last scatter's direction and whether that hit drew an env sample."""
 
     o: Vec3
     d: Vec3
@@ -93,14 +117,17 @@ class PathState:
     first_object_id: torch.Tensor
     first_roughness: torch.Tensor
     first_transmission: torch.Tensor
+    prev_pdf: torch.Tensor | None = None
+    prev_did_nee: torch.Tensor | None = None
 
     @staticmethod
-    def start(ray, rng: torch.Tensor, split: bool,
-              camera_nee: bool = True) -> "PathState":
+    def start(ray, rng: torch.Tensor, split: bool, camera_nee: bool = True,
+              env_nee: bool = False) -> "PathState":
         """The state before bounce 0 for the rays of a ``RayBatch`` of any
         shape, every plane its own contiguous tensor.  ``camera_nee=True``
         keeps the reference's fix: the camera ray's spec flag does not
-        suppress bounce-0 NEE."""
+        suppress bounce-0 NEE.  ``env_nee`` allocates the env MIS
+        carries."""
         shape = ray.direction.x.shape
         dev = ray.direction.x.device
         n = ray.direction.x.numel()
@@ -121,11 +148,17 @@ class PathState:
             path_still_specular=full(True, torch.bool),
             rng=flat(rng), first_normal=v3(0.0), first_depth=full(1e30),
             first_object_id=full(-1, torch.int32), first_roughness=full(1.0),
-            first_transmission=full(0.0))
+            first_transmission=full(0.0),
+            prev_pdf=full(0.0) if env_nee else None,
+            prev_did_nee=full(False, torch.bool) if env_nee else None)
 
     @property
     def split(self) -> bool:
         return self.diffuse is not None
+
+    @property
+    def env_nee(self) -> bool:
+        return self.prev_pdf is not None
 
     def clone(self) -> "PathState":
         cp = lambda v: (None if v is None else v.map(torch.clone)
@@ -135,11 +168,11 @@ class PathState:
 
 
 class NeeRecord(NamedTuple):
-    """What ``shade_nee`` hands the shadow walk and ``shade_scatter``.  The
-    shadow fields are None when there is no light to sample.  Only
-    ``do_nee``, ``shadow_t`` and ``hit.hit`` hold on every lane; the rest is
-    unspecified where the lane is dead or ``do_nee`` is false (the module's
-    note has the contract)."""
+    """What ``shade_nee`` hands the shadow walks and ``shade_scatter``.  The
+    shadow fields are None when there is no light to sample, the ``env_*``
+    fields without env NEE.  Only ``do_nee``, ``shadow_t``, ``env_t`` and
+    ``hit.hit`` hold on every lane; the rest is unspecified where the lane
+    is dead or ``do_nee`` is false (the module's note has the contract)."""
 
     hit: traverse.Hit
     do_nee: torch.Tensor  # bool: the lane casts a shadow ray
@@ -149,6 +182,13 @@ class NeeRecord(NamedTuple):
     pdf: torch.Tensor | None
     contrib: Vec3 | None  # unshadowed, clamped; the diffuse half if split
     contrib_s: Vec3 | None  # the specular half (split only)
+    env_o: Vec3 | None = None  # the env shadow ray's origin
+    env_d: Vec3 | None = None  # the env sample's direction
+    env_t: torch.Tensor | None = None  # 1e28 where do_nee, else -1
+    env_pdf: torch.Tensor | None = None  # its solid-angle pdf
+    env_w: torch.Tensor | None = None  # MIS weight against material_pdf
+    env_c: Vec3 | None = None  # unshadowed, clamped; diffuse half if split
+    env_cs: Vec3 | None = None  # the specular half (split only)
 
 
 # -- the plain stages ----------------------------------------------------------
@@ -158,8 +198,9 @@ def shade_nee_plain(ps: PathState, geom, k1: traverse.Closest,
                     materials: MaterialTable, lights: LightTable,
                     n_lights: int, sky: SkyConfig, bounce: int) -> NeeRecord:
     """Plain version of ``shade_nee``: the integrator's torch code from the
-    hit to the NEE light sample."""
-    split = ps.split
+    hit to the NEE samples."""
+    split, env_nee = ps.split, ps.env_nee
+    _check_env(ps, sky)
     is_first = bounce == 0
     d = ps.d
     hit = traverse.hit_record(geom, ps.o, d, k1)
@@ -177,9 +218,14 @@ def shade_nee_plain(ps: PathState, geom, k1: traverse.Closest,
         ps.first_roughness = torch.where(hit.hit, mat.roughness, 1.0)
         ps.first_transmission = torch.where(hit.hit, mat.transmission, 0.0)
 
-    # sky on miss
+    # sky on miss; with env NEE, MIS-weighted against the env sampler where
+    # the previous hit drew an env sample and did not scatter specularly
     miss = ps.alive & ~hit.hit
     sky_c = sample_sky(d, sky) * ps.throughput
+    if env_nee:
+        sky_c = sky_c * torch.where(
+            ps.prev_did_nee & ~ps.prev_was_specular,
+            mis_weight(ps.prev_pdf, env_pdf_dir(sky, d)), 1.0)
     ps.accum = ps.accum + where(miss, sky_c, 0.0)
     if split:
         ps.specular = ps.specular + where(miss & ps.path_still_specular,
@@ -208,24 +254,57 @@ def shade_nee_plain(ps: PathState, geom, k1: traverse.Closest,
         ps.diffuse = ps.diffuse + where(emit_on & ~ps.path_still_specular,
                                         contrib_e, 0.0)
 
-    # the NEE light sample and its shadow ray
+    # the NEE samples and their shadow rays: the env's, then the light's
     do_nee = ps.alive & ~ps.ray_spec
+    env = ()
+    if env_nee:
+        ps.rng, l_e, pdf_e, o_e, t_e, out_e = env_lighting_setup(
+            ps.rng, hit.point, hit.normal, hit.front_face, mat, d, sky,
+            split=split, active=do_nee)
+        w_e = mis_weight(pdf_e, material_pdf(hit.normal, hit.front_face, mat,
+                                             -d, l_e))
+        env = (o_e, l_e, t_e, pdf_e, w_e,
+               *(out_e if split else (out_e, None)))
     if n_lights == 0:
-        return NeeRecord(hit, do_nee, None, None, None, None, None, None)
+        return NeeRecord(hit, do_nee, None, None, None, None, None, None,
+                         *env)
     ps.rng, l, pdf, shadow_o, shadow_t, out = direct_lighting_setup(
         ps.rng, hit.point, hit.normal, hit.front_face, mat, d, lights,
         n_lights, split=split, active=do_nee)
     c, c_s = out if split else (out, None)
-    return NeeRecord(hit, do_nee, shadow_o, l, shadow_t, pdf, c, c_s)
+    return NeeRecord(hit, do_nee, shadow_o, l, shadow_t, pdf, c, c_s, *env)
+
+
+def _check_env(ps: PathState, sky: SkyConfig) -> None:
+    if ps.env_nee != sky.has_env_sampling:
+        raise ValueError("env NEE runs exactly where the sky is an HDRI: "
+                         "start the PathState with env_nee="
+                         "sky.has_env_sampling")
 
 
 def shade_scatter_plain(ps: PathState, nee: NeeRecord, in_shadow,
                         materials: MaterialTable, bounce: int,
-                        rr_enabled: bool, rr_start: int) -> None:
+                        rr_enabled: bool, rr_start: int,
+                        env_shadow=None) -> None:
     """Plain version of ``shade_scatter``: the integrator's torch code from
-    the shadow walk's answer to the next ray."""
+    the shadow walks' answers to the next ray."""
     hit, d = nee.hit, ps.d
     mat = materials.gather(hit.mesh_index.clamp_min(0))
+
+    # the env sample, MIS-weighted (its weight computed by shade_nee)
+    if ps.env_nee:
+        contrib = (nee.env_c, nee.env_cs) if ps.split else nee.env_c
+        env_c = env_lighting_lit(contrib, nee.env_pdf, env_shadow)
+        w_e = nee.env_w
+        gate_e = nee.do_nee & (nee.env_pdf > 0.0)
+        if ps.split:
+            env_d, env_s = env_c
+            ps.diffuse = ps.diffuse + where(gate_e,
+                                            ps.throughput * env_d * w_e, 0.0)
+            ps.specular = ps.specular + where(
+                gate_e, ps.throughput * env_s * w_e, 0.0)
+            env_c = env_d + env_s
+        ps.accum = ps.accum + where(gate_e, ps.throughput * env_c * w_e, 0.0)
 
     # NEE with MIS
     if nee.shadow_t is not None:
@@ -247,6 +326,11 @@ def shade_scatter_plain(ps: PathState, nee: NeeRecord, in_shadow,
     # scatter
     ps.rng, sc = material_scatter(ps.rng, hit.normal, hit.front_face, mat, d)
     alive = ps.alive & sc.valid
+    if ps.env_nee:
+        # the scatter direction's pdf, to MIS-weight a sky hit next bounce
+        ps.prev_pdf = torch.where(alive, material_pdf(
+            hit.normal, hit.front_face, mat, -d, sc.direction), ps.prev_pdf)
+        ps.prev_did_nee = torch.where(alive, nee.do_nee, ps.prev_did_nee)
     ps.prev_was_specular = torch.where(alive, sc.is_specular,
                                        ps.prev_was_specular)
     ps.path_still_specular = ps.path_still_specular & torch.where(
@@ -299,6 +383,16 @@ class ShadeArgs(ctypes.Structure):
         ("pdf_nee", _P), ("nee_c", _P3), ("nee_s", _P3), ("in_shadow", _P),
         ("split", ctypes.c_int), ("bounce", ctypes.c_int),
         ("rr_enabled", ctypes.c_int), ("rr_start", ctypes.c_int),
+        # the HDRI sky and env NEE (null / 0 without them)
+        ("env_map", _P), ("env_alias", _P), ("env_pdf_table", _P),
+        ("env_map_h", ctypes.c_int), ("env_map_w", ctypes.c_int),
+        ("env_sh", ctypes.c_int), ("env_sw", ctypes.c_int),
+        ("env_inv_sh", ctypes.c_float), ("env_inv_sw", ctypes.c_float),
+        ("env_pi_sh", ctypes.c_float), ("env_nee", ctypes.c_int),
+        ("prev_pdf", _P), ("prev_nee", _P),
+        ("env_o", _P3), ("env_l", _P3), ("env_t", _P), ("env_pdf", _P),
+        ("env_mis", _P), ("env_c", _P3), ("env_cs", _P3),
+        ("in_shadow_env", _P),
     ]
 
 
@@ -314,8 +408,10 @@ _STATE = (("o", "o", _F32), ("d", "d", _F32), ("throughput", "thr", _F32),
           ("first_depth", "first_depth", _F32),
           ("first_object_id", "first_obj", _I32),
           ("first_roughness", "first_rough", _F32),
-          ("first_transmission", "first_trans", _F32))
-_OPTIONAL = ("diffuse", "specular", "emission", "contrib_s")
+          ("first_transmission", "first_trans", _F32),
+          ("prev_pdf", "prev_pdf", _F32), ("prev_did_nee", "prev_nee", _BOOL))
+_OPTIONAL = ("diffuse", "specular", "emission", "contrib_s", "prev_pdf",
+             "prev_did_nee", "env_contrib_s")
 
 
 def _ptrs(name: str, v, n: int, dtype, dev) -> list:
@@ -336,7 +432,9 @@ def _ptrs(name: str, v, n: int, dtype, dev) -> list:
 
 
 def _set(a: ShadeArgs, field: str, ptrs: list) -> None:
-    setattr(a, field, _P3(*ptrs) if len(ptrs) == 3 else ptrs[0])
+    """Set a pointer field (null stays null: ``ShadeArgs`` starts zeroed)."""
+    if any(p is not None for p in ptrs):
+        setattr(a, field, _P3(*ptrs) if len(ptrs) == 3 else ptrs[0])
 
 
 def _out(v) -> list:
@@ -383,6 +481,8 @@ def _checked(ps: PathState, materials: MaterialTable, inputs) -> tuple:
         if not (ps.diffuse is None) == (ps.specular is None) == (
                 ps.emission is None):
             raise ValueError("the split channels are all set or all None")
+        if (ps.prev_pdf is None) != (ps.prev_did_nee is None):
+            raise ValueError("the env MIS carries are both set or both None")
         _check_table("materials.packed", materials.packed, 27, dev)
         a = ShadeArgs()
         for name, field, dtype in _STATE:
@@ -415,33 +515,63 @@ def _planes(n: int, dev, dtype, rows: int) -> list:
 def shade_nee(ps: PathState, geom, k1: traverse.Closest,
               materials: MaterialTable, lights: LightTable, n_lights: int,
               sky: SkyConfig, bounce: int) -> NeeRecord:
-    """The first stage of a bounce (kernel ``shade_nee``), after K1 gave
-    ``k1`` for the rays ``ps.o``, ``ps.d``.  Updates ``ps`` (in place on the
-    card) and returns the hit record and the shadow rays, specified as the
-    module's note says.  ``n_lights == 0`` means no NEE: no shadow rays and
-    no PCG draws for it."""
+    """The first stage of a bounce (kernel ``shade_nee``; with an HDRI sky
+    its HDRI instantiation), after K1 gave ``k1`` for the rays ``ps.o``,
+    ``ps.d``.  Updates ``ps`` (in place on the card) and returns the hit
+    record and the shadow rays, specified as the module's note says.
+    ``n_lights == 0`` means no light sample: no light shadow rays and no PCG
+    draws for it; a state with env NEE (``ps.env_nee``) draws the env
+    sample whatever ``n_lights``."""
     n, dev, a = _checked(ps, materials, [
         ("hit_t", "k1.t", k1.t, _F32), ("hit_slot", "k1.slot", k1.slot, _I32),
         ("hit_mesh", "k1.mesh", k1.mesh, _I32)])
     if n_lights > 0:
         _check_table("lights.packed", lights.packed, 17, dev)
+    env_nee = ps.env_nee
+    _check_env(ps, sky)
     if dev.type == "cpu":
         return shade_nee_plain(ps, geom, k1, materials, lights, n_lights,
                                sky, bounce)
 
     def scene_args():  # the triangle edges and the sky: once a trace
         m = geom.num_tri_slots
+        # top, bottom, use_sky; an HDRI's rotation (read only by the HDRI
+        # instantiation) after them
         sky_v = torch.stack([sky.top.x, sky.top.y, sky.top.z, sky.bottom.x,
-                             sky.bottom.y, sky.bottom.z, sky.use_sky]).to(
+                             sky.bottom.y, sky.bottom.z, sky.use_sky]
+                            + ([sky.env_rotation] if env_nee else [])).to(
             device=dev, dtype=_F32)
+        if env_nee:
+            kernels.check_tensor("sky.env", sky.env, _F32, 3, dev)
+            if sky.env.shape[2] != 3:
+                raise ValueError(f"sky.env: shape {tuple(sky.env.shape)}, "
+                                 "need (H, W, 3)")
+            sh, sw = sky.env_sample_hw
+            _check_table("sky.env_alias", sky.env_alias, 2, dev)
+            kernels.check_tensor("sky.env_pdf", sky.env_pdf, _F32, 1, dev)
+            if not (sky.env_alias.shape[0] == sky.env_pdf.shape[0]
+                    == sh * sw > 0):
+                raise ValueError("the env tables do not hold SH x SW rows")
         return (_ptrs("geom.e1", geom.e1, m, _F32, dev),
                 _ptrs("geom.e2", geom.e2, m, _F32, dev), sky_v)
 
-    e1, e2, sky_v = _kept(ps, "scene", (geom.e1, geom.e2, sky.top, sky.bottom,
-                                        sky.use_sky), scene_args)
+    e1, e2, sky_v = _kept(ps, "scene", (
+        geom.e1, geom.e2, sky.top, sky.bottom, sky.use_sky, sky.env,
+        sky.env_rotation, sky.env_alias, sky.env_pdf), scene_args)
     _set(a, "e1", e1)
     _set(a, "e2", e2)
     a.sky = sky_v.data_ptr()
+    if env_nee:
+        a.env_map = sky.env.data_ptr()
+        a.env_map_h, a.env_map_w = sky.env.shape[:2]
+        sh, sw = sky.env_sample_hw
+        a.env_nee = 1
+        a.env_alias = sky.env_alias.data_ptr()
+        a.env_pdf_table = sky.env_pdf.data_ptr()
+        a.env_sh, a.env_sw = sh, sw
+        # the reference's Python-side constants, rounded once to float32
+        a.env_inv_sh, a.env_inv_sw = 1.0 / sh, 1.0 / sw
+        a.env_pi_sh = PI / sh
     a.bounce = int(bounce)
     found, front, do_nee = _planes(n, dev, _BOOL, 3)
     nee = n_lights > 0
@@ -462,21 +592,34 @@ def shade_nee(ps: PathState, geom, k1: traverse.Closest,
         for field, v in zip(("shadow_o", "l", "shadow_t", "pdf_nee", "nee_c",
                              "nee_s"), shadow):
             _set(a, field, _out(v))
+    env = ()
+    if env_nee:
+        e = _planes(n, dev, _F32, 12 + 3 * ps.split)
+        ev3 = lambda k: Vec3(*e[k:k + 3])
+        env = (ev3(0), ev3(3), e[6], e[7], e[8], ev3(9),
+               ev3(12) if ps.split else None)
+        for field, v in zip(("env_o", "env_l", "env_t", "env_pdf", "env_mis",
+                             "env_c", "env_cs"), env):
+            _set(a, field, _out(v))
     rc = kernels.get_lib().ptrt_shade_nee(ctypes.addressof(a),
                                           kernels.stream_ptr(dev))
-    kernels.launches["shade_nee"] += 1
-    kernels.check(rc, "shade_nee")
+    name = "shade_nee (hdri)" if env_nee else "shade_nee"
+    kernels.launches[name] += 1
+    kernels.check(rc, name)
     hit = traverse.Hit(hit=found, t=k1.t, point=point, normal=normal,
                        front_face=front, mesh_index=k1.mesh, u=k1.u, v=k1.v)
-    return NeeRecord(hit, do_nee, *shadow)
+    return NeeRecord(hit, do_nee, *shadow, *env)
 
 
 def shade_scatter(ps: PathState, nee: NeeRecord, in_shadow,
                   materials: MaterialTable, bounce: int,
-                  rr_enabled: bool = True, rr_start: int = 2) -> None:
-    """The second stage of a bounce (kernel ``shade_scatter``): ``in_shadow``
-    is K2's answer for ``nee``'s shadow rays (None without NEE).  Updates
-    ``ps`` (in place on the card)."""
+                  rr_enabled: bool = True, rr_start: int = 2,
+                  env_shadow=None) -> None:
+    """The second stage of a bounce (kernel ``shade_scatter``; with env NEE
+    its HDRI instantiation): ``in_shadow`` is K2's answer for ``nee``'s
+    light shadow rays (None without lights), ``env_shadow`` for its env
+    shadow rays (None without env NEE).  Updates ``ps`` (in place on the
+    card)."""
     hit = nee.hit
     inputs = [("point", "hit.point", hit.point, _F32),
               ("normal", "hit.normal", hit.normal, _F32),
@@ -493,17 +636,28 @@ def shade_scatter(ps: PathState, nee: NeeRecord, in_shadow,
                    ("pdf_nee", "pdf", nee.pdf, _F32),
                    ("nee_c", "contrib", nee.contrib, _F32),
                    ("nee_s", "contrib_s", nee.contrib_s, _F32)]
+    if ps.env_nee:
+        if nee.env_t is None or ps.split != (nee.env_cs is not None):
+            raise ValueError("env NEE needs the record's env sample, with "
+                             "its specular half exactly when split")
+        inputs += [("in_shadow_env", "env_shadow", env_shadow, _BOOL),
+                   ("env_pdf", "env_pdf", nee.env_pdf, _F32),
+                   ("env_mis", "env_w", nee.env_w, _F32),
+                   ("env_c", "env_contrib", nee.env_c, _F32),
+                   ("env_cs", "env_contrib_s", nee.env_cs, _F32)]
     n, dev, a = _checked(ps, materials, inputs)
     if dev.type == "cpu":
         return shade_scatter_plain(ps, nee, in_shadow, materials, bounce,
-                                   rr_enabled, rr_start)
+                                   rr_enabled, rr_start, env_shadow)
     a.n_lights = int(has_nee)  # > 0: the NEE record is there
+    a.env_nee = int(ps.env_nee)
     a.bounce = int(bounce)
     a.rr_enabled, a.rr_start = int(bool(rr_enabled)), int(rr_start)
     rc = kernels.get_lib().ptrt_shade_scatter(ctypes.addressof(a),
                                               kernels.stream_ptr(dev))
-    kernels.launches["shade_scatter"] += 1
-    kernels.check(rc, "shade_scatter")
+    name = "shade_scatter (hdri)" if ps.env_nee else "shade_scatter"
+    kernels.launches[name] += 1
+    kernels.check(rc, name)
 
 
 # shade_scatter's launch (csrc/shade.cu kScatterThreads, kScatterLanes,
@@ -537,20 +691,26 @@ def scatter_launch(n: int, materials: MaterialTable,
                          nbytes if nbytes <= MAX_STAGED_BYTES else 0)
 
 
-def kernel_info(materials: MaterialTable, lights: LightTable) -> dict:
+def kernel_info(materials: MaterialTable, lights: LightTable,
+                hdri: bool = False) -> dict:
     """{kernel: registers, local-memory bytes a thread, threads and lanes a
     block, resident blocks a SM and dynamic shared bytes a block} of the K3
     kernels as built, with these tables: ``shade_nee``, ``shade_scatter``
-    at bounce 0 and from bounce 1 on (measurement only; needs the card)."""
+    at bounce 0 and from bounce 1 on, or with ``hdri`` their HDRI (env NEE)
+    instantiations, named with " (hdri)" (measurement only; needs the
+    card)."""
     a = ShadeArgs()
+    a.env_nee = int(hdri)  # selects the instantiation
     a.n = 1
     a.mat = materials.packed.data_ptr()
     a.n_mats, a.mat_width = materials.packed.shape
     a.lights = lights.packed.data_ptr()
     a.n_light_rows, a.light_width = lights.packed.shape
     out = {}
-    for stage, bounce, name in ((0, 0, "shade_nee"), (1, 0, "shade_scatter"),
-                                (1, 1, "shade_scatter from bounce 1")):
+    tag = " (hdri)" if hdri else ""
+    for stage, bounce, name in ((0, 0, f"shade_nee{tag}"),
+                                (1, 0, f"shade_scatter{tag}"),
+                                (1, 1, f"shade_scatter{tag} from bounce 1")):
         a.bounce = bounce
         vals = [ctypes.c_int() for _ in range(6)]
         rc = kernels.get_lib().ptrt_shade_info(

@@ -1,10 +1,10 @@
 """Light records and the packed device light table — counterpart of
-``ptrt_tpu/scene/lights.py`` for point and spot lights.  Directional and
-area lights have their table rows and sampling branches ported
-(``render/nee.py``) but no ``Scene`` factory yet."""
+``ptrt_tpu/scene/lights.py``: point, directional, spot and rect area lights
+(sampled by ``render/nee.py`` and ``csrc/shade.cu``)."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from enum import IntEnum
 from typing import Tuple
@@ -41,6 +41,32 @@ class Light:
               radius=0.0) -> "Light":
         return Light(LightType.POINT, tuple(position), (0, -1, 0),
                      tuple(color), intensity, range, radius=radius)
+
+    @staticmethod
+    def directional(direction, color=(1.0, 1.0, 1.0),
+                    intensity=1.0) -> "Light":
+        """Light arriving along ``direction`` (normalised)."""
+        d = np.asarray(direction, np.float64)
+        d = d / max(np.linalg.norm(d), 1e-12)
+        return Light(LightType.DIRECTIONAL, (0, 0, 0), tuple(d), tuple(color),
+                     intensity)
+
+    @staticmethod
+    def area(position, direction, width=1.0, height=1.0,
+             color=(1.0, 1.0, 1.0), intensity=1.0, range=100.0) -> "Light":
+        """A rect of ``width`` x ``height`` centred at ``position``,
+        emitting along ``direction`` (single-sided).  Its U/V axes are the
+        orthonormal basis the sampler derives from ``direction``
+        (``core/rng.ortho_normal_basis``); the radius is set to
+        ``0.5 * sqrt(width * height)`` as the reference sets it (the area
+        branch of the sampler replaces the cone sample it drives)."""
+        d = np.asarray(direction, np.float64)
+        d = d / max(np.linalg.norm(d), 1e-12)
+        lt = Light.point(position, color, intensity, range,
+                         radius=0.5 * float(np.sqrt(width * height)))
+        return dataclasses.replace(lt, type=LightType.AREA,
+                                   direction=tuple(d),
+                                   width=float(width), height=float(height))
 
     @staticmethod
     def spot(position, direction, color=(1.0, 1.0, 1.0), intensity=1.0,

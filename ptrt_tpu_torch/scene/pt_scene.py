@@ -1,18 +1,20 @@
 """PT Scene — the path-tracer orchestrator (counterpart of
 ``ptrt_tpu/scene/pt_scene.py``).
 
-Owns meshes, materials, lights, camera and sky on the host, assembles the
-device tables on first render (all meshes static: one flat BVH), and runs
-the frame in the reference's order: trace at the render size
-(``render/pipeline.trace_frame``, split into the denoiser's channels when
-the denoiser is on), the progressive running average (only with the
-denoiser off), motion vectors, SVGF, bloom, the bilinear upscale to the
-display size, and the tonemap (K6).  Frames above 16 spp (the reference's
-chunked post program) raise ``NotImplementedError``.
+Owns meshes, materials, lights, camera and sky (a gradient or an HDRI) on
+the host, assembles the device tables on first render (all meshes static:
+one flat BVH), and runs the frame in the reference's order: trace at the
+render size (``render/pipeline.trace_frame``, split into the denoiser's
+channels when the denoiser is on), the progressive running average (only
+with the denoiser off), motion vectors, SVGF, bloom, the bilinear upscale to
+the display size, and the tonemap (K6).  A frame above ``SPP_DISPATCH_MAX``
+samples (the "ultra" preset's 128) is traced in chunks of at most that
+many, as the reference dispatches it, and posted once.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,9 +34,19 @@ from ptrt_tpu_torch.render.sky import SkyConfig
 from ptrt_tpu_torch.scene.camera import Camera
 from ptrt_tpu_torch.scene.lights import Light, LightTable
 from ptrt_tpu_torch.scene.materials import Material, MaterialTable
+from ptrt_tpu_torch.utils.imageio import save_ppm
 
-# the reference splits frames above this many spp into several dispatches
+# A frame above this many spp is traced in chunks of at most this many, as
+# the reference dispatches it.  The chunks define the frame's samples: each
+# runs at frame index frame_count + the samples before it (its TAA and
+# blue-noise jitter) and advances the per-pixel PCG stream once.
 SPP_DISPATCH_MAX = 16
+
+
+def spp_chunks(spp: int) -> list:
+    """The samples of each trace of a frame of ``spp`` samples."""
+    return ([SPP_DISPATCH_MAX] * (spp // SPP_DISPATCH_MAX)
+            + ([spp % SPP_DISPATCH_MAX] if spp % SPP_DISPATCH_MAX else []))
 
 
 @dataclass
@@ -54,13 +66,6 @@ class PerformanceSettings:
     # the last edit or camera move; with it on, temporal history converges
     progressive_accumulation: bool = True
 
-    def check_ported(self) -> None:
-        """Raise for settings whose code is not ported yet."""
-        if self.samples_per_pixel > SPP_DISPATCH_MAX:
-            raise NotImplementedError(
-                f"not ported yet: samples_per_pixel > {SPP_DISPATCH_MAX} "
-                "(ROADMAP A6: chunked-spp post program)")
-
 
 class Scene:
     def __init__(self, width: int, height: int, device="cuda"):
@@ -78,6 +83,11 @@ class Scene:
         self.sky_color_top = (0.5, 0.7, 1.0)
         self.sky_color_bottom = (1.0, 1.0, 1.0)
         self.use_sky = True
+        self.env_map = None  # (H, W, 3) float32 numpy HDR
+        self.env_rotation = 0.0
+        # [env map, (rotation, use_sky), SkyConfig]: the sampling tables are
+        # built once a map (the map held and compared by identity)
+        self._sky_cache = None
         self.perf = PerformanceSettings()
         self.frame_count = 0
         self.camera = Camera.make((0.0, 0.0, 0.0), (0.0, 3.5, 5.0),
@@ -130,6 +140,23 @@ class Scene:
         self._edited()
         return lt
 
+    def add_area_light(self, position, direction, width=1.0, height=1.0,
+                       color=(1, 1, 1), intensity=1.0,
+                       range=100.0) -> Light:
+        """A rect area light emitting along ``direction`` (single-sided)."""
+        lt = Light.area(position, direction, width, height, color, intensity,
+                        range)
+        self.lights.append(lt)
+        self._edited()
+        return lt
+
+    def add_directional_light(self, direction, color=(1, 1, 1),
+                              intensity=1.0) -> Light:
+        lt = Light.directional(direction, color, intensity)
+        self.lights.append(lt)
+        self._edited()
+        return lt
+
     def add_spot_light(self, position, direction, color=(1, 1, 1),
                        intensity=1.0, inner_cone=0.5, outer_cone=0.7,
                        range=100.0, radius=0.0) -> Light:
@@ -155,6 +182,20 @@ class Scene:
         self.sky_color_top = tuple(top)
         self.sky_color_bottom = tuple(bottom)
         self.use_sky = True
+        self.reset_accumulation()
+
+    def set_sky_enabled(self, enabled: bool) -> None:
+        """Sky radiance on or off (an HDRI's env NEE still runs, and sees
+        black)."""
+        self.use_sky = enabled
+        self.reset_accumulation()
+
+    def set_environment_map(self, env, rotation: float = 0.0) -> None:
+        """Light the scene with an (H, W, 3) linear HDR equirect map
+        (``utils/hdr.load_hdr`` reads a Radiance .hdr file), turned
+        ``rotation`` radians about +y; it replaces the gradient sky."""
+        self.env_map = np.asarray(env, np.float32)
+        self.env_rotation = float(rotation)
         self.reset_accumulation()
 
     # -- settings ------------------------------------------------------------
@@ -187,6 +228,9 @@ class Scene:
             p.enable_motion_vectors = False
             p.max_bounce_depth, p.resolution_scale = 2, 0.35
             p.russian_roulette_start_bounce = 1
+
+    def set_max_bounce_depth(self, depth: int) -> None:
+        self.perf.max_bounce_depth = int(np.clip(depth, 1, 16))
 
     def set_resolution_scale(self, scale: float) -> None:
         self.perf.resolution_scale = float(np.clip(scale, 0.25, 1.0))
@@ -231,14 +275,71 @@ class Scene:
             self._rng_state = prng.seed(xs, ys, 0)
 
     def sky(self) -> SkyConfig:
-        return SkyConfig.gradient(self.sky_color_top, self.sky_color_bottom,
-                                  self.use_sky, device=self.device)
+        if self.env_map is None:
+            return SkyConfig.gradient(self.sky_color_top,
+                                      self.sky_color_bottom, self.use_sky,
+                                      device=self.device)
+        key = (self.env_rotation, bool(self.use_sky))
+        cached = self._sky_cache
+        if cached is None or cached[0] is not self.env_map:
+            # the map to the device and its sampling tables, once a map
+            sky = SkyConfig.hdri(self.env_map, self.env_rotation,
+                                 use_sky=bool(self.use_sky),
+                                 device=self.device)
+            self._sky_cache = [self.env_map, key, sky]
+        elif cached[1] != key:
+            f32 = lambda v: torch.tensor(v, dtype=torch.float32,
+                                         device=self.device)
+            cached[2] = dataclasses.replace(
+                cached[2], env_rotation=f32(self.env_rotation),
+                use_sky=f32(1.0 if self.use_sky else 0.0))
+            cached[1] = key
+        return self._sky_cache[2]
 
     # -- rendering -----------------------------------------------------------
+    def _trace(self, rh: int, rw: int, split: bool) -> pl.FrameBuffers:
+        """The frame's trace: one ``trace_frame`` up to ``SPP_DISPATCH_MAX``
+        spp, else one a chunk (``spp_chunks``), its colour channels weighted
+        by float32(chunk / spp) in the reference's order (chunk 0
+        multiplied, each later one added), the G-buffer chunk 0's and the
+        rays summed."""
+        p = self.perf
+        spp = int(p.samples_per_pixel)
+
+        def trace(samples: int, offset: int) -> pl.FrameBuffers:
+            self._rng_state, bufs = pl.trace_frame(
+                self._geom, self._mat_table, self._light_table,
+                len(self.lights), self.sky(), self.camera, self._rng_state,
+                self.frame_count + offset, rw, rh, samples,
+                int(p.max_bounce_depth), self._blue_noise, split=split,
+                rr_enabled=bool(p.enable_russian_roulette),
+                rr_start=int(p.russian_roulette_start_bounce),
+                camera_nee=bool(p.camera_nee_fix))
+            return bufs
+
+        if spp <= SPP_DISPATCH_MAX:
+            return trace(spp, 0)
+        names = ("color", "diffuse", "specular", "emission")
+        acc, off = None, 0
+        for c in spp_chunks(spp):
+            bufs = trace(c, off)
+            w = float(np.float32(c / spp))
+            if acc is None:
+                acc = bufs._replace(**{
+                    k: None if getattr(bufs, k) is None
+                    else getattr(bufs, k) * w for k in names})
+            else:
+                acc = acc._replace(
+                    rays_traced=acc.rays_traced + bufs.rays_traced, **{
+                        k: None if getattr(acc, k) is None
+                        else getattr(acc, k) + getattr(bufs, k) * w
+                        for k in names})
+            off += c
+        return acc
+
     def render_frame_device(self) -> torch.Tensor:
         """One frame -> (H, W, 3) uint8 tensor on the scene's device."""
         p = self.perf
-        p.check_ported()
         self._ensure_device_state()
         rh, rw = self.render_size
         denoise = bool(p.enable_denoiser)
@@ -246,14 +347,7 @@ class Scene:
                         or tuple(self._denoiser_state.depth.shape)
                         != (rh, rw)):
             self._denoiser_state = init_denoiser_state(rh, rw, self.device)
-        self._rng_state, bufs = pl.trace_frame(
-            self._geom, self._mat_table, self._light_table, len(self.lights),
-            self.sky(), self.camera, self._rng_state, self.frame_count, rw,
-            rh, int(p.samples_per_pixel), int(p.max_bounce_depth),
-            self._blue_noise, split=denoise,
-            rr_enabled=bool(p.enable_russian_roulette),
-            rr_start=int(p.russian_roulette_start_bounce),
-            camera_nee=bool(p.camera_nee_fix))
+        bufs = self._trace(rh, rw, denoise)
         self.last_frame = bufs
 
         current = bufs.color
@@ -308,3 +402,37 @@ class Scene:
     def render_frame(self) -> np.ndarray:
         """One interactive frame -> (H, W, 3) uint8 on the host."""
         return self.render_frame_device().cpu().numpy()
+
+    def render(self, out_path: str | None = None) -> np.ndarray:
+        """``render_frame``, also written to ``out_path`` as a PPM."""
+        img = self.render_frame()
+        if out_path:
+            save_ppm(out_path, img)
+        return img
+
+    def render_average(self, frames: int) -> np.ndarray:
+        """The mean of ``frames`` independent traces (unsplit, roulette from
+        bounce 2, no post stack), tonemapped: a ground-truth helper."""
+        self._ensure_device_state()
+        rh, rw = self.render_size
+        acc = None
+        for _ in range(frames):
+            self._ensure_device_state()
+            self._rng_state, bufs = pl.trace_frame(
+                self._geom, self._mat_table, self._light_table,
+                len(self.lights), self.sky(), self.camera, self._rng_state,
+                self.frame_count, rw, rh, int(self.perf.samples_per_pixel),
+                int(self.perf.max_bounce_depth), self._blue_noise,
+                camera_nee=bool(self.perf.camera_nee_fix))
+            self.frame_count += 1
+            acc = bufs.color if acc is None else acc + bufs.color
+        hdr = acc * (1.0 / float(frames))
+        if (rh, rw) != (self.height, self.width):
+            hdr = pl.upscale_bilinear(hdr, self.height, self.width)
+        return pl.tonemap_to_rgb8(hdr).cpu().numpy()
+
+    def save_as_ppm(self, path: str, img: np.ndarray | None = None) -> None:
+        """Write ``img`` (a new frame if None) as an ASCII PPM."""
+        if img is None:
+            img = self.render_frame()
+        save_ppm(path, img)

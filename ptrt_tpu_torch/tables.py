@@ -47,14 +47,36 @@ def _build(cls, fields: dict, device):
     return cls(**kw)
 
 
+def _sky(fields: dict, device) -> SkyConfig:
+    """A ``SkyConfig`` from the reference's fields: the gradient's, and for
+    an HDRI the map, its rotation, the alias rows, the pdf and (SH, SW)."""
+    v3 = lambda k: Vec3(*[_tensor(c, device) for c in fields[k]])
+    kw = dict(top=v3("top"), bottom=v3("bottom"),
+              use_sky=_tensor(fields["use_sky"], device))
+    if fields.get("env") is not None:
+        if fields.get("env_alias") is None:
+            raise ValueError("an HDRI sky without sampling tables: the port "
+                             "always samples the map (env NEE); build it "
+                             "with SkyConfig.hdri(..., "
+                             "importance_sampling=True)")
+        kw.update(env=_tensor(fields["env"], device),
+                  env_rotation=_tensor(np.float32(fields["env_rotation"]),
+                                       device),
+                  env_alias=_tensor(fields["env_alias"], device),
+                  env_pdf=_tensor(fields["env_pdf"], device),
+                  env_sample_hw=tuple(int(v) for v in
+                                      fields["env_sample_hw"]))
+    return SkyConfig(**kw)
+
+
 def from_reference(*, device, geometry=None, materials=None, lights=None,
                    sky=None, camera=None, rng_state=None, blue_noise=None,
                    denoiser_state=None) -> dict:
     """Convert the reference's state (flattened to numpy) to the port's.
 
     ``geometry``: ``SceneGeometry`` fields; ``materials`` / ``lights``: the
-    tables' fields (only ``packed`` is used); ``sky``: a gradient
-    ``SkyConfig``'s fields; ``camera``: ``Camera`` fields (the reference's
+    tables' fields (only ``packed`` is used); ``sky``: a ``SkyConfig``'s
+    fields (gradient or HDRI, with its sampling tables); ``camera``: ``Camera`` fields (the reference's
     fov, aspect and clip planes are dropped: the port keeps them in the
     matrices); ``rng_state``: the (H, W) uint32 PCG state; ``blue_noise``:
     the (64, 64, 2) table; ``denoiser_state``: ``DenoiserState`` fields,
@@ -68,10 +90,7 @@ def from_reference(*, device, geometry=None, materials=None, lights=None,
     if lights is not None:
         out["lights"] = LightTable(_tensor(lights["packed"], device))
     if sky is not None:
-        if sky.get("env") is not None:
-            raise NotImplementedError(
-                "HDRI skies are not ported yet (ROADMAP A4)")
-        out["sky"] = _build(SkyConfig, sky, device)
+        out["sky"] = _sky(sky, device)
     if camera is not None:
         out["camera"] = _build(Camera, camera, device)
     if rng_state is not None:

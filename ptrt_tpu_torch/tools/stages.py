@@ -2,7 +2,7 @@
 by channel and bounce by bounce on the card, for this tree or another one.
 
 ``chip_smoke.py`` uses the helpers here (``atrous_taps``, ``shade_bytes``,
-``live_warps``, ``temporal_inputs``, ``time_temporal``, ``time_atrous``,
+``walk_bound``, ``live_warps``, ``temporal_inputs``, ``time_temporal``, ``time_atrous``,
 ``time_bloom``, ``bloom_bound``, ``tonemap_bound``, ``clones_ms``,
 ``kernel_ms``, ``kernel_resources``, ``frame_profile``).
 Run as a script on a GPU, this file measures one tree's kernels:
@@ -28,7 +28,10 @@ On the 1920x1080 bench scene (~1M triangles) it prints:
   wrapper call (CUDA events), the calls queued behind a spin of the card
   (CUDA events around launches back to back: device time), and the kernel
   alone (torch.profiler), with the bytes that wavefront must move and the
-  warps that hold a live lane;
+  warps that hold a live lane; then the same for their HDRI instantiations
+  on the "hdri" configuration (``app/bench_scene.build_hdri_scene``: the
+  bench scene under a 4096x2048 map with env NEE), with K2 on each bounce's
+  env shadow rays beside its own bound;
 * ``svgf_temporal`` on each channel of a balanced frame and on both in one
   launch (where the tree has it), queued twice and alone, each beside its
   own bound;
@@ -122,8 +125,47 @@ def atrous_bound(h: int, w: int, step: int) -> dict:
                  + ATROUS_OPS_TAP * atrous_taps(h, w, step))
 
 
+def walk_bound(geom, n: int, live: int, plane_bytes: int,
+               shadow: bool) -> dict:
+    """The bound of one walk over a wavefront of ``n`` rays of which
+    ``live`` are live: the ray plane read for every ray (``plane_bytes``: 1
+    for the alive flags, 4 for t_max), origin and direction (24 bytes) for
+    the live rays only (a dead lane never loads them), the answers written
+    for every ray (K1: t, u, v, slot, mesh; K2: a byte), and the BVH's node
+    and triangle rows read once."""
+    rows = sum(t.element_size() * t.numel()
+               for t in (geom.node_rows, geom.tri_rows))
+    return bound(n * (plane_bytes + (1 if shadow else 20)) + live * 24
+                 + rows)
+
+
+# the env sample's record a NEE lane: origin, direction, pdf and MIS
+# weight, and the contribution (a half more when split)
+ENV_RECORD = 12 + 12 + 4 + 4 + 12
+
+
+def env_table_bytes(sky, miss_d, mis, sample_d) -> int:
+    """The HDRI's bytes a ``shade_nee`` launch must read, each texel and
+    table entry once: the map texels (12 bytes) of the fetches of the
+    misses (directions ``miss_d``) and of the env samples (``sample_d``),
+    the pdf entries of the misses MIS-weighted (the mask ``mis`` over the
+    misses) and of the samples' texels, and the alias rows the samples
+    pick, uniform draws over the table: as many as the samples, at most
+    the table."""
+    import torch
+
+    from ptrt_tpu_torch.render.sky import env_texels
+
+    tex_m, pdf_m = env_texels(sky, miss_d)
+    tex_s, pdf_s = env_texels(sky, sample_d)
+    texels = torch.cat([tex_m.reshape(-1), tex_s.reshape(-1)]).unique()
+    pdfs = torch.cat([pdf_m[mis], pdf_s]).unique()
+    rows = min(pdf_s.numel(), sky.env_alias.shape[0])
+    return texels.numel() * 12 + pdfs.numel() * 4 + rows * 8
+
+
 def shade_bytes(stage, pre, post, rec, k1=None, first=False,
-                occluded=None) -> int:
+                occluded=None, sky=None, env_occluded=None) -> int:
     """Bytes a K3 stage must move on these inputs, from the state before
     (``pre``) and after (``post``) it, the NEE record and (``shade_scatter``)
     the shadow walk's answer: each plane read once and written once on the
@@ -135,7 +177,14 @@ def shade_bytes(stage, pre, post, rec, k1=None, first=False,
     changes; ``shade_scatter`` reads the NEE record only where the lane
     casts a shadow ray with a positive pdf (the contribution only where it
     is lit) and the hit point and writes the ray only where the lane lives
-    on.  The tables (a few KB) are left out."""
+    on.  Under an HDRI (``sky``; env NEE, ``pre.prev_pdf`` set) a live miss
+    also reads its MIS flags and, where the weight applies, its
+    ``prev_pdf``; every lane writes its env ``t_max``, a NEE lane writes
+    ENV_RECORD, and the map and its tables are read as
+    ``env_table_bytes`` counts them; ``shade_scatter`` reads the env record
+    as it reads the light's (``env_occluded``: the env walk's answer) and
+    writes the MIS carries where the lane lives on.  The material and
+    light tables (a few KB) are left out."""
     n, split = pre.alive.numel(), pre.split
     cnt = lambda m: int(m.sum())
     changed = lambda a, b: (a.x != b.x) | (a.y != b.y) | (a.z != b.z)
@@ -144,6 +193,7 @@ def shade_bytes(stage, pre, post, rec, k1=None, first=False,
             for k in ("accum", "diffuse", "specular", "emission")
             if getattr(pre, k) is not None)
     nee = rec.shadow_t is not None
+    env = getattr(pre, "prev_pdf", None) is not None
     live = pre.alive
     if stage == "shade_nee":
         hit = live & (k1.slot >= 0)
@@ -160,15 +210,33 @@ def shade_bytes(stage, pre, post, rec, k1=None, first=False,
             b += n * 28  # the G-buffer
         if nee:  # every t_max; origin, L, pdf, contribution where NEE
             b += n * 4 + cnt(rec.do_nee) * (40 + (12 if split else 0))
+        if env:
+            # the MIS flags of a miss, and where the weight applies its
+            # prev_pdf; every env t_max; the NEE lanes' record; the map and
+            # its tables
+            mis = miss & pre.prev_did_nee & ~pre.prev_was_specular
+            b += cnt(miss) * 2 + cnt(mis) * 4 + n * 4
+            b += cnt(rec.do_nee) * (ENV_RECORD + (12 if split else 0))
+            b += env_table_bytes(sky, pre.d.map(lambda c: c[miss]), mis[miss],
+                                 rec.env_d.map(lambda c: c[rec.do_nee]))
         return b
     b += n * (1 + 16)  # alive, PCG state
     # material id, normal, front, direction, throughput
     b += cnt(live) * (4 + 12 + 1 + 12 + 12)
-    if nee:  # the NEE flag; its pdf; occlusion and L; the contribution
+    if nee or env:  # the NEE flag
+        b += cnt(live)
+    if nee:  # its pdf; occlusion and L; the contribution
         cast = rec.do_nee & live
         sampled = cast & (rec.pdf > 0)
-        b += cnt(live) + cnt(cast) * 4 + cnt(sampled) * (1 + 12)
+        b += cnt(cast) * 4 + cnt(sampled) * (1 + 12)
         b += cnt(sampled & ~occluded) * (24 if split else 12)
+    if env:  # the env pdf; occlusion and MIS weight; the contribution
+        cast = rec.do_nee & live
+        sampled = cast & (rec.env_pdf > 0)
+        b += cnt(cast) * 4 + cnt(sampled) * (1 + 4)
+        b += cnt(sampled & ~env_occluded & (rec.env_pdf > 1e-12)) * (
+            24 if split else 12)
+        b += cnt(post.alive) * (4 + 1)  # the MIS carries written
     # the flags that change: alive, the three specular flags
     b += sum(cnt(getattr(post, k) != getattr(pre, k))
              for k in ("alive", "ray_spec", "prev_was_specular",
@@ -616,18 +684,25 @@ def time_shading(sc, split: bool, depth: int = DEPTH,
     the alive plane, the kernels' own state and record carried on): a
     wrapper call (CUDA events) and the kernel alone (profiler) over fresh
     copies of the state, and the bytes the wavefront must move, counted
-    from the plain stages run on a copy.  Returns one row a bounce."""
+    from the plain stages run on a copy.  Under an HDRI with sampling
+    tables the stages do env NEE (their HDRI instantiations) and the row
+    also times K2 on the env shadow rays beside its ``walk_bound``.
+    Returns one row a bounce."""
     import torch
 
     from ptrt_tpu_torch.render import pipeline, shade, traverse
+    from ptrt_tpu_torch.tools import cuda_ms
 
     sc._ensure_device_state()
     g, mats, lights = sc._geom, sc._mat_table, sc._light_table
     n_lights, sky = len(sc.lights), sc.sky()
+    # (a tree from before the HDRI port takes no env arguments)
+    env = getattr(sky, "has_env_sampling", False)
+    env_kw = lambda **kw: kw if env else {}
     rr = int(sc.perf.russian_roulette_start_bounce)
     st, ray = pipeline.camera_rays(sc.camera, sc._rng_state, 0, 0,
                                    sc._blue_noise)
-    ps = shade.PathState.start(ray, st, split)
+    ps = shade.PathState.start(ray, st, split, **env_kw(env_nee=True))
     shade.check_state(ps, mats)
 
     def fresh(state):  # checked once, as trace_path does
@@ -654,7 +729,7 @@ def time_shading(sc, split: bool, depth: int = DEPTH,
             "queued_ms": clones_ms(nee, fresh(ps), SPIN_CYCLES),
             "kernel_ms": kernel_ms(nee, fresh(ps), "shade_nee_kernel"),
             **bound(shade_bytes("shade_nee", pre, pa, pn, k1=k1,
-                                first=bounce == 0),
+                                first=bounce == 0, sky=sky),
                     SHADE_NEE_OPS_LANE * ps.alive.numel())}}
         kn = nee(ps)
         assert torch.equal(ps.rng, pa.rng), f"bounce {bounce}: PCG differs"
@@ -664,16 +739,26 @@ def time_shading(sc, split: bool, depth: int = DEPTH,
                 if n_lights else None)
         occl_p = (traverse.any_hit(g, pn.shadow_o, pn.shadow_d, pn.shadow_t)
                   if n_lights else None)
+        env_occl = env_occl_p = None
+        if env:
+            env_walk = lambda r: traverse.any_hit(g, r.env_o, r.env_d,
+                                                  r.env_t)
+            env_occl, env_occl_p = env_walk(kn), env_walk(pn)
+            live = int((kn.env_t > 0).sum())
+            times["env_any_hit"] = {
+                "ms": cuda_ms(lambda: env_walk(kn), 20), "live": live,
+                **walk_bound(g, kn.env_t.numel(), live, 4, True)}
         sca = lambda s: shade.shade_scatter(s, kn, occl, mats, bounce, True,
-                                            rr)
+                                            rr, **env_kw(env_shadow=env_occl))
         before = pa.clone()
-        shade.shade_scatter_plain(pa, pn, occl_p, mats, bounce, True, rr)
+        shade.shade_scatter_plain(pa, pn, occl_p, mats, bounce, True, rr,
+                                  **env_kw(env_shadow=env_occl_p))
         times["shade_scatter"] = {
             "ms": clones_ms(sca, fresh(ps)),
             "queued_ms": clones_ms(sca, fresh(ps), SPIN_CYCLES),
             "kernel_ms": kernel_ms(sca, fresh(ps), "shade_scatter_kernel"),
             **bound(shade_bytes("shade_scatter", before, pa, pn,
-                                occluded=occl_p))}
+                                occluded=occl_p, env_occluded=env_occl_p))}
         sca(ps)
         assert torch.equal(ps.rng, pa.rng), f"bounce {bounce}: PCG differs"
         row.update(times)
@@ -782,11 +867,49 @@ def measure(tag: str, card: str, bloom_only: bool = False) -> dict:
     sc.perf.samples_per_pixel, sc.perf.max_bounce_depth = 4, DEPTH
     sc.render_frame()
     out["frames"]["bench"] = frame_profile(sc, 3)
+    del sc, state0, t_inputs, color
+    measure_hdri(out, log, card)
     for name, r in out["frames"].items():
         log(f"{name} frame: device {r['device_ms']:.3f} ms in "
             f"{r['launches']} launches; frames "
             f"{[round(t, 1) for t in r['frame_ms']]} ms [{card}]")
     return out
+
+
+def measure_hdri(out: dict, log, card: str) -> None:
+    """The HDRI stages and the env shadow walk at bounces 0-3, unsplit and
+    split, on the "hdri" configuration, and one profiled balanced frame of
+    it, into ``out`` (a tree without the HDRI port is passed over)."""
+    import torch
+
+    try:
+        from ptrt_tpu_torch.app.bench_scene import build_hdri_scene
+    except ImportError:
+        log("no HDRI in this tree: its stages are not measured")
+        return
+    torch.cuda.empty_cache()
+    sc = build_hdri_scene(W, H, target_tris=TRIS, device="cuda")
+    sc.set_performance_preset("balanced")
+    sc.perf.samples_per_pixel = 1
+    out["shading_hdri"] = []
+    for split in (False, True):
+        rows = time_shading(sc, split)
+        out["shading_hdri"] += rows
+        for r in rows:
+            w = r["env_any_hit"]
+            log(f"hdri split={split} bounce {r['bounce']}: alive "
+                f"{r['alive']}, NEE {r['do_nee']} of {r['lanes']}; "
+                + "; ".join(
+                    f"{k} call {r[k]['ms']:.4f} queued "
+                    f"{r[k]['queued_ms']:.4f} kernel "
+                    f"{r[k]['kernel_ms'] or float('nan'):.4f} bound "
+                    f"{r[k]['bound_ms']:.4f} ms ({r[k]['bound_by']})"
+                    for k in ("shade_nee", "shade_scatter"))
+                + f"; K2 env shadow rays {w['ms']:.4f} ms ({w['live']} "
+                f"live) bound {w['bound_ms']:.4f} ms; flags equal the plain "
+                f"stage's: {r['flags_equal']} [{card}]")
+    sc.render_frame()
+    out["frames"]["hdri balanced"] = frame_profile(sc, 3)
 
 
 def main(argv) -> int:

@@ -1,8 +1,10 @@
 """The contract of the record between the two K3 stages
-(``ptrt_tpu_torch/render/shade.py``): only ``do_nee``, ``shadow_t`` and
-``hit.hit`` hold on every lane.  The hit point, normal and front flag are
-unspecified where the lane is dead after ``shade_nee``; the shadow origin,
-L, pdf and contribution where ``do_nee`` is false.  The ``shade_nee`` kernel
+(``ptrt_tpu_torch/render/shade.py``): only ``do_nee``, ``shadow_t``,
+``env_t`` (with env NEE) and ``hit.hit`` hold on every lane.  The hit
+point, normal and front flag are unspecified where the lane is dead after
+``shade_nee``; the shadow origin, L, pdf and contribution, and the env
+sample's origin, direction, pdf, MIS weight and contribution, where
+``do_nee`` is false.  The ``shade_nee`` kernel
 never writes those values, so whatever reads the record must not depend on
 them.  Here the plain stages and the plain shadow walk, which the kernels
 are held to on the card, are fed a record poisoned exactly there (NaN in the
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from ptrt_tpu_torch.app.bench_scene import build_bench_scene
+from ptrt_tpu_torch.app.hdri import synthetic_env
 from ptrt_tpu_torch.core.vec import Vec3
 from ptrt_tpu_torch.render import integrator, pipeline, shade, traverse
 from test_torch_shading import torch_one_thread  # noqa: F401
@@ -35,10 +38,18 @@ def poisoned(nee: shade.NeeRecord, alive_after) -> shade.NeeRecord:
                        normal=bad(hit.normal, dead),
                        front_face=hit.front_face ^ dead,
                        mesh_index=hit.mesh_index, u=hit.u, v=hit.v)
-    return shade.NeeRecord(hit, nee.do_nee, bad(nee.shadow_o, off),
-                           bad(nee.shadow_d, off), nee.shadow_t,
-                           bad(nee.pdf, off), bad(nee.contrib, off),
-                           bad(nee.contrib_s, off))
+    return nee._replace(
+        hit=hit, shadow_o=bad(nee.shadow_o, off),
+        shadow_d=bad(nee.shadow_d, off), pdf=bad(nee.pdf, off),
+        contrib=bad(nee.contrib, off), contrib_s=bad(nee.contrib_s, off),
+        **{k: bad(getattr(nee, k), off) for k in (
+            "env_o", "env_d", "env_pdf", "env_w", "env_c", "env_cs")})
+
+
+def hdri(sc):
+    """The scene lit by a seeded 32x64 HDRI besides its four lights."""
+    sc.set_environment_map(synthetic_env(32, 64, seed=2), rotation=0.7)
+    return sc
 
 
 @pytest.fixture(scope="module")
@@ -49,26 +60,52 @@ def scene():
 
 
 @pytest.fixture(scope="module")
-def chains(scene):
+def hdri_scene():
+    sc = hdri(build_bench_scene(40, 28, target_tris=600, device="cpu"))
+    sc._ensure_device_state()
+    return sc
+
+
+def walks(g, nee):
+    """The light and env shadow walks' answers (None where absent)."""
+    occl = (None if nee.shadow_t is None else
+            traverse.any_hit(g, nee.shadow_o, nee.shadow_d, nee.shadow_t))
+    env = (None if nee.env_t is None else
+           traverse.any_hit(g, nee.env_o, nee.env_d, nee.env_t))
+    return occl, env
+
+
+def _chains(sc):
     """{split: [(state before the bounce, K1's answer)] for bounces 0-3} of
     sample 0 of the scene's camera, through the plain stages."""
-    sc, g = scene, scene._geom
+    g, sky = sc._geom, sc.sky()
     out = {}
     for split in (False, True):
         st, ray = pipeline.camera_rays(sc.camera, sc._rng_state, 0, 0,
                                        sc._blue_noise)
-        ps = shade.PathState.start(ray, st, split)
+        ps = shade.PathState.start(ray, st, split,
+                                   env_nee=sky.has_env_sampling)
         steps = []
         for bounce in range(DEPTH):
             k1 = traverse.closest_hit_live(g, ps.o, ps.d, ps.alive)
             steps.append((ps.clone(), k1))
             nee = shade.shade_nee(ps, g, k1, sc._mat_table, sc._light_table,
-                                  len(sc.lights), sc.sky(), bounce)
-            occl = traverse.any_hit(g, nee.shadow_o, nee.shadow_d,
-                                    nee.shadow_t)
-            shade.shade_scatter(ps, nee, occl, sc._mat_table, bounce, True, 1)
+                                  len(sc.lights), sky, bounce)
+            occl, env = walks(g, nee)
+            shade.shade_scatter(ps, nee, occl, sc._mat_table, bounce, True, 1,
+                                env_shadow=env)
         out[split] = steps
     return out
+
+
+@pytest.fixture(scope="module")
+def chains(scene):
+    return _chains(scene)
+
+
+@pytest.fixture(scope="module")
+def hdri_chains(hdri_scene):
+    return _chains(hdri_scene)
 
 
 def _equal(a, b, lanes=None):
@@ -79,15 +116,12 @@ def _equal(a, b, lanes=None):
                for x, y in zip(comps(a), comps(b)))
 
 
-@pytest.mark.parametrize("bounce", range(DEPTH))
-@pytest.mark.parametrize("split", [False, True])
-def test_unspecified_record_values_are_never_read(scene, chains, split,
-                                                  bounce):
-    sc, g = scene, scene._geom
+def _check_bounce(sc, chains, split, bounce):
+    g, sky = sc._geom, sc.sky()
     pre, k1 = chains[split][bounce]
     clean_state = pre.clone()
     nee = shade.shade_nee(clean_state, g, k1, sc._mat_table, sc._light_table,
-                          len(sc.lights), sc.sky(), bounce)
+                          len(sc.lights), sky, bounce)
     bad = poisoned(nee, clean_state.alive)
     # there is something to poison, and something left to shade
     assert bool((~clean_state.alive).any()) and bool((~nee.do_nee).any())
@@ -96,43 +130,70 @@ def test_unspecified_record_values_are_never_read(scene, chains, split,
     if bounce < DEPTH - 1:
         assert bool(nee.do_nee.any())
 
-    # the shadow walk: a ray with t_max < 0 is skipped whatever it holds
-    occl = traverse.any_hit(g, nee.shadow_o, nee.shadow_d, nee.shadow_t)
-    occl_bad = traverse.any_hit(g, bad.shadow_o, bad.shadow_d, bad.shadow_t)
+    # the shadow walks: a ray with t_max < 0 is skipped whatever it holds
+    occl, env = walks(g, nee)
+    occl_bad, env_bad = walks(g, bad)
     assert torch.equal(occl, occl_bad)
     assert torch.equal(nee.shadow_t < 0, ~nee.do_nee)
+    if sky.has_env_sampling:
+        assert bool(torch.isnan(bad.env_pdf).any())
+        assert torch.equal(env, env_bad)
+        assert torch.equal(nee.env_t < 0, ~nee.do_nee)
+        assert bool((nee.env_t[nee.do_nee] == 1e28).all())
+    else:
+        assert nee.env_t is None
 
     bad_state = clean_state.clone()
     shade.shade_scatter(clean_state, nee, occl, sc._mat_table, bounce, True,
-                        1)
+                        1, env_shadow=env)
     shade.shade_scatter(bad_state, bad, occl_bad, sc._mat_table, bounce, True,
-                        1)
+                        1, env_shadow=env_bad)
     for name in ("alive", "rng", "ray_spec", "prev_was_specular",
                  "path_still_specular", "accum", "diffuse", "specular",
-                 "emission"):
+                 "emission", "prev_did_nee"):
         a, b = getattr(clean_state, name), getattr(bad_state, name)
         if a is not None:
             assert _equal(a, b), name
             assert not isinstance(a, Vec3) or bool(torch.isfinite(b.x).all())
-    # the next ray, where there is one
+    # the next ray (and the env MIS carries), where there is one
     live = clean_state.alive
-    for name in ("o", "d", "throughput"):
-        assert _equal(getattr(clean_state, name), getattr(bad_state, name),
-                      live), name
+    for name in ("o", "d", "throughput", "prev_pdf"):
+        if getattr(clean_state, name) is not None:
+            assert _equal(getattr(clean_state, name),
+                          getattr(bad_state, name), live), name
     # rays traced: this bounce's shadow rays and the next bounce's rays
     assert int(nee.do_nee.sum()) == int(bad.do_nee.sum())
     assert int(clean_state.alive.sum()) == int(bad_state.alive.sum())
 
 
-@pytest.mark.parametrize("preset", ["bench", "balanced"])
+@pytest.mark.parametrize("bounce", range(DEPTH))
+@pytest.mark.parametrize("split", [False, True])
+def test_unspecified_record_values_are_never_read(scene, chains, split,
+                                                  bounce):
+    _check_bounce(scene, chains, split, bounce)
+
+
+@pytest.mark.parametrize("bounce", range(DEPTH))
+@pytest.mark.parametrize("split", [False, True])
+def test_unspecified_env_record_values_are_never_read(hdri_scene,
+                                                      hdri_chains, split,
+                                                      bounce):
+    """The same with an HDRI and env NEE: the env sample's fields poisoned
+    where ``do_nee`` is false, the env walk fed the poisoned rays."""
+    _check_bounce(hdri_scene, hdri_chains, split, bounce)
+
+
+@pytest.mark.parametrize("preset", ["bench", "balanced", "hdri"])
 def test_frame_with_poisoned_records_is_the_same_frame(monkeypatch, preset):
     """A 64x48 frame (2 spp, depth 4; the balanced preset with its split
-    trace and post stack, or the bare bench settings) whose every record is
-    poisoned between the stages equals the normal frame: image, radiance and
-    rays traced."""
+    trace and post stack, the bare bench settings, or those lit by an HDRI
+    with env NEE) whose every record is poisoned between the stages equals
+    the normal frame: image, radiance and rays traced."""
 
     def render(poison: bool):
         sc = build_bench_scene(64, 48, target_tris=800, device="cpu")
+        if preset == "hdri":
+            hdri(sc)
         if preset == "balanced":
             sc.set_performance_preset("balanced")
         else:

@@ -35,7 +35,9 @@ from ptrt_tpu_torch.render.denoiser import (SKY_DEPTH_THRESHOLD,
                                             denoise_frame)
 from ptrt_tpu_torch.render.motion import motion_vectors
 from ptrt_tpu_torch.scene.camera import Camera
-from ptrt_tpu_torch.scene.pt_scene import PerformanceSettings, Scene
+from ptrt_tpu_torch.scene.pt_scene import (SPP_DISPATCH_MAX,
+                                           PerformanceSettings, Scene,
+                                           spp_chunks)
 from test_torch_shading import torch_one_thread  # noqa: F401
 
 W, H = 32, 24
@@ -86,11 +88,18 @@ def test_set_resolution_scale(scale):
 
 
 def test_only_high_spp_is_unported():
-    p = PerformanceSettings(samples_per_pixel=16, resolution_scale=0.5)
-    p.check_ported()
-    p.samples_per_pixel = 17
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        p.check_ported()
+    """No setting is unported any more (the name is from when frames above
+    16 spp raised): such a frame is traced in chunks of at most 16 spp and
+    posted once, as the reference's chunked frame."""
+    assert not hasattr(PerformanceSettings, "check_ported")
+    assert SPP_DISPATCH_MAX == 16
+    assert spp_chunks(17) == [16, 1] and spp_chunks(128) == [16] * 8
+    sc = Scene(8, 6, device="cpu")
+    sc.perf.samples_per_pixel, sc.perf.max_bounce_depth = 17, 1
+    sc.add_sphere(6).transform.set_position(0, 0, 4)
+    sc.set_camera((0, 0, 0), (0, 0, 4))
+    img = sc.render_frame()
+    assert img.shape == (6, 8, 3) and sc.frame_count == 1
 
 
 # -- the post half of the frame -----------------------------------------------

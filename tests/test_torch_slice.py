@@ -186,14 +186,12 @@ def test_render_frame_progressive_average():
     ("enable_motion_vectors", True), ("resolution_scale", 0.5),
     ("samples_per_pixel", 17)])
 def test_unported_settings_raise(setting, value):
-    """Of the settings that needed unported code, only frames above 16 spp
-    (the reference's chunked post program) still raise; the post stack and
-    the resolution scale render."""
+    """Every setting that once needed unported code renders now (the name is
+    from when they raised): the post stack, the resolution scale, and
+    frames above 16 spp, traced in chunks (16 + 1 here) and posted once."""
     sc = _bench_perf(build_bench_scene(16, 12, target_tris=300, device="cpu"))
     setattr(sc.perf, setting, value)
+    img = sc.render_frame()
+    assert img.shape == (12, 16, 3) and img.dtype == np.uint8
     if setting == "samples_per_pixel":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sc.render_frame()
-    else:
-        img = sc.render_frame()
-        assert img.shape == (12, 16, 3) and img.dtype == np.uint8
+        assert int(sc.last_frame.rays_traced) > 16 * 12 * 17

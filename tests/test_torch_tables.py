@@ -160,8 +160,20 @@ def test_from_reference_round_trip(pair):
 
 
 def test_from_reference_rejects_hdri():
-    with pytest.raises(NotImplementedError):
-        tables.from_reference(device=CPU, sky={"env": np.zeros((4, 8, 3))})
+    """An HDRI sky is carried across now (the name is from when it was
+    refused): the map, its rotation, the alias rows, the pdf and (SH, SW),
+    byte for byte, and back through ``to_numpy``."""
+    from ptrt_tpu.render.sky import SkyConfig as RefSky
+
+    env = np.random.default_rng(4).uniform(0, 3, (4, 8, 3)).astype(
+        np.float32)
+    ref = ref_np(RefSky.hdri(env, 0.5))
+    sky = tables.from_reference(device=CPU, sky=ref)["sky"]
+    assert sky.has_env_sampling and sky.env_sample_hw == (4, 8)
+    back = tables.to_numpy(sky)
+    for key in ("env", "env_alias", "env_pdf", "env_rotation", "use_sky"):
+        _same(ref[key], back[key])
+    assert back["env_sample_hw"] == ref["env_sample_hw"]
 
 
 def test_camera_view_projection_matches(pair):
