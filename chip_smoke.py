@@ -96,7 +96,21 @@ Phases (any failure raises, so the exit code is non-zero):
      warm-up frame and one timed frame, with its launches;
   9. end to end on small inputs: the bench frame, three balanced frames and
      an hdri frame rendered on the GPU and on the CPU (plain versions) must
-     agree.
+     agree;
+ 10. dynamic geometry on the "dynamic" scene (app/bench_scene.py
+     build_dynamic_scene: the 1920x1080 bench scene, balanced, with 192
+     building slots moved every frame, a 130,050-triangle heightfield
+     refilled, an 8,192-triangle sphere Morton-refilled): K4
+     instances_closest / instances_any on the camera, bounce-1 and shadow
+     wavefronts against their plain version on a 4096-ray sample (hit, mesh
+     and instance equal, t within K4_T_ATOL), at full width, on two streams
+     at once (bit for bit), against the same transforms baked into one
+     static world walked by K1 / K2, each timed beside its bound; K5 refit
+     and morton bit for bit against their plain versions on every table, at
+     the heightfield, the sphere and odd sizes, timed; one warm-up and five
+     timed dynamic frames (the counters: no host BVH build, 192 transform
+     updates, 2 refits, 1 LBVH build a frame; the launches) and a profiled
+     one; a 64x48 dynamic frame on the GPU and on the CPU.
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
@@ -168,6 +182,14 @@ SHADE_STAGED_BYTES = 48 * 1024  # shade.cu stages tables up to this size
 # the odd sizes the post kernels are held at besides 1920x1080: crops that
 # are no multiple of a tile, smaller than a halo, one pixel
 ODD_SIZES = ((23, 37), (75, 101), (1, 1), (270, 333))
+# K4 against its plain version: t within this (K1's own largest error on
+# the bench wavefronts); against the same transforms baked into one
+# static world walked by K1 / K2: the share of rays whose hit and mesh id
+# agree (grazing rays may cross an edge either way)
+K4_T_ATOL, K4_BAKED_AGREE = 2.8e-5, 0.9999
+DYN_FRAMES = 5  # the dynamic frame's timed frames
+# kernels a frame without dynamic meshes never launches
+STATIC_NEVER = ("instances_closest", "instances_any", "refit", "morton")
 
 
 def bound(nbytes: float, ops: float = 0.0) -> dict:
@@ -1509,6 +1531,215 @@ def check_hdri(hdri, dev, card, rng):
     return stats, times
 
 
+# -- 10. dynamic geometry: K4 and K5 ---------------------------------------------
+
+
+def clone_geom(g):
+    """A copy of a geometry's tables that K5 refits (the rest shared)."""
+    import dataclasses
+    import torch
+
+    return dataclasses.replace(
+        g, node_rows=g.node_rows.clone(), tri_rows=g.tri_rows.clone(),
+        v0=g.v0.map(torch.clone), e1=g.e1.map(torch.clone),
+        e2=g.e2.map(torch.clone))
+
+
+def same_tables(a, b) -> bool:
+    """K5's tables equal by value (a +0 and a -0 bound are one bound)."""
+    import torch
+
+    vec = lambda u, v: all(torch.equal(getattr(u, c), getattr(v, c))
+                           for c in "xyz")
+    return (torch.equal(a.node_rows, b.node_rows)
+            and torch.equal(a.tri_rows, b.tri_rows) and vec(a.v0, b.v0)
+            and vec(a.e1, b.e1) and vec(a.e2, b.e2))
+
+
+def check_refit(label, geom, plan, tris, morton, card):
+    """K5 on one mesh: ``refit`` (its plan's map, or with ``morton`` the
+    Morton refill from the ``morton`` kernel's order) against its plain
+    version on copies of the tables, bit for bit on every table; the
+    ``morton`` codes against their plain version bit for bit; each timed
+    queued beside its bound and its plain
+    version."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch.geometry import lbvh, refit
+    from ptrt_tpu_torch.tools import stages
+
+    dev = geom.device
+    v = torch.from_numpy(np.ascontiguousarray(np.stack(tris))).to(dev)
+    v0, v1, v2 = v[0], v[1], v[2]
+    out = {}
+    slot_map = None
+    if morton:
+        codes = lbvh.morton_codes(v0, v1, v2)
+        want = lbvh.morton_codes_plain(v0, v1, v2)
+        assert torch.equal(codes, want), f"morton {label}: codes differ"
+        order = torch.sort(codes, stable=True).indices.to(torch.int32)
+        slot_map = (plan.device_arrays(dev)["rank"], order)
+        out["morton"] = {
+            "tris": int(v0.shape[0]), "distinct": int(codes.unique().numel()),
+            "queued_ms": [stages.clones_ms(
+                lambda _: lbvh.morton_codes(v0, v1, v2), [None] * 21,
+                stages.SPIN_CYCLES) for _ in range(2)],
+            "plain_ms": cuda_ms(lambda: lbvh.morton_codes_plain(v0, v1, v2),
+                                5),
+            **stages.morton_bound(int(v0.shape[0]))}
+    ga, gb = clone_geom(geom), clone_geom(geom)
+    refit.refit_apply(ga, plan, v0, v1, v2, slot_map=slot_map)
+    refit.refit_apply_plain(gb, plan, v0, v1, v2, slot_map=slot_map)
+    torch.cuda.synchronize()
+    assert same_tables(ga, gb), f"refit {label}: tables differ"
+    assert not torch.equal(ga.node_rows, geom.node_rows), (
+        f"refit {label}: nothing moved")
+    out["refit"] = {
+        "tris": int(v0.shape[0]), "slots": plan.num_slots,
+        "nodes": plan.num_nodes, "levels": len(plan.levels),
+        "queued_ms": [stages.clones_ms(
+            lambda _: refit.refit_apply(ga, plan, v0, v1, v2,
+                                        slot_map=slot_map), [None] * 21,
+            stages.SPIN_CYCLES) for _ in range(2)],
+        "plain_ms": cuda_ms(lambda: refit.refit_apply_plain(
+            gb, plan, v0, v1, v2, slot_map=slot_map), 3),
+        **stages.refit_bound(plan, int(v0.shape[0]), morton)}
+    for k, r in out.items():
+        log(f"  {k} {label} ({r['tris']} triangles): bit for bit its plain "
+            f"version; queued {r['queued_ms'][0]:.4f} / "
+            f"{r['queued_ms'][1]:.4f} ms vs plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    return out
+
+
+def check_instances(dyn, rng, card):
+    """K4 on the 1080p dynamic frame's wavefronts (camera, bounce 1,
+    shadow): on a SAMPLE_RAYS sample against the plain version (hit, mesh
+    and instance equal on every ray, t within K4_T_ATOL), at full width
+    held bit for bit at the sampled rays, on two streams at once (bit for
+    bit), against the same transforms baked into one static world and
+    walked by K1 / K2 (hit and mesh ids equal on K4_BAKED_AGREE of the
+    rays), timed queued on copies of K1's record beside its bound."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch.geometry.scene_geom import assemble_geometry
+    from ptrt_tpu_torch.render import traverse
+    from ptrt_tpu_torch.tools import stages
+    from ptrt_tpu_torch.tools.walks import wavefronts
+
+    g = dyn._geom
+    iset, dev = g.iset, g.device
+    rays = wavefronts(dyn)
+    trans = [m.transmission for m in dyn.mesh_materials]
+    t0 = time.time()
+    baked = assemble_geometry(dyn.meshes, trans, dev)
+    bake_s = time.time() - t0
+    n = rays[0][3].numel()
+    idx = torch.from_numpy(rng.choice(n, min(n, SAMPLE_RAYS),
+                                      replace=False)).to(dev)
+    copy = lambda r: traverse.Closest(*[p.clone() for p in r])
+    res = {"instances_closest": {"mismatches": 0, "max_abs_err": 0.0},
+           "instances_any": {"mismatches": 0, "max_abs_err": 0.0}}
+    for name, o, d, t in rays:
+        pick = lambda v: v.map(lambda c: c[idx].contiguous())
+        so, sd, st = pick(o), pick(d), t[idx].contiguous()
+        if name == "shadow":
+            k = "instances_any"
+            h0 = traverse.any_hit(g.static, so, sd, st)
+            got = traverse.instances_any(iset, so, sd, st, h0.clone())
+            t1 = time.time()
+            want = traverse.instances_any_plain(iset, so, sd, st, h0.clone())
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.time() - t1)
+            mism = int((got != want).sum())
+            full0 = traverse.any_hit(g.static, o, d, t)
+            full = traverse.instances_any(iset, o, d, t, full0.clone())
+            assert torch.equal(full[idx], got), f"K4 {name}: full width"
+            both = []
+            for s in (torch.cuda.Stream(dev), torch.cuda.Stream(dev)):
+                s.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(s):
+                    both.append(traverse.instances_any(iset, o, d, t,
+                                                       full0.clone()))
+            torch.cuda.synchronize()
+            assert all(torch.equal(b, full) for b in both), (
+                f"K4 {name}: two streams differ")
+            agree = float((traverse.any_hit(baked, o, d, t) == full)
+                          .float().mean())
+            live = int((~full0 & (t > 0)).sum())
+            states = [full0.clone() for _ in range(11)]
+            ms = [stages.clones_ms(
+                lambda h: traverse.instances_any(iset, o, d, t, h),
+                [x.clone() for x in states], stages.SPIN_CYCLES)
+                  for _ in range(2)]
+            added = int((full & ~full0).sum())
+            extra = f"{added} lanes occluded by an instance only"
+            t_err = 0.0
+        else:
+            k = "instances_closest"
+            rec = traverse.closest_hit(g.static, so, sd, st)
+            got = traverse.instances_closest(iset, so, sd, copy(rec))
+            t1 = time.time()
+            want = traverse.instances_closest_plain(iset, so, sd, copy(rec))
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.time() - t1)
+            hit_k, hit_p = got.slot >= 0, want.slot >= 0
+            mism = int(((hit_k != hit_p) | (got.mesh != want.mesh)
+                        | (got.inst != want.inst)).sum())
+            bh = hit_k & hit_p
+            t_err = float((got.t - want.t).abs()[bh].max()) if bh.any() \
+                else 0.0
+            assert bool(((got.t - want.t).abs() <= 1e-4 * want.t.abs())[bh]
+                        .all()), f"K4 {name}: t beyond rtol 1e-4"
+            full0 = traverse.closest_hit(g.static, o, d, t)
+            full = traverse.instances_closest(iset, o, d, copy(full0))
+            at = lambda r: [p[idx] for p in r] + [r.inst[idx]]
+            assert all(torch.equal(a, b) for a, b in zip(
+                at(full), [*got, got.inst])), f"K4 {name}: full width"
+            both = []
+            for s in (torch.cuda.Stream(dev), torch.cuda.Stream(dev)):
+                s.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(s):
+                    both.append(traverse.instances_closest(iset, o, d,
+                                                           copy(full0)))
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for r in both
+                       for a, b in zip([*r, r.inst], [*full, full.inst])), (
+                f"K4 {name}: two streams differ")
+            bk = traverse.closest_hit(baked, o, d, t)
+            agree = float((((bk.slot >= 0) == (full.slot >= 0))
+                           & (bk.mesh == full.mesh)).float().mean())
+            live = int((t > 0).sum())
+            states = [copy(full0) for _ in range(11)]
+            ms = [stages.clones_ms(
+                lambda r: traverse.instances_closest(iset, o, d, r),
+                [copy(x) for x in states], stages.SPIN_CYCLES)
+                  for _ in range(2)]
+            share = float((full.inst >= 0)[t > 0].float().mean())
+            extra = (f"instance hits on {share:.4f} of the live rays, max "
+                     f"|dt| {t_err:.3g}")
+        b = stages.instances_bound(iset, n, live, name == "shadow")
+        log(f"  K4 {k} {name}: {SAMPLE_RAYS} sampled rays vs plain "
+            f"({plain_ms:.1f} ms): {mism} hit/mesh/inst mismatches; {extra};"
+            f" full width equal at the sample, two streams bit for bit; "
+            f"against the baked world (K1/K2, {baked.num_tri_slots} slots, "
+            f"built in {bake_s:.1f} s) agree on {agree:.6f}; at {n} rays "
+            f"({live} live) queued {ms[0]:.4f} / {ms[1]:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
+        assert mism == 0, f"K4 {name}: {mism} mismatches"
+        assert t_err <= K4_T_ATOL, f"K4 {name}: |dt| {t_err}"
+        assert agree >= K4_BAKED_AGREE, f"K4 {name}: baked agree {agree}"
+        r = res[k]
+        r["max_abs_err"] = max(r["max_abs_err"], t_err)
+        r.setdefault("wavefront_queued_ms", {})[name] = ms
+        r.setdefault("wavefront_bound_ms", {})[name] = b["bound_ms"]
+        r.setdefault("wavefront_live", {})[name] = live
+        r.setdefault("baked_agree", {})[name] = agree
+        r.setdefault("plain_sample_ms", {})[name] = plain_ms
+        r["bound_by"] = b["bound_by"]
+    return res
+
+
 def bounce_launches(names, samples, depth):
     """Kernel launches from each of a sample's K1 launches to its next (one
     bounce), in a profiled frame's timeline."""
@@ -1580,7 +1811,8 @@ def main() -> int:
         os.path.join(BUILD_DIR, kernels.LIBRARY),
         ("closest_hit", "any_hit", "walk_count", "tonemap_rgb8",
          "gather_rows", "svgf_temporal", "svgf_atrous", "bloom_chain",
-         "shade_nee", "shade_scatter"))
+         "shade_nee", "shade_scatter", "instances_closest", "instances_any",
+         "refit_kernel", "morton"))
     for k, fns in resources.items():
         for fn, r in fns.items():
             log(f"[build] {k} ({fn[-40:]}): {r['registers']} registers, "
@@ -1727,6 +1959,8 @@ def main() -> int:
         # once a bounce of each sample
         assert launches.get(k, 0) == 4 * SPP * DEPTH, (k, launches)
     assert launches.get("row_gather", 0) == 0, "the main path gathers planes"
+    for k in STATIC_NEVER:  # a scene without dynamic meshes
+        assert launches.get(k, 0) == 0, (k, launches)
     prof = stages.frame_profile(full)
     log(f"[main] one profiled frame: device kernel time {prof['device_ms']} "
         f"ms in {prof['launches']} kernel launches (busy share "
@@ -1810,7 +2044,7 @@ def main() -> int:
     per_frame = {"closest_hit": BAL_DEPTH, "any_hit": BAL_DEPTH,
                  "shade_nee": BAL_DEPTH, "shade_scatter": BAL_DEPTH,
                  "svgf_temporal": 1, "svgf_atrous": 7, "tonemap_rgb8": 1,
-                 "bloom_chain": 1}
+                 "bloom_chain": 1, **dict.fromkeys(STATIC_NEVER, 0)}
     for k, n in per_frame.items():
         assert bal_launches.get(k, 0) == n * BAL_FRAMES, (k, bal_launches)
     assert bal_launches.get("row_gather", 0) == 0, bal_launches
@@ -1889,7 +2123,8 @@ def main() -> int:
                  "shade_nee (hdri)": BAL_DEPTH,
                  "shade_scatter (hdri)": BAL_DEPTH, "svgf_temporal": 1,
                  "svgf_atrous": 7, "tonemap_rgb8": 1, "bloom_chain": 1,
-                 "shade_nee": 0, "shade_scatter": 0}
+                 "shade_nee": 0, "shade_scatter": 0,
+                 **dict.fromkeys(STATIC_NEVER, 0)}
     for k, n in per_frame.items():
         assert hdri_launches.get(k, 0) == n * BAL_FRAMES, (k, hdri_launches)
     assert img.shape == (H, W, 3) and img.std() > 1.0, "hdri image"
@@ -2009,6 +2244,157 @@ def main() -> int:
         f"{int(fg.rays_traced)} vs {int(fc.rays_traced)}")
     assert oid_agree >= 0.999 and e_rel <= 0.02 and lsb >= 0.97
 
+    # -- 10. dynamic geometry: K4, K5 and the "dynamic" frame ----------------
+    from ptrt_tpu_torch.app.bench_scene import build_dynamic_scene
+
+    del ultra, hdri
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    dyn = build_dynamic_scene(W, H, target_tris=TRIS, device=dev)
+    dyn._ensure_device_state()
+    torch.cuda.synchronize()
+    dyn_setup_s = time.time() - t0
+    iset = dyn._geom.iset
+    dyn_meshes = [i for i, m in enumerate(dyn.meshes) if m.is_dynamic]
+    log(f"[dynamic] {W}x{H} bench scene + {iset.count} dynamic meshes "
+        f"(192 building slots, a {dyn.meshes[-2].num_triangles}-triangle "
+        f"heightfield refilled, a {dyn.meshes[-1].num_triangles}-triangle "
+        f"Morton-refilled sphere): the set {iset.geom.num_nodes} nodes, "
+        f"{iset.geom.num_tri_slots} slots, stack bound "
+        f"{iset.geom.stack_depth}; set-up {dyn_setup_s:.2f} s")
+    kstats = check_instances(dyn, rng, card)
+    from ptrt_tpu_torch.render import traverse as trav
+
+    k4_info = trav.instances_info(iset.count)
+    # no trap in the walk loops: each K4 kernel's SASS pairs its BSSY with
+    # BSYNC, the warp reconverging as K1's does (phase 2's listing)
+    for k in ("instances_closest", "instances_any"):
+        for fn, r in resources[k].items():
+            assert r["sass"].get("bssy", 0) == r["sass"].get("bsync", 0) > 0, (
+                fn, r["sass"])
+    for k, v in k4_info.items():
+        log(f"  {k}: {v['registers']} registers, {v['local_bytes']} bytes "
+            f"of local memory a thread, {v['blocks_per_sm']} resident blocks "
+            f"of 128 threads a SM with {iset.count} instances staged")
+    plans = dyn._iset_cache["plans"]
+    kres = {}
+    for label, pos, mesh, morton in (
+            ("heightfield", len(plans) - 2, dyn.meshes[-2], False),
+            ("sphere", len(plans) - 1, dyn.meshes[-1], True)):
+        tris = dyn.animate.pool_triangles(40) if not morton else \
+            dyn.animate.blob_triangles(40)
+        kres[label] = check_refit(label, iset.geom, plans[pos],
+                                  [tris[:, j] for j in range(3)], morton,
+                                  card)
+    # odd sizes: a 37x29-cell heightfield refit, a 1,001-triangle soup's
+    # codes and its Morton refill
+    from ptrt_tpu_torch.app.bench_scene import heightfield_to_triangles
+    from ptrt_tpu_torch.geometry.mesh import Mesh
+    from ptrt_tpu_torch.geometry.refit import build_refit_plan
+    from ptrt_tpu_torch.geometry.scene_geom import assemble_geometry
+
+    odd_rng = np.random.default_rng(5)
+    hf = odd_rng.normal(size=(30, 30)).astype(np.float32) * 0.1
+    odd_tris = heightfield_to_triangles(hf)[:1621]
+    soup = odd_rng.uniform(-3, 3, (1001, 1, 3)).astype(np.float32) + \
+        odd_rng.uniform(-0.2, 0.2, (1001, 3, 3)).astype(np.float32)
+    for label, tris, morton in (("odd heightfield", odd_tris, False),
+                                ("odd soup", soup, True)):
+        og = assemble_geometry([Mesh.from_triangles(tris)], None, dev,
+                               world=False)
+        moved = tris * np.float32(1.1) + np.float32(0.05)
+        kres[label] = check_refit(label, og, build_refit_plan(og),
+                                  [moved[:, j] for j in range(3)], morton,
+                                  card)
+    del og
+    torch.cuda.empty_cache()
+
+    # the dynamic frame: balanced, the camera orbiting, every frame's edits
+    orbit(dyn, 0)
+    dyn.animate(1)
+    dyn.render_frame()
+    torch.cuda.synchronize()
+    before = (dyn.stats_world_builds, dyn.stats_blas_builds,
+              dyn.stats_tlas_updates, dyn.stats_device_refits,
+              dyn.stats_device_lbvh_builds)
+    kernels.launches.clear()
+    dyn_s, edit_s, dyn_rays = [], [], []
+    for k in range(2, 2 + DYN_FRAMES):
+        orbit(dyn, k)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dyn.animate(k)
+        t1 = time.time()
+        img = dyn.render_frame()
+        torch.cuda.synchronize()
+        dyn_s.append(time.time() - t0)
+        edit_s.append(t1 - t0)
+        dyn_rays.append(int(dyn.last_frame.rays_traced))
+    dyn_launches = dict(kernels.launches)
+    after = (dyn.stats_world_builds, dyn.stats_blas_builds,
+             dyn.stats_tlas_updates, dyn.stats_device_refits,
+             dyn.stats_device_lbvh_builds)
+    dyn_ms = 1e3 * sum(dyn_s) / len(dyn_s)
+    ids = dyn.last_frame.object_id
+    dyn_share = float(torch.isin(ids, torch.tensor(
+        dyn_meshes, device=dev)).float().mean())
+    log(f"[dynamic] {W}x{H} balanced, {ORBIT_DEG} deg orbit and the scene's "
+        f"edits a frame: frame {dyn_ms:.1f} ms (frames "
+        f"{[round(1e3 * s, 1) for s in dyn_s]} ms; of them the host edits "
+        f"{[round(1e3 * s, 1) for s in edit_s]} ms), {dyn_rays[-1]} "
+        f"rays/frame, {sum(dyn_rays) / sum(dyn_s) / 1e6:.1f} Mrays/s; "
+        f"camera rays on a dynamic mesh {dyn_share:.4f} [{card}]")
+    log(f"[dynamic] counters (world builds, instance builds, transform "
+        f"updates, device refits, device LBVH builds) {before} -> {after} "
+        f"over {DYN_FRAMES} frames; launches {dyn_launches}")
+    delta = tuple(a - b for a, b in zip(after, before))
+    assert delta == (0, 0, 192 * DYN_FRAMES, 2 * DYN_FRAMES, DYN_FRAMES), (
+        delta)
+    per_frame = {"closest_hit": BAL_DEPTH, "instances_closest": BAL_DEPTH,
+                 "any_hit": BAL_DEPTH, "instances_any": BAL_DEPTH,
+                 "shade_nee": BAL_DEPTH, "shade_scatter": BAL_DEPTH,
+                 "refit": 2, "morton": 1, "bloom_chain": 1,
+                 "tonemap_rgb8": 1}
+    for k, n in per_frame.items():
+        assert dyn_launches.get(k, 0) == n * DYN_FRAMES, (k, dyn_launches)
+    assert dyn_share >= 0.10, dyn_share
+    assert img.shape == (H, W, 3) and img.std() > 1.0, "dynamic image"
+    for v in (dyn.last_frame.color, dyn.last_frame.diffuse):
+        assert all(bool(torch.isfinite(c).all()) for c in (v.x, v.y, v.z))
+    orbit(dyn, 2 + DYN_FRAMES)
+    dyn.animate(2 + DYN_FRAMES)
+    dyn_prof = stages.frame_profile(dyn)
+    assert dyn_prof["names"] is not None, "the profiler saw no kernels"
+    k4_launches = sum("instances_" in nm for nm in dyn_prof["names"])
+    log(f"[dynamic] one profiled frame: device kernel time "
+        f"{dyn_prof['device_ms']:.3f} ms in {dyn_prof['launches']} kernel "
+        f"launches ({k4_launches} K4), busy share "
+        f"{dyn_prof['device_ms'] / dyn_ms:.3f} of the unprofiled frame, the "
+        f"walks K1/K2 {dyn_prof['walk_ms']:.3f} ms; top kernels (ms) "
+        f"{dyn_prof['top']} [{card}]")
+    del dyn, iset
+    torch.cuda.empty_cache()
+
+    small_dyn = {}
+    for name, d in (("cpu", torch.device("cpu")), ("gpu", dev)):
+        sc = bench_perf(build_dynamic_scene(64, 48, target_tris=2000,
+                                            device=d), 2, 3)
+        sc.animate(1)
+        small_dyn[name] = (sc, sc.render_frame())
+    (sc_c, img_c), (sc_g, img_g) = small_dyn["cpu"], small_dyn["gpu"]
+    fc, fg = sc_c.last_frame, sc_g.last_frame
+    oid_agree = float((fc.object_id == fg.object_id.cpu()).float().mean())
+    lsb = float((np.abs(img_c.astype(int) - img_g.astype(int)).max(-1) <= 1)
+                .mean())
+    dyn_ids = torch.isin(fc.object_id, torch.tensor(
+        [i for i, m in enumerate(sc_c.meshes) if m.is_dynamic]))
+    log(f"[e2e] 64x48 dynamic scene (2 spp, depth 3; the frame-1 edits), GPU "
+        f"vs CPU: object id agree {oid_agree:.5f} ({float(dyn_ids.float().mean()):.3f}"
+        f" of the pixels on a dynamic mesh), image within 1 LSB on "
+        f"{lsb:.4f} of pixels, rays {int(fg.rays_traced)} vs "
+        f"{int(fc.rays_traced)}")
+    assert oid_agree >= 0.999 and lsb >= 0.99, (oid_agree, lsb)
+
     for k in ("shade_nee", "shade_scatter"):
         hs = hstats[k]
         hs.update(htimes[True][k][1])  # the table's line: split, bounce 1
@@ -2124,6 +2510,40 @@ def main() -> int:
            "frames_ultra": 1, **hstats[k], "library_ms": None,
            "lanes": W * H, "sass_instructions": sass[k]}
           for k in ("shade_nee", "shade_scatter")],
+        *[{"name": k, "route": "cuda", "source": src("traverse.cu"),
+           "replaces": ("ptrt_tpu/render/traverse.py:986" if k ==
+                        "instances_closest" else
+                        "ptrt_tpu/render/traverse.py:1041"),
+           "also_replaces": (["ptrt_tpu/render/traverse.py:897,958-979,833"]
+                             if k == "instances_closest" else
+                             ["ptrt_tpu/render/traverse.py:897,958-970"]),
+           "launches": dyn_launches.get(k, 0),
+           "frames_dynamic": DYN_FRAMES,
+           "max_abs_err": kstats[k]["max_abs_err"],
+           "ms": sum(kstats[k]["wavefront_queued_ms"][w]) / 2,
+           "bound_ms": kstats[k]["wavefront_bound_ms"][w],
+           "bound_by": kstats[k]["bound_by"],
+           "plain_ms": kstats[k]["plain_sample_ms"][w],
+           "plain_rays": SAMPLE_RAYS, "wavefront": w, "library_ms": None,
+           "rays": W * H, **{key: v for key, v in kstats[k].items()
+                             if key.startswith(("wavefront", "baked"))},
+           **k4_info[k]}
+          for k, w in (("instances_closest", "bounce"),
+                       ("instances_any", "shadow"))],
+        *[{"name": k, "route": "cuda", "source": src("refit.cu"),
+           "replaces": ("ptrt_tpu/geometry/refit.py:110" if k == "refit"
+                        else "ptrt_tpu/geometry/lbvh.py:41"),
+           "launches": dyn_launches.get(k, 0),
+           "frames_dynamic": DYN_FRAMES, "max_abs_err": 0.0,
+           "ms": sum(kres[m][k]["queued_ms"]) / 2,
+           "bound_ms": kres[m][k]["bound_ms"],
+           "bound_by": kres[m][k]["bound_by"],
+           "plain_ms": kres[m][k]["plain_ms"], "library_ms": None,
+           "mesh": m, "tris": kres[m][k]["tris"],
+           "sizes": {lbl: {key: r[k][key] for key in (
+               "tris", "queued_ms", "plain_ms", "bound_ms")}
+               for lbl, r in kres.items() if k in r}}
+          for k, m in (("refit", "heightfield"), ("morton", "sphere"))],
     ]}
     # the ranking: device ms a frame that each kernel stands over its bound,
     # summed over the passes and bounces the frames really run (a bench
@@ -2152,6 +2572,20 @@ def main() -> int:
         over[k] = {"balanced": sum(v) / 2}
     over["tonemap_rgb8"]["bench"] = sum(
         t - k6_bound["bound_ms"] for t in k6_queued) / 2
+    # the dynamic frame's K4 at the wavefronts measured (bounces 0 and 1 of
+    # the closest walk, bounce 0's shadow rays), its refits and codes
+    gap = lambda k, w: (sum(kstats[k]["wavefront_queued_ms"][w]) / 2
+                        - kstats[k]["wavefront_bound_ms"][w])
+    over["instances_closest"] = {"dynamic (bounces 0-1)":
+                                 gap("instances_closest", "camera")
+                                 + gap("instances_closest", "bounce")}
+    over["instances_any"] = {"dynamic (bounce 0)":
+                             gap("instances_any", "shadow")}
+    over["refit"] = {"dynamic": sum(
+        sum(kres[m]["refit"]["queued_ms"]) / 2 - kres[m]["refit"]["bound_ms"]
+        for m in ("heightfield", "sphere"))}
+    over["morton"] = {"dynamic": sum(kres["sphere"]["morton"]["queued_ms"])
+                      / 2 - kres["sphere"]["morton"]["bound_ms"]}
     log("[rank] device ms a frame over the bound (launches x (time - "
         "bound), each pass, bounce, channel pair and mip at its own time; "
         "the small kernels queued, the two readings in brackets): "

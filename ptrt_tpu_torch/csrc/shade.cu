@@ -170,6 +170,13 @@ struct ShadeArgs {
     float* env_c[3];           // unshadowed, clamped (the diffuse half if split)
     float* env_cs[3];          // the specular half (split only)
     const uint8_t* in_shadow_env;  // K2's answer for the env shadow rays
+    // instances (all null without them): K4's instance plane; where it is
+    // >= 0, hit_slot indexes the instance set's edges and the normal goes
+    // through the instance's normal matrix (columns 12:21 of its row)
+    const int* hit_inst;
+    const float* inst_e1[3];
+    const float* inst_e2[3];
+    const float* inst_mats;    // (I, 24)
 };
 
 namespace {
@@ -1174,7 +1181,19 @@ __device__ void nee_lane(const ShadeArgs& a, const float* mat_table,
     bool front = false, do_nee = false;
     if (found) {
         const V3 o = ld3(a.o, i);
-        n = normalize(cross(ld3(a.e1, slot), ld3(a.e2, slot)), F(1e-30));
+        // a uniform branch: hit_inst is null in a scene without instances
+        const int inst = a.hit_inst != nullptr ? a.hit_inst[i] : -1;
+        if (inst >= 0) {
+            // traverse._mat_normal of the set's triangle, as the reference
+            const V3 c = cross(ld3(a.inst_e1, slot), ld3(a.inst_e2, slot));
+            const float* m = a.inst_mats + 24 * inst;
+            n = normalize(V3{dot(V3{m[12], m[13], m[14]}, c),
+                             dot(V3{m[15], m[16], m[17]}, c),
+                             dot(V3{m[18], m[19], m[20]}, c)},
+                          F(1e-30));
+        } else {
+            n = normalize(cross(ld3(a.e1, slot), ld3(a.e2, slot)), F(1e-30));
+        }
         front = dot(d, n) < 0.0f;
         n = front ? n : neg(n);
         point = add(o, mul(d, t));

@@ -66,6 +66,7 @@ constexpr int kTriRow = 10 * kLeaf;   // tri_rows width
 constexpr int kNodeRow = 64;          // node_rows width
 constexpr int kOrderCol = 52;         // first per-octant order column
 constexpr int kMaxStack = 64;         // must be >= SceneGeometry.stack_depth
+constexpr int kMaxInstances = 512;    // K4 stages every instance a block
 constexpr float kTMin = 1e-4f;        // traverse.T_MIN
 constexpr float kTMax = 1e30f;        // traverse.T_MAX: a live lane's t_max
 constexpr float kMtEps = 1e-9f;       // traverse._MT_EPS
@@ -206,18 +207,19 @@ __device__ __forceinline__ uint32_t to_rank(uint32_t m, uint32_t ord) {
 // (base, mask, ord) holds the children ``base + slot`` still to visit; in
 // near-first order ``mask`` is in rank space and ``ord`` the parent row's
 // order word (rank k -> slot (ord >> 3k) & 7), in slot order ``ord`` is 0.
-// ``tally`` (nodes, triangles) is null unless kCount.
+// ``tally`` (nodes, triangles) is null unless kCount.  The walk starts at
+// node ``root`` (0 for a flat geometry; an instance's root in a merged set).
 template <bool kAny, bool kOrdered, bool kCount>
 __device__ bool walk(const float* __restrict__ nodes, int n_nodes,
                      const float* __restrict__ tris, int n_blocks,
                      const Ray& r, float& t, int& best, int& best_mesh,
                      float& best_u, float& best_v,
-                     unsigned long long* tally) {
+                     unsigned long long* tally, int root = 0) {
     uint2 stack[kMaxStack];
     const int oct = (r.dx < 0.0f ? 1 : 0) | (r.dy < 0.0f ? 2 : 0) |
                     (r.dz < 0.0f ? 4 : 0);
     int sp = 0;
-    int base = 0;  // the root is node 0 = base 0 + slot 0
+    int base = root;  // the root is node root = base + slot 0
     uint32_t mask = 1u, ord = 0u;
     while (true) {
         if (mask == 0u) {
@@ -419,6 +421,219 @@ WalkArgs walk_args(const float* nodes, int n_nodes, const float* tris,
     return a;
 }
 
+// -- K4: the instance walks ----------------------------------------------------
+//
+// Replaces: ptrt_tpu/render/traverse.py _instances_closest_batched (:986)
+// and _instances_any_batched (:1041), with _inst_hit_words (:897),
+// _mat_affine / _mat_linear (:958-970) and _reconstruct_hit (:833): the
+// dense slab test of every ray against every instance's world AABB, then
+// rounds of (ray, instance) items packed, moved into the instance's frame
+// and walked from the instance's root through the merged tables.
+//
+// What bounds them on the card: the same dependent loads as K1 and K2 for
+// the rays that enter an instance's box, and for every ray the instance
+// list itself (6 floats of box a ray and an instance, ~20 operations).
+//
+// What this design does: one thread a ray, the persistent warps of K1 (a
+// counter of its own for each call), the instances' boxes, world->local
+// rows and roots staged in shared memory once a block.  A ray walks the
+// instances in id order: those whose box it enters within the static
+// pass's t (the reference tests the boxes once, against that t), each
+// with its ray moved into the instance's frame (o_l = M o + m3, d_l = M d
+// in _mat_affine's order with no contraction, so the local rays equal the
+// plain version's; the direction is not renormalised, so t is shared
+// between the frames) and walked from its root bounded by the current t.
+// A hit strictly nearer than that bound replaces the record.  K4 runs after
+// K1 (K2) as its own launch, over the same wavefront, and updates K1's
+// record (K2's plane) in place: a scene with no dynamic mesh launches no K4.
+// The any-hit walk skips lanes already occluded or with t_max <= 0 and
+// stops at its first occluder.
+
+constexpr int kK4Blocks = 6;      // resident blocks a SM (launch bounds)
+constexpr int kK4AnyBlocks = 8;
+constexpr int kInstFloats = 18;   // staged a instance: box 6, rows 0:12
+
+// Everything an instance walk reads and writes.  ``w`` holds the merged
+// tables, the world rays and, for closest, K1's record (t, u, v, slot,
+// mesh: read and updated in place) or, for any, t_max.
+struct InstArgs {
+    WalkArgs w;
+    const float* __restrict__ mats;    // (I, 24): rows 0:12 world->local
+    const float* __restrict__ bb_min;  // (I, 3)
+    const float* __restrict__ bb_max;  // (I, 3)
+    const int* __restrict__ roots;     // (I,)
+    int* __restrict__ inst_out;        // closest: the winning instance or -1
+    uint8_t* __restrict__ hit_io;      // any: K2's plane, ORed in place
+    int n_inst;
+};
+
+__device__ __forceinline__ bool inst_slab(const float* __restrict__ box,
+                                          const Ray& r, float t_bound) {
+    float te = 0.0f, tx = t_bound;
+    float t0 = (box[0] - r.ox) * r.ix, t1 = (box[3] - r.ox) * r.ix;
+    te = fmaxf(te, fminf(t0, t1));
+    tx = fminf(tx, fmaxf(t0, t1));
+    t0 = (box[1] - r.oy) * r.iy;
+    t1 = (box[4] - r.oy) * r.iy;
+    te = fmaxf(te, fminf(t0, t1));
+    tx = fminf(tx, fmaxf(t0, t1));
+    t0 = (box[2] - r.oz) * r.iz;
+    t1 = (box[5] - r.oz) * r.iz;
+    te = fmaxf(te, fminf(t0, t1));
+    tx = fminf(tx, fmaxf(t0, t1));
+    return te <= tx;
+}
+
+// The ray in an instance's frame: _mat_affine / _mat_linear, each product
+// and sum rounded on its own, left to right.
+__device__ __forceinline__ Ray local_ray(const float* __restrict__ m,
+                                         const Ray& r) {
+    Ray l;
+    l.ox = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[0], r.ox),
+                                         __fmul_rn(m[1], r.oy)),
+                               __fmul_rn(m[2], r.oz)), m[3]);
+    l.oy = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[4], r.ox),
+                                         __fmul_rn(m[5], r.oy)),
+                               __fmul_rn(m[6], r.oz)), m[7]);
+    l.oz = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[8], r.ox),
+                                         __fmul_rn(m[9], r.oy)),
+                               __fmul_rn(m[10], r.oz)), m[11]);
+    l.dx = __fadd_rn(__fadd_rn(__fmul_rn(m[0], r.dx), __fmul_rn(m[1], r.dy)),
+                     __fmul_rn(m[2], r.dz));
+    l.dy = __fadd_rn(__fadd_rn(__fmul_rn(m[4], r.dx), __fmul_rn(m[5], r.dy)),
+                     __fmul_rn(m[6], r.dz));
+    l.dz = __fadd_rn(__fadd_rn(__fmul_rn(m[8], r.dx), __fmul_rn(m[9], r.dy)),
+                     __fmul_rn(m[10], r.dz));
+    l.ix = safe_inv(l.dx);
+    l.iy = safe_inv(l.dy);
+    l.iz = safe_inv(l.dz);
+    return l;
+}
+
+template <bool kAny>
+__device__ __forceinline__ void instance_rays(const InstArgs& a) {
+    extern __shared__ float staged[];  // n_inst x kInstFloats, then roots
+    int* const roots = reinterpret_cast<int*>(staged + a.n_inst * kInstFloats);
+    for (int q = threadIdx.x; q < a.n_inst * kInstFloats; q += blockDim.x) {
+        const int k = q / kInstFloats, f = q - k * kInstFloats;
+        staged[q] = f < 3 ? a.bb_min[3 * k + f]
+                  : f < 6 ? a.bb_max[3 * k + f - 3]
+                          : a.mats[24 * k + f - 6];
+    }
+    for (int k = threadIdx.x; k < a.n_inst; k += blockDim.x)
+        roots[k] = a.roots[k];
+    __syncthreads();
+    const WalkArgs& w = a.w;
+    const int lane = threadIdx.x & 31;
+    while (true) {
+        unsigned first = 0u;
+        if (lane == 0) first = atomicAdd(w.next_ray, 32u);
+        first = __shfl_sync(kAll, first, 0);
+        if (first >= static_cast<unsigned>(w.n)) break;
+        const int i = static_cast<int>(first) + lane;
+        if (i < w.n) {
+            float t = kAny ? w.t_max[i] : w.t_out[i];
+            const bool todo = t > 0.0f && (!kAny || a.hit_io[i] == 0);
+            int inst = -1, best = -1, best_mesh = -1;
+            float bu = 0.0f, bv = 0.0f;
+            if (todo) {
+                Ray r;
+                r.ox = w.ox[i];
+                r.oy = w.oy[i];
+                r.oz = w.oz[i];
+                r.dx = w.dx[i];
+                r.dy = w.dy[i];
+                r.dz = w.dz[i];
+                r.ix = safe_inv(r.dx);
+                r.iy = safe_inv(r.dy);
+                r.iz = safe_inv(r.dz);
+                const float t_boxes = t;  // the static pass's t
+                for (int k = 0; k < a.n_inst; ++k) {
+                    const float* const rows = staged + k * kInstFloats;
+                    if (!inst_slab(rows, r, t_boxes)) continue;
+                    const Ray l = local_ray(rows + 6, r);
+                    int slot = -1, mesh = -1;
+                    float uu = 0.0f, vv = 0.0f;
+                    if (kAny) {
+                        if (walk<true, false, false>(
+                                w.nodes, w.n_nodes, w.tris, w.n_blocks, l, t,
+                                slot, mesh, uu, vv, nullptr, roots[k])) {
+                            inst = k;
+                            break;
+                        }
+                    } else {
+                        walk<false, true, false>(w.nodes, w.n_nodes, w.tris,
+                                                 w.n_blocks, l, t, slot, mesh,
+                                                 uu, vv, nullptr, roots[k]);
+                        if (slot >= 0) {  // strictly nearer than the bound
+                            inst = k;
+                            best = slot;
+                            best_mesh = mesh;
+                            bu = uu;
+                            bv = vv;
+                        }
+                    }
+                }
+            }
+            if (kAny) {
+                if (inst >= 0) a.hit_io[i] = 1;
+            } else {
+                if (inst >= 0) {
+                    w.t_out[i] = t;
+                    w.u_out[i] = bu;
+                    w.v_out[i] = bv;
+                    w.slot_out[i] = best;
+                    w.mesh_out[i] = best_mesh;
+                }
+                a.inst_out[i] = inst;
+            }
+        }
+        __syncwarp();
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, kK4Blocks)
+instances_closest_kernel(const __grid_constant__ InstArgs a) {
+    instance_rays<false>(a);
+}
+
+__global__ void __launch_bounds__(kThreads, kK4AnyBlocks)
+instances_any_kernel(const __grid_constant__ InstArgs a) {
+    instance_rays<true>(a);
+}
+
+size_t inst_shared_bytes(int n_inst) {
+    return static_cast<size_t>(n_inst) * (kInstFloats + 1) * sizeof(float);
+}
+
+int launch_instances(bool any, const InstArgs& a, void* stream) {
+    if (a.w.n <= 0 || a.n_inst <= 0)
+        return static_cast<int>(cudaGetLastError());
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const void* fn = any ? reinterpret_cast<const void*>(instances_any_kernel)
+                         : reinterpret_cast<const void*>(
+                               instances_closest_kernel);
+    const size_t smem = inst_shared_bytes(a.n_inst);
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                          kThreads, smem);
+    if (e == cudaSuccess)
+        e = cudaMemsetAsync(a.w.next_ray, 0, sizeof(unsigned), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) per_sm = 1;
+    const int need = (a.w.n + kThreads - 1) / kThreads;
+    const int grid = sms * per_sm < need ? sms * per_sm : need;
+    if (any)
+        instances_any_kernel<<<grid, kThreads, smem, st>>>(a);
+    else
+        instances_closest_kernel<<<grid, kThreads, smem, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -491,6 +706,82 @@ int ptrt_walk_counts(int walk, const float* nodes, int n_nodes,
     a.hit_out = hit_out;
     a.counts = counts;
     return launch(2 + walk, a, stream);
+}
+
+// K4 closest: after K1 on the same rays.  ``t_io`` .. ``mesh_io`` hold K1's
+// record and are updated in place where an instance hit is nearer;
+// ``inst_out`` receives the winning instance (-1: the static pass's record
+// or nothing).  The tables are the merged instance set's.
+int ptrt_instances_closest(const float* nodes, int n_nodes, const float* tris,
+                           int n_blocks, const float* ox, const float* oy,
+                           const float* oz, const float* dx, const float* dy,
+                           const float* dz, int n, float* t_io, float* u_io,
+                           float* v_io, int* slot_io, int* mesh_io,
+                           int* inst_out, const float* mats,
+                           const float* bb_min, const float* bb_max,
+                           const int* roots, int n_inst, unsigned* next_ray,
+                           void* stream) {
+    if (n_inst > kMaxInstances) return static_cast<int>(cudaErrorInvalidValue);
+    InstArgs a = {};
+    a.w = walk_args(nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy, dz,
+                    nullptr, n, next_ray);
+    a.w.t_out = t_io;
+    a.w.u_out = u_io;
+    a.w.v_out = v_io;
+    a.w.slot_out = slot_io;
+    a.w.mesh_out = mesh_io;
+    a.inst_out = inst_out;
+    a.mats = mats;
+    a.bb_min = bb_min;
+    a.bb_max = bb_max;
+    a.roots = roots;
+    a.n_inst = n_inst;
+    return launch_instances(false, a, stream);
+}
+
+// K4 any: after K2 on the same shadow rays; ``hit_io`` (K2's plane) gets 1
+// where a lane not yet occluded, with t_max > 0, meets an opaque triangle of
+// an instance in (T_MIN, t_max).
+int ptrt_instances_any(const float* nodes, int n_nodes, const float* tris,
+                       int n_blocks, const float* ox, const float* oy,
+                       const float* oz, const float* dx, const float* dy,
+                       const float* dz, const float* t_max, int n,
+                       uint8_t* hit_io, const float* mats,
+                       const float* bb_min, const float* bb_max,
+                       const int* roots, int n_inst, unsigned* next_ray,
+                       void* stream) {
+    if (t_max == nullptr || n_inst > kMaxInstances)
+        return static_cast<int>(cudaErrorInvalidValue);
+    InstArgs a = {};
+    a.w = walk_args(nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy, dz,
+                    t_max, n, next_ray);
+    a.hit_io = hit_io;
+    a.mats = mats;
+    a.bb_min = bb_min;
+    a.bb_max = bb_max;
+    a.roots = roots;
+    a.n_inst = n_inst;
+    return launch_instances(true, a, stream);
+}
+
+int ptrt_max_instances() { return kMaxInstances; }
+
+// Registers, local-memory bytes a thread and resident blocks a SM (with
+// ``n_inst`` instances staged) of K4: ``walk`` 0 closest, 1 any.
+int ptrt_instances_info(int walk, int n_inst, int* regs, int* local_bytes,
+                        int* per_sm) {
+    if (walk < 0 || walk > 1) return static_cast<int>(cudaErrorInvalidValue);
+    const void* fn = walk ? reinterpret_cast<const void*>(instances_any_kernel)
+                          : reinterpret_cast<const void*>(
+                                instances_closest_kernel);
+    cudaFuncAttributes attr = {};
+    cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            per_sm, fn, kThreads, inst_shared_bytes(n_inst));
+    *regs = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    return static_cast<int>(e);
 }
 
 // Registers, local-memory bytes a thread and resident blocks a SM of the

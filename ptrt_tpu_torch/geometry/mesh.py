@@ -1,9 +1,14 @@
-"""Triangle meshes (host, numpy) — a copy of the primitive factories of
-``ptrt_tpu/geometry/mesh.py`` that the bench scene uses: the unit cube, the
-two-triangle XZ plane and the lat-long sphere.  The OBJ loader and the other
-primitives are not ported yet.
+"""Triangle meshes (host, numpy) — a copy of ``ptrt_tpu/geometry/mesh.py``
+without the OBJ loader: the primitive factories (unit cube, XZ plane,
+lat-long sphere, checkerboard), the vertex-baking edits, ``set_triangles``
+(the per-frame refill hook), the AABBs and the dynamic-mesh flags.
 
-Device upload happens at scene-assembly time (``geometry/scene_geom.py``).
+A mesh flagged ``is_dynamic`` keeps a local-space BVH of its own and is
+walked as an instance (``geometry/scene_geom.py``): a transform edit
+updates its matrix rows only, a refill of the same triangle count refits
+its BVH on the device (``geometry/refit.py``), or with ``device_lbvh``
+Morton-sorts and refits it (``geometry/lbvh.py``).  Device upload happens
+at scene-assembly time.
 """
 
 from __future__ import annotations
@@ -11,16 +16,26 @@ from __future__ import annotations
 import numpy as np
 
 from ptrt_tpu_torch.core.vec import PI, TWO_PI
-from ptrt_tpu_torch.geometry.transform import Transform3D
+from ptrt_tpu_torch.geometry.transform import AABB, Transform3D, _rot_xyz
 
 
 class Mesh:
+    # True: a dynamic mesh's refills of the same triangle count are
+    # Morton-sorted into its fixed slots on the device before the refit
+    device_lbvh = False
+
     def __init__(self, vertices: np.ndarray, faces: np.ndarray):
         self.transform = Transform3D()
+        self.is_dynamic = False
+        self.verts_dirty = True  # a vertex change: the mesh's BVH is stale
         self.vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
         self.faces = np.asarray(faces, np.int32).reshape(-1, 3)
 
     # -- factories -----------------------------------------------------------
+    @staticmethod
+    def from_arrays(vertices: np.ndarray, faces: np.ndarray) -> "Mesh":
+        return Mesh(vertices, faces)
+
     @staticmethod
     def from_triangles(tris: np.ndarray) -> "Mesh":
         """tris: (N, 3, 3) — three vertices per triangle."""
@@ -72,17 +87,81 @@ class Mesh:
         faces = np.concatenate([f1.reshape(-1, 3), f2.reshape(-1, 3)], axis=0)
         return Mesh(verts, faces)
 
+    @staticmethod
+    def checkerboard_plane_xz(plane_y: float, tiles_per_side: int,
+                              tile_size: float):
+        """Returns (white_mesh, black_mesh)."""
+        N = tiles_per_side
+        start = -N * tile_size
+        white, black = [], []
+        for iz in range(2 * N):
+            for ix in range(2 * N):
+                x0 = start + ix * tile_size
+                x1 = x0 + tile_size
+                z0 = start + iz * tile_size
+                z1 = z0 + tile_size
+                A = (x0, plane_y, z0)
+                B = (x1, plane_y, z0)
+                C = (x1, plane_y, z1)
+                D = (x0, plane_y, z1)
+                bucket = white if ((ix + iz) & 1) == 0 else black
+                bucket.append([A, C, B])
+                bucket.append([A, D, C])
+        return (Mesh.from_triangles(np.array(white)),
+                Mesh.from_triangles(np.array(black)))
+
+    # -- vertex-baking edits -------------------------------------------------
+    def scale_verts(self, s) -> "Mesh":
+        self.vertices = self.vertices * np.float32(s)
+        self.verts_dirty = True
+        return self
+
+    def translate_verts(self, dx, dy, dz) -> "Mesh":
+        self.vertices = self.vertices + np.array([dx, dy, dz], np.float32)
+        self.verts_dirty = True
+        return self
+
+    def move_to(self, x, y, z) -> "Mesh":
+        centroid = self.vertices.mean(axis=0)
+        self.vertices = (self.vertices - centroid
+                         + np.array([x, y, z], np.float32))
+        self.verts_dirty = True
+        return self
+
+    def rotate_self_euler_xyz(self, rx, ry, rz) -> "Mesh":
+        r = _rot_xyz(rx, ry, rz).astype(np.float32)
+        centroid = self.vertices.mean(axis=0)
+        self.vertices = (self.vertices - centroid) @ r.T + centroid
+        self.verts_dirty = True
+        return self
+
+    def set_triangles(self, tris: np.ndarray) -> "Mesh":
+        """Replace the geometry wholesale: the per-frame procedural-geometry
+        hook (a fluid surface)."""
+        tris = np.asarray(tris, np.float32).reshape(-1, 3, 3)
+        self.vertices = tris.reshape(-1, 3)
+        self.faces = np.arange(len(tris) * 3, dtype=np.int32).reshape(-1, 3)
+        self.verts_dirty = True
+        return self
+
     # -- queries -------------------------------------------------------------
     @property
     def num_triangles(self) -> int:
         return int(self.faces.shape[0])
 
+    def local_aabb(self) -> AABB:
+        return AABB.of_points(self.vertices)
+
+    def world_aabb(self) -> AABB:
+        return self.local_aabb().transformed(self.transform.world_matrix())
+
     def world_vertices(self) -> np.ndarray:
         m = self.transform.world_matrix()
         return (self.vertices @ m[:3, :3].T + m[:3, 3]).astype(np.float32)
 
-    def triangle_arrays(self):
-        """World-space (v0, v1, v2) arrays of shape (T, 3)."""
-        v = self.world_vertices()
+    def triangle_arrays(self, world: bool = True):
+        """(v0, v1, v2) arrays of shape (T, 3), in world space or the
+        mesh's own."""
+        v = self.world_vertices() if world else self.vertices
         f = self.faces
         return v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]

@@ -1,8 +1,11 @@
-"""TRS transforms (host, numpy) — a copy of the parts of
-``ptrt_tpu/geometry/transform.py`` that static scene assembly needs.
+"""TRS transforms and AABBs (host, numpy) — a copy of the parts of
+``ptrt_tpu/geometry/transform.py`` that scene assembly and instances need.
 
 ``Transform3D`` keeps translation / Euler rotation (radians) / scale and
-derives the world matrix (column vectors)."""
+derives the world, inverse and normal matrices (column vectors); the
+inverse and normal matrices are computed in float64 from the float32 world
+matrix and rounded once, as the reference does, so the instance rows are
+bit-equal."""
 
 from __future__ import annotations
 
@@ -41,9 +44,65 @@ class Transform3D:
         self.scale = (float(sx), float(sy), float(sz))
         return self
 
+    def translate(self, dx, dy, dz) -> "Transform3D":
+        p = self.position
+        self.position = (p[0] + dx, p[1] + dy, p[2] + dz)
+        return self
+
+    def rotate(self, drx, dry, drz) -> "Transform3D":
+        r = self.rotation
+        self.rotation = (r[0] + drx, r[1] + dry, r[2] + drz)
+        return self
+
+    def is_identity(self) -> bool:
+        return (self.position == (0.0, 0.0, 0.0)
+                and self.rotation == (0.0, 0.0, 0.0)
+                and self.scale == (1.0, 1.0, 1.0))
+
     def world_matrix(self) -> np.ndarray:
         m = np.eye(4, dtype=np.float64)
         r = _rot_xyz(*self.rotation)
         m[:3, :3] = r * np.asarray(self.scale)[None, :]
         m[:3, 3] = self.position
         return m.astype(np.float32)
+
+    def inverse_matrix(self) -> np.ndarray:
+        return np.linalg.inv(self.world_matrix().astype(np.float64)).astype(
+            np.float32)
+
+    def normal_matrix(self) -> np.ndarray:
+        """The inverse transpose of the world matrix's 3x3 part (4x4)."""
+        w = self.world_matrix().astype(np.float64)
+        n = np.eye(4)
+        n[:3, :3] = np.linalg.inv(w[:3, :3]).T
+        return n.astype(np.float32)
+
+    def copy(self) -> "Transform3D":
+        return Transform3D(self.position, self.rotation, self.scale)
+
+
+@dataclass
+class AABB:
+    lo: np.ndarray
+    hi: np.ndarray
+
+    @staticmethod
+    def empty() -> "AABB":
+        return AABB(np.full(3, np.inf), np.full(3, -np.inf))
+
+    @staticmethod
+    def of_points(pts: np.ndarray) -> "AABB":
+        return AABB(pts.min(axis=0), pts.max(axis=0))
+
+    def union(self, other: "AABB") -> "AABB":
+        return AABB(np.minimum(self.lo, other.lo),
+                    np.maximum(self.hi, other.hi))
+
+    def transformed(self, m: np.ndarray) -> "AABB":
+        """The box of the 8 transformed corners."""
+        corners = np.array(
+            [[x, y, z] for x in (self.lo[0], self.hi[0])
+             for y in (self.lo[1], self.hi[1])
+             for z in (self.lo[2], self.hi[2])])
+        w = (m[:3, :3] @ corners.T).T + m[:3, 3]
+        return AABB(w.min(axis=0), w.max(axis=0))

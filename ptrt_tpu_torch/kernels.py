@@ -29,7 +29,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCE_FLAGS = {
     "traverse.cu": [], "tonemap.cu": ["-fmad=false"], "gather.cu": [],
     "svgf.cu": ["-fmad=false"], "bloom.cu": ["-fmad=false"],
-    "shade.cu": ["-fmad=false"],
+    "shade.cu": ["-fmad=false"], "refit.cu": ["-fmad=false"],
 }
 SOURCES = [os.path.join(CSRC, f) for f in SOURCE_FLAGS]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -86,13 +86,19 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_shade_scatter.argtypes = [p, p]
         lib.ptrt_shade_info.restype = i
         lib.ptrt_shade_info.argtypes = [i, p, p, p, p, p, p, p]
+        lib.ptrt_refit.restype = i
+        lib.ptrt_refit.argtypes = ([p, p, p, i, p, p, p, i, p] + [p] * 9
+                                   + [p, i, i, p, p, i, i, p, p])
+        lib.ptrt_morton.restype = i
+        lib.ptrt_morton.argtypes = [p, p, p, i, p, p]
         _lib = lib
     return _lib
 
 
 def bind_walks(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of ``csrc/traverse.cu`` (the walks, the stack
-    bound, the error string) on a library that holds it."""
+    """Declare the C interface of ``csrc/traverse.cu`` (the walks, K4, the
+    stack and instance bounds, the error string) on a library that holds
+    it."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ptrt_max_stack.restype = i
     lib.ptrt_max_stack.argtypes = []
@@ -108,6 +114,16 @@ def bind_walks(lib: ctypes.CDLL) -> ctypes.CDLL:
                                      + [p] * 6 + [p, p, p])
     lib.ptrt_walk_info.restype = i
     lib.ptrt_walk_info.argtypes = [i, p, p, p]
+    lib.ptrt_max_instances.restype = i
+    lib.ptrt_max_instances.argtypes = []
+    lib.ptrt_instances_closest.restype = i
+    lib.ptrt_instances_closest.argtypes = ([p, i, p, i] + [p] * 6 + [i]
+                                           + [p] * 10 + [i, p, p])
+    lib.ptrt_instances_any.restype = i
+    lib.ptrt_instances_any.argtypes = ([p, i, p, i] + [p] * 7 + [i]
+                                       + [p] * 5 + [i, p, p])
+    lib.ptrt_instances_info.restype = i
+    lib.ptrt_instances_info.argtypes = [i, i, p, p, p]
     return lib
 
 

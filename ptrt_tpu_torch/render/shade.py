@@ -46,7 +46,9 @@ every lane (``shadow_t = -1`` where ``do_nee`` is false), and so do
 ``env_t`` with env NEE (1e28 where ``do_nee``, -1 elsewhere) and
 ``hit.hit``: K1 found a triangle and, from bounce 1 on, the lane was alive
 on entry (K1 through the alive plane reports no hit on a dead lane; the
-stage does not read K1's planes there).  The hit point, normal and front flag are specified only on lanes
+stage does not read K1's planes there).  On a ``WorldGeometry`` K4 adds
+the ``inst`` plane to K1's record; the stage reads it only where K1's slot
+holds a hit.  The hit point, normal and front flag are specified only on lanes
 still alive after the stage; the shadow origin, L, pdf and contribution,
 and the env sample's origin, direction, pdf, MIS weight and contribution,
 only where ``do_nee`` is true.  Elsewhere the plain stage holds what it
@@ -393,6 +395,9 @@ class ShadeArgs(ctypes.Structure):
         ("env_o", _P3), ("env_l", _P3), ("env_t", _P), ("env_pdf", _P),
         ("env_mis", _P), ("env_c", _P3), ("env_cs", _P3),
         ("in_shadow_env", _P),
+        # instances (null without them)
+        ("hit_inst", _P), ("inst_e1", _P3), ("inst_e2", _P3),
+        ("inst_mats", _P),
     ]
 
 
@@ -522,9 +527,16 @@ def shade_nee(ps: PathState, geom, k1: traverse.Closest,
     ``n_lights == 0`` means no light sample: no light shadow rays and no PCG
     draws for it; a state with env NEE (``ps.env_nee``) draws the env
     sample whatever ``n_lights``."""
-    n, dev, a = _checked(ps, materials, [
-        ("hit_t", "k1.t", k1.t, _F32), ("hit_slot", "k1.slot", k1.slot, _I32),
-        ("hit_mesh", "k1.mesh", k1.mesh, _I32)])
+    inputs = [("hit_t", "k1.t", k1.t, _F32),
+              ("hit_slot", "k1.slot", k1.slot, _I32),
+              ("hit_mesh", "k1.mesh", k1.mesh, _I32)]
+    iset = traverse.iset_of(geom)
+    if (k1.inst is None) != (iset is None):
+        raise ValueError("k1.inst: the instance plane comes with a "
+                         "WorldGeometry's instance set, and only with it")
+    if iset is not None:
+        inputs.append(("hit_inst", "k1.inst", k1.inst, _I32))
+    n, dev, a = _checked(ps, materials, inputs)
     if n_lights > 0:
         _check_table("lights.packed", lights.packed, 17, dev)
     env_nee = ps.env_nee
@@ -532,9 +544,11 @@ def shade_nee(ps: PathState, geom, k1: traverse.Closest,
     if dev.type == "cpu":
         return shade_nee_plain(ps, geom, k1, materials, lights, n_lights,
                                sky, bounce)
+    static = traverse.static_of(geom)
+    inst_geom = None if iset is None else iset.geom
 
     def scene_args():  # the triangle edges and the sky: once a trace
-        m = geom.num_tri_slots
+        m = static.num_tri_slots
         # top, bottom, use_sky; an HDRI's rotation (read only by the HDRI
         # instantiation) after them
         sky_v = torch.stack([sky.top.x, sky.top.y, sky.top.z, sky.bottom.x,
@@ -552,12 +566,24 @@ def shade_nee(ps: PathState, geom, k1: traverse.Closest,
             if not (sky.env_alias.shape[0] == sky.env_pdf.shape[0]
                     == sh * sw > 0):
                 raise ValueError("the env tables do not hold SH x SW rows")
-        return (_ptrs("geom.e1", geom.e1, m, _F32, dev),
-                _ptrs("geom.e2", geom.e2, m, _F32, dev), sky_v)
+        inst = ()
+        if inst_geom is not None:
+            mi = inst_geom.num_tri_slots
+            inst = (_ptrs("iset.e1", inst_geom.e1, mi, _F32, dev),
+                    _ptrs("iset.e2", inst_geom.e2, mi, _F32, dev))
+        return (_ptrs("geom.e1", static.e1, m, _F32, dev),
+                _ptrs("geom.e2", static.e2, m, _F32, dev), sky_v, inst)
 
-    e1, e2, sky_v = _kept(ps, "scene", (
-        geom.e1, geom.e2, sky.top, sky.bottom, sky.use_sky, sky.env,
-        sky.env_rotation, sky.env_alias, sky.env_pdf), scene_args)
+    e1, e2, sky_v, inst_edges = _kept(ps, "scene", (
+        static.e1, static.e2, sky.top, sky.bottom, sky.use_sky, sky.env,
+        sky.env_rotation, sky.env_alias, sky.env_pdf,
+        None if inst_geom is None else inst_geom.e1,
+        None if inst_geom is None else inst_geom.e2), scene_args)
+    if iset is not None:
+        _check_table("iset.mats", iset.mats, 24, dev)
+        _set(a, "inst_e1", inst_edges[0])
+        _set(a, "inst_e2", inst_edges[1])
+        a.inst_mats = iset.mats.data_ptr()
     _set(a, "e1", e1)
     _set(a, "e2", e2)
     a.sky = sky_v.data_ptr()

@@ -1,18 +1,25 @@
-"""Ray/scene intersection: the K1 (closest-hit) and K2 (any-hit) wrappers.
+"""Ray/scene intersection: the K1 (closest-hit), K2 (any-hit) and K4
+(instance) wrappers.
 
-Counterpart of ``ptrt_tpu/render/traverse.py`` on a flat ``SceneGeometry``.
-``closest_hit``, ``closest_hit_live`` and ``any_hit`` launch the
-hand-written 8-wide BVH walks of ``csrc/traverse.cu`` for CUDA tensors and
-run their plain versions — a chunked brute-force Möller–Trumbore over the
-SoA triangle views, after ``traverse._brute_closest_state`` /
-``_brute_any_state`` — for CPU tensors.  There is no fallback between the
-two.  ``walk_counts`` (measurement only) runs a walk with a tally of the
-nodes it visits and the triangles it tests; its plain version is the
-kernel's walk itself, one ray at a time on the host.
+Counterpart of ``ptrt_tpu/render/traverse.py`` on a flat ``SceneGeometry``
+or a two-level ``WorldGeometry``.  ``closest_hit``, ``closest_hit_live``
+and ``any_hit`` launch the hand-written 8-wide BVH walks of
+``csrc/traverse.cu`` for CUDA tensors and run their plain versions — a
+chunked brute-force Möller–Trumbore over the SoA triangle views, after
+``traverse._brute_closest_state`` / ``_brute_any_state`` — for CPU
+tensors.  There is no fallback between the two.  On a ``WorldGeometry``
+they walk the static world (K1 / K2), then the instances
+(``instances_closest`` / ``instances_any``, K4) over the same rays, which
+update the record in place; the plain K4 is the reference's
+``_merge_instance_closest`` with the brute runner, instance by instance.
+``walk_counts`` (measurement only) runs a walk with a tally of the nodes
+it visits and the triangles it tests; its plain version is the kernel's
+walk itself, one ray at a time on the host.
 
 ``intersect_closest`` / ``intersect_any`` keep the reference's entry-point
 contract (``Hit``, dead lanes with ``t_max <= 0`` return misses), with the
-hit normal reconstructed from the winning triangle slot in torch.
+hit normal reconstructed from the winning triangle slot in torch (an
+instance hit's through its instance's normal matrix).
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ import torch
 from ptrt_tpu_torch import kernels
 from ptrt_tpu_torch.core.vec import Vec3, cross, where
 from ptrt_tpu_torch.geometry.bvh import LEAF_SIZE
-from ptrt_tpu_torch.geometry.scene_geom import SceneGeometry
+from ptrt_tpu_torch.geometry.scene_geom import (MAX_TABLE_INDEX, InstanceSet,
+                                                SceneGeometry, WorldGeometry)
 
 T_MIN = 1e-4
 T_MAX = 1e30
@@ -54,14 +62,38 @@ class Hit:
     v: torch.Tensor
 
 
-class Closest(NamedTuple):
-    """K1's answer for flat rays."""
-
+class _K1Planes(NamedTuple):
     t: torch.Tensor  # float32, t_max on a miss
     u: torch.Tensor
     v: torch.Tensor
     slot: torch.Tensor  # int32 triangle slot, -1 on a miss
     mesh: torch.Tensor  # int32 mesh id, -1 on a miss
+
+
+class Closest(_K1Planes):
+    """K1's answer for flat rays, with K4's on a ``WorldGeometry``.
+
+    ``inst`` (int32, None without instances): the instance of the hit, -1
+    where the static pass or nothing won; where it is >= 0, ``slot``
+    indexes the instance set's tables.  It rides as an attribute, so a
+    record unpacks and iterates as K1's five planes; ``_replace`` keeps
+    it (or sets it: ``_replace(inst=...)``)."""
+
+    inst = None
+
+    def _replace(self, **kw) -> "Closest":
+        inst = kw.pop("inst", self.inst)
+        out = super()._replace(**kw)
+        out.inst = inst
+        return out
+
+
+def static_of(geom) -> SceneGeometry:
+    return geom.static if isinstance(geom, WorldGeometry) else geom
+
+
+def iset_of(geom) -> InstanceSet | None:
+    return geom.iset if isinstance(geom, WorldGeometry) else None
 
 
 def mt_test(v0: Vec3, e1: Vec3, e2: Vec3, o: Vec3, d: Vec3, t_min, t_max):
@@ -133,28 +165,39 @@ def _counter(dev: torch.device) -> torch.Tensor:
 # -- K1 ----------------------------------------------------------------------
 
 
-def closest_hit(geom: SceneGeometry, o: Vec3, d: Vec3, t_max: torch.Tensor):
+def closest_hit(geom, o: Vec3, d: Vec3, t_max: torch.Tensor):
     """Nearest hit per ray.  Rays are flat (R,) float32 SoA tensors.
 
-    Returns ``Closest(t, u, v, slot, mesh)``: float32 t (``t_max`` on a
-    miss), u, v, int32 triangle slot into the SoA views and int32 mesh id,
-    both -1 on a miss."""
-    n = _check_rays(geom, o, d, t_max)
-    if geom.device.type == "cpu":
-        return closest_hit_plain(geom, o, d, t_max)
-    return _closest_kernel(geom, o, d, t_max, None, n)
+    Returns ``Closest(t, u, v, slot, mesh, inst)``: float32 t (``t_max`` on
+    a miss), u, v, int32 triangle slot into the SoA views and int32 mesh
+    id, both -1 on a miss; on a ``WorldGeometry`` the instance (K4)."""
+    static = static_of(geom)
+    n = _check_rays(static, o, d, t_max)
+    if static.device.type == "cpu":
+        rec = closest_hit_plain(static, o, d, t_max)
+    else:
+        rec = _closest_kernel(static, o, d, t_max, None, n)
+    return _with_instances(geom, o, d, rec)
 
 
-def closest_hit_live(geom: SceneGeometry, o: Vec3, d: Vec3,
-                     alive: torch.Tensor):
+def closest_hit_live(geom, o: Vec3, d: Vec3, alive: torch.Tensor):
     """``closest_hit`` of the lanes flagged in ``alive`` (bool): a live lane
     walks with t_max = ``T_MAX``, a dead one returns a miss at t = -1 — the
     answer of ``closest_hit(geom, o, d, torch.where(alive, T_MAX, -1.0))``
     without building that plane."""
-    n = _check_rays(geom, o, d, alive, "alive", torch.bool)
-    if geom.device.type == "cpu":
-        return closest_hit_plain(geom, o, d, torch.where(alive, T_MAX, -1.0))
-    return _closest_kernel(geom, o, d, None, alive, n)
+    static = static_of(geom)
+    n = _check_rays(static, o, d, alive, "alive", torch.bool)
+    if static.device.type == "cpu":
+        rec = closest_hit_plain(static, o, d,
+                                torch.where(alive, T_MAX, -1.0))
+    else:
+        rec = _closest_kernel(static, o, d, None, alive, n)
+    return _with_instances(geom, o, d, rec)
+
+
+def _with_instances(geom, o: Vec3, d: Vec3, rec: "Closest") -> "Closest":
+    iset = iset_of(geom)
+    return rec if iset is None else instances_closest(iset, o, d, rec)
 
 
 def _closest_kernel(geom, o, d, t_max, alive, n) -> Closest:
@@ -174,11 +217,12 @@ def _closest_kernel(geom, o, d, t_max, alive, n) -> Closest:
 
 
 def closest_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
-                      t_max: torch.Tensor):
+                      t_max: torch.Tensor, slots: tuple | None = None):
     """Plain version of K1: all-pairs Möller–Trumbore over triangle chunks
-    (earlier chunk, then lower slot, wins a tie)."""
+    (earlier chunk, then lower slot, wins a tie).  ``slots`` = (start,
+    stop) limits it to those triangle slots (one instance of a set)."""
     n = t_max.shape[0]
-    m = geom.num_tri_slots
+    lo, m = (0, geom.num_tri_slots) if slots is None else slots
     best_t = t_max.clone()
     best_tri = torch.full((n,), -1, dtype=torch.int64, device=t_max.device)
     best_u = torch.zeros_like(best_t)
@@ -187,7 +231,7 @@ def closest_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
         rs = slice(r0, min(n, r0 + _RAY_CHUNK))
         oe = o.map(lambda c: c[rs, None])
         de = d.map(lambda c: c[rs, None])
-        for c0 in range(0, m, _TRI_CHUNK):
+        for c0 in range(lo, m, _TRI_CHUNK):
             cs = slice(c0, min(m, c0 + _TRI_CHUNK))
             tri = lambda v: v.map(lambda c: c[None, cs])
             ok, t, uu, vv = mt_test(tri(geom.v0), tri(geom.e1), tri(geom.e2),
@@ -213,35 +257,39 @@ def closest_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
 # -- K2 ----------------------------------------------------------------------
 
 
-def any_hit(geom: SceneGeometry, o: Vec3, d: Vec3,
-            t_max: torch.Tensor) -> torch.Tensor:
+def any_hit(geom, o: Vec3, d: Vec3, t_max: torch.Tensor) -> torch.Tensor:
     """Occluded-or-not per ray up to ``t_max`` (bool); triangles whose
     shadow-opaque bit is clear (transmissive materials) never occlude."""
-    n = _check_rays(geom, o, d, t_max)
-    if geom.device.type == "cpu":
-        return any_hit_plain(geom, o, d, t_max)
-    hit = torch.empty(n, dtype=torch.bool, device=geom.device)
-    args = _ray_args(geom, o, d, t_max)
-    counter = _counter(geom.device)
-    rc = kernels.get_lib().ptrt_any_hit(*args, n, hit.data_ptr(),
-                                        counter.data_ptr(),
-                                        kernels.stream_ptr(geom.device))
-    kernels.launches["any_hit"] += 1
-    kernels.check(rc, "any_hit")
-    return hit
+    static = static_of(geom)
+    n = _check_rays(static, o, d, t_max)
+    if static.device.type == "cpu":
+        hit = any_hit_plain(static, o, d, t_max)
+    else:
+        hit = torch.empty(n, dtype=torch.bool, device=static.device)
+        args = _ray_args(static, o, d, t_max)
+        counter = _counter(static.device)
+        rc = kernels.get_lib().ptrt_any_hit(*args, n, hit.data_ptr(),
+                                            counter.data_ptr(),
+                                            kernels.stream_ptr(static.device))
+        kernels.launches["any_hit"] += 1
+        kernels.check(rc, "any_hit")
+    iset = iset_of(geom)
+    return hit if iset is None else instances_any(iset, o, d, t_max, hit)
 
 
 def any_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
-                  t_max: torch.Tensor) -> torch.Tensor:
-    """Plain version of K2: all-pairs Möller–Trumbore over triangle chunks."""
+                  t_max: torch.Tensor,
+                  slots: tuple | None = None) -> torch.Tensor:
+    """Plain version of K2: all-pairs Möller–Trumbore over triangle chunks
+    (``slots`` as in ``closest_hit_plain``)."""
     n = t_max.shape[0]
-    m = geom.num_tri_slots
+    lo, m = (0, geom.num_tri_slots) if slots is None else slots
     hit = torch.zeros(n, dtype=torch.bool, device=t_max.device)
     for r0 in range(0, n, _RAY_CHUNK):
         rs = slice(r0, min(n, r0 + _RAY_CHUNK))
         oe = o.map(lambda c: c[rs, None])
         de = d.map(lambda c: c[rs, None])
-        for c0 in range(0, m, _TRI_CHUNK):
+        for c0 in range(lo, m, _TRI_CHUNK):
             cs = slice(c0, min(m, c0 + _TRI_CHUNK))
             tri = lambda v: v.map(lambda c: c[None, cs])
             ok, _, _, _ = mt_test(tri(geom.v0), tri(geom.e1), tri(geom.e2),
@@ -249,6 +297,225 @@ def any_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
             ok = ok & geom.tri_shadow_opaque[None, cs]
             hit[rs] |= ok.any(dim=1)
     return hit
+
+
+# -- K4 ----------------------------------------------------------------------
+
+
+def safe_inv(d: Vec3) -> Vec3:
+    """The signed-epsilon inverse direction (``traverse._safe_inv``)."""
+    inv = lambda c: 1.0 / (c + torch.where(c >= 0.0, 1.0, -1.0) * 1e-12)
+    return Vec3(inv(d.x), inv(d.y), inv(d.z))
+
+
+def mat_affine(m: torch.Tensor, p: Vec3) -> Vec3:
+    """World->local points through instance rows ``m`` (..., 24), columns
+    0:12 (``traverse._mat_affine``: each product and sum rounded)."""
+    return Vec3(m[..., 0] * p.x + m[..., 1] * p.y + m[..., 2] * p.z
+                + m[..., 3],
+                m[..., 4] * p.x + m[..., 5] * p.y + m[..., 6] * p.z
+                + m[..., 7],
+                m[..., 8] * p.x + m[..., 9] * p.y + m[..., 10] * p.z
+                + m[..., 11])
+
+
+def mat_linear(m: torch.Tensor, v: Vec3) -> Vec3:
+    """World->local directions, not renormalised: t is shared between the
+    frames."""
+    return Vec3(m[..., 0] * v.x + m[..., 1] * v.y + m[..., 2] * v.z,
+                m[..., 4] * v.x + m[..., 5] * v.y + m[..., 6] * v.z,
+                m[..., 8] * v.x + m[..., 9] * v.y + m[..., 10] * v.z)
+
+
+def mat_normal(m: torch.Tensor, v: Vec3) -> Vec3:
+    """Local->world normals through columns 12:21 (the inverse
+    transpose)."""
+    return Vec3(m[..., 12] * v.x + m[..., 13] * v.y + m[..., 14] * v.z,
+                m[..., 15] * v.x + m[..., 16] * v.y + m[..., 17] * v.z,
+                m[..., 18] * v.x + m[..., 19] * v.y + m[..., 20] * v.z)
+
+
+def slab(lo: torch.Tensor, hi: torch.Tensor, o: Vec3, inv: Vec3,
+         t_max: torch.Tensor) -> torch.Tensor:
+    """One world box (3,) against the rays within (0, t_max]
+    (``traverse._slab1``)."""
+    t_enter = torch.zeros_like(t_max)
+    t_exit = t_max
+    for a, (oc, ic) in enumerate(((o.x, inv.x), (o.y, inv.y),
+                                  (o.z, inv.z))):
+        t0 = (lo[a] - oc) * ic
+        t1 = (hi[a] - oc) * ic
+        t_enter = torch.maximum(t_enter, torch.minimum(t0, t1))
+        t_exit = torch.minimum(t_exit, torch.maximum(t0, t1))
+    return t_enter <= t_exit
+
+
+def instance_slots(iset: InstanceSet) -> list:
+    """(start, stop) of each instance's triangle slots in the set's tables:
+    the blocks its nodes' leaf slots reference (read on the host)."""
+    rows = iset.geom.node_rows.detach().cpu().numpy()
+    roots = iset.roots.cpu().tolist() + [rows.shape[0]]
+    out = []
+    for k in range(iset.count):
+        meta = rows[roots[k]:roots[k + 1], 49:51].astype(np.int64)
+        blocks = [lb + s for lb, lmask in meta for s in range(8)
+                  if (lmask >> s) & 1]
+        lo = min(blocks, default=0)
+        out.append((lo * LEAF_SIZE, (max(blocks, default=lo - 1) + 1)
+                    * LEAF_SIZE))
+    return out
+
+
+def _check_iset(iset: InstanceSet, dev) -> int:
+    kernels.check_tensor("iset.mats", iset.mats, torch.float32, 2, dev)
+    kernels.check_tensor("iset.bb_min", iset.bb_min, torch.float32, 2, dev)
+    kernels.check_tensor("iset.bb_max", iset.bb_max, torch.float32, 2, dev)
+    kernels.check_tensor("iset.roots", iset.roots, torch.int32, 1, dev)
+    n_inst = iset.count
+    if (iset.mats.shape != (n_inst, 24) or iset.bb_min.shape != (n_inst, 3)
+            or iset.bb_max.shape != (n_inst, 3)):
+        raise ValueError("the instance tables need (I, 24), (I, 3), (I, 3) "
+                         f"rows for {n_inst} roots")
+    if max(iset.geom.num_nodes, iset.geom.num_tri_blocks) >= MAX_TABLE_INDEX:
+        raise ValueError("an instance set past 2^24 rows: its float-encoded "
+                         "indices are not exact")
+    return n_inst
+
+
+def instances_closest(iset: InstanceSet, o: Vec3, d: Vec3,
+                      rec: Closest) -> Closest:
+    """K4 closest: after the static pass ``rec`` (K1's answer for the same
+    flat rays), every instance whose world box a ray enters within
+    ``rec.t`` (lowest id first) walks the ray in its frame bounded by the
+    current t; a strictly nearer hit replaces the record.  Updates ``rec``'s
+    planes in place and returns them with the ``inst`` plane."""
+    geom = iset.geom
+    n = _check_rays(geom, o, d, rec.t)
+    dev = geom.device
+    for name, p, dt in (("u", rec.u, torch.float32),
+                        ("v", rec.v, torch.float32),
+                        ("slot", rec.slot, torch.int32),
+                        ("mesh", rec.mesh, torch.int32)):
+        kernels.check_tensor(f"rec.{name}", p, dt, 1, dev)
+        if p.shape[0] != n:
+            raise ValueError(f"rec.{name}: length {p.shape[0]} != {n}")
+    n_inst = _check_iset(iset, dev)
+    if dev.type == "cpu":
+        return instances_closest_plain(iset, o, d, rec)
+    lib = kernels.get_lib()
+    if n_inst > lib.ptrt_max_instances():
+        raise ValueError(f"{n_inst} instances: K4 stages at most "
+                         f"{lib.ptrt_max_instances()}")
+    inst = torch.empty(n, dtype=torch.int32, device=dev)
+    counter = _counter(dev)
+    rc = lib.ptrt_instances_closest(
+        *_ray_args(geom, o, d, None)[:-1], n, rec.t.data_ptr(),
+        rec.u.data_ptr(), rec.v.data_ptr(), rec.slot.data_ptr(),
+        rec.mesh.data_ptr(), inst.data_ptr(), iset.mats.data_ptr(),
+        iset.bb_min.data_ptr(), iset.bb_max.data_ptr(),
+        iset.roots.data_ptr(), n_inst, counter.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.launches["instances_closest"] += 1
+    kernels.check(rc, "instances_closest")
+    return rec._replace(inst=inst)
+
+
+def instances_closest_plain(iset: InstanceSet, o: Vec3, d: Vec3,
+                            rec: Closest) -> Closest:
+    """Plain version of ``instances_closest``: instance by instance in id
+    order, the rays whose box test passes against the static pass's t
+    moved into the instance's frame and brute-forced over its triangles
+    bounded by the current t (``traverse._merge_instance_closest`` with the
+    brute runner)."""
+    t_boxes = rec.t.clone()
+    t, u, v, slot, mesh = (p.clone() for p in rec[:5])
+    inst = torch.full_like(slot, -1)
+    inv = safe_inv(d)
+    for k, slots in enumerate(instance_slots(iset)):
+        live = slab(iset.bb_min[k], iset.bb_max[k], o, inv, t_boxes)
+        live &= t > 0.0
+        idx = live.nonzero()[:, 0]
+        if idx.numel() == 0:
+            continue
+        m = iset.mats[k]
+        pick = lambda vv: vv.map(lambda c: c[idx])
+        r = closest_hit_plain(iset.geom, mat_affine(m, pick(o)),
+                              mat_linear(m, pick(d)), t[idx], slots)
+        found = r.slot >= 0
+        at = idx[found]
+        t[at], u[at], v[at] = r.t[found], r.u[found], r.v[found]
+        slot[at], mesh[at] = r.slot[found], r.mesh[found]
+        inst[at] = k
+    for p, new in zip(rec[:5], (t, u, v, slot, mesh)):
+        p.copy_(new)
+    return rec._replace(inst=inst)
+
+
+def instances_any(iset: InstanceSet, o: Vec3, d: Vec3, t_max: torch.Tensor,
+                  hit: torch.Tensor) -> torch.Tensor:
+    """K4 any: after K2 gave ``hit`` for the same shadow rays, each lane not
+    yet occluded with ``t_max > 0`` walks the instances whose world box it
+    enters, in its frame, up to its first opaque occluder.  ORs into
+    ``hit`` in place and returns it."""
+    geom = iset.geom
+    n = _check_rays(geom, o, d, t_max)
+    dev = geom.device
+    kernels.check_tensor("hit", hit, torch.bool, 1, dev)
+    if hit.shape[0] != n:
+        raise ValueError(f"hit: length {hit.shape[0]} != {n}")
+    n_inst = _check_iset(iset, dev)
+    if dev.type == "cpu":
+        return instances_any_plain(iset, o, d, t_max, hit)
+    lib = kernels.get_lib()
+    if n_inst > lib.ptrt_max_instances():
+        raise ValueError(f"{n_inst} instances: K4 stages at most "
+                         f"{lib.ptrt_max_instances()}")
+    counter = _counter(dev)
+    rc = lib.ptrt_instances_any(
+        *_ray_args(geom, o, d, t_max), n, hit.data_ptr(),
+        iset.mats.data_ptr(), iset.bb_min.data_ptr(), iset.bb_max.data_ptr(),
+        iset.roots.data_ptr(), n_inst, counter.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.launches["instances_any"] += 1
+    kernels.check(rc, "instances_any")
+    return hit
+
+
+def instances_any_plain(iset: InstanceSet, o: Vec3, d: Vec3,
+                        t_max: torch.Tensor,
+                        hit: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``instances_any``: instance by instance, the live
+    rays in its box brute-forced over its triangles."""
+    inv = safe_inv(d)
+    for k, slots in enumerate(instance_slots(iset)):
+        live = slab(iset.bb_min[k], iset.bb_max[k], o, inv, t_max)
+        live &= ~hit & (t_max > 0.0)
+        idx = live.nonzero()[:, 0]
+        if idx.numel() == 0:
+            continue
+        m = iset.mats[k]
+        pick = lambda vv: vv.map(lambda c: c[idx])
+        hit[idx] |= any_hit_plain(iset.geom, mat_affine(m, pick(o)),
+                                  mat_linear(m, pick(d)), t_max[idx], slots)
+    return hit
+
+
+def instances_info(n_inst: int) -> dict:
+    """{kernel: registers, local-memory bytes a thread, resident blocks a
+    SM} of K4 with ``n_inst`` instances staged (measurement only; needs
+    the card)."""
+    import ctypes
+
+    lib = kernels.get_lib()
+    out = {}
+    for k, name in enumerate(("instances_closest", "instances_any")):
+        regs, local, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        kernels.check(lib.ptrt_instances_info(
+            k, n_inst, ctypes.byref(regs), ctypes.byref(local),
+            ctypes.byref(per_sm)), name)
+        out[name] = {"registers": regs.value, "local_bytes": local.value,
+                     "blocks_per_sm": per_sm.value}
+    return out
 
 
 # -- the walks with a tally (measurement only) -------------------------------
@@ -400,15 +667,31 @@ def _flat(o: Vec3, d: Vec3, t_max):
     return shape, o.map(flat), d.map(flat), flat(t)
 
 
-def hit_record(geom: SceneGeometry, o: Vec3, d: Vec3, k1: Closest) -> Hit:
-    """The ``Hit`` of flat rays from K1's answer: the face-forwarded
-    geometric normal of the winning triangle slot, the hit point, the
-    front-face flag."""
+def hit_record(geom, o: Vec3, d: Vec3, k1: Closest) -> Hit:
+    """The ``Hit`` of flat rays from K1's (and K4's) answer: the
+    face-forwarded geometric normal of the winning triangle slot (an
+    instance hit's through its instance's normal matrix), the hit point,
+    the front-face flag."""
     t, u, v, slot, mesh = k1
+    inst = k1.inst
     found = slot >= 0
-    idx = slot.clamp_min(0).to(torch.int64)
-    take = lambda vv: vv.map(lambda c: c[idx])
-    nrm = where(found, cross(take(geom.e1), take(geom.e2)), 0.0)
+    static = static_of(geom)
+    if inst is None:
+        idx = slot.clamp_min(0).to(torch.int64)
+        take = lambda vv: vv.map(lambda c: c[idx])
+        nrm = cross(take(static.e1), take(static.e2))
+    else:
+        iset = iset_of(geom)
+        is_i = inst >= 0
+        idx_s = torch.where(is_i, 0, slot).clamp_min(0).to(torch.int64)
+        idx_i = torch.where(is_i, slot, 0).clamp_min(0).to(torch.int64)
+        take = lambda vv, idx: vv.map(lambda c: c[idx])
+        nrm_s = cross(take(static.e1, idx_s), take(static.e2, idx_s))
+        nrm_i = mat_normal(iset.mats[inst.clamp_min(0).to(torch.int64)],
+                           cross(take(iset.geom.e1, idx_i),
+                                 take(iset.geom.e2, idx_i)))
+        nrm = where(is_i, nrm_i, nrm_s)
+    nrm = where(found, nrm, 0.0)
     n = nrm.normalized(1e-30)
     front = d.dot(n) < 0.0
     n = where(front, n, -n)
@@ -416,17 +699,17 @@ def hit_record(geom: SceneGeometry, o: Vec3, d: Vec3, k1: Closest) -> Hit:
                mesh_index=mesh, u=u, v=v)
 
 
-def intersect_closest(geom: SceneGeometry, o: Vec3, d: Vec3,
-                      t_max=T_MAX) -> Hit:
-    """Closest hit over a wavefront of any shape (K1)."""
+def intersect_closest(geom, o: Vec3, d: Vec3, t_max=T_MAX) -> Hit:
+    """Closest hit over a wavefront of any shape (K1, then K4 on a
+    ``WorldGeometry``)."""
     shape, of, df, tf = _flat(o, d, t_max)
     h = hit_record(geom, of, df, closest_hit(geom, of, df, tf))
     rs = lambda a: a.map(rs) if isinstance(a, Vec3) else a.reshape(shape)
     return Hit(**{f.name: rs(getattr(h, f.name)) for f in fields(Hit)})
 
 
-def intersect_any(geom: SceneGeometry, o: Vec3, d: Vec3,
-                  t_max) -> torch.Tensor:
-    """Shadow any-hit over a wavefront of any shape (K2)."""
+def intersect_any(geom, o: Vec3, d: Vec3, t_max) -> torch.Tensor:
+    """Shadow any-hit over a wavefront of any shape (K2, then K4 on a
+    ``WorldGeometry``)."""
     shape, of, df, tf = _flat(o, d, t_max)
     return any_hit(geom, of, df, tf).reshape(shape)

@@ -216,3 +216,9 @@ class Materials:
     def WoodOak():
         return Material.make((0.6, 0.4, 0.2), 0.5, 0.0, name="WoodOak").replace(
             specular=(0.04, 0.04, 0.04))
+
+    @staticmethod
+    def Water():
+        m = Material.make((0.8, 0.95, 1.0), 0.01, 0.0, name="Water")
+        return m.replace(transmission=0.9, ior=1.33,
+                         specular=(0.02, 0.02, 0.02))

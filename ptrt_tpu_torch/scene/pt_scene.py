@@ -2,8 +2,12 @@
 ``ptrt_tpu/scene/pt_scene.py``).
 
 Owns meshes, materials, lights, camera and sky (a gradient or an HDRI) on
-the host, assembles the device tables on first render (all meshes static:
-one flat BVH), and runs the frame in the reference's order: trace at the
+the host, keeps the device tables up to date incrementally (the static
+meshes baked into one world BVH, rebuilt only when a static mesh changes;
+each dynamic mesh walked as an instance: a transform edit updates its
+matrix rows, a refill of the same triangle count refits its tables on the
+device, K5), with separate dirty flags for geometry, materials and
+lights, and runs the frame in the reference's order: trace at the
 render size (``render/pipeline.trace_frame``, split into the denoiser's
 channels when the denoiser is on), the progressive running average (only
 with the denoiser off), motion vectors, SVGF, bloom, the bilinear upscale to
@@ -23,7 +27,10 @@ import torch
 from ptrt_tpu_torch.core import rng as prng
 from ptrt_tpu_torch.core.bluenoise import blue_noise_table
 from ptrt_tpu_torch.core.vec import where
+from ptrt_tpu_torch.geometry import scene_geom
+from ptrt_tpu_torch.geometry.lbvh import lbvh_update
 from ptrt_tpu_torch.geometry.mesh import Mesh
+from ptrt_tpu_torch.geometry.refit import build_refit_plan, refit_apply
 from ptrt_tpu_torch.geometry.scene_geom import assemble_geometry
 from ptrt_tpu_torch.render import pipeline as pl
 from ptrt_tpu_torch.render.bloom import apply_bloom, bloom_mips
@@ -35,6 +42,21 @@ from ptrt_tpu_torch.scene.camera import Camera
 from ptrt_tpu_torch.scene.lights import Light, LightTable
 from ptrt_tpu_torch.scene.materials import Material, MaterialTable
 from ptrt_tpu_torch.utils.imageio import save_ppm
+
+
+def _merged_refit_plans(entries) -> tuple:
+    """Each instance's refit plan placed at its offsets in the merged set
+    (made once a merge, used at every refill)."""
+    plans = []
+    node_off = blk_off = slot_off = 0
+    for e in entries:
+        g = e["inst"].geom
+        plans.append(e["plan"].placed(node_off, blk_off, slot_off))
+        node_off += g.num_nodes
+        blk_off += g.num_tri_blocks
+        slot_off += g.num_tri_slots
+    return tuple(plans)
+
 
 # A frame above this many spp is traced in chunks of at most this many, as
 # the reference dispatches it.  The chunks define the frame's samples: each
@@ -94,9 +116,24 @@ class Scene:
                                   aspect_ratio=width / height,
                                   device=self.device)
         self._geom = None
+        self._geom_dirty = True
         self._mat_table = None
+        self._mat_dirty = True
         self._light_table = None
-        self._dirty = True
+        self._light_dirty = True
+        # the incremental tables: the static world and its signature; by
+        # id(mesh), a dynamic mesh's instance, transform bytes, build
+        # generation, index, triangle count, local refit plan and whether
+        # its own tables lag the merged set's; the merged set and its plans
+        self._static_cache = None
+        self._instance_cache = {}
+        self._iset_cache = None
+        self._inst_gen = 0
+        self.stats_world_builds = 0  # static world BVH builds
+        self.stats_blas_builds = 0  # instance BVH builds (host)
+        self.stats_tlas_updates = 0  # transform-only instance updates
+        self.stats_device_refits = 0  # refills refit on the device
+        self.stats_device_lbvh_builds = 0  # Morton-sorted device refills
         self._rng_state = None
         self._blue_noise = blue_noise_table(self.device)
         # SVGF history; survives camera moves and reset_accumulation
@@ -116,8 +153,13 @@ class Scene:
     def add_mesh(self, mesh: Mesh, material: Material | None = None) -> Mesh:
         self.meshes.append(mesh)
         self.mesh_materials.append(material or Material())
-        self._edited()
+        self._mark_geom_dirty()
+        self._mat_dirty = True
         return mesh
+
+    def add_triangles(self, tris, material: Material | None = None) -> Mesh:
+        """A mesh of (N, 3, 3) triangles (three vertices each)."""
+        return self.add_mesh(Mesh.from_triangles(np.asarray(tris)), material)
 
     def add_plane_xz(self, plane_y: float, half_size: float,
                      material: Material | None = None) -> Mesh:
@@ -133,11 +175,33 @@ class Scene:
         return self.add_mesh(Mesh.cube(),
                              material or Material.make((1.0, 0.0, 0.0)))
 
+    def add_checkerboard_plane_xz(self, plane_y, tiles_per_side, tile_size,
+                                  white_mat: Material, black_mat: Material):
+        w, b = Mesh.checkerboard_plane_xz(plane_y, tiles_per_side, tile_size)
+        self.add_mesh(w, white_mat)
+        self.add_mesh(b, black_mat)
+
+    def remove_mesh(self, mesh: Mesh) -> None:
+        i = self.meshes.index(mesh)
+        del self.meshes[i]
+        del self.mesh_materials[i]
+        self._mark_geom_dirty()
+        self._mat_dirty = True
+
+    def set_material(self, mesh: Mesh, material: Material) -> None:
+        """Marks only the materials dirty, as the reference does: the
+        shadow-opaque bit (transmission > 0.5) baked into the geometry
+        follows at the next geometry rebuild."""
+        i = self.meshes.index(mesh)
+        self.mesh_materials[i] = material
+        self._mat_dirty = True
+        self.reset_accumulation()
+
     def add_point_light(self, position, color=(1, 1, 1), intensity=1.0,
                         range=100.0, radius=0.0) -> Light:
         lt = Light.point(position, color, intensity, range, radius)
         self.lights.append(lt)
-        self._edited()
+        self.commit_light_changes()
         return lt
 
     def add_area_light(self, position, direction, width=1.0, height=1.0,
@@ -147,14 +211,14 @@ class Scene:
         lt = Light.area(position, direction, width, height, color, intensity,
                         range)
         self.lights.append(lt)
-        self._edited()
+        self.commit_light_changes()
         return lt
 
     def add_directional_light(self, direction, color=(1, 1, 1),
                               intensity=1.0) -> Light:
         lt = Light.directional(direction, color, intensity)
         self.lights.append(lt)
-        self._edited()
+        self.commit_light_changes()
         return lt
 
     def add_spot_light(self, position, direction, color=(1, 1, 1),
@@ -164,7 +228,7 @@ class Scene:
         lt = Light.spot(position, direction, color, intensity, range,
                         inner_cone, outer_cone, radius)
         self.lights.append(lt)
-        self._edited()
+        self.commit_light_changes()
         return lt
 
     def set_camera(self, lookfrom, lookat, vup=(0, 1, 0), fov=60.0,
@@ -252,20 +316,36 @@ class Scene:
         """Drop SVGF temporal history (a hard cut: teleport, scene load)."""
         self._denoiser_state = None
 
-    def _edited(self) -> None:
-        self._dirty = True
+    # -- dirty tracking ------------------------------------------------------
+    def _mark_geom_dirty(self) -> None:
+        self._geom_dirty = True
+        self.reset_accumulation()
+
+    def commit_object_changes(self) -> None:
+        """Take meshes' transform and vertex edits at the next frame."""
+        self._mark_geom_dirty()
+
+    def commit_material_changes(self) -> None:
+        self._mat_dirty = True
+        self.reset_accumulation()
+
+    def commit_light_changes(self) -> None:
+        self._light_dirty = True
         self.reset_accumulation()
 
     # -- device state --------------------------------------------------------
     def _ensure_device_state(self) -> None:
-        if self._dirty or self._geom is None:
-            trans = [m.transmission for m in self.mesh_materials]
-            self._geom = assemble_geometry(self.meshes, trans, self.device)
+        if self._geom_dirty or self._geom is None:
+            self._rebuild_geometry()
+            self._geom_dirty = False
+        if self._mat_dirty or self._mat_table is None:
             self._mat_table = MaterialTable.from_materials(
                 self.mesh_materials, self.device)
+            self._mat_dirty = False
+        if self._light_dirty or self._light_table is None:
             self._light_table = LightTable.from_lights(self.lights,
                                                        self.device)
-            self._dirty = False
+            self._light_dirty = False
         rh, rw = self.render_size
         if self._rng_state is None or tuple(self._rng_state.shape) != (rh,
                                                                        rw):
@@ -273,6 +353,103 @@ class Scene:
                                     torch.arange(rw, device=self.device),
                                     indexing="ij")
             self._rng_state = prng.seed(xs, ys, 0)
+
+    def _rebuild_geometry(self) -> None:
+        """The two-level incremental update (the reference's
+        ``_rebuild_geometry``): the static meshes share one world BVH,
+        rebuilt only when a static mesh's vertices, transform or index
+        change; each dynamic mesh keeps a local BVH, built on the host only
+        when it is new or its triangle count changes.  A transform edit
+        replaces its matrix rows; a refill of the same count refits the
+        merged set's tables in place on the device (K5: ``refit_apply``,
+        or ``lbvh_update`` with ``device_lbvh``).  The set is merged again
+        only when an instance is built or the set changes; an instance
+        refit since the last merge takes its tables from the old set."""
+        trans = [m.transmission for m in self.mesh_materials]
+        static = [(i, m) for i, m in enumerate(self.meshes)
+                  if not m.is_dynamic]
+        # a mesh's index is its baked material id: a removal moves it
+        sig = tuple((i, id(m), m.transform.world_matrix().tobytes())
+                    for i, m in static)
+        if (self._static_cache is None or self._static_cache[1] != sig
+                or any(m.verts_dirty for _, m in static)):
+            sg = assemble_geometry([m for _, m in static], trans, self.device,
+                                   mesh_ids=[i for i, _ in static])
+            self._static_cache = (sg, sig)
+            self.stats_world_builds += 1
+            for _, m in static:
+                m.verts_dirty = False
+
+        new_cache, instances, entries, refits = {}, [], [], []
+        for i, m in enumerate(self.meshes):
+            if not m.is_dynamic:
+                continue
+            tbytes = m.transform.world_matrix().tobytes()
+            entry = self._instance_cache.get(id(m))
+            if entry is not None and entry["gid"] != i:
+                entry = None  # its baked mesh id moved
+            if (entry is not None and m.verts_dirty
+                    and entry["tris"] == m.num_triangles):
+                # a fixed-topology refill: refit on the device below
+                entry = dict(entry, tb=tbytes, inst=scene_geom.
+                             update_instance_transform(entry["inst"], m))
+                refits.append((len(instances), m))
+                self.stats_device_refits += 1
+                self.stats_device_lbvh_builds += int(m.device_lbvh)
+                m.verts_dirty = False
+            elif entry is None or m.verts_dirty:
+                inst = scene_geom.assemble_instance(m, i, trans, self.device)
+                self._inst_gen += 1
+                entry = dict(inst=inst, tb=tbytes, gen=self._inst_gen,
+                             gid=i, tris=m.num_triangles,
+                             plan=build_refit_plan(inst.geom), stale=False)
+                self.stats_blas_builds += 1
+                m.verts_dirty = False
+            elif entry["tb"] != tbytes:
+                entry = dict(entry, tb=tbytes, inst=scene_geom.
+                             update_instance_transform(entry["inst"], m))
+                self.stats_tlas_updates += 1
+            new_cache[id(m)] = entry
+            instances.append(entry["inst"])
+            entries.append(entry)
+        self._instance_cache = new_cache
+
+        if not instances:
+            self._iset_cache = None
+            self._geom = self._static_cache[0]
+            return
+        gens = tuple(e["gen"] for e in entries)
+        cache = self._iset_cache
+        if cache is not None and cache["gens"] == gens:
+            iset = scene_geom.update_instance_set_transforms(
+                cache["iset"], tuple(instances))
+            plans = cache["plans"]
+        else:
+            if cache is not None:
+                # instances refit since the last merge: their current
+                # tables live only in the old set
+                old = {g: k for k, g in enumerate(cache["gens"])}
+                for e in entries:
+                    if e["stale"] and e["gen"] in old:
+                        k = old[e["gen"]]
+                        g = scene_geom.split_instance(
+                            cache["iset"].geom, cache["plans"][k],
+                            e["inst"].geom)
+                        e["inst"] = dataclasses.replace(e["inst"], geom=g)
+                        e["stale"] = False
+                instances = [e["inst"] for e in entries]
+            iset = scene_geom.merge_instances(tuple(instances))
+            plans = _merged_refit_plans(entries)
+        for pos, m in refits:
+            verts = torch.from_numpy(np.stack(m.triangle_arrays(
+                world=False))).to(self.device)
+            apply = lbvh_update if m.device_lbvh else refit_apply
+            apply(iset.geom, plans[pos], verts[0], verts[1], verts[2])
+            entries[pos]["stale"] = True
+        self._iset_cache = dict(gens=gens, iset=iset, plans=plans)
+        self._geom = scene_geom.WorldGeometry(
+            static=self._static_cache[0], instances=tuple(instances),
+            iset=iset)
 
     def sky(self) -> SkyConfig:
         if self.env_map is None:

@@ -16,7 +16,9 @@ import numpy as np
 import torch
 
 from ptrt_tpu_torch.core.vec import Vec3
-from ptrt_tpu_torch.geometry.scene_geom import SceneGeometry
+from ptrt_tpu_torch.geometry.refit import RefitPlan
+from ptrt_tpu_torch.geometry.scene_geom import (InstanceSet, SceneGeometry,
+                                                WorldGeometry)
 from ptrt_tpu_torch.render.denoiser import ChannelHistory, DenoiserState
 from ptrt_tpu_torch.render.sky import SkyConfig
 from ptrt_tpu_torch.scene.camera import Camera
@@ -69,22 +71,52 @@ def _sky(fields: dict, device) -> SkyConfig:
     return SkyConfig(**kw)
 
 
+def _geometry(fields: dict, device):
+    """A ``SceneGeometry``, or a ``WorldGeometry`` from fields holding
+    ``static`` and ``iset`` (the set's ``geom``, ``roots``, ``mats``,
+    ``bb_min``, ``bb_max``; the per-instance tuple is not carried: the
+    port's world starts with none)."""
+    if "static" not in fields:
+        return _build(SceneGeometry, fields, device)
+    iset = fields.get("iset")
+    if iset is not None:
+        iset = InstanceSet(
+            geom=_build(SceneGeometry, iset["geom"], device),
+            **{k: _tensor(iset[k], device)
+               for k in ("roots", "mats", "bb_min", "bb_max")})
+    return WorldGeometry(static=_build(SceneGeometry, fields["static"],
+                                       device), instances=(), iset=iset)
+
+
+def _refit_plan(fields: dict) -> RefitPlan:
+    """A ``RefitPlan`` (host arrays, as the reference keeps them)."""
+    a = lambda k: np.array(fields[k], np.int32)
+    return RefitPlan(slot_tri=a("slot_tri"), levels=tuple(
+        np.array(x, np.int32) for x in fields["levels"]), cba=a("cba"),
+        lb=a("lb"), lmask=a("lmask"), imask=a("imask"),
+        **{k: int(fields[k]) for k in ("node_off", "blk_off", "slot_off")})
+
+
 def from_reference(*, device, geometry=None, materials=None, lights=None,
                    sky=None, camera=None, rng_state=None, blue_noise=None,
-                   denoiser_state=None) -> dict:
+                   denoiser_state=None, refit_plan=None) -> dict:
     """Convert the reference's state (flattened to numpy) to the port's.
 
-    ``geometry``: ``SceneGeometry`` fields; ``materials`` / ``lights``: the
-    tables' fields (only ``packed`` is used); ``sky``: a ``SkyConfig``'s
-    fields (gradient or HDRI, with its sampling tables); ``camera``: ``Camera`` fields (the reference's
-    fov, aspect and clip planes are dropped: the port keeps them in the
-    matrices); ``rng_state``: the (H, W) uint32 PCG state; ``blue_noise``:
+    ``geometry``: ``SceneGeometry`` fields, or a ``WorldGeometry``'s
+    (``static`` and ``iset`` as field dicts); ``refit_plan``: a
+    ``RefitPlan``'s fields; ``materials`` / ``lights``: the tables' fields
+    (only ``packed`` is used); ``sky``: a ``SkyConfig``'s fields (gradient
+    or HDRI, with its sampling tables); ``camera``: ``Camera`` fields (the
+    reference's fov, aspect and clip planes are dropped: the port keeps
+    them in the matrices); ``rng_state``: the (H, W) uint32 PCG state; ``blue_noise``:
     the (64, 64, 2) table; ``denoiser_state``: ``DenoiserState`` fields,
     its two ``ChannelHistory`` entries as field dicts of their own.
     Returns a dict with the converted entries under the same names."""
     out = {}
     if geometry is not None:
-        out["geometry"] = _build(SceneGeometry, geometry, device)
+        out["geometry"] = _geometry(geometry, device)
+    if refit_plan is not None:
+        out["refit_plan"] = _refit_plan(refit_plan)
     if materials is not None:
         out["materials"] = MaterialTable(_tensor(materials["packed"], device))
     if lights is not None:
@@ -107,12 +139,15 @@ def from_reference(*, device, geometry=None, materials=None, lights=None,
 
 def to_numpy(obj):
     """A port object back to numpy: dataclasses as field dicts, ``Vec3`` as
-    an (x, y, z) triple of arrays, tensors as arrays."""
+    an (x, y, z) triple of arrays, tensors as arrays (a ``RefitPlan``
+    without its device cache)."""
     if isinstance(obj, Vec3):
         return tuple(to_numpy(c) for c in (obj.x, obj.y, obj.z))
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
     if dataclasses.is_dataclass(obj):
         return {f.name: to_numpy(getattr(obj, f.name))
-                for f in dataclasses.fields(obj)}
+                for f in dataclasses.fields(obj) if f.name != "_dev"}
+    if isinstance(obj, tuple):
+        return tuple(to_numpy(x) for x in obj)
     return obj

@@ -139,6 +139,35 @@ def walk_bound(geom, n: int, live: int, plane_bytes: int,
                  + rows)
 
 
+def instances_bound(iset, n: int, live: int, shadow: bool) -> dict:
+    """The bound of one K4 call over ``n`` rays of which ``live`` walk
+    (t > 0, and for any-hit not yet occluded): ``walk_bound`` over the
+    instance set's tables (the t or t_max plane read for every ray) plus
+    the instance table read once (a row of 24 floats, the world box, the
+    root)."""
+    out = walk_bound(iset.geom, n, live, 4, shadow)
+    table = iset.count * (24 + 6 + 1) * 4
+    return bound(1e-3 * out["bound_ms"] * HBM_BYTES_PER_S + table)
+
+
+def refit_bound(plan, n_tris: int, morton_refill: bool) -> dict:
+    """The bound of K5's refit of one mesh: its vertices read (36 bytes a
+    triangle), the plan's slot map (4 bytes a slot; a Morton refill reads
+    its rank a slot and its order a triangle instead), each node's level
+    entry and metadata (4 + 16 bytes), and written: the triangle rows' nine
+    fields and the v0 / e1 / e2 mirrors (36 + 36 bytes a slot) and the
+    node boxes (192 bytes a node)."""
+    m, n = plan.num_slots, plan.num_nodes
+    slot_map = 4 * m + (4 * n_tris if morton_refill else 0)
+    return bound(36 * n_tris + slot_map + 20 * n + 72 * m + 192 * n)
+
+
+def morton_bound(n_tris: int) -> dict:
+    """The bound of K5's Morton codes: the vertices read (36 bytes a
+    triangle), the codes written (4)."""
+    return bound(40 * n_tris)
+
+
 # the env sample's record a NEE lane: origin, direction, pdf and MIS
 # weight, and the contribution (a half more when split)
 ENV_RECORD = 12 + 12 + 4 + 4 + 12
@@ -370,7 +399,9 @@ _SASS_CLASSES = (("global_load", r"LDG"), ("global_store", r"STG"),
                  ("shared_load", r"LDS"), ("shared_store", r"STS"),
                  ("local", r"LDL|STL"), ("mufu", r"MUFU"),
                  ("float", r"F(ADD|MUL|FMA|MNMX|SETP|SEL|CHK)"),
-                 ("branch", r"BRA|BSSY|BSYNC|CALL|RET|EXIT|BAR"))
+                 ("branch", r"BRA|BSSY|BSYNC|CALL|RET|EXIT|BAR"),
+                 # the warp's reconvergence points (a subset of branch)
+                 ("bssy", r"BSSY"), ("bsync", r"BSYNC"))
 
 
 def kernel_resources(lib_path: str, names) -> dict:

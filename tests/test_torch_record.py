@@ -10,6 +10,11 @@ them.  Here the plain stages and the plain shadow walk, which the kernels
 are held to on the card, are fed a record poisoned exactly there (NaN in the
 float planes, the opposite flag in ``front_face``) and must give what the
 clean record gives, bit for bit: per bounce and for a whole frame.
+
+With dynamic meshes K4 adds the ``inst`` plane to K1's record; ``shade_nee``
+reads it only where K1's slot holds a hit, so it is poisoned with other
+instance ids everywhere else, and the scene's dead lanes must still come
+back from K1 and K4 as misses.
 """
 
 import numpy as np
@@ -57,6 +62,43 @@ def scene():
     sc = build_bench_scene(40, 28, target_tris=600, device="cpu")
     sc._ensure_device_state()
     return sc
+
+
+def dynamic(sc):
+    """The scene with two dynamic meshes in view, one of them refilled."""
+    from ptrt_tpu_torch.scene.materials import Materials
+
+    cube = sc.add_cube(Materials.Glass())
+    cube.is_dynamic = True
+    cube.transform.set_position(0.2, -0.5, 2.6).set_rotation(0.0, 0.5, 0.0)
+    ball = sc.add_sphere(6, Materials.Copper())
+    ball.is_dynamic = True
+    ball.transform.set_position(-0.9, -0.4, 3.0)
+    sc._ensure_device_state()
+    ball.set_triangles(np.stack(ball.triangle_arrays(world=False), 1)
+                       * np.float32(1.2))
+    sc.commit_object_changes()
+    sc._ensure_device_state()
+    assert sc.stats_device_refits == 1 and sc._geom.iset.count == 2
+    return sc
+
+
+def poisoned_inst(k1: traverse.Closest, seed: int = 0) -> traverse.Closest:
+    """K1 / K4's record with another instance id wherever it holds no hit."""
+    g = torch.Generator().manual_seed(seed)
+    other = torch.randint(0, 2, k1.inst.shape, generator=g,
+                          dtype=torch.int32)
+    return k1._replace(inst=torch.where(k1.slot >= 0, k1.inst, other))
+
+
+@pytest.fixture(scope="module")
+def dynamic_scene():
+    return dynamic(build_bench_scene(40, 28, target_tris=600, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def dynamic_chains(dynamic_scene):
+    return _chains(dynamic_scene)
 
 
 @pytest.fixture(scope="module")
@@ -183,17 +225,60 @@ def test_unspecified_env_record_values_are_never_read(hdri_scene,
     _check_bounce(hdri_scene, hdri_chains, split, bounce)
 
 
-@pytest.mark.parametrize("preset", ["bench", "balanced", "hdri"])
+@pytest.mark.parametrize("bounce", range(DEPTH))
+@pytest.mark.parametrize("split", [False, True])
+def test_unspecified_record_values_are_never_read_with_instances(
+        dynamic_scene, dynamic_chains, split, bounce):
+    """The same on a scene whose walks run K4 after K1 and K2."""
+    _check_bounce(dynamic_scene, dynamic_chains, split, bounce)
+
+
+@pytest.mark.parametrize("bounce", range(DEPTH))
+@pytest.mark.parametrize("split", [False, True])
+def test_instance_plane_is_read_only_where_hit(dynamic_scene, dynamic_chains,
+                                               split, bounce):
+    """``shade_nee`` fed K4's record with ``inst`` poisoned wherever K1's
+    slot holds no hit gives the clean record and state bit for bit; dead
+    lanes came back as misses of every instance."""
+    sc = dynamic_scene
+    pre, k1 = dynamic_chains[split][bounce]
+    if bounce:
+        dead = ~pre.alive
+        assert dead.any()
+        assert (k1.slot[dead] == -1).all() and (k1.inst[dead] == -1).all()
+    assert (k1.inst >= 0).any() and (k1.slot < 0).any()
+    out = []
+    for rec in (k1, poisoned_inst(k1, bounce)):
+        ps = pre.clone()
+        nee = shade.shade_nee(ps, sc._geom, rec, sc._mat_table,
+                              sc._light_table, len(sc.lights), sc.sky(),
+                              bounce)
+        out.append((ps, nee))
+    (ps_a, a), (ps_b, b) = out
+    for name in ("hit", "point", "normal", "front_face", "t"):
+        assert _equal(getattr(a.hit, name), getattr(b.hit, name)), name
+    for name in ("do_nee", "shadow_o", "shadow_d", "shadow_t", "pdf",
+                 "contrib"):
+        assert _equal(getattr(a, name), getattr(b, name)), name
+    for name in ("alive", "rng", "accum", "throughput", "first_normal",
+                 "first_object_id"):
+        assert _equal(getattr(ps_a, name), getattr(ps_b, name)), name
+
+
+@pytest.mark.parametrize("preset", ["bench", "balanced", "hdri", "dynamic"])
 def test_frame_with_poisoned_records_is_the_same_frame(monkeypatch, preset):
     """A 64x48 frame (2 spp, depth 4; the balanced preset with its split
-    trace and post stack, the bare bench settings, or those lit by an HDRI
-    with env NEE) whose every record is poisoned between the stages equals
-    the normal frame: image, radiance and rays traced."""
+    trace and post stack, the bare bench settings, those lit by an HDRI
+    with env NEE, or the bench settings with two dynamic meshes, K4's
+    ``inst`` plane poisoned too) whose every record is poisoned between the
+    stages equals the normal frame: image, radiance and rays traced."""
 
     def render(poison: bool):
         sc = build_bench_scene(64, 48, target_tris=800, device="cpu")
         if preset == "hdri":
             hdri(sc)
+        if preset == "dynamic":
+            dynamic(sc)
         if preset == "balanced":
             sc.set_performance_preset("balanced")
         else:
@@ -204,8 +289,10 @@ def test_frame_with_poisoned_records_is_the_same_frame(monkeypatch, preset):
         if poison:
             real = shade.shade_nee
 
-            def shade_nee(ps, *args):
-                nee = real(ps, *args)
+            def shade_nee(ps, geom, k1, *args):
+                if k1.inst is not None:
+                    k1 = poisoned_inst(k1, len(calls))
+                nee = real(ps, geom, k1, *args)
                 calls.append(1)
                 return poisoned(nee, ps.alive)
 

@@ -225,3 +225,60 @@ def test_from_reference_denoiser_state():
         _same(ca, cb)
     for key in ("depth", "object_id", "first_frame"):
         _same(src[key], back[key])
+
+
+def test_world_geometry_and_refit_plan_round_trip():
+    """A two-level world (the static world's tables and the instance set's
+    tables, roots, matrix rows and boxes) and a refit plan placed at
+    offsets cross unchanged; the carried world traces as the port's own."""
+    from ptrt_tpu.geometry import refit as ref_refit
+    from ptrt_tpu.geometry import scene_geom as ref_sg
+    from ptrt_tpu.geometry.mesh import Mesh as RefMesh
+
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.geometry.scene_geom import WorldGeometry
+    from ptrt_tpu_torch.render import traverse
+
+    meshes = [RefMesh.plane_xz(-1.0, 6.0), RefMesh.cube(),
+              RefMesh.sphere(6)]
+    for k, m in enumerate(meshes[1:]):
+        m.is_dynamic = True
+        m.transform.set_position(0.5 * k, -0.3, 3.0 + k).set_rotation(
+            0.2, 0.4 * k, 0.0)
+    world = ref_sg.assemble_world(meshes)
+    src = ref_np(world)
+    got = tables.from_reference(device=CPU, geometry=src)["geometry"]
+    assert isinstance(got, WorldGeometry) and got.iset.count == 2
+    back = tables.to_numpy(got)
+    for part, a, b in (("static", src["static"], back["static"]),
+                       ("iset", src["iset"]["geom"], back["iset"]["geom"])):
+        for key in ("node_rows", "tri_rows", "v0", "e1", "e2", "tri_mesh_id",
+                    "tri_shadow_opaque"):
+            if isinstance(a[key], tuple):
+                for ca, cb in zip(a[key], b[key]):
+                    _same(ca, cb)
+            else:
+                _same(a[key], b[key])
+        assert a["stack_depth"] == b["stack_depth"], part
+    for key in ("roots", "mats", "bb_min", "bb_max"):
+        _same(src["iset"][key], back["iset"][key])
+    rng = np.random.default_rng(1)
+    o = Vec3(*[torch.from_numpy(rng.normal(size=64).astype(np.float32) * 0.3)
+               for _ in range(3)])
+    d = Vec3(torch.full((64,), 0.05), torch.full((64,), -0.25),
+             torch.ones(64)).normalized()
+    hit = traverse.intersect_closest(got, o, d)
+    assert set(hit.mesh_index.tolist()) >= {0, 1}  # floor and instance
+
+    plan = ref_refit.build_refit_plan(world.instances[1].geom, node_off=3,
+                                      blk_off=4, slot_off=32)
+    carried = tables.from_reference(device=CPU,
+                                    refit_plan=ref_np(plan))["refit_plan"]
+    back = tables.to_numpy(carried)
+    for f in dataclasses.fields(plan):
+        a, b = getattr(plan, f.name), back[f.name]
+        if f.name == "levels":
+            assert len(a) == len(b)
+            assert all(np.array_equal(x, y) for x, y in zip(a, b))
+        else:
+            assert np.array_equal(a, b), f.name
