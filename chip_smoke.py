@@ -105,7 +105,11 @@ Phases (any failure raises, so the exit code is non-zero):
      wavefronts against their plain version on a 4096-ray sample (hit, mesh
      and instance equal, t within K4_T_ATOL), at full width, on two streams
      at once (bit for bit), against the same transforms baked into one
-     static world walked by K1 / K2, each timed beside its bound; K5 refit
+     static world walked by K1 / K2, each timed beside its bound, with the
+     instance-tree boxes a live ray tests (the plain descent, beside the
+     flat test's one a instance); K4 against its plain
+     version on a world of two identical instances (the lower id wins) and
+     on sets of 1, 9 and 512 instances; the tree's host build timed; K5 refit
      and morton bit for bit against their plain versions on every table, at
      the heightfield, the sphere and odd sizes, timed; one warm-up and five
      timed dynamic frames (the counters: no host BVH build, 192 transform
@@ -187,6 +191,10 @@ ODD_SIZES = ((23, 37), (75, 101), (1, 1), (270, 333))
 # static world walked by K1 / K2: the share of rays whose hit and mesh id
 # agree (grazing rays may cross an edge either way)
 K4_T_ATOL, K4_BAKED_AGREE = 2.8e-5, 0.9999
+# K4 on hand-made instance sets too: the tie world (two identical
+# instances), then sets of these sizes, each at this many seeded rays
+K4_SET_SIZES = (1, 9, 512)
+K4_SET_RAYS = 4096
 DYN_FRAMES = 5  # the dynamic frame's timed frames
 # kernels a frame without dynamic meshes never launches
 STATIC_NEVER = ("instances_closest", "instances_any", "refit", "morton")
@@ -1666,7 +1674,8 @@ def check_instances(dyn, rng, card):
                 f"K4 {name}: two streams differ")
             agree = float((traverse.any_hit(baked, o, d, t) == full)
                           .float().mean())
-            live = int((~full0 & (t > 0)).sum())
+            live_t = torch.where(~full0 & (t > 0), t, -1.0)
+            live = int((live_t > 0).sum())
             states = [full0.clone() for _ in range(11)]
             ms = [stages.clones_ms(
                 lambda h: traverse.instances_any(iset, o, d, t, h),
@@ -1709,7 +1718,8 @@ def check_instances(dyn, rng, card):
             bk = traverse.closest_hit(baked, o, d, t)
             agree = float((((bk.slot >= 0) == (full.slot >= 0))
                            & (bk.mesh == full.mesh)).float().mean())
-            live = int((t > 0).sum())
+            live_t = full0.t
+            live = int((live_t > 0).sum())
             states = [copy(full0) for _ in range(11)]
             ms = [stages.clones_ms(
                 lambda r: traverse.instances_closest(iset, o, d, r),
@@ -1718,7 +1728,10 @@ def check_instances(dyn, rng, card):
             share = float((full.inst >= 0)[t > 0].float().mean())
             extra = (f"instance hits on {share:.4f} of the live rays, max "
                      f"|dt| {t_err:.3g}")
+        tests = box_tests(iset, o, d, live_t)
         b = stages.instances_bound(iset, n, live, name == "shadow")
+        log(f"  K4 {k} {name}: boxes a live ray tests "
+            + ", ".join(f"{w} {v:.2f}" for w, v in tests.items()))
         log(f"  K4 {k} {name}: {SAMPLE_RAYS} sampled rays vs plain "
             f"({plain_ms:.1f} ms): {mism} hit/mesh/inst mismatches; {extra};"
             f" full width equal at the sample, two streams bit for bit; "
@@ -1735,9 +1748,119 @@ def check_instances(dyn, rng, card):
         r.setdefault("wavefront_bound_ms", {})[name] = b["bound_ms"]
         r.setdefault("wavefront_live", {})[name] = live
         r.setdefault("baked_agree", {})[name] = agree
+        r.setdefault("box_tests_per_live_ray", {})[name] = tests
         r.setdefault("plain_sample_ms", {})[name] = plain_ms
         r["bound_by"] = b["bound_by"]
     return res
+
+
+def box_tests(iset, o, d, t) -> dict:
+    """Instance boxes a live ray (``t > 0``) tests, as a mean: the tree's
+    descent (the plain descent, which tests the boxes the kernel tests) and
+    the flat test (every box)."""
+    from ptrt_tpu_torch.geometry import tlas
+    from ptrt_tpu_torch.render import traverse
+
+    _, n = tlas.tlas_candidates(iset.tlas, iset.count, o,
+                                traverse.safe_inv(d), t, candidates=False)
+    return {"tree": float(n[t > 0.0].float().mean()),
+            "flat": float(iset.count)}
+
+
+def instance_world(n: int, seed: int, dev, tie: bool = False):
+    """A floor and ``n`` dynamic cubes at seeded transforms over a 24 x 24
+    field, every third one hidden (scale 1e-6 at y = -100, as the dynamic
+    scene's empty slots); with ``tie`` the first two are identical (the
+    same mesh at the same transform: instances 0 and 1)."""
+    import numpy as np
+    from ptrt_tpu_torch.geometry.mesh import Mesh
+    from ptrt_tpu_torch.geometry.scene_geom import assemble_world
+
+    rng = np.random.default_rng(seed)
+    meshes = [Mesh.plane_xz(-1.0, 40.0)]
+    for k in range(n):
+        m = Mesh.cube()
+        pos = rng.uniform([-12.0, -0.5, 4.0], [12.0, 3.0, 28.0])
+        rot = rng.uniform(0.0, 3.0, 3)
+        scale = rng.uniform(0.3, 1.2, 3)
+        if tie and k == 1:
+            pos, rot, scale = first
+        first = (pos, rot, scale) if k == 0 else first
+        m.transform.set_position(*pos).set_rotation(*rot).set_scale(*scale)
+        if k % 3 == 2 and not tie:
+            m.transform.set_position(pos[0], -100.0, pos[2]).set_scale(1e-6)
+        m.is_dynamic = True
+        meshes.append(m)
+    return assemble_world(meshes, None, dev)
+
+
+def check_instance_sets(dev, card) -> dict:
+    """K4 against its plain version on hand-made sets: the tie world (two
+    identical instances in front of the rays: where they are hit, the
+    instance is 0 in the kernel's record as in the plain version's), then
+    sets of K4_SET_SIZES instances; K4_SET_RAYS seeded rays each, closest
+    (hit, mesh and instance equal on every ray, t within K4_T_ATOL) and
+    any-hit (equal)."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.render import traverse
+
+    out = {}
+    for label, n, tie in (("tie", 2, True), *[(f"{k} instances", k, False)
+                                              for k in K4_SET_SIZES]):
+        g = instance_world(n, 40 + n, dev, tie)
+        iset = g.iset
+        rng = np.random.default_rng(50 + n)
+        r = K4_SET_RAYS
+        # three rays in four at an instance's centre (inside its cube
+        # whatever its rotation), the rest anywhere over the field
+        org = rng.normal([0.0, 2.0, -6.0], 0.5, (r, 3))
+        centre = 0.5 * (iset.bb_min + iset.bb_max).cpu().numpy()
+        shown = np.flatnonzero(centre[:, 1] > -50.0)
+        aim = centre[rng.choice(shown, r)] + rng.uniform(-0.05, 0.05, (r, 3))
+        field = rng.uniform([-12.0, -1.0, 4.0], [12.0, 3.5, 28.0], (r, 3))
+        aim = np.where((rng.uniform(size=r) < 0.25)[:, None], field, aim)
+        dirs = aim - org
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+        vec = lambda a: Vec3(*[torch.tensor(a[:, j], dtype=torch.float32,
+                                            device=dev) for j in range(3)])
+        o, d = vec(org), vec(dirs)
+        t = torch.full((r,), traverse.T_MAX, device=dev)
+        rec = traverse.closest_hit(g.static, o, d, t)
+        copy = lambda x: traverse.Closest(*[p.clone() for p in x])
+        got = traverse.instances_closest(iset, o, d, copy(rec))
+        want = traverse.instances_closest_plain(iset, o, d, copy(rec))
+        hit_k, hit_p = got.slot >= 0, want.slot >= 0
+        mism = int(((hit_k != hit_p) | (got.mesh != want.mesh)
+                    | (got.inst != want.inst)).sum())
+        bh = hit_k & hit_p
+        t_err = float((got.t - want.t).abs()[bh].max()) if bh.any() else 0.0
+        # shadow rays ending before or beyond the point aimed at
+        reach = np.linalg.norm(aim - org, axis=1) * rng.uniform(0.5, 1.5, r)
+        t_s = torch.tensor(reach, dtype=torch.float32, device=dev)
+        h0 = traverse.any_hit(g.static, o, d, t_s)
+        h_k = traverse.instances_any(iset, o, d, t_s, h0.clone())
+        h_p = traverse.instances_any_plain(iset, o, d, t_s, h0.clone())
+        mism_any = int((h_k != h_p).sum())
+        share = float((got.inst >= 0).float().mean())
+        tests = box_tests(iset, o, d, rec.t)
+        log(f"  K4 {label} ({iset.count} instances, a tree of "
+            f"{iset.tlas.shape[0]} nodes {iset.tlas.shape[1]} wide): "
+            f"{r} rays, closest {mism} hit/mesh/inst mismatches, max |dt| "
+            f"{t_err:.3g}, instance hits on {share:.4f}; any-hit {mism_any} "
+            f"mismatches ({int((h_k & ~h0).sum())} lanes occluded by an "
+            f"instance only); boxes a live ray tests "
+            + ", ".join(f"{w} {v:.2f}" for w, v in tests.items())
+            + f" [{card}]")
+        assert mism == 0 and mism_any == 0, (label, mism, mism_any)
+        assert t_err <= K4_T_ATOL, (label, t_err)
+        assert share > 0.05, (label, share)
+        if tie:  # both instances are candidates; the lower id wins
+            assert bool((got.inst != 1).all()) and share > 0.5
+        out[label] = {"mismatches": mism + mism_any, "max_abs_err": t_err,
+                      "instance_hit_share": share, "box_tests": tests}
+    return out
 
 
 def bounce_launches(names, samples, depth):
@@ -2265,7 +2388,18 @@ def main() -> int:
     kstats = check_instances(dyn, rng, card)
     from ptrt_tpu_torch.render import traverse as trav
 
-    k4_info = trav.instances_info(iset.count)
+    k4_sets = check_instance_sets(dev, card)
+    from ptrt_tpu_torch.geometry.tlas import build_tlas
+
+    bmin, bmax = iset.bb_min.cpu().numpy(), iset.bb_max.cpu().numpy()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        build_tlas(bmin, bmax)
+    tlas_host_ms = 1e3 * (time.perf_counter() - t0) / 200
+    log(f"  the instance tree: {iset.tlas.shape[0]} nodes "
+        f"{iset.tlas.shape[1]} wide over {iset.count} instances, built on "
+        f"the host in {tlas_host_ms:.4f} ms (mean of 200 builds)")
+    k4_info = trav.instances_info(iset)
     # no trap in the walk loops: each K4 kernel's SASS pairs its BSSY with
     # BSYNC, the warp reconverging as K1's does (phase 2's listing)
     for k in ("instances_closest", "instances_any"):
@@ -2275,7 +2409,8 @@ def main() -> int:
     for k, v in k4_info.items():
         log(f"  {k}: {v['registers']} registers, {v['local_bytes']} bytes "
             f"of local memory a thread, {v['blocks_per_sm']} resident blocks "
-            f"of 128 threads a SM with {iset.count} instances staged")
+            f"of 128 threads a SM with {iset.count} instances and their tree "
+            f"staged")
     plans = dyn._iset_cache["plans"]
     kres = {}
     for label, pos, mesh, morton in (
@@ -2526,8 +2661,11 @@ def main() -> int:
            "plain_ms": kstats[k]["plain_sample_ms"][w],
            "plain_rays": SAMPLE_RAYS, "wavefront": w, "library_ms": None,
            "rays": W * H, **{key: v for key, v in kstats[k].items()
-                             if key.startswith(("wavefront", "baked"))},
-           **k4_info[k]}
+                             if key.startswith(("wavefront", "baked",
+                                                "box"))},
+           "instance_sets": {lbl: r["mismatches"]
+                             for lbl, r in k4_sets.items()},
+           "tlas_host_ms": tlas_host_ms, **k4_info[k]}
           for k, w in (("instances_closest", "bounce"),
                        ("instances_any", "shadow"))],
         *[{"name": k, "route": "cuda", "source": src("refit.cu"),

@@ -425,60 +425,100 @@ WalkArgs walk_args(const float* nodes, int n_nodes, const float* tris,
 //
 // Replaces: ptrt_tpu/render/traverse.py _instances_closest_batched (:986)
 // and _instances_any_batched (:1041), with _inst_hit_words (:897),
-// _mat_affine / _mat_linear (:958-970) and _reconstruct_hit (:833): the
-// dense slab test of every ray against every instance's world AABB, then
-// rounds of (ray, instance) items packed, moved into the instance's frame
-// and walked from the instance's root through the merged tables.
+// _words_lsb_iid (:937), _mat_affine / _mat_linear (:958-970) and
+// _reconstruct_hit (:833): the dense slab test of every ray against every
+// instance's world AABB into bitmask words, then rounds of (ray, instance)
+// items, lowest instance id first, moved into the instance's frame and
+// walked from the instance's root through the merged tables.
 //
 // What bounds them on the card: the same dependent loads as K1 and K2 for
-// the rays that enter an instance's box, and for every ray the instance
-// list itself (6 floats of box a ray and an instance, ~20 operations).
+// the rays that enter an instance's box, and the boxes a ray tests.  The
+// reference's dense test (instances are tens, a broadcast beats a tree on a
+// TPU) costs one thread a ray 6 shared loads and ~20 operations for every
+// instance box: ~200 boxes a ray in the dynamic scene, most of them far
+// from the ray, issue-bound at 22-37x the walk bound (PERF.md).
 //
 // What this design does: one thread a ray, the persistent warps of K1 (a
-// counter of its own for each call), the instances' boxes, world->local
-// rows and roots staged in shared memory once a block.  A ray walks the
-// instances in id order: those whose box it enters within the static
-// pass's t (the reference tests the boxes once, against that t), each
-// with its ray moved into the instance's frame (o_l = M o + m3, d_l = M d
-// in _mat_affine's order with no contraction, so the local rays equal the
-// plain version's; the direction is not renormalised, so t is shared
-// between the frames) and walked from its root bounded by the current t.
-// A hit strictly nearer than that bound replaces the record.  K4 runs after
-// K1 (K2) as its own launch, over the same wavefront, and updates K1's
-// record (K2's plane) in place: a scene with no dynamic mesh launches no K4.
-// The any-hit walk skips lanes already occluded or with t_max <= 0 and
-// stops at its first occluder.
+// counter of its own for each call).  A ray descends a small tree over the
+// instance boxes (geometry/tlas.py: nodes of kTlasWidth children, each
+// child a (lo, ref) and (hi, valid) float4 pair, built on the host with the
+// boxes),
+// staged in shared memory once a block with the instances' world->local
+// rows (3 float4) and roots.  The tree finds exactly the flat test's
+// instances: a leaf child is the instance's box verbatim, tested with the
+// flat test's arithmetic against the static pass's t (the reference tests
+// the boxes once, against that t), and an inner box is the exact min / max
+// of its children's bounds, which passes whenever a child passes (the
+// rounding of (b - o) * inv is monotone in b).  Closest collects them into
+// a bitmask of instance ids (a per-thread slice of shared memory, a word
+// of 32 ids at a time) and visits them lowest id first, as the reference's
+// words do, so an exact tie between instances goes to the lower id and a
+// tie with the static pass keeps the static record; each visit moves the
+// ray into the instance's frame (o_l = M o + m3, d_l = M d in _mat_affine's
+// order with no contraction, so the local rays equal the plain version's;
+// the direction is not renormalised, so t is shared between the frames)
+// and walks it from its root bounded by the current t.  A hit strictly
+// nearer than that bound replaces the record.  Any-hit needs no order: it
+// walks each instance as the descent finds it and stops at its first
+// occluder.  K4 runs after K1 (K2) as its own launch, over the same
+// wavefront, and updates K1's record (K2's plane) in place: a scene with
+// no dynamic mesh launches no K4.  The any-hit walk skips lanes already
+// occluded or with t_max <= 0.  The descent's stack cannot overflow: a
+// tree of kMaxInstances is the deepest (static_assert).
+// Measured and left out (PERF.md): a warp-uniform descent (a node
+// visited when any lane passes its box, every lane reading the same node)
+// was no faster on camera and bounce rays and slower on shadow rays; a tree
+// 8 wide tests more boxes than 4 wide and was 3-5% slower; the child loop
+// unrolled, by nvcc or into a mask of passing children, was 1-3% slower.
 
-constexpr int kK4Blocks = 6;      // resident blocks a SM (launch bounds)
+// resident blocks a SM (launch bounds), each the fastest measured on the
+// dynamic scene's wavefronts: closest at 7 (72 registers, no spills) beat 5,
+// 6 and 8 (6 and 8 spill), any at 8 beat 7 and 9 (PERF.md)
+constexpr int kK4Blocks = 7;
 constexpr int kK4AnyBlocks = 8;
-constexpr int kInstFloats = 18;   // staged a instance: box 6, rows 0:12
+constexpr int kTlasWidth = 4;  // children a node: tlas.TLAS_WIDTH
+constexpr int kTlasStack = 16;  // node indices the descent holds at most
+constexpr int kMatF4 = 6;       // float4s in an instance's 24-float row
+
+// The most node indices a depth-first descent of a tree over n instances
+// holds at once (tlas.tlas_stack_bound): each level below the root pushes
+// at most kTlasWidth and pops one.
+constexpr int tlas_stack_bound(int n, int levels = 1) {
+    return n <= kTlasWidth
+               ? (kTlasWidth - 1) * (levels - 1) + 1
+               : tlas_stack_bound((n + kTlasWidth - 1) / kTlasWidth,
+                                  levels + 1);
+}
+static_assert(tlas_stack_bound(kMaxInstances) <= kTlasStack,
+              "the descent stack must hold the deepest tree");
 
 // Everything an instance walk reads and writes.  ``w`` holds the merged
 // tables, the world rays and, for closest, K1's record (t, u, v, slot,
 // mesh: read and updated in place) or, for any, t_max.
 struct InstArgs {
     WalkArgs w;
-    const float* __restrict__ mats;    // (I, 24): rows 0:12 world->local
-    const float* __restrict__ bb_min;  // (I, 3)
-    const float* __restrict__ bb_max;  // (I, 3)
-    const int* __restrict__ roots;     // (I,)
-    int* __restrict__ inst_out;        // closest: the winning instance or -1
-    uint8_t* __restrict__ hit_io;      // any: K2's plane, ORed in place
-    int n_inst;
+    const float4* __restrict__ mats;  // (I, 24): rows 0:12 world->local
+    const float4* __restrict__ tlas;  // (nodes, kTlasWidth) child pairs
+    const int* __restrict__ roots;    // (I,)
+    int* __restrict__ inst_out;       // closest: the winning instance or -1
+    uint8_t* __restrict__ hit_io;     // any: K2's plane, ORed in place
+    int n_inst, tlas_nodes;
 };
 
-__device__ __forceinline__ bool inst_slab(const float* __restrict__ box,
-                                          const Ray& r, float t_bound) {
+// The flat test of one box (lo.xyz, hi.xyz) against (0, t_bound]: the
+// reference's _inst_hit_words arithmetic.
+__device__ __forceinline__ bool box_slab(const float4 lo, const float4 hi,
+                                         const Ray& r, float t_bound) {
     float te = 0.0f, tx = t_bound;
-    float t0 = (box[0] - r.ox) * r.ix, t1 = (box[3] - r.ox) * r.ix;
+    float t0 = (lo.x - r.ox) * r.ix, t1 = (hi.x - r.ox) * r.ix;
     te = fmaxf(te, fminf(t0, t1));
     tx = fminf(tx, fmaxf(t0, t1));
-    t0 = (box[1] - r.oy) * r.iy;
-    t1 = (box[4] - r.oy) * r.iy;
+    t0 = (lo.y - r.oy) * r.iy;
+    t1 = (hi.y - r.oy) * r.iy;
     te = fmaxf(te, fminf(t0, t1));
     tx = fminf(tx, fmaxf(t0, t1));
-    t0 = (box[2] - r.oz) * r.iz;
-    t1 = (box[5] - r.oz) * r.iz;
+    t0 = (lo.z - r.oz) * r.iz;
+    t1 = (hi.z - r.oz) * r.iz;
     te = fmaxf(te, fminf(t0, t1));
     tx = fminf(tx, fmaxf(t0, t1));
     return te <= tx;
@@ -486,8 +526,11 @@ __device__ __forceinline__ bool inst_slab(const float* __restrict__ box,
 
 // The ray in an instance's frame: _mat_affine / _mat_linear, each product
 // and sum rounded on its own, left to right.
-__device__ __forceinline__ Ray local_ray(const float* __restrict__ m,
+__device__ __forceinline__ Ray local_ray(const float4* __restrict__ rows,
                                          const Ray& r) {
+    const float4 a = rows[0], b = rows[1], c = rows[2];
+    const float m[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                         b.z, b.w, c.x, c.y, c.z, c.w};
     Ray l;
     l.ox = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[0], r.ox),
                                          __fmul_rn(m[1], r.oy)),
@@ -510,19 +553,55 @@ __device__ __forceinline__ Ray local_ray(const float* __restrict__ m,
     return l;
 }
 
+// Depth-first descent of the staged tree: ``found(k)`` for each instance k
+// whose box the ray enters within t_bound, in the tree's order; a true
+// return ends the descent.  A node's children are its kTlasWidth rows from
+// ``tree + 2 * kTlasWidth * node``; ``ref`` (lo.w) is a child node's index,
+// or -1 - k for instance k, both exact float values.
+template <typename Found>
+__device__ __forceinline__ void descend(const float4* __restrict__ tree,
+                                        const Ray& r, float t_bound,
+                                        Found found) {
+    int stack[kTlasStack];
+    int sp = 0, node = 0;
+    while (true) {
+        const float4* const row = tree + 2 * kTlasWidth * node;
+#pragma unroll 1  // unrolled (by nvcc, or into a mask): 1-3% slower
+        for (int c = 0; c < kTlasWidth; ++c) {
+            const float4 lo = row[2 * c], hi = row[2 * c + 1];
+            if (hi.w == 0.0f || !box_slab(lo, hi, r, t_bound)) continue;
+            const int ref = static_cast<int>(lo.w);
+            if (ref >= 0)
+                stack[sp++] = ref;  // sp < kTlasStack: the static_assert
+            else if (found(-1 - ref))
+                return;
+        }
+        if (sp == 0) return;
+        node = stack[--sp];
+    }
+}
+
 template <bool kAny>
 __device__ __forceinline__ void instance_rays(const InstArgs& a) {
-    extern __shared__ float staged[];  // n_inst x kInstFloats, then roots
-    int* const roots = reinterpret_cast<int*>(staged + a.n_inst * kInstFloats);
-    for (int q = threadIdx.x; q < a.n_inst * kInstFloats; q += blockDim.x) {
-        const int k = q / kInstFloats, f = q - k * kInstFloats;
-        staged[q] = f < 3 ? a.bb_min[3 * k + f]
-                  : f < 6 ? a.bb_max[3 * k + f - 3]
-                          : a.mats[24 * k + f - 6];
+    // staged: the tree, then each instance's world->local rows (3 float4),
+    // the roots, and (closest) each thread's candidate words, word-major
+    extern __shared__ float4 staged[];
+    const int tree_f4 = 2 * kTlasWidth * a.tlas_nodes;
+    float4* const tree = staged;
+    float4* const rows = staged + tree_f4;
+    int* const roots = reinterpret_cast<int*>(rows + 3 * a.n_inst);
+    unsigned* const words =
+        reinterpret_cast<unsigned*>(roots + a.n_inst) + threadIdx.x;
+    for (int q = threadIdx.x; q < tree_f4; q += blockDim.x)
+        tree[q] = a.tlas[q];
+    for (int q = threadIdx.x; q < 3 * a.n_inst; q += blockDim.x) {
+        const int k = q / 3;
+        rows[q] = a.mats[kMatF4 * k + q - 3 * k];
     }
     for (int k = threadIdx.x; k < a.n_inst; k += blockDim.x)
         roots[k] = a.roots[k];
     __syncthreads();
+    const int n_words = (a.n_inst + 31) >> 5;
     const WalkArgs& w = a.w;
     const int lane = threadIdx.x & 31;
     while (true) {
@@ -534,8 +613,7 @@ __device__ __forceinline__ void instance_rays(const InstArgs& a) {
         if (i < w.n) {
             float t = kAny ? w.t_max[i] : w.t_out[i];
             const bool todo = t > 0.0f && (!kAny || a.hit_io[i] == 0);
-            int inst = -1, best = -1, best_mesh = -1;
-            float bu = 0.0f, bv = 0.0f;
+            int inst = -1;
             if (todo) {
                 Ray r;
                 r.ox = w.ox[i];
@@ -547,30 +625,47 @@ __device__ __forceinline__ void instance_rays(const InstArgs& a) {
                 r.ix = safe_inv(r.dx);
                 r.iy = safe_inv(r.dy);
                 r.iz = safe_inv(r.dz);
-                const float t_boxes = t;  // the static pass's t
-                for (int k = 0; k < a.n_inst; ++k) {
-                    const float* const rows = staged + k * kInstFloats;
-                    if (!inst_slab(rows, r, t_boxes)) continue;
-                    const Ray l = local_ray(rows + 6, r);
-                    int slot = -1, mesh = -1;
-                    float uu = 0.0f, vv = 0.0f;
-                    if (kAny) {
-                        if (walk<true, false, false>(
+                if (kAny) {
+                    descend(tree, r, t, [&](int k) {
+                        const Ray l = local_ray(rows + 3 * k, r);
+                        int slot = -1, mesh = -1;
+                        float uu = 0.0f, vv = 0.0f;
+                        if (!walk<true, false, false>(
                                 w.nodes, w.n_nodes, w.tris, w.n_blocks, l, t,
-                                slot, mesh, uu, vv, nullptr, roots[k])) {
-                            inst = k;
-                            break;
-                        }
-                    } else {
-                        walk<false, true, false>(w.nodes, w.n_nodes, w.tris,
-                                                 w.n_blocks, l, t, slot, mesh,
-                                                 uu, vv, nullptr, roots[k]);
-                        if (slot >= 0) {  // strictly nearer than the bound
-                            inst = k;
-                            best = slot;
-                            best_mesh = mesh;
-                            bu = uu;
-                            bv = vv;
+                                slot, mesh, uu, vv, nullptr, roots[k]))
+                            return false;
+                        inst = k;
+                        return true;
+                    });
+                } else {
+                    for (int q = 0; q < n_words; ++q) words[q * kThreads] = 0u;
+                    descend(tree, r, t, [&](int k) {
+                        words[(k >> 5) * kThreads] |= 1u << (k & 31);
+                        return false;
+                    });
+                    // the candidates lowest id first, each walked bounded
+                    // by the current t; a nearer hit is written at once
+                    // (the record is K1's until then), so nothing of it
+                    // stays live across the next walk
+                    for (int q = 0; q < n_words; ++q) {
+                        unsigned m;
+                        while ((m = words[q * kThreads]) != 0u) {
+                            words[q * kThreads] = m & (m - 1u);
+                            const int k = 32 * q + __ffs(m) - 1;
+                            const Ray l = local_ray(rows + 3 * k, r);
+                            int slot = -1, mesh = -1;
+                            float uu = 0.0f, vv = 0.0f;
+                            walk<false, true, false>(
+                                w.nodes, w.n_nodes, w.tris, w.n_blocks, l, t,
+                                slot, mesh, uu, vv, nullptr, roots[k]);
+                            if (slot >= 0) {  // strictly nearer than the bound
+                                inst = k;
+                                w.t_out[i] = t;
+                                w.u_out[i] = uu;
+                                w.v_out[i] = vv;
+                                w.slot_out[i] = slot;
+                                w.mesh_out[i] = mesh;
+                            }
                         }
                     }
                 }
@@ -578,13 +673,6 @@ __device__ __forceinline__ void instance_rays(const InstArgs& a) {
             if (kAny) {
                 if (inst >= 0) a.hit_io[i] = 1;
             } else {
-                if (inst >= 0) {
-                    w.t_out[i] = t;
-                    w.u_out[i] = bu;
-                    w.v_out[i] = bv;
-                    w.slot_out[i] = best;
-                    w.mesh_out[i] = best_mesh;
-                }
                 a.inst_out[i] = inst;
             }
         }
@@ -602,20 +690,46 @@ instances_any_kernel(const __grid_constant__ InstArgs a) {
     instance_rays<true>(a);
 }
 
-size_t inst_shared_bytes(int n_inst) {
-    return static_cast<size_t>(n_inst) * (kInstFloats + 1) * sizeof(float);
+size_t inst_shared_bytes(bool any, int n_inst, int tlas_nodes) {
+    const size_t words = any ? 0 : static_cast<size_t>((n_inst + 31) >> 5);
+    return sizeof(float4) * (2 * kTlasWidth * static_cast<size_t>(tlas_nodes) +
+                             3 * static_cast<size_t>(n_inst)) +
+           sizeof(int) * static_cast<size_t>(n_inst) +
+           sizeof(unsigned) * kThreads * words;
+}
+
+// A K4 kernel, its shared bytes for this set, and above 48 KB the opt-in
+// the launch needs (asked once a kernel, device and size).
+cudaError_t inst_kernel(bool any, int n_inst, int tlas_nodes,
+                        const void** fn, size_t* smem) {
+    static size_t allowed[2][kMaxDevices];
+    *fn = any ? reinterpret_cast<const void*>(instances_any_kernel)
+              : reinterpret_cast<const void*>(instances_closest_kernel);
+    *smem = inst_shared_bytes(any, n_inst, tlas_nodes);
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (*smem > (48u << 10) && *smem > allowed[any][dev]) {
+        e = cudaFuncSetAttribute(*fn,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(*smem));
+        if (e != cudaSuccess) return e;
+        allowed[any][dev] = *smem;
+    }
+    return cudaSuccess;
 }
 
 int launch_instances(bool any, const InstArgs& a, void* stream) {
     if (a.w.n <= 0 || a.n_inst <= 0)
         return static_cast<int>(cudaGetLastError());
+    if (a.tlas_nodes < 1) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const void* fn = any ? reinterpret_cast<const void*>(instances_any_kernel)
-                         : reinterpret_cast<const void*>(
-                               instances_closest_kernel);
-    const size_t smem = inst_shared_bytes(a.n_inst);
+    const void* fn = nullptr;
+    size_t smem = 0;
     int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+    cudaError_t e = inst_kernel(any, a.n_inst, a.tlas_nodes, &fn, &smem);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
@@ -632,6 +746,17 @@ int launch_instances(bool any, const InstArgs& a, void* stream) {
     else
         instances_closest_kernel<<<grid, kThreads, smem, st>>>(a);
     return static_cast<int>(cudaGetLastError());
+}
+
+InstArgs inst_args(const float* mats, const float* tlas, int tlas_nodes,
+                   const int* roots, int n_inst) {
+    InstArgs a = {};
+    a.mats = reinterpret_cast<const float4*>(mats);
+    a.tlas = reinterpret_cast<const float4*>(tlas);
+    a.tlas_nodes = tlas_nodes;
+    a.roots = roots;
+    a.n_inst = n_inst;
+    return a;
 }
 
 }  // namespace
@@ -711,18 +836,19 @@ int ptrt_walk_counts(int walk, const float* nodes, int n_nodes,
 // K4 closest: after K1 on the same rays.  ``t_io`` .. ``mesh_io`` hold K1's
 // record and are updated in place where an instance hit is nearer;
 // ``inst_out`` receives the winning instance (-1: the static pass's record
-// or nothing).  The tables are the merged instance set's.
+// or nothing).  The tables are the merged instance set's; ``mats`` (I, 24)
+// and ``tlas`` (tlas_nodes, kTlasWidth, 8) 16-byte aligned.
 int ptrt_instances_closest(const float* nodes, int n_nodes, const float* tris,
                            int n_blocks, const float* ox, const float* oy,
                            const float* oz, const float* dx, const float* dy,
                            const float* dz, int n, float* t_io, float* u_io,
                            float* v_io, int* slot_io, int* mesh_io,
                            int* inst_out, const float* mats,
-                           const float* bb_min, const float* bb_max,
+                           const float* tlas, int tlas_nodes,
                            const int* roots, int n_inst, unsigned* next_ray,
                            void* stream) {
     if (n_inst > kMaxInstances) return static_cast<int>(cudaErrorInvalidValue);
-    InstArgs a = {};
+    InstArgs a = inst_args(mats, tlas, tlas_nodes, roots, n_inst);
     a.w = walk_args(nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy, dz,
                     nullptr, n, next_ray);
     a.w.t_out = t_io;
@@ -731,11 +857,6 @@ int ptrt_instances_closest(const float* nodes, int n_nodes, const float* tris,
     a.w.slot_out = slot_io;
     a.w.mesh_out = mesh_io;
     a.inst_out = inst_out;
-    a.mats = mats;
-    a.bb_min = bb_min;
-    a.bb_max = bb_max;
-    a.roots = roots;
-    a.n_inst = n_inst;
     return launch_instances(false, a, stream);
 }
 
@@ -746,39 +867,34 @@ int ptrt_instances_any(const float* nodes, int n_nodes, const float* tris,
                        int n_blocks, const float* ox, const float* oy,
                        const float* oz, const float* dx, const float* dy,
                        const float* dz, const float* t_max, int n,
-                       uint8_t* hit_io, const float* mats,
-                       const float* bb_min, const float* bb_max,
-                       const int* roots, int n_inst, unsigned* next_ray,
-                       void* stream) {
+                       uint8_t* hit_io, const float* mats, const float* tlas,
+                       int tlas_nodes, const int* roots, int n_inst,
+                       unsigned* next_ray, void* stream) {
     if (t_max == nullptr || n_inst > kMaxInstances)
         return static_cast<int>(cudaErrorInvalidValue);
-    InstArgs a = {};
+    InstArgs a = inst_args(mats, tlas, tlas_nodes, roots, n_inst);
     a.w = walk_args(nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy, dz,
                     t_max, n, next_ray);
     a.hit_io = hit_io;
-    a.mats = mats;
-    a.bb_min = bb_min;
-    a.bb_max = bb_max;
-    a.roots = roots;
-    a.n_inst = n_inst;
     return launch_instances(true, a, stream);
 }
 
 int ptrt_max_instances() { return kMaxInstances; }
 
-// Registers, local-memory bytes a thread and resident blocks a SM (with
-// ``n_inst`` instances staged) of K4: ``walk`` 0 closest, 1 any.
-int ptrt_instances_info(int walk, int n_inst, int* regs, int* local_bytes,
-                        int* per_sm) {
+// Registers, local-memory bytes a thread and resident blocks a SM (with a
+// set of ``n_inst`` instances and a tree of ``tlas_nodes`` nodes staged) of
+// K4: ``walk`` 0 closest, 1 any.
+int ptrt_instances_info(int walk, int n_inst, int tlas_nodes, int* regs,
+                        int* local_bytes, int* per_sm) {
     if (walk < 0 || walk > 1) return static_cast<int>(cudaErrorInvalidValue);
-    const void* fn = walk ? reinterpret_cast<const void*>(instances_any_kernel)
-                          : reinterpret_cast<const void*>(
-                                instances_closest_kernel);
+    const void* fn = nullptr;
+    size_t smem = 0;
+    cudaError_t e = inst_kernel(walk == 1, n_inst, tlas_nodes, &fn, &smem);
     cudaFuncAttributes attr = {};
-    cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
     if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            per_sm, fn, kThreads, inst_shared_bytes(n_inst));
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn,
+                                                          kThreads, smem);
     *regs = attr.numRegs;
     *local_bytes = static_cast<int>(attr.localSizeBytes);
     return static_cast<int>(e);

@@ -10,10 +10,12 @@ one world-space BVH; each dynamic mesh keeps a local-space BVH and its
 transform rows (world->local affine, normal matrix, world AABB).  The
 dynamic meshes' tables are concatenated into one ``InstanceSet`` whose
 child-base and leaf-base columns are offset at the merge, so one walk
-serves every instance from its own root (K4, ``render/traverse.py``).  A
-transform edit replaces the set's small matrix and AABB tables only
-(``update_instance_set_transforms``); a refill refits the set's tables in
-place on the device (``geometry/refit.py``).  The per-instance transform
+serves every instance from its own root (K4, ``render/traverse.py``); a
+small tree over the instances' world boxes (``geometry/tlas.py``) finds
+the instances a ray enters.  A transform edit replaces the set's small
+matrix, AABB and tree tables only (``update_instance_set_transforms``); a
+refill refits the set's tables in place on the device
+(``geometry/refit.py``).  The per-instance transform
 rows stay numpy on the host; the set's tables live on the scene's device.
 """
 
@@ -29,6 +31,7 @@ from ptrt_tpu_torch.core.vec import Vec3
 from ptrt_tpu_torch.geometry.bvh import LEAF_SIZE, reorder_padded
 from ptrt_tpu_torch.geometry.bvh8 import build_bvh8, pack_node_rows
 from ptrt_tpu_torch.geometry.mesh import Mesh
+from ptrt_tpu_torch.geometry.tlas import build_tlas
 
 
 @dataclass(frozen=True)
@@ -229,13 +232,15 @@ class InstanceSet:
     columns offset (roots are not row 0: ``roots``).  ``mats`` (I, 24):
     columns 0:12 the world->local affine (3x4), 12:21 the local->world
     normal matrix (3x3), the rest zero.  ``bb_min`` / ``bb_max`` (I, 3):
-    the instances' world AABBs."""
+    the instances' world AABBs.  ``tlas`` (nodes, width, 8): the tree over
+    those boxes (``tlas.build_tlas``), rebuilt with them."""
 
     geom: SceneGeometry
     roots: torch.Tensor  # (I,) int32 node row of each instance's root
     mats: torch.Tensor  # (I, 24) f32
     bb_min: torch.Tensor  # (I, 3) f32
     bb_max: torch.Tensor  # (I, 3) f32
+    tlas: torch.Tensor  # (nodes, width, 8) f32
 
     @property
     def count(self) -> int:
@@ -287,10 +292,9 @@ def merge_instances(instances: tuple) -> InstanceSet | None:
         e2=cat3(lambda g: g.e2), tri_mesh_id=cat(lambda g: g.tri_mesh_id),
         tri_shadow_opaque=cat(lambda g: g.tri_shadow_opaque),
         stack_depth=depth)
-    mats, bmin, bmax = _instance_transform_tables(instances, dev)
     return InstanceSet(geom=geom, roots=torch.tensor(roots, dtype=torch.int32,
                                                      device=dev),
-                       mats=mats, bb_min=bmin, bb_max=bmax)
+                       **_instance_transform_tables(instances, dev))
 
 
 def split_instance(set_geom: SceneGeometry, plan,
@@ -318,7 +322,9 @@ def split_instance(set_geom: SceneGeometry, plan,
     return out
 
 
-def _instance_transform_tables(instances: tuple, device):
+def _instance_transform_tables(instances: tuple, device) -> dict:
+    """The set's ``mats``, ``bb_min``, ``bb_max`` and ``tlas`` (the tree
+    built here, on the host, from the boxes), in one copy to the device."""
     I = len(instances)
     tab = np.zeros((I, 30), np.float32)  # mats (24), bb_min (3), bb_max (3)
     for i, inst in enumerate(instances):
@@ -326,17 +332,23 @@ def _instance_transform_tables(instances: tuple, device):
         tab[i, 12:21] = np.asarray(inst.nrm_rows, np.float32).reshape(9)
         tab[i, 24:27] = np.asarray(inst.bb_min, np.float32)
         tab[i, 27:30] = np.asarray(inst.bb_max, np.float32)
-    t = torch.from_numpy(tab).to(device)  # one copy to the device
-    return (t[:, 0:24].contiguous(), t[:, 24:27].contiguous(),
-            t[:, 27:30].contiguous())
+    tree = build_tlas(tab[:, 24:27], tab[:, 27:30])
+    # the tree first: a view at the buffer's start, 16-byte aligned
+    t = torch.from_numpy(np.concatenate([tree.reshape(-1), tab.reshape(-1)])
+                         ).to(device)
+    tab_t = t[tree.size:].view(I, 30)
+    return dict(mats=tab_t[:, 0:24].contiguous(),
+                bb_min=tab_t[:, 24:27].contiguous(),
+                bb_max=tab_t[:, 27:30].contiguous(),
+                tlas=t[:tree.size].view(tree.shape))
 
 
 def update_instance_set_transforms(iset: InstanceSet,
                                    instances: tuple) -> InstanceSet:
-    """Matrix and AABB tables only; the merged BVH tables untouched."""
-    mats, bmin, bmax = _instance_transform_tables(instances,
-                                                  iset.geom.device)
-    return dataclasses.replace(iset, mats=mats, bb_min=bmin, bb_max=bmax)
+    """Matrix, AABB and tree tables only; the merged BVH tables
+    untouched."""
+    return dataclasses.replace(
+        iset, **_instance_transform_tables(instances, iset.geom.device))
 
 
 @dataclass(frozen=True)

@@ -118,12 +118,12 @@ def bind_walks(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptrt_max_instances.argtypes = []
     lib.ptrt_instances_closest.restype = i
     lib.ptrt_instances_closest.argtypes = ([p, i, p, i] + [p] * 6 + [i]
-                                           + [p] * 10 + [i, p, p])
+                                           + [p] * 8 + [i, p, i, p, p])
     lib.ptrt_instances_any.restype = i
     lib.ptrt_instances_any.argtypes = ([p, i, p, i] + [p] * 7 + [i]
-                                       + [p] * 5 + [i, p, p])
+                                       + [p] * 3 + [i, p, i, p, p])
     lib.ptrt_instances_info.restype = i
-    lib.ptrt_instances_info.argtypes = [i, i, p, p, p]
+    lib.ptrt_instances_info.argtypes = [i, i, i, p, p, p]
     return lib
 
 

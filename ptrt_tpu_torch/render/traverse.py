@@ -35,6 +35,7 @@ from ptrt_tpu_torch.core.vec import Vec3, cross, where
 from ptrt_tpu_torch.geometry.bvh import LEAF_SIZE
 from ptrt_tpu_torch.geometry.scene_geom import (MAX_TABLE_INDEX, InstanceSet,
                                                 SceneGeometry, WorldGeometry)
+from ptrt_tpu_torch.geometry.tlas import TLAS_ROW, TLAS_WIDTH, tlas_node_count
 
 T_MIN = 1e-4
 T_MAX = 1e30
@@ -366,20 +367,37 @@ def instance_slots(iset: InstanceSet) -> list:
     return out
 
 
-def _check_iset(iset: InstanceSet, dev) -> int:
+def _check_iset(iset: InstanceSet, dev) -> None:
     kernels.check_tensor("iset.mats", iset.mats, torch.float32, 2, dev)
     kernels.check_tensor("iset.bb_min", iset.bb_min, torch.float32, 2, dev)
     kernels.check_tensor("iset.bb_max", iset.bb_max, torch.float32, 2, dev)
     kernels.check_tensor("iset.roots", iset.roots, torch.int32, 1, dev)
+    kernels.check_tensor("iset.tlas", iset.tlas, torch.float32, 3, dev)
     n_inst = iset.count
     if (iset.mats.shape != (n_inst, 24) or iset.bb_min.shape != (n_inst, 3)
             or iset.bb_max.shape != (n_inst, 3)):
         raise ValueError("the instance tables need (I, 24), (I, 3), (I, 3) "
                          f"rows for {n_inst} roots")
+    if iset.tlas.shape != (tlas_node_count(n_inst), TLAS_WIDTH, TLAS_ROW):
+        raise ValueError(f"iset.tlas {tuple(iset.tlas.shape)} is not a tree "
+                         f"over {n_inst} instances (tlas.build_tlas)")
     if max(iset.geom.num_nodes, iset.geom.num_tri_blocks) >= MAX_TABLE_INDEX:
         raise ValueError("an instance set past 2^24 rows: its float-encoded "
                          "indices are not exact")
-    return n_inst
+
+
+def _iset_args(iset: InstanceSet, lib) -> list:
+    """The C entries' instance arguments: matrix rows, the tree, its node
+    count, the roots, the instance count."""
+    n_inst = iset.count
+    if n_inst > lib.ptrt_max_instances():
+        raise ValueError(f"{n_inst} instances: K4 stages at most "
+                         f"{lib.ptrt_max_instances()}")
+    for name, t in (("iset.mats", iset.mats), ("iset.tlas", iset.tlas)):
+        if t.data_ptr() % 16:  # read as float4
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return [iset.mats.data_ptr(), iset.tlas.data_ptr(),
+            int(iset.tlas.shape[0]), iset.roots.data_ptr(), n_inst]
 
 
 def instances_closest(iset: InstanceSet, o: Vec3, d: Vec3,
@@ -388,7 +406,8 @@ def instances_closest(iset: InstanceSet, o: Vec3, d: Vec3,
     flat rays), every instance whose world box a ray enters within
     ``rec.t`` (lowest id first) walks the ray in its frame bounded by the
     current t; a strictly nearer hit replaces the record.  Updates ``rec``'s
-    planes in place and returns them with the ``inst`` plane."""
+    planes in place and returns them with the ``inst`` plane.  The kernel
+    finds those instances through ``iset.tlas``."""
     geom = iset.geom
     n = _check_rays(geom, o, d, rec.t)
     dev = geom.device
@@ -399,22 +418,17 @@ def instances_closest(iset: InstanceSet, o: Vec3, d: Vec3,
         kernels.check_tensor(f"rec.{name}", p, dt, 1, dev)
         if p.shape[0] != n:
             raise ValueError(f"rec.{name}: length {p.shape[0]} != {n}")
-    n_inst = _check_iset(iset, dev)
+    _check_iset(iset, dev)
     if dev.type == "cpu":
         return instances_closest_plain(iset, o, d, rec)
     lib = kernels.get_lib()
-    if n_inst > lib.ptrt_max_instances():
-        raise ValueError(f"{n_inst} instances: K4 stages at most "
-                         f"{lib.ptrt_max_instances()}")
     inst = torch.empty(n, dtype=torch.int32, device=dev)
     counter = _counter(dev)
     rc = lib.ptrt_instances_closest(
         *_ray_args(geom, o, d, None)[:-1], n, rec.t.data_ptr(),
         rec.u.data_ptr(), rec.v.data_ptr(), rec.slot.data_ptr(),
-        rec.mesh.data_ptr(), inst.data_ptr(), iset.mats.data_ptr(),
-        iset.bb_min.data_ptr(), iset.bb_max.data_ptr(),
-        iset.roots.data_ptr(), n_inst, counter.data_ptr(),
-        kernels.stream_ptr(dev))
+        rec.mesh.data_ptr(), inst.data_ptr(), *_iset_args(iset, lib),
+        counter.data_ptr(), kernels.stream_ptr(dev))
     kernels.launches["instances_closest"] += 1
     kernels.check(rc, "instances_closest")
     return rec._replace(inst=inst)
@@ -463,19 +477,14 @@ def instances_any(iset: InstanceSet, o: Vec3, d: Vec3, t_max: torch.Tensor,
     kernels.check_tensor("hit", hit, torch.bool, 1, dev)
     if hit.shape[0] != n:
         raise ValueError(f"hit: length {hit.shape[0]} != {n}")
-    n_inst = _check_iset(iset, dev)
+    _check_iset(iset, dev)
     if dev.type == "cpu":
         return instances_any_plain(iset, o, d, t_max, hit)
     lib = kernels.get_lib()
-    if n_inst > lib.ptrt_max_instances():
-        raise ValueError(f"{n_inst} instances: K4 stages at most "
-                         f"{lib.ptrt_max_instances()}")
     counter = _counter(dev)
     rc = lib.ptrt_instances_any(
         *_ray_args(geom, o, d, t_max), n, hit.data_ptr(),
-        iset.mats.data_ptr(), iset.bb_min.data_ptr(), iset.bb_max.data_ptr(),
-        iset.roots.data_ptr(), n_inst, counter.data_ptr(),
-        kernels.stream_ptr(dev))
+        *_iset_args(iset, lib), counter.data_ptr(), kernels.stream_ptr(dev))
     kernels.launches["instances_any"] += 1
     kernels.check(rc, "instances_any")
     return hit
@@ -500,10 +509,10 @@ def instances_any_plain(iset: InstanceSet, o: Vec3, d: Vec3,
     return hit
 
 
-def instances_info(n_inst: int) -> dict:
+def instances_info(iset: InstanceSet) -> dict:
     """{kernel: registers, local-memory bytes a thread, resident blocks a
-    SM} of K4 with ``n_inst`` instances staged (measurement only; needs
-    the card)."""
+    SM} of K4 with ``iset``'s instances and tree staged (measurement only;
+    needs the card)."""
     import ctypes
 
     lib = kernels.get_lib()
@@ -511,8 +520,8 @@ def instances_info(n_inst: int) -> dict:
     for k, name in enumerate(("instances_closest", "instances_any")):
         regs, local, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         kernels.check(lib.ptrt_instances_info(
-            k, n_inst, ctypes.byref(regs), ctypes.byref(local),
-            ctypes.byref(per_sm)), name)
+            k, iset.count, int(iset.tlas.shape[0]), ctypes.byref(regs),
+            ctypes.byref(local), ctypes.byref(per_sm)), name)
         out[name] = {"registers": regs.value, "local_bytes": local.value,
                      "blocks_per_sm": per_sm.value}
     return out

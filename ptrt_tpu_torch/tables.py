@@ -19,6 +19,7 @@ from ptrt_tpu_torch.core.vec import Vec3
 from ptrt_tpu_torch.geometry.refit import RefitPlan
 from ptrt_tpu_torch.geometry.scene_geom import (InstanceSet, SceneGeometry,
                                                 WorldGeometry)
+from ptrt_tpu_torch.geometry.tlas import build_tlas
 from ptrt_tpu_torch.render.denoiser import ChannelHistory, DenoiserState
 from ptrt_tpu_torch.render.sky import SkyConfig
 from ptrt_tpu_torch.scene.camera import Camera
@@ -74,14 +75,16 @@ def _sky(fields: dict, device) -> SkyConfig:
 def _geometry(fields: dict, device):
     """A ``SceneGeometry``, or a ``WorldGeometry`` from fields holding
     ``static`` and ``iset`` (the set's ``geom``, ``roots``, ``mats``,
-    ``bb_min``, ``bb_max``; the per-instance tuple is not carried: the
-    port's world starts with none)."""
+    ``bb_min``, ``bb_max``; the instance tree is built here from the
+    boxes; the per-instance tuple is not carried: the port's world starts
+    with none)."""
     if "static" not in fields:
         return _build(SceneGeometry, fields, device)
     iset = fields.get("iset")
     if iset is not None:
         iset = InstanceSet(
             geom=_build(SceneGeometry, iset["geom"], device),
+            tlas=_tensor(build_tlas(iset["bb_min"], iset["bb_max"]), device),
             **{k: _tensor(iset[k], device)
                for k in ("roots", "mats", "bb_min", "bb_max")})
     return WorldGeometry(static=_build(SceneGeometry, fields["static"],

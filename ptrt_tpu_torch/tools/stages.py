@@ -7,7 +7,8 @@ by channel and bounce by bounce on the card, for this tree or another one.
 ``kernel_ms``, ``kernel_resources``, ``frame_profile``).
 Run as a script on a GPU, this file measures one tree's kernels:
 
-    python3 ptrt_tpu_torch/tools/stages.py [--tree DIR] [--out DIR] [--bloom]
+    python3 ptrt_tpu_torch/tools/stages.py [--tree DIR] [--out DIR]
+                                           [--bloom | --dynamic]
 
 ``--tree DIR`` measures the checkout in ``DIR`` (a variant of this tree or
 a later commit unpacked with ``git archive``, say) in a process of its own
@@ -16,6 +17,11 @@ wrappers this tree offers (``bloom_mips`` and K6's bloom composite among
 them), so a tree before them is measured by its own copy of this file.
 ``--out DIR`` also appends the log to ``DIR/stages.log``.  ``--bloom``
 measures only the bloom and K6 (and the kernels' resources).
+``--dynamic`` measures only K4 on the 1080p "dynamic" configuration's
+three wavefronts (queued times beside the bound, the boxes a live ray
+tests, a digest of the records, so that two trees' records compare bit for
+bit) and one profiled and three timed frames of the dynamic, balanced,
+bench and hdri balanced configurations (``measure_dynamic``).
 
 On the 1920x1080 bench scene (~1M triangles) it prints:
 
@@ -144,9 +150,12 @@ def instances_bound(iset, n: int, live: int, shadow: bool) -> dict:
     (t > 0, and for any-hit not yet occluded): ``walk_bound`` over the
     instance set's tables (the t or t_max plane read for every ray) plus
     the instance table read once (a row of 24 floats, the world box, the
-    root)."""
+    root) and, where the set has one, its instance tree."""
     out = walk_bound(iset.geom, n, live, 4, shadow)
     table = iset.count * (24 + 6 + 1) * 4
+    tree = getattr(iset, "tlas", None)
+    if tree is not None:  # the instance tree, read once
+        table += tree.numel() * tree.element_size()
     return bound(1e-3 * out["bound_ms"] * HBM_BYTES_PER_S + table)
 
 
@@ -410,7 +419,11 @@ def kernel_resources(lib_path: str, names) -> dict:
     read from the built library with ``cuobjdump``.  ``sass["body"]``
     counts the instructions a thread runs through a kernel without loops:
     those before its first called subroutine, less each call to one (the
-    division's slow path: the CALL and the moves before it) and NOPs."""
+    division's slow path: the CALL and the moves before it) and NOPs.
+    ``sass_sha256`` digests the listing (two builds of a kernel compiled to
+    the same SASS have the same digest)."""
+    import hashlib
+
     from ptrt_tpu_torch import kernels
 
     tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
@@ -445,6 +458,8 @@ def kernel_resources(lib_path: str, names) -> dict:
                 if re.match(pat, m.group(2)):
                     sass[cls] = sass.get(cls, 0) + 1
     for fn, ins in listing.items():
+        out[key(fn)][fn]["sass_sha256"] = hashlib.sha256("\n".join(
+            op + rest for _, op, rest in ins).encode()).hexdigest()
         calls = [int(t, 16) for _, op, rest in ins if op.startswith("CALL")
                  for t in re.findall(r"0x([0-9a-f]+)", rest)[:1]]
         end = min(calls, default=ins[-1][0] + 1)
@@ -616,38 +631,41 @@ def device_ms(fn, calls: int = 3) -> float:
     return sum(us for _, us in profiled_kernels(fn, calls)) / 1e3 / calls
 
 
-def frame_profile(sc, frames: int = 0) -> dict:
-    """One frame of ``sc`` under torch.profiler, then ``frames`` frames
-    timed on the host clock, each ending in a synchronisation: {"device_ms",
-    "launches", "top" (the five kernels with the most device time, ms),
-    "names" (every kernel in launch order), "walk_ms" (K1 and K2),
-    "frame_ms"}; the profiled values are None where the profiler saw no
-    device kernel."""
+def frame_profile(sc, frames: int = 0, render=None) -> dict:
+    """One frame of ``sc`` (``render()``, by default ``sc.render_frame()``)
+    under torch.profiler, then ``frames`` frames timed on the host clock,
+    each ending in a synchronisation: {"device_ms", "launches", "top" (the
+    five kernels with the most device time, ms), "names" (every kernel in
+    launch order), "walk_ms" (K1 and K2), "k4_ms" (K4), "frame_ms"}; the
+    profiled values are None where the profiler saw no device kernel."""
     import time
 
     import torch
 
-    kern = profiled_kernels(sc.render_frame)
+    render = render or sc.render_frame
+    kern = profiled_kernels(render)
     ms = []
     for _ in range(frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sc.render_frame()
+        render()
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
     if not kern:
         return {"device_ms": None, "launches": None, "top": None,
-                "names": None, "walk_ms": None, "frame_ms": ms}
+                "names": None, "walk_ms": None, "k4_ms": None,
+                "frame_ms": ms}
     by_name = {}
     for name, us in kern:
         by_name[name] = by_name.get(name, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     walk_us = sum(v for k, v in by_name.items()
                   if "closest_hit_kernel" in k or "any_hit_kernel" in k)
+    k4_us = sum(v for k, v in by_name.items() if "instances_" in k)
     return {"device_ms": sum(by_name.values()) / 1e3, "launches": len(kern),
             "top": [(k[:60], round(v / 1e3, 3)) for k, v in top],
             "names": [name for name, _ in kern], "walk_ms": walk_us / 1e3,
-            "frame_ms": ms}
+            "k4_ms": k4_us / 1e3, "frame_ms": ms}
 
 
 def atrous_inputs(t_inputs, first) -> dict:
@@ -891,20 +909,49 @@ def measure(tag: str, card: str, bloom_only: bool = False) -> dict:
     log(f"svgf_atrous, the seven passes: "
         f"{sum(r['ms'] for r in out['atrous']):.4f} ms, bound "
         f"{sum(r['bound_ms'] for r in out['atrous']):.4f} ms")
+    out["frames"] = {}
+    bench_frames(sc, out)
+    del sc, state0, t_inputs, color
+    measure_hdri(out, log, card)
+    log_frames(out, log, card)
+    return out
+
+
+def bench_frames(sc, out: dict) -> None:
+    """One profiled and three timed frames of the bench scene ``sc`` (after
+    ``orbit_frames``) balanced, then with the bench preset, into
+    ``out["frames"]``."""
     sc.render_frame()
-    out["frames"] = {"balanced": frame_profile(sc, 3)}
+    out["frames"]["balanced"] = frame_profile(sc, 3)
     sc.perf.enable_denoiser = sc.perf.enable_bloom = False
     sc.perf.enable_motion_vectors = False
     sc.perf.samples_per_pixel, sc.perf.max_bounce_depth = 4, DEPTH
     sc.render_frame()
     out["frames"]["bench"] = frame_profile(sc, 3)
-    del sc, state0, t_inputs, color
-    measure_hdri(out, log, card)
+
+
+def hdri_scene():
+    """The 1080p "hdri" configuration, balanced at 1 spp, on the card."""
+    from ptrt_tpu_torch.app.bench_scene import build_hdri_scene
+
+    sc = build_hdri_scene(W, H, target_tris=TRIS, device="cuda")
+    sc.set_performance_preset("balanced")
+    sc.perf.samples_per_pixel = 1
+    return sc
+
+
+def hdri_frame(sc, out: dict) -> None:
+    """One profiled and three timed balanced frames of ``hdri_scene()``."""
+    sc.render_frame()
+    out["frames"]["hdri balanced"] = frame_profile(sc, 3)
+
+
+def log_frames(out: dict, log, card: str) -> None:
     for name, r in out["frames"].items():
-        log(f"{name} frame: device {r['device_ms']:.3f} ms in "
+        k4 = f" (K4 {r['k4_ms']:.3f} ms)" if r.get("k4_ms") else ""
+        log(f"{name} frame: device {r['device_ms']:.3f} ms{k4} in "
             f"{r['launches']} launches; frames "
             f"{[round(t, 1) for t in r['frame_ms']]} ms [{card}]")
-    return out
 
 
 def measure_hdri(out: dict, log, card: str) -> None:
@@ -913,15 +960,13 @@ def measure_hdri(out: dict, log, card: str) -> None:
     it, into ``out`` (a tree without the HDRI port is passed over)."""
     import torch
 
-    try:
-        from ptrt_tpu_torch.app.bench_scene import build_hdri_scene
-    except ImportError:
+    from ptrt_tpu_torch.app import bench_scene
+
+    if not hasattr(bench_scene, "build_hdri_scene"):
         log("no HDRI in this tree: its stages are not measured")
         return
     torch.cuda.empty_cache()
-    sc = build_hdri_scene(W, H, target_tris=TRIS, device="cuda")
-    sc.set_performance_preset("balanced")
-    sc.perf.samples_per_pixel = 1
+    sc = hdri_scene()
     out["shading_hdri"] = []
     for split in (False, True):
         rows = time_shading(sc, split)
@@ -939,8 +984,122 @@ def measure_hdri(out: dict, log, card: str) -> None:
                 + f"; K2 env shadow rays {w['ms']:.4f} ms ({w['live']} "
                 f"live) bound {w['bound_ms']:.4f} ms; flags equal the plain "
                 f"stage's: {r['flags_equal']} [{card}]")
-    sc.render_frame()
-    out["frames"]["hdri balanced"] = frame_profile(sc, 3)
+    hdri_frame(sc, out)
+
+
+def k4_wavefront(iset, static, name, o, d, t) -> tuple:
+    """K4 on one of ``walks.wavefronts``' ray sets after its static pass:
+    (a call on a fresh copy of the static answer, the fresh copy, the
+    planes of a result, the bound a live ray descends with: K1's t, or the
+    shadow rays' t_max where K2 left them unoccluded, -1 elsewhere)."""
+    import torch
+
+    from ptrt_tpu_torch.render import traverse
+
+    if name == "shadow":
+        base = traverse.any_hit(static, o, d, t)
+        return (lambda h: traverse.instances_any(iset, o, d, t, h),
+                lambda: base.clone(), lambda res: [res],
+                torch.where(~base & (t > 0), t, -1.0))
+    base = traverse.closest_hit(static, o, d, t)
+    return (lambda r: traverse.instances_closest(iset, o, d, r),
+            lambda: traverse.Closest(*[p.clone() for p in base]),
+            lambda res: [*res, res.inst], base.t)
+
+
+def records_digest(planes) -> str:
+    """A SHA-256 of the planes' bytes: two trees' records compare bit for
+    bit by their digests."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in planes:
+        h.update(p.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def measure_dynamic(tag: str, card: str) -> dict:
+    """K4 on the 1080p "dynamic" configuration's camera, bounce-1 and
+    shadow wavefronts (each call on a fresh copy of its static pass's
+    answer: queued behind a spin twice, beside its bound; the digest of its
+    records; with an instance tree, the boxes a live ray tests), the K1, K2
+    and K4 kernels' registers, blocks a SM and SASS digests, then one
+    profiled and three timed frames of each configuration: dynamic (with
+    its edits a frame), balanced, bench and hdri balanced."""
+    import torch
+
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.app.bench_scene import (build_bench_scene,
+                                                build_dynamic_scene)
+    from ptrt_tpu_torch.build import BUILD_DIR
+    from ptrt_tpu_torch.render import traverse
+    from ptrt_tpu_torch.tools.walks import wavefronts
+
+    log = lambda *a: say(f"[{tag}]", *a)
+    out = {"tag": tag, "card": card, "k4": {}, "frames": {}}
+    sc = build_dynamic_scene(W, H, target_tris=TRIS, device="cuda")
+    sc._ensure_device_state()
+    g = sc._geom
+    iset = g.iset
+    tree = getattr(iset, "tlas", None)  # None: a tree before the TLAS
+    info = traverse.instances_info(iset if tree is not None else iset.count)
+    for k, v in info.items():
+        log(f"{k}: {v['registers']} registers, {v['local_bytes']} bytes of "
+            f"local memory a thread, {v['blocks_per_sm']} blocks a SM")
+    out["k4_info"] = info
+    res = kernel_resources(os.path.join(BUILD_DIR, kernels.LIBRARY),
+                           ("closest_hit_kernel", "any_hit_kernel",
+                            "instances_closest", "instances_any"))
+    for k, fns in res.items():
+        for fn, r in fns.items():
+            log(f"{k} {fn[-32:]}: {r['registers']} registers, stack "
+                f"{r['stack_bytes']}; SASS {r['sass'].get('all')} "
+                f"instructions, sha256 {r['sass_sha256'][:16]}")
+    out["resources"] = res
+    for name, o, d, t in wavefronts(sc):
+        fn, fresh, planes, live_t = k4_wavefront(iset, g.static, name, o, d,
+                                                 t)
+        digest = records_digest(planes(fn(fresh())))
+        ms = [clones_ms(fn, [fresh() for _ in range(11)], SPIN_CYCLES)
+              for _ in range(2)]
+        live = int((live_t > 0).sum())
+        b = instances_bound(iset, live_t.numel(), live, name == "shadow")
+        tests = {"flat": float(iset.count)}
+        if tree is not None:
+            from ptrt_tpu_torch.geometry import tlas
+
+            _, n = tlas.tlas_candidates(tree, iset.count, o,
+                                        traverse.safe_inv(d), live_t,
+                                        candidates=False)
+            tests["tree"] = float(n[live_t > 0].float().mean())
+        out["k4"][name] = {"queued_ms": ms, "live": live, "digest": digest,
+                           "box_tests": tests, **b}
+        log(f"K4 {name}: {live} live of {live_t.numel()}; queued "
+            f"{' / '.join(f'{x:.4f}' for x in ms)} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}); boxes a live ray "
+            + ", ".join(f"{w} {v:.2f}" for w, v in tests.items())
+            + f"; records sha256 {digest} [{card}]")
+    frame = [1]
+
+    def edited_frame():
+        frame[0] += 1
+        sc.animate(frame[0])
+        sc.render_frame()
+
+    edited_frame()
+    out["frames"]["dynamic"] = frame_profile(sc, 3, edited_frame)
+    del sc, g, iset, tree
+    torch.cuda.empty_cache()
+    sc = build_bench_scene(W, H, target_tris=TRIS, device="cuda")
+    orbit_frames(sc)
+    bench_frames(sc, out)
+    del sc
+    torch.cuda.empty_cache()
+    hdri_frame(hdri_scene(), out)
+    log_frames(out, log, card)
+    for r in out["frames"].values():
+        r.pop("names", None)
+    return out
 
 
 def main(argv) -> int:
@@ -949,6 +1108,9 @@ def main(argv) -> int:
     ap.add_argument("--out", help="also append the log to DIR/stages.log")
     ap.add_argument("--bloom", action="store_true",
                     help="measure only the bloom and K6")
+    ap.add_argument("--dynamic", action="store_true",
+                    help="measure only K4 and the four configurations' "
+                    "frames")
     args = ap.parse_args(argv)
     say.out = args.out and os.path.abspath(args.out)
     here = os.path.abspath(__file__)
@@ -956,7 +1118,8 @@ def main(argv) -> int:
         # a process of its own, which finds the other tree's package first
         tree = os.path.abspath(args.tree)
         proc = subprocess.Popen(
-            [sys.executable, here] + ["--bloom"] * args.bloom, cwd=tree,
+            [sys.executable, here] + ["--bloom"] * args.bloom
+            + ["--dynamic"] * args.dynamic, cwd=tree,
             stdout=subprocess.PIPE, text=True,
             env={**os.environ, "PYTHONPATH": tree})
         for line in proc.stdout:  # the log is kept here
@@ -976,7 +1139,8 @@ def main(argv) -> int:
     say(card)
     tag = os.path.basename(os.path.dirname(os.path.dirname(
         os.path.abspath(ptrt_tpu_torch.__file__))))
-    say(json.dumps(measure(tag, card, args.bloom)))
+    say(json.dumps(measure_dynamic(tag, card) if args.dynamic
+                   else measure(tag, card, args.bloom)))
     return 0
 
 
