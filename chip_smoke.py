@@ -22,7 +22,8 @@ Phases (any failure raises, so the exit code is non-zero):
      order; the counting walk held to its plain walk on 256 rays); the
      walks' registers and occupancy; K6 tonemap_rgb8 on a 1920x1080 HDR
      frame (within 1 LSB, its exact share, beside its bound and the issue
-     time of the SASS instructions a thread runs); row_gather (off the
+     time of the SASS instructions a thread runs; its registers and blocks
+     a SM); row_gather (off the
      main path since K3) at the Pallas probes' shapes
      (ptrt_tpu_torch/tools/probe_gather.py) and at the material gather's
      (the scene's table, 2,073,600 ids), bit for bit;
@@ -109,9 +110,17 @@ Phases (any failure raises, so the exit code is non-zero):
      instance-tree boxes a live ray tests (the plain descent, beside the
      flat test's one a instance); K4 against its plain
      version on a world of two identical instances (the lower id wins) and
-     on sets of 1, 9 and 512 instances; the tree's host build timed; K5 refit
-     and morton bit for bit against their plain versions on every table, at
-     the heightfield, the sphere and odd sizes, timed; one warm-up and five
+     on sets of 1, 9, 512, 513, 2,048 and 8,192 instances (each set's tree
+     built on the host, timed, and the boxes a live ray tests; on 1M rays
+     the kernel the set takes, the set staged in shared memory or read
+     from global memory, timed beside the bound); a 256x144 Scene of 513 dynamic meshes (512 cubes
+     and a Morton-refilled sphere past morton_sort's most) rendered on
+     the GPU and on the CPU after an edit; K5 refit and the Morton refill
+     bit for bit against their plain versions on every table, at the
+     heightfield, the sphere, odd sizes and the refill's shapes (1,001 to
+     1,045,506 triangles, and 1,001 with every code tied), the order
+     through morton_sort up to its limit and through morton_codes and
+     torch.sort at every size, each timed; one warm-up and five
      timed dynamic frames (the counters: no host BVH build, 192 transform
      updates, 2 refits, 1 LBVH build a frame; the launches) and a profiled
      one; a 64x48 dynamic frame on the GPU and on the CPU.
@@ -193,11 +202,14 @@ ODD_SIZES = ((23, 37), (75, 101), (1, 1), (270, 333))
 K4_T_ATOL, K4_BAKED_AGREE = 2.8e-5, 0.9999
 # K4 on hand-made instance sets too: the tie world (two identical
 # instances), then sets of these sizes, each at this many seeded rays
-K4_SET_SIZES = (1, 9, 512)
+K4_SET_SIZES = (1, 9, 512, 513, 2048, 8192)
 K4_SET_RAYS = 4096
+# the Scene past K4's former cap: this many dynamic cubes and a sphere
+MANY_CUBES = 512
 DYN_FRAMES = 5  # the dynamic frame's timed frames
 # kernels a frame without dynamic meshes never launches
-STATIC_NEVER = ("instances_closest", "instances_any", "refit", "morton")
+STATIC_NEVER = ("instances_closest", "instances_any", "refit", "morton_sort",
+                "morton_codes")
 
 
 def bound(nbytes: float, ops: float = 0.0) -> dict:
@@ -1566,35 +1578,60 @@ def same_tables(a, b) -> bool:
 
 def check_refit(label, geom, plan, tris, morton, card):
     """K5 on one mesh: ``refit`` (its plan's map, or with ``morton`` the
-    Morton refill from the ``morton`` kernel's order) against its plain
-    version on copies of the tables, bit for bit on every table; the
-    ``morton`` codes against their plain version bit for bit; each timed
-    queued beside its bound and its plain
-    version."""
+    Morton refill) against its plain version on copies of the tables, bit
+    for bit on every table.  With ``morton``: the refill's order
+    (``lbvh.morton_order``: one ``morton_sort`` launch up to the kernel's
+    most, 16,384 triangles, else ``morton_codes`` and torch.sort) bit
+    for bit the plain version's (``morton_codes_plain``, then a stable
+    torch.sort), and both routes at every size they take: ``morton_codes``
+    and its sort always, ``morton_sort`` (order and codes) up to its limit;
+    each kernel timed queued beside its bound and its plain version, the
+    library's sort (``torch.sort(codes, stable=True)``) beside them (the
+    refill's launches and device time: ``tools/stages.py --refill``)."""
     import numpy as np
     import torch
+    from ptrt_tpu_torch import kernels
     from ptrt_tpu_torch.geometry import lbvh, refit
     from ptrt_tpu_torch.tools import stages
 
     dev = geom.device
     v = torch.from_numpy(np.ascontiguousarray(np.stack(tris))).to(dev)
     v0, v1, v2 = v[0], v[1], v[2]
+    n = int(v0.shape[0])
     out = {}
     slot_map = None
+    queued = lambda fn: [stages.clones_ms(lambda _: fn(), [None] * 21,
+                                          stages.SPIN_CYCLES)
+                         for _ in range(2)]
     if morton:
+        want_codes = lbvh.morton_codes_plain(v0, v1, v2)
+        want = torch.sort(want_codes, stable=True).indices.to(torch.int32)
+        order = lbvh.morton_order(v0, v1, v2)
+        assert torch.equal(order, want), f"morton {label}: order differs"
         codes = lbvh.morton_codes(v0, v1, v2)
-        want = lbvh.morton_codes_plain(v0, v1, v2)
-        assert torch.equal(codes, want), f"morton {label}: codes differ"
-        order = torch.sort(codes, stable=True).indices.to(torch.int32)
-        slot_map = (plan.device_arrays(dev)["rank"], order)
-        out["morton"] = {
-            "tris": int(v0.shape[0]), "distinct": int(codes.unique().numel()),
-            "queued_ms": [stages.clones_ms(
-                lambda _: lbvh.morton_codes(v0, v1, v2), [None] * 21,
-                stages.SPIN_CYCLES) for _ in range(2)],
+        assert torch.equal(codes, want_codes), f"morton {label}: codes"
+        assert torch.equal(torch.sort(codes, stable=True).indices.to(
+            torch.int32), want), f"morton {label}: the sorted codes"
+        distinct = int(want_codes.unique().numel())
+        sort_ms = queued(lambda: torch.sort(codes, stable=True))
+        out["morton_codes"] = {
+            "tris": n, "distinct": distinct,
+            "queued_ms": queued(lambda: lbvh.morton_codes(v0, v1, v2)),
             "plain_ms": cuda_ms(lambda: lbvh.morton_codes_plain(v0, v1, v2),
                                 5),
-            **stages.morton_bound(int(v0.shape[0]))}
+            "torch_sort_ms": sort_ms, **stages.morton_bound(n)}
+        if n <= kernels.get_lib().ptrt_morton_sort_max():
+            o2, c2 = lbvh.morton_sort(v0, v1, v2, with_codes=True)
+            assert torch.equal(o2, want) and torch.equal(c2, want_codes), (
+                f"morton_sort {label}: order or codes differ")
+            out["morton_sort"] = {
+                "tris": n, "distinct": distinct,
+                "queued_ms": queued(lambda: lbvh.morton_sort(v0, v1, v2)),
+                "plain_ms": cuda_ms(
+                    lambda: lbvh.morton_order_plain(v0, v1, v2), 5),
+                "torch_sort_ms": sort_ms,
+                **stages.morton_bound(n, codes=False, order=True)}
+        slot_map = (plan.device_arrays(dev)["rank"], order)
     ga, gb = clone_geom(geom), clone_geom(geom)
     refit.refit_apply(ga, plan, v0, v1, v2, slot_map=slot_map)
     refit.refit_apply_plain(gb, plan, v0, v1, v2, slot_map=slot_map)
@@ -1603,15 +1640,18 @@ def check_refit(label, geom, plan, tris, morton, card):
     assert not torch.equal(ga.node_rows, geom.node_rows), (
         f"refit {label}: nothing moved")
     out["refit"] = {
-        "tris": int(v0.shape[0]), "slots": plan.num_slots,
+        "tris": n, "slots": plan.num_slots,
         "nodes": plan.num_nodes, "levels": len(plan.levels),
-        "queued_ms": [stages.clones_ms(
-            lambda _: refit.refit_apply(ga, plan, v0, v1, v2,
-                                        slot_map=slot_map), [None] * 21,
-            stages.SPIN_CYCLES) for _ in range(2)],
+        "queued_ms": queued(lambda: refit.refit_apply(
+            ga, plan, v0, v1, v2, slot_map=slot_map)),
         "plain_ms": cuda_ms(lambda: refit.refit_apply_plain(
             gb, plan, v0, v1, v2, slot_map=slot_map), 3),
-        **stages.refit_bound(plan, int(v0.shape[0]), morton)}
+        **stages.refit_bound(plan, n, morton)}
+    if morton:
+        log(f"  the Morton refill {label} ({n} triangles, "
+            f"{out['morton_codes']['distinct']} distinct codes): order bit "
+            f"for bit the plain stable sort's; torch.sort of its codes "
+            f"{sort_ms[0]:.4f} / {sort_ms[1]:.4f} ms queued [{card}]")
     for k, r in out.items():
         log(f"  {k} {label} ({r['tris']} triangles): bit for bit its plain "
             f"version; queued {r['queued_ms'][0]:.4f} / "
@@ -1767,68 +1807,34 @@ def box_tests(iset, o, d, t) -> dict:
             "flat": float(iset.count)}
 
 
-def instance_world(n: int, seed: int, dev, tie: bool = False):
-    """A floor and ``n`` dynamic cubes at seeded transforms over a 24 x 24
-    field, every third one hidden (scale 1e-6 at y = -100, as the dynamic
-    scene's empty slots); with ``tie`` the first two are identical (the
-    same mesh at the same transform: instances 0 and 1)."""
-    import numpy as np
-    from ptrt_tpu_torch.geometry.mesh import Mesh
-    from ptrt_tpu_torch.geometry.scene_geom import assemble_world
-
-    rng = np.random.default_rng(seed)
-    meshes = [Mesh.plane_xz(-1.0, 40.0)]
-    for k in range(n):
-        m = Mesh.cube()
-        pos = rng.uniform([-12.0, -0.5, 4.0], [12.0, 3.0, 28.0])
-        rot = rng.uniform(0.0, 3.0, 3)
-        scale = rng.uniform(0.3, 1.2, 3)
-        if tie and k == 1:
-            pos, rot, scale = first
-        first = (pos, rot, scale) if k == 0 else first
-        m.transform.set_position(*pos).set_rotation(*rot).set_scale(*scale)
-        if k % 3 == 2 and not tie:
-            m.transform.set_position(pos[0], -100.0, pos[2]).set_scale(1e-6)
-        m.is_dynamic = True
-        meshes.append(m)
-    return assemble_world(meshes, None, dev)
-
-
 def check_instance_sets(dev, card) -> dict:
-    """K4 against its plain version on hand-made sets: the tie world (two
-    identical instances in front of the rays: where they are hit, the
-    instance is 0 in the kernel's record as in the plain version's), then
-    sets of K4_SET_SIZES instances; K4_SET_RAYS seeded rays each, closest
-    (hit, mesh and instance equal on every ray, t within K4_T_ATOL) and
-    any-hit (equal)."""
+    """K4 against its plain version on hand-made sets
+    (``stages.instance_world``): the tie world (two identical instances in
+    front of the rays: where they are hit, the instance is 0 in the
+    kernel's record as in the plain version's), then sets of K4_SET_SIZES
+    instances; K4_SET_RAYS seeded rays each, closest (hit, mesh and
+    instance equal on every ray, t within K4_T_ATOL) and any-hit (equal).
+    At each size also the tree's host build, the boxes a live ray tests,
+    and K4 on ``stages.SET_RAYS`` rays timed queued beside the bound
+    (``stages.time_instance_set``), with the kernel the set takes (staged
+    or read from global memory)."""
     import numpy as np
     import torch
-    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.geometry.tlas import build_tlas
     from ptrt_tpu_torch.render import traverse
+    from ptrt_tpu_torch.tools import stages
 
     out = {}
+    copy = lambda x: traverse.Closest(*[p.clone() for p in x])
     for label, n, tie in (("tie", 2, True), *[(f"{k} instances", k, False)
                                               for k in K4_SET_SIZES]):
-        g = instance_world(n, 40 + n, dev, tie)
+        g = stages.instance_world(n, 40 + n, dev, tie)
         iset = g.iset
         rng = np.random.default_rng(50 + n)
         r = K4_SET_RAYS
-        # three rays in four at an instance's centre (inside its cube
-        # whatever its rotation), the rest anywhere over the field
-        org = rng.normal([0.0, 2.0, -6.0], 0.5, (r, 3))
-        centre = 0.5 * (iset.bb_min + iset.bb_max).cpu().numpy()
-        shown = np.flatnonzero(centre[:, 1] > -50.0)
-        aim = centre[rng.choice(shown, r)] + rng.uniform(-0.05, 0.05, (r, 3))
-        field = rng.uniform([-12.0, -1.0, 4.0], [12.0, 3.5, 28.0], (r, 3))
-        aim = np.where((rng.uniform(size=r) < 0.25)[:, None], field, aim)
-        dirs = aim - org
-        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-        vec = lambda a: Vec3(*[torch.tensor(a[:, j], dtype=torch.float32,
-                                            device=dev) for j in range(3)])
-        o, d = vec(org), vec(dirs)
+        o, d, to_aim = stages.set_rays(iset, rng, r)
         t = torch.full((r,), traverse.T_MAX, device=dev)
         rec = traverse.closest_hit(g.static, o, d, t)
-        copy = lambda x: traverse.Closest(*[p.clone() for p in x])
         got = traverse.instances_closest(iset, o, d, copy(rec))
         want = traverse.instances_closest_plain(iset, o, d, copy(rec))
         hit_k, hit_p = got.slot >= 0, want.slot >= 0
@@ -1837,7 +1843,7 @@ def check_instance_sets(dev, card) -> dict:
         bh = hit_k & hit_p
         t_err = float((got.t - want.t).abs()[bh].max()) if bh.any() else 0.0
         # shadow rays ending before or beyond the point aimed at
-        reach = np.linalg.norm(aim - org, axis=1) * rng.uniform(0.5, 1.5, r)
+        reach = np.linalg.norm(to_aim, axis=1) * rng.uniform(0.5, 1.5, r)
         t_s = torch.tensor(reach, dtype=torch.float32, device=dev)
         h0 = traverse.any_hit(g.static, o, d, t_s)
         h_k = traverse.instances_any(iset, o, d, t_s, h0.clone())
@@ -1845,8 +1851,14 @@ def check_instance_sets(dev, card) -> dict:
         mism_any = int((h_k != h_p).sum())
         share = float((got.inst >= 0).float().mean())
         tests = box_tests(iset, o, d, rec.t)
+        bmin, bmax = iset.bb_min.cpu().numpy(), iset.bb_max.cpu().numpy()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            build_tlas(bmin, bmax)
+        host_ms = 1e3 * (time.perf_counter() - t0) / 20
         log(f"  K4 {label} ({iset.count} instances, a tree of "
-            f"{iset.tlas.shape[0]} nodes {iset.tlas.shape[1]} wide): "
+            f"{iset.tlas.shape[0]} nodes {iset.tlas.shape[1]} wide, built on "
+            f"the host in {host_ms:.4f} ms): "
             f"{r} rays, closest {mism} hit/mesh/inst mismatches, max |dt| "
             f"{t_err:.3g}, instance hits on {share:.4f}; any-hit {mism_any} "
             f"mismatches ({int((h_k & ~h0).sum())} lanes occluded by an "
@@ -1859,8 +1871,106 @@ def check_instance_sets(dev, card) -> dict:
         if tie:  # both instances are candidates; the lower id wins
             assert bool((got.inst != 1).all()) and share > 0.5
         out[label] = {"mismatches": mism + mism_any, "max_abs_err": t_err,
-                      "instance_hit_share": share, "box_tests": tests}
+                      "instance_hit_share": share, "box_tests": tests,
+                      "tlas_host_ms": host_ms}
+        if tie:
+            continue
+        timed = stages.time_instance_set(g, rng, stages.SET_RAYS)
+        del timed["records"]
+        staged = timed["info"]["instances_closest"]["staged"]
+        log(f"  K4 {label}, {'staged' if staged else 'from global memory'}: "
+            f"{stages.SET_RAYS} rays, closest queued "
+            f"{timed['closest_ms'][0]:.4f} / {timed['closest_ms'][1]:.4f} ms "
+            f"(bound {timed['bound_ms']['closest']:.4f}), any "
+            f"{timed['any_ms'][0]:.4f} / {timed['any_ms'][1]:.4f} ms (bound "
+            f"{timed['bound_ms']['any']:.4f}); "
+            + ", ".join(f"{k} {v['registers']} registers, "
+                        f"{v['blocks_per_sm']} blocks a SM"
+                        for k, v in timed["info"].items())
+            + f" [{card}]")
+        out[label].update(timed)
+        del g, iset
+        torch.cuda.empty_cache()
     return out
+
+
+def check_many_instances(dev, card) -> dict:
+    """A Scene past K4's former cap of 512 instances, at 256x144 (1 spp,
+    depth 2, no post): a floor, MANY_CUBES dynamic cubes and a dynamic
+    128-segment sphere refilled on the card (device_lbvh; 32,768 triangles,
+    past morton_sort's most, so its order comes from morton_codes and
+    torch.sort), MANY_CUBES + 1 instances.  The frame after an edit (every
+    cube moved, the sphere refilled) on the GPU against the same frame on
+    the CPU (the plain versions): object ids agree on 99.9% of pixels and
+    the image within 1 LSB on 99% (phase 9's tolerance: K1's FMA
+    contraction moves grazing hits); the GPU frame's launches."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.scene.materials import Material
+    from ptrt_tpu_torch.scene.pt_scene import Scene
+
+    rng = np.random.default_rng(61)
+    place = rng.uniform([-6.0, -0.6, 5.0], [6.0, 2.5, 16.0], (MANY_CUBES, 3))
+    turn = rng.uniform(0.0, 3.0, (MANY_CUBES, 3))
+    size = rng.uniform(0.15, 0.45, MANY_CUBES)
+    colours = rng.uniform(0.2, 0.9, (MANY_CUBES, 3))
+
+    def edit(sc, cubes, blob, base, frame):
+        for k, m in enumerate(cubes):
+            m.transform.set_position(*(place[k] + 0.1 * frame)).set_rotation(
+                *(turn[k] + 0.2 * frame)).set_scale(size[k])
+        v, faces = base
+        bump = 1.0 + 0.1 * np.sin(7.0 * v[:, 0] + frame) * np.cos(5.0 * v[:, 1])
+        blob.set_triangles((v * bump[:, None]).astype(np.float32)[faces])
+        sc.commit_object_changes()
+
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("gpu", dev)):
+        sc = bench_perf(Scene(256, 144, device=d), 1, 2)
+        sc.add_plane_xz(-1.0, 30.0)
+        cubes = []
+        for k in range(MANY_CUBES):
+            m = sc.add_cube(Material.make(tuple(colours[k]), 0.6))
+            m.is_dynamic = True
+            cubes.append(m)
+        blob = sc.add_sphere(128, Material.make((0.9, 0.6, 0.3), 0.3))
+        blob.is_dynamic = True
+        blob.device_lbvh = True
+        blob.transform.set_position(4.5, 2.0, 9.0).set_scale(0.8)
+        sc.add_point_light((0.0, 6.0, 4.0), (1.0, 1.0, 1.0), 40.0)
+        sc.set_camera((0.0, 1.5, -2.0), (0.0, 0.5, 10.0), fov=60)
+        base = (blob.vertices.copy(), blob.faces.copy())
+        edit(sc, cubes, blob, base, 0)
+        sc.render_frame()
+        edit(sc, cubes, blob, base, 1)
+        kernels.launches.clear()
+        t0 = time.time()
+        img = sc.render_frame()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = (sc, img, time.time() - t0, dict(kernels.launches))
+    (sc_c, img_c, s_c, _), (sc_g, img_g, s_g, launches) = out["cpu"], out["gpu"]
+    n_inst = sc_g._geom.iset.count
+    oid = float((sc_c.last_frame.object_id
+                 == sc_g.last_frame.object_id.cpu()).float().mean())
+    lsb = float((np.abs(img_c.astype(int) - img_g.astype(int)).max(-1) <= 1)
+                .mean())
+    on_inst = float((sc_c.last_frame.object_id >= 1).float().mean())
+    log(f"[many] 256x144, {n_inst} instances ({MANY_CUBES} cubes and a "
+        f"{sc_g.meshes[-1].num_triangles}-triangle Morton-refilled sphere): "
+        f"the edited frame GPU ({1e3 * s_g:.1f} ms) vs CPU ({s_c:.1f} s): "
+        f"object id agree {oid:.5f} ({on_inst:.3f} of the pixels on an "
+        f"instance), image within 1 LSB on {lsb:.4f} of pixels; GPU "
+        f"launches {launches} [{card}]")
+    assert n_inst == MANY_CUBES + 1 > 512, n_inst
+    assert oid >= 0.999 and lsb >= 0.99, (oid, lsb)
+    assert on_inst > 0.1, on_inst
+    for k in ("instances_closest", "instances_any", "morton_codes", "refit"):
+        assert launches.get(k, 0) > 0, (k, launches)
+    assert launches.get("morton_sort", 0) == 0, launches
+    return {"instances": n_inst, "object_id_agree": oid, "within_1_lsb": lsb,
+            "launches": launches}
 
 
 def bounce_launches(names, samples, depth):
@@ -1935,7 +2045,7 @@ def main() -> int:
         ("closest_hit", "any_hit", "walk_count", "tonemap_rgb8",
          "gather_rows", "svgf_temporal", "svgf_atrous", "bloom_chain",
          "shade_nee", "shade_scatter", "instances_closest", "instances_any",
-         "refit_kernel", "morton"))
+         "refit_kernel", "morton_sort", "morton_codes"))
     for k, fns in resources.items():
         for fn, r in fns.items():
             log(f"[build] {k} ({fn[-40:]}): {r['registers']} registers, "
@@ -2011,6 +2121,10 @@ def main() -> int:
     log(f"  K6 bound {k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']});"
         f" its {k6_body} SASS instructions a thread issue in "
         f"{k6_bound['sass_issue_ms']:.4f} ms [{card}]")
+    k6_info = pipeline.tonemap_info()
+    log("  K6 (128 threads a block): " + "; ".join(
+        f"{k} {v['registers']} registers, {v['blocks_per_sm']} resident "
+        f"blocks a SM" for k, v in k6_info.items()))
     gather = check_row_gather(dev, full._mat_table, card, rng)
 
     # -- 3b. K3: the shading stages against their plain versions -------------
@@ -2389,6 +2503,7 @@ def main() -> int:
     from ptrt_tpu_torch.render import traverse as trav
 
     k4_sets = check_instance_sets(dev, card)
+    many = check_many_instances(dev, card)
     from ptrt_tpu_torch.geometry.tlas import build_tlas
 
     bmin, bmax = iset.bb_min.cpu().numpy(), iset.bb_max.cpu().numpy()
@@ -2410,7 +2525,9 @@ def main() -> int:
         log(f"  {k}: {v['registers']} registers, {v['local_bytes']} bytes "
             f"of local memory a thread, {v['blocks_per_sm']} resident blocks "
             f"of 128 threads a SM with {iset.count} instances and their tree "
-            f"staged")
+            f"{'staged' if v['staged'] else 'read from global memory'}")
+        assert v["staged"] and v["blocks_per_sm"] == (
+            7 if k == "instances_closest" else 8), (k, v)
     plans = dyn._iset_cache["plans"]
     kres = {}
     for label, pos, mesh, morton in (
@@ -2421,8 +2538,10 @@ def main() -> int:
         kres[label] = check_refit(label, iset.geom, plans[pos],
                                   [tris[:, j] for j in range(3)], morton,
                                   card)
-    # odd sizes: a 37x29-cell heightfield refit, a 1,001-triangle soup's
-    # codes and its Morton refill
+    # odd sizes: a 37x29-cell heightfield refit; the Morton refill's shapes
+    # (stages.refill_meshes: 1,001, 8,192, 130,050 and 1,045,506 triangles,
+    # both sides of morton_sort's most), each standalone, and a soup of 1,001
+    # triangles that are 143 repeated seven times (every code tied)
     from ptrt_tpu_torch.app.bench_scene import heightfield_to_triangles
     from ptrt_tpu_torch.geometry.mesh import Mesh
     from ptrt_tpu_torch.geometry.refit import build_refit_plan
@@ -2431,17 +2550,21 @@ def main() -> int:
     odd_rng = np.random.default_rng(5)
     hf = odd_rng.normal(size=(30, 30)).astype(np.float32) * 0.1
     odd_tris = heightfield_to_triangles(hf)[:1621]
-    soup = odd_rng.uniform(-3, 3, (1001, 1, 3)).astype(np.float32) + \
-        odd_rng.uniform(-0.2, 0.2, (1001, 3, 3)).astype(np.float32)
-    for label, tris, morton in (("odd heightfield", odd_tris, False),
-                                ("odd soup", soup, True)):
-        og = assemble_geometry([Mesh.from_triangles(tris)], None, dev,
+    shapes = [("odd heightfield", odd_tris,
+               odd_tris * np.float32(1.1) + np.float32(0.05), False)]
+    for label, tris0, tris1 in stages.refill_meshes():
+        shapes.append((f"morton {label}", tris0, tris1, True))
+    tied = shapes[1][2][:143][odd_rng.permutation(np.arange(1001) % 143)]
+    shapes.append(("morton tied soup", tied + np.float32(0.3),
+                   tied * np.float32(0.9), True))
+    for label, tris0, tris1, morton in shapes:
+        og = assemble_geometry([Mesh.from_triangles(tris0)], None, dev,
                                world=False)
-        moved = tris * np.float32(1.1) + np.float32(0.05)
         kres[label] = check_refit(label, og, build_refit_plan(og),
-                                  [moved[:, j] for j in range(3)], morton,
+                                  [tris1[:, j] for j in range(3)], morton,
                                   card)
-    del og
+        del og
+    assert kres["morton tied soup"]["morton_codes"]["distinct"] <= 143
     torch.cuda.empty_cache()
 
     # the dynamic frame: balanced, the camera orbiting, every frame's edits
@@ -2488,7 +2611,8 @@ def main() -> int:
     per_frame = {"closest_hit": BAL_DEPTH, "instances_closest": BAL_DEPTH,
                  "any_hit": BAL_DEPTH, "instances_any": BAL_DEPTH,
                  "shade_nee": BAL_DEPTH, "shade_scatter": BAL_DEPTH,
-                 "refit": 2, "morton": 1, "bloom_chain": 1,
+                 "refit": 2, "morton_sort": 1, "morton_codes": 0,
+                 "bloom_chain": 1,
                  "tonemap_rgb8": 1}
     for k, n in per_frame.items():
         assert dyn_launches.get(k, 0) == n * DYN_FRAMES, (k, dyn_launches)
@@ -2584,6 +2708,7 @@ def main() -> int:
          **both("tonemap_rgb8"), "max_abs_err": k6_err,
          "exact_share": k6_exact, "ms": k6_ms, "plain_ms": k6_plain_ms,
          **k6_bound, "sass_instructions_a_thread": k6_body,
+         "occupancy": k6_info,
          "library_ms": None, "pixels": W * H, "redesigned": True},
         {"name": "row_gather", "route": "cuda", "source": src("gather.cu"),
          "replaces": "tools/probe_pallas_gather_r5.py:42",
@@ -2663,25 +2788,45 @@ def main() -> int:
            "rays": W * H, **{key: v for key, v in kstats[k].items()
                              if key.startswith(("wavefront", "baked",
                                                 "box"))},
-           "instance_sets": {lbl: r["mismatches"]
-                             for lbl, r in k4_sets.items()},
+           "instance_sets": {lbl: {
+               "mismatches": r["mismatches"], "box_tests": r["box_tests"],
+               "tlas_host_ms": r["tlas_host_ms"],
+               **({"staged": r["info"][k]["staged"],
+                   "rays": stages.SET_RAYS,
+                   "queued_ms": r["closest_ms" if k == "instances_closest"
+                                 else "any_ms"],
+                   "bound_ms": r["bound_ms"]["closest"
+                                             if k == "instances_closest"
+                                             else "any"]}
+                  if "info" in r else {})}
+               for lbl, r in k4_sets.items()},
+           "many_instances_scene": many,
            "tlas_host_ms": tlas_host_ms, **k4_info[k]}
           for k, w in (("instances_closest", "bounce"),
                        ("instances_any", "shadow"))],
         *[{"name": k, "route": "cuda", "source": src("refit.cu"),
-           "replaces": ("ptrt_tpu/geometry/refit.py:110" if k == "refit"
-                        else "ptrt_tpu/geometry/lbvh.py:41"),
-           "launches": dyn_launches.get(k, 0),
-           "frames_dynamic": DYN_FRAMES, "max_abs_err": 0.0,
+           "replaces": {"refit": "ptrt_tpu/geometry/refit.py:110",
+                        "morton_sort": "ptrt_tpu/geometry/lbvh.py:59",
+                        "morton_codes": "ptrt_tpu/geometry/lbvh.py:41"}[k],
+           # morton_codes: the 513-instance Scene's refill (a mesh past
+           # morton_sort's most); the others: the dynamic frames
+           "launches": (many["launches"].get(k, 0) if k == "morton_codes"
+                        else dyn_launches.get(k, 0)),
+           "launched_by": ("the 513-instance Scene's frame"
+                           if k == "morton_codes" else
+                           f"{DYN_FRAMES} dynamic frames"),
+           "max_abs_err": 0.0,
            "ms": sum(kres[m][k]["queued_ms"]) / 2,
            "bound_ms": kres[m][k]["bound_ms"],
            "bound_by": kres[m][k]["bound_by"],
            "plain_ms": kres[m][k]["plain_ms"], "library_ms": None,
            "mesh": m, "tris": kres[m][k]["tris"],
            "sizes": {lbl: {key: r[k][key] for key in (
-               "tris", "queued_ms", "plain_ms", "bound_ms")}
+               "tris", "queued_ms", "plain_ms", "bound_ms", "torch_sort_ms",
+               "distinct") if key in r[k]}
                for lbl, r in kres.items() if k in r}}
-          for k, m in (("refit", "heightfield"), ("morton", "sphere"))],
+          for k, m in (("refit", "heightfield"), ("morton_sort", "sphere"),
+                       ("morton_codes", "morton heightfield 256x256"))],
     ]}
     # the ranking: device ms a frame that each kernel stands over its bound,
     # summed over the passes and bounces the frames really run (a bench
@@ -2722,8 +2867,9 @@ def main() -> int:
     over["refit"] = {"dynamic": sum(
         sum(kres[m]["refit"]["queued_ms"]) / 2 - kres[m]["refit"]["bound_ms"]
         for m in ("heightfield", "sphere"))}
-    over["morton"] = {"dynamic": sum(kres["sphere"]["morton"]["queued_ms"])
-                      / 2 - kres["sphere"]["morton"]["bound_ms"]}
+    over["morton_sort"] = {"dynamic": sum(
+        kres["sphere"]["morton_sort"]["queued_ms"]) / 2
+        - kres["sphere"]["morton_sort"]["bound_ms"]}
     log("[rank] device ms a frame over the bound (launches x (time - "
         "bound), each pass, bounce, channel pair and mip at its own time; "
         "the small kernels queued, the two readings in brackets): "

@@ -1,11 +1,11 @@
-// K5: the device refit of a dynamic mesh's BVH (refit) and the Morton codes
-// of its Morton-sorted refill (morton).
+// K5: the device refit of a dynamic mesh's BVH (refit) and the Morton order
+// of its Morton-sorted refill (morton_sort, morton_codes).
 //
-// Replaces: ptrt_tpu/geometry/refit.py refit_apply (:110) and the codes and
-// centroid bounds of ptrt_tpu/geometry/lbvh.py morton_order (:41-71,
-// morton_codes), which XLA compiles into gathers, a scatter and one fusion
-// per tree level.  The sort between the two stays torch.sort, as the
-// reference leaves it to jax.lax.sort.
+// Replaces: ptrt_tpu/geometry/refit.py refit_apply (:110) and
+// ptrt_tpu/geometry/lbvh.py morton_order (:59, with morton_codes :41: the
+// centroids, their bounds, the 30-bit codes and jax.lax.sort's stable
+// order), which XLA compiles into gathers, a scatter, a sort and one fusion
+// per tree level.
 //
 // What bounds them on the card: a few MB of traffic (a 130,050-triangle
 // heightfield reads 4.7 MB of vertices and writes ~10 MB of tables) and,
@@ -32,14 +32,35 @@
 //    threads, a thread a node: 0.271 ms for the heightfield's 4,694 nodes
 //    (the slot pass 0.025), one SM's load and store units serving every
 //    node's scattered row (PERF.md);
-//  * morton is one block of 1024 threads: the centroids' bounds by a block
-//    reduction, then the codes.  A mesh of a few thousand triangles (the
-//    LBVH meshes of the games) is one launch's latency.
+//  * morton_sort, for a mesh of up to kSortMax triangles (the LBVH meshes of
+//    the games, the dynamic scene's 8,192-triangle sphere), is the whole
+//    order in one launch of one block: each float of the (T, 3) vertex
+//    planes read once, coalesced, into a centroid component in shared
+//    memory; the bounds by a block reduction; the codes; then a stable LSD
+//    radix sort of (code, triangle) pairs held in registers, 8 bits a pass
+//    (4 passes over 30 bits), each pass counting a digit a warp, scanning
+//    the counts block-wide, ranking a digit's lanes by ballots of its bits
+//    and exchanging
+//    through shared memory.  It writes the order as int32 (and, when asked,
+//    the codes): no torch.sort, index fill or cast after it.  The first
+//    design ran the codes in one block that read each vertex twice at a
+//    stride of 3 floats, then torch.sort's launches;
+//  * morton_codes, for a larger mesh (a refilled heightfield or deforming
+//    mesh of 130k or 1M triangles), is one cooperative launch over the card:
+//    each block bounds its share of the centroids, a grid sync, every block
+//    reduces the blocks' bounds, then the codes tile by tile.  The order
+//    then comes from torch.sort (stable), as the reference leaves the sort
+//    to jax.lax.sort outside any kernel.  Which of the two a refill takes
+//    is a choice by the mesh's size before the launch (geometry/lbvh.py
+//    morton_order against ptrt_morton_sort_max).  On an H100 the one
+//    launch is the faster up to its most: 0.017 against 0.038 ms at 1,001
+//    triangles, 0.040 against 0.063 at 8,192, level at 16,384 (PERF.md).
 //
 // Exactness: min and max are exact in any order and the triangle rows are
 // copies and differences, so the tables equal the plain version's (and the
-// reference's) bit for bit, up to the sign of a zero bound.  Built with
-// -fmad=false, like the plain torch version's separate roundings.  The
+// reference's) bit for bit, up to the sign of a zero bound; the codes are
+// the plain version's arithmetic, and a stable sort has one answer.  Built
+// with -fmad=false, like the plain torch version's separate roundings.  The
 // boxes one phase writes and the next reads go through L2 (__ldcg): the
 // read-only path is not coherent within a launch.
 
@@ -56,9 +77,16 @@ constexpr int kTriRow = 10 * kLeaf;  // tri_rows width
 constexpr int kNodeRow = 64;         // node_rows width
 constexpr float kBig = 3.0e30f;      // refit.BIG
 constexpr int kThreads = 256;        // refit's block
-constexpr int kMortonThreads = 1024;
 constexpr int kMaxDevices = 64;
 constexpr int kMBits = 10;           // lbvh.MBITS
+constexpr int kSortThreads = 1024;   // morton_sort's one block
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kSortItems = 16;       // items a thread holds at most
+constexpr int kSortMax = kSortThreads * kSortItems;  // 16,384 triangles
+constexpr int kRadixBits = 8;        // a pass's digit
+constexpr int kRadix = 1 << kRadixBits;
+constexpr int kSortCounters = kRadix * kSortWarps;  // a digit a warp
+constexpr int kCodeThreads = 1024;   // morton_codes' block
 
 struct RefitArgs {
     const float* __restrict__ v0;  // (T, 3) each
@@ -215,27 +243,25 @@ refit_kernel(const __grid_constant__ RefitArgs a) {
     }
 }
 
-__device__ __forceinline__ float centroid(const float* v0, const float* v1,
-                                          const float* v2, int t, int k) {
-    const float a = v0[3 * t + k], b = v1[3 * t + k], c = v2[3 * t + k];
+__device__ __forceinline__ float centroid(float a, float b, float c) {
     return (fminf(fminf(a, b), c) + fmaxf(fmaxf(a, b), c)) * 0.5f;
 }
 
-__global__ void __launch_bounds__(kMortonThreads)
-morton_kernel(const float* __restrict__ v0, const float* __restrict__ v1,
-              const float* __restrict__ v2, int n, int* __restrict__ codes) {
-    __shared__ float red[2][3][kMortonThreads / 32];
-    __shared__ float bounds[2][3];
-    float lo[3] = {INFINITY, INFINITY, INFINITY};
-    float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
-    for (int t = threadIdx.x; t < n; t += kMortonThreads) {
+// Folds centroid component ``c`` of axis ``k`` into the running bounds.
+__device__ __forceinline__ void grow(float lo[3], float hi[3], int k,
+                                     float c) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-            const float c = centroid(v0, v1, v2, t, k);
-            lo[k] = fminf(lo[k], c);
-            hi[k] = fmaxf(hi[k], c);
-        }
+    for (int a = 0; a < 3; ++a) {
+        lo[a] = k == a ? fminf(lo[a], c) : lo[a];
+        hi[a] = k == a ? fmaxf(hi[a], c) : hi[a];
     }
+}
+
+// The block's min of ``lo`` and max of ``hi`` into ``out`` (lo xyz, hi xyz),
+// in shared memory and visible to every thread on return.  ``red`` is
+// 6 x 32 floats of shared scratch.
+__device__ void block_bounds(float lo[3], float hi[3], float* red,
+                             float* out) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -244,49 +270,288 @@ morton_kernel(const float* __restrict__ v0, const float* __restrict__ v1,
             hi[k] = fmaxf(hi[k], __shfl_xor_sync(0xffffffffu, hi[k], off));
         }
         if (lane == 0) {
-            red[0][k][warp] = lo[k];
-            red[1][k][warp] = hi[k];
+            red[32 * k + warp] = lo[k];
+            red[32 * (3 + k) + warp] = hi[k];
         }
     }
     __syncthreads();
     if (warp == 0) {
+        const bool in = lane < static_cast<int>(blockDim.x >> 5);
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-            float l = red[0][k][lane], h = red[1][k][lane];
+            float l = in ? red[32 * k + lane] : INFINITY;
+            float h = in ? red[32 * (3 + k) + lane] : -INFINITY;
             for (int off = 16; off > 0; off >>= 1) {
                 l = fminf(l, __shfl_xor_sync(0xffffffffu, l, off));
                 h = fmaxf(h, __shfl_xor_sync(0xffffffffu, h, off));
             }
             if (lane == 0) {
-                bounds[0][k] = l;
-                bounds[1][k] = h;
+                out[k] = l;
+                out[3 + k] = h;
             }
         }
     }
     __syncthreads();
+}
+
+// The 30-bit code of centroid ``c`` in the bounds ``b`` (lo xyz, hi xyz):
+// lbvh.morton_codes_plain's arithmetic, each operation rounded on its own.
+__device__ __forceinline__ unsigned morton_code(const float* c,
+                                                const float* b) {
     const int m = (1 << kMBits) - 1;
-    float base[3], span[3];
+    int q[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-        base[k] = bounds[0][k];
-        span[k] = fmaxf(bounds[1][k] - bounds[0][k], 1e-12f);
+        const float span = fmaxf(b[3 + k] - b[k], 1e-12f);
+        const float f = (c[k] - b[k]) / span;
+        const int v = static_cast<int>(f * static_cast<float>(m));
+        q[k] = v < 0 ? 0 : (v > m ? m : v);
     }
-    for (int t = threadIdx.x; t < n; t += kMortonThreads) {
-        int q[3];
+    unsigned code = 0u;
+#pragma unroll
+    for (int s = 0; s < kMBits; ++s)
+        code |= (((q[0] >> s) & 1u) << (3 * s)) |
+                (((q[1] >> s) & 1u) << (3 * s + 1)) |
+                (((q[2] >> s) & 1u) << (3 * s + 2));
+    return code;
+}
+
+// Digit d's counter for warp w: digit-major, warp-minor, the warp's index
+// XORed with the digit's low bits, so that one warp's digits update
+// counters in different banks (rows of 32 words would put every digit of a
+// warp in one bank: 32-way conflicts, 1.6x the sort's time at 8,192).
+__device__ __forceinline__ int counter(unsigned d, int w) {
+    return static_cast<int>((d << 5) | ((static_cast<unsigned>(w) ^ d) & 31u));
+}
+
+// The lanes among ``live`` whose digit equals this lane's ``d``: one ballot
+// a digit bit (a warp multi-split; __match_any_sync took longer the more
+// distinct the digits).  Every lane of the warp calls it.
+__device__ __forceinline__ unsigned digit_peers(unsigned live, unsigned d) {
+    unsigned peers = live;
+#pragma unroll
+    for (int b = 0; b < kRadixBits; ++b) {
+        const unsigned set = __ballot_sync(0xffffffffu, (d >> b) & 1u);
+        peers &= ((d >> b) & 1u) ? set : ~set;
+    }
+    return peers;
+}
+
+// Exclusive prefix sums, in place and in (digit, warp) order, of the
+// kRadix x kSortWarps digit counters: kSortCounters / kSortThreads
+// consecutive counters a thread, then the threads' sums scanned across the
+// block.
+__device__ void scan_counters(unsigned* cnt, unsigned* warp_sum) {
+    static_assert(kSortCounters == 8 * kSortThreads, "8 counters a thread");
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const unsigned d = threadIdx.x >> 2;  // 8 of a digit's 32 warps
+    const int w0 = 8 * (threadIdx.x & 3);
+    unsigned v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = cnt[counter(d, w0 + j)];
+    unsigned sum = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const unsigned x = v[j];
+        v[j] = sum;
+        sum += x;
+    }
+    unsigned incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const unsigned y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        const unsigned x = warp_sum[lane];
+        unsigned s = x;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const unsigned y = __shfl_up_sync(0xffffffffu, s, off);
+            if (lane >= off) s += y;
+        }
+        warp_sum[lane] = s - x;
+    }
+    __syncthreads();
+    const unsigned base = warp_sum[warp] + incl - sum;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) cnt[counter(d, w0 + j)] = v[j] + base;
+}
+
+// morton_sort: one block, the whole Morton refill's order.  Dynamic shared
+// memory: the centroids (3n floats, the (n, 3) layout), whose space the
+// sort then reuses for the digit counters (kSortCounters words) followed by
+// the keys and the ids (n words each).
+__global__ void __launch_bounds__(kSortThreads)
+morton_sort_kernel(const float* __restrict__ v0, const float* __restrict__ v1,
+                   const float* __restrict__ v2, int n,
+                   int* __restrict__ order, int* __restrict__ codes) {
+    static_assert(kSortThreads % 3 == 1, "a step advances the axis by one");
+    static_assert(kSortWarps == 32, "one warp scans the warps' sums");
+    extern __shared__ uint4 sort_smem[];
+    __shared__ float red[6 * 32];
+    __shared__ float bounds[6];
+    __shared__ unsigned warp_sum[kSortWarps];
+    float* const cent = reinterpret_cast<float*>(sort_smem);
+    unsigned* const cnt = reinterpret_cast<unsigned*>(sort_smem);
+    unsigned* const keys = cnt + kSortCounters;
+    int* const ids = reinterpret_cast<int*>(keys + n);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+    // the centroids, each float of the (n, 3) planes read once, coalesced,
+    // and their bounds
+    float lo[3] = {INFINITY, INFINITY, INFINITY};
+    float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+    int k = static_cast<int>(threadIdx.x % 3);
+#pragma unroll 4
+    for (int f = threadIdx.x; f < 3 * n; f += kSortThreads) {
+        const float c = centroid(__ldg(v0 + f), __ldg(v1 + f), __ldg(v2 + f));
+        cent[f] = c;
+        grow(lo, hi, k, c);
+        k = k == 2 ? 0 : k + 1;
+    }
+    block_bounds(lo, hi, red, bounds);
+
+    // a thread's items, warp-striped: position first + 32 s, where each
+    // warp holds a run of 32 * ipt positions; position p is triangle p
+    const int ipt = (n + kSortThreads - 1) / kSortThreads;
+    const int first = warp * 32 * ipt + lane;
+    unsigned key[kSortItems];
+    int id[kSortItems];
+#pragma unroll
+    for (int s = 0; s < kSortItems; ++s) {
+        const int p = first + 32 * s;
+        key[s] = 0u;
+        id[s] = p;
+        if (s < ipt && p < n) {
+            key[s] = morton_code(cent + 3 * p, bounds);
+            if (codes != nullptr) codes[p] = static_cast<int>(key[s]);
+        }
+    }
+    __syncthreads();  // the centroids' space is the sort's from here
+
+    // stable LSD radix sort of (key, id), kRadixBits a pass: count each
+    // digit a warp (shared atomics), scan the counts digit-major, then every
+    // item goes to its digit's offset in position order (a digit's lanes in
+    // a step by digit_peers, the step's leader taking their offsets)
+    for (int shift = 0; shift < 3 * kMBits; shift += kRadixBits) {
+        for (int q = threadIdx.x; q < kSortCounters; q += kSortThreads)
+            cnt[q] = 0u;
+        __syncthreads();
+#pragma unroll
+        for (int s = 0; s < kSortItems; ++s) {
+            const int p = first + 32 * s;
+            if (s < ipt && p < n)
+                atomicAdd(cnt + counter((key[s] >> shift) & (kRadix - 1),
+                                        warp),
+                          1u);
+        }
+        __syncthreads();
+        scan_counters(cnt, warp_sum);
+        __syncthreads();
+#pragma unroll
+        for (int s = 0; s < kSortItems; ++s) {
+            if (s >= ipt) break;
+            const int p = first + 32 * s;
+            const unsigned d = (key[s] >> shift) & (kRadix - 1);
+            const unsigned peers =
+                digit_peers(__ballot_sync(0xffffffffu, p < n), d);
+            const int leader = __ffs(peers) - 1;
+            unsigned at = 0u;
+            if (p < n && lane == leader)
+                at = atomicAdd(cnt + counter(d, warp), __popc(peers));
+            at = __shfl_sync(0xffffffffu, at, leader & 31) +
+                 __popc(peers & ((1u << lane) - 1u));
+            if (p < n) {
+                keys[at] = key[s];
+                ids[at] = id[s];
+            }
+            __syncwarp();
+        }
+        __syncthreads();
+#pragma unroll
+        for (int s = 0; s < kSortItems; ++s) {
+            const int p = first + 32 * s;
+            if (s < ipt && p < n) {
+                key[s] = keys[p];
+                id[s] = ids[p];
+            }
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int s = 0; s < kSortItems; ++s) {
+        const int p = first + 32 * s;
+        if (s < ipt && p < n) order[p] = id[s];
+    }
+}
+
+struct MortonArgs {
+    const float* __restrict__ v0;
+    const float* __restrict__ v1;
+    const float* __restrict__ v2;
+    int* __restrict__ codes;
+    float* partial;  // (gridDim.x, 6) scratch: each block's bounds
+    int n;
+};
+
+// morton_codes: one cooperative launch over the whole card.  Each block
+// bounds its share of the centroids, a grid sync, every block reduces the
+// blocks' bounds, then the codes a tile of kCodeThreads triangles at a time
+// (the tile's floats read coalesced into shared memory, a code a thread).
+__global__ void __launch_bounds__(kCodeThreads)
+morton_codes_kernel(const __grid_constant__ MortonArgs a) {
+    __shared__ float red[6 * 32];
+    __shared__ float bounds[6];
+    __shared__ float tile[3 * kCodeThreads];
+    cg::grid_group grid = cg::this_grid();
+    const int stride = gridDim.x * kCodeThreads;
+    float lo[3] = {INFINITY, INFINITY, INFINITY};
+    float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+    for (int f = blockIdx.x * kCodeThreads + threadIdx.x; f < 3 * a.n;
+         f += stride)
+        grow(lo, hi, f % 3,
+             centroid(__ldg(a.v0 + f), __ldg(a.v1 + f), __ldg(a.v2 + f)));
+    block_bounds(lo, hi, red, bounds);
+    if (threadIdx.x < 6) a.partial[6 * blockIdx.x + threadIdx.x] =
+        bounds[threadIdx.x];
+    grid.sync();
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        lo[k] = INFINITY;
+        hi[k] = -INFINITY;
+    }
+    for (int b = threadIdx.x; b < gridDim.x; b += kCodeThreads) {
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-            const float f = (centroid(v0, v1, v2, t, k) - base[k]) / span[k];
-            const int v = static_cast<int>(f * static_cast<float>(m));
-            q[k] = v < 0 ? 0 : (v > m ? m : v);
+            lo[k] = fminf(lo[k], __ldcg(a.partial + 6 * b + k));
+            hi[k] = fmaxf(hi[k], __ldcg(a.partial + 6 * b + 3 + k));
         }
-        int code = 0;
-#pragma unroll
-        for (int b = 0; b < kMBits; ++b)
-            code |= (((q[0] >> b) & 1) << (3 * b)) |
-                    (((q[1] >> b) & 1) << (3 * b + 1)) |
-                    (((q[2] >> b) & 1) << (3 * b + 2));
-        codes[t] = code;
     }
+    block_bounds(lo, hi, red, bounds);
+    for (int t0 = blockIdx.x * kCodeThreads; t0 < a.n; t0 += stride) {
+        for (int j = threadIdx.x; j < 3 * kCodeThreads; j += kCodeThreads) {
+            const int f = 3 * t0 + j;
+            if (f < 3 * a.n)
+                tile[j] = centroid(__ldg(a.v0 + f), __ldg(a.v1 + f),
+                                   __ldg(a.v2 + f));
+        }
+        __syncthreads();
+        const int t = t0 + threadIdx.x;
+        if (t < a.n)
+            a.codes[t] =
+                static_cast<int>(morton_code(tile + 3 * threadIdx.x, bounds));
+        __syncthreads();
+    }
+}
+
+size_t sort_shared_bytes(int n) {
+    const size_t cent = 12 * static_cast<size_t>(n);
+    const size_t sort =
+        4 * (kSortCounters + 2 * static_cast<size_t>(n));
+    return cent > sort ? cent : sort;
 }
 
 }  // namespace
@@ -353,14 +618,65 @@ int ptrt_refit(const float* v0, const float* v1, const float* v2, int n_tris,
         dim3(kThreads), params, 0, static_cast<cudaStream_t>(stream)));
 }
 
-// morton: (n,) int32 codes of the triangles' centroids in their bounds.
-int ptrt_morton(const float* v0, const float* v1, const float* v2, int n,
-                int* codes, void* stream) {
+// morton_sort: ``order`` (n,) int32, the triangles sorted by the Morton
+// code of their centroids (ties by index), and, where ``codes`` is not
+// null, the codes (n,) int32; at most kSortMax triangles.
+int ptrt_morton_sort(const float* v0, const float* v1, const float* v2, int n,
+                     int* order, int* codes, void* stream) {
+    if (n > kSortMax || order == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
     if (n <= 0) return static_cast<int>(cudaGetLastError());
-    morton_kernel<<<1, kMortonThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(v0, v1, v2, n,
-                                                         codes);
+    static bool allowed[kMaxDevices];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess && (dev < 0 || dev >= kMaxDevices))
+        e = cudaErrorInvalidDevice;
+    if (e == cudaSuccess && !allowed[dev]) {
+        e = cudaFuncSetAttribute(morton_sort_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(sort_shared_bytes(kSortMax)));
+        allowed[dev] = e == cudaSuccess;
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    morton_sort_kernel<<<1, kSortThreads, sort_shared_bytes(n),
+                         static_cast<cudaStream_t>(stream)>>>(v0, v1, v2, n,
+                                                              order, codes);
     return static_cast<int>(cudaGetLastError());
+}
+
+int ptrt_morton_sort_max() { return kSortMax; }
+
+// morton_codes: (n,) int32 codes of the triangles' centroids in their
+// bounds, one cooperative launch of at most ``scratch_blocks`` blocks;
+// ``scratch`` holds 6 floats a block.
+int ptrt_morton_codes(const float* v0, const float* v1, const float* v2,
+                      int n, int* codes, float* scratch, int scratch_blocks,
+                      void* stream) {
+    if (scratch_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (n <= 0) return static_cast<int>(cudaGetLastError());
+    static int per_sm[kMaxDevices], sms[kMaxDevices];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess && (dev < 0 || dev >= kMaxDevices))
+        e = cudaErrorInvalidDevice;
+    if (e == cudaSuccess && per_sm[dev] == 0) {
+        e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                   dev);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm[dev], morton_codes_kernel, kCodeThreads, 0);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    MortonArgs a = {v0, v1, v2, codes, scratch, n};
+    // the grid the card holds at once, at most a tile a block
+    const int need = (n + kCodeThreads - 1) / kCodeThreads;
+    int grid = sms[dev] * (per_sm[dev] > 0 ? per_sm[dev] : 1);
+    grid = need < grid ? need : grid;
+    grid = scratch_blocks < grid ? scratch_blocks : grid;
+    void* params[] = {&a};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(morton_codes_kernel), dim3(grid),
+        dim3(kCodeThreads), params, 0, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -175,3 +175,18 @@ extern "C" int ptrt_tonemap_rgb8(const TonemapArgs* args, void* stream) {
               : (vec ? launch<false, true>(a, s) : launch<false, false>(a, s));
     return static_cast<int>(e);
 }
+
+// Registers a thread and resident blocks a SM of K6's vector path (the
+// 1080p frame's), ``bloom`` 0 without the bloom composite, 1 with it.
+extern "C" int ptrt_tonemap_info(int bloom, int* regs, int* per_sm) {
+    const void* fn =
+        bloom ? reinterpret_cast<const void*>(tonemap_rgb8_kernel<true, true>)
+              : reinterpret_cast<const void*>(tonemap_rgb8_kernel<false, true>);
+    cudaFuncAttributes attr = {};
+    cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn,
+                                                          kThreads, 0);
+    *regs = attr.numRegs;
+    return static_cast<int>(e);
+}

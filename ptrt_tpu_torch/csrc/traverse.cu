@@ -66,7 +66,6 @@ constexpr int kTriRow = 10 * kLeaf;   // tri_rows width
 constexpr int kNodeRow = 64;          // node_rows width
 constexpr int kOrderCol = 52;         // first per-octant order column
 constexpr int kMaxStack = 64;         // must be >= SceneGeometry.stack_depth
-constexpr int kMaxInstances = 512;    // K4 stages every instance a block
 constexpr float kTMin = 1e-4f;        // traverse.T_MIN
 constexpr float kTMax = 1e30f;        // traverse.T_MAX: a live lane's t_max
 constexpr float kMtEps = 1e-9f;       // traverse._MT_EPS
@@ -442,9 +441,7 @@ WalkArgs walk_args(const float* nodes, int n_nodes, const float* tris,
 // counter of its own for each call).  A ray descends a small tree over the
 // instance boxes (geometry/tlas.py: nodes of kTlasWidth children, each
 // child a (lo, ref) and (hi, valid) float4 pair, built on the host with the
-// boxes),
-// staged in shared memory once a block with the instances' world->local
-// rows (3 float4) and roots.  The tree finds exactly the flat test's
+// boxes).  The tree finds exactly the flat test's
 // instances: a leaf child is the instance's box verbatim, tested with the
 // flat test's arithmetic against the static pass's t (the reference tests
 // the boxes once, against that t), and an inner box is the exact min / max
@@ -463,8 +460,34 @@ WalkArgs walk_args(const float* nodes, int n_nodes, const float* tris,
 // occluder.  K4 runs after K1 (K2) as its own launch, over the same
 // wavefront, and updates K1's record (K2's plane) in place: a scene with
 // no dynamic mesh launches no K4.  The any-hit walk skips lanes already
-// occluded or with t_max <= 0.  The descent's stack cannot overflow: a
-// tree of kMaxInstances is the deepest (static_assert).
+// occluded or with t_max <= 0.
+//
+// Any set the tables encode (at most kMaxInstances: an id k is the exact
+// float -1 - k in the tree), by one of three kernels chosen by the set's
+// size before the launch:
+//  * staged (kStaged): where the tree, the instances' world->local rows (3
+//    float4) and roots of a set of at most kWindow instances fit a block's
+//    shared memory with the kernel still resident kK4Blocks (closest) /
+//    kK4AnyBlocks (any) a SM, a block stages them once and reads them from
+//    shared memory;
+//  * one window: any other set of at most kWindow instances is read from
+//    global memory through the read-only path (__ldg), by the same code;
+//  * windows (kLarge, sets past kWindow ids): read likewise, and the
+//    candidate words hold kWindow ids, so closest visits its candidates in
+//    windows.  A window starts at the lowest candidate id not yet visited;
+//    its descent (against the static pass's t, as every descent) collects
+//    the candidates whose id lies in the window, lowest id first, and notes
+//    the lowest id past it, where the next window starts.  The visits are
+//    thus the reference's order, and a ray descends once for each window
+//    that holds a candidate.  Any-hit has no windows: the windows kernel
+//    takes each of its sets not staged.
+// Measured on an H100 (PERF.md): staging is 3-7% faster while it keeps
+// those blocks and 7-27% slower once it costs one (the dynamic scene's 194
+// instances, 22 KB, stay staged); on 1M rays at 320 and 512 instances the
+// one-window kernel is 6% and 4% faster than the windows kernel for
+// closest and level with it for any.
+// The descent's stack cannot overflow: a tree of kWindow instances, or of
+// kMaxInstances with the deeper stack, is the deepest (static_assert).
 // Measured and left out (PERF.md): a warp-uniform descent (a node
 // visited when any lane passes its box, every lane reading the same node)
 // was no faster on camera and bounce rays and slower on shadow rays; a tree
@@ -477,7 +500,10 @@ WalkArgs walk_args(const float* nodes, int n_nodes, const float* tris,
 constexpr int kK4Blocks = 7;
 constexpr int kK4AnyBlocks = 8;
 constexpr int kTlasWidth = 4;  // children a node: tlas.TLAS_WIDTH
-constexpr int kTlasStack = 16;  // node indices the descent holds at most
+constexpr int kWindow = 512;    // instance ids a closest descent collects
+constexpr int kMaxInstances = 16777216;  // 2^24: ids whose -1 - k is exact
+constexpr int kTlasStack = 16;  // node indices a descent holds, <= kWindow
+constexpr int kTlasStackDeep = 34;  // the same for any set (kLarge)
 constexpr int kMatF4 = 6;       // float4s in an instance's 24-float row
 
 // The most node indices a depth-first descent of a tree over n instances
@@ -489,8 +515,10 @@ constexpr int tlas_stack_bound(int n, int levels = 1) {
                : tlas_stack_bound((n + kTlasWidth - 1) / kTlasWidth,
                                   levels + 1);
 }
-static_assert(tlas_stack_bound(kMaxInstances) <= kTlasStack,
-              "the descent stack must hold the deepest tree");
+static_assert(tlas_stack_bound(kWindow) <= kTlasStack,
+              "the descent stack must hold the deepest tree of a window");
+static_assert(tlas_stack_bound(kMaxInstances) <= kTlasStackDeep,
+              "the deep descent stack must hold the deepest tree");
 
 // Everything an instance walk reads and writes.  ``w`` holds the merged
 // tables, the world rays and, for closest, K1's record (t, u, v, slot,
@@ -504,6 +532,14 @@ struct InstArgs {
     uint8_t* __restrict__ hit_io;     // any: K2's plane, ORed in place
     int n_inst, tlas_nodes;
 };
+
+// A read of the set's tables: shared memory where the block staged them,
+// else the read-only path.
+template <bool kStaged, typename T>
+__device__ __forceinline__ T set_load(const T* p) {
+    if (kStaged) return *p;
+    return __ldg(p);
+}
 
 // The flat test of one box (lo.xyz, hi.xyz) against (0, t_bound]: the
 // reference's _inst_hit_words arithmetic.
@@ -526,9 +562,11 @@ __device__ __forceinline__ bool box_slab(const float4 lo, const float4 hi,
 
 // The ray in an instance's frame: _mat_affine / _mat_linear, each product
 // and sum rounded on its own, left to right.
+template <bool kStaged>
 __device__ __forceinline__ Ray local_ray(const float4* __restrict__ rows,
                                          const Ray& r) {
-    const float4 a = rows[0], b = rows[1], c = rows[2];
+    const float4 a = set_load<kStaged>(rows), b = set_load<kStaged>(rows + 1),
+                 c = set_load<kStaged>(rows + 2);
     const float m[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
                          b.z, b.w, c.x, c.y, c.z, c.w};
     Ray l;
@@ -553,26 +591,27 @@ __device__ __forceinline__ Ray local_ray(const float4* __restrict__ rows,
     return l;
 }
 
-// Depth-first descent of the staged tree: ``found(k)`` for each instance k
-// whose box the ray enters within t_bound, in the tree's order; a true
-// return ends the descent.  A node's children are its kTlasWidth rows from
+// Depth-first descent of the tree: ``found(k)`` for each instance k whose
+// box the ray enters within t_bound, in the tree's order; a true return
+// ends the descent.  A node's children are its kTlasWidth rows from
 // ``tree + 2 * kTlasWidth * node``; ``ref`` (lo.w) is a child node's index,
 // or -1 - k for instance k, both exact float values.
-template <typename Found>
+template <bool kStaged, int kStack, typename Found>
 __device__ __forceinline__ void descend(const float4* __restrict__ tree,
                                         const Ray& r, float t_bound,
                                         Found found) {
-    int stack[kTlasStack];
+    int stack[kStack];
     int sp = 0, node = 0;
     while (true) {
         const float4* const row = tree + 2 * kTlasWidth * node;
 #pragma unroll 1  // unrolled (by nvcc, or into a mask): 1-3% slower
         for (int c = 0; c < kTlasWidth; ++c) {
-            const float4 lo = row[2 * c], hi = row[2 * c + 1];
+            const float4 lo = set_load<kStaged>(row + 2 * c),
+                         hi = set_load<kStaged>(row + 2 * c + 1);
             if (hi.w == 0.0f || !box_slab(lo, hi, r, t_bound)) continue;
             const int ref = static_cast<int>(lo.w);
             if (ref >= 0)
-                stack[sp++] = ref;  // sp < kTlasStack: the static_assert
+                stack[sp++] = ref;  // sp < kStack: the static_asserts
             else if (found(-1 - ref))
                 return;
         }
@@ -581,27 +620,36 @@ __device__ __forceinline__ void descend(const float4* __restrict__ tree,
     }
 }
 
-template <bool kAny>
+template <bool kAny, bool kStaged, bool kLarge>
 __device__ __forceinline__ void instance_rays(const InstArgs& a) {
+    static_assert(!(kStaged && kLarge), "a staged set is one window");
     // staged: the tree, then each instance's world->local rows (3 float4),
-    // the roots, and (closest) each thread's candidate words, word-major
+    // the roots; then (closest) each thread's candidate words, word-major
     extern __shared__ float4 staged[];
+    constexpr int kRowF4 = kStaged ? 3 : kMatF4;
+    constexpr int kStack = kLarge ? kTlasStackDeep : kTlasStack;
     const int tree_f4 = 2 * kTlasWidth * a.tlas_nodes;
-    float4* const tree = staged;
-    float4* const rows = staged + tree_f4;
-    int* const roots = reinterpret_cast<int*>(rows + 3 * a.n_inst);
-    unsigned* const words =
-        reinterpret_cast<unsigned*>(roots + a.n_inst) + threadIdx.x;
-    for (int q = threadIdx.x; q < tree_f4; q += blockDim.x)
-        tree[q] = a.tlas[q];
-    for (int q = threadIdx.x; q < 3 * a.n_inst; q += blockDim.x) {
-        const int k = q / 3;
-        rows[q] = a.mats[kMatF4 * k + q - 3 * k];
+    const int stage_f4 = kStaged ? tree_f4 + 3 * a.n_inst : 0;
+    const float4* const tree = kStaged ? staged : a.tlas;
+    const float4* const rows = kStaged ? staged + tree_f4 : a.mats;
+    const int* const roots =
+        kStaged ? reinterpret_cast<const int*>(staged + stage_f4) : a.roots;
+    unsigned* const words = reinterpret_cast<unsigned*>(staged + stage_f4) +
+                            (kStaged ? a.n_inst : 0) + threadIdx.x;
+    if (kStaged) {
+        float4* const s_rows = staged + tree_f4;
+        int* const s_roots = reinterpret_cast<int*>(staged + stage_f4);
+        for (int q = threadIdx.x; q < tree_f4; q += blockDim.x)
+            staged[q] = a.tlas[q];
+        for (int q = threadIdx.x; q < 3 * a.n_inst; q += blockDim.x) {
+            const int k = q / 3;
+            s_rows[q] = a.mats[kMatF4 * k + q - 3 * k];
+        }
+        for (int k = threadIdx.x; k < a.n_inst; k += blockDim.x)
+            s_roots[k] = a.roots[k];
+        __syncthreads();
     }
-    for (int k = threadIdx.x; k < a.n_inst; k += blockDim.x)
-        roots[k] = a.roots[k];
-    __syncthreads();
-    const int n_words = (a.n_inst + 31) >> 5;
+    const int n_words = kLarge ? kWindow / 32 : (a.n_inst + 31) >> 5;
     const WalkArgs& w = a.w;
     const int lane = threadIdx.x & 31;
     while (true) {
@@ -626,48 +674,66 @@ __device__ __forceinline__ void instance_rays(const InstArgs& a) {
                 r.iy = safe_inv(r.dy);
                 r.iz = safe_inv(r.dz);
                 if (kAny) {
-                    descend(tree, r, t, [&](int k) {
-                        const Ray l = local_ray(rows + 3 * k, r);
+                    descend<kStaged, kStack>(tree, r, t, [&](int k) {
+                        const Ray l = local_ray<kStaged>(rows + kRowF4 * k, r);
                         int slot = -1, mesh = -1;
                         float uu = 0.0f, vv = 0.0f;
                         if (!walk<true, false, false>(
                                 w.nodes, w.n_nodes, w.tris, w.n_blocks, l, t,
-                                slot, mesh, uu, vv, nullptr, roots[k]))
+                                slot, mesh, uu, vv, nullptr,
+                                set_load<kStaged>(roots + k)))
                             return false;
                         inst = k;
                         return true;
                     });
                 } else {
-                    for (int q = 0; q < n_words; ++q) words[q * kThreads] = 0u;
-                    descend(tree, r, t, [&](int k) {
-                        words[(k >> 5) * kThreads] |= 1u << (k & 31);
-                        return false;
-                    });
-                    // the candidates lowest id first, each walked bounded
-                    // by the current t; a nearer hit is written at once
-                    // (the record is K1's until then), so nothing of it
-                    // stays live across the next walk
-                    for (int q = 0; q < n_words; ++q) {
-                        unsigned m;
-                        while ((m = words[q * kThreads]) != 0u) {
-                            words[q * kThreads] = m & (m - 1u);
-                            const int k = 32 * q + __ffs(m) - 1;
-                            const Ray l = local_ray(rows + 3 * k, r);
-                            int slot = -1, mesh = -1;
-                            float uu = 0.0f, vv = 0.0f;
-                            walk<false, true, false>(
-                                w.nodes, w.n_nodes, w.tris, w.n_blocks, l, t,
-                                slot, mesh, uu, vv, nullptr, roots[k]);
-                            if (slot >= 0) {  // strictly nearer than the bound
-                                inst = k;
-                                w.t_out[i] = t;
-                                w.u_out[i] = uu;
-                                w.v_out[i] = vv;
-                                w.slot_out[i] = slot;
-                                w.mesh_out[i] = mesh;
+                    // the boxes are tested against the static pass's t, in
+                    // every window
+                    const float t_box = t;
+                    int low = 0;  // the window's lowest id
+                    do {
+                        int next = a.n_inst;  // the lowest id past it
+                        for (int q = 0; q < n_words; ++q)
+                            words[q * kThreads] = 0u;
+                        descend<kStaged, kStack>(tree, r, t_box, [&](int k) {
+                            const int off = kLarge ? k - low : k;
+                            if (kLarge && off >= kWindow) {
+                                next = min(next, k);
+                            } else if (!kLarge || off >= 0) {
+                                words[(off >> 5) * kThreads] |= 1u
+                                                                << (off & 31);
+                            }
+                            return false;
+                        });
+                        // the window's candidates lowest id first, each
+                        // walked bounded by the current t; a nearer hit is
+                        // written at once (the record is K1's until then),
+                        // so nothing of it stays live across the next walk
+                        for (int q = 0; q < n_words; ++q) {
+                            unsigned m;
+                            while ((m = words[q * kThreads]) != 0u) {
+                                words[q * kThreads] = m & (m - 1u);
+                                const int k = low + 32 * q + __ffs(m) - 1;
+                                const Ray l =
+                                    local_ray<kStaged>(rows + kRowF4 * k, r);
+                                int slot = -1, mesh = -1;
+                                float uu = 0.0f, vv = 0.0f;
+                                walk<false, true, false>(
+                                    w.nodes, w.n_nodes, w.tris, w.n_blocks, l,
+                                    t, slot, mesh, uu, vv, nullptr,
+                                    set_load<kStaged>(roots + k));
+                                if (slot >= 0) {  // strictly nearer
+                                    inst = k;
+                                    w.t_out[i] = t;
+                                    w.u_out[i] = uu;
+                                    w.v_out[i] = vv;
+                                    w.slot_out[i] = slot;
+                                    w.mesh_out[i] = mesh;
+                                }
                             }
                         }
-                    }
+                        low = next;
+                    } while (kLarge && low < a.n_inst);
                 }
             }
             if (kAny) {
@@ -680,55 +746,76 @@ __device__ __forceinline__ void instance_rays(const InstArgs& a) {
     }
 }
 
+template <bool kStaged, bool kLarge>
 __global__ void __launch_bounds__(kThreads, kK4Blocks)
 instances_closest_kernel(const __grid_constant__ InstArgs a) {
-    instance_rays<false>(a);
+    instance_rays<false, kStaged, kLarge>(a);
 }
 
+template <bool kStaged, bool kLarge>
 __global__ void __launch_bounds__(kThreads, kK4AnyBlocks)
 instances_any_kernel(const __grid_constant__ InstArgs a) {
-    instance_rays<true>(a);
+    instance_rays<true, kStaged, kLarge>(a);
 }
 
-size_t inst_shared_bytes(bool any, int n_inst, int tlas_nodes) {
-    const size_t words = any ? 0 : static_cast<size_t>((n_inst + 31) >> 5);
-    return sizeof(float4) * (2 * kTlasWidth * static_cast<size_t>(tlas_nodes) +
-                             3 * static_cast<size_t>(n_inst)) +
-           sizeof(int) * static_cast<size_t>(n_inst) +
-           sizeof(unsigned) * kThreads * words;
+// The K4 kernels, [any][path]: path 0 a set of at most kWindow instances
+// read from global memory, 1 the same staged, 2 a larger set (for any-hit,
+// every set not staged).
+const void* const kInstKernels[2][3] = {
+    {reinterpret_cast<const void*>(instances_closest_kernel<false, false>),
+     reinterpret_cast<const void*>(instances_closest_kernel<true, false>),
+     reinterpret_cast<const void*>(instances_closest_kernel<false, true>)},
+    {reinterpret_cast<const void*>(instances_any_kernel<false, true>),
+     reinterpret_cast<const void*>(instances_any_kernel<true, false>),
+     reinterpret_cast<const void*>(instances_any_kernel<false, true>)}};
+
+size_t inst_shared_bytes(bool any, bool staged, bool large, int n_inst,
+                         int tlas_nodes) {
+    const size_t n = static_cast<size_t>(n_inst);
+    const size_t words = any ? 0 : (large ? kWindow / 32 : (n + 31) >> 5);
+    const size_t set =
+        staged ? sizeof(float4) * (2 * kTlasWidth *
+                                       static_cast<size_t>(tlas_nodes) +
+                                   3 * n) +
+                     sizeof(int) * n
+               : 0;
+    return set + sizeof(unsigned) * kThreads * words;
 }
 
-// A K4 kernel, its shared bytes for this set, and above 48 KB the opt-in
-// the launch needs (asked once a kernel, device and size).
+// The K4 kernel for this set: staged where the set has at most kWindow ids
+// and the staged kernel keeps its launch bounds' blocks a SM (which takes
+// well under 48 KB, so no launch opts in to more), else one window or
+// windows by the set's size; and its shared bytes.
 cudaError_t inst_kernel(bool any, int n_inst, int tlas_nodes,
-                        const void** fn, size_t* smem) {
-    static size_t allowed[2][kMaxDevices];
-    *fn = any ? reinterpret_cast<const void*>(instances_any_kernel)
-              : reinterpret_cast<const void*>(instances_closest_kernel);
-    *smem = inst_shared_bytes(any, n_inst, tlas_nodes);
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-    if (*smem > (48u << 10) && *smem > allowed[any][dev]) {
-        e = cudaFuncSetAttribute(*fn,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(*smem));
+                        const void** fn, size_t* smem, bool* staged) {
+    const bool large = n_inst > kWindow;
+    *staged = false;
+    const size_t stage_bytes =
+        inst_shared_bytes(any, true, false, n_inst, tlas_nodes);
+    if (!large && stage_bytes <= (48u << 10)) {
+        int per_sm = 0;
+        const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kInstKernels[any][1], kThreads, stage_bytes);
         if (e != cudaSuccess) return e;
-        allowed[any][dev] = *smem;
+        *staged = per_sm >= (any ? kK4AnyBlocks : kK4Blocks);
     }
+    *fn = kInstKernels[any][large ? 2 : (*staged ? 1 : 0)];
+    *smem = inst_shared_bytes(any, *staged, large, n_inst, tlas_nodes);
     return cudaSuccess;
 }
 
 int launch_instances(bool any, const InstArgs& a, void* stream) {
+    if (a.n_inst > kMaxInstances || (a.tlas_nodes < 1 && a.n_inst > 0))
+        return static_cast<int>(cudaErrorInvalidValue);
     if (a.w.n <= 0 || a.n_inst <= 0)
         return static_cast<int>(cudaGetLastError());
-    if (a.tlas_nodes < 1) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const void* fn = nullptr;
     size_t smem = 0;
+    bool staged = false;
     int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = inst_kernel(any, a.n_inst, a.tlas_nodes, &fn, &smem);
+    cudaError_t e =
+        inst_kernel(any, a.n_inst, a.tlas_nodes, &fn, &smem, &staged);
     if (e == cudaSuccess) e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -741,11 +828,10 @@ int launch_instances(bool any, const InstArgs& a, void* stream) {
     if (per_sm < 1) per_sm = 1;
     const int need = (a.w.n + kThreads - 1) / kThreads;
     const int grid = sms * per_sm < need ? sms * per_sm : need;
-    if (any)
-        instances_any_kernel<<<grid, kThreads, smem, st>>>(a);
-    else
-        instances_closest_kernel<<<grid, kThreads, smem, st>>>(a);
-    return static_cast<int>(cudaGetLastError());
+    InstArgs args = a;
+    void* params[] = {&args};
+    return static_cast<int>(
+        cudaLaunchKernel(fn, dim3(grid), dim3(kThreads), params, smem, st));
 }
 
 InstArgs inst_args(const float* mats, const float* tlas, int tlas_nodes,
@@ -847,7 +933,6 @@ int ptrt_instances_closest(const float* nodes, int n_nodes, const float* tris,
                            const float* tlas, int tlas_nodes,
                            const int* roots, int n_inst, unsigned* next_ray,
                            void* stream) {
-    if (n_inst > kMaxInstances) return static_cast<int>(cudaErrorInvalidValue);
     InstArgs a = inst_args(mats, tlas, tlas_nodes, roots, n_inst);
     a.w = walk_args(nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy, dz,
                     nullptr, n, next_ray);
@@ -870,8 +955,7 @@ int ptrt_instances_any(const float* nodes, int n_nodes, const float* tris,
                        uint8_t* hit_io, const float* mats, const float* tlas,
                        int tlas_nodes, const int* roots, int n_inst,
                        unsigned* next_ray, void* stream) {
-    if (t_max == nullptr || n_inst > kMaxInstances)
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (t_max == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     InstArgs a = inst_args(mats, tlas, tlas_nodes, roots, n_inst);
     a.w = walk_args(nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy, dz,
                     t_max, n, next_ray);
@@ -879,17 +963,21 @@ int ptrt_instances_any(const float* nodes, int n_nodes, const float* tris,
     return launch_instances(true, a, stream);
 }
 
+// The most instances a set may hold: an id is the exact float -1 - k.
 int ptrt_max_instances() { return kMaxInstances; }
 
-// Registers, local-memory bytes a thread and resident blocks a SM (with a
-// set of ``n_inst`` instances and a tree of ``tlas_nodes`` nodes staged) of
-// K4: ``walk`` 0 closest, 1 any.
+// Registers, local-memory bytes a thread, resident blocks a SM and whether
+// the set is staged, for K4 (``walk`` 0 closest, 1 any) on a set of
+// ``n_inst`` instances with a tree of ``tlas_nodes`` nodes.
 int ptrt_instances_info(int walk, int n_inst, int tlas_nodes, int* regs,
-                        int* local_bytes, int* per_sm) {
-    if (walk < 0 || walk > 1) return static_cast<int>(cudaErrorInvalidValue);
+                        int* local_bytes, int* per_sm, int* staged) {
+    if (walk < 0 || walk > 1 || n_inst < 1 || n_inst > kMaxInstances)
+        return static_cast<int>(cudaErrorInvalidValue);
     const void* fn = nullptr;
     size_t smem = 0;
-    cudaError_t e = inst_kernel(walk == 1, n_inst, tlas_nodes, &fn, &smem);
+    bool is_staged = false;
+    cudaError_t e =
+        inst_kernel(walk == 1, n_inst, tlas_nodes, &fn, &smem, &is_staged);
     cudaFuncAttributes attr = {};
     if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
     if (e == cudaSuccess)
@@ -897,6 +985,7 @@ int ptrt_instances_info(int walk, int n_inst, int tlas_nodes, int* regs,
                                                           kThreads, smem);
     *regs = attr.numRegs;
     *local_bytes = static_cast<int>(attr.localSizeBytes);
+    *staged = is_staged ? 1 : 0;
     return static_cast<int>(e);
 }
 

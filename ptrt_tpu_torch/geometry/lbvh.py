@@ -1,4 +1,5 @@
-"""The Morton-sorted device refill of a dynamic mesh (K5 ``morton``).
+"""The Morton-sorted device refill of a dynamic mesh (K5 ``morton_sort`` and
+``morton_codes``).
 
 Counterpart of ``ptrt_tpu/geometry/lbvh.py``.  The host BVH build
 allocates leaf blocks depth first, so each subtree owns a contiguous run of
@@ -6,12 +7,17 @@ blocks; a refill that sorts the new triangles by the Morton code of their
 centroids and fills the fixed slots in that order keeps the leaf boxes
 tight under any re-shape of the same triangle count, with no host build:
 
-1. ``morton_codes``: each triangle's centroid (the middle of its box), the
-   centroids' bounds, and 30-bit Morton codes — on CUDA tensors one launch
-   of ``csrc/refit.cu``'s kernel, on CPU tensors ``morton_codes_plain``;
-2. ``torch.sort(codes, stable=True)``: the order (the reference sorts with
-   ``jax.lax.sort`` outside any kernel);
-3. ``refit.refit_apply`` with the slot map ``(rank, order)``: the k-th
+1. ``morton_order``: each triangle's centroid (the middle of its box), the
+   centroids' bounds, 30-bit Morton codes, and the triangles sorted by code
+   (stable: ties by index, as the reference's ``jax.lax.sort``).  On CUDA
+   tensors a mesh of up to the kernel's limit (``ptrt_morton_sort_max``,
+   16,384 triangles) takes one launch of ``csrc/refit.cu``'s
+   ``morton_sort``, which returns the order itself; a
+   larger one the grid-wide ``morton_codes`` kernel, then
+   ``torch.sort(codes, stable=True)`` (the reference sorts with
+   ``jax.lax.sort`` outside any kernel).  On CPU tensors the plain version,
+   ``morton_codes_plain`` and the same ``torch.sort``;
+2. ``refit.refit_apply`` with the slot map ``(rank, order)``: the k-th
    non-pad slot takes the k-th sorted triangle (``lbvh_slot_map``'s
    gather folds into the refit's slot pass), then the bottom-up boxes.
 
@@ -28,6 +34,7 @@ from ptrt_tpu_torch.geometry.refit import RefitPlan, refit_apply
 from ptrt_tpu_torch.geometry.scene_geom import SceneGeometry
 
 MBITS = 10  # bits an axis: 30-bit codes
+_CODE_BLOCKS = 1024  # the most blocks a morton_codes launch takes
 
 
 def _centroids(v0, v1, v2) -> torch.Tensor:
@@ -58,10 +65,18 @@ def morton_codes_plain(v0: torch.Tensor, v1: torch.Tensor,
     return code
 
 
-def morton_codes(v0: torch.Tensor, v1: torch.Tensor,
-                 v2: torch.Tensor) -> torch.Tensor:
-    """(T,) int32 Morton codes of the triangles' centroids quantized inside
-    the centroids' bounds; ``v0`` / ``v1`` / ``v2`` are (T, 3) float32."""
+def _stable_order(codes: torch.Tensor) -> torch.Tensor:
+    return torch.sort(codes, stable=True).indices.to(torch.int32)
+
+
+def morton_order_plain(v0: torch.Tensor, v1: torch.Tensor,
+                       v2: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``morton_order``: ``morton_codes_plain``, then a
+    stable sort."""
+    return _stable_order(morton_codes_plain(v0, v1, v2))
+
+
+def _check(v0, v1, v2) -> torch.device:
     dev = v0.device
     kernels.require_supported(dev)
     for name, v in (("v0", v0), ("v1", v1), ("v2", v2)):
@@ -69,22 +84,63 @@ def morton_codes(v0: torch.Tensor, v1: torch.Tensor,
         if v.shape != v0.shape or v.shape[1] != 3:
             raise ValueError(f"{name}: shape {tuple(v.shape)}, need (T, 3) "
                              "like v0")
+    return dev
+
+
+def morton_codes(v0: torch.Tensor, v1: torch.Tensor,
+                 v2: torch.Tensor) -> torch.Tensor:
+    """(T,) int32 Morton codes of the triangles' centroids quantized inside
+    the centroids' bounds; ``v0`` / ``v1`` / ``v2`` are (T, 3) float32."""
+    dev = _check(v0, v1, v2)
     if dev.type == "cpu":
         return morton_codes_plain(v0, v1, v2)
     codes = torch.empty(v0.shape[0], dtype=torch.int32, device=dev)
-    rc = kernels.get_lib().ptrt_morton(
+    scratch = torch.empty((_CODE_BLOCKS, 6), dtype=torch.float32,
+                          device=dev)
+    rc = kernels.get_lib().ptrt_morton_codes(
         v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), int(v0.shape[0]),
-        codes.data_ptr(), kernels.stream_ptr(dev))
-    kernels.launches["morton"] += 1
-    kernels.check(rc, "morton")
+        codes.data_ptr(), scratch.data_ptr(), _CODE_BLOCKS,
+        kernels.stream_ptr(dev))
+    kernels.launches["morton_codes"] += 1
+    kernels.check(rc, "morton_codes")
     return codes
+
+
+def morton_sort(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
+                with_codes: bool = False) -> tuple:
+    """(order, codes or None): ``morton_order`` and, with ``with_codes``,
+    ``morton_codes`` of a mesh of at most the kernel's limit (16,384
+    triangles) in one launch on CUDA tensors; the plain versions on CPU
+    tensors."""
+    dev = _check(v0, v1, v2)
+    if dev.type == "cpu":
+        codes = morton_codes_plain(v0, v1, v2)
+        return _stable_order(codes), codes if with_codes else None
+    lib = kernels.get_lib()
+    n = int(v0.shape[0])
+    if n > lib.ptrt_morton_sort_max():
+        raise ValueError(f"morton_sort: {n} triangles, the kernel sorts at "
+                         f"most {lib.ptrt_morton_sort_max()}")
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    codes = (torch.empty(n, dtype=torch.int32, device=dev) if with_codes
+             else None)
+    rc = lib.ptrt_morton_sort(
+        v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), n, order.data_ptr(),
+        0 if codes is None else codes.data_ptr(), kernels.stream_ptr(dev))
+    kernels.launches["morton_sort"] += 1
+    kernels.check(rc, "morton_sort")
+    return order, codes
 
 
 def morton_order(v0: torch.Tensor, v1: torch.Tensor,
                  v2: torch.Tensor) -> torch.Tensor:
     """(T,) int32: the triangles sorted by Morton code (ties by index)."""
-    codes = morton_codes(v0, v1, v2)
-    return torch.sort(codes, stable=True).indices.to(torch.int32)
+    dev = _check(v0, v1, v2)
+    if dev.type == "cpu":
+        return morton_order_plain(v0, v1, v2)
+    if v0.shape[0] <= kernels.get_lib().ptrt_morton_sort_max():
+        return morton_sort(v0, v1, v2)[0]
+    return _stable_order(morton_codes(v0, v1, v2))
 
 
 def lbvh_slot_map(plan: RefitPlan, order: torch.Tensor) -> torch.Tensor:

@@ -65,6 +65,8 @@ def get_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ptrt_tonemap_rgb8.restype = i
         lib.ptrt_tonemap_rgb8.argtypes = [p, p]
+        lib.ptrt_tonemap_info.restype = i
+        lib.ptrt_tonemap_info.argtypes = [i, p, p]
         lib.ptrt_row_gather.restype = i
         lib.ptrt_row_gather.argtypes = [p, i, i, i, p, ctypes.c_longlong, p,
                                         i, p]
@@ -89,8 +91,12 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_refit.restype = i
         lib.ptrt_refit.argtypes = ([p, p, p, i, p, p, p, i, p] + [p] * 9
                                    + [p, i, i, p, p, i, i, p, p])
-        lib.ptrt_morton.restype = i
-        lib.ptrt_morton.argtypes = [p, p, p, i, p, p]
+        lib.ptrt_morton_sort.restype = i
+        lib.ptrt_morton_sort.argtypes = [p, p, p, i, p, p, p]
+        lib.ptrt_morton_sort_max.restype = i
+        lib.ptrt_morton_sort_max.argtypes = []
+        lib.ptrt_morton_codes.restype = i
+        lib.ptrt_morton_codes.argtypes = [p, p, p, i, p, p, i, p]
         _lib = lib
     return _lib
 
@@ -123,7 +129,7 @@ def bind_walks(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptrt_instances_any.argtypes = ([p, i, p, i] + [p] * 7 + [i]
                                        + [p] * 3 + [i, p, i, p, p])
     lib.ptrt_instances_info.restype = i
-    lib.ptrt_instances_info.argtypes = [i, i, i, p, p, p]
+    lib.ptrt_instances_info.argtypes = [i, i, i, p, p, p, p]
     return lib
 
 

@@ -277,6 +277,20 @@ def tonemap_rgb8(hdr: Vec3, scale: float,
     return out
 
 
+def tonemap_info() -> dict:
+    """{"alone" | "with the bloom": registers, resident blocks a SM} of K6's
+    vector path (measurement only; needs the card)."""
+    lib = kernels.get_lib()
+    out = {}
+    for bloom, name in ((0, "alone"), (1, "with the bloom")):
+        regs, per_sm = ctypes.c_int(), ctypes.c_int()
+        kernels.check(lib.ptrt_tonemap_info(bloom, ctypes.byref(regs),
+                                            ctypes.byref(per_sm)),
+                      "tonemap_rgb8")
+        out[name] = {"registers": regs.value, "blocks_per_sm": per_sm.value}
+    return out
+
+
 def tonemap_rgb8_plain(hdr: Vec3, scale: float,
                        bloom: Vec3 | None = None) -> torch.Tensor:
     """Plain version of K6 (``pipeline.tonemap_to_rgb8``), after

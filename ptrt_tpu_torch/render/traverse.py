@@ -391,8 +391,9 @@ def _iset_args(iset: InstanceSet, lib) -> list:
     count, the roots, the instance count."""
     n_inst = iset.count
     if n_inst > lib.ptrt_max_instances():
-        raise ValueError(f"{n_inst} instances: K4 stages at most "
-                         f"{lib.ptrt_max_instances()}")
+        raise ValueError(f"{n_inst} instances: K4 takes at most "
+                         f"{lib.ptrt_max_instances()} (the instance tree "
+                         "holds instance k as the exact float -1 - k)")
     for name, t in (("iset.mats", iset.mats), ("iset.tlas", iset.tlas)):
         if t.data_ptr() % 16:  # read as float4
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -511,19 +512,21 @@ def instances_any_plain(iset: InstanceSet, o: Vec3, d: Vec3,
 
 def instances_info(iset: InstanceSet) -> dict:
     """{kernel: registers, local-memory bytes a thread, resident blocks a
-    SM} of K4 with ``iset``'s instances and tree staged (measurement only;
-    needs the card)."""
+    SM, whether the set is staged} of the K4 kernels that ``iset`` takes
+    (measurement only; needs the card)."""
     import ctypes
 
     lib = kernels.get_lib()
     out = {}
     for k, name in enumerate(("instances_closest", "instances_any")):
-        regs, local, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        regs, local, per_sm, staged = (ctypes.c_int() for _ in range(4))
         kernels.check(lib.ptrt_instances_info(
             k, iset.count, int(iset.tlas.shape[0]), ctypes.byref(regs),
-            ctypes.byref(local), ctypes.byref(per_sm)), name)
+            ctypes.byref(local), ctypes.byref(per_sm), ctypes.byref(staged)),
+            name)
         out[name] = {"registers": regs.value, "local_bytes": local.value,
-                     "blocks_per_sm": per_sm.value}
+                     "blocks_per_sm": per_sm.value,
+                     "staged": bool(staged.value)}
     return out
 
 

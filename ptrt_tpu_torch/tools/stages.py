@@ -4,11 +4,13 @@ by channel and bounce by bounce on the card, for this tree or another one.
 ``chip_smoke.py`` uses the helpers here (``atrous_taps``, ``shade_bytes``,
 ``walk_bound``, ``live_warps``, ``temporal_inputs``, ``time_temporal``, ``time_atrous``,
 ``time_bloom``, ``bloom_bound``, ``tonemap_bound``, ``clones_ms``,
-``kernel_ms``, ``kernel_resources``, ``frame_profile``).
+``kernel_ms``, ``kernel_resources``, ``frame_profile``, ``instance_world``,
+``set_rays``, ``time_instance_set``).
 Run as a script on a GPU, this file measures one tree's kernels:
 
     python3 ptrt_tpu_torch/tools/stages.py [--tree DIR] [--out DIR]
-                                           [--bloom | --dynamic]
+                                           [--bloom | --dynamic | --refill]
+                                           [--sets N,N,...]
 
 ``--tree DIR`` measures the checkout in ``DIR`` (a variant of this tree or
 a later commit unpacked with ``git archive``, say) in a process of its own
@@ -22,6 +24,14 @@ three wavefronts (queued times beside the bound, the boxes a live ray
 tests, a digest of the records, so that two trees' records compare bit for
 bit) and one profiled and three timed frames of the dynamic, balanced,
 bench and hdri balanced configurations (``measure_dynamic``).
+``--refill`` measures only the Morton refill of a dynamic mesh at 1,001,
+8,192, 130,050 and 1,045,506 triangles: its launches and device time, the
+codes kernel, the one-launch sort where the tree has it, the library's
+sort, and digests of the order and the tables (``measure_refill``);
+``--refill --dynamic`` runs both in one process.  ``--sets 320,512``
+measures only K4 on hand-made sets of those instance counts
+(``measure_sets``: 1M rays, queued times beside the bound, the kernel the
+set takes, a digest of the records).
 
 On the 1920x1080 bench scene (~1M triangles) it prints:
 
@@ -96,6 +106,7 @@ TONEMAP_PIXELS = 4  # K6's pixels a thread (csrc/tonemap.cu)
 TEMPORAL_OPS_PIXEL = 144 + 36 + 7 + 34 + 23 + 2 + 22 + 1
 SHADE_NEE_OPS_LANE = 22  # the hit record's normal, facing test and point
 SPIN_CYCLES = 20_000_000  # ~11 ms: the host enqueues ten calls meanwhile
+SET_RAYS = 1 << 20  # rays K4 is timed on at a hand-made instance set
 # warp instructions the card issues a second: 132 SMs x 4 schedulers at the
 # H100 SXM's 1.755 GHz boost clock (the issue floor of a kernel's warps)
 WARP_ISSUE_PER_S = 132 * 4 * 1.755e9
@@ -171,10 +182,11 @@ def refit_bound(plan, n_tris: int, morton_refill: bool) -> dict:
     return bound(36 * n_tris + slot_map + 20 * n + 72 * m + 192 * n)
 
 
-def morton_bound(n_tris: int) -> dict:
-    """The bound of K5's Morton codes: the vertices read (36 bytes a
-    triangle), the codes written (4)."""
-    return bound(40 * n_tris)
+def morton_bound(n_tris: int, codes: bool = True,
+                 order: bool = False) -> dict:
+    """The bound of K5's Morton kernels: the vertices read (36 bytes a
+    triangle), the codes and / or the order written (4 bytes each)."""
+    return bound((36 + 4 * codes + 4 * order) * n_tris)
 
 
 # the env sample's record a NEE lane: origin, direction, pdf and MIS
@@ -342,10 +354,12 @@ def tonemap_bound(h: int, w: int, bloom: bool, instructions=None) -> dict:
     return out
 
 
-def profiled_kernels(fn, calls: int = 1) -> list:
+def profiled_kernels(fn, calls: int = 1, lead_cycles: int = 0) -> list:
     """The device kernels torch.profiler records over ``calls`` calls of
     ``fn()`` (no warm-up; memory copies and sets left out), in launch
-    order: [(name, device us)]."""
+    order: [(name, device us)].  With ``lead_cycles`` the card first spins
+    that long inside the profiled window (the spin left out of the list):
+    kernels launched right after the profiler starts may go unrecorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -353,14 +367,30 @@ def profiled_kernels(fn, calls: int = 1) -> list:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if lead_cycles:
+            torch.cuda._sleep(lead_cycles)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     kern = [e for e in prof.events()
             if getattr(e, "device_type", None) == DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset"))]
+            and not e.name.startswith(("Memcpy", "Memset"))
+            and not (lead_cycles and "spin_kernel" in e.name)]
     return [(e.name, e.time_range.elapsed_us())
             for e in sorted(kern, key=lambda e: e.time_range.start)]
+
+
+def refill_profile(refill, calls: int = 3) -> dict:
+    """Kernel launches and device ms of one call of ``refill`` (a Morton
+    refill), from ``calls`` calls profiled behind a lead spin; the
+    launches are None where the profiler's count is no multiple of
+    ``calls`` (it missed some)."""
+    prof = profiled_kernels(refill, calls, SPIN_CYCLES // 20)
+    whole = len(prof) % calls == 0
+    return {"launches": len(prof) // calls if whole else None,
+            "device_ms": (sum(us for _, us in prof) / 1e3 / calls
+                          if whole else None),
+            "kernels": [name[:40] for name, _ in prof[:len(prof) // calls]]}
 
 
 def kernel_ms(fn, states, kernel):
@@ -1018,6 +1048,126 @@ def records_digest(planes) -> str:
     return h.hexdigest()
 
 
+def instance_world(n: int, seed: int, dev, tie: bool = False):
+    """A floor and ``n`` dynamic cubes at seeded transforms over a 24 x 24
+    field, every third one hidden (scale 1e-6 at y = -100, as the dynamic
+    scene's empty slots); with ``tie`` the first two are identical (the
+    same mesh at the same transform: instances 0 and 1)."""
+    import numpy as np
+    from ptrt_tpu_torch.geometry.mesh import Mesh
+    from ptrt_tpu_torch.geometry.scene_geom import assemble_world
+
+    rng = np.random.default_rng(seed)
+    meshes = [Mesh.plane_xz(-1.0, 40.0)]
+    for k in range(n):
+        m = Mesh.cube()
+        pos = rng.uniform([-12.0, -0.5, 4.0], [12.0, 3.0, 28.0])
+        rot = rng.uniform(0.0, 3.0, 3)
+        scale = rng.uniform(0.3, 1.2, 3)
+        if tie and k == 1:
+            pos, rot, scale = first
+        first = (pos, rot, scale) if k == 0 else first
+        m.transform.set_position(*pos).set_rotation(*rot).set_scale(*scale)
+        if k % 3 == 2 and not tie:
+            m.transform.set_position(pos[0], -100.0, pos[2]).set_scale(1e-6)
+        m.is_dynamic = True
+        meshes.append(m)
+    return assemble_world(meshes, None, dev)
+
+
+def set_rays(iset, rng, r: int):
+    """``r`` seeded rays at an instance set over instance_world's field:
+    three in four at an instance's centre (inside its cube whatever its
+    rotation), the rest anywhere over the field; (origins, directions, the
+    points aimed at)."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch.core.vec import Vec3
+
+    org = rng.normal([0.0, 2.0, -6.0], 0.5, (r, 3))
+    centre = 0.5 * (iset.bb_min + iset.bb_max).cpu().numpy()
+    shown = np.flatnonzero(centre[:, 1] > -50.0)
+    aim = centre[rng.choice(shown, r)] + rng.uniform(-0.05, 0.05, (r, 3))
+    field = rng.uniform([-12.0, -1.0, 4.0], [12.0, 3.5, 28.0], (r, 3))
+    aim = np.where((rng.uniform(size=r) < 0.25)[:, None], field, aim)
+    dirs = aim - org
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    dev = iset.bb_min.device
+    vec = lambda a: Vec3(*[torch.tensor(a[:, j], dtype=torch.float32,
+                                        device=dev) for j in range(3)])
+    return vec(org), vec(dirs), aim - org
+
+
+def time_instance_set(g, rng, rays: int) -> dict:
+    """K4 on ``rays`` of ``set_rays``' rays at ``instance_world`` ``g``'s
+    set after its static passes (K1; K2 on shadow rays ending before or
+    beyond the point aimed at): closest and any queued behind a spin twice,
+    each beside its bound, the kernels' resources and whether the set is
+    staged (``traverse.instances_info``), and the records (closest's planes
+    and instance, any's plane)."""
+    import numpy as np
+    import torch
+
+    from ptrt_tpu_torch.render import traverse
+
+    iset = g.iset
+    o, d, aim = set_rays(iset, rng, rays)
+    t = torch.full((rays,), traverse.T_MAX, device=iset.bb_min.device)
+    t_s = torch.tensor(np.linalg.norm(aim, axis=1)
+                       * rng.uniform(0.5, 1.5, rays), dtype=torch.float32,
+                       device=iset.bb_min.device)
+    rec = traverse.closest_hit(g.static, o, d, t)
+    h0 = traverse.any_hit(g.static, o, d, t_s)
+    copy = lambda x: traverse.Closest(*[p.clone() for p in x])
+    res = traverse.instances_closest(iset, o, d, copy(rec))
+    hit = traverse.instances_any(iset, o, d, t_s, h0.clone())
+    return {
+        "closest_ms": [clones_ms(
+            lambda x: traverse.instances_closest(iset, o, d, x),
+            [copy(rec) for _ in range(11)], SPIN_CYCLES) for _ in range(2)],
+        "any_ms": [clones_ms(
+            lambda x: traverse.instances_any(iset, o, d, t_s, x),
+            [h0.clone() for _ in range(11)], SPIN_CYCLES) for _ in range(2)],
+        "bound_ms": {
+            "closest": instances_bound(iset, rays, int((rec.t > 0).sum()),
+                                       False)["bound_ms"],
+            "any": instances_bound(iset, rays,
+                                   int((~h0 & (t_s > 0)).sum()),
+                                   True)["bound_ms"]},
+        "info": traverse.instances_info(iset),
+        "records": [*res, res.inst, hit]}
+
+
+def measure_sets(tag: str, card: str, sizes) -> dict:
+    """K4 on ``instance_world``'s sets of each of ``sizes`` instances
+    (``time_instance_set`` on SET_RAYS rays), with a digest of the records,
+    so that two trees' records compare bit for bit."""
+    import numpy as np
+    import torch
+
+    log = lambda *a: say(f"[{tag}]", *a)
+    out = {"tag": tag, "card": card, "sets": {}}
+    for n in sizes:
+        g = instance_world(n, 40 + n, "cuda")
+        r = time_instance_set(g, np.random.default_rng(50 + n), SET_RAYS)
+        r["digest"] = records_digest(r.pop("records"))
+        out["sets"][n] = r
+        staged = r["info"]["instances_closest"]["staged"]
+        log(f"K4 on {n} instances ({'staged' if staged else 'from global memory'}), "
+            f"{SET_RAYS} rays: closest queued "
+            f"{' / '.join(f'{x:.4f}' for x in r['closest_ms'])} ms (bound "
+            f"{r['bound_ms']['closest']:.4f}), any "
+            f"{' / '.join(f'{x:.4f}' for x in r['any_ms'])} ms (bound "
+            f"{r['bound_ms']['any']:.4f}); "
+            + ", ".join(f"{k} {v['registers']} registers, "
+                        f"{v['blocks_per_sm']} blocks a SM"
+                        for k, v in r["info"].items())
+            + f"; records sha256 {r['digest'][:16]} [{card}]")
+        del g
+        torch.cuda.empty_cache()
+    return out
+
+
 def measure_dynamic(tag: str, card: str) -> dict:
     """K4 on the 1080p "dynamic" configuration's camera, bounce-1 and
     shadow wavefronts (each call on a fresh copy of its static pass's
@@ -1102,6 +1252,116 @@ def measure_dynamic(tag: str, card: str) -> dict:
     return out
 
 
+def grid_triangles(height) -> "np.ndarray":
+    """(R, C) heights on a unit-spaced grid -> (2 (R-1)(C-1), 3, 3)
+    triangles in ``bench_scene.heightfield_to_triangles``' layout (a
+    rectangular grid too)."""
+    import numpy as np
+
+    r, c = height.shape
+    px = np.broadcast_to(np.arange(c, dtype=np.float32)[None, :], (r, c))
+    pz = np.broadcast_to(np.arange(r, dtype=np.float32)[:, None], (r, c))
+    p = np.stack([px, height.astype(np.float32), pz], axis=-1)
+    a, b, cc, d = p[:-1, :-1], p[:-1, 1:], p[1:, 1:], p[1:, :-1]
+    t1 = np.stack([a, cc, b], axis=-2)
+    t2 = np.stack([a, d, cc], axis=-2)
+    return np.concatenate([t1.reshape(-1, 3, 3), t2.reshape(-1, 3, 3)])
+
+
+def refill_meshes(seed: int = 7) -> list:
+    """The Morton refill's shapes, seeded: (label, the triangles the tree is
+    built from, the triangles of the refill), each (T, 3, 3) float32: a
+    1,001-triangle soup, the dynamic scene's 8,192-triangle sphere with its
+    vertices displaced, a 256 x 256 heightfield (130,050 triangles) and a
+    1024 x 512 one (1,045,506), each refilled with moved vertices."""
+    import numpy as np
+
+    from ptrt_tpu_torch.geometry.mesh import Mesh
+
+    rng = np.random.default_rng(seed)
+    soup = (rng.uniform(-3, 3, (1001, 1, 3))
+            + rng.uniform(-0.2, 0.2, (1001, 3, 3))).astype(np.float32)
+    sphere = Mesh.sphere(64)
+    k = rng.uniform(3.0, 7.0, (3, 3)).astype(np.float32)
+    bump = 1.0 + 0.08 * np.sin(sphere.vertices @ k + 0.4).sum(axis=1) / 3.0
+    blob = (sphere.vertices * bump[:, None]).astype(np.float32)
+
+    def waves(rows, cols, t):
+        z, x = np.mgrid[0:rows, 0:cols].astype(np.float32)
+        return 0.3 * np.sin(0.11 * x + 0.07 * z + t) + 0.2 * np.sin(
+            0.05 * x - 0.13 * z + 2.0 * t)
+
+    out = [("soup", soup, soup * np.float32(1.1) + np.float32(0.05)),
+           ("sphere", sphere.vertices[sphere.faces].astype(np.float32),
+            blob[sphere.faces])]
+    for rows, cols in ((256, 256), (512, 1024)):
+        out.append((f"heightfield {cols}x{rows}",
+                    grid_triangles(waves(rows, cols, 0.0)),
+                    grid_triangles(waves(rows, cols, 0.7))))
+    return out
+
+
+def measure_refill(tag: str, card: str) -> dict:
+    """The Morton refill (``lbvh.lbvh_update``: the order, then the refit)
+    of each of ``refill_meshes``: one profiled refill (its kernel launches
+    and their device time), the refill queued behind a spin twice, the
+    codes kernel (``lbvh.morton_codes``) and, where the tree has it, the
+    one-launch ``lbvh.morton_sort``, queued, and ``torch.sort(codes,
+    stable=True)`` (the library's sort) likewise; digests of the order and
+    of the tables after the refill, so that two trees compare bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    from ptrt_tpu_torch.geometry import lbvh, refit
+    from ptrt_tpu_torch.geometry.mesh import Mesh
+    from ptrt_tpu_torch.geometry.scene_geom import assemble_geometry
+
+    log = lambda *a: say(f"[{tag}]", *a)
+    out = {"tag": tag, "card": card, "refill": {}}
+    queued = lambda fn: [clones_ms(lambda _: fn(), [None] * 21, SPIN_CYCLES)
+                         for _ in range(2)]
+    for label, tris0, tris1 in refill_meshes():
+        g = assemble_geometry([Mesh.from_triangles(tris0)], None, "cuda",
+                              world=False)
+        plan = refit.build_refit_plan(g)
+        v = torch.from_numpy(np.ascontiguousarray(
+            np.stack([tris1[:, j] for j in range(3)]))).to("cuda")
+        v0, v1, v2 = v[0], v[1], v[2]
+        refill = lambda: lbvh.lbvh_update(g, plan, v0, v1, v2)
+        refill()
+        order = lbvh.morton_order(v0, v1, v2)
+        codes = lbvh.morton_codes(v0, v1, v2)
+        r = {"tris": int(v0.shape[0]),
+             "distinct_codes": int(codes.unique().numel()),
+             **refill_profile(refill),
+             "queued_ms": queued(refill),
+             "codes_ms": queued(lambda: lbvh.morton_codes(v0, v1, v2)),
+             "torch_sort_ms": queued(lambda: torch.sort(codes, stable=True)),
+             "order_digest": records_digest([order]),
+             "tables_digest": records_digest([g.node_rows, g.tri_rows])}
+        sort = getattr(lbvh, "morton_sort", None)
+        if sort is not None and r["tris"] <= (
+                kernels.get_lib().ptrt_morton_sort_max()):
+            r["morton_sort_ms"] = queued(lambda: sort(v0, v1, v2))
+        out["refill"][label] = r
+        log(f"refill {label} ({r['tris']} triangles, {r['distinct_codes']} "
+            f"distinct codes): {r['launches']} launches, device "
+            f"{r['device_ms']} ms, queued "
+            f"{' / '.join(f'{x:.4f}' for x in r['queued_ms'])} ms; codes "
+            f"kernel {' / '.join(f'{x:.4f}' for x in r['codes_ms'])}"
+            + (f", morton_sort "
+               f"{' / '.join(f'{x:.4f}' for x in r['morton_sort_ms'])}"
+               if "morton_sort_ms" in r else "")
+            + f", torch.sort "
+            f"{' / '.join(f'{x:.4f}' for x in r['torch_sort_ms'])} ms; "
+            f"order sha256 {r['order_digest'][:16]}, tables sha256 "
+            f"{r['tables_digest'][:16]}; kernels {r['kernels']} [{card}]")
+        del g, plan, v, v0, v1, v2, order, codes
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", help="measure the checkout in this directory")
@@ -1111,6 +1371,10 @@ def main(argv) -> int:
     ap.add_argument("--dynamic", action="store_true",
                     help="measure only K4 and the four configurations' "
                     "frames")
+    ap.add_argument("--refill", action="store_true",
+                    help="measure only the Morton refill (K5)")
+    ap.add_argument("--sets", help="measure only K4 on hand-made sets of "
+                    "these instance counts (comma-separated)")
     args = ap.parse_args(argv)
     say.out = args.out and os.path.abspath(args.out)
     here = os.path.abspath(__file__)
@@ -1119,7 +1383,9 @@ def main(argv) -> int:
         tree = os.path.abspath(args.tree)
         proc = subprocess.Popen(
             [sys.executable, here] + ["--bloom"] * args.bloom
-            + ["--dynamic"] * args.dynamic, cwd=tree,
+            + ["--dynamic"] * args.dynamic + ["--refill"] * args.refill
+            + (["--sets", args.sets] if args.sets else []),
+            cwd=tree,
             stdout=subprocess.PIPE, text=True,
             env={**os.environ, "PYTHONPATH": tree})
         for line in proc.stdout:  # the log is kept here
@@ -1139,8 +1405,15 @@ def main(argv) -> int:
     say(card)
     tag = os.path.basename(os.path.dirname(os.path.dirname(
         os.path.abspath(ptrt_tpu_torch.__file__))))
-    say(json.dumps(measure_dynamic(tag, card) if args.dynamic
-                   else measure(tag, card, args.bloom)))
+    if args.refill:
+        say(json.dumps(measure_refill(tag, card)))
+    if args.dynamic:
+        say(json.dumps(measure_dynamic(tag, card)))
+    if args.sets:
+        say(json.dumps(measure_sets(tag, card, [
+            int(n) for n in args.sets.split(",")])))
+    if not (args.refill or args.dynamic or args.sets):
+        say(json.dumps(measure(tag, card, args.bloom)))
     return 0
 
 

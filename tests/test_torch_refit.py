@@ -9,10 +9,12 @@ triangle rows, the v0 / e1 / e2 mirrors) equal, standalone and for an
 instance at nonzero offsets inside a merged set.  Equality is by value
 (``np.array_equal``): a box bound of +0 and one of -0 are the same bound,
 and the min/max of the two packages may pick either.  Morton codes are
-equal bit for bit; ``lbvh_update``'s tables where every code is distinct
-(``jax.lax.sort`` promises no order for ties), and after a full re-shape the
-port's tree walked ray by ray (``walk_counts_plain``, the kernel's walk)
-gives the brute-force answers.
+equal bit for bit; the order is the reference's ``morton_order`` (its
+``jax.lax.sort`` keeps tied codes in index order) on a mesh whose codes tie
+many times over, and ``lbvh_update``'s tables equal the reference's there
+as where every code is distinct; after a full re-shape the port's tree
+walked ray by ray (``walk_counts_plain``, the kernel's walk) gives the
+brute-force answers.
 """
 
 import numpy as np
@@ -220,3 +222,56 @@ def test_lbvh_update_traces_like_brute_force():
         traverse.walk_counts_plain(pg, vec(o), vec(d), t_s, "any").answer,
         traverse.any_hit_plain(pg, vec(o), vec(d), t_s))
 
+
+
+def _tied_soup(rng, n_distinct: int, copies: int) -> np.ndarray:
+    """``n_distinct`` soup triangles each repeated ``copies`` times in a
+    seeded order: every code tied ``copies`` times at least."""
+    base = _soup(rng, n_distinct)
+    return base[rng.permutation(np.arange(n_distinct * copies)
+                                % n_distinct)]
+
+
+def test_morton_order_matches_reference_with_tied_codes():
+    """The plain order (the kernel's oracle) is the reference's stable order
+    where codes tie: duplicated triangles, and a heightfield whose two
+    triangles a cell share their centroid's x and z."""
+    rng = np.random.default_rng(31)
+    soup = _tied_soup(rng, 150, 4)
+    z, x = np.mgrid[0:12, 0:17].astype(np.float32)
+    h = np.stack([x, 0.05 * np.sin(x + z), z], axis=-1)
+    a, b, c, d = h[:-1, :-1], h[:-1, 1:], h[1:, 1:], h[1:, :-1]
+    field = np.concatenate([np.stack([a, c, b], -2).reshape(-1, 3, 3),
+                            np.stack([a, d, c], -2).reshape(-1, 3, 3)])
+    for tris in (soup, field.astype(np.float32)):
+        cols = [torch.from_numpy(np.ascontiguousarray(tris[:, j]))
+                for j in range(3)]
+        order, codes = lbvh.morton_sort(*cols, with_codes=True)
+        assert codes.unique().numel() < 0.6 * tris.shape[0]  # many ties
+        want = np.asarray(ref_lbvh.morton_order(
+            *(jnp.asarray(tris[:, j]) for j in range(3))))
+        assert order.dtype == torch.int32
+        assert np.array_equal(order.numpy(), want)
+        assert torch.equal(lbvh.morton_order(*cols), order)
+        assert torch.equal(codes, lbvh.morton_codes(*cols))
+
+
+def test_lbvh_update_matches_reference_with_tied_codes():
+    """The Morton refill of a mesh whose codes tie (each triangle four
+    times) writes the reference's tables: the tied triangles fill their
+    slots in index order in both."""
+    rng = np.random.default_rng(37)
+    tris0 = _soup(rng, 240)
+    rg = ref_sg.assemble_geometry([RefMesh.from_triangles(tris0)],
+                                  world=False)
+    pg = scene_geom.assemble_geometry([Mesh.from_triangles(tris0)], None,
+                                      CPU, world=False)
+    rplan, pplan = ref_refit.build_refit_plan(rg), refit.build_refit_plan(pg)
+    tris1 = _tied_soup(rng, 60, 4)
+    cols = [torch.from_numpy(np.ascontiguousarray(tris1[:, j]))
+            for j in range(3)]
+    assert lbvh.morton_codes(*cols).unique().numel() <= 60
+    rg2 = ref_lbvh.lbvh_update(rg, rplan, *(jnp.asarray(tris1[:, j])
+                                            for j in range(3)))
+    lbvh.lbvh_update(pg, pplan, *cols)
+    _assert_tables(rg2, pg)

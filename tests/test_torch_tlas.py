@@ -3,15 +3,17 @@ flat box test it replaces and the JAX reference's.
 
 K4 finds a ray's candidate instances by descending the tree; the answer
 must be exactly the instances whose world box the flat test passes.  Here,
-on hand-made instance sets of 1, 8, 9, 194 and 512 boxes (a third of the
-larger ones collapsed to 1e-6 at y = -100, as the dynamic scene's hidden
-slots):
+on hand-made instance sets of 1, 8, 9, 194, 512 and 2,048 boxes (a third
+of the larger ones collapsed to 1e-6 at y = -100, as the dynamic scene's
+hidden slots):
 
 * the tree's structure (also at the sizes where a level just fills or
-  just overflows): every instance in exactly one leaf, its box there
+  just overflows, and past the 512 instances of one closest window at
+  513, 2,048 and 8,192): every instance in exactly one leaf, its box there
   verbatim, every inner box the min / max of its children bit for bit,
   every node but the root the child of exactly one node, and a depth the
-  kernel's descent stack holds;
+  kernel's descent stack for that size holds, up to the 2^24 instances
+  the tree's float ids encode;
 * the candidate set of the plain descent (``tlas_candidates``, which
   tests the boxes the kernel tests, in the kernel's arithmetic) equal to
   the flat ``traverse.slab`` test bit for bit, on seeded rays with
@@ -49,9 +51,11 @@ from test_torch_shading import torch_one_thread  # noqa: F401
 from test_torch_tables import ref_np
 
 CPU = torch.device("cpu")
-SIZES = (1, 8, 9, 194, 512)
-# the tree's levels fill (4, 16) or overflow by one (5, 17) at these too
-TREE_SIZES = (1, 2, 4, 5, 8, 9, 16, 17, 194, 512)
+SIZES = (1, 8, 9, 194, 512, 2048)
+# the tree's levels fill (4, 16) or overflow by one (5, 17) at these too,
+# and 513 on is past one closest window (the kernel's deep stack)
+TREE_SIZES = (1, 2, 4, 5, 8, 9, 16, 17, 194, 512, 513, 2048, 8192)
+RAYS_LARGE = 384  # rays a set past 512 instances is tested with
 SOURCE = Path(__file__).resolve().parents[1] / "ptrt_tpu_torch/csrc/traverse.cu"
 
 
@@ -169,7 +173,7 @@ def test_tree_structure(n):
     for node in range(first_leaf):
         kids = ref[node][valid[node]]
         assert np.array_equal(kids, np.arange(kids[0], kids[0] + kids.size))
-    assert tlas.tlas_stack_bound(n) <= _kernel_constant("kTlasStack")
+    assert tlas.tlas_stack_bound(n) <= _kernel_stack(n)
 
 
 def _kernel_constant(name: str) -> int:
@@ -177,14 +181,37 @@ def _kernel_constant(name: str) -> int:
     return int(m.group(1))
 
 
+def _kernel_stack(n: int) -> int:
+    """The shallowest descent stack the kernel may give a set of ``n``
+    instances: up to one closest window (``kWindow`` ids) the shallow one,
+    past it the deep one."""
+    name = "kTlasStack" if n <= _kernel_constant("kWindow") else \
+        "kTlasStackDeep"
+    return _kernel_constant(name)
+
+
 def test_kernel_limits_hold_every_tree():
     """The kernel reads nodes as wide as ``build_tlas`` makes them, and its
-    descent stack holds every tree it may be given (at most
-    ``kMaxInstances`` instances)."""
+    descent stacks hold every tree it may be given: the shallow one every
+    set of up to ``kWindow`` instances, the deep one every set up to
+    ``kMaxInstances``, the 2^24 ids the tree's exact float ``-1 - k``
+    encodes (the bound grows with the set, so the largest set is the
+    deepest; 34 entries).  The wrapper's cap is the tables' float-index
+    cap."""
     most = _kernel_constant("kMaxInstances")
+    window = _kernel_constant("kWindow")
+    assert most == scene_geom.MAX_TABLE_INDEX == 1 << 24
+    exact = lambda k: int(np.float32(-1 - k)) == -1 - k  # instance k's ref
+    assert exact(most - 1) and not exact(most)
     assert _kernel_constant("kTlasWidth") == tlas.TLAS_WIDTH
-    assert max(tlas.tlas_stack_bound(n) for n in range(1, most + 1)
+    assert max(tlas.tlas_stack_bound(n) for n in range(1, window + 1)
                ) <= _kernel_constant("kTlasStack")
+    sizes = [window + 1, 2048, 8192, 1 << 20, most - 1, most]
+    bounds = [tlas.tlas_stack_bound(n) for n in sizes]
+    assert bounds == sorted(bounds) and bounds[2] == 19
+    assert bounds[-1] == _kernel_constant("kTlasStackDeep") == 34
+    assert all(tlas.tlas_stack_bound(n) <= _kernel_stack(n)
+               for n in range(window + 1, 20000, 97))
 
 
 def _ref_words(lo, hi, o, d, t):
@@ -208,7 +235,8 @@ def _ref_words(lo, hi, o, d, t):
 @pytest.mark.parametrize("n", SIZES)
 def test_candidates_equal_flat_test_and_reference(n):
     lo, hi = _boxes(n, seed=100 + n)
-    o_np, d_np, t_np = _rays(lo, hi, seed=200 + n)
+    o_np, d_np, t_np = _rays(lo, hi, seed=200 + n,
+                             n=1024 if n <= 512 else RAYS_LARGE)
     o, d = _vec(o_np), _vec(d_np)
     inv = traverse.safe_inv(d)
     t = _bound_at_entry(lo, hi, o, inv, torch.from_numpy(t_np), 300 + n)
