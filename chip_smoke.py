@@ -123,7 +123,29 @@ Phases (any failure raises, so the exit code is non-zero):
      torch.sort at every size, each timed; one warm-up and five
      timed dynamic frames (the counters: no host BVH build, 192 transform
      updates, 2 refits, 1 LBVH build a frame; the launches) and a profiled
-     one; a 64x48 dynamic frame on the GPU and on the CPU.
+     one; a 64x48 dynamic frame on the GPU and on the CPU;
+ 11. the one-bounce RT backend on the "rt" scene (app/bench_scene.py
+     build_rt_bench_scene: the bench scene's 1,007,574 triangles, 17
+     materials, its four lights and gradient sky in an RTScene at
+     1920x1080): a warm-up and three timed frames with their launches
+     (K1, K2, rt_light_rays and rt_shade twice a frame, rt_glass_rays and
+     rt_resolve once), the host time of a call and one profiled frame;
+     each K10 kernel (csrc/rt_shade.cu) against its plain version on the
+     frame's own K1 / K2 records: hit and front flags, the shadow rays'
+     t_max on missed lanes, the glass rays' t_max and seeds exact, the
+     rest within the RT_* tiers, K2 on the plain stage's shadow rays equal
+     to the frame's occlusion bits where the rays are the same, RGB8
+     within 1 LSB; the frame against the frame the plain stages build from
+     the same walk records (within 1 LSB on RT_FRAME_AGREE of the pixels,
+     the rest counted by cause); each kernel timed queued beside its bound
+     and its plain version, with its registers and blocks a SM; a 256x144
+     RTScene of the same scene on the GPU and on the CPU;
+ 12. the PT Scene API: render_wireframe at 1920x1080 (a 98-triangle scene
+     GPU vs CPU within 1 LSB, the 1M-triangle bench scene's timed),
+     trace_single_ray GPU vs CPU, warmup() (the next balanced frames
+     bit-identical to an unwarmed scene's) and a checkpoint after 3
+     balanced frames (the 4th frame bit-identical after a load into a
+     fresh scene).
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
@@ -210,6 +232,35 @@ DYN_FRAMES = 5  # the dynamic frame's timed frames
 # kernels a frame without dynamic meshes never launches
 STATIC_NEVER = ("instances_closest", "instances_any", "refit", "morton_sort",
                 "morton_codes")
+# the "rt" scene (build_rt_bench_scene at W x H, TRIS): its triangles, its
+# timed frames, the triangle target of its 256x144 GPU-vs-CPU frame; K10 against its plain version on the card, (rtol, least share
+# of lanes): values (points, shadow rays, glass origins), directions, colours
+# (test_torch_shading.py's tiers: a roughness-0.02 GGX peak turns an ulp of
+# its terms into large relative errors); the frame against the plain
+# stages' frame: least share of pixels within 1 LSB
+RT_TRIS, RT_FRAMES, RT_SMALL_TRIS = 1_007_574, 3, 2_000
+RT_VALUE = ((1e-5, 0.995), (1e-3, 1.0))
+RT_DIRECTION = ((1e-5, 1.0),)
+RT_COLOR = ((1e-5, 0.85), (1e-3, 0.995), (0.5, 1.0))
+RT_FRAME_AGREE = 0.99
+# float operations of the K10 kernels, a floor estimated from
+# csrc/rt_shade.cu as OPS_PER_ITEM's: a hit lane's record (normal, facing
+# test, point, shadow origin), each light's shadow ray, rt_shade's terms
+# before its light loop and each lit light's lobe, a glass lane's two rays
+# (the hash, the reflection, the refraction and two perturbations), a
+# pixel's tonemap and a glass pixel's glass terms
+# what each K10 kernel replaces: the JAX package's fused XLA RT frame
+RT_REPLACES = {
+    "rt_light_rays": "ptrt_tpu/render/rt_shading.py:163",
+    "rt_shade": "ptrt_tpu/render/rt_shading.py:111",
+    "rt_glass_rays": "ptrt_tpu/render/rt_shading.py:261",
+    "rt_resolve": "ptrt_tpu/scene/rt_scene.py:207",
+}
+# the Scene API phase: the bench scene's triangle target, rays traced one by
+# one on the GPU and on the CPU
+API_TRIS, API_RAYS = 20_000, 8
+RT_OPS = {"hit": 40, "light_ray": 14, "shade": 80, "shade_light": 125,
+          "glass_rays": 150, "resolve": 18, "glass_add": 40}
 
 
 def bound(nbytes: float, ops: float = 0.0) -> dict:
@@ -1973,6 +2024,460 @@ def check_many_instances(dev, card) -> dict:
             "launches": launches}
 
 
+# -- 11. the one-bounce RT backend: K10 on the "rt" scene -----------------------
+
+
+def rt_vec_tiers(what, got, want, lanes, stats, tiers=None) -> None:
+    """A K10 output held to its plain version on ``lanes``: RT_VALUE's tiers
+    (or ``tiers``), the largest error kept in ``stats``."""
+    hold(what, got, want, lanes, tiers or RT_VALUE, stats)
+
+
+def rt_bits(what, got, want, lanes=None) -> int:
+    """Lanes (of ``lanes``) where two planes differ; asserts none do."""
+    bad = exact(what, got, want, lanes)
+    assert bad == 0, (what, bad)
+    return bad
+
+
+def rt_stage_bounds(sc, fr, n: int) -> dict:
+    """Each K10 kernel's bound on this frame's data: bytes it must move
+    (each input plane read once, each output written once, only the lanes
+    that need them; the triangle edges of the hit slots, the material and
+    light tables once) and its float operations (RT_OPS, a floor counted
+    from the source), for the primary pass and the glass rays' pass."""
+    import torch
+
+    lights = len(sc.lights)
+    tables = nbytes(sc._mat_table.packed, sc._light_table.packed)
+
+    def light_rays(k1):
+        m = k1.t.shape[0]
+        hit = k1.slot >= 0
+        h = int(hit.sum())
+        slots = int(torch.unique(k1.slot[hit]).numel())
+        by = (m * (4 + 4) + h * (24 + 4) + slots * 24 + tables  # in
+              + m * (1 + 1 + 24) + lights * (m * 4 + h * 24))  # out
+        return bound(by, h * (RT_OPS["hit"] + lights * RT_OPS["light_ray"]))
+
+    def shade(hit, occ):
+        m = hit.hit.shape[0]
+        h = int(hit.hit.sum())
+        by = m * (1 + 12) + h * (4 + 24) + lights * h + tables + m * 12
+        lit = int(occ.view(lights, m)[:, hit.hit].logical_not().sum())
+        return bound(by, h * RT_OPS["shade"] + lit * RT_OPS["shade_light"])
+
+    glass_lanes = int((fr.glass.t[:n] > 0).sum()) if fr.glass is not None \
+        else 0
+    out = {"rt_light_rays": light_rays(fr.k1),
+           "rt_shade": shade(fr.hit, fr.occluded)}
+    if fr.glass is not None:
+        h = int(fr.hit.hit.sum())
+        out["rt_glass_rays"] = bound(
+            n * 1 + h * 4 + glass_lanes * (12 + 12 + 12 + 1 + 4) + tables
+            + 2 * n * 28 + n * 4, glass_lanes * RT_OPS["glass_rays"])
+        out["rt_light_rays (glass rays)"] = light_rays(fr.sec_k1)
+        out["rt_shade (glass rays)"] = shade(fr.sec_hit, fr.sec_occluded)
+    h = int(fr.hit.hit.sum())
+    out["rt_resolve"] = bound(
+        n * (12 + 1) + h * 4 + tables + glass_lanes * (12 + 12 + 1 + 24 + 8)
+        + n * 3, n * RT_OPS["resolve"] + glass_lanes * RT_OPS["glass_add"])
+    return out
+
+
+def check_rt_stages(sc, fr, stats) -> dict:
+    """Each K10 kernel of the frame ``fr`` against its plain version on the
+    frame's own K1 / K2 records (the same inputs to both): hit flags, front
+    flags, shadow t_max on missed lanes, glass rays' t_max and seeds exact;
+    points, normals, shadow rays, glass rays and colours within RT_VALUE's
+    tiers (directions RT_DIRECTION's) on the lanes the contract specifies;
+    the occlusion bits of K2 on the plain stage's shadow rays equal to the
+    frame's on every ray where the two rays are bit-identical; RGB8 within
+    1 LSB.  Returns the shares it measured."""
+    import torch
+    from ptrt_tpu_torch.render import rt_shading as rs
+    from ptrt_tpu_torch.render import traverse
+
+    geom, mats, lts = sc._geom, sc._mat_table, sc._light_table
+    nl = len(sc.lights)
+    params = sc.params()
+    o, d = sc.camera_rays()
+    n = d.x.shape[0]
+    out = {}
+
+    def light_pass(tag, o, d, k1, hit, shadow, occ):
+        ph, pshadow = rs.rt_light_rays_plain(geom, o, d, k1, lts, nl)
+        s = stats["rt_light_rays"]
+        rt_bits(f"{tag} hit", hit.hit, ph.hit)
+        live = ph.hit
+        rt_bits(f"{tag} front", hit.front_face, ph.front_face, live)
+        rt_vec_tiers(f"{tag} point", hit.point, ph.point, live, s)
+        rt_vec_tiers(f"{tag} normal", hit.normal, ph.normal, live, s,
+                     RT_DIRECTION)
+        rlive = pshadow.t > 0
+        rt_bits(f"{tag} shadow live", shadow.t > 0, rlive)
+        rt_vec_tiers(f"{tag} shadow t", shadow.t, pshadow.t, rlive, s)
+        rt_vec_tiers(f"{tag} shadow o", shadow.o, pshadow.o, rlive, s)
+        rt_vec_tiers(f"{tag} shadow d", shadow.d, pshadow.d, rlive, s,
+                     RT_DIRECTION)
+        # K2 on the plain stage's shadow rays: the same bits where the rays
+        # are the same
+        occ_p = traverse.any_hit(geom, pshadow.o, pshadow.d, pshadow.t)
+        same_ray = torch.ones_like(rlive)
+        for a, b in ((shadow.o, pshadow.o), (shadow.d, pshadow.d)):
+            for ca, cb in ((a.x, b.x), (a.y, b.y), (a.z, b.z)):
+                same_ray &= ca == cb
+        same_ray &= shadow.t == pshadow.t
+        same_ray |= ~rlive
+        rt_bits(f"{tag} occlusion", occ, occ_p, same_ray)
+        out[f"{tag} shadow rays bit-identical"] = float(
+            same_ray.double().mean())
+        out[f"{tag} occlusion agree"] = float((occ == occ_p).double().mean())
+        out[f"{tag} occluded share of live shadow rays"] = float(
+            occ[rlive].double().mean())
+
+    def shade_pass(tag, hit, d, occ, color):
+        pc = rs.rt_shade_plain(hit, d, occ, mats, lts, nl, params)
+        rt_vec_tiers(f"{tag} colour", color, pc, torch.ones_like(hit.hit),
+                     stats["rt_shade"], RT_COLOR)
+        return pc
+
+    light_pass("primary", o, d, fr.k1, fr.hit, fr.shadow, fr.occluded)
+    shade_pass("primary", fr.hit, d, fr.occluded, fr.color)
+    if fr.glass is not None:
+        pg = rs.rt_glass_rays_plain(fr.hit, d, mats)
+        s = stats["rt_glass_rays"]
+        live = pg.t[:n] > 0
+        rt_bits("glass live", fr.glass.t, pg.t)
+        rt_bits("glass seed", fr.glass.seed, pg.seed)
+        live2 = torch.cat([live, live])
+        rt_vec_tiers("glass o", fr.glass.o, pg.o, live2, s)
+        rt_vec_tiers("glass d", fr.glass.d, pg.d, live2, s, RT_DIRECTION)
+        out["glass lanes"] = int(live.sum())
+        out["glass share of hit lanes"] = float(
+            live.sum() / fr.hit.hit.sum())
+        light_pass("glass rays", fr.glass.o, fr.glass.d, fr.sec_k1,
+                   fr.sec_hit, fr.sec_shadow, fr.sec_occluded)
+        shade_pass("glass rays", fr.sec_hit, fr.glass.d, fr.sec_occluded,
+                   fr.sec_color)
+    rgb_p = rs.rt_resolve_plain(fr.color, fr.hit, d, mats, fr.sec_color,
+                                fr.sec_k1, sc.height, sc.width)
+    diff = (fr.rgb8.int() - rgb_p.int()).abs()
+    out["rt_resolve max LSB"] = int(diff.max())
+    out["rt_resolve exact share"] = float((diff == 0).all(-1).double()
+                                          .mean())
+    stats["rt_resolve"]["max_abs_err"] = int(diff.max())
+    assert int(diff.max()) <= 1, int(diff.max())
+    return out
+
+
+def rt_plain_frame(sc, fr):
+    """The frame the plain stages build from ``fr``'s walk records (K1's
+    answers and K2's occlusion bits of the kernel frame): (RGB8, the lanes
+    that hit glass)."""
+    from ptrt_tpu_torch.render import rt_shading as rs
+
+    geom, mats, lts = sc._geom, sc._mat_table, sc._light_table
+    nl = len(sc.lights)
+    params = sc.params()
+    o, d = sc.camera_rays()
+    hit, _ = rs.rt_light_rays_plain(geom, o, d, fr.k1, lts, nl)
+    color = rs.rt_shade_plain(hit, d, fr.occluded, mats, lts, nl, params)
+    sec_color = None
+    glass = rs.rt_glass_rays_plain(hit, d, mats) if fr.glass is not None \
+        else None
+    if glass is not None:
+        sec_hit, _ = rs.rt_light_rays_plain(geom, glass.o, glass.d,
+                                            fr.sec_k1, lts, nl)
+        sec_color = rs.rt_shade_plain(sec_hit, glass.d, fr.sec_occluded,
+                                      mats, lts, nl, params)
+    rgb = rs.rt_resolve_plain(color, hit, d, mats, sec_color, fr.sec_k1,
+                              sc.height, sc.width)
+    n = d.x.shape[0]
+    on_glass = (glass.t[:n] > 0) if glass is not None else hit.hit & False
+    return rgb, on_glass.view(sc.height, sc.width).flip(0)
+
+
+def check_rt(dev, card) -> dict:
+    """Phase 11: the one-bounce RT backend on the "rt" scene
+    (build_rt_bench_scene at W x H, TRIS): the frame's launches, host and
+    device time; each K10 kernel against its plain version on the frame's
+    own records, timed queued beside its bound and its plain version; the
+    whole frame against the frame the plain stages build from the same walk
+    records (RGB8 within 1 LSB on RT_FRAME_AGREE of the pixels, the rest
+    counted by cause); a 256x144 RTScene of the same scene on the GPU and on
+    the CPU.  Returns the kernel table's entries and the frame's numbers."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.app.bench_scene import build_rt_bench_scene
+    from ptrt_tpu_torch.render import rt_shading as rs
+    from ptrt_tpu_torch.tools import stages
+
+    t0 = time.time()
+    sc = build_rt_bench_scene(W, H, TRIS, device=dev)
+    sc._ensure()
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    n_tris = sum(m.num_triangles for m in sc.meshes)
+    log(f"[rt] {W}x{H} RTScene of the bench scene: {n_tris} triangles, "
+        f"{len(sc.mesh_materials)} materials, {len(sc.lights)} lights, "
+        f"glass {sc._has_glass()}; set-up {setup_s:.2f} s [{card}]")
+    assert n_tris == RT_TRIS and len(sc.mesh_materials) == 17, n_tris
+    sc.render_frame()  # warm-up
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    frame_s = []
+    for _ in range(RT_FRAMES):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img = sc.render_frame_device()
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t1)
+    launches = {k: v / RT_FRAMES for k, v in kernels.launches.items()}
+    host_ms = stages.host_ms(sc.render_frame_device, calls=RT_FRAMES)
+    # behind a spin: launches right after the profiler starts may go
+    # unrecorded
+    prof = stages.frame_profile(sc, render=sc.render_frame_device,
+                                lead_cycles=stages.SPIN_CYCLES)
+    frame_ms = 1e3 * sum(frame_s) / len(frame_s)
+    log(f"[rt] frame {frame_ms:.3f} ms (frames "
+        f"{[round(1e3 * s, 3) for s in frame_s]}), host {host_ms:.3f} ms "
+        f"a call without waiting; one profiled frame: device "
+        f"{prof['device_ms']} ms in {prof['launches']} launches, walks "
+        f"{prof['walk_ms']} ms, top {prof['top']}; wrapper launches a frame "
+        f"{launches} [{card}]")
+    per_frame = {"closest_hit": 2, "any_hit": 2, "rt_light_rays": 2,
+                 "rt_shade": 2, "rt_glass_rays": 1, "rt_resolve": 1}
+    for k, v in per_frame.items():
+        assert launches.get(k, 0) == v, (k, launches)
+    assert prof["names"] is not None, "the profiler saw no kernels"
+    seen = {k: sum(f"{k}_kernel" in nm for nm in prof["names"])
+            for k in per_frame}
+    log(f"[rt] the profiled frame's kernels of the path: {seen} (the "
+        f"wrappers launched {per_frame}) [{card}]")
+    assert img.shape == (H, W, 3) and float(img.float().std()) > 1.0
+
+    # each kernel against its plain version on the frame's own records
+    fr = sc.last_frame
+    stats = {k: {"max_abs_err": 0.0} for k in rs.KERNELS}
+    shares = check_rt_stages(sc, fr, stats)
+    log(f"[rt] K10 vs plain on the frame's records: {shares}; largest "
+        f"errors {stats} [{card}]")
+    rgb_p, on_glass = rt_plain_frame(sc, fr)
+    diff = (fr.rgb8.int() - rgb_p.int()).abs().amax(-1)
+    within = float((diff <= 1).double().mean())
+    off = diff > 1
+    causes = {"glass lanes": int((off & on_glass).sum()),
+              "other": int((off & ~on_glass).sum())}
+    log(f"[rt] the frame vs the plain stages' frame on the same walk "
+        f"records: within 1 LSB on {within:.6f} of pixels, exact on "
+        f"{float((diff == 0).double().mean()):.6f}, max {int(diff.max())} "
+        f"LSB; pixels off by more, by cause {causes} [{card}]")
+    assert within >= RT_FRAME_AGREE, (within, causes)
+
+    # times: each kernel queued behind a spin (two readings), its plain
+    # version, its bound
+    o, d = sc.camera_rays()
+    n = d.x.shape[0]
+    geom, mats, lts, nl = sc._geom, sc._mat_table, sc._light_table, len(
+        sc.lights)
+    params = sc.params()
+    calls = {
+        "rt_light_rays": (lambda _: rs.rt_light_rays(geom, o, d, fr.k1, lts,
+                                                     nl),
+                          lambda: rs.rt_light_rays_plain(geom, o, d, fr.k1,
+                                                         lts, nl)),
+        "rt_shade": (lambda _: rs.rt_shade(fr.hit, d, fr.occluded, mats, lts,
+                                           nl, params),
+                     lambda: rs.rt_shade_plain(fr.hit, d, fr.occluded, mats,
+                                               lts, nl, params)),
+        "rt_glass_rays": (lambda _: rs.rt_glass_rays(fr.hit, d, mats),
+                          lambda: rs.rt_glass_rays_plain(fr.hit, d, mats)),
+        "rt_resolve": (lambda _: rs.rt_resolve(
+            fr.color, fr.hit, d, mats, fr.sec_color, fr.sec_k1, H, W),
+            lambda: rs.rt_resolve_plain(fr.color, fr.hit, d, mats,
+                                        fr.sec_color, fr.sec_k1, H, W)),
+    }
+    bounds = rt_stage_bounds(sc, fr, n)
+    info = rs.kernel_info(mats, lts, nl)
+    entries = {}
+    for k, (kern, plain) in calls.items():
+        queued = [stages.clones_ms(kern, [None] * 21, stages.SPIN_CYCLES)
+                  for _ in range(2)]
+        plain_ms = cuda_ms(plain, 2)
+        entries[k] = {"ms": sum(queued) / 2, "queued_ms": queued,
+                      "plain_ms": plain_ms, **bounds[k],
+                      "launches": launches.get(k, 0),
+                      "launches_per": "frame",
+                      "max_abs_err": stats[k]["max_abs_err"], **info[k]}
+        log(f"  {k}: queued {queued[0]:.4f} / {queued[1]:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bounds[k]['bound_ms']:.4f} ms "
+            f"({bounds[k]['bound_by']}); {info[k]['registers']} registers, "
+            f"{info[k]['local_bytes']} bytes local, "
+            f"{info[k]['blocks_per_sm']} blocks of {info[k]['threads']} a SM; "
+            f"{launches.get(k, 0)} launches a frame [{card}]")
+    sec_calls = {
+        "rt_light_rays": lambda _: rs.rt_light_rays(
+            geom, fr.glass.o, fr.glass.d, fr.sec_k1, lts, nl),
+        "rt_shade": lambda _: rs.rt_shade(
+            fr.sec_hit, fr.glass.d, fr.sec_occluded, mats, lts, nl, params)}
+    for k, kern in sec_calls.items():
+        queued = [stages.clones_ms(kern, [None] * 21, stages.SPIN_CYCLES)
+                  for _ in range(2)]
+        b = bounds[f"{k} (glass rays)"]
+        entries[k]["glass_rays_queued_ms"] = queued
+        entries[k]["glass_rays_bound_ms"] = b["bound_ms"]
+        log(f"  {k} on the {2 * n} glass rays: queued {queued[0]:.4f} / "
+            f"{queued[1]:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}) [{card}]")
+    del fr, sc
+    torch.cuda.empty_cache()
+
+    # a small frame on the GPU and on the CPU (the plain versions)
+    small = {}
+    for name, dv in (("cpu", torch.device("cpu")), ("gpu", dev)):
+        s = build_rt_bench_scene(256, 144, RT_SMALL_TRIS, device=dv)
+        small[name] = s.render_frame()
+    dsm = np.abs(small["cpu"].astype(int) - small["gpu"].astype(int)).max(-1)
+    small_within = float((dsm <= 1).mean())
+    log(f"[rt] 256x144 RTScene of the bench scene ({RT_SMALL_TRIS} "
+        f"triangles target) GPU vs CPU: within 1 LSB on {small_within:.5f} of pixels, exact "
+        f"on {float((dsm == 0).mean()):.5f}, max {int(dsm.max())} LSB "
+        f"[{card}]")
+    assert small_within >= RT_FRAME_AGREE, small_within
+    return {"entries": entries, "frame_ms": frame_ms, "host_ms": host_ms,
+            "device_ms": prof["device_ms"],
+            "profiled_launches": prof["launches"], "launches": launches,
+            "frame_within_1_lsb": within, "frame_causes": causes,
+            "stages": shares, "small_within_1_lsb": small_within}
+
+
+# -- 12. the rest of the PT Scene API on the card --------------------------------
+
+
+def wire_scene(dev, w: int, h: int):
+    """A 98-triangle Scene (a floor, a sphere, a cube, an emissive cube) at
+    w x h, small enough for the plain walk on the CPU at 1080p."""
+    from ptrt_tpu_torch.scene.materials import Material
+    from ptrt_tpu_torch.scene.pt_scene import Scene
+
+    sc = Scene(w, h, device=dev)
+    sc.add_plane_xz(-1.0, 8.0, Material.make((0.8, 0.8, 0.8), 0.6))
+    sc.add_sphere(6, Material.make((0.7, 0.2, 0.2), 0.4)).transform \
+        .set_position(0.0, -0.4, 4.0)
+    sc.add_cube(Material.make((0.2, 0.3, 0.8), 0.3)).transform \
+        .set_position(1.2, -0.5, 5.0)
+    lamp = sc.add_cube(Material.make((1.0, 1.0, 1.0), 0.0).replace(
+        emission=(4.0, 3.0, 2.0)))
+    lamp.transform.set_position(-1.3, 0.2, 5.5).set_scale(0.6)
+    sc.add_point_light((2, 3, 1), (1, 1, 1), 3.0)
+    sc.set_camera((0, 0.5, 0), (0, 0, 4), fov=60)
+    return sc
+
+
+def check_scene_api(dev, card) -> dict:
+    """Phase 12: the PT Scene API the port finished in this slice, on the
+    card.  render_wireframe at W x H: a 98-triangle scene against the same
+    scene on the CPU (the plain walk) within 1 LSB, and the 1M-triangle
+    bench scene's timed; trace_single_ray on the bench scene (API_TRIS)
+    against the CPU for API_RAYS rays (hit, mesh and front face equal, t and
+    normal within 1e-5); warmup(): the next two balanced frames bit-identical
+    to an unwarmed scene's; a checkpoint saved after 3 balanced frames and
+    loaded into a fresh scene: the 4th frame bit-identical to the
+    uninterrupted run's."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch.app.bench_scene import build_bench_scene
+    from ptrt_tpu_torch.build import BUILD_DIR
+    from ptrt_tpu_torch.utils.checkpoint import (load_render_state,
+                                                 save_render_state)
+
+    out = {}
+    cpu = torch.device("cpu")
+    wires = {}
+    for name, d in (("cpu", cpu), ("gpu", dev)):
+        t0 = time.time()
+        wires[name] = wire_scene(d, W, H).render_wireframe(0.05)
+        out[f"wireframe_{name}_s"] = time.time() - t0
+    diff = np.abs(wires["cpu"].astype(int) - wires["gpu"].astype(int))
+    out["wireframe_max_lsb"] = int(diff.max())
+    out["wireframe_exact"] = float((diff == 0).all(-1).mean())
+    bench = build_bench_scene(W, H, TRIS, device=dev)
+    bench.render_wireframe(0.05)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = bench.render_wireframe(0.05)
+    out["wireframe_bench_ms"] = 1e3 * (time.perf_counter() - t0)
+    white = int(255.99 * 0.5 ** (1.0 / 2.2))  # a white edge, tonemapped
+    log(f"[api] render_wireframe {W}x{H}: the 98-triangle scene GPU vs CPU "
+        f"max {out['wireframe_max_lsb']} LSB, exact on "
+        f"{out['wireframe_exact']:.6f} of pixels; the {TRIS}-triangle bench "
+        f"scene's {out['wireframe_bench_ms']:.2f} ms on the host clock, "
+        f"white edge pixels {float((img == white).all(-1).mean()):.4f} "
+        f"[{card}]")
+    assert out["wireframe_max_lsb"] <= 1
+    assert len(np.unique(wires["gpu"].reshape(-1, 3), axis=0)) > 3
+    del bench
+
+    # trace_single_ray: the GPU's answer against the CPU's
+    scs = {name: build_bench_scene(W, H, API_TRIS, device=d)
+           for name, d in (("cpu", cpu), ("gpu", dev))}
+    rng = np.random.default_rng(12)
+    eye = np.array([0.0, 1.2, -1.5])
+    hits = 0
+    for _ in range(API_RAYS):
+        target = rng.uniform([-4.0, -1.0, 3.0], [4.0, 1.0, 12.0])
+        got = scs["gpu"].trace_single_ray(eye, target - eye)
+        want = scs["cpu"].trace_single_ray(eye, target - eye)
+        assert bool(got.hit) == bool(want.hit), (target, got, want)
+        assert int(got.mesh_index) == int(want.mesh_index)
+        if got.hit:
+            hits += 1
+            assert bool(got.front_face) == bool(want.front_face)
+            assert abs(float(got.t) - float(want.t)) <= 1e-5 * max(
+                1.0, abs(float(want.t)))
+            for c in "xyz":
+                assert abs(float(getattr(got.normal, c))
+                           - float(getattr(want.normal, c))) <= 1e-5
+    out["trace_single_ray_hits"] = hits
+    log(f"[api] trace_single_ray: {API_RAYS} rays on the {API_TRIS}-triangle "
+        f"target bench scene, GPU equal to CPU ({hits} hits) [{card}]")
+    assert hits >= API_RAYS // 2
+    del scs
+
+    # warmup: the next frames of a warmed scene are an unwarmed scene's
+    scenes = [balanced(build_bench_scene(W, H, API_TRIS, device=dev))
+              for _ in range(2)]
+    t0 = time.time()
+    scenes[0].warmup()
+    out["warmup_s"] = time.time() - t0
+    for k in range(2):
+        a, b = (sc.render_frame_device() for sc in scenes)
+        assert torch.equal(a, b), f"warmed frame {k} differs"
+    log(f"[api] warmup() {out['warmup_s']:.2f} s; the next two balanced "
+        f"{W}x{H} frames bit-identical to an unwarmed scene's [{card}]")
+
+    # the checkpoint: 3 frames, save, the 4th against a fresh scene's
+    path = os.path.join(BUILD_DIR, "chip_smoke_state.npz")
+    a = balanced(build_bench_scene(W, H, API_TRIS, device=dev))
+    for _ in range(3):
+        a.render_frame_device()
+    save_render_state(a, path)
+    fourth = a.render_frame_device()
+    b = balanced(build_bench_scene(W, H, API_TRIS, device=dev))
+    b._ensure_device_state()
+    load_render_state(b, path)
+    resumed = b.render_frame_device()
+    out["checkpoint_bytes"] = os.path.getsize(path)
+    os.remove(path)
+    assert torch.equal(fourth, resumed), "the resumed frame differs"
+    log(f"[api] checkpoint after 3 balanced {W}x{H} frames "
+        f"({out['checkpoint_bytes']} bytes): the 4th frame bit-identical "
+        f"after a load into a fresh scene [{card}]")
+    return out
+
+
 def bounce_launches(names, samples, depth):
     """Kernel launches from each of a sample's K1 launches to its next (one
     bounce), in a profiled frame's timeline."""
@@ -2653,6 +3158,16 @@ def main() -> int:
         f"{lsb:.4f} of pixels, rays {int(fg.rays_traced)} vs "
         f"{int(fc.rays_traced)}")
     assert oid_agree >= 0.999 and lsb >= 0.99, (oid_agree, lsb)
+    del small_dyn, sc_c, sc_g, fc, fg
+    torch.cuda.empty_cache()
+
+    # -- 11. the one-bounce RT backend: K10 on the "rt" scene ---------------
+    rt = check_rt(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 12. the rest of the PT Scene API on the card ------------------------
+    api = check_scene_api(dev, card)
+    torch.cuda.empty_cache()
 
     for k in ("shade_nee", "shade_scatter"):
         hs = hstats[k]
@@ -2827,6 +3342,20 @@ def main() -> int:
                for lbl, r in kres.items() if k in r}}
           for k, m in (("refit", "heightfield"), ("morton_sort", "sphere"),
                        ("morton_codes", "morton heightfield 256x256"))],
+        *[{"name": k, "route": "cuda", "source": src("rt_shade.cu"),
+           "replaces": RT_REPLACES[k], **rt["entries"][k],
+           "library_ms": None, "lanes": W * H}
+          for k in ("rt_light_rays", "rt_shade", "rt_glass_rays")],
+        # the RT frame's numbers and the Scene API phase's ride on the
+        # frame's last kernel
+        {"name": "rt_resolve", "route": "cuda", "source": src("rt_shade.cu"),
+         "replaces": RT_REPLACES["rt_resolve"], **rt["entries"]["rt_resolve"],
+         "library_ms": None, "lanes": W * H,
+         "rt_frame": {key: rt[key] for key in (
+             "frame_ms", "host_ms", "device_ms", "profiled_launches",
+             "launches", "frame_within_1_lsb", "frame_causes",
+             "small_within_1_lsb", "stages")},
+         "scene_api": api},
     ]}
     # the ranking: device ms a frame that each kernel stands over its bound,
     # summed over the passes and bounces the frames really run (a bench
@@ -2870,6 +3399,14 @@ def main() -> int:
     over["morton_sort"] = {"dynamic": sum(
         kres["sphere"]["morton_sort"]["queued_ms"]) / 2
         - kres["sphere"]["morton_sort"]["bound_ms"]}
+    # the RT frame: each K10 kernel on the primary pass, and rt_light_rays
+    # and rt_shade once more on the glass rays
+    for k, e in rt["entries"].items():
+        gap = e["ms"] - e["bound_ms"]
+        if "glass_rays_queued_ms" in e:
+            gap += (sum(e["glass_rays_queued_ms"]) / 2
+                    - e["glass_rays_bound_ms"])
+        over[k] = {"rt": gap}
     log("[rank] device ms a frame over the bound (launches x (time - "
         "bound), each pass, bounce, channel pair and mip at its own time; "
         "the small kernels queued, the two readings in brackets): "

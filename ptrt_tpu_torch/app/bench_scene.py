@@ -5,7 +5,9 @@ lights, and a gradient sky.  Triangle count is controlled by
 ``target_tris``.  ``build_hdri_scene`` lights the same scene with an HDRI
 and adds a directional and an area light (the port's "hdri"
 configuration); ``build_dynamic_scene`` adds the moving geometry of the
-reference's games (the port's "dynamic" configuration)."""
+reference's games (the port's "dynamic" configuration);
+``build_rt_bench_scene`` is the same scene in the one-bounce RT backend's
+``RTScene`` (the port's "rt" configuration)."""
 
 from __future__ import annotations
 
@@ -15,13 +17,56 @@ from ptrt_tpu_torch.app.hdri import synthetic_env
 from ptrt_tpu_torch.geometry.mesh import Mesh
 from ptrt_tpu_torch.scene.materials import Material, Materials
 from ptrt_tpu_torch.scene.pt_scene import Scene
+from ptrt_tpu_torch.scene.rt_scene import RTScene
+
+SKY = ((0.35, 0.45, 0.65), (0.05, 0.05, 0.08))
+# (position, direction, colour, intensity) of the two spot lights (cones
+# 0.44 and 0.70 rad) and (position, colour, intensity) of the two point
+# lights (range 20)
+SPOTS = (((0, 6.5, 6), (0, -1, 0), (1.0, 0.95, 0.9), 6.0),
+         ((-6, 6.5, 8), (0.3, -1, 0), (0.9, 0.9, 1.0), 4.0))
+POINTS = (((0, 2, 1), (0.8, 0.8, 0.8), 5.0), ((6, 1, 8), (0.5, 0.5, 0.5), 3.0))
+CAMERA = ((0, 1.2, -1.5), (0, 0, 6), 60)
 
 
 def build_bench_scene(width: int, height: int,
                       target_tris: int = 1_000_000, device="cuda") -> Scene:
     """The bench scene on ``device`` (the card by default)."""
     sc = Scene(width, height, device=device)
-    sc.set_sky_gradient((0.35, 0.45, 0.65), (0.05, 0.05, 0.08))
+    sc.set_sky_gradient(*SKY)
+    _bench_geometry(sc, target_tris)
+    for pos, direction, color, intensity in SPOTS:
+        sc.add_spot_light(pos, direction, color, intensity, inner_cone=0.44,
+                          outer_cone=0.70, radius=0.2)
+    for pos, color, intensity in POINTS:
+        sc.add_point_light(pos, color, intensity, range=20.0, radius=0.1)
+    lookfrom, lookat, fov = CAMERA
+    sc.set_camera(lookfrom, lookat, fov=fov)
+    return sc
+
+
+def build_rt_bench_scene(width: int, height: int,
+                         target_tris: int = 1_000_000,
+                         device="cuda") -> RTScene:
+    """The bench scene's meshes, materials, lights, sky and camera in an
+    ``RTScene`` on ``device`` (the card by default): the one-bounce
+    backend's configuration of it (the lights' soft-shadow radii, which the
+    RT shading does not read, dropped)."""
+    sc = RTScene(width, height, device=device)
+    sc.set_sky_gradient(*SKY)
+    _bench_geometry(sc, target_tris)
+    for pos, direction, color, intensity in SPOTS:
+        sc.add_spot_light(pos, direction, color, intensity, inner_cone=0.44,
+                          outer_cone=0.70)
+    for pos, color, intensity in POINTS:
+        sc.add_point_light(pos, color, intensity, range=20.0)
+    lookfrom, lookat, fov = CAMERA
+    sc.set_camera(lookfrom, lookat, fov=fov)
+    return sc
+
+
+def _bench_geometry(sc, target_tris: int) -> None:
+    """The 4x4 grid of spheres and cubes and the floor."""
 
     grid = 4  # 4x4 objects + floor
     # (gx + gz) % 3 == 2 cells are 12-tri cubes; the rest are lat-long
@@ -55,18 +100,6 @@ def build_bench_scene(width: int, height: int,
             k += 1
 
     sc.add_plane_xz(-1.0, 60.0, Material.make((0.8, 0.8, 0.8), 0.7))
-
-    sc.add_spot_light((0, 6.5, 6), (0, -1, 0), (1.0, 0.95, 0.9), 6.0,
-                      inner_cone=0.44, outer_cone=0.70, radius=0.2)
-    sc.add_spot_light((-6, 6.5, 8), (0.3, -1, 0), (0.9, 0.9, 1.0), 4.0,
-                      inner_cone=0.44, outer_cone=0.70, radius=0.2)
-    sc.add_point_light((0, 2, 1), (0.8, 0.8, 0.8), 5.0, range=20.0,
-                       radius=0.1)
-    sc.add_point_light((6, 1, 8), (0.5, 0.5, 0.5), 3.0, range=20.0,
-                       radius=0.1)
-
-    sc.set_camera((0, 1.2, -1.5), (0, 0, 6), fov=60)
-    return sc
 
 
 # the "hdri" configuration's map: a common "4k HDRI" size, 100 MB as float32

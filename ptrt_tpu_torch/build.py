@@ -19,8 +19,6 @@ import threading
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "ptrt_tpu_torch")
-# the JAX package's directory: the port reads two files there by path
-REFERENCE_DIR = os.path.join(REPO_ROOT, "ptrt_tpu")
 
 _lock = threading.Lock()
 

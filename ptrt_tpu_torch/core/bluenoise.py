@@ -1,8 +1,9 @@
 """Blue-noise sample table + per-frame golden-ratio scrambling.
 
-Counterpart of ``ptrt_tpu/core/bluenoise.py``.  The 64x64x2 table is the
-reference's committed artifact, read by path (never by importing the JAX
-package); the fetch hashes the frame index with the same 32-bit mixer.
+Counterpart of ``ptrt_tpu/core/bluenoise.py``.  The 64x64x2 table,
+``_bluenoise_64.npy`` beside this file, is the port's own copy of the
+reference's committed artifact; the fetch hashes the frame index with the
+same 32-bit mixer.
 """
 
 from __future__ import annotations
@@ -16,9 +17,8 @@ from ptrt_tpu_torch.core.rng import as_u32, mul32
 
 BLUE_NOISE_SIZE = 64
 
-TABLE_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "ptrt_tpu", "core", "_bluenoise_64.npy")
+TABLE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "_bluenoise_64.npy")
 
 
 def blue_noise_table(device) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Triangle meshes (host, numpy) — a copy of ``ptrt_tpu/geometry/mesh.py``
-without the OBJ loader: the primitive factories (unit cube, XZ plane,
-lat-long sphere, checkerboard), the vertex-baking edits, ``set_triangles``
-(the per-frame refill hook), the AABBs and the dynamic-mesh flags.
+"""Triangle meshes (host, numpy) — a copy of ``ptrt_tpu/geometry/mesh.py``:
+the OBJ loader (``load_obj``, the reference's parser semantics), the
+primitive factories (unit cube, XZ plane, lat-long sphere, checkerboard),
+the vertex-baking edits, ``set_triangles`` (the per-frame refill hook), the
+AABBs and the dynamic-mesh flags.
 
 A mesh flagged ``is_dynamic`` keeps a local-space BVH of its own and is
 walked as an instance (``geometry/scene_geom.py``): a transform edit
@@ -13,10 +14,23 @@ at scene-assembly time.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ptrt_tpu_torch.core.vec import PI, TWO_PI
 from ptrt_tpu_torch.geometry.transform import AABB, Transform3D, _rot_xyz
+
+
+# the unit cube (the reference's default mesh)
+_CUBE_VERTS = np.array(
+    [[-0.5, -0.5, -0.5], [0.5, -0.5, -0.5], [0.5, 0.5, -0.5],
+     [-0.5, 0.5, -0.5], [-0.5, -0.5, 0.5], [0.5, -0.5, 0.5],
+     [0.5, 0.5, 0.5], [-0.5, 0.5, 0.5]], np.float32)
+_CUBE_FACES = np.array(
+    [[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5], [0, 5, 4],
+     [3, 7, 6], [3, 6, 2], [0, 4, 7], [0, 7, 3], [1, 2, 6], [1, 6, 5]],
+    np.int32)
 
 
 class Mesh:
@@ -24,10 +38,21 @@ class Mesh:
     # Morton-sorted into its fixed slots on the device before the refit
     device_lbvh = False
 
-    def __init__(self, vertices: np.ndarray, faces: np.ndarray):
+    def __init__(self, vertices=None, faces: np.ndarray | None = None):
+        """``Mesh(vertices, faces)``; ``Mesh(path)`` loads an OBJ file
+        (``load_obj``, recentred on its centroid); ``Mesh()`` is the unit
+        cube, as the reference's constructor forms."""
         self.transform = Transform3D()
         self.is_dynamic = False
         self.verts_dirty = True  # a vertex change: the mesh's BVH is stale
+        if vertices is None:
+            vertices, faces = _CUBE_VERTS, _CUBE_FACES
+        elif isinstance(vertices, (str, os.PathLike)):
+            if faces is not None:
+                raise TypeError("Mesh(path) takes no faces")
+            vertices, faces = load_obj(vertices, recenter=True)
+        elif faces is None:
+            raise TypeError("Mesh(vertices, faces) needs the faces")
         self.vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
         self.faces = np.asarray(faces, np.int32).reshape(-1, 3)
 
@@ -46,13 +71,7 @@ class Mesh:
 
     @staticmethod
     def cube() -> "Mesh":
-        return Mesh(
-            np.array([[-0.5, -0.5, -0.5], [0.5, -0.5, -0.5], [0.5, 0.5, -0.5],
-                      [-0.5, 0.5, -0.5], [-0.5, -0.5, 0.5], [0.5, -0.5, 0.5],
-                      [0.5, 0.5, 0.5], [-0.5, 0.5, 0.5]], np.float32),
-            np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5],
-                      [0, 5, 4], [3, 7, 6], [3, 6, 2], [0, 4, 7], [0, 7, 3],
-                      [1, 2, 6], [1, 6, 5]], np.int32))
+        return Mesh()
 
     @staticmethod
     def plane_xz(plane_y: float, half_size: float) -> "Mesh":
@@ -165,3 +184,47 @@ class Mesh:
         v = self.world_vertices() if world else self.vertices
         f = self.faces
         return v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+
+
+def load_obj(path, recenter: bool = True):
+    """Read an OBJ file as (vertices (V, 3) float32, faces (F, 3) int32)
+    with the reference's semantics: only ``v`` and ``f`` records, polygons
+    fan-triangulated, 1-based and negative (relative) indices, ``v/vt/vn``
+    suffixes ignored, records that do not parse skipped, the vertices
+    recentred on their centroid.  Raises ``ValueError`` when the file holds
+    no vertex or no face."""
+    verts: list = []
+    faces: list = []
+    with open(path, "r", errors="replace") as fh:
+        for line in fh:
+            if not line or line[0] == "#":
+                continue
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "v" and len(parts) >= 4:
+                try:
+                    verts.append((float(parts[1]), float(parts[2]),
+                                  float(parts[3])))
+                except ValueError:
+                    continue
+            elif parts[0] == "f":
+                idx = []
+                for tok in parts[1:]:
+                    head = tok.split("/")[0]
+                    if not head:
+                        continue
+                    try:
+                        i = int(head)
+                    except ValueError:
+                        continue
+                    idx.append(len(verts) + i if i < 0 else i - 1)
+                for k in range(1, len(idx) - 1):
+                    faces.append((idx[0], idx[k], idx[k + 1]))
+    if not verts or not faces:
+        raise ValueError(f"Mesh: no valid geometry in {path}")
+    v = np.asarray(verts, np.float32)
+    f = np.asarray(faces, np.int32)
+    if recenter:
+        v = v - v.mean(axis=0, dtype=np.float64).astype(np.float32)
+    return v, f

@@ -30,6 +30,7 @@ SOURCE_FLAGS = {
     "traverse.cu": [], "tonemap.cu": ["-fmad=false"], "gather.cu": [],
     "svgf.cu": ["-fmad=false"], "bloom.cu": ["-fmad=false"],
     "shade.cu": ["-fmad=false"], "refit.cu": ["-fmad=false"],
+    "rt_shade.cu": ["-fmad=false"],
 }
 SOURCES = [os.path.join(CSRC, f) for f in SOURCE_FLAGS]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -97,6 +98,12 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_morton_sort_max.argtypes = []
         lib.ptrt_morton_codes.restype = i
         lib.ptrt_morton_codes.argtypes = [p, p, p, i, p, p, i, p]
+        for name in ("light_rays", "shade", "glass_rays", "resolve"):
+            fn = getattr(lib, f"ptrt_rt_{name}")
+            fn.restype = i
+            fn.argtypes = [p, p]
+        lib.ptrt_rt_info.restype = i
+        lib.ptrt_rt_info.argtypes = [i] + [p] * 6
         _lib = lib
     return _lib
 

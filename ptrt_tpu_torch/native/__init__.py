@@ -1,8 +1,9 @@
 """The native 8-wide BVH builder, loaded with ctypes.
 
-The source is the reference's ``ptrt_tpu/native/bvh_builder.cpp``, read by
-path and compiled with the reference's flags (``g++ -O3 -fPIC -shared``)
-into the port's build directory, so both packages build identical trees.
+The source, ``bvh_builder.cpp`` beside this file, is the port's own copy of
+the reference's builder, compiled with the reference's flags
+(``g++ -O3 -fPIC -shared``) into the port's build directory, so both
+packages build identical trees.
 A Python build of a million-triangle scene would take minutes, so a failed
 compile raises instead of falling back.
 """
@@ -15,9 +16,10 @@ import threading
 
 import numpy as np
 
-from ptrt_tpu_torch.build import REFERENCE_DIR, build_shared_library
+from ptrt_tpu_torch.build import build_shared_library
 
-SOURCE = os.path.join(REFERENCE_DIR, "native", "bvh_builder.cpp")
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "bvh_builder.cpp")
 
 _lib = None
 _build_lock = threading.Lock()

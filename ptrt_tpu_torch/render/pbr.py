@@ -15,6 +15,17 @@ def fresnel_schlick(cos_theta, f0: Vec3) -> Vec3:
     return f0 + (Vec3.full(1.0) - f0) * f5
 
 
+def fresnel_schlick_roughness(cos_theta, f0: Vec3, roughness) -> Vec3:
+    """Schlick's Fresnel with the reflectance ceiling lowered by roughness
+    (the ambient term of the RT shading)."""
+    c = clamp01(cos_theta)
+    f = 1.0 - c
+    f5 = (f * f) * (f * f) * f
+    mr = 1.0 - roughness
+    max_refl = Vec3(fmax(mr, f0.x), fmax(mr, f0.y), fmax(mr, f0.z))
+    return f0 + (max_refl - f0) * f5
+
+
 def distribution_ggx(n: Vec3, h: Vec3, roughness) -> torch.Tensor:
     a = roughness * roughness
     a2 = a * a

@@ -217,12 +217,35 @@ def _closest_kernel(geom, o, d, t_max, alive, n) -> Closest:
     return Closest(t, u, v, slot, mesh)
 
 
+def _live_rays(t_max: torch.Tensor):
+    """The indices of the rays that can hit anything (t_max > T_MIN), or
+    None when they all can: the plain walks skip the others, whose answer
+    is a miss whatever the triangles."""
+    live = t_max > T_MIN
+    if bool(live.all()):
+        return None
+    return live.nonzero()[:, 0]
+
+
 def closest_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
                       t_max: torch.Tensor, slots: tuple | None = None):
     """Plain version of K1: all-pairs Möller–Trumbore over triangle chunks
     (earlier chunk, then lower slot, wins a tie).  ``slots`` = (start,
     stop) limits it to those triangle slots (one instance of a set)."""
     n = t_max.shape[0]
+    live = _live_rays(t_max)
+    if live is not None:  # a ray with t_max <= T_MIN hits nothing
+        rec = closest_hit_plain(geom, o.map(lambda c: c[live]),
+                                d.map(lambda c: c[live]), t_max[live], slots)
+        out = Closest(t_max.clone(), torch.zeros_like(t_max),
+                      torch.zeros_like(t_max),
+                      torch.full((n,), -1, dtype=torch.int32,
+                                 device=t_max.device),
+                      torch.full((n,), -1, dtype=torch.int32,
+                                 device=t_max.device))
+        for p, q in zip(out, rec):
+            p[live] = q
+        return out
     lo, m = (0, geom.num_tri_slots) if slots is None else slots
     best_t = t_max.clone()
     best_tri = torch.full((n,), -1, dtype=torch.int64, device=t_max.device)
@@ -284,8 +307,14 @@ def any_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
     """Plain version of K2: all-pairs Möller–Trumbore over triangle chunks
     (``slots`` as in ``closest_hit_plain``)."""
     n = t_max.shape[0]
-    lo, m = (0, geom.num_tri_slots) if slots is None else slots
     hit = torch.zeros(n, dtype=torch.bool, device=t_max.device)
+    live = _live_rays(t_max)
+    if live is not None:  # a ray with t_max <= T_MIN is never occluded
+        hit[live] = any_hit_plain(geom, o.map(lambda c: c[live]),
+                                  d.map(lambda c: c[live]), t_max[live],
+                                  slots)
+        return hit
+    lo, m = (0, geom.num_tri_slots) if slots is None else slots
     for r0 in range(0, n, _RAY_CHUNK):
         rs = slice(r0, min(n, r0 + _RAY_CHUNK))
         oe = o.map(lambda c: c[rs, None])

@@ -1,7 +1,7 @@
 """17-parameter PBR materials — counterpart of ``ptrt_tpu/scene/materials.py``.
 
 Host side: the ``Material`` record with the reference's defaults and the
-named presets the bench scene uses.  Device side: ``MaterialTable``, one
+reference's named presets.  Device side: ``MaterialTable``, one
 packed (M, 32) row per material, fetched per ray by id in one row gather
 (``core/gather.row_gather``, field-major, so each field is a contiguous
 plane) by the plain shading; the K3 kernels read the rows themselves.
@@ -129,12 +129,17 @@ class MaterialTable:
 
 
 class Materials:
-    """The named presets ``app/bench_scene.py`` uses."""
+    """The reference's named material presets (``ptrt_tpu/scene/materials.py``
+    ``Materials``), copied: the bench scene's and the RT demo scenes'."""
 
     @staticmethod
     def Gold():
         return Material.make((1.0, 0.766, 0.336), 0.1, 1.0, name="Gold").replace(
             specular=(1.0, 0.782, 0.344))
+
+    @staticmethod
+    def PlainClay():
+        return Material.make((0.5, 0.5, 0.5), 1.0, 0.0, name="PlainClay")
 
     @staticmethod
     def Silver():
@@ -145,6 +150,11 @@ class Materials:
     def Copper():
         return Material.make((0.955, 0.637, 0.538), 0.15, 1.0, name="Copper").replace(
             specular=(0.955, 0.637, 0.538))
+
+    @staticmethod
+    def BrushedAluminum():
+        m = Material.make((0.913, 0.921, 0.925), 0.3, 1.0, name="BrushedAluminum")
+        return m.replace(anisotropy=0.8)
 
     @staticmethod
     def Iron():
@@ -165,6 +175,22 @@ class Materials:
     def FrostedGlass():
         return Materials.Glass().replace(
             roughness=0.3, transmission_roughness=0.5, name="FrostedGlass")
+
+    @staticmethod
+    def Diamond():
+        m = Material.make((1.0, 1.0, 1.0), 0.0, 0.0, name="Diamond")
+        return m.replace(transmission=0.95, ior=2.42, specular=(0.17, 0.17, 0.17))
+
+    @staticmethod
+    def Water():
+        m = Material.make((0.8, 0.95, 1.0), 0.01, 0.0, name="Water")
+        return m.replace(transmission=0.9, ior=1.33, specular=(0.02, 0.02, 0.02))
+
+    @staticmethod
+    def Ice():
+        m = Material.make((0.9, 0.95, 1.0), 0.1, 0.0, name="Ice")
+        return m.replace(transmission=0.7, ior=1.31,
+                         subsurface_color=(0.8, 0.9, 1.0), subsurface_radius=0.3)
 
     @staticmethod
     def PlasticRed():
@@ -193,15 +219,65 @@ class Materials:
                          specular=(0.05, 0.05, 0.05))
 
     @staticmethod
+    def PearlescentPaint(base_color: Color):
+        return Materials.CarPaint(base_color).replace(
+            iridescence=0.8, iridescence_thickness=400.0, name="PearlescentPaint")
+
+    @staticmethod
+    def Skin():
+        m = Material.make((0.95, 0.75, 0.67), 0.4, 0.0, name="Skin")
+        return m.replace(subsurface_color=(1.0, 0.4, 0.3), subsurface_radius=0.5,
+                         specular=(0.028, 0.028, 0.028))
+
+    @staticmethod
+    def Wax():
+        m = Material.make((0.95, 0.93, 0.88), 0.3, 0.0, name="Wax")
+        return m.replace(subsurface_color=(1.0, 0.9, 0.7), subsurface_radius=0.8,
+                         specular=(0.03, 0.03, 0.03))
+
+    @staticmethod
     def Jade():
         m = Material.make((0.2, 0.6, 0.4), 0.1, 0.0, name="Jade")
         return m.replace(subsurface_color=(0.3, 0.8, 0.5), subsurface_radius=0.3,
                          specular=(0.05, 0.05, 0.05))
 
     @staticmethod
+    def Velvet(color: Color):
+        m = Material.make(tuple(color), 0.8, 0.0, name="Velvet")
+        return m.replace(sheen=1.0, sheen_tint=tuple(c * 1.2 for c in color),
+                         specular=(0.02, 0.02, 0.02))
+
+    @staticmethod
+    def Silk(color: Color):
+        m = Material.make(tuple(color), 0.2, 0.0, name="Silk")
+        return m.replace(sheen=0.6, sheen_tint=(1.0, 1.0, 1.0), anisotropy=0.5,
+                         specular=(0.04, 0.04, 0.04))
+
+    @staticmethod
+    def Cotton(color: Color):
+        return Material.make(tuple(color), 0.9, 0.0, name="Cotton").replace(
+            specular=(0.02, 0.02, 0.02))
+
+    @staticmethod
+    def SoapBubble():
+        m = Material.make((1.0, 1.0, 1.0), 0.0, 0.0, name="SoapBubble")
+        return m.replace(transmission=0.95, ior=1.33, iridescence=1.0,
+                         iridescence_thickness=380.0, specular=(0.04, 0.04, 0.04))
+
+    @staticmethod
+    def OilSlick():
+        m = Material.make((0.01, 0.01, 0.01), 0.0, 0.95, name="OilSlick")
+        return m.replace(iridescence=1.0, iridescence_thickness=450.0)
+
+    @staticmethod
     def EmissiveLamp(color: Color, intensity: float = 5.0):
         m = Material.make((1.0, 1.0, 1.0), 0.0, 0.0, name="EmissiveLamp")
         return m.replace(emission=tuple(c * intensity for c in color))
+
+    @staticmethod
+    def NeonLight(color: Color):
+        m = Material.make(tuple(c * 0.1 for c in color), 0.0, 0.0, name="NeonLight")
+        return m.replace(emission=tuple(c * 1.5 for c in color))
 
     @staticmethod
     def MarbleCarrara(polished: bool = False):
@@ -213,12 +289,39 @@ class Materials:
                          subsurface_color=(0.98, 0.98, 0.96), subsurface_radius=1.0)
 
     @staticmethod
+    def MarbleNero(polished: bool = True):
+        base_rough = 0.12 if polished else 0.28
+        coat_amt = 0.85 if polished else 0.20
+        coat_rough = 0.04 if polished else 0.18
+        m = Material.make((0.04, 0.045, 0.05), base_rough, 0.0, name="MarbleNero")
+        return m.replace(ior=1.49, clearcoat=coat_amt, clearcoat_roughness=coat_rough,
+                         subsurface_color=(0.15, 0.15, 0.16), subsurface_radius=0.6)
+
+    @staticmethod
+    def MarbleVerde(polished: bool = True):
+        base_rough = 0.14 if polished else 0.30
+        coat_amt = 0.75 if polished else 0.18
+        coat_rough = 0.05 if polished else 0.19
+        m = Material.make((0.10, 0.18, 0.14), base_rough, 0.0, name="MarbleVerde")
+        return m.replace(ior=1.49, clearcoat=coat_amt, clearcoat_roughness=coat_rough,
+                         subsurface_color=(0.12, 0.20, 0.16), subsurface_radius=0.8)
+
+    @staticmethod
+    def Concrete():
+        return Material.make((0.5, 0.5, 0.5), 0.9, 0.0, name="Concrete").replace(
+            specular=(0.02, 0.02, 0.02))
+
+    @staticmethod
     def WoodOak():
         return Material.make((0.6, 0.4, 0.2), 0.5, 0.0, name="WoodOak").replace(
             specular=(0.04, 0.04, 0.04))
 
     @staticmethod
-    def Water():
-        m = Material.make((0.8, 0.95, 1.0), 0.01, 0.0, name="Water")
-        return m.replace(transmission=0.9, ior=1.33,
-                         specular=(0.02, 0.02, 0.02))
+    def WoodCherry():
+        m = Material.make((0.5, 0.2, 0.1), 0.4, 0.0, name="WoodCherry")
+        return m.replace(clearcoat=0.3, clearcoat_roughness=0.1)
+
+    @staticmethod
+    def WoodWalnut():
+        return Material.make((0.3, 0.2, 0.15), 0.45, 0.0, name="WoodWalnut").replace(
+            specular=(0.04, 0.04, 0.04))

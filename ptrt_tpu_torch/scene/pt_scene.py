@@ -26,19 +26,20 @@ import torch
 
 from ptrt_tpu_torch.core import rng as prng
 from ptrt_tpu_torch.core.bluenoise import blue_noise_table
-from ptrt_tpu_torch.core.vec import where
+from ptrt_tpu_torch.core.vec import Vec3, fmax, lerp, where
 from ptrt_tpu_torch.geometry import scene_geom
 from ptrt_tpu_torch.geometry.lbvh import lbvh_update
 from ptrt_tpu_torch.geometry.mesh import Mesh
 from ptrt_tpu_torch.geometry.refit import build_refit_plan, refit_apply
 from ptrt_tpu_torch.geometry.scene_geom import assemble_geometry
 from ptrt_tpu_torch.render import pipeline as pl
+from ptrt_tpu_torch.render import traverse
 from ptrt_tpu_torch.render.bloom import apply_bloom, bloom_mips
 from ptrt_tpu_torch.render.denoiser import (DEFAULT_SETTINGS, denoise_frame,
                                             init_denoiser_state)
 from ptrt_tpu_torch.render.motion import motion_vectors
 from ptrt_tpu_torch.render.sky import SkyConfig
-from ptrt_tpu_torch.scene.camera import Camera
+from ptrt_tpu_torch.scene.camera import Camera, pixel_grid
 from ptrt_tpu_torch.scene.lights import Light, LightTable
 from ptrt_tpu_torch.scene.materials import Material, MaterialTable
 from ptrt_tpu_torch.utils.imageio import save_ppm
@@ -79,6 +80,9 @@ class PerformanceSettings:
     max_bounce_depth: int = 4
     samples_per_pixel: int = 1
     resolution_scale: float = 1.0
+    # the reference's flag (kept for its API; nothing reads it: dynamic
+    # meshes always take the incremental updates)
+    fast_bvh_updates: bool = True
     enable_russian_roulette: bool = True
     russian_roulette_start_bounce: int = 1
     # True: bounce-0 hits receive analytic NEE (the reference's fix of its
@@ -150,7 +154,10 @@ class Scene:
         self.last_frame: pl.FrameBuffers | None = None
 
     # -- scene edits ---------------------------------------------------------
-    def add_mesh(self, mesh: Mesh, material: Material | None = None) -> Mesh:
+    def add_mesh(self, mesh_or_path, material: Material | None = None) -> Mesh:
+        """A ``Mesh``, or the path of an OBJ file to load."""
+        mesh = (mesh_or_path if isinstance(mesh_or_path, Mesh)
+                else Mesh(mesh_or_path))
         self.meshes.append(mesh)
         self.mesh_materials.append(material or Material())
         self._mark_geom_dirty()
@@ -575,6 +582,86 @@ class Scene:
                            torch.where(same, count + 1.0, 1.0))
         self._accum_view_proj = view_proj
         return self._accum[0] * self._accum[1].reciprocal()
+
+    def warmup(self, block: bool = True):
+        """Render one throwaway frame of the current configuration (on the
+        card this builds the kernels at their first use) and restore every
+        piece of progressive state: the frame count, the RNG state, the
+        denoiser history, the progressive average and the view-projection
+        it was taken under, ``prev_view_proj`` and ``last_frame``.  The
+        next frame is then bit-identical to an unwarmed scene's.
+        ``block=False`` renders on a background thread and returns it
+        (join it before rendering)."""
+        def go():
+            saved = (self.frame_count, self._rng_state, self._denoiser_state,
+                     self._accum, self._accum_view_proj, self.prev_view_proj,
+                     self.last_frame)
+            try:
+                self.render_frame_device()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            finally:
+                (self.frame_count, self._rng_state, self._denoiser_state,
+                 self._accum, self._accum_view_proj, self.prev_view_proj,
+                 self.last_frame) = saved
+
+        if block:
+            go()
+            return None
+        import threading
+
+        t = threading.Thread(target=go, daemon=True)
+        t.start()
+        return t
+
+    def render_wireframe(self, thickness: float = 0.05) -> np.ndarray:
+        """The barycentric-edge wireframe of the camera's pinhole rays
+        (K1, and K4 on a world with instances): a hit within ``thickness``
+        of an edge shows its material's emission if that is on, else white;
+        everything else the sky.  Reinhard, gamma 1/2.2, ``*255.99``
+        truncated, rows flipped: (H, W, 3) uint8 on the host."""
+        self._ensure_device_state()
+        s, t = pixel_grid(self.width, self.height, self.device)
+        ray = self.camera.get_ray_simple(s, t)
+        hit = traverse.intersect_closest(self._geom, ray.origin,
+                                         ray.direction)
+        w_bary = 1.0 - hit.u - hit.v
+        edge = hit.hit & ((hit.u < thickness) | (hit.v < thickness)
+                          | (w_bary < thickness))
+        lanes = self._mat_table.gather(fmax(hit.mesh_index, 0))
+        emissive = lanes.emission.x > 0.0
+        edge_color = where(emissive, lanes.emission, Vec3.full(1.0))
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32,
+                                     device=self.device)
+        top = Vec3(*[f32(c) for c in self.sky_color_top])
+        bottom = Vec3(*[f32(c) for c in self.sky_color_bottom])
+        tsky = 0.5 * (ray.direction.y + 1.0)
+        sky = lerp(bottom, top, tsky) * f32(1.0 if self.use_sky else 0.0)
+        color = where(edge, edge_color, sky)
+        color = color / (color + 1.0)
+        g = 1.0 / 2.2
+        arr = torch.stack([torch.pow(fmax(c, 0.0), g)
+                           for c in (color.x, color.y, color.z)], dim=-1)
+        img = torch.clamp(arr * 255.99, 0, 255).to(torch.uint8).flip(0)
+        return img.cpu().numpy()
+
+    def trace_single_ray(self, origin, direction) -> traverse.Hit:
+        """One ray (the direction normalised on the host) through K1, and
+        K4 on a world with instances, for picking and gameplay raycasts:
+        the ``Hit`` with each field a numpy scalar (``point`` and
+        ``normal`` Vec3s of them)."""
+        self._ensure_device_state()
+        f32 = lambda v: torch.tensor([float(v)], dtype=torch.float32,
+                                     device=self.device)
+        dn = np.asarray(direction, np.float64)
+        dn = dn / max(np.linalg.norm(dn), 1e-12)
+        hit = traverse.intersect_closest(
+            self._geom, Vec3(*[f32(c) for c in origin]),
+            Vec3(*[f32(c) for c in dn]))
+        first = lambda a: (a.map(first) if isinstance(a, Vec3)
+                           else a.cpu().numpy()[0])
+        return traverse.Hit(**{f.name: first(getattr(hit, f.name))
+                               for f in dataclasses.fields(hit)})
 
     def render_frame(self) -> np.ndarray:
         """One interactive frame -> (H, W, 3) uint8 on the host."""

@@ -661,9 +661,11 @@ def device_ms(fn, calls: int = 3) -> float:
     return sum(us for _, us in profiled_kernels(fn, calls)) / 1e3 / calls
 
 
-def frame_profile(sc, frames: int = 0, render=None) -> dict:
+def frame_profile(sc, frames: int = 0, render=None,
+                  lead_cycles: int = 0) -> dict:
     """One frame of ``sc`` (``render()``, by default ``sc.render_frame()``)
-    under torch.profiler, then ``frames`` frames timed on the host clock,
+    under torch.profiler (behind a spin of ``lead_cycles``, as
+    ``profiled_kernels``), then ``frames`` frames timed on the host clock,
     each ending in a synchronisation: {"device_ms", "launches", "top" (the
     five kernels with the most device time, ms), "names" (every kernel in
     launch order), "walk_ms" (K1 and K2), "k4_ms" (K4), "frame_ms"}; the
@@ -673,7 +675,7 @@ def frame_profile(sc, frames: int = 0, render=None) -> dict:
     import torch
 
     render = render or sc.render_frame
-    kern = profiled_kernels(render)
+    kern = profiled_kernels(render, lead_cycles=lead_cycles)
     ms = []
     for _ in range(frames):
         torch.cuda.synchronize()

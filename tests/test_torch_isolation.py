@@ -87,3 +87,71 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# -- the port's own copies of the reference's two data files -----------------
+
+_COPIES = (("native", "bvh_builder.cpp"), ("core", "_bluenoise_64.npy"))
+
+
+@pytest.mark.parametrize("sub,name", _COPIES, ids=[n for _, n in _COPIES])
+def test_port_copy_is_byte_equal_to_the_reference(sub, name):
+    """The port builds its BVH and draws its blue noise from its own copies,
+    which must stay the reference's bytes (so both build identical trees and
+    jitter identically)."""
+    with open(os.path.join(PKG, sub, name), "rb") as fh:
+        ours = fh.read()
+    with open(os.path.join(REPO, "ptrt_tpu", sub, name), "rb") as fh:
+        ref = fh.read()
+    assert ours == ref
+
+
+def _names_reference_dir(value) -> bool:
+    parts = value.replace("\\", "/").split("/")
+    return "ptrt_tpu" in parts
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_builds_no_path_into_the_reference(path):
+    """No string that a source passes to a call (``os.path.join``, ``open``,
+    ``np.load``, ...) names the JAX package's directory, and no name
+    ``REFERENCE_DIR`` is left: the port reads no file under ``ptrt_tpu/``.
+    (Strings that only cite the reference, as docs and the kernel table's
+    ``replaces`` entries do, are not call arguments.)"""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Name):
+            assert node.id != "REFERENCE_DIR", f"{path}:{node.lineno}"
+        if not isinstance(node, ast.Call):
+            continue
+        for arg in list(node.args) + [k.value for k in node.keywords]:
+            for sub in ast.walk(arg):
+                if isinstance(sub, ast.Constant) and isinstance(sub.value,
+                                                                str):
+                    assert not _names_reference_dir(sub.value), (
+                        f"{path}:{sub.lineno} passes {sub.value!r}")
+
+
+def test_port_modules_load_no_file_of_the_reference(tmp_path):
+    """Loading the blue-noise table and the native builder's source path
+    touches only the port's package."""
+    code = r"""
+import builtins, os, sys
+import numpy as np
+ref = os.path.join(os.getcwd(), "ptrt_tpu") + os.sep
+opened = []
+real_open = builtins.open
+def spy(f, *a, **k):
+    opened.append(os.path.abspath(str(f)))
+    return real_open(f, *a, **k)
+builtins.open = spy
+from ptrt_tpu_torch.core import bluenoise
+from ptrt_tpu_torch import native
+bluenoise.blue_noise_table("cpu")
+print(native.SOURCE.startswith(ref), any(p.startswith(ref) for p in opened))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"]
