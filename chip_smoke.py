@@ -129,16 +129,24 @@ Phases (any failure raises, so the exit code is non-zero):
      materials, its four lights and gradient sky in an RTScene at
      1920x1080): a warm-up and three timed frames with their launches
      (K1, K2, rt_light_rays and rt_shade twice a frame, rt_glass_rays and
-     rt_resolve once), the host time of a call and one profiled frame;
+     rt_resolve once: the glass pass walks and shades 2G rays for the G
+     glass lanes), the host time of a call, the image's RGB8 SHA-256, and
+     one profiled frame split by pass and kernel;
      each K10 kernel (csrc/rt_shade.cu) against its plain version on the
      frame's own K1 / K2 records: hit and front flags, the shadow rays'
-     t_max on missed lanes, the glass rays' t_max and seeds exact, the
-     rest within the RT_* tiers, K2 on the plain stage's shadow rays equal
-     to the frame's occlusion bits where the rays are the same, RGB8
-     within 1 LSB; the frame against the frame the plain stages build from
+     t_max on missed lanes exact, the glass records (the lanes in lane
+     order, the index plane, seeds, t_max) exact, rt_shade's colours on
+     both passes exact, the rest within the RT_* tiers, K2 on the plain
+     stage's shadow rays equal to the frame's occlusion bits where the
+     rays are the same, RGB8 within 1 LSB; the frame against the frame the
+     plain stages build from
      the same walk records (within 1 LSB on RT_FRAME_AGREE of the pixels,
      the rest counted by cause); each kernel timed queued beside its bound
-     and its plain version, with its registers and blocks a SM; a 256x144
+     and its plain version, and alone by CUDA events around its launch
+     (rt_glass_rays' time: its wrapper reads G to the host), with its
+     registers, local bytes, blocks a SM
+     and staged shared bytes, rt_shade and rt_light_rays also on the glass
+     rays; a 256x144
      RTScene of the same scene on the GPU and on the CPU;
  12. the PT Scene API: render_wireframe at 1920x1080 (a 98-triangle scene
      GPU vs CPU within 1 LSB, the 1M-triangle bench scene's timed),
@@ -2040,6 +2048,40 @@ def rt_bits(what, got, want, lanes=None) -> int:
     return bad
 
 
+def launch_ms(rs, name: str, call, calls: int = 20) -> float:
+    """Mean device ms of K10 kernel ``name``'s launches in ``call(None)``:
+    CUDA events recorded around each launch, the card spinning before
+    each, so that they time the kernel alone and not the wrapper's host
+    work (``rt_glass_rays``' read of G among it).  The profiler would say
+    the same, but inside this script it misses launches."""
+    import torch
+    from ptrt_tpu_torch.tools import stages
+
+    launch, events = rs._launch, []
+
+    def timed(k, a, dev):
+        if k != name:
+            return launch(k, a, dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(stages.SPIN_CYCLES // 20)
+        ev[0].record()
+        launch(k, a, dev)
+        ev[1].record()
+        events.append(ev)
+
+    rs._launch = timed
+    try:
+        call(None)
+        events.clear()
+        for _ in range(calls):
+            call(None)
+        torch.cuda.synchronize()
+    finally:
+        rs._launch = launch
+    assert len(events) == calls, (name, len(events))
+    return sum(s.elapsed_time(e) for s, e in events) / calls
+
+
 def rt_stage_bounds(sc, fr, n: int) -> dict:
     """Each K10 kernel's bound on this frame's data: bytes it must move
     (each input plane read once, each output written once, only the lanes
@@ -2067,20 +2109,26 @@ def rt_stage_bounds(sc, fr, n: int) -> dict:
         lit = int(occ.view(lights, m)[:, hit.hit].logical_not().sum())
         return bound(by, h * RT_OPS["shade"] + lit * RT_OPS["shade_light"])
 
-    glass_lanes = int((fr.glass.t[:n] > 0).sum()) if fr.glass is not None \
-        else 0
+    glass_lanes = fr.glass.lanes.shape[0] if fr.glass is not None else 0
+    h = int(fr.hit.hit.sum())
     out = {"rt_light_rays": light_rays(fr.k1),
            "rt_shade": shade(fr.hit, fr.occluded)}
     if fr.glass is not None:
-        h = int(fr.hit.hit.sum())
+        # the hit flag and index plane of every lane, the mesh id of a hit
+        # lane; a glass lane's ray direction, normal, point, front flag and
+        # t in, its two rays (28 bytes each), seed (8) and lane (4) out
         out["rt_glass_rays"] = bound(
-            n * 1 + h * 4 + glass_lanes * (12 + 12 + 12 + 1 + 4) + tables
-            + 2 * n * 28 + n * 4, glass_lanes * RT_OPS["glass_rays"])
+            n * (1 + 4) + h * 4 + tables
+            + glass_lanes * ((12 + 12 + 12 + 1 + 4) + (2 * 28 + 8 + 4)),
+            glass_lanes * RT_OPS["glass_rays"])
+    if fr.sec_k1 is not None:
         out["rt_light_rays (glass rays)"] = light_rays(fr.sec_k1)
         out["rt_shade (glass rays)"] = shade(fr.sec_hit, fr.sec_occluded)
-    h = int(fr.hit.hit.sum())
+    # the colour and index plane of every lane; a glass lane's mesh id, ray
+    # direction, normal, front flag, two secondary colours and refraction
+    # t and slot; the RGB8 out
     out["rt_resolve"] = bound(
-        n * (12 + 1) + h * 4 + tables + glass_lanes * (12 + 12 + 1 + 24 + 8)
+        n * (12 + 4) + tables + glass_lanes * (4 + 12 + 12 + 1 + 24 + 8)
         + n * 3, n * RT_OPS["resolve"] + glass_lanes * RT_OPS["glass_add"])
     return out
 
@@ -2094,7 +2142,10 @@ def check_rt_stages(sc, fr, stats) -> dict:
     the occlusion bits of K2 on the plain stage's shadow rays equal to the
     frame's on every ray where the two rays are bit-identical; RGB8 within
     1 LSB.  Returns the shares it measured."""
+    import dataclasses
+
     import torch
+    from ptrt_tpu_torch.core.vec import Vec3
     from ptrt_tpu_torch.render import rt_shading as rs
     from ptrt_tpu_torch.render import traverse
 
@@ -2102,7 +2153,6 @@ def check_rt_stages(sc, fr, stats) -> dict:
     nl = len(sc.lights)
     params = sc.params()
     o, d = sc.camera_rays()
-    n = d.x.shape[0]
     out = {}
 
     def light_pass(tag, o, d, k1, hit, shadow, occ):
@@ -2140,28 +2190,53 @@ def check_rt_stages(sc, fr, stats) -> dict:
         pc = rs.rt_shade_plain(hit, d, occ, mats, lts, nl, params)
         rt_vec_tiers(f"{tag} colour", color, pc, torch.ones_like(hit.hit),
                      stats["rt_shade"], RT_COLOR)
+        rt_bits(f"{tag} colour", color, pc)
         return pc
 
     light_pass("primary", o, d, fr.k1, fr.hit, fr.shadow, fr.occluded)
     shade_pass("primary", fr.hit, d, fr.occluded, fr.color)
     if fr.glass is not None:
+        # the compacted records: the lanes, their places and seeds exact,
+        # the rays within the RT tiers
         pg = rs.rt_glass_rays_plain(fr.hit, d, mats)
         s = stats["rt_glass_rays"]
-        live = pg.t[:n] > 0
-        rt_bits("glass live", fr.glass.t, pg.t)
+        g = pg.lanes.shape[0]
+        assert fr.glass.lanes.shape == (g,), (fr.glass.lanes.shape, g)
+        rt_bits("glass lanes", fr.glass.lanes, pg.lanes)
+        rt_bits("glass index", fr.glass.index, pg.index)
         rt_bits("glass seed", fr.glass.seed, pg.seed)
-        live2 = torch.cat([live, live])
+        rt_bits("glass t", fr.glass.t, pg.t)
+        live2 = torch.ones_like(pg.t, dtype=torch.bool)
         rt_vec_tiers("glass o", fr.glass.o, pg.o, live2, s)
         rt_vec_tiers("glass d", fr.glass.d, pg.d, live2, s, RT_DIRECTION)
-        out["glass lanes"] = int(live.sum())
-        out["glass share of hit lanes"] = float(
-            live.sum() / fr.hit.hit.sum())
+        out["glass lanes"] = g
+        out["glass share of hit lanes"] = float(g / fr.hit.hit.sum())
+        # past the tiles whose flags a thread keeps in a register: the
+        # frame's hit record three times over (6.2M lanes)
+        three = lambda v: (v.map(lambda c: torch.cat([c] * 3))
+                           if isinstance(v, Vec3) else torch.cat([v] * 3))
+        big = dataclasses.replace(fr.hit, **{
+            f.name: three(getattr(fr.hit, f.name))
+            for f in dataclasses.fields(fr.hit)})
+        kg, pg = rs.rt_glass_rays(big, three(d), mats), rs.rt_glass_rays_plain(
+            big, three(d), mats)
+        assert kg.lanes.shape == pg.lanes.shape == (3 * g,), kg.lanes.shape
+        for what in ("lanes", "index", "seed", "t"):
+            rt_bits(f"glass {what} (3 frames)", getattr(kg, what),
+                    getattr(pg, what))
+        every = torch.ones_like(pg.t, dtype=torch.bool)
+        rt_vec_tiers("glass o (3 frames)", kg.o, pg.o, every, s)
+        rt_vec_tiers("glass d (3 frames)", kg.d, pg.d, every, s,
+                     RT_DIRECTION)
+        out["glass lanes (3 frames)"] = int(kg.lanes.shape[0])
+        del big, kg, pg
+    if fr.sec_k1 is not None:
         light_pass("glass rays", fr.glass.o, fr.glass.d, fr.sec_k1,
                    fr.sec_hit, fr.sec_shadow, fr.sec_occluded)
         shade_pass("glass rays", fr.sec_hit, fr.glass.d, fr.sec_occluded,
                    fr.sec_color)
-    rgb_p = rs.rt_resolve_plain(fr.color, fr.hit, d, mats, fr.sec_color,
-                                fr.sec_k1, sc.height, sc.width)
+    rgb_p = rs.rt_resolve_plain(fr.color, fr.hit, d, mats, fr.glass,
+                                fr.sec_color, fr.sec_k1, sc.height, sc.width)
     diff = (fr.rgb8.int() - rgb_p.int()).abs()
     out["rt_resolve max LSB"] = int(diff.max())
     out["rt_resolve exact share"] = float((diff == 0).all(-1).double()
@@ -2186,15 +2261,14 @@ def rt_plain_frame(sc, fr):
     sec_color = None
     glass = rs.rt_glass_rays_plain(hit, d, mats) if fr.glass is not None \
         else None
-    if glass is not None:
+    if fr.sec_k1 is not None:
         sec_hit, _ = rs.rt_light_rays_plain(geom, glass.o, glass.d,
                                             fr.sec_k1, lts, nl)
         sec_color = rs.rt_shade_plain(sec_hit, glass.d, fr.sec_occluded,
                                       mats, lts, nl, params)
-    rgb = rs.rt_resolve_plain(color, hit, d, mats, sec_color, fr.sec_k1,
-                              sc.height, sc.width)
-    n = d.x.shape[0]
-    on_glass = (glass.t[:n] > 0) if glass is not None else hit.hit & False
+    rgb = rs.rt_resolve_plain(color, hit, d, mats, glass, sec_color,
+                              fr.sec_k1, sc.height, sc.width)
+    on_glass = (glass.index >= 0) if glass is not None else hit.hit & False
     return rgb, on_glass.view(sc.height, sc.width).flip(0)
 
 
@@ -2206,7 +2280,11 @@ def check_rt(dev, card) -> dict:
     whole frame against the frame the plain stages build from the same walk
     records (RGB8 within 1 LSB on RT_FRAME_AGREE of the pixels, the rest
     counted by cause); a 256x144 RTScene of the same scene on the GPU and on
-    the CPU.  Returns the kernel table's entries and the frame's numbers."""
+    the CPU.  Also the frame's RGB8 SHA-256 (so that two trees' images
+    compare bit for bit) and its profiled device time split by pass and
+    kernel.  Returns the kernel table's entries and the frame's numbers."""
+    import hashlib
+
     import numpy as np
     import torch
     from ptrt_tpu_torch import kernels
@@ -2241,16 +2319,26 @@ def check_rt(dev, card) -> dict:
     prof = stages.frame_profile(sc, render=sc.render_frame_device,
                                 lead_cycles=stages.SPIN_CYCLES)
     frame_ms = 1e3 * sum(frame_s) / len(frame_s)
+    split = (stages.rt_frame_split(prof["kernels"]) if prof["kernels"]
+             else None)
+    rgb_sha = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+    log(f"[rt] the 1080p rt frame's RGB8 sha256 {rgb_sha} [{card}]")
+    log(f"[rt] the profiled frame by pass and kernel (device ms): {split} "
+        f"[{card}]")
     log(f"[rt] frame {frame_ms:.3f} ms (frames "
         f"{[round(1e3 * s, 3) for s in frame_s]}), host {host_ms:.3f} ms "
         f"a call without waiting; one profiled frame: device "
         f"{prof['device_ms']} ms in {prof['launches']} launches, walks "
         f"{prof['walk_ms']} ms, top {prof['top']}; wrapper launches a frame "
         f"{launches} [{card}]")
+    # the scene has glass lanes in view, so the glass pass runs
+    n_glass = sc.last_frame.glass.lanes.shape[0]
+    assert n_glass > 0, "no glass lane in the rt frame"
     per_frame = {"closest_hit": 2, "any_hit": 2, "rt_light_rays": 2,
                  "rt_shade": 2, "rt_glass_rays": 1, "rt_resolve": 1}
     for k, v in per_frame.items():
         assert launches.get(k, 0) == v, (k, launches)
+    assert split is not None, "the profiler saw no rt_glass_rays"
     assert prof["names"] is not None, "the profiler saw no kernels"
     seen = {k: sum(f"{k}_kernel" in nm for nm in prof["names"])
             for k in per_frame}
@@ -2292,11 +2380,13 @@ def check_rt(dev, card) -> dict:
                                            nl, params),
                      lambda: rs.rt_shade_plain(fr.hit, d, fr.occluded, mats,
                                                lts, nl, params)),
+        # (the wrapper reads G to the host: queued, its calls wait on it)
         "rt_glass_rays": (lambda _: rs.rt_glass_rays(fr.hit, d, mats),
                           lambda: rs.rt_glass_rays_plain(fr.hit, d, mats)),
         "rt_resolve": (lambda _: rs.rt_resolve(
-            fr.color, fr.hit, d, mats, fr.sec_color, fr.sec_k1, H, W),
-            lambda: rs.rt_resolve_plain(fr.color, fr.hit, d, mats,
+            fr.color, fr.hit, d, mats, fr.glass, fr.sec_color, fr.sec_k1, H,
+            W),
+            lambda: rs.rt_resolve_plain(fr.color, fr.hit, d, mats, fr.glass,
                                         fr.sec_color, fr.sec_k1, H, W)),
     }
     bounds = rt_stage_bounds(sc, fr, n)
@@ -2305,17 +2395,25 @@ def check_rt(dev, card) -> dict:
     for k, (kern, plain) in calls.items():
         queued = [stages.clones_ms(kern, [None] * 21, stages.SPIN_CYCLES)
                   for _ in range(2)]
+        alone = launch_ms(rs, k, kern)
         plain_ms = cuda_ms(plain, 2)
-        entries[k] = {"ms": sum(queued) / 2, "queued_ms": queued,
+        # rt_glass_rays' time is the kernel's alone: its queued calls wait
+        # on the host's read of G
+        entries[k] = {"ms": alone if k == "rt_glass_rays" else sum(queued) / 2,
+                      "ms_by": ("kernel alone (events around its launch)"
+                                if k == "rt_glass_rays" else "queued"),
+                      "queued_ms": queued, "kernel_ms": alone,
                       "plain_ms": plain_ms, **bounds[k],
                       "launches": launches.get(k, 0),
                       "launches_per": "frame",
                       "max_abs_err": stats[k]["max_abs_err"], **info[k]}
-        log(f"  {k}: queued {queued[0]:.4f} / {queued[1]:.4f} ms, plain "
+        log(f"  {k}: queued {queued[0]:.4f} / {queued[1]:.4f} ms, kernel "
+            f"alone {alone:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bounds[k]['bound_ms']:.4f} ms "
             f"({bounds[k]['bound_by']}); {info[k]['registers']} registers, "
             f"{info[k]['local_bytes']} bytes local, "
-            f"{info[k]['blocks_per_sm']} blocks of {info[k]['threads']} a SM; "
+            f"{info[k]['blocks_per_sm']} blocks of {info[k]['threads']} a SM, "
+            f"{info[k]['shared_bytes']} bytes dynamic shared; "
             f"{launches.get(k, 0)} launches a frame [{card}]")
     sec_calls = {
         "rt_light_rays": lambda _: rs.rt_light_rays(
@@ -2328,7 +2426,8 @@ def check_rt(dev, card) -> dict:
         b = bounds[f"{k} (glass rays)"]
         entries[k]["glass_rays_queued_ms"] = queued
         entries[k]["glass_rays_bound_ms"] = b["bound_ms"]
-        log(f"  {k} on the {2 * n} glass rays: queued {queued[0]:.4f} / "
+        log(f"  {k} on the {2 * n_glass} glass rays (2G for the {n_glass} "
+            f"glass lanes): queued {queued[0]:.4f} / "
             f"{queued[1]:.4f} ms, bound {b['bound_ms']:.4f} ms "
             f"({b['bound_by']}) [{card}]")
     del fr, sc
@@ -2347,7 +2446,8 @@ def check_rt(dev, card) -> dict:
         f"[{card}]")
     assert small_within >= RT_FRAME_AGREE, small_within
     return {"entries": entries, "frame_ms": frame_ms, "host_ms": host_ms,
-            "device_ms": prof["device_ms"],
+            "device_ms": prof["device_ms"], "rgb8_sha256": rgb_sha,
+            "split": split, "glass_lanes": n_glass,
             "profiled_launches": prof["launches"], "launches": launches,
             "frame_within_1_lsb": within, "frame_causes": causes,
             "stages": shares, "small_within_1_lsb": small_within}
@@ -2550,7 +2650,8 @@ def main() -> int:
         ("closest_hit", "any_hit", "walk_count", "tonemap_rgb8",
          "gather_rows", "svgf_temporal", "svgf_atrous", "bloom_chain",
          "shade_nee", "shade_scatter", "instances_closest", "instances_any",
-         "refit_kernel", "morton_sort", "morton_codes"))
+         "refit_kernel", "morton_sort", "morton_codes", "rt_light_rays",
+         "rt_shade_kernel", "rt_glass_rays", "rt_resolve"))
     for k, fns in resources.items():
         for fn, r in fns.items():
             log(f"[build] {k} ({fn[-40:]}): {r['registers']} registers, "
@@ -3352,7 +3453,8 @@ def main() -> int:
          "replaces": RT_REPLACES["rt_resolve"], **rt["entries"]["rt_resolve"],
          "library_ms": None, "lanes": W * H,
          "rt_frame": {key: rt[key] for key in (
-             "frame_ms", "host_ms", "device_ms", "profiled_launches",
+             "frame_ms", "host_ms", "device_ms", "rgb8_sha256", "split",
+             "glass_lanes", "profiled_launches",
              "launches", "frame_within_1_lsb", "frame_causes",
              "small_within_1_lsb", "stages")},
          "scene_api": api},

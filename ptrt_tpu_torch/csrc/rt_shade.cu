@@ -9,8 +9,8 @@
 // 218).  The JAX package has no Pallas kernel here: this is the port's own
 // hand-written kernel for that hot path.  A frame:
 //   K1 -> rt_light_rays -> K2 -> rt_shade
-//   [glass] -> rt_glass_rays -> K1 (2N rays) -> rt_light_rays -> K2
-//           -> rt_shade
+//   [glass] -> rt_glass_rays (G glass lanes) -> K1 (2G rays)
+//           -> rt_light_rays -> K2 -> rt_shade
 //   -> rt_resolve
 // (render/rt_shading.py rt_frame).
 //
@@ -23,13 +23,61 @@
 // hundred elementwise launches a shade, each a round trip of whole planes
 // through device memory.
 //
-// What this design does about it (a first design, right before fast): one
-// thread a lane, every intermediate in registers, the material and light
-// rows read through the read-only cache (the tables are a few KB), the
-// shadow rays of all lights written by one launch so one K2 launch walks
-// them, and the hit record rebuilt from K1's slot here, so no torch op runs
-// between the kernels.  rt_resolve reads the glass lanes' two secondary
-// colours and K1's refraction record and writes RGB8 in flipped rows.
+// rt_light_rays and rt_resolve keep the first design: one thread a lane,
+// every intermediate in registers, the tables through the read-only cache,
+// the shadow rays of all lights written by one launch so one K2 launch walks
+// them, the hit record rebuilt from K1's slot, so no torch op runs between
+// the kernels.
+//
+// rt_glass_rays writes the rays of the glass lanes only.  The first design
+// wrote a reflection and a refraction ray for every lane, dead ones with
+// t_max -1, so K1, rt_light_rays, K2 and rt_shade ran the glass pass on 2N
+// rays where 5.8% of the hit lanes are glass (1080p bench scene).  Now one
+// cooperative launch, the grid the card holds at once, lists the G glass
+// lanes in lane order, in three phases between two grid syncs: (1) each
+// block counts the glass lanes of its run of lanes (a thread's flag a tile
+// kept in a register; the flags, mesh ids and materials of kBatch tiles
+// asked for a round at a time, not one tile's chain after another's); (2)
+// each block sums the counts before its own and writes its lanes' places
+// (the index plane, -1 off glass) and the glass lanes at their places; (3)
+// the grid's threads share out the G places, one glass lane each: its
+// reflection ray at its place p, its refraction ray at G + p and its seed.
+// The order is the plain version's nonzero order, so the records are
+// deterministic.  G lies in counts[0]; the wrapper reads it once a frame to
+// size the glass pass.  Bound: the hit flag, mesh id and index plane over
+// every lane, 41 bytes in and 64 out a glass lane: 0.007 ms at 1080p.
+// Measured on an H100 (PERF.md): 0.021-0.022 ms (the first design 0.059);
+// with the rays written in phase (2), each block its own glass lanes tile
+// by tile, 0.027, and with phase (1) one tile's loads after another's,
+// 0.024: a block that meets a glass object ran its tiles' chains of
+// dependent loads one after another.
+//
+// rt_shade (bound: its bytes, 0.028 ms on the primary pass at 1080p) ran at
+// 2 blocks of 256 a SM in its first design: 90 registers and 32 bytes of
+// stack, from the whole 27-float material row held in registers across the
+// light loop, the rare lobes (anisotropic GGX, iridescence, sheen, the
+// subsurface wrap, clear coat) inline so their registers counted for every
+// lane, and the sky lanes (39%) sharing warps with the hit lanes.  Now:
+// the material and light tables are staged in shared memory once a block
+// (dynamic shared memory sized from the tables' shapes; a table whose
+// staging would cost resident blocks is read through the read-only cache by
+// the same code), each material field read from the row where it is used;
+// the rare lobes are out of line (__noinline__), called only by the lanes
+// whose material has them; inside the light loop the material's scalars,
+// f0 and the lobe flags are read from the staged row and worked out again
+// each light (volatile shared loads, so the compiler holds none of them in
+// registers across the loop); a block takes two lanes a thread, writes its
+// sky lanes first and lists its hit lanes in shared memory in lane order,
+// so the warps that shade run full: 64 registers, 4 blocks a SM, no spill
+// stores.  Measured on an H100 at 1080p, queued (PERF.md): 0.085 ms on the
+// primary pass against the first design's 0.139.  Without the loads again
+// each light: 75 registers, 3 blocks, 0.094; at 2 blocks 0.135; at 4, 64
+// registers with 40 bytes of spill stores, 0.082; with f0 and the scalars
+// loaded again but the lobe flags held, 8 bytes of spill stores.  The list
+// of one lane a thread 0.104 (a block's warps left without a lane hold
+// their slots), of four 0.097, no list 0.098.  On the 146,120 glass rays
+// the list of two lanes fills fewer blocks than the card holds: 0.018 ms
+// against 0.014 without a list.
 //
 // Float order: this file builds with -fmad=false and follows the plain torch
 // version operation by operation, including how torch on the card rounds
@@ -38,8 +86,11 @@
 // from double, as torch does (F below).  The seed chain (the hash of the hit
 // point, then two LCG steps a perturbation, reflection first) is exact.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define F(x) static_cast<float>(x)
 
@@ -67,11 +118,15 @@ struct RtArgs {
     float* sh_t;               // -1 where the lane missed
     const uint8_t* occluded;   // K2's answer for them (rt_shade)
     float* color[3];           // rt_shade's colour (rt_resolve reads it)
-    float* g_o[3];             // glass rays: reflection 0..n-1, refraction
-    float* g_d[3];             //   n..2n-1 (rt_glass_rays)
+    float* g_o[3];             // glass rays: reflection 0..G-1, refraction
+    float* g_d[3];             //   G..2G-1 (rt_glass_rays; room for 2n)
     float* g_t;
-    int* seed;                 // the seed after both perturbations
-    const float* sec_color[3]; // the 2n secondary shades (rt_resolve)
+    long long* seed;           // (G) the seed after both perturbations
+    int* lanes;                // (G) the glass lanes, in lane order
+    int* index;                // (n) a lane's place in lanes, -1 off glass
+    int* counts;               // rt_glass_rays: G, then a count a block
+    long long n_glass;         // G (rt_resolve)
+    const float* sec_color[3]; // the 2G secondary shades (rt_resolve)
     const float* sec_t;        // K1's record of the glass rays
     const int* sec_slot;
     uint8_t* rgb;              // (height, width, 3), rows flipped
@@ -81,10 +136,32 @@ struct RtArgs {
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// resident blocks a SM rt_shade is compiled for: the fastest of 2, 3 and 4
+// with no spill stores; the lanes a thread takes, the fastest of 1, 2, 4
+// (see the note at the top)
+constexpr int kShadeBlocks = 4;
+constexpr int kShadeLanes = 2;
+// rt_glass_rays: tiles of kThreads lanes whose glass flags a thread keeps
+// in a register between the count and the places (past them it asks again)
+constexpr int kFlagTiles = 32;
+constexpr int kBatch = 8;  // tiles whose loads a thread issues together
+// dynamic shared memory a launch may ask for without an opt-in
+constexpr int kMaxStagedBytes = 48 * 1024;
+constexpr int kMaxDevices = 16;
 constexpr float kPi = F(3.141592653589793);
 constexpr float kTwoPiD = F(2.0 * 3.141592653589793);   // 2.0 * PI
 constexpr float kInvPi = F(1.0 / 3.141592653589793);    // INV_PI
 constexpr int kDirectional = 1, kSpot = 2;  // scene/lights.py LightType
+
+// scene/materials.py packed row: the columns read here
+enum MatCol {
+    kAlbedo = 0, kSpecular = 3, kEmission = 6, kSubsurfaceColor = 9,
+    kSheenTint = 12, kMetallic = 15, kRoughness = 16, kIor = 17,
+    kTransmission = 18, kTransRoughness = 19, kClearcoat = 20,
+    kClearcoatRoughness = 21, kSubsurfaceRadius = 22, kAnisotropy = 23,
+    kSheen = 24, kIridescence = 25, kIridescenceThickness = 26,
+};
 
 struct V3 {
     float x, y, z;
@@ -143,51 +220,43 @@ __device__ __forceinline__ V3 reflect(V3 i, V3 n) {
 __device__ __forceinline__ V3 lerp(V3 a, V3 b, float t) {
     return add(a, mul(sub(b, a), t));
 }
-__device__ __forceinline__ float lerpf(float a, float b, float t) {
-    return a + (b - a) * t;
-}
 
 // -- tables -------------------------------------------------------------------
 
-struct Mat {
-    V3 albedo, specular, emission, subsurface_color, sheen_tint;
-    float metallic, roughness, ior, transmission, transmission_roughness;
-    float clearcoat, clearcoat_roughness, subsurface_radius, anisotropy;
-    float sheen, iridescence, iridescence_thickness;
-};
-
-// scene/materials.py packed row: albedo 0-2, specular 3-5, emission 6-8,
-// subsurface_color 9-11, sheen_tint 12-14, then the scalars from 15; the id
-// clamped into the table as the plain version's gather clamps it
-__device__ Mat fetch_mat(const RtArgs& a, int id) {
-    id = min(max(id, 0), a.n_mats - 1);
-    const float* r = a.mat + static_cast<long long>(id) * a.mat_width;
-    float v[27];
-#pragma unroll
-    for (int k = 0; k < 27; ++k) v[k] = __ldg(r + k);
-    Mat m;
-    m.albedo = V3{v[0], v[1], v[2]};
-    m.specular = V3{v[3], v[4], v[5]};
-    m.emission = V3{v[6], v[7], v[8]};
-    m.subsurface_color = V3{v[9], v[10], v[11]};
-    m.sheen_tint = V3{v[12], v[13], v[14]};
-    m.metallic = v[15];
-    m.roughness = v[16];
-    m.ior = v[17];
-    m.transmission = v[18];
-    m.transmission_roughness = v[19];
-    m.clearcoat = v[20];
-    m.clearcoat_roughness = v[21];
-    m.subsurface_radius = v[22];
-    m.anisotropy = v[23];
-    m.sheen = v[24];
-    m.iridescence = v[25];
-    m.iridescence_thickness = v[26];
-    return m;
+// A read of a table: shared memory where the block staged it, else the
+// read-only path.
+template <bool kStaged>
+__device__ __forceinline__ float tl(const float* p) {
+    if (kStaged) return *p;
+    return __ldg(p);
+}
+template <bool kStaged>
+__device__ __forceinline__ V3 tl3(const float* p) {
+    return V3{tl<kStaged>(p), tl<kStaged>(p + 1), tl<kStaged>(p + 2)};
+}
+// The same read inside a loop: from shared memory a volatile load, so the
+// row is read again each time instead of held in registers across the loop.
+template <bool kStaged>
+__device__ __forceinline__ float tl_again(const float* p) {
+    if (kStaged) return *static_cast<const volatile float*>(p);
+    return __ldg(p);
+}
+template <bool kStaged>
+__device__ __forceinline__ V3 tl3_again(const float* p) {
+    return V3{tl_again<kStaged>(p), tl_again<kStaged>(p + 1),
+              tl_again<kStaged>(p + 2)};
 }
 
-__device__ __forceinline__ bool is_glass(const Mat& m) {
-    return m.transmission > 0.0f && clamp01(m.metallic) < F(0.1);
+// the material row of an id, clamped into the table as the plain version's
+// gather clamps it
+__device__ __forceinline__ const float* mat_row(const RtArgs& a,
+                                                const float* table, int id) {
+    id = min(max(id, 0), a.n_mats - 1);
+    return table + static_cast<long long>(id) * a.mat_width;
+}
+
+__device__ __forceinline__ bool is_glass(float transmission, float metallic) {
+    return transmission > 0.0f && clamp01(metallic) < F(0.1);
 }
 
 struct LightDir {
@@ -196,18 +265,16 @@ struct LightDir {
     bool is_dir;
 };
 
-// rt_shading.light_vectors: light j seen from the point (an area light is
-// shaded as a point light)
-__device__ LightDir light_dir(const RtArgs& a, int j, V3 point) {
-    const float* r = a.lights + static_cast<long long>(j) * a.light_width;
+// rt_shading.light_vectors: the light of row r seen from the point (an area
+// light is shaded as a point light)
+template <bool kStaged>
+__device__ __forceinline__ LightDir light_dir(const float* r, V3 point) {
     LightDir out;
-    out.is_dir = __ldg(r) == F(kDirectional);
-    const V3 to_light = sub(V3{__ldg(r + 1), __ldg(r + 2), __ldg(r + 3)},
-                            point);
+    out.is_dir = tl<kStaged>(r) == F(kDirectional);
+    const V3 to_light = sub(tl3<kStaged>(r + 1), point);
     out.dist = cmax(sqrtf(dot(to_light, to_light)), F(1e-6));
     const V3 l_pt = mul(to_light, 1.0f / out.dist);
-    out.l = out.is_dir ? neg(V3{__ldg(r + 4), __ldg(r + 5), __ldg(r + 6)})
-                       : l_pt;
+    out.l = out.is_dir ? neg(tl3<kStaged>(r + 4)) : l_pt;
     return out;
 }
 
@@ -254,7 +321,7 @@ __device__ __forceinline__ float geometry_smith(V3 n, V3 v, V3 l,
 // calculate_iridescence(thickness, cos_theta) with the reference's defaults
 // (film 1.3 on base 1.5, both Python floats): r_af and r_fb in double, their
 // square roots in float32, their sum rounded once
-__device__ V3 iridescence(float thickness, float cos_theta) {
+__device__ __forceinline__ V3 iridescence(float thickness, float cos_theta) {
     constexpr double film = 1.3, base = 1.5;
     constexpr double r_af = ((1.0 - film) / (1.0 + film)) *
                             ((1.0 - film) / (1.0 + film));
@@ -344,111 +411,182 @@ __device__ __forceinline__ uint32_t hash_seed(V3 p) {
     return lcg(__float_as_uint(f));
 }
 
-// shade_core of a hit lane, light j's occlusion at occluded[j * n + i]
-__device__ V3 shade_core(const RtArgs& a, long long i, V3 d, V3 ng, V3 point,
-                         const Mat& m) {
-    const V3 v = neg(d);
-    const float rough = clampf(m.roughness, F(0.02), 1.0f);
-    const float metal = clamp01(m.metallic);
-    const bool glass = m.transmission > 0.0f && metal < F(0.1);
-    const V3 f0 = lerp(m.specular, m.albedo, metal);
+// -- shade_core's rare lobes, out of line --------------------------------------
 
-    V3 color = m.emission;
-    const float ndotv = cmax(dot(ng, v), 0.0f);
-    const V3 f_amb = fresnel_schlick_roughness(ndotv, f0, rough);
-    const V3 kd_amb = glass ? v3(0.0f) : mul(sub(v3(1.0f), f_amb),
-                                             1.0f - metal);
-    const V3 ambient{a.params[0], a.params[1], a.params[2]};
-    color = add(color, mul(mul(kd_amb, m.albedo), ambient));
-
+// the anisotropic GGX terms of one light: (D, G) with the tangent frame of
+// ng and the alphas of the lane's roughness and anisotropy
+template <bool kStaged>
+__device__ __noinline__ float2 aniso_lobe(const float* r, V3 ng, V3 v, V3 l,
+                                          V3 h, float rough, float ndotv,
+                                          float ndotl) {
+    const float anisotropy = tl<kStaged>(r + kAnisotropy);
     V3 tf, bf;
     tangent_frame(ng, tf, bf);
     const float r2 = rough * rough;
-    const float aspect = sqrtf(1.0f - fabsf(m.anisotropy) * F(0.9));
+    const float aspect = sqrtf(1.0f - fabsf(anisotropy) * F(0.9));
     const float ax_pos = r2 / aspect, ay_pos = r2 * aspect;
-    const float ax = cmax(m.anisotropy >= 0.0f ? ax_pos : ay_pos, F(0.001));
-    const float ay = cmax(m.anisotropy >= 0.0f ? ay_pos : ax_pos, F(0.001));
-    const bool use_aniso = fabsf(m.anisotropy) > F(0.01);
+    const float ax = cmax(anisotropy >= 0.0f ? ax_pos : ay_pos, F(0.001));
+    const float ay = cmax(anisotropy >= 0.0f ? ay_pos : ax_pos, F(0.001));
+    const float dd = distribution_ggx_aniso(ng, h, tf, bf, ax, ay);
+    const float g = g1_aniso(ndotv, dot(tf, v), dot(bf, v), ax, ay) *
+                    g1_aniso(ndotl, dot(tf, l), dot(bf, l), ax, ay);
+    return make_float2(dd, g);
+}
 
+// the iridescent tint of the Fresnel term
+template <bool kStaged>
+__device__ __noinline__ V3 iridescent(const float* r, V3 f, float vdoth) {
+    const V3 irid = iridescence(tl<kStaged>(r + kIridescenceThickness),
+                                vdoth);
+    return lerp(f, mul(f, irid), tl<kStaged>(r + kIridescence));
+}
+
+struct Diffuse {
+    V3 kd, albedo;  // kD and the diffuse albedo over pi
+};
+
+// sheen adds to kD; the subsurface wrap bends the diffuse albedo
+template <bool kStaged>
+__device__ __noinline__ Diffuse sheen_subsurface(const float* r, Diffuse df,
+                                                 float metal, float vdoth,
+                                                 V3 v, V3 l) {
+    const float sheen = tl<kStaged>(r + kSheen);
+    const float x = 1.0f - vdoth;
+    const float fh = (x * x) * (x * x) * x;
+    if (sheen > 0.0f)
+        df.kd = add(df.kd, mul(lerp(v3(1.0f), tl3<kStaged>(r + kSheenTint),
+                                    fh),
+                               sheen * (1.0f - metal)));
+    const float radius = tl<kStaged>(r + kSubsurfaceRadius);
+    float sss = cmax(dot(v, neg(l)), 0.0f);
+    sss = sss * sss * radius;
+    if (radius > 0.0f)
+        df.albedo = lerp(df.albedo,
+                         mul(tl3<kStaged>(r + kSubsurfaceColor), kInvPi), sss);
+    return df;
+}
+
+// the clear coat over one light's lobe
+template <bool kStaged>
+__device__ __noinline__ V3 clearcoat(const float* r, V3 lo, V3 radiance,
+                                     V3 ng, V3 v, V3 l, V3 h, float vdoth,
+                                     float denom_s) {
+    const float coat = tl<kStaged>(r + kClearcoat);
+    const float coat_rough = tl<kStaged>(r + kClearcoatRoughness);
+    const float cc_d = distribution_ggx(ng, h, coat_rough);
+    const float cc_g = geometry_smith(ng, v, l, coat_rough);
+    const float cc_f = fresnel_coat(vdoth);
+    const float cc_brdf = cc_f * (cc_d * cc_g / denom_s);
+    return add(mul(lo, 1.0f - cc_f * coat), mul(mul(radiance, cc_brdf), coat));
+}
+
+// -- shade_core ------------------------------------------------------------------
+
+constexpr int kLobeAniso = 1, kLobeIrid = 2, kLobeSheenSss = 4, kLobeCoat = 8;
+
+// shade_core of hit lane i (material row r, light rows lts), light j's
+// occlusion at occluded[j * n + i].  The material's scalars, f0 and lobe
+// flags are read and worked out again each light (tl_again), so they take
+// no registers across the light loop.
+template <bool kStaged>
+__device__ __forceinline__ V3 shade_core(const RtArgs& a, const float* r,
+                                         const float* lts, long long i) {
+    const V3 d = ld3(a.d, i);
+    const V3 ng = ld3(a.normal, i);
+    const V3 point = ld3(a.point, i);
+    const V3 v = neg(d);
+    const float ndotv = cmax(dot(ng, v), 0.0f);
+    V3 color;
+    {
+        const float rough =
+            clampf(tl<kStaged>(r + kRoughness), F(0.02), 1.0f);
+        const float metal = clamp01(tl<kStaged>(r + kMetallic));
+        const bool glass =
+            tl<kStaged>(r + kTransmission) > 0.0f && metal < F(0.1);
+        const V3 f0 = lerp(tl3<kStaged>(r + kSpecular),
+                           tl3<kStaged>(r + kAlbedo), metal);
+        color = tl3<kStaged>(r + kEmission);
+        const V3 f_amb = fresnel_schlick_roughness(ndotv, f0, rough);
+        const V3 kd_amb = glass ? v3(0.0f) : mul(sub(v3(1.0f), f_amb),
+                                                 1.0f - metal);
+        const V3 ambient{a.params[0], a.params[1], a.params[2]};
+        color = add(color,
+                    mul(mul(kd_amb, tl3<kStaged>(r + kAlbedo)), ambient));
+    }
     for (int j = 0; j < a.n_lights; ++j) {
         if (a.occluded[static_cast<long long>(j) * a.n + i] != 0) continue;
-        const float* r = a.lights + static_cast<long long>(j) * a.light_width;
-        const LightDir ld = light_dir(a, j, point);
+        const float* lr = lts + static_cast<long long>(j) * a.light_width;
+        const LightDir ld = light_dir<kStaged>(lr, point);
         const V3 l = ld.l;
-        const int ltype = static_cast<int>(__ldg(r));
-        const V3 ldir{__ldg(r + 4), __ldg(r + 5), __ldg(r + 6)};
-        const V3 lcol{__ldg(r + 7), __ldg(r + 8), __ldg(r + 9)};
-        const float lint = __ldg(r + 10), lrange = __ldg(r + 11);
-        const float linner = __ldg(r + 12), louter = __ldg(r + 13);
-
+        const float lrange = tl<kStaged>(lr + 11);
         float att = lrange / (lrange + ld.dist);
         att = att * att;
-        const float theta = dot(l, neg(ldir));
-        const float eps_cone = linner - louter;
+        const float theta = dot(l, neg(tl3<kStaged>(lr + 4)));
+        const float louter = tl<kStaged>(lr + 13);
+        const float eps_cone = tl<kStaged>(lr + 12) - louter;
         const float spot = clamp01(
             (theta - louter) /
             (fabsf(eps_cone) < F(1e-12) ? F(1e-12) : eps_cone));
-        att = att * (ltype == kSpot ? spot : 1.0f);
+        att = att * (static_cast<int>(tl<kStaged>(lr)) == kSpot ? spot : 1.0f);
         const float attenuation = ld.is_dir ? 1.0f : att;
 
         const V3 h = normalize(add(l, v), F(1e-20));
         const float ndotl = cmax(dot(ng, l), 0.0f);
         const float vdoth = cmax(dot(v, h), 0.0f);
 
+        const float rough =
+            clampf(tl_again<kStaged>(r + kRoughness), F(0.02), 1.0f);
+        const int lobes =
+            (fabsf(tl_again<kStaged>(r + kAnisotropy)) > F(0.01) ? kLobeAniso
+                                                                  : 0) |
+            (tl_again<kStaged>(r + kIridescence) > 0.0f ? kLobeIrid : 0) |
+            (tl_again<kStaged>(r + kSheen) > 0.0f ||
+                     tl_again<kStaged>(r + kSubsurfaceRadius) > 0.0f
+                 ? kLobeSheenSss
+                 : 0) |
+            (tl_again<kStaged>(r + kClearcoat) > 0.0f ? kLobeCoat : 0);
         float dd, g;
-        if (use_aniso) {
-            dd = distribution_ggx_aniso(ng, h, tf, bf, ax, ay);
-            g = g1_aniso(ndotv, dot(tf, v), dot(bf, v), ax, ay) *
-                g1_aniso(ndotl, dot(tf, l), dot(bf, l), ax, ay);
+        if (lobes & kLobeAniso) {
+            const float2 dg =
+                aniso_lobe<kStaged>(r, ng, v, l, h, rough, ndotv, ndotl);
+            dd = dg.x;
+            g = dg.y;
         } else {
             dd = distribution_ggx(ng, h, rough);
             g = geometry_smith(ng, v, l, rough);
         }
-        V3 f = fresnel_schlick(vdoth, f0);
-        if (m.iridescence > 0.0f) {
-            const V3 irid = iridescence(m.iridescence_thickness, vdoth);
-            f = lerp(f, mul(f, irid), m.iridescence);
-        }
+        const float metal = clamp01(tl_again<kStaged>(r + kMetallic));
+        V3 f = fresnel_schlick(vdoth, lerp(tl3_again<kStaged>(r + kSpecular),
+                                           tl3_again<kStaged>(r + kAlbedo),
+                                           metal));
+        if (lobes & kLobeIrid) f = iridescent<kStaged>(r, f, vdoth);
         const float denom_s = 4.0f * ndotv * ndotl + F(0.001);
         const V3 spec = mul(f, dd * g / denom_s);
-        V3 kd = mul(sub(v3(1.0f), f), 1.0f - metal);
-        V3 diffuse = mul(m.albedo, kInvPi);
-
-        // sheen adds to kD
-        const float x = 1.0f - vdoth;
-        const float fh = (x * x) * (x * x) * x;
-        if (m.sheen > 0.0f)
-            kd = add(kd, mul(lerp(v3(1.0f), m.sheen_tint, fh),
-                             m.sheen * (1.0f - metal)));
-        // subsurface wrap
-        float sss = cmax(dot(v, neg(l)), 0.0f);
-        sss = sss * sss * m.subsurface_radius;
-        if (m.subsurface_radius > 0.0f)
-            diffuse = lerp(diffuse, mul(m.subsurface_color, kInvPi), sss);
+        Diffuse df{mul(sub(v3(1.0f), f), 1.0f - metal),
+                   mul(tl3_again<kStaged>(r + kAlbedo), kInvPi)};
+        if (lobes & kLobeSheenSss)
+            df = sheen_subsurface<kStaged>(r, df, metal, vdoth, v, l);
         // thin transmission for glass
         V3 thin = v3(0.0f);
-        if (glass) {
-            thin = mul(sub(v3(1.0f), f), m.transmission);
-            kd = v3(0.0f);
+        const float transmission = tl_again<kStaged>(r + kTransmission);
+        if (transmission > 0.0f && metal < F(0.1)) {
+            thin = mul(sub(v3(1.0f), f), transmission);
+            df.kd = v3(0.0f);
         }
-        const V3 radiance = mul(lcol, lint * 20.0f * ndotl * attenuation);
-        V3 lo = mul(add(add(mul(kd, diffuse), spec), thin), radiance);
-        // clearcoat
-        if (m.clearcoat > 0.0f) {
-            const float cc_d = distribution_ggx(ng, h, m.clearcoat_roughness);
-            const float cc_g = geometry_smith(ng, v, l, m.clearcoat_roughness);
-            const float cc_f = fresnel_coat(vdoth);
-            const float cc_brdf = cc_f * (cc_d * cc_g / denom_s);
-            lo = add(mul(lo, 1.0f - cc_f * m.clearcoat),
-                     mul(mul(radiance, cc_brdf), m.clearcoat));
-        }
+        const V3 radiance = mul(tl3<kStaged>(lr + 7),
+                                tl<kStaged>(lr + 10) * 20.0f * ndotl *
+                                    attenuation);
+        V3 lo = mul(add(add(mul(df.kd, df.albedo), spec), thin), radiance);
+        if (lobes & kLobeCoat)
+            lo = clearcoat<kStaged>(r, lo, radiance, ng, v, l, h, vdoth,
+                                    denom_s);
         color = add(color, lo);
     }
     return color;
 }
 
 // glass_terms: the Fresnel term, refraction validity and, with rays, the two
-// (perturbed) directions and the seed
+// (perturbed) directions and the seed (material row r, global memory)
 struct Glass {
     V3 fr;
     bool refr_ok;
@@ -458,10 +596,11 @@ struct Glass {
 
 template <bool RAYS>
 __device__ Glass glass_terms(V3 i, V3 nf, bool entering, V3 point,
-                             const Mat& m) {
+                             const float* r) {
     Glass g;
-    const float n1 = entering ? 1.0f : m.ior;
-    const float n2 = entering ? m.ior : 1.0f;
+    const float ior = __ldg(r + kIor);
+    const float n1 = entering ? 1.0f : ior;
+    const float n2 = entering ? ior : 1.0f;
     const float eta = n1 / n2;
     const float r0 = (n2 - n1) / (n2 + n1);
     const float f0s = r0 * r0;
@@ -473,14 +612,15 @@ __device__ Glass glass_terms(V3 i, V3 nf, bool entering, V3 point,
     if (!RAYS) return g;
     uint32_t seed = hash_seed(point);
     g.r_dir = normalize(reflect(i, nf), F(1e-20));
-    const float refl_rough = tmaximum(m.roughness, m.transmission_roughness);
+    const float trans_rough = __ldg(r + kTransRoughness);
+    const float refl_rough = tmaximum(__ldg(r + kRoughness), trans_rough);
     const V3 r_pert = perturb(g.r_dir, refl_rough, seed);
     if (refl_rough > F(0.02)) g.r_dir = r_pert;
     g.t_dir = normalize(sub(mul(i, eta), mul(nf, eta * ndoti +
                                                  sqrtf(cmax(k, 0.0f)))),
                         F(1e-20));
-    const V3 t_pert = perturb(g.t_dir, m.transmission_roughness, seed);
-    if (m.transmission_roughness > F(0.02)) g.t_dir = t_pert;
+    const V3 t_pert = perturb(g.t_dir, trans_rough, seed);
+    if (trans_rough > F(0.02)) g.t_dir = t_pert;
     g.seed = seed;
     return g;
 }
@@ -516,62 +656,200 @@ rt_light_rays_kernel(const RtArgs a) {
             a.sh_t[k] = -1.0f;
             continue;
         }
-        const LightDir ld = light_dir(a, j, point);
+        const LightDir ld = light_dir<false>(
+            a.lights + static_cast<long long>(j) * a.light_width, point);
         st3(a.sh_o, k, origin);
         st3(a.sh_d, k, ld.l);
         a.sh_t[k] = ld.is_dir ? F(1e30) : ld.dist;
     }
 }
 
-__global__ void __launch_bounds__(kThreads) rt_shade_kernel(const RtArgs a) {
-    const long long i = blockIdx.x * static_cast<long long>(kThreads) +
-                        threadIdx.x;
-    if (i >= a.n) return;
-    const V3 d = ld3(a.d, i);
-    V3 c;
-    if (a.hit[i] != 0) {
-        const Mat m = fetch_mat(a, a.hit_mesh[i]);
-        c = shade_core(a, i, d, ld3(a.normal, i), ld3(a.point, i), m);
-    } else {
-        c = sky(a, d);
+// A block stages the tables (kStaged) and takes kShadeLanes lanes a thread,
+// kThreads * kShadeLanes neighbouring lanes: it writes the sky of its lanes
+// that missed, lists its hit lanes in shared memory in lane order and
+// shades them from the list, kThreads at a time.
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads, kShadeBlocks)
+rt_shade_kernel(const RtArgs a) {
+    constexpr int kChunk = kThreads * kShadeLanes;
+    extern __shared__ float staged[];
+    __shared__ int warp_hits[kWarps];
+    __shared__ int list[kChunk];
+    const float* mats = a.mat;
+    const float* lts = a.lights;
+    if (kStaged) {
+        const int n_mat = a.n_mats * a.mat_width;
+        const int n_light = a.n_lights > 0 ? a.n_light_rows * a.light_width
+                                           : 0;
+        for (int k = threadIdx.x; k < n_mat; k += kThreads)
+            staged[k] = __ldg(a.mat + k);
+        for (int k = threadIdx.x; k < n_light; k += kThreads)
+            staged[n_mat + k] = __ldg(a.lights + k);
+        mats = staged;
+        lts = staged + n_mat;
     }
-    st3(a.color, i, c);
+    const long long base = blockIdx.x * static_cast<long long>(kChunk);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    bool hit[kShadeLanes];
+#pragma unroll
+    for (int k = 0; k < kShadeLanes; ++k) {
+        const long long i = base + k * kThreads + threadIdx.x;
+        hit[k] = i < a.n && a.hit[i] != 0;
+    }
+    int n_hit = 0;
+#pragma unroll
+    for (int k = 0; k < kShadeLanes; ++k) {
+        const int j = k * kThreads + threadIdx.x;
+        if (!hit[k] && base + j < a.n)
+            st3(a.color, base + j, sky(a, ld3(a.d, base + j)));
+        const unsigned ballot = __ballot_sync(0xffffffffu, hit[k]);
+        if (k > 0) __syncthreads();  // the round before has read warp_hits
+        if (lane == 0) warp_hits[warp] = __popc(ballot);
+        __syncthreads();  // (the first also shows the staged tables)
+        int at = n_hit + __popc(ballot & ((1u << lane) - 1u));
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+            const int c = warp_hits[w];
+            at += w < warp ? c : 0;
+            n_hit += c;
+        }
+        if (hit[k]) list[at] = j;
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < n_hit; k += kThreads) {
+        const long long i = base + list[k];
+        st3(a.color, i,
+            shade_core<kStaged>(a, mat_row(a, mats, a.hit_mesh[i]), lts, i));
+    }
 }
 
+__device__ __forceinline__ bool glass_lane(const RtArgs& a, long long i) {
+    if (i >= a.n || a.hit[i] == 0) return false;
+    const float* r = mat_row(a, a.mat, a.hit_mesh[i]);
+    return is_glass(__ldg(r + kTransmission), __ldg(r + kMetallic));
+}
+
+// One cooperative launch in three phases (see the note at the top): block
+// b takes lanes [b, b + 1) * tiles * kThreads.
 __global__ void __launch_bounds__(kThreads)
-rt_glass_rays_kernel(const RtArgs a) {
-    const long long i = blockIdx.x * static_cast<long long>(kThreads) +
-                        threadIdx.x;
-    if (i >= a.n) return;
-    const V3 d = ld3(a.d, i);
-    const long long i2 = a.n + i;
-    bool live = a.hit[i] != 0;
-    Mat m;
-    if (live) {
-        m = fetch_mat(a, a.hit_mesh[i]);
-        live = is_glass(m);
+rt_glass_rays_kernel(const __grid_constant__ RtArgs a, int tiles) {
+    __shared__ int warp_n[kWarps];
+    __shared__ int red[2][kWarps];
+    cg::grid_group grid = cg::this_grid();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const long long first =
+        static_cast<long long>(blockIdx.x) * tiles * kThreads + threadIdx.x;
+    // 1. each thread's glass lanes, kBatch tiles at a time (their flags,
+    // then their mesh ids, then the materials: each a round of independent
+    // loads), then the block's count
+    unsigned flags = 0u;
+    int count = 0;
+    for (int t0 = 0; t0 < tiles; t0 += kBatch) {
+        int mesh[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+            const long long i =
+                first + static_cast<long long>(t0 + b) * kThreads;
+            mesh[b] = t0 + b < tiles && i < a.n && a.hit[i] != 0 ? 0 : -1;
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b)
+            if (mesh[b] >= 0)
+                mesh[b] = max(a.hit_mesh[first + static_cast<long long>(
+                                                     t0 + b) * kThreads],
+                              0);
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+            bool g = false;
+            if (mesh[b] >= 0) {
+                const float* r = mat_row(a, a.mat, mesh[b]);
+                g = is_glass(__ldg(r + kTransmission), __ldg(r + kMetallic));
+            }
+            if (t0 + b < kFlagTiles) flags |= static_cast<unsigned>(g) <<
+                                              (t0 + b);
+            count += g;
+        }
     }
-    if (!live) {  // dead rays: origin 0, the primary direction, t_max -1
-        st3(a.g_o, i, v3(0.0f));
-        st3(a.g_o, i2, v3(0.0f));
-        st3(a.g_d, i, d);
-        st3(a.g_d, i2, d);
-        a.g_t[i] = -1.0f;
-        a.g_t[i2] = -1.0f;
-        a.seed[i] = 0;
-        return;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+        count += __shfl_xor_sync(0xffffffffu, count, s);
+    if (lane == 0) warp_n[warp] = count;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        int c = 0;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) c += warp_n[w];
+        a.counts[1 + blockIdx.x] = c;
     }
-    const V3 nf = ld3(a.normal, i);
-    const V3 point = ld3(a.point, i);
-    const Glass g = glass_terms<true>(d, nf, a.front[i] != 0, point, m);
-    const V3 off = mul(nf, cmax(a.hit_t[i], 1.0f) * F(1e-3));
-    st3(a.g_o, i, add(point, off));
-    st3(a.g_o, i2, sub(point, off));
-    st3(a.g_d, i, g.r_dir);
-    st3(a.g_d, i2, g.t_dir);
-    a.g_t[i] = F(1e30);
-    a.g_t[i2] = F(1e30);
-    a.seed[i] = static_cast<int>(g.seed);
+    grid.sync();
+    // 2. the glass lanes of the blocks before this one, and of all; then
+    // each tile's glass lanes in lane order: their places and the lanes
+    int before = 0, total = 0;
+    for (int b = threadIdx.x; b < static_cast<int>(gridDim.x);
+         b += kThreads) {
+        const int c = __ldcg(a.counts + 1 + b);
+        total += c;
+        before += b < static_cast<int>(blockIdx.x) ? c : 0;
+    }
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+        before += __shfl_xor_sync(0xffffffffu, before, s);
+        total += __shfl_xor_sync(0xffffffffu, total, s);
+    }
+    if (lane == 0) {
+        red[0][warp] = before;
+        red[1][warp] = total;
+    }
+    __syncthreads();
+    before = total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+        before += red[0][w];
+        total += red[1][w];
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) a.counts[0] = total;
+    int place = before;
+    for (int t = 0; t < tiles; ++t) {
+        const long long i = first + static_cast<long long>(t) * kThreads;
+        const bool g = t < kFlagTiles ? ((flags >> t) & 1u) != 0u
+                                      : glass_lane(a, i);
+        const unsigned ballot = __ballot_sync(0xffffffffu, g);
+        __syncthreads();  // the tile before has read warp_n
+        if (lane == 0) warp_n[warp] = __popc(ballot);
+        __syncthreads();
+        int at = place + __popc(ballot & ((1u << lane) - 1u)), tile_n = 0;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+            const int c = warp_n[w];
+            at += w < warp ? c : 0;
+            tile_n += c;
+        }
+        place += tile_n;
+        if (i < a.n) a.index[i] = g ? at : -1;
+        if (g) a.lanes[at] = static_cast<int>(i);
+    }
+    grid.sync();
+    // 3. the rays of the glass lanes, spread over the whole grid
+    const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+    for (long long p = static_cast<long long>(blockIdx.x) * kThreads +
+                       threadIdx.x;
+         p < total; p += stride) {
+        const long long i = __ldcg(a.lanes + p);
+        const float* r = mat_row(a, a.mat, a.hit_mesh[i]);
+        const V3 nf = ld3(a.normal, i);
+        const V3 point = ld3(a.point, i);
+        const Glass gl =
+            glass_terms<true>(ld3(a.d, i), nf, a.front[i] != 0, point, r);
+        const V3 off = mul(nf, cmax(a.hit_t[i], 1.0f) * F(1e-3));
+        const long long p2 = total + p;
+        st3(a.g_o, p, add(point, off));
+        st3(a.g_o, p2, sub(point, off));
+        st3(a.g_d, p, gl.r_dir);
+        st3(a.g_d, p2, gl.t_dir);
+        a.g_t[p] = F(1e30);
+        a.g_t[p2] = F(1e30);
+        a.seed[p] = static_cast<long long>(gl.seed);
+    }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -580,26 +858,25 @@ rt_resolve_kernel(const RtArgs a) {
                         threadIdx.x;
     if (i >= a.n) return;
     V3 c = ld3(a.color, i);
-    if (a.sec_color[0] != nullptr && a.hit[i] != 0) {
-        const Mat m = fetch_mat(a, a.hit_mesh[i]);
-        if (is_glass(m)) {
-            const Glass g = glass_terms<false>(ld3(a.d, i), ld3(a.normal, i),
-                                               a.front[i] != 0, v3(0.0f), m);
-            const long long i2 = a.n + i;
-            const float thickness = a.sec_slot[i2] >= 0 ? a.sec_t[i2] : 1.0f;
-            const V3 alb{clamp01(clamp01(m.albedo.x)),
-                         clamp01(clamp01(m.albedo.y)),
-                         clamp01(clamp01(m.albedo.z))};
-            const V3 absorb{powf(alb.x, thickness), powf(alb.y, thickness),
-                            powf(alb.z, thickness)};
-            const V3 t_col = g.refr_ok ? mul(absorb, ld3(a.sec_color, i2))
-                                       : v3(0.0f);
-            const V3 fr = g.refr_ok ? g.fr : v3(1.0f);
-            const V3 glass_add =
-                add(mul(fr, ld3(a.sec_color, i)),
-                    mul(mul(sub(v3(1.0f), fr), m.transmission), t_col));
-            c = add(c, glass_add);
-        }
+    const int place = a.index != nullptr ? a.index[i] : -1;
+    if (place >= 0) {  // a glass lane: its two shades at place and G + place
+        const float* r = mat_row(a, a.mat, a.hit_mesh[i]);
+        const Glass g = glass_terms<false>(ld3(a.d, i), ld3(a.normal, i),
+                                           a.front[i] != 0, v3(0.0f), r);
+        const long long k2 = a.n_glass + place;
+        const float thickness = a.sec_slot[k2] >= 0 ? a.sec_t[k2] : 1.0f;
+        const V3 alb{clamp01(clamp01(__ldg(r + kAlbedo))),
+                     clamp01(clamp01(__ldg(r + kAlbedo + 1))),
+                     clamp01(clamp01(__ldg(r + kAlbedo + 2)))};
+        const V3 absorb{powf(alb.x, thickness), powf(alb.y, thickness),
+                        powf(alb.z, thickness)};
+        const V3 t_col = g.refr_ok ? mul(absorb, ld3(a.sec_color, k2))
+                                   : v3(0.0f);
+        const V3 fr = g.refr_ok ? g.fr : v3(1.0f);
+        const V3 glass_add = add(
+            mul(fr, ld3(a.sec_color, place)),
+            mul(mul(sub(v3(1.0f), fr), __ldg(r + kTransmission)), t_col));
+        c = add(c, glass_add);
     }
     // Reinhard, gamma, *255 truncated; the rows flipped
     const float ch[3] = {c.x, c.y, c.z};
@@ -624,40 +901,132 @@ int launch(K kernel, const RtArgs* args, void* stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
+// rt_shade's tables: their bytes, and whether the staged kernel keeps
+// kShadeBlocks a SM with them (remembered a device for the last size asked)
+cudaError_t shade_staging(const RtArgs* a, int* bytes, bool* staged) {
+    const long long floats =
+        static_cast<long long>(a->n_mats) * a->mat_width +
+        (a->n_lights > 0
+             ? static_cast<long long>(a->n_light_rows) * a->light_width
+             : 0);
+    *bytes = static_cast<int>(floats * 4 < kMaxStagedBytes ? floats * 4
+                                                            : kMaxStagedBytes);
+    *staged = false;
+    if (floats * 4 > kMaxStagedBytes) return cudaSuccess;
+    static int last_bytes[kMaxDevices], last_per_sm[kMaxDevices];
+    static bool known[kMaxDevices];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess && (dev < 0 || dev >= kMaxDevices))
+        e = cudaErrorInvalidDevice;
+    if (e != cudaSuccess) return e;
+    if (!known[dev] || last_bytes[dev] != *bytes) {
+        int per_sm = 0;
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, reinterpret_cast<const void*>(rt_shade_kernel<true>),
+            kThreads, *bytes);
+        if (e != cudaSuccess) return e;
+        last_bytes[dev] = *bytes;
+        last_per_sm[dev] = per_sm;
+        known[dev] = true;
+    }
+    *staged = last_per_sm[dev] >= kShadeBlocks;
+    return cudaSuccess;
+}
+
+// rt_glass_rays' grid: the blocks the card holds at once, each a run of
+// ``tiles`` tiles of kThreads lanes, at most a block a tile
+cudaError_t glass_grid(long long n, int* grid, int* tiles) {
+    static int per_sm[kMaxDevices], sms[kMaxDevices];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess && (dev < 0 || dev >= kMaxDevices))
+        e = cudaErrorInvalidDevice;
+    if (e == cudaSuccess && per_sm[dev] == 0) {
+        e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                   dev);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm[dev], rt_glass_rays_kernel, kThreads, 0);
+    }
+    if (e != cudaSuccess) return e;
+    const long long need = (n + kThreads - 1) / kThreads;
+    const long long most = static_cast<long long>(sms[dev]) *
+                           (per_sm[dev] > 0 ? per_sm[dev] : 1);
+    const long long t = (need + most - 1) / most;
+    *tiles = static_cast<int>(t);
+    *grid = static_cast<int>((need + t - 1) / t);
+    return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int ptrt_rt_light_rays(const RtArgs* args, void* stream) {
     return launch(rt_light_rays_kernel, args, stream);
 }
+
 extern "C" int ptrt_rt_shade(const RtArgs* args, void* stream) {
-    return launch(rt_shade_kernel, args, stream);
+    if (args->n <= 0) return static_cast<int>(cudaGetLastError());
+    int bytes = 0;
+    bool staged = false;
+    const cudaError_t e = shade_staging(args, &bytes, &staged);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    constexpr int kChunk = kThreads * kShadeLanes;
+    const unsigned blocks =
+        static_cast<unsigned>((args->n + kChunk - 1) / kChunk);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (staged)
+        rt_shade_kernel<true><<<blocks, kThreads, bytes, s>>>(*args);
+    else
+        rt_shade_kernel<false><<<blocks, kThreads, 0, s>>>(*args);
+    return static_cast<int>(cudaGetLastError());
 }
+
+// rt_glass_rays: ``counts`` holds 1 + ceil(n / 256) ints; G is written to
+// counts[0].  The ray planes have room for 2n rays, seed and lanes for n.
 extern "C" int ptrt_rt_glass_rays(const RtArgs* args, void* stream) {
-    return launch(rt_glass_rays_kernel, args, stream);
+    if (args->n <= 0) return static_cast<int>(cudaGetLastError());
+    int grid = 0, tiles = 0;
+    const cudaError_t e = glass_grid(args->n, &grid, &tiles);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    RtArgs a = *args;
+    void* params[] = {&a, &tiles};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(rt_glass_rays_kernel), dim3(grid),
+        dim3(kThreads), params, 0, static_cast<cudaStream_t>(stream)));
 }
+
 extern "C" int ptrt_rt_resolve(const RtArgs* args, void* stream) {
     return launch(rt_resolve_kernel, args, stream);
 }
 
 // Registers, local-memory bytes a thread, threads a block, resident blocks a
 // SM and dynamic shared bytes a block of kernel k (rt_light_rays, rt_shade,
-// rt_glass_rays, rt_resolve).
+// rt_glass_rays, rt_resolve); rt_shade's as a launch with these tables
+// takes it, staged or not.
 extern "C" int ptrt_rt_info(int k, const RtArgs* args, int* regs,
                             int* local_bytes, int* threads, int* per_sm,
                             int* shared_bytes) {
-    (void)args;
+    int bytes = 0;
+    bool staged = false;
+    cudaError_t e = cudaSuccess;
+    if (k == 1) e = shade_staging(args, &bytes, &staged);
+    if (!staged) bytes = 0;
     const void* kernel =
-        k == 0 ? reinterpret_cast<const void*>(rt_light_rays_kernel)
-        : k == 1 ? reinterpret_cast<const void*>(rt_shade_kernel)
+        k == 0   ? reinterpret_cast<const void*>(rt_light_rays_kernel)
+        : k == 1 ? (staged ? reinterpret_cast<const void*>(
+                                 rt_shade_kernel<true>)
+                           : reinterpret_cast<const void*>(
+                                 rt_shade_kernel<false>))
         : k == 2 ? reinterpret_cast<const void*>(rt_glass_rays_kernel)
                  : reinterpret_cast<const void*>(rt_resolve_kernel);
     cudaFuncAttributes attr = {};
-    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
     *threads = kThreads;
-    *shared_bytes = 0;
+    *shared_bytes = bytes;
     if (e == cudaSuccess)
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
-                                                          kThreads, 0);
+                                                          kThreads, bytes);
     *regs = attr.numRegs;
     *local_bytes = static_cast<int>(attr.localSizeBytes);
     return static_cast<int>(e);

@@ -22,18 +22,18 @@ CPU tensors, with no fallback between the two:
   lane missed, so ONE K2 launch walks the shadow rays of all lights;
 * ``rt_shade`` — ``shade_core`` given K2's occlusion bits, or the sky on a
   miss;
-* ``rt_glass_rays`` — a glass lane's reflection ray (rays 0..N-1) and
-  refraction ray (N..2N-1), each GGX-perturbed from the hit point's hash
-  seed; every other lane gets dead rays (origin 0, the primary direction,
-  ``t_max = -1``) and seed 0;
+* ``rt_glass_rays`` — the G glass lanes listed in lane order, and for
+  each a reflection ray (rays 0..G-1) and a refraction ray (G..2G-1), each
+  GGX-perturbed from the hit point's hash seed, with its seed and an (N,)
+  plane of every lane's place in the list (-1 off glass);
 * ``rt_resolve`` — the glass terms (Beer–Lambert, the Fresnel mix) added to
   the primary colour, then Reinhard, ``pow(·, 0.4545454545)``, ``*255``
   truncated to RGB8, rows flipped.
 
 A frame: camera rays -> K1 -> ``rt_light_rays`` -> K2 -> ``rt_shade``;
-with glass in the scene -> ``rt_glass_rays`` -> K1 (2N rays) ->
-``rt_light_rays`` -> K2 -> ``rt_shade``; then ``rt_resolve``
-(``rt_frame``).
+with glass in the scene -> ``rt_glass_rays`` -> K1 (2G rays for the G
+glass lanes; none where G = 0) -> ``rt_light_rays`` -> K2 -> ``rt_shade``;
+then ``rt_resolve`` (``rt_frame``).
 """
 
 from __future__ import annotations
@@ -424,15 +424,19 @@ class ShadowRays(NamedTuple):
 
 
 class GlassRays(NamedTuple):
-    """A glass lane's reflection ray (0..N-1) and refraction ray (N..2N-1):
-    flat (2N,) planes; other lanes get origin 0, the primary direction and
-    ``t = -1``.  ``seed``: (N,) int64, the seed after both perturbations (0
-    on a lane that is not glass)."""
+    """The glass branch's rays of the G glass lanes (lanes that hit a glass
+    material): ``lanes`` (G,) int32, the glass lanes in increasing lane
+    order; a lane's reflection ray at its place p in ``lanes``, its
+    refraction ray at G + p: flat (2G,) planes, ``t`` = T_MAX; ``seed``
+    (G,) int64, the seed after both perturbations; ``index`` (N,) int32,
+    each lane's place in ``lanes`` or -1 off glass."""
 
+    lanes: torch.Tensor
     o: Vec3
     d: Vec3
     t: torch.Tensor
     seed: torch.Tensor
+    index: torch.Tensor
 
 
 def params_vec(params: torch.Tensor, k: int) -> Vec3:
@@ -483,40 +487,45 @@ def rt_shade_plain(hit, d: Vec3, occluded, materials: MaterialTable,
 
 
 def rt_glass_rays_plain(hit, d: Vec3, materials: MaterialTable) -> GlassRays:
-    """Plain version of ``rt_glass_rays``."""
+    """Plain version of ``rt_glass_rays``: the glass branch's terms of every
+    lane, taken at the glass lanes (``nonzero``'s order)."""
     mat = materials.gather(fmax(hit.mesh_index, 0))
     g = glass_terms(hit, d, mat)
-    live = hit.hit & g.is_glass
-    nf = hit.normal
-    zero = Vec3.full(0.0)
-    o_r = where(live, hit.point + nf * g.eps, zero)
-    o_t = where(live, hit.point - nf * g.eps, zero)
-    d_r, d_t = where(live, g.r_dir, d), where(live, g.t_dir, d)
-    t = torch.where(live, traverse.T_MAX, -1.0)
+    lanes = torch.nonzero(hit.hit & g.is_glass).squeeze(1)
+    index = torch.full(hit.hit.shape, -1, dtype=torch.int32,
+                       device=lanes.device)
+    index[lanes] = torch.arange(lanes.shape[0], dtype=torch.int32,
+                                device=lanes.device)
+    at = lambda v: v.map(lambda c: c[lanes])
+    nf, point, eps = at(hit.normal), at(hit.point), g.eps[lanes]
     cat = lambda a, b: Vec3(torch.cat([a.x, b.x]), torch.cat([a.y, b.y]),
                             torch.cat([a.z, b.z]))
-    return GlassRays(cat(o_r, o_t), cat(d_r, d_t), torch.cat([t, t]),
-                     torch.where(live, g.seed, 0))
+    o = cat(point + nf * eps, point - nf * eps)
+    t = torch.full((2 * lanes.shape[0],), traverse.T_MAX,
+                   dtype=torch.float32, device=lanes.device)
+    return GlassRays(lanes.to(torch.int32), o, cat(at(g.r_dir), at(g.t_dir)),
+                     t, g.seed[lanes], index)
 
 
 def rt_resolve_plain(color: Vec3, hit, d: Vec3, materials: MaterialTable,
-                     sec_color: Vec3 | None, sec_k1, height: int,
-                     width: int) -> torch.Tensor:
-    """Plain version of ``rt_resolve``: the glass terms added where the
-    primary hit glass (``sec_color`` is None in a scene without glass),
-    the sky kept on a miss, then the tonemap to (H, W, 3) uint8 with the
-    rows flipped.  ``sec_k1``: K1's record of the 2N glass rays (only the
-    refraction rays' t and slot are read)."""
+                     glass: GlassRays | None, sec_color: Vec3 | None,
+                     sec_k1, height: int, width: int) -> torch.Tensor:
+    """Plain version of ``rt_resolve``: the glass terms added on the glass
+    lanes (``sec_color`` is None in a scene without glass or without a
+    glass lane), the sky kept on a miss, then the tonemap to (H, W, 3)
+    uint8 with the rows flipped.  ``sec_color``: the 2G secondary shades of
+    ``glass``' rays; ``sec_k1``: K1's record of them (only the refraction
+    rays' t and slot are read)."""
     if sec_color is not None:
-        n = d.x.shape[0]
+        n_glass = glass.lanes.shape[0]
         mat = materials.gather(fmax(hit.mesh_index, 0))
         g = glass_terms(hit, d, mat)
-        half = lambda v, k: v.map(lambda c: c[k * n:(k + 1) * n])
-        t2, slot2 = sec_k1.t[n:], sec_k1.slot[n:]
-        thickness = torch.where(slot2 >= 0, t2, 1.0)
-        add = glass_add(g, mat, half(sec_color, 0), half(sec_color, 1),
-                        thickness)
-        color = where(hit.hit, color + add, color)
+        k = glass.index.clamp_min(0).long()
+        k2 = k + n_glass
+        thickness = torch.where(sec_k1.slot[k2] >= 0, sec_k1.t[k2], 1.0)
+        add = glass_add(g, mat, sec_color.map(lambda c: c[k]),
+                        sec_color.map(lambda c: c[k2]), thickness)
+        color = where(glass.index >= 0, color + add, color)
     c = color / (color + 1.0)
     arr = torch.stack([torch.pow(fmax(ch, 0.0), GAMMA)
                        for ch in (c.x, c.y, c.z)], dim=-1)
@@ -546,6 +555,8 @@ class RtArgs(ctypes.Structure):
         ("sh_o", _P3), ("sh_d", _P3), ("sh_t", _P), ("occluded", _P),
         ("color", _P3),
         ("g_o", _P3), ("g_d", _P3), ("g_t", _P), ("seed", _P),
+        ("lanes", _P), ("index", _P), ("counts", _P),
+        ("n_glass", ctypes.c_longlong),
         ("sec_color", _P3), ("sec_t", _P), ("sec_slot", _P),
         ("rgb", _P), ("height", ctypes.c_int), ("width", ctypes.c_int),
     ]
@@ -692,8 +703,9 @@ def rt_shade(hit, d: Vec3, occluded, materials: MaterialTable,
 
 
 def rt_glass_rays(hit, d: Vec3, materials: MaterialTable) -> GlassRays:
-    """Every glass lane's reflection and refraction rays (kernel
-    ``rt_glass_rays``), as ``GlassRays`` says."""
+    """The glass lanes and their reflection and refraction rays (kernel
+    ``rt_glass_rays``, one launch), as ``GlassRays`` says.  On the card it
+    reads G to the host once (the frame's one read) to size the records."""
     dev = d.x.device
     kernels.require_supported(dev)
     n = d.x.shape[0]
@@ -703,24 +715,31 @@ def rt_glass_rays(hit, d: Vec3, materials: MaterialTable) -> GlassRays:
     if dev.type == "cpu":
         return rt_glass_rays_plain(hit, d, materials)
     a.n = n
-    g = _planes(2 * n, dev, _F32, 7)
-    seed = torch.empty(n, dtype=torch.int32, device=dev)
+    g = _planes(2 * n, dev, _F32, 7)  # room for every lane's two rays
+    lanes, index = _planes(n, dev, _I32, 2)
+    seed = torch.empty(n, dtype=torch.int64, device=dev)
+    counts = torch.empty(1 + (n + 255) // 256, dtype=_I32, device=dev)
     _set(a, "g_o", [c.data_ptr() for c in g[0:3]])
     _set(a, "g_d", [c.data_ptr() for c in g[3:6]])
     _set(a, "g_t", [g[6].data_ptr()])
-    _set(a, "seed", [seed.data_ptr()])
+    for field, t in (("seed", seed), ("lanes", lanes), ("index", index),
+                     ("counts", counts)):
+        _set(a, field, [t.data_ptr()])
     _launch("rt_glass_rays", a, dev)
-    return GlassRays(Vec3(*g[0:3]), Vec3(*g[3:6]), g[6],
-                     seed.to(torch.int64) & MASK32)
+    n_glass = int(counts[0])
+    rays = [c[:2 * n_glass] for c in g]
+    return GlassRays(lanes[:n_glass], Vec3(*rays[0:3]), Vec3(*rays[3:6]),
+                     rays[6], seed[:n_glass], index)
 
 
 def rt_resolve(color: Vec3, hit, d: Vec3, materials: MaterialTable,
-               sec_color: Vec3 | None, sec_k1, height: int,
-               width: int) -> torch.Tensor:
+               glass: GlassRays | None, sec_color: Vec3 | None, sec_k1,
+               height: int, width: int) -> torch.Tensor:
     """The frame's colour to RGB8 (kernel ``rt_resolve``): the glass terms
-    from the 2N secondary shades ``sec_color`` and K1's record ``sec_k1``
-    of the glass rays (both None in a scene without glass), Reinhard,
-    gamma, ``*255`` truncated, rows flipped.  Returns (H, W, 3) uint8."""
+    from ``glass``' index plane, the 2G secondary shades ``sec_color`` and
+    K1's record ``sec_k1`` of the glass rays (both None without a glass
+    lane), Reinhard, gamma, ``*255`` truncated, rows flipped.  Returns (H,
+    W, 3) uint8."""
     dev = d.x.device
     kernels.require_supported(dev)
     n = d.x.shape[0]
@@ -728,18 +747,24 @@ def rt_resolve(color: Vec3, hit, d: Vec3, materials: MaterialTable,
         raise ValueError(f"{n} lanes are not a {height}x{width} frame")
     if (sec_color is None) != (sec_k1 is None):
         raise ValueError("sec_color and sec_k1 come together")
+    if sec_color is not None and glass is None:
+        raise ValueError("sec_color needs the glass records")
     a = RtArgs()
     _hit_args(a, hit, d, n, dev)
     _set(a, "color", _flat("color", color, n, _F32, dev))
     if sec_color is not None:
-        _set(a, "sec_color", _flat("sec_color", sec_color, 2 * n, _F32, dev))
-        _set(a, "sec_t", _flat("sec_k1.t", sec_k1.t, 2 * n, _F32, dev))
-        _set(a, "sec_slot", _flat("sec_k1.slot", sec_k1.slot, 2 * n, _I32,
-                                  dev))
+        n_glass = glass.lanes.shape[0]
+        _set(a, "index", _flat("glass.index", glass.index, n, _I32, dev))
+        _set(a, "sec_color", _flat("sec_color", sec_color, 2 * n_glass, _F32,
+                                   dev))
+        _set(a, "sec_t", _flat("sec_k1.t", sec_k1.t, 2 * n_glass, _F32, dev))
+        _set(a, "sec_slot", _flat("sec_k1.slot", sec_k1.slot, 2 * n_glass,
+                                  _I32, dev))
+        a.n_glass = n_glass
     _tables(a, materials, None, 0, dev)
     if dev.type == "cpu":
-        return rt_resolve_plain(color, hit, d, materials, sec_color, sec_k1,
-                                height, width)
+        return rt_resolve_plain(color, hit, d, materials, glass, sec_color,
+                                sec_k1, height, width)
     a.n = n
     a.height, a.width = height, width
     out = torch.empty((height, width, 3), dtype=torch.uint8, device=dev)
@@ -772,7 +797,9 @@ def kernel_info(materials: MaterialTable, lights: LightTable,
 
 
 class RTFrame(NamedTuple):
-    """What ``rt_frame`` computed: the image and its stages' records."""
+    """What ``rt_frame`` computed: the image and its stages' records
+    (``glass`` None in a scene without glass; the ``sec_*`` records of the
+    2G glass rays None without a glass lane)."""
 
     rgb8: torch.Tensor
     k1: traverse.Closest
@@ -801,8 +828,10 @@ def rt_frame(geom, materials: MaterialTable, lights: LightTable,
              n_lights: int, params: torch.Tensor, o: Vec3, d: Vec3,
              height: int, width: int, has_glass: bool) -> RTFrame:
     """One RT frame of the flat camera rays ``o``, ``d`` (the pixel grid,
-    bottom row first): the primary walk and shade, the glass rays' walk and
-    shade where the scene has glass, the resolve to RGB8."""
+    bottom row first): the primary walk and shade, where the scene has
+    glass the glass lanes' rays (2G for G glass lanes) walked and shaded,
+    the resolve to RGB8.  With no glass lane in view (G = 0) the glass pass
+    is skipped."""
     n = d.x.shape[0]
     t_max = torch.full((n,), traverse.T_MAX, dtype=torch.float32,
                        device=d.x.device)
@@ -811,9 +840,10 @@ def rt_frame(geom, materials: MaterialTable, lights: LightTable,
     glass = sec = None
     if has_glass:
         glass = rt_glass_rays(hit, d, materials)
-        sec = _shade_pass(geom, glass.o, glass.d, glass.t, materials, lights,
-                          n_lights, params)
-    rgb8 = rt_resolve(color, hit, d, materials,
+        if glass.lanes.shape[0] > 0:
+            sec = _shade_pass(geom, glass.o, glass.d, glass.t, materials,
+                              lights, n_lights, params)
+    rgb8 = rt_resolve(color, hit, d, materials, glass,
                       None if sec is None else sec[4],
                       None if sec is None else sec[0], height, width)
     return RTFrame(rgb8, k1, hit, shadow, occ, color, glass,

@@ -10,7 +10,7 @@ Run as a script on a GPU, this file measures one tree's kernels:
 
     python3 ptrt_tpu_torch/tools/stages.py [--tree DIR] [--out DIR]
                                            [--bloom | --dynamic | --refill]
-                                           [--sets N,N,...]
+                                           [--sets N,N,...] [--rt]
 
 ``--tree DIR`` measures the checkout in ``DIR`` (a variant of this tree or
 a later commit unpacked with ``git archive``, say) in a process of its own
@@ -31,7 +31,12 @@ sort, and digests of the order and the tables (``measure_refill``);
 ``--refill --dynamic`` runs both in one process.  ``--sets 320,512``
 measures only K4 on hand-made sets of those instance counts
 (``measure_sets``: 1M rays, queued times beside the bound, the kernel the
-set takes, a digest of the records).
+set takes, a digest of the records).  ``--rt`` measures only the RT frame
+on the 1080p "rt" configuration (``measure_rt``: a digest of its RGB8, the
+frame profiled and split by pass and kernel, host and frame ms, K10's
+``rt_shade`` and ``rt_glass_rays`` timed, ``rt_shade``'s registers and
+ptxas report); ``--tree DIR --rt`` in turns with this tree compares two
+trees' images and glass passes on one card.
 
 On the 1920x1080 bench scene (~1M triangles) it prints:
 
@@ -668,7 +673,8 @@ def frame_profile(sc, frames: int = 0, render=None,
     ``profiled_kernels``), then ``frames`` frames timed on the host clock,
     each ending in a synchronisation: {"device_ms", "launches", "top" (the
     five kernels with the most device time, ms), "names" (every kernel in
-    launch order), "walk_ms" (K1 and K2), "k4_ms" (K4), "frame_ms"}; the
+    launch order), "kernels" (each with its device us, in launch order),
+    "walk_ms" (K1 and K2), "k4_ms" (K4), "frame_ms"}; the
     profiled values are None where the profiler saw no device kernel."""
     import time
 
@@ -685,8 +691,8 @@ def frame_profile(sc, frames: int = 0, render=None,
         ms.append(1e3 * (time.perf_counter() - t0))
     if not kern:
         return {"device_ms": None, "launches": None, "top": None,
-                "names": None, "walk_ms": None, "k4_ms": None,
-                "frame_ms": ms}
+                "names": None, "kernels": None, "walk_ms": None,
+                "k4_ms": None, "frame_ms": ms}
     by_name = {}
     for name, us in kern:
         by_name[name] = by_name.get(name, 0.0) + us
@@ -696,7 +702,8 @@ def frame_profile(sc, frames: int = 0, render=None,
     k4_us = sum(v for k, v in by_name.items() if "instances_" in k)
     return {"device_ms": sum(by_name.values()) / 1e3, "launches": len(kern),
             "top": [(k[:60], round(v / 1e3, 3)) for k, v in top],
-            "names": [name for name, _ in kern], "walk_ms": walk_us / 1e3,
+            "names": [name for name, _ in kern], "kernels": kern,
+            "walk_ms": walk_us / 1e3,
             "k4_ms": k4_us / 1e3, "frame_ms": ms}
 
 
@@ -1364,6 +1371,155 @@ def measure_refill(tag: str, card: str) -> dict:
     return out
 
 
+# the RT frame's kernels by the names the profiler gives them
+RT_KERNELS = (("closest_hit", "closest_hit_kernel"),
+              ("any_hit", "any_hit_kernel"),
+              ("rt_light_rays", "rt_light_rays_kernel"),
+              ("rt_shade", "rt_shade_kernel"),
+              ("rt_glass_rays", "rt_glass_rays_kernel"),
+              ("rt_resolve", "rt_resolve_kernel"))
+
+
+def rt_frame_split(kern) -> dict:
+    """An RT frame's profiled kernels (``profiled_kernels``: launch order)
+    split into its passes: {"primary", "glass rays", "glass pass",
+    "resolve"}, each {kernel: device ms} (launches of other kernels under
+    "other"); the glass pass is what runs between ``rt_glass_rays`` and
+    ``rt_resolve``.  None where the profiler saw no ``rt_glass_rays``."""
+    names = [name for name, _ in kern]
+    at = lambda k: next((j for j, nm in enumerate(names) if k in nm), None)
+    glass, resolve = at("rt_glass_rays_kernel"), at("rt_resolve_kernel")
+    if glass is None or resolve is None:
+        return None
+    out = {}
+    for part, lo, hi in (("primary", 0, glass), ("glass rays", glass,
+                                                  glass + 1),
+                         ("glass pass", glass + 1, resolve),
+                         ("resolve", resolve, len(kern))):
+        ms = {}
+        for name, us in kern[lo:hi]:
+            k = next((k for k, nm in RT_KERNELS if nm in name), "other")
+            ms[k] = ms.get(k, 0.0) + us / 1e3
+        out[part] = ms
+    return out
+
+
+def rt_shade_ptxas(csrc: str) -> list:
+    """nvcc's ``-Xptxas -v`` report of ``csrc/rt_shade.cu`` (this tree's
+    flags): one line a kernel of its stack frame, spill stores and loads,
+    and registers."""
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.build import BUILD_DIR
+    from ptrt_tpu_torch.tools.walks import ptxas_report
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, "rt_shade_ptxas.o")
+    proc = subprocess.run(
+        [kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+         *kernels.SOURCE_FLAGS["rt_shade.cu"], "-Xptxas", "-v", "-c",
+         os.path.join(csrc, "rt_shade.cu"), "-o", out],
+        capture_output=True, text=True, timeout=600, check=True)
+    return ptxas_report(proc.stdout + proc.stderr)
+
+
+def measure_rt(tag: str, card: str, frames: int = 5) -> dict:
+    """The RT frame on the 1080p "rt" configuration
+    (``build_rt_bench_scene(1920, 1080, 1_000_000)``): a SHA-256 of its
+    RGB8 (two trees' images compare bit for bit), its wrapper launches,
+    ``frames`` frames on the host clock, the host ms of a call, one frame
+    profiled behind a spin and split by pass and kernel
+    (``rt_frame_split``); ``rt_shade`` on both passes and ``rt_light_rays``
+    on the glass rays queued behind a spin (two readings each), each K10
+    kernel alone by the profiler over 20 calls; ``rt_shade``'s registers,
+    local bytes, blocks a SM (``kernel_info``) and ptxas report."""
+    import time
+
+    import torch
+
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.app.bench_scene import build_rt_bench_scene
+    from ptrt_tpu_torch.render import rt_shading as rs
+
+    log = lambda *a: say(f"[{tag}]", *a)
+    sc = build_rt_bench_scene(1920, 1080, 1_000_000, device="cuda")
+    sc.render_frame_device()  # warm-up
+    out = {"tag": tag, "card": card,
+           "rgb8_sha256": records_digest([sc.render_frame_device()])}
+    kernels.launches.clear()
+    frame_ms = []
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc.render_frame_device()
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+    out["launches"] = {k: v / frames for k, v in kernels.launches.items()}
+    out["frame_ms"] = frame_ms
+    out["host_ms"] = host_ms(sc.render_frame_device, calls=frames)
+    kern = profiled_kernels(sc.render_frame_device, lead_cycles=SPIN_CYCLES)
+    out["device_ms"] = sum(us for _, us in kern) / 1e3
+    out["profiled_launches"] = len(kern)
+    out["split"] = rt_frame_split(kern)
+    fr = sc.last_frame
+    d = sc.camera_rays()[1]
+    mats, lts, nl, params = (sc._mat_table, sc._light_table, len(sc.lights),
+                             sc.params())
+    calls = {
+        "rt_shade": lambda _: rs.rt_shade(fr.hit, d, fr.occluded, mats, lts,
+                                          nl, params),
+        "rt_shade (glass rays)": lambda _: rs.rt_shade(
+            fr.sec_hit, fr.glass.d, fr.sec_occluded, mats, lts, nl, params),
+        "rt_light_rays (glass rays)": lambda _: rs.rt_light_rays(
+            sc._geom, fr.glass.o, fr.glass.d, fr.sec_k1, lts, nl),
+        "rt_glass_rays": lambda _: rs.rt_glass_rays(fr.hit, d, mats)}
+    out["glass_rays"] = int(fr.glass.d.x.shape[0])
+    out["queued_ms"] = {k: [clones_ms(fn, [None] * 21, SPIN_CYCLES)
+                            for _ in range(2)]
+                        for k, fn in calls.items() if k != "rt_glass_rays"}
+    out["kernel_ms"] = {k: kernel_ms(fn, [None] * 21, name)
+                        for k, fn, name in (
+                            ("rt_shade", calls["rt_shade"],
+                             "rt_shade_kernel"),
+                            ("rt_shade (glass rays)",
+                             calls["rt_shade (glass rays)"],
+                             "rt_shade_kernel"),
+                            ("rt_glass_rays", calls["rt_glass_rays"],
+                             "rt_glass_rays_kernel"))}
+    out["info"] = rs.kernel_info(mats, lts, nl)
+    out["ptxas"] = rt_shade_ptxas(os.path.join(os.path.dirname(
+        os.path.abspath(kernels.__file__)), "csrc"))
+    from ptrt_tpu_torch.build import BUILD_DIR
+
+    out["sass"] = {
+        fn[-48:]: {"registers": r["registers"], "stack": r["stack_bytes"],
+                   "instructions": r["sass"].get("all"),
+                   "sha256": r.get("sass_sha256", "")[:16]}
+        for fns in kernel_resources(
+            os.path.join(BUILD_DIR, kernels.LIBRARY),
+            ("rt_shade_kernel", "rt_glass_rays_kernel")).values()
+        for fn, r in fns.items()}
+    log(f"rt frame 1920x1080: RGB8 sha256 {out['rgb8_sha256']}; frames "
+        f"{[round(x, 3) for x in frame_ms]} ms, host {out['host_ms']:.3f} ms "
+        f"a call; profiled device {out['device_ms']:.4f} ms in "
+        f"{out['profiled_launches']} launches; {out['glass_rays']} glass "
+        f"rays; wrapper launches {out['launches']} [{card}]")
+    log(f"rt frame split (device ms by pass and kernel): {out['split']} "
+        f"[{card}]")
+    for k, v in out["queued_ms"].items():
+        log(f"{k}: queued {v[0]:.4f} / {v[1]:.4f} ms [{card}]")
+    for k, v in out["kernel_ms"].items():
+        log(f"{k}: kernel (profiler) "
+            f"{'not measured' if v is None else f'{v:.4f} ms'} [{card}]")
+    info = out["info"]["rt_shade"]
+    log(f"rt_shade: {info['registers']} registers, {info['local_bytes']} "
+        f"bytes local, {info['blocks_per_sm']} blocks of {info['threads']} "
+        f"a SM, {info['shared_bytes']} bytes dynamic shared; ptxas: "
+        + " | ".join(out["ptxas"]) + f"; SASS {out['sass']} [{card}]")
+    del fr, sc
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", help="measure the checkout in this directory")
@@ -1377,6 +1533,8 @@ def main(argv) -> int:
                     help="measure only the Morton refill (K5)")
     ap.add_argument("--sets", help="measure only K4 on hand-made sets of "
                     "these instance counts (comma-separated)")
+    ap.add_argument("--rt", action="store_true",
+                    help="measure only the RT frame and K10")
     args = ap.parse_args(argv)
     say.out = args.out and os.path.abspath(args.out)
     here = os.path.abspath(__file__)
@@ -1386,6 +1544,7 @@ def main(argv) -> int:
         proc = subprocess.Popen(
             [sys.executable, here] + ["--bloom"] * args.bloom
             + ["--dynamic"] * args.dynamic + ["--refill"] * args.refill
+            + ["--rt"] * args.rt
             + (["--sets", args.sets] if args.sets else []),
             cwd=tree,
             stdout=subprocess.PIPE, text=True,
@@ -1414,7 +1573,9 @@ def main(argv) -> int:
     if args.sets:
         say(json.dumps(measure_sets(tag, card, [
             int(n) for n in args.sets.split(",")])))
-    if not (args.refill or args.dynamic or args.sets):
+    if args.rt:
+        say(json.dumps(measure_rt(tag, card)))
+    if not (args.refill or args.dynamic or args.sets or args.rt):
         say(json.dumps(measure(tag, card, args.bloom)))
     return 0
 

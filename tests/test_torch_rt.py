@@ -24,6 +24,13 @@ its jitted program compiles for ~20 s a scene); scene 7 runs jitted.  The
 staged frame (the plain versions of the K10 stages) equals the unstaged
 ``shade_primary`` composition bit for bit, and the scenes' tables equal
 the reference's.
+
+``rt_glass_rays`` lists the glass lanes: its records (plain version) must
+be the dense composition's (every lane's two rays, the dead ones with
+origin 0 and ``t = -1``, kept here as the oracle) at the glass lanes, bit
+for bit, with the lanes in increasing order and the index plane their
+inverse.  A scene with glass but no glass lane in view skips the glass pass
+and renders the no-glass composition's frame.
 """
 
 import dataclasses
@@ -47,7 +54,7 @@ from ptrt_tpu.scene.materials import Materials as RefMaterials
 
 from ptrt_tpu_torch import tables
 from ptrt_tpu_torch.app.rt_demo_scenes import build_scene_by_id
-from ptrt_tpu_torch.core.vec import Vec3, where
+from ptrt_tpu_torch.core.vec import Vec3, fmax, where
 from ptrt_tpu_torch.render import pbr
 from ptrt_tpu_torch.render import rt_shading as rs
 from ptrt_tpu_torch.render import traverse
@@ -374,7 +381,7 @@ def test_frame_against_reference(scene_id):
     assert img.shape == ref.shape == (h, w, 3) and img.dtype == np.uint8
     fr = sc.last_frame
     glass = (np.zeros((h, w), bool) if fr.glass is None else
-             fr.glass.t[:w * h].numpy().reshape(h, w)[::-1] > 0)
+             fr.glass.index.numpy().reshape(h, w)[::-1] >= 0)
     within, causes = _frame_diff(img, ref, glass)
     assert within >= FRAME_AGREE, (scene_id, within, causes)
     assert causes["other"] <= 0.005 * w * h, (scene_id, causes)
@@ -410,7 +417,8 @@ def test_staged_frame_equals_shade_primary():
         lambda oo, dd: traverse.intersect_closest(geom, oo, dd),
         lambda oo, dd, tt: traverse.intersect_any(geom, oo, dd, tt), True)
     color = where(hit.hit, color, rs.sample_sky_rt(d, top, bottom, p[9]))
-    want = rs.rt_resolve_plain(color, hit, d, mats, None, None, 32, 48)
+    want = rs.rt_resolve_plain(color, hit, d, mats, None, None, None, 32,
+                               48)
     assert torch.equal(img, want)
 
 
@@ -450,3 +458,78 @@ def test_light_rays_layout():
             for c in "xyz":
                 assert torch.equal(getattr(a, c)[live],
                                    getattr(b, c)[k][live])
+
+
+def _dense_glass_rays(hit, d, materials):
+    """The dense glass rays: a reflection ray for every lane (0..N-1) and a
+    refraction ray (N..2N-1), a lane that is not glass given origin 0, its
+    primary direction and t = -1, and seed 0.  Returns (the glass mask,
+    origins, directions, t, seeds)."""
+    mat = materials.gather(fmax(hit.mesh_index, 0))
+    g = rs.glass_terms(hit, d, mat)
+    live = hit.hit & g.is_glass
+    nf = hit.normal
+    zero = Vec3.full(0.0)
+    o_r = where(live, hit.point + nf * g.eps, zero)
+    o_t = where(live, hit.point - nf * g.eps, zero)
+    d_r, d_t = where(live, g.r_dir, d), where(live, g.t_dir, d)
+    t = torch.where(live, traverse.T_MAX, -1.0)
+    cat = lambda a, b: Vec3(torch.cat([a.x, b.x]), torch.cat([a.y, b.y]),
+                            torch.cat([a.z, b.z]))
+    return (live, cat(o_r, o_t), cat(d_r, d_t), torch.cat([t, t]),
+            torch.where(live, g.seed, 0))
+
+
+def _frame_hit():
+    """A 48x32 frame of demo scene 7 (glass panes in view): its hit record,
+    camera directions and material table."""
+    sc, _ = build_scene_by_id(7, 48, 32, device="cpu")
+    sc.render_frame_device()
+    return sc.last_frame.hit, sc.camera_rays()[1], sc._mat_table
+
+
+@pytest.mark.parametrize("source", ("random lanes", "frame"))
+def test_glass_rays_compacted(lanes, source):
+    if source == "frame":
+        hit, d, table = _frame_hit()
+    else:
+        hit, d, table = (_port_hit(lanes["hit"]), _pv(lanes["d"]),
+                         lanes["table"])
+    n = d.x.shape[0]
+    live, o, dirs, t, seed = _dense_glass_rays(hit, d, table)
+    got = rs.rt_glass_rays(hit, d, table)  # the plain version on the CPU
+    g = int(live.sum())
+    assert g > 0
+    assert got.lanes.dtype == got.index.dtype == torch.int32
+    assert torch.equal(got.lanes.long(), torch.nonzero(live).squeeze(1))
+    assert bool((got.lanes[1:] > got.lanes[:-1]).all())
+    assert got.index.shape == (n,)
+    assert bool((got.index[~live] == -1).all())
+    assert torch.equal(got.index[got.lanes.long()],
+                       torch.arange(g, dtype=torch.int32))
+    where_ = torch.cat([got.lanes, got.lanes + n]).long()
+    for a, b in ((got.o, o), (got.d, dirs)):
+        for c in "xyz":
+            assert getattr(a, c).shape == (2 * g,)
+            assert torch.equal(getattr(a, c), getattr(b, c)[where_]), c
+    assert torch.equal(got.t, t[where_])
+    assert bool((got.t == traverse.T_MAX).all())
+    assert torch.equal(got.seed, seed[got.lanes.long()])
+
+
+def test_frame_without_glass_lanes():
+    """Glass in the scene, none in view: no glass ray is walked (G = 0, no
+    secondary records), and the frame is the no-glass composition's."""
+    sc, _ = build_scene_by_id(7, 48, 32, device="cpu")
+    sc.set_camera((0, 4, -6), (0, 1, 10), fov=60)
+    img = sc.render_frame_device()
+    fr = sc.last_frame
+    assert sc._has_glass() and fr.hit.hit.any()
+    assert fr.glass.lanes.numel() == 0 and fr.glass.o.x.numel() == 0
+    assert bool((fr.glass.index == -1).all())
+    assert fr.sec_k1 is None and fr.sec_color is None
+    o, d = sc.camera_rays()
+    want = rs.rt_frame(sc._geom, sc._mat_table, sc._light_table,
+                       len(sc.lights), sc.params(), o, d, 32, 48, False)
+    assert want.glass is None
+    assert torch.equal(img, want.rgb8)
