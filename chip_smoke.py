@@ -147,13 +147,30 @@ Phases (any failure raises, so the exit code is non-zero):
      registers, local bytes, blocks a SM
      and staged shared bytes, rt_shade and rt_light_rays also on the glass
      rays; a 256x144
-     RTScene of the same scene on the GPU and on the CPU;
+     RTScene of the same scene on the GPU and on the CPU.  rt_resolve
+     (the encode pass over every pixel) and rt_resolve_glass (the glass
+     lanes' pixels again) equal to the plain resolve on every pixel, the
+     RGB8 SHA-256 the earlier designs gave, each timed alone beside its
+     bound (the encode pass also beside the issue time of its SASS), and
+     the encode's table equal to the plain encode on all 2^32 float32
+     colours;
  12. the PT Scene API: render_wireframe at 1920x1080 (a 98-triangle scene
      GPU vs CPU within 1 LSB, the 1M-triangle bench scene's timed),
      trace_single_ray GPU vs CPU, warmup() (the next balanced frames
      bit-identical to an unwarmed scene's) and a checkpoint after 3
      balanced frames (the 4th frame bit-identical after a load into a
-     fresh scene).
+     fresh scene);
+ 13. the tiled trace (run after phase 4, on the bench scene in its bench
+     settings): trace_frame of the 1920x1080 frame whole, in 2x2 tiles and
+     in an uneven 3x3 split, and split (the denoiser's channels) whole and
+     in 2x2 tiles; tiles put together equal to the whole frame bit for bit
+     (colour, split channels, G-buffer, the next PCG state, rays summed);
+     the launches of K1, K2 and K3 a sample and bounce of each tile;
+ 14. the unified scene layer and the demo: UnifiedScenePresets.CornellBox
+     and GlassDemo at 1920x1080 built into a PT Scene and an RTScene, a
+     warm-up and three frames each; `python -m ptrt_tpu_torch.app.demo`'s
+     main for --backend pt and rt, three 1920x1080 frames each, into a
+     temporary directory (its PPM read back); frame ms and launches.
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
@@ -255,20 +272,27 @@ RT_FRAME_AGREE = 0.99
 # csrc/rt_shade.cu as OPS_PER_ITEM's: a hit lane's record (normal, facing
 # test, point, shadow origin), each light's shadow ray, rt_shade's terms
 # before its light loop and each lit light's lobe, a glass lane's two rays
-# (the hash, the reflection, the refraction and two perturbations), a
-# pixel's tonemap and a glass pixel's glass terms
+# (the hash, the reflection, the refraction and two perturbations);
+# rt_resolve's: tools/stages.py resolve_bounds
 # what each K10 kernel replaces: the JAX package's fused XLA RT frame
 RT_REPLACES = {
     "rt_light_rays": "ptrt_tpu/render/rt_shading.py:163",
     "rt_shade": "ptrt_tpu/render/rt_shading.py:111",
     "rt_glass_rays": "ptrt_tpu/render/rt_shading.py:261",
     "rt_resolve": "ptrt_tpu/scene/rt_scene.py:207",
+    "rt_resolve_glass": "ptrt_tpu/render/rt_shading.py:289",
 }
 # the Scene API phase: the bench scene's triangle target, rays traced one by
 # one on the GPU and on the CPU
 API_TRIS, API_RAYS = 20_000, 8
 RT_OPS = {"hit": 40, "light_ray": 14, "shade": 80, "shade_light": 125,
-          "glass_rays": 150, "resolve": 18, "glass_add": 40}
+          "glass_rays": 150}
+# the 1080p rt frame's RGB8 SHA-256, the image of every design of K10 so
+# far (two trees' images compare bit for bit); rt_resolve's encode sweep: float32 colour bit patterns a
+# launch (all 2^32 in turn), as a (RES_SWEEP_HW, RES_SWEEP_HW) frame
+RT_RGB8_SHA256 = ("8c1d10035577b3da207111262296baa37e4d86e0bd8719cf00c54f9117"
+                  "35dc36")
+RES_SWEEP_HW = 1 << 14
 
 
 def bound(nbytes: float, ops: float = 0.0) -> dict:
@@ -2089,6 +2113,8 @@ def rt_stage_bounds(sc, fr, n: int) -> dict:
     light tables once) and its float operations (RT_OPS, a floor counted
     from the source), for the primary pass and the glass rays' pass."""
     import torch
+    from ptrt_tpu_torch.render import rt_shading as rs
+    from ptrt_tpu_torch.tools import stages
 
     lights = len(sc.lights)
     tables = nbytes(sc._mat_table.packed, sc._light_table.packed)
@@ -2124,12 +2150,10 @@ def rt_stage_bounds(sc, fr, n: int) -> dict:
     if fr.sec_k1 is not None:
         out["rt_light_rays (glass rays)"] = light_rays(fr.sec_k1)
         out["rt_shade (glass rays)"] = shade(fr.sec_hit, fr.sec_occluded)
-    # the colour and index plane of every lane; a glass lane's mesh id, ray
-    # direction, normal, front flag, two secondary colours and refraction
-    # t and slot; the RGB8 out
-    out["rt_resolve"] = bound(
-        n * (12 + 4) + tables + glass_lanes * (4 + 12 + 12 + 1 + 24 + 8)
-        + n * 3, n * RT_OPS["resolve"] + glass_lanes * RT_OPS["glass_add"])
+    # the encode pass over every pixel, the glass pass over the glass lanes
+    out.update(stages.resolve_bounds(n, glass_lanes,
+                                     nbytes(sc._mat_table.packed),
+                                     nbytes(rs.encode_lut(fr.color.x.device))))
     return out
 
 
@@ -2241,8 +2265,55 @@ def check_rt_stages(sc, fr, stats) -> dict:
     out["rt_resolve max LSB"] = int(diff.max())
     out["rt_resolve exact share"] = float((diff == 0).all(-1).double()
                                           .mean())
-    stats["rt_resolve"]["max_abs_err"] = int(diff.max())
-    assert int(diff.max()) <= 1, int(diff.max())
+    # the encode pass and the glass pass write one image: equal on every
+    # pixel, the glass lanes' pixels among them
+    on_glass = torch.zeros(sc.height * sc.width, dtype=torch.bool,
+                           device=diff.device)
+    if fr.glass is not None:
+        on_glass[fr.glass.lanes.long()] = True
+    on_glass = on_glass.view(sc.height, sc.width).flip(0)
+    stats["rt_resolve"]["max_abs_err"] = int(diff[~on_glass].max())
+    stats["rt_resolve_glass"]["max_abs_err"] = (
+        int(diff[on_glass].max()) if bool(on_glass.any()) else 0)
+    assert int(diff.max()) == 0, int(diff.max())
+    return out
+
+
+def check_resolve_encode(dev, card) -> dict:
+    """rt_resolve's encode table against the plain encode on every float32
+    colour bit pattern: 2^32 / RES_SWEEP_HW^2 launches of the kernel (no
+    glass lanes), each frame's colour planes the same run of bit patterns,
+    against ``rt_resolve_plain`` on the same planes; and the table's plain
+    reader against the plain encode on every Reinhard value r's bits."""
+    import torch
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.render import rt_shading as rs
+
+    t0 = time.time()
+    step, hw = RES_SWEEP_HW * RES_SWEEP_HW, RES_SWEEP_HW
+    lut = rs.encode_lut(dev)
+    bad = bad_r = 0
+    for lo in range(-(1 << 31), 1 << 31, step):
+        bits = torch.arange(lo, lo + step, dtype=torch.int64, device=dev)
+        c = bits.to(torch.int32).view(torch.float32)
+        col = Vec3(c, c, c)
+        nog = (None,) * 6 + (hw, hw)
+        got = rs.rt_resolve(col, *nog)
+        want = rs.rt_resolve_plain(col, *nog)
+        bad += int((got != want).any(-1).sum())
+        del got, want
+        bad_r += int((rs.encode_lut_plain(c, lut) != rs.encode_plain(c))
+                     .sum())
+        del bits, c, col
+    torch.cuda.synchronize()
+    out = {"colours": 1 << 32, "colours_off": bad, "r_values_off": bad_r,
+           "launches": (1 << 32) // step, "s": time.time() - t0}
+    log(f"[rt] rt_resolve's encode table on all 2^32 float32 colour bit "
+        f"patterns ({out['launches']} launches of {hw}x{hw}): {bad} "
+        f"differ from the plain encode; its plain reader on every r bit "
+        f"pattern: {bad_r} differ; {out['s']:.1f} s [{card}]")
+    assert bad == 0 and bad_r == 0, out
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2272,7 +2343,7 @@ def rt_plain_frame(sc, fr):
     return rgb, on_glass.view(sc.height, sc.width).flip(0)
 
 
-def check_rt(dev, card) -> dict:
+def check_rt(dev, card, resources=None) -> dict:
     """Phase 11: the one-bounce RT backend on the "rt" scene
     (build_rt_bench_scene at W x H, TRIS): the frame's launches, host and
     device time; each K10 kernel against its plain version on the frame's
@@ -2289,6 +2360,7 @@ def check_rt(dev, card) -> dict:
     import torch
     from ptrt_tpu_torch import kernels
     from ptrt_tpu_torch.app.bench_scene import build_rt_bench_scene
+    from ptrt_tpu_torch.build import BUILD_DIR
     from ptrt_tpu_torch.render import rt_shading as rs
     from ptrt_tpu_torch.tools import stages
 
@@ -2322,7 +2394,9 @@ def check_rt(dev, card) -> dict:
     split = (stages.rt_frame_split(prof["kernels"]) if prof["kernels"]
              else None)
     rgb_sha = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
-    log(f"[rt] the 1080p rt frame's RGB8 sha256 {rgb_sha} [{card}]")
+    log(f"[rt] the 1080p rt frame's RGB8 sha256 {rgb_sha} (the earlier "
+        f"designs': {RT_RGB8_SHA256}) [{card}]")
+    assert rgb_sha == RT_RGB8_SHA256, rgb_sha
     log(f"[rt] the profiled frame by pass and kernel (device ms): {split} "
         f"[{card}]")
     log(f"[rt] frame {frame_ms:.3f} ms (frames "
@@ -2335,7 +2409,8 @@ def check_rt(dev, card) -> dict:
     n_glass = sc.last_frame.glass.lanes.shape[0]
     assert n_glass > 0, "no glass lane in the rt frame"
     per_frame = {"closest_hit": 2, "any_hit": 2, "rt_light_rays": 2,
-                 "rt_shade": 2, "rt_glass_rays": 1, "rt_resolve": 1}
+                 "rt_shade": 2, "rt_glass_rays": 1, "rt_resolve": 1,
+                 "rt_resolve_glass": 1}
     for k, v in per_frame.items():
         assert launches.get(k, 0) == v, (k, launches)
     assert split is not None, "the profiler saw no rt_glass_rays"
@@ -2415,6 +2490,58 @@ def check_rt(dev, card) -> dict:
             f"{info[k]['blocks_per_sm']} blocks of {info[k]['threads']} a SM, "
             f"{info[k]['shared_bytes']} bytes dynamic shared; "
             f"{launches.get(k, 0)} launches a frame [{card}]")
+    # rt_resolve's call launches two kernels: the encode pass over every
+    # pixel, then the glass pass over the glass lanes.  Each is timed beside
+    # its own bound: the encode pass queued in calls without glass lanes
+    # (it alone launches; two readings), the glass pass as what it adds to
+    # the frame's queued call (the call's time less the encode pass's;
+    # inside this script the profiler misses launches, so the glass kernel
+    # alone is measured by tools/probe_resolve.py and stages.py --rt); the
+    # frame's call (both) queued, beside both bounds
+    e = entries["rt_resolve"]
+    nog = (fr.color,) + (None,) * 6 + (H, W)
+    encode = [stages.clones_ms(lambda _: rs.rt_resolve(*nog), [None] * 21,
+                               stages.SPIN_CYCLES) for _ in range(2)]
+    e.update({"ms": sum(encode) / 2, "encode_queued_ms": encode,
+              "ms_by": "the encode pass alone, queued (calls without "
+                       "glass lanes)",
+              "plain_ms": cuda_ms(lambda: rs.rt_resolve_plain(*nog), 2),
+              "call_queued_ms": e["queued_ms"],
+              "call_bound_ms": e["bound_ms"]
+              + bounds["rt_resolve_glass"]["bound_ms"],
+              "call_plain_ms": e["plain_ms"]})
+    k = "rt_resolve_glass"
+    glass_plain_ms = cuda_ms(lambda: rs.glass_color_plain(
+        fr.color, fr.hit, d, mats, fr.glass, fr.sec_color, fr.sec_k1), 2)
+    entries[k] = {"ms": sum(e["call_queued_ms"]) / 2 - e["ms"],
+                  "ms_by": "added to the frame's queued call (its queued "
+                           "time less the encode pass's)",
+                  "plain_ms": glass_plain_ms,
+                  **bounds[k],
+                  "launches": launches.get(k, 0), "launches_per": "frame",
+                  "max_abs_err": stats[k]["max_abs_err"], **info[k],
+                  "glass_lanes": n_glass}
+    # the encode pass's SASS a thread (4 pixels) over the card's issue
+    # rate, beside its bound (never as it); phase 2's listing where given
+    res = resources or stages.kernel_resources(
+        os.path.join(BUILD_DIR, kernels.LIBRARY), ("rt_resolve",))
+    body = stages.resolve_sass(res["rt_resolve"])
+    e.update({"sass_instructions_a_thread": body,
+              "sass_issue_ms": stages.resolve_issue_ms(H, W, body)})
+    log(f"[rt] rt_resolve: the encode pass alone {encode[0]:.4f} / "
+        f"{encode[1]:.4f} ms queued, bound "
+        f"{e['bound_ms']:.4f} ms ({e['bound_by']}), SASS issue time "
+        f"{e['sass_issue_ms']:.4f} ms ({body} instructions a thread of 4 "
+        f"pixels), plain {e['plain_ms']:.3f} ms, {e['registers']} "
+        f"registers, {e['blocks_per_sm']} blocks of {e['threads']} a SM; "
+        f"the glass pass adds {entries[k]['ms']:.4f} ms to the call, "
+        f"bound {entries[k]['bound_ms']:.4f} ms ({entries[k]['bound_by']}) "
+        f"on {n_glass} glass lanes, plain glass terms {glass_plain_ms:.3f} "
+        f"ms, {entries[k]['registers']} registers, "
+        f"{entries[k]['blocks_per_sm']} blocks of {entries[k]['threads']} a "
+        f"SM; the frame's call queued {e['call_queued_ms'][0]:.4f} / "
+        f"{e['call_queued_ms'][1]:.4f} ms against {e['call_bound_ms']:.4f} "
+        f"[{card}]")
     sec_calls = {
         "rt_light_rays": lambda _: rs.rt_light_rays(
             geom, fr.glass.o, fr.glass.d, fr.sec_k1, lts, nl),
@@ -2575,6 +2702,205 @@ def check_scene_api(dev, card) -> dict:
     log(f"[api] checkpoint after 3 balanced {W}x{H} frames "
         f"({out['checkpoint_bytes']} bytes): the 4th frame bit-identical "
         f"after a load into a fresh scene [{card}]")
+    return out
+
+
+# -- 13. the tiled trace: trace_frame(tile=...) at 1080p ---------------------
+
+
+# the cuts of the 1080p frame: row edges, column edges
+TILE_CUTS = {"2x2": ((0, 540, 1080), (0, 960, 1920)),
+             "uneven 3x3": ((0, 337, 801, 1080), (0, 1111, 1500, 1920))}
+TILE_FIELDS = ("color", "diffuse", "specular", "emission", "normal", "depth",
+               "object_id", "roughness", "transmission")
+
+
+def tile_planes(bufs, name) -> list:
+    v = getattr(bufs, name)
+    if v is None:
+        return []
+    return [v.x, v.y, v.z] if hasattr(v, "x") else [v]
+
+
+def trace_tiled(sc, state, spp, depth, split, rows, cols):
+    """trace_frame of ``sc``'s tables over the tiles of the cut (rows,
+    cols), put together: (state, {field: planes}, rays, tiles)."""
+    import torch
+    from ptrt_tpu_torch.render import pipeline
+
+    h, w = state.shape
+    state_out = torch.empty_like(state)
+    planes, rays, tiles = None, 0, 0
+    for y0, y1 in zip(rows, rows[1:]):
+        for x0, x1 in zip(cols, cols[1:]):
+            st, bufs = pipeline.trace_frame(
+                sc._geom, sc._mat_table, sc._light_table, len(sc.lights),
+                sc.sky(), sc.camera, state[y0:y1, x0:x1].clone(), 0,
+                x1 - x0, y1 - y0, spp, depth, sc._blue_noise, split=split,
+                tile=(y0, x0, h, w))
+            if planes is None:
+                planes = {f: [torch.empty((h, w), dtype=q.dtype,
+                                          device=q.device)
+                              for q in tile_planes(bufs, f)]
+                          for f in TILE_FIELDS}
+            state_out[y0:y1, x0:x1] = st
+            for f in TILE_FIELDS:
+                for dst, src in zip(planes[f], tile_planes(bufs, f)):
+                    dst[y0:y1, x0:x1] = src
+            rays += int(bufs.rays_traced)
+            tiles += 1
+    return state_out, planes, rays, tiles
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def check_tiles(sc, card) -> dict:
+    """Phase 13: the bench frame's trace (``sc`` in its bench settings)
+    whole and tiled, bit for bit; the launches of the tiled traces."""
+    import torch
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.render import pipeline
+
+    sc._ensure_device_state()
+    state = sc._rng_state.clone()
+    out = {}
+    for split, spp, cuts in ((False, SPP, ("2x2", "uneven 3x3")),
+                             (True, 1, ("2x2",))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, whole = pipeline.trace_frame(
+            sc._geom, sc._mat_table, sc._light_table, len(sc.lights),
+            sc.sky(), sc.camera, state, 0, W, H, spp, DEPTH,
+            sc._blue_noise, split=split)
+        torch.cuda.synchronize()
+        whole_ms = 1e3 * (time.perf_counter() - t0)
+        for cut in cuts:
+            rows, cols = TILE_CUTS[cut]
+            kernels.launches.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t_state, planes, rays, tiles = trace_tiled(
+                sc, state, spp, DEPTH, split, rows, cols)
+            torch.cuda.synchronize()
+            tiled_ms = 1e3 * (time.perf_counter() - t0)
+            launches = dict(kernels.launches)
+            equal = {f: all(same_bits(a, b) for a, b in zip(
+                planes[f], tile_planes(whole, f)))
+                and len(planes[f]) == len(tile_planes(whole, f))
+                for f in TILE_FIELDS}
+            tag = f"{'split' if split else 'unsplit'} {spp} spp, {cut}"
+            out[tag] = {"tiles": tiles, "equal": equal,
+                        "state_equal": same_bits(t_state, st),
+                        "rays": rays, "whole_rays": int(whole.rays_traced),
+                        "whole_ms": whole_ms, "tiled_ms": tiled_ms,
+                        "launches": launches}
+            log(f"[tiles] 1080p bench frame, {tag} ({tiles} tiles) vs "
+                f"whole: planes bit for bit {equal}, PCG state "
+                f"{out[tag]['state_equal']}, rays {rays} vs "
+                f"{int(whole.rays_traced)}; whole {whole_ms:.1f} ms, tiled "
+                f"{tiled_ms:.1f} ms (host clock); launches {launches} "
+                f"[{card}]")
+            assert all(equal.values()) and out[tag]["state_equal"], out[tag]
+            assert rays == int(whole.rays_traced), (rays, whole.rays_traced)
+            for k in ("closest_hit", "any_hit", "shade_nee",
+                      "shade_scatter"):
+                assert launches.get(k, 0) == tiles * spp * DEPTH, (
+                    k, launches)
+        del whole
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- 14. the unified scene layer and the demo entry point ------------------------
+
+
+def check_app(dev, card) -> dict:
+    """Phase 14: two UnifiedScenePresets into both backends at 1080p, and
+    the demo's main for both backends, each with its launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.app import demo
+    from ptrt_tpu_torch.scene.unified import (UnifiedSceneBuilder,
+                                              UnifiedScenePresets)
+    from ptrt_tpu_torch.utils.imageio import load_ppm
+
+    out = {}
+    pt_kernels = ("closest_hit", "any_hit", "shade_nee", "shade_scatter",
+                  "tonemap_rgb8")
+    rt_kernels = ("closest_hit", "any_hit", "rt_light_rays", "rt_shade",
+                  "rt_resolve")
+    for preset in ("CornellBox", "GlassDemo"):
+        u = getattr(UnifiedScenePresets, preset)(W, H)
+        for backend in ("pt", "rt"):
+            t0 = time.perf_counter()
+            sc = getattr(UnifiedSceneBuilder, f"build_{backend}_scene")(
+                u, device=dev)
+            img = sc.render_frame_device()  # the warm-up, set-up included
+            torch.cuda.synchronize()
+            first_ms = 1e3 * (time.perf_counter() - t0)
+            kernels.launches.clear()
+            frame_ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = sc.render_frame_device()
+                torch.cuda.synchronize()
+                frame_ms.append(1e3 * (time.perf_counter() - t0))
+            launches = dict(kernels.launches)
+            tag = f"{preset} {backend}"
+            out[tag] = {"first_ms": first_ms, "frame_ms": frame_ms,
+                        "launches": launches,
+                        "triangles": sum(m.num_triangles
+                                         for m in sc.meshes)}
+            log(f"[app] UnifiedScenePresets.{preset} {W}x{H} -> "
+                f"{'Scene' if backend == 'pt' else 'RTScene'} "
+                f"({out[tag]['triangles']} triangles): first frame "
+                f"{first_ms:.1f} ms (set-up included), frames "
+                f"{[round(x, 2) for x in frame_ms]} ms; launches {launches} "
+                f"[{card}]")
+            assert img.shape == (H, W, 3) and float(img.float().std()) > 0
+            for k in (pt_kernels if backend == "pt" else rt_kernels):
+                assert launches.get(k, 0) > 0, (tag, k, launches)
+            if preset == "GlassDemo" and backend == "rt":
+                assert launches.get("rt_glass_rays", 0) == 3, launches
+            del sc, img
+            torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in ("pt", "rt"):
+            stem = os.path.join(tmp, f"demo_{backend}")
+            said = io.StringIO()
+            kernels.launches.clear()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(said):
+                rc = demo.main(["--backend", backend, "--frames", "3", "-w",
+                                str(W), "-h", str(H), "-o", stem])
+            run_s = time.perf_counter() - t0
+            launches = dict(kernels.launches)
+            img = load_ppm(stem + ".ppm")
+            tag = f"demo {backend}"
+            out[tag] = {"rc": rc, "s": run_s, "launches": launches,
+                        "output": said.getvalue().strip().splitlines()}
+            log(f"[app] python -m ptrt_tpu_torch.app.demo --backend "
+                f"{backend} --frames 3 -w {W} -h {H}: rc {rc}, {run_s:.1f} s "
+                f"with set-up; it printed {out[tag]['output']}; launches "
+                f"{launches} [{card}]")
+            assert rc == 0 and img.shape == (H, W, 3), (rc, img.shape)
+            assert os.path.getsize(stem + ".png") > 0
+            assert float(np.asarray(img, np.float32).std()) > 0
+            for k in (pt_kernels if backend == "pt" else rt_kernels):
+                assert launches.get(k, 0) > 0, (tag, k, launches)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2834,6 +3160,10 @@ def main() -> int:
     assert float(full._accum[1]) == float(count) + 1, (count, full._accum[1])
     log(f"[main] the progressive average of frame {int(count) + 1} ran under "
         f"torch.cuda.set_sync_debug_mode(\"error\"): no host copy")
+
+    # -- 13. the tiled trace, on the bench scene in its bench settings -------
+    tiled = check_tiles(full, card)
+    torch.cuda.empty_cache()
 
     # -- 5. the balanced path at full size -----------------------------------
     from ptrt_tpu_torch.render import denoiser as den
@@ -3263,12 +3593,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 11. the one-bounce RT backend: K10 on the "rt" scene ---------------
-    rt = check_rt(dev, card)
+    rt = check_rt(dev, card, resources)
     torch.cuda.empty_cache()
 
     # -- 12. the rest of the PT Scene API on the card ------------------------
     api = check_scene_api(dev, card)
     torch.cuda.empty_cache()
+
+    # rt_resolve's encode table on every float32 colour
+    sweep = check_resolve_encode(dev, card)
+
+    # -- 14. the unified scene layer and the demo at 1080p -------------------
+    app = check_app(dev, card)
 
     for k in ("shade_nee", "shade_scatter"):
         hs = hstats[k]
@@ -3457,7 +3793,13 @@ def main() -> int:
              "glass_lanes", "profiled_launches",
              "launches", "frame_within_1_lsb", "frame_causes",
              "small_within_1_lsb", "stages")},
-         "scene_api": api},
+         "scene_api": api, "encode_sweep": sweep},
+        # the tiled trace's and the app phase's numbers ride on the last
+        {"name": "rt_resolve_glass", "route": "cuda",
+         "source": src("rt_shade.cu"),
+         "replaces": RT_REPLACES["rt_resolve_glass"],
+         **rt["entries"]["rt_resolve_glass"], "library_ms": None,
+         "tiled_trace": tiled, "unified_and_demo": app},
     ]}
     # the ranking: device ms a frame that each kernel stands over its bound,
     # summed over the passes and bounces the frames really run (a bench
@@ -3504,6 +3846,8 @@ def main() -> int:
     # the RT frame: each K10 kernel on the primary pass, and rt_light_rays
     # and rt_shade once more on the glass rays
     for k, e in rt["entries"].items():
+        if e["ms"] is None:  # the profiler missed a launch: not measured
+            continue
         gap = e["ms"] - e["bound_ms"]
         if "glass_rays_queued_ms" in e:
             gap += (sum(e["glass_rays_queued_ms"]) / 2

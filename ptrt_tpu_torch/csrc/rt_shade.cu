@@ -11,7 +11,7 @@
 //   K1 -> rt_light_rays -> K2 -> rt_shade
 //   [glass] -> rt_glass_rays (G glass lanes) -> K1 (2G rays)
 //           -> rt_light_rays -> K2 -> rt_shade
-//   -> rt_resolve
+//   -> rt_resolve -> [glass] rt_resolve_glass (the G glass lanes' pixels)
 // (render/rt_shading.py rt_frame).
 //
 // What bounds them on the card: memory traffic.  A lane's arithmetic is a
@@ -23,11 +23,30 @@
 // hundred elementwise launches a shade, each a round trip of whole planes
 // through device memory.
 //
-// rt_light_rays and rt_resolve keep the first design: one thread a lane,
-// every intermediate in registers, the tables through the read-only cache,
-// the shadow rays of all lights written by one launch so one K2 launch walks
+// rt_light_rays keeps the first design: one thread a lane, every
+// intermediate in registers, the tables through the read-only cache, the
+// shadow rays of all lights written by one launch so one K2 launch walks
 // them, the hit record rebuilt from K1's slot, so no torch op runs between
 // the kernels.
+//
+// rt_resolve (bound: its bytes, 12 in and 3 out a pixel and ~80 a glass
+// lane, 0.011 ms at 1080p) was one thread a pixel in its first design: a
+// 64-bit division for the row, three powf under no fast-math and three
+// byte stores at stride 3 a pixel, every lane reading the index plane and
+// the glass lanes diverging inside warps: 0.031 ms, its instructions, not
+// its bytes, holding it.  Now two launches.  The encode pass takes four
+// neighbouring pixels of a row a thread (the row is the block's y), 16-byte
+// loads of the three colour planes and three 4-byte stores of the 12
+// interleaved bytes, and reads no index plane; after Reinhard the encode is
+// a table built from the plain encode (rt_shading.encode_lut, as K6's in
+// tonemap.cu) in place of the powf: one word for each 2^16 float bit
+// patterns of r in [0, 2] and three for r above 2, negative and NaN, which
+// chip_smoke.py holds equal to the plain encode on all 2^32 float32
+// colours.  Then rt_resolve_glass, one thread a glass lane over the G
+// glass lanes, adds the glass terms to the lane's colour and writes its
+// pixel again.  Measured on an H100 at 1080p, queued (PERF.md): 0.018 ms
+// (the encode pass 0.011, the glass pass 0.005); the index plane read four
+// lanes at a time in one launch instead, 0.021.
 //
 // rt_glass_rays writes the rays of the glass lanes only.  The first design
 // wrote a reflection and a refraction ray for every lane, dead ones with
@@ -125,12 +144,13 @@ struct RtArgs {
     int* lanes;                // (G) the glass lanes, in lane order
     int* index;                // (n) a lane's place in lanes, -1 off glass
     int* counts;               // rt_glass_rays: G, then a count a block
-    long long n_glass;         // G (rt_resolve)
-    const float* sec_color[3]; // the 2G secondary shades (rt_resolve)
+    long long n_glass;         // G (rt_resolve_glass)
+    const float* sec_color[3]; // the 2G secondary shades (rt_resolve_glass)
     const float* sec_t;        // K1's record of the glass rays
     const int* sec_slot;
     uint8_t* rgb;              // (height, width, 3), rows flipped
     int height, width;
+    const int* lut;            // rt_resolve's encode table
 };
 
 namespace {
@@ -149,6 +169,13 @@ constexpr int kBatch = 8;  // tiles whose loads a thread issues together
 // dynamic shared memory a launch may ask for without an opt-in
 constexpr int kMaxStagedBytes = 48 * 1024;
 constexpr int kMaxDevices = 16;
+// rt_resolve: threads a block, pixels a thread; its encode table's buckets
+// (float bits of r = c / (c + 1) in [0, 2], shifted right by 16), then its
+// three special words
+constexpr int kResolveThreads = 128;
+constexpr int kPix = 4;
+constexpr uint32_t kLutTop = 0x40000000u;  // 2.0f
+constexpr uint32_t kLutBuckets = (kLutTop >> 16) + 1;
 constexpr float kPi = F(3.141592653589793);
 constexpr float kTwoPiD = F(2.0 * 3.141592653589793);   // 2.0 * PI
 constexpr float kInvPi = F(1.0 / 3.141592653589793);    // INV_PI
@@ -852,42 +879,120 @@ rt_glass_rays_kernel(const __grid_constant__ RtArgs a, int tiles) {
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// -- rt_resolve ------------------------------------------------------------------
+
+// the byte of one colour channel: Reinhard, then the encode's table
+// (rt_shading.encode_lut): a word for each 2^16 float bit patterns of r in
+// [0, 2] (the byte at the bucket's start, bits 17 up, and where in the
+// bucket the one threshold it may hold lies, low 17 bits, 2^16 where none),
+// then one word each for r in (2, inf], r negative (-0 among them) and r
+// NaN; a special word holds no threshold
+__device__ __forceinline__ uint32_t resolve_byte(float c, const int* lut) {
+    const float r = c / (c + 1.0f);
+    const uint32_t b = __float_as_uint(r);
+    const uint32_t k =
+        b <= kLutTop ? b >> 16
+        : b <= 0x7f800000u ? kLutBuckets
+        : (b & 0x7fffffffu) > 0x7f800000u ? kLutBuckets + 2u
+                                          : kLutBuckets + 1u;
+    const uint32_t e = static_cast<uint32_t>(__ldg(lut + k));
+    return (e >> 17) + ((b & 0xffffu) >= (e & 0x1ffffu) ? 1u : 0u);
+}
+
+// lane i's colour plus the glass terms of its place p: the Fresnel mix of
+// the reflection shade (at p), Beer-Lambert over the refraction ray's t and
+// the transmitted shade (at G + p)
+__device__ __forceinline__ V3 glass_color(const RtArgs& a, long long i,
+                                          long long p, V3 c) {
+    const float* r = mat_row(a, a.mat, a.hit_mesh[i]);
+    const Glass g = glass_terms<false>(ld3(a.d, i), ld3(a.normal, i),
+                                       a.front[i] != 0, v3(0.0f), r);
+    const long long k2 = a.n_glass + p;
+    const float thickness = a.sec_slot[k2] >= 0 ? a.sec_t[k2] : 1.0f;
+    const V3 alb{clamp01(clamp01(__ldg(r + kAlbedo))),
+                 clamp01(clamp01(__ldg(r + kAlbedo + 1))),
+                 clamp01(clamp01(__ldg(r + kAlbedo + 2)))};
+    const V3 absorb{powf(alb.x, thickness), powf(alb.y, thickness),
+                    powf(alb.z, thickness)};
+    const V3 t_col = g.refr_ok ? mul(absorb, ld3(a.sec_color, k2))
+                               : v3(0.0f);
+    const V3 fr = g.refr_ok ? g.fr : v3(1.0f);
+    const V3 glass_add = add(
+        mul(fr, ld3(a.sec_color, p)),
+        mul(mul(sub(v3(1.0f), fr), __ldg(r + kTransmission)), t_col));
+    return add(c, glass_add);
+}
+
+// the colour planes to RGB8 without the glass terms, rows flipped: four
+// neighbouring pixels of a row a thread, the row the block's y; 16-byte
+// loads and three 4-byte stores where kVec (the width a multiple of 4),
+// else a pixel at a time.  rt_resolve_glass writes the glass lanes' pixels
+// again after it.
+template <bool kVec>
+__global__ void __launch_bounds__(kResolveThreads)
 rt_resolve_kernel(const RtArgs a) {
-    const long long i = blockIdx.x * static_cast<long long>(kThreads) +
-                        threadIdx.x;
-    if (i >= a.n) return;
-    V3 c = ld3(a.color, i);
-    const int place = a.index != nullptr ? a.index[i] : -1;
-    if (place >= 0) {  // a glass lane: its two shades at place and G + place
-        const float* r = mat_row(a, a.mat, a.hit_mesh[i]);
-        const Glass g = glass_terms<false>(ld3(a.d, i), ld3(a.normal, i),
-                                           a.front[i] != 0, v3(0.0f), r);
-        const long long k2 = a.n_glass + place;
-        const float thickness = a.sec_slot[k2] >= 0 ? a.sec_t[k2] : 1.0f;
-        const V3 alb{clamp01(clamp01(__ldg(r + kAlbedo))),
-                     clamp01(clamp01(__ldg(r + kAlbedo + 1))),
-                     clamp01(clamp01(__ldg(r + kAlbedo + 2)))};
-        const V3 absorb{powf(alb.x, thickness), powf(alb.y, thickness),
-                        powf(alb.z, thickness)};
-        const V3 t_col = g.refr_ok ? mul(absorb, ld3(a.sec_color, k2))
-                                   : v3(0.0f);
-        const V3 fr = g.refr_ok ? g.fr : v3(1.0f);
-        const V3 glass_add = add(
-            mul(fr, ld3(a.sec_color, place)),
-            mul(mul(sub(v3(1.0f), fr), __ldg(r + kTransmission)), t_col));
-        c = add(c, glass_add);
-    }
-    // Reinhard, gamma, *255 truncated; the rows flipped
-    const float ch[3] = {c.x, c.y, c.z};
-    const long long y = i / a.width, x = i - y * a.width;
-    uint8_t* out = a.rgb + ((a.height - 1 - y) * a.width + x) * 3;
+    const int y = blockIdx.y;
+    const int x = (blockIdx.x * kResolveThreads + threadIdx.x) * kPix;
+    if (x >= a.width) return;
+    const int m = min(kPix, a.width - x);
+    const long long at = static_cast<long long>(y) * a.width + x;
+    float c[3][kPix];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-        const float r = ch[k] / (ch[k] + 1.0f);
-        const float gm = powf(cmax(r, 0.0f), F(0.4545454545));
-        out[k] = static_cast<uint8_t>(clampf(gm * 255.0f, 0.0f, 255.0f));
+        if (kVec) {
+            const float4 v =
+                __ldg(reinterpret_cast<const float4*>(a.color[k] + at));
+            c[k][0] = v.x;
+            c[k][1] = v.y;
+            c[k][2] = v.z;
+            c[k][3] = v.w;
+        } else {
+#pragma unroll
+            for (int p = 0; p < kPix; ++p)
+                c[k][p] = p < m ? __ldg(a.color[k] + at + p) : 0.0f;
+        }
     }
+    uint32_t px[kPix][3];
+#pragma unroll
+    for (int p = 0; p < kPix; ++p)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) px[p][k] = resolve_byte(c[k][p], a.lut);
+    uint8_t* dst =
+        a.rgb + (static_cast<long long>(a.height - 1 - y) * a.width + x) * 3;
+    if (kVec) {
+        // r0 g0 b0 r1 | g1 b1 r2 g2 | b2 r3 g3 b3, little-endian words
+        uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+        d[0] = px[0][0] | px[0][1] << 8 | px[0][2] << 16 | px[1][0] << 24;
+        d[1] = px[1][1] | px[1][2] << 8 | px[2][0] << 16 | px[2][1] << 24;
+        d[2] = px[2][2] | px[3][0] << 8 | px[3][1] << 16 | px[3][2] << 24;
+    } else {
+#pragma unroll
+        for (int p = 0; p < kPix; ++p) {
+            if (p >= m) break;
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+                dst[3 * p + k] = static_cast<uint8_t>(px[p][k]);
+        }
+    }
+}
+
+// the G glass lanes' pixels again, one glass lane a thread: its colour plus
+// its glass terms (32-bit row arithmetic: the wrapper holds n below 2^31)
+__global__ void __launch_bounds__(kThreads)
+rt_resolve_glass_kernel(const RtArgs a) {
+    const long long p = blockIdx.x * static_cast<long long>(kThreads) +
+                        threadIdx.x;
+    if (p >= a.n_glass) return;
+    const int i = __ldg(a.lanes + p);
+    const V3 c = glass_color(a, i, p, ld3(a.color, i));
+    const unsigned y = static_cast<unsigned>(i) /
+                       static_cast<unsigned>(a.width);
+    const unsigned x = static_cast<unsigned>(i) - y * a.width;
+    uint8_t* dst = a.rgb + (static_cast<long long>(a.height - 1 - y) *
+                                a.width + x) * 3;
+    dst[0] = static_cast<uint8_t>(resolve_byte(c.x, a.lut));
+    dst[1] = static_cast<uint8_t>(resolve_byte(c.y, a.lut));
+    dst[2] = static_cast<uint8_t>(resolve_byte(c.z, a.lut));
 }
 
 template <typename K>
@@ -996,14 +1101,41 @@ extern "C" int ptrt_rt_glass_rays(const RtArgs* args, void* stream) {
         dim3(kThreads), params, 0, static_cast<cudaStream_t>(stream)));
 }
 
+// rt_resolve: the encode pass over every pixel, then, with glass lanes
+// (n_glass > 0: lanes and the sec_* planes set), rt_resolve_glass over
+// them.  The vector path needs the width a multiple of 4, 16-byte aligned
+// colour planes and a 4-byte aligned image.
 extern "C" int ptrt_rt_resolve(const RtArgs* args, void* stream) {
-    return launch(rt_resolve_kernel, args, stream);
+    const RtArgs& a = *args;
+    if (a.n <= 0) return static_cast<int>(cudaGetLastError());
+    if (a.height > 65535 || a.n >= (1LL << 31) ||
+        a.n != static_cast<long long>(a.height) * a.width)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    bool vec = a.width % kPix == 0 &&
+               reinterpret_cast<uintptr_t>(a.rgb) % 4 == 0;
+    for (int k = 0; k < 3; ++k)
+        vec = vec && reinterpret_cast<uintptr_t>(a.color[k]) % 16 == 0;
+    constexpr int kSpan = kResolveThreads * kPix;
+    const dim3 grid((a.width + kSpan - 1) / kSpan, a.height);
+    if (vec)
+        rt_resolve_kernel<true><<<grid, kResolveThreads, 0, s>>>(a);
+    else
+        rt_resolve_kernel<false><<<grid, kResolveThreads, 0, s>>>(a);
+    if (a.n_glass > 0) {
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+        const unsigned blocks =
+            static_cast<unsigned>((a.n_glass + kThreads - 1) / kThreads);
+        rt_resolve_glass_kernel<<<blocks, kThreads, 0, s>>>(a);
+    }
+    return static_cast<int>(cudaGetLastError());
 }
 
 // Registers, local-memory bytes a thread, threads a block, resident blocks a
 // SM and dynamic shared bytes a block of kernel k (rt_light_rays, rt_shade,
-// rt_glass_rays, rt_resolve); rt_shade's as a launch with these tables
-// takes it, staged or not.
+// rt_glass_rays, rt_resolve's vector path, rt_resolve_glass); rt_shade's as
+// a launch with these tables takes it, staged or not.
 extern "C" int ptrt_rt_info(int k, const RtArgs* args, int* regs,
                             int* local_bytes, int* threads, int* per_sm,
                             int* shared_bytes) {
@@ -1019,14 +1151,16 @@ extern "C" int ptrt_rt_info(int k, const RtArgs* args, int* regs,
                            : reinterpret_cast<const void*>(
                                  rt_shade_kernel<false>))
         : k == 2 ? reinterpret_cast<const void*>(rt_glass_rays_kernel)
-                 : reinterpret_cast<const void*>(rt_resolve_kernel);
+        : k == 3 ? reinterpret_cast<const void*>(rt_resolve_kernel<true>)
+                 : reinterpret_cast<const void*>(rt_resolve_glass_kernel);
+    const int block = k == 3 ? kResolveThreads : kThreads;
     cudaFuncAttributes attr = {};
     if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
-    *threads = kThreads;
+    *threads = block;
     *shared_bytes = bytes;
     if (e == cudaSuccess)
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
-                                                          kThreads, bytes);
+                                                          block, bytes);
     *regs = attr.numRegs;
     *local_bytes = static_cast<int>(attr.localSizeBytes);
     return static_cast<int>(e);

@@ -49,22 +49,27 @@ class FrameBuffers(NamedTuple):
 
 
 def camera_rays(camera, rng_state: torch.Tensor, frame_index: int,
-                sample: int, blue_noise_tbl: torch.Tensor):
+                sample: int, blue_noise_tbl: torch.Tensor, tile=None):
     """Jittered primary rays of one sample over the (H, W) pixel grid of
-    ``rng_state``, each with its own PCG sub-stream.  Returns
-    (sub_state, RayBatch)."""
+    ``rng_state``, each with its own PCG sub-stream.  ``tile`` as
+    ``trace_frame``'s.  Returns (sub_state, RayBatch)."""
     dev = rng_state.device
     height, width = rng_state.shape
     ys, xs = torch.meshgrid(torch.arange(height, device=dev),
                             torch.arange(width, device=dev), indexing="ij")
+    if tile is not None:
+        y0, x0, full_h, full_w = tile
+        ys, xs = ys + y0, xs + x0
+    else:
+        full_h, full_w = height, width
     fidx = torch.tensor(frame_index + sample, dtype=torch.int64, device=dev)
     jx_t, jy_t = taa_jitter(fidx)
     bx, by = next_blue_noise(blue_noise_tbl, xs, ys, fidx)
     jitter_x = jx_t + (bx - 0.5) * 0.25
     jitter_y = jy_t + (by - 0.5) * 0.25
-    # pixel coords -> camera uv, bottom-up
-    sg = (xs.to(torch.float32) + 0.5 + jitter_x) / float(width)
-    tg = (ys.to(torch.float32) + 0.5 + jitter_y) / float(height)
+    # global pixel coords -> camera uv, bottom-up
+    sg = (xs.to(torch.float32) + 0.5 + jitter_x) / float(full_w)
+    tg = (ys.to(torch.float32) + 0.5 + jitter_y) / float(full_h)
     sub = prng.fold(rng_state, sample + 1)
     return camera.get_ray(sg, tg, sub)
 
@@ -74,17 +79,32 @@ def trace_frame(geom, materials, lights, n_lights: int, sky, camera,
                 height: int, spp: int, max_depth: int,
                 blue_noise_tbl: torch.Tensor, split: bool = False,
                 rr_enabled: bool = True, rr_start: int = 2,
-                camera_nee: bool = True):
-    """One frame of ``spp`` samples.  Returns (rng_state, FrameBuffers)."""
+                camera_nee: bool = True, tile=None):
+    """One frame of ``spp`` samples.  Returns (rng_state, FrameBuffers).
+
+    ``tile``: ``(y0, x0, full_h, full_w)`` — this call renders the
+    (height, width) tile whose top-left global pixel is (y0, x0) of a
+    full_h x full_w frame, ``rng_state`` being the tile's slice of the
+    whole frame's state.  The camera uv, the blue-noise lookup and the TAA
+    jitter use global pixel coordinates and every lane's work depends only
+    on its own pixel and sample, so tiles put together are the whole frame
+    bit for bit (``rays_traced`` summed)."""
     dev = rng_state.device
     if tuple(rng_state.shape) != (height, width):
         raise ValueError(f"rng_state {tuple(rng_state.shape)} does not match "
                          f"the {height}x{width} frame")
+    if tile is not None:
+        y0, x0, full_h, full_w = (int(v) for v in tile)
+        if not (0 <= y0 and y0 + height <= full_h and 0 <= x0
+                and x0 + width <= full_w):
+            raise ValueError(f"tile {tuple(tile)} of {height}x{width} lies "
+                             "outside its frame")
+        tile = (y0, x0, full_h, full_w)
     sums = None
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(spp):
         sub, ray = camera_rays(camera, rng_state, frame_index, s,
-                               blue_noise_tbl)
+                               blue_noise_tbl, tile)
         _, out = trace_path(geom, materials, lights, n_lights, sky, ray, sub,
                             max_depth, split=split, rr_enabled=rr_enabled,
                             rr_start=rr_start, camera_nee=camera_nee)
@@ -176,22 +196,27 @@ def encode_plain(v: torch.Tensor) -> torch.Tensor:
 
 _thresholds: dict = {}
 
+ONE_BITS = 0x3F800000  # the bits of 1.0
 
-def encode_thresholds(device) -> torch.Tensor:
+
+def encode_thresholds(device, encode=None, top: int = ONE_BITS
+                      ) -> torch.Tensor:
     """(256,) float32 on ``device``: entry k >= 1 is the least float in
-    [0, 1] that the plain encode, run on ``device``, maps to k or more
-    (entry 0 is 0 and unused).  A bisection over the floats' bit patterns
-    (which order as the floats do), 31 steps for every k at once; where the
-    plain encode is monotone, the count of thresholds at or below v is its
-    byte."""
-    key = str(device)
+    [0, top] (``top`` as float bits) that the plain ``encode`` (a plane of
+    floats to uint8; ``encode_plain`` where None), run on ``device``, maps
+    to k or more (entry 0 is 0 and unused).  A bisection over the floats'
+    bit patterns (which order as the floats do), 31 steps for every k at
+    once; where the plain encode is monotone, the count of thresholds at or
+    below v is its byte.  ``top`` must encode to 255."""
+    encode = encode or encode_plain
+    key = (str(device), encode, top)
     if key not in _thresholds:
         k = torch.arange(1, 256, dtype=torch.int32, device=device)
         lo = torch.zeros_like(k)
-        hi = torch.full_like(k, 0x3F800000)  # 1.0, which encodes to 255
+        hi = torch.full_like(k, top)
         for _ in range(31):
             mid = (lo + hi) // 2
-            ge = encode_plain(mid.view(torch.float32)).to(torch.int32) >= k
+            ge = encode(mid.view(torch.float32)).to(torch.int32) >= k
             hi = torch.where(ge, mid, hi)
             lo = torch.where(ge, lo, mid + 1)
         _thresholds[key] = torch.cat([torch.zeros(1, device=device),
@@ -202,21 +227,23 @@ def encode_thresholds(device) -> torch.Tensor:
 _luts: dict = {}
 
 
-def encode_lut(device) -> torch.Tensor:
+def encode_lut(device, encode=None, top: int = ONE_BITS) -> torch.Tensor:
     """The encode's table as ``csrc/tonemap.cu`` reads it, int32 on
     ``device``: one word for each bucket of 2^LUT_SHIFT float bit patterns
-    of [0, 1] (the bucket of 1.0 last), holding the byte at the bucket's
-    start (the thresholds at or below it, bits 17 up) and the offset in the
-    bucket of the next threshold (low 17 bits; 2^16 where the bucket holds
-    none).  The byte of v is then the number of thresholds at or below v;
-    raises if a bucket holds two thresholds."""
-    key = str(device)
+    of [0, top] (the bucket of ``top`` last), holding the byte at the
+    bucket's start (the thresholds at or below it, bits 17 up) and the
+    offset in the bucket of the next threshold (low 17 bits; 2^16 where
+    the bucket holds none).  The byte of v is then the number of
+    thresholds at or below v; raises if a bucket holds two thresholds.
+    ``encode`` and ``top`` as ``encode_thresholds``'."""
+    encode = encode or encode_plain
+    key = (str(device), encode, top)
     if key not in _luts:
-        bits = encode_thresholds(device)[1:].view(torch.int32)
+        bits = encode_thresholds(device, encode, top)[1:].view(torch.int32)
         if not bool((bits[1:] >= bits[:-1]).all()):
             raise RuntimeError("the encode's thresholds are not in order")
         span = 1 << LUT_SHIFT
-        starts = torch.arange((0x3F800000 >> LUT_SHIFT) + 1,
+        starts = torch.arange((top >> LUT_SHIFT) + 1,
                               dtype=torch.int32, device=device) * span
         base = torch.searchsorted(bits, starts, right=True)
         nxt = bits[base.clamp(max=254)]

@@ -28,7 +28,8 @@ CPU tensors, with no fallback between the two:
   plane of every lane's place in the list (-1 off glass);
 * ``rt_resolve`` — the glass terms (Beer–Lambert, the Fresnel mix) added to
   the primary colour, then Reinhard, ``pow(·, 0.4545454545)``, ``*255``
-  truncated to RGB8, rows flipped.
+  truncated to RGB8, rows flipped; on the card the encode after Reinhard is
+  a table built from the plain encode (``encode_lut``).
 
 A frame: camera rays -> K1 -> ``rt_light_rays`` -> K2 -> ``rt_shade``;
 with glass in the scene -> ``rt_glass_rays`` -> K1 (2G rays for the G
@@ -48,7 +49,7 @@ from ptrt_tpu_torch import kernels
 from ptrt_tpu_torch.core.rng import MASK32
 from ptrt_tpu_torch.core.vec import (PI, Vec3, clamp01, cross, fmax, lerp,
                                      normalize, reflect, where)
-from ptrt_tpu_torch.render import traverse
+from ptrt_tpu_torch.render import pipeline, traverse
 from ptrt_tpu_torch.render.pbr import (distribution_ggx, fresnel_schlick,
                                        fresnel_schlick_roughness,
                                        geometry_smith)
@@ -507,6 +508,69 @@ def rt_glass_rays_plain(hit, d: Vec3, materials: MaterialTable) -> GlassRays:
                      t, g.seed[lanes], index)
 
 
+def encode_plain(r: torch.Tensor) -> torch.Tensor:
+    """The frame's encode of one plane of Reinhard values r = c / (c + 1):
+    ``pow(max(r, 0), 0.4545454545) * 255``, clamped, truncated to uint8."""
+    return torch.clamp(torch.pow(fmax(r, 0.0), GAMMA) * 255.0, 0,
+                       255).to(torch.uint8)
+
+
+# rt_resolve's encode table: buckets of the float bits of r in [0, 2] (2.0's
+# bits; csrc/rt_shade.cu kLutTop), then a word each for r in (2, inf], r
+# negative and r NaN
+LUT_TOP = 0x40000000
+LUT_BUCKETS = (LUT_TOP >> pipeline.LUT_SHIFT) + 1
+_luts: dict = {}
+
+
+def encode_lut(device) -> torch.Tensor:
+    """``rt_resolve``'s encode table, int32 on ``device``: the buckets of
+    ``pipeline.encode_lut`` for ``encode_plain`` over [0, 2] (a bucket's
+    byte at its start and its one threshold), then three words that hold
+    the plain encode's byte, run on ``device``, of 4.0, -1.0 and NaN, for
+    r above 2, negative (and -0) and NaN; they hold no threshold.  Kept
+    only because ``chip_smoke.py`` finds the kernel equal to the plain
+    encode on every float32 colour bit pattern."""
+    key = str(device)
+    if key not in _luts:
+        body = pipeline.encode_lut(device, encode_plain, LUT_TOP)
+        rep = torch.tensor([4.0, -1.0, math.nan], device=device)
+        special = ((encode_plain(rep).to(torch.int32) << 17)
+                   | (1 << pipeline.LUT_SHIFT))
+        _luts[key] = torch.cat([body, special]).to(torch.int32)
+    return _luts[key]
+
+
+def encode_lut_plain(r: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """The byte ``csrc/rt_shade.cu`` reads from ``lut`` for Reinhard values
+    ``r`` (any float32): its bucket's byte, plus one at or past the
+    bucket's threshold; a special word past the buckets."""
+    b = r.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    nan = (b & 0x7FFFFFFF) > 0x7F800000
+    k = torch.where(b <= LUT_TOP, b >> pipeline.LUT_SHIFT,
+                    torch.where(b <= 0x7F800000, LUT_BUCKETS,
+                                torch.where(nan, LUT_BUCKETS + 2,
+                                            LUT_BUCKETS + 1)))
+    e = lut[k].to(torch.int64)
+    return ((e >> 17) + ((b & 0xFFFF) >= (e & 0x1FFFF)).long()).to(
+        torch.uint8)
+
+
+def glass_color_plain(color: Vec3, hit, d: Vec3, materials: MaterialTable,
+                      glass: GlassRays, sec_color: Vec3, sec_k1) -> Vec3:
+    """The frame's colour with the glass terms added on the glass lanes
+    (the glass pass of ``rt_resolve``, in plain torch)."""
+    n_glass = glass.lanes.shape[0]
+    mat = materials.gather(fmax(hit.mesh_index, 0))
+    g = glass_terms(hit, d, mat)
+    k = glass.index.clamp_min(0).long()
+    k2 = k + n_glass
+    thickness = torch.where(sec_k1.slot[k2] >= 0, sec_k1.t[k2], 1.0)
+    add = glass_add(g, mat, sec_color.map(lambda c: c[k]),
+                    sec_color.map(lambda c: c[k2]), thickness)
+    return where(glass.index >= 0, color + add, color)
+
+
 def rt_resolve_plain(color: Vec3, hit, d: Vec3, materials: MaterialTable,
                      glass: GlassRays | None, sec_color: Vec3 | None,
                      sec_k1, height: int, width: int) -> torch.Tensor:
@@ -517,19 +581,10 @@ def rt_resolve_plain(color: Vec3, hit, d: Vec3, materials: MaterialTable,
     ``glass``' rays; ``sec_k1``: K1's record of them (only the refraction
     rays' t and slot are read)."""
     if sec_color is not None:
-        n_glass = glass.lanes.shape[0]
-        mat = materials.gather(fmax(hit.mesh_index, 0))
-        g = glass_terms(hit, d, mat)
-        k = glass.index.clamp_min(0).long()
-        k2 = k + n_glass
-        thickness = torch.where(sec_k1.slot[k2] >= 0, sec_k1.t[k2], 1.0)
-        add = glass_add(g, mat, sec_color.map(lambda c: c[k]),
-                        sec_color.map(lambda c: c[k2]), thickness)
-        color = where(glass.index >= 0, color + add, color)
+        color = glass_color_plain(color, hit, d, materials, glass, sec_color,
+                                  sec_k1)
     c = color / (color + 1.0)
-    arr = torch.stack([torch.pow(fmax(ch, 0.0), GAMMA)
-                       for ch in (c.x, c.y, c.z)], dim=-1)
-    rgb8 = torch.clamp(arr * 255.0, 0, 255).to(torch.uint8)
+    rgb8 = torch.stack([encode_plain(ch) for ch in (c.x, c.y, c.z)], dim=-1)
     return rgb8.view(height, width, 3).flip(0)
 
 
@@ -559,11 +614,13 @@ class RtArgs(ctypes.Structure):
         ("n_glass", ctypes.c_longlong),
         ("sec_color", _P3), ("sec_t", _P), ("sec_slot", _P),
         ("rgb", _P), ("height", ctypes.c_int), ("width", ctypes.c_int),
+        ("lut", _P),
     ]
 
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
-KERNELS = ("rt_light_rays", "rt_shade", "rt_glass_rays", "rt_resolve")
+KERNELS = ("rt_light_rays", "rt_shade", "rt_glass_rays", "rt_resolve",
+           "rt_resolve_glass")
 
 
 def _flat(name: str, v, n: int, dtype, dev) -> list:
@@ -735,26 +792,31 @@ def rt_glass_rays(hit, d: Vec3, materials: MaterialTable) -> GlassRays:
 def rt_resolve(color: Vec3, hit, d: Vec3, materials: MaterialTable,
                glass: GlassRays | None, sec_color: Vec3 | None, sec_k1,
                height: int, width: int) -> torch.Tensor:
-    """The frame's colour to RGB8 (kernel ``rt_resolve``): the glass terms
-    from ``glass``' index plane, the 2G secondary shades ``sec_color`` and
-    K1's record ``sec_k1`` of the glass rays (both None without a glass
-    lane), Reinhard, gamma, ``*255`` truncated, rows flipped.  Returns (H,
-    W, 3) uint8."""
-    dev = d.x.device
+    """The frame's colour to RGB8: Reinhard, gamma, ``*255`` truncated,
+    rows flipped (kernel ``rt_resolve``, every pixel), then on the glass
+    lanes ``glass.lanes`` their glass terms from the 2G secondary shades
+    ``sec_color`` and K1's record ``sec_k1`` of the glass rays (both None
+    without a glass lane), written over their pixels (kernel
+    ``rt_resolve_glass``, launched by the same C entry after it).  Returns
+    (H, W, 3) uint8.  Without glass shades only ``color`` is read (``hit``,
+    ``d`` and ``materials`` may be None)."""
+    dev = color.x.device
     kernels.require_supported(dev)
-    n = d.x.shape[0]
+    n = color.x.shape[0]
     if n != height * width:
         raise ValueError(f"{n} lanes are not a {height}x{width} frame")
     if (sec_color is None) != (sec_k1 is None):
         raise ValueError("sec_color and sec_k1 come together")
-    if sec_color is not None and glass is None:
-        raise ValueError("sec_color needs the glass records")
+    if sec_color is not None and (glass is None or materials is None):
+        raise ValueError("sec_color needs the glass records and materials")
     a = RtArgs()
-    _hit_args(a, hit, d, n, dev)
     _set(a, "color", _flat("color", color, n, _F32, dev))
+    n_glass = 0
     if sec_color is not None:
+        _hit_args(a, hit, d, n, dev)
         n_glass = glass.lanes.shape[0]
-        _set(a, "index", _flat("glass.index", glass.index, n, _I32, dev))
+        _set(a, "lanes", _flat("glass.lanes", glass.lanes, n_glass, _I32,
+                               dev))
         _set(a, "sec_color", _flat("sec_color", sec_color, 2 * n_glass, _F32,
                                    dev))
         _set(a, "sec_t", _flat("sec_k1.t", sec_k1.t, 2 * n_glass, _F32, dev))
@@ -765,11 +827,17 @@ def rt_resolve(color: Vec3, hit, d: Vec3, materials: MaterialTable,
     if dev.type == "cpu":
         return rt_resolve_plain(color, hit, d, materials, glass, sec_color,
                                 sec_k1, height, width)
+    if height > 65535 or n >= 1 << 31:
+        raise ValueError(f"rt_resolve: a {height}x{width} frame is past the "
+                         "kernel's 65,535 rows or 2^31 pixels")
     a.n = n
     a.height, a.width = height, width
     out = torch.empty((height, width, 3), dtype=torch.uint8, device=dev)
     a.rgb = out.data_ptr()
+    a.lut = encode_lut(dev).data_ptr()
     _launch("rt_resolve", a, dev)
+    if n_glass > 0:  # the C entry launched rt_resolve_glass after it
+        kernels.launches["rt_resolve_glass"] += 1
     return out
 
 

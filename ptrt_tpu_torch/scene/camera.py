@@ -29,6 +29,7 @@ class Camera:
     view: torch.Tensor
     proj: torch.Tensor
     inv_view_proj: torch.Tensor
+    fov: torch.Tensor  # vertical, degrees (float32)
 
     @staticmethod
     def make(lookfrom, lookat, vup=(0.0, 1.0, 0.0), vfov=60.0,
@@ -58,7 +59,18 @@ class Camera:
         return Camera(origin=lookfrom, lower_left_corner=llc,
                       horizontal=horizontal, vertical=vertical, u=u, v=v, w=w,
                       lens_radius=f32(aperture) / 2.0, view=view, proj=proj,
-                      inv_view_proj=m4.inverse(proj @ view))
+                      inv_view_proj=m4.inverse(proj @ view), fov=vfov)
+
+    def ray_through(self, s: float, t: float):
+        """Host-side pinhole ray through viewport coords (s, t) in [0, 1]^2:
+        numpy (origin, direction) for picking and debug-ray generators."""
+        import numpy as np
+
+        g = lambda v: np.array([float(v.x), float(v.y), float(v.z)])
+        o = g(self.origin)
+        d = (g(self.lower_left_corner) + g(self.horizontal) * s
+             + g(self.vertical) * t - o)
+        return o, d / max(np.linalg.norm(d), 1e-12)
 
     def get_view_proj(self) -> torch.Tensor:
         return self.proj @ self.view

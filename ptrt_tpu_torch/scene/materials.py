@@ -128,6 +128,12 @@ class MaterialTable:
             **{name: c3(3 * k) for k, name in enumerate(FIELDS_V3)}, **c1)
 
 
+def ior_to_f0(ior: float) -> float:
+    """``material_lib.cuh:142-145``."""
+    a = (ior - 1.0) / (ior + 1.0)
+    return a * a
+
+
 class Materials:
     """The reference's named material presets (``ptrt_tpu/scene/materials.py``
     ``Materials``), copied: the bench scene's and the RT demo scenes'."""

@@ -110,8 +110,8 @@ def from_reference(*, device, geometry=None, materials=None, lights=None,
     ``RefitPlan``'s fields; ``materials`` / ``lights``: the tables' fields
     (only ``packed`` is used); ``sky``: a ``SkyConfig``'s fields (gradient
     or HDRI, with its sampling tables); ``camera``: ``Camera`` fields (the
-    reference's fov, aspect and clip planes are dropped: the port keeps
-    them in the matrices); ``rng_state``: the (H, W) uint32 PCG state; ``blue_noise``:
+    reference's aspect and clip planes are dropped: the port keeps them in
+    the matrices); ``rng_state``: the (H, W) uint32 PCG state; ``blue_noise``:
     the (64, 64, 2) table; ``denoiser_state``: ``DenoiserState`` fields,
     its two ``ChannelHistory`` entries as field dicts of their own.
     Returns a dict with the converted entries under the same names."""

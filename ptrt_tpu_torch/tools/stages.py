@@ -359,6 +359,42 @@ def tonemap_bound(h: int, w: int, bloom: bool, instructions=None) -> dict:
     return out
 
 
+# float operations of rt_resolve: a pixel's Reinhard and encode-table
+# compare (3 x 3); a glass lane's glass terms (csrc/rt_shade.cu glass_color)
+RESOLVE_OPS_PIXEL, RESOLVE_OPS_GLASS = 9, 40
+
+
+def resolve_bounds(n: int, glass_lanes: int, table_bytes: int,
+                   lut_bytes: int) -> dict:
+    """rt_resolve's two kernels over n pixels with ``glass_lanes`` glass
+    lanes: the encode pass reads a pixel's colour (12 bytes) and writes its
+    RGB8 (3), the encode table once; the glass pass reads a glass lane's
+    place, colour, mesh id, ray direction, normal, front flag, two
+    secondary colours and refraction t and slot (73 bytes) and writes its
+    3 bytes, the material and encode tables once."""
+    return {"rt_resolve": bound(n * (12 + 3) + lut_bytes,
+                                n * RESOLVE_OPS_PIXEL),
+            "rt_resolve_glass": bound(
+                table_bytes + lut_bytes + glass_lanes * (73 + 3),
+                glass_lanes * (RESOLVE_OPS_GLASS + RESOLVE_OPS_PIXEL))}
+
+
+def resolve_sass(resources) -> int:
+    """The SASS instructions a thread of rt_resolve's vector encode pass
+    runs (4 pixels), from ``kernel_resources``' "rt_resolve" entry."""
+    return next(r["sass"]["body"] for fn, r in resources.items()
+                if "ILb1EE" in fn)
+
+
+def resolve_issue_ms(h: int, w: int, instructions: int) -> float:
+    """The issue time of rt_resolve's encode pass over an (h, w) frame:
+    its warps (a thread a 4 pixels of a row) times ``instructions`` a
+    thread over the card's issue rate; beside the bound, never as it."""
+    threads = -(-w // TONEMAP_PIXELS)  # a row's
+    warps = -(-threads // 32) * h
+    return 1e3 * warps * instructions / WARP_ISSUE_PER_S
+
+
 def profiled_kernels(fn, calls: int = 1, lead_cycles: int = 0) -> list:
     """The device kernels torch.profiler records over ``calls`` calls of
     ``fn()`` (no warm-up; memory copies and sets left out), in launch
@@ -1377,7 +1413,8 @@ RT_KERNELS = (("closest_hit", "closest_hit_kernel"),
               ("rt_light_rays", "rt_light_rays_kernel"),
               ("rt_shade", "rt_shade_kernel"),
               ("rt_glass_rays", "rt_glass_rays_kernel"),
-              ("rt_resolve", "rt_resolve_kernel"))
+              ("rt_resolve", "rt_resolve_kernel"),
+              ("rt_resolve_glass", "rt_resolve_glass_kernel"))
 
 
 def rt_frame_split(kern) -> dict:
@@ -1428,9 +1465,10 @@ def measure_rt(tag: str, card: str, frames: int = 5) -> dict:
     RGB8 (two trees' images compare bit for bit), its wrapper launches,
     ``frames`` frames on the host clock, the host ms of a call, one frame
     profiled behind a spin and split by pass and kernel
-    (``rt_frame_split``); ``rt_shade`` on both passes and ``rt_light_rays``
-    on the glass rays queued behind a spin (two readings each), each K10
-    kernel alone by the profiler over 20 calls; ``rt_shade``'s registers,
+    (``rt_frame_split``); ``rt_shade`` on both passes, ``rt_light_rays``
+    on the glass rays and ``rt_resolve`` (both its kernels) queued behind a
+    spin (two readings each), each K10 kernel alone by the profiler over 20
+    calls, beside ``rt_resolve``'s bounds; ``rt_shade``'s registers,
     local bytes, blocks a SM (``kernel_info``) and ptxas report."""
     import time
 
@@ -1471,7 +1509,12 @@ def measure_rt(tag: str, card: str, frames: int = 5) -> dict:
             fr.sec_hit, fr.glass.d, fr.sec_occluded, mats, lts, nl, params),
         "rt_light_rays (glass rays)": lambda _: rs.rt_light_rays(
             sc._geom, fr.glass.o, fr.glass.d, fr.sec_k1, lts, nl),
-        "rt_glass_rays": lambda _: rs.rt_glass_rays(fr.hit, d, mats)}
+        "rt_glass_rays": lambda _: rs.rt_glass_rays(fr.hit, d, mats),
+        "rt_resolve": lambda _: rs.rt_resolve(
+            fr.color, fr.hit, d, mats, fr.glass, fr.sec_color, fr.sec_k1,
+            1080, 1920)}
+    # a tree from before rt_resolve's two launches has no glass pass
+    two = hasattr(rs, "encode_lut")
     out["glass_rays"] = int(fr.glass.d.x.shape[0])
     out["queued_ms"] = {k: [clones_ms(fn, [None] * 21, SPIN_CYCLES)
                             for _ in range(2)]
@@ -1484,7 +1527,15 @@ def measure_rt(tag: str, card: str, frames: int = 5) -> dict:
                              calls["rt_shade (glass rays)"],
                              "rt_shade_kernel"),
                             ("rt_glass_rays", calls["rt_glass_rays"],
-                             "rt_glass_rays_kernel"))}
+                             "rt_glass_rays_kernel"),
+                            ("rt_resolve (the encode pass)",
+                             calls["rt_resolve"], "rt_resolve_kernel"))
+                        + ((("rt_resolve_glass", calls["rt_resolve"],
+                             "rt_resolve_glass_kernel"),) if two else ())}
+    out["resolve_bounds"] = resolve_bounds(
+        d.x.shape[0], out["glass_rays"] // 2,
+        mats.packed.numel() * 4,
+        rs.encode_lut(d.x.device).numel() * 4 if two else 0)
     out["info"] = rs.kernel_info(mats, lts, nl)
     out["ptxas"] = rt_shade_ptxas(os.path.join(os.path.dirname(
         os.path.abspath(kernels.__file__)), "csrc"))
@@ -1510,6 +1561,9 @@ def measure_rt(tag: str, card: str, frames: int = 5) -> dict:
     for k, v in out["kernel_ms"].items():
         log(f"{k}: kernel (profiler) "
             f"{'not measured' if v is None else f'{v:.4f} ms'} [{card}]")
+    log("rt_resolve bounds: " + ", ".join(
+        f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
+        for k, v in out["resolve_bounds"].items()) + f" [{card}]")
     info = out["info"]["rt_shade"]
     log(f"rt_shade: {info['registers']} registers, {info['local_bytes']} "
         f"bytes local, {info['blocks_per_sm']} blocks of {info['threads']} "

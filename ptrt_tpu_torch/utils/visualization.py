@@ -94,14 +94,11 @@ def generate_frustum_wireframe(camera, aspect: float, far_dist: float = 5.0,
                                fov: float | None = None) -> np.ndarray:
     """Camera frustum as 12 wireframe line cylinders
     (``visualization.cu:218-313``).  ``fov`` (degrees): the camera's
-    ``fov`` where it has one, else read back from its projection matrix
-    (the port's ``Camera`` keeps its fov only there)."""
+    where None."""
     import math
 
     if fov is None:
-        fov = getattr(camera, "fov", None)
-    if fov is None:
-        fov = math.degrees(2.0 * math.atan(1.0 / float(camera.proj[1, 1])))
+        fov = camera.fov
 
     origin = np.array([float(camera.origin.x), float(camera.origin.y),
                        float(camera.origin.z)])

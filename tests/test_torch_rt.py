@@ -533,3 +533,59 @@ def test_frame_without_glass_lanes():
                        len(sc.lights), sc.params(), o, d, 32, 48, False)
     assert want.glass is None
     assert torch.equal(img, want.rgb8)
+
+
+def test_resolve_plain_is_the_frame_rgb8():
+    """With glass lanes in view, the frame's RGB8 is ``rt_resolve_plain``
+    of its records, which is the glass pass (``glass_color_plain``) then
+    Reinhard and the plain encode; without glass shades the resolve reads
+    the colour alone."""
+    sc, _ = build_scene_by_id(7, 48, 32, device="cpu")
+    img = sc.render_frame_device()
+    fr = sc.last_frame
+    assert fr.glass.lanes.numel() > 0
+    d = sc.camera_rays()[1]
+    args = (fr.color, fr.hit, d, sc._mat_table, fr.glass, fr.sec_color,
+            fr.sec_k1)
+    assert torch.equal(img, rs.rt_resolve_plain(*args, 32, 48))
+    c = rs.glass_color_plain(*args)
+    c = c / (c + 1.0)
+    want = torch.stack([rs.encode_plain(ch) for ch in (c.x, c.y, c.z)], -1)
+    assert torch.equal(img, want.view(32, 48, 3).flip(0))
+    on_glass = torch.zeros(32 * 48, dtype=torch.bool)
+    on_glass[fr.glass.lanes.long()] = True
+    plain = rs.rt_resolve(fr.color, *(None,) * 6, 32, 48)
+    assert torch.equal(plain.view(-1, 3)[~on_glass.view(32, 48).flip(0)
+                                         .reshape(-1)],
+                       img.view(-1, 3)[~on_glass.view(32, 48).flip(0)
+                                       .reshape(-1)])
+    assert not torch.equal(plain, img)
+
+
+def test_resolve_encode_table_is_the_plain_encode():
+    """``rt_resolve``'s encode table (built from the plain encode on the
+    CPU here) read by its plain reader equals the plain encode at every
+    threshold and two floats either side, on the special values (+-0, 1,
+    2, +-inf, NaNs, negatives, denormals) and on 2^21 seeded random float
+    bit patterns and 2^21 random r in [0, 2]."""
+    lut = rs.encode_lut("cpu")
+    assert lut.shape == (rs.LUT_BUCKETS + 3,) and lut.dtype == torch.int32
+    t = rs.pipeline.encode_thresholds("cpu", rs.encode_plain, rs.LUT_TOP)
+    bits = t[1:].view(torch.int32)
+    assert bool((bits[1:] > bits[:-1]).all())
+    for dlt in (-2, -1, 0, 1, 2):
+        v = (bits + dlt).view(torch.float32)
+        assert torch.equal(rs.encode_lut_plain(v, lut), rs.encode_plain(v))
+    special = torch.tensor(
+        [0x00000000, 0x80000000, 0x3F800000, 0x3F7FFFFF, 0x3F800001,
+         0x40000000, 0x40000001, 0x7F7FFFFF, 0x7F800000, 0xFF800000,
+         0x7F800001, 0x7FC00000, 0xFFC00000, 0xFFFFFFFF, 0x00000001,
+         0x80000001, 0xBF800000, 0x007FFFFF, 0x3E800000],
+        dtype=torch.int64).to(torch.int32).view(torch.float32)
+    assert torch.equal(rs.encode_lut_plain(special, lut),
+                       rs.encode_plain(special))
+    g = torch.Generator().manual_seed(14)
+    for v in (torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << 21,), generator=g,
+                            dtype=torch.int32).view(torch.float32),
+              torch.rand(1 << 21, generator=g) * 2.0):
+        assert torch.equal(rs.encode_lut_plain(v, lut), rs.encode_plain(v))
