@@ -170,7 +170,24 @@ Phases (any failure raises, so the exit code is non-zero):
      and GlassDemo at 1920x1080 built into a PT Scene and an RTScene, a
      warm-up and three frames each; `python -m ptrt_tpu_torch.app.demo`'s
      main for --backend pt and rt, three 1920x1080 frames each, into a
-     temporary directory (its PPM read back); frame ms and launches.
+     temporary directory (its PPM read back); frame ms and launches;
+ 15. the games (ptrt_tpu_torch/games) and K11 instances_update
+     (csrc/instances.cu): K11 against instances_update_plain at 1, 10, 192,
+     1,024 (its one-block most), 1,025, 2,048, 4,096 and 8,192 instances (rows
+     and boxes equal, lanes that differ counted; the tree bit for bit
+     build_tlas of K11's own boxes), each timed queued beside its bound and the
+     plain version with that version's launches; every game's fused run
+     (games/fused.FusedRunner) under a guard that makes the host scene updates
+     raise: cube slider and tycoon (192 slots) at 640x360 "fast", the 24x24
+     fluid at 320x180 plain and Morton-refilled, tycoon and the 256x256 fluid
+     (130,050 triangles) at 1920x1080 "balanced" — frames a second, the
+     launches (K11 once a frame), one profiled frame (device ms, launches,
+     K11's kernel), the upscale's device and host time, the synchronizing calls
+     of one frame under torch.cuda.set_sync_debug_mode("warn"), each with its
+     source line, and the profiler's trace of one frame (device-to-host
+     copies and synchronizing runtime calls inside it): both must be none; K4 closest and any-hit over K11's tree bit for bit those over
+     build_tlas's tree of the same boxes; each game's run_headless; a 224x126
+     fused cube-slider frame GPU vs CPU.
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
@@ -182,6 +199,7 @@ before the last is the kernel table as JSON; the last line is
 the script fails.
 """
 
+import collections
 import json
 import math
 import os
@@ -293,6 +311,23 @@ RT_OPS = {"hit": 40, "light_ray": 14, "shade": 80, "shade_light": 125,
 RT_RGB8_SHA256 = ("8c1d10035577b3da207111262296baa37e4d86e0bd8719cf00c54f9117"
                   "35dc36")
 RES_SWEEP_HW = 1 << 14
+# phase 15, the games.  K11's float operations an instance, a floor counted
+# from csrc/instances.cu as OPS_PER_ITEM's: the rotation's 22 products and
+# sums (its six sines and cosines one each), the scale's reciprocals 9, the
+# rows 30, the normal matrix 9, the corners' products 9 and their 8 x 3 x 6
+# sums and min / max, the centre 6 and its code 15
+K11_OPS = 22 + 6 + 9 + 30 + 9 + 9 + 8 * 3 * 6 + 6 + 15
+# the fused runs: (game, width, height, preset, frames, fluid grid); the
+# reference's defaults, then the full-size ones
+GAME_RUNS = (("cube_slider", 640, 360, "fast", 60, None),
+             ("tycoon", 640, 360, "fast", 60, None),
+             ("fluid", 320, 180, "fast", 30, 24),
+             ("fluid lbvh", 320, 180, "fast", 30, 24),
+             ("tycoon 1080p", W, H, "balanced", 10, None),
+             ("fluid 1080p", W, H, "balanced", 10, 256))
+# the fused cube slider on the GPU against the CPU: its size, and the least
+# share of pixels within 1 LSB (phase 9's tolerance)
+GAME_SMALL_WH, GAME_SMALL_AGREE = (224, 126), 0.99
 
 
 def bound(nbytes: float, ops: float = 0.0) -> dict:
@@ -2904,6 +2939,381 @@ def check_app(dev, card) -> dict:
     return out
 
 
+def k11_inputs(n: int, seed: int, dev):
+    """Seeded TRS of ``n`` instances and their local boxes: scales of both
+    signs, a tenth collapsed to 1e-6 at y = -100 (the games' hidden
+    slots), some exactly 0; angles past 2 pi."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-50.0, 50.0, (n, 3))
+    rot = rng.uniform(-9.0, 9.0, (n, 3))
+    scale = rng.uniform(0.2, 3.0, (n, 3)) * rng.choice([-1.0, 1.0], (n, 3))
+    hidden = rng.random(n) < 0.1
+    scale[hidden] = 1e-6
+    pos[hidden, 1] = -100.0
+    scale[rng.random((n, 3)) < 0.02] = 0.0
+    lo = -rng.uniform(0.1, 2.0, (n, 3))
+    hi = rng.uniform(0.1, 2.0, (n, 3))
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    return [t(a) for a in (pos, rot, scale, lo, hi)]
+
+
+def check_k11(dev, card) -> dict:
+    """K11 against its plain version on the card at 1, 10, 192, the
+    one-block kernel's most, one more, and 8,192 instances: rows and boxes
+    equal (lanes that are not counted), the tree bit for bit build_tlas
+    of K11's own boxes, each timed queued beside its bound and the plain
+    version, with the launches the plain version needs."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch.geometry import dtransform as dt
+    from ptrt_tpu_torch.geometry.tlas import (TLAS_ROW, TLAS_WIDTH,
+                                              build_tlas, build_tlas_plain,
+                                              tlas_node_count)
+    from ptrt_tpu_torch.tools import stages
+
+    limit = dt.one_block_max()
+    out = {}
+    for n in sorted({1, 10, 192, 1024, limit, limit + 1, 2048, 4096, 8192}):
+        ins = k11_inputs(n, n, dev)
+        nodes = tlas_node_count(n)
+        f32 = dict(dtype=torch.float32, device=dev)
+        bufs = [torch.full((n, 24), np.nan, **f32),
+                torch.full((n, 3), np.nan, **f32),
+                torch.full((n, 3), np.nan, **f32),
+                torch.full((nodes, TLAS_WIDTH, TLAS_ROW), np.nan, **f32)]
+        dt.instances_update(*ins, *bufs)
+        torch.cuda.synchronize()
+        want = dt.instances_update_plain(*ins)
+        mats_lanes = int((bufs[0] != want[0]).any(1).sum())
+        box_lanes = int(((bufs[1] != want[1]) | (bufs[2] != want[2])).any(1)
+                        .sum())
+        err = max(float((bufs[k] - want[k]).abs().max()) for k in range(3))
+        rel = float(((bufs[0] - want[0]).abs()
+                     / (want[0].abs() + 1e-6)).max())
+        host = build_tlas(bufs[1].cpu().numpy(), bufs[2].cpu().numpy())
+        tree_bits = np.array_equal(bufs[3].cpu().numpy().view(np.uint32),
+                                   host.view(np.uint32))
+        plain_tree = build_tlas_plain(bufs[1], bufs[2])
+        plain_bits = bool((bufs[3].view(torch.int32)
+                           == plain_tree.view(torch.int32)).all())
+        queued = [stages.clones_ms(lambda _: dt.instances_update(*ins, *bufs),
+                                   [None] * 51, stages.SPIN_CYCLES)
+                  for _ in range(2)]
+        kern = stages.profiled_kernels(
+            lambda: dt.instances_update(*ins, *bufs),
+            lead_cycles=stages.SPIN_CYCLES)
+        plain_ms = cuda_ms(lambda: dt.instances_update_plain(*ins), 5)
+        plain_launches = len(stages.profiled_kernels(
+            lambda: dt.instances_update_plain(*ins)))
+        b = bound(n * (60 + 120) + nodes * TLAS_WIDTH * TLAS_ROW * 4,
+                  n * K11_OPS)
+        out[n] = {"mats_lanes_differ": mats_lanes,
+                  "box_lanes_differ": box_lanes, "max_abs_err": err,
+                  "max_rel_err_rows": rel, "tree_bit_for_bit": tree_bits,
+                  "tree_equals_plain_tree": plain_bits,
+                  "queued_ms": queued, "ms": sum(queued) / 2,
+                  "kernel_ms": sum(us for _, us in kern) / 1e3,
+                  "kernels": [k[:30] for k, _ in kern],
+                  "plain_ms": plain_ms, "plain_launches": plain_launches,
+                  "path": "one block" if n <= limit else "grid", **b}
+        log(f"[k11] {n} instances ({out[n]['path']}): rows differ on "
+            f"{mats_lanes} lanes, boxes on {box_lanes} (largest error "
+            f"{err:.3g}, rows relative {rel:.3g}); tree bit for bit "
+            f"build_tlas of its boxes {tree_bits}, build_tlas_plain "
+            f"{plain_bits}; queued {queued[0]:.4f} / {queued[1]:.4f} ms, "
+            f"by the profiler {out[n]['kernel_ms']:.4f} ms in {len(kern)} "
+            f"launches, bound {b['bound_ms']:.6f} ms ({b['bound_by']}); "
+            f"plain {plain_ms:.3f} ms in {plain_launches} launches [{card}]")
+        assert tree_bits and plain_bits, n
+        assert rel <= 1e-5 and err <= 1e-3, (n, rel, err)
+    return out
+
+
+class forbid_host_updates:
+    """Inside: the host scene update paths raise (Scene._rebuild_geometry,
+    the host tree build, UnifiedSceneBuilder.update_pt_scene)."""
+
+    def __enter__(self):
+        from ptrt_tpu_torch.geometry import scene_geom, tlas
+        from ptrt_tpu_torch.scene import pt_scene, unified
+
+        def refuse(*a, **k):
+            raise AssertionError("a fused frame went through a host scene "
+                                 "update")
+
+        self.saved = [(pt_scene.Scene, "_rebuild_geometry"),
+                      (tlas, "build_tlas"), (scene_geom, "build_tlas"),
+                      (unified.UnifiedSceneBuilder, "update_pt_scene")]
+        self.saved = [(o, k, o.__dict__[k]) for o, k in self.saved]
+        for o, k, _ in self.saved:
+            setattr(o, k, staticmethod(refuse) if isinstance(o, type)
+                    else refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for o, k, v in self.saved:
+            setattr(o, k, v)
+        return False
+
+
+def sync_calls(fn) -> list:
+    """The synchronizing CUDA calls of ``fn()`` under
+    torch.cuda.set_sync_debug_mode("warn"): [(where, the source line)]."""
+    import linecache
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # (switching the mode back warns from torch's own module)
+    return [(f"{os.path.relpath(w.filename, HERE)}:{w.lineno}",
+             linecache.getline(w.filename, w.lineno).strip())
+            for w in got if "synchroniz" in str(w.message)
+            and not w.filename.endswith(os.path.join("cuda", "__init__.py"))]
+
+
+# runtime calls that make the host wait for the card
+WAIT_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D",
+              "cuCtxSynchronize", "cuStreamSynchronize",
+              "cuEventSynchronize", "cuMemcpyDtoH", "cuMemcpyDtoH_v2")
+
+
+def trace_waits(fn) -> dict:
+    """What torch.profiler's trace of ``fn()`` shows of host waits: the
+    device-to-host copies, the synchronizing runtime calls made inside
+    ``fn`` (the profiler's own closing synchronize left out), and, for
+    the record, the device's copies and the runtime calls counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("traced_call"):
+            fn()
+        torch.cuda.synchronize()
+    ev = prof.events()
+    host = [e for e in ev if getattr(e, "device_type", None) == DeviceType.CPU]
+    call = next(e for e in host if e.name == "traced_call")
+    inside = [e for e in host if e.name != "traced_call"
+              and call.time_range.start <= e.time_range.start
+              <= call.time_range.end]
+    runtime = [e.name for e in inside if e.name.startswith(("cuda", "cu"))]
+    copies = [e.name for e in ev
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and e.name.startswith("Memcpy")]
+    return {"dtoh_copies": [c for c in copies if "DtoH" in c],
+            "waits": [n for n in runtime if n in WAIT_CALLS],
+            "copies": dict(collections.Counter(copies)),
+            "runtime_calls": dict(collections.Counter(runtime))}
+
+
+def game_runner(name: str, w: int, h: int, preset: str, grid, dev):
+    """(scene, runner, initial state, inputs_fn) of a fused game."""
+    import torch
+    from ptrt_tpu_torch.games import cube_slider, fluid, tycoon
+
+    if name.startswith("cube_slider"):
+        _, sc = cube_slider.build_scene(w, h, dev)
+        sc.set_performance_preset(preset)
+        return (sc, cube_slider.make_runner(sc),
+                cube_slider.init_state(0, dev), cube_slider.script_inputs)
+    if name.startswith("tycoon"):
+        _, sc, centers = tycoon.build_fused_scene(w, h, dev)
+        sc.set_performance_preset(preset)
+        dt = torch.tensor(1.0 / 30.0, dtype=torch.float32)
+        script = tycoon.run_script(200)
+        return (sc, tycoon.make_runner(sc, centers),
+                tycoon.init_fused_state(device=dev),
+                lambda i: (*script[i], dt))
+    _, sc, state = fluid.build_scene(w, h, grid, dev)
+    sc.set_performance_preset(preset)
+    if "lbvh" in name:
+        for m in sc.meshes:
+            if m.is_dynamic:
+                m.device_lbvh = True
+    dt = fluid.step_scalars()[0]
+    return sc, fluid.make_runner(sc), state, lambda i: dt
+
+
+def check_instance_walks(runner, card) -> dict:
+    """K4 closest and any-hit over K11's tree against the same walks over
+    build_tlas's tree of the same boxes: records bit for bit, on the
+    scene's camera rays at its display size."""
+    import dataclasses
+
+    import torch
+    from ptrt_tpu_torch.geometry.scene_geom import WorldGeometry
+    from ptrt_tpu_torch.geometry.tlas import build_tlas
+    from ptrt_tpu_torch.render import traverse
+    from ptrt_tpu_torch.scene.camera import pixel_grid
+
+    sc, world = runner.scene, runner.world
+    iset = world.iset
+    host = torch.from_numpy(build_tlas(iset.bb_min.cpu().numpy(),
+                                       iset.bb_max.cpu().numpy())).to(
+        iset.tlas.device)
+    other = WorldGeometry(static=world.static, instances=(),
+                          iset=dataclasses.replace(iset, tlas=host))
+    s, t = pixel_grid(sc.width, sc.height, sc.device)
+    ray = sc.camera.get_ray_simple(s, t)
+    o = ray.origin.map(lambda c: c.reshape(-1).contiguous())
+    d = ray.direction.map(lambda c: c.reshape(-1).contiguous())
+    t_max = torch.full_like(o.x, traverse.T_MAX)
+    a = traverse.closest_hit(world, o, d, t_max)
+    b = traverse.closest_hit(other, o, d, t_max)
+    planes = lambda r: [p.view(torch.int32) for p in (*r, r.inst)]
+    closest_same = all(bool((x == y).all())
+                       for x, y in zip(planes(a), planes(b)))
+    shadow_t = torch.where(a.mesh >= 0, a.t, 50.0)
+    occ_a = traverse.any_hit(world, o, d, shadow_t)
+    occ_b = traverse.any_hit(other, o, d, shadow_t)
+    any_same = bool((occ_a == occ_b).all())
+    on_inst = float((a.inst >= 0).float().mean())
+    log(f"[games] K4 over K11's tree vs build_tlas's ({iset.count} "
+        f"instances, {o.x.shape[0]} camera rays, {on_inst:.4f} on an "
+        f"instance): closest records bit for bit {closest_same}, any-hit "
+        f"{any_same} [{card}]")
+    assert closest_same and any_same
+    return {"rays": int(o.x.shape[0]), "on_instance": on_inst,
+            "closest_bit_for_bit": closest_same,
+            "any_bit_for_bit": any_same}
+
+
+def check_games(dev, card) -> dict:
+    """Phase 15: K11 against its plain version, every game's fused run (the
+    reference's defaults, then tycoon and a 256 fluid at 1080p balanced)
+    with no host scene update, each with its frame rate, a profiled frame,
+    K11's time in it and the synchronizing calls of a frame; K4 over K11's
+    tree; each game's handle run; a small fused frame GPU vs CPU."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.games import cube_slider, fluid, tycoon
+    from ptrt_tpu_torch.render import pipeline
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.tools import stages
+
+    out = {"k11": check_k11(dev, card), "runs": {}}
+    main_path = collections.Counter()
+    walks = {}
+    for name, w, h, preset, frames, grid in GAME_RUNS:
+        sc, runner, state, inputs = game_runner(name, w, h, preset, grid, dev)
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        with forbid_host_updates():
+            state, fps, img = runner.run(state, inputs, frames)
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        main_path.update(launches)
+        k = frames + 1
+        prev_vp = sc.camera.get_view_proj()
+        one = lambda: runner.frame(state, inputs(k), sc.frame_count, prev_vp)
+        with forbid_host_updates():
+            syncs = sync_calls(one)
+            trace = trace_waits(one)
+            kern = stages.profiled_kernels(one, lead_cycles=stages.SPIN_CYCLES)
+        dev_ms = sum(us for _, us in kern) / 1e3
+        k11_us = [us for n_, us in kern if "inst_update_kernel" in n_]
+        rh, rw = sc.render_size
+        up_ms = up_host_ms = up_launches = None
+        if (rh, rw) != (h, w):
+            # the upscale's device time (the profiler, behind a spin) and a
+            # call's host time: its plain torch ops outlast their kernels
+            hdr = Vec3(*[torch.rand((rh, rw), device=dev) for _ in range(3)])
+            up = lambda: pipeline.upscale_bilinear(hdr, h, w)
+            up_kern = stages.profiled_kernels(up, calls=3,
+                                              lead_cycles=stages.SPIN_CYCLES)
+            up_ms = sum(us for _, us in up_kern) / 1e3 / 3
+            up_launches = len(up_kern) // 3
+            up_host_ms = stages.host_ms(up, calls=10)
+        where = {}
+        for at, line in syncs:
+            where.setdefault(at, [line, 0])[1] += 1
+        r = {"size": [w, h], "preset": preset, "render_size": [rw, rh],
+             "frames": frames, "fps": fps, "frame_ms": 1e3 / fps,
+             "run_s": run_s, "launches": launches,
+             "profiled_device_ms": dev_ms, "profiled_launches": len(kern),
+             "k11_kernel_ms": sum(k11_us) / 1e3 if k11_us else None,
+             "upscale_ms": up_ms, "upscale_launches": up_launches,
+             "upscale_host_ms": up_host_ms, "sync_calls": len(syncs),
+             "sync_where": {k_: v for k_, v in where.items()},
+             "trace": trace,
+             "image_std": float(np.asarray(img, np.float32).std())}
+        out["runs"][name] = r
+        log(f"[games] fused {name} {w}x{h} {preset} (traced at {rw}x{rh}): "
+            f"{fps:.1f} frames/s, {1e3 / fps:.2f} ms a frame on the host "
+            f"clock over {frames} frames; one profiled frame {dev_ms:.3f} "
+            f"device ms in {len(kern)} launches, K11 "
+            f"{r['k11_kernel_ms']} ms, upscale {up_ms} device ms in "
+            f"{up_launches} launches ({up_host_ms} ms a call on the host "
+            f"clock); launches "
+            f"{launches}; {len(syncs)} synchronizing calls a frame: "
+            f"{r['sync_where']}; the frame's trace: {trace} [{card}]")
+        assert img.shape == (h, w, 3) and r["image_std"] > 1.0, name
+        # a fused frame reads nothing back: no call torch's sync debug mode
+        # flags (it does not see every kind), and in the trace no
+        # device-to-host copy and no synchronizing runtime call
+        assert not syncs, (name, r["sync_where"])
+        assert not trace["dtoh_copies"] and not trace["waits"], (name, trace)
+        assert launches.get("instances_update", 0) == frames + 1, launches
+        for k_ in ("closest_hit", "instances_closest", "any_hit",
+                   "instances_any", "shade_nee", "shade_scatter",
+                   "tonemap_rgb8"):
+            assert launches.get(k_, 0) > 0, (name, k_, launches)
+        if name.startswith("fluid"):
+            k5 = "morton_sort" if "lbvh" in name and grid <= 128 else None
+            assert launches.get("refit", 0) == frames + 1, launches
+            if k5:
+                assert launches.get(k5, 0) == frames + 1, launches
+        if name in ("cube_slider", "tycoon"):
+            walks[name] = check_instance_walks(runner, card)
+        del sc, runner, state
+        torch.cuda.empty_cache()
+    # the fused runs' own launches: not the extra frames profiled and
+    # checked after each run
+    out["main_path_launches"] = dict(main_path)
+    out["instance_walks"] = walks
+
+    headless = {}
+    for name, fn in (("cube_slider", cube_slider.run_headless),
+                     ("fluid", fluid.run_headless),
+                     ("tycoon", tycoon.run_headless)):
+        t0 = time.perf_counter()
+        res = fn(device=dev)
+        s_ = time.perf_counter() - t0
+        frames = res[1]
+        headless[name] = {"s": s_, "frames": len(frames)}
+        log(f"[games] {name}.run_headless: {len(frames)} frames of "
+            f"{frames[-1].shape}, {s_:.2f} s with set-up [{card}]")
+        assert frames and frames[-1].std() > 0, name
+    out["headless"] = headless
+
+    w, h = GAME_SMALL_WH
+    imgs = {d.type: cube_slider.run_fused(n_frames=2, width=w, height=h,
+                                          device=d)[2]
+            for d in (torch.device("cpu"), dev)}
+    lsb = float((np.abs(imgs["cpu"].astype(int) - imgs["cuda"].astype(int))
+                 .max(-1) <= 1).mean())
+    out["small_gpu_vs_cpu_within_1_lsb"] = lsb
+    log(f"[games] fused cube slider {w}x{h}, 2 frames after the warm-up, GPU "
+        f"vs CPU: within 1 LSB on {lsb:.4f} of pixels")
+    assert lsb >= GAME_SMALL_AGREE, lsb
+    return out
+
+
 def bounce_launches(names, samples, depth):
     """Kernel launches from each of a sample's K1 launches to its next (one
     bounce), in a profiled frame's timeline."""
@@ -2977,7 +3387,9 @@ def main() -> int:
          "gather_rows", "svgf_temporal", "svgf_atrous", "bloom_chain",
          "shade_nee", "shade_scatter", "instances_closest", "instances_any",
          "refit_kernel", "morton_sort", "morton_codes", "rt_light_rays",
-         "rt_shade_kernel", "rt_glass_rays", "rt_resolve"))
+         "rt_shade_kernel", "rt_glass_rays", "rt_resolve",
+         "inst_update_kernel", "inst_rows_kernel", "inst_codes_kernel",
+         "inst_level_kernel"))
     for k, fns in resources.items():
         for fn, r in fns.items():
             log(f"[build] {k} ({fn[-40:]}): {r['registers']} registers, "
@@ -3606,6 +4018,10 @@ def main() -> int:
     # -- 14. the unified scene layer and the demo at 1080p -------------------
     app = check_app(dev, card)
 
+    # -- 15. the games: K11 and the fused step-and-render runner -------------
+    games = check_games(dev, card)
+    k11 = games["k11"][192]
+
     for k in ("shade_nee", "shade_scatter"):
         hs = hstats[k]
         hs.update(htimes[True][k][1])  # the table's line: split, bounce 1
@@ -3800,6 +4216,27 @@ def main() -> int:
          "replaces": RT_REPLACES["rt_resolve_glass"],
          **rt["entries"]["rt_resolve_glass"], "library_ms": None,
          "tiled_trace": tiled, "unified_and_demo": app},
+        # K11 at tycoon's 192 instances; every size, the grid path and the
+        # game runs ride on it
+        {"name": "instances_update", "route": "cuda",
+         "source": src("instances.cu"),
+         "replaces": "ptrt_tpu/geometry/dtransform.py:41",
+         "also_replaces": ["ptrt_tpu/geometry/dtransform.py:64",
+                           "ptrt_tpu/games/fused.py:112-130",
+                           "ptrt_tpu_torch/geometry/tlas.py:90 (build_tlas "
+                           "on the host)"],
+         "launches": games["main_path_launches"].get("instances_update", 0),
+         "launched_by": "the phase's fused game runs",
+         "max_abs_err": max(r["max_abs_err"] for r in games["k11"].values()),
+         "ms": k11["ms"], "plain_ms": k11["plain_ms"],
+         "plain_launches": k11["plain_launches"],
+         "bound_ms": k11["bound_ms"], "bound_by": k11["bound_by"],
+         "library_ms": None, "instances": 192,
+         "sizes": games["k11"], "game_runs": games["runs"],
+         "instance_walks": games["instance_walks"],
+         "headless": games["headless"],
+         "small_gpu_vs_cpu_within_1_lsb":
+             games["small_gpu_vs_cpu_within_1_lsb"]},
     ]}
     # the ranking: device ms a frame that each kernel stands over its bound,
     # summed over the passes and bounces the frames really run (a bench

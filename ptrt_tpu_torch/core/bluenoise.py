@@ -13,7 +13,7 @@ import os
 import numpy as np
 import torch
 
-from ptrt_tpu_torch.core.rng import as_u32, mul32
+from ptrt_tpu_torch.core.rng import mul32
 
 BLUE_NOISE_SIZE = 64
 
@@ -26,24 +26,25 @@ def blue_noise_table(device) -> torch.Tensor:
     return torch.from_numpy(np.load(TABLE_PATH).astype(np.float32)).to(device)
 
 
-def next_blue_noise(table: torch.Tensor, x, y, frame):
+def next_blue_noise(table: torch.Tensor, x, y, frame: int):
     """Blue-noise pair for pixel (x, y) at ``frame`` with the golden-ratio
-    hash Cranley-Patterson rotation.  x, y: integer tensors; frame: an
-    integer tensor broadcastable against them.  Returns (u, v) float32."""
+    hash Cranley-Patterson rotation.  x, y: integer tensors; frame: a
+    Python int, hashed on the host.  Returns (u, v) float32."""
     bx = x.to(torch.int64) & (BLUE_NOISE_SIZE - 1)
     by = y.to(torch.int64) & (BLUE_NOISE_SIZE - 1)
     val = table[by, bx]
     val_x, val_y = val[..., 0], val[..., 1]
 
-    h = mul32(as_u32(frame, table.device), 0x9E3779B9)
+    h = mul32(frame & 0xFFFFFFFF, 0x9E3779B9)
     h = h ^ (h >> 15)
     h = mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
     h = mul32(h, 0xC2B2AE35)
     h = h ^ (h >> 16)
-    shift_x = (h & 0xFFFFFF).to(torch.float32) * (1.0 / 16777216.0)
+    # a 24-bit integer over 2^24: exact in float32
+    shift_x = float(h & 0xFFFFFF) / 16777216.0
     h = mul32(h, 0x85EBCA6B)
-    shift_y = (h & 0xFFFFFF).to(torch.float32) * (1.0 / 16777216.0)
+    shift_y = float(h & 0xFFFFFF) / 16777216.0
 
     u = val_x + shift_x
     v = val_y + shift_y

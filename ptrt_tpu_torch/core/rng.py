@@ -49,8 +49,9 @@ def seed(x, y, frame) -> torch.Tensor:
 
 
 def fold(state: torch.Tensor, salt) -> torch.Tensor:
-    """Decorrelated sub-stream: golden-ratio salt mix + one PCG advance."""
-    s = state ^ mul32(as_u32(salt, state.device), GOLDEN)
+    """Decorrelated sub-stream: golden-ratio salt mix + one PCG advance.
+    ``salt``: a Python int, mixed on the host."""
+    s = state ^ mul32(salt & MASK32, GOLDEN)
     s, _ = uniform(s)
     return s
 

@@ -4,6 +4,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 TAA_SEQUENCE_LENGTH = 16
@@ -18,8 +19,14 @@ _HALTON_16 = (
 )
 
 
-def taa_jitter(frame_index: torch.Tensor):
-    """Centered sub-pixel jitter for an integer frame-index tensor."""
+def taa_jitter(frame_index):
+    """Centered sub-pixel jitter for an integer frame index: of a Python
+    int, the float32 values as Python floats (no device work); of an
+    integer tensor, tensors."""
+    if isinstance(frame_index, int):
+        h = (np.asarray(_HALTON_16[frame_index % TAA_SEQUENCE_LENGTH],
+                        np.float32) - np.float32(0.5))
+        return float(h[0]), float(h[1])
     table = torch.tensor(_HALTON_16, dtype=torch.float32,
                          device=frame_index.device)
     h = table[torch.remainder(frame_index.to(torch.int64),

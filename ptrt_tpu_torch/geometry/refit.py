@@ -278,3 +278,20 @@ def refit_apply_plain(geom: SceneGeometry, plan: RefitPlan, v0, v1, v2,
                         slot_max[:, :, 1], slot_max[:, :, 2]], dim=1)
     geom.node_rows[plan.node_off:plan.node_off + N, 0:48] = bounds
     return geom
+
+
+def refit_root_aabb(geom: SceneGeometry, plan: RefitPlan) -> tuple:
+    """(lo, hi) (3,) tensors of a refitted mesh: the union of its root
+    row's used slot boxes, read on the device (the used-slot mask from the
+    plan's host arrays, its device copy made once a plan).  A fused frame
+    refreshes the instance's local box with it."""
+    dev = geom.device
+    key = ("root_used", str(dev))
+    if key not in plan._dev:
+        mask = ((int(plan.lmask[0]) | int(plan.imask[0])) >> np.arange(8)) & 1
+        plan._dev[key] = torch.from_numpy(mask == 1).to(dev)
+    used = plan._dev[key]
+    row = geom.node_rows[plan.node_off]
+    lo = torch.where(used, row[0:24].view(3, 8), BIG).amin(dim=1)
+    hi = torch.where(used, row[24:48].view(3, 8), -BIG).amax(dim=1)
+    return lo, hi

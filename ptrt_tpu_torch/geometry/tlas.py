@@ -1,5 +1,8 @@
-"""The instance tree (TLAS): a small tree over the instances' world boxes,
-built on the host, that K4 descends instead of testing every box.
+"""The instance tree (TLAS): a small tree over the instances' world boxes
+that K4 descends instead of testing every box — built on the host
+(``build_tlas``, numpy) where a scene edits its instances, and on the device
+(``build_tlas_plain``, torch; K11 ``geometry/dtransform.instances_update``
+on the card) where a fused game frame moves them.
 
 The reference tests every ray against every instance box
 (``ptrt_tpu/render/traverse.py:_inst_hit_words``: instances are tens, a
@@ -29,6 +32,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ptrt_tpu_torch.core.vec import sdiv
 
 # children a node, csrc/traverse.cu's kTlasWidth: on the dynamic scene's
 # 1080p wavefronts 4 tests fewer boxes a ray than 8 and measured faster
@@ -121,6 +126,93 @@ def build_tlas(bb_min, bb_max) -> np.ndarray:
 
 def tlas_node_count(n_inst: int) -> int:
     return sum(tlas_levels(n_inst))
+
+
+def level_layout(n_inst: int) -> tuple:
+    """(node counts of each level, leaves first; first node index of each
+    level in the root-first layout)."""
+    counts = tlas_levels(n_inst)
+    return counts, _level_offsets(counts)
+
+
+# numpy's fmin / fmax, signed zeros included: the second operand where the
+# two compare equal, the other where one is a NaN (torch.fmin keeps the
+# first on a tie)
+def _np_fmin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.where((a < b) | torch.isnan(b), a, b)
+
+
+def _np_fmax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.where((a > b) | torch.isnan(b), a, b)
+
+
+def _spread10_t(v: torch.Tensor) -> torch.Tensor:
+    v = v & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def _morton_order_tensor(bb_min: torch.Tensor,
+                       bb_max: torch.Tensor) -> torch.Tensor:
+    """``morton_order`` on tensors, on their device: the same float64
+    arithmetic, the same codes, the same stable order (int64 ids)."""
+    c = 0.5 * (bb_min.double() + bb_max.double())
+    fin = torch.isfinite(c)
+    inf = float("inf")
+    lo = torch.where(fin, c, inf).amin(dim=0)
+    hi = torch.where(fin, c, -inf).amax(dim=0)
+    wide = hi > lo
+    lo = torch.where(wide, lo, 0.0)
+    span = torch.where(wide, hi - lo, 1.0)
+    scale = torch.where(wide, sdiv(1023.0, span), 0.0)
+    q = torch.where(fin, (torch.where(fin, c, 0.0) - lo) * scale, 0.0)
+    q = torch.clamp(q, 0.0, 1023.0).to(torch.int64)
+    code = ((_spread10_t(q[:, 0]) << 2) | (_spread10_t(q[:, 1]) << 1)
+            | _spread10_t(q[:, 2]))
+    return torch.sort(code, stable=True).indices
+
+
+def _fold(rows: torch.Tensor, op) -> torch.Tensor:
+    """``op.reduce`` over axis 1 of (c, width, 3), left to right."""
+    acc = rows[:, 0]
+    for k in range(1, rows.shape[1]):
+        acc = op(acc, rows[:, k])
+    return acc
+
+
+def build_tlas_plain(bb_min: torch.Tensor,
+                     bb_max: torch.Tensor) -> torch.Tensor:
+    """``build_tlas`` on tensors, on their device, with no numpy round
+    trip: the same tree, bit for bit (the plain version of K11's tree,
+    ``geometry/dtransform.instances_update``)."""
+    width = TLAS_WIDTH
+    lo = bb_min.reshape(-1, 3).to(torch.float32)
+    hi = bb_max.reshape(-1, 3).to(torch.float32)
+    dev = lo.device
+    counts, offs = level_layout(lo.shape[0])
+    out = torch.zeros((sum(counts), width, TLAS_ROW), dtype=torch.float32,
+                      device=dev)
+    order = _morton_order_tensor(lo, hi)
+    c_lo, c_hi = lo[order], hi[order]
+    c_ref = (-1 - order).to(torch.float32)
+    inf = float("inf")
+    for level, c in enumerate(counts):
+        m = c_lo.shape[0]
+        pad = c * width - m
+        node = out[offs[level]:offs[level] + c].view(c * width, TLAS_ROW)
+        node[:m, 0:3], node[:m, 3] = c_lo, c_ref
+        node[:m, 4:7], node[:m, 7] = c_hi, 1.0
+        grow = lambda a, fill: torch.cat(
+            [a, torch.full((pad, 3), fill, dtype=torch.float32,
+                           device=dev)]).reshape(c, width, 3)
+        b_lo = _np_fmin(c_lo, c_hi)
+        b_hi = _np_fmax(c_lo, c_hi)
+        c_lo = _fold(grow(b_lo, inf), _np_fmin)
+        c_hi = _fold(grow(b_hi, -inf), _np_fmax)
+        c_ref = (offs[level] + torch.arange(c, device=dev)).to(torch.float32)
+    return out
 
 
 def _slab(lo, hi, ox, oy, oz, ix, iy, iz, t_bound):

@@ -30,7 +30,7 @@ SOURCE_FLAGS = {
     "traverse.cu": [], "tonemap.cu": ["-fmad=false"], "gather.cu": [],
     "svgf.cu": ["-fmad=false"], "bloom.cu": ["-fmad=false"],
     "shade.cu": ["-fmad=false"], "refit.cu": ["-fmad=false"],
-    "rt_shade.cu": ["-fmad=false"],
+    "rt_shade.cu": ["-fmad=false"], "instances.cu": ["-fmad=false"],
 }
 SOURCES = [os.path.join(CSRC, f) for f in SOURCE_FLAGS]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -104,6 +104,15 @@ def get_lib() -> ctypes.CDLL:
             fn.argtypes = [p, p]
         lib.ptrt_rt_info.restype = i
         lib.ptrt_rt_info.argtypes = [i] + [p] * 6
+        lib.ptrt_instances_update_max.restype = i
+        lib.ptrt_instances_update_max.argtypes = []
+        lib.ptrt_instances_update.restype = i
+        lib.ptrt_instances_update.argtypes = [p] * 5 + [i] + [p] * 4 + [
+            i, p, p, p]
+        lib.ptrt_instances_codes.restype = i
+        lib.ptrt_instances_codes.argtypes = [p] * 5 + [i] + [p] * 6
+        lib.ptrt_instances_levels.restype = i
+        lib.ptrt_instances_levels.argtypes = [p, p, i, p, p, i, p, p, p]
         _lib = lib
     return _lib
 

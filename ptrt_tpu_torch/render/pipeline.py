@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ptrt_tpu_torch import kernels
@@ -62,7 +63,9 @@ def camera_rays(camera, rng_state: torch.Tensor, frame_index: int,
         ys, xs = ys + y0, xs + x0
     else:
         full_h, full_w = height, width
-    fidx = torch.tensor(frame_index + sample, dtype=torch.int64, device=dev)
+    # the frame's jitter and blue-noise rotation from the host's index: no
+    # copy to the card
+    fidx = int(frame_index) + sample
     jx_t, jy_t = taa_jitter(fidx)
     bx, by = next_blue_noise(blue_noise_tbl, xs, ys, fidx)
     jitter_x = jx_t + (bx - 0.5) * 0.25
@@ -137,9 +140,9 @@ def _resize_axis(a: torch.Tensor, dim: int, out_n: int) -> torch.Tensor:
         raise ValueError(f"upscale only: {in_n} -> {out_n}")
     dev = a.device
     # jax: arange(out) + 0.5, times float32(1 / scale), minus 0.5
-    inv_scale = torch.tensor(1.0 / (out_n / in_n), dtype=torch.float32)
+    inv_scale = float(np.float32(1.0 / (out_n / in_n)))
     f = (torch.arange(out_n, dtype=torch.float32, device=dev) + 0.5) \
-        * inv_scale.to(dev) - 0.5
+        * inv_scale - 0.5
     i0 = torch.floor(f)
     taps = []
     for i in (i0, i0 + 1.0):

@@ -112,7 +112,8 @@ class Scene:
         self.env_map = None  # (H, W, 3) float32 numpy HDR
         self.env_rotation = 0.0
         # [env map, (rotation, use_sky), SkyConfig]: the sampling tables are
-        # built once a map (the map held and compared by identity)
+        # built once a map (the map held and compared by identity); for a
+        # gradient [(top, bottom, use_sky), None, SkyConfig]
         self._sky_cache = None
         self.perf = PerformanceSettings()
         self.frame_count = 0
@@ -353,6 +354,11 @@ class Scene:
             self._light_table = LightTable.from_lights(self.lights,
                                                        self.device)
             self._light_dirty = False
+        self._ensure_rng_state()
+
+    def _ensure_rng_state(self) -> None:
+        """The per-pixel PCG state, seeded anew when the render size
+        changed."""
         rh, rw = self.render_size
         if self._rng_state is None or tuple(self._rng_state.shape) != (rh,
                                                                        rw):
@@ -459,10 +465,18 @@ class Scene:
             iset=iset)
 
     def sky(self) -> SkyConfig:
+        """The sky's device tables, made again only when the sky changed
+        (a gradient's colours and switch; an HDRI map by identity, then its
+        rotation and switch)."""
         if self.env_map is None:
-            return SkyConfig.gradient(self.sky_color_top,
-                                      self.sky_color_bottom, self.use_sky,
-                                      device=self.device)
+            key = (self.sky_color_top, self.sky_color_bottom,
+                   bool(self.use_sky))
+            cached = self._sky_cache
+            if cached is None or cached[1] is not None or cached[0] != key:
+                self._sky_cache = [key, None, SkyConfig.gradient(
+                    self.sky_color_top, self.sky_color_bottom, self.use_sky,
+                    device=self.device)]
+            return self._sky_cache[2]
         key = (self.env_rotation, bool(self.use_sky))
         cached = self._sky_cache
         if cached is None or cached[0] is not self.env_map:
@@ -481,20 +495,22 @@ class Scene:
         return self._sky_cache[2]
 
     # -- rendering -----------------------------------------------------------
-    def _trace(self, rh: int, rw: int, split: bool) -> pl.FrameBuffers:
-        """The frame's trace: one ``trace_frame`` up to ``SPP_DISPATCH_MAX``
-        spp, else one a chunk (``spp_chunks``), its colour channels weighted
-        by float32(chunk / spp) in the reference's order (chunk 0
-        multiplied, each later one added), the G-buffer chunk 0's and the
-        rays summed."""
+    def _trace(self, geom, camera, frame_index: int, rh: int, rw: int,
+               split: bool) -> pl.FrameBuffers:
+        """The frame's trace of ``geom`` from ``camera``: one
+        ``trace_frame`` up to ``SPP_DISPATCH_MAX`` spp, else one a chunk
+        (``spp_chunks``), its colour channels weighted by float32(chunk /
+        spp) in the reference's order (chunk 0 multiplied, each later one
+        added), the G-buffer chunk 0's and the rays summed."""
         p = self.perf
         spp = int(p.samples_per_pixel)
+        sky = self.sky()
 
         def trace(samples: int, offset: int) -> pl.FrameBuffers:
             self._rng_state, bufs = pl.trace_frame(
-                self._geom, self._mat_table, self._light_table,
-                len(self.lights), self.sky(), self.camera, self._rng_state,
-                self.frame_count + offset, rw, rh, samples,
+                geom, self._mat_table, self._light_table,
+                len(self.lights), sky, camera, self._rng_state,
+                frame_index + offset, rw, rh, samples,
                 int(p.max_bounce_depth), self._blue_noise, split=split,
                 rr_enabled=bool(p.enable_russian_roulette),
                 rr_start=int(p.russian_roulette_start_bounce),
@@ -523,30 +539,51 @@ class Scene:
 
     def render_frame_device(self) -> torch.Tensor:
         """One frame -> (H, W, 3) uint8 tensor on the scene's device."""
-        p = self.perf
         self._ensure_device_state()
+        img = self.render_world(self._geom, self.camera, self.frame_count,
+                                self.prev_view_proj,
+                                bool(self.perf.progressive_accumulation))
+        self.frame_count += 1
+        self.prev_view_proj = self.camera.get_view_proj()
+        return img
+
+    def render_world(self, geom, camera, frame_index: int, prev_view_proj,
+                     progressive: bool = False) -> torch.Tensor:
+        """The frame body (the reference's ``_frame_fn``): one frame of a
+        given world ``geom`` (a ``SceneGeometry`` or ``WorldGeometry`` on
+        the scene's device) seen by ``camera`` -> (H, W, 3) uint8 on the
+        device: the trace at frame index ``frame_index``, the progressive
+        average (with ``progressive`` and the denoiser off), motion vectors
+        against ``prev_view_proj``, SVGF, bloom, the upscale and the
+        tonemap.  It advances the RNG state and the denoiser history and
+        sets ``last_frame``; it leaves the frame count, ``prev_view_proj``
+        and the scene's own geometry as they are (the caller's), and
+        rebuilds no table: the materials, lights and sky must be current
+        (``_ensure_device_state``)."""
+        p = self.perf
+        self._ensure_rng_state()
         rh, rw = self.render_size
         denoise = bool(p.enable_denoiser)
         if denoise and (self._denoiser_state is None
                         or tuple(self._denoiser_state.depth.shape)
                         != (rh, rw)):
             self._denoiser_state = init_denoiser_state(rh, rw, self.device)
-        bufs = self._trace(rh, rw, denoise)
+        bufs = self._trace(geom, camera, frame_index, rh, rw, denoise)
         self.last_frame = bufs
 
         current = bufs.color
-        if bool(p.progressive_accumulation) and not denoise:
-            current = self._accumulate(current, rh, rw)
+        if progressive and not denoise:
+            current = self._accumulate(current, rh, rw, camera)
         if denoise:
             if p.enable_motion_vectors:
-                mv = motion_vectors(bufs.depth, self.camera,
-                                    self.prev_view_proj, rw, rh)
+                mv = motion_vectors(bufs.depth, camera, prev_view_proj, rw,
+                                    rh)
             else:  # static-camera reprojection
                 zero = torch.zeros((rh, rw), dtype=torch.float32,
                                    device=self.device)
                 mv = (zero, zero)
             current, self._denoiser_state = denoise_frame(
-                bufs, mv, self._denoiser_state, self.camera, self.frame_count,
+                bufs, mv, self._denoiser_state, camera, frame_index,
                 settings=self.denoiser_settings or DEFAULT_SETTINGS)
         # at full size K6 adds the bloom's mip 0 itself; before an upscale
         # the chain writes the composite
@@ -558,19 +595,17 @@ class Scene:
             current = apply_bloom(current)
         if not full_size:
             current = pl.upscale_bilinear(current, self.height, self.width)
-        img = pl.tonemap_rgb8(current, 1.0, bloom=bloom)
-        self.frame_count += 1
-        self.prev_view_proj = self.camera.get_view_proj()
-        return img
+        return pl.tonemap_rgb8(current, 1.0, bloom=bloom)
 
-    def _accumulate(self, color, rh: int, rw: int):
+    def _accumulate(self, color, rh: int, rw: int, camera=None):
         """Add the frame to the progressive sum and return the running
         average.  The sum restarts when the view-projection's VALUES change
         (the camera moved, whichever way it was set) or the render size
         changed.  The values are compared on the device and the sum and its
         count selected there, as the reference does inside its program: no
-        copy to the host, so the frame never waits for the card here."""
-        view_proj = self.camera.get_view_proj()
+        copy to the host, so the frame never waits for the card here.
+        ``camera``: the frame's (by default the scene's)."""
+        view_proj = (camera or self.camera).get_view_proj()
         if (self._accum is None or self._accum_view_proj is None
                 or tuple(self._accum[0].x.shape) != (rh, rw)):
             self._accum = (color, torch.ones((), dtype=torch.float32,

@@ -100,9 +100,20 @@ def _refit_plan(fields: dict) -> RefitPlan:
         **{k: int(fields[k]) for k in ("node_off", "blk_off", "slot_off")})
 
 
+def _game_state(cls, fields: dict, device):
+    """A game's state NamedTuple (``GameState``, ``FluidState``,
+    ``EconomyState``, ``FusedTycoonState``) from its fields as arrays,
+    each keeping its dtype (0-d stays 0-d)."""
+    missing = set(cls._fields) - set(fields)
+    if missing:
+        raise ValueError(f"{cls.__name__}: fields {sorted(missing)} missing")
+    return cls(**{k: _tensor(fields[k], device) for k in cls._fields})
+
+
 def from_reference(*, device, geometry=None, materials=None, lights=None,
                    sky=None, camera=None, rng_state=None, blue_noise=None,
-                   denoiser_state=None, refit_plan=None) -> dict:
+                   denoiser_state=None, refit_plan=None,
+                   game_state=None) -> dict:
     """Convert the reference's state (flattened to numpy) to the port's.
 
     ``geometry``: ``SceneGeometry`` fields, or a ``WorldGeometry``'s
@@ -113,7 +124,9 @@ def from_reference(*, device, geometry=None, materials=None, lights=None,
     reference's aspect and clip planes are dropped: the port keeps them in
     the matrices); ``rng_state``: the (H, W) uint32 PCG state; ``blue_noise``:
     the (64, 64, 2) table; ``denoiser_state``: ``DenoiserState`` fields,
-    its two ``ChannelHistory`` entries as field dicts of their own.
+    its two ``ChannelHistory`` entries as field dicts of their own;
+    ``game_state``: ``(cls, fields)``, one of the games' state NamedTuples
+    and the reference state's fields as arrays.
     Returns a dict with the converted entries under the same names."""
     out = {}
     if geometry is not None:
@@ -132,6 +145,8 @@ def from_reference(*, device, geometry=None, materials=None, lights=None,
         out["rng_state"] = _tensor(rng_state, device)
     if blue_noise is not None:
         out["blue_noise"] = _tensor(blue_noise, device)
+    if game_state is not None:
+        out["game_state"] = _game_state(*game_state, device)
     if denoiser_state is not None:
         fields = dict(denoiser_state)
         for ch in ("diffuse", "specular"):
@@ -141,9 +156,9 @@ def from_reference(*, device, geometry=None, materials=None, lights=None,
 
 
 def to_numpy(obj):
-    """A port object back to numpy: dataclasses as field dicts, ``Vec3`` as
-    an (x, y, z) triple of arrays, tensors as arrays (a ``RefitPlan``
-    without its device cache)."""
+    """A port object back to numpy: dataclasses and game-state NamedTuples
+    as field dicts, ``Vec3`` as an (x, y, z) triple of arrays, tensors as
+    arrays (a ``RefitPlan`` without its device cache)."""
     if isinstance(obj, Vec3):
         return tuple(to_numpy(c) for c in (obj.x, obj.y, obj.z))
     if isinstance(obj, torch.Tensor):
@@ -151,6 +166,8 @@ def to_numpy(obj):
     if dataclasses.is_dataclass(obj):
         return {f.name: to_numpy(getattr(obj, f.name))
                 for f in dataclasses.fields(obj) if f.name != "_dev"}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):  # a game state
+        return {k: to_numpy(getattr(obj, k)) for k in obj._fields}
     if isinstance(obj, tuple):
         return tuple(to_numpy(x) for x in obj)
     return obj
