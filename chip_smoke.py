@@ -172,11 +172,15 @@ Phases (any failure raises, so the exit code is non-zero):
      main for --backend pt and rt, three 1920x1080 frames each, into a
      temporary directory (its PPM read back); frame ms and launches;
  15. the games (ptrt_tpu_torch/games) and K11 instances_update
-     (csrc/instances.cu): K11 against instances_update_plain at 1, 10, 192,
-     1,024 (its one-block most), 1,025, 2,048, 4,096 and 8,192 instances (rows
-     and boxes equal, lanes that differ counted; the tree bit for bit
-     build_tlas of K11's own boxes), each timed queued beside its bound and the
-     plain version with that version's launches; every game's fused run
+     (csrc/instances.cu): K11 against instances_update_plain at 1, 10, 32,
+     33, 192, 1,024 (the wrapper's one-block most), 1,025 and 8,192
+     instances (rows and boxes equal, lanes that differ counted; the tree
+     bit for bit build_tlas of K11's own boxes; K4 closest and any-hit over
+     it bit for bit over build_tlas's tree), each timed queued beside its
+     bound and the plain version with that version's launches (the log
+     gives the first design's times beside them), the grid path's scratch allocated
+     once (addresses fixed); K11's registers and local memory (no spills;
+     only sinf / cosf's slow path); every game's fused run
      (games/fused.FusedRunner) under a guard that makes the host scene updates
      raise: cube slider and tycoon (192 slots) at 640x360 "fast", the 24x24
      fluid at 320x180 plain and Morton-refilled, tycoon and the 256x256 fluid
@@ -185,9 +189,19 @@ Phases (any failure raises, so the exit code is non-zero):
      K11's kernel), the upscale's device and host time, the synchronizing calls
      of one frame under torch.cuda.set_sync_debug_mode("warn"), each with its
      source line, and the profiler's trace of one frame (device-to-host
-     copies and synchronizing runtime calls inside it): both must be none; K4 closest and any-hit over K11's tree bit for bit those over
+     copies and synchronizing runtime calls inside it): both must be none;
+     K4 closest and any-hit over K11's tree bit for bit those over
      build_tlas's tree of the same boxes; each game's run_headless; a 224x126
-     fused cube-slider frame GPU vs CPU.
+     fused cube-slider frame GPU vs CPU;
+ 16. the pixel mesh (ptrt_tpu_torch/parallel): the balanced 1920x1080
+     bench frame from one saved state, unmeshed and with its trace over
+     meshes of 1, 2, 4 and 8 tiles (one card: a stream a tile), each bit for
+     bit the unmeshed frame (RGB8, the next PCG state, the rays), with its
+     host ms, device ms and launches (no timing claim); then
+     parallel.dryrun.dryrun_multichip(8) on the card;
+ 17. the golden corpus: the eight recipes of ptrt_tpu_torch/tools/golden.py
+     rendered on the card at 320x180, each at least 35 dB PSNR against its
+     reference render in tests/golden/.
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
@@ -203,6 +217,7 @@ import collections
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -317,6 +332,16 @@ RES_SWEEP_HW = 1 << 14
 # rows 30, the normal matrix 9, the corners' products 9 and their 8 x 3 x 6
 # sums and min / max, the centre 6 and its code 15
 K11_OPS = 22 + 6 + 9 + 30 + 9 + 9 + 8 * 3 * 6 + 6 + 15
+# K11 is held at these sizes, at the wrapper's one-block limit and one past
+# it; K4 walks K11_WALK_RAYS rays over each tree.  K11_FIRST_DESIGN_MS:
+# K11's first design (one block of 1,024 threads up to 1,024 instances, the
+# grid path past it), ms queued on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 5), quoted in the log beside this run's times and
+# nowhere in the result
+K11_SIZES = (1, 10, 32, 33, 192, 1024, 8192)
+K11_WALK_RAYS = 4096
+K11_FIRST_DESIGN_MS = {1: 0.0054, 10: 0.0088, 192: 0.0202, 1024: 0.0527,
+                       1025: 0.0663, 2048: 0.0681, 4096: 0.0750, 8192: 0.1024}
 # the fused runs: (game, width, height, preset, frames, fluid grid); the
 # reference's defaults, then the full-size ones
 GAME_RUNS = (("cube_slider", 640, 360, "fast", 60, None),
@@ -328,6 +353,9 @@ GAME_RUNS = (("cube_slider", 640, 360, "fast", 60, None),
 # the fused cube slider on the GPU against the CPU: its size, and the least
 # share of pixels within 1 LSB (phase 9's tolerance)
 GAME_SMALL_WH, GAME_SMALL_AGREE = (224, 126), 0.99
+# phase 16: the pixel meshes the balanced 1080p frame is traced over (on
+# one card, a stream a tile)
+MESH_TILES = (1, 2, 4, 8)
 
 
 def bound(nbytes: float, ops: float = 0.0) -> dict:
@@ -353,6 +381,25 @@ def nbytes(*ts) -> int:
 
 def log(*a):
     print(*a, flush=True)
+
+
+class Laps:
+    """The wall seconds of each phase of the run, logged as each ends:
+    call with the next phase's name, and with None after the last."""
+
+    def __init__(self):
+        self.t_start = self.t0 = time.perf_counter()
+        self.name = None
+        self.s = {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        if self.name is not None:
+            self.s[self.name] = now - self.t0
+            log(f"[time] phase {self.name}: {self.s[self.name]:.1f} s")
+        if name is None:
+            log(f"[time] all phases: {now - self.t_start:.1f} s")
+        self.name, self.t0 = name, now
 
 
 def card_line() -> str:
@@ -2960,75 +3007,204 @@ def k11_inputs(n: int, seed: int, dev):
     return [t(a) for a in (pos, rot, scale, lo, hi)]
 
 
-def check_k11(dev, card) -> dict:
-    """K11 against its plain version on the card at 1, 10, 192, the
-    one-block kernel's most, one more, and 8,192 instances: rows and boxes
-    equal (lanes that are not counted), the tree bit for bit build_tlas
-    of K11's own boxes, each timed queued beside its bound and the plain
-    version, with the launches the plain version needs."""
+def k11_walks(world, k11_bufs, n: int, rng) -> dict:
+    """K4 closest and any-hit over K11's tree against the same walks over
+    build_tlas's tree of K11's boxes: ``n`` instances of ``world``'s cubes
+    (its set's first ``n`` roots) moved by K11's rows; records bit for bit
+    on K11_WALK_RAYS seeded rays at the boxes."""
     import numpy as np
     import torch
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.geometry.scene_geom import InstanceSet, WorldGeometry
+    from ptrt_tpu_torch.geometry.tlas import build_tlas
+    from ptrt_tpu_torch.render import traverse
+
+    mats, bmin, bmax, tree = k11_bufs
+    base = world.iset
+    iset = InstanceSet(geom=base.geom, roots=base.roots[:n].contiguous(),
+                       mats=mats, bb_min=bmin, bb_max=bmax, tlas=tree)
+    host = torch.from_numpy(build_tlas(bmin.cpu().numpy(),
+                                       bmax.cpu().numpy())).to(tree.device)
+    worlds = [WorldGeometry(static=world.static, instances=(), iset=s)
+              for s in (iset, InstanceSet(geom=base.geom, roots=iset.roots,
+                                          mats=mats, bb_min=bmin,
+                                          bb_max=bmax, tlas=host))]
+    # rays from behind the field at the boxes' centres, and a quarter of
+    # them anywhere through it
+    r = K11_WALK_RAYS
+    centre = 0.5 * (bmin + bmax).cpu().numpy()
+    aim = centre[rng.integers(0, n, r)] + rng.uniform(-0.05, 0.05, (r, 3))
+    aim = np.where((rng.random(r) < 0.25)[:, None],
+                   rng.uniform(-50.0, 50.0, (r, 3)), aim)
+    org = rng.normal([0.0, 0.0, -90.0], 1.0, (r, 3))
+    dirs = aim - org
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    vec = lambda a: Vec3(*[torch.tensor(a[:, j], dtype=torch.float32,
+                                        device=tree.device) for j in range(3)])
+    o, d = vec(org), vec(dirs)
+    t_max = torch.full_like(o.x, traverse.T_MAX)
+    a, b = (traverse.closest_hit(w, o, d, t_max) for w in worlds)
+    planes = lambda r: [p.view(torch.int32) for p in (*r, r.inst)]
+    closest = all(bool((x == y).all()) for x, y in zip(planes(a), planes(b)))
+    shadow_t = torch.where(a.mesh >= 0, a.t, 50.0)
+    occ = [traverse.any_hit(w, o, d, shadow_t) for w in worlds]
+    return {"rays": r, "closest_bit_for_bit": closest,
+            "any_bit_for_bit": bool((occ[0] == occ[1]).all()),
+            "on_instance": float((a.inst >= 0).float().mean())}
+
+
+def check_k11(dev, card, resources=None) -> dict:
+    """K11 against its plain version on the card at K11_SIZES, the
+    wrapper's one-block limit and one past it: rows and boxes equal on
+    every lane, the tree bit for bit build_tlas of K11's own boxes, K4 over
+    it bit for bit K4 over build_tlas's, each timed queued beside its bound
+    and the plain version (with that version's launches); the grid path
+    with its scratch allocated once (the outputs' and scratch's addresses
+    unchanged, the allocations a call); the kernels' registers and local
+    memory (no spills; in the SASS only sinf / cosf's slow path)."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch import kernels
     from ptrt_tpu_torch.geometry import dtransform as dt
+    from ptrt_tpu_torch.geometry.mesh import Mesh
     from ptrt_tpu_torch.geometry.tlas import (TLAS_ROW, TLAS_WIDTH,
                                               build_tlas, build_tlas_plain,
-                                              tlas_node_count)
+                                              level_layout, tlas_node_count)
     from ptrt_tpu_torch.tools import stages
 
     limit = dt.one_block_max()
-    out = {}
-    for n in sorted({1, 10, 192, 1024, limit, limit + 1, 2048, 4096, 8192}):
-        ins = k11_inputs(n, n, dev)
-        nodes = tlas_node_count(n)
-        f32 = dict(dtype=torch.float32, device=dev)
-        bufs = [torch.full((n, 24), np.nan, **f32),
+    sizes = sorted({*K11_SIZES, limit, limit + 1})
+    cube = Mesh.cube().local_aabb()
+    world = stages.instance_world(max(sizes), 77, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def outputs(n):
+        return [torch.full((n, 24), np.nan, **f32),
                 torch.full((n, 3), np.nan, **f32),
                 torch.full((n, 3), np.nan, **f32),
-                torch.full((nodes, TLAS_WIDTH, TLAS_ROW), np.nan, **f32)]
-        dt.instances_update(*ins, *bufs)
-        torch.cuda.synchronize()
+                torch.full((tlas_node_count(n), TLAS_WIDTH, TLAS_ROW), np.nan,
+                           **f32)]
+
+    def held(ins, bufs):
+        """Lanes whose rows / boxes differ from the plain version's, the
+        largest errors, and the tree against build_tlas and the plain
+        tree, bit for bit."""
         want = dt.instances_update_plain(*ins)
-        mats_lanes = int((bufs[0] != want[0]).any(1).sum())
-        box_lanes = int(((bufs[1] != want[1]) | (bufs[2] != want[2])).any(1)
-                        .sum())
-        err = max(float((bufs[k] - want[k]).abs().max()) for k in range(3))
-        rel = float(((bufs[0] - want[0]).abs()
-                     / (want[0].abs() + 1e-6)).max())
         host = build_tlas(bufs[1].cpu().numpy(), bufs[2].cpu().numpy())
-        tree_bits = np.array_equal(bufs[3].cpu().numpy().view(np.uint32),
-                                   host.view(np.uint32))
         plain_tree = build_tlas_plain(bufs[1], bufs[2])
-        plain_bits = bool((bufs[3].view(torch.int32)
-                           == plain_tree.view(torch.int32)).all())
-        queued = [stages.clones_ms(lambda _: dt.instances_update(*ins, *bufs),
-                                   [None] * 51, stages.SPIN_CYCLES)
-                  for _ in range(2)]
-        kern = stages.profiled_kernels(
-            lambda: dt.instances_update(*ins, *bufs),
-            lead_cycles=stages.SPIN_CYCLES)
-        plain_ms = cuda_ms(lambda: dt.instances_update_plain(*ins), 5)
-        plain_launches = len(stages.profiled_kernels(
+        return {
+            "mats_lanes_differ": int((bufs[0] != want[0]).any(1).sum()),
+            "box_lanes_differ": int(((bufs[1] != want[1])
+                                     | (bufs[2] != want[2])).any(1).sum()),
+            "max_abs_err": max(float((bufs[k] - want[k]).abs().max())
+                               for k in range(3)),
+            "max_rel_err_rows": float(((bufs[0] - want[0]).abs()
+                                       / (want[0].abs() + 1e-6)).max()),
+            "tree_bit_for_bit": np.array_equal(
+                bufs[3].cpu().numpy().view(np.uint32), host.view(np.uint32)),
+            "tree_equals_plain_tree": bool(
+                (bufs[3].view(torch.int32)
+                 == plain_tree.view(torch.int32)).all())}
+
+    def queued(call):
+        return [stages.clones_ms(lambda _: call(), [None] * 51,
+                                 stages.SPIN_CYCLES) for _ in range(2)]
+
+    out = {"sizes": {}}
+    for n in sizes:
+        ins = k11_inputs(n, n, dev)
+        bufs = outputs(n)
+        scratch = dt.instances_scratch(n, dev) if n > limit else None
+        ptrs = [t.data_ptr() for t in bufs + list(scratch or ())]
+        call = lambda: dt.instances_update(*ins, *bufs, scratch)
+        call()
+        torch.cuda.synchronize()
+        r = held(ins, bufs)
+        stats = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        call()
+        r["allocations_a_call"] = (torch.cuda.memory_stats(dev)[
+            "allocation.all.allocated"] - stats)
+        r["addresses_fixed"] = ptrs == [t.data_ptr() for t in
+                                        bufs + list(scratch or ())]
+        r["queued_ms"] = queued(call)
+        r["ms"] = sum(r["queued_ms"]) / 2
+        kern = stages.profiled_kernels(call, lead_cycles=stages.SPIN_CYCLES)
+        # (the profiler may miss a launch this short: then not measured)
+        r["kernel_ms"] = sum(us for _, us in kern) / 1e3 if kern else None
+        r["kernels"] = [k[:40] for k, _ in kern]
+        kernels.launches.clear()
+        call()
+        r["launches"] = {k: v for k, v in kernels.launches.items() if v}
+        r["plain_ms"] = cuda_ms(lambda: dt.instances_update_plain(*ins), 5)
+        r["plain_launches"] = len(stages.profiled_kernels(
             lambda: dt.instances_update_plain(*ins)))
-        b = bound(n * (60 + 120) + nodes * TLAS_WIDTH * TLAS_ROW * 4,
-                  n * K11_OPS)
-        out[n] = {"mats_lanes_differ": mats_lanes,
-                  "box_lanes_differ": box_lanes, "max_abs_err": err,
-                  "max_rel_err_rows": rel, "tree_bit_for_bit": tree_bits,
-                  "tree_equals_plain_tree": plain_bits,
-                  "queued_ms": queued, "ms": sum(queued) / 2,
-                  "kernel_ms": sum(us for _, us in kern) / 1e3,
-                  "kernels": [k[:30] for k, _ in kern],
-                  "plain_ms": plain_ms, "plain_launches": plain_launches,
-                  "path": "one block" if n <= limit else "grid", **b}
-        log(f"[k11] {n} instances ({out[n]['path']}): rows differ on "
-            f"{mats_lanes} lanes, boxes on {box_lanes} (largest error "
-            f"{err:.3g}, rows relative {rel:.3g}); tree bit for bit "
-            f"build_tlas of its boxes {tree_bits}, build_tlas_plain "
-            f"{plain_bits}; queued {queued[0]:.4f} / {queued[1]:.4f} ms, "
-            f"by the profiler {out[n]['kernel_ms']:.4f} ms in {len(kern)} "
-            f"launches, bound {b['bound_ms']:.6f} ms ({b['bound_by']}); "
-            f"plain {plain_ms:.3f} ms in {plain_launches} launches [{card}]")
-        assert tree_bits and plain_bits, n
-        assert rel <= 1e-5 and err <= 1e-3, (n, rel, err)
+        nodes = tlas_node_count(n)
+        r.update(bound(n * (60 + 120) + nodes * TLAS_WIDTH * TLAS_ROW * 4,
+                       n * K11_OPS))
+        r["path"] = "one block" if n <= limit else "grid"
+        # K4 over the tree of the same transforms on cubes
+        cubes = outputs(n)
+        box = [torch.from_numpy(np.tile(np.asarray(c, np.float32), (n, 1)))
+               .to(dev) for c in (cube.lo, cube.hi)]
+        dt.instances_update(*ins[:3], *box, *cubes, scratch)
+        r["walks"] = k11_walks(world, cubes, n, np.random.default_rng(90 + n))
+        out["sizes"][n] = r
+        log(f"[k11] {n} instances ({r['path']}): rows differ on {r['mats_lanes_differ']} lanes, boxes on "
+            f"{r['box_lanes_differ']} (largest error {r['max_abs_err']:.3g}, "
+            f"rows relative {r['max_rel_err_rows']:.3g}); tree bit for bit "
+            f"build_tlas of its boxes {r['tree_bit_for_bit']}, "
+            f"build_tlas_plain {r['tree_equals_plain_tree']}; K4 over it bit "
+            f"for bit over build_tlas's: closest "
+            f"{r['walks']['closest_bit_for_bit']}, any "
+            f"{r['walks']['any_bit_for_bit']} ({r['walks']['rays']} rays, "
+            f"{r['walks']['on_instance']:.3f} on an instance); queued "
+            f"{r['queued_ms'][0]:.4f} / {r['queued_ms'][1]:.4f} ms (first "
+            f"design: {K11_FIRST_DESIGN_MS.get(n, 'not measured')}), by the "
+            f"profiler "
+            + ("not measured" if r["kernel_ms"] is None
+               else f"{r['kernel_ms']:.4f} ms") + " in "
+            f"{len(kern)} launches, bound {r['bound_ms']:.7f} ms "
+            f"({r['bound_by']}); plain {r['plain_ms']:.3f} ms in "
+            f"{r['plain_launches']} launches; addresses fixed "
+            f"{r['addresses_fixed']}, {r['allocations_a_call']} allocations "
+            f"a call [{card}]")
+        assert r["tree_bit_for_bit"] and r["tree_equals_plain_tree"], n
+        assert r["mats_lanes_differ"] == 0 and r["box_lanes_differ"] == 0, (
+            n, r["mats_lanes_differ"], r["box_lanes_differ"],
+            r["max_abs_err"])
+        assert r["walks"]["closest_bit_for_bit"] and r["walks"][
+            "any_bit_for_bit"], n
+        assert r["addresses_fixed"], n
+        want = ({"instances_update": 1} if n <= limit else {
+            "instances_rows": 1, "instances_codes": 1,
+            "instances_level": len(level_layout(n)[0])})
+        assert r["launches"] == want, (n, r["launches"])
+        del ins, bufs, cubes, scratch
+    if resources is not None:
+        # the kernels that run instance_rows: the rows kernel and the one
+        # block
+        rows_keys = ("inst_update_kernel", "inst_rows_kernel")
+        regs, runs_rows = {}, {}
+        for key in rows_keys + ("inst_codes_kernel", "inst_level_kernel"):
+            for fn, v in resources.get(key, {}).items():
+                regs[fn[-40:]] = {k: v[k] for k in (
+                    "registers", "stack_bytes", "local_bytes")} | {
+                    "local_sass": v["sass"].get("local", 0)}
+                runs_rows[fn[-40:]] = key in rows_keys
+        out["resources"] = regs
+        # no spills (local_bytes 0); the only local memory in the SASS is
+        # sinf / cosf's slow path (Payne-Hanek, arguments past 105,615):
+        # the kernels that run instance_rows run it once each, and the
+        # codes and levels kernels hold none
+        trig = next(regs[fn[-40:]]["local_sass"]
+                    for fn in resources.get("inst_rows_kernel", {}))
+        log(f"[k11] resources: {regs}; local memory only in sinf / cosf's "
+            f"slow path ({trig} instructions an instance's rows) [{card}]")
+        assert all(v["local_bytes"] == 0 for v in regs.values()), regs
+        assert len(runs_rows) == 4 and trig > 0, regs
+        for fn, v in regs.items():
+            assert v["local_sass"] == (trig if runs_rows[fn] else 0), (
+                fn, v, trig)
     return out
 
 
@@ -3192,7 +3368,7 @@ def check_instance_walks(runner, card) -> dict:
             "any_bit_for_bit": any_same}
 
 
-def check_games(dev, card) -> dict:
+def check_games(dev, card, resources=None) -> dict:
     """Phase 15: K11 against its plain version, every game's fused run (the
     reference's defaults, then tycoon and a 256 fluid at 1080p balanced)
     with no host scene update, each with its frame rate, a profiled frame,
@@ -3206,7 +3382,7 @@ def check_games(dev, card) -> dict:
     from ptrt_tpu_torch.core.vec import Vec3
     from ptrt_tpu_torch.tools import stages
 
-    out = {"k11": check_k11(dev, card), "runs": {}}
+    out = {"k11": check_k11(dev, card, resources), "runs": {}}
     main_path = collections.Counter()
     walks = {}
     for name, w, h, preset, frames, grid in GAME_RUNS:
@@ -3314,6 +3490,99 @@ def check_games(dev, card) -> dict:
     return out
 
 
+def check_mesh(sc, card) -> dict:
+    """Phase 16: the balanced 1080p frame of ``sc`` (the bench scene) from
+    one saved state, unmeshed and with its trace over pixel meshes of
+    MESH_TILES tiles (one card: a stream a tile), each bit for bit the
+    unmeshed frame (RGB8, the next PCG state, the rays), with its host ms,
+    device ms and launches (no timing claim); then dryrun_multichip(8)."""
+    import torch
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.parallel import dryrun, sharding
+    from ptrt_tpu_torch.tools import stages
+
+    sc._ensure_device_state()
+    saved = (sc._rng_state, sc._denoiser_state)
+    index, prev_vp = sc.frame_count, sc.prev_view_proj
+
+    def frame(mesh):
+        sc._rng_state, sc._denoiser_state = saved
+        return sc.render_world(sc._geom, sc.camera, index, prev_vp,
+                               mesh=mesh)
+
+    out = {}
+    want = None
+    for n in (None, *MESH_TILES):
+        mesh = None if n is None else sharding.make_pixel_mesh(n)
+        kernels.launches.clear()
+        img = frame(mesh).cpu()
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        got = (img, sc._rng_state.clone(), int(sc.last_frame.rays_traced))
+        if want is None:
+            want = got
+        same = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and got[2] == want[2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame(mesh)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        kern = stages.profiled_kernels(lambda: frame(mesh),
+                                       lead_cycles=stages.SPIN_CYCLES)
+        label = "unmeshed" if n is None else f"{n} tiles"
+        out[label] = {"mesh": None if mesh is None else list(mesh.shape),
+                      "bit_for_bit": same, "host_ms": host_ms,
+                      "device_ms": sum(us for _, us in kern) / 1e3,
+                      "profiled_launches": len(kern), "launches": launches}
+        log(f"[mesh] balanced {W}x{H} frame, {label}"
+            + ("" if mesh is None else f" ({mesh.shape[0]}x{mesh.shape[1]}, "
+               f"a stream a tile on {mesh.first_device})")
+            + f": bit for bit the unmeshed frame {same}; {host_ms:.2f} ms on "
+            f"the host clock, {out[label]['device_ms']:.3f} device ms in "
+            f"{len(kern)} launches; launches {launches} [{card}]")
+        assert same, label
+        for k in ("closest_hit", "any_hit", "shade_nee", "shade_scatter",
+                  "svgf_temporal", "svgf_atrous", "bloom_chain",
+                  "tonemap_rgb8"):
+            assert launches.get(k, 0) > 0, (label, k, launches)
+    sc._rng_state, sc._denoiser_state = saved
+    t0 = time.perf_counter()
+    img = dryrun.dryrun_multichip(8)
+    out["dryrun_multichip"] = {"s": time.perf_counter() - t0,
+                               "shape": list(img.shape),
+                               "mean": float(img.mean())}
+    log(f"[mesh] dryrun_multichip(8) on the card: {out['dryrun_multichip']} "
+        f"[{card}]")
+    assert img.std() > 1.0
+    return out
+
+
+def check_golden(dev, card) -> dict:
+    """Phase 17: the golden corpus's eight recipes (tools/golden.py)
+    rendered on the card at 320x180, each held to its reference render in
+    tests/golden/ at tests/test_golden.py's PSNR."""
+    import numpy as np
+    from ptrt_tpu_torch.tools import golden
+
+    out = {}
+    scenes = golden.golden_scenes(golden.GOLDEN_W, golden.GOLDEN_H, dev)
+    for name in golden.CASES:
+        t0 = time.perf_counter()
+        img = np.asarray(scenes[name]())
+        s_ = time.perf_counter() - t0
+        ref = golden.load_golden(name)
+        assert img.shape == ref.shape, (name, img.shape)
+        db = golden.psnr(img, ref)
+        out[name] = {"psnr_db": db, "s": s_, "mean": float(img.mean())}
+        log(f"[golden] {name}: PSNR {db:.2f} dB against the reference's "
+            f"render (bound {golden.MIN_PSNR}), {s_:.2f} s with set-up "
+            f"[{card}]")
+    bad = {k: v["psnr_db"] for k, v in out.items()
+           if v["psnr_db"] < golden.MIN_PSNR}
+    assert not bad, bad
+    return out
+
+
 def bounce_launches(names, samples, depth):
     """Kernel launches from each of a sample's K1 launches to its next (one
     bounce), in a profiled frame's timeline."""
@@ -3357,6 +3626,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. environment ------------------------------------------------------
+    lap = Laps()
+    lap("1")
     card = card_line()
     log(card)
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3368,6 +3639,7 @@ def main() -> int:
     log(f"[env] {nvcc[-1]}")
 
     # -- 2. build ------------------------------------------------------------
+    lap("2")
     t0 = time.time()
     kernels.get_lib()
     t_nvcc = time.time() - t0
@@ -3398,6 +3670,7 @@ def main() -> int:
             for k, fns in resources.items()}
 
     # -- 3. kernels against their plain versions -----------------------------
+    lap("3")
     rng = np.random.default_rng(0)
     small = bench_perf(build_bench_scene(256, 144, target_tris=20_000,
                                          device=dev), SPP, DEPTH)
@@ -3472,12 +3745,14 @@ def main() -> int:
     gather = check_row_gather(dev, full._mat_table, card, rng)
 
     # -- 3b. K3: the shading stages against their plain versions -------------
+    lap("3b")
     del hdr
     torch.cuda.empty_cache()
     shade_stats = check_shade(full, dev, card)
     torch.cuda.empty_cache()
 
     # -- 3c. K3's HDRI instantiations on the "hdri" scene ---------------------
+    lap("3c")
     t0 = time.time()
     hdri = balanced(build_hdri_scene(W, H, target_tris=TRIS, device=dev))
     hdri._ensure_device_state()
@@ -3507,6 +3782,7 @@ def main() -> int:
             if b.startswith("bench")) + f" [{card}]")
 
     # -- 4. the bench path at full size --------------------------------------
+    lap("4")
     torch.cuda.reset_peak_memory_stats()
     kernels.launches.clear()
     t0 = time.time()
@@ -3574,10 +3850,12 @@ def main() -> int:
         f"torch.cuda.set_sync_debug_mode(\"error\"): no host copy")
 
     # -- 13. the tiled trace, on the bench scene in its bench settings -------
+    lap("13")
     tiled = check_tiles(full, card)
     torch.cuda.empty_cache()
 
     # -- 5. the balanced path at full size -----------------------------------
+    lap("5")
     from ptrt_tpu_torch.render import denoiser as den
     from ptrt_tpu_torch.render.bloom import bloom_mips
     from ptrt_tpu_torch.render.motion import motion_vectors
@@ -3672,6 +3950,7 @@ def main() -> int:
         f"[{card}]")
 
     # -- 6. the post kernels against their plain versions, 1080p buffers -----
+    lap("6")
     state0, prev_vp = bal._denoiser_state, bal.prev_view_proj
     orbit(bal, BAL_FRAMES + 2)
     bal.render_frame()
@@ -3680,6 +3959,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 7. the hdri scene's balanced path -----------------------------------
+    lap("7")
     orbit(hdri, 0)
     hdri.render_frame()
     torch.cuda.synchronize()
@@ -3726,6 +4006,7 @@ def main() -> int:
         f"top kernels (ms) {hdri_prof['top']} [{card}]")
 
     # -- 8. the ultra preset on the hdri scene --------------------------------
+    lap("8")
     ultra = hdri
     ultra.set_performance_preset("ultra")
     up = ultra.perf
@@ -3763,6 +4044,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 9. end to end on small inputs: GPU kernels vs CPU plain -------------
+    lap("9")
     cpu_sc = bench_perf(build_bench_scene(64, 48, target_tris=2000,
                                           device="cpu"), 2, 3)
     gpu_sc = bench_perf(build_bench_scene(64, 48, target_tris=2000,
@@ -3830,6 +4112,7 @@ def main() -> int:
     assert oid_agree >= 0.999 and e_rel <= 0.02 and lsb >= 0.97
 
     # -- 10. dynamic geometry: K4, K5 and the "dynamic" frame ----------------
+    lap("10")
     from ptrt_tpu_torch.app.bench_scene import build_dynamic_scene
 
     del ultra, hdri
@@ -4005,10 +4288,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 11. the one-bounce RT backend: K10 on the "rt" scene ---------------
+    lap("11")
     rt = check_rt(dev, card, resources)
     torch.cuda.empty_cache()
 
     # -- 12. the rest of the PT Scene API on the card ------------------------
+    lap("12")
     api = check_scene_api(dev, card)
     torch.cuda.empty_cache()
 
@@ -4016,11 +4301,22 @@ def main() -> int:
     sweep = check_resolve_encode(dev, card)
 
     # -- 14. the unified scene layer and the demo at 1080p -------------------
+    lap("14")
     app = check_app(dev, card)
 
     # -- 15. the games: K11 and the fused step-and-render runner -------------
-    games = check_games(dev, card)
-    k11 = games["k11"][192]
+    lap("15")
+    games = check_games(dev, card, resources)
+    k11 = games["k11"]["sizes"][192]
+    torch.cuda.empty_cache()
+
+    # -- 16. the pixel mesh: the balanced frame's trace over tiles ----------
+    lap("16")
+    mesh = check_mesh(bal, card)
+
+    # -- 17. the golden corpus on the card -----------------------------------
+    lap("17")
+    gold = check_golden(dev, card)
 
     for k in ("shade_nee", "shade_scatter"):
         hs = hstats[k]
@@ -4227,16 +4523,21 @@ def main() -> int:
                            "on the host)"],
          "launches": games["main_path_launches"].get("instances_update", 0),
          "launched_by": "the phase's fused game runs",
-         "max_abs_err": max(r["max_abs_err"] for r in games["k11"].values()),
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in games["k11"]["sizes"].values()),
          "ms": k11["ms"], "plain_ms": k11["plain_ms"],
          "plain_launches": k11["plain_launches"],
          "bound_ms": k11["bound_ms"], "bound_by": k11["bound_by"],
          "library_ms": None, "instances": 192,
-         "sizes": games["k11"], "game_runs": games["runs"],
+         "sizes": games["k11"]["sizes"],
+         "resources": games["k11"].get("resources"),
+         "game_runs": games["runs"],
          "instance_walks": games["instance_walks"],
          "headless": games["headless"],
          "small_gpu_vs_cpu_within_1_lsb":
-             games["small_gpu_vs_cpu_within_1_lsb"]},
+             games["small_gpu_vs_cpu_within_1_lsb"],
+         # phases 16 and 17 ride on the last kernel too
+         "pixel_mesh": mesh, "golden": gold},
     ]}
     # the ranking: device ms a frame that each kernel stands over its bound,
     # summed over the passes and bounces the frames really run (a bench
@@ -4299,6 +4600,7 @@ def main() -> int:
                     for k, d in sorted(over.items(),
                                        key=lambda kv: -max(kv[1].values())))
         + f" [{card}]")
+    lap(None)
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Tonemapping and color-space conversion.
 
 Counterpart of ``ptrt_tpu/core/color.py``: the fitted-matrix ACES, the exact
-sRGB OETF and 8-bit quantization, term for term.  These are the plain
-versions of the fused tonemap kernel (``csrc/tonemap.cu``).
+sRGB OETF and 8-bit quantization, term for term, are the plain versions of
+the fused tonemap kernel (``csrc/tonemap.cu``); Reinhard, Uncharted2 and the
+sRGB approximations are the reference's other curves, in plain torch.
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ def _mul3(m, v: Vec3) -> Vec3:
     )
 
 
+def reinhard_tonemap(c: Vec3) -> Vec3:
+    """color / (color + 1)."""
+    return c / (c + 1.0)
+
+
 def aces_tonemap(c: Vec3) -> Vec3:
     """Fitted ACES."""
     ac = _mul3(ACES_IN, c)
@@ -39,6 +45,32 @@ def aces_tonemap(c: Vec3) -> Vec3:
     b = ac * (ac * 0.983729 + 0.4329510) + 0.238081
     ac = clamp01(a / b)
     return clamp01(_mul3(ACES_OUT, ac))
+
+
+def _uncharted2_partial(x: Vec3) -> Vec3:
+    A, B, C, D, E, F = 0.15, 0.50, 0.10, 0.20, 0.02, 0.30
+    return (x * (x * A + C * B) + D * E) / (x * (x * A + B) + D * F) - E / F
+
+
+def uncharted2_tonemap(c: Vec3, exposure: float = 2.0) -> Vec3:
+    """Uncharted2 filmic curve, white point 11.2."""
+    curr = _uncharted2_partial(c * exposure)
+    white = _uncharted2_partial(Vec3.full(11.2))
+    return curr * (Vec3.full(1.0) / white)
+
+
+def linear_to_srgb(c: Vec3) -> Vec3:
+    """pow(1/2.2) approximation."""
+    return c.map(lambda v: fmax(v, 0.0) ** (1.0 / 2.2))
+
+
+def srgb_to_linear(c: Vec3) -> Vec3:
+    return c.pow(2.2)
+
+
+def linear_to_srgb_fast(c: Vec3) -> Vec3:
+    """sqrt approximation."""
+    return c.map(lambda v: torch.sqrt(fmax(v, 0.0)))
 
 
 def srgb_oetf(c: Vec3) -> Vec3:

@@ -97,6 +97,27 @@ def hemisphere_to_world(sample: Vec3, n: Vec3) -> Vec3:
 # -- direction sampling -----------------------------------------------------
 
 
+def sample_cosine_hemisphere(state):
+    """Cosine-weighted local hemisphere sample (two draws)."""
+    state, u1, u2 = uniform2(state)
+    return state, cosine_hemisphere_from(u1, u2)
+
+
+def sample_unit_sphere(state):
+    """Uniform sphere direction (two draws)."""
+    state, u1, u2 = uniform2(state)
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(fmax(1.0 - z * z, 0.0))
+    phi = TWO_PI * u2
+    return state, Vec3(r * torch.cos(phi), r * torch.sin(phi), z)
+
+
+def importance_sample_ggx(state, n: Vec3, roughness):
+    """GGX half-vector importance sample in the frame of N (two draws)."""
+    state, u1, u2 = uniform2(state)
+    return state, ggx_half_vector_from(u1, u2, n, roughness)
+
+
 def cone_direction_from(u1, u2, cone_dir: Vec3, cos_theta_max) -> Vec3:
     cos_theta = 1.0 - u1 * (1.0 - cos_theta_max)
     sin_theta = torch.sqrt(fmax(1.0 - cos_theta * cos_theta, 0.0))

@@ -1,6 +1,9 @@
 """Temporal anti-aliasing sub-pixel jitter (counterpart of
-``ptrt_tpu/core/taa.py``): the 16-entry Halton(2,3) table, centered to
-[-0.5, 0.5] pixel units."""
+``ptrt_tpu/core/taa.py``): the 16-entry Halton(2,3) table, runtime Halton
+and the R2 (plastic-constant) sequence, centered to [-0.5, 0.5] pixel
+units.  Of a Python int each returns the float32 values as Python floats
+(no device work: a frame's jitter enters it as host numbers); of an
+integer tensor, float32 tensors on its device."""
 
 from __future__ import annotations
 
@@ -32,3 +35,64 @@ def taa_jitter(frame_index):
     h = table[torch.remainder(frame_index.to(torch.int64),
                               TAA_SEQUENCE_LENGTH)]
     return h[..., 0] - 0.5, h[..., 1] - 0.5
+
+
+def taa_jitter_ndc(frame_index, width: int, height: int):
+    """Jitter scaled to NDC."""
+    jx, jy = taa_jitter(frame_index)
+    if isinstance(frame_index, int):
+        return (float(np.float32(jx) / np.float32(width)),
+                float(np.float32(jy) / np.float32(height)))
+    return jx / float(width), jy / float(height)
+
+
+def _halton_np(i: np.ndarray, base: int) -> np.ndarray:
+    """The radical inverse in float32, 32 digits, the reference's sums in
+    its order; ``i`` int32 (floor division and remainder as numpy's)."""
+    result = np.zeros(i.shape, np.float32)
+    f = np.float32(1.0 / base)
+    for _ in range(32):
+        result = result + f * (i % base).astype(np.float32)
+        i = i // base
+        f = f / np.float32(base)
+    return result
+
+
+def halton(index, base: int):
+    """Runtime Halton radical inverse (32 digits)."""
+    if isinstance(index, int):
+        return float(_halton_np(np.asarray(index, np.int32), base))
+    i = index.to(torch.int32)
+    result = torch.zeros(i.shape, dtype=torch.float32, device=i.device)
+    f = torch.tensor(1.0 / base, dtype=torch.float32)
+    for _ in range(32):
+        result = result + f * torch.remainder(i, base).to(torch.float32)
+        i = torch.div(i, base, rounding_mode="floor")
+        f = f / base
+    return result
+
+
+def taa_jitter_extended(frame_index):
+    """Halton(2, 3) jitter past the 16-entry table."""
+    x = halton(frame_index + 1, 2)
+    y = halton(frame_index + 1, 3)
+    if isinstance(frame_index, int):
+        return (float(np.float32(x) - np.float32(0.5)),
+                float(np.float32(y) - np.float32(0.5)))
+    return x - 0.5, y - 0.5
+
+
+def r2_jitter(frame_index):
+    """R2 plastic-constant sequence."""
+    g = 1.32471795724
+    a1 = np.float32(1.0 / g)
+    a2 = np.float32(1.0 / (g * g))
+    if isinstance(frame_index, int):
+        f = np.float32(frame_index)
+        x = np.mod(np.float32(0.5) + a1 * f, np.float32(1.0))
+        y = np.mod(np.float32(0.5) + a2 * f, np.float32(1.0))
+        return float(x - np.float32(0.5)), float(y - np.float32(0.5))
+    f = frame_index.to(torch.float32)
+    x = torch.remainder(0.5 + float(a1) * f, 1.0)
+    y = torch.remainder(0.5 + float(a2) * f, 1.0)
+    return x - 0.5, y - 0.5

@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import math as _math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Union
 
 import torch
+
+Scalar = Union[float, int, torch.Tensor]
 
 
 def fmax(a, b):
@@ -62,14 +64,38 @@ class Vec3:
         o = torch.ones(shape, dtype=torch.float32, device=device)
         return Vec3(o, o, o)
 
+    @staticmethod
+    def from_array(a, device=None) -> "Vec3":
+        """From an array or tensor whose last axis is 3 (host interop)."""
+        a = torch.as_tensor(a, device=device)
+        return Vec3(a[..., 0], a[..., 1], a[..., 2])
+
+    def to_array(self) -> torch.Tensor:
+        """The components stacked into a trailing axis of 3."""
+        x, y, z = torch.broadcast_tensors(*(torch.as_tensor(c) for c in (
+            self.x, self.y, self.z)))
+        return torch.stack([x, y, z], dim=-1)
+
     # -- shape helpers ------------------------------------------------------
     @property
     def shape(self):
         return torch.broadcast_shapes(*(torch.as_tensor(c).shape
                                         for c in (self.x, self.y, self.z)))
 
+    @property
+    def dtype(self):
+        a, b, c = (torch.as_tensor(v).dtype for v in (self.x, self.y,
+                                                      self.z))
+        return torch.promote_types(torch.promote_types(a, b), c)
+
+    def astype(self, dtype) -> "Vec3":
+        return self.map(lambda c: torch.as_tensor(c).to(dtype))
+
     def map(self, f) -> "Vec3":
         return Vec3(f(self.x), f(self.y), f(self.z))
+
+    def reshape(self, *shape) -> "Vec3":
+        return self.map(lambda c: torch.reshape(c, shape))
 
     def broadcast_to(self, shape) -> "Vec3":
         return self.map(lambda c: c.expand(shape))
@@ -120,22 +146,51 @@ class Vec3:
     def length_squared(self):
         return self.dot(self)
 
+    def length(self):
+        return torch.sqrt(self.length_squared())
+
     def normalized(self, eps: float = 0.0) -> "Vec3":
         return self * torch.rsqrt(self.length_squared() + eps)
 
     # -- elementwise helpers ------------------------------------------------
+    def abs(self) -> "Vec3":
+        return self.map(torch.abs)
+
     def exp(self) -> "Vec3":
         return self.map(torch.exp)
+
+    def log(self) -> "Vec3":
+        return self.map(torch.log)
 
     def sqrt(self) -> "Vec3":
         return self.map(torch.sqrt)
 
+    def pow(self, p) -> "Vec3":
+        return Vec3(self.x**p, self.y**p, self.z**p)
+
+    def min_component(self):
+        return fmin(self.x, fmin(self.y, self.z))
+
     def max_component(self):
         return fmax(self.x, fmax(self.y, self.z))
+
+    def sum(self):
+        return self.x + self.y + self.z
 
     def luminance(self):
         """Rec.709 luminance."""
         return 0.2126 * self.x + 0.7152 * self.y + 0.0722 * self.z
+
+
+def vec3(x: Scalar, y: Scalar = None, z: Scalar = None) -> Vec3:
+    """``vec3(v)`` broadcasts, ``vec3(x, y, z)``."""
+    if y is None:
+        return Vec3.full(x)
+    return Vec3(x, y, z)
+
+
+def dot(a: Vec3, b: Vec3):
+    return a.dot(b)
 
 
 def cross(a: Vec3, b: Vec3) -> Vec3:
@@ -154,10 +209,14 @@ def lerp(a, b, t):
     return a + (b - a) * t
 
 
-def clamp01(v):
+def clamp(v, lo, hi):
     if isinstance(v, Vec3):
-        return v.map(lambda c: torch.clamp(c, 0.0, 1.0))
-    return torch.clamp(v, 0.0, 1.0)
+        return v.map(lambda c: torch.clamp(c, lo, hi))
+    return torch.clamp(v, lo, hi)
+
+
+def clamp01(v):
+    return clamp(v, 0.0, 1.0)
 
 
 def vmin(a: Vec3, b: Vec3) -> Vec3:
@@ -181,6 +240,20 @@ def reflect(i: Vec3, n: Vec3) -> Vec3:
     return i - n * (2.0 * i.dot(n))
 
 
+def refract(i: Vec3, n: Vec3, eta):
+    """Snell refraction: (T, ok mask)."""
+    ndoti = n.dot(i)
+    k = 1.0 - eta * eta * (1.0 - ndoti * ndoti)
+    ok = k >= 0.0
+    t = i * eta - n * (eta * ndoti + torch.sqrt(fmax(k, 0.0)))
+    return t, ok
+
+
+def face_forward(n: Vec3, i: Vec3) -> Vec3:
+    """N flipped to face against I."""
+    return where(n.dot(i) < 0.0, n, -n)
+
+
 def clamp_vector_soft(v: Vec3, max_lum) -> Vec3:
     """Luminance-preserving soft clamp."""
     lum = v.luminance()
@@ -189,5 +262,14 @@ def clamp_vector_soft(v: Vec3, max_lum) -> Vec3:
     return v * scale
 
 
+def clamp_vector(v: Vec3, max_len) -> Vec3:
+    """Euclidean-length hard clamp."""
+    len_sq = v.length_squared()
+    scale = torch.where(len_sq > max_len * max_len,
+                        max_len * torch.rsqrt(fmax(len_sq, 1e-30)), 1.0)
+    return v * scale
+
+
 PI = _math.pi
 TWO_PI = 2.0 * _math.pi
+INV_PI = 1.0 / _math.pi

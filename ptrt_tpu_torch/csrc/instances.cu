@@ -16,23 +16,42 @@
 // and writes 120 B an instance plus 64 nodes of 128 B, ~43 KB, a hundredth
 // of a microsecond at 3.35 TB/s.  The tree's levels depend on each other
 // and the Morton order on every instance's centre, so the work is a chain
-// of block barriers: 0.0205 ms at 192 on an H100 (PERF.md).
+// of dependent steps, and each block barrier on the chain costs more the
+// more warps it waits for.  The first design (one block of 1,024 threads
+// whatever the set, every bitonic stage a shared-memory pass and a
+// barrier: ~40 barriers across 32 warps at 192 instances) took 0.0202 ms
+// there on an H100 (PERF.md).
 //
-// What this design does about it:
-//  * up to kOneBlockMax (1,024) instances, one launch of one block: a
-//    thread an instance (strided) computes the rows (rot_xyz with sinf /
-//    cosf, no fast math), the eight corners' box and the box centre in
-//    float64; the centres' bounds by a block reduction; the 30-bit Morton
-//    codes in float64 exactly as tlas.morton_order (non-finite and
-//    degenerate axes included); the (code, id) pairs sorted in shared
-//    memory by a bitonic network (each pair a distinct 64-bit key, so any
-//    correct sort gives the stable order); then the tree level by level,
-//    leaves first, a barrier between levels;
-//  * past it (the same split as refit.cu's morton_sort / morton_codes), the
-//    grid path: inst_rows_kernel over the card (the rows, boxes and each
-//    block's centre bounds), inst_codes_kernel (every block reduces the
-//    blocks' bounds, then a code a thread), torch.sort (stable) in the
-//    wrapper, and one inst_level_kernel launch a tree level.  No host read.
+// What this design does about it (one launch of one block up to
+// kOneBlockMax instances):
+//  * the block is sized to the set: the next power of two >= n threads, at
+//    least a warp, a thread an instance;
+//  * each thread computes its instance's rows (rot_xyz with sinf / cosf, no
+//    fast math), the eight corners' box and the box centre in float64; the
+//    centres' bounds by warp shuffles, and across warps through shared
+//    memory with one barrier;
+//  * the 30-bit Morton codes in float64 exactly as tlas.morton_order
+//    (non-finite and degenerate axes included), each (code, id) pair a
+//    distinct 64-bit key in a register: thread t holds sorted position t,
+//    so a bitonic stage of distance j exchanges by __shfl_xor_sync for
+//    j < 32, and through shared memory (double-buffered: one barrier a
+//    stage) only past that.  At 256 keys: 6 barriers over 8 warps instead
+//    of 36 over 32.  Any correct sort of distinct keys gives the stable
+//    order;
+//  * the tree level by level, leaves first, straight from the sorted
+//    registers; a barrier between levels (a __syncwarp for one warp).
+//    On an H100 the three inner levels of 192 instances take ~0.005 ms
+//    and the sort ~0.0034 (tools/k11_parts.py: the kernel with each part
+//    cut out); keeping the boxes and levels in shared memory instead of
+//    re-reading them through L2 saved only 0.0005, and was not kept
+//    (PERF.md section 5).
+//  Sets of up to 32 instances run in one warp with no block barrier.
+//  Past kOneBlockMax (the same split as refit.cu's morton_sort /
+//  morton_codes), the grid path: inst_rows_kernel over the card (the rows,
+//  boxes and each block's centre bounds), inst_codes_kernel (every block
+//  reduces the blocks' bounds, then a code a thread), torch.sort (stable)
+//  in the wrapper, and one inst_level_kernel launch a tree level.  No host
+//  read; its scratch is the caller's, allocated once.
 //
 // Exactness: built with -fmad=false and the plain version's product order
 // (geometry/dtransform.py: each product and sum rounded on its own, the
@@ -51,16 +70,18 @@ namespace {
 constexpr int kWidth = 4;           // tlas.TLAS_WIDTH
 constexpr int kRow = 8;             // tlas.TLAS_ROW
 constexpr int kMatCols = 24;        // InstanceSet.mats
-constexpr int kThreads = 1024;      // the one-block kernel
-// instances the one-block kernel takes (its sort's keys; a power of two).
-// On an H100 (chip_smoke.py phase 15) the one block's time grows with the
-// set, 0.053 ms at 1,024 and 0.098 at 2,048, while the grid path's stays
-// near 0.07 (0.071 at 2,049, 0.076 at 4,096): the crossover lies between
-// the two, and 1,024 is the largest power of two below it.
-constexpr int kOneBlockMax = 1024;
+constexpr int kMaxThreads = 1024;   // the one-block kernel's most
+// the most instances the one-block kernel takes, a thread each.  One block
+// is issue-bound on its one SM past a few hundred instances: on an H100 it
+// takes 0.052 ms at 1,024 against the grid path's 0.065-0.067 at 1,025
+// (chip_smoke.py phase 15), and variants holding 2, 4 and 8 keys a thread
+// took 0.094, 0.18 and 0.36 ms at 2,048, 4,096 and 8,192 against the grid
+// path's 0.067, 0.074 and 0.102 (PERF.md section 5): past a block's
+// threads the grid path wins
+constexpr int kOneBlockMax = kMaxThreads;
 constexpr int kGridThreads = 256;   // the grid path's blocks
 constexpr int kMaxLevels = 16;      // 4^15 leaves is past 2^24 instances
-constexpr int kMaxWarps = kThreads / 32;
+constexpr int kMaxWarps = kMaxThreads / 32;
 
 struct Inputs {
     const float* __restrict__ pos;    // (n, 3) each
@@ -99,7 +120,8 @@ __device__ __forceinline__ float np_fmax(float a, float b) {
 // One instance: its rows and world box written, its box centre (float64)
 // returned.  dtransform.instance_mats and instance_world_aabbs, operation
 // for operation.
-__device__ void instance_rows(const Inputs& a, int i, double c[3]) {
+__device__ __forceinline__ void instance_rows(const Inputs& a, int i,
+                                              double c[3]) {
     float p[3], rr[3], s[3], lo[3], hi[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -200,12 +222,7 @@ __device__ __forceinline__ void grow(double lo[3], double hi[3],
     }
 }
 
-// The block's bounds of its threads' finite centres into bounds[0:3] (lo)
-// and bounds[3:6] (hi); every thread of the block takes part.
-__device__ void block_bounds(double lo[3], double hi[3], double* red,
-                             double* bounds) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int warps = (blockDim.x + 31) >> 5;
+__device__ __forceinline__ void warp_bounds(double lo[3], double hi[3]) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
@@ -213,6 +230,18 @@ __device__ void block_bounds(double lo[3], double hi[3], double* red,
             lo[k] = fmin(lo[k], __shfl_xor_sync(0xffffffffu, lo[k], off));
             hi[k] = fmax(hi[k], __shfl_xor_sync(0xffffffffu, hi[k], off));
         }
+}
+
+// The block's bounds of its threads' finite centres, left in every
+// thread's lo / hi: warp shuffles, and for more than one warp the warps'
+// bounds through ``red`` (6 doubles a warp) with one barrier.  Every
+// thread of the block takes part.
+__device__ __forceinline__ void block_bounds(double lo[3], double hi[3],
+                                             double* red) {
+    warp_bounds(lo, hi);
+    const int warps = blockDim.x >> 5;
+    if (warps == 1) return;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     if (lane == 0)
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
@@ -220,27 +249,12 @@ __device__ void block_bounds(double lo[3], double hi[3], double* red,
             red[6 * warp + 3 + k] = hi[k];
         }
     __syncthreads();
-    if (warp == 0) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-            lo[k] = lane < warps ? red[6 * lane + k] : INFINITY;
-            hi[k] = lane < warps ? red[6 * lane + 3 + k] : -INFINITY;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-                lo[k] = fmin(lo[k], __shfl_xor_sync(0xffffffffu, lo[k], off));
-                hi[k] = fmax(hi[k], __shfl_xor_sync(0xffffffffu, hi[k], off));
-            }
-        if (lane == 0)
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-                bounds[k] = lo[k];
-                bounds[3 + k] = hi[k];
-            }
+    for (int k = 0; k < 3; ++k) {
+        lo[k] = lane < warps ? red[6 * lane + k] : INFINITY;
+        hi[k] = lane < warps ? red[6 * lane + 3 + k] : -INFINITY;
     }
-    __syncthreads();
+    warp_bounds(lo, hi);
 }
 
 __device__ __forceinline__ unsigned spread10(unsigned v) {
@@ -252,11 +266,13 @@ __device__ __forceinline__ unsigned spread10(unsigned v) {
 }
 
 // tlas.morton_order's code of one centre within the bounds, in float64
-__device__ unsigned morton_code(const double c[3], const double* bounds) {
+__device__ __forceinline__ unsigned morton_code(const double c[3],
+                                                const double blo[3],
+                                                const double bhi[3]) {
     unsigned q[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-        const double lo = bounds[k], hi = bounds[3 + k];
+        const double lo = blo[k], hi = bhi[k];
         const bool wide = hi > lo;
         const double base = wide ? lo : 0.0;
         const double scale = wide ? 1023.0 / (hi - lo) : 0.0;
@@ -279,8 +295,9 @@ __device__ __forceinline__ void write_row(float* tlas, int node, int slot,
 
 // Row t of the leaves: the t-th instance in Morton order (id), or an empty
 // slot (id < 0).  The instance's box verbatim, ref -1 - id.
-__device__ void leaf_row(float* tlas, const Levels& lv, int t, int id,
-                         const float* bmin, const float* bmax) {
+__device__ __forceinline__ void leaf_row(float* tlas, const Levels& lv,
+                                         int t, int id, const float* bmin,
+                                         const float* bmax) {
     float lo[3] = {0.0f, 0.0f, 0.0f}, hi[3] = {0.0f, 0.0f, 0.0f};
     if (id >= 0)
 #pragma unroll
@@ -296,7 +313,8 @@ __device__ void leaf_row(float* tlas, const Levels& lv, int t, int id,
 // fmin / fmax over its valid rows' (lo, hi) both ways (an inverted box
 // too), empty rows counting as +-inf, folded left to right as numpy's
 // reduce does.
-__device__ void inner_row(float* tlas, const Levels& lv, int level, int t) {
+__device__ __forceinline__ void inner_row(float* tlas, const Levels& lv,
+                                          int level, int t) {
     const int node = lv.off[level] + t / kWidth, slot = t % kWidth;
     float lo[3] = {0.0f, 0.0f, 0.0f}, hi[3] = {0.0f, 0.0f, 0.0f};
     const bool valid = t < lv.count[level - 1];
@@ -324,65 +342,84 @@ __device__ void inner_row(float* tlas, const Levels& lv, int level, int t) {
     write_row(tlas, node, slot, lo, static_cast<float>(child), hi, valid);
 }
 
-// Ascending bitonic sort of `size` (a power of two) keys in shared memory
-// by the whole block.
-__device__ void bitonic_sort(unsigned long long* keys, int size) {
-    for (int k = 2; k <= size; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-            for (int t = threadIdx.x; t < size; t += blockDim.x) {
-                const int u = t ^ j;
-                if (u > t) {
-                    const unsigned long long x = keys[t], y = keys[u];
-                    const bool up = (t & k) == 0;
-                    if ((x > y) == up) {
-                        keys[t] = y;
-                        keys[u] = x;
-                    }
-                }
-            }
-            __syncthreads();
-        }
-    }
+// One bitonic compare-exchange: the key of sorted position p against its
+// partner's y, for the merge of width k at distance j.
+__device__ __forceinline__ unsigned long long exchange(unsigned long long x,
+                                                       unsigned long long y,
+                                                       int p, int j, int k) {
+    const bool lower = (p & j) == 0, up = (p & k) == 0;
+    return (lower == up) ? (x < y ? x : y) : (x < y ? y : x);
 }
 
-// The whole update of at most kOneBlockMax instances in one block.
-__global__ void __launch_bounds__(kThreads)
+// Ascending bitonic sort of blockDim.x distinct keys, one a thread
+// (thread t ends with sorted position t); ``buf``: 2 blockDim.x keys of
+// shared memory, used only past one warp's reach.
+__device__ __forceinline__ unsigned long long sort_keys(
+    unsigned long long key, unsigned long long* buf) {
+    const int size = blockDim.x, t = threadIdx.x;
+    int parity = 0;
+    for (int k = 2; k <= size; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+            unsigned long long other;
+            if (j >= 32) {
+                // across warps: the partner thread t ^ j
+                unsigned long long* b = buf + parity * size;
+                b[t] = key;
+                __syncthreads();
+                other = b[t ^ j];
+                parity ^= 1;
+            } else {
+                other = __shfl_xor_sync(0xffffffffu, key, j);
+            }
+            key = exchange(key, other, t, j, k);
+        }
+    }
+    return key;
+}
+
+__device__ __forceinline__ void block_sync() {
+    if (blockDim.x > 32)
+        __syncthreads();
+    else
+        __syncwarp();
+}
+
+// The whole update of at most blockDim.x instances in one block of a
+// power of two >= 32 threads, a thread an instance.
+__global__ void __launch_bounds__(kMaxThreads, 1)
 inst_update_kernel(const __grid_constant__ Inputs a, float* tlas,
-                        const __grid_constant__ Levels lv) {
-    __shared__ unsigned long long keys[kOneBlockMax];
+                   const __grid_constant__ Levels lv) {
+    extern __shared__ unsigned long long sort_buf[];
     __shared__ double red[6 * kMaxWarps];
-    __shared__ double bounds[6];
+    const int threads = blockDim.x, t = threadIdx.x;
     double lo[3] = {INFINITY, INFINITY, INFINITY};
     double hi[3] = {-INFINITY, -INFINITY, -INFINITY};
-    for (int i = threadIdx.x; i < a.n; i += kThreads) {
+    if (t < a.n) {
         double c[3];
-        instance_rows(a, i, c);
+        instance_rows(a, t, c);
         grow(lo, hi, c);
     }
-    block_bounds(lo, hi, red, bounds);
-    int size = 1;
-    while (size < a.n) size <<= 1;
-    // each thread reads back the boxes it wrote itself
-    for (int i = threadIdx.x; i < size; i += kThreads) {
-        unsigned long long key = ~0ull;
-        if (i < a.n) {
-            double c[3];
-            centre(a.bmin, a.bmax, i, c);
-            key = (static_cast<unsigned long long>(morton_code(c, bounds))
-                   << 32) | static_cast<unsigned>(i);
-        }
-        keys[i] = key;
+    // (more than one warp: its barrier also publishes the boxes)
+    block_bounds(lo, hi, red);
+    unsigned long long key = ~0ull;
+    if (t < a.n) {
+        // the box this thread wrote itself
+        double c[3];
+        centre(a.bmin, a.bmax, t, c);
+        key = (static_cast<unsigned long long>(morton_code(c, lo, hi))
+               << 32) | static_cast<unsigned>(t);
     }
-    __syncthreads();
-    bitonic_sort(keys, size);
-    for (int t = threadIdx.x; t < lv.count[0] * kWidth; t += kThreads)
+    key = sort_keys(key, sort_buf);
+    if (threads == 32) __syncwarp();  // the other lanes' boxes
+    // (a set's leaf rows, n rounded up to kWidth, fit its threads)
+    if (t < lv.count[0] * kWidth)
         leaf_row(tlas, lv, t,
-                 t < a.n ? static_cast<int>(keys[t] & 0xffffffffu) : -1,
-                 a.bmin, a.bmax);
+                 t < a.n ? static_cast<int>(key & 0xffffffffu) : -1, a.bmin,
+                 a.bmax);
     for (int level = 1; level < lv.n; ++level) {
-        __syncthreads();
-        for (int t = threadIdx.x; t < lv.count[level] * kWidth; t += kThreads)
-            inner_row(tlas, lv, level, t);
+        block_sync();
+        for (int u = t; u < lv.count[level] * kWidth; u += threads)
+            inner_row(tlas, lv, level, u);
     }
 }
 
@@ -391,7 +428,6 @@ inst_update_kernel(const __grid_constant__ Inputs a, float* tlas,
 __global__ void __launch_bounds__(kGridThreads)
 inst_rows_kernel(const __grid_constant__ Inputs a, double* partial) {
     __shared__ double red[6 * (kGridThreads / 32)];
-    __shared__ double bounds[6];
     double lo[3] = {INFINITY, INFINITY, INFINITY};
     double hi[3] = {-INFINITY, -INFINITY, -INFINITY};
     const int i = blockIdx.x * kGridThreads + threadIdx.x;
@@ -400,9 +436,13 @@ inst_rows_kernel(const __grid_constant__ Inputs a, double* partial) {
         instance_rows(a, i, c);
         grow(lo, hi, c);
     }
-    block_bounds(lo, hi, red, bounds);
-    if (threadIdx.x < 6) partial[6 * blockIdx.x + threadIdx.x] =
-        bounds[threadIdx.x];
+    block_bounds(lo, hi, red);
+    if (threadIdx.x == 0)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            partial[6 * blockIdx.x + k] = lo[k];
+            partial[6 * blockIdx.x + 3 + k] = hi[k];
+        }
 }
 
 // instances_codes: every block reduces the blocks' bounds, then a code a
@@ -413,7 +453,6 @@ inst_codes_kernel(const float* __restrict__ bmin,
                        const double* __restrict__ partial, int blocks,
                        int* __restrict__ codes) {
     __shared__ double red[6 * (kGridThreads / 32)];
-    __shared__ double bounds[6];
     double lo[3] = {INFINITY, INFINITY, INFINITY};
     double hi[3] = {-INFINITY, -INFINITY, -INFINITY};
     for (int b = threadIdx.x; b < blocks; b += kGridThreads)
@@ -422,12 +461,12 @@ inst_codes_kernel(const float* __restrict__ bmin,
             lo[k] = fmin(lo[k], partial[6 * b + k]);
             hi[k] = fmax(hi[k], partial[6 * b + 3 + k]);
         }
-    block_bounds(lo, hi, red, bounds);
+    block_bounds(lo, hi, red);
     const int i = blockIdx.x * kGridThreads + threadIdx.x;
     if (i < n) {
         double c[3];
         centre(bmin, bmax, i, c);
-        codes[i] = static_cast<int>(morton_code(c, bounds));
+        codes[i] = static_cast<int>(morton_code(c, lo, hi));
     }
 }
 
@@ -475,6 +514,10 @@ Inputs make_inputs(const float* pos, const float* rot, const float* scale,
     return a;
 }
 
+// the sort's buffers fit the 48 KB of shared memory a launch gets by default
+static_assert(2 * sizeof(unsigned long long) * kOneBlockMax <= 48 * 1024,
+              "no shared-memory attribute needed");
+
 }  // namespace
 
 extern "C" {
@@ -493,8 +536,14 @@ int ptrt_instances_update(const float* pos, const float* rot,
     Levels lv;
     const int e = make_levels(n_levels, counts, offs, &lv);
     if (e != 0) return e;
-    inst_update_kernel<<<1, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+    int threads = 32;
+    while (threads < n) threads <<= 1;
+    // one warp reaches every key by shuffles: no shared sort buffer
+    const size_t smem = threads > 32 ? 2 * sizeof(unsigned long long) *
+                                           static_cast<size_t>(threads)
+                                     : 0;
+    inst_update_kernel<<<1, threads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
         make_inputs(pos, rot, scale, llo, lhi, n, mats, bmin, bmax), tlas,
         lv);
     return static_cast<int>(cudaGetLastError());

@@ -16,10 +16,10 @@ the device (K5 ``refit_apply``, or ``lbvh_update`` where the mesh has
 ``device_lbvh``) and refreshes its local box (``refit_root_aabb``), writes
 the instance rows, world boxes and instance tree with K11
 (``dtransform.instances_update``) into buffers allocated once (their
-addresses never change), and renders that world with the scene's frame
-body (``Scene.render_world``).  No ``UnifiedScene`` handle, no
-``Scene._rebuild_geometry``, no host tree build and no host read of the
-game state, boxes or tables inside a frame.
+addresses never change, the grid path's scratch included), and renders
+that world with the scene's frame body (``Scene.render_world``).  No
+``UnifiedScene`` handle, no ``Scene._rebuild_geometry``, no host tree build
+and no host read of the game state, boxes or tables inside a frame.
 """
 
 from __future__ import annotations
@@ -33,7 +33,9 @@ import numpy as np
 import torch
 
 from ptrt_tpu_torch.core.vec import Vec3
-from ptrt_tpu_torch.geometry.dtransform import instances_update
+from ptrt_tpu_torch.geometry.dtransform import (instances_scratch,
+                                                instances_update,
+                                                one_block_max)
 from ptrt_tpu_torch.geometry.lbvh import lbvh_update
 from ptrt_tpu_torch.geometry.refit import refit_apply, refit_root_aabb
 from ptrt_tpu_torch.geometry.scene_geom import InstanceSet, WorldGeometry
@@ -104,6 +106,11 @@ class FusedRunner:
             bb_max=torch.zeros((n, 3), **f32),
             tlas=torch.zeros((tlas_node_count(n), TLAS_WIDTH, TLAS_ROW),
                              **f32))
+        # a set past the one-block kernel's takes the grid path on the card,
+        # whose working buffers are allocated once here too
+        self._scratch = (instances_scratch(n, dev)
+                         if dev.type == "cuda" and n > one_block_max()
+                         else None)
         # always the instance walks: the world carries its instances only
         # in the merged set
         self._world = WorldGeometry(static=geom.static, instances=(),
@@ -137,7 +144,7 @@ class FusedRunner:
                 lhi[idx] = rhi
         s = self._iset
         instances_update(drv.pos, drv.rot, drv.scale, llo, lhi, s.mats,
-                         s.bb_min, s.bb_max, s.tlas)
+                         s.bb_min, s.bb_max, s.tlas, self._scratch)
         cam = drv.camera if drv.camera is not None else sc.camera
         rgb8 = sc.render_world(self._world, cam, frame_index,
                                prev_view_proj)

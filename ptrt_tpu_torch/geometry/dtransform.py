@@ -12,14 +12,17 @@ order, each rounded on its own.
 ``instances_update`` is K11: the set's whole per-frame update — the rows
 (``instance_mats``), the world boxes (``instance_world_aabbs``) and the
 instance tree over those boxes (``tlas.build_tlas``) — written in place
-into buffers the caller allocated once, so their addresses never change.
-On CUDA tensors it launches ``csrc/instances.cu``; on CPU tensors it runs
+into buffers the caller allocated once, so their addresses never change
+(the grid path's scratch too, ``instances_scratch``).  On CUDA tensors it
+launches ``csrc/instances.cu``; on CPU tensors it runs
 ``instances_update_plain``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -129,11 +132,48 @@ def instances_update_plain(pos, rot, scale, local_lo, local_hi) -> tuple:
     return mats, lo, hi, build_tlas_plain(lo, hi)
 
 
+@functools.cache
 def one_block_max() -> int:
-    """The most instances K11's one-block kernel takes; a larger set runs
-    the grid path (rows and codes over the card, ``torch.sort``, a launch a
-    tree level)."""
+    """The most instances K11's one-block kernel takes (``kOneBlockMax``,
+    read from the card's library once); a larger set runs the grid path
+    (rows and codes over the card, ``torch.sort``, a launch a tree
+    level)."""
     return kernels.get_lib().ptrt_instances_update_max()
+
+
+class InstanceScratch(NamedTuple):
+    """The grid path's working buffers for a set of ``n`` instances,
+    allocated once beside the outputs so a frame's addresses never change:
+    each block's centre bounds, the Morton codes, and ``torch.sort``'s
+    outputs (the codes sorted, the instances in Morton order)."""
+
+    partial: torch.Tensor  # (blocks, 6) float64
+    codes: torch.Tensor  # (n,) int32
+    sorted_codes: torch.Tensor  # (n,) int32
+    order: torch.Tensor  # (n,) int64
+
+
+def instances_scratch(n: int, device) -> InstanceScratch:
+    """``InstanceScratch`` for ``n`` instances on ``device``."""
+    blocks = -(-n // _GRID_THREADS)
+    i32 = dict(dtype=torch.int32, device=device)
+    return InstanceScratch(
+        partial=torch.empty((blocks, 6), dtype=torch.float64, device=device),
+        codes=torch.empty(n, **i32), sorted_codes=torch.empty(n, **i32),
+        order=torch.empty(n, dtype=torch.int64, device=device))
+
+
+def _check_scratch(scratch: InstanceScratch, n: int, dev) -> None:
+    blocks = -(-n // _GRID_THREADS)
+    for name, dtype, shape in (("partial", torch.float64, (blocks, 6)),
+                               ("codes", torch.int32, (n,)),
+                               ("sorted_codes", torch.int32, (n,)),
+                               ("order", torch.int64, (n,))):
+        t = getattr(scratch, name)
+        kernels.check_tensor(f"scratch.{name}", t, dtype, len(shape), dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"scratch.{name}: shape {tuple(t.shape)}, "
+                             f"expected {shape}")
 
 
 def _check(pos, rot, scale, local_lo, local_hi, mats, bb_min, bb_max, tlas):
@@ -163,7 +203,8 @@ def instances_update(pos: torch.Tensor, rot: torch.Tensor,
                      scale: torch.Tensor, local_lo: torch.Tensor,
                      local_hi: torch.Tensor, mats: torch.Tensor,
                      bb_min: torch.Tensor, bb_max: torch.Tensor,
-                     tlas: torch.Tensor) -> None:
+                     tlas: torch.Tensor,
+                     scratch: InstanceScratch | None = None) -> None:
     """K11: write the rows, the world boxes and the instance tree of I
     instances in place.
 
@@ -173,9 +214,12 @@ def instances_update(pos: torch.Tensor, rot: torch.Tensor,
     ``tlas`` (``tlas_node_count(I)``, ``TLAS_WIDTH``, ``TLAS_ROW``), the
     tree ``tlas.build_tlas`` builds over the boxes written.  On the card a
     set of at most ``one_block_max()`` instances takes one launch; a
-    larger one the grid path."""
+    larger one the grid path, whose buffers are ``scratch``
+    (``instances_scratch(I, device)``; allocated here when None)."""
     dev, n = _check(pos, rot, scale, local_lo, local_hi, mats, bb_min,
                     bb_max, tlas)
+    if scratch is not None:
+        _check_scratch(scratch, n, dev)
     if dev.type == "cpu":
         for buf, val in zip((mats, bb_min, bb_max, tlas),
                             instances_update_plain(pos, rot, scale, local_lo,
@@ -190,23 +234,23 @@ def instances_update(pos: torch.Tensor, rot: torch.Tensor,
     ins = [t.data_ptr() for t in (pos, rot, scale, local_lo, local_hi)]
     outs = [t.data_ptr() for t in (mats, bb_min, bb_max)]
     stream = kernels.stream_ptr(dev)
-    if n <= lib.ptrt_instances_update_max():
+    if n <= one_block_max():
         rc = lib.ptrt_instances_update(*ins, n, *outs, tlas.data_ptr(),
                                        levels, c_counts, c_offs, stream)
         kernels.launches["instances_update"] += 1
         kernels.check(rc, "instances_update")
         return
-    blocks = -(-n // _GRID_THREADS)
-    partial = torch.empty((blocks, 6), dtype=torch.float64, device=dev)
-    codes = torch.empty(n, dtype=torch.int32, device=dev)
-    rc = lib.ptrt_instances_codes(*ins, n, *outs, partial.data_ptr(),
-                                  codes.data_ptr(), stream)
+    if scratch is None:
+        scratch = instances_scratch(n, dev)
+    rc = lib.ptrt_instances_codes(*ins, n, *outs, scratch.partial.data_ptr(),
+                                  scratch.codes.data_ptr(), stream)
     kernels.launches["instances_rows"] += 1
     kernels.launches["instances_codes"] += 1
     kernels.check(rc, "instances_codes")
-    order = torch.sort(codes, stable=True).indices
+    torch.sort(scratch.codes, stable=True,
+               out=(scratch.sorted_codes, scratch.order))
     rc = lib.ptrt_instances_levels(bb_min.data_ptr(), bb_max.data_ptr(), n,
-                                   order.data_ptr(), tlas.data_ptr(), levels,
-                                   c_counts, c_offs, stream)
+                                   scratch.order.data_ptr(), tlas.data_ptr(),
+                                   levels, c_counts, c_offs, stream)
     kernels.launches["instances_level"] += levels
     kernels.check(rc, "instances_levels")

@@ -81,6 +81,27 @@ class Transform3D:
         return Transform3D(self.position, self.rotation, self.scale)
 
 
+def lerp_transform(a: Transform3D, b: Transform3D, t: float) -> Transform3D:
+    """Componentwise TRS lerp (``transform.cuh:497-511``)."""
+    l = lambda x, y: tuple(x[i] + (y[i] - x[i]) * t for i in range(3))
+    return Transform3D(l(a.position, b.position), l(a.rotation, b.rotation),
+                       l(a.scale, b.scale))
+
+
+def orbit_around(center, radius, angle, height=0.0) -> tuple:
+    """Orbit animation helper (``transform.cuh:513-524``)."""
+    return (center[0] + radius * np.cos(angle), center[1] + height,
+            center[2] + radius * np.sin(angle))
+
+
+def oscillate(base, axis, amplitude, phase) -> tuple:
+    """Oscillation helper (``transform.cuh:526-539``)."""
+    off = amplitude * np.sin(phase)
+    a = np.asarray(axis, np.float64)
+    a = a / max(np.linalg.norm(a), 1e-12)
+    return tuple(np.asarray(base) + a * off)
+
+
 @dataclass
 class AABB:
     lo: np.ndarray

@@ -27,7 +27,10 @@ import torch
 from ptrt_tpu_torch.core.vec import Vec3, clamp_vector_soft
 from ptrt_tpu_torch.render import traverse
 from ptrt_tpu_torch.render.ray import RayBatch
-from ptrt_tpu_torch.render.shade import (PathState, check_state, shade_nee,
+# the roulette floor and the throughput clamp live with the scatter stage
+from ptrt_tpu_torch.render.shade import (MAX_BOUNCE_WEIGHT,  # noqa: F401
+                                         RUSSIAN_ROULETTE_MIN_PROB, PathState,
+                                         check_state, shade_nee,
                                          shade_scatter)
 from ptrt_tpu_torch.render.sky import SkyConfig
 

@@ -177,6 +177,21 @@ def env_lighting_lit(contribution, pdf, in_shadow):
     return where(lit, contribution, 0.0)
 
 
+def sample_env_lighting(state, point: Vec3, normal: Vec3, front_face, mat,
+                        ray_dir: Vec3, sky: SkyConfig, any_hit_fn,
+                        split: bool = False, active=None):
+    """One-sample env-map NEE through the alias table: ``env_lighting_setup``,
+    the shadow walk ``any_hit_fn(origin, direction, t_max) -> bool``, then
+    ``env_lighting_lit``.  Returns (state, L, pdf, contribution) with the
+    contribution a Vec3, or a (diffuse, specular) pair when ``split``; the
+    caller does the MIS weighting, as for ``sample_direct_lighting``."""
+    state, l, pdf_sa, shadow_o, shadow_t, out = env_lighting_setup(
+        state, point, normal, front_face, mat, ray_dir, sky, split=split,
+        active=active)
+    in_shadow = any_hit_fn(shadow_o, l, shadow_t)
+    return state, l, pdf_sa, env_lighting_lit(out, pdf_sa, in_shadow)
+
+
 def sample_direct_lighting(state, point: Vec3, normal: Vec3, front_face, mat,
                            ray_dir: Vec3, lights: LightTable, n_lights: int,
                            any_hit_fn, split: bool = False, active=None):

@@ -35,6 +35,12 @@ def distribution_ggx(n: Vec3, h: Vec3, roughness) -> torch.Tensor:
     return a2 / fmax(denom, 1e-6)
 
 
+def distribution_ggx_fast(ndoth, a2) -> torch.Tensor:
+    """GGX D from a precomputed N.H and alpha^2 (no clamps)."""
+    denom = ndoth * ndoth * (a2 - 1.0) + 1.0
+    return a2 / (PI * denom * denom + 1e-6)
+
+
 def geometry_schlick_ggx(ndotv, roughness) -> torch.Tensor:
     r = roughness + 1.0
     k = (r * r) * 0.125
@@ -96,7 +102,17 @@ def schlick_dielectric(cos_theta, ior_i, ior_t) -> torch.Tensor:
     return r0 + (1.0 - r0) * f5
 
 
+def schlick_dielectric_one_ior(cos_theta, ior) -> torch.Tensor:
+    """``schlick_dielectric`` from air (ior 1)."""
+    return schlick_dielectric(cos_theta, 1.0, ior)
+
+
 def beer_lambert(absorption: Vec3, dist) -> Vec3:
     """exp(-sigma * t)."""
     c = absorption.map(lambda a: fmax(a, 0.0))
     return (-c * dist).exp()
+
+
+def log_safe(v: Vec3) -> Vec3:
+    """log of each component clamped below at 1e-12."""
+    return v.map(lambda c: torch.log(fmax(c, 1e-12)))

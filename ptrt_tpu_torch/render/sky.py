@@ -59,6 +59,12 @@ class SkyConfig:
                          use_sky=f32(1.0 if use_sky else 0.0))
 
     @staticmethod
+    def off(*, device) -> "SkyConfig":
+        """No sky: black, switched off."""
+        return SkyConfig.gradient((0.0, 0.0, 0.0), (0.0, 0.0, 0.0),
+                                  use_sky=False, device=device)
+
+    @staticmethod
     def hdri(env_map, rotation: float = 0.0, use_sky: bool = True, *,
              device) -> "SkyConfig":
         """An HDRI sky from an (H, W, 3) array, with its sampling tables."""

@@ -30,13 +30,20 @@ class Camera:
     proj: torch.Tensor
     inv_view_proj: torch.Tensor
     fov: torch.Tensor  # vertical, degrees (float32)
+    aspect: torch.Tensor  # float32, the made ones below too
+    near_clip: torch.Tensor
+    far_clip: torch.Tensor
 
     @staticmethod
     def make(lookfrom, lookat, vup=(0.0, 1.0, 0.0), vfov=60.0,
              aspect_ratio=16.0 / 9.0, aperture=0.0, focus_dist=1.0,
              znear=0.1, zfar=1000.0, *, device) -> "Camera":
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
-        v3 = lambda p: Vec3(f32(p[0]), f32(p[1]), f32(p[2]))
+        """Points and numbers from the host, or 0-d float32 tensors (and
+        Vec3s of them) on ``device``, as ``set_position`` passes."""
+        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,
+                                        device=device)
+        v3 = lambda p: (p.map(f32) if isinstance(p, Vec3)
+                        else Vec3(f32(p[0]), f32(p[1]), f32(p[2])))
         lookfrom, lookat, vup = v3(lookfrom), v3(lookat), v3(vup)
         vfov, aspect_ratio = f32(vfov), f32(aspect_ratio)
         focus_dist = f32(focus_dist)
@@ -59,7 +66,9 @@ class Camera:
         return Camera(origin=lookfrom, lower_left_corner=llc,
                       horizontal=horizontal, vertical=vertical, u=u, v=v, w=w,
                       lens_radius=f32(aperture) / 2.0, view=view, proj=proj,
-                      inv_view_proj=m4.inverse(proj @ view), fov=vfov)
+                      inv_view_proj=m4.inverse(proj @ view), fov=vfov,
+                      aspect=aspect_ratio, near_clip=f32(znear),
+                      far_clip=f32(zfar))
 
     def ray_through(self, s: float, t: float):
         """Host-side pinhole ray through viewport coords (s, t) in [0, 1]^2:
@@ -97,6 +106,38 @@ class Camera:
         spec = torch.ones(shape, dtype=torch.bool, device=d.x.device)
         return rng_state, RayBatch((self.origin + offset).broadcast_to(shape),
                                    d, spec)
+
+    # -- edits (value-semantic: each returns a new camera) ------------------
+    def set_position(self, pos) -> "Camera":
+        """Move the eye, keeping the current look-at point and focus."""
+        dev = self.origin.x.device
+        old_center = (self.lower_left_corner + self.horizontal * 0.5
+                      + self.vertical * 0.5)
+        focus = (self.origin - old_center).length()
+        lookat = self.origin - self.w * focus
+        pos = _as_vec3(pos, dev)
+        return Camera.make(pos, lookat, self.v, self.fov, self.aspect,
+                           aperture=self.lens_radius * 2.0,
+                           focus_dist=(pos - lookat).length(),
+                           znear=self.near_clip, zfar=self.far_clip,
+                           device=dev)
+
+    def look_at(self, target, vup=(0.0, 1.0, 0.0)) -> "Camera":
+        """Re-aim at a target from the current origin."""
+        dev = self.origin.x.device
+        target = _as_vec3(target, dev)
+        return Camera.make(self.origin, target, _as_vec3(vup, dev), self.fov,
+                           self.aspect, aperture=self.lens_radius * 2.0,
+                           focus_dist=(self.origin - target).length(),
+                           znear=self.near_clip, zfar=self.far_clip,
+                           device=dev)
+
+
+def _as_vec3(x, device) -> Vec3:
+    f32 = lambda c: torch.as_tensor(c, dtype=torch.float32, device=device)
+    if isinstance(x, Vec3):
+        return x.map(f32)
+    return Vec3(f32(x[0]), f32(x[1]), f32(x[2]))
 
 
 def pixel_grid(width: int, height: int, device, jitter_x=0.5, jitter_y=0.5):

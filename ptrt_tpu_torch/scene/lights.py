@@ -86,6 +86,11 @@ class LightTable:
     #           radius width height pad] — one row gather per NEE sample
     packed: torch.Tensor
 
+    @property
+    def count(self) -> int:
+        """Rows, the dummy row of an empty scene included."""
+        return int(self.packed.shape[0])
+
     @staticmethod
     def from_lights(lights: list[Light], device) -> "LightTable":
         if not lights:

@@ -98,10 +98,29 @@ class MaterialLanes:
     iridescence: torch.Tensor
     iridescence_thickness: torch.Tensor
 
+    SIMPLE_MATERIAL_THRESHOLD = 0.01
+
+    def is_simple(self) -> torch.Tensor:
+        """No transmission, coat, iridescence or metal (each below 0.01)."""
+        t = self.SIMPLE_MATERIAL_THRESHOLD
+        return ((self.transmission < t) & (self.clearcoat < t)
+                & (self.iridescence < t) & (self.metallic < t))
+
+    def is_emissive(self) -> torch.Tensor:
+        e = self.emission
+        return (e.x > 0.0) | (e.y > 0.0) | (e.z > 0.0)
+
+    def emission_luminance(self) -> torch.Tensor:
+        return self.emission.luminance()
+
 
 @dataclass(frozen=True)
 class MaterialTable:
     packed: torch.Tensor  # (M, 32) f32
+
+    @property
+    def count(self) -> int:
+        return int(self.packed.shape[0])
 
     @staticmethod
     def from_materials(mats: list[Material], device) -> "MaterialTable":
@@ -126,6 +145,12 @@ class MaterialTable:
         c1 = {name: col(15 + k) for k, name in enumerate(FIELDS_F)}
         return MaterialLanes(
             **{name: c3(3 * k) for k, name in enumerate(FIELDS_V3)}, **c1)
+
+
+def phong_shininess_to_roughness(n: float) -> float:
+    """``material_lib.cuh:132-135``."""
+    alpha = float(np.sqrt(2.0 / (max(n, 1.0) + 2.0)))
+    return float(np.clip(max(alpha, 0.02), 0.0, 1.0))
 
 
 def ior_to_f0(ior: float) -> float:

@@ -32,6 +32,7 @@ from ptrt_tpu_torch.geometry.lbvh import lbvh_update
 from ptrt_tpu_torch.geometry.mesh import Mesh
 from ptrt_tpu_torch.geometry.refit import build_refit_plan, refit_apply
 from ptrt_tpu_torch.geometry.scene_geom import assemble_geometry
+from ptrt_tpu_torch.parallel import sharding
 from ptrt_tpu_torch.render import pipeline as pl
 from ptrt_tpu_torch.render import traverse
 from ptrt_tpu_torch.render.bloom import apply_bloom, bloom_mips
@@ -496,26 +497,42 @@ class Scene:
 
     # -- rendering -----------------------------------------------------------
     def _trace(self, geom, camera, frame_index: int, rh: int, rw: int,
-               split: bool) -> pl.FrameBuffers:
+               split: bool, mesh=None) -> pl.FrameBuffers:
         """The frame's trace of ``geom`` from ``camera``: one
         ``trace_frame`` up to ``SPP_DISPATCH_MAX`` spp, else one a chunk
         (``spp_chunks``), its colour channels weighted by float32(chunk /
         spp) in the reference's order (chunk 0 multiplied, each later one
-        added), the G-buffer chunk 0's and the rays summed."""
+        added), the G-buffer chunk 0's and the rays summed.  With ``mesh``
+        (a ``parallel.sharding.PixelMesh``) each trace runs tile by tile,
+        a tile a device and stream, and is put together on the scene's
+        device: the same pixels bit for bit."""
         p = self.perf
         spp = int(p.samples_per_pixel)
         sky = self.sky()
+        tables = (geom, self._mat_table, self._light_table, sky, camera,
+                  self._blue_noise)
+
+        def trace_frame(rng_state, geom_, mats, lights, sky_, camera_, bn,
+                        samples, offset, tile=None):
+            return pl.trace_frame(
+                geom_, mats, lights, len(self.lights), sky_, camera_,
+                rng_state, frame_index + offset, rng_state.shape[1],
+                rng_state.shape[0], samples, int(p.max_bounce_depth), bn,
+                split=split, rr_enabled=bool(p.enable_russian_roulette),
+                rr_start=int(p.russian_roulette_start_bounce),
+                camera_nee=bool(p.camera_nee_fix), tile=tile)
 
         def trace(samples: int, offset: int) -> pl.FrameBuffers:
-            self._rng_state, bufs = pl.trace_frame(
-                geom, self._mat_table, self._light_table,
-                len(self.lights), sky, camera, self._rng_state,
-                frame_index + offset, rw, rh, samples,
-                int(p.max_bounce_depth), self._blue_noise, split=split,
-                rr_enabled=bool(p.enable_russian_roulette),
-                rr_start=int(p.russian_roulette_start_bounce),
-                camera_nee=bool(p.camera_nee_fix))
-            return bufs
+            if mesh is None:
+                self._rng_state, bufs = trace_frame(
+                    self._rng_state, *tables, samples, offset)
+                return bufs
+            fn = sharding.shard_mapped_trace(
+                mesh, rh, rw, lambda st, *a, tile: trace_frame(
+                    st, *a, samples, offset, tile=tile))
+            state, bufs = fn(self._rng_state, *tables)
+            self._rng_state = sharding.gather_pixels(mesh, state)
+            return sharding.gather_pixels(mesh, bufs)
 
         if spp <= SPP_DISPATCH_MAX:
             return trace(spp, 0)
@@ -537,18 +554,20 @@ class Scene:
             off += c
         return acc
 
-    def render_frame_device(self) -> torch.Tensor:
-        """One frame -> (H, W, 3) uint8 tensor on the scene's device."""
+    def render_frame_device(self, mesh=None) -> torch.Tensor:
+        """One frame -> (H, W, 3) uint8 tensor on the scene's device; with
+        ``mesh`` its trace runs over that pixel mesh (``render_world``)."""
         self._ensure_device_state()
         img = self.render_world(self._geom, self.camera, self.frame_count,
                                 self.prev_view_proj,
-                                bool(self.perf.progressive_accumulation))
+                                bool(self.perf.progressive_accumulation),
+                                mesh=mesh)
         self.frame_count += 1
         self.prev_view_proj = self.camera.get_view_proj()
         return img
 
     def render_world(self, geom, camera, frame_index: int, prev_view_proj,
-                     progressive: bool = False) -> torch.Tensor:
+                     progressive: bool = False, mesh=None) -> torch.Tensor:
         """The frame body (the reference's ``_frame_fn``): one frame of a
         given world ``geom`` (a ``SceneGeometry`` or ``WorldGeometry`` on
         the scene's device) seen by ``camera`` -> (H, W, 3) uint8 on the
@@ -559,8 +578,16 @@ class Scene:
         sets ``last_frame``; it leaves the frame count, ``prev_view_proj``
         and the scene's own geometry as they are (the caller's), and
         rebuilds no table: the materials, lights and sky must be current
-        (``_ensure_device_state``)."""
+        (``_ensure_device_state``).  ``mesh``: a pixel mesh
+        (``parallel.sharding.make_pixel_mesh``, its first device the
+        scene's) that the trace runs over, a tile a device and stream, as
+        the reference's ``_frame_fn(mesh=)``; the post stack stays whole
+        on the scene's device, and the frame is the unmeshed one bit for
+        bit."""
         p = self.perf
+        if mesh is not None and mesh.first_device != self.device:
+            raise ValueError(f"the mesh's first device {mesh.first_device} "
+                             f"is not the scene's {self.device}")
         self._ensure_rng_state()
         rh, rw = self.render_size
         denoise = bool(p.enable_denoiser)
@@ -568,7 +595,7 @@ class Scene:
                         or tuple(self._denoiser_state.depth.shape)
                         != (rh, rw)):
             self._denoiser_state = init_denoiser_state(rh, rw, self.device)
-        bufs = self._trace(geom, camera, frame_index, rh, rw, denoise)
+        bufs = self._trace(geom, camera, frame_index, rh, rw, denoise, mesh)
         self.last_frame = bufs
 
         current = bufs.color
@@ -698,9 +725,10 @@ class Scene:
         return traverse.Hit(**{f.name: first(getattr(hit, f.name))
                                for f in dataclasses.fields(hit)})
 
-    def render_frame(self) -> np.ndarray:
-        """One interactive frame -> (H, W, 3) uint8 on the host."""
-        return self.render_frame_device().cpu().numpy()
+    def render_frame(self, mesh=None) -> np.ndarray:
+        """One interactive frame -> (H, W, 3) uint8 on the host (``mesh``:
+        as ``render_world``'s)."""
+        return self.render_frame_device(mesh).cpu().numpy()
 
     def render(self, out_path: str | None = None) -> np.ndarray:
         """``render_frame``, also written to ``out_path`` as a PPM."""
