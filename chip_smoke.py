@@ -201,7 +201,21 @@ Phases (any failure raises, so the exit code is non-zero):
      parallel.dryrun.dryrun_multichip(8) on the card;
  17. the golden corpus: the eight recipes of ptrt_tpu_torch/tools/golden.py
      rendered on the card at 320x180, each at least 35 dB PSNR against its
-     reference render in tests/golden/.
+     reference render in tests/golden/;
+ 18. the one-program frame (ptrt_tpu_torch/graphs.py): every fused game
+     run of phase 15 and tycoon on a 19x19 map (1,083 instances: K11's
+     grid path and torch.sort captured), each from one start eager
+     (FusedRunner.frame, the frame index a host int) against the frame
+     captured once as a CUDA graph and replayed (the index and inputs
+     staged on the card): RGB8, game state, PCG state, denoiser history
+     and view-projection bit for bit at each of 30 frames, with the camera
+     still and moved at frame 15; frames a second and host ms a frame of
+     both loops in turns; one replay's device ms and kernels (profiler);
+     its synchronizing calls (sync debug mode and the trace: none);
+     entry() captured, three replays bit for bit three eager calls; the
+     port's bench.py at its defaults on phase 3's scene (its JSON line
+     printed), bench_presets with one timed frame a preset (all six) and
+     bench_games with 10 frames a run (three games x three presets).
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
@@ -353,6 +367,13 @@ GAME_RUNS = (("cube_slider", 640, 360, "fast", 60, None),
 # the fused cube slider on the GPU against the CPU: its size, and the least
 # share of pixels within 1 LSB (phase 9's tolerance)
 GAME_SMALL_WH, GAME_SMALL_AGREE = (224, 126), 0.99
+# phase 18, the one-program frame: the frames of each lock-step run (eager
+# against replayed), the frame the camera moves before, the tycoon set past
+# K11's one-block 1,024 instances (a 19x19 map: 1,083 slots), and the
+# frames of each bench_games run
+GRAPH_FRAMES, GRAPH_MOVE_AT = 30, 15
+GRAPH_BIG_TYCOON = ("tycoon 1083", 640, 360, "fast", GRAPH_FRAMES, 19)
+GRAPH_BENCH_GAME_FRAMES = 10
 # phase 16: the pixel meshes the balanced 1080p frame is traced over (on
 # one card, a stream a tile)
 MESH_TILES = (1, 2, 4, 8)
@@ -3297,7 +3318,8 @@ def trace_waits(fn) -> dict:
 
 
 def game_runner(name: str, w: int, h: int, preset: str, grid, dev):
-    """(scene, runner, initial state, inputs_fn) of a fused game."""
+    """(scene, runner, initial state, inputs_fn) of a fused game; ``grid``:
+    the fluid's grid or the tycoon map's side."""
     import torch
     from ptrt_tpu_torch.games import cube_slider, fluid, tycoon
 
@@ -3307,12 +3329,13 @@ def game_runner(name: str, w: int, h: int, preset: str, grid, dev):
         return (sc, cube_slider.make_runner(sc),
                 cube_slider.init_state(0, dev), cube_slider.script_inputs)
     if name.startswith("tycoon"):
-        _, sc, centers = tycoon.build_fused_scene(w, h, dev)
+        # grid: the map's side (tycoon.GRID where None)
+        _, sc, centers = tycoon.build_fused_scene(w, h, dev, grid)
         sc.set_performance_preset(preset)
         dt = torch.tensor(1.0 / 30.0, dtype=torch.float32)
-        script = tycoon.run_script(200)
+        script = tycoon.run_script(200, grid)
         return (sc, tycoon.make_runner(sc, centers),
-                tycoon.init_fused_state(device=dev),
+                tycoon.init_fused_state(device=dev, grid=grid),
                 lambda i: (*script[i], dt))
     _, sc, state = fluid.build_scene(w, h, grid, dev)
     sc.set_performance_preset(preset)
@@ -3388,11 +3411,17 @@ def check_games(dev, card, resources=None) -> dict:
     for name, w, h, preset, frames, grid in GAME_RUNS:
         sc, runner, state, inputs = game_runner(name, w, h, preset, grid, dev)
         kernels.launches.clear()
+        kernels.replays.clear()
         t0 = time.perf_counter()
         with forbid_host_updates():
             state, fps, img = runner.run(state, inputs, frames)
         run_s = time.perf_counter() - t0
-        launches = {k: v for k, v in kernels.launches.items() if v}
+        # the run's launches: the wrappers' (the eager warm-up frame, the
+        # capture's warm-up on a side stream) and the graph's replays (one
+        # a timed frame)
+        replayed = {k: v for k, v in kernels.replays.items() if v}
+        launches = dict(collections.Counter(kernels.launches)
+                        + collections.Counter(replayed))
         main_path.update(launches)
         k = frames + 1
         prev_vp = sc.camera.get_view_proj()
@@ -3425,13 +3454,15 @@ def check_games(dev, card, resources=None) -> dict:
              "k11_kernel_ms": sum(k11_us) / 1e3 if k11_us else None,
              "upscale_ms": up_ms, "upscale_launches": up_launches,
              "upscale_host_ms": up_host_ms, "sync_calls": len(syncs),
+             "replayed_launches": replayed,
              "sync_where": {k_: v for k_, v in where.items()},
              "trace": trace,
              "image_std": float(np.asarray(img, np.float32).std())}
         out["runs"][name] = r
         log(f"[games] fused {name} {w}x{h} {preset} (traced at {rw}x{rh}): "
             f"{fps:.1f} frames/s, {1e3 / fps:.2f} ms a frame on the host "
-            f"clock over {frames} frames; one profiled frame {dev_ms:.3f} "
+            f"clock over {frames} replayed frames; one profiled eager frame "
+            f"{dev_ms:.3f} "
             f"device ms in {len(kern)} launches, K11 "
             f"{r['k11_kernel_ms']} ms, upscale {up_ms} device ms in "
             f"{up_launches} launches ({up_host_ms} ms a call on the host "
@@ -3444,16 +3475,19 @@ def check_games(dev, card, resources=None) -> dict:
         # device-to-host copy and no synchronizing runtime call
         assert not syncs, (name, r["sync_where"])
         assert not trace["dtoh_copies"] and not trace["waits"], (name, trace)
-        assert launches.get("instances_update", 0) == frames + 1, launches
+        # K11 once a frame: the warm-up frame, the capture's warm-up and a
+        # replay a timed frame
+        assert launches.get("instances_update", 0) == frames + 2, launches
+        assert replayed.get("instances_update", 0) == frames, replayed
         for k_ in ("closest_hit", "instances_closest", "any_hit",
                    "instances_any", "shade_nee", "shade_scatter",
                    "tonemap_rgb8"):
             assert launches.get(k_, 0) > 0, (name, k_, launches)
         if name.startswith("fluid"):
             k5 = "morton_sort" if "lbvh" in name and grid <= 128 else None
-            assert launches.get("refit", 0) == frames + 1, launches
+            assert launches.get("refit", 0) == frames + 2, launches
             if k5:
-                assert launches.get(k5, 0) == frames + 1, launches
+                assert launches.get(k5, 0) == frames + 2, launches
         if name in ("cube_slider", "tycoon"):
             walks[name] = check_instance_walks(runner, card)
         del sc, runner, state
@@ -3487,6 +3521,218 @@ def check_games(dev, card, resources=None) -> dict:
     log(f"[games] fused cube slider {w}x{h}, 2 frames after the warm-up, GPU "
         f"vs CPU: within 1 LSB on {lsb:.4f} of pixels")
     assert lsb >= GAME_SMALL_AGREE, lsb
+    return out
+
+
+def same_tree(a, b) -> bool:
+    """Every tensor leaf of ``a`` equal to ``b``'s, bit for bit (floats
+    compared as their bits: NaNs and signed zeros too)."""
+    import torch
+    from ptrt_tpu_torch.graphs import tree_leaves
+
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+        for x, y in zip(la, lb))
+
+
+def moved_camera(sc):
+    """The scene's camera 0.4 to the side and 0.2 up, looking where it
+    looked: ``Camera.set_position``'s value-semantic move."""
+    o = sc.camera.origin
+    return sc.camera.set_position((float(o.x) + 0.4, float(o.y) + 0.2,
+                                   float(o.z)))
+
+
+def graph_lockstep(sc, runner, state, inputs, frames, move_at=None) -> dict:
+    """From one start, ``frames`` eager frames (``runner.frame``, the frame
+    index a host int) against as many replays of the runner's captured
+    graph (the index and inputs staged on the card), in turns: RGB8, game
+    state, PCG state and denoiser history must be equal bit for bit at
+    every frame.  ``move_at``: before that frame the scene's camera moves
+    (both paths see it).  Leaves the runner captured, its graph's buffers
+    one frame past the start.  Returns the frames that differed."""
+    f0 = sc.frame_count
+    camera0 = sc.camera
+    state, _, cam = runner.frame(state, inputs(0), f0, sc.prev_view_proj)
+    prev_vp = cam.get_view_proj()
+    e_rng, e_den = sc._rng_state, sc._denoiser_state
+    runner.capture(state, inputs(0), prev_vp)
+    g = runner._graph
+    bad = []
+    for i in range(1, frames + 1):
+        if i == move_at:
+            sc.camera = moved_camera(sc)
+        sc._rng_state, sc._denoiser_state = e_rng, e_den
+        state, rgb_e, cam = runner.frame(state, inputs(i), f0 + i, prev_vp)
+        prev_vp = cam.get_view_proj()
+        e_rng, e_den = sc._rng_state, sc._denoiser_state
+        rgb_g = runner.replay(inputs(i), f0 + i)
+        same = {"rgb8": same_tree(rgb_e, rgb_g),
+                "state": same_tree(state, g.st.state),
+                "rng": same_tree(e_rng, g.st.rng),
+                "denoiser": same_tree(e_den, g.st.den),
+                "prev_view_proj": same_tree(prev_vp, g.st.prev_vp)}
+        if not all(same.values()):
+            bad.append((i, [k for k, v in same.items() if not v]))
+    sc._rng_state, sc._denoiser_state = g.st.rng, g.st.den
+    sc.camera = camera0
+    return {"frames": frames, "camera_moved_at": move_at,
+            "frames_differing": bad}
+
+
+def loop_times(fn, n: int) -> dict:
+    """``n`` calls of ``fn(i)``: frames a second over the loop with the card
+    synchronized at both ends, and host ms a frame to issue them."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"fps": n / wall, "frame_ms": 1e3 * wall / n,
+            "host_ms": 1e3 * issued / n}
+
+
+def check_graphs(dev, card, full, runs=None) -> dict:
+    """Phase 18: the one-program frame.  Each fused game run (GAME_RUNS and
+    GRAPH_BIG_TYCOON: K11's grid path and torch.sort captured) eager
+    against replayed, bit for bit over GRAPH_FRAMES frames, and again with
+    the camera moved at GRAPH_MOVE_AT; frame rates eager and replayed in
+    turns; one replay's device ms and kernels (profiler) and its
+    synchronizing calls (none); entry() captured against eager calls; the
+    port's bench.py at its defaults on ``full`` (phase 3's scene),
+    bench_presets (one timed frame a preset) and bench_games.  ``runs``:
+    the game runs (all by default)."""
+    import torch
+    from ptrt_tpu_torch import bench, entry, graphs, kernels
+    from ptrt_tpu_torch.geometry.dtransform import one_block_max
+    from ptrt_tpu_torch.tools import bench_games, bench_presets, stages
+
+    out = {"runs": {}}
+    if runs is None:
+        runs = GAME_RUNS + (GRAPH_BIG_TYCOON,)
+    for name, w, h, preset, _, grid in runs:
+        sc, runner, state0, inputs = game_runner(name, w, h, preset, grid,
+                                                 dev)
+        start = (graphs.clone_tree(state0), sc.frame_count)
+        r = {"size": [w, h], "preset": preset,
+             "instances": runner.world.iset.count}
+        with forbid_host_updates():
+            for move_at in (None, GRAPH_MOVE_AT):
+                sc.frame_count = start[1]
+                sc._rng_state = sc._denoiser_state = None
+                sc._ensure_rng_state()
+                sc.prev_view_proj = sc.camera.get_view_proj()
+                r["moved" if move_at else "still"] = graph_lockstep(
+                    sc, runner, graphs.clone_tree(start[0]), inputs,
+                    GRAPH_FRAMES, move_at)
+            g = runner._graph
+            r["graph_launches"] = dict(g.launches)
+            k = GRAPH_FRAMES + 1
+            f0 = sc.frame_count + k
+            e = {"state": graphs.clone_tree(g.st.state),
+                 "prev": g.st.prev_vp.clone()}
+
+            def eager(i):
+                e["state"], _, cam = runner.frame(e["state"], inputs(k + i),
+                                                  f0 + i, e["prev"])
+                e["prev"] = cam.get_view_proj()
+
+            replay = lambda i: runner.replay(inputs(k + i), f0 + i)
+            turns = []
+            for _ in range(2):
+                turns.append({"eager": loop_times(eager, GRAPH_FRAMES),
+                              "replayed": loop_times(replay, GRAPH_FRAMES)})
+            kern = stages.profiled_kernels(lambda: replay(0),
+                                           lead_cycles=stages.SPIN_CYCLES)
+            syncs = sync_calls(lambda: replay(0))
+            trace = trace_waits(lambda: replay(0))
+        r.update(turns=turns, replay_device_ms=sum(us for _, us in kern)
+                 / 1e3, replay_profiled_launches=len(kern),
+                 sync_calls=len(syncs), trace=trace)
+        eager_fps = [t["eager"]["fps"] for t in turns]
+        graph_fps = [t["replayed"]["fps"] for t in turns]
+        log(f"[graphs] {name} {w}x{h} {preset} ({r['instances']} "
+            f"instances): eager vs replayed bit for bit over {GRAPH_FRAMES} "
+            f"frames: differing {r['still']['frames_differing']}, camera "
+            f"moved at frame {GRAPH_MOVE_AT}: differing "
+            f"{r['moved']['frames_differing']}; frames/s eager "
+            f"{[round(v, 1) for v in eager_fps]}, replayed "
+            f"{[round(v, 1) for v in graph_fps]} (in turns); host ms a frame "
+            f"eager {[round(t['eager']['host_ms'], 3) for t in turns]}, "
+            f"replayed {[round(t['replayed']['host_ms'], 3) for t in turns]};"
+            f" one replay {r['replay_device_ms']:.3f} device ms in "
+            f"{len(kern)} kernels; the graph's launches {r['graph_launches']}"
+            f"; {len(syncs)} synchronizing calls a replay, trace {trace} "
+            f"[{card}]")
+        for case in ("still", "moved"):
+            assert not r[case]["frames_differing"], (name, case, r[case])
+        assert not syncs, (name, syncs)
+        assert not trace["dtoh_copies"] and not trace["waits"], (name, trace)
+        # K11 once a replay: one launch, or past its one-block most the
+        # grid path (rows, codes, torch.sort, a launch a tree level)
+        gl = r["graph_launches"]
+        big = r["instances"] > one_block_max()
+        assert gl.get("instances_rows" if big else "instances_update") == 1, r
+        assert kern, (name, "the profiler saw no kernel of the replay")
+        # torch.sort's kernels (torch's own or CUB's), not the port's
+        # morton_sort
+        r["sort_kernels"] = sorted({
+            n_ for n_, _ in kern if "sort" in n_.lower()
+            and ("at::native" in n_ or "cub" in n_.lower())})
+        assert bool(r["sort_kernels"]) == big, (name, r["sort_kernels"])
+        out["runs"][name] = r
+        runner.release()
+        del sc, runner, state0, g, e, eager, replay
+        torch.cuda.empty_cache()
+
+    # entry(): three replays against three eager calls
+    fn, (rng, den, fidx) = entry.entry(device=dev)
+    graph = entry.capture(fn, (rng, den, fidx))
+    e_args = (rng, den)
+    g_args = (rng, den)
+    same = []
+    for i in range(3):
+        idx = torch.full((), i, dtype=torch.int32, device=dev)
+        rgb_e, *e_args = fn(*e_args, idx)
+        rgb_g, g_rng, g_den = graph(*g_args, idx)
+        same.append(same_tree((rgb_e, *e_args), (rgb_g, g_rng, g_den)))
+        g_args = (g_rng.clone(), graphs.clone_tree(g_den))
+    out["entry"] = {"replays_equal_eager": same,
+                    "launches": dict(graph.launches)}
+    log(f"[graphs] entry(): 3 captured replays equal to 3 eager calls bit "
+        f"for bit {same}; the graph's launches {dict(graph.launches)}")
+    assert all(same), same
+    del graph, fn
+
+    # the bench entry points: bench.py at its defaults on phase 3's scene
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    line = bench.bench(dev, scene=full)
+    print(json.dumps(line), flush=True)
+    out["bench"] = {"s": time.perf_counter() - t0, "line": line,
+                    "launches": dict(kernels.launches)}
+    assert line["value"] > 0 and line["extra"]["phases"]["hbm_copy_gbps"] > 0
+    t0 = time.perf_counter()
+    presets = bench_presets.main(["--frames", "1"])
+    out["bench_presets"] = {"s": time.perf_counter() - t0, "lines": presets}
+    assert [p_["preset"] for p_ in presets] == bench_presets.PRESETS
+    t0 = time.perf_counter()
+    os.environ["PTRT_GAME_FRAMES"] = str(GRAPH_BENCH_GAME_FRAMES)
+    try:
+        games = bench_games.main([])
+    finally:
+        del os.environ["PTRT_GAME_FRAMES"]
+    out["bench_games"] = {"s": time.perf_counter() - t0, "lines": games}
+    assert len(games) == 9 and all(g_["fps"] > 0 for g_ in games)
+    log(f"[graphs] bench.py {out['bench']['s']:.1f} s, bench_presets "
+        f"{out['bench_presets']['s']:.1f} s, bench_games "
+        f"{out['bench_games']['s']:.1f} s [{card}]")
     return out
 
 
@@ -4318,6 +4564,11 @@ def main() -> int:
     lap("17")
     gold = check_golden(dev, card)
 
+    # -- 18. the one-program frame: CUDA graphs, the bench entry points ------
+    lap("18")
+    graphs_out = check_graphs(dev, card, full)
+    torch.cuda.empty_cache()
+
     for k in ("shade_nee", "shade_scatter"):
         hs = hstats[k]
         hs.update(htimes[True][k][1])  # the table's line: split, bounce 1
@@ -4536,8 +4787,8 @@ def main() -> int:
          "headless": games["headless"],
          "small_gpu_vs_cpu_within_1_lsb":
              games["small_gpu_vs_cpu_within_1_lsb"],
-         # phases 16 and 17 ride on the last kernel too
-         "pixel_mesh": mesh, "golden": gold},
+         # phases 16, 17 and 18 ride on the last kernel too
+         "pixel_mesh": mesh, "golden": gold, "graphs": graphs_out},
     ]}
     # the ranking: device ms a frame that each kernel stands over its bound,
     # summed over the passes and bounces the frames really run (a bench

@@ -14,7 +14,7 @@ import os
 import numpy as np
 import torch
 
-from ptrt_tpu_torch.core.rng import mul32
+from ptrt_tpu_torch.core.rng import MASK32, mul32
 
 BLUE_NOISE_SIZE = 64
 BLUE_NOISE_CHANNELS = 2
@@ -65,25 +65,40 @@ def blue_noise_table(device) -> torch.Tensor:
     return torch.from_numpy(np.load(TABLE_PATH).astype(np.float32)).to(device)
 
 
-def next_blue_noise(table: torch.Tensor, x, y, frame: int):
-    """Blue-noise pair for pixel (x, y) at ``frame`` with the golden-ratio
-    hash Cranley-Patterson rotation.  x, y: integer tensors; frame: a
-    Python int, hashed on the host.  Returns (u, v) float32."""
-    bx = x.to(torch.int64) & (BLUE_NOISE_SIZE - 1)
-    by = y.to(torch.int64) & (BLUE_NOISE_SIZE - 1)
-    val = table[by, bx]
-    val_x, val_y = val[..., 0], val[..., 1]
-
-    h = mul32(frame & 0xFFFFFFFF, 0x9E3779B9)
+def _rotation(frame):
+    """The frame's golden-ratio hash as the (x, y) Cranley-Patterson
+    shifts, each a 24-bit integer over 2^24 (exact in float32): of a Python
+    int, Python floats hashed on the host; of an integer tensor, 0-d-shaped
+    float32 tensors hashed on its device with the same 32-bit mixer."""
+    if isinstance(frame, int):
+        h = frame & MASK32
+        cvt = float
+    else:
+        h = frame.to(torch.int64) & MASK32
+        cvt = lambda v: v.to(torch.float32)
+    h = mul32(h, 0x9E3779B9)
     h = h ^ (h >> 15)
     h = mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
     h = mul32(h, 0xC2B2AE35)
     h = h ^ (h >> 16)
-    # a 24-bit integer over 2^24: exact in float32
-    shift_x = float(h & 0xFFFFFF) / 16777216.0
+    shift_x = cvt(h & 0xFFFFFF) / 16777216.0
     h = mul32(h, 0x85EBCA6B)
-    shift_y = float(h & 0xFFFFFF) / 16777216.0
+    shift_y = cvt(h & 0xFFFFFF) / 16777216.0
+    return shift_x, shift_y
+
+
+def next_blue_noise(table: torch.Tensor, x, y, frame):
+    """Blue-noise pair for pixel (x, y) at ``frame`` with the golden-ratio
+    hash Cranley-Patterson rotation.  x, y: integer tensors; frame: a
+    Python int, hashed on the host, or an integer tensor on the table's
+    device (a frame captured into a CUDA graph reads its index there), the
+    same bits.  Returns (u, v) float32."""
+    bx = x.to(torch.int64) & (BLUE_NOISE_SIZE - 1)
+    by = y.to(torch.int64) & (BLUE_NOISE_SIZE - 1)
+    val = table[by, bx]
+    val_x, val_y = val[..., 0], val[..., 1]
+    shift_x, shift_y = _rotation(frame)
 
     u = val_x + shift_x
     v = val_y + shift_y

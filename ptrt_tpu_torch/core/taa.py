@@ -3,7 +3,8 @@
 and the R2 (plastic-constant) sequence, centered to [-0.5, 0.5] pixel
 units.  Of a Python int each returns the float32 values as Python floats
 (no device work: a frame's jitter enters it as host numbers); of an
-integer tensor, float32 tensors on its device."""
+integer tensor, float32 tensors on its device (the table made once a
+device, ``halton_table``)."""
 
 from __future__ import annotations
 
@@ -22,18 +23,32 @@ _HALTON_16 = (
 )
 
 
+_tables: dict = {}
+
+
+def halton_table(device) -> torch.Tensor:
+    """The (16, 2) float32 table on ``device``, made once a device: a
+    frame captured into a CUDA graph may copy nothing from the host."""
+    key = str(torch.device(device))
+    if key not in _tables:
+        _tables[key] = torch.tensor(_HALTON_16, dtype=torch.float32,
+                                    device=device)
+    return _tables[key]
+
+
 def taa_jitter(frame_index):
     """Centered sub-pixel jitter for an integer frame index: of a Python
     int, the float32 values as Python floats (no device work); of an
-    integer tensor, tensors."""
+    integer tensor, tensors on its device, the same float32 values (the
+    table lookup an ``index_select``: indexing with a 0-d device tensor
+    would read it back to the host)."""
     if isinstance(frame_index, int):
         h = (np.asarray(_HALTON_16[frame_index % TAA_SEQUENCE_LENGTH],
                         np.float32) - np.float32(0.5))
         return float(h[0]), float(h[1])
-    table = torch.tensor(_HALTON_16, dtype=torch.float32,
-                         device=frame_index.device)
-    h = table[torch.remainder(frame_index.to(torch.int64),
-                              TAA_SEQUENCE_LENGTH)]
+    idx = torch.remainder(frame_index.to(torch.int64), TAA_SEQUENCE_LENGTH)
+    h = halton_table(frame_index.device).index_select(
+        0, idx.reshape(-1)).reshape(*idx.shape, 2)
     return h[..., 0] - 0.5, h[..., 1] - 0.5
 
 

@@ -202,8 +202,7 @@ def base_trs(scene) -> tuple:
 
 def script_inputs(i: int) -> tuple:
     """Frame ``i``'s scripted input: (steer, dt) as 0-d float32 host
-    tensors (a host scalar in a device op is a kernel argument, not a
-    copy)."""
+    tensors (a ``FusedRunner`` stages them on the device)."""
     return (torch.tensor(np.float32(np.sin(i * 0.2))),
             torch.tensor(np.float32(DT)))
 

@@ -130,7 +130,9 @@ def derive_scene(state: FluidState) -> DerivedScene:
 
 
 def step_scalars() -> tuple:
-    """(dt, wave speed, damping) as 0-d float32 host tensors."""
+    """(dt, wave speed, damping) as 0-d float32 host tensors (a fused
+    frame's input is dt, which a ``FusedRunner`` stages on the device; the
+    other two are the step's constants)."""
     f = lambda v: torch.tensor(np.float32(v))
     return f(DT), f(WAVE_SPEED), f(DAMPING)
 

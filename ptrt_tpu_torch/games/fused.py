@@ -2,24 +2,36 @@
 no host work a frame beyond the inputs and fetching the image.
 
 Counterpart of ``ptrt_tpu/games/fused.py``, where the step, the instance
-update and the frame are one jitted XLA program.  Here they are eager
-torch and hand-written kernels, and nothing in a frame goes through the
-host: a game supplies
+update and the frame are one jitted XLA program.  Here the frame is
+hand-written kernels and torch ops, and on the card it is one program
+too: ``FusedRunner.run`` captures the frame once into a CUDA graph
+(``graphs.py``) and replays it each frame.  A game supplies
 
   * ``step_fn(state, inputs) -> state``
   * ``derive_fn(state) -> DerivedScene``
 
-on device tensors, and ``FusedRunner`` keeps the scene's static world, the
-merged instance set's tables (a copy: refits write it in place) and its
-refit plans, then each frame steps the game, refits each refilled mesh on
-the device (K5 ``refit_apply``, or ``lbvh_update`` where the mesh has
-``device_lbvh``) and refreshes its local box (``refit_root_aabb``), writes
-the instance rows, world boxes and instance tree with K11
-(``dtransform.instances_update``) into buffers allocated once (their
-addresses never change, the grid path's scratch included), and renders
-that world with the scene's frame body (``Scene.render_world``).  No
-``UnifiedScene`` handle, no ``Scene._rebuild_geometry``, no host tree build
-and no host read of the game state, boxes or tables inside a frame.
+on device tensors (``inputs``: the host's values for the frame, staged on
+the device by the runner), and ``FusedRunner`` keeps the scene's static
+world, the merged instance set's tables (a copy: refits write it in
+place) and its refit plans, then each frame steps the game, refits each
+refilled mesh on the device (K5 ``refit_apply``, or ``lbvh_update`` where
+the mesh has ``device_lbvh``) and refreshes its local box
+(``refit_root_aabb``), writes the instance rows, world boxes and instance
+tree with K11 (``dtransform.instances_update``) into buffers allocated
+once (their addresses never change, the grid path's scratch included),
+and renders that world with the scene's frame body
+(``Scene.render_world``).  No ``UnifiedScene`` handle, no
+``Scene._rebuild_geometry``, no host tree build and no host read of the
+game state, boxes or tables inside a frame.
+
+A replayed frame reads what changes from frame to frame from static
+buffers on the card: the game state, the PCG state, the denoiser history
+and the previous view-projection (the graph writes each frame's values
+back into them), the camera (copied in before a replay when the scene's
+camera is another object), and the frame index with the game's inputs
+(one non-blocking copy from pinned memory, ``graphs.HostValues``).  It is
+bit for bit the eager frame (``frame``), which stays the CPU path and the
+body that is captured.
 """
 
 from __future__ import annotations
@@ -27,11 +39,13 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
 import torch
 
+from ptrt_tpu_torch import graphs, kernels
 from ptrt_tpu_torch.core.vec import Vec3
 from ptrt_tpu_torch.geometry.dtransform import (instances_scratch,
                                                 instances_update,
@@ -115,6 +129,9 @@ class FusedRunner:
         # in the merged set
         self._world = WorldGeometry(static=geom.static, instances=(),
                                     iset=self._iset)
+        # the eager frames' staged inputs, and the captured frame
+        self._values = graphs.HostValues(dev)
+        self._graph = None
 
     @property
     def world(self) -> WorldGeometry:
@@ -122,9 +139,15 @@ class FusedRunner:
         addresses)."""
         return self._world
 
-    def frame(self, state, inputs, frame_index: int, prev_view_proj):
-        """One fused frame: (state, rgb8 (H, W, 3) uint8 on the device, the
-        frame's camera)."""
+    @property
+    def state(self):
+        """The captured graph's game state (static buffers: each replay
+        writes the frame's state back into them), or None."""
+        return None if self._graph is None else self._graph.st.state
+
+    def _body(self, state, inputs, frame_index, prev_view_proj, camera):
+        """The frame on device inputs: (state, rgb8, the frame's camera).
+        ``camera``: used where the game derives none."""
         sc = self.scene
         state = self.step_fn(state, inputs)
         drv = self.derive_fn(state)
@@ -145,10 +168,86 @@ class FusedRunner:
         s = self._iset
         instances_update(drv.pos, drv.rot, drv.scale, llo, lhi, s.mats,
                          s.bb_min, s.bb_max, s.tlas, self._scratch)
-        cam = drv.camera if drv.camera is not None else sc.camera
+        cam = drv.camera if drv.camera is not None else camera
         rgb8 = sc.render_world(self._world, cam, frame_index,
                                prev_view_proj)
         return state, rgb8, cam
+
+    def frame(self, state, inputs, frame_index: int, prev_view_proj):
+        """One eager fused frame: (state, rgb8 (H, W, 3) uint8 on the
+        device, the frame's camera).  ``inputs``: the host's values for the
+        frame (nested tuples of Python numbers and 0-d CPU tensors), which
+        the step reads staged on the device; ``frame_index`` a Python
+        int."""
+        return self._body(state, self._values.stage(inputs), frame_index,
+                          prev_view_proj, self.scene.camera)
+
+    def capture(self, state, inputs, prev_view_proj) -> None:
+        """Capture one frame into a CUDA graph (the card only; raises if the
+        capture fails).  Its static buffers start from ``state``, the
+        scene's PCG state and denoiser history, ``prev_view_proj`` and the
+        scene's camera; ``inputs`` gives the structure every frame's inputs
+        keep.  The frame is warmed up once on a side stream first, with
+        nothing written back.  Afterwards the scene's PCG state and
+        denoiser history are the graph's buffers, which each ``replay``
+        advances.  The graph's memory pool is its own."""
+        sc = self.scene
+        if sc.device.type != "cuda":
+            raise ValueError("a CUDA graph needs the scene on a CUDA device")
+        self._graph = None
+        values = graphs.HostValues(sc.device, fixed=True)
+        st = SimpleNamespace(
+            state=graphs.clone_tree(state), rng=sc._rng_state.clone(),
+            den=graphs.clone_tree(sc._denoiser_state),
+            prev_vp=prev_view_proj.clone(),
+            camera=graphs.clone_tree(sc.camera))
+        index, staged = values.stage((0, inputs))
+
+        def body(write_back: bool):
+            sc._rng_state, sc._denoiser_state = st.rng, st.den
+            new, rgb8, cam = self._body(st.state, staged, index, st.prev_vp,
+                                        st.camera)
+            if write_back:
+                graphs.copy_tree(st.state, new)
+                st.rng.copy_(sc._rng_state)
+                graphs.copy_tree(st.den, sc._denoiser_state)
+                st.prev_vp.copy_(cam.get_view_proj())
+            return rgb8
+
+        try:
+            graph, rgb8, launches = graphs.capture_frame(
+                lambda: body(True), lambda: body(False), sc.device)
+        finally:
+            sc._rng_state, sc._denoiser_state = st.rng, st.den
+        self._graph = SimpleNamespace(graph=graph, rgb8=rgb8,
+                                      launches=launches, values=values,
+                                      st=st, camera=sc.camera)
+
+    def replay(self, inputs, frame_index: int) -> torch.Tensor:
+        """One frame of the captured graph: the scene's camera copied into
+        the graph's when it is another object than last time, ``inputs``
+        and ``frame_index`` staged, one ``replay()``.  Returns the graph's
+        RGB8 output (overwritten by the next replay); the game state is
+        ``state``, the PCG state and denoiser history the scene's."""
+        g = self._graph
+        if g is None:
+            raise RuntimeError("no captured frame: call capture first")
+        cam = self.scene.camera
+        if cam is not g.camera:
+            graphs.copy_tree(g.st.camera, cam)
+            g.camera = cam
+        g.values.stage((frame_index, inputs))
+        g.graph.replay()
+        kernels.replays.update(g.launches)
+        return g.rgb8
+
+    def release(self):
+        """Drop the captured graph (and its memory pool); returns its game
+        state.  The scene keeps the graph's PCG state and denoiser history,
+        which live outside the pool."""
+        st = self._graph.st.state
+        self._graph = None
+        return st
 
     def _sync(self) -> None:
         if self.scene.device.type == "cuda":
@@ -160,20 +259,33 @@ class FusedRunner:
         frames a second, the last RGB8 as numpy).  ``inputs_fn(i)`` gives
         frame i's inputs (the one host job of the loop); ``present`` gets
         each timed frame as numpy (the loop's only read of the device, and
-        only when given)."""
+        only when given).  On the card the warm-up frame is eager, then the
+        frame is captured (``capture``) and each timed frame is one
+        ``replay``; the graph is released at the end.  On the CPU every
+        frame is ``frame``."""
         sc = self.scene
-        state, rgb8, cam = self.frame(state, inputs_fn(0), sc.frame_count,
+        inputs = inputs_fn(0)
+        state, rgb8, cam = self.frame(state, inputs, sc.frame_count,
                                       sc.prev_view_proj)
         prev_vp = cam.get_view_proj()
+        cuda = sc.device.type == "cuda"
+        if cuda:
+            self.capture(state, inputs, prev_vp)
         self._sync()
         t0 = time.perf_counter()
         for i in range(1, n_frames + 1):
-            state, rgb8, cam = self.frame(state, inputs_fn(i),
-                                          sc.frame_count + i, prev_vp)
-            prev_vp = cam.get_view_proj()
+            if cuda:
+                rgb8 = self.replay(inputs_fn(i), sc.frame_count + i)
+            else:
+                state, rgb8, cam = self.frame(state, inputs_fn(i),
+                                              sc.frame_count + i, prev_vp)
+                prev_vp = cam.get_view_proj()
             if present is not None:
                 present(rgb8.cpu().numpy())
         self._sync()
         fps = n_frames / (time.perf_counter() - t0)
+        img = rgb8.cpu().numpy()
+        if cuda:
+            state = self.release()
         sc.frame_count += n_frames + 1
-        return state, fps, rgb8.cpu().numpy()
+        return state, fps, img

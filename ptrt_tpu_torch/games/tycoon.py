@@ -140,11 +140,13 @@ class FusedTycoonState(NamedTuple):
     t: torch.Tensor
 
 
-def init_fused_state(start_money: float = 200.0,
-                     device="cuda") -> FusedTycoonState:
+def init_fused_state(start_money: float = 200.0, device="cuda",
+                     grid: int | None = None) -> FusedTycoonState:
+    """The empty ``grid`` x ``grid`` map (``GRID`` by default)."""
+    n = GRID if grid is None else grid
     return FusedTycoonState(
-        grid=torch.full((GRID, GRID), -1, dtype=torch.int32, device=device),
-        pop=torch.zeros((GRID, GRID), dtype=torch.float32, device=device),
+        grid=torch.full((n, n), -1, dtype=torch.int32, device=device),
+        pop=torch.zeros((n, n), dtype=torch.float32, device=device),
         money=_f32(start_money, device), income=_f32(0.0, device),
         t=_f32(0.0, device))
 
@@ -153,55 +155,71 @@ def init_fused_state(start_money: float = 200.0,
 ACT_NONE, ACT_PLACE, ACT_DEMOLISH = 0, 1, 2
 
 
+def _int(v, device) -> torch.Tensor:
+    return v if torch.is_tensor(v) else torch.tensor(
+        int(v), dtype=torch.int32, device=device)
+
+
+def _pick(idx: torch.Tensor, values) -> torch.Tensor:
+    """``float32(values)[idx]`` for a few host constants, chosen on the
+    device by selects (no table copied to the card); ``idx`` in range."""
+    out = torch.full(idx.shape, float(values[0]), dtype=torch.float32,
+                     device=idx.device)
+    for k, v in enumerate(values[1:], start=1):
+        out = torch.where(idx == k, float(v), out)
+    return out
+
+
 def fused_step(s: FusedTycoonState, inp) -> FusedTycoonState:
     """One tick: the economy and at most one build or demolish action, on
-    the device.  ``inp`` = (action, gx, gz, type_id, dt): the host's input,
-    the four ints Python ints and ``dt`` a 0-d float32 tensor.  The action
-    is taken on the device (whether the cell is free and the money
-    enough); the input's own tests (bounds, the clipped cell and type) are
-    host arithmetic."""
+    the device, as the reference's jitted step.  ``inp`` = (action, gx,
+    gz, type_id, dt): 0-d int32 tensors and a 0-d float32 ``dt`` on the
+    state's device (a runner stages them there; Python ints are made
+    tensors here).  The map is ``s.grid``'s size."""
     action, gx, gz, tid, dt = inp
-    action, gx, gz, tid = int(action), int(gx), int(gz), int(tid)
-    inb = 0 <= gx < GRID and 0 <= gz < GRID
-    gxc = min(max(gx, 0), GRID - 1)
-    gzc = min(max(gz, 0), GRID - 1)
-    tidc = min(max(tid, 0), len(BUILDING_TYPES) - 1)
-    cell = s.grid[gzc, gxc]
-    cost = BUILDING_TYPES[tidc][1]
-    can_place = (cell < 0) & (s.money >= cost) if (
-        action == ACT_PLACE and inb) else torch.zeros_like(cell,
-                                                           dtype=torch.bool)
-    can_demo = (cell >= 0) if (action == ACT_DEMOLISH and inb) else \
-        torch.zeros_like(cell, dtype=torch.bool)
-    grid = s.grid.clone()
-    grid[gzc, gxc] = torch.where(can_place, tidc,
-                                 torch.where(can_demo, -1, cell))
-    # the income of the cell's building (type max(cell, 0)), chosen on
-    # the device from the table's constants: no copy of the table
-    cell_income = torch.full_like(s.income, BUILDING_TYPES[0][2])
-    for t, b in enumerate(BUILDING_TYPES[1:], start=1):
-        cell_income = torch.where(cell == t, b[2], cell_income)
+    n = s.grid.shape[0]
+    dev = s.grid.device
+    action, gx, gz, tid = (_int(v, dev) for v in (action, gx, gz, tid))
+    costs = [b[1] for b in BUILDING_TYPES]
+    incomes = [b[2] for b in BUILDING_TYPES]
+    inb = (gx >= 0) & (gx < n) & (gz >= 0) & (gz < n)
+    gxc = torch.clamp(gx, 0, n - 1)
+    gzc = torch.clamp(gz, 0, n - 1)
+    tidc = torch.clamp(tid, 0, len(BUILDING_TYPES) - 1)
+    # the cell by a flat index_select and the writes by a select over the
+    # map: indexing with a 0-d device tensor would read it to the host
+    flat = (gzc * n + gxc).to(torch.int64).reshape(1)
+    cell = s.grid.reshape(-1).index_select(0, flat).reshape(())
+    at = torch.arange(n * n, device=dev).reshape(n, n) == flat
+    cost = _pick(tidc, costs)
+    can_place = ((action == ACT_PLACE) & inb & (cell < 0)
+                 & (s.money >= cost))
+    can_demo = (action == ACT_DEMOLISH) & inb & (cell >= 0)
+    grid = torch.where(at & can_place, tidc.to(torch.int32), s.grid)
+    grid = torch.where(at & can_demo, -1, grid)
     money = s.money + s.income * dt - torch.where(can_place, cost, 0.0)
     income = (s.income
-              + torch.where(can_place, BUILDING_TYPES[tidc][2], 0.0)
-              - torch.where(can_demo, cell_income, 0.0))
+              + torch.where(can_place, _pick(tidc, incomes), 0.0)
+              - torch.where(can_demo,
+                            _pick(torch.clamp(cell, min=0), incomes), 0.0))
     pop = torch.clamp(s.pop + 2.0 * dt, 0.0, 1.0)
-    pop[gzc, gxc] = torch.where(can_place, 0.0, pop[gzc, gxc])
+    pop = torch.where(at & can_place, 0.0, pop)
     return FusedTycoonState(grid=grid, pop=pop, money=money, income=income,
                             t=s.t + dt)
 
 
-def _cell_centers() -> np.ndarray:
-    gx, gz = np.meshgrid(np.arange(GRID), np.arange(GRID), indexing="xy")
-    x = (gx - (GRID - 1) / 2.0) * CELL
-    z = (gz - (GRID - 1) / 2.0) * CELL
-    return np.stack([x.reshape(-1), np.zeros(GRID * GRID),
+def _cell_centers(grid: int | None = None) -> np.ndarray:
+    n = GRID if grid is None else grid
+    gx, gz = np.meshgrid(np.arange(n), np.arange(n), indexing="xy")
+    x = (gx - (n - 1) / 2.0) * CELL
+    z = (gz - (n - 1) / 2.0) * CELL
+    return np.stack([x.reshape(-1), np.zeros(n * n),
                      z.reshape(-1)], axis=1).astype(np.float32)
 
 
 def derive_fused_scene(s: FusedTycoonState,
                        centers: torch.Tensor) -> DerivedScene:
-    """(GRID^2 x types) instance TRS from the grid: the instance of (type
+    """(grid^2 x types) instance TRS from the grid: the instance of (type
     t, cell c) shows iff grid[c] == t, with a pop-up height animation;
     hidden ones collapse to scale 1e-6 in place."""
     grid = s.grid.reshape(-1)  # (C,)
@@ -220,14 +238,17 @@ def derive_fused_scene(s: FusedTycoonState,
                         scale=torch.cat(scale_list))
 
 
-def build_fused_scene(width: int = 640, height: int = 360, device="cuda"):
-    """The scene with GRID^2 x types pre-allocated dynamic building slots
-    (type-major, as ``derive_fused_scene`` orders them): (UnifiedScene,
-    Scene on ``device``, the cell centres there)."""
+def build_fused_scene(width: int = 640, height: int = 360, device="cuda",
+                      grid: int | None = None):
+    """The scene with grid^2 x types pre-allocated dynamic building slots
+    (type-major, as ``derive_fused_scene`` orders them; ``grid`` is
+    ``GRID`` by default, the reference's map): (UnifiedScene, Scene on
+    ``device``, the cell centres there)."""
+    n = GRID if grid is None else grid
     u = _base_scene(width, height)
-    centers = _cell_centers()
+    centers = _cell_centers(n)
     for t, (name, _, _, _, mat) in enumerate(BUILDING_TYPES):
-        for c in range(GRID * GRID):
+        for c in range(n * n):
             h = u.add_cube(mat())
             h.set_name(f"slot_{name}_{c}")
             h.set_position((float(centers[c, 0]), -100.0,
@@ -237,12 +258,13 @@ def build_fused_scene(width: int = 640, height: int = 360, device="cuda"):
     return u, scene, torch.from_numpy(centers).to(scene.device)
 
 
-def run_script(n_frames: int) -> list:
+def run_script(n_frames: int, grid: int | None = None) -> list:
     """``run_fused``'s scripted input: a random placement every third
     frame (seed 7), (action, gx, gz, type) a frame."""
+    n = GRID if grid is None else grid
     rng = np.random.default_rng(7)
-    script = [(ACT_PLACE, int(rng.integers(0, GRID)),
-               int(rng.integers(0, GRID)), int(rng.integers(0, 3)))
+    script = [(ACT_PLACE, int(rng.integers(0, n)),
+               int(rng.integers(0, n)), int(rng.integers(0, 3)))
               for _ in range(n_frames + 1)]
     return [script[i] if i % 3 == 0 else (ACT_NONE, 0, 0, 0)
             for i in range(n_frames + 1)]

@@ -9,12 +9,15 @@ on the stream it is given, allocates nothing, and returns
 
 ``launches`` counts kernel launches by name.  A wrapper adds one exactly
 where it launches its kernel, so a run can show which kernels its path went
-through.
+through.  A frame captured into a CUDA graph (``graphs.py``) launches its
+kernels at each replay, with no wrapper call: its capture counts apart
+(``recorded``), and each replay adds the capture's counts to ``replays``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import os
 import shutil
@@ -38,6 +41,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIBRARY = "libptrt_kernels.so"
 
 launches: collections.Counter = collections.Counter()
+# the kernels launched by CUDA graph replays, by name
+replays: collections.Counter = collections.Counter()
+
+
+@contextlib.contextmanager
+def recorded():
+    """Count the wrappers' calls inside the block in a Counter of their own
+    (yielded), not in ``launches``: a capture into a CUDA graph records its
+    kernels and launches none."""
+    global launches
+    outer, launches = launches, collections.Counter()
+    try:
+        yield launches
+    finally:
+        launches = outer
 
 _lib = None
 

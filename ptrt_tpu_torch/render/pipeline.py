@@ -49,11 +49,13 @@ class FrameBuffers(NamedTuple):
     rays_traced: torch.Tensor  # int64 scalar (all spp)
 
 
-def camera_rays(camera, rng_state: torch.Tensor, frame_index: int,
+def camera_rays(camera, rng_state: torch.Tensor, frame_index,
                 sample: int, blue_noise_tbl: torch.Tensor, tile=None):
     """Jittered primary rays of one sample over the (H, W) pixel grid of
-    ``rng_state``, each with its own PCG sub-stream.  ``tile`` as
-    ``trace_frame``'s.  Returns (sub_state, RayBatch)."""
+    ``rng_state``, each with its own PCG sub-stream.  ``frame_index``: a
+    Python int, or a 0-d integer tensor on the state's device (the same
+    bits; a frame captured into a CUDA graph reads its index there).
+    ``tile`` as ``trace_frame``'s.  Returns (sub_state, RayBatch)."""
     dev = rng_state.device
     height, width = rng_state.shape
     ys, xs = torch.meshgrid(torch.arange(height, device=dev),
@@ -63,9 +65,10 @@ def camera_rays(camera, rng_state: torch.Tensor, frame_index: int,
         ys, xs = ys + y0, xs + x0
     else:
         full_h, full_w = height, width
-    # the frame's jitter and blue-noise rotation from the host's index: no
-    # copy to the card
-    fidx = int(frame_index) + sample
+    # the frame's jitter and blue-noise rotation: from a host index as host
+    # numbers (no copy to the card), from a device index on the card
+    fidx = (frame_index + sample if torch.is_tensor(frame_index)
+            else int(frame_index) + sample)
     jx_t, jy_t = taa_jitter(fidx)
     bx, by = next_blue_noise(blue_noise_tbl, xs, ys, fidx)
     jitter_x = jx_t + (bx - 0.5) * 0.25
@@ -78,12 +81,13 @@ def camera_rays(camera, rng_state: torch.Tensor, frame_index: int,
 
 
 def trace_frame(geom, materials, lights, n_lights: int, sky, camera,
-                rng_state: torch.Tensor, frame_index: int, width: int,
+                rng_state: torch.Tensor, frame_index, width: int,
                 height: int, spp: int, max_depth: int,
                 blue_noise_tbl: torch.Tensor, split: bool = False,
                 rr_enabled: bool = True, rr_start: int = 2,
                 camera_nee: bool = True, tile=None):
     """One frame of ``spp`` samples.  Returns (rng_state, FrameBuffers).
+    ``frame_index``: as ``camera_rays``'.
 
     ``tile``: ``(y0, x0, full_h, full_w)`` — this call renders the
     (height, width) tile whose top-left global pixel is (y0, x0) of a

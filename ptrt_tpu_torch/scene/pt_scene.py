@@ -496,7 +496,7 @@ class Scene:
         return self._sky_cache[2]
 
     # -- rendering -----------------------------------------------------------
-    def _trace(self, geom, camera, frame_index: int, rh: int, rw: int,
+    def _trace(self, geom, camera, frame_index, rh: int, rw: int,
                split: bool, mesh=None) -> pl.FrameBuffers:
         """The frame's trace of ``geom`` from ``camera``: one
         ``trace_frame`` up to ``SPP_DISPATCH_MAX`` spp, else one a chunk
@@ -566,12 +566,14 @@ class Scene:
         self.prev_view_proj = self.camera.get_view_proj()
         return img
 
-    def render_world(self, geom, camera, frame_index: int, prev_view_proj,
+    def render_world(self, geom, camera, frame_index, prev_view_proj,
                      progressive: bool = False, mesh=None) -> torch.Tensor:
         """The frame body (the reference's ``_frame_fn``): one frame of a
         given world ``geom`` (a ``SceneGeometry`` or ``WorldGeometry`` on
         the scene's device) seen by ``camera`` -> (H, W, 3) uint8 on the
-        device: the trace at frame index ``frame_index``, the progressive
+        device: the trace at frame index ``frame_index`` (a Python int,
+        or a 0-d integer tensor on the scene's device, the same bits: a
+        frame captured into a CUDA graph reads it there), the progressive
         average (with ``progressive`` and the denoiser off), motion vectors
         against ``prev_view_proj``, SVGF, bloom, the upscale and the
         tonemap.  It advances the RNG state and the denoiser history and

@@ -155,3 +155,48 @@ print(native.SOURCE.startswith(ref), any(p.startswith(ref) for p in opened))
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "False"]
+
+
+# the port's entry points that run the engine whole, and the graph capture
+_ENTRY_POINTS = ("graphs.py", "entry.py", "bench.py",
+                 os.path.join("tools", "bench_presets.py"),
+                 os.path.join("tools", "bench_games.py"))
+
+
+_IMPORT_EACH = r"""
+import importlib, json, sys
+bad = lambda: sorted(m for m in sys.modules if m == "jax"
+                     or m.startswith("jax.") or m == "ptrt_tpu"
+                     or m.startswith("ptrt_tpu."))
+out = {}
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+    out[name] = bad()
+print(json.dumps(out))
+"""
+
+
+def _module(rel: str) -> str:
+    return "ptrt_tpu_torch." + rel[:-3].replace(os.sep, ".")
+
+
+@pytest.fixture(scope="module")
+def entry_point_imports():
+    """One fresh interpreter imports the entry points one by one: the
+    forbidden modules loaded after each."""
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_EACH,
+         *[_module(r) for r in _ENTRY_POINTS]],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    import json
+
+    return json.loads(out.stdout)
+
+
+@pytest.mark.parametrize("rel", _ENTRY_POINTS)
+def test_entry_point_is_scanned_and_imports_no_jax(rel, entry_point_imports):
+    """Each is among the sources the checks above scan, and importing it
+    pulls in neither ``jax`` nor ``ptrt_tpu``."""
+    assert os.path.join(PKG, rel) in set(_sources())
+    assert entry_point_imports[_module(rel)] == []
