@@ -212,10 +212,28 @@ Phases (any failure raises, so the exit code is non-zero):
      still and moved at frame 15; frames a second and host ms a frame of
      both loops in turns; one replay's device ms and kernels (profiler);
      its synchronizing calls (sync debug mode and the trace: none);
-     entry() captured, three replays bit for bit three eager calls; the
-     port's bench.py at its defaults on phase 3's scene (its JSON line
-     printed), bench_presets with one timed frame a preset (all six) and
-     bench_games with 10 frames a run (three games x three presets).
+     entry() captured, three replays bit for bit three eager calls;
+     bench_games with 10 frames a run (three games x three presets);
+ 19. the scenes' frame programs (ptrt_tpu_torch/graphs.py Program: on the
+     card a CUDA graph per configuration, replayed every later frame): K1
+     and K2 on a device count against the host count (records bit for bit
+     on the camera, bounce-1 and shadow wavefronts, times in turns); then,
+     each from one state eager (Scene.render_world; RTScene.render_eager
+     with the glass count read to the host; trace_frame) against its
+     programs, bit for bit at every frame (RGB8, PCG state, denoiser
+     history, progressive sum and count, prev_view_proj): the bench
+     trace-only frame, balanced 1080p orbiting 0.5 degrees a frame, fast
+     with the progressive average (the camera moved at frame 15), hdri
+     balanced (an HDRI rotation at frame 10), ultra (3 frames: the chunk
+     and post programs), dynamic (animate and its K5 refits each frame, a
+     material and a light edit at frame 10, a mesh added at frame 20: a
+     new key), rt (30 frames each); for each the programs made, their
+     capture s and pool bytes, 0 synchronizing calls a frame with no edit,
+     frames a second eager and through the programs in turns, host ms to
+     issue a frame, one frame's device ms and kernels; the dynamic frame's
+     host ms split; the port's bench.py at its defaults on phase 3's
+     scene (its JSON line printed) and bench_presets at 640x360 (10 timed
+     frames a preset, one for the two ultra presets).
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
@@ -371,9 +389,20 @@ GAME_SMALL_WH, GAME_SMALL_AGREE = (224, 126), 0.99
 # against replayed), the frame the camera moves before, the tycoon set past
 # K11's one-block 1,024 instances (a 19x19 map: 1,083 slots), and the
 # frames of each bench_games run
-GRAPH_FRAMES, GRAPH_MOVE_AT = 30, 15
+GRAPH_FRAMES, GRAPH_MOVE_AT = 20, 10
 GRAPH_BIG_TYCOON = ("tycoon 1083", 640, 360, "fast", GRAPH_FRAMES, 19)
 GRAPH_BENCH_GAME_FRAMES = 10
+# phase 19, the scenes' frame programs: the frames of each lock-step run
+# (eager against the programs), of each timed turn, of the ultra run, the
+# frame an edit comes before, the frame the progressive run's camera moves
+# before, the frame the dynamic run adds a mesh before; bench_presets'
+# timed frames a preset (one for the two ultra presets)
+PROGRAM_FRAMES, PROGRAM_TURN, PROGRAM_ULTRA_FRAMES = 30, 20, 3
+PROGRAM_EDIT_AT, PROGRAM_MOVE_AT, PROGRAM_MESH_AT = 10, 15, 20
+# the hdri run puts its first camera back at this frame; the dynamic scene
+# adds and removes a mesh this many times (the programs kept stay bounded)
+PROGRAM_PUT_BACK_AT, PROGRAM_MESH_CYCLES = 25, 4
+PRESET_FRAMES = 10
 # phase 16: the pixel meshes the balanced 1080p frame is traced over (on
 # one card, a stream a tile)
 MESH_TILES = (1, 2, 4, 8)
@@ -1059,14 +1088,15 @@ def check_full_walks(full, rng, card, stats):
 def walk_info():
     """Registers, local bytes a thread and resident blocks a SM of K1 (on
     the alive plane, as the bounce loop calls it, and on a t_max plane) and
-    K2."""
+    K2, and of both on a device count (the RT frame's glass pass)."""
     import ctypes
     from ptrt_tpu_torch import kernels
 
     lib = kernels.get_lib()
     out = {}
     for k, name in enumerate(("closest_hit", "closest_hit t_max plane",
-                              "any_hit")):
+                              "any_hit", "closest_hit device count",
+                              "any_hit device count")):
         regs, local, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         kernels.check(lib.ptrt_walk_info(k, ctypes.byref(regs),
                                          ctypes.byref(local),
@@ -2130,12 +2160,12 @@ def check_many_instances(dev, card) -> dict:
         edit(sc, cubes, blob, base, 0)
         sc.render_frame()
         edit(sc, cubes, blob, base, 1)
-        kernels.launches.clear()
+        kernels.clear_counts()
         t0 = time.time()
         img = sc.render_frame()
         if d.type == "cuda":
             torch.cuda.synchronize()
-        out[name] = (sc, img, time.time() - t0, dict(kernels.launches))
+        out[name] = (sc, img, time.time() - t0, dict(kernels.counts()))
     (sc_c, img_c, s_c, _), (sc_g, img_g, s_g, launches) = out["cpu"], out["gpu"]
     n_inst = sc_g._geom.iset.count
     oid = float((sc_c.last_frame.object_id
@@ -2479,7 +2509,7 @@ def check_rt(dev, card, resources=None) -> dict:
     assert n_tris == RT_TRIS and len(sc.mesh_materials) == 17, n_tris
     sc.render_frame()  # warm-up
     torch.cuda.synchronize()
-    kernels.launches.clear()
+    kernels.clear_counts()
     frame_s = []
     for _ in range(RT_FRAMES):
         torch.cuda.synchronize()
@@ -2487,7 +2517,7 @@ def check_rt(dev, card, resources=None) -> dict:
         img = sc.render_frame_device()
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t1)
-    launches = {k: v / RT_FRAMES for k, v in kernels.launches.items()}
+    launches = {k: v / RT_FRAMES for k, v in kernels.counts().items()}
     host_ms = stages.host_ms(sc.render_frame_device, calls=RT_FRAMES)
     # behind a spin: launches right after the profiler starts may go
     # unrecorded
@@ -2952,7 +2982,7 @@ def check_app(dev, card) -> dict:
             img = sc.render_frame_device()  # the warm-up, set-up included
             torch.cuda.synchronize()
             first_ms = 1e3 * (time.perf_counter() - t0)
-            kernels.launches.clear()
+            kernels.clear_counts()
             frame_ms = []
             for _ in range(3):
                 torch.cuda.synchronize()
@@ -2960,7 +2990,7 @@ def check_app(dev, card) -> dict:
                 img = sc.render_frame_device()
                 torch.cuda.synchronize()
                 frame_ms.append(1e3 * (time.perf_counter() - t0))
-            launches = dict(kernels.launches)
+            launches = dict(kernels.counts())
             tag = f"{preset} {backend}"
             out[tag] = {"first_ms": first_ms, "frame_ms": frame_ms,
                         "launches": launches,
@@ -2983,13 +3013,13 @@ def check_app(dev, card) -> dict:
         for backend in ("pt", "rt"):
             stem = os.path.join(tmp, f"demo_{backend}")
             said = io.StringIO()
-            kernels.launches.clear()
+            kernels.clear_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(said):
                 rc = demo.main(["--backend", backend, "--frames", "3", "-w",
                                 str(W), "-h", str(H), "-o", stem])
             run_s = time.perf_counter() - t0
-            launches = dict(kernels.launches)
+            launches = dict(kernels.counts())
             img = load_ppm(stem + ".ppm")
             tag = f"demo {backend}"
             out[tag] = {"rc": rc, "s": run_s, "launches": launches,
@@ -3416,9 +3446,9 @@ def check_games(dev, card, resources=None) -> dict:
         with forbid_host_updates():
             state, fps, img = runner.run(state, inputs, frames)
         run_s = time.perf_counter() - t0
-        # the run's launches: the wrappers' (the eager warm-up frame, the
-        # capture's warm-up on a side stream) and the graph's replays (one
-        # a timed frame)
+        # the run's launches: the wrappers' (the eager warm-up frame; the
+        # capture's warm-up counts nowhere) and the graph's replays (one a
+        # timed frame)
         replayed = {k: v for k, v in kernels.replays.items() if v}
         launches = dict(collections.Counter(kernels.launches)
                         + collections.Counter(replayed))
@@ -3475,9 +3505,9 @@ def check_games(dev, card, resources=None) -> dict:
         # device-to-host copy and no synchronizing runtime call
         assert not syncs, (name, r["sync_where"])
         assert not trace["dtoh_copies"] and not trace["waits"], (name, trace)
-        # K11 once a frame: the warm-up frame, the capture's warm-up and a
-        # replay a timed frame
-        assert launches.get("instances_update", 0) == frames + 2, launches
+        # K11 once a frame: the warm-up frame and a replay a timed frame
+        # (the capture's warm-up counts nowhere)
+        assert launches.get("instances_update", 0) == frames + 1, launches
         assert replayed.get("instances_update", 0) == frames, replayed
         for k_ in ("closest_hit", "instances_closest", "any_hit",
                    "instances_any", "shade_nee", "shade_scatter",
@@ -3485,9 +3515,9 @@ def check_games(dev, card, resources=None) -> dict:
             assert launches.get(k_, 0) > 0, (name, k_, launches)
         if name.startswith("fluid"):
             k5 = "morton_sort" if "lbvh" in name and grid <= 128 else None
-            assert launches.get("refit", 0) == frames + 2, launches
+            assert launches.get("refit", 0) == frames + 1, launches
             if k5:
-                assert launches.get(k5, 0) == frames + 2, launches
+                assert launches.get(k5, 0) == frames + 1, launches
         if name in ("cube_slider", "tycoon"):
             walks[name] = check_instance_walks(runner, card)
         del sc, runner, state
@@ -3559,7 +3589,7 @@ def graph_lockstep(sc, runner, state, inputs, frames, move_at=None) -> dict:
     prev_vp = cam.get_view_proj()
     e_rng, e_den = sc._rng_state, sc._denoiser_state
     runner.capture(state, inputs(0), prev_vp)
-    g = runner._graph
+    st = runner.program.state
     bad = []
     for i in range(1, frames + 1):
         if i == move_at:
@@ -3570,13 +3600,13 @@ def graph_lockstep(sc, runner, state, inputs, frames, move_at=None) -> dict:
         e_rng, e_den = sc._rng_state, sc._denoiser_state
         rgb_g = runner.replay(inputs(i), f0 + i)
         same = {"rgb8": same_tree(rgb_e, rgb_g),
-                "state": same_tree(state, g.st.state),
-                "rng": same_tree(e_rng, g.st.rng),
-                "denoiser": same_tree(e_den, g.st.den),
-                "prev_view_proj": same_tree(prev_vp, g.st.prev_vp)}
+                "state": same_tree(state, st["state"]),
+                "rng": same_tree(e_rng, st["rng"]),
+                "denoiser": same_tree(e_den, st["den"]),
+                "prev_view_proj": same_tree(prev_vp, st["prev_vp"])}
         if not all(same.values()):
             bad.append((i, [k for k, v in same.items() if not v]))
-    sc._rng_state, sc._denoiser_state = g.st.rng, g.st.den
+    sc._rng_state, sc._denoiser_state = st["rng"], st["den"]
     sc.camera = camera0
     return {"frames": frames, "camera_moved_at": move_at,
             "frames_differing": bad}
@@ -3598,20 +3628,18 @@ def loop_times(fn, n: int) -> dict:
             "host_ms": 1e3 * issued / n}
 
 
-def check_graphs(dev, card, full, runs=None) -> dict:
+def check_graphs(dev, card, runs=None) -> dict:
     """Phase 18: the one-program frame.  Each fused game run (GAME_RUNS and
     GRAPH_BIG_TYCOON: K11's grid path and torch.sort captured) eager
     against replayed, bit for bit over GRAPH_FRAMES frames, and again with
     the camera moved at GRAPH_MOVE_AT; frame rates eager and replayed in
     turns; one replay's device ms and kernels (profiler) and its
-    synchronizing calls (none); entry() captured against eager calls; the
-    port's bench.py at its defaults on ``full`` (phase 3's scene),
-    bench_presets (one timed frame a preset) and bench_games.  ``runs``:
-    the game runs (all by default)."""
+    synchronizing calls (none); entry() captured against eager calls;
+    bench_games.  ``runs``: the game runs (all by default)."""
     import torch
-    from ptrt_tpu_torch import bench, entry, graphs, kernels
+    from ptrt_tpu_torch import entry, graphs
     from ptrt_tpu_torch.geometry.dtransform import one_block_max
-    from ptrt_tpu_torch.tools import bench_games, bench_presets, stages
+    from ptrt_tpu_torch.tools import bench_games, stages
 
     out = {"runs": {}}
     if runs is None:
@@ -3631,12 +3659,12 @@ def check_graphs(dev, card, full, runs=None) -> dict:
                 r["moved" if move_at else "still"] = graph_lockstep(
                     sc, runner, graphs.clone_tree(start[0]), inputs,
                     GRAPH_FRAMES, move_at)
-            g = runner._graph
+            g = runner.program
             r["graph_launches"] = dict(g.launches)
             k = GRAPH_FRAMES + 1
             f0 = sc.frame_count + k
-            e = {"state": graphs.clone_tree(g.st.state),
-                 "prev": g.st.prev_vp.clone()}
+            e = {"state": graphs.clone_tree(g.state["state"]),
+                 "prev": g.state["prev_vp"].clone()}
 
             def eager(i):
                 e["state"], _, cam = runner.frame(e["state"], inputs(k + i),
@@ -3710,18 +3738,7 @@ def check_graphs(dev, card, full, runs=None) -> dict:
     assert all(same), same
     del graph, fn
 
-    # the bench entry points: bench.py at its defaults on phase 3's scene
-    kernels.launches.clear()
-    t0 = time.perf_counter()
-    line = bench.bench(dev, scene=full)
-    print(json.dumps(line), flush=True)
-    out["bench"] = {"s": time.perf_counter() - t0, "line": line,
-                    "launches": dict(kernels.launches)}
-    assert line["value"] > 0 and line["extra"]["phases"]["hbm_copy_gbps"] > 0
-    t0 = time.perf_counter()
-    presets = bench_presets.main(["--frames", "1"])
-    out["bench_presets"] = {"s": time.perf_counter() - t0, "lines": presets}
-    assert [p_["preset"] for p_ in presets] == bench_presets.PRESETS
+    # bench_games (bench.py and bench_presets run in phase 19)
     t0 = time.perf_counter()
     os.environ["PTRT_GAME_FRAMES"] = str(GRAPH_BENCH_GAME_FRAMES)
     try:
@@ -3730,9 +3747,473 @@ def check_graphs(dev, card, full, runs=None) -> dict:
         del os.environ["PTRT_GAME_FRAMES"]
     out["bench_games"] = {"s": time.perf_counter() - t0, "lines": games}
     assert len(games) == 9 and all(g_["fps"] > 0 for g_ in games)
-    log(f"[graphs] bench.py {out['bench']['s']:.1f} s, bench_presets "
-        f"{out['bench_presets']['s']:.1f} s, bench_games "
-        f"{out['bench_games']['s']:.1f} s [{card}]")
+    log(f"[graphs] bench_games {out['bench_games']['s']:.1f} s [{card}]")
+    return out
+
+
+# -- 19. the scenes' frame programs -----------------------------------------------
+
+
+def scene_state(sc) -> list:
+    """What a PT frame carries to the next: PCG state, denoiser history,
+    progressive sum and count, the view-projection it was taken under,
+    ``prev_view_proj`` and the frame count."""
+    return [sc._rng_state, sc._denoiser_state, sc._accum,
+            sc._accum_view_proj, sc.prev_view_proj, sc.frame_count]
+
+
+def set_scene_state(sc, st) -> None:
+    (sc._rng_state, sc._denoiser_state, sc._accum, sc._accum_view_proj,
+     sc.prev_view_proj, sc.frame_count) = st
+
+
+def eager_frame(sc):
+    """One frame of the eager body (``Scene.render_world``), the frame
+    count and ``prev_view_proj`` advanced as ``render_frame_device``
+    advances them."""
+    sc._ensure_device_state()
+    img = sc.render_world(sc._geom, sc.camera, sc.frame_count,
+                          sc.prev_view_proj,
+                          bool(sc.perf.progressive_accumulation))
+    sc.frame_count += 1
+    sc.prev_view_proj = sc.camera.get_view_proj()
+    return img
+
+
+def program_lockstep(sc, frames: int, edit=None) -> dict:
+    """``frames`` frames of ``sc`` from one state, each eagerly and through
+    its programs (``render_frame_device``), in turns; ``edit(k)`` before
+    frame k (once: the eager frame's ``_ensure_device_state`` takes it).
+    The eager frame runs on copies of the state, so the programs keep
+    their buffers as a frame loop keeps them.  RGB8, PCG state, denoiser
+    history, progressive sum and count, ``prev_view_proj``, the frame
+    count and the last frame's colour must be equal bit for bit.  Returns
+    the frames that differed, the programs made and the kinds of those
+    kept that are new."""
+    from ptrt_tpu_torch import graphs
+
+    before, made0 = set(sc._programs), sc._programs.made
+    bad = []
+    for k in range(frames):
+        if edit is not None:
+            edit(k)
+        start = scene_state(sc)
+        set_scene_state(sc, graphs.clone_tree(start))
+        rgb_e = eager_frame(sc)
+        e, e_color = scene_state(sc), sc.last_frame.color
+        set_scene_state(sc, start)
+        rgb_p = sc.render_frame_device()
+        p = scene_state(sc)
+        same = {"rgb8": same_tree(rgb_e, rgb_p), "rng": same_tree(e[0], p[0]),
+                "denoiser": same_tree(e[1], p[1]),
+                "progressive": same_tree(e[2:4], p[2:4]),
+                "prev_view_proj": same_tree(e[4], p[4]),
+                "frame_count": e[5] == p[5],
+                "last_frame": same_tree(e_color, sc.last_frame.color)}
+        if not all(same.values()):
+            bad.append((k, [n for n, v in same.items() if not v]))
+    return {"frames": frames, "frames_differing": bad,
+            "programs_made": sc._programs.made - made0,
+            "new_kinds": [k[0] for k in sc._programs if k not in before]}
+
+
+def program_runs(sc) -> dict:
+    """The frames each program of ``sc`` has run, by key."""
+    return {k: p.runs for k, p in sc._programs.items()}
+
+
+def program_stats(sc, runs0: dict) -> list:
+    """Each program of ``sc`` that ran since ``program_runs`` gave
+    ``runs0``: its kind, capture s, pool bytes, the kernels one replay
+    launches and the frames it ran."""
+    return [{"kind": k[0] if isinstance(k[0], str) else "rt frame",
+             "capture_s": p.stats["capture_s"],
+             "pool_bytes": p.stats["pool_bytes"],
+             "launches": sum(p.launches.values()),
+             "frames": p.runs - runs0.get(k, 0)}
+            for k, p in sc._programs.items() if p.runs != runs0.get(k, 0)]
+
+
+def replay_numbers(frame, eager, card, turn_frames: int, edit=None) -> dict:
+    """A program frame's numbers: synchronizing calls of one frame with no
+    edit (sync debug mode) and the profiler's host waits; one frame's
+    device ms and kernels (profiler, behind a spin) and its kernel counts
+    (``kernels.counts``); frames a second and host ms a frame,
+    eager (``eager(i)``) against the programs (``frame(i)``), two turns of
+    ``turn_frames`` each, ``edit(i)`` before each frame of both."""
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.tools import stages
+
+    syncs = sync_calls(lambda: frame(0))
+    trace = trace_waits(lambda: frame(0))
+    kernels.clear_counts()
+    kern = stages.profiled_kernels(lambda: frame(0),
+                                   lead_cycles=stages.SPIN_CYCLES)
+    counts = dict(kernels.counts())
+    step = (lambda fn: fn) if edit is None else (
+        lambda fn: lambda i: (edit(i), fn(i))[1])
+    turns = [{"eager": loop_times(step(eager), turn_frames),
+              "replayed": loop_times(step(frame), turn_frames)}
+             for _ in range(2)]
+    return {"sync_calls": syncs, "trace": trace,
+            "device_ms": sum(us for _, us in kern) / 1e3,
+            "kernels": len(kern), "launches": counts, "turns": turns}
+
+
+def log_program_run(name, r, card) -> None:
+    t = r["turns"]
+    lock = r["lockstep"]
+    log(f"[programs] {name}: {lock['frames']} frames eager vs programs bit "
+        f"for bit, differing {lock['frames_differing']}; programs made "
+        f"{lock['programs_made']} {lock.get('new_kinds', '')} "
+        f"({r['programs']}); frames/s eager "
+        f"{[round(x['eager']['fps'], 2) for x in t]}, programs "
+        f"{[round(x['replayed']['fps'], 2) for x in t]} (in turns); host ms "
+        f"to issue a frame eager {[round(x['eager']['host_ms'], 3) for x in t]}"
+        f", programs {[round(x['replayed']['host_ms'], 3) for x in t]}; one "
+        f"frame {r['device_ms']:.3f} device ms in {r['kernels']} kernels, "
+        f"{sum(r['launches'].values())} counted; {len(r['sync_calls'])} "
+        f"synchronizing calls a frame, trace waits {r['trace']['waits']}, "
+        f"device-to-host copies {r['trace']['dtoh_copies']} [{card}]")
+
+
+def check_program_run(name, r) -> None:
+    assert not r["lockstep"]["frames_differing"], (name, r["lockstep"])
+    assert not r["sync_calls"], (name, r["sync_calls"])
+    assert not r["trace"]["dtoh_copies"] and not r["trace"]["waits"], (
+        name, r["trace"])
+    assert r["kernels"] > 0 and r["launches"], (name, "no kernel seen")
+
+
+def pt_program_run(name, sc, card, frames, edit=None, turn_edit=None,
+                   turn_frames=PROGRAM_TURN) -> dict:
+    """One phase-19 run of a PT scene: ``program_lockstep`` over
+    ``frames`` frames with ``edit``, then ``replay_numbers`` (its turns
+    with ``turn_edit``) and the stats of every program it used."""
+    runs0 = program_runs(sc)
+    lock = program_lockstep(sc, frames, edit)
+    r = replay_numbers(lambda i: sc.render_frame_device(),
+                       lambda i: eager_frame(sc), card, turn_frames,
+                       turn_edit)
+    r.update(lockstep=lock, programs=program_stats(sc, runs0))
+    log_program_run(name, r, card)
+    check_program_run(name, r)
+    return r
+
+
+def check_counted_walks(sc, card) -> dict:
+    """K1 and K2 on a device count (the RT frame's glass pass) against the
+    same walks on the host count, on the 1080p bench frame's camera,
+    bounce-1 and shadow wavefronts (``t_max`` planes): counts naming every
+    ray (scales 1 and 2) and 60% of them, the records equal bit for bit on
+    every counted ray; each timed by CUDA events in turns (host, counted,
+    counted, host) with the count naming every ray."""
+    import torch
+    from ptrt_tpu_torch.render import traverse
+    from ptrt_tpu_torch.tools.walks import wavefronts
+
+    geom, out = sc._geom, {}
+    for name, o, d, t in wavefronts(sc):
+        n = t.shape[0]
+        if name == "shadow":
+            walk = lambda **kw: (traverse.any_hit(geom, o, d, t, **kw),)
+        else:
+            walk = lambda **kw: tuple(traverse.closest_hit(geom, o, d, t,
+                                                           **kw))
+        host = walk()
+        equal = {}
+        for label, c, s in (("all", n, 1), ("all, scale 2", n // 2, 2),
+                            ("60%", int(0.6 * n), 1)):
+            cnt = torch.tensor([c], dtype=torch.int32, device=t.device)
+            m = min(n, c * s)
+            got = walk(count=cnt, count_scale=s)
+            equal[label] = same_tree([a[:m] for a in got],
+                                     [a[:m] for a in host])
+        every = torch.tensor([n], dtype=torch.int32, device=t.device)
+        ms = {"host": [], "counted": []}
+        for which in ("host", "counted", "counted", "host"):
+            kw = {} if which == "host" else {"count": every}
+            ms[which].append(cuda_ms(lambda: walk(**kw), 10))
+        kernel = "any_hit" if name == "shadow" else "closest_hit"
+        out[f"{kernel} {name}"] = {"rays": n, "equal": equal, "ms": ms}
+        log(f"[programs] {kernel} on the {name} wavefront ({n} rays, t_max "
+            f"plane): device count equal to the host count {equal}; ms host "
+            f"{[round(v, 4) for v in ms['host']]}, device count "
+            f"{[round(v, 4) for v in ms['counted']]} (in turns) [{card}]")
+        assert all(equal.values()), (name, equal)
+    return out
+
+
+def bench_program_run(sc, card) -> dict:
+    """``bench.trace_only`` (the trace-only program) against
+    ``pipeline.trace_frame`` eagerly from the same PCG state, in turns:
+    FrameBuffers and PCG state bit for bit over PROGRAM_FRAMES frames;
+    then ``replay_numbers``."""
+    from ptrt_tpu_torch import bench
+    from ptrt_tpu_torch.render import pipeline
+
+    before, made0 = set(sc._programs), sc._programs.made
+    runs0 = program_runs(sc)
+    sc._ensure_device_state()
+
+    def eager(i):
+        state, bufs = pipeline.trace_frame(
+            sc._geom, sc._mat_table, sc._light_table, len(sc.lights),
+            sc.sky(), sc.camera, sc._rng_state.clone(), 7000 + i, W, H,
+            SPP, DEPTH, sc._blue_noise)
+        return state, bufs
+
+    bad = []
+    for i in range(PROGRAM_FRAMES):
+        state, want = eager(i)
+        got = bench.trace_only(sc, 7000 + i, SPP, DEPTH)
+        if not (same_tree(got, want) and same_tree(sc._rng_state, state)):
+            bad.append(i)
+    lock = {"frames": PROGRAM_FRAMES, "frames_differing": bad,
+            "programs_made": sc._programs.made - made0,
+            "new_kinds": [k[0] for k in sc._programs if k not in before]}
+    r = replay_numbers(lambda i: bench.trace_only(sc, 8000 + i, SPP, DEPTH),
+                       eager, card, PROGRAM_TURN)
+    r.update(lockstep=lock, programs=program_stats(sc, runs0))
+    log_program_run("bench trace-only", r, card)
+    check_program_run("bench trace-only", r)
+    return r
+
+
+def rt_program_run(dev, card) -> dict:
+    """The 1080p "rt" scene: ``RTScene.render_frame_device`` (the program:
+    the glass count on the card) against ``render_eager()`` (the glass
+    count read to the host), in turns, the camera orbiting: RGB8 and the
+    glass records (``last_frame``, cut to G) bit for bit over
+    PROGRAM_FRAMES frames, the RGB8 SHA-256 of the first frame as phase
+    11's; then ``replay_numbers``."""
+    import hashlib
+
+    from ptrt_tpu_torch.app.bench_scene import build_rt_bench_scene
+
+    sc = build_rt_bench_scene(W, H, TRIS, device=dev)
+    cam0 = sc.camera
+    bad = []
+    for k in range(PROGRAM_FRAMES):
+        if k:
+            orbit(sc, k)
+        want = sc.render_eager()
+        img = sc.render_frame_device()
+        fr = sc.last_frame
+        same = (same_tree(img, want.rgb8)
+                and same_tree(fr.glass, want.glass)
+                and same_tree(fr.sec_color, want.sec_color))
+        if k == 0:
+            sha = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+        if not same:
+            bad.append(k)
+    # the first camera put back renders as itself (the program copies it
+    # in again)
+    sc.camera = cam0
+    put_back = same_tree(sc.render_frame_device(), sc.render_eager().rgb8)
+    lock = {"frames": PROGRAM_FRAMES, "frames_differing": bad,
+            "programs_made": sc._programs.made, "put_back_equal": put_back}
+    r = replay_numbers(lambda i: sc.render_frame_device(),
+                       lambda i: sc.render_eager().rgb8, card, PROGRAM_TURN)
+    r.update(lockstep=lock, programs=program_stats(sc, {}),
+             rgb8_sha256=sha)
+    log_program_run("rt", r, card)
+    check_program_run("rt", r)
+    assert sha == RT_RGB8_SHA256, sha
+    assert put_back, "the camera put back rendered another frame"
+    return r
+
+
+def bounded_programs_run(sc, card) -> dict:
+    """A dynamic mesh added and removed PROGRAM_MESH_CYCLES times, a frame
+    after each (each a new world: a program made, the old world's
+    dropped): the programs kept after each cycle (one) and the card's
+    reserved bytes (the allocator's cache emptied), which must grow by
+    less than one program's pool from the first cycle to the last."""
+    import gc
+
+    import torch
+    from ptrt_tpu_torch.scene.materials import Materials
+
+    made0, kept, reserved, pools = sc._programs.made, [], [], []
+    for i in range(PROGRAM_MESH_CYCLES):
+        cube = sc.add_cube(Materials.Silver())
+        cube.is_dynamic = True
+        cube.transform.set_position(-1.5, 0.5, 5.0 + 0.1 * i)
+        sc.render_frame_device()
+        pools += [p.stats["pool_bytes"] for p in sc._programs.values()]
+        sc.remove_mesh(cube)
+        sc.render_frame_device()
+        pools += [p.stats["pool_bytes"] for p in sc._programs.values()]
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        kept.append(len(sc._programs))
+        reserved.append(torch.cuda.memory_reserved())
+    r = {"cycles": PROGRAM_MESH_CYCLES,
+         "programs_made": sc._programs.made - made0, "kept": kept,
+         "reserved_bytes": reserved, "pool_bytes": pools,
+         "growth_bytes": reserved[-1] - reserved[0]}
+    log(f"[programs] bounded: a dynamic mesh added and removed "
+        f"{PROGRAM_MESH_CYCLES} times, a frame after each: "
+        f"{r['programs_made']} programs made, kept after each cycle {kept}, "
+        f"reserved bytes {reserved} (growth {r['growth_bytes']}), pools "
+        f"{pools} [{card}]")
+    assert r["programs_made"] == 2 * PROGRAM_MESH_CYCLES, r
+    assert kept == [1] * PROGRAM_MESH_CYCLES, r
+    assert r["growth_bytes"] < min(pools), r
+    return r
+
+
+def check_programs(dev, card, full) -> dict:
+    """Phase 19: the scenes' frame programs (``graphs.Program``).  K1 / K2
+    on a device count against the host count; each run eager against its
+    programs bit for bit (``program_lockstep``), with its synchronizing
+    calls on a frame with no edit (none), frames a second eager and
+    through the programs in turns, host ms to issue a frame, one frame's
+    device ms and kernels, the programs' capture s and pool bytes: the
+    bench trace-only frame, balanced (the camera orbiting), fast with the
+    progressive average (the camera still, moved at PROGRAM_MOVE_AT), hdri
+    balanced (an HDRI rotation at PROGRAM_EDIT_AT, its first camera put
+    back at PROGRAM_PUT_BACK_AT), ultra (the chunk and post programs,
+    PROGRAM_ULTRA_FRAMES frames), dynamic (``animate`` and its K5 refits
+    each frame, a material and a light edit at PROGRAM_EDIT_AT, a mesh
+    added at PROGRAM_MESH_AT: a new key, the old world's program dropped;
+    its host ms split into the edits, the geometry update and the issue;
+    then ``bounded_programs_run``), rt (its first camera put back); then
+    ``bench.py``'s JSON line on ``full`` (phase 3's scene) and
+    bench_presets at 640x360."""
+    import torch
+    from ptrt_tpu_torch import bench, kernels
+    from ptrt_tpu_torch.app.bench_scene import (build_dynamic_scene,
+                                                build_hdri_scene)
+    from ptrt_tpu_torch.scene.materials import Materials
+    from ptrt_tpu_torch.tools import bench_presets
+
+    out = {}
+    bench_perf(full, SPP, DEPTH)
+    orbit(full, 0)
+    out["counted_walks"] = check_counted_walks(full, card)
+    out["bench trace-only"] = bench_program_run(full, card)
+
+    balanced(full)
+    out["balanced"] = pt_program_run(
+        "balanced 1080p", full, card, PROGRAM_FRAMES,
+        edit=lambda k: orbit(full, k), turn_edit=lambda i: orbit(full, i))
+    # a camera move (set_camera: the host's numbers in one pinned copy)
+    syncs = sync_calls(lambda: orbit(full, 7))
+    trace = trace_waits(lambda: orbit(full, 8))
+    out["camera_move"] = {"sync_calls": syncs, "trace": trace}
+    log(f"[programs] a camera move (Scene.set_camera): {len(syncs)} "
+        f"synchronizing calls {syncs}, trace waits {trace['waits']}, "
+        f"device-to-host copies {trace['dtoh_copies']} [{card}]")
+    assert not syncs and not trace["waits"] and not trace["dtoh_copies"], (
+        "a camera move waits for the card", syncs, trace)
+    full.set_performance_preset("fast")
+    orbit(full, 0)
+    out["fast progressive"] = pt_program_run(
+        "fast 1080p, progressive", full, card, PROGRAM_FRAMES,
+        edit=lambda k: k == PROGRAM_MOVE_AT and orbit(full, 3))
+    bench_perf(full, SPP, DEPTH)
+    torch.cuda.empty_cache()
+
+    hdri = balanced(build_hdri_scene(W, H, target_tris=TRIS, device=dev))
+    orbit(hdri, 0)
+
+    cams = []
+
+    def hdri_edit(k):
+        orbit(hdri, k)
+        cams.append(hdri.camera)
+        if k == PROGRAM_EDIT_AT:
+            hdri.set_environment_map(hdri.env_map, hdri.env_rotation + 0.5)
+        if k == PROGRAM_PUT_BACK_AT:  # a camera held earlier, put back
+            hdri.camera = cams[0]
+
+    out["hdri balanced"] = pt_program_run(
+        "hdri balanced 1080p", hdri, card, PROGRAM_FRAMES, edit=hdri_edit,
+        turn_edit=lambda i: orbit(hdri, i))
+    hdri.set_performance_preset("ultra")
+    orbit(hdri, 0)
+    out["ultra"] = pt_program_run("ultra 1080p (chunked)", hdri, card,
+                                  PROGRAM_ULTRA_FRAMES, turn_frames=1)
+    assert out["ultra"]["lockstep"]["programs_made"] == 2
+    assert out["ultra"]["lockstep"]["new_kinds"] == ["chunk", "post"]
+    del hdri
+    torch.cuda.empty_cache()
+
+    dyn = build_dynamic_scene(W, H, target_tris=TRIS, device=dev)
+    orbit(dyn, 0)
+
+    def dyn_edit(k):
+        dyn.animate(k + 1)
+        if k == PROGRAM_EDIT_AT:
+            dyn.set_material(dyn.meshes[0], Materials.Gold())
+            dyn.lights[0].intensity *= 1.5
+            dyn.commit_light_changes()
+        if k == PROGRAM_MESH_AT:
+            cube = dyn.add_cube(Materials.Silver())
+            cube.is_dynamic = True
+            cube.transform.set_position(1.5, 0.5, 5.0)
+
+    r = pt_program_run("dynamic 1080p", dyn, card, PROGRAM_FRAMES,
+                       edit=dyn_edit,
+                       turn_edit=lambda i: dyn.animate(100 + i))
+    # the mesh added made a new key, and the old world's program went
+    assert r["lockstep"]["programs_made"] == 2, r
+    assert len(dyn._programs) == 1, list(dyn._programs)
+    split = {"edit": 0.0, "geometry": 0.0, "issue": 0.0}
+    torch.cuda.synchronize()
+    for i in range(PROGRAM_TURN):
+        t0 = time.perf_counter()
+        dyn.animate(200 + i)
+        t1 = time.perf_counter()
+        dyn._ensure_device_state()
+        t2 = time.perf_counter()
+        dyn.render_frame_device()
+        t3 = time.perf_counter()
+        split["edit"] += t1 - t0
+        split["geometry"] += t2 - t1
+        split["issue"] += t3 - t2
+    torch.cuda.synchronize()
+    r["host_split_ms"] = {k: 1e3 * v / PROGRAM_TURN for k, v in split.items()}
+    log(f"[programs] dynamic: host ms a frame split {r['host_split_ms']} "
+        f"(animate, _ensure_device_state, render_frame_device) [{card}]")
+    out["dynamic"] = r
+    out["bounded"] = bounded_programs_run(dyn, card)
+    del dyn
+    torch.cuda.empty_cache()
+
+    out["rt"] = rt_program_run(dev, card)
+    torch.cuda.empty_cache()
+
+    # the bench entry points: bench.py at its defaults on phase 3's scene
+    # (its trace-only program already made above), bench_presets at 640x360
+    kernels.clear_counts()
+    t0 = time.perf_counter()
+    line = bench.bench(dev, scene=full)
+    print(json.dumps(line), flush=True)
+    out["bench"] = {"s": time.perf_counter() - t0, "line": line,
+                    "launches": dict(kernels.counts())}
+    assert line["value"] > 0 and line["extra"]["phases"]["hbm_copy_gbps"] > 0
+    t0 = time.perf_counter()
+    sc = bench_presets.build_bench_scene(640, 360, target_tris=TRIS,
+                                         device=dev)
+    presets = []
+    for p_ in bench_presets.PRESETS:
+        line_ = bench_presets.run(sc, p_, 1 if p_.startswith("ultra")
+                                  else PRESET_FRAMES)
+        print(json.dumps(line_), flush=True)
+        presets.append(line_)
+    del sc
+    out["bench_presets"] = {"s": time.perf_counter() - t0, "lines": presets}
+    log(f"[programs] bench.py {out['bench']['s']:.1f} s "
+        f"({line['value']} Mrays/s, {line['extra']['frame_ms']} ms a "
+        f"frame); bench_presets at 640x360 {out['bench_presets']['s']:.1f} "
+        f"s, ms a frame: "
+        + ", ".join(f"{p_['preset']} {p_['frame_ms']}" for p_ in presets)
+        + f" [{card}]")
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3760,9 +4241,9 @@ def check_mesh(sc, card) -> dict:
     want = None
     for n in (None, *MESH_TILES):
         mesh = None if n is None else sharding.make_pixel_mesh(n)
-        kernels.launches.clear()
+        kernels.clear_counts()
         img = frame(mesh).cpu()
-        launches = {k: v for k, v in kernels.launches.items() if v}
+        launches = {k: v for k, v in kernels.counts().items() if v}
         got = (img, sc._rng_state.clone(), int(sc.last_frame.rays_traced))
         if want is None:
             want = got
@@ -3857,7 +4338,7 @@ def main() -> int:
                          "it from the root of a checkout")
     sys.path.insert(0, HERE)
     import ptrt_tpu_torch
-    from ptrt_tpu_torch import kernels, native
+    from ptrt_tpu_torch import graphs, kernels, native
     from ptrt_tpu_torch.app.bench_scene import (HDRI_HW, HDRI_ROTATION,
                                                 build_bench_scene,
                                                 build_hdri_scene)
@@ -3914,6 +4395,12 @@ def main() -> int:
                 f"stack {r['stack_bytes']} bytes, SASS {r['sass']}")
     sass = {k: {fn[-40:]: r["sass"].get("all") for fn, r in fns.items()}
             for k, fns in resources.items()}
+    # no trap in the walk loops: each K1 and K2 kernel, on a host count and
+    # on a device count, pairs every BSSY with a BSYNC (the warp reconverges)
+    for k in ("closest_hit", "any_hit"):
+        for fn, r in resources[k].items():
+            assert r["sass"].get("bssy", 0) == r["sass"].get("bsync", 0) > 0, (
+                fn, r["sass"])
 
     # -- 3. kernels against their plain versions -----------------------------
     lap("3")
@@ -4030,7 +4517,7 @@ def main() -> int:
     # -- 4. the bench path at full size --------------------------------------
     lap("4")
     torch.cuda.reset_peak_memory_stats()
-    kernels.launches.clear()
+    kernels.clear_counts()
     t0 = time.time()
     img = full.render_frame()
     torch.cuda.synchronize()
@@ -4043,7 +4530,7 @@ def main() -> int:
         torch.cuda.synchronize()
         frame_s.append(time.time() - t0)
         rays.append(int(full.last_frame.rays_traced))
-    launches = dict(kernels.launches)
+    launches = dict(kernels.counts())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     frame_ms = 1e3 * sum(frame_s) / len(frame_s)
     mrays = sum(rays) / sum(frame_s) / 1e6
@@ -4113,7 +4600,7 @@ def main() -> int:
     torch.cuda.synchronize()
     bal_first_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
-    kernels.launches.clear()
+    kernels.clear_counts()
     bal_s, bal_rays = [], []
     for k in range(1, BAL_FRAMES + 1):
         orbit(bal, k)
@@ -4123,7 +4610,7 @@ def main() -> int:
         torch.cuda.synchronize()
         bal_s.append(time.time() - t0)
         bal_rays.append(int(bal.last_frame.rays_traced))
-    bal_launches = dict(kernels.launches)
+    bal_launches = dict(kernels.counts())
     bal_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     bal_ms = 1e3 * sum(bal_s) / len(bal_s)
     bufs, state = bal.last_frame, bal._denoiser_state
@@ -4197,7 +4684,9 @@ def main() -> int:
 
     # -- 6. the post kernels against their plain versions, 1080p buffers -----
     lap("6")
-    state0, prev_vp = bal._denoiser_state, bal.prev_view_proj
+    # copies: the next frame advances the frame program's buffers in place
+    state0 = graphs.clone_tree(bal._denoiser_state)
+    prev_vp = bal.prev_view_proj.clone()
     orbit(bal, BAL_FRAMES + 2)
     bal.render_frame()
     post = check_post_kernels(bal, state0, prev_vp, card)
@@ -4209,7 +4698,7 @@ def main() -> int:
     orbit(hdri, 0)
     hdri.render_frame()
     torch.cuda.synchronize()
-    kernels.launches.clear()
+    kernels.clear_counts()
     hdri_s, hdri_rays = [], []
     for k in range(1, BAL_FRAMES + 1):
         orbit(hdri, k)
@@ -4219,7 +4708,7 @@ def main() -> int:
         torch.cuda.synchronize()
         hdri_s.append(time.time() - t0)
         hdri_rays.append(int(hdri.last_frame.rays_traced))
-    hdri_launches = dict(kernels.launches)
+    hdri_launches = dict(kernels.counts())
     hdri_ms = 1e3 * sum(hdri_s) / len(hdri_s)
     log(f"[hdri] {W}x{H} balanced, 1 spp depth {BAL_DEPTH}, env NEE, "
         f"{ORBIT_DEG} deg orbit per frame: frame {hdri_ms:.1f} ms (frames "
@@ -4259,19 +4748,26 @@ def main() -> int:
     assert (up.samples_per_pixel, up.max_bounce_depth,
             up.russian_roulette_start_bounce) == (128, 32, 8)
     assert up.enable_bloom and not up.enable_denoiser
-    ultra_prof = stages.frame_profile(ultra)  # the warm-up frame, profiled
+    # the first frame makes the chunk and post programs (an eager warm-up of
+    # each and its capture); the profiled and the timed frames replay them
+    t0 = time.time()
+    ultra.render_frame()
+    torch.cuda.synchronize()
+    ultra_first_s = time.time() - t0
+    ultra_prof = stages.frame_profile(ultra)
     assert ultra_prof["names"] is not None, "the profiler saw no kernels"
-    kernels.launches.clear()
+    kernels.clear_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     img = ultra.render_frame()
     torch.cuda.synchronize()
     ultra_s = time.time() - t0
-    ultra_launches = dict(kernels.launches)
+    ultra_launches = dict(kernels.counts())
     ultra_rays = int(ultra.last_frame.rays_traced)
     log(f"[ultra] {W}x{H} 128 spp depth 32, roulette from bounce 8, bloom, "
         f"the hdri scene: frame {1e3 * ultra_s:.0f} ms, {ultra_rays} rays "
-        f"({ultra_rays / ultra_s / 1e6:.1f} Mrays/s); the profiled warm-up "
+        f"({ultra_rays / ultra_s / 1e6:.1f} Mrays/s), the first (its "
+        f"programs made) {1e3 * ultra_first_s:.0f} ms; a profiled "
         f"frame: device {ultra_prof['device_ms']:.1f} ms in "
         f"{ultra_prof['launches']} kernel launches (busy share "
         f"{ultra_prof['device_ms'] / (1e3 * ultra_s):.3f}), the walks "
@@ -4452,7 +4948,7 @@ def main() -> int:
     before = (dyn.stats_world_builds, dyn.stats_blas_builds,
               dyn.stats_tlas_updates, dyn.stats_device_refits,
               dyn.stats_device_lbvh_builds)
-    kernels.launches.clear()
+    kernels.clear_counts()
     dyn_s, edit_s, dyn_rays = [], [], []
     for k in range(2, 2 + DYN_FRAMES):
         orbit(dyn, k)
@@ -4465,7 +4961,7 @@ def main() -> int:
         dyn_s.append(time.time() - t0)
         edit_s.append(t1 - t0)
         dyn_rays.append(int(dyn.last_frame.rays_traced))
-    dyn_launches = dict(kernels.launches)
+    dyn_launches = dict(kernels.counts())
     after = (dyn.stats_world_builds, dyn.stats_blas_builds,
              dyn.stats_tlas_updates, dyn.stats_device_refits,
              dyn.stats_device_lbvh_builds)
@@ -4564,10 +5060,14 @@ def main() -> int:
     lap("17")
     gold = check_golden(dev, card)
 
-    # -- 18. the one-program frame: CUDA graphs, the bench entry points ------
+    # -- 18. the one-program fused frame: CUDA graphs, bench_games ----------
     lap("18")
-    graphs_out = check_graphs(dev, card, full)
+    graphs_out = check_graphs(dev, card)
     torch.cuda.empty_cache()
+
+    # -- 19. the scenes' frame programs, the bench entry points -------------
+    lap("19")
+    programs = check_programs(dev, card, full)
 
     for k in ("shade_nee", "shade_scatter"):
         hs = hstats[k]
@@ -4595,6 +5095,9 @@ def main() -> int:
          "live_rays": walks["live"]["bounce"], **k1_bound,
          "plain_ms": walks["k1_plain_ms"], "sample_ms": walks["k1_sample_ms"],
          "plain_rays": SAMPLE_RAYS, "library_ms": None,
+         "device_count": {k: v for k, v in programs["counted_walks"].items()
+                          if k.startswith("closest_hit")},
+         "device_count_info": info["closest_hit device count"],
          "wavefront_ms": walks["live_ms"],
          "wavefront_bound_ms": {k: v["bound_ms"]
                                 for k, v in walks["live_bound"].items()},
@@ -4617,7 +5120,10 @@ def main() -> int:
          "per_ray": walks["counts"]["shadow"]["any"], **info["any_hit"],
          "env_shadow_rays": hstats["env_any_hit"],
          "launches_hdri_balanced": hdri_launches.get("any_hit", 0),
-         "launches_ultra": ultra_launches.get("any_hit", 0)},
+         "launches_ultra": ultra_launches.get("any_hit", 0),
+         "device_count": {k: v for k, v in programs["counted_walks"].items()
+                          if k.startswith("any_hit")},
+         "device_count_info": info["any_hit device count"]},
         {"name": "tonemap_rgb8", "route": "cuda", "source": src("tonemap.cu"),
          "replaces": "ptrt_tpu/render/pipeline.py:181",
          **both("tonemap_rgb8"), "max_abs_err": k6_err,
@@ -4787,8 +5293,9 @@ def main() -> int:
          "headless": games["headless"],
          "small_gpu_vs_cpu_within_1_lsb":
              games["small_gpu_vs_cpu_within_1_lsb"],
-         # phases 16, 17 and 18 ride on the last kernel too
-         "pixel_mesh": mesh, "golden": gold, "graphs": graphs_out},
+         # phases 16-19 ride on the last kernel too
+         "pixel_mesh": mesh, "golden": gold, "graphs": graphs_out,
+         "programs": programs},
     ]}
     # the ranking: device ms a frame that each kernel stands over its bound,
     # summed over the passes and bounces the frames really run (a bench

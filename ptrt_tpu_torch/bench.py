@@ -7,7 +7,10 @@ counting every traced ray (camera, bounce and NEE shadow rays, from each
 frame's ``rays_traced``), and frames a second, at the reference's
 interactive configuration: 1920x1080, 4 spp, depth 4, ~1M triangles, the
 trace-only frame (no denoiser, bloom or motion vectors), 4 timed frames
-after one warm-up frame.  ``vs_baseline`` is Mrays/s over the reference's
+after one warm-up frame.  The frame is a program kept per (spp, depth,
+camera NEE), as the reference's jitted ``_trace_only``: on the card the
+warm-up frame captures it into a CUDA graph and each timed frame (and
+each phase probe's) is one replay.  ``vs_baseline`` is Mrays/s over the reference's
 north-star target of 1000 Mrays/s.
 
     python -m ptrt_tpu_torch.bench [--device cuda|cpu]
@@ -34,11 +37,12 @@ import time
 import numpy as np
 import torch
 
-from ptrt_tpu_torch import kernels
+from ptrt_tpu_torch import graphs, kernels
 from ptrt_tpu_torch.app.bench_scene import build_bench_scene
 from ptrt_tpu_torch.app.demo import card_line
 from ptrt_tpu_torch.build import BuildError
 from ptrt_tpu_torch.render import pipeline as pl
+from ptrt_tpu_torch.scene.pt_scene import program_world
 
 BASELINE_MRAYS = 1000.0
 # (width, height, triangles) by device type; spp, depth and frames alike
@@ -65,32 +69,54 @@ def configure(sc, spp: int, depth: int) -> None:
     sc.perf.resolution_scale = 1.0
 
 
-def trace_only(sc, rng_state, frame_index, spp: int, depth: int,
+def _trace_body(n_lights: int, spp: int, depth: int, camera_nee: bool):
+    """The trace-only program's body: the trace of the staged frame index;
+    returns (FrameBuffers, the new PCG state)."""
+    def body(reads, st, values):
+        (index,) = values
+        rng = st["rng"]
+        rng, bufs = pl.trace_frame(
+            program_world(reads), reads["mats"], reads["lights"], n_lights,
+            reads["sky"], reads["camera"], rng, index, rng.shape[1],
+            rng.shape[0], spp, depth, reads["bn"], camera_nee=camera_nee)
+        return bufs, {"rng": rng}
+    return body
+
+
+def trace_only(sc, frame_index: int, spp: int, depth: int,
                camera_nee: bool = True):
-    """The reference's ``_trace_only`` frame of the scene's tables: (PCG
-    state, FrameBuffers)."""
-    rh, rw = sc.render_size
-    return pl.trace_frame(sc._geom, sc._mat_table, sc._light_table,
-                          len(sc.lights), sc.sky(), sc.camera, rng_state,
-                          frame_index, rw, rh, spp, depth, sc._blue_noise,
-                          camera_nee=camera_nee)
+    """The reference's ``_trace_only`` frame of the scene's tables (the
+    trace, no post stack) at ``frame_index``, as a program the scene keeps
+    per (spp, depth, camera_nee) and the shapes it reads and carries: on
+    the card captured at its first frame and replayed after.  Advances
+    the scene's PCG state (afterwards the program's buffer) and returns the
+    FrameBuffers (on the card the program's, which its next frame
+    overwrites)."""
+    reads = sc._frame_reads()
+    key = ("trace_only", spp, depth, camera_nee, len(sc.lights),
+           tuple(sc._rng_state.shape))
+    prog = sc._program(key, graphs.signature(reads), lambda: graphs.Program(
+        _trace_body(len(sc.lights), spp, depth, camera_nee), reads,
+        {"rng": sc._rng_state}, (0,), sc.device, edited=("set_geom",)))
+    bufs = prog.run(reads, {"rng": sc._rng_state}, (int(frame_index),))
+    sc._rng_state = prog.state["rng"]
+    return bufs
 
 
 def run_measured(sc, spp: int, depth: int, frames: int):
-    """One warm-up frame (index 0), then ``frames`` timed ones, the PCG
-    state carried: (warm-up s, timed s, each timed frame's rays).  The ray
-    counts stay on the card until the timing ends."""
+    """One warm-up frame (index 0, which makes the program), then
+    ``frames`` timed ones, the PCG state carried: (warm-up s, timed s, each
+    timed frame's rays).  The ray counts stay on the card until the timing
+    ends."""
     dev = sc.device
     t0 = time.perf_counter()
-    sc._rng_state, bufs = trace_only(sc, sc._rng_state, 0, spp, depth)
+    trace_only(sc, 0, spp, depth)
     _sync(dev)
     compile_s = time.perf_counter() - t0
     rays = []
     t0 = time.perf_counter()
     for i in range(frames):
-        sc._rng_state, bufs = trace_only(sc, sc._rng_state, i + 1, spp,
-                                         depth)
-        rays.append(bufs.rays_traced)
+        rays.append(trace_only(sc, i + 1, spp, depth).rays_traced.clone())
     _sync(dev)
     dt = time.perf_counter() - t0
     return compile_s, dt, [int(r) for r in rays]
@@ -120,7 +146,7 @@ def phase_probes(sc, depth: int) -> dict:
 
     def trace_ms(d: int, camera_nee: bool = True) -> float:
         return 1e3 * _time_fn(lambda i: trace_only(
-            sc, sc._rng_state, 1000 + i, 1, d, camera_nee), dev)
+            sc, 1000 + i, 1, d, camera_nee), dev)
 
     d1n = trace_ms(1, camera_nee=False)
     d1 = trace_ms(1)

@@ -181,15 +181,19 @@ def perspective(fov_y_rad: torch.Tensor, aspect: torch.Tensor, z_near: float,
     m = torch.zeros((4, 4), dtype=torch.float32, device=f.device)
     m[0, 0] = f / aspect
     m[1, 1] = f
-    m[2, 2] = a
-    m[2, 3] = b
-    m[3, 2] = -1.0
+    # fill_, not an item assignment: a Python number assigned to a CUDA
+    # element is copied from the host and waits for the card
+    m[2, 2].fill_(a)
+    m[2, 3].fill_(b)
+    m[3, 2].fill_(-1.0)
     return m
 
 
 def inverse(m: torch.Tensor) -> torch.Tensor:
-    """LU inverse in float32, as ``jnp.linalg.inv``."""
-    return torch.linalg.inv(m)
+    """LU inverse in float32, as ``jnp.linalg.inv`` (which returns what the
+    LU gives for a singular matrix, so nothing is checked: no read of the
+    card)."""
+    return torch.linalg.inv_ex(m)[0]
 
 
 def project_point(m: torch.Tensor, p: Vec3):

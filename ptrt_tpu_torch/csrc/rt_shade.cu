@@ -132,7 +132,8 @@ struct RtArgs {
     float* point[3];
     float* normal[3];
     uint8_t* front;
-    float* sh_o[3];            // shadow rays, light-major: ray j * n + lane
+    float* sh_o[3];            // shadow rays, light-major: ray j * m + lane
+                               //   (m the lanes taken, lanes())
     float* sh_d[3];
     float* sh_t;               // -1 where the lane missed
     const uint8_t* occluded;   // K2's answer for them (rt_shade)
@@ -151,6 +152,11 @@ struct RtArgs {
     uint8_t* rgb;              // (height, width, 3), rows flipped
     int height, width;
     const int* lut;            // rt_resolve's encode table
+    // a device count (the glass pass of a frame captured into a CUDA
+    // graph): n is the lanes' room and the first count_scale * *count are
+    // real (rt_light_rays, rt_shade); rt_resolve_glass takes *count as G
+    const int* count;
+    int count_scale;
 };
 
 namespace {
@@ -517,7 +523,8 @@ constexpr int kLobeAniso = 1, kLobeIrid = 2, kLobeSheenSss = 4, kLobeCoat = 8;
 // no registers across the light loop.
 template <bool kStaged>
 __device__ __forceinline__ V3 shade_core(const RtArgs& a, const float* r,
-                                         const float* lts, long long i) {
+                                         const float* lts, long long i,
+                                         long long n) {
     const V3 d = ld3(a.d, i);
     const V3 ng = ld3(a.normal, i);
     const V3 point = ld3(a.point, i);
@@ -541,7 +548,7 @@ __device__ __forceinline__ V3 shade_core(const RtArgs& a, const float* r,
                     mul(mul(kd_amb, tl3<kStaged>(r + kAlbedo)), ambient));
     }
     for (int j = 0; j < a.n_lights; ++j) {
-        if (a.occluded[static_cast<long long>(j) * a.n + i] != 0) continue;
+        if (a.occluded[static_cast<long long>(j) * n + i] != 0) continue;
         const float* lr = lts + static_cast<long long>(j) * a.light_width;
         const LightDir ld = light_dir<kStaged>(lr, point);
         const V3 l = ld.l;
@@ -654,11 +661,27 @@ __device__ Glass glass_terms(V3 i, V3 nf, bool entering, V3 point,
 
 // -- the kernels -----------------------------------------------------------------
 
+// The lanes a kernel takes: n, or with a device count the first
+// count_scale * *count of them (n their room).
+__device__ __forceinline__ long long lanes(const RtArgs& a) {
+    if (a.count == nullptr) return a.n;
+    const long long m =
+        static_cast<long long>(a.count_scale) * max(__ldg(a.count), 0);
+    return m < a.n ? m : a.n;
+}
+
+// G, the glass lanes: rt_glass_rays' count on the card, else the host's
+__device__ __forceinline__ long long glass_count(const RtArgs& a) {
+    return a.count == nullptr ? a.n_glass
+                              : static_cast<long long>(max(__ldg(a.count), 0));
+}
+
 __global__ void __launch_bounds__(kThreads)
 rt_light_rays_kernel(const RtArgs a) {
     const long long i = blockIdx.x * static_cast<long long>(kThreads) +
                         threadIdx.x;
-    if (i >= a.n) return;
+    const long long m = lanes(a);  // a light's shadow rays' stride
+    if (i >= m) return;
     // hit record (traverse.hit_record): a miss's normal is zero
     const int slot = a.hit_slot[i];
     const bool found = slot >= 0;
@@ -678,7 +701,7 @@ rt_light_rays_kernel(const RtArgs a) {
     const float eps = cmax(t, 1.0f) * F(1e-3);
     const V3 origin = add(point, mul(n, eps));
     for (int j = 0; j < a.n_lights; ++j) {
-        const long long k = static_cast<long long>(j) * a.n + i;
+        const long long k = static_cast<long long>(j) * m + i;
         if (!found) {
             a.sh_t[k] = -1.0f;
             continue;
@@ -695,10 +718,11 @@ rt_light_rays_kernel(const RtArgs a) {
 // kThreads * kShadeLanes neighbouring lanes: it writes the sky of its lanes
 // that missed, lists its hit lanes in shared memory in lane order and
 // shades them from the list, kThreads at a time.
-template <bool kStaged>
+template <bool kStaged, bool kCounted = false>
 __global__ void __launch_bounds__(kThreads, kShadeBlocks)
 rt_shade_kernel(const RtArgs a) {
     constexpr int kChunk = kThreads * kShadeLanes;
+    const long long n = kCounted ? lanes(a) : a.n;
     extern __shared__ float staged[];
     __shared__ int warp_hits[kWarps];
     __shared__ int list[kChunk];
@@ -721,13 +745,13 @@ rt_shade_kernel(const RtArgs a) {
 #pragma unroll
     for (int k = 0; k < kShadeLanes; ++k) {
         const long long i = base + k * kThreads + threadIdx.x;
-        hit[k] = i < a.n && a.hit[i] != 0;
+        hit[k] = i < n && a.hit[i] != 0;
     }
     int n_hit = 0;
 #pragma unroll
     for (int k = 0; k < kShadeLanes; ++k) {
         const int j = k * kThreads + threadIdx.x;
-        if (!hit[k] && base + j < a.n)
+        if (!hit[k] && base + j < n)
             st3(a.color, base + j, sky(a, ld3(a.d, base + j)));
         const unsigned ballot = __ballot_sync(0xffffffffu, hit[k]);
         if (k > 0) __syncthreads();  // the round before has read warp_hits
@@ -746,7 +770,8 @@ rt_shade_kernel(const RtArgs a) {
     for (int k = threadIdx.x; k < n_hit; k += kThreads) {
         const long long i = base + list[k];
         st3(a.color, i,
-            shade_core<kStaged>(a, mat_row(a, mats, a.hit_mesh[i]), lts, i));
+            shade_core<kStaged>(a, mat_row(a, mats, a.hit_mesh[i]), lts, i,
+                                n));
     }
 }
 
@@ -903,11 +928,12 @@ __device__ __forceinline__ uint32_t resolve_byte(float c, const int* lut) {
 // the reflection shade (at p), Beer-Lambert over the refraction ray's t and
 // the transmitted shade (at G + p)
 __device__ __forceinline__ V3 glass_color(const RtArgs& a, long long i,
-                                          long long p, V3 c) {
+                                          long long p, long long n_glass,
+                                          V3 c) {
     const float* r = mat_row(a, a.mat, a.hit_mesh[i]);
     const Glass g = glass_terms<false>(ld3(a.d, i), ld3(a.normal, i),
                                        a.front[i] != 0, v3(0.0f), r);
-    const long long k2 = a.n_glass + p;
+    const long long k2 = n_glass + p;
     const float thickness = a.sec_slot[k2] >= 0 ? a.sec_t[k2] : 1.0f;
     const V3 alb{clamp01(clamp01(__ldg(r + kAlbedo))),
                  clamp01(clamp01(__ldg(r + kAlbedo + 1))),
@@ -982,9 +1008,10 @@ __global__ void __launch_bounds__(kThreads)
 rt_resolve_glass_kernel(const RtArgs a) {
     const long long p = blockIdx.x * static_cast<long long>(kThreads) +
                         threadIdx.x;
-    if (p >= a.n_glass) return;
+    const long long n_glass = glass_count(a);
+    if (p >= n_glass) return;
     const int i = __ldg(a.lanes + p);
-    const V3 c = glass_color(a, i, p, ld3(a.color, i));
+    const V3 c = glass_color(a, i, p, n_glass, ld3(a.color, i));
     const unsigned y = static_cast<unsigned>(i) /
                        static_cast<unsigned>(a.width);
     const unsigned x = static_cast<unsigned>(i) - y * a.width;
@@ -1080,8 +1107,13 @@ extern "C" int ptrt_rt_shade(const RtArgs* args, void* stream) {
     const unsigned blocks =
         static_cast<unsigned>((args->n + kChunk - 1) / kChunk);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (staged)
+    const bool counted = args->count != nullptr;
+    if (staged && counted)
+        rt_shade_kernel<true, true><<<blocks, kThreads, bytes, s>>>(*args);
+    else if (staged)
         rt_shade_kernel<true><<<blocks, kThreads, bytes, s>>>(*args);
+    else if (counted)
+        rt_shade_kernel<false, true><<<blocks, kThreads, 0, s>>>(*args);
     else
         rt_shade_kernel<false><<<blocks, kThreads, 0, s>>>(*args);
     return static_cast<int>(cudaGetLastError());
@@ -1102,9 +1134,9 @@ extern "C" int ptrt_rt_glass_rays(const RtArgs* args, void* stream) {
 }
 
 // rt_resolve: the encode pass over every pixel, then, with glass lanes
-// (n_glass > 0: lanes and the sec_* planes set), rt_resolve_glass over
-// them.  The vector path needs the width a multiple of 4, 16-byte aligned
-// colour planes and a 4-byte aligned image.
+// (n_glass > 0, or a device count: lanes and the sec_* planes set),
+// rt_resolve_glass over them.  The vector path needs the width a multiple
+// of 4, 16-byte aligned colour planes and a 4-byte aligned image.
 extern "C" int ptrt_rt_resolve(const RtArgs* args, void* stream) {
     const RtArgs& a = *args;
     if (a.n <= 0) return static_cast<int>(cudaGetLastError());
@@ -1122,11 +1154,13 @@ extern "C" int ptrt_rt_resolve(const RtArgs* args, void* stream) {
         rt_resolve_kernel<true><<<grid, kResolveThreads, 0, s>>>(a);
     else
         rt_resolve_kernel<false><<<grid, kResolveThreads, 0, s>>>(a);
-    if (a.n_glass > 0) {
+    // with a device count G is read on the card: a thread a lane's room
+    const long long room = a.count != nullptr ? a.n : a.n_glass;
+    if (room > 0) {
         const cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return static_cast<int>(e);
         const unsigned blocks =
-            static_cast<unsigned>((a.n_glass + kThreads - 1) / kThreads);
+            static_cast<unsigned>((room + kThreads - 1) / kThreads);
         rt_resolve_glass_kernel<<<blocks, kThreads, 0, s>>>(a);
     }
     return static_cast<int>(cudaGetLastError());

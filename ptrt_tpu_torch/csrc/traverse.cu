@@ -43,7 +43,15 @@
 //    give up reconverging the warp each node (2.2-2.6x slower on an H100).
 //    Its first entries in shared memory measured no faster than the
 //    local-memory stack, which L1 holds; nor did leaf rows read as float4;
-//  * leaves tested as soon as their box is hit (t shrinks early).
+//  * leaves tested as soon as their box is hit (t shrinks early);
+//  * a device count (the counted instantiations, the RT frame's glass
+//    pass): ``n`` is the rays' capacity and a previous kernel wrote how
+//    many of them are real (``count_scale * *count``, the glass pass's
+//    2G rays or its lights' 2G shadow rays each).  Each warp reads the
+//    count once, before its first fetch, and stops at the lesser, so a
+//    frame captured into a CUDA graph sizes the pass on the card: no
+//    read to the host, and a pass with none does nothing.  The host-count
+//    instantiations are the same code with the limit n.
 //
 // Semantics match the reference bit for bit where the arithmetic allows:
 // _safe_inv's signed 1e-12, slab test t_enter = max(0, ..) <= t_exit =
@@ -85,7 +93,8 @@ struct Ray {
 // plane or an alive plane (exactly one is non-null) and writes t, u, v,
 // slot, mesh; K2 takes t_max and writes one byte a ray.  ``next_ray`` is
 // the work counter (zero at launch); ``counts`` (counting walks only)
-// receives the nodes visited and triangles tested.
+// receives the nodes visited and triangles tested; ``count`` (counted
+// walks only) holds the real rays' number over ``count_scale``.
 struct WalkArgs {
     const float* __restrict__ nodes;
     const float* __restrict__ tris;
@@ -106,6 +115,8 @@ struct WalkArgs {
     unsigned* next_ray;
     unsigned long long* counts;
     int n_nodes, n_blocks, n;
+    const int* count;
+    int count_scale;
 };
 
 __device__ __forceinline__ float safe_inv(float c) {
@@ -286,17 +297,25 @@ __device__ bool walk(const float* __restrict__ nodes, int n_nodes,
 // The persistent warps: each warp takes the next 32 ray indices with one
 // atomicAdd, walks them one a lane, and writes every answer once, at its
 // ray's own index, until the rays are gone.
-template <bool kAny, bool kOrdered, bool kCount, bool kLive = false>
+// kCounted: the rays are the first count_scale * *count of the n.
+template <bool kAny, bool kOrdered, bool kCount, bool kLive = false,
+          bool kCounted = false>
 __device__ __forceinline__ void walk_rays(const WalkArgs& a) {
     const int lane = threadIdx.x & 31;
     unsigned long long tally[2] = {0ull, 0ull};
+    int limit = a.n;
+    if (kCounted) {
+        const long long m = static_cast<long long>(a.count_scale) *
+                            max(__ldg(a.count), 0);
+        limit = m < limit ? static_cast<int>(m) : limit;
+    }
     while (true) {
         unsigned first = 0u;
         if (lane == 0) first = atomicAdd(a.next_ray, 32u);
         first = __shfl_sync(kAll, first, 0);
-        if (first >= static_cast<unsigned>(a.n)) break;
+        if (first >= static_cast<unsigned>(limit)) break;
         const int i = static_cast<int>(first) + lane;
-        if (i < a.n) {
+        if (i < limit) {
             float t = kLive ? (a.alive[i] ? kTMax : -1.0f) : a.t_max[i];
             int best = -1, best_mesh = -1;
             float bu = 0.0f, bv = 0.0f;
@@ -353,15 +372,29 @@ walk_counts_kernel(WalkArgs a) {
     walk_rays<kAny, kOrdered, true>(a);
 }
 
+// K1 and K2 on a device count (the RT frame's glass pass)
+__global__ void __launch_bounds__(kThreads, kK1Blocks)
+closest_hit_kernel_counted(WalkArgs a) {
+    walk_rays<false, true, false, false, true>(a);
+}
+
+__global__ void __launch_bounds__(kThreads, kK2Blocks)
+any_hit_kernel_counted(WalkArgs a) {
+    walk_rays<true, false, false, false, true>(a);
+}
+
 using Kernel = void (*)(WalkArgs);
 // K1 on a t_max plane, K2, the counting walks in the order of
-// ptrt_walk_counts' ``walk``, then K1 on an alive plane
-constexpr int kKernels = 6;
+// ptrt_walk_counts' ``walk``, K1 on an alive plane, then K1 and K2 on a
+// device count
+constexpr int kKernels = 8;
 const Kernel kWalks[kKernels] = {closest_hit_kernel<false>, any_hit_kernel,
                                  walk_counts_kernel<false, true>,
                                  walk_counts_kernel<false, false>,
                                  walk_counts_kernel<true, false>,
-                                 closest_hit_kernel<true>};
+                                 closest_hit_kernel<true>,
+                                 closest_hit_kernel_counted,
+                                 any_hit_kernel_counted};
 
 // Blocks of walk ``k`` that one SM holds at once, per device, asked once.
 cudaError_t blocks_per_sm(int k, int dev, int* per_sm) {
@@ -878,6 +911,33 @@ int ptrt_closest_hit(const float* nodes, int n_nodes, const float* tris,
     return launch(alive ? 5 : 0, a, stream);
 }
 
+// K1 on a t_max plane of ``n`` rays' room, of which the first
+// ``count_scale * *count`` are walked (``count``: an int the card holds,
+// written by an earlier launch on the stream); the others are left
+// unwritten.
+int ptrt_closest_hit_counted(const float* nodes, int n_nodes,
+                             const float* tris, int n_blocks, const float* ox,
+                             const float* oy, const float* oz,
+                             const float* dx, const float* dy,
+                             const float* dz, const float* t_max, int n,
+                             const int* count, int count_scale, float* t_out,
+                             float* u_out, float* v_out, int* slot_out,
+                             int* mesh_out, unsigned* next_ray,
+                             void* stream) {
+    if (t_max == nullptr || count == nullptr || count_scale < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    WalkArgs a = walk_args(nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy,
+                           dz, t_max, n, next_ray);
+    a.count = count;
+    a.count_scale = count_scale;
+    a.t_out = t_out;
+    a.u_out = u_out;
+    a.v_out = v_out;
+    a.slot_out = slot_out;
+    a.mesh_out = mesh_out;
+    return launch(6, a, stream);
+}
+
 // K2: one byte a ray (a torch.bool plane), 1 when an opaque triangle lies
 // in (T_MIN, t_max).
 int ptrt_any_hit(const float* nodes, int n_nodes, const float* tris,
@@ -890,6 +950,23 @@ int ptrt_any_hit(const float* nodes, int n_nodes, const float* tris,
                            dz, t_max, n, next_ray);
     a.hit_out = hit_out;
     return launch(1, a, stream);
+}
+
+// K2 on a device count, as ptrt_closest_hit_counted.
+int ptrt_any_hit_counted(const float* nodes, int n_nodes, const float* tris,
+                         int n_blocks, const float* ox, const float* oy,
+                         const float* oz, const float* dx, const float* dy,
+                         const float* dz, const float* t_max, int n,
+                         const int* count, int count_scale, uint8_t* hit_out,
+                         unsigned* next_ray, void* stream) {
+    if (t_max == nullptr || count == nullptr || count_scale < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    WalkArgs a = walk_args(nodes, n_nodes, tris, n_blocks, ox, oy, oz, dx, dy,
+                           dz, t_max, n, next_ray);
+    a.count = count;
+    a.count_scale = count_scale;
+    a.hit_out = hit_out;
+    return launch(7, a, stream);
 }
 
 // The walks with a tally, for measurement only: ``walk`` 0 is K1 in
@@ -991,10 +1068,10 @@ int ptrt_instances_info(int walk, int n_inst, int tlas_nodes, int* regs,
 
 // Registers, local-memory bytes a thread and resident blocks a SM of the
 // main-path walks: ``walk`` 0 is K1 on an alive plane (the bounce loop's),
-// 1 K1 on a t_max plane, 2 K2.
+// 1 K1 on a t_max plane, 2 K2, 3 K1 and 4 K2 on a device count.
 int ptrt_walk_info(int walk, int* regs, int* local_bytes, int* per_sm) {
-    if (walk < 0 || walk > 2) return static_cast<int>(cudaErrorInvalidValue);
-    const int k = walk == 0 ? 5 : walk - 1;
+    if (walk < 0 || walk > 4) return static_cast<int>(cudaErrorInvalidValue);
+    const int k = walk == 0 ? 5 : walk <= 2 ? walk - 1 : walk + 3;
     cudaFuncAttributes attr = {};
     cudaError_t e = cudaFuncGetAttributes(&attr, kWalks[k]);
     int dev = 0;

@@ -24,12 +24,14 @@ and renders that world with the scene's frame body
 ``Scene._rebuild_geometry``, no host tree build and no host read of the
 game state, boxes or tables inside a frame.
 
-A replayed frame reads what changes from frame to frame from static
-buffers on the card: the game state, the PCG state, the denoiser history
-and the previous view-projection (the graph writes each frame's values
-back into them), the camera (copied in before a replay when the scene's
-camera is another object), and the frame index with the game's inputs
-(one non-blocking copy from pinned memory, ``graphs.HostValues``).  It is
+The captured frame is a ``graphs.Program``, the scenes' frame programs'
+tool, and reads what changes from frame to frame from its buffers on the
+card: the game state, the PCG state, the denoiser history and the
+previous view-projection (the graph writes each frame's values back into
+them), the camera (copied in before a replay when the scene's camera is
+another object than the one last copied), and the frame index with the
+game's inputs (one non-blocking copy from pinned memory,
+``graphs.HostValues``).  It is
 bit for bit the eager frame (``frame``), which stays the CPU path and the
 body that is captured.
 """
@@ -39,13 +41,12 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass
-from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ptrt_tpu_torch import graphs, kernels
+from ptrt_tpu_torch import graphs
 from ptrt_tpu_torch.core.vec import Vec3
 from ptrt_tpu_torch.geometry.dtransform import (instances_scratch,
                                                 instances_update,
@@ -131,7 +132,7 @@ class FusedRunner:
                                     iset=self._iset)
         # the eager frames' staged inputs, and the captured frame
         self._values = graphs.HostValues(dev)
-        self._graph = None
+        self._prog = None
 
     @property
     def world(self) -> WorldGeometry:
@@ -141,9 +142,9 @@ class FusedRunner:
 
     @property
     def state(self):
-        """The captured graph's game state (static buffers: each replay
-        writes the frame's state back into them), or None."""
-        return None if self._graph is None else self._graph.st.state
+        """The captured graph's game state (the program's buffers: each
+        replay writes the frame's state back into them), or None."""
+        return None if self._prog is None else self._prog.state["state"]
 
     def _body(self, state, inputs, frame_index, prev_view_proj, camera):
         """The frame on device inputs: (state, rgb8, the frame's camera).
@@ -184,69 +185,64 @@ class FusedRunner:
 
     def capture(self, state, inputs, prev_view_proj) -> None:
         """Capture one frame into a CUDA graph (the card only; raises if the
-        capture fails).  Its static buffers start from ``state``, the
-        scene's PCG state and denoiser history, ``prev_view_proj`` and the
-        scene's camera; ``inputs`` gives the structure every frame's inputs
-        keep.  The frame is warmed up once on a side stream first, with
-        nothing written back.  Afterwards the scene's PCG state and
-        denoiser history are the graph's buffers, which each ``replay``
-        advances.  The graph's memory pool is its own."""
+        capture fails), as a ``graphs.Program``: its buffers start from
+        ``state``, the scene's PCG state and denoiser history,
+        ``prev_view_proj`` and the scene's camera; ``inputs`` gives the
+        structure every frame's inputs keep.  The frame is warmed up once
+        on a side stream first, with nothing written back.  Afterwards the
+        scene's PCG state and denoiser history are the program's buffers,
+        which each ``replay`` advances.  The graph's memory pool is its
+        own."""
         sc = self.scene
         if sc.device.type != "cuda":
             raise ValueError("a CUDA graph needs the scene on a CUDA device")
-        self._graph = None
-        values = graphs.HostValues(sc.device, fixed=True)
-        st = SimpleNamespace(
-            state=graphs.clone_tree(state), rng=sc._rng_state.clone(),
-            den=graphs.clone_tree(sc._denoiser_state),
-            prev_vp=prev_view_proj.clone(),
-            camera=graphs.clone_tree(sc.camera))
-        index, staged = values.stage((0, inputs))
+        self._prog = None
 
-        def body(write_back: bool):
-            sc._rng_state, sc._denoiser_state = st.rng, st.den
-            new, rgb8, cam = self._body(st.state, staged, index, st.prev_vp,
-                                        st.camera)
-            if write_back:
-                graphs.copy_tree(st.state, new)
-                st.rng.copy_(sc._rng_state)
-                graphs.copy_tree(st.den, sc._denoiser_state)
-                st.prev_vp.copy_(cam.get_view_proj())
-            return rgb8
+        def body(reads, st, values):
+            index, staged = values
+            sc._rng_state, sc._denoiser_state = st["rng"], st["den"]
+            new, rgb8, cam = self._body(st["state"], staged, index,
+                                        st["prev_vp"], reads["camera"])
+            return rgb8, {"state": new, "rng": sc._rng_state,
+                          "den": sc._denoiser_state,
+                          "prev_vp": cam.get_view_proj()}
 
+        rng, den = sc._rng_state, sc._denoiser_state
         try:
-            graph, rgb8, launches = graphs.capture_frame(
-                lambda: body(True), lambda: body(False), sc.device)
-        finally:
-            sc._rng_state, sc._denoiser_state = st.rng, st.den
-        self._graph = SimpleNamespace(graph=graph, rgb8=rgb8,
-                                      launches=launches, values=values,
-                                      st=st, camera=sc.camera)
+            prog = graphs.Program(
+                body, {"camera": sc.camera},
+                {"state": state, "rng": rng, "den": den,
+                 "prev_vp": prev_view_proj}, (0, inputs), sc.device)
+        except BaseException:
+            sc._rng_state, sc._denoiser_state = rng, den
+            raise
+        sc._rng_state = prog.state["rng"]
+        sc._denoiser_state = prog.state["den"]
+        self._prog = prog
+
+    @property
+    def program(self) -> graphs.Program | None:
+        """The captured frame (``capture``), or None."""
+        return self._prog
 
     def replay(self, inputs, frame_index: int) -> torch.Tensor:
         """One frame of the captured graph: the scene's camera copied into
-        the graph's when it is another object than last time, ``inputs``
-        and ``frame_index`` staged, one ``replay()``.  Returns the graph's
-        RGB8 output (overwritten by the next replay); the game state is
-        ``state``, the PCG state and denoiser history the scene's."""
-        g = self._graph
-        if g is None:
+        the program's when it is another object than the one last copied,
+        ``inputs`` and ``frame_index`` staged, one ``replay()``.  Returns
+        the graph's RGB8 output (overwritten by the next replay); the game
+        state is ``state``, the PCG state and denoiser history the
+        program's (the scene's are not read)."""
+        if self._prog is None:
             raise RuntimeError("no captured frame: call capture first")
-        cam = self.scene.camera
-        if cam is not g.camera:
-            graphs.copy_tree(g.st.camera, cam)
-            g.camera = cam
-        g.values.stage((frame_index, inputs))
-        g.graph.replay()
-        kernels.replays.update(g.launches)
-        return g.rgb8
+        return self._prog.run({"camera": self.scene.camera}, None,
+                              (frame_index, inputs))
 
     def release(self):
         """Drop the captured graph (and its memory pool); returns its game
-        state.  The scene keeps the graph's PCG state and denoiser history,
-        which live outside the pool."""
-        st = self._graph.st.state
-        self._graph = None
+        state.  The scene keeps the program's PCG state and denoiser
+        history, which live outside the pool."""
+        st = self._prog.state["state"]
+        self._prog = None
         return st
 
     def _sync(self) -> None:

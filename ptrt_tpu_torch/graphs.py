@@ -8,20 +8,29 @@ Python on the way.  A graph reads and writes fixed addresses, so what
 changes from frame to frame lives on the card in static buffers:
 
 * tensors (the game state, the PCG state, the denoiser history, the
-  camera) are copied into the graph's static inputs (``copy_tree``);
+  camera) are copied into the program's buffers (``Program``);
 * host values (a frame index, a game's inputs) are staged by
   ``HostValues``: one non-blocking copy from pinned memory into one device
   buffer, on the stream the graph replays on, so nothing synchronizes.
 
 ``capture_frame`` warms a body up on a side stream and captures it;
-``capture`` wraps a function of tensors as a callable that fills its
-static inputs and replays (what ``jax.jit`` of it is in the reference).
+``Program`` is a frame body kept per configuration (``signature`` is the
+part of its key that ``jax.jit`` retraces on) on buffers of its own, into
+which it copies what the caller changed, and on the CPU calls the body
+where the card replays the graph; ``Programs`` keeps them, for one world
+at a time.  ``capture`` wraps a function of tensors as a program that
+copies in its arguments and replays (what ``jax.jit`` of it is in the
+reference).  The fused game frame (``games/fused.py``) is a ``Program``
+too: one copy-in rule serves every captured frame.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
+import time
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -63,17 +72,6 @@ def tree_leaves(tree) -> list:
 
 def clone_tree(tree):
     return map_tree(torch.clone, tree)
-
-
-def copy_tree(dst, src) -> None:
-    """Copy each tensor leaf of ``src`` into the same leaf of ``dst`` (the
-    same structure and shapes), in stream order."""
-    d, s = tree_leaves(dst), tree_leaves(src)
-    if len(d) != len(s):
-        raise ValueError(f"trees of {len(d)} and {len(s)} tensors")
-    for a, b in zip(d, s):
-        if a is not b:
-            a.copy_(b)
 
 
 # -- host values -------------------------------------------------------------
@@ -166,52 +164,64 @@ class HostValues:
 # -- capture -------------------------------------------------------------------
 
 
-def capture_frame(body: Callable, warmup: Callable, device):
+def capture_frame(body: Callable, warmup: Callable, device,
+                  stats: dict | None = None):
     """Run ``warmup()`` once on a side stream (torch's recipe before a
-    capture), then capture ``body()`` into a new ``torch.cuda.CUDAGraph``
-    with its own memory pool.  Returns (graph, what ``body`` returned, the
-    kernel launches one replay makes: the wrappers' counts during the
-    capture, which records kernels and launches none).  Raises if the
+    capture; its wrapper calls count nowhere), then capture ``body()`` into
+    a new ``torch.cuda.CUDAGraph`` with its own memory pool.  Returns
+    (graph, what ``body`` returned, the kernel launches one replay makes:
+    the wrappers' counts during the capture, which records kernels and
+    launches none).  ``stats``: receives "capture_s" (the capture alone)
+    and "pool_bytes" (the memory the card reserved for it).  Raises if the
     capture fails: there is no eager fall-back."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
+    with kernels.recorded(), torch.cuda.stream(side):
         warmup()
     torch.cuda.current_stream(device).wait_stream(side)
+    # torch.cuda.graph empties the allocator's cache before it captures:
+    # empty it first, so the reserved bytes that grow are the graph pool's
+    torch.cuda.synchronize(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
     with kernels.recorded() as recorded:
         with torch.cuda.graph(graph):
             out = body()
+    if stats is not None:
+        stats["capture_s"] = time.perf_counter() - t0
+        stats["pool_bytes"] = torch.cuda.memory_reserved(device) - reserved
     return graph, out, collections.Counter(recorded)
 
 
 class Graph:
-    """A captured function of tensors: ``graph(*args)`` copies ``args``
-    into the static inputs (tensor leaves; other leaves must equal the
-    capture's), replays, and returns the static outputs (overwritten by
-    the next call; clone what must outlive it)."""
+    """A captured function of tensors: a ``Program`` whose reads are the
+    arguments, all copied in at every call.  ``graph(*args)`` copies the
+    tensor leaves of ``args`` into the program's buffers (other leaves
+    must equal the capture's), replays, and returns the static outputs
+    (overwritten by the next call; clone what must outlive it)."""
 
     def __init__(self, fn: Callable, args: tuple, device):
-        self.device = torch.device(device)
-        self.inputs = clone_tree(tuple(args))
-        self._static = repr(map_tree(lambda t: None, self.inputs))
-        self.graph, self.outputs, self.launches = capture_frame(
-            lambda: fn(*self.inputs), lambda: fn(*self.inputs), self.device)
+        self._static = repr(map_tree(lambda t: None, tuple(args)))
+        self.program = Program(
+            lambda reads, st, values: (fn(*reads["args"]), None),
+            {"args": tuple(args)}, None, None, device, edited=("args",))
 
-    def replay(self) -> None:
-        self.graph.replay()
-        kernels.replays.update(self.launches)
+    @property
+    def launches(self) -> collections.Counter:
+        """The kernel launches one replay makes."""
+        return self.program.launches
 
     def __call__(self, *args):
         if repr(map_tree(lambda t: None, tuple(args))) != self._static:
             raise ValueError("the arguments' structure or host values differ "
                              "from the capture's")
-        copy_tree(self.inputs, tuple(args))
-        self.replay()
-        return self.outputs
+        return self.program.run({"args": tuple(args)}, None, None)
 
 
 def capture(fn: Callable, args: tuple):
@@ -225,3 +235,206 @@ def capture(fn: Callable, args: tuple):
     if device.type != "cuda":
         return fn
     return Graph(fn, tuple(args), device)
+
+
+# -- programs kept per configuration ------------------------------------------
+
+
+def signature(tree) -> tuple:
+    """What a captured program is specialised to, as ``jax.jit`` retraces
+    on it: the structure of ``tree``, each tensor leaf's shape and dtype,
+    and every other leaf's value (a tree's depth bound, an HDRI's sampling
+    size, None where a table is absent), in ``map_tree``'s order."""
+    out = []
+
+    def walk(t):
+        if torch.is_tensor(t):
+            out.append((tuple(t.shape), t.dtype))
+        elif isinstance(t, Vec3):
+            out.append("Vec3")
+            for c in (t.x, t.y, t.z):
+                walk(c)
+        elif dataclasses.is_dataclass(t) and not isinstance(t, type):
+            out.append(type(t).__name__)
+            for f in dataclasses.fields(t):
+                walk(getattr(t, f.name))
+        elif isinstance(t, (tuple, list)):
+            out.append((type(t).__name__, len(t)))
+            for v in t:
+                walk(v)
+        elif isinstance(t, dict):
+            for k, v in t.items():
+                out.append(k)
+                walk(v)
+        elif t is None or isinstance(t, (bool, int, float, str)):
+            out.append(t)
+        else:
+            out.append(repr(t))
+
+    walk(tree)
+    return tuple(out)
+
+
+def _pairs(dst, src, out: list) -> None:
+    """(buffer, source) for each tensor leaf of ``dst`` and the same leaf of
+    ``src`` (one structure); a None in ``src`` pairs nothing beneath it."""
+    if src is None:
+        return
+    if type(src) is not type(dst) and not (torch.is_tensor(src)
+                                           and torch.is_tensor(dst)):
+        raise ValueError(f"a {type(src).__name__} for a "
+                         f"{type(dst).__name__}")
+    if torch.is_tensor(dst):
+        out.append((dst, src))
+    elif isinstance(dst, Vec3):
+        for c in "xyz":
+            _pairs(getattr(dst, c), getattr(src, c), out)
+    elif dataclasses.is_dataclass(dst) and not isinstance(dst, type):
+        for f in dataclasses.fields(dst):
+            _pairs(getattr(dst, f.name), getattr(src, f.name), out)
+    elif isinstance(dst, (tuple, list)):
+        if len(dst) != len(src):
+            raise ValueError(f"trees of {len(dst)} and {len(src)} entries")
+        for a, b in zip(dst, src):
+            _pairs(a, b, out)
+    elif isinstance(dst, dict):
+        for k, v in dst.items():
+            _pairs(v, src[k], out)
+
+
+def _copy_in(buf: torch.Tensor, src: torch.Tensor) -> None:
+    if src.shape != buf.shape or src.dtype != buf.dtype:
+        raise ValueError(f"a {tuple(src.shape)} {src.dtype} tensor for a "
+                         f"{tuple(buf.shape)} {buf.dtype} buffer")
+    buf.copy_(src)
+
+
+def copy_tree(dst, src) -> None:
+    """Copy each tensor leaf of ``src`` that is not the same leaf of ``dst``
+    into it, in stream order: one structure, shapes and dtypes (else
+    ValueError); a None in ``src`` keeps ``dst``'s leaves beneath it."""
+    pairs = []
+    _pairs(dst, src, pairs)
+    for buf, s in pairs:
+        if s is not buf:
+            _copy_in(buf, s)
+
+
+class Program:
+    """A frame body kept per configuration and run once a frame: the port's
+    counterpart of a jitted program of the reference, which its cache keeps
+    per static key.
+
+    ``body(reads, state, values) -> (outputs, new_state)`` is the frame on
+    three trees: ``reads``, the tensors it only reads (geometry, tables,
+    camera); ``state``, the tensors it carries from frame to frame; and
+    ``values``, host numbers staged on the device (``HostValues``; None
+    for none).  It writes nothing else.  The program's buffers are its
+    own: copies of ``reads`` and ``state`` made at creation.  A caller's
+    tensor is never written, and one it held earlier and puts back is a
+    change like any other.
+
+    ``run(reads, state, values)`` copies into the buffers what changed
+    since: a read leaf that is another tensor than the one last copied
+    into its buffer (a new camera, a table made again, an earlier one put
+    back); every leaf of a group named in ``edited``, whose tensors the
+    caller writes in place (the instance tables K5's refits write), at
+    every run; and a state leaf that is not its buffer (a None in
+    ``state`` keeps the buffers beneath it).  Shapes and dtypes must be
+    the buffers'.  It stages ``values`` and runs the body: on the card one
+    ``replay()`` of the graph captured at creation (after a warm-up on a
+    side stream), whose outputs are static (the next run overwrites
+    them); on the CPU it calls the body on the buffers.  Either way it
+    writes the new state into the state buffers, and returns the
+    outputs."""
+
+    def __init__(self, body: Callable, reads: dict, state, values, device,
+                 edited: tuple = ()):
+        self.device = torch.device(device)
+        self.body = body
+        self.reads = clone_tree(reads)
+        self.state = clone_tree(state)
+        self._edited = []
+        for name, group in reads.items():
+            self._edited += [name in edited] * len(tree_leaves(group))
+        # the tensor last copied into each read buffer (weakly: a program
+        # keeps none of its caller's tensors alive)
+        self._last = [weakref.ref(t) for t in tree_leaves(reads)]
+        self._values = HostValues(self.device, fixed=True)
+        self._staged = None if values is None else self._values.stage(values)
+        self.graph = None
+        self.outputs = None
+        self.launches = collections.Counter()
+        self.stats = {"capture_s": 0.0, "pool_bytes": 0}
+        self.runs = 0  # frames run
+        if self.device.type == "cuda":
+            self.graph, self.outputs, self.launches = capture_frame(
+                lambda: self._call(True), lambda: self._call(False),
+                self.device, self.stats)
+
+    def _call(self, write_back: bool):
+        out, new_state = self.body(self.reads, self.state, self._staged)
+        if write_back:
+            copy_tree(self.state, new_state)
+        return out
+
+    def _refresh(self, reads: dict, state) -> None:
+        """Copy into the buffers what ``run`` copies (see the class)."""
+        bufs = tree_leaves(self.reads)
+        src = tree_leaves(reads)
+        if len(src) != len(bufs):
+            raise ValueError(f"{len(src)} read tensors for a program of "
+                             f"{len(bufs)}")
+        for k, (buf, s) in enumerate(zip(bufs, src)):
+            if not self._edited[k] and self._last[k]() is s:
+                continue
+            _copy_in(buf, s)
+            self._last[k] = weakref.ref(s)
+        copy_tree(self.state, state)
+
+    def run(self, reads: dict, state, values):
+        self.runs += 1
+        self._refresh(reads, state)
+        if values is not None:
+            self._values.stage(values)
+        if self.graph is None:
+            return self._call(True)
+        self.graph.replay()
+        kernels.replays.update(self.launches)
+        return self.outputs
+
+
+# the programs a cache keeps: a viewer's presets (fast, performance,
+# balanced, quality, and ultra's chunk and post programs) fit
+PROGRAMS_KEPT = 8
+
+
+class Programs(collections.OrderedDict):
+    """Programs kept by key (the reference's cache of jitted programs), for
+    one world at a time.  A program holds copies of the world it reads,
+    and on the card its graph a memory pool of its own, so the cache
+    bounds them: ``program(key, world, make)`` drops every program when
+    ``world`` (the ``signature`` of what the frames read) is not the last
+    one's, as after a mesh or light added or removed, and past
+    ``PROGRAMS_KEPT`` programs the one run least recently.  ``made``: the
+    programs made."""
+
+    def __init__(self):
+        super().__init__()
+        self.world = None
+        self.made = 0
+
+    def program(self, key, world, make: Callable) -> Program:
+        """The program of ``key``, made by ``make()`` at its first run."""
+        if world != self.world:
+            self.clear()
+            self.world = world
+        prog = self.get(key)
+        if prog is not None:
+            self.move_to_end(key)
+            return prog
+        while len(self) >= PROGRAMS_KEPT:
+            self.popitem(last=False)
+        prog = self[key] = make()
+        self.made += 1
+        return prog

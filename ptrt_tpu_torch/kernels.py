@@ -45,6 +45,18 @@ launches: collections.Counter = collections.Counter()
 replays: collections.Counter = collections.Counter()
 
 
+def counts() -> collections.Counter:
+    """The kernels launched since ``clear_counts``, by name: the wrappers'
+    launches and the graph replays' together (a frame counts alike run
+    eagerly or replayed)."""
+    return launches + replays
+
+
+def clear_counts() -> None:
+    launches.clear()
+    replays.clear()
+
+
 @contextlib.contextmanager
 def recorded():
     """Count the wrappers' calls inside the block in a Counter of their own
@@ -82,6 +94,12 @@ def get_lib() -> ctypes.CDLL:
             [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a"])
         lib = bind_walks(ctypes.CDLL(path))
         p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ptrt_closest_hit_counted.restype = i
+        lib.ptrt_closest_hit_counted.argtypes = ([p, i, p, i] + [p] * 7
+                                                 + [i, p, i] + [p] * 7)
+        lib.ptrt_any_hit_counted.restype = i
+        lib.ptrt_any_hit_counted.argtypes = ([p, i, p, i] + [p] * 7
+                                             + [i, p, i, p, p, p])
         lib.ptrt_tonemap_rgb8.restype = i
         lib.ptrt_tonemap_rgb8.argtypes = [p, p]
         lib.ptrt_tonemap_info.restype = i

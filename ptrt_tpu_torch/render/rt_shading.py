@@ -34,7 +34,10 @@ CPU tensors, with no fallback between the two:
 A frame: camera rays -> K1 -> ``rt_light_rays`` -> K2 -> ``rt_shade``;
 with glass in the scene -> ``rt_glass_rays`` -> K1 (2G rays for the G
 glass lanes; none where G = 0) -> ``rt_light_rays`` -> K2 -> ``rt_shade``;
-then ``rt_resolve`` (``rt_frame``).
+then ``rt_resolve`` (``rt_frame``).  The glass pass is sized by G read to
+the host, or by G on the card (``rt_frame(device_count=True)``: the walks
+and stages take a device count, and the frame reads nothing back, as a
+frame captured into a CUDA graph must).
 """
 
 from __future__ import annotations
@@ -430,7 +433,11 @@ class GlassRays(NamedTuple):
     order; a lane's reflection ray at its place p in ``lanes``, its
     refraction ray at G + p: flat (2G,) planes, ``t`` = T_MAX; ``seed``
     (G,) int64, the seed after both perturbations; ``index`` (N,) int32,
-    each lane's place in ``lanes`` or -1 off glass."""
+    each lane's place in ``lanes`` or -1 off glass.  ``count``: None, or
+    G as a (1,) int32 tensor on the device, the records then on the card
+    at their room (``lanes`` and ``seed`` (N,), the rays (2N,)) with the
+    entries past G unspecified: the glass pass of a frame that never reads
+    G to the host (on the CPU the plain version's, at G)."""
 
     lanes: torch.Tensor
     o: Vec3
@@ -438,6 +445,7 @@ class GlassRays(NamedTuple):
     t: torch.Tensor
     seed: torch.Tensor
     index: torch.Tensor
+    count: torch.Tensor | None = None
 
 
 def params_vec(params: torch.Tensor, k: int) -> Vec3:
@@ -561,6 +569,8 @@ def glass_color_plain(color: Vec3, hit, d: Vec3, materials: MaterialTable,
     """The frame's colour with the glass terms added on the glass lanes
     (the glass pass of ``rt_resolve``, in plain torch)."""
     n_glass = glass.lanes.shape[0]
+    if n_glass == 0:  # no glass lane: no term
+        return color
     mat = materials.gather(fmax(hit.mesh_index, 0))
     g = glass_terms(hit, d, mat)
     k = glass.index.clamp_min(0).long()
@@ -614,7 +624,7 @@ class RtArgs(ctypes.Structure):
         ("n_glass", ctypes.c_longlong),
         ("sec_color", _P3), ("sec_t", _P), ("sec_slot", _P),
         ("rgb", _P), ("height", ctypes.c_int), ("width", ctypes.c_int),
-        ("lut", _P),
+        ("lut", _P), ("count", _P), ("count_scale", ctypes.c_int),
     ]
 
 
@@ -670,13 +680,19 @@ def _launch(name: str, a: RtArgs, dev) -> None:
 
 
 def rt_light_rays(geom, o: Vec3, d: Vec3, k1: traverse.Closest,
-                  lights: LightTable, n_lights: int):
+                  lights: LightTable, n_lights: int, count=None,
+                  count_scale: int = 1):
     """The hit record of K1's answer ``k1`` for the flat rays ``o``, ``d``
     and the shadow rays of every light (kernel ``rt_light_rays``).  Returns
     (Hit, ShadowRays or None without lights); the Hit's ``t``, ``mesh``,
     ``u`` and ``v`` are K1's planes.  On a lane that missed, the point,
     normal and front flag are unspecified on the card and the shadow rays'
-    origin and direction too (their ``t`` is -1)."""
+    origin and direction too (their ``t`` is -1).  ``count``,
+    ``count_scale``: a device count as ``traverse.closest_hit``'s, the
+    lanes then the first m = ``count_scale * count[0]`` of the N and the
+    shadow ray of light i and lane j at i * m + j (the records past them
+    unspecified; the plain version on the CPU returns the records of the
+    m lanes)."""
     if traverse.iset_of(geom) is not None or k1.inst is not None:
         raise ValueError("rt_light_rays: the RT backend walks one static "
                          "SceneGeometry, not instances")
@@ -691,7 +707,12 @@ def rt_light_rays(geom, o: Vec3, d: Vec3, k1: traverse.Closest,
                                ("k1.mesh", "hit_mesh", k1.mesh, _I32)):
         _set(a, field, _flat(name, v, n, dt, dev))
     _tables(a, None, lights, n_lights, dev)
+    _count_args(a, count, count_scale, dev)
     if dev.type == "cpu":
+        if count is not None:
+            m = traverse.counted(n, count, count_scale)
+            o, d = _head(o, m), _head(d, m)
+            k1 = traverse.Closest(*[p[:m] for p in k1])
         return rt_light_rays_plain(geom, o, d, k1, lights, n_lights)
     m = geom.num_tri_slots
     _set(a, "e1", _flat("geom.e1", geom.e1, m, _F32, dev))
@@ -718,6 +739,21 @@ def rt_light_rays(geom, o: Vec3, d: Vec3, k1: traverse.Closest,
     return hit, rays
 
 
+def _count_args(a: RtArgs, count, count_scale: int, dev) -> None:
+    """Check a device count (as ``traverse.closest_hit``'s) and set it."""
+    if count is None:
+        return
+    kernels.check_tensor("count", count, _I32, 1, dev)
+    if count.shape[0] < 1 or int(count_scale) < 1:
+        raise ValueError("count: need (1,) int32 and a scale of 1 or more")
+    a.count, a.count_scale = count.data_ptr(), int(count_scale)
+
+
+def _head(v, m: int):
+    """The first ``m`` entries of a flat plane or Vec3 of them."""
+    return v.map(lambda c: c[:m]) if isinstance(v, Vec3) else v[:m]
+
+
 def _hit_args(a: RtArgs, hit, d: Vec3, n: int, dev) -> None:
     for name, field, v, dt in (("hit.hit", "hit", hit.hit, _BOOL),
                                ("hit.t", "hit_t", hit.t, _F32),
@@ -732,10 +768,13 @@ def _hit_args(a: RtArgs, hit, d: Vec3, n: int, dev) -> None:
 
 def rt_shade(hit, d: Vec3, occluded, materials: MaterialTable,
              lights: LightTable, n_lights: int,
-             params: torch.Tensor) -> Vec3:
+             params: torch.Tensor, count=None,
+             count_scale: int = 1) -> Vec3:
     """``shade_core`` of every lane given K2's answer ``occluded`` for
     ``rt_light_rays``' shadow rays (None without lights), the sky on a miss
-    (kernel ``rt_shade``).  Returns the colour, flat (N,) planes."""
+    (kernel ``rt_shade``).  Returns the colour, flat (N,) planes.
+    ``count``, ``count_scale``: as ``rt_light_rays``' (the colour past the
+    counted lanes unspecified; on the CPU only theirs is returned)."""
     dev = d.x.device
     kernels.require_supported(dev)
     n = d.x.shape[0]
@@ -748,7 +787,15 @@ def rt_shade(hit, d: Vec3, occluded, materials: MaterialTable,
         _set(a, "occluded", _flat("occluded", occluded, n_lights * n, _BOOL,
                                   dev))
     _tables(a, materials, lights, n_lights, dev)
+    _count_args(a, count, count_scale, dev)
     if dev.type == "cpu":
+        if count is not None:
+            m = traverse.counted(n, count, count_scale)
+            hit = traverse.Hit(**{f: _head(getattr(hit, f), m) for f in (
+                "hit", "t", "point", "normal", "front_face", "mesh_index",
+                "u", "v")})
+            d = _head(d, m)
+            occluded = None if n_lights == 0 else occluded[:n_lights * m]
         return rt_shade_plain(hit, d, occluded, materials, lights, n_lights,
                               params)
     a.n = n
@@ -759,10 +806,14 @@ def rt_shade(hit, d: Vec3, occluded, materials: MaterialTable,
     return Vec3(*c)
 
 
-def rt_glass_rays(hit, d: Vec3, materials: MaterialTable) -> GlassRays:
+def rt_glass_rays(hit, d: Vec3, materials: MaterialTable,
+                  device_count: bool = False) -> GlassRays:
     """The glass lanes and their reflection and refraction rays (kernel
     ``rt_glass_rays``, one launch), as ``GlassRays`` says.  On the card it
-    reads G to the host once (the frame's one read) to size the records."""
+    reads G to the host to size the records, or with ``device_count``
+    returns them at their room with G in ``count`` (no read: a frame in a
+    CUDA graph); on the CPU the plain version's records, at G (with
+    ``device_count`` G also in ``count``)."""
     dev = d.x.device
     kernels.require_supported(dev)
     n = d.x.shape[0]
@@ -770,7 +821,10 @@ def rt_glass_rays(hit, d: Vec3, materials: MaterialTable) -> GlassRays:
     _hit_args(a, hit, d, n, dev)
     _tables(a, materials, None, 0, dev)
     if dev.type == "cpu":
-        return rt_glass_rays_plain(hit, d, materials)
+        g = rt_glass_rays_plain(hit, d, materials)
+        if not device_count:
+            return g
+        return g._replace(count=torch.tensor([g.lanes.shape[0]], dtype=_I32))
     a.n = n
     g = _planes(2 * n, dev, _F32, 7)  # room for every lane's two rays
     lanes, index = _planes(n, dev, _I32, 2)
@@ -783,6 +837,9 @@ def rt_glass_rays(hit, d: Vec3, materials: MaterialTable) -> GlassRays:
                      ("counts", counts)):
         _set(a, field, [t.data_ptr()])
     _launch("rt_glass_rays", a, dev)
+    if device_count:
+        return GlassRays(lanes, Vec3(*g[0:3]), Vec3(*g[3:6]), g[6], seed,
+                         index, counts[:1])
     n_glass = int(counts[0])
     rays = [c[:2 * n_glass] for c in g]
     return GlassRays(lanes[:n_glass], Vec3(*rays[0:3]), Vec3(*rays[3:6]),
@@ -799,7 +856,9 @@ def rt_resolve(color: Vec3, hit, d: Vec3, materials: MaterialTable,
     without a glass lane), written over their pixels (kernel
     ``rt_resolve_glass``, launched by the same C entry after it).  Returns
     (H, W, 3) uint8.  Without glass shades only ``color`` is read (``hit``,
-    ``d`` and ``materials`` may be None)."""
+    ``d`` and ``materials`` may be None).  With ``glass.count`` (a device
+    G) the records are at their room on the card and the glass pass reads
+    G there (on the CPU they are the plain versions', at G)."""
     dev = color.x.device
     kernels.require_supported(dev)
     n = color.x.shape[0]
@@ -812,9 +871,10 @@ def rt_resolve(color: Vec3, hit, d: Vec3, materials: MaterialTable,
     a = RtArgs()
     _set(a, "color", _flat("color", color, n, _F32, dev))
     n_glass = 0
+    count = None if glass is None else glass.count
     if sec_color is not None:
         _hit_args(a, hit, d, n, dev)
-        n_glass = glass.lanes.shape[0]
+        n_glass = glass.lanes.shape[0]  # with a count: the lanes' room
         _set(a, "lanes", _flat("glass.lanes", glass.lanes, n_glass, _I32,
                                dev))
         _set(a, "sec_color", _flat("sec_color", sec_color, 2 * n_glass, _F32,
@@ -823,6 +883,7 @@ def rt_resolve(color: Vec3, hit, d: Vec3, materials: MaterialTable,
         _set(a, "sec_slot", _flat("sec_k1.slot", sec_k1.slot, 2 * n_glass,
                                   _I32, dev))
         a.n_glass = n_glass
+        _count_args(a, count, 1, dev)
     _tables(a, materials, None, 0, dev)
     if dev.type == "cpu":
         return rt_resolve_plain(color, hit, d, materials, glass, sec_color,
@@ -883,23 +944,70 @@ class RTFrame(NamedTuple):
     sec_color: Vec3 | None
 
 
-def _shade_pass(geom, o, d, t_max, materials, lights, n_lights, params):
-    k1 = traverse.closest_hit(geom, o, d, t_max)
-    hit, shadow = rt_light_rays(geom, o, d, k1, lights, n_lights)
-    occ = (traverse.any_hit(geom, shadow.o, shadow.d, shadow.t)
+def compact(fr: RTFrame) -> RTFrame:
+    """An RTFrame whose glass pass ran on a device count
+    (``rt_frame(device_count=True)``) with its glass records cut to the G
+    lanes, as the frame with G read to the host holds them (the sec_*
+    records None where G = 0); reads G to the host.  Any other frame is
+    returned as it is."""
+    glass = fr.glass
+    if glass is None or glass.count is None:
+        return fr
+    g = int(glass.count[0])
+    glass = GlassRays(glass.lanes[:g], _head(glass.o, 2 * g),
+                      _head(glass.d, 2 * g), glass.t[:2 * g], glass.seed[:g],
+                      glass.index)
+    if g == 0:
+        return fr._replace(glass=glass, sec_k1=None, sec_hit=None,
+                           sec_shadow=None, sec_occluded=None,
+                           sec_color=None)
+    m = 2 * g
+    cut = lambda v, k: None if v is None else _head(v, k)
+    shadow = fr.sec_shadow
+    n_sh = 0 if shadow is None else shadow.t.shape[0] // (
+        fr.sec_k1.t.shape[0]) * m
+    return fr._replace(
+        glass=glass, sec_k1=traverse.Closest(*[p[:m] for p in fr.sec_k1]),
+        sec_hit=None if fr.sec_hit is None else traverse.Hit(**{
+            f: _head(getattr(fr.sec_hit, f), m) for f in (
+                "hit", "t", "point", "normal", "front_face", "mesh_index",
+                "u", "v")}),
+        sec_shadow=None if shadow is None else ShadowRays(
+            *[_head(v, n_sh) for v in shadow]),
+        sec_occluded=cut(fr.sec_occluded, n_sh), sec_color=cut(
+            fr.sec_color, m))
+
+
+def _shade_pass(geom, o, d, t_max, materials, lights, n_lights, params,
+                count=None):
+    """K1, ``rt_light_rays``, K2 and ``rt_shade`` on the rays ``o``, ``d``
+    (with ``count``, a device G: the first 2G of them, the glass pass)."""
+    scale = 1 if count is None else 2
+    k1 = traverse.closest_hit(geom, o, d, t_max, count, scale)
+    hit, shadow = rt_light_rays(geom, o, d, k1, lights, n_lights, count,
+                                scale)
+    occ = (traverse.any_hit(geom, shadow.o, shadow.d, shadow.t, count,
+                            scale * n_lights)
            if shadow is not None else None)
-    color = rt_shade(hit, d, occ, materials, lights, n_lights, params)
+    color = rt_shade(hit, d, occ, materials, lights, n_lights, params, count,
+                     scale)
     return k1, hit, shadow, occ, color
 
 
 def rt_frame(geom, materials: MaterialTable, lights: LightTable,
              n_lights: int, params: torch.Tensor, o: Vec3, d: Vec3,
-             height: int, width: int, has_glass: bool) -> RTFrame:
+             height: int, width: int, has_glass: bool,
+             device_count: bool = False) -> RTFrame:
     """One RT frame of the flat camera rays ``o``, ``d`` (the pixel grid,
     bottom row first): the primary walk and shade, where the scene has
     glass the glass lanes' rays (2G for G glass lanes) walked and shaded,
-    the resolve to RGB8.  With no glass lane in view (G = 0) the glass pass
-    is skipped."""
+    the resolve to RGB8.  G is read to the host and sizes the glass pass,
+    which is skipped with no glass lane in view (G = 0); or with
+    ``device_count`` G stays on the card (``GlassRays.count``): the glass
+    pass's records are at their room (2N rays) and its kernels take the
+    first 2G (none where G = 0), so the frame makes no read of the card
+    and can be captured into a CUDA graph (on the CPU the plain versions
+    run on the 2G rays, G = 0 included).  The same image either way."""
     n = d.x.shape[0]
     t_max = torch.full((n,), traverse.T_MAX, dtype=torch.float32,
                        device=d.x.device)
@@ -907,10 +1015,10 @@ def rt_frame(geom, materials: MaterialTable, lights: LightTable,
                                               lights, n_lights, params)
     glass = sec = None
     if has_glass:
-        glass = rt_glass_rays(hit, d, materials)
-        if glass.lanes.shape[0] > 0:
+        glass = rt_glass_rays(hit, d, materials, device_count)
+        if device_count or glass.lanes.shape[0] > 0:
             sec = _shade_pass(geom, glass.o, glass.d, glass.t, materials,
-                              lights, n_lights, params)
+                              lights, n_lights, params, glass.count)
     rgb8 = rt_resolve(color, hit, d, materials, glass,
                       None if sec is None else sec[4],
                       None if sec is None else sec[0], height, width)

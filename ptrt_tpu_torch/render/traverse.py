@@ -166,19 +166,63 @@ def _counter(dev: torch.device) -> torch.Tensor:
 # -- K1 ----------------------------------------------------------------------
 
 
-def closest_hit(geom, o: Vec3, d: Vec3, t_max: torch.Tensor):
+def closest_hit(geom, o: Vec3, d: Vec3, t_max: torch.Tensor, count=None,
+                count_scale: int = 1):
     """Nearest hit per ray.  Rays are flat (R,) float32 SoA tensors.
 
     Returns ``Closest(t, u, v, slot, mesh, inst)``: float32 t (``t_max`` on
     a miss), u, v, int32 triangle slot into the SoA views and int32 mesh
-    id, both -1 on a miss; on a ``WorldGeometry`` the instance (K4)."""
+    id, both -1 on a miss; on a ``WorldGeometry`` the instance (K4).
+
+    ``count``: a (1,) int32 tensor on the rays' device; then R is only the
+    rays' room and the walk takes the first ``count_scale * count[0]`` of
+    them, the count read on the card (``counted``); the records past them
+    are unspecified.  A ``SceneGeometry`` only."""
     static = static_of(geom)
     n = _check_rays(static, o, d, t_max)
+    if count is not None:
+        _check_count(geom, count, count_scale)
     if static.device.type == "cpu":
-        rec = closest_hit_plain(static, o, d, t_max)
+        if count is None:
+            rec = closest_hit_plain(static, o, d, t_max)
+        else:
+            m = counted(n, count, count_scale)
+            first = closest_hit_plain(static, o.map(lambda c: c[:m]),
+                                      d.map(lambda c: c[:m]), t_max[:m])
+            rec = _miss_record(t_max)
+            for p, q in zip(rec, first):
+                p[:m] = q
     else:
-        rec = _closest_kernel(static, o, d, t_max, None, n)
+        rec = _closest_kernel(static, o, d, t_max, None, n, count,
+                              count_scale)
     return _with_instances(geom, o, d, rec)
+
+
+def counted(n: int, count: torch.Tensor, count_scale: int) -> int:
+    """How many of ``n`` rays a device count names, read to the host: the
+    plain versions' count on the CPU (the kernels read it on the card)."""
+    return min(n, count_scale * max(int(count[0]), 0))
+
+
+def _check_count(geom, count: torch.Tensor, count_scale: int) -> None:
+    if iset_of(geom) is not None:
+        raise ValueError("a device count walks a SceneGeometry, not "
+                         "instances")
+    kernels.check_tensor("count", count, torch.int32, 1,
+                         static_of(geom).device)
+    if count.shape[0] < 1 or int(count_scale) < 1:
+        raise ValueError("count: need (1,) int32 and a scale of 1 or more")
+
+
+def _miss_record(t_max: torch.Tensor) -> "Closest":
+    """K1's answer of a miss on every ray."""
+    n = t_max.shape[0]
+    return Closest(t_max.clone(), torch.zeros_like(t_max),
+                   torch.zeros_like(t_max),
+                   torch.full((n,), -1, dtype=torch.int32,
+                              device=t_max.device),
+                   torch.full((n,), -1, dtype=torch.int32,
+                              device=t_max.device))
 
 
 def closest_hit_live(geom, o: Vec3, d: Vec3, alive: torch.Tensor):
@@ -201,17 +245,23 @@ def _with_instances(geom, o: Vec3, d: Vec3, rec: "Closest") -> "Closest":
     return rec if iset is None else instances_closest(iset, o, d, rec)
 
 
-def _closest_kernel(geom, o, d, t_max, alive, n) -> Closest:
+def _closest_kernel(geom, o, d, t_max, alive, n, count=None,
+                    count_scale: int = 1) -> Closest:
     dev = geom.device
     out = torch.empty((5, n), dtype=torch.float32, device=dev)
     t, u, v = out[0], out[1], out[2]
     slot, mesh = out[3].view(torch.int32), out[4].view(torch.int32)
     args = _ray_args(geom, o, d, t_max)
     counter = _counter(dev)
-    rc = kernels.get_lib().ptrt_closest_hit(
-        *args, 0 if alive is None else alive.data_ptr(), n, t.data_ptr(),
-        u.data_ptr(), v.data_ptr(), slot.data_ptr(), mesh.data_ptr(),
-        counter.data_ptr(), kernels.stream_ptr(dev))
+    planes = (t.data_ptr(), u.data_ptr(), v.data_ptr(), slot.data_ptr(),
+              mesh.data_ptr(), counter.data_ptr(), kernels.stream_ptr(dev))
+    lib = kernels.get_lib()
+    if count is None:
+        rc = lib.ptrt_closest_hit(
+            *args, 0 if alive is None else alive.data_ptr(), n, *planes)
+    else:
+        rc = lib.ptrt_closest_hit_counted(*args, n, count.data_ptr(),
+                                          int(count_scale), *planes)
     kernels.launches["closest_hit"] += 1
     kernels.check(rc, "closest_hit")
     return Closest(t, u, v, slot, mesh)
@@ -237,12 +287,7 @@ def closest_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
     if live is not None:  # a ray with t_max <= T_MIN hits nothing
         rec = closest_hit_plain(geom, o.map(lambda c: c[live]),
                                 d.map(lambda c: c[live]), t_max[live], slots)
-        out = Closest(t_max.clone(), torch.zeros_like(t_max),
-                      torch.zeros_like(t_max),
-                      torch.full((n,), -1, dtype=torch.int32,
-                                 device=t_max.device),
-                      torch.full((n,), -1, dtype=torch.int32,
-                                 device=t_max.device))
+        out = _miss_record(t_max)
         for p, q in zip(out, rec):
             p[live] = q
         return out
@@ -281,20 +326,35 @@ def closest_hit_plain(geom: SceneGeometry, o: Vec3, d: Vec3,
 # -- K2 ----------------------------------------------------------------------
 
 
-def any_hit(geom, o: Vec3, d: Vec3, t_max: torch.Tensor) -> torch.Tensor:
+def any_hit(geom, o: Vec3, d: Vec3, t_max: torch.Tensor, count=None,
+            count_scale: int = 1) -> torch.Tensor:
     """Occluded-or-not per ray up to ``t_max`` (bool); triangles whose
-    shadow-opaque bit is clear (transmissive materials) never occlude."""
+    shadow-opaque bit is clear (transmissive materials) never occlude.
+    ``count`` and ``count_scale`` as ``closest_hit``'s."""
     static = static_of(geom)
     n = _check_rays(static, o, d, t_max)
+    if count is not None:
+        _check_count(geom, count, count_scale)
     if static.device.type == "cpu":
-        hit = any_hit_plain(static, o, d, t_max)
+        if count is None:
+            hit = any_hit_plain(static, o, d, t_max)
+        else:
+            m = counted(n, count, count_scale)
+            hit = torch.zeros(n, dtype=torch.bool)
+            hit[:m] = any_hit_plain(static, o.map(lambda c: c[:m]),
+                                    d.map(lambda c: c[:m]), t_max[:m])
     else:
         hit = torch.empty(n, dtype=torch.bool, device=static.device)
         args = _ray_args(static, o, d, t_max)
         counter = _counter(static.device)
-        rc = kernels.get_lib().ptrt_any_hit(*args, n, hit.data_ptr(),
-                                            counter.data_ptr(),
-                                            kernels.stream_ptr(static.device))
+        tail = (hit.data_ptr(), counter.data_ptr(),
+                kernels.stream_ptr(static.device))
+        lib = kernels.get_lib()
+        if count is None:
+            rc = lib.ptrt_any_hit(*args, n, *tail)
+        else:
+            rc = lib.ptrt_any_hit_counted(*args, n, count.data_ptr(),
+                                          int(count_scale), *tail)
         kernels.launches["any_hit"] += 1
         kernels.check(rc, "any_hit")
     iset = iset_of(geom)

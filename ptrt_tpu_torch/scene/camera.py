@@ -39,14 +39,17 @@ class Camera:
              aspect_ratio=16.0 / 9.0, aperture=0.0, focus_dist=1.0,
              znear=0.1, zfar=1000.0, *, device) -> "Camera":
         """Points and numbers from the host, or 0-d float32 tensors (and
-        Vec3s of them) on ``device``, as ``set_position`` passes."""
-        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,
-                                        device=device)
-        v3 = lambda p: (p.map(f32) if isinstance(p, Vec3)
-                        else Vec3(f32(p[0]), f32(p[1]), f32(p[2])))
-        lookfrom, lookat, vup = v3(lookfrom), v3(lookat), v3(vup)
-        vfov, aspect_ratio = f32(vfov), f32(aspect_ratio)
-        focus_dist = f32(focus_dist)
+        Vec3s of them) on ``device``, as ``set_position`` passes.  The
+        host numbers reach the device in one copy (``_on_device``: a
+        camera move makes no synchronizing call)."""
+        leaves = []
+        for p in (lookfrom, lookat, vup):
+            leaves += [p.x, p.y, p.z] if isinstance(p, Vec3) else [p[0], p[1],
+                                                                    p[2]]
+        vals = _on_device(leaves + [vfov, aspect_ratio, focus_dist, aperture,
+                                    znear, zfar], device)
+        lookfrom, lookat, vup = (Vec3(*vals[k:k + 3]) for k in (0, 3, 6))
+        vfov, aspect_ratio, focus_dist, aperture_t, near_t, far_t = vals[9:]
 
         theta = vfov * (PI / 180.0)
         h = torch.tan(theta / 2.0)
@@ -65,10 +68,10 @@ class Camera:
         proj = m4.perspective(theta, aspect_ratio, znear, zfar)
         return Camera(origin=lookfrom, lower_left_corner=llc,
                       horizontal=horizontal, vertical=vertical, u=u, v=v, w=w,
-                      lens_radius=f32(aperture) / 2.0, view=view, proj=proj,
+                      lens_radius=aperture_t / 2.0, view=view, proj=proj,
                       inv_view_proj=m4.inverse(proj @ view), fov=vfov,
-                      aspect=aspect_ratio, near_clip=f32(znear),
-                      far_clip=f32(zfar))
+                      aspect=aspect_ratio, near_clip=near_t,
+                      far_clip=far_t)
 
     def ray_through(self, s: float, t: float):
         """Host-side pinhole ray through viewport coords (s, t) in [0, 1]^2:
@@ -131,6 +134,22 @@ class Camera:
                            focus_dist=(self.origin - target).length(),
                            znear=self.near_clip, zfar=self.far_clip,
                            device=dev)
+
+
+def _on_device(values: list, device) -> list:
+    """0-d float32 tensors on ``device`` of ``values`` (host numbers, or 0-d
+    tensors kept as they are): the host numbers, rounded to float32, in
+    one copy, on the card from pinned memory without waiting for it."""
+    device = torch.device(device)
+    host = [float(v) for v in values if not torch.is_tensor(v)]
+    staged = iter(())
+    if host:
+        buf = torch.tensor(host, dtype=torch.float32)
+        buf = (buf.pin_memory().to(device, non_blocking=True)
+               if device.type == "cuda" else buf.to(device))
+        staged = iter(buf.unbind(0))
+    return [torch.as_tensor(v, dtype=torch.float32, device=device)
+            if torch.is_tensor(v) else next(staged) for v in values]
 
 
 def _as_vec3(x, device) -> Vec3:

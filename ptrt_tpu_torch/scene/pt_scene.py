@@ -20,10 +20,12 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ptrt_tpu_torch import graphs
 from ptrt_tpu_torch.core import rng as prng
 from ptrt_tpu_torch.core.bluenoise import blue_noise_table
 from ptrt_tpu_torch.core.vec import Vec3, fmax, lerp, where
@@ -71,6 +73,196 @@ def spp_chunks(spp: int) -> list:
     """The samples of each trace of a frame of ``spp`` samples."""
     return ([SPP_DISPATCH_MAX] * (spp // SPP_DISPATCH_MAX)
             + ([spp % SPP_DISPATCH_MAX] if spp % SPP_DISPATCH_MAX else []))
+
+
+class FrameConfig(NamedTuple):
+    """A frame's static configuration: what its programs are kept by,
+    besides the shapes of what they read (the reference's
+    ``_frame_program`` key, without ``use_brute``: the port walks its BVH
+    at every size)."""
+
+    render_size: tuple  # (rh, rw): traced and denoised
+    size: tuple  # (height, width): displayed
+    spp: int
+    depth: int
+    denoise: bool
+    bloom: bool
+    motion_vectors: bool
+    n_lights: int
+    rr_enabled: bool
+    rr_start: int
+    camera_nee: bool
+    progressive: bool  # the progressive average (only with the denoiser off)
+    den_settings: object
+
+
+def _trace_frame(cfg: FrameConfig, geom, mats, lights, sky, camera, bn,
+                 rng_state, frame_index, samples: int, tile=None):
+    """``pipeline.trace_frame`` of ``samples`` spp under ``cfg``, split into
+    the denoiser's channels when it is on: (PCG state, FrameBuffers)."""
+    return pl.trace_frame(
+        geom, mats, lights, cfg.n_lights, sky, camera, rng_state,
+        frame_index, rng_state.shape[1], rng_state.shape[0], samples,
+        cfg.depth, bn, split=cfg.denoise, rr_enabled=cfg.rr_enabled,
+        rr_start=cfg.rr_start, camera_nee=cfg.camera_nee, tile=tile)
+
+
+_CHANNELS = ("color", "diffuse", "specular", "emission")
+
+
+def _add_chunk(acc, bufs, chunk: int, spp: int, first=None):
+    """A chunk's trace added to its frame's (the reference's
+    ``_init_accum`` / ``_accum_bufs``): the colour channels weighted by
+    float32(chunk / spp), chunk 0 multiplied (``acc`` None) and each later
+    one added in order, the G-buffer chunk 0's and the rays summed.
+    ``first``: a 0-d bool tensor that selects chunk 0's terms on the device
+    (a chunk program's, ``acc`` then its buffers)."""
+    w = float(np.float32(chunk / spp))
+    start = bufs._replace(**{k: None if getattr(bufs, k) is None
+                             else getattr(bufs, k) * w for k in _CHANNELS})
+    if acc is None:
+        return start
+    added = acc._replace(
+        rays_traced=acc.rays_traced + bufs.rays_traced,
+        **{k: None if getattr(acc, k) is None
+           else getattr(acc, k) + getattr(bufs, k) * w for k in _CHANNELS})
+    if first is None:
+        return added
+    pick = lambda a, b: (None if a is None else where(first, a, b)
+                         if isinstance(a, Vec3) else torch.where(first, a, b))
+    return pl.FrameBuffers(*[pick(a, b) for a, b in zip(start, added)])
+
+
+def accumulate(color: Vec3, view_proj: torch.Tensor, accum, keep=None):
+    """The progressive running average: (average, (sum, count,
+    view-projection)).  ``accum``: the sum, its count (a 0-d float32
+    tensor) and the view-projection they were taken under, or None to
+    restart.  The sum goes on where ``view_proj`` has the same VALUES and
+    restarts with this frame where they differ, compared and selected on
+    the device (no value read back).  ``keep``: a 0-d integer tensor, 0 to
+    restart (a program's restart, with ``accum`` its buffers)."""
+    if accum is None:
+        total = color
+        count = torch.ones((), dtype=torch.float32, device=color.x.device)
+    else:
+        total, count, vp = accum
+        same = (view_proj == vp).all()
+        if keep is not None:
+            same = same & (keep != 0)
+        total = where(same, total + color, color)
+        count = torch.where(same, count + 1.0, 1.0)
+    return total * count.reciprocal(), (total, count, view_proj)
+
+
+def _post_frame(cfg: FrameConfig, bufs, camera, frame_index, prev_view_proj,
+                den, accum, keep=None):
+    """The frame after its trace (the reference's ``_post_program``, and
+    the end of its ``_frame_fn``): the progressive average
+    (``accumulate``, with ``cfg.progressive``), motion vectors against
+    ``prev_view_proj``, SVGF, bloom, the upscale and the tonemap.  Returns
+    (rgb8, the denoiser history, the progressive (sum, count,
+    view-projection))."""
+    rh, rw = cfg.render_size
+    current = bufs.color
+    if cfg.progressive:
+        current, accum = accumulate(current, camera.get_view_proj(), accum,
+                                    keep)
+    if cfg.denoise:
+        if cfg.motion_vectors:
+            mv = motion_vectors(bufs.depth, camera, prev_view_proj, rw, rh)
+        else:  # static-camera reprojection
+            zero = torch.zeros((rh, rw), dtype=torch.float32,
+                               device=bufs.depth.device)
+            mv = (zero, zero)
+        current, den = denoise_frame(bufs, mv, den, camera, frame_index,
+                                     settings=cfg.den_settings)
+    # at full size K6 adds the bloom's mip 0 itself; before an upscale the
+    # chain writes the composite
+    bloom = None
+    full_size = cfg.render_size == cfg.size
+    if cfg.bloom and full_size:
+        bloom = bloom_mips(current)
+    elif cfg.bloom:
+        current = apply_bloom(current)
+    if not full_size:
+        current = pl.upscale_bilinear(current, *cfg.size)
+    return pl.tonemap_rgb8(current, 1.0, bloom=bloom), den, accum
+
+
+def _zero_accum(cfg: FrameConfig, device) -> tuple:
+    """The progressive average's buffers before its first frame."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (Vec3.zeros(cfg.render_size, device), torch.zeros((), **f32),
+            torch.zeros((4, 4), **f32))
+
+
+def _zero_buffers(cfg: FrameConfig, device) -> pl.FrameBuffers:
+    """A frame's FrameBuffers of zeros (a chunk program's buffers before its
+    first chunk)."""
+    z = lambda dt=torch.float32: torch.zeros(cfg.render_size, dtype=dt,
+                                             device=device)
+    v3 = lambda: Vec3(z(), z(), z())
+    split = v3 if cfg.denoise else (lambda: None)
+    return pl.FrameBuffers(
+        color=v3(), diffuse=split(), specular=split(), emission=split(),
+        normal=v3(), depth=z(), object_id=z(torch.int32), roughness=z(),
+        transmission=z(),
+        rays_traced=torch.zeros((), dtype=torch.int64, device=device))
+
+
+def program_world(reads: dict):
+    """The world a program's ``reads`` hold (``Scene._frame_reads``)."""
+    if reads["iset"] is None:
+        return reads["static"]
+    return scene_geom.WorldGeometry(
+        static=reads["static"], instances=(),
+        iset=dataclasses.replace(reads["iset"], geom=reads["set_geom"]))
+
+
+def _frame_body(cfg: FrameConfig):
+    """The frame program's body (the reference's ``_frame_fn``): the trace
+    and the post stack; returns ((rgb8, FrameBuffers), the new state)."""
+    def body(reads, st, values):
+        index, keep = values
+        cam = reads["camera"]
+        rng, bufs = _trace_frame(cfg, program_world(reads), reads["mats"],
+                                 reads["lights"], reads["sky"], cam,
+                                 reads["bn"], st["rng"], index, cfg.spp)
+        rgb8, den, accum = _post_frame(cfg, bufs, cam, index, st["prev_vp"],
+                                       st["den"], st["accum"], keep)
+        return (rgb8, bufs), {"rng": rng, "den": den, "accum": accum,
+                              "prev_vp": cam.get_view_proj()}
+    return body
+
+
+def _chunk_body(cfg: FrameConfig, chunk: int):
+    """A chunk program's body (the reference's ``_trace_split`` and its
+    ``_init_accum`` / ``_accum_bufs``): ``chunk`` samples traced at the
+    staged index and added to the frame's buffers (chunk 0, staged
+    ``first``, starts them)."""
+    def body(reads, st, values):
+        index, first = values
+        rng, bufs = _trace_frame(cfg, program_world(reads), reads["mats"],
+                                 reads["lights"], reads["sky"],
+                                 reads["camera"], reads["bn"], st["rng"],
+                                 index, chunk)
+        return None, {"rng": rng, "acc": _add_chunk(st["acc"], bufs, chunk,
+                                                    cfg.spp, first != 0)}
+    return body
+
+
+def _post_body(cfg: FrameConfig):
+    """The post program's body (the reference's ``_post_program``) on the
+    chunk programs' buffers."""
+    def body(reads, st, values):
+        index, keep = values
+        cam = reads["camera"]
+        rgb8, den, accum = _post_frame(cfg, reads["acc"], cam, index,
+                                       st["prev_vp"], st["den"],
+                                       st["accum"], keep)
+        return rgb8, {"den": den, "accum": accum,
+                      "prev_vp": cam.get_view_proj()}
+    return body
 
 
 @dataclass
@@ -152,8 +344,13 @@ class Scene:
         self._accum = None
         self._accum_view_proj = None
         self.prev_view_proj = self.camera.get_view_proj()
-        # the FrameBuffers of the last rendered frame
+        # the FrameBuffers of the last rendered frame: on the card (and for
+        # a chunked frame) a program's buffers, which the next frame
+        # overwrites: clone what must outlive it
         self.last_frame: pl.FrameBuffers | None = None
+        # the frame programs by configuration (render_frame_device), of the
+        # current world's shapes
+        self._programs = graphs.Programs()
 
     # -- scene edits ---------------------------------------------------------
     def add_mesh(self, mesh_or_path, material: Material | None = None) -> Mesh:
@@ -496,177 +693,249 @@ class Scene:
         return self._sky_cache[2]
 
     # -- rendering -----------------------------------------------------------
-    def _trace(self, geom, camera, frame_index, rh: int, rw: int,
-               split: bool, mesh=None) -> pl.FrameBuffers:
-        """The frame's trace of ``geom`` from ``camera``: one
-        ``trace_frame`` up to ``SPP_DISPATCH_MAX`` spp, else one a chunk
-        (``spp_chunks``), its colour channels weighted by float32(chunk /
-        spp) in the reference's order (chunk 0 multiplied, each later one
-        added), the G-buffer chunk 0's and the rays summed.  With ``mesh``
-        (a ``parallel.sharding.PixelMesh``) each trace runs tile by tile,
-        a tile a device and stream, and is put together on the scene's
-        device: the same pixels bit for bit."""
+    def _config(self, progressive: bool) -> FrameConfig:
+        """The frame's static configuration (a program's key)."""
         p = self.perf
-        spp = int(p.samples_per_pixel)
-        sky = self.sky()
-        tables = (geom, self._mat_table, self._light_table, sky, camera,
-                  self._blue_noise)
+        denoise = bool(p.enable_denoiser)
+        return FrameConfig(
+            render_size=self.render_size, size=(self.height, self.width),
+            spp=int(p.samples_per_pixel), depth=int(p.max_bounce_depth),
+            denoise=denoise, bloom=bool(p.enable_bloom),
+            motion_vectors=bool(p.enable_motion_vectors),
+            n_lights=len(self.lights),
+            rr_enabled=bool(p.enable_russian_roulette),
+            rr_start=int(p.russian_roulette_start_bounce),
+            camera_nee=bool(p.camera_nee_fix),
+            progressive=bool(progressive) and not denoise,
+            den_settings=self.denoiser_settings or DEFAULT_SETTINGS)
 
-        def trace_frame(rng_state, geom_, mats, lights, sky_, camera_, bn,
-                        samples, offset, tile=None):
-            return pl.trace_frame(
-                geom_, mats, lights, len(self.lights), sky_, camera_,
-                rng_state, frame_index + offset, rng_state.shape[1],
-                rng_state.shape[0], samples, int(p.max_bounce_depth), bn,
-                split=split, rr_enabled=bool(p.enable_russian_roulette),
-                rr_start=int(p.russian_roulette_start_bounce),
-                camera_nee=bool(p.camera_nee_fix), tile=tile)
+    def _ensure_denoiser_state(self, cfg: FrameConfig) -> None:
+        """The SVGF history, made when the denoiser is on and there is none
+        of the render size (before a program is made, as the reference
+        makes it before its first frame program)."""
+        if cfg.denoise and (self._denoiser_state is None
+                            or tuple(self._denoiser_state.depth.shape)
+                            != cfg.render_size):
+            self._denoiser_state = init_denoiser_state(*cfg.render_size,
+                                                       self.device)
+
+    def _trace(self, geom, camera, frame_index, cfg: FrameConfig,
+               mesh=None) -> pl.FrameBuffers:
+        """The frame's trace of ``geom`` from ``camera``, eagerly: one
+        ``trace_frame`` up to ``SPP_DISPATCH_MAX`` spp, else one a chunk
+        (``spp_chunks``, ``_add_chunk``).  With ``mesh`` (a
+        ``parallel.sharding.PixelMesh``) each trace runs tile by tile, a
+        tile a device and stream, and is put together on the scene's
+        device: the same pixels bit for bit."""
+        rh, rw = cfg.render_size
+        tables = (geom, self._mat_table, self._light_table, self.sky(),
+                  camera, self._blue_noise)
 
         def trace(samples: int, offset: int) -> pl.FrameBuffers:
             if mesh is None:
-                self._rng_state, bufs = trace_frame(
-                    self._rng_state, *tables, samples, offset)
+                self._rng_state, bufs = _trace_frame(
+                    cfg, *tables, self._rng_state, frame_index + offset,
+                    samples)
                 return bufs
             fn = sharding.shard_mapped_trace(
-                mesh, rh, rw, lambda st, *a, tile: trace_frame(
-                    st, *a, samples, offset, tile=tile))
+                mesh, rh, rw, lambda st, *a, tile: _trace_frame(
+                    cfg, *a, st, frame_index + offset, samples, tile=tile))
             state, bufs = fn(self._rng_state, *tables)
             self._rng_state = sharding.gather_pixels(mesh, state)
             return sharding.gather_pixels(mesh, bufs)
 
-        if spp <= SPP_DISPATCH_MAX:
-            return trace(spp, 0)
-        names = ("color", "diffuse", "specular", "emission")
+        if cfg.spp <= SPP_DISPATCH_MAX:
+            return trace(cfg.spp, 0)
         acc, off = None, 0
-        for c in spp_chunks(spp):
-            bufs = trace(c, off)
-            w = float(np.float32(c / spp))
-            if acc is None:
-                acc = bufs._replace(**{
-                    k: None if getattr(bufs, k) is None
-                    else getattr(bufs, k) * w for k in names})
-            else:
-                acc = acc._replace(
-                    rays_traced=acc.rays_traced + bufs.rays_traced, **{
-                        k: None if getattr(acc, k) is None
-                        else getattr(acc, k) + getattr(bufs, k) * w
-                        for k in names})
+        for c in spp_chunks(cfg.spp):
+            acc = _add_chunk(acc, trace(c, off), c, cfg.spp)
             off += c
         return acc
 
     def render_frame_device(self, mesh=None) -> torch.Tensor:
-        """One frame -> (H, W, 3) uint8 tensor on the scene's device; with
-        ``mesh`` its trace runs over that pixel mesh (``render_world``)."""
+        """One frame -> (H, W, 3) uint8 tensor on the scene's device, its
+        own (the next frame does not overwrite it).  The frame runs as a
+        program kept per configuration (``Scene._programs``; the
+        reference's ``_frame_program``, and above ``SPP_DISPATCH_MAX`` spp
+        its chunk and post programs): on the card the first frame of a
+        configuration warms its body up and captures it into a CUDA graph,
+        and every later frame is one replay; on the CPU the program calls
+        the body.  With ``mesh`` the frame runs eagerly over that pixel
+        mesh (``render_world``)."""
         self._ensure_device_state()
-        img = self.render_world(self._geom, self.camera, self.frame_count,
-                                self.prev_view_proj,
-                                bool(self.perf.progressive_accumulation),
-                                mesh=mesh)
+        if mesh is not None:
+            img = self.render_world(self._geom, self.camera,
+                                    self.frame_count, self.prev_view_proj,
+                                    bool(self.perf.progressive_accumulation),
+                                    mesh=mesh)
+            self.prev_view_proj = self.camera.get_view_proj()
+        else:
+            img = self._program_frame()
         self.frame_count += 1
-        self.prev_view_proj = self.camera.get_view_proj()
         return img
 
     def render_world(self, geom, camera, frame_index, prev_view_proj,
                      progressive: bool = False, mesh=None) -> torch.Tensor:
-        """The frame body (the reference's ``_frame_fn``): one frame of a
-        given world ``geom`` (a ``SceneGeometry`` or ``WorldGeometry`` on
-        the scene's device) seen by ``camera`` -> (H, W, 3) uint8 on the
-        device: the trace at frame index ``frame_index`` (a Python int,
-        or a 0-d integer tensor on the scene's device, the same bits: a
-        frame captured into a CUDA graph reads it there), the progressive
-        average (with ``progressive`` and the denoiser off), motion vectors
-        against ``prev_view_proj``, SVGF, bloom, the upscale and the
-        tonemap.  It advances the RNG state and the denoiser history and
-        sets ``last_frame``; it leaves the frame count, ``prev_view_proj``
-        and the scene's own geometry as they are (the caller's), and
-        rebuilds no table: the materials, lights and sky must be current
-        (``_ensure_device_state``).  ``mesh``: a pixel mesh
-        (``parallel.sharding.make_pixel_mesh``, its first device the
+        """The frame body (the reference's ``_frame_fn``), run eagerly: one
+        frame of a given world ``geom`` (a ``SceneGeometry`` or
+        ``WorldGeometry`` on the scene's device) seen by ``camera`` ->
+        (H, W, 3) uint8 on the device: the trace at frame index
+        ``frame_index`` (a Python int, or a 0-d integer tensor on the
+        scene's device, the same bits: a frame captured into a CUDA graph
+        reads it there), the progressive average (with ``progressive`` and
+        the denoiser off), motion vectors against ``prev_view_proj``, SVGF,
+        bloom, the upscale and the tonemap.  It advances the RNG state and
+        the denoiser history and sets ``last_frame``; it leaves the frame
+        count, ``prev_view_proj`` and the scene's own geometry as they are
+        (the caller's), and rebuilds no table: the materials, lights and
+        sky must be current (``_ensure_device_state``).  ``mesh``: a pixel
+        mesh (``parallel.sharding.make_pixel_mesh``, its first device the
         scene's) that the trace runs over, a tile a device and stream, as
-        the reference's ``_frame_fn(mesh=)``; the post stack stays whole
-        on the scene's device, and the frame is the unmeshed one bit for
+        the reference's ``_frame_fn(mesh=)``; the post stack stays whole on
+        the scene's device, and the frame is the unmeshed one bit for
         bit."""
-        p = self.perf
         if mesh is not None and mesh.first_device != self.device:
             raise ValueError(f"the mesh's first device {mesh.first_device} "
                              f"is not the scene's {self.device}")
         self._ensure_rng_state()
-        rh, rw = self.render_size
-        denoise = bool(p.enable_denoiser)
-        if denoise and (self._denoiser_state is None
-                        or tuple(self._denoiser_state.depth.shape)
-                        != (rh, rw)):
-            self._denoiser_state = init_denoiser_state(rh, rw, self.device)
-        bufs = self._trace(geom, camera, frame_index, rh, rw, denoise, mesh)
+        cfg = self._config(progressive)
+        self._ensure_denoiser_state(cfg)
+        bufs = self._trace(geom, camera, frame_index, cfg, mesh)
         self.last_frame = bufs
+        accum = (self._accum_now(cfg.render_size) if cfg.progressive
+                 else None)
+        rgb8, den, accum = _post_frame(cfg, bufs, camera, frame_index,
+                                       prev_view_proj, self._denoiser_state,
+                                       accum)
+        if cfg.denoise:
+            self._denoiser_state = den
+        if cfg.progressive:
+            self._accum, self._accum_view_proj = accum[:2], accum[2]
+        return rgb8
 
-        current = bufs.color
-        if progressive and not denoise:
-            current = self._accumulate(current, rh, rw, camera)
-        if denoise:
-            if p.enable_motion_vectors:
-                mv = motion_vectors(bufs.depth, camera, prev_view_proj, rw,
-                                    rh)
-            else:  # static-camera reprojection
-                zero = torch.zeros((rh, rw), dtype=torch.float32,
-                                   device=self.device)
-                mv = (zero, zero)
-            current, self._denoiser_state = denoise_frame(
-                bufs, mv, self._denoiser_state, camera, frame_index,
-                settings=self.denoiser_settings or DEFAULT_SETTINGS)
-        # at full size K6 adds the bloom's mip 0 itself; before an upscale
-        # the chain writes the composite
-        bloom = None
-        full_size = (rh, rw) == (self.height, self.width)
-        if p.enable_bloom and full_size:
-            bloom = bloom_mips(current)
-        elif p.enable_bloom:
-            current = apply_bloom(current)
-        if not full_size:
-            current = pl.upscale_bilinear(current, self.height, self.width)
-        return pl.tonemap_rgb8(current, 1.0, bloom=bloom)
+    def _accum_now(self, render_size: tuple):
+        """(sum, count, view-projection) the next frame's average adds to,
+        or None where it restarts (after ``reset_accumulation``, or at
+        another render size)."""
+        if (self._accum is None or self._accum_view_proj is None
+                or tuple(self._accum[0].x.shape) != render_size):
+            return None
+        return (*self._accum, self._accum_view_proj)
 
     def _accumulate(self, color, rh: int, rw: int, camera=None):
         """Add the frame to the progressive sum and return the running
-        average.  The sum restarts when the view-projection's VALUES change
-        (the camera moved, whichever way it was set) or the render size
-        changed.  The values are compared on the device and the sum and its
-        count selected there, as the reference does inside its program: no
-        copy to the host, so the frame never waits for the card here.
-        ``camera``: the frame's (by default the scene's)."""
+        average (``accumulate``).  The sum restarts when the
+        view-projection's VALUES change (the camera moved, whichever way it
+        was set) or the render size changed.  ``camera``: the frame's (by
+        default the scene's)."""
         view_proj = (camera or self.camera).get_view_proj()
-        if (self._accum is None or self._accum_view_proj is None
-                or tuple(self._accum[0].x.shape) != (rh, rw)):
-            self._accum = (color, torch.ones((), dtype=torch.float32,
-                                             device=color.x.device))
+        avg, accum = accumulate(color, view_proj, self._accum_now((rh, rw)))
+        self._accum, self._accum_view_proj = accum[:2], accum[2]
+        return avg
+
+    # -- the programs --------------------------------------------------------
+    def _frame_reads(self) -> dict:
+        """What a frame program reads, grouped: the static world, the merged
+        instance set's tables (``set_geom``: K5's refits write them in
+        place) and its other tables, the materials, lights, sky, camera and
+        blue noise."""
+        g = self._geom
+        iset = traverse.iset_of(g)
+        return {"static": traverse.static_of(g),
+                "iset": (None if iset is None
+                         else dataclasses.replace(iset, geom=None)),
+                "set_geom": None if iset is None else iset.geom,
+                "mats": self._mat_table, "lights": self._light_table,
+                "sky": self.sky(), "camera": self.camera,
+                "bn": self._blue_noise}
+
+    def _program(self, key: tuple, world: tuple, make) -> graphs.Program:
+        """The program of ``key`` on a world of signature ``world`` (of
+        ``_frame_reads``), made by ``make()`` at its first frame
+        (``graphs.Programs``: those of a world whose shapes changed are
+        dropped)."""
+        return self._programs.program(key, world, make)
+
+    def _program_frame(self) -> torch.Tensor:
+        """One frame through the programs of its configuration: the frame
+        program, or the chunk programs and the post program above
+        ``SPP_DISPATCH_MAX`` spp.  Afterwards the scene's PCG state,
+        denoiser history, progressive average and ``prev_view_proj`` are
+        the programs' buffers, and ``last_frame`` their FrameBuffers."""
+        cfg = self._config(bool(self.perf.progressive_accumulation))
+        self._ensure_denoiser_state(cfg)
+        reads = self._frame_reads()
+        world = graphs.signature(reads)
+        accum = (self._accum_now(cfg.render_size) if cfg.progressive
+                 else None)
+        keep = int(accum is not None)
+        state = {"den": self._denoiser_state if cfg.denoise else None,
+                 "accum": accum, "prev_vp": self.prev_view_proj}
+        # the buffers a new program starts from: the progressive average's
+        # exist before its first frame (a restart selects this frame)
+        init = dict(state, accum=(_zero_accum(cfg, self.device)
+                                  if cfg.progressive else None))
+        if cfg.spp <= SPP_DISPATCH_MAX:
+            key = ("frame", cfg)
+            prog = self._program(key, world, lambda: graphs.Program(
+                _frame_body(cfg), reads, dict(init, rng=self._rng_state),
+                (0, 0), self.device, edited=("set_geom",)))
+            rgb8, bufs = prog.run(reads, dict(state, rng=self._rng_state),
+                                  (self.frame_count, keep))
+            self._rng_state = prog.state["rng"]
         else:
-            same = (view_proj == self._accum_view_proj).all()
-            total, count = self._accum
-            self._accum = (where(same, total + color, color),
-                           torch.where(same, count + 1.0, 1.0))
-        self._accum_view_proj = view_proj
-        return self._accum[0] * self._accum[1].reciprocal()
+            bufs = None
+            off = 0
+            for k, c in enumerate(spp_chunks(cfg.spp)):
+                key = ("chunk", cfg, c)
+                prog = self._program(key, world, lambda: graphs.Program(
+                    _chunk_body(cfg, c), reads,
+                    {"rng": self._rng_state,
+                     "acc": _zero_buffers(cfg, self.device)},
+                    (0, 0), self.device, edited=("set_geom",)))
+                prog.run(reads, {"rng": self._rng_state, "acc": bufs},
+                         (self.frame_count + off, int(k == 0)))
+                self._rng_state, bufs = prog.state["rng"], prog.state["acc"]
+                off += c
+            # the chunk programs write their buffers in place
+            post_reads = {"acc": bufs, "camera": reads["camera"]}
+            prog = self._program(("post", cfg), world, lambda: graphs.Program(
+                _post_body(cfg), post_reads, init, (0, 0), self.device,
+                edited=("acc",)))
+            rgb8 = prog.run(post_reads, state, (self.frame_count, keep))
+        st = prog.state
+        if cfg.denoise:
+            self._denoiser_state = st["den"]
+        if cfg.progressive:
+            self._accum = st["accum"][:2]
+            self._accum_view_proj = st["accum"][2]
+        self.prev_view_proj = st["prev_vp"]
+        self.last_frame = bufs
+        return rgb8 if prog.graph is None else rgb8.clone()
 
     def warmup(self, block: bool = True):
         """Render one throwaway frame of the current configuration (on the
-        card this builds the kernels at their first use) and restore every
-        piece of progressive state: the frame count, the RNG state, the
-        denoiser history, the progressive average and the view-projection
-        it was taken under, ``prev_view_proj`` and ``last_frame``.  The
-        next frame is then bit-identical to an unwarmed scene's.
-        ``block=False`` renders on a background thread and returns it
-        (join it before rendering)."""
+        card this builds the kernels at their first use and makes and
+        captures its programs) and restore every piece of progressive
+        state, as copies: the frame count, the RNG state, the denoiser
+        history, the progressive average and the view-projection it was
+        taken under, ``prev_view_proj`` and ``last_frame``.  The next frame
+        copies them into the programs' buffers and is bit-identical to an
+        unwarmed scene's.  ``block=False`` renders on a background thread
+        and returns it (join it before rendering)."""
         def go():
-            saved = (self.frame_count, self._rng_state, self._denoiser_state,
-                     self._accum, self._accum_view_proj, self.prev_view_proj,
-                     self.last_frame)
+            saved = graphs.clone_tree((
+                self._rng_state, self._denoiser_state, self._accum,
+                self._accum_view_proj, self.prev_view_proj, self.last_frame))
+            count = self.frame_count
             try:
                 self.render_frame_device()
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             finally:
-                (self.frame_count, self._rng_state, self._denoiser_state,
-                 self._accum, self._accum_view_proj, self.prev_view_proj,
+                self.frame_count = count
+                (self._rng_state, self._denoiser_state, self._accum,
+                 self._accum_view_proj, self.prev_view_proj,
                  self.last_frame) = saved
 
         if block:

@@ -7,6 +7,10 @@ packs the tables; the frame is the reference's: pinhole camera rays over
 the pixel grid, the closest walk (K1), the one-bounce PBR shade with its
 shadow rays (K10 and K2, ``render/rt_shading.rt_frame``), the glass branch
 where the scene has glass, sky on a miss, Reinhard, gamma 2.2 and RGB8.
+``render_frame_device`` runs it as a program kept per configuration (the
+reference's ``_rt_frame_program``): on the card captured into a CUDA graph
+at its first frame and replayed after, its glass pass sized by the glass
+count on the card; ``render_eager`` runs the same body eagerly.
 
 The reference intersects scenes of 192 triangles or fewer by brute force;
 the port walks its BVH at every size, as its PT ``Scene`` does.  The scene
@@ -18,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ptrt_tpu_torch import graphs
 from ptrt_tpu_torch.geometry.mesh import Mesh
 from ptrt_tpu_torch.geometry.scene_geom import assemble_geometry
 from ptrt_tpu_torch.render import rt_shading
@@ -49,8 +54,14 @@ class RTScene:
         self._mat_table = None
         self._light_table = None
         self._dirty = True
-        # the records of the last frame (rt_shading.RTFrame)
-        self.last_frame: rt_shading.RTFrame | None = None
+        # the last frame's records (rt_shading.RTFrame; on the card its
+        # glass pass at its room, which ``last_frame`` cuts to G, and the
+        # program's, which the next frame overwrites)
+        self.frame_records: rt_shading.RTFrame | None = None
+        # the frame programs by configuration (of the current world's
+        # shapes), and the lighting parameters by value
+        self._programs = graphs.Programs()
+        self._params = None
 
     # -- scene building (the PT scene's factory surface) ---------------------
     def add_mesh(self, mesh_or_path, material: Material | None = None) -> Mesh:
@@ -152,26 +163,60 @@ class RTScene:
     # -- rendering -----------------------------------------------------------
     def params(self) -> torch.Tensor:
         """The lighting parameters the K10 stages take (ambient, sky top,
-        sky bottom, use_sky), on the scene's device."""
-        return rt_shading.rt_params(self.ambient_light, self.sky_color_top,
-                                    self.sky_color_bottom, self.use_sky,
-                                    self.device)
+        sky bottom, use_sky), on the scene's device: made again only when
+        they changed (a frame copies nothing to the card otherwise)."""
+        key = (tuple(self.ambient_light), tuple(self.sky_color_top),
+               tuple(self.sky_color_bottom), bool(self.use_sky))
+        if self._params is None or self._params[0] != key:
+            self._params = (key, rt_shading.rt_params(
+                *key[:3], key[3], self.device))
+        return self._params[1]
 
     def camera_rays(self):
         """The pinhole rays of the pixel grid (bottom row first), flat."""
-        s, t = pixel_grid(self.width, self.height, self.device)
-        ray = self.camera.get_ray_simple(s, t)
-        flat = lambda c: c.reshape(-1).contiguous()
-        return ray.origin.map(flat), ray.direction.map(flat)
+        return pinhole_rays(self.camera, self.width, self.height)
 
-    def render_frame_device(self) -> torch.Tensor:
-        """One frame -> (H, W, 3) uint8 tensor on the scene's device."""
+    @property
+    def last_frame(self) -> rt_shading.RTFrame | None:
+        """The last frame's records (``rt_shading.RTFrame``) with the glass
+        pass cut to its G lanes (``rt_shading.compact``: G is read from the
+        card when they are asked for, never by the frame); on the card the
+        program's, which the next frame overwrites."""
+        if self.frame_records is None:
+            return None
+        return rt_shading.compact(self.frame_records)
+
+    def render_eager(self) -> rt_shading.RTFrame:
+        """The frame body run eagerly (``rt_shading.rt_frame``) on the
+        scene as it stands, the glass pass sized by G read to the host: its
+        RTFrame (the records compact).  Sets nothing."""
         self._ensure()
         o, d = self.camera_rays()
-        self.last_frame = rt_shading.rt_frame(
+        return rt_shading.rt_frame(
             self._geom, self._mat_table, self._light_table, len(self.lights),
             self.params(), o, d, self.height, self.width, self._has_glass())
-        return self.last_frame.rgb8
+
+    def render_frame_device(self) -> torch.Tensor:
+        """One frame -> (H, W, 3) uint8 tensor on the scene's device, its
+        own (the next frame does not overwrite it).  The frame is a
+        program kept per (width, height, light count, glass) and the shapes
+        it reads: on the card the first frame of a configuration captures
+        ``rt_frame(device_count=True)`` into a CUDA graph and every later
+        frame is one replay, with no read of the card; on the CPU the
+        program calls the body.  ``frame_records``: its RTFrame."""
+        self._ensure()
+        has_glass = self._has_glass()
+        reads = {"geom": self._geom, "mats": self._mat_table,
+                 "lights": self._light_table, "params": self.params(),
+                 "camera": self.camera}
+        key = (self.width, self.height, len(self.lights), has_glass)
+        prog = self._programs.program(
+            key, graphs.signature(reads), lambda: graphs.Program(
+                _frame_body(self.width, self.height, len(self.lights),
+                            has_glass), reads, {}, None, self.device))
+        self.frame_records = prog.run(reads, {}, None)
+        rgb8 = self.frame_records.rgb8
+        return rgb8 if prog.graph is None else rgb8.clone()
 
     def render_frame(self) -> np.ndarray:
         return self.render_frame_device().cpu().numpy()
@@ -188,3 +233,24 @@ class RTScene:
         if img is None:
             img = self.render_frame()
         save_ppm(path, img)
+
+
+def pinhole_rays(camera, width: int, height: int):
+    """The pinhole rays of ``camera`` through a width x height pixel grid
+    (bottom row first), flat."""
+    s, t = pixel_grid(width, height, camera.origin.x.device)
+    ray = camera.get_ray_simple(s, t)
+    flat = lambda c: c.reshape(-1).contiguous()
+    return ray.origin.map(flat), ray.direction.map(flat)
+
+
+def _frame_body(width: int, height: int, n_lights: int, has_glass: bool):
+    """The RT frame program's body: the camera's rays, then ``rt_frame``
+    with the glass count on the card; returns (RTFrame, no state)."""
+    def body(reads, st, values):
+        o, d = pinhole_rays(reads["camera"], width, height)
+        return rt_shading.rt_frame(
+            reads["geom"], reads["mats"], reads["lights"], n_lights,
+            reads["params"], o, d, height, width, has_glass,
+            device_count=True), {}
+    return body

@@ -551,15 +551,19 @@ def kernel_resources(lib_path: str, names) -> dict:
 
 def orbit_frames(sc, frames: int = 3):
     """Render ``frames`` balanced frames with the camera orbiting 0.5
-    degrees a frame; returns the denoiser state and view-projection the
-    last one started from."""
+    degrees a frame; returns copies of the denoiser state and
+    view-projection the last one started from (the scene's are its frame
+    program's buffers, which each frame advances in place)."""
     import math
+
+    from ptrt_tpu_torch import graphs
 
     sc.set_performance_preset("balanced")
     sc.perf.samples_per_pixel = 1
     for k in range(frames):
         a = math.radians(0.5 * k)
-        state0, prev_vp = sc._denoiser_state, sc.prev_view_proj
+        state0 = graphs.clone_tree(sc._denoiser_state)
+        prev_vp = sc.prev_view_proj.clone()
         sc.set_camera((7.5 * math.sin(a), 1.2, 6.0 - 7.5 * math.cos(a)),
                       (0.0, 0.0, 6.0), fov=60)
         sc.render_frame()

@@ -28,6 +28,7 @@ import torch
 
 from ptrt_tpu.scene.pt_scene import Scene as RefScene
 
+from ptrt_tpu_torch import graphs
 from ptrt_tpu_torch.app.bench_scene import build_bench_scene
 from ptrt_tpu_torch.render import pipeline
 from ptrt_tpu_torch.render.bloom import apply_bloom
@@ -125,7 +126,9 @@ def test_denoised_frame_is_not_accumulated():
     sc = _small("balanced")
     assert sc.perf.progressive_accumulation and sc.perf.enable_denoiser
     sc.render_frame()
-    state, prev_vp = sc._denoiser_state, sc.prev_view_proj
+    # copies: the next frame advances the frame program's buffers in place
+    state = graphs.clone_tree(sc._denoiser_state)
+    prev_vp = sc.prev_view_proj.clone()
     img = sc.render_frame_device()
     bufs = sc.last_frame
     mv = motion_vectors(bufs.depth, sc.camera, prev_vp, W, H)
