@@ -33,7 +33,9 @@ Phases (any failure raises, so the exit code is non-zero):
      timed on each wavefront beside that wavefront's bound, with the share
      of warps that hold a live lane) and on random
      lanes of every material lobe and light type (65,536; a ragged 16,421
-     with the tables in global memory; 65,536 all dead): PCG states
+     with the tables in global memory, and again with 360 material rows
+     staged, which pass 48 KB beside the scatter's list; 65,536 all
+     dead): PCG states
      bit-exact, flags and lobes agreeing on at least 99.99% of lanes, values
      within the tiers of tests/test_torch_shading.py, under the record's
      contract (render/shade.py: a dead lane's record is unspecified);
@@ -47,15 +49,19 @@ Phases (any failure raises, so the exit code is non-zero):
      build_hdri_scene): the wavefronts of bounces 0-3, split off and on,
      each stage and K2 on the env shadow rays timed beside its bound; random
      lanes of every lobe under maps at rotations 0.7 and -3.0 with
-     directions at the map's wrap (once ragged with the tables in global
-     memory), and all dead: PCG states bit-exact, the env record under its
+     directions at the map's wrap (ragged with the tables in global
+     memory, and with tables staged that pass 48 KB beside the kernels'
+     lists), and all dead: PCG states bit-exact, the env record under its
      contract (t_max equal on every lane, the rest where NEE, with the
      share of bit-exact lanes a field), shade_scatter equal to its plain
      stage on the same inputs on every lane; K2 on the env shadow rays
      against its plain walk on a sample; the registers and blocks a SM of
      both instantiations (those without env NEE held to what they had
      before the HDRI one existed: shade_nee 64 and 4, shade_scatter 64 and
-     4 at bounce 0, 80 and 3 after);
+     4 at bounce 0, 80 and 3 after; the HDRI kernels held to HDRI_DESIGN:
+     registers, blocks a SM and ptxas's spill bytes, and their blocks,
+     lanes and staged bytes to render/shade.py's launch plans); each time
+     beside the first design's (HDRI_FIRST) and the four bounces' sums;
   4. the bench path: Scene.render_frame() on the bench scene at 1920x1080,
      4 spp, depth 4, ~1M triangles, post stack off — one warm-up and three
      timed frames, with the kernels' launch counts taken over exactly that
@@ -304,6 +310,32 @@ OPS_PER_ITEM = {
     "shade_scatter": 76 + 4 + 42 + 11 + 40 + 4 + 5,
 }
 SHADE_STAGED_BYTES = 48 * 1024  # shade.cu stages tables up to this size
+# the static lists a K3 block keeps in shared memory from bounce 1 on:
+# shade_scatter's 1,024 lanes and states, the HDRI shade_nee's 1,024 lanes,
+# slots and states (and the counts); with them a block's tables and lists
+# pass 48 KB, the default cap, so the kernels raise it.  A table of
+# STAGED_BESIDE_LISTS material rows (128 B each) is staged past that sum.
+SCATTER_LIST_BYTES, NEE_LIST_BYTES = 1024 * 8 + 4, 1024 * 12 + 8
+STAGED_BESIDE_LISTS = 360
+# K3's HDRI kernels as designed (csrc/shade.cu): registers, resident blocks
+# of 256 threads a SM, and ptxas's spill bytes (stores, loads); each
+# kernel's mangled name holds its key
+HDRI_DESIGN = {"shade_nee (hdri)": (73, 3, (0, 0)),
+               "shade_nee (hdri) from bounce 1": (75, 3, (0, 0)),
+               "shade_scatter (hdri)": (64, 4, (56, 76)),
+               "shade_scatter (hdri) from bounce 1": (80, 3, (20, 12))}
+HDRI_KERNELS = {"shade_nee (hdri)": "shade_nee_kernel_hdriILb0E",
+                "shade_nee (hdri) from bounce 1": "shade_nee_kernel_hdriILb1E",
+                "shade_scatter (hdri)": "shade_scatter_kernelILi1ELb1E",
+                "shade_scatter (hdri) from bounce 1":
+                    "shade_scatter_kernelILi4ELb1E"}
+# their first design's ms at bounces 0-3 on the 1080p "hdri" wavefronts,
+# unsplit (False) and split (True), as PERF.md's kernel table keeps them
+# (NVIDIA H100 80GB HBM3, 700 W)
+HDRI_FIRST = {"shade_nee": {False: (0.2513, 0.2474, 0.1598, 0.1177),
+                            True: (0.2751, 0.2713, 0.1647, 0.1259)},
+              "shade_scatter": {False: (0.1570, 0.0998, 0.0752, 0.0550),
+                                True: (0.1943, 0.1245, 0.0904, 0.0614)}}
 # the odd sizes the post kernels are held at besides 1920x1080: crops that
 # are no multiple of a tile, smaller than a halo, one pixel
 ODD_SIZES = ((23, 37), (75, 101), (1, 1), (270, 333))
@@ -1501,9 +1533,10 @@ def check_shade(full, dev, card):
     """Phase 3b: the two K3 kernels against their plain stages on the full
     1080p bench scene (the wavefronts of bounces 0-3 of sample 0, split off
     and on, each stage timed on each beside that wavefront's bound) and on
-    random lanes of every lobe and light type: a set whose length is no
-    multiple of a block, with the tables in global memory, and a wavefront
-    that is wholly dead.  Returns {kernel: stats}."""
+    random lanes of every lobe and light type: sets whose length is no
+    multiple of a block, with the tables in global memory and with tables
+    staged that pass 48 KB beside the lists, and a wavefront that is
+    wholly dead.  Returns {kernel: stats}."""
     import torch
     from ptrt_tpu_torch.render import pipeline, shade, traverse
 
@@ -1528,18 +1561,23 @@ def check_shade(full, dev, card):
         torch.cuda.empty_cache()
     # random lanes of every lobe; the second set is ragged (no multiple of
     # a block) and its material table is too large for shared memory, so
-    # the kernels read both tables from global memory; then the first set
-    # again with every lane dead
+    # the kernels read both tables from global memory; the third stages
+    # tables that fit only beside the scatter's list under the raised cap;
+    # then the first set again with every lane dead
     for tag, lanes, n_mats, dead in (
             ("random lanes", SHADE_RANDOM_LANES, 24, False),
             ("random lanes, ragged, tables in global memory",
              SHADE_RANDOM_LANES // 4 + 37, 400, False),
+            ("random lanes, ragged, tables staged beside the lists",
+             SHADE_RANDOM_LANES // 4 + 37, STAGED_BESIDE_LISTS, False),
             ("random lanes, all dead", SHADE_RANDOM_LANES, 24, True)):
         geom, hits, mats, lights, n_lights, sky, ps = random_lanes(
             dev, lanes, 7, n_mats)
         staged = nbytes(mats.packed, lights.packed) <= SHADE_STAGED_BYTES
-        assert staged == (n_mats == 24), (tag, nbytes(mats.packed,
-                                                      lights.packed))
+        assert staged == (n_mats != 400), (tag, nbytes(mats.packed,
+                                                       lights.packed))
+        if n_mats == STAGED_BESIDE_LISTS:
+            assert nbytes(mats.packed) > 48 * 1024 - SCATTER_LIST_BYTES
         if dead:
             ps.alive = torch.zeros_like(ps.alive)
         mask = lambda rec, n=lanes: torch.arange(n, device=dev) % 3 == 0
@@ -1639,7 +1677,8 @@ def check_hdri(hdri, dev, card, rng):
     scene's wavefronts of bounces 0-3, split off and on (each stage and the
     env K2 walk timed at each bounce beside its bound), and on random lanes
     of every lobe under HDRIs at rotations 0.7 and -3.0 with edge
-    directions (once ragged with the tables in global memory) and all dead;
+    directions (ragged with the tables in global memory, and with tables
+    staged that pass 48 KB beside the lists) and all dead;
     K2 on the env shadow rays against its plain walk on a sample.  Returns
     (stats by kernel, times by split)."""
     import ctypes
@@ -1647,6 +1686,7 @@ def check_hdri(hdri, dev, card, rng):
     import torch
     from ptrt_tpu_torch import kernels
     from ptrt_tpu_torch.render import pipeline, shade, traverse
+    from ptrt_tpu_torch.tools import stages
 
     stats = {k: {"max_abs_err": 0.0, "flag_mismatches": 0, "diverged": 0,
                  "lanes": 0} for k in ("shade_nee", "shade_scatter")}
@@ -1676,10 +1716,18 @@ def check_hdri(hdri, dev, card, rng):
              False, 0.7),
             ("hdri random lanes, rotation -3.0, ragged, tables in global "
              "memory", SHADE_RANDOM_LANES // 4 + 37, 400, False, -3.0),
+            ("hdri random lanes, rotation 0.7, ragged, tables staged "
+             "beside the lists", SHADE_RANDOM_LANES // 4 + 37,
+             STAGED_BESIDE_LISTS, False, 0.7),
             ("hdri random lanes, all dead", SHADE_RANDOM_LANES, 24, True,
              0.0)):
         geom, hits, mats, lights, n_lights, env_sky, ps = env_lanes(
             dev, lanes, 9, n_mats, rot)
+        if n_mats == STAGED_BESIDE_LISTS:
+            # staged, though not within 48 KB beside either kernel's lists
+            both = nbytes(mats.packed, lights.packed)
+            assert 48 * 1024 - NEE_LIST_BYTES < both <= SHADE_STAGED_BYTES
+            assert nbytes(mats.packed) > 48 * 1024 - SCATTER_LIST_BYTES
         if dead:
             ps.alive = torch.zeros_like(ps.alive)
         mask = lambda rec, n=lanes, k=3: torch.arange(n, device=dev) % k == 0
@@ -1730,11 +1778,35 @@ def check_hdri(hdri, dev, card, rng):
         got = info[name]
         assert (got["registers"], got["blocks_per_sm"]) == (regs, blocks), (
             name, got)
+    # the HDRI kernels launch as render/shade.py plans them, and run with
+    # the registers, resident blocks and spills they were designed for
+    # (ptxas's report of this tree's csrc/shade.cu)
+    spills = stages.spill_bytes(stages.source_ptxas(
+        os.path.join(HERE, "ptrt_tpu_torch", "csrc"), "shade.cu"))
+    mats, n_l = sc._mat_table, len(sc.lights)
+    for name, launch in (
+            ("shade_nee (hdri)", shade.nee_launch(W * H, mats,
+                                                  sc._light_table, n_l, 0,
+                                                  True)),
+            ("shade_nee (hdri) from bounce 1", shade.nee_launch(
+                W * H, mats, sc._light_table, n_l, 1, True)),
+            ("shade_scatter (hdri)", shade.scatter_launch(W * H, mats, 0)),
+            ("shade_scatter (hdri) from bounce 1",
+             shade.scatter_launch(W * H, mats, 1))):
+        got = info_h[name]
+        assert (got["threads"], got["block_lanes"], got["shared_bytes"]) == (
+            launch.threads, launch.chunk, launch.staged_bytes), (name, got,
+                                                                 launch)
+        regs, blocks, spilled = HDRI_DESIGN[name]
+        got["spill_bytes"] = next(v for fn, v in spills.items()
+                                  if HDRI_KERNELS[name] in fn)
+        assert (got["registers"], got["blocks_per_sm"],
+                got["spill_bytes"]) == (regs, blocks, spilled), (
+                    name, got, HDRI_DESIGN[name])
     for k in ("shade_nee", "shade_scatter"):
         s = stats[k]
         s.update(info_h[f"{k} (hdri)"])
-        if k == "shade_scatter":
-            s["from_bounce_1"] = info_h["shade_scatter (hdri) from bounce 1"]
+        s["from_bounce_1"] = info_h[f"{k} (hdri) from bounce 1"]
         exact_share = {f: round(a / max(b, 1), 6)
                        for f, (a, b) in s.get("env_exact", {}).items()}
         s["env_exact_share"] = exact_share
@@ -1755,15 +1827,28 @@ def check_hdri(hdri, dev, card, rng):
                 t = times[split][k][b]
                 kms = ("not measured" if t["kernel_ms"] is None
                        else f"{t['kernel_ms']:.4f}")
+                first = HDRI_FIRST[k][split][b]
                 line.append(f"{k} (hdri) queued {t['queued_ms']:.4f} ms, "
-                            f"kernel {kms} vs plain {t['plain_ms']:.2f} ms, "
-                            f"bound {t['bound_ms']:.4f} ms ({t['alive']} "
-                            f"alive)")
+                            f"kernel {kms} (first design {first}) vs plain "
+                            f"{t['plain_ms']:.2f} ms, bound "
+                            f"{t['bound_ms']:.4f} ms ({t['alive']} alive)")
             w = times[split]["env_any_hit"][b]
             line.append(f"K2 env shadow rays {w['ms']:.4f} ms ({w['live']} "
                         f"live), bound {w['bound_ms']:.4f} ms")
             log(f"  hdri {W}x{H} split={split} bounce {b}: "
                 + "; ".join(line) + f" [{card}]")
+        sums = {k: [sum((times[split][k][b]["kernel_ms"]
+                         or times[split][k][b]["queued_ms"])
+                        for b in range(DEPTH)),
+                    sum(times[split][k][b]["bound_ms"] for b in range(DEPTH))]
+                for k in ("shade_nee", "shade_scatter")}
+        for k, (ms, bound_ms) in sums.items():
+            stats[k][f"bounces_ms_split_{split}"] = ms
+        log(f"  hdri split={split}, bounces 0-{DEPTH - 1}: " + "; ".join(
+            f"{k} (hdri) {ms:.4f} ms (first design "
+            f"{sum(HDRI_FIRST[k][split]):.4f}), "
+            f"bound {bound_ms:.4f} ms" for k, (ms, bound_ms) in sums.items())
+            + f" [{card}]")
     return stats, times
 
 

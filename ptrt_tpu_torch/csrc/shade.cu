@@ -75,21 +75,56 @@
 // within 3% of 4; the bounce-0 kernel at 3 blocks a SM (70-80 registers)
 // lost 8-14% (PERF.md).
 
-// The HDRI instantiation (template <bool ENV>, launched where the sky is an
-// HDRI, which always comes with env NEE: env_nee set, env_map set; the
-// instantiation without it compiles to the same code as before it existed): also replaces the env parts of integrator.py (:326-345,
-// :375-399, :431-437), render/sky.py sample_env :171, env_pdf_dir :215 and
-// the HDRI sample_sky :232, and render/nee.py sample_env_lighting :164.  A
-// miss fetches the map bilinearly through the read-only cache (the map,
-// 25-100 MB, is never staged), MIS-weighted against the env sampler where
-// the lane drew an env sample at its last hit and did not scatter
-// specularly.  A NEE lane draws its env sample (four PCG numbers, before the
-// light's five) from the alias table and writes the env record; shade_scatter
-// adds the env term before the light's and, where the lane survives its
-// scatter, writes the MIS carries (prev_pdf, prev_nee).  A simple design: a
-// NEE lane runs a second BSDF evaluation and material_pdf, and both HDRI
-// kernels are compiled for 3 blocks a SM (80 registers; shade_scatter's
-// list-driven form spills 32 bytes).  Their times are in PERF.md.
+// The HDRI kernels (shade_nee_kernel_hdri, shade_scatter_kernel<.., true>;
+// launched where the sky is an HDRI, which always comes with env NEE:
+// env_nee set, env_map set) also replace the env parts of integrator.py
+// (:326-345, :375-399, :431-437), render/sky.py sample_env :171,
+// env_pdf_dir :215 and the HDRI sample_sky :232, and render/nee.py
+// sample_env_lighting :164.  A miss fetches the map bilinearly,
+// MIS-weighted against the env sampler where the lane drew an env sample
+// at its last hit and did not scatter specularly.  A NEE lane draws its env
+// sample (four PCG numbers, before the light's five) from the alias table
+// and writes the env record; shade_scatter adds the env term before the
+// light's and, where the lane survives its scatter, writes the MIS carries
+// (prev_pdf, prev_nee).  What holds them is latency and the map's texels:
+// a live lane's chain of dependent loads, and at bounce 0 a NEE lane's env
+// texels and from bounce 1 a miss's, scattered over a 100 MB map.
+//
+// The design: shade_nee from bounce 1 lists a block's 1,024 live lanes,
+// four a thread, in shared memory with their PCG states and K1's slots,
+// hits from the back and misses from the front, and runs the hits, then
+// the misses, so a warp runs one path for 32 lanes (the first design ran
+// every lane, the env work for one or two live lanes of a warp).  A NEE
+// lane draws both directions and writes their rays first, then fetches its
+// material once and builds its Lobes once for both BSDFs and the env MIS
+// pdf; a miss maps its direction once for the radiance and the pdf.  The
+// map is read as each texel's bilinear quad (SkyConfig.env_quads: one
+// aligned 64-byte read a fetch, where the map's own rows cost two to four
+// sectors; 5.3 times the map's bytes, made once a map on the card and
+// read by every frame program where it lies).  shade_scatter fetches the
+// material after the env term and shares one Lobes between its two
+// material_pdf's.  shade_nee at 3 blocks a SM (73 / 75 registers, no
+// spills; at 4, 64 registers spilled 40-68 bytes and lost 2-5%),
+// shade_scatter at 4 blocks at bounce 0 (64 registers, 56 bytes spilled;
+// 3 blocks lost 10%) and 3 from bounce 1 (80, 20 bytes; 2 blocks lost
+// 10%, 4 spilled 108 bytes and lost 8%).
+// 128-thread blocks and the env texels prefetched across the light sample
+// measured slower; a 16-byte texel copy gained 1-2%, texel pairs no more,
+// the quads 8%.  The two families share the G-buffer writes
+// (gbuffer_hit, gbuffer_miss), the scatter's NEE term (add_nee) and its
+// tail (scatter_on).  Called from the gradient kernels, helpers for the
+// hit normal, Beer-Lambert and emission, the NEE record's store and the
+// BSDF and pdf past their lane terms each changed those kernels' SASS,
+// which stays as it was (digests compiled on the card, PERF.md), so
+// nee_lane, nee_sample, evaluate_bsdf and material_pdf keep their own
+// copies of that code and env_hit, env_nee, evaluate_bsdf_at and
+// material_pdf_at theirs: a change to one is made to both, bit for bit.
+// From bounce 1 a block's lists (8 KB in the scatter, 12 KB in shade_nee)
+// sit beside the staged tables, past the default 48 KB a block, so every
+// launch raises the kernel's cap (allow_tables).  Split, bounces 0-3,
+// the 1080p hdri wavefronts: shade_nee 0.276 / 0.272 / 0.176 / 0.130 ->
+// 0.244 / 0.217 / 0.110 / 0.079 ms, shade_scatter 0.194 / 0.123 / 0.088 /
+// 0.060 -> 0.178 / 0.116 / 0.083 / 0.058 (PERF.md).
 
 // Float order: this file builds with -fmad=false and follows the plain torch
 // version operation by operation, including how torch on the card rounds
@@ -152,7 +187,9 @@ struct ShadeArgs {
     int split, bounce, rr_enabled, rr_start;
     // the HDRI sky and its env NEE, both on or both off (env_nee 0 and
     // env_map null: the gradient); env_nee picks the kernels' instantiation
-    const float* env_map;        // (env_map_h, env_map_w, 3) linear HDR
+    const float* env_map;        // (env_map_h, env_map_w, 4, 4): each
+                                 // texel's bilinear quad of the linear HDR
+                                 // map (SkyConfig.env_quads)
     const float* env_alias;      // (env_sh * env_sw, 2): keep prob, alias index
     const float* env_pdf_table;  // (env_sh * env_sw,) solid-angle pdf
     int env_map_h, env_map_w, env_sh, env_sw;
@@ -189,8 +226,14 @@ constexpr int kScatterLanes = 4;      // lanes a thread from bounce 1 on
 // resident blocks a SM each shade_scatter is compiled for: bounce 0 (64
 // registers) and from bounce 1 on (80)
 constexpr int kScatterB0Blocks = 4, kScatterBlocks = 3;
-// resident blocks a SM the HDRI instantiations of both are compiled for
-constexpr int kEnvBlocks = 3;
+// the HDRI kernels: shade_nee's lanes a thread from bounce 1 on (a block
+// of kNeeThreads lists kEnvNeeChunk lanes), and the resident blocks a SM
+// each is compiled for: shade_nee at bounce 0 and from bounce 1 on,
+// shade_scatter at bounce 0 and from bounce 1 on
+constexpr int kEnvNeeLanes = 4;
+constexpr int kEnvNeeChunk = kNeeThreads * kEnvNeeLanes;
+constexpr int kEnvNeeBlocks = 3, kEnvListBlocks = 3;
+constexpr int kEnvScatterB0Blocks = 4, kEnvScatterBlocks = 3;
 constexpr int kMaxStagedBytes = 48 * 1024;
 constexpr float kPi = F(3.141592653589793);
 constexpr float kTwoPi = F(2.0 * 3.141592653589793);
@@ -634,6 +677,110 @@ __device__ float material_pdf(V3 n, bool front, const Mat& m, V3 v, V3 l) {
                                 (1.0f - specular_prob) * pdf_diff);
 }
 
+// The terms of evaluate_bsdf and material_pdf that depend only on the
+// normal, v = -d and the material, for the HDRI kernels: built once a lane
+// and shared by every direction the lane evaluates (shade_nee: the env
+// sample's and the light's BSDF and the env MIS pdf; shade_scatter: the
+// light's MIS pdf and the scatter direction's).  Each value comes from the
+// same operations as in the two functions above, so evaluate_bsdf_at and
+// material_pdf_at return their bits.  Their bodies repeat the two
+// functions': the gradient kernels' SASS changed when the two called
+// shared helpers for them (see the note at the top), so each keeps its
+// own copy, and a change to one is made to both.
+struct Lobes {
+    float ndotv, metal, rough, trans_rough, eta;
+    V3 f0b;
+    bool trans, has_coat;
+    float cc_rough, p_coat, prob_base, reflect_prob, specular_prob;
+};
+
+__device__ __forceinline__ Lobes lobes(V3 n, bool front, const Mat& m,
+                                       V3 v) {
+    Lobes b;
+    b.ndotv = cmax(dot(n, v), 0.0f);
+    b.metal = clamp01(m.metallic);
+    b.rough = cmax(m.roughness, kMinRough);
+    b.f0b = f0_base(m, b.ndotv);
+    b.trans = is_transmissive(m);
+    b.trans_rough = tmaximum(m.transmission_roughness, b.rough);
+    b.eta = front ? 1.0f / m.ior : m.ior;
+    const float clearcoat = clamp01(m.clearcoat);
+    b.cc_rough = cmax(m.clearcoat_roughness, F(0.001));
+    const float fc = fresnel_coat(b.ndotv);
+    const float f_coat_avg = (fc + fc + fc) * F(1.0 / 3.0);
+    b.has_coat = clearcoat > 0.0f;
+    b.p_coat = b.has_coat ? clamp01(f_coat_avg * clearcoat) : 0.0f;
+    b.prob_base = b.has_coat ? 1.0f - b.p_coat : 1.0f;
+    b.reflect_prob = schlick_dielectric(b.ndotv, 1.0f, b.eta);
+    const V3 f_base = fresnel_schlick(b.ndotv, b.f0b);
+    b.specular_prob = b.metal > 0.0f ? 1.0f : max_component(f_base);
+    return b;
+}
+
+// evaluate_bsdf on a lane's Lobes
+__device__ void evaluate_bsdf_at(const Lobes& b, V3 n, bool front,
+                                 const Mat& m, V3 l, V3 v, bool split,
+                                 V3& diff, V3& spec) {
+    const float ndotl_s = dot(n, l);
+    const V3 h_r = normalize(add(l, v), F(1e-20));
+    const float d_r = distribution_ggx(n, h_r, b.rough);
+    const float g_r = geometry_smith(n, v, l, b.rough);
+    const float vdoth_r = cmax(dot(v, h_r), 0.0f);
+    const V3 f_r = fresnel_schlick(vdoth_r, b.f0b);
+    diff = v3(0.0f);
+    if (b.trans) {
+        spec = bsdf_transmissive(n, front, m, l, v, b.ndotv, b.f0b, f_r, d_r,
+                                 g_r);
+        return;
+    }
+    const float ndotl = cmax(ndotl_s, 0.0f);
+    const bool zero = b.ndotv <= 0.0f || ndotl_s <= 0.0f;
+    const V3 s = mul(f_r, d_r * g_r / (b.ndotv * 4.0f * ndotl + F(0.001)));
+    const V3 kd = mul(sub(v3(1.0f), f_r), 1.0f - b.metal);
+    const V3 dif = mul(mul(kd, m.albedo), kInvPi);
+    if (zero) {
+        spec = v3(0.0f);
+    } else if (split) {
+        spec = mul(s, ndotl);
+        diff = mul(dif, ndotl);
+    } else {
+        spec = mul(add(dif, s), ndotl);
+    }
+}
+
+// material_pdf on a lane's Lobes
+__device__ float material_pdf_at(const Lobes& b, V3 n, V3 v, V3 l) {
+    if (b.ndotv == 0.0f) return 0.0f;
+    const float ndotl_s = dot(n, l);
+    const float ndotl = cmax(ndotl_s, 0.0f);
+    float total = 0.0f;
+    total = total + ((b.has_coat && ndotl_s > 0.0f)
+                         ? b.p_coat * pdf_ggx_reflect(n, v, l, b.cc_rough)
+                         : 0.0f);
+    if (b.trans) {
+        if (ndotl_s > 0.0f) {
+            const float pdf_reflect = pdf_ggx_reflect(n, v, l, b.rough);
+            const V3 h = normalize(add(v, l), F(1e-20));
+            const float vdoth = cmax(dot(v, h), 0.0f);
+            const float k = 1.0f - b.eta * b.eta * (1.0f - vdoth * vdoth);
+            const float pdf_tir = pdf_ggx_reflect(n, v, l, b.trans_rough);
+            const float trans_pos =
+                b.prob_base * b.reflect_prob * pdf_reflect +
+                (k < 0.0f ? b.prob_base * (1.0f - b.reflect_prob) * pdf_tir
+                          : 0.0f);
+            return total + trans_pos;
+        }
+        const float pdf_refract =
+            pdf_ggx_refract(n, v, l, b.trans_rough, b.eta);
+        return total + b.prob_base * (1.0f - b.reflect_prob) * pdf_refract;
+    }
+    if (!(ndotl_s > 0.0f)) return total + 0.0f;
+    const float pdf_spec = pdf_ggx_reflect(n, v, l, b.rough);
+    const float pdf_diff = cmax(ndotl, 0.0f) * kInvPi;
+    return total + b.prob_base * (b.specular_prob * pdf_spec +
+                                  (1.0f - b.specular_prob) * pdf_diff);
+}
+
 struct Scatter {
     V3 direction, attenuation;
     bool is_specular, valid;
@@ -957,8 +1104,11 @@ __device__ __forceinline__ V3 sample_sky(V3 d, const float* sky) {
 //
 // torch.remainder / jnp.mod, which C's fmod and % are not: a negative
 // remainder moves up by the divisor
+//
+// fmodf(x, 1) is x - truncf(x), exactly (Sterbenz), but for the sign of a
+// zero remainder, which no use of it here can see
 __device__ __forceinline__ float rem1(float x) {
-    float r = fmodf(x, 1.0f);
+    float r = x - truncf(x);
     if (r != 0.0f && r < 0.0f) r += 1.0f;
     return r;
 }
@@ -976,35 +1126,32 @@ __device__ __forceinline__ void env_uv(const ShadeArgs& a, V3 d, float& u,
     v = theta * kInvPi;
 }
 
-__device__ __forceinline__ V3 env_texel(const ShadeArgs& a, int y, int x) {
-    const float* p =
-        a.env_map + (static_cast<long long>(y) * a.env_map_w + x) * 3;
-    return V3{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
-}
-
-// the HDRI's radiance along d: bilinear, wrap in u, clamp in v; the map is
-// read through the read-only cache, never staged (25-100 MB)
-__device__ V3 env_sky(const ShadeArgs& a, V3 d) {
-    float u, v;
-    env_uv(a, d, u, v);
+// the HDRI's radiance at the map coordinates (u, v) of a direction:
+// bilinear, wrap in u, clamp in v.  The kernel reads the map's quads (the
+// four texels a fetch at (x0, y0) weighs, render/sky.py bilinear_quads): one
+// aligned 64-byte read, four 16-byte loads, through the read-only cache
+// (the quads, 0.5 GB for a 4096x2048 map, are never staged)
+__device__ V3 env_bilinear(const ShadeArgs& a, float u, float v) {
     const int h = a.env_map_h, w = a.env_map_w;
     const float fx = u * static_cast<float>(w) - F(0.5);
     const float fy = v * static_cast<float>(h) - F(0.5);
     const float x0 = floorf(fx), y0 = floorf(fy);
     const float tx = fx - x0, ty = fy - y0;
     const int x0i = imod(static_cast<int>(x0), w);
-    const int x1i = imod(x0i + 1, w);
     const int y0i = min(max(static_cast<int>(y0), 0), h - 1);
-    const int y1i = min(max(y0i + 1, 0), h - 1);
-    const V3 top = lerp(env_texel(a, y0i, x0i), env_texel(a, y0i, x1i), tx);
-    const V3 bot = lerp(env_texel(a, y1i, x0i), env_texel(a, y1i, x1i), tx);
+    const float4* q = reinterpret_cast<const float4*>(a.env_map) +
+                      (static_cast<long long>(y0i) * w + x0i) * 4;
+    const float4 t00 = __ldg(q), t01 = __ldg(q + 1), t10 = __ldg(q + 2),
+                 t11 = __ldg(q + 3);
+    const V3 top = lerp(V3{t00.x, t00.y, t00.z}, V3{t01.x, t01.y, t01.z}, tx);
+    const V3 bot = lerp(V3{t10.x, t10.y, t10.z}, V3{t11.x, t11.y, t11.z}, tx);
     return mul(lerp(top, bot, ty), a.sky[6]);
 }
 
-// env_pdf_dir: the solid-angle pdf the env sampler gives direction d
-__device__ float env_pdf_dir(const ShadeArgs& a, V3 d) {
-    float u, v;
-    env_uv(a, d, u, v);
+// env_pdf_dir: the solid-angle pdf the env sampler gives direction d, at
+// d's map coordinates (u, v) (a miss computes them once for the radiance
+// and the pdf)
+__device__ float env_pdf_uv(const ShadeArgs& a, V3 d, float u, float v) {
     const int sh = a.env_sh, sw = a.env_sw;
     const int tx = min(max(static_cast<int>(u * static_cast<float>(sw)), 0),
                        sw - 1);
@@ -1043,7 +1190,9 @@ __device__ EnvSample sample_env(uint32_t& s, const ShadeArgs& a) {
     // the texel-centre sin (the tabulated pdf's normalisation)
     const float sin_c = sinf((static_cast<float>(ty) + F(0.5)) * a.env_pi_sh);
     out.pdf = __ldg(a.env_pdf_table + j) * sin_c / cmax(sin_t, F(1e-6));
-    out.radiance = env_sky(a, out.l);
+    float mu, mv;
+    env_uv(a, out.l, mu, mv);
+    out.radiance = env_bilinear(a, mu, mv);
     return out;
 }
 
@@ -1053,6 +1202,23 @@ __device__ __forceinline__ const float* mat_row(const ShadeArgs& a,
                                                 const float* table, int id) {
     id = min(max(id, 0), a.n_mats - 1);
     return table + static_cast<long long>(id) * a.mat_width;
+}
+
+// A NEE sample's unshadowed contribution, clamped, into its record: the
+// BSDF (bs; the diffuse half bd and the specular half bs when split) times
+// the radiance and `scale`, into c (and cs when split).  The HDRI
+// kernel's two samples share it; nee_sample keeps its own copy (see the
+// note at the top).
+__device__ __forceinline__ void store_nee(float* const c[3],
+                                          float* const cs[3], long long i,
+                                          V3 bd, V3 bs, V3 radiance,
+                                          float scale, bool split) {
+    if (split) {
+        st3(c, i, clamp_soft(mul(mul(bd, radiance), scale), kMaxNee));
+        st3(cs, i, clamp_soft(mul(mul(bs, radiance), scale), kMaxNee));
+    } else {
+        st3(c, i, clamp_soft(mul(mul(bs, radiance), scale), kMaxNee));
+    }
 }
 
 // The NEE light sample of lane i and its record (shadow origin, L, t_max,
@@ -1082,46 +1248,13 @@ __device__ void nee_sample(const ShadeArgs& a, const float* mat_table,
     }
 }
 
-// The env sample of lane i and its record (shadow origin, direction, t_max,
-// pdf, MIS weight, the clamped unshadowed contribution); draws the lane's
-// four PCG numbers.
-__device__ void env_sample(const ShadeArgs& a, const float* mat_table,
-                           bool staged, long long i, V3 point, V3 n,
-                           bool front, V3 d, int mesh, uint32_t& s) {
-    const bool split = a.split != 0;
-    const Mat m = fetch_mat(a, mat_table, staged, mesh);
-    const EnvSample es = sample_env(s, a);
-    const V3 offset = dot(n, es.l) > 0.0f ? mul(n, F(1e-4)) : mul(n, F(-1e-4));
-    st3(a.env_o, i, add(point, offset));
-    st3(a.env_l, i, es.l);
-    a.env_t[i] = F(1e28);
-    a.env_pdf[i] = es.pdf;
-    const float scale = 1.0f / cmax(es.pdf, F(1e-12));
-    V3 bd, bs;
-    evaluate_bsdf(n, front, m, es.l, neg(d), split, bd, bs);
-    if (split) {
-        st3(a.env_c, i, clamp_soft(mul(mul(bd, es.radiance), scale), kMaxNee));
-        st3(a.env_cs, i, clamp_soft(mul(mul(bs, es.radiance), scale), kMaxNee));
-    } else {
-        st3(a.env_c, i, clamp_soft(mul(mul(bs, es.radiance), scale), kMaxNee));
-    }
-    a.env_mis[i] = mis_weight(es.pdf, material_pdf(n, front, m, neg(d), es.l));
-}
-
 // A lane dead on entry (from bounce 1 on): its flags, the PCG draws of the
-// NEE it does not do (four of the env sample, five of the light's), the
-// t_max planes = -1.  It reads nothing of K1's answer or the state and
-// writes nothing else of the record.
-template <bool ENV>
+// NEE it does not do, the t_max plane = -1.  It reads nothing of K1's
+// answer or the state and writes nothing else of the record.
 __device__ __forceinline__ void dead_lane(const ShadeArgs& a, long long i,
                                           uint32_t s) {
     a.hit[i] = 0;
     a.do_nee[i] = 0;
-    if (ENV) {
-        skip(s, 4);
-        a.env_t[i] = -1.0f;
-        if (a.n_lights == 0) a.rng[i] = static_cast<long long>(s);
-    }
     if (a.n_lights > 0) {
         skip(s, 5);
         a.rng[i] = static_cast<long long>(s);
@@ -1129,11 +1262,28 @@ __device__ __forceinline__ void dead_lane(const ShadeArgs& a, long long i,
     }
 }
 
+// The bounce-0 G-buffer of lane i: its hit's normal, depth, mesh and the
+// material row's roughness and transmission, or a miss's defaults.
+__device__ __forceinline__ void gbuffer_hit(const ShadeArgs& a, long long i,
+                                            V3 n, float t, int mesh,
+                                            const float* row, bool staged) {
+    st3(a.first_normal, i, n);
+    a.first_depth[i] = t;
+    a.first_obj[i] = mesh;
+    a.first_rough[i] = tload(row + 16, staged);
+    a.first_trans[i] = tload(row + 18, staged);
+}
+__device__ __forceinline__ void gbuffer_miss(const ShadeArgs& a,
+                                             long long i) {
+    st3(a.first_normal, i, v3(0.0f));
+    a.first_depth[i] = F(1e30);
+    a.first_obj[i] = -1;
+    a.first_rough[i] = 1.0f;
+    a.first_trans[i] = 0.0f;
+}
+
 // One lane that shade_nee has to shade: alive on entry, or any lane at
-// bounce 0 (whose G-buffer is written on every lane).  ENV: the sky is the
-// HDRI, its term MIS-weighted against env NEE, and the env sample drawn
-// before the light's.
-template <bool ENV>
+// bounce 0 (whose G-buffer is written on every lane).
 __device__ void nee_lane(const ShadeArgs& a, const float* mat_table,
                          const float* light_table, bool staged, long long i,
                          uint32_t s) {
@@ -1148,26 +1298,10 @@ __device__ void nee_lane(const ShadeArgs& a, const float* mat_table,
     const bool found = slot >= 0;
     a.hit[i] = found;
     if (!found) {
-        if (is_first) {
-            st3(a.first_normal, i, v3(0.0f));
-            a.first_depth[i] = F(1e30);
-            a.first_obj[i] = -1;
-            a.first_rough[i] = 1.0f;
-            a.first_trans[i] = 0.0f;
-        }
+        if (is_first) gbuffer_miss(a, i);
         if (alive_in) {  // sky on miss; the lane dies
             a.alive[i] = 0;
-            V3 sky_c;
-            if (ENV) {
-                sky_c = mul(env_sky(a, d), ld3(a.thr, i));
-                // MIS against the env sampler after a non-specular scatter
-                // from a hit that drew an env sample
-                if (a.prev_nee[i] != 0 && a.prev_spec[i] == 0)
-                    sky_c = mul(sky_c, mis_weight(a.prev_pdf[i],
-                                                  env_pdf_dir(a, d)));
-            } else {
-                sky_c = mul(sample_sky(d, a.sky), ld3(a.thr, i));
-            }
+            const V3 sky_c = mul(sample_sky(d, a.sky), ld3(a.thr, i));
             st3(a.acc, i, add(ld3(a.acc, i), sky_c));
             if (split) {
                 float* const* ch = a.path_spec[i] != 0 ? a.acc_s : a.acc_d;
@@ -1198,13 +1332,7 @@ __device__ void nee_lane(const ShadeArgs& a, const float* mat_table,
         n = front ? n : neg(n);
         point = add(o, mul(d, t));
         const float* const row = mat_row(a, mat_table, mesh);
-        if (is_first) {
-            st3(a.first_normal, i, n);
-            a.first_depth[i] = t;
-            a.first_obj[i] = mesh;
-            a.first_rough[i] = tload(row + 16, staged);
-            a.first_trans[i] = tload(row + 18, staged);
-        }
+        if (is_first) gbuffer_hit(a, i, n, t, mesh, row, staged);
         if (alive_in) {
             st3(a.point, i, point);
             st3(a.normal, i, n);
@@ -1241,18 +1369,6 @@ __device__ void nee_lane(const ShadeArgs& a, const float* mat_table,
         }
     }
     a.do_nee[i] = do_nee;
-    if (ENV) {  // the env sample, before the light's
-        if (do_nee) {
-            env_sample(a, mat_table, staged, i, point, n, front, d, mesh, s);
-        } else {
-            skip(s, 4);
-            a.env_t[i] = -1.0f;
-        }
-        if (!nee_on) {
-            a.rng[i] = static_cast<long long>(s);
-            return;
-        }
-    }
     if (!nee_on) return;
     if (do_nee) {
         nee_sample(a, mat_table, light_table, staged, i, point, n, front, d,
@@ -1265,15 +1381,13 @@ __device__ void nee_lane(const ShadeArgs& a, const float* mat_table,
 }
 
 // A block stages the tables once and takes kNeeChunk neighbouring lanes,
-// kNeeChunk / kNeeThreads to a thread.  ENV (the HDRI instantiation) is
-// compiled for fewer resident blocks: its env sample needs more registers.
-template <bool ENV>
-__global__ void __launch_bounds__(kNeeThreads, ENV ? kEnvBlocks : kNeeBlocks)
+// kNeeChunk / kNeeThreads to a thread.
+__global__ void __launch_bounds__(kNeeThreads, kNeeBlocks)
 shade_nee_kernel(const ShadeArgs a) {
     extern __shared__ float smem[];
     const float *mat_table, *light_table;
     const bool staged = stage_tables(a, smem, mat_table, light_table);
-    const bool nee_on = a.n_lights > 0 || ENV;
+    const bool nee_on = a.n_lights > 0;
     const long long base = static_cast<long long>(blockIdx.x) * kNeeChunk;
     const int lanes = static_cast<int>(
         a.n - base < kNeeChunk ? a.n - base : kNeeChunk);
@@ -1281,75 +1395,313 @@ shade_nee_kernel(const ShadeArgs a) {
         const long long i = base + j;
         const uint32_t s = nee_on ? static_cast<uint32_t>(a.rng[i]) : 0u;
         if (a.bounce == 0 || a.alive[i] != 0)
-            nee_lane<ENV>(a, mat_table, light_table, staged, i, s);
+            nee_lane(a, mat_table, light_table, staged, i, s);
         else
-            dead_lane<ENV>(a, i, s);
+            dead_lane(a, i, s);
     }
 }
 
-// One lane alive on entry to shade_scatter, with its PCG state: MIS and the
-// NEE sums (ENV: the env sample's first), the scatter, Russian
-// roulette and the ray advance.  It writes a flag only where the plain stage
-// may change it (alive only where the lane dies), and the ray and
-// throughput (and the env MIS carries) only where the lane lives on.
-template <bool ENV>
-__device__ void scatter_lane(const ShadeArgs& a, const float* mat_table,
-                             bool staged, long long i, uint32_t s) {
+// -- shade_nee's HDRI kernel ----------------------------------------------------
+
+// The NEE a lane does not do (a dead lane besides its hit flag, a miss, a
+// hit after a specular scatter): its flag, the PCG draws (four of the env
+// sample, then five of the light's), the t_max planes = -1, the state.
+__device__ __forceinline__ void env_no_nee(const ShadeArgs& a, long long i,
+                                           uint32_t s) {
+    a.do_nee[i] = 0;
+    skip(s, 4);
+    a.env_t[i] = -1.0f;
+    if (a.n_lights > 0) {
+        skip(s, 5);
+        a.shadow_t[i] = -1.0f;
+    }
+    a.rng[i] = static_cast<long long>(s);
+}
+
+// A lane alive on entry that misses: the HDRI along d times the throughput,
+// MIS-weighted against the env sampler after a non-specular scatter from a
+// hit that drew an env sample (d's map coordinates computed once for the
+// radiance and the pdf), into the accumulators; the lane dies.  Every
+// plane it reads is asked for before the texels arrive (prev_pdf too,
+// whether or not the weight applies), and nothing is written before.
+__device__ void env_miss(const ShadeArgs& a, long long i, V3 d, uint32_t s) {
     const bool split = a.split != 0;
-    const Mat m = fetch_mat(a, mat_table, staged, a.hit_mesh[i]);
-    const V3 n = ld3(a.normal, i);
-    const bool front = a.front[i] != 0;
-    const V3 d = ld3(a.d, i);
+    const V3 thr = ld3(a.thr, i);
+    const bool mis = a.prev_nee[i] != 0 && a.prev_spec[i] == 0;
+    const float prev_pdf = a.prev_pdf[i];
+    const V3 acc = ld3(a.acc, i);
+    float* const* ch = split && a.path_spec[i] != 0 ? a.acc_s : a.acc_d;
+    const V3 acc_ch = split ? ld3(ch, i) : v3(0.0f);
+    float u, v;
+    env_uv(a, d, u, v);
+    V3 sky_c = mul(env_bilinear(a, u, v), thr);
+    if (mis) sky_c = mul(sky_c, mis_weight(prev_pdf, env_pdf_uv(a, d, u, v)));
+    st3(a.acc, i, add(acc, sky_c));
+    if (split) st3(ch, i, add(acc_ch, sky_c));
+    a.alive[i] = 0;
+    a.hit[i] = 0;
+    env_no_nee(a, i, s);
+}
+
+// The two NEE samples of a lane and their records: both directions drawn
+// first (the env sample's four PCG numbers, then the light's five) and
+// their rays written, then the material fetched once and its Lobes built
+// once for the two BSDF evaluations and the env MIS pdf.
+__device__ void env_nee(const ShadeArgs& a, const float* mat_table,
+                        const float* light_table, bool staged, long long i,
+                        V3 point, V3 n, bool front, V3 d, int mesh,
+                        uint32_t s) {
+    const bool split = a.split != 0;
+    const bool lights = a.n_lights > 0;
+    const EnvSample es = sample_env(s, a);
+    const V3 off_e = dot(n, es.l) > 0.0f ? mul(n, F(1e-4)) : mul(n, F(-1e-4));
+    st3(a.env_o, i, add(point, off_e));
+    st3(a.env_l, i, es.l);
+    a.env_t[i] = F(1e28);
+    a.env_pdf[i] = es.pdf;
+    LightSample ls{};
+    float scale = 0.0f;
+    if (lights) {
+        ls = sample_light(s, a, light_table, staged, point);
+        const V3 off = dot(n, ls.l) > 0.0f ? mul(n, F(1e-4))
+                                           : mul(n, F(-1e-4));
+        st3(a.shadow_o, i, add(point, off));
+        st3(a.l, i, ls.l);
+        a.shadow_t[i] = ls.dist - F(1e-3);
+        a.pdf_nee[i] = ls.pdf;
+        scale = ls.att / cmax(ls.pdf, F(1e-12));
+    }
+    a.rng[i] = static_cast<long long>(s);
+    const Mat m = fetch_mat(a, mat_table, staged, mesh);
+    const V3 v = neg(d);
+    const Lobes b = lobes(n, front, m, v);
+    V3 bd, bs;
+    const float scale_e = 1.0f / cmax(es.pdf, F(1e-12));
+    evaluate_bsdf_at(b, n, front, m, es.l, v, split, bd, bs);
+    store_nee(a.env_c, a.env_cs, i, bd, bs, es.radiance, scale_e, split);
+    a.env_mis[i] = mis_weight(es.pdf, material_pdf_at(b, n, v, es.l));
+    if (!lights) return;
+    evaluate_bsdf_at(b, n, front, m, ls.l, v, split, bd, bs);
+    store_nee(a.nee_c, a.nee_s, i, bd, bs, ls.radiance, scale, split);
+}
+
+// A lane that hits (K1's slot `slot`): the hit record, the G-buffer
+// (FIRST: bounce 0, where a lane dead on entry writes it too), and where
+// the lane was alive on entry Beer-Lambert, emission and the NEE samples.
+template <bool FIRST>
+__device__ void env_hit(const ShadeArgs& a, const float* mat_table,
+                        const float* light_table, bool staged, long long i,
+                        int slot, V3 d, bool alive_in, uint32_t s) {
+    const bool split = a.split != 0;
+    a.hit[i] = 1;
+    const float t = a.hit_t[i];
+    const int mesh = a.hit_mesh[i];
+    const V3 o = ld3(a.o, i);
+    V3 n;
+    // a uniform branch: hit_inst is null in a scene without instances
+    const int inst = a.hit_inst != nullptr ? a.hit_inst[i] : -1;
+    if (inst >= 0) {
+        // traverse._mat_normal of the set's triangle, as the reference
+        const V3 c = cross(ld3(a.inst_e1, slot), ld3(a.inst_e2, slot));
+        const float* m = a.inst_mats + 24 * inst;
+        n = normalize(V3{dot(V3{m[12], m[13], m[14]}, c),
+                         dot(V3{m[15], m[16], m[17]}, c),
+                         dot(V3{m[18], m[19], m[20]}, c)},
+                      F(1e-30));
+    } else {
+        n = normalize(cross(ld3(a.e1, slot), ld3(a.e2, slot)), F(1e-30));
+    }
+    const bool front = dot(d, n) < 0.0f;
+    n = front ? n : neg(n);
+    const V3 point = add(o, mul(d, t));
+    const float* const row = mat_row(a, mat_table, mesh);
+    if (FIRST) {
+        gbuffer_hit(a, i, n, t, mesh, row, staged);
+        if (!alive_in) {
+            env_no_nee(a, i, s);
+            return;
+        }
+    }
+    st3(a.point, i, point);
+    st3(a.normal, i, n);
+    a.front[i] = front;
+    // interior Beer-Lambert absorption, coefficient -log(albedo)
     V3 thr = ld3(a.thr, i);
-    bool env_did_nee = false;
-
-    // the env sample with MIS (its weight from shade_nee)
-    if (ENV && a.do_nee[i] != 0) {
-        env_did_nee = true;
-        const float pdf = a.env_pdf[i];
-        if (pdf > 0.0f) {
-            const bool lit = a.in_shadow_env[i] == 0 && pdf > F(1e-12);
-            const float w = a.env_mis[i];
-            V3 env_c = lit ? ld3(a.env_c, i) : v3(0.0f);
-            if (split) {
-                const V3 env_s = lit ? ld3(a.env_cs, i) : v3(0.0f);
-                st3(a.acc_d, i, add(ld3(a.acc_d, i), mul(mul(thr, env_c), w)));
-                st3(a.acc_s, i, add(ld3(a.acc_s, i), mul(mul(thr, env_s), w)));
-                env_c = add(env_c, env_s);
-            }
-            st3(a.acc, i, add(ld3(a.acc, i), mul(mul(thr, env_c), w)));
+    if (!front) {
+        const V3 alb{tload(row + 0, staged), tload(row + 1, staged),
+                     tload(row + 2, staged)};
+        const V3 c{cmax(-logf(cmax(alb.x, F(1e-6))), 0.0f),
+                   cmax(-logf(cmax(alb.y, F(1e-6))), 0.0f),
+                   cmax(-logf(cmax(alb.z, F(1e-6))), 0.0f)};
+        const V3 absorb{expf(-c.x * t), expf(-c.y * t), expf(-c.z * t)};
+        thr = mul(thr, absorb);
+        st3(a.thr, i, thr);
+    }
+    // emission (bounce 0 or after a specular bounce)
+    const V3 emission{tload(row + 6, staged), tload(row + 7, staged),
+                      tload(row + 8, staged)};
+    const bool emissive =
+        emission.x > 0.0f || emission.y > 0.0f || emission.z > 0.0f;
+    if (emissive && (FIRST || a.prev_spec[i] != 0)) {
+        const V3 ce = mul(thr, emission);
+        st3(a.acc, i, add(ld3(a.acc, i), ce));
+        if (split) {
+            float* const* ch =
+                FIRST ? a.acc_e : (a.path_spec[i] != 0 ? a.acc_s : a.acc_d);
+            st3(ch, i, add(ld3(ch, i), ce));
         }
     }
+    if (a.ray_spec[i] != 0) {
+        env_no_nee(a, i, s);
+        return;
+    }
+    a.do_nee[i] = 1;
+    env_nee(a, mat_table, light_table, staged, i, point, n, front, d, mesh, s);
+}
 
-    // NEE with MIS
-    if (a.n_lights > 0 && (ENV ? env_did_nee : a.do_nee[i] != 0)) {
-        const float pdf = a.pdf_nee[i];
-        if (pdf > 0.0f) {
-            const bool lit = a.in_shadow[i] == 0;
-            const V3 l = ld3(a.l, i);
-            const float w = mis_weight(pdf, material_pdf(n, front, m, neg(d),
-                                                         l));
-            V3 nee_c = lit ? ld3(a.nee_c, i) : v3(0.0f);
-            if (split) {
-                const V3 nee_s = lit ? ld3(a.nee_s, i) : v3(0.0f);
-                st3(a.acc_d, i, add(ld3(a.acc_d, i), mul(mul(thr, nee_c), w)));
-                st3(a.acc_s, i, add(ld3(a.acc_s, i), mul(mul(thr, nee_s), w)));
-                nee_c = add(nee_c, nee_s);
-            }
-            st3(a.acc, i, add(ld3(a.acc, i), mul(mul(thr, nee_c), w)));
+// A lane at bounce 0, where every lane writes its G-buffer.
+__device__ void env_lane0(const ShadeArgs& a, const float* mat_table,
+                          const float* light_table, bool staged, long long i,
+                          uint32_t s) {
+    const int slot = a.hit_slot[i];
+    const V3 d = ld3(a.d, i);
+    const bool alive_in = a.alive[i] != 0;
+    if (slot >= 0) {
+        env_hit<true>(a, mat_table, light_table, staged, i, slot, d, alive_in,
+                      s);
+        return;
+    }
+    gbuffer_miss(a, i);
+    if (alive_in) {
+        env_miss(a, i, d, s);
+    } else {
+        a.hit[i] = 0;
+        env_no_nee(a, i, s);
+    }
+}
+
+// shade_nee's HDRI kernel; a block stages the tables once.  Bounce 0
+// (LIST false): kNeeChunk neighbouring lanes, each its own thread.  From
+// bounce 1 (LIST): kEnvNeeChunk lanes, kEnvNeeLanes a thread.  The block
+// asks for every lane's alive flag and PCG state at once, then for K1's
+// slot of the live ones, finishes the dead lanes and lists the live ones
+// with their states and slots in shared memory, the hits from the back
+// and the misses from the front.  It runs the hits first (the longer
+// path), then the misses: a warp takes 32 listed lanes that all hit or
+// all miss, but for the one warp where the two meet.
+template <bool LIST>
+__global__ void __launch_bounds__(kNeeThreads,
+                                  LIST ? kEnvListBlocks : kEnvNeeBlocks)
+shade_nee_kernel_hdri(const ShadeArgs a) {
+    constexpr int kChunk = LIST ? kEnvNeeChunk : kNeeChunk;
+    extern __shared__ float smem[];
+    __shared__ int list_lane[LIST ? kChunk : 1];
+    __shared__ int list_slot[LIST ? kChunk : 1];
+    __shared__ uint32_t list_state[LIST ? kChunk : 1];
+    __shared__ int n_miss, n_hit;
+    const long long base = static_cast<long long>(blockIdx.x) * kChunk;
+    const int lanes = static_cast<int>(
+        a.n - base < kChunk ? a.n - base : kChunk);
+    const float *mat_table, *light_table;
+    if (!LIST) {
+        const bool staged = stage_tables(a, smem, mat_table, light_table);
+        for (int j = threadIdx.x; j < lanes; j += kNeeThreads)
+            env_lane0(a, mat_table, light_table, staged, base + j,
+                      static_cast<uint32_t>(a.rng[base + j]));
+        return;
+    }
+    if (threadIdx.x == 0) n_miss = n_hit = 0;
+    constexpr int L = kEnvNeeLanes;
+    bool live[L];
+    uint32_t state[L];
+    int slot[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+        const int j = threadIdx.x + k * kNeeThreads;
+        live[k] = false;
+        state[k] = 0u;
+        if (j < lanes) {
+            live[k] = a.alive[base + j] != 0;
+            state[k] = static_cast<uint32_t>(a.rng[base + j]);
         }
     }
+#pragma unroll
+    for (int k = 0; k < L; ++k)
+        slot[k] = live[k] ? a.hit_slot[base + threadIdx.x + k * kNeeThreads]
+                          : -1;
+    const bool staged = stage_tables(a, smem, mat_table, light_table);
+    __syncthreads();  // n_miss = n_hit = 0 is seen, staged or not
+    const int warp_lane = threadIdx.x & 31;
+    const unsigned below = (1u << warp_lane) - 1u;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+        const int j = threadIdx.x + k * kNeeThreads;
+        if (j < lanes && !live[k]) {
+            a.hit[base + j] = 0;
+            env_no_nee(a, base + j, state[k]);
+        }
+        const bool hit = slot[k] >= 0, miss = live[k] && !hit;
+        const unsigned bm = __ballot_sync(0xffffffffu, miss);
+        const unsigned bh = __ballot_sync(0xffffffffu, hit);
+        int at_m = 0, at_h = 0;
+        if (warp_lane == 0) {
+            if (bm != 0u) at_m = atomicAdd(&n_miss, __popc(bm));
+            if (bh != 0u) at_h = atomicAdd(&n_hit, __popc(bh));
+        }
+        at_m = __shfl_sync(0xffffffffu, at_m, 0);
+        at_h = __shfl_sync(0xffffffffu, at_h, 0);
+        if (miss || hit) {
+            const int at = hit ? kChunk - 1 - (at_h + __popc(bh & below))
+                               : at_m + __popc(bm & below);
+            list_lane[at] = j;
+            list_slot[at] = slot[k];
+            list_state[at] = state[k];
+        }
+    }
+    __syncthreads();
+    const int hits = n_hit, total = n_hit + n_miss;
+    for (int k = threadIdx.x; k < total; k += kNeeThreads) {
+        const bool hit = k < hits;
+        const int at = hit ? kChunk - 1 - k : k - hits;
+        const long long i = base + list_lane[at];
+        const V3 d = ld3(a.d, i);
+        if (hit)
+            env_hit<false>(a, mat_table, light_table, staged, i,
+                           list_slot[at], d, true, list_state[at]);
+        else
+            env_miss(a, i, d, list_state[at]);
+    }
+}
 
-    // scatter
-    const Scatter sc = material_scatter(s, n, front, m, d);
+// A NEE sample's term in shade_scatter: thr * c * w into the sum and, when
+// split, c (the diffuse half) and cs (the specular half) into their
+// channels; c and cs read only where the sample is lit.
+__device__ __forceinline__ void add_nee(const ShadeArgs& a, long long i,
+                                        V3 thr, float w, bool lit,
+                                        float* const c[3], float* const cs[3],
+                                        bool split) {
+    V3 nee_c = lit ? ld3(c, i) : v3(0.0f);
+    if (split) {
+        const V3 nee_s = lit ? ld3(cs, i) : v3(0.0f);
+        st3(a.acc_d, i, add(ld3(a.acc_d, i), mul(mul(thr, nee_c), w)));
+        st3(a.acc_s, i, add(ld3(a.acc_s, i), mul(mul(thr, nee_s), w)));
+        nee_c = add(nee_c, nee_s);
+    }
+    st3(a.acc, i, add(ld3(a.acc, i), mul(mul(thr, nee_c), w)));
+}
+
+// shade_scatter past the NEE terms: the scatter `sc` drawn, its flags (and
+// `carry()`, the HDRI kernel's env MIS carries) where it is valid, Russian
+// roulette and the ray advance; the lane's PCG state stored.
+template <typename Carry>
+__device__ __forceinline__ void scatter_on(const ShadeArgs& a, long long i,
+                                           uint32_t& s, V3 n, V3 thr,
+                                           const Scatter& sc, Carry carry) {
     bool alive = sc.valid;
     if (alive) {
         a.prev_spec[i] = sc.is_specular;
         if (!sc.is_specular) a.path_spec[i] = 0;
-        if (ENV) {  // the env MIS carries
-            a.prev_pdf[i] = material_pdf(n, front, m, neg(d), sc.direction);
-            a.prev_nee[i] = env_did_nee;
-        }
+        carry();
     }
 
     // Russian roulette
@@ -1374,6 +1726,80 @@ __device__ void scatter_lane(const ShadeArgs& a, const float* mat_table,
     a.rng[i] = static_cast<long long>(s);
 }
 
+// One lane alive on entry to shade_scatter, with its PCG state: MIS and the
+// NEE sum, the scatter, Russian roulette and the ray advance.  It writes a
+// flag only where the plain stage may change it (alive only where the lane
+// dies), and the ray and throughput only where the lane lives on.
+__device__ void scatter_lane(const ShadeArgs& a, const float* mat_table,
+                             bool staged, long long i, uint32_t s) {
+    const bool split = a.split != 0;
+    const Mat m = fetch_mat(a, mat_table, staged, a.hit_mesh[i]);
+    const V3 n = ld3(a.normal, i);
+    const bool front = a.front[i] != 0;
+    const V3 d = ld3(a.d, i);
+    const V3 thr = ld3(a.thr, i);
+
+    // NEE with MIS
+    if (a.n_lights > 0 && a.do_nee[i] != 0) {
+        const float pdf = a.pdf_nee[i];
+        if (pdf > 0.0f) {
+            const bool lit = a.in_shadow[i] == 0;
+            const V3 l = ld3(a.l, i);
+            const float w = mis_weight(pdf, material_pdf(n, front, m, neg(d),
+                                                         l));
+            add_nee(a, i, thr, w, lit, a.nee_c, a.nee_s, split);
+        }
+    }
+
+    const Scatter sc = material_scatter(s, n, front, m, d);
+    scatter_on(a, i, s, n, thr, sc, [] {});
+}
+
+// scatter_lane in shade_scatter's HDRI kernel: the env sample's term (its
+// MIS weight from shade_nee) before the light's, and where the lane lives
+// on the env MIS carries.  The material is fetched after the env term and
+// its Lobes built once for the light's MIS pdf and the scatter
+// direction's.
+__device__ void scatter_lane_hdri(const ShadeArgs& a, const float* mat_table,
+                                  bool staged, long long i, uint32_t s) {
+    const bool split = a.split != 0;
+    const V3 n = ld3(a.normal, i);
+    const bool front = a.front[i] != 0;
+    const V3 d = ld3(a.d, i);
+    const V3 thr = ld3(a.thr, i);
+    const bool did_nee = a.do_nee[i] != 0;
+
+    // the env sample with MIS (its weight from shade_nee)
+    if (did_nee) {
+        const float pdf = a.env_pdf[i];
+        if (pdf > 0.0f) {
+            const bool lit = a.in_shadow_env[i] == 0 && pdf > F(1e-12);
+            add_nee(a, i, thr, a.env_mis[i], lit, a.env_c, a.env_cs, split);
+        }
+    }
+
+    const Mat m = fetch_mat(a, mat_table, staged, a.hit_mesh[i]);
+    const V3 v = neg(d);
+    const Lobes b = lobes(n, front, m, v);
+    // NEE with MIS
+    if (a.n_lights > 0 && did_nee) {
+        const float pdf = a.pdf_nee[i];
+        if (pdf > 0.0f) {
+            const bool lit = a.in_shadow[i] == 0;
+            const V3 l = ld3(a.l, i);
+            const float w = mis_weight(pdf, material_pdf_at(b, n, v, l));
+            add_nee(a, i, thr, w, lit, a.nee_c, a.nee_s, split);
+        }
+    }
+
+    // the scatter, and the env MIS carries where the lane lives on
+    const Scatter sc = material_scatter(s, n, front, m, d);
+    scatter_on(a, i, s, n, thr, sc, [&] {
+        a.prev_pdf[i] = material_pdf_at(b, n, v, sc.direction);
+        a.prev_nee[i] = did_nee;
+    });
+}
+
 // A block takes LANES lanes a thread, kScatterThreads * LANES neighbouring
 // lanes (see the note at the top).  It asks for every lane's alive flag and
 // PCG state and for the material table at once, finishes the dead lanes,
@@ -1381,10 +1807,10 @@ __device__ void scatter_lane(const ShadeArgs& a, const float* mat_table,
 // lane, else from a list of the block's live lanes (and their PCG states)
 // in shared memory, 32 to a warp.
 template <int LANES, bool ENV>
-__global__ void __launch_bounds__(kScatterThreads,
-                                  ENV ? kEnvBlocks
-                                      : (LANES == 1 ? kScatterB0Blocks
-                                                    : kScatterBlocks))
+__global__ void __launch_bounds__(
+    kScatterThreads, ENV ? (LANES == 1 ? kEnvScatterB0Blocks
+                                       : kEnvScatterBlocks)
+                         : (LANES == 1 ? kScatterB0Blocks : kScatterBlocks))
 shade_scatter_kernel(const ShadeArgs a) {
     constexpr int kChunk = kScatterThreads * LANES;
     extern __shared__ float smem[];
@@ -1438,13 +1864,23 @@ shade_scatter_kernel(const ShadeArgs a) {
     }
     __syncthreads();
     if (LANES == 1) {
-        if (live[0])
-            scatter_lane<ENV>(a, mat_table, staged, base + threadIdx.x,
-                              state[0]);
+        if (live[0]) {
+            if constexpr (ENV)
+                scatter_lane_hdri(a, mat_table, staged, base + threadIdx.x,
+                                  state[0]);
+            else
+                scatter_lane(a, mat_table, staged, base + threadIdx.x,
+                             state[0]);
+        }
     } else {
-        for (int k = threadIdx.x; k < n_live; k += kScatterThreads)
-            scatter_lane<ENV>(a, mat_table, staged, base + live_lane[k],
-                              live_state[k]);
+        for (int k = threadIdx.x; k < n_live; k += kScatterThreads) {
+            if constexpr (ENV)
+                scatter_lane_hdri(a, mat_table, staged, base + live_lane[k],
+                                  live_state[k]);
+            else
+                scatter_lane(a, mat_table, staged, base + live_lane[k],
+                             live_state[k]);
+        }
     }
 }
 
@@ -1459,6 +1895,10 @@ int material_bytes(const ShadeArgs* a) {
     const int n = a->n_mats * a->mat_width;
     return n * 4 <= kMaxStagedBytes ? n * 4 : 0;
 }
+// lanes a shade_nee block takes: the HDRI kernel's list from bounce 1 on
+int nee_chunk(const ShadeArgs* a) {
+    return a->env_nee != 0 && a->bounce > 0 ? kEnvNeeChunk : kNeeChunk;
+}
 // lanes a shade_scatter block takes at this bounce
 int scatter_chunk(const ShadeArgs* a) {
     return kScatterThreads * (a->bounce == 0 ? 1 : kScatterLanes);
@@ -1469,23 +1909,67 @@ bool env_args_ok(const ShadeArgs* a) {
     return (a->env_nee != 0) == (a->env_map != nullptr);
 }
 
+using Kernel = void (*)(ShadeArgs);
+constexpr int kKernels = 7, kMaxDevices = 64;
+
+// The kernel of stage 0 (shade_nee) or 1 (shade_scatter) for these args,
+// and its index below kKernels.
+Kernel k3_kernel(int stage, const ShadeArgs* a, int* index) {
+    const bool env = a->env_nee != 0, first = a->bounce == 0;
+    if (stage == 0) {
+        *index = !env ? 0 : (first ? 1 : 2);
+        return !env ? shade_nee_kernel
+                    : (first ? shade_nee_kernel_hdri<false>
+                             : shade_nee_kernel_hdri<true>);
+    }
+    *index = 3 + 2 * !first + env;
+    return first ? (env ? shade_scatter_kernel<1, true>
+                        : shade_scatter_kernel<1, false>)
+                 : (env ? shade_scatter_kernel<kScatterLanes, true>
+                        : shade_scatter_kernel<kScatterLanes, false>);
+}
+
+// Lets a K3 kernel take kMaxStagedBytes of dynamic shared memory for its
+// tables beside its static lists (by default a block's static and dynamic
+// bytes together stay within 48 KB, and the lists take up to 12 KB); once a
+// kernel a device.
+cudaError_t allow_tables(Kernel kernel, int index) {
+    static bool allowed[kKernels][kMaxDevices];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (allowed[index][dev]) return cudaSuccess;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxStagedBytes);
+    allowed[index][dev] = e == cudaSuccess;
+    return e;
+}
+
+// One launch of stage 0 or 1 over args->n lanes.
+int launch_k3(int stage, const ShadeArgs* args, void* stream) {
+    if (args->n > 0) {
+        int index = 0;
+        const Kernel kernel = k3_kernel(stage, args, &index);
+        const cudaError_t e = allow_tables(kernel, index);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        const int chunk = stage == 0 ? nee_chunk(args) : scatter_chunk(args);
+        const unsigned blocks =
+            static_cast<unsigned>((args->n + chunk - 1) / chunk);
+        kernel<<<blocks, stage == 0 ? kNeeThreads : kScatterThreads,
+                 stage == 0 ? table_bytes(args) : material_bytes(args),
+                 static_cast<cudaStream_t>(stream)>>>(*args);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int ptrt_shade_nee(const ShadeArgs* args, void* stream) {
     if (!env_args_ok(args))
         return static_cast<int>(cudaErrorInvalidValue);
-    if (args->n > 0) {
-        const unsigned blocks =
-            static_cast<unsigned>((args->n + kNeeChunk - 1) / kNeeChunk);
-        const cudaStream_t s = static_cast<cudaStream_t>(stream);
-        if (args->env_nee)
-            shade_nee_kernel<true><<<blocks, kNeeThreads, table_bytes(args),
-                                     s>>>(*args);
-        else
-            shade_nee_kernel<false><<<blocks, kNeeThreads, table_bytes(args),
-                                      s>>>(*args);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return launch_k3(0, args, stream);
 }
 
 // Registers, local-memory bytes a thread, threads and lanes a block,
@@ -1495,58 +1979,21 @@ extern "C" int ptrt_shade_info(int stage, const ShadeArgs* args, int* regs,
                                int* local_bytes, int* threads, int* lanes,
                                int* per_sm, int* shared_bytes) {
     cudaFuncAttributes attr = {};
-    cudaError_t e;
-    if (stage == 0) {
-        *threads = kNeeThreads;
-        *lanes = kNeeChunk;
-        *shared_bytes = table_bytes(args);
-        const auto kernel = args->env_nee ? shade_nee_kernel<true>
-                                          : shade_nee_kernel<false>;
-        e = cudaFuncGetAttributes(&attr, kernel);
-        if (e == cudaSuccess)
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                per_sm, kernel, kNeeThreads, *shared_bytes);
-    } else {
-        *threads = kScatterThreads;
-        *lanes = scatter_chunk(args);
-        *shared_bytes = material_bytes(args);
-        const bool env = args->env_nee != 0;
-        const auto kernel =
-            args->bounce == 0
-                ? (env ? shade_scatter_kernel<1, true>
-                       : shade_scatter_kernel<1, false>)
-                : (env ? shade_scatter_kernel<kScatterLanes, true>
-                       : shade_scatter_kernel<kScatterLanes, false>);
-        e = cudaFuncGetAttributes(&attr, kernel);
-        if (e == cudaSuccess)
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                per_sm, kernel, kScatterThreads, *shared_bytes);
-    }
+    *threads = stage == 0 ? kNeeThreads : kScatterThreads;
+    *lanes = stage == 0 ? nee_chunk(args) : scatter_chunk(args);
+    *shared_bytes = stage == 0 ? table_bytes(args) : material_bytes(args);
+    int index = 0;
+    const Kernel kernel = k3_kernel(stage, args, &index);
+    cudaError_t e = allow_tables(kernel, index);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            per_sm, kernel, *threads, *shared_bytes);
     *regs = attr.numRegs;
     *local_bytes = static_cast<int>(attr.localSizeBytes);
     return static_cast<int>(e);
 }
 
 extern "C" int ptrt_shade_scatter(const ShadeArgs* args, void* stream) {
-    if (args->n > 0) {
-        const int chunk = scatter_chunk(args);
-        const unsigned blocks =
-            static_cast<unsigned>((args->n + chunk - 1) / chunk);
-        const cudaStream_t s = static_cast<cudaStream_t>(stream);
-        const int smem = material_bytes(args);
-        const bool env = args->env_nee != 0;
-        if (args->bounce == 0 && env)
-            shade_scatter_kernel<1, true>
-                <<<blocks, kScatterThreads, smem, s>>>(*args);
-        else if (args->bounce == 0)
-            shade_scatter_kernel<1, false>
-                <<<blocks, kScatterThreads, smem, s>>>(*args);
-        else if (env)
-            shade_scatter_kernel<kScatterLanes, true>
-                <<<blocks, kScatterThreads, smem, s>>>(*args);
-        else
-            shade_scatter_kernel<kScatterLanes, false>
-                <<<blocks, kScatterThreads, smem, s>>>(*args);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return launch_k3(1, args, stream);
 }

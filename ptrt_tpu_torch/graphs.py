@@ -29,6 +29,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import gc
+import itertools
 import time
 import weakref
 from typing import Callable
@@ -40,6 +41,40 @@ from ptrt_tpu_torch import kernels
 from ptrt_tpu_torch.core.vec import Vec3
 
 # -- trees of tensors ----------------------------------------------------------
+
+
+class Shared:
+    """A tensor that nothing writes after it is made (an HDRI's quads,
+    ``render/sky.py``), held in a tree as a leaf of its own: ``map_tree``
+    and ``tree_leaves`` pass it by, so a ``Program`` reads it where it lies
+    and keeps no copy, and ``signature`` tells each one made apart.  So a
+    new one is a new world: ``Programs`` makes its programs anew, and a
+    ``Program`` refuses a run with another one than it was made with."""
+
+    _made = itertools.count()
+
+    def __init__(self, tensor: torch.Tensor):
+        self.tensor = tensor
+        self._serial = next(Shared._made)
+
+    def __repr__(self) -> str:
+        return f"Shared#{self._serial}{tuple(self.tensor.shape)}"
+
+
+def shared_leaves(tree) -> list:
+    """The ``Shared`` leaves of ``tree``, in ``map_tree``'s order."""
+    if isinstance(tree, Shared):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        parts = [getattr(tree, f.name) for f in dataclasses.fields(tree)
+                 if f.init]
+    elif isinstance(tree, (tuple, list)):
+        parts = tree
+    elif isinstance(tree, dict):
+        parts = tree.values()
+    else:
+        return []
+    return [s for part in parts for s in shared_leaves(part)]
 
 
 def map_tree(fn: Callable, tree):
@@ -330,9 +365,10 @@ class Program:
     camera); ``state``, the tensors it carries from frame to frame; and
     ``values``, host numbers staged on the device (``HostValues``; None
     for none).  It writes nothing else.  The program's buffers are its
-    own: copies of ``reads`` and ``state`` made at creation.  A caller's
-    tensor is never written, and one it held earlier and puts back is a
-    change like any other.
+    own: copies of ``reads`` and ``state`` made at creation, but for the
+    ``Shared`` leaves of ``reads``, which it reads where they lie.  A
+    caller's tensor is never written, and one it held earlier and puts
+    back is a change like any other.
 
     ``run(reads, state, values)`` copies into the buffers what changed
     since: a read leaf that is another tensor than the one last copied
@@ -354,6 +390,7 @@ class Program:
         self.body = body
         self.reads = clone_tree(reads)
         self.state = clone_tree(state)
+        self._shared = shared_leaves(reads)
         self._edited = []
         for name, group in reads.items():
             self._edited += [name in edited] * len(tree_leaves(group))
@@ -380,6 +417,11 @@ class Program:
 
     def _refresh(self, reads: dict, state) -> None:
         """Copy into the buffers what ``run`` copies (see the class)."""
+        shared = shared_leaves(reads)
+        if len(shared) != len(self._shared) or any(
+                a is not b for a, b in zip(shared, self._shared)):
+            raise ValueError("a Shared read is not the one this program was "
+                             "made with: make a new program")
         bufs = tree_leaves(self.reads)
         src = tree_leaves(reads)
         if len(src) != len(bufs):

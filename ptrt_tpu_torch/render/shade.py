@@ -556,10 +556,15 @@ def shade_nee(ps: PathState, geom, k1: traverse.Closest,
                             + ([sky.env_rotation] if env_nee else [])).to(
             device=dev, dtype=_F32)
         if env_nee:
-            kernels.check_tensor("sky.env", sky.env, _F32, 3, dev)
-            if sky.env.shape[2] != 3:
-                raise ValueError(f"sky.env: shape {tuple(sky.env.shape)}, "
-                                 "need (H, W, 3)")
+            if sky.env_quads is None:
+                raise ValueError("sky.env_quads: None; a SkyConfig whose "
+                                 "map lies on the card makes its quads")
+            quads = sky.env_quads.tensor
+            kernels.check_tensor("sky.env_quads", quads, _F32, 4, dev)
+            if quads.shape != (*sky.env.shape[:2], 4, 4):
+                raise ValueError(f"sky.env_quads: shape "
+                                 f"{tuple(quads.shape)}, need the map's "
+                                 f"(H, W, 4, 4) quads")
             sh, sw = sky.env_sample_hw
             _check_table("sky.env_alias", sky.env_alias, 2, dev)
             kernels.check_tensor("sky.env_pdf", sky.env_pdf, _F32, 1, dev)
@@ -575,8 +580,8 @@ def shade_nee(ps: PathState, geom, k1: traverse.Closest,
                 _ptrs("geom.e2", static.e2, m, _F32, dev), sky_v, inst)
 
     e1, e2, sky_v, inst_edges = _kept(ps, "scene", (
-        static.e1, static.e2, sky.top, sky.bottom, sky.use_sky, sky.env,
-        sky.env_rotation, sky.env_alias, sky.env_pdf,
+        static.e1, static.e2, sky.top, sky.bottom, sky.use_sky,
+        sky.env_quads, sky.env_rotation, sky.env_alias, sky.env_pdf,
         None if inst_geom is None else inst_geom.e1,
         None if inst_geom is None else inst_geom.e2), scene_args)
     if iset is not None:
@@ -588,8 +593,8 @@ def shade_nee(ps: PathState, geom, k1: traverse.Closest,
     _set(a, "e2", e2)
     a.sky = sky_v.data_ptr()
     if env_nee:
-        a.env_map = sky.env.data_ptr()
-        a.env_map_h, a.env_map_w = sky.env.shape[:2]
+        a.env_map = sky.env_quads.tensor.data_ptr()
+        a.env_map_h, a.env_map_w = sky.env_quads.tensor.shape[:2]
         sh, sw = sky.env_sample_hw
         a.env_nee = 1
         a.env_alias = sky.env_alias.data_ptr()
@@ -686,35 +691,56 @@ def shade_scatter(ps: PathState, nee: NeeRecord, in_shadow,
     kernels.check(rc, name)
 
 
-# shade_scatter's launch (csrc/shade.cu kScatterThreads, kScatterLanes,
-# kMaxStagedBytes): a block of SCATTER_THREADS threads takes one lane a
-# thread at bounce 0 and SCATTER_LANES from bounce 1 on, and stages the
-# material table when it fits
+# the K3 launches (csrc/shade.cu): a shade_nee block of NEE_THREADS threads
+# takes NEE_CHUNK lanes, its HDRI kernel's from bounce 1 on NEE_THREADS *
+# ENV_NEE_LANES (kNeeThreads, kNeeChunk, kEnvNeeLanes), and stages the
+# material and light tables when they fit together; a shade_scatter block
+# of SCATTER_THREADS threads takes one lane a thread at bounce 0 and
+# SCATTER_LANES from bounce 1 on (kScatterThreads, kScatterLanes), and
+# stages the material table when it fits (kMaxStagedBytes)
+NEE_THREADS, NEE_CHUNK, ENV_NEE_LANES = 256, 512, 4
 SCATTER_THREADS, SCATTER_LANES = 256, 4
 MAX_STAGED_BYTES = 48 * 1024
 
 
-class ScatterLaunch(NamedTuple):
-    """How ``shade_scatter`` cuts ``n`` lanes into blocks."""
+class Launch(NamedTuple):
+    """How a K3 kernel cuts ``n`` lanes into blocks."""
 
     threads: int
     chunk: int  # lanes a block
     blocks: int
-    staged_bytes: int  # the material table in shared memory, 0: not staged
+    staged_bytes: int  # the tables in shared memory, 0: not staged
 
     def block_lanes(self, b: int, n: int) -> range:
         """The lanes block ``b`` takes."""
         return range(b * self.chunk, min(n, (b + 1) * self.chunk))
 
 
+def _launch(n: int, threads: int, chunk: int, tables) -> Launch:
+    nbytes = sum(t.numel() * t.element_size() for t in tables)
+    return Launch(threads, chunk, -(-n // chunk),
+                  nbytes if nbytes <= MAX_STAGED_BYTES else 0)
+
+
+def nee_launch(n: int, materials: MaterialTable, lights: LightTable,
+               n_lights: int, bounce: int, hdri: bool) -> Launch:
+    """The blocks and shared memory of a ``shade_nee`` launch over ``n``
+    lanes at ``bounce`` with these tables (the light table only where
+    ``n_lights > 0``); ``hdri``: its HDRI kernel, which lists each block's
+    live lanes from bounce 1 on."""
+    chunk = (NEE_THREADS * ENV_NEE_LANES if hdri and bounce > 0
+             else NEE_CHUNK)
+    tables = [materials.packed] + ([lights.packed] if n_lights > 0 else [])
+    return _launch(n, NEE_THREADS, chunk, tables)
+
+
 def scatter_launch(n: int, materials: MaterialTable,
-                   bounce: int) -> ScatterLaunch:
+                   bounce: int) -> Launch:
     """The blocks and shared memory of a ``shade_scatter`` launch over ``n``
-    lanes at ``bounce`` with this material table."""
+    lanes at ``bounce`` with this material table (its HDRI kernel's
+    alike)."""
     chunk = SCATTER_THREADS * (1 if bounce == 0 else SCATTER_LANES)
-    nbytes = materials.packed.numel() * materials.packed.element_size()
-    return ScatterLaunch(SCATTER_THREADS, chunk, -(-n // chunk),
-                         nbytes if nbytes <= MAX_STAGED_BYTES else 0)
+    return _launch(n, SCATTER_THREADS, chunk, [materials.packed])
 
 
 def kernel_info(materials: MaterialTable, lights: LightTable,
@@ -723,8 +749,8 @@ def kernel_info(materials: MaterialTable, lights: LightTable,
     block, resident blocks a SM and dynamic shared bytes a block} of the K3
     kernels as built, with these tables: ``shade_nee``, ``shade_scatter``
     at bounce 0 and from bounce 1 on, or with ``hdri`` their HDRI (env NEE)
-    instantiations, named with " (hdri)" (measurement only; needs the
-    card)."""
+    kernels, named with " (hdri)", and the HDRI ``shade_nee`` from bounce 1
+    on too (measurement only; needs the card)."""
     a = ShadeArgs()
     a.env_nee = int(hdri)  # selects the instantiation
     a.n = 1
@@ -734,9 +760,11 @@ def kernel_info(materials: MaterialTable, lights: LightTable,
     a.n_light_rows, a.light_width = lights.packed.shape
     out = {}
     tag = " (hdri)" if hdri else ""
-    for stage, bounce, name in ((0, 0, f"shade_nee{tag}"),
-                                (1, 0, f"shade_scatter{tag}"),
-                                (1, 1, f"shade_scatter{tag} from bounce 1")):
+    kinds = ((0, 0, f"shade_nee{tag}"),) + (
+        ((0, 1, f"shade_nee{tag} from bounce 1"),) if hdri else ()) + (
+        (1, 0, f"shade_scatter{tag}"),
+        (1, 1, f"shade_scatter{tag} from bounce 1"))
+    for stage, bounce, name in kinds:
         a.bounce = bounce
         vals = [ctypes.c_int() for _ in range(6)]
         rc = kernels.get_lib().ptrt_shade_info(

@@ -9,7 +9,10 @@ luminance x sin(theta) at up to 512x256 texels, so NEE draws an env
 direction with two table reads and knows its exact solid-angle pdf for MIS
 (``sample_env``, ``env_pdf_dir``).  Whether a sky has an env map is fixed
 per trace: the plain versions here and the kernels' HDRI instantiation
-(``csrc/shade.cu``) follow the same float order.
+(``csrc/shade.cu``) follow the same float order.  The kernels read the map
+as each texel's bilinear quad (``SkyConfig.env_quads``, ``bilinear_quads``),
+made once a map on the card, where they run, and shared by every frame
+program that reads the sky.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from ptrt_tpu_torch.core import rng as prng
 from ptrt_tpu_torch.core.vec import PI, TWO_PI, Vec3, fmax, lerp
+from ptrt_tpu_torch.graphs import Shared
 
 # importance-map resolution cap (the alias build is O(H*W) on the host)
 ENV_SAMPLE_W = 512
@@ -41,6 +45,11 @@ class SkyConfig:
     env_alias: Optional[torch.Tensor] = None
     env_pdf: Optional[torch.Tensor] = None
     env_sample_hw: tuple = (0, 0)  # (SH, SW)
+    # what the HDRI kernels read: the map's (H, W, 4, 4) ``bilinear_quads``
+    # where it lies on the card, else None (the plain versions read
+    # ``env``).  Made with the sky and kept by a sky made from it with the
+    # same ``env`` (a rotation); a frame program reads it where it lies.
+    env_quads: Optional[Shared] = None
 
     def __post_init__(self):
         # an HDRI is always importance-sampled: the trace runs env NEE
@@ -49,6 +58,12 @@ class SkyConfig:
                 (self.env_alias is None) != (self.env_pdf is None)):
             raise ValueError("an HDRI sky needs its sampling tables "
                              "(env_alias, env_pdf), and only it has them")
+        quads = self.env_quads
+        if self.env is None or not _kernels_read(self.env):
+            quads = None
+        elif quads is None or quads.tensor.device != self.env.device:
+            quads = Shared(bilinear_quads(self.env))
+        object.__setattr__(self, "env_quads", quads)
 
     @staticmethod
     def gradient(top=(0.5, 0.7, 1.0), bottom=(1.0, 1.0, 1.0),
@@ -83,6 +98,25 @@ class SkyConfig:
     @property
     def has_env_sampling(self) -> bool:
         return self.env_alias is not None
+
+
+def _kernels_read(env: torch.Tensor) -> bool:
+    """Whether the HDRI kernels read a map that lies where ``env`` does:
+    they run on the card, the plain versions elsewhere."""
+    return env.device.type == "cuda"
+
+
+def bilinear_quads(env: torch.Tensor) -> torch.Tensor:
+    """(H, W, 4, 4): at each texel (y, x) the four texels a bilinear
+    fetch there weighs, (y, x), (y, x+1), (y+1, x), (y+1, x+1) (x wrapped,
+    y clamped to the last row), each padded to four channels (the fourth
+    0).  A fetch reads 64 aligned bytes, one DRAM burst, where the map's own
+    rows cost it two to four; at 64 bytes a texel it is 5.3 times the
+    map's bytes (0.54 GB for a 4096x2048 map)."""
+    t = torch.nn.functional.pad(env, (0, 1))
+    below = torch.cat([t[1:], t[-1:]], 0)
+    right = lambda m: torch.roll(m, -1, dims=1)
+    return torch.stack([t, right(t), below, right(below)], 2).contiguous()
 
 
 def build_env_sampling(env: np.ndarray,

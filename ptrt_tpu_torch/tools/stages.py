@@ -10,7 +10,7 @@ Run as a script on a GPU, this file measures one tree's kernels:
 
     python3 ptrt_tpu_torch/tools/stages.py [--tree DIR] [--out DIR]
                                            [--bloom | --dynamic | --refill]
-                                           [--sets N,N,...] [--rt]
+                                           [--sets N,N,...] [--rt] [--hdri]
 
 ``--tree DIR`` measures the checkout in ``DIR`` (a variant of this tree or
 a later commit unpacked with ``git archive``, say) in a process of its own
@@ -31,8 +31,11 @@ sort, and digests of the order and the tables (``measure_refill``);
 ``--refill --dynamic`` runs both in one process.  ``--sets 320,512``
 measures only K4 on hand-made sets of those instance counts
 (``measure_sets``: 1M rays, queued times beside the bound, the kernel the
-set takes, a digest of the records).  ``--rt`` measures only the RT frame
-on the 1080p "rt" configuration (``measure_rt``: a digest of its RGB8, the
+set takes, a digest of the records).  ``--hdri`` measures only the K3
+kernels' registers, stack and SASS digests and the HDRI stages and frame
+(``measure_hdri_only``), so that a variant of the HDRI kernels is compared
+with this tree in turns.  ``--rt`` measures only the RT frame on the 1080p
+"rt" configuration (``measure_rt``: a digest of its RGB8, the
 frame profiled and split by pass and kernel, host and frame ms, K10's
 ``rt_shade`` and ``rt_glass_rays`` timed, ``rt_shade``'s registers and
 ptxas report); ``--tree DIR --rt`` in turns with this tree compares two
@@ -1020,17 +1023,45 @@ def hdri_scene():
 
 
 def hdri_frame(sc, out: dict) -> None:
-    """One profiled and three timed balanced frames of ``hdri_scene()``."""
+    """One profiled and three timed balanced frames of ``hdri_scene()``,
+    and the device memory its frame program holds: the bytes allocated
+    and reserved across the first frame (the program's copies of what it
+    reads and its graph's pool), beside the sky's own tensors."""
+    import gc
+
+    import torch
+
+    from ptrt_tpu_torch import graphs
+
+    sky = sc.sky()
+    # (a tree without Shared leaves has no shared_leaves)
+    shared = getattr(graphs, "shared_leaves", lambda tree: [])(sky)
+    sky_bytes = sum(t.numel() * t.element_size() for t in
+                    graphs.tree_leaves(sky) + [s.tensor for s in shared])
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
     sc.render_frame()
-    out["frames"]["hdri balanced"] = frame_profile(sc, 3)
+    torch.cuda.synchronize()
+    memory = {"sky_mb": sky_bytes / 2 ** 20,
+              "program_allocated_mb":
+                  (torch.cuda.memory_allocated() - alloc) / 2 ** 20,
+              "program_reserved_mb":
+                  (torch.cuda.memory_reserved() - reserved) / 2 ** 20}
+    out["frames"]["hdri balanced"] = dict(frame_profile(sc, 3), **memory)
 
 
 def log_frames(out: dict, log, card: str) -> None:
     for name, r in out["frames"].items():
         k4 = f" (K4 {r['k4_ms']:.3f} ms)" if r.get("k4_ms") else ""
+        mem = (f"; sky {r['sky_mb']:.1f} MB, its program "
+               f"{r['program_allocated_mb']:.1f} MB allocated, "
+               f"{r['program_reserved_mb']:.1f} MB reserved"
+               if "sky_mb" in r else "")
         log(f"{name} frame: device {r['device_ms']:.3f} ms{k4} in "
             f"{r['launches']} launches; frames "
-            f"{[round(t, 1) for t in r['frame_ms']]} ms [{card}]")
+            f"{[round(t, 1) for t in r['frame_ms']]} ms{mem} [{card}]")
 
 
 def measure_hdri(out: dict, log, card: str) -> None:
@@ -1063,7 +1094,42 @@ def measure_hdri(out: dict, log, card: str) -> None:
                 + f"; K2 env shadow rays {w['ms']:.4f} ms ({w['live']} "
                 f"live) bound {w['bound_ms']:.4f} ms; flags equal the plain "
                 f"stage's: {r['flags_equal']} [{card}]")
+    for split in (False, True):
+        rows = [r for r in out["shading_hdri"] if r["split"] == split]
+        log(f"hdri split={split}, bounces 0-{DEPTH - 1}: " + ", ".join(
+            f"{k} kernel {sum(r[k]['kernel_ms'] or 0.0 for r in rows):.4f}"
+            f" queued {sum(r[k]['queued_ms'] for r in rows):.4f}"
+            f" bound {sum(r[k]['bound_ms'] for r in rows):.4f} ms"
+            for k in ("shade_nee", "shade_scatter")) + f" [{card}]")
     hdri_frame(sc, out)
+
+
+def measure_hdri_only(tag: str, card: str) -> dict:
+    """The K3 kernels' resources (registers, stack, SASS digests, ptxas's
+    spills) and the HDRI stages and frame of ``measure_hdri``, alone."""
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.build import BUILD_DIR
+
+    log = lambda *a: say(f"[{tag}]", *a)
+    out = {"tag": tag, "card": card, "frames": {}}
+    kernels.get_lib()
+    out["resources"] = kernel_resources(
+        os.path.join(BUILD_DIR, kernels.LIBRARY), ("shade_nee",
+                                                   "shade_scatter"))
+    for k, fns in out["resources"].items():
+        for fn, r in fns.items():
+            log(f"{k} {fn[-48:]}: {r['registers']} registers, stack "
+                f"{r['stack_bytes']}, local {r['local_bytes']}, static "
+                f"shared {r['shared_bytes']} bytes; SASS sha256 "
+                f"{r['sass_sha256'][:16]}, {r['sass'].get('all')} "
+                f"instructions")
+    out["ptxas"] = source_ptxas(os.path.join(os.path.dirname(
+        os.path.abspath(kernels.__file__)), "csrc"), "shade.cu")
+    for line in out["ptxas"]:
+        log(f"ptxas {line[line.index('shade_'):]}")
+    measure_hdri(out, log, card)
+    log_frames(out, log, card)
+    return out
 
 
 def k4_wavefront(iset, static, name, o, d, t) -> tuple:
@@ -1445,8 +1511,8 @@ def rt_frame_split(kern) -> dict:
     return out
 
 
-def rt_shade_ptxas(csrc: str) -> list:
-    """nvcc's ``-Xptxas -v`` report of ``csrc/rt_shade.cu`` (this tree's
+def source_ptxas(csrc: str, source: str) -> list:
+    """nvcc's ``-Xptxas -v`` report of ``csrc/<source>`` (this tree's
     flags): one line a kernel of its stack frame, spill stores and loads,
     and registers."""
     from ptrt_tpu_torch import kernels
@@ -1454,13 +1520,25 @@ def rt_shade_ptxas(csrc: str) -> list:
     from ptrt_tpu_torch.tools.walks import ptxas_report
 
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, "rt_shade_ptxas.o")
+    out = os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}_ptxas.o")
     proc = subprocess.run(
         [kernels.nvcc_path(), *kernels.NVCC_FLAGS,
-         *kernels.SOURCE_FLAGS["rt_shade.cu"], "-Xptxas", "-v", "-c",
-         os.path.join(csrc, "rt_shade.cu"), "-o", out],
+         *kernels.SOURCE_FLAGS[source], "-Xptxas", "-v", "-c",
+         os.path.join(csrc, source), "-o", out],
         capture_output=True, text=True, timeout=600, check=True)
     return ptxas_report(proc.stdout + proc.stderr)
+
+
+def spill_bytes(report: list) -> dict:
+    """{kernel (mangled): (spill store bytes, spill load bytes)} of a
+    ``source_ptxas`` report."""
+    out = {}
+    for line in report:
+        m = re.match(r"(\S+): (\d+) bytes stack frame, (\d+) bytes spill "
+                     r"stores, (\d+) bytes spill loads", line)
+        if m:
+            out[m.group(1)] = (int(m.group(3)), int(m.group(4)))
+    return out
 
 
 def measure_rt(tag: str, card: str, frames: int = 5) -> dict:
@@ -1541,8 +1619,8 @@ def measure_rt(tag: str, card: str, frames: int = 5) -> dict:
         mats.packed.numel() * 4,
         rs.encode_lut(d.x.device).numel() * 4 if two else 0)
     out["info"] = rs.kernel_info(mats, lts, nl)
-    out["ptxas"] = rt_shade_ptxas(os.path.join(os.path.dirname(
-        os.path.abspath(kernels.__file__)), "csrc"))
+    out["ptxas"] = source_ptxas(os.path.join(os.path.dirname(
+        os.path.abspath(kernels.__file__)), "csrc"), "rt_shade.cu")
     from ptrt_tpu_torch.build import BUILD_DIR
 
     out["sass"] = {
@@ -1593,6 +1671,9 @@ def main(argv) -> int:
                     "these instance counts (comma-separated)")
     ap.add_argument("--rt", action="store_true",
                     help="measure only the RT frame and K10")
+    ap.add_argument("--hdri", action="store_true",
+                    help="measure only the K3 kernels' resources and the "
+                    "HDRI stages and frame")
     args = ap.parse_args(argv)
     say.out = args.out and os.path.abspath(args.out)
     here = os.path.abspath(__file__)
@@ -1602,7 +1683,7 @@ def main(argv) -> int:
         proc = subprocess.Popen(
             [sys.executable, here] + ["--bloom"] * args.bloom
             + ["--dynamic"] * args.dynamic + ["--refill"] * args.refill
-            + ["--rt"] * args.rt
+            + ["--rt"] * args.rt + ["--hdri"] * args.hdri
             + (["--sets", args.sets] if args.sets else []),
             cwd=tree,
             stdout=subprocess.PIPE, text=True,
@@ -1633,7 +1714,10 @@ def main(argv) -> int:
             int(n) for n in args.sets.split(",")])))
     if args.rt:
         say(json.dumps(measure_rt(tag, card)))
-    if not (args.refill or args.dynamic or args.sets or args.rt):
+    if args.hdri:
+        say(json.dumps(measure_hdri_only(tag, card)))
+    if not (args.refill or args.dynamic or args.sets or args.rt
+            or args.hdri):
         say(json.dumps(measure(tag, card, args.bloom)))
     return 0
 
