@@ -124,9 +124,14 @@ Phases (any failure raises, so the exit code is non-zero):
      the GPU and on the CPU after an edit; K5 refit and the Morton refill
      bit for bit against their plain versions on every table, at the
      heightfield, the sphere, odd sizes and the refill's shapes (1,001 to
-     1,045,506 triangles, and 1,001 with every code tied), the order
-     through morton_sort up to its limit and through morton_codes and
-     torch.sort at every size, each timed; one warm-up and five
+     1,045,506 triangles, and 1,001 with every code tied), refit bit for
+     bit after its first refit and after its queued repeats at every
+     shape, its root box that of the plain version, the counters back at
+     zero, its registers, shared bytes and blocks a SM; the heightfield and the
+     sphere refitted on two streams at once, bit for bit; an empty
+     kernel's queued launch (the floor under the small kernels); the
+     order through morton_sort up to its limit and through morton_codes
+     and torch.sort at every size, each timed; one warm-up and five
      timed dynamic frames (the counters: no host BVH build, 192 transform
      updates, 2 refits, 1 LBVH build a frame; the launches) and a profiled
      one; a 64x48 dynamic frame on the GPU and on the CPU;
@@ -157,7 +162,9 @@ Phases (any failure raises, so the exit code is non-zero):
      (the encode pass over every pixel) and rt_resolve_glass (the glass
      lanes' pixels again) equal to the plain resolve on every pixel, the
      RGB8 SHA-256 the earlier designs gave, each timed alone beside its
-     bound (the encode pass also beside the issue time of its SASS), and
+     bound (the encode pass also beside the issue time of its SASS;
+     rt_resolve_glass by the profiler in the profiled frame, with its
+     grid on the host's G and on a device count), and
      the encode's table equal to the plain encode on all 2^32 float32
      colours;
  12. the PT Scene API: render_wireframe at 1920x1080 (a 98-triangle scene
@@ -1933,21 +1940,42 @@ def check_refit(label, geom, plan, tris, morton, card):
                 "torch_sort_ms": sort_ms,
                 **stages.morton_bound(n, codes=False, order=True)}
         slot_map = (plan.device_arrays(dev)["rank"], order)
-    ga, gb = clone_geom(geom), clone_geom(geom)
-    refit.refit_apply(ga, plan, v0, v1, v2, slot_map=slot_map)
-    refit.refit_apply_plain(gb, plan, v0, v1, v2, slot_map=slot_map)
+    gb = clone_geom(geom)
+    want_root = (torch.empty(3, device=dev), torch.empty(3, device=dev))
+    refit.refit_apply_plain(gb, plan, v0, v1, v2, slot_map=slot_map,
+                            root=want_root)
+    aabb = refit.refit_root_aabb(gb, plan)
+    assert all(torch.equal(a, b) for a, b in zip(want_root, aabb)), label
+    counter = plan.device_arrays(dev)["counter"]
+    # bit for bit after the first refit and after the queued repeats
+    ga = clone_geom(geom)
+    root = (torch.full((3,), float("nan"), device=dev),
+            torch.full((3,), float("nan"), device=dev))
+    refit.refit_apply(ga, plan, v0, v1, v2, slot_map=slot_map, root=root)
     torch.cuda.synchronize()
     assert same_tables(ga, gb), f"refit {label}: tables differ"
     assert not torch.equal(ga.node_rows, geom.node_rows), (
         f"refit {label}: nothing moved")
-    out["refit"] = {
+    assert all(torch.equal(a, b) for a, b in zip(root, want_root)), (
+        f"refit {label}: root box")
+    assert not bool(counter.any()), f"refit {label}: counters left"
+    q = queued(lambda: refit.refit_apply(ga, plan, v0, v1, v2,
+                                         slot_map=slot_map))
+    torch.cuda.synchronize()
+    assert same_tables(ga, gb), f"refit {label}: tables differ after repeats"
+    assert not bool(counter.any()), f"refit {label}: counters left"
+    r = out["refit"] = {
         "tris": n, "slots": plan.num_slots,
         "nodes": plan.num_nodes, "levels": len(plan.levels),
-        "queued_ms": queued(lambda: refit.refit_apply(
-            ga, plan, v0, v1, v2, slot_map=slot_map)),
+        "queued_ms": q,
         "plain_ms": cuda_ms(lambda: refit.refit_apply_plain(
             gb, plan, v0, v1, v2, slot_map=slot_map), 3),
-        **stages.refit_bound(plan, n, morton)}
+        **refit.refit_info(), **stages.refit_bound(plan, n, morton)}
+    log(f"  refit {label}: bit for bit after its repeats, the root box the "
+        f"plain one, the counters back at zero; {r['registers']} registers, "
+        f"{r['local_bytes']} bytes local, {r['shared_bytes']} bytes of "
+        f"shared memory, {r['blocks_per_sm']} blocks of {r['threads']} a SM "
+        f"[{card}]")
     if morton:
         log(f"  the Morton refill {label} ({n} triangles, "
             f"{out['morton_codes']['distinct']} distinct codes): order bit "
@@ -1959,6 +1987,32 @@ def check_refit(label, geom, plan, tris, morton, card):
             f"{r['queued_ms'][1]:.4f} ms vs plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
     return out
+
+
+def check_refit_streams(geom, jobs, card) -> None:
+    """K5 on two streams at once: each (label, plan, vertices, slot map)
+    of ``jobs`` refitted on a stream of its own into one copy of the
+    tables, five times over, the streams' launches interleaved; the tables
+    bit for bit those of the plain versions run one after another (each
+    plan's scratch and counters are its own)."""
+    import torch
+    from ptrt_tpu_torch.geometry import refit
+
+    ga, gb = clone_geom(geom), clone_geom(geom)
+    for _, plan, (v0, v1, v2), slot_map in jobs:
+        refit.refit_apply_plain(gb, plan, v0, v1, v2, slot_map=slot_map)
+    streams = [torch.cuda.Stream() for _ in jobs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(5):
+        for s, (_, plan, (v0, v1, v2), slot_map) in zip(streams, jobs):
+            with torch.cuda.stream(s):
+                refit.refit_apply(ga, plan, v0, v1, v2, slot_map=slot_map)
+    torch.cuda.synchronize()
+    assert same_tables(ga, gb), "refit on two streams: tables differ"
+    log(f"  refit of {' and '.join(j[0] for j in jobs)} on "
+        f"{len(streams)} streams at once, five rounds: every table bit for "
+        f"bit the plain versions' [{card}]")
 
 
 def check_instances(dyn, rng, card):
@@ -2711,11 +2765,9 @@ def check_rt(dev, card, resources=None) -> dict:
     # rt_resolve's call launches two kernels: the encode pass over every
     # pixel, then the glass pass over the glass lanes.  Each is timed beside
     # its own bound: the encode pass queued in calls without glass lanes
-    # (it alone launches; two readings), the glass pass as what it adds to
-    # the frame's queued call (the call's time less the encode pass's;
-    # inside this script the profiler misses launches, so the glass kernel
-    # alone is measured by tools/probe_resolve.py and stages.py --rt); the
-    # frame's call (both) queued, beside both bounds
+    # (it alone launches; two readings), the glass pass by the profiler in
+    # the profiled frame (its program reads G on the card); the frame's
+    # call (both) queued, beside both bounds
     e = entries["rt_resolve"]
     nog = (fr.color,) + (None,) * 6 + (H, W)
     encode = [stages.clones_ms(lambda _: rs.rt_resolve(*nog), [None] * 21,
@@ -2731,14 +2783,36 @@ def check_rt(dev, card, resources=None) -> dict:
     k = "rt_resolve_glass"
     glass_plain_ms = cuda_ms(lambda: rs.glass_color_plain(
         fr.color, fr.hit, d, mats, fr.glass, fr.sec_color, fr.sec_k1), 2)
-    entries[k] = {"ms": sum(e["call_queued_ms"]) / 2 - e["ms"],
-                  "ms_by": "added to the frame's queued call (its queued "
-                           "time less the encode pass's)",
+    in_frame = [us / 1e3 for name, us in prof["kernels"]
+                if "rt_resolve_glass_kernel" in name]
+    assert len(in_frame) == 1, (
+        f"the profiled rt frame's rt_resolve_glass kernels: {in_frame}")
+    # beside it, under their own keys: what the glass pass adds to the
+    # frame's queued call (its queued time less the encode pass's; the
+    # measure of PR 19's row) and the profiler's reading of the kernel
+    # alone on the host's G (None where it missed the launch)
+    added = sum(e["call_queued_ms"]) / 2 - e["ms"]
+    alone = stages.kernel_ms(calls["rt_resolve"][0], [None] * 21,
+                             "rt_resolve_glass_kernel")
+    grid = {"host count": rs.resolve_glass_grid(n_glass),
+            "device count": rs.resolve_glass_grid(n)}
+    entries[k] = {"ms": in_frame[0],
+                  "ms_by": "the profiler, in the profiled frame",
+                  "alone_profiler_ms": alone, "added_to_call_ms": added,
+                  "grid": grid,
                   "plain_ms": glass_plain_ms,
                   **bounds[k],
                   "launches": launches.get(k, 0), "launches_per": "frame",
                   "max_abs_err": stats[k]["max_abs_err"], **info[k],
                   "glass_lanes": n_glass}
+    assert grid["device count"] <= (torch.cuda.get_device_properties(
+        dev).multi_processor_count * info[k]["blocks_per_sm"]), grid
+    log(f"[rt] rt_resolve_glass by the profiler: {in_frame[0]:.4f} ms in "
+        f"the profiled frame (G on the card), "
+        f"{'not measured' if alone is None else f'{alone:.4f} ms'} alone on "
+        f"the host's G; its grid {grid['host count']} blocks of 256 on the "
+        f"host's G, {grid['device count']} on a device count (the "
+        f"{n}-lane room) [{card}]")
     # the encode pass's SASS a thread (4 pixels) over the card's issue
     # rate, beside its bound (never as it); phase 2's listing where given
     res = resources or stages.kernel_resources(
@@ -2752,7 +2826,7 @@ def check_rt(dev, card, resources=None) -> dict:
         f"{e['sass_issue_ms']:.4f} ms ({body} instructions a thread of 4 "
         f"pixels), plain {e['plain_ms']:.3f} ms, {e['registers']} "
         f"registers, {e['blocks_per_sm']} blocks of {e['threads']} a SM; "
-        f"the glass pass adds {entries[k]['ms']:.4f} ms to the call, "
+        f"the glass pass adds {added:.4f} ms to the call, "
         f"bound {entries[k]['bound_ms']:.4f} ms ({entries[k]['bound_by']}) "
         f"on {n_glass} glass lanes, plain glass terms {glass_plain_ms:.3f} "
         f"ms, {entries[k]['registers']} registers, "
@@ -4987,7 +5061,9 @@ def main() -> int:
         assert v["staged"] and v["blocks_per_sm"] == (
             7 if k == "instances_closest" else 8), (k, v)
     plans = dyn._iset_cache["plans"]
-    kres = {}
+    kres, jobs = {}, []
+    from ptrt_tpu_torch.geometry import lbvh
+
     for label, pos, mesh, morton in (
             ("heightfield", len(plans) - 2, dyn.meshes[-2], False),
             ("sphere", len(plans) - 1, dyn.meshes[-1], True)):
@@ -4996,6 +5072,18 @@ def main() -> int:
         kres[label] = check_refit(label, iset.geom, plans[pos],
                                   [tris[:, j] for j in range(3)], morton,
                                   card)
+        v = torch.from_numpy(np.ascontiguousarray(np.stack(
+            [tris[:, j] for j in range(3)]))).to(dev)
+        jobs.append((label, plans[pos], (v[0], v[1], v[2]),
+                     (plans[pos].device_arrays(dev)["rank"],
+                      lbvh.morton_order(v[0], v[1], v[2])) if morton
+                     else None))
+    check_refit_streams(iset.geom, jobs, card)
+    del jobs
+    floor = stages.launch_floor()
+    log(f"  an empty kernel's launch, queued: {floor[0]:.4f} / "
+        f"{floor[1]:.4f} ms (the floor under the small kernels' times) "
+        f"[{card}]")
     # odd sizes: a 37x29-cell heightfield refit; the Morton refill's shapes
     # (stages.refill_meshes: 1,001, 8,192, 130,050 and 1,045,506 triangles,
     # both sides of morton_sort's most), each standalone, and a soup of 1,001
@@ -5327,9 +5415,10 @@ def main() -> int:
            "bound_by": kres[m][k]["bound_by"],
            "plain_ms": kres[m][k]["plain_ms"], "library_ms": None,
            "mesh": m, "tris": kres[m][k]["tris"],
+           "launch_floor_ms": floor,
            "sizes": {lbl: {key: r[k][key] for key in (
-               "tris", "queued_ms", "plain_ms", "bound_ms", "torch_sort_ms",
-               "distinct") if key in r[k]}
+               "tris", "slots", "nodes", "levels", "queued_ms", "plain_ms",
+               "bound_ms", "torch_sort_ms", "distinct") if key in r[k]}
                for lbl, r in kres.items() if k in r}}
           for k, m in (("refit", "heightfield"), ("morton_sort", "sphere"),
                        ("morton_codes", "morton heightfield 256x256"))],
@@ -5353,6 +5442,7 @@ def main() -> int:
          "source": src("rt_shade.cu"),
          "replaces": RT_REPLACES["rt_resolve_glass"],
          **rt["entries"]["rt_resolve_glass"], "library_ms": None,
+         "launch_floor_ms": floor,
          "tiled_trace": tiled, "unified_and_demo": app},
         # K11 at tycoon's 192 instances; every size, the grid path and the
         # game runs ride on it

@@ -14,24 +14,46 @@
 // launches and the latency between levels.
 //
 // What this design does about it:
-//  * refit is one cooperative launch (`cudaLaunchCooperativeKernel`; the
-//    grid is what the card holds at once, at most what the work needs),
-//    its phases separated by grid syncs.  The slot phase: a thread a leaf
-//    slot gathers its triangle (the plan's slot map, or order[rank] for the
-//    Morton refill, so lbvh_slot_map's gather folds in here), writes its
-//    nine fields of the triangle row and its v0 / e1 / e2 mirrors, and the
-//    eight slots of a block reduce the block's box with shuffles.  Then one
-//    phase a tree level, deepest first: eight threads a node, a thread a
-//    slot, so a node's 48 box floats are written by neighbouring threads,
-//    its slots' boxes (the block boxes or the children's node boxes) read
-//    side by side, and the node's own box reduced with shuffles for its
-//    parent.  A node reads its child base and leaf base from its own row
-//    (offset in a merged set), so it indexes the merged tables directly;
-//    the plan lists each level's nodes, so no parent indices or arrival
-//    counters.  A first design ran the levels in one block of 1024
-//    threads, a thread a node: 0.271 ms for the heightfield's 4,694 nodes
-//    (the slot pass 0.025), one SM's load and store units serving every
-//    node's scattered row (PERF.md);
+//  * refit is an ordinary launch, eight threads a leaf block, no grid
+//    barrier.  It starts with the slot phase: a thread a leaf slot gathers
+//    its triangle (the plan's slot map, or order[rank] for the Morton
+//    refill, so lbvh_slot_map's gather folds in here), writes its nine
+//    fields of the triangle row and its v0 / e1 / e2 mirrors, and the eight
+//    slots of a block reduce the block's box with shuffles.  The lane that
+//    owns a block writes its box and adds one to its node's counter with an
+//    acq_rel atomic (release: its box before the count; acquire: the boxes
+//    of the arrivals counted before it); the group whose arrival completes
+//    the node's used slots works the node, resets the counter and climbs to
+//    the parent (Karras-style), the parent's plan entries asked for while
+//    the node's boxes load.  A node is worked by eight threads, a thread a
+//    slot, so its 48 box floats are written by neighbouring threads, its
+//    slots' boxes (the block boxes or the children's node boxes) read side
+//    by side, and its own box reduced with shuffles for its parent.  A
+//    node's child base and leaf base come from its own row (offset in a
+//    merged set), so it indexes the merged tables directly.  Up to 2^18
+//    slots (a grid of 1,024 blocks) the climb stops below the top, the
+//    levels of depth <= 2 (at most 73 nodes): each block fences its boxes
+//    and counts itself done, and the last block to finish works the top
+//    level by level in shared memory, where a level costs a
+//    __syncthreads(), not a counter's round trip through L2; past that the
+//    arrivals climb to the root, since on a larger grid the blocks that
+//    wait to count themselves done measured slower.  The plan gives each
+//    node's parent and each leaf block's node (cut at the top), each node's
+//    used slots, and each top slot's source (a leaf block, a node below the
+//    top or a top node); the counters are the plan's, zero between refits
+//    (a plan is refitted on one stream at a time: the tables, scratch and
+//    counters it writes are its own).  A node without a used slot (an empty
+//    mesh's root) never gets an arrival: the plan lists such nodes below
+//    the top, and a group of the first phase writes each and arrives at its
+//    parent.  The first design, one cooperative launch with a grid sync a
+//    level, had ~561 blocks sync six times for the heightfield while 8
+//    threads worked the top levels.  Measured on an H100, queued, in turns
+//    with it (PERF.md): 130,050 triangles ~0.014 ms against 0.020, 8,192
+//    ~0.011 against 0.016, 1,001 ~0.0067 against 0.0093, over an empty
+//    launch's ~0.002.  A single block of 1,024 threads walking the levels
+//    with __syncthreads() between them lost to it at every size measured,
+//    1,001 triangles (0.0088-0.0095 ms) to 1,045,506 (3.95 ms), one SM's
+//    slot rounds outlasting the climb, so it is not kept.
 //  * morton_sort, for a mesh of up to kSortMax triangles (the LBVH meshes of
 //    the games, the dynamic scene's 8,192-triangle sphere), is the whole
 //    order in one launch of one block: each float of the (T, 3) vertex
@@ -58,13 +80,15 @@
 //
 // Exactness: min and max are exact in any order and the triangle rows are
 // copies and differences, so the tables equal the plain version's (and the
-// reference's) bit for bit, up to the sign of a zero bound; the codes are
-// the plain version's arithmetic, and a stable sort has one answer.  Built
-// with -fmad=false, like the plain torch version's separate roundings.  The
-// boxes one phase writes and the next reads go through L2 (__ldcg): the
-// read-only path is not coherent within a launch.
+// reference's) bit for bit, up to the sign of a zero bound, in any order
+// of arrival; the codes are the plain version's arithmetic, and a stable
+// sort has one answer.  Built with -fmad=false, like the plain torch
+// version's separate roundings.  The boxes one block writes and another
+// reads go through L2 (__ldcg, after an acquire or a fence): the read-only
+// path is not coherent within a launch.
 
 #include <cooperative_groups.h>
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,6 +102,11 @@ constexpr int kNodeRow = 64;         // node_rows width
 constexpr float kBig = 3.0e30f;      // refit.BIG
 constexpr int kThreads = 256;        // refit's block
 constexpr int kMaxDevices = 64;
+// refit's top: the levels of depth <= 2, at most 1 + 8 + 64
+// nodes of an 8-wide tree
+constexpr int kTopLevels = 3;
+constexpr int kTopMax = 73;
+constexpr int kTopRegs = (8 * kTopMax + 255) / 256;  // slots a thread
 constexpr int kMBits = 10;           // lbvh.MBITS
 constexpr int kSortThreads = 1024;   // morton_sort's one block
 constexpr int kSortWarps = kSortThreads / 32;
@@ -98,150 +127,360 @@ struct RefitArgs {
     float* tri_rows;                   // at the plan's block offset
     float* mirror[9];                  // v0 e1 e2 x y z, at the slot offset
     float* node_rows;                  // the whole table (rows node_off..)
-    const int* __restrict__ level_nodes;   // every node, deepest first
-    const int* __restrict__ level_starts;  // (n_levels + 1,)
+    // the tree seen from below (node ids local to the plan)
+    const int* __restrict__ parent;    // (N,) -1 for the root
+    const int* __restrict__ blk_node;  // (B,) a leaf block's node, -1 none
+    const int* __restrict__ used;      // (N,) used slots a node
+    const int* __restrict__ empty;     // (E,) nodes without a used slot
+    int* counter;                      // (N,) arrivals, 0 between refits
     float* blk_box;                    // (B, 6) scratch: min xyz, max xyz
     float* node_box;                   // (N, 6) scratch
-    int n_tris, n_slots, n_levels, node_off, blk_off;
+    float* root_lo;                    // (3,) the root's box, or null
+    float* root_hi;
+    // the top (the nodes of depth <= 2; none past the
+    // plan's size limit), worked by the last block to finish: each top
+    // node's id and, a slot, where its box is
+    // (kind << 30 | index: 0 unused, 1 a leaf block, 2 a node below the
+    // top, 3 a top node), deepest level first; the top levels' starts
+    const int* __restrict__ top_ids;   // (n_top,)
+    const int* __restrict__ top_src;   // (n_top, 8)
+    int* done;                         // blocks finished, 0 between refits
+    int top_starts[kTopLevels + 1];
+    int n_top, n_top_levels;
+    int n_tris, n_slots, n_empty, node_off, blk_off;
 };
 
-// The slot phase: a thread a leaf slot, grid-stride.  Every lane of a warp
-// takes part in each round (the shuffles); lanes past the last slot write
-// nothing.  n_slots is a multiple of kLeaf, and so is the stride.
-__device__ void refit_slots(const RefitArgs& a) {
-    const int stride = gridDim.x * kThreads;
-    const int rounds = (a.n_slots + stride - 1) / stride;
-    for (int r = 0; r < rounds; ++r) {
-        const int s = r * stride + blockIdx.x * kThreads + threadIdx.x;
-        const bool live = s < a.n_slots;
-        int tri = -1;
+// The triangle of leaf slot s (-1 for a pad or a lane past the last
+// slot): the plan's map, or order[rank] for the Morton refill.
+__device__ __forceinline__ int slot_triangle(const RefitArgs& a, int s,
+                                             bool live) {
+    if (!live) return -1;
+    if (a.slot_tri != nullptr) return a.slot_tri[s];
+    const int rk = a.rank[s];
+    return rk >= 0 ? a.order[rk] : -1;
+}
+
+// Triangle ``tri``'s vertices, x y z of v0, v1, v2 (zeros for a pad).
+__device__ __forceinline__ void slot_vertices(const RefitArgs& a, int tri,
+                                              float p[9]) {
+    const bool pad = tri < 0 || tri >= a.n_tris;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        p[k] = pad ? 0.0f : a.v0[3 * tri + k];
+        p[3 + k] = pad ? 0.0f : a.v1[3 * tri + k];
+        p[6 + k] = pad ? 0.0f : a.v2[3 * tri + k];
+    }
+}
+
+// Leaf slot s (``live``: s < n_slots) with its triangle's vertices: its
+// nine fields of the triangle row and its mirrors written; ``lo`` / ``hi``
+// the box of its block, reduced over the block's eight slots, which are
+// eight neighbouring lanes of one warp (pads and lanes past the last slot
+// at +-kBig).  Every lane of the warp calls it.
+__device__ __forceinline__ void slot_write(const RefitArgs& a, int s,
+                                           bool live, int tri,
+                                           const float p[9], float lo[3],
+                                           float hi[3]) {
+    const bool pad = tri < 0 || tri >= a.n_tris;
+    const int blk = s / kLeaf, j = s - blk * kLeaf;
+    float* row = a.tri_rows + static_cast<size_t>(blk) * kTriRow;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        const float p0 = p[k], p1 = p[3 + k], p2 = p[6 + k];
+        const float e1 = p1 - p0, e2 = p2 - p0;
         if (live) {
-            if (a.slot_tri != nullptr) {
-                tri = a.slot_tri[s];
-            } else {
-                const int rk = a.rank[s];
-                tri = rk >= 0 ? a.order[rk] : -1;
-            }
+            row[(0 + k) * kLeaf + j] = p0;
+            row[(3 + k) * kLeaf + j] = e1;
+            row[(6 + k) * kLeaf + j] = e2;
+            a.mirror[k][s] = p0;
+            a.mirror[3 + k][s] = e1;
+            a.mirror[6 + k][s] = e2;
         }
-        const bool pad = tri < 0 || tri >= a.n_tris;
-        float p0[3], p1[3], p2[3];
+        lo[k] = pad ? kBig : fminf(fminf(p0, p1), p2);
+        hi[k] = pad ? -kBig : fmaxf(fmaxf(p0, p1), p2);
+    }
+#pragma unroll
+    for (int off = 1; off < kLeaf; off <<= 1) {
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-            p0[k] = pad ? 0.0f : a.v0[3 * tri + k];
-            p1[k] = pad ? 0.0f : a.v1[3 * tri + k];
-            p2[k] = pad ? 0.0f : a.v2[3 * tri + k];
-        }
-        const int blk = s / kLeaf, j = s - blk * kLeaf;
-        float* row = a.tri_rows + static_cast<size_t>(blk) * kTriRow;
-        float lo[3], hi[3];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-            const float e1 = p1[k] - p0[k], e2 = p2[k] - p0[k];
-            if (live) {
-                row[(0 + k) * kLeaf + j] = p0[k];
-                row[(3 + k) * kLeaf + j] = e1;
-                row[(6 + k) * kLeaf + j] = e2;
-                a.mirror[k][s] = p0[k];
-                a.mirror[3 + k][s] = e1;
-                a.mirror[6 + k][s] = e2;
-            }
-            lo[k] = pad ? kBig : fminf(fminf(p0[k], p1[k]), p2[k]);
-            hi[k] = pad ? -kBig : fmaxf(fmaxf(p0[k], p1[k]), p2[k]);
-        }
-        // a block's eight slots are eight neighbouring lanes of one warp
-#pragma unroll
-        for (int off = 1; off < kLeaf; off <<= 1) {
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-                lo[k] = fminf(lo[k], __shfl_xor_sync(0xffffffffu, lo[k], off,
-                                                     kLeaf));
-                hi[k] = fmaxf(hi[k], __shfl_xor_sync(0xffffffffu, hi[k], off,
-                                                     kLeaf));
-            }
-        }
-        if (live && j == 0) {
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-                a.blk_box[6 * blk + k] = lo[k];
-                a.blk_box[6 * blk + 3 + k] = hi[k];
-            }
+            lo[k] = fminf(lo[k], __shfl_xor_sync(0xffffffffu, lo[k], off,
+                                                 kLeaf));
+            hi[k] = fmaxf(hi[k], __shfl_xor_sync(0xffffffffu, hi[k], off,
+                                                 kLeaf));
         }
     }
 }
 
-// One level's nodes: eight threads a node, a thread a slot.  A node's box is
-// the min / max over its eight slots, unused slots at +-kBig (so a node
-// without children gets the inverted +-kBig box, as the reference); unused
-// slots keep (0, -1).
-__device__ void refit_level(const RefitArgs& a, int begin, int end) {
-    const int stride = gridDim.x * kThreads;
-    const int span = (end - begin) * 8;
-    const int rounds = (span + stride - 1) / stride;
-    for (int r = 0; r < rounds; ++r) {
-        const int q = r * stride + blockIdx.x * kThreads + threadIdx.x;
-        const bool live = q < span;
-        const int s = q & 7;
-        float lo[3] = {kBig, kBig, kBig}, hi[3] = {-kBig, -kBig, -kBig};
-        float* row = nullptr;
-        int x = 0;
-        if (live) {
-            x = a.level_nodes[begin + (q >> 3)];
-            row = a.node_rows + static_cast<size_t>(a.node_off + x) * kNodeRow;
-            // float-encoded ints, decoded by value
-            const int cba = static_cast<int>(row[48]);
-            const int lb = static_cast<int>(row[49]);
-            const uint32_t lmask = static_cast<uint32_t>(
-                static_cast<int>(row[50]));
-            const uint32_t imask = static_cast<uint32_t>(
-                static_cast<int>(row[51]));
-            const bool leaf = (lmask >> s) & 1u;
-            const bool used = leaf || ((imask >> s) & 1u);
-            if (used) {
-                const float* box =
-                    leaf ? a.blk_box + 6 * (lb + s - a.blk_off)
-                         : a.node_box + 6 * (cba + s - a.node_off);
+// A node's float-encoded ints (row columns 48-51: child base, leaf base,
+// leaf mask, internal mask), decoded by value.  The kernels never write
+// these columns, so the read-only path serves them.
+struct NodeMeta {
+    int cba, lb;
+    uint32_t lmask, imask;
+};
+
+__device__ __forceinline__ NodeMeta node_meta(const RefitArgs& a, int x) {
+    const float4 m = __ldg(reinterpret_cast<const float4*>(
+        a.node_rows + static_cast<size_t>(a.node_off + x) * kNodeRow + 48));
+    return NodeMeta{static_cast<int>(m.x), static_cast<int>(m.y),
+                    static_cast<uint32_t>(static_cast<int>(m.z)),
+                    static_cast<uint32_t>(static_cast<int>(m.w))};
+}
+
+// Slot s of node x (local; ``live``: this lane's group works a node; ``m``
+// its metadata): the row's slot bounds written, (0, -1) where unused;
+// ``lo`` / ``hi`` the node's box, the min / max over its eight slots with
+// unused slots at +-kBig (so a node without children gets the inverted
+// +-kBig box, as the reference), reduced over the node's eight
+// neighbouring lanes; the slot boxes other blocks wrote read through L2.
+// Every lane of the warp calls it.
+__device__ __forceinline__ void refit_node(const RefitArgs& a, bool live,
+                                           int x, const NodeMeta& m, int s,
+                                           float lo[3], float hi[3]) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        lo[k] = kBig;
+        hi[k] = -kBig;
+    }
+    if (live) {
+        float* row = a.node_rows + static_cast<size_t>(a.node_off + x) *
+                                       kNodeRow;
+        const bool leaf = (m.lmask >> s) & 1u;
+        const bool used = leaf || ((m.imask >> s) & 1u);
+        if (used) {
+            const float* box =
+                leaf ? a.blk_box + 6 * (m.lb + s - a.blk_off)
+                     : a.node_box + 6 * (m.cba + s - a.node_off);
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                lo[k] = __ldcg(box + k);
+                hi[k] = __ldcg(box + 3 + k);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            row[k * 8 + s] = used ? lo[k] : 0.0f;
+            row[24 + k * 8 + s] = used ? hi[k] : -1.0f;
+        }
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            lo[k] = fminf(lo[k], __shfl_xor_sync(0xffffffffu, lo[k], off, 8));
+            hi[k] = fmaxf(hi[k], __shfl_xor_sync(0xffffffffu, hi[k], off, 8));
+        }
+    }
+}
+
+// Node x's box into the scratch, and into the root outputs for the root.
+__device__ __forceinline__ void put_node_box(const RefitArgs& a, int x,
+                                             const float lo[3],
+                                             const float hi[3]) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        a.node_box[6 * x + k] = lo[k];
+        a.node_box[6 * x + 3 + k] = hi[k];
+    }
+    if (x == 0 && a.root_lo != nullptr) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            a.root_lo[k] = lo[k];
+            a.root_hi[k] = hi[k];
+        }
+    }
+}
+
+// What a group climbing to node x reads of the plan, asked for ahead of
+// the node's arrival count so the loads overlap the atomic.
+struct Climb {
+    int x, used, parent;
+    NodeMeta m;
+};
+
+__device__ __forceinline__ Climb climb_to(const RefitArgs& a, int x) {
+    Climb c{x, 0, -1, NodeMeta{0, 0, 0u, 0u}};
+    if (x >= 0) {
+        c.used = __ldg(a.used + x);
+        c.parent = __ldg(a.parent + x);
+        c.m = node_meta(a, x);
+    }
+    return c;
+}
+
+// refit's last phase (a plan with a top): every block counts itself done
+// (the lanes that wrote boxes, a group's first, fence them first); the last block to finish works the top levels in shared memory,
+// a __syncthreads() between them, and resets the block count.  Every block
+// asks for the top's plan entries before its count, so the last block has
+// them when it learns it is last.
+__device__ __forceinline__ void finish_top(const RefitArgs& a) {
+    static_assert(kThreads >= kTopMax, "a thread a top node's id");
+    __shared__ int src_s[8 * kTopMax];
+    __shared__ int ids_s[kTopMax];
+    __shared__ float box_s[6 * kTopMax];
+    __shared__ int last_s;
+    int src_r[kTopRegs];
+#pragma unroll
+    for (int k = 0; k < kTopRegs; ++k) {
+        const int q = k * kThreads + threadIdx.x;
+        src_r[k] = q < 8 * a.n_top ? __ldg(a.top_src + q) : 0;
+    }
+    const int id_r =
+        threadIdx.x < a.n_top ? __ldg(a.top_ids + threadIdx.x) : 0;
+    // a group's first lane wrote its boxes: them before the block's count
+    if (threadIdx.x % kLeaf == 0) __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+        last_s = atomicAdd(a.done, 1) == static_cast<int>(gridDim.x) - 1;
+    __syncthreads();
+    if (!last_s) return;
+    __threadfence();  // the other blocks' boxes, after their counts
+    if (threadIdx.x == 0) a.done[0] = 0;  // every block counted
+#pragma unroll
+    for (int k = 0; k < kTopRegs; ++k) {
+        const int q = k * kThreads + threadIdx.x;
+        if (q < 8 * a.n_top) src_s[q] = src_r[k];
+    }
+    if (threadIdx.x < a.n_top) ids_s[threadIdx.x] = id_r;
+    __syncthreads();
+    for (int l = 0; l < a.n_top_levels; ++l) {
+        const int begin = a.top_starts[l];
+        const int span = (a.top_starts[l + 1] - begin) * 8;
+        for (int q0 = 0; q0 < span; q0 += kThreads) {
+            const int q = q0 + threadIdx.x;
+            const bool live = q < span;
+            const int j = begin + q / 8, s = q % 8;
+            float lo[3] = {kBig, kBig, kBig}, hi[3] = {-kBig, -kBig, -kBig};
+            if (live) {
+                const uint32_t src = static_cast<uint32_t>(src_s[8 * j + s]);
+                const uint32_t kind = src >> 30;
+                const int at = static_cast<int>(src & 0x3fffffffu);
+                if (kind == 3u) {
+#pragma unroll
+                    for (int k = 0; k < 3; ++k) {
+                        lo[k] = box_s[6 * at + k];
+                        hi[k] = box_s[6 * at + 3 + k];
+                    }
+                } else if (kind != 0u) {
+                    const float* box =
+                        (kind == 1u ? a.blk_box : a.node_box) + 6 * at;
+#pragma unroll
+                    for (int k = 0; k < 3; ++k) {
+                        lo[k] = __ldcg(box + k);
+                        hi[k] = __ldcg(box + 3 + k);
+                    }
+                }
+                float* row = a.node_rows +
+                             static_cast<size_t>(a.node_off + ids_s[j]) *
+                                 kNodeRow;
 #pragma unroll
                 for (int k = 0; k < 3; ++k) {
-                    lo[k] = __ldcg(box + k);
-                    hi[k] = __ldcg(box + 3 + k);
+                    row[k * 8 + s] = kind != 0u ? lo[k] : 0.0f;
+                    row[24 + k * 8 + s] = kind != 0u ? hi[k] : -1.0f;
                 }
             }
 #pragma unroll
-            for (int k = 0; k < 3; ++k) {
-                row[k * 8 + s] = used ? lo[k] : 0.0f;
-                row[24 + k * 8 + s] = used ? hi[k] : -1.0f;
+            for (int off = 1; off < 8; off <<= 1) {
+#pragma unroll
+                for (int k = 0; k < 3; ++k) {
+                    lo[k] = fminf(lo[k],
+                                  __shfl_xor_sync(0xffffffffu, lo[k], off, 8));
+                    hi[k] = fmaxf(hi[k],
+                                  __shfl_xor_sync(0xffffffffu, hi[k], off, 8));
+                }
+            }
+            if (live && s == 0) {
+#pragma unroll
+                for (int k = 0; k < 3; ++k) {
+                    box_s[6 * j + k] = lo[k];
+                    box_s[6 * j + 3 + k] = hi[k];
+                }
+                if (ids_s[j] == 0 && a.root_lo != nullptr) {
+#pragma unroll
+                    for (int k = 0; k < 3; ++k) {
+                        a.root_lo[k] = lo[k];
+                        a.root_hi[k] = hi[k];
+                    }
+                }
             }
         }
-        // the node's box: the eight lanes of a node are neighbours
-#pragma unroll
-        for (int off = 1; off < 8; off <<= 1) {
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-                lo[k] = fminf(lo[k], __shfl_xor_sync(0xffffffffu, lo[k], off,
-                                                     8));
-                hi[k] = fmaxf(hi[k], __shfl_xor_sync(0xffffffffu, hi[k], off,
-                                                     8));
-            }
-        }
-        if (live && s == 0) {
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-                a.node_box[6 * x + k] = lo[k];
-                a.node_box[6 * x + 3 + k] = hi[k];
-            }
-        }
+        __syncthreads();  // the next level reads this one's boxes
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// refit: a group of eight lanes a leaf block (then a node without a used
+// slot), a lane a slot.  The group's leader writes the box and counts its
+// arrival at the node with an acq_rel atomic: the release puts its box in
+// L2 before any group can see the count, the acquire of the count that
+// completes the node orders the boxes of the arrivals before it ahead of
+// that group's reads, passed on to its other lanes by __syncwarp(); the
+// group works the node, resets its counter and climbs (the parent's plan
+// entries asked for while the node's slot boxes load).  The loop runs
+// while any group of the warp climbs, so every lane takes part in the
+// shuffles and the barrier.  Eight blocks a SM keep it at 32 registers
+// (unbounded, 40 and six blocks: 0.084 against 0.081 ms at 1,045,506
+// triangles on an H100).
+__global__ void __launch_bounds__(kThreads, 8)
 refit_kernel(const __grid_constant__ RefitArgs a) {
-    cg::grid_group grid = cg::this_grid();
-    refit_slots(a);
-    for (int l = 0; l < a.n_levels; ++l) {
-        grid.sync();  // this level reads the boxes of the one before
-        refit_level(a, a.level_starts[l], a.level_starts[l + 1]);
+    const int q = blockIdx.x * kThreads + threadIdx.x;
+    const int item = q / kLeaf, s = q % kLeaf;
+    const int blocks = a.n_slots / kLeaf;
+    const bool live = q < a.n_slots;
+    float p[9], lo[3], hi[3];
+    const int tri = slot_triangle(a, q, live);
+    slot_vertices(a, tri, p);
+    slot_write(a, q, live, tri, p, lo, hi);
+    int x = -1;  // the node this group arrives at
+    if (item < blocks) {
+        if (s == 0) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                a.blk_box[6 * item + k] = lo[k];
+                a.blk_box[6 * item + 3 + k] = hi[k];
+            }
+        }
+        x = __ldg(a.blk_node + item);
+    } else if (item < blocks + a.n_empty) {
+        // a node without a used slot: (0, -1) slots, the +-kBig box (lo /
+        // hi hold it: this group's lanes hold no slot)
+        const int e = __ldg(a.empty + item - blocks);
+        float* row = a.node_rows + static_cast<size_t>(a.node_off + e) *
+                                       kNodeRow;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            row[k * 8 + s] = 0.0f;
+            row[24 + k * 8 + s] = -1.0f;
+        }
+        if (s == 0) put_node_box(a, e, lo, hi);
+        x = __ldg(a.parent + e);
     }
+    Climb c = climb_to(a, x);
+    bool climbing = x >= 0;
+    while (__any_sync(0xffffffffu, climbing)) {
+        int last = 0;
+        if (climbing && s == 0) {
+            cuda::atomic_ref<int, cuda::thread_scope_device> count(
+                a.counter[c.x]);
+            last = count.fetch_add(1, cuda::memory_order_acq_rel) ==
+                   c.used - 1;
+        }
+        climbing = __shfl_sync(0xffffffffu, last, 0, kLeaf) != 0;
+        __syncwarp();  // the leader's acquire, before its group's reads
+        const Climb up = climb_to(a, climbing ? c.parent : -1);
+        refit_node(a, climbing, c.x, c.m, s, lo, hi);
+        if (climbing && s == 0) {
+            a.counter[c.x] = 0;  // every arrival counted: the next refit's
+            put_node_box(a, c.x, lo, hi);
+        }
+        c = up;
+        climbing = c.x >= 0;
+    }
+    if (a.n_top > 0) finish_top(a);
 }
+
+// An empty kernel: the floor of a launch, timed beside the small kernels'
+// bounds (measurement only).
+__global__ void empty_kernel() {}
 
 __device__ __forceinline__ float centroid(float a, float b, float c) {
     return (fminf(fminf(a, b), c) + fmaxf(fmaxf(a, b), c)) * 0.5f;
@@ -558,35 +797,33 @@ size_t sort_shared_bytes(int n) {
 
 extern "C" {
 
-// refit: one cooperative launch.  Exactly one of ``slot_tri`` and
-// (``rank``, ``order``) is given.  ``tri_rows`` and the nine mirror planes
-// point at the plan's offsets; ``node_rows`` is the whole table, the plan's
-// nodes at ``node_off``; ``scratch`` holds (n_slots / 8 + n_nodes) x 6
-// floats.  ``max_level`` is the plan's largest level (nodes).
+// refit.  Exactly one of ``slot_tri`` and (``rank``, ``order``) is given.
+// ``tri_rows`` and the nine mirror planes point at the plan's offsets;
+// ``node_rows`` is the whole table, the plan's ``n_nodes`` nodes at
+// ``node_off``; ``scratch`` holds (n_slots / 8 + n_nodes) x 6 floats;
+// ``root_lo`` / ``root_hi`` (3,) each or null.  ``parent`` and
+// ``blk_node`` are cut at the top (-1 where the parent is a top node);
+// ``used`` each node's used slots; ``empty`` the ``n_empty`` nodes below
+// the top without one; ``counter`` each node's arrivals and ``done`` the
+// blocks finished (zero on entry and on return); ``top_ids`` the ``n_top``
+// top nodes with their slots' sources ``top_src`` and the
+// ``n_top_levels`` + 1 host ints ``top_starts``.
 int ptrt_refit(const float* v0, const float* v1, const float* v2, int n_tris,
                const int* slot_tri, const int* rank, const int* order,
                int n_slots, float* tri_rows, float* v0x, float* v0y,
                float* v0z, float* e1x, float* e1y, float* e1z, float* e2x,
                float* e2y, float* e2z, float* node_rows, int node_off,
-               int blk_off, const int* level_nodes, const int* level_starts,
-               int n_levels, int max_level, float* scratch, void* stream) {
+               int blk_off, int n_nodes, const int* parent,
+               const int* blk_node, const int* used, const int* empty,
+               int n_empty, int* counter, const int* top_ids,
+               const int* top_src, int n_top, const int* top_starts,
+               int n_top_levels, int* done, float* scratch, float* root_lo,
+               float* root_hi, void* stream) {
     if ((slot_tri == nullptr) == (rank == nullptr || order == nullptr) ||
-        n_slots % kLeaf != 0 || n_levels < 1)
+        n_slots < 0 || n_slots % kLeaf != 0 || n_nodes < 1 || n_empty < 0 ||
+        (root_lo == nullptr) != (root_hi == nullptr) || n_top < 0 ||
+        n_top > kTopMax || n_top_levels < 0 || n_top_levels > kTopLevels)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (n_slots <= 0) return static_cast<int>(cudaGetLastError());
-    static int per_sm[kMaxDevices], sms[kMaxDevices];
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess && (dev < 0 || dev >= kMaxDevices))
-        e = cudaErrorInvalidDevice;
-    if (e == cudaSuccess && per_sm[dev] == 0) {
-        e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                                   dev);
-        if (e == cudaSuccess)
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm[dev], refit_kernel, kThreads, 0);
-    }
-    if (e != cudaSuccess) return static_cast<int>(e);
     RefitArgs a = {};
     a.v0 = v0;
     a.v1 = v1;
@@ -598,24 +835,57 @@ int ptrt_refit(const float* v0, const float* v1, const float* v2, int n_tris,
     float* m[9] = {v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z};
     for (int k = 0; k < 9; ++k) a.mirror[k] = m[k];
     a.node_rows = node_rows;
-    a.level_nodes = level_nodes;
-    a.level_starts = level_starts;
+    a.parent = parent;
+    a.blk_node = blk_node;
+    a.used = used;
+    a.empty = empty;
+    a.counter = counter;
+    a.top_ids = top_ids;
+    a.top_src = top_src;
+    a.done = done;
+    for (int l = 0; l <= n_top_levels; ++l) a.top_starts[l] = top_starts[l];
+    a.n_top = n_top;
+    a.n_top_levels = n_top_levels;
     a.blk_box = scratch;
     a.node_box = scratch + 6 * static_cast<size_t>(n_slots / kLeaf);
+    a.root_lo = root_lo;
+    a.root_hi = root_hi;
     a.n_tris = n_tris;
     a.n_slots = n_slots;
-    a.n_levels = n_levels;
+    a.n_empty = n_empty;
     a.node_off = node_off;
     a.blk_off = blk_off;
-    // the grid the card holds at once, at most what the largest phase needs
-    const int work = n_slots > 8 * max_level ? n_slots : 8 * max_level;
-    const int need = (work + kThreads - 1) / kThreads;
-    const int most = sms[dev] * (per_sm[dev] > 0 ? per_sm[dev] : 1);
-    const int grid = need < most ? need : most;
-    void* params[] = {&a};
-    return static_cast<int>(cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(refit_kernel), dim3(grid),
-        dim3(kThreads), params, 0, static_cast<cudaStream_t>(stream)));
+    const long long items = n_slots / kLeaf + static_cast<long long>(n_empty);
+    if (items > 0) {
+        const long long grid = (kLeaf * items + kThreads - 1) / kThreads;
+        refit_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// refit's registers, local-memory bytes a thread, threads a block, resident
+// blocks a SM and (static) shared bytes a block.
+int ptrt_refit_info(int* regs, int* local_bytes, int* threads, int* per_sm,
+                    int* shared_bytes) {
+    const void* kernel = reinterpret_cast<const void*>(refit_kernel);
+    cudaFuncAttributes attr = {};
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                          kThreads, 0);
+    *regs = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    *threads = kThreads;
+    *shared_bytes = static_cast<int>(attr.sharedSizeBytes);
+    return static_cast<int>(e);
+}
+
+// One launch of an empty kernel (the floor a small kernel's time stands
+// on; measurement only).
+int ptrt_empty_launch(void* stream) {
+    empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+    return static_cast<int>(cudaGetLastError());
 }
 
 // morton_sort: ``order`` (n,) int32, the triangles sorted by the Morton

@@ -42,11 +42,19 @@
 // tonemap.cu) in place of the powf: one word for each 2^16 float bit
 // patterns of r in [0, 2] and three for r above 2, negative and NaN, which
 // chip_smoke.py holds equal to the plain encode on all 2^32 float32
-// colours.  Then rt_resolve_glass, one thread a glass lane over the G
-// glass lanes, adds the glass terms to the lane's colour and writes its
-// pixel again.  Measured on an H100 at 1080p, queued (PERF.md): 0.018 ms
-// (the encode pass 0.011, the glass pass 0.005); the index plane read four
-// lanes at a time in one launch instead, 0.021.
+// colours.  Then rt_resolve_glass adds the glass terms to each of the G
+// glass lanes' colours and writes its pixel again.  Measured on an H100 at
+// 1080p, queued (PERF.md): 0.018 ms (the encode pass 0.011, the glass pass
+// 0.005); the index plane read four lanes at a time in one launch instead,
+// 0.021.  The glass pass's first design was a thread a lane's room: with G
+// on the card (a frame program) that is ceil(N / 256) = 8,100 blocks at
+// 1080p for ~286 blocks of glass lanes, the rest starting only to read G
+// and exit, and each live thread one chain of dependent scattered loads
+// (lane, mesh id, material row, direction, normal, facing, t, shades).
+// Now its grid is what the card holds at once (at most what the host's G
+// needs), striding over the G lanes; a thread asks for its place's lane
+// and reflection shade together with G, then for every load that needs
+// only the lane and G together, before the material row.
 //
 // rt_glass_rays writes the rays of the glass lanes only.  The first design
 // wrote a reflection and a refraction ray for every lane, dead ones with
@@ -924,27 +932,38 @@ __device__ __forceinline__ uint32_t resolve_byte(float c, const int* lut) {
     return (e >> 17) + ((b & 0xffffu) >= (e & 0x1ffffu) ? 1u : 0u);
 }
 
-// lane i's colour plus the glass terms of its place p: the Fresnel mix of
-// the reflection shade (at p), Beer-Lambert over the refraction ray's t and
-// the transmitted shade (at G + p)
-__device__ __forceinline__ V3 glass_color(const RtArgs& a, long long i,
+// lane i's colour plus the glass terms of its place p (``refl``: its
+// reflection shade, read with i): the Fresnel mix of the reflection shade,
+// Beer-Lambert over the refraction ray's t and the transmitted shade (at
+// G + p).  Every load that needs only i and G is issued together, before
+// the material row.
+__device__ __forceinline__ V3 glass_color(const RtArgs& a, int i,
                                           long long p, long long n_glass,
-                                          V3 c) {
-    const float* r = mat_row(a, a.mat, a.hit_mesh[i]);
-    const Glass g = glass_terms<false>(ld3(a.d, i), ld3(a.normal, i),
-                                       a.front[i] != 0, v3(0.0f), r);
+                                          V3 refl) {
     const long long k2 = n_glass + p;
-    const float thickness = a.sec_slot[k2] >= 0 ? a.sec_t[k2] : 1.0f;
+    const int mesh = __ldg(a.hit_mesh + i);
+    const V3 d{__ldg(a.d[0] + i), __ldg(a.d[1] + i), __ldg(a.d[2] + i)};
+    const V3 nrm{__ldg(a.normal[0] + i), __ldg(a.normal[1] + i),
+                 __ldg(a.normal[2] + i)};
+    const bool front = __ldg(a.front + i) != 0;
+    const V3 c{__ldg(a.color[0] + i), __ldg(a.color[1] + i),
+               __ldg(a.color[2] + i)};
+    const int slot2 = __ldg(a.sec_slot + k2);
+    const float t2 = __ldg(a.sec_t + k2);
+    const V3 trans{__ldg(a.sec_color[0] + k2), __ldg(a.sec_color[1] + k2),
+                   __ldg(a.sec_color[2] + k2)};
+    const float* r = mat_row(a, a.mat, mesh);
+    const Glass g = glass_terms<false>(d, nrm, front, v3(0.0f), r);
+    const float thickness = slot2 >= 0 ? t2 : 1.0f;
     const V3 alb{clamp01(clamp01(__ldg(r + kAlbedo))),
                  clamp01(clamp01(__ldg(r + kAlbedo + 1))),
                  clamp01(clamp01(__ldg(r + kAlbedo + 2)))};
     const V3 absorb{powf(alb.x, thickness), powf(alb.y, thickness),
                     powf(alb.z, thickness)};
-    const V3 t_col = g.refr_ok ? mul(absorb, ld3(a.sec_color, k2))
-                               : v3(0.0f);
+    const V3 t_col = g.refr_ok ? mul(absorb, trans) : v3(0.0f);
     const V3 fr = g.refr_ok ? g.fr : v3(1.0f);
     const V3 glass_add = add(
-        mul(fr, ld3(a.sec_color, p)),
+        mul(fr, refl),
         mul(mul(sub(v3(1.0f), fr), __ldg(r + kTransmission)), t_col));
     return add(c, glass_add);
 }
@@ -1002,24 +1021,44 @@ rt_resolve_kernel(const RtArgs a) {
     }
 }
 
-// the G glass lanes' pixels again, one glass lane a thread: its colour plus
-// its glass terms (32-bit row arithmetic: the wrapper holds n below 2^31)
+// the G glass lanes' pixels again: a lane's colour plus its glass terms,
+// a thread a glass lane, the grid's threads striding over the G lanes
+// (32-bit row arithmetic: the wrapper holds n below 2^31).  A place's lane
+// and reflection shade are asked for with G (a load, for a device count):
+// the lanes' room n_glass bounds them, G only what is used.  (The
+// material table staged in shared memory a block measured slower: 0.0050
+// against 0.0043 ms, PERF.md.)
 __global__ void __launch_bounds__(kThreads)
 rt_resolve_glass_kernel(const RtArgs a) {
-    const long long p = blockIdx.x * static_cast<long long>(kThreads) +
-                        threadIdx.x;
+    const long long room = a.n_glass;
+    const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+    long long p = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
     const long long n_glass = glass_count(a);
-    if (p >= n_glass) return;
-    const int i = __ldg(a.lanes + p);
-    const V3 c = glass_color(a, i, p, n_glass, ld3(a.color, i));
-    const unsigned y = static_cast<unsigned>(i) /
-                       static_cast<unsigned>(a.width);
-    const unsigned x = static_cast<unsigned>(i) - y * a.width;
-    uint8_t* dst = a.rgb + (static_cast<long long>(a.height - 1 - y) *
-                                a.width + x) * 3;
-    dst[0] = static_cast<uint8_t>(resolve_byte(c.x, a.lut));
-    dst[1] = static_cast<uint8_t>(resolve_byte(c.y, a.lut));
-    dst[2] = static_cast<uint8_t>(resolve_byte(c.z, a.lut));
+    int i = 0;
+    V3 refl = v3(0.0f);
+    if (p < room) {
+        i = __ldg(a.lanes + p);
+        refl = V3{__ldg(a.sec_color[0] + p), __ldg(a.sec_color[1] + p),
+                  __ldg(a.sec_color[2] + p)};
+    }
+    for (; p < n_glass; p += stride) {
+        const V3 c = glass_color(a, i, p, n_glass, refl);
+        const unsigned y = static_cast<unsigned>(i) /
+                           static_cast<unsigned>(a.width);
+        const unsigned x = static_cast<unsigned>(i) - y * a.width;
+        uint8_t* dst = a.rgb + (static_cast<long long>(a.height - 1 - y) *
+                                    a.width + x) * 3;
+        dst[0] = static_cast<uint8_t>(resolve_byte(c.x, a.lut));
+        dst[1] = static_cast<uint8_t>(resolve_byte(c.y, a.lut));
+        dst[2] = static_cast<uint8_t>(resolve_byte(c.z, a.lut));
+        const long long next = p + stride;
+        if (next < n_glass) {
+            i = __ldg(a.lanes + next);
+            refl = V3{__ldg(a.sec_color[0] + next),
+                      __ldg(a.sec_color[1] + next),
+                      __ldg(a.sec_color[2] + next)};
+        }
+    }
 }
 
 template <typename K>
@@ -1091,6 +1130,30 @@ cudaError_t glass_grid(long long n, int* grid, int* tiles) {
     return cudaSuccess;
 }
 
+// rt_resolve_glass's grid: the blocks the card holds at once, at most a
+// block for each kThreads of ``room`` (the host's G, or with a device count
+// the lanes' room)
+cudaError_t resolve_glass_grid(long long room, int* grid) {
+    static int per_sm[kMaxDevices], sms[kMaxDevices];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess && (dev < 0 || dev >= kMaxDevices))
+        e = cudaErrorInvalidDevice;
+    if (e == cudaSuccess && per_sm[dev] == 0) {
+        e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                   dev);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm[dev], rt_resolve_glass_kernel, kThreads, 0);
+    }
+    if (e != cudaSuccess) return e;
+    const long long need = (room + kThreads - 1) / kThreads;
+    const long long most = static_cast<long long>(sms[dev]) *
+                           (per_sm[dev] > 0 ? per_sm[dev] : 1);
+    *grid = static_cast<int>(need < most ? need : most);
+    return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int ptrt_rt_light_rays(const RtArgs* args, void* stream) {
@@ -1154,16 +1217,23 @@ extern "C" int ptrt_rt_resolve(const RtArgs* args, void* stream) {
         rt_resolve_kernel<true><<<grid, kResolveThreads, 0, s>>>(a);
     else
         rt_resolve_kernel<false><<<grid, kResolveThreads, 0, s>>>(a);
-    // with a device count G is read on the card: a thread a lane's room
-    const long long room = a.count != nullptr ? a.n : a.n_glass;
-    if (room > 0) {
-        const cudaError_t e = cudaGetLastError();
+    // n_glass: the host's G, or with a device count the lanes' room
+    if (a.n_glass > 0) {
+        cudaError_t e = cudaGetLastError();
+        int blocks = 0;
+        if (e == cudaSuccess) e = resolve_glass_grid(a.n_glass, &blocks);
         if (e != cudaSuccess) return static_cast<int>(e);
-        const unsigned blocks =
-            static_cast<unsigned>((room + kThreads - 1) / kThreads);
         rt_resolve_glass_kernel<<<blocks, kThreads, 0, s>>>(a);
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+// The grid rt_resolve_glass launches with for ``room``: the host's G, or
+// with a device count the lanes' room (measurement only).
+extern "C" int ptrt_rt_resolve_glass_grid(long long room, int* grid) {
+    *grid = 0;
+    if (room <= 0) return static_cast<int>(cudaSuccess);
+    return static_cast<int>(resolve_glass_grid(room, grid));
 }
 
 // Registers, local-memory bytes a thread, threads a block, resident blocks a

@@ -15,8 +15,8 @@ the device by the runner), and ``FusedRunner`` keeps the scene's static
 world, the merged instance set's tables (a copy: refits write it in
 place) and its refit plans, then each frame steps the game, refits each
 refilled mesh on the device (K5 ``refit_apply``, or ``lbvh_update`` where
-the mesh has ``device_lbvh``) and refreshes its local box
-(``refit_root_aabb``), writes the instance rows, world boxes and instance
+the mesh has ``device_lbvh``), which also writes its root box as the
+instance's local box (the values of ``refit_root_aabb``), writes the instance rows, world boxes and instance
 tree with K11 (``dtransform.instances_update``) into buffers allocated
 once (their addresses never change, the grid path's scratch included),
 and renders that world with the scene's frame body
@@ -52,7 +52,7 @@ from ptrt_tpu_torch.geometry.dtransform import (instances_scratch,
                                                 instances_update,
                                                 one_block_max)
 from ptrt_tpu_torch.geometry.lbvh import lbvh_update
-from ptrt_tpu_torch.geometry.refit import refit_apply, refit_root_aabb
+from ptrt_tpu_torch.geometry.refit import refit_apply
 from ptrt_tpu_torch.geometry.scene_geom import InstanceSet, WorldGeometry
 from ptrt_tpu_torch.geometry.tlas import TLAS_ROW, TLAS_WIDTH, tlas_node_count
 
@@ -162,10 +162,9 @@ class FusedRunner:
                 # meshes flagged device_lbvh take the Morton-sorted refill
                 apply = lbvh_update if self._dyn[idx].device_lbvh \
                     else refit_apply
-                apply(self._geom, plan, v0, v1, v2)
-                rlo, rhi = refit_root_aabb(self._geom, plan)
-                llo[idx] = rlo
-                lhi[idx] = rhi
+                # the refit writes its root box as the local box
+                apply(self._geom, plan, v0, v1, v2,
+                      root=(llo[idx], lhi[idx]))
         s = self._iset
         instances_update(drv.pos, drv.rot, drv.scale, llo, lhi, s.mats,
                          s.bb_min, s.bb_max, s.tlas, self._scratch)

@@ -154,9 +154,12 @@ def lbvh_slot_map(plan: RefitPlan, order: torch.Tensor) -> torch.Tensor:
 
 
 def lbvh_update(geom: SceneGeometry, plan: RefitPlan, v0: torch.Tensor,
-                v1: torch.Tensor, v2: torch.Tensor) -> SceneGeometry:
+                v1: torch.Tensor, v2: torch.Tensor,
+                root: tuple | None = None) -> SceneGeometry:
     """Morton sort, sorted refill and bottom-up refit of one mesh's BVH
-    inside ``geom``, in place (``refit_apply``'s contract plus the sort)."""
+    inside ``geom``, in place (``refit_apply``'s contract plus the sort;
+    ``root`` as there)."""
     order = morton_order(v0, v1, v2)
     rank = plan.device_arrays(geom.device)["rank"]
-    return refit_apply(geom, plan, v0, v1, v2, slot_map=(rank, order))
+    return refit_apply(geom, plan, v0, v1, v2, slot_map=(rank, order),
+                       root=root)

@@ -16,14 +16,17 @@ then runs on the device:
 
 ``refit_apply`` writes the tables in place, at the plan's offsets (a merged
 ``InstanceSet`` or a standalone geometry): on CUDA tensors through the
-kernel of ``csrc/refit.cu`` (one cooperative launch: the slots, then the
-levels, grid syncs between), on CPU tensors through ``refit_apply_plain``,
-the reference's code transcribed.  Min and max are exact, so both give the
-reference's tables bit for bit.
+kernel of ``csrc/refit.cu`` (bottom-up by arrival counters, a node worked
+by the child that arrives last), on CPU tensors through
+``refit_apply_plain``, the reference's code transcribed.  Min and
+max are exact, so both give the reference's tables bit for bit.  Either
+also writes the root node's box where asked (``root``), which a fused
+frame takes as the instance's local box.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from dataclasses import dataclass, field
 
@@ -35,6 +38,13 @@ from ptrt_tpu_torch.geometry.bvh import LEAF_SIZE
 from ptrt_tpu_torch.geometry.scene_geom import MAX_TABLE_INDEX, SceneGeometry
 
 BIG = 3.0e30  # a pad's or an unused slot's box bound before the reduction
+# the refit kernel's top: the levels of depth <= 2 (csrc/refit.cu
+# kTopLevels), which the last block to finish works, for a plan of at most
+# TOP_MAX_SLOTS slots (a grid of 1,024 blocks); past it the arrivals climb
+# to the root (on an H100 a 1M-triangle mesh's 4,600 blocks counting
+# themselves done measured 0.087 ms against 0.080, PERF.md)
+TOP_LEVELS = 3
+TOP_MAX_SLOTS = 1 << 18
 
 
 @dataclass(frozen=True)
@@ -73,22 +83,108 @@ class RefitPlan:
         return dataclasses.replace(self, node_off=node_off, blk_off=blk_off,
                                    slot_off=slot_off)
 
+    def arrival(self) -> dict:
+        """The tree seen from below, decoded once (node ids local to the
+        plan, as ``cba`` / ``lb``): ``parent`` (N,) the node whose internal
+        slot holds each node, -1 for the root; ``blk_node`` / ``blk_slot``
+        (B,) the node and slot whose leaf slot holds each leaf block, -1
+        for a block no slot holds; ``used`` (N,) the used slots of each
+        node; ``empty`` the nodes without one.  Raises where a block or a
+        node is held by two slots, or a slot points outside the plan."""
+        if "arrival" not in self._dev:
+            n, b = self.num_nodes, self.num_blocks
+            parent = np.full(n, -1, np.int32)
+            blk_node = np.full(b, -1, np.int32)
+            blk_slot = np.full(b, -1, np.int32)
+            used = np.zeros(n, np.int32)
+            held_nodes = np.zeros(n, np.int64)
+            held_blocks = np.zeros(b, np.int64)
+            for s in range(8):
+                leaf = ((self.lmask >> s) & 1) == 1
+                inner = ~leaf & (((self.imask >> s) & 1) == 1)
+                x = np.nonzero(leaf)[0]
+                blk = self.lb[x].astype(np.int64) + s
+                y = np.nonzero(inner)[0]
+                child = self.cba[y].astype(np.int64) + s
+                if ((blk < 0) | (blk >= b)).any() or (
+                        (child < 1) | (child >= n)).any():
+                    raise ValueError("a slot points outside the plan")
+                blk_node[blk], blk_slot[blk] = x, s
+                parent[child] = y
+                np.add.at(held_blocks, blk, 1)
+                np.add.at(held_nodes, child, 1)
+                used += leaf | inner
+            if (held_blocks > 1).any() or (held_nodes > 1).any():
+                raise ValueError("a block or a node held by two slots")
+            self._dev["arrival"] = dict(
+                parent=parent, blk_node=blk_node, blk_slot=blk_slot,
+                used=used, empty=np.nonzero(used == 0)[0].astype(np.int32))
+        return self._dev["arrival"]
+
+    def climb(self) -> dict:
+        """What the refit kernel climbs (``arrival`` cut at the top, the
+        nodes of depth <= 2, which the last block to finish works; decoded
+        once; no top past ``TOP_MAX_SLOTS`` slots): ``parent`` and
+        ``blk_node`` with -1 where the parent is a top node, ``empty`` the
+        nodes without a used slot below the top;
+        ``top_ids`` the top nodes, deepest level first, ``top_starts``
+        their levels' starts, and ``top_src`` (T, 8) where each top slot's
+        box is: kind << 30 | index, kind 0 unused, 1 the leaf block index,
+        2 the node below the top, 3 the top node's place in ``top_ids``."""
+        if "climb" not in self._dev:
+            up = self.arrival()
+            top_levels = (self.levels[-TOP_LEVELS:]
+                          if self.num_slots <= TOP_MAX_SLOTS else ())
+            ids = np.concatenate((np.zeros(0, np.int32),) + tuple(
+                top_levels)).astype(np.int32)
+            place = np.full(self.num_nodes, -1, np.int64)
+            place[ids] = np.arange(ids.size)
+            src = np.zeros((ids.size, 8), np.uint32)
+            for s in range(8):
+                leaf = ((self.lmask[ids] >> s) & 1) == 1
+                inner = ~leaf & (((self.imask[ids] >> s) & 1) == 1)
+                blk = self.lb[ids].astype(np.int64) + s
+                child = self.cba[ids].astype(np.int64) + s
+                kid = np.clip(child, 0, self.num_nodes - 1)
+                top_kid = inner & (place[kid] >= 0)
+                src[leaf, s] = (1 << 30) | blk[leaf]
+                src[inner & ~top_kid, s] = (2 << 30) | child[inner & ~top_kid]
+                src[top_kid, s] = (3 << 30) | place[kid][top_kid]
+            cut = lambda a: np.where((a >= 0) & (place[np.maximum(a, 0)]
+                                                 >= 0), -1, a)
+            self._dev["climb"] = dict(
+                parent=cut(up["parent"]).astype(np.int32),
+                blk_node=cut(up["blk_node"]).astype(np.int32),
+                empty=up["empty"][place[up["empty"]] < 0],
+                top_ids=ids, top_src=src.view(np.int32),
+                top_starts=np.cumsum([0] + [len(x) for x in top_levels]))
+        return self._dev["climb"]
+
     def device_arrays(self, device) -> dict:
-        """``slot_tri``, ``rank`` (the k-th non-pad slot's k, -1 for a pad),
-        ``level_nodes`` (every node, deepest level first) and
-        ``level_starts`` as int32 tensors on ``device``, made once."""
+        """On ``device``, made once (int32 unless said): ``slot_tri``,
+        ``rank`` (the k-th non-pad slot's k, -1 for a pad); ``parent``,
+        ``blk_node``, ``empty``, ``top_ids`` and ``top_src`` (``climb``),
+        ``used`` (``arrival``), ``counter`` (N + 1,) zeros (each node's
+        arrivals, then the blocks done: the kernel's counters, zero again
+        after each refit); ``scratch`` (B + N, 6) float32 (the block and
+        node boxes).  A plan and the
+        copies ``placed`` makes of it share these, so they are refitted on
+        one stream at a time."""
         key = str(torch.device(device))
         if key not in self._dev:
             nonpad = self.slot_tri >= 0
             rank = np.where(nonpad, np.cumsum(nonpad) - 1, -1)
-            starts = np.cumsum([0] + [len(ids) for ids in self.levels])
-            nodes = (np.concatenate(self.levels) if self.levels
-                     else np.zeros(0, np.int32))
             t = lambda a: torch.from_numpy(
                 np.ascontiguousarray(a, np.int32)).to(device)
-            self._dev[key] = dict(slot_tri=t(self.slot_tri), rank=t(rank),
-                                  level_nodes=t(nodes),
-                                  level_starts=t(starts))
+            climb = self.climb()
+            self._dev[key] = dict(
+                slot_tri=t(self.slot_tri), rank=t(rank), used=t(self.arrival()["used"]),
+                **{k: t(climb[k]) for k in ("parent", "blk_node", "empty",
+                                            "top_ids", "top_src")},
+                counter=torch.zeros(self.num_nodes + 1, dtype=torch.int32,
+                                    device=device),
+                scratch=torch.empty((self.num_blocks + self.num_nodes, 6),
+                                    dtype=torch.float32, device=device))
         return self._dev[key]
 
 
@@ -158,20 +254,35 @@ def _check_refit(geom: SceneGeometry, plan: RefitPlan, v0, v1, v2) -> None:
                          "indices are not exact")
 
 
+def _check_root(root, dev) -> None:
+    if root is None:
+        return
+    if len(root) != 2:
+        raise ValueError("root: (lo, hi)")
+    for name, t in zip(("root lo", "root hi"), root):
+        kernels.check_tensor(name, t, torch.float32, 1, dev)
+        if t.shape[0] != 3:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, need (3,)")
+
+
 def refit_apply(geom: SceneGeometry, plan: RefitPlan, v0: torch.Tensor,
                 v1: torch.Tensor, v2: torch.Tensor,
-                slot_map: tuple | None = None) -> SceneGeometry:
+                slot_map: tuple | None = None,
+                root: tuple | None = None) -> SceneGeometry:
     """Refit one mesh's BVH inside ``geom`` from new vertices, in place.
 
     ``v0`` / ``v1`` / ``v2``: (T, 3) float32 triangle vertices in the
     mesh's original triangle order, on the geometry's device.
     ``slot_map``: None (the plan's own slot->triangle map) or ``(rank,
     order)``, the Morton refill of ``lbvh.lbvh_update``: the k-th non-pad
-    slot takes triangle ``order[k]`` (pads stay pads).  Returns ``geom``,
-    whose tables now hold the refit."""
+    slot takes triangle ``order[k]`` (pads stay pads).  ``root``: None or
+    ``(lo, hi)``, (3,) float32 tensors that receive the root node's box
+    (``refit_root_aabb``'s values).  Returns ``geom``, whose tables now
+    hold the refit."""
     _check_refit(geom, plan, v0, v1, v2)
+    _check_root(root, geom.device)
     if geom.device.type == "cpu":
-        return refit_apply_plain(geom, plan, v0, v1, v2, slot_map)
+        return refit_apply_plain(geom, plan, v0, v1, v2, slot_map, root)
     dev = geom.device
     arrays = plan.device_arrays(dev)
     rank = order = None
@@ -182,8 +293,8 @@ def refit_apply(geom: SceneGeometry, plan: RefitPlan, v0: torch.Tensor,
         if rank.shape[0] != plan.num_slots or order.shape[0] != v0.shape[0]:
             raise ValueError("slot_map: a rank a slot and an order entry a "
                              "triangle")
-    scratch = torch.empty((plan.num_blocks + plan.num_nodes, 6),
-                          dtype=torch.float32, device=dev)
+    climb = plan.climb()
+    starts = np.ascontiguousarray(climb["top_starts"], np.int32)
     g = geom
     so = plan.slot_off
     mirror = lambda v: [c.data_ptr() + 4 * so for c in (v.x, v.y, v.z)]
@@ -198,19 +309,40 @@ def refit_apply(geom: SceneGeometry, plan: RefitPlan, v0: torch.Tensor,
         0 if order is None else order.data_ptr(), plan.num_slots,
         g.tri_rows.data_ptr() + 4 * plan.blk_off * 10 * LEAF_SIZE,
         *mirror(g.v0), *mirror(g.e1), *mirror(g.e2), g.node_rows.data_ptr(),
-        plan.node_off, plan.blk_off, arrays["level_nodes"].data_ptr(),
-        arrays["level_starts"].data_ptr(), len(plan.levels),
-        max(len(ids) for ids in plan.levels), scratch.data_ptr(),
+        plan.node_off, plan.blk_off, plan.num_nodes,
+        *(arrays[k].data_ptr() for k in (
+            "parent", "blk_node", "used", "empty")),
+        int(arrays["empty"].shape[0]), arrays["counter"].data_ptr(),
+        arrays["top_ids"].data_ptr(), arrays["top_src"].data_ptr(),
+        int(climb["top_ids"].size), starts.ctypes.data,
+        len(climb["top_starts"]) - 1,
+        arrays["counter"].data_ptr() + 4 * plan.num_nodes,
+        arrays["scratch"].data_ptr(),
+        *((0, 0) if root is None else (root[0].data_ptr(),
+                                       root[1].data_ptr())),
         kernels.stream_ptr(dev))
     kernels.launches["refit"] += 1
     kernels.check(rc, "refit")
     return geom
 
 
+def refit_info() -> dict:
+    """Registers, local-memory bytes a thread, threads a block, resident
+    blocks a SM and shared bytes a block of the refit kernel (measurement
+    only; needs the card)."""
+    vals = [ctypes.c_int() for _ in range(5)]
+    rc = kernels.get_lib().ptrt_refit_info(*[ctypes.byref(v) for v in vals])
+    kernels.check(rc, "refit info")
+    return dict(zip(("registers", "local_bytes", "threads", "blocks_per_sm",
+                     "shared_bytes"), (v.value for v in vals)))
+
+
 def refit_apply_plain(geom: SceneGeometry, plan: RefitPlan, v0, v1, v2,
-                      slot_map: tuple | None = None) -> SceneGeometry:
+                      slot_map: tuple | None = None,
+                      root: tuple | None = None) -> SceneGeometry:
     """Plain version of ``refit_apply``: the reference's ``refit_apply``
-    transcribed (level by level, deepest first), written in place."""
+    transcribed (level by level, deepest first), written in place; the
+    root node's box into ``root`` where given."""
     dev = geom.device
     if slot_map is None:
         st = torch.from_numpy(plan.slot_tri).to(dev).long()
@@ -277,6 +409,9 @@ def refit_apply_plain(geom: SceneGeometry, plan: RefitPlan, v0, v1, v2,
                         slot_min[:, :, 2], slot_max[:, :, 0],
                         slot_max[:, :, 1], slot_max[:, :, 2]], dim=1)
     geom.node_rows[plan.node_off:plan.node_off + N, 0:48] = bounds
+    if root is not None:
+        root[0].copy_(node_min[0])
+        root[1].copy_(node_max[0])
     return geom
 
 

@@ -127,7 +127,12 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_shade_info.argtypes = [i, p, p, p, p, p, p, p]
         lib.ptrt_refit.restype = i
         lib.ptrt_refit.argtypes = ([p, p, p, i, p, p, p, i, p] + [p] * 9
-                                   + [p, i, i, p, p, i, i, p, p])
+                                   + [p, i, i, i] + [p] * 4
+                                   + [i, p, p, p, i, p, i] + [p] * 5)
+        lib.ptrt_refit_info.restype = i
+        lib.ptrt_refit_info.argtypes = [p] * 5
+        lib.ptrt_empty_launch.restype = i
+        lib.ptrt_empty_launch.argtypes = [p]
         lib.ptrt_morton_sort.restype = i
         lib.ptrt_morton_sort.argtypes = [p, p, p, i, p, p, p]
         lib.ptrt_morton_sort_max.restype = i
@@ -140,6 +145,8 @@ def get_lib() -> ctypes.CDLL:
             fn.argtypes = [p, p]
         lib.ptrt_rt_info.restype = i
         lib.ptrt_rt_info.argtypes = [i] + [p] * 6
+        lib.ptrt_rt_resolve_glass_grid.restype = i
+        lib.ptrt_rt_resolve_glass_grid.argtypes = [ctypes.c_longlong, p]
         lib.ptrt_instances_update_max.restype = i
         lib.ptrt_instances_update_max.argtypes = []
         lib.ptrt_instances_update.restype = i

@@ -902,6 +902,17 @@ def rt_resolve(color: Vec3, hit, d: Vec3, materials: MaterialTable,
     return out
 
 
+def resolve_glass_grid(room: int) -> int:
+    """The blocks ``rt_resolve_glass`` launches with for ``room``: the
+    host's G, or with a device count the lanes' room (measurement only;
+    needs the card)."""
+    grid = ctypes.c_int()
+    rc = kernels.get_lib().ptrt_rt_resolve_glass_grid(int(room),
+                                                      ctypes.byref(grid))
+    kernels.check(rc, "rt_resolve_glass grid")
+    return grid.value
+
+
 def kernel_info(materials: MaterialTable, lights: LightTable,
                 n_lights: int) -> dict:
     """{kernel: registers, local-memory bytes a thread, threads a block,

@@ -27,7 +27,8 @@ bench and hdri balanced configurations (``measure_dynamic``).
 ``--refill`` measures only the Morton refill of a dynamic mesh at 1,001,
 8,192, 130,050 and 1,045,506 triangles: its launches and device time, the
 codes kernel, the one-launch sort where the tree has it, the library's
-sort, and digests of the order and the tables (``measure_refill``);
+sort, K5's refit alone, an empty kernel's
+launch, and digests of the order and the tables (``measure_refill``);
 ``--refill --dynamic`` runs both in one process.  ``--sets 320,512``
 measures only K4 on hand-made sets of those instance counts
 (``measure_sets``: 1M rays, queued times beside the bound, the kernel the
@@ -181,13 +182,14 @@ def instances_bound(iset, n: int, live: int, shadow: bool) -> dict:
 def refit_bound(plan, n_tris: int, morton_refill: bool) -> dict:
     """The bound of K5's refit of one mesh: its vertices read (36 bytes a
     triangle), the plan's slot map (4 bytes a slot; a Morton refill reads
-    its rank a slot and its order a triangle instead), each node's level
-    entry and metadata (4 + 16 bytes), and written: the triangle rows' nine
-    fields and the v0 / e1 / e2 mirrors (36 + 36 bytes a slot) and the
-    node boxes (192 bytes a node)."""
-    m, n = plan.num_slots, plan.num_nodes
+    its rank a slot and its order a triangle instead), each node's metadata
+    (16 bytes), each leaf block's node (4 bytes), each node's parent and
+    used-slot count (8 bytes), its counter read and written (8 bytes), and
+    written: the triangle rows' nine fields and the v0 / e1 / e2 mirrors (36
+    + 36 bytes a slot) and the node boxes (192 bytes a node)."""
+    m, n, b = plan.num_slots, plan.num_nodes, plan.num_blocks
     slot_map = 4 * m + (4 * n_tris if morton_refill else 0)
-    return bound(36 * n_tris + slot_map + 20 * n + 72 * m + 192 * n)
+    return bound(36 * n_tris + slot_map + 4 * b + 32 * n + 72 * m + 192 * n)
 
 
 def morton_bound(n_tris: int, codes: bool = True,
@@ -1428,6 +1430,7 @@ def measure_refill(tag: str, card: str) -> dict:
     import numpy as np
     import torch
 
+    from ptrt_tpu_torch import kernels
     from ptrt_tpu_torch.geometry import lbvh, refit
     from ptrt_tpu_torch.geometry.mesh import Mesh
     from ptrt_tpu_torch.geometry.scene_geom import assemble_geometry
@@ -1454,7 +1457,8 @@ def measure_refill(tag: str, card: str) -> dict:
              "codes_ms": queued(lambda: lbvh.morton_codes(v0, v1, v2)),
              "torch_sort_ms": queued(lambda: torch.sort(codes, stable=True)),
              "order_digest": records_digest([order]),
-             "tables_digest": records_digest([g.node_rows, g.tri_rows])}
+             "tables_digest": records_digest([g.node_rows, g.tri_rows]),
+             "refit_ms": refit_turns(g, plan, v0, v1, v2, order, queued)}
         sort = getattr(lbvh, "morton_sort", None)
         if sort is not None and r["tris"] <= (
                 kernels.get_lib().ptrt_morton_sort_max()):
@@ -1470,11 +1474,48 @@ def measure_refill(tag: str, card: str) -> dict:
                if "morton_sort_ms" in r else "")
             + f", torch.sort "
             f"{' / '.join(f'{x:.4f}' for x in r['torch_sort_ms'])} ms; "
+            f"the refit alone " + ", ".join(
+                f"{k} {' / '.join(f'{x:.4f}' for x in v)}"
+                for k, v in r["refit_ms"].items()) + " ms; "
             f"order sha256 {r['order_digest'][:16]}, tables sha256 "
             f"{r['tables_digest'][:16]}; kernels {r['kernels']} [{card}]")
         del g, plan, v, v0, v1, v2, order, codes
         torch.cuda.empty_cache()
+    out["launch_floor_ms"] = launch_floor()
+    if out["launch_floor_ms"] is not None:
+        log(f"an empty kernel's launch, queued: "
+            f"{' / '.join(f'{x:.4f}' for x in out['launch_floor_ms'])} ms "
+            f"[{card}]")
     return out
+
+
+def refit_turns(g, plan, v0, v1, v2, order, queued) -> dict:
+    """K5's refit alone on the Morton refill's slot map, queued (two
+    readings), under the name of the tree's design: "arrival" (counters),
+    or "cooperative" (a grid sync a level, a tree before the counters)."""
+    from ptrt_tpu_torch.geometry import refit
+
+    slot_map = (plan.device_arrays(v0.device)["rank"], order)
+    design = "arrival" if hasattr(refit.RefitPlan, "climb") else "cooperative"
+    return {design: queued(lambda: refit.refit_apply(
+        g, plan, v0, v1, v2, slot_map=slot_map))}
+
+
+def launch_floor():
+    """An empty kernel's launch queued behind a spin (two readings): the
+    floor under a small kernel's time, where the tree's library has one
+    (None before it)."""
+    import torch
+
+    from ptrt_tpu_torch import kernels
+
+    lib = kernels.get_lib()
+    if not hasattr(lib, "ptrt_empty_launch"):
+        return None
+    dev = torch.device("cuda", torch.cuda.current_device())
+    call = lambda _: kernels.check(
+        lib.ptrt_empty_launch(kernels.stream_ptr(dev)), "empty launch")
+    return [clones_ms(call, [None] * 21, SPIN_CYCLES) for _ in range(2)]
 
 
 # the RT frame's kernels by the names the profiler gives them
@@ -1619,6 +1660,12 @@ def measure_rt(tag: str, card: str, frames: int = 5) -> dict:
         mats.packed.numel() * 4,
         rs.encode_lut(d.x.device).numel() * 4 if two else 0)
     out["info"] = rs.kernel_info(mats, lts, nl)
+    out["launch_floor_ms"] = launch_floor()
+    if hasattr(rs, "resolve_glass_grid"):
+        g = out["glass_rays"] // 2
+        out["resolve_glass_grid"] = {
+            "host count": rs.resolve_glass_grid(g),
+            "device count": rs.resolve_glass_grid(d.x.shape[0])}
     out["ptxas"] = source_ptxas(os.path.join(os.path.dirname(
         os.path.abspath(kernels.__file__)), "csrc"), "rt_shade.cu")
     from ptrt_tpu_torch.build import BUILD_DIR
@@ -1645,7 +1692,9 @@ def measure_rt(tag: str, card: str, frames: int = 5) -> dict:
             f"{'not measured' if v is None else f'{v:.4f} ms'} [{card}]")
     log("rt_resolve bounds: " + ", ".join(
         f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
-        for k, v in out["resolve_bounds"].items()) + f" [{card}]")
+        for k, v in out["resolve_bounds"].items())
+        + f"; an empty kernel's launch {out['launch_floor_ms']} ms queued; "
+        f"rt_resolve_glass's grid {out.get('resolve_glass_grid')} [{card}]")
     info = out["info"]["rt_shade"]
     log(f"rt_shade: {info['registers']} registers, {info['local_bytes']} "
         f"bytes local, {info['blocks_per_sm']} blocks of {info['threads']} "
