@@ -168,7 +168,13 @@ Phases (any failure raises, so the exit code is non-zero):
      the encode's table equal to the plain encode on all 2^32 float32
      colours;
  12. the PT Scene API: render_wireframe at 1920x1080 (a 98-triangle scene
-     GPU vs CPU within 1 LSB, the 1M-triangle bench scene's timed),
+     GPU vs CPU within 1 LSB, the 1M-triangle bench scene's timed; its
+     launches on the 98-triangle scene, the same with two instances (K4)
+     and the bench scene counted from zero; its kept program, a CUDA
+     graph, replayed bit for bit its eager body on each of the three with
+     a thickness and two camera changes between calls, one program made,
+     no synchronizing call in a replay, one replay's device ms and kernels,
+     host ms a call eager against the program in turns),
      trace_single_ray GPU vs CPU, warmup() (the next balanced frames
      bit-identical to an unwarmed scene's) and a checkpoint after 3
      balanced frames (the 4th frame bit-identical after a load into a
@@ -246,7 +252,14 @@ Phases (any failure raises, so the exit code is non-zero):
      issue a frame, one frame's device ms and kernels; the dynamic frame's
      host ms split; the port's bench.py at its defaults on phase 3's
      scene (its JSON line printed) and bench_presets at 640x360 (10 timed
-     frames a preset, one for the two ultra presets).
+     frames a preset, one for the two ultra presets);
+ 20. the fidelity corpus (ptrt_tpu_torch/tools/fidelity.py): its seven
+     recipes (four showcase scenes and a frame of each game) through
+     fidelity.render on the card at 640x360, 48 balanced frames each with
+     motion vectors off, written to build/fidelity/ (mean, first frame ms,
+     ms a frame; the renders' launches counted from zero), and each at
+     96x54, 3 frames, on the card and on the CPU at least 35 dB apart (the
+     largest LSB difference printed).
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
@@ -2875,9 +2888,10 @@ def check_rt(dev, card, resources=None) -> dict:
 # -- 12. the rest of the PT Scene API on the card --------------------------------
 
 
-def wire_scene(dev, w: int, h: int):
+def wire_scene(dev, w: int, h: int, dynamic: bool = False):
     """A 98-triangle Scene (a floor, a sphere, a cube, an emissive cube) at
-    w x h, small enough for the plain walk on the CPU at 1080p."""
+    w x h, small enough for the plain walk on the CPU at 1080p;
+    ``dynamic``: the sphere and the cube walked as instances (K4)."""
     from ptrt_tpu_torch.scene.materials import Material
     from ptrt_tpu_torch.scene.pt_scene import Scene
 
@@ -2892,7 +2906,84 @@ def wire_scene(dev, w: int, h: int):
     lamp.transform.set_position(-1.3, 0.2, 5.5).set_scale(0.6)
     sc.add_point_light((2, 3, 1), (1, 1, 1), 3.0)
     sc.set_camera((0, 0.5, 0), (0, 0, 4), fov=60)
+    for m in (sc.meshes[1:3] if dynamic else ()):
+        m.is_dynamic = True
     return sc
+
+
+# the wireframe program's calls: (thickness, the camera moved before it)
+WIRE_CALLS = ((0.05, False), (0.12, False), (0.12, True), (0.03, True))
+WIRE_TURN = 20  # calls a turn, eager against the program
+
+
+def wire_eager(sc, thickness):
+    """The wireframe's body run eagerly on the scene's own tables, its host
+    values staged as its program stages them: (H, W, 3) uint8 on the
+    card."""
+    from ptrt_tpu_torch import graphs
+    from ptrt_tpu_torch.scene.pt_scene import _wire_body
+
+    reads, _, values = sc._wire_inputs(thickness)
+    staged = graphs.HostValues(sc.device).stage(values)
+    return _wire_body(sc.width, sc.height, sc.device)(reads, None, staged)[0]
+
+
+def check_wire_program(name, sc, card) -> dict:
+    """Phase 12: ``Scene.render_wireframe``'s kept program (a CUDA graph
+    replayed every call after the first) against its eager body, bit for
+    bit, at each of WIRE_CALLS (a thickness change, then the camera moved
+    twice); the scene's one program, under ("wire", W, H), made once
+    whatever the calls changed; one replay's
+    synchronizing calls (sync debug mode and the profiler's trace: none),
+    device ms and kernels; host ms a call, eager against the program, in
+    two turns of WIRE_TURN calls."""
+    import torch
+    from ptrt_tpu_torch.tools import stages
+
+    differ = []
+    for k, (thickness, move) in enumerate(WIRE_CALLS):
+        if move:
+            sc.camera = moved_camera(sc)
+        want = wire_eager(sc, thickness)
+        got = sc._wireframe_device(thickness)
+        if not torch.equal(got, want):
+            differ.append(k)
+    key = ("wire", sc.width, sc.height)
+    prog = sc._programs.get(key)
+    out = {"calls": len(WIRE_CALLS), "calls_differing": differ,
+           "programs_made": sc._programs.made,
+           "captured": prog is not None and prog.graph is not None}
+    call = lambda i=0: sc._wireframe_device(0.05 + 0.01 * (i % 2))
+    out["sync_calls"] = sync_calls(call)
+    out["trace"] = trace_waits(call)
+    kern = stages.profiled_kernels(call, lead_cycles=stages.SPIN_CYCLES)
+    out["device_ms"] = sum(us for _, us in kern) / 1e3
+    out["kernels"] = collections.Counter(n[:40] for n, _ in kern)
+    out["replay_launches"] = dict(prog.launches) if prog is not None else {}
+    out["turns"] = [{"eager": loop_times(
+        lambda i: wire_eager(sc, 0.05 + 0.01 * (i % 2)), WIRE_TURN),
+        "program": loop_times(call, WIRE_TURN)} for _ in range(2)]
+    t = out["turns"]
+    log(f"[api] render_wireframe program, {name} at {sc.width}x"
+        f"{sc.height}: {len(WIRE_CALLS)} calls (thickness and camera "
+        f"changes) replayed bit for bit the eager body, differing {differ}; "
+        f"programs made {out['programs_made']}, captured {out['captured']}; "
+        f"host ms a call eager {[round(x['eager']['host_ms'], 3) for x in t]}"
+        f", program {[round(x['program']['host_ms'], 3) for x in t]}; wall "
+        f"ms a call eager {[round(x['eager']['frame_ms'], 3) for x in t]}, "
+        f"program {[round(x['program']['frame_ms'], 3) for x in t]} (in "
+        f"turns); one replay {out['device_ms']:.4f} device ms in "
+        f"{sum(out['kernels'].values())} kernels {dict(out['kernels'])}, "
+        f"launches {out['replay_launches']}; {len(out['sync_calls'])} "
+        f"synchronizing calls, trace waits {out['trace']['waits']}, "
+        f"device-to-host copies {out['trace']['dtoh_copies']} [{card}]")
+    assert not differ, (name, differ)
+    assert out["programs_made"] == 1 and out["captured"], (name, out)
+    assert not out["sync_calls"], (name, out["sync_calls"])
+    assert not out["trace"]["dtoh_copies"] and not out["trace"]["waits"], (
+        name, out["trace"])
+    assert out["replay_launches"].get("closest_hit", 0) >= 1, (name, out)
+    return out
 
 
 def check_scene_api(dev, card) -> dict:
@@ -2907,6 +2998,7 @@ def check_scene_api(dev, card) -> dict:
     uninterrupted run's."""
     import numpy as np
     import torch
+    from ptrt_tpu_torch import kernels
     from ptrt_tpu_torch.app.bench_scene import build_bench_scene
     from ptrt_tpu_torch.build import BUILD_DIR
     from ptrt_tpu_torch.utils.checkpoint import (load_render_state,
@@ -2928,6 +3020,23 @@ def check_scene_api(dev, card) -> dict:
     t0 = time.perf_counter()
     img = bench.render_wireframe(0.05)
     out["wireframe_bench_ms"] = 1e3 * (time.perf_counter() - t0)
+    # the slice's path: render_wireframe on the three scenes, its launches
+    # counted from zero
+    scenes = {"98 triangles": wire_scene(dev, W, H),
+              "98 triangles, instances": wire_scene(dev, W, H, True),
+              "bench": bench}
+    kernels.clear_counts()
+    for sc in scenes.values():
+        sc.render_wireframe(0.07)
+    out["wireframe_launches"] = dict(kernels.counts())
+    log(f"[api] render_wireframe on the three scenes, launches "
+        f"{out['wireframe_launches']} [{card}]")
+    for k in ("closest_hit", "instances_closest"):
+        assert out["wireframe_launches"].get(k, 0) > 0, (k, "not launched")
+    out["wireframe_program"] = {
+        name: check_wire_program(name, sc, card)
+        for name, sc in scenes.items()}
+    del scenes
     white = int(255.99 * 0.5 ** (1.0 / 2.2))  # a white edge, tonemapped
     log(f"[api] render_wireframe {W}x{H}: the 98-triangle scene GPU vs CPU "
         f"max {out['wireframe_max_lsb']} LSB, exact on "
@@ -4469,6 +4578,71 @@ def check_golden(dev, card) -> dict:
     return out
 
 
+# phase 20, the fidelity corpus: its size and frames on the card, and the
+# small render held against the CPU's (the plain versions)
+FID_W, FID_H, FID_FRAMES = 640, 360, 48
+FID_SMALL_W, FID_SMALL_H, FID_SMALL_FRAMES = 96, 54, 3
+# the kernels its balanced frames must launch (K4 for the games' instances)
+FID_KERNELS = ("closest_hit", "any_hit", "shade_nee", "shade_scatter",
+               "svgf_temporal", "svgf_atrous", "bloom_chain", "tonemap_rgb8",
+               "instances_closest", "instances_any")
+
+
+def check_fidelity(dev, card) -> dict:
+    """Phase 20: the fidelity corpus (ptrt_tpu_torch/tools/fidelity.py).
+    Its seven recipes rendered on the card through ``fidelity.render`` at
+    FID_W x FID_H, FID_FRAMES balanced frames each, written to
+    build/fidelity/ (mean, first frame ms, ms a frame), the launches of
+    those renders counted from zero (each of FID_KERNELS at least once);
+    then each recipe at FID_SMALL_W x FID_SMALL_H, FID_SMALL_FRAMES
+    frames, on the card and on the CPU (the plain versions), at least
+    golden.MIN_PSNR apart, with the largest LSB difference."""
+    import numpy as np
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.tools import fidelity, golden
+    from ptrt_tpu_torch.utils.imageio import save_png
+
+    out = {"scenes": {}, "small": {}}
+    os.makedirs(fidelity.OUT_DIR, exist_ok=True)
+    kernels.clear_counts()
+    for name in fidelity.SCENES:
+        st = {}
+        img = fidelity.render(name, FID_W, FID_H, FID_FRAMES, dev, st)
+        save_png(os.path.join(fidelity.OUT_DIR, f"{name}.png"), img)
+        out["scenes"][name] = dict(st, mean=float(img.mean()),
+                                   std=float(img.std()))
+        log(f"[fidelity] {name} {FID_W}x{FID_H}: mean {img.mean():.4f}, "
+            f"std {img.std():.4f}; first frame {st['first_ms']:.1f} ms, "
+            f"{st['frame_ms']:.3f} ms a frame of the other "
+            f"{FID_FRAMES - 1} [{card}]")
+        assert img.shape == (FID_H, FID_W, 3) and img.std() > 2.0, name
+    out["launches"] = dict(kernels.counts())
+    log(f"[fidelity] launches of the seven renders "
+        f"({7 * FID_FRAMES} frames): {out['launches']} [{card}]")
+    for k in FID_KERNELS:
+        assert out["launches"].get(k, 0) > 0, (k, "not launched")
+    for name in fidelity.SCENES:
+        t0 = time.perf_counter()
+        gpu = fidelity.render(name, FID_SMALL_W, FID_SMALL_H,
+                              FID_SMALL_FRAMES, dev)
+        cpu = fidelity.render(name, FID_SMALL_W, FID_SMALL_H,
+                              FID_SMALL_FRAMES, "cpu")
+        diff = np.abs(gpu.astype(int) - cpu.astype(int))
+        r = out["small"][name] = {
+            "psnr_db": golden.psnr(gpu, cpu), "max_lsb": int(diff.max()),
+            "within_1_lsb": float((diff.max(-1) <= 1).mean()),
+            "s": time.perf_counter() - t0}
+        log(f"[fidelity] {name} {FID_SMALL_W}x{FID_SMALL_H}, "
+            f"{FID_SMALL_FRAMES} frames, GPU vs CPU: PSNR {r['psnr_db']:.2f}"
+            f" dB (bound {golden.MIN_PSNR}), max {r['max_lsb']} LSB, within "
+            f"1 LSB on {r['within_1_lsb']:.4f} of pixels, {r['s']:.1f} s "
+            f"[{card}]")
+    bad = {k: v["psnr_db"] for k, v in out["small"].items()
+           if v["psnr_db"] < golden.MIN_PSNR}
+    assert not bad, bad
+    return out
+
+
 def bounce_launches(names, samples, depth):
     """Kernel launches from each of a sample's K1 launches to its next (one
     bounce), in a profiled frame's timeline."""
@@ -5241,6 +5415,11 @@ def main() -> int:
     # -- 19. the scenes' frame programs, the bench entry points -------------
     lap("19")
     programs = check_programs(dev, card, full)
+    torch.cuda.empty_cache()
+
+    # -- 20. the fidelity corpus on the card, and against the CPU -----------
+    lap("20")
+    fid = check_fidelity(dev, card)
 
     for k in ("shade_nee", "shade_scatter"):
         hs = hstats[k]
@@ -5470,8 +5649,15 @@ def main() -> int:
              games["small_gpu_vs_cpu_within_1_lsb"],
          # phases 16-19 ride on the last kernel too
          "pixel_mesh": mesh, "golden": gold, "graphs": graphs_out,
-         "programs": programs},
+         "programs": programs, "fidelity": fid},
     ]}
+    # the later slices' paths, each counted from zero: render_wireframe
+    # (phase 12) and the fidelity corpus (phase 20)
+    for e in table["kernels"]:
+        k = "tonemap_rgb8" if e["name"].startswith("tonemap_rgb8") \
+            else e["name"]
+        e["launches_wireframe"] = api["wireframe_launches"].get(k, 0)
+        e["launches_fidelity"] = fid["launches"].get(k, 0)
     # the ranking: device ms a frame that each kernel stands over its bound,
     # summed over the passes and bounces the frames really run (a bench
     # frame: SPP samples of DEPTH unsplit bounces; a balanced frame: one

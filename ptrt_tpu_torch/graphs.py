@@ -447,7 +447,8 @@ class Program:
 
 
 # the programs a cache keeps: a viewer's presets (fast, performance,
-# balanced, quality, and ultra's chunk and post programs) fit
+# balanced, quality, and ultra's chunk and post programs) and the
+# wireframe's fit
 PROGRAMS_KEPT = 8
 
 

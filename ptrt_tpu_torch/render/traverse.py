@@ -764,7 +764,11 @@ def _flat(o: Vec3, d: Vec3, t_max):
     shape = torch.broadcast_shapes(o.shape, d.shape, torch.as_tensor(
         t_max).shape)
     flat = lambda c: c.expand(shape).reshape(-1).contiguous()
-    t = torch.as_tensor(t_max, dtype=torch.float32, device=d.x.device)
+    # a host number is filled in on the device (no copy: a CUDA graph may
+    # capture the walk)
+    t = (torch.as_tensor(t_max, dtype=torch.float32, device=d.x.device)
+         if torch.is_tensor(t_max) else
+         torch.full((), t_max, dtype=torch.float32, device=d.x.device))
     return shape, o.map(flat), d.map(flat), flat(t)
 
 

@@ -265,6 +265,37 @@ def _post_body(cfg: FrameConfig):
     return body
 
 
+def _wire_body(width: int, height: int, device):
+    """The wireframe program's body (the reference's
+    ``_wireframe_program``): the camera's pinhole rays through K1, and K4
+    on a world with instances; a hit within the staged thickness of an edge
+    shows its material's emission if that is on, else white; everything
+    else the gradient sky (staged top, bottom and switch).  Reinhard, gamma
+    1/2.2, ``*255.99`` truncated, rows flipped: ((H, W, 3) uint8, None)."""
+    def body(reads, st, values):
+        thickness, top, bottom, use_sky = values
+        s, t = pixel_grid(width, height, device)
+        ray = reads["camera"].get_ray_simple(s, t)
+        hit = traverse.intersect_closest(program_world(reads), ray.origin,
+                                         ray.direction)
+        w_bary = 1.0 - hit.u - hit.v
+        edge = hit.hit & ((hit.u < thickness) | (hit.v < thickness)
+                          | (w_bary < thickness))
+        lanes = reads["mats"].gather(fmax(hit.mesh_index, 0))
+        emissive = lanes.emission.x > 0.0
+        edge_color = where(emissive, lanes.emission, Vec3.full(1.0))
+        tsky = 0.5 * (ray.direction.y + 1.0)
+        sky = lerp(Vec3(*bottom), Vec3(*top), tsky) * use_sky
+        color = where(edge, edge_color, sky)
+        color = color / (color + 1.0)
+        g = 1.0 / 2.2
+        arr = torch.stack([torch.pow(fmax(c, 0.0), g)
+                           for c in (color.x, color.y, color.z)], dim=-1)
+        img = torch.clamp(arr * 255.99, 0, 255).to(torch.uint8).flip(0)
+        return img, None
+    return body
+
+
 @dataclass
 class PerformanceSettings:
     enable_denoiser: bool = True
@@ -947,36 +978,48 @@ class Scene:
         t.start()
         return t
 
+    def _wire_inputs(self, thickness: float) -> tuple:
+        """The wireframe body's inputs: (its reads, of ``_frame_reads``;
+        the signature of all of those, the world its program is kept
+        under, so that a wireframe keeps the frame programs; its host
+        values: the thickness, the sky's top and bottom colours and its
+        switch)."""
+        self._ensure_device_state()
+        reads = self._frame_reads()
+        world = graphs.signature(reads)
+        reads = {k: reads[k] for k in ("static", "iset", "set_geom", "mats",
+                                       "camera")}
+        values = (float(thickness),
+                  tuple(float(c) for c in self.sky_color_top),
+                  tuple(float(c) for c in self.sky_color_bottom),
+                  1.0 if self.use_sky else 0.0)
+        return reads, world, values
+
+    def _wireframe_device(self, thickness: float) -> torch.Tensor:
+        """The wireframe through its program: on the card the program's
+        output, which its next run overwrites."""
+        reads, world, values = self._wire_inputs(thickness)
+        prog = self._program(
+            ("wire", self.width, self.height), world,
+            lambda: graphs.Program(_wire_body(self.width, self.height,
+                                              self.device),
+                                   reads, None, values, self.device,
+                                   edited=("set_geom",)))
+        return prog.run(reads, None, values)
+
     def render_wireframe(self, thickness: float = 0.05) -> np.ndarray:
         """The barycentric-edge wireframe of the camera's pinhole rays
-        (K1, and K4 on a world with instances): a hit within ``thickness``
-        of an edge shows its material's emission if that is on, else white;
-        everything else the sky.  Reinhard, gamma 1/2.2, ``*255.99``
-        truncated, rows flipped: (H, W, 3) uint8 on the host."""
-        self._ensure_device_state()
-        s, t = pixel_grid(self.width, self.height, self.device)
-        ray = self.camera.get_ray_simple(s, t)
-        hit = traverse.intersect_closest(self._geom, ray.origin,
-                                         ray.direction)
-        w_bary = 1.0 - hit.u - hit.v
-        edge = hit.hit & ((hit.u < thickness) | (hit.v < thickness)
-                          | (w_bary < thickness))
-        lanes = self._mat_table.gather(fmax(hit.mesh_index, 0))
-        emissive = lanes.emission.x > 0.0
-        edge_color = where(emissive, lanes.emission, Vec3.full(1.0))
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32,
-                                     device=self.device)
-        top = Vec3(*[f32(c) for c in self.sky_color_top])
-        bottom = Vec3(*[f32(c) for c in self.sky_color_bottom])
-        tsky = 0.5 * (ray.direction.y + 1.0)
-        sky = lerp(bottom, top, tsky) * f32(1.0 if self.use_sky else 0.0)
-        color = where(edge, edge_color, sky)
-        color = color / (color + 1.0)
-        g = 1.0 / 2.2
-        arr = torch.stack([torch.pow(fmax(c, 0.0), g)
-                           for c in (color.x, color.y, color.z)], dim=-1)
-        img = torch.clamp(arr * 255.99, 0, 255).to(torch.uint8).flip(0)
-        return img.cpu().numpy()
+        (``_wire_body``: K1, and K4 on a world with instances) -> (H, W, 3)
+        uint8 on the host.  It runs as a program kept in
+        ``Scene._programs`` under ``("wire", width, height)`` (the
+        reference's ``_wireframe_program``), beside the frame programs of
+        the same world: on the card its first call captures a CUDA graph
+        and every later call is one replay; on the CPU the program calls
+        the body.  A thickness, sky or camera change is a new value or
+        read, not a new program; a resize is a new key.  With a viewer's
+        six frame programs one world holds seven, within
+        ``graphs.PROGRAMS_KEPT``."""
+        return self._wireframe_device(thickness).cpu().numpy()
 
     def trace_single_ray(self, origin, direction) -> traverse.Hit:
         """One ray (the direction normalised on the host) through K1, and

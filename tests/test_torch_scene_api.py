@@ -31,7 +31,9 @@ from ptrt_tpu.scene.rt_scene import RTScene as RefRTScene
 from ptrt_tpu.utils import checkpoint as ref_ckpt
 from ptrt_tpu.utils import visualization as ref_vis
 
+from ptrt_tpu_torch import graphs
 from ptrt_tpu_torch.geometry.mesh import Mesh, load_obj
+from ptrt_tpu_torch.render import traverse
 from ptrt_tpu_torch.scene.camera import Camera
 from ptrt_tpu_torch.scene.materials import Material
 from ptrt_tpu_torch.scene.pt_scene import PerformanceSettings, Scene
@@ -173,6 +175,103 @@ def test_render_wireframe():
         diff = np.abs(got.astype(int) - want.astype(int))
         assert diff.max() <= 1, diff.max()
         assert len(np.unique(got.reshape(-1, 3), axis=0)) > 3
+
+
+def _wire_pair(dynamic: bool = False):
+    """The 98-triangle scene in both packages; ``dynamic``: the sphere and
+    the blue cube walked as instances (K4 in the port)."""
+    sc = _small_scene(Scene, Material, device="cpu")
+    ref = _small_scene(RefScene, RefMaterial)
+    for s in (sc, ref):
+        for k in ((1, 2) if dynamic else ()):
+            s.meshes[k].is_dynamic = True
+    return sc, ref
+
+
+def _wire_equal(sc, ref, thickness):
+    got, want = sc.render_wireframe(thickness), ref.render_wireframe(
+        thickness)
+    assert got.shape == want.shape == (sc.height, sc.width, 3)
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 1, diff.max()
+    return got
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_render_wireframe_program(dynamic):
+    """One program, kept under ("wire", W, H): another thickness, sky
+    colours, the sky off and a moved camera are new values and reads, each
+    within 1 LSB of the reference; with instances also a moved instance
+    and a refill refit in place (K5)."""
+    sc, ref = _wire_pair(dynamic)
+    made = sc._programs.made
+    imgs = [_wire_equal(sc, ref, 0.05)]
+    assert sc._programs.made == made + 1
+    assert ("wire", 40, 30) in sc._programs
+    prog = sc._programs[("wire", 40, 30)]
+    assert isinstance(prog, graphs.Program) and prog.runs == 1
+    assert (traverse.iset_of(sc._geom) is not None) == dynamic
+    imgs.append(_wire_equal(sc, ref, 0.12))
+    for s in (sc, ref):
+        s.set_sky_gradient((0.9, 0.3, 0.1), (0.1, 0.2, 0.6))
+    imgs.append(_wire_equal(sc, ref, 0.08))
+    for s in (sc, ref):
+        s.set_sky_enabled(False)
+    imgs.append(_wire_equal(sc, ref, 0.08))
+    for s in (sc, ref):
+        s.set_sky_enabled(True)
+        s.set_camera((0.6, 1.2, -0.5), (0.2, -0.3, 4.5), fov=50)
+    imgs.append(_wire_equal(sc, ref, 0.05))
+    if dynamic:
+        for s in (sc, ref):
+            s.meshes[2].transform.set_position(0.7, -0.2, 4.6)
+            sphere = s.meshes[1]
+            tris = np.stack(sphere.triangle_arrays(world=False), 1)
+            sphere.set_triangles(tris * np.float32(1.3))
+            s.commit_object_changes()
+        imgs.append(_wire_equal(sc, ref, 0.05))
+        assert sc.stats_device_refits == 1
+    # every change showed, and none made a program
+    assert all(not np.array_equal(a, b) for a, b in zip(imgs, imgs[1:]))
+    assert sc._programs.made == made + 1
+    assert sc._programs[("wire", 40, 30)] is prog
+    assert prog.runs == len(imgs)
+
+
+def test_render_wireframe_resize_makes_a_program():
+    sc, ref = _wire_pair()
+    _wire_equal(sc, ref, 0.05)
+    made = sc._programs.made
+    for s in (sc, ref):
+        s.width, s.height = 24, 18
+    _wire_equal(sc, ref, 0.05)
+    assert sc._programs.made == made + 1
+    assert ("wire", 24, 18) in sc._programs and ("wire", 40, 30) in \
+        sc._programs
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_render_wireframe_keeps_the_frame_programs(dynamic):
+    """Frames and wireframes in turn: the frame program stays, and the
+    frames are bit for bit an unalternated scene's."""
+    alt, plain = (_pt_scene(denoise=False) for _ in range(2))
+    for s in (alt, plain):
+        for k in ((1, 2) if dynamic else ()):
+            s.meshes[k].is_dynamic = True
+    alt.render_frame()
+    alt.render_wireframe(0.05)
+    made = alt._programs.made
+    frame_progs = [k for k in alt._programs if k[0] == "frame"]
+    assert len(frame_progs) == 1 and made == 2
+    want = [plain.render_frame() for _ in range(3)]
+    got = [want[0]]
+    for thickness in (0.1, 0.05):
+        got.append(alt.render_frame())
+        alt.render_wireframe(thickness)
+    assert alt._programs.made == made
+    assert [k for k in alt._programs if k[0] == "frame"] == frame_progs
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
 
 
 def test_trace_single_ray():
