@@ -75,7 +75,7 @@ Phases (any failure raises, so the exit code is non-zero):
      SVGF, bloom, tonemap — one warm-up and five timed frames with the
      camera orbiting 0.5 degrees before each, launch counts taken over the
      timed frames (the bloom one launch a frame and K6 one: no plain-torch
-     bloom op); then the post stages timed one by one and one profiled
+     bloom op; K0, K7, svgf_firefly and svgf_variance one each); then the post stages timed one by one and one profiled
      frame, whose one bloom launch must come right before K6;
   6. svgf_temporal, svgf_atrous, the bloom chain and K6 against their plain
      versions on the 1920x1080 buffers of a balanced frame: svgf_temporal
@@ -259,7 +259,23 @@ Phases (any failure raises, so the exit code is non-zero):
      motion vectors off, written to build/fidelity/ (mean, first frame ms,
      ms a frame; the renders' launches counted from zero), and each at
      96x54, 3 frames, on the card and on the CPU at least 35 dB apart (the
-     largest LSB difference printed).
+     largest LSB difference printed);
+ 21. (run right after phase 6) the main path's last stages as kernels: K8
+     svgf_variance and svgf_firefly (both channels in one launch and each
+     alone, object ids on and off, the history's lengths and lengths 0-5
+     laid over the frame, colours as traced and with NaN, inf and 50.0 at
+     seeded pixels), K7 motion_vectors (two cameras, the depth as traced
+     and poisoned) and K0 camera_rays (a pinhole and a lens, the frame
+     index a host int and a 0-d int32 / int64 tensor on the card, samples
+     0 and 3, whole frames and tiles, and captured in a CUDA graph with
+     the index on the card, replayed at three indices), each bit for bit
+     its plain version on the balanced 1920x1080 frame's inputs and on
+     crops of them (1x1 at a sky pixel, 23x37 at the top-left, 270x333 at
+     the bottom-right), each timed queued beside its bound; the balanced,
+     bench, fast and hdri frames with the kernels bit for bit the same
+     frames with the plain stages (three frames each from one state); a
+     balanced frame, eager and replayed, launches each of the four once
+     and calls no plain version.
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
@@ -4643,6 +4659,502 @@ def check_fidelity(dev, card) -> dict:
     return out
 
 
+# phase 21: the main path's last stages as kernels (K0 camera_rays, K7
+# motion_vectors, K8 svgf_variance and svgf_firefly).  Each is held to its
+# plain version bit for bit (floats by their bits: NaN payloads and signed
+# zeros too) at 1080p and at these sizes, cut from the 1080p inputs at these
+# corners (a 1x1 crop at a sky pixel where the frame has one); the frames of
+# each configuration with the kernels against the same frames with the
+# plain stages, from one state, over these many frames
+LAST_SIZES = ((1, 1), (23, 37), (270, 333))
+LAST_FRAMES = 3
+# what each replaces: the reference's functions
+LAST_REPLACES = {
+    "svgf_variance": "ptrt_tpu/render/denoiser.py:390",
+    "svgf_firefly": "ptrt_tpu/render/denoiser.py:190",
+    "motion_vectors": "ptrt_tpu/render/motion.py:20",
+    "camera_rays": "ptrt_tpu/render/pipeline.py:92",
+}
+LAST_SOURCES = {"svgf_variance": "svgf.cu", "svgf_firefly": "svgf.cu",
+                "motion_vectors": "motion.cu", "camera_rays": "camera.cu"}
+
+
+def plain_stages(count=None):
+    """A context in which the main path runs the four stages' plain
+    versions in place of their kernels (the dispatching names rebound in
+    the modules that call them); with ``count`` (a Counter), the kernels
+    stay and every call of a plain version is counted there instead."""
+    import contextlib
+
+    from ptrt_tpu_torch.render import denoiser as den
+    from ptrt_tpu_torch.render import motion, pipeline
+    from ptrt_tpu_torch.scene import pt_scene
+
+    if count is not None:
+        def counted(mod, name):
+            fn = getattr(mod, name)
+
+            def call(*a, **kw):
+                count[name] += 1
+                return fn(*a, **kw)
+            return call
+        swaps = [(mod, name, counted(mod, name)) for mod, name in (
+            (den, "firefly_suppression_plain"),
+            (den, "estimate_variance_plain"),
+            (motion, "motion_vectors_plain"),
+            (pipeline, "camera_rays_plain"))]
+    else:
+        swaps = [
+            (den, "firefly_suppression_pair", lambda imgs, d, n, sky: tuple(
+                den.firefly_suppression_plain(i, d, n, None, sky)
+                for i in imgs)),
+            (den, "estimate_variance_pair", lambda hs, *g: tuple(
+                den.estimate_variance_plain(h, *g) for h in hs)),
+            (den, "firefly_suppression", den.firefly_suppression_plain),
+            (den, "estimate_variance", den.estimate_variance_plain),
+            (pt_scene, "motion_vectors", motion.motion_vectors_plain),
+            (pipeline, "camera_rays", pipeline.camera_rays_plain)]
+
+    @contextlib.contextmanager
+    def swapped():
+        old = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        try:
+            yield count
+        finally:
+            for mod, name, fn in old:
+                setattr(mod, name, fn)
+    return swapped()
+
+
+def max_err(got, want) -> float:
+    """The largest |got - want| over the leaves' finite pairs."""
+    import torch
+    from ptrt_tpu_torch.graphs import tree_leaves
+
+    err = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        if a.is_floating_point():
+            a, b = a.double(), b.double()
+            ok = torch.isfinite(a) & torch.isfinite(b)
+            if bool(ok.any()):
+                err = max(err, float((a[ok] - b[ok]).abs().max()))
+        elif not torch.equal(a, b):
+            err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def crops(h, w, sky):
+    """(label, y0, x0, h, w) windows of an (h, w) frame: the whole frame,
+    then LAST_SIZES at the top-left, bottom-right and a sky pixel."""
+    import torch
+
+    out = [(f"{h}x{w}", 0, 0, h, w)]
+    at = torch.nonzero(sky)
+    sy, sx = (int(at[0][0]), int(at[0][1])) if len(at) else (0, 0)
+    for ch, cw in LAST_SIZES:
+        if (ch, cw) == (1, 1):
+            out.append(("1x1 sky" if len(at) else "1x1", sy, sx, 1, 1))
+        elif ch == 23:
+            out.append((f"{ch}x{cw} top-left", 0, 0, ch, cw))
+        else:
+            out.append((f"{ch}x{cw} bottom-right", h - ch, w - cw, ch, cw))
+    return out
+
+
+def cut(tree, y0, x0, h, w):
+    """Every (H, W) leaf of a Vec3 / ChannelHistory / tensor cut to the
+    window, contiguous."""
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.render.denoiser import ChannelHistory
+
+    c = lambda t: t[y0:y0 + h, x0:x0 + w].contiguous()
+    if isinstance(tree, Vec3):
+        return tree.map(c)
+    if isinstance(tree, ChannelHistory):
+        return ChannelHistory(mean=cut(tree.mean, y0, x0, h, w),
+                              m2=cut(tree.m2, y0, x0, h, w),
+                              length=c(tree.length))
+    return c(tree)
+
+
+def poisoned(v, rng, share=1e-3):
+    """A copy of a Vec3 with NaN, +inf and 50.0 at a few seeded pixels (the
+    firefly clamp's and the variance's NaN semantics are torch's)."""
+    import numpy as np
+    import torch
+
+    out = v.map(torch.clone)
+    h, w = out.x.shape
+    n = max(1, int(share * h * w))
+    for val, c in ((float("nan"), out.x), (float("inf"), out.y),
+                   (50.0, out.z)):
+        c.view(-1)[torch.from_numpy(rng.choice(h * w, n, replace=False)).to(
+            c.device)] = val
+    return out
+
+
+def check_post_last(bufs, state, cfg, card, rng) -> dict:
+    """K8 svgf_firefly and svgf_variance against their plain versions on a
+    balanced 1080p frame's buffers and history (``bufs``, ``state``) and
+    on crops of them (LAST_SIZES: borders, a sky pixel): both channels in
+    one launch and each alone, object ids on and off, the history's own
+    lengths and lengths 0-5 laid over the frame (the boost), the colours
+    as traced and with NaN, inf and 50.0 at seeded pixels; each timed
+    queued beside its bound and the plain version.  Returns the two
+    kernels' stats."""
+    import dataclasses
+
+    import torch
+    from ptrt_tpu_torch.render import denoiser as den
+    from ptrt_tpu_torch.tools import stages
+
+    h, w = bufs.depth.shape
+    sky = den._is_sky(bufs.depth, bufs.normal, cfg.sky_depth_threshold)
+    lengths = (torch.arange(h * w, device=bufs.depth.device) % 6).float()
+    hists = (state.diffuse, state.specular)
+    boosted = tuple(dataclasses.replace(hh, length=lengths.view(h, w))
+                    for hh in hists)
+    bad_d = poisoned(bufs.diffuse, rng)
+    bad_s = poisoned(bufs.specular, rng)
+    nan_hist = tuple(dataclasses.replace(hh, mean=poisoned(hh.mean, rng))
+                     for hh in hists)
+    out = {"svgf_firefly": {"cases": 0, "max_abs_err": 0.0, "bad": []},
+           "svgf_variance": {"cases": 0, "max_abs_err": 0.0, "bad": []}}
+
+    def hold(name, label, got, want):
+        r = out[name]
+        r["cases"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], max_err(got, want))
+        if not same_tree(got, want):
+            r["bad"].append(label)
+
+    for label, y0, x0, ch, cw in crops(h, w, sky):
+        g = [cut(t, y0, x0, ch, cw) for t in (bufs.depth, bufs.normal,
+                                              bufs.object_id)]
+        for tag, imgs in (("traced", (bufs.diffuse, bufs.specular)),
+                          ("poisoned", (bad_d, bad_s))):
+            imgs = [cut(v, y0, x0, ch, cw) for v in imgs]
+            plain = [den.firefly_suppression_plain(
+                v, *g[:2], None, cfg.sky_depth_threshold) for v in imgs]
+            pair = den.firefly_suppression_pair(imgs, *g[:2],
+                                                cfg.sky_depth_threshold)
+            hold("svgf_firefly", f"{label} {tag} pair", pair, tuple(plain))
+            for k, v in enumerate(imgs):
+                one = den.firefly_suppression(v, *g[:2], 3.0,
+                                              cfg.sky_depth_threshold)
+                hold("svgf_firefly", f"{label} {tag} channel {k}", one,
+                     plain[k])
+        for use_obj in (True, False):
+            c = dataclasses.replace(cfg, use_object_ids=use_obj)
+            for tag, hs in (("history", hists), ("lengths 0-5", boosted),
+                            ("poisoned", nan_hist)):
+                hs = [cut(hh, y0, x0, ch, cw) for hh in hs]
+                plain = [den.estimate_variance_plain(hh, *g, c) for hh in hs]
+                lbl = f"{label} ids {use_obj} {tag}"
+                hold("svgf_variance", f"{lbl} pair",
+                     den.estimate_variance_pair(hs, *g, c), tuple(plain))
+                for k, hh in enumerate(hs):
+                    hold("svgf_variance", f"{lbl} channel {k}",
+                         den.estimate_variance(hh, *g, c), plain[k])
+    # the boost shows: lengths below 4 raise the variance over length 4's
+    v0 = den.estimate_variance(boosted[0], bufs.depth, bufs.normal,
+                               bufs.object_id, cfg)
+    full = dataclasses.replace(boosted[0], length=torch.full_like(lengths,
+                                                                  4.0).view(h, w))
+    v4 = den.estimate_variance(full, bufs.depth, bufs.normal,
+                               bufs.object_id, cfg)
+    short = (lengths.view(h, w) < 4) & ~sky & (v4 > 0)
+    out["svgf_variance"]["boosted_share"] = float(
+        (v0[short] > v4[short]).float().mean())
+
+    # the main path's calls, timed queued (two readings) beside their bound
+    g = (bufs.depth, bufs.normal, bufs.object_id)
+    imgs = (bufs.diffuse, bufs.specular)
+    queued = lambda fn: [stages.clones_ms(lambda _: fn(), [None] * 21,
+                                          stages.SPIN_CYCLES)
+                         for _ in range(2)]
+    ff = out["svgf_firefly"]
+    ff["queued_ms"] = queued(lambda: den.firefly_suppression_pair(
+        imgs, *g[:2], cfg.sky_depth_threshold))
+    ff["channel_queued_ms"] = queued(lambda: den.firefly_suppression(
+        imgs[0], *g[:2], 3.0, cfg.sky_depth_threshold))
+    ff["plain_ms"] = cuda_ms(lambda: [den.firefly_suppression_plain(
+        v, *g[:2], None, cfg.sky_depth_threshold) for v in imgs], 3)
+    ff.update(bound(2 * nbytes(*imgs) + nbytes(*g[:2])))
+    var = out["svgf_variance"]
+    var["queued_ms"] = queued(lambda: den.estimate_variance_pair(
+        hists, *g, cfg))
+    var["channel_queued_ms"] = queued(lambda: den.estimate_variance(
+        hists[0], *g, cfg))
+    var["plain_ms"] = cuda_ms(lambda: [den.estimate_variance_plain(
+        hh, *g, cfg) for hh in hists], 3)
+    var.update(bound(sum(nbytes(hh.mean, hh.m2, hh.length) + 4 * h * w
+                         for hh in hists) + nbytes(*g)))
+    for name, r in out.items():
+        r["ms"] = sum(r["queued_ms"]) / 2
+        log(f"[last] {name}: {r['cases']} cases bit for bit but "
+            f"{r['bad']} (max |err| {r['max_abs_err']:.3g}); both channels "
+            f"at {h}x{w} queued {r['queued_ms'][0]:.4f} / "
+            f"{r['queued_ms'][1]:.4f} ms, one channel "
+            f"{r['channel_queued_ms'][0]:.4f} / "
+            f"{r['channel_queued_ms'][1]:.4f} ms, plain {r['plain_ms']:.3f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+        assert not r["bad"], (name, r["bad"])
+    log(f"[last] svgf_variance: lengths 0-3 raise the variance over "
+        f"length 4 on {var['boosted_share']:.4f} of those surface pixels")
+    assert var["boosted_share"] > 0.0, var["boosted_share"]
+    return out
+
+
+def check_motion_last(sc, bufs, prev_vp, card) -> dict:
+    """K7 motion_vectors against its plain version on the frame's depth
+    and camera at 1080p and on crops (each crop its own frame size), with
+    the depth poisoned at seeded pixels too; timed queued beside its
+    bound."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch.render import motion
+    from ptrt_tpu_torch.tools import stages
+
+    h, w = bufs.depth.shape
+    sky = bufs.depth >= motion.SKY_DEPTH_THRESHOLD
+    depth_bad = bufs.depth.clone()
+    rng = np.random.default_rng(21)
+    for val in (float("nan"), float("inf"), 5e29, 0.0, -1.0):
+        depth_bad.view(-1)[torch.from_numpy(rng.choice(h * w, 64, replace=False)).to(depth_bad.device)] = val
+    r = {"cases": 0, "max_abs_err": 0.0, "bad": []}
+    cams = (("camera", sc.camera), ("moved", moved_camera(sc)))
+    for label, y0, x0, ch, cw in crops(h, w, sky):
+        for tag, depth in (("traced", bufs.depth), ("poisoned", depth_bad)):
+            d = cut(depth, y0, x0, ch, cw)
+            for cname, cam in cams:
+                got = motion.motion_vectors(d, cam, prev_vp, cw, ch)
+                want = motion.motion_vectors_plain(d, cam, prev_vp, cw, ch)
+                r["cases"] += 1
+                r["max_abs_err"] = max(r["max_abs_err"], max_err(got, want))
+                if not same_tree(got, want):
+                    r["bad"].append(f"{label} {tag} {cname}")
+    cam = sc.camera
+    r["queued_ms"] = [stages.clones_ms(lambda _: motion.motion_vectors(
+        bufs.depth, cam, prev_vp, w, h), [None] * 21, stages.SPIN_CYCLES)
+        for _ in range(2)]
+    r["ms"] = sum(r["queued_ms"]) / 2
+    r["plain_ms"] = cuda_ms(lambda: motion.motion_vectors_plain(
+        bufs.depth, cam, prev_vp, w, h), 5)
+    r.update(bound(3 * nbytes(bufs.depth) + nbytes(prev_vp) + 12 * 4))
+    log(f"[last] motion_vectors: {r['cases']} cases bit for bit but "
+        f"{r['bad']} (max |err| {r['max_abs_err']:.3g}); {h}x{w} queued "
+        f"{r['queued_ms'][0]:.4f} / {r['queued_ms'][1]:.4f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}) [{card}]")
+    assert not r["bad"], r["bad"]
+    return r
+
+
+def check_camera_last(sc, card) -> dict:
+    """K0 camera_rays against its plain version: the scene's camera and one
+    with a lens (aperture 0.1), the frame index a host int (0, 5, 21,
+    2^31 + 7) and a 0-d int32 / int64 tensor on the card, samples 0 and 3,
+    at 1080p, on crops of the PCG state as whole frames (LAST_SIZES) and
+    as tiles of the 1080p frame (rows of the state 1920 apart); then
+    captured in a CUDA graph with the index on the card, replayed at three
+    indices, each replay equal to the plain version at that index; timed
+    queued beside its bound."""
+    import torch
+    from ptrt_tpu_torch.render import pipeline
+    from ptrt_tpu_torch.scene.camera import Camera
+    from ptrt_tpu_torch.tools import stages
+
+    dev = sc._rng_state.device
+    st, bn = sc._rng_state, sc._blue_noise
+    h, w = st.shape
+    lens = Camera.make((0.4, 1.5, -1.2), (0.0, 0.0, 6.0), vfov=60.0,
+                       aspect_ratio=w / h, aperture=0.1, focus_dist=7.0,
+                       device=dev)
+    r = {"cases": 0, "max_abs_err": 0.0, "bad": []}
+
+    def hold(label, got, want):
+        r["cases"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], max_err(got, want))
+        if not same_tree(got, want):
+            r["bad"].append(label)
+
+    planes = lambda out: (out[0], out[1].origin.map(
+        lambda c: c.expand(out[0].shape)), out[1].direction, out[1].spec)
+    frames = [0, 5, 21, 2 ** 31 + 7,
+              torch.tensor(21, dtype=torch.int32, device=dev),
+              torch.tensor(2 ** 31 + 7, dtype=torch.int64, device=dev)]
+    windows = [(f"{h}x{w}", st, None)]
+    for ch, cw in LAST_SIZES:
+        windows.append((f"{ch}x{cw} frame", st[:ch, :cw].contiguous(), None))
+        y0, x0 = h - ch - 7, w - cw - 11
+        windows.append((f"{ch}x{cw} tile at ({y0}, {x0})",
+                        st[y0:y0 + ch, x0:x0 + cw], (y0, x0, h, w)))
+    for cname, cam in (("camera", sc.camera), ("lens", lens)):
+        for label, state, tile in windows:
+            for f in frames:
+                for sample in (0, 3):
+                    got = pipeline.camera_rays(cam, state, f, sample, bn,
+                                               tile)
+                    want = pipeline.camera_rays_plain(cam, state, f, sample,
+                                                      bn, tile)
+                    ftag = (f"{f.dtype} {int(f)}" if torch.is_tensor(f)
+                            else f)
+                    hold(f"{cname} {label} frame {ftag} sample {sample}",
+                         planes(got), planes(want))
+    # captured with the index on the card: each replay reads it there
+    idx = torch.zeros((), dtype=torch.int32, device=dev)
+    tile = (100, 333, h, w)
+    state = st[100:370, 333:666]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        pipeline.camera_rays(lens, state, idx, 1, bn, tile)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = pipeline.camera_rays(lens, state, idx, 1, bn, tile)
+    for f in (3, 21, 1_000_003):
+        idx.fill_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        hold(f"captured, replayed at {f}", planes(cap), planes(
+            pipeline.camera_rays_plain(lens, state, f, 1, bn, tile)))
+    r["graph_replays"] = 3
+    del graph, cap
+    cam = sc.camera
+    r["queued_ms"] = [stages.clones_ms(lambda _: pipeline.camera_rays(
+        cam, st, 7, 0, bn), [None] * 21, stages.SPIN_CYCLES)
+        for _ in range(2)]
+    r["ms"] = sum(r["queued_ms"]) / 2
+    r["plain_ms"] = cuda_ms(lambda: pipeline.camera_rays_plain(
+        cam, st, 7, 0, bn), 5)
+    # the state read; the sub-state, origin, direction and spec written;
+    # the blue-noise and Halton tables read once
+    r.update(bound(nbytes(st) * 2 + 6 * 4 * h * w + h * w + nbytes(bn)
+                   + 16 * 2 * 4))
+    log(f"[last] camera_rays: {r['cases']} cases bit for bit but "
+        f"{r['bad']} (max |err| {r['max_abs_err']:.3g}); a {h}x{w} sample "
+        f"queued {r['queued_ms'][0]:.4f} / {r['queued_ms'][1]:.4f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}) [{card}]")
+    assert not r["bad"], r["bad"]
+    return r
+
+
+def frames_against_plain(sc, frames: int, move=None) -> dict:
+    """``frames`` eager frames of ``sc`` (``eager_frame``) from one state
+    with the kernels and again with the four stages' plain versions
+    (``plain_stages``), ``move(k)`` before frame k of both: RGB8, PCG
+    state, denoiser history, progressive sum and count and the last
+    frame's buffers bit for bit.  The scene's state is put back."""
+    import contextlib
+
+    from ptrt_tpu_torch import graphs
+
+    start, cam = scene_state(sc), sc.camera
+    runs = {}
+    for mode in ("kernels", "plain"):
+        set_scene_state(sc, graphs.clone_tree(start))
+        sc.camera = cam
+        imgs = []
+        with (plain_stages() if mode == "plain" else
+              contextlib.nullcontext()):
+            for k in range(frames):
+                if move is not None:
+                    move(k)
+                imgs.append(eager_frame(sc))
+        runs[mode] = (imgs, scene_state(sc)[:4],
+                      tuple(sc.last_frame))
+    set_scene_state(sc, start)
+    sc.camera = cam
+    (ik, sk, fk), (ip, sp, fp) = runs["kernels"], runs["plain"]
+    same = {"rgb8": all(same_tree(a, b) for a, b in zip(ik, ip)),
+            "state": same_tree(sk, sp), "frame": same_tree(fk, fp)}
+    return {"frames": frames, "same": same, "all_same": all(same.values()),
+            "max_rgb8_diff": max(int((a.int() - b.int()).abs().max())
+                                 for a, b in zip(ik, ip)),
+            "frame_max_abs_err": max_err(fk, fp)}
+
+
+def check_last_stages(bal, hdri, card, rng) -> dict:
+    """Phase 21: the four kernels against their plain versions
+    (``check_post_last``, ``check_motion_last``, ``check_camera_last``) on
+    the balanced 1080p frame's buffers, the balanced, bench, fast and hdri
+    frames with the kernels against the same frames with the plain stages,
+    and a balanced frame that calls no plain version: the eager body
+    (under ``plain_stages(count)``) and the program's replay each launch
+    each kernel once."""
+    import collections
+    import copy
+
+    from ptrt_tpu_torch import graphs, kernels
+    from ptrt_tpu_torch.render import denoiser as den
+
+    # the history after a frame's temporal stage, the frame's buffers and
+    # the view-projection it started from (copies: the program advances
+    # its buffers in place)
+    prev_vp = bal.prev_view_proj.clone()
+    orbit(bal, BAL_FRAMES + 3)
+    bal.render_frame()
+    bufs = graphs.clone_tree(bal.last_frame)
+    state = graphs.clone_tree(bal._denoiser_state)
+    out = check_post_last(bufs, state, den.DEFAULT_SETTINGS, card, rng)
+    out["motion_vectors"] = check_motion_last(bal, bufs, prev_vp, card)
+    out["camera_rays"] = check_camera_last(bal, card)
+    del bufs, state
+
+    # whole frames: the kernels' against the plain stages'
+    perf = copy.copy(bal.perf)
+    frames = {}
+    orbit_move = lambda sc: lambda k: orbit(sc, BAL_FRAMES + 4 + k)
+    frames["balanced"] = frames_against_plain(bal, LAST_FRAMES,
+                                              orbit_move(bal))
+    bench_perf(bal, SPP, DEPTH)
+    frames["bench"] = frames_against_plain(bal, LAST_FRAMES)
+    bal.set_performance_preset("fast")
+    frames["fast"] = frames_against_plain(bal, LAST_FRAMES)
+    bal.perf = perf
+    orbit(bal, BAL_FRAMES + 3)
+    frames["hdri"] = frames_against_plain(hdri, LAST_FRAMES,
+                                          orbit_move(hdri))
+    for name, f in frames.items():
+        log(f"[last] {name} frames with the kernels against the plain "
+            f"stages: {f['frames']} frames, bit for bit {f['same']}; largest "
+            f"RGB8 difference {f['max_rgb8_diff']}, buffers' largest |err| "
+            f"{f['frame_max_abs_err']:.3g}")
+        assert f["all_same"], (name, f)
+    out["frames"] = frames
+
+    # no plain stage on the card: a balanced frame's eager body and its
+    # program's replay
+    calls = collections.Counter()
+    kernels.clear_counts()
+    start = scene_state(bal)
+    set_scene_state(bal, graphs.clone_tree(start))
+    with plain_stages(calls):
+        eager_frame(bal)
+    eager = dict(kernels.counts())
+    set_scene_state(bal, start)
+    kernels.clear_counts()
+    bal.render_frame()
+    replay = dict(kernels.counts())
+    log(f"[last] a balanced frame: plain versions called {dict(calls)}; "
+        f"the eager body launched "
+        f"{ {k: eager.get(k, 0) for k in LAST_REPLACES} }, the program's "
+        f"replay { {k: replay.get(k, 0) for k in LAST_REPLACES} }")
+    assert not calls, calls
+    for k in LAST_REPLACES:
+        assert eager.get(k, 0) == 1 and replay.get(k, 0) == 1, (
+            k, eager, replay)
+    out["balanced_frame"] = {"plain_calls": dict(calls),
+                             "eager_launches": eager,
+                             "replay_launches": replay}
+    return out
+
+
 def bounce_launches(names, samples, depth):
     """Kernel launches from each of a sample's K1 launches to its next (one
     bounce), in a profiled frame's timeline."""
@@ -4881,6 +5393,10 @@ def main() -> int:
     for k in ("closest_hit", "any_hit", "shade_nee", "shade_scatter"):
         # once a bounce of each sample
         assert launches.get(k, 0) == 4 * SPP * DEPTH, (k, launches)
+    # K0 once a sample; no post stack
+    assert launches.get("camera_rays", 0) == 4 * SPP, launches
+    for k in ("svgf_variance", "svgf_firefly", "motion_vectors"):
+        assert launches.get(k, 0) == 0, (k, launches)
     assert launches.get("row_gather", 0) == 0, "the main path gathers planes"
     for k in STATIC_NEVER:  # a scene without dynamic meshes
         assert launches.get(k, 0) == 0, (k, launches)
@@ -4973,7 +5489,8 @@ def main() -> int:
     per_frame = {"closest_hit": BAL_DEPTH, "any_hit": BAL_DEPTH,
                  "shade_nee": BAL_DEPTH, "shade_scatter": BAL_DEPTH,
                  "svgf_temporal": 1, "svgf_atrous": 7, "tonemap_rgb8": 1,
-                 "bloom_chain": 1, **dict.fromkeys(STATIC_NEVER, 0)}
+                 "bloom_chain": 1, **dict.fromkeys(LAST_REPLACES, 1),
+                 **dict.fromkeys(STATIC_NEVER, 0)}
     for k, n in per_frame.items():
         assert bal_launches.get(k, 0) == n * BAL_FRAMES, (k, bal_launches)
     assert bal_launches.get("row_gather", 0) == 0, bal_launches
@@ -5026,6 +5543,11 @@ def main() -> int:
     del bufs, state, state0, mv
     torch.cuda.empty_cache()
 
+    # -- 21. K0, K7 and K8 against their plain versions, whole frames --------
+    lap("21")
+    last = check_last_stages(bal, hdri, card, rng)
+    torch.cuda.empty_cache()
+
     # -- 7. the hdri scene's balanced path -----------------------------------
     lap("7")
     orbit(hdri, 0)
@@ -5057,6 +5579,7 @@ def main() -> int:
                  "shade_scatter (hdri)": BAL_DEPTH, "svgf_temporal": 1,
                  "svgf_atrous": 7, "tonemap_rgb8": 1, "bloom_chain": 1,
                  "shade_nee": 0, "shade_scatter": 0,
+                 **dict.fromkeys(LAST_REPLACES, 1),
                  **dict.fromkeys(STATIC_NEVER, 0)}
     for k, n in per_frame.items():
         assert hdri_launches.get(k, 0) == n * BAL_FRAMES, (k, hdri_launches)
@@ -5110,7 +5633,7 @@ def main() -> int:
     for k, n in (("closest_hit", 128 * 32), ("any_hit", 2 * 128 * 32),
                  ("shade_nee (hdri)", 128 * 32),
                  ("shade_scatter (hdri)", 128 * 32), ("bloom_chain", 1),
-                 ("tonemap_rgb8", 1)):
+                 ("tonemap_rgb8", 1), ("camera_rays", 128)):
         assert ultra_launches.get(k, 0) == n, (k, ultra_launches)
     hdr = ultra.last_frame.color
     assert all(bool(torch.isfinite(c).all()) for c in (hdr.x, hdr.y, hdr.z))
@@ -5519,6 +6042,23 @@ def main() -> int:
                      "ptrt_tpu/render/bloom.py:118",
          **both("tonemap_rgb8"), **post["tonemap_rgb8"],
          "library_ms": None, "pixels": W * H, "redesigned": True},
+        # phase 21's: K8's variance and firefly clamp, K7, K0 (whole frames
+        # against the plain stages and the balanced frame's launches ride
+        # on K0)
+        *[{"name": k, "route": "cuda", "source": src(LAST_SOURCES[k]),
+           "replaces": LAST_REPLACES[k], **both(k),
+           **{key: last[k][key] for key in (
+               "max_abs_err", "ms", "queued_ms", "plain_ms", "bound_ms",
+               "bound_by")},
+           "library_ms": None, "cases_bit_for_bit": last[k]["cases"],
+           "pixels": W * H,
+           "launches_hdri_balanced": hdri_launches.get(k, 0),
+           "launches_ultra": ultra_launches.get(k, 0),
+           **({"frames_against_plain": last["frames"],
+               "balanced_frame": last["balanced_frame"],
+               "graph_replays": last[k]["graph_replays"]}
+              if k == "camera_rays" else {})}
+          for k in LAST_REPLACES],
         *[{"name": k, "route": "cuda", "source": src("shade.cu"),
            "replaces": "ptrt_tpu/render/integrator.py:285",
            **both(k), **shade_stats[k], "library_ms": None, "lanes": W * H,
@@ -5685,6 +6225,10 @@ def main() -> int:
         over[k] = {"balanced": sum(v) / 2}
     over["tonemap_rgb8"]["bench"] = sum(
         t - k6_bound["bound_ms"] for t in k6_queued) / 2
+    # phase 21's kernels, queued: once a balanced frame (K0 once a sample)
+    for k in LAST_REPLACES:
+        over[k] = {"balanced": last[k]["ms"] - last[k]["bound_ms"]}
+    over["camera_rays"]["bench"] = SPP * over["camera_rays"]["balanced"]
     # the dynamic frame's K4 at the wavefronts measured (bounces 0 and 1 of
     # the closest walk, bounce 0's shadow rays), its refits and codes
     gap = lambda k, w: (sum(kstats[k]["wavefront_queued_ms"][w]) / 2

@@ -1,5 +1,7 @@
 // svgf_temporal and svgf_atrous: the two per-pixel stages of the SVGF
-// denoiser that carry its memory traffic.
+// denoiser that carry its memory traffic; svgf_variance and svgf_firefly,
+// its variance estimate and firefly clamp (see "the variance estimate and
+// the firefly clamp" below for what they replace and what bounds them).
 //
 // Replaces: ptrt_tpu/render/denoiser.py temporal_accumulation (:276, with
 // _edge_aware_bilinear :217 and the first-frame history of denoise_channel
@@ -94,6 +96,33 @@ struct SvgfAtrousArgs {
     float sigma_l, edge_depth, edge_normal, sky_depth;
     int use_obj;
     int tile_w, tile_h;  // the block's tile: an instantiated one (see below)
+};
+
+// one channel of the variance estimate: its history and the output plane
+struct SvgfVarianceChannel {
+    const float* mean[3];
+    const float* m2[3];
+    const float* len;
+    float* out;
+};
+
+struct SvgfVarianceArgs {
+    SvgfVarianceChannel ch[2];   // ch[1] is read only when channels == 2
+    const float* depth;
+    const float* normal[3];
+    const int* obj;
+    int h, w, channels;
+    float sky_depth;
+    int use_obj;
+};
+
+struct SvgfFireflyArgs {
+    const float* img[2][3];      // img[1] and out[1]: when channels == 2
+    float* out[2][3];
+    const float* depth;
+    const float* normal[3];
+    int h, w, channels;
+    float sky_depth;
 };
 
 namespace {
@@ -578,6 +607,142 @@ cudaError_t launch_atrous(const SvgfAtrousArgs& a, cudaStream_t stream) {
 #define PTRT_ATROUS_TILES(X)                                                  \
     X(1, 32, 16) X(2, 32, 16) X(4, 64, 8) X(8, 64, 8) X(16, 64, 8) X(0, 32, 4)
 
+// -- the variance estimate and the firefly clamp ----------------------------
+//
+// svgf_variance replaces ptrt_tpu/render/denoiser.py estimate_variance
+// (:390): a channel's temporal variance max(m2 - mean^2, 0), boosted by
+// 1 + (1 - min(length / 4, 1)) * 3, floored by the 3x3 edge-clamped spatial
+// variance of its mean over the pixels of the centre's object (every pixel
+// with object ids off), as luminance; 0 on sky.  svgf_firefly replaces
+// firefly_suppression (:190): each colour clamped to 1.25 times its
+// zero-padded 8-neighbourhood maximum and to 10; sky passes through.
+// Under XLA each is a fusion of shifted copies and selects; the plain torch
+// versions launch ~520 (variance) and ~85 (firefly) kernels a channel over
+// 8 MB planes at 1080p.
+//
+// What bounds them on the card: bytes.  The variance of both channels of a
+// split frame reads the shared depth, normal and id once (5 planes) and a
+// channel's mean, m2 and length (7) and writes one: 21 planes, 0.052 ms at
+// 1080p at 3.35 TB/s.  The firefly clamp of both reads depth and normal (4)
+// and a channel's colour (3) and writes it (3): 16 planes, 0.040 ms.  A
+// pixel runs a few dozen float operations and nine taps through L1.
+//
+// What this design does about it: one thread a pixel, a 32 x 8 block, one
+// launch for both channels of a split frame (the sky test, the window's
+// clamped offsets and same-object weights made once a pixel); the taps'
+// neighbours come through L1, where a block's rows overlap.  The float
+// operations follow the plain version's order: the nine taps summed from
+// zero in its row-major order, each as (nc * nc) * wgt, the divisor a true
+// 1 / max(count, 1) then a multiply; max and min propagate NaN as torch's
+// maximum, minimum, clamp_min and clamp_max do (fmaxf would drop it).
+
+constexpr int kPixelW = 32, kPixelH = 8;  // a block of one thread a pixel
+
+// torch.maximum / torch.minimum, and clamp_min / clamp_max against a
+// number: a NaN operand is the result, the first operand's first
+__device__ __forceinline__ float tmax(float a, float b) {
+    return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float tmin(float a, float b) {
+    return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
+}
+__device__ __forceinline__ V3 tmax3(V3 a, V3 b) {
+    return V3{tmax(a.x, b.x), tmax(a.y, b.y), tmax(a.z, b.z)};
+}
+__device__ __forceinline__ V3 tmin3(V3 a, V3 b) {
+    return V3{tmin(a.x, b.x), tmin(a.y, b.y), tmin(a.z, b.z)};
+}
+
+template <int CH>
+__global__ void __launch_bounds__(kPixelW * kPixelH)
+svgf_variance_kernel(const SvgfVarianceArgs a) {
+    const int w = a.w, h = a.h;
+    const int x = blockIdx.x * kPixelW + threadIdx.x;
+    const int y = blockIdx.y * kPixelH + threadIdx.y;
+    if (x >= w || y >= h) return;
+    const int p = y * w + x;
+    if (is_sky(a.depth[p], ld3(a.normal, p), a.sky_depth)) {
+#pragma unroll
+        for (int ch = 0; ch < CH; ++ch) a.ch[ch].out[p] = 0.0f;
+        return;
+    }
+    // the window's taps in the plain version's order: out[y, x] of the tap
+    // (dy, dx) is the pixel (clamp(y - dy), clamp(x - dx))
+    const int o = a.obj[p];
+    int q[9];
+    float wgt[9];
+    float cnt = 0.0f;
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll
+        for (int dx = -1; dx <= 1; ++dx) {
+            const int k = (dy + 1) * 3 + dx + 1;
+            q[k] = clampi(y - dy, 0, h - 1) * w + clampi(x - dx, 0, w - 1);
+            wgt[k] = (a.use_obj == 0 || a.obj[q[k]] == o) ? 1.0f : 0.0f;
+            cnt = cnt + wgt[k];
+        }
+    }
+    const float inv = 1.0f / tmax(cnt, 1.0f);
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) {
+        const SvgfVarianceChannel& c = a.ch[ch];
+        const V3 m = ld3(c.mean, p);
+        const V3 zero{0.0f, 0.0f, 0.0f};
+        const V3 var = tmax3(sub(ld3(c.m2, p), mul(m, m)), zero);
+        const float reliability = tmin(c.len[p] * 0.25f, 1.0f);
+        const float boost = 1.0f + (1.0f - reliability) * 3.0f;
+        V3 sp_mean = zero, sp_m2 = zero;
+#pragma unroll
+        for (int k = 0; k < 9; ++k) {
+            const V3 nc = ld3(c.mean, q[k]);
+            sp_mean = add(sp_mean, mul(nc, wgt[k]));
+            sp_m2 = add(sp_m2, mul(mul(nc, nc), wgt[k]));
+        }
+        sp_mean = mul(sp_mean, inv);
+        sp_m2 = mul(sp_m2, inv);
+        const V3 sp_var = tmax3(sub(sp_m2, mul(sp_mean, sp_mean)), zero);
+        c.out[p] = luminance(tmax3(mul(var, boost), sp_var));
+    }
+}
+
+template <int CH>
+__global__ void __launch_bounds__(kPixelW * kPixelH)
+svgf_firefly_kernel(const SvgfFireflyArgs a) {
+    const int w = a.w, h = a.h;
+    const int x = blockIdx.x * kPixelW + threadIdx.x;
+    const int y = blockIdx.y * kPixelH + threadIdx.y;
+    if (x >= w || y >= h) return;
+    const int p = y * w + x;
+    const bool sky = is_sky(a.depth[p], ld3(a.normal, p), a.sky_depth);
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) {
+        const V3 c = ld3(a.img[ch], p);
+        V3 out = c;
+        if (!sky) {
+            // the zero-padded neighbours in the plain version's order
+            V3 max_n{0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll
+                for (int dx = -1; dx <= 1; ++dx) {
+                    if (dy == 0 && dx == 0) continue;
+                    const int sy = y - dy, sx = x - dx;
+                    const V3 t = (sy >= 0 && sy < h && sx >= 0 && sx < w)
+                                     ? ld3(a.img[ch], sy * w + sx)
+                                     : V3{0.0f, 0.0f, 0.0f};
+                    max_n = tmax3(max_n, t);
+                }
+            }
+            out = tmin3(tmin3(c, mul(max_n, 1.25f)), V3{10.0f, 10.0f, 10.0f});
+        }
+        st3(a.out[ch], p, out);
+    }
+}
+
+dim3 pixel_grid(int h, int w) {
+    return dim3((w + kPixelW - 1) / kPixelW, (h + kPixelH - 1) / kPixelH);
+}
+
 }  // namespace
 
 extern "C" int ptrt_svgf_temporal(const SvgfTemporalArgs* args, void* stream) {
@@ -649,4 +814,32 @@ extern "C" int ptrt_svgf_atrous_info(int step, int tile_w, int tile_h,
     PTRT_ATROUS_TILES(PTRT_ATROUS_INFO)
 #undef PTRT_ATROUS_INFO
     return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int ptrt_svgf_variance(const SvgfVarianceArgs* args, void* stream) {
+    if (args->channels != 1 && args->channels != 2)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (args->h <= 0 || args->w <= 0)
+        return static_cast<int>(cudaGetLastError());
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dim3 block(kPixelW, kPixelH);
+    if (args->channels == 2)
+        svgf_variance_kernel<2><<<pixel_grid(args->h, args->w), block, 0, s>>>(*args);
+    else
+        svgf_variance_kernel<1><<<pixel_grid(args->h, args->w), block, 0, s>>>(*args);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ptrt_svgf_firefly(const SvgfFireflyArgs* args, void* stream) {
+    if (args->channels != 1 && args->channels != 2)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (args->h <= 0 || args->w <= 0)
+        return static_cast<int>(cudaGetLastError());
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dim3 block(kPixelW, kPixelH);
+    if (args->channels == 2)
+        svgf_firefly_kernel<2><<<pixel_grid(args->h, args->w), block, 0, s>>>(*args);
+    else
+        svgf_firefly_kernel<1><<<pixel_grid(args->h, args->w), block, 0, s>>>(*args);
+    return static_cast<int>(cudaGetLastError());
 }

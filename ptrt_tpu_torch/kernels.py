@@ -34,6 +34,7 @@ SOURCE_FLAGS = {
     "svgf.cu": ["-fmad=false"], "bloom.cu": ["-fmad=false"],
     "shade.cu": ["-fmad=false"], "refit.cu": ["-fmad=false"],
     "rt_shade.cu": ["-fmad=false"], "instances.cu": ["-fmad=false"],
+    "motion.cu": ["-fmad=false"], "camera.cu": ["-fmad=false"],
 }
 SOURCES = [os.path.join(CSRC, f) for f in SOURCE_FLAGS]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -115,6 +116,11 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_svgf_atrous.argtypes = [p, p]
         lib.ptrt_svgf_atrous_info.restype = i
         lib.ptrt_svgf_atrous_info.argtypes = [i, i, i, i, p, p, p]
+        for name in ("svgf_variance", "svgf_firefly", "motion_vectors",
+                     "camera_rays"):
+            fn = getattr(lib, f"ptrt_{name}")
+            fn.restype = i
+            fn.argtypes = [p, p]
         lib.ptrt_bloom_chain.restype = i
         lib.ptrt_bloom_chain.argtypes = [p, p]
         lib.ptrt_bloom_chain_info.restype = i
@@ -218,6 +224,22 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def scalar_ptr(name: str, v, device: torch.device) -> int:
+    """The address of a one-element float32 tensor on ``device`` (a
+    camera's value, which a kernel reads where it lies)."""
+    if not (isinstance(v, torch.Tensor) and v.dtype == torch.float32
+            and v.numel() == 1 and v.device == device):
+        raise ValueError(f"{name}: expected a one-element float32 tensor on "
+                         f"{device}, got {v!r}")
+    return v.data_ptr()
+
+
+def vec_ptrs(name: str, v, device: torch.device) -> tuple:
+    """The three addresses of a Vec3 of one-element float32 tensors."""
+    return tuple(scalar_ptr(f"{name}.{k}", getattr(v, k), device)
+                 for k in "xyz")
 
 
 def require_supported(device: torch.device) -> None:

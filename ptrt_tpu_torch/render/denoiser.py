@@ -7,15 +7,15 @@ depth/normal/object-id rejection, neighbourhood soft clamp,
 variance-adaptive alpha), variance estimation, then five (diffuse) or two
 (specular) à-trous iterations; the channels recombine with emission.
 
-Two stages are hand-written kernels (``csrc/svgf.cu``):
-``temporal_accumulation`` launches ``svgf_temporal`` (the whole temporal
-stage of a channel, with its own history fetches),
-``temporal_accumulation_pair`` the same kernel for both channels of a split
-frame at once (``denoise_frame`` takes it), and ``atrous_iteration``
-launches ``svgf_atrous`` (one filter pass) for CUDA tensors; for CPU
-tensors they run their plain versions, ``temporal_accumulation_plain``
-(twice for the pair) and ``atrous_iteration_plain``.  Firefly suppression
-and variance estimation are plain torch.
+Every stage is a hand-written kernel (``csrc/svgf.cu``) for CUDA tensors:
+``firefly_suppression`` launches ``svgf_firefly``,
+``temporal_accumulation`` ``svgf_temporal`` (the whole temporal stage of a
+channel, with its own history fetches), ``estimate_variance``
+``svgf_variance`` and ``atrous_iteration`` ``svgf_atrous`` (one filter
+pass); ``firefly_suppression_pair``, ``temporal_accumulation_pair`` and
+``estimate_variance_pair`` launch their kernel once for both channels of a
+split frame (``denoise_frame`` takes them).  For CPU tensors each runs its
+plain version (``<name>_plain``; the pairs, each channel alone).
 
 Border rules, as in the reference: the 3x3 windows of the temporal and
 variance stages clamp coordinates to the image (``_shift_clamp``), the
@@ -184,9 +184,10 @@ def _clip_index(f: torch.Tensor, n: int) -> torch.Tensor:
 # -- stages ------------------------------------------------------------------
 
 
-def firefly_suppression(img: Vec3, depth, normal: Vec3, threshold,
-                        sky_threshold) -> Vec3:
-    """Clamp each pixel to 1.25x its 8-neighbourhood maximum (zero-padded)
+def firefly_suppression_plain(img: Vec3, depth, normal: Vec3, threshold,
+                              sky_threshold) -> Vec3:
+    """Plain version of ``svgf_firefly`` (``denoiser.firefly_suppression``).
+    Clamp each pixel to 1.25x its 8-neighbourhood maximum (zero-padded)
     and to 10; sky pixels pass through.  ``threshold`` is unused, as in the
     reference."""
     max_n = Vec3.zeros(img.x.shape, img.x.device)
@@ -340,9 +341,10 @@ def temporal_accumulation_plain(cur: Vec3, hist: ChannelHistory, mvx, mvy,
                           length=torch.where(sky, 1.0, new_len))
 
 
-def estimate_variance(hist: ChannelHistory, depth, normal: Vec3, obj_id,
-                      cfg: DenoiserSettings) -> torch.Tensor:
-    """Temporal variance boosted for short histories, floored by the 3x3
+def estimate_variance_plain(hist: ChannelHistory, depth, normal: Vec3,
+                            obj_id, cfg: DenoiserSettings) -> torch.Tensor:
+    """Plain version of ``svgf_variance`` (``denoiser.estimate_variance``).
+    Temporal variance boosted for short histories, floored by the 3x3
     same-object spatial variance; luminance of the result, 0 on sky."""
     c = hist.mean
     var = vmax(hist.m2 - c * c, Vec3.full(0.0))
@@ -709,6 +711,146 @@ def atrous_kernel_info(h: int, w: int, step: int) -> dict:
             "shared_bytes": launch.shared_bytes}
 
 
+class VarianceChannel(ctypes.Structure):
+    """``struct SvgfVarianceChannel`` of ``csrc/svgf.cu``."""
+
+    _fields_ = [("mean", _P3), ("m2", _P3), ("len", ctypes.c_void_p),
+                ("out", ctypes.c_void_p)]
+
+
+class VarianceArgs(ctypes.Structure):
+    """``struct SvgfVarianceArgs`` of ``csrc/svgf.cu``."""
+
+    _fields_ = [
+        ("ch", VarianceChannel * 2), ("depth", ctypes.c_void_p),
+        ("normal", _P3), ("obj", ctypes.c_void_p),
+        ("h", ctypes.c_int), ("w", ctypes.c_int), ("channels", ctypes.c_int),
+        ("sky_depth", ctypes.c_float), ("use_obj", ctypes.c_int),
+    ]
+
+
+class FireflyArgs(ctypes.Structure):
+    """``struct SvgfFireflyArgs`` of ``csrc/svgf.cu``."""
+
+    _fields_ = [
+        ("img", _P3 * 2), ("out", _P3 * 2), ("depth", ctypes.c_void_p),
+        ("normal", _P3), ("h", ctypes.c_int), ("w", ctypes.c_int),
+        ("channels", ctypes.c_int), ("sky_depth", ctypes.c_float),
+    ]
+
+
+def _pair(items, what: str) -> tuple:
+    items = tuple(items)
+    if len(items) != 2:
+        raise ValueError(f"{what}: two channels, got {len(items)}")
+    return items
+
+
+def firefly_suppression(img: Vec3, depth, normal: Vec3, threshold,
+                        sky_threshold) -> Vec3:
+    """Clamp each pixel to 1.25x its 8-neighbourhood maximum (zero-padded)
+    and to 10; sky pixels pass through (``svgf_firefly``).  ``threshold``
+    is unused, as in the reference."""
+    dev = depth.device
+    kernels.require_supported(dev)
+    if dev.type == "cpu":
+        return firefly_suppression_plain(img, depth, normal, threshold,
+                                         sky_threshold)
+    return _firefly_launch((img,), depth, normal, sky_threshold)[0]
+
+
+def firefly_suppression_pair(images, depth, normal: Vec3,
+                             sky_threshold) -> tuple:
+    """The firefly clamp of two channels of one frame in one launch
+    (``svgf_firefly`` of two channels); each result equal to what
+    ``firefly_suppression`` gives for that channel alone."""
+    images = _pair(images, "firefly_suppression_pair")
+    dev = depth.device
+    kernels.require_supported(dev)
+    if dev.type == "cpu":
+        return tuple(firefly_suppression_plain(img, depth, normal, None,
+                                               sky_threshold)
+                     for img in images)
+    return _firefly_launch(images, depth, normal, sky_threshold)
+
+
+def _firefly_launch(images, depth, normal: Vec3, sky_threshold) -> tuple:
+    """Check and launch ``svgf_firefly`` for one or two channels."""
+    dev = depth.device
+    h, w = depth.shape
+    f32 = torch.float32
+    a = FireflyArgs()
+    out = []
+    for k, img in enumerate(images):
+        a.img[k] = _P3(*_planes("img", img, (h, w), f32, dev))
+        o = _empty3((h, w), dev)
+        a.out[k] = _P3(*[c.data_ptr() for c in (o.x, o.y, o.z)])
+        out.append(o)
+    (a.depth,) = _planes("depth", depth, (h, w), f32, dev)
+    a.normal = _P3(*_planes("normal", normal, (h, w), f32, dev))
+    a.h, a.w, a.channels = h, w, len(images)
+    a.sky_depth = sky_threshold
+    rc = kernels.get_lib().ptrt_svgf_firefly(ctypes.addressof(a),
+                                             kernels.stream_ptr(dev))
+    kernels.launches["svgf_firefly"] += 1
+    kernels.check(rc, "svgf_firefly")
+    return tuple(out)
+
+
+def estimate_variance(hist: ChannelHistory, depth, normal: Vec3, obj_id,
+                      cfg: DenoiserSettings) -> torch.Tensor:
+    """Temporal variance boosted for short histories, floored by the 3x3
+    same-object spatial variance; luminance of the result, 0 on sky
+    (``svgf_variance``)."""
+    dev = depth.device
+    kernels.require_supported(dev)
+    if dev.type == "cpu":
+        return estimate_variance_plain(hist, depth, normal, obj_id, cfg)
+    return _variance_launch((hist,), depth, normal, obj_id, cfg)[0]
+
+
+def estimate_variance_pair(hists, depth, normal: Vec3, obj_id,
+                           cfg: DenoiserSettings) -> tuple:
+    """The variance estimate of two channels of one frame in one launch
+    (``svgf_variance`` of two channels); each result equal to what
+    ``estimate_variance`` gives for that channel alone."""
+    hists = _pair(hists, "estimate_variance_pair")
+    dev = depth.device
+    kernels.require_supported(dev)
+    if dev.type == "cpu":
+        return tuple(estimate_variance_plain(hist, depth, normal, obj_id, cfg)
+                     for hist in hists)
+    return _variance_launch(hists, depth, normal, obj_id, cfg)
+
+
+def _variance_launch(hists, depth, normal: Vec3, obj_id,
+                     cfg: DenoiserSettings) -> tuple:
+    """Check and launch ``svgf_variance`` for one or two channels."""
+    dev = depth.device
+    h, w = depth.shape
+    f32 = torch.float32
+    a = VarianceArgs()
+    out = []
+    for c, hist in zip(a.ch, hists):
+        c.mean = _P3(*_planes("hist.mean", hist.mean, (h, w), f32, dev))
+        c.m2 = _P3(*_planes("hist.m2", hist.m2, (h, w), f32, dev))
+        (c.len,) = _planes("hist.length", hist.length, (h, w), f32, dev)
+        var = torch.empty((h, w), dtype=f32, device=dev)
+        c.out = var.data_ptr()
+        out.append(var)
+    (a.depth,) = _planes("depth", depth, (h, w), f32, dev)
+    a.normal = _P3(*_planes("normal", normal, (h, w), f32, dev))
+    (a.obj,) = _planes("obj_id", obj_id, (h, w), torch.int32, dev)
+    a.h, a.w, a.channels = h, w, len(hists)
+    a.sky_depth = cfg.sky_depth_threshold
+    a.use_obj = int(cfg.use_object_ids)
+    rc = kernels.get_lib().ptrt_svgf_variance(ctypes.addressof(a),
+                                              kernels.stream_ptr(dev))
+    kernels.launches["svgf_variance"] += 1
+    kernels.check(rc, "svgf_variance")
+    return tuple(out)
+
+
 # -- the channel and the frame -----------------------------------------------
 
 ATROUS_STEPS = (1, 2, 4, 8, 16)
@@ -740,7 +882,12 @@ def _filter(hist: ChannelHistory, depth, normal: Vec3, obj_id,
             ch: ChannelSettings, cfg: DenoiserSettings) -> Vec3:
     """The variance estimate and the channel's à-trous passes."""
     variance = estimate_variance(hist, depth, normal, obj_id, cfg)
-    img = hist.mean
+    return _atrous(hist.mean, variance, depth, normal, obj_id, ch, cfg)
+
+
+def _atrous(img: Vec3, variance, depth, normal: Vec3, obj_id,
+            ch: ChannelSettings, cfg: DenoiserSettings) -> Vec3:
+    """The channel's à-trous passes from its mean and variance."""
     for step in ATROUS_STEPS[:min(ch.atrous_iterations, 5)]:
         img, variance = atrous_iteration(img, variance, depth, normal, obj_id,
                                          step, ch, cfg)
@@ -773,21 +920,25 @@ def denoise_frame(bufs, mv, state: DenoiserState, camera=None,
     spec_cap = specular_history_cap(bufs.roughness, bufs.transmission,
                                     settings)
     if settings.enable_split_denoising:
-        # the reference runs the channels one after the other; here both
-        # firefly clamps come first, so one launch takes both temporal
-        # stages (the stages are independent: the numbers are the same)
+        # the reference runs the channels one after the other; here each
+        # stage takes both channels in one launch, then each channel's
+        # à-trous passes run (no channel reads the other's: the numbers
+        # are the same)
+        src_d, src_s = bufs.diffuse, bufs.specular
+        if settings.enable_firefly_suppression:
+            src_d, src_s = firefly_suppression_pair(
+                (src_d, src_s), depth, normal, settings.sky_depth_threshold)
         hist_d, hist_s = temporal_accumulation_pair(
-            ((_firefly(bufs.diffuse, depth, normal, settings.diffuse,
-                       settings), state.diffuse, settings.diffuse, None),
-             (_firefly(bufs.specular, depth, normal, settings.specular,
-                       settings), state.specular, settings.specular,
-              spec_cap)),
+            ((src_d, state.diffuse, settings.diffuse, None),
+             (src_s, state.specular, settings.specular, spec_cap)),
             mvx, mvy, depth, normal, obj_id, state, settings,
             first=state.first_frame)
-        out_d = _filter(hist_d, depth, normal, obj_id, settings.diffuse,
-                        settings)
-        out_s = _filter(hist_s, depth, normal, obj_id, settings.specular,
-                        settings)
+        var_d, var_s = estimate_variance_pair((hist_d, hist_s), depth, normal,
+                                              obj_id, settings)
+        out_d = _atrous(hist_d.mean, var_d, depth, normal, obj_id,
+                        settings.diffuse, settings)
+        out_s = _atrous(hist_s.mean, var_s, depth, normal, obj_id,
+                        settings.specular, settings)
         out = out_d + out_s + bufs.emission
     else:
         out, hist_d = denoise_channel(

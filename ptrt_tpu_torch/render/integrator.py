@@ -56,18 +56,21 @@ def trace_path(geom, materials, lights, n_lights: int, sky: SkyConfig,
                ray: RayBatch, state, max_depth: int, split: bool = False,
                rr_enabled: bool = True,
                rr_start: int = RUSSIAN_ROULETTE_START_BOUNCE,
-               camera_nee: bool = True):
+               camera_nee: bool = True, own_ray: bool = False):
     """Trace the wavefront to completion.  Returns (rng_state, PathOutput).
 
     ``camera_nee=True`` keeps the reference's fix: the camera ray's spec
     flag does not suppress bounce-0 NEE.  An HDRI sky turns on its
-    importance-sampled NEE (env NEE).
+    importance-sampled NEE (env NEE).  ``own_ray``: the ray's planes and
+    ``state`` are the trace's to update in place (``PathState.start``'s
+    ``own``), as ``trace_frame``'s camera rays are.
 
     Every bounce of ``max_depth`` runs, also once no lane is alive: reading
     the alive plane back to stop early would wait for the card."""
     env_nee = sky.has_env_sampling
     shape = ray.direction.x.shape
-    ps = PathState.start(ray, state, split, camera_nee, env_nee)
+    ps = PathState.start(ray, state, split, camera_nee, env_nee,
+                         own=own_ray)
     check_state(ps, materials)  # once: the kernels update ps in place
     rays = torch.zeros((), dtype=torch.int64, device=ps.alive.device)
 

@@ -1,8 +1,10 @@
 """The per-frame trace, the upscale and the K6 tonemap wrapper.
 
 Counterpart of ``ptrt_tpu/render/pipeline.py``: ``trace_frame`` generates
-jittered camera rays (TAA + blue noise, one PCG sub-stream per sample),
-runs the integrator and averages the samples (and, with ``split``, the
+jittered camera rays (TAA + blue noise, one PCG sub-stream per sample:
+``camera_rays``, the hand-written K0 ``csrc/camera.cu`` for CUDA tensors,
+its plain version ``camera_rays_plain`` for CPU tensors), runs the
+integrator and averages the samples (and, with ``split``, the
 denoiser's diffuse/specular/emission channels); ``upscale_bilinear`` is
 ``jax.image.resize(..., "bilinear")`` in plain torch; ``tonemap_to_rgb8``
 turns HDR into the display image through the hand-written
@@ -27,10 +29,12 @@ from ptrt_tpu_torch import kernels
 from ptrt_tpu_torch.core import rng as prng
 from ptrt_tpu_torch.core.bluenoise import next_blue_noise
 from ptrt_tpu_torch.core.color import aces_tonemap, srgb_oetf, to_rgb8
+from ptrt_tpu_torch.core.taa import halton_table as taa_halton_table
 from ptrt_tpu_torch.core.taa import taa_jitter
 from ptrt_tpu_torch.core.vec import Vec3
 from ptrt_tpu_torch.render import bloom as bloom_mod
 from ptrt_tpu_torch.render.integrator import trace_path
+from ptrt_tpu_torch.render.ray import RayBatch
 
 
 class FrameBuffers(NamedTuple):
@@ -49,13 +53,9 @@ class FrameBuffers(NamedTuple):
     rays_traced: torch.Tensor  # int64 scalar (all spp)
 
 
-def camera_rays(camera, rng_state: torch.Tensor, frame_index,
-                sample: int, blue_noise_tbl: torch.Tensor, tile=None):
-    """Jittered primary rays of one sample over the (H, W) pixel grid of
-    ``rng_state``, each with its own PCG sub-stream.  ``frame_index``: a
-    Python int, or a 0-d integer tensor on the state's device (the same
-    bits; a frame captured into a CUDA graph reads its index there).
-    ``tile`` as ``trace_frame``'s.  Returns (sub_state, RayBatch)."""
+def camera_rays_plain(camera, rng_state: torch.Tensor, frame_index,
+                      sample: int, blue_noise_tbl: torch.Tensor, tile=None):
+    """Plain version of K0 (``pipeline.camera_rays``)."""
     dev = rng_state.device
     height, width = rng_state.shape
     ys, xs = torch.meshgrid(torch.arange(height, device=dev),
@@ -78,6 +78,89 @@ def camera_rays(camera, rng_state: torch.Tensor, frame_index,
     tg = (ys.to(torch.float32) + 0.5 + jitter_y) / float(full_h)
     sub = prng.fold(rng_state, sample + 1)
     return camera.get_ray(sg, tg, sub)
+
+
+_P3 = ctypes.c_void_p * 3
+
+
+class CameraRaysArgs(ctypes.Structure):
+    """``struct CameraRaysArgs`` of ``csrc/camera.cu``."""
+
+    _fields_ = [
+        ("rng", ctypes.c_void_p), ("rng_pitch", ctypes.c_longlong),
+        ("blue_noise", ctypes.c_void_p), ("halton", ctypes.c_void_p),
+        ("frame", ctypes.c_void_p), ("frame_host", ctypes.c_longlong),
+        ("frame_bytes", ctypes.c_int), ("sample", ctypes.c_int),
+        ("salt", ctypes.c_uint), ("origin", _P3), ("llc", _P3),
+        ("horizontal", _P3), ("vertical", _P3), ("u", _P3), ("v", _P3),
+        ("lens_radius", ctypes.c_void_p), ("sub", ctypes.c_void_p),
+        ("o", _P3), ("d", _P3), ("spec", ctypes.c_void_p),
+        ("h", ctypes.c_int), ("w", ctypes.c_int), ("y0", ctypes.c_int),
+        ("x0", ctypes.c_int), ("full_h", ctypes.c_int),
+        ("full_w", ctypes.c_int),
+    ]
+
+
+def camera_rays(camera, rng_state: torch.Tensor, frame_index,
+                sample: int, blue_noise_tbl: torch.Tensor, tile=None):
+    """Jittered primary rays of one sample over the (H, W) pixel grid of
+    ``rng_state``, each with its own PCG sub-stream (K0).  ``frame_index``:
+    a Python int, or a 0-d integer tensor on the state's device (the same
+    bits; a frame captured into a CUDA graph reads its index there).
+    ``tile`` as ``trace_frame``'s.  Returns (sub_state, RayBatch); on the
+    card every plane is its own contiguous (H, W) tensor."""
+    dev = rng_state.device
+    kernels.require_supported(dev)
+    if dev.type == "cpu":
+        return camera_rays_plain(camera, rng_state, frame_index, sample,
+                                 blue_noise_tbl, tile)
+    height, width = rng_state.shape
+    y0, x0, full_h, full_w = ((0, 0, height, width) if tile is None
+                              else (int(v) for v in tile))
+    if rng_state.dtype != torch.int64 or rng_state.stride(1) != 1:
+        raise ValueError("rng_state: expected int64 rows of unit stride, got "
+                         f"{rng_state.dtype} strides {rng_state.stride()}")
+    kernels.check_tensor("blue_noise_tbl", blue_noise_tbl, torch.float32, 3,
+                         dev)
+    a = CameraRaysArgs()
+    if torch.is_tensor(frame_index) and frame_index.device.type == "cuda":
+        if frame_index.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"frame_index: {frame_index.dtype}, expected "
+                            "int32 or int64")
+        kernels.check_tensor("frame_index", frame_index, frame_index.dtype,
+                             0, dev)
+        a.frame = frame_index.data_ptr()
+        a.frame_bytes = frame_index.element_size()
+    else:  # a host number, or a 0-d CPU tensor: read here, as torch would
+        a.frame_host = int(frame_index)
+    halton = taa_halton_table(dev)
+    a.rng, a.rng_pitch = rng_state.data_ptr(), rng_state.stride(0)
+    a.blue_noise, a.halton = blue_noise_tbl.data_ptr(), halton.data_ptr()
+    a.sample = sample
+    a.salt = prng.mul32(sample + 1, prng.GOLDEN)
+    for field in ("origin", "horizontal", "vertical", "u", "v"):
+        setattr(a, field, _P3(*kernels.vec_ptrs(
+            f"camera.{field}", getattr(camera, field), dev)))
+    a.llc = _P3(*kernels.vec_ptrs("camera.lower_left_corner",
+                                  camera.lower_left_corner, dev))
+    a.lens_radius = kernels.scalar_ptr("camera.lens_radius",
+                                       camera.lens_radius, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    sub = torch.empty((height, width), dtype=torch.int64, device=dev)
+    o = torch.empty((3, height, width), **f32)
+    d = torch.empty((3, height, width), **f32)
+    spec = torch.empty((height, width), dtype=torch.bool, device=dev)
+    a.sub, a.spec = sub.data_ptr(), spec.data_ptr()
+    a.o = _P3(*[o[k].data_ptr() for k in range(3)])
+    a.d = _P3(*[d[k].data_ptr() for k in range(3)])
+    a.h, a.w = height, width
+    a.y0, a.x0, a.full_h, a.full_w = y0, x0, full_h, full_w
+    rc = kernels.get_lib().ptrt_camera_rays(ctypes.addressof(a),
+                                            kernels.stream_ptr(dev))
+    kernels.launches["camera_rays"] += 1
+    kernels.check(rc, "camera_rays")
+    return sub, RayBatch(Vec3(o[0], o[1], o[2]), Vec3(d[0], d[1], d[2]),
+                         spec)
 
 
 def trace_frame(geom, materials, lights, n_lights: int, sky, camera,
@@ -114,7 +197,8 @@ def trace_frame(geom, materials, lights, n_lights: int, sky, camera,
                                blue_noise_tbl, tile)
         _, out = trace_path(geom, materials, lights, n_lights, sky, ray, sub,
                             max_depth, split=split, rr_enabled=rr_enabled,
-                            rr_start=rr_start, camera_nee=camera_nee)
+                            rr_start=rr_start, camera_nee=camera_nee,
+                            own_ray=True)
         parts = (out.radiance, out.diffuse, out.specular, out.emission)
         sums = parts if sums is None else tuple(
             a if b is None else a + b for a, b in zip(sums, parts))
@@ -179,9 +263,6 @@ def upscale_bilinear(img: Vec3, out_h: int, out_w: int) -> Vec3:
 
 # the encode table's buckets: float bits of [0, 1] shifted right by LUT_SHIFT
 LUT_SHIFT = 16
-
-_P3 = ctypes.c_void_p * 3
-
 
 class TonemapArgs(ctypes.Structure):
     """``struct TonemapArgs`` of ``csrc/tonemap.cu``."""

@@ -124,16 +124,24 @@ class PathState:
 
     @staticmethod
     def start(ray, rng: torch.Tensor, split: bool, camera_nee: bool = True,
-              env_nee: bool = False) -> "PathState":
+              env_nee: bool = False, own: bool = False) -> "PathState":
         """The state before bounce 0 for the rays of a ``RayBatch`` of any
         shape, every plane its own contiguous tensor.  ``camera_nee=True``
         keeps the reference's fix: the camera ray's spec flag does not
         suppress bounce-0 NEE.  ``env_nee`` allocates the env MIS
-        carries."""
+        carries.  ``own``: the ray's planes and ``rng`` are the caller's
+        to give (``camera_rays``' fresh planes): a contiguous one of the
+        full shape is taken as it is, not copied, and the kernels then
+        update it in place."""
         shape = ray.direction.x.shape
         dev = ray.direction.x.device
         n = ray.direction.x.numel()
-        flat = lambda c: c.expand(shape).reshape(-1).clone()
+
+        def flat(c):
+            if own and c.is_contiguous() and c.shape == shape:
+                return c.reshape(-1)
+            return c.expand(shape).reshape(-1).clone()
+
         full = lambda v, dt=torch.float32: torch.full((n,), v, dtype=dt,
                                                       device=dev)
         v3 = lambda v: Vec3(full(v), full(v), full(v))

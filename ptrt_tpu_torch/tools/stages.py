@@ -11,6 +11,7 @@ Run as a script on a GPU, this file measures one tree's kernels:
     python3 ptrt_tpu_torch/tools/stages.py [--tree DIR] [--out DIR]
                                            [--bloom | --dynamic | --refill]
                                            [--sets N,N,...] [--rt] [--hdri]
+                                           [--frames]
 
 ``--tree DIR`` measures the checkout in ``DIR`` (a variant of this tree or
 a later commit unpacked with ``git archive``, say) in a process of its own
@@ -35,7 +36,11 @@ measures only K4 on hand-made sets of those instance counts
 set takes, a digest of the records).  ``--hdri`` measures only the K3
 kernels' registers, stack and SASS digests and the HDRI stages and frame
 (``measure_hdri_only``), so that a variant of the HDRI kernels is compared
-with this tree in turns.  ``--rt`` measures only the RT frame on the 1080p
+with this tree in turns.  ``--frames`` measures only one replay of the
+1080p balanced, bench, fast, hdri balanced and ultra frame programs
+(``measure_frames``: device ms, kernels, the counted launches, host ms a
+frame), so that two trees' frames compare on one card.  ``--rt`` measures
+only the RT frame on the 1080p
 "rt" configuration (``measure_rt``: a digest of its RGB8, the
 frame profiled and split by pass and kernel, host and frame ms, K10's
 ``rt_shade`` and ``rt_glass_rays`` timed, ``rt_shade``'s registers and
@@ -1014,6 +1019,54 @@ def bench_frames(sc, out: dict) -> None:
     out["frames"]["bench"] = frame_profile(sc, 3)
 
 
+def measure_frames(tag: str, card: str) -> dict:
+    """One profiled replay of each scene frame program at 1920x1080 (the
+    frame before it made the program): balanced, bench (4 spp, depth 4, no
+    post stack), fast, hdri balanced and ultra (its chunk and post
+    programs), each with its device ms, kernels and the launches of each
+    counted kernel (``kernels.counts``), and three frames on the host
+    clock."""
+    from ptrt_tpu_torch import kernels
+    from ptrt_tpu_torch.app.bench_scene import build_bench_scene
+
+    log = lambda *a: say(f"[{tag}]", *a)
+    out = {"tag": tag, "card": card, "frames": {}}
+
+    def frame(name, sc, timed=3):
+        sc.render_frame()  # makes the program (or replays it)
+        kernels.clear_counts()
+        r = frame_profile(sc, timed)
+        del r["names"], r["kernels"]  # the line stays short
+        kernels.clear_counts()
+        sc.render_frame()
+        r["counts"] = dict(kernels.counts())
+        out["frames"][name] = r
+        log(f"{name} frame: device {r['device_ms']:.3f} ms in "
+            f"{r['launches']} kernels; frames "
+            f"{[round(t, 2) for t in r['frame_ms']]} ms; counted "
+            f"{r['counts']} [{card}]")
+
+    sc = build_bench_scene(W, H, target_tris=TRIS, device="cuda")
+    sc.set_performance_preset("balanced")
+    sc.perf.samples_per_pixel = 1
+    sc.render_frame()
+    frame("balanced", sc)
+    sc.perf.enable_denoiser = sc.perf.enable_bloom = False
+    sc.perf.enable_motion_vectors = False
+    sc.perf.samples_per_pixel, sc.perf.max_bounce_depth = 4, DEPTH
+    frame("bench", sc)
+    sc.set_performance_preset("fast")
+    sc.perf.samples_per_pixel = 1
+    frame("fast", sc)
+    del sc
+    sc = hdri_scene()
+    sc.render_frame()
+    frame("hdri balanced", sc)
+    sc.set_performance_preset("ultra")
+    frame("ultra", sc, timed=1)
+    return out
+
+
 def hdri_scene():
     """The 1080p "hdri" configuration, balanced at 1 spp, on the card."""
     from ptrt_tpu_torch.app.bench_scene import build_hdri_scene
@@ -1723,6 +1776,9 @@ def main(argv) -> int:
     ap.add_argument("--hdri", action="store_true",
                     help="measure only the K3 kernels' resources and the "
                     "HDRI stages and frame")
+    ap.add_argument("--frames", action="store_true",
+                    help="measure only one replay of the balanced, bench, "
+                    "fast, hdri and ultra frame programs")
     args = ap.parse_args(argv)
     say.out = args.out and os.path.abspath(args.out)
     here = os.path.abspath(__file__)
@@ -1733,6 +1789,7 @@ def main(argv) -> int:
             [sys.executable, here] + ["--bloom"] * args.bloom
             + ["--dynamic"] * args.dynamic + ["--refill"] * args.refill
             + ["--rt"] * args.rt + ["--hdri"] * args.hdri
+            + ["--frames"] * args.frames
             + (["--sets", args.sets] if args.sets else []),
             cwd=tree,
             stdout=subprocess.PIPE, text=True,
@@ -1765,8 +1822,10 @@ def main(argv) -> int:
         say(json.dumps(measure_rt(tag, card)))
     if args.hdri:
         say(json.dumps(measure_hdri_only(tag, card)))
+    if args.frames:
+        say(json.dumps(measure_frames(tag, card)))
     if not (args.refill or args.dynamic or args.sets or args.rt
-            or args.hdri):
+            or args.hdri or args.frames):
         say(json.dumps(measure(tag, card, args.bloom)))
     return 0
 
