@@ -67,8 +67,9 @@ Phases (any failure raises, so the exit code is non-zero):
      timed frames, with the kernels' launch counts taken over exactly that
      run (K1, K2 and K3 once a bounce of each sample, no material-plane
      gather), then one frame under torch.profiler (device time, launches,
-     and 10 launches a later bounce: no t_max select before K1, no bool
-     cast after K2), then the progressive average once more under
+     and 5 launches a later bounce: no t_max select before K1, no bool
+     cast after K2, the ray count one K13 launch), then the progressive
+     average once more under
      torch.cuda.set_sync_debug_mode("error") (no host copy);
   5. the balanced path: the same scene under the reference's default
      ("balanced") preset — 1 spp, depth 4, split trace, motion vectors,
@@ -275,7 +276,27 @@ Phases (any failure raises, so the exit code is non-zero):
      bench, fast and hdri frames with the kernels bit for bit the same
      frames with the plain stages (three frames each from one state); a
      balanced frame, eager and replayed, launches each of the four once
-     and calls no plain version.
+     and calls no plain version;
+ 22. (run right after phase 21) the frame's last plain-torch glue as
+     kernels: K12 upscale_bilinear (the games' 224x125 -> 640x360 and
+     112x62 -> 320x180, the scenes' 672x378 and 1440x810 -> 1920x1080, a
+     1x1 and a 2x3 source; planes as made and with NaN, inf and 50.0), K13
+     count_rays (bool planes all dead, all alive and random, whole and off
+     a 16-byte boundary, casts 0-2, a base), sample_sums (NaN, inf and
+     luminances above 100 in the radiance, split and unsplit, 1, 3 and 16
+     spp, at 1080p, a tile of the 1080p state and 1x1) and
+     progressive_average (a restart, the same view-projection, another,
+     one with a NaN, keep 0 and 1), each bit for bit its plain version and
+     timed queued beside its bound, its plain version and, for the upscale
+     and the counts, the one torch call that computes the same function
+     (interpolate, count_nonzero); the bench, balanced, fast, performance,
+     hdri and ultra (depth 4) frames, a fused cube-slider frame at "fast",
+     a tiled frame and two tiles on two streams with the kernels bit for
+     bit the same with every plain stage; the phase's own main path (the
+     fast and performance programs and a fused frame) counted from zero,
+     each kernel launched and no plain version called; the replays with no
+     synchronizing call; profiled fast and bench replays with no copy or
+     reduction kernel in a bounce and the upscale in one launch.
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
@@ -306,11 +327,12 @@ K1_K2_AGREE = 0.9999
 # node and triangle tallies within COUNT_RTOL (FMA contraction on the card
 # can move a grazing slab or triangle test either way)
 COUNT_SAMPLE, COUNT_RTOL = 256, 0.01
-# kernels a later bounce of the bench frame launches (K1 of bounce 1 or 2
-# to the next K1): K1, shade_nee, the NEE ray count (a cast, a sum, an add),
-# K2, shade_scatter, the next bounce's ray count (3 more); without the t_max
-# select before K1 and the bool cast after K2
-BOUNCE_LAUNCHES = 10
+# kernels a bounce of the bench frame launches (K1 of bounce 0, 1 or 2 to
+# the next K1): K1, shade_nee, K2, shade_scatter and K13 count_rays (the
+# bounce's NEE lanes and the next bounce's live lanes in one launch);
+# without the t_max select before K1, the bool cast after K2 and the casts,
+# sums and adds of the plain ray counts
+BOUNCE_LAUNCHES = 5
 # the balanced path: timed frames, orbit step about the bench camera's
 # look-at point, and its bounce depth (the preset's)
 BAL_FRAMES, ORBIT_DEG, BAL_DEPTH = 5, 0.5, 4
@@ -3749,14 +3771,15 @@ def check_games(dev, card, resources=None) -> dict:
         rh, rw = sc.render_size
         up_ms = up_host_ms = up_launches = None
         if (rh, rw) != (h, w):
-            # the upscale's device time (the profiler, behind a spin) and a
-            # call's host time: its plain torch ops outlast their kernels
+            # the upscale's device time (a call queued behind a spin; the
+            # profiler sees no launch of a window this short), its launches
+            # a call and a call's host time
             hdr = Vec3(*[torch.rand((rh, rw), device=dev) for _ in range(3)])
             up = lambda: pipeline.upscale_bilinear(hdr, h, w)
-            up_kern = stages.profiled_kernels(up, calls=3,
-                                              lead_cycles=stages.SPIN_CYCLES)
-            up_ms = sum(us for _, us in up_kern) / 1e3 / 3
-            up_launches = len(up_kern) // 3
+            n0 = sum(kernels.launches.values())
+            up()
+            up_launches = sum(kernels.launches.values()) - n0
+            up_ms = sum(queued_ms(up)) / 2
             up_host_ms = stages.host_ms(up, calls=10)
         where = {}
         for at, line in syncs:
@@ -3778,7 +3801,7 @@ def check_games(dev, card, resources=None) -> dict:
             f"clock over {frames} replayed frames; one profiled eager frame "
             f"{dev_ms:.3f} "
             f"device ms in {len(kern)} launches, K11 "
-            f"{r['k11_kernel_ms']} ms, upscale {up_ms} device ms in "
+            f"{r['k11_kernel_ms']} ms, upscale {up_ms} ms queued in "
             f"{up_launches} launches ({up_host_ms} ms a call on the host "
             f"clock); launches "
             f"{launches}; {len(syncs)} synchronizing calls a frame: "
@@ -4679,44 +4702,27 @@ LAST_SOURCES = {"svgf_variance": "svgf.cu", "svgf_firefly": "svgf.cu",
                 "motion_vectors": "motion.cu", "camera_rays": "camera.cu"}
 
 
-def plain_stages(count=None):
-    """A context in which the main path runs the four stages' plain
-    versions in place of their kernels (the dispatching names rebound in
-    the modules that call them); with ``count`` (a Counter), the kernels
-    stay and every call of a plain version is counted there instead."""
+def counted_plain(names, count) -> list:
+    """(module, name, a function that counts its calls in ``count`` and
+    calls the module's ``name``) for each (module, name) of ``names``."""
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def call(*a, **kw):
+            count[name] += 1
+            return fn(*a, **kw)
+        return call
+    return [(mod, name, counted(mod, name)) for mod, name in names]
+
+
+def swapped(swaps, count=None):
+    """A context in which each (module, name, function) of ``swaps`` is
+    bound as the module's ``name``, put back on leaving; it yields
+    ``count``."""
     import contextlib
 
-    from ptrt_tpu_torch.render import denoiser as den
-    from ptrt_tpu_torch.render import motion, pipeline
-    from ptrt_tpu_torch.scene import pt_scene
-
-    if count is not None:
-        def counted(mod, name):
-            fn = getattr(mod, name)
-
-            def call(*a, **kw):
-                count[name] += 1
-                return fn(*a, **kw)
-            return call
-        swaps = [(mod, name, counted(mod, name)) for mod, name in (
-            (den, "firefly_suppression_plain"),
-            (den, "estimate_variance_plain"),
-            (motion, "motion_vectors_plain"),
-            (pipeline, "camera_rays_plain"))]
-    else:
-        swaps = [
-            (den, "firefly_suppression_pair", lambda imgs, d, n, sky: tuple(
-                den.firefly_suppression_plain(i, d, n, None, sky)
-                for i in imgs)),
-            (den, "estimate_variance_pair", lambda hs, *g: tuple(
-                den.estimate_variance_plain(h, *g) for h in hs)),
-            (den, "firefly_suppression", den.firefly_suppression_plain),
-            (den, "estimate_variance", den.estimate_variance_plain),
-            (pt_scene, "motion_vectors", motion.motion_vectors_plain),
-            (pipeline, "camera_rays", pipeline.camera_rays_plain)]
-
     @contextlib.contextmanager
-    def swapped():
+    def context():
         old = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
             setattr(mod, name, fn)
@@ -4725,7 +4731,34 @@ def plain_stages(count=None):
         finally:
             for mod, name, fn in old:
                 setattr(mod, name, fn)
-    return swapped()
+    return context()
+
+
+def plain_stages(count=None):
+    """A context in which the main path runs the four stages' plain
+    versions in place of their kernels (the dispatching names rebound in
+    the modules that call them); with ``count`` (a Counter), the kernels
+    stay and every call of a plain version is counted there instead."""
+    from ptrt_tpu_torch.render import denoiser as den
+    from ptrt_tpu_torch.render import motion, pipeline
+    from ptrt_tpu_torch.scene import pt_scene
+
+    if count is not None:
+        return swapped(counted_plain((
+            (den, "firefly_suppression_plain"),
+            (den, "estimate_variance_plain"),
+            (motion, "motion_vectors_plain"),
+            (pipeline, "camera_rays_plain")), count), count)
+    return swapped([
+        (den, "firefly_suppression_pair", lambda imgs, d, n, sky: tuple(
+            den.firefly_suppression_plain(i, d, n, None, sky)
+            for i in imgs)),
+        (den, "estimate_variance_pair", lambda hs, *g: tuple(
+            den.estimate_variance_plain(h, *g) for h in hs)),
+        (den, "firefly_suppression", den.firefly_suppression_plain),
+        (den, "estimate_variance", den.estimate_variance_plain),
+        (pt_scene, "motion_vectors", motion.motion_vectors_plain),
+        (pipeline, "camera_rays", pipeline.camera_rays_plain)])
 
 
 def max_err(got, want) -> float:
@@ -5044,12 +5077,14 @@ def check_camera_last(sc, card) -> dict:
     return r
 
 
-def frames_against_plain(sc, frames: int, move=None) -> dict:
+def frames_against_plain(sc, frames: int, move=None,
+                         plain=None) -> dict:
     """``frames`` eager frames of ``sc`` (``eager_frame``) from one state
-    with the kernels and again with the four stages' plain versions
-    (``plain_stages``), ``move(k)`` before frame k of both: RGB8, PCG
-    state, denoiser history, progressive sum and count and the last
-    frame's buffers bit for bit.  The scene's state is put back."""
+    with the kernels and again with the stages' plain versions (``plain``,
+    a context: ``plain_stages()`` where None), ``move(k)`` before frame k
+    of both: RGB8, PCG state, denoiser history, progressive sum and count
+    and the last frame's buffers bit for bit.  The scene's state is put
+    back."""
     import contextlib
 
     from ptrt_tpu_torch import graphs
@@ -5060,7 +5095,7 @@ def frames_against_plain(sc, frames: int, move=None) -> dict:
         set_scene_state(sc, graphs.clone_tree(start))
         sc.camera = cam
         imgs = []
-        with (plain_stages() if mode == "plain" else
+        with ((plain or plain_stages)() if mode == "plain" else
               contextlib.nullcontext()):
             for k in range(frames):
                 if move is not None:
@@ -5152,6 +5187,538 @@ def check_last_stages(bal, hdri, card, rng) -> dict:
     out["balanced_frame"] = {"plain_calls": dict(calls),
                              "eager_launches": eager,
                              "replay_launches": replay}
+    return out
+
+
+# phase 22: the frame's last plain-torch glue as kernels: K12
+# upscale_bilinear, K13 count_rays, sample_sums and progressive_average.
+# The upscale at each shape a frame gives it (the fused games' "fast"
+# 224x125 -> 640x360 and 112x62 -> 320x180, the scenes' "fast" 672x378 and
+# "performance" 1440x810 -> 1920x1080) and from a 1x1 and a 2x3 source;
+# the kernels' times at the first four (the scenes' "fast" shape the
+# table's line)
+GLUE_UPSCALES = (((125, 224), (360, 640)), ((62, 112), (180, 320)),
+                 ((378, 672), (1080, 1920)), ((810, 1440), (1080, 1920)),
+                 ((1, 1), (360, 640)), ((2, 3), (360, 640)))
+GLUE_KERNELS = ("upscale_bilinear", "count_rays", "sample_sums",
+                "progressive_average")
+# what each replaces: the reference's lines (the ray counts at :302 for
+# the live lanes, :378 and :401 for the NEE lanes; the sample sums with the
+# final clamp at integrator.py:529)
+GLUE_REPLACES = {
+    "upscale_bilinear": "ptrt_tpu/render/pipeline.py:174",
+    "count_rays": "ptrt_tpu/render/integrator.py:302",
+    "sample_sums": "ptrt_tpu/render/pipeline.py:119-168",
+    "progressive_average": "ptrt_tpu/scene/pt_scene.py:950-958",
+}
+GLUE_ALSO = {"count_rays": ["ptrt_tpu/render/integrator.py:378,401"],
+             "sample_sums": ["ptrt_tpu/render/integrator.py:529"]}
+GLUE_SOURCES = {"upscale_bilinear": "upscale.cu", "count_rays": "frame.cu",
+                "sample_sums": "frame.cu", "progressive_average": "frame.cu"}
+# whole frames a configuration with the kernels against the plain stages;
+# the ultra frame's depth here (its 128 spp in eight chunks kept)
+GLUE_FRAMES, GLUE_ULTRA_DEPTH = 2, 4
+
+
+def plain_glue(count=None):
+    """A context in which the main path runs the four glue stages' plain
+    versions in place of K12 and K13 (the dispatching names rebound in the
+    modules that call them); with ``count`` (a Counter), the kernels stay
+    and every call of a plain version is counted there instead."""
+    from ptrt_tpu_torch.render import integrator, pipeline
+    from ptrt_tpu_torch.scene import pt_scene
+
+    names = ((pipeline, "upscale_bilinear"), (pipeline, "sample_sums"),
+             (integrator, "count_rays"), (pt_scene, "accumulate"))
+    if count is not None:
+        return swapped(counted_plain([(mod, f"{name}_plain")
+                                      for mod, name in names], count), count)
+    return swapped([(mod, name, getattr(mod, f"{name}_plain"))
+                    for mod, name in names])
+
+
+def all_plain():
+    """Every stage a kernel of phases 21 and 22 replaces, run plain."""
+    import contextlib
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(plain_stages())
+    stack.enter_context(plain_glue())
+    return stack
+
+
+def queued_ms(fn) -> list:
+    """Two readings of ``fn()``'s ms, 20 calls queued behind a spin of the
+    card (the launches back to back: the device's time)."""
+    from ptrt_tpu_torch.tools import stages
+
+    return [stages.clones_ms(lambda _: fn(), [None] * 21,
+                             stages.SPIN_CYCLES) for _ in range(2)]
+
+
+def glue_hold(r, label, got, want) -> None:
+    r["cases"] += 1
+    r["max_abs_err"] = max(r["max_abs_err"], max_err(got, want))
+    if not same_tree(got, want):
+        r["bad"].append(label)
+
+
+def check_upscale_glue(dev, card, rng) -> dict:
+    """K12 against its plain version at GLUE_UPSCALES' shapes, each on
+    lognormal planes as made and with NaN, inf and 50.0 laid over them;
+    timed queued beside its bound, the plain version and
+    ``torch.nn.functional.interpolate`` (bilinear, the same function up to
+    rounding: not an oracle)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.render import pipeline
+
+    r = {"cases": 0, "bad": [], "max_abs_err": 0.0, "shapes": {}}
+    for (ih, iw), (oh, ow) in GLUE_UPSCALES:
+        img = Vec3(*[torch.from_numpy(rng.lognormal(-1.0, 1.5, (ih, iw))
+                                      .astype(np.float32)).to(dev)
+                     for _ in range(3)])
+        tag = f"{iw}x{ih} -> {ow}x{oh}"
+        for label, x in (("as made", img), ("poisoned",
+                                            poisoned(img, rng, 1e-2))):
+            glue_hold(r, f"{tag} {label}", pipeline.upscale_bilinear(
+                x, oh, ow), pipeline.upscale_bilinear_plain(x, oh, ow))
+        if ih < 62:
+            continue
+        stacked = torch.stack([img.x, img.y, img.z])[None]
+        t = {"queued_ms": queued_ms(
+            lambda: pipeline.upscale_bilinear(img, oh, ow)),
+            "plain_ms": cuda_ms(lambda: pipeline.upscale_bilinear_plain(
+                img, oh, ow), 5),
+            "library_queued_ms": queued_ms(lambda: F.interpolate(
+                stacked, size=(oh, ow), mode="bilinear",
+                align_corners=False)),
+            **bound(12 * (ih * iw + oh * ow))}
+        t["ms"] = sum(t["queued_ms"]) / 2
+        t["library_ms"] = sum(t["library_queued_ms"]) / 2
+        r["shapes"][tag] = t
+        log(f"[glue] upscale_bilinear {tag}: queued {t['queued_ms'][0]:.4f}"
+            f" / {t['queued_ms'][1]:.4f} ms, plain {t['plain_ms']:.3f} ms, "
+            f"interpolate {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+    row = r["shapes"]["672x378 -> 1920x1080"]
+    r.update({k: row[k] for k in ("ms", "queued_ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by")})
+    log(f"[glue] upscale_bilinear: {r['cases']} cases bit for bit but "
+        f"{r['bad']}")
+    assert not r["bad"], r["bad"]
+    return r
+
+
+def check_count_glue(dev, card, rng) -> dict:
+    """K13 count_rays against its plain version: bool planes all dead, all
+    alive and random (1080p, and 1, 15, 17 and 4,099 lanes), whole and as
+    views that start off a 16-byte boundary, either plane alone, casts 0-2,
+    a base; timed queued on a 1080p bounce's two planes beside its bound,
+    the plain version and ``torch.count_nonzero`` of both planes' lanes
+    in one plane."""
+    import torch
+    from ptrt_tpu_torch.render import integrator
+
+    r = {"cases": 0, "bad": [], "max_abs_err": 0.0}
+    n = W * H
+    for size in (n, 1, 15, 17, 4099):
+        kinds = {"dead": torch.zeros(size + 8, dtype=torch.bool, device=dev),
+                 "alive": torch.ones(size + 8, dtype=torch.bool, device=dev),
+                 "random": torch.from_numpy(rng.random(size + 8) < 0.37).to(
+                     dev)}
+        for ka, a in kinds.items():
+            for kb, b in kinds.items():
+                for off in (0, 3):
+                    pa, pb = a[off:off + size], b[5:5 + size - off]
+                    for casts, base in ((0, 0), (1, size), (2, 7)):
+                        got = torch.zeros((), dtype=torch.int64, device=dev)
+                        want = got.clone()
+                        integrator.count_rays(got, pa, pb, casts, base)
+                        integrator.count_rays_plain(want, pa, pb, casts,
+                                                    base)
+                        glue_hold(r, f"{size} {ka}/{kb} +{off} casts "
+                                  f"{casts} base {base}", got, want)
+                for one, args in (("alive alone", (a, None)),
+                                  ("NEE alone", (None, b))):
+                    got = torch.zeros((), dtype=torch.int64, device=dev)
+                    want = got.clone()
+                    integrator.count_rays(got, *args, 2)
+                    integrator.count_rays_plain(want, *args, 2)
+                    glue_hold(r, f"{size} {ka}/{kb} {one}", got, want)
+    alive = torch.from_numpy(rng.random(n) < 0.6).to(dev)
+    do_nee = torch.from_numpy(rng.random(n) < 0.4).to(dev)
+    both = torch.cat([alive, do_nee])
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    r["queued_ms"] = queued_ms(lambda: integrator.count_rays(
+        rays, alive, do_nee, 1))
+    r["ms"] = sum(r["queued_ms"]) / 2
+    r["plain_ms"] = cuda_ms(lambda: integrator.count_rays_plain(
+        rays, alive, do_nee, 1), 10)
+    r["library_queued_ms"] = queued_ms(lambda: torch.count_nonzero(both))
+    r["library_ms"] = sum(r["library_queued_ms"]) / 2
+    r.update(bound(2 * n + 16))
+    log(f"[glue] count_rays: {r['cases']} cases equal but {r['bad']}; a "
+        f"1080p bounce's two planes queued {r['queued_ms'][0]:.4f} / "
+        f"{r['queued_ms'][1]:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+        f"count_nonzero {r['library_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    assert not r["bad"], r["bad"]
+    return r
+
+
+def glue_state(dev, rng, n, split):
+    """A sample's planes as ``sample_sums`` reads them off a PathState:
+    radiance with NaN, +inf, -inf and luminances above 100 at seeded
+    lanes, and with ``split`` the three channels (a NaN among them)."""
+    import types
+
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch.core.vec import Vec3
+
+    def planes(scale):
+        return Vec3(*[torch.from_numpy((rng.lognormal(-1.0, 1.5, n) * scale)
+                                       .astype(np.float32)).to(dev)
+                      for _ in range(3)])
+
+    acc = planes(40.0)
+    k = max(1, n // 50)
+    for c, val in ((acc.x, float("nan")), (acc.y, float("inf")),
+                   (acc.z, -float("inf")), (acc.x, 400.0), (acc.y, 1e30)):
+        c[torch.from_numpy(rng.choice(n, k, replace=False)).to(dev)] = val
+    ps = types.SimpleNamespace(accum=acc, diffuse=None, specular=None,
+                               emission=None)
+    if split:
+        ps.diffuse, ps.specular, ps.emission = planes(1.0), planes(1.0), \
+            planes(3.0)
+        ps.diffuse.y[n // 2] = float("nan")
+    return ps
+
+
+def check_sums_glue(dev, card, rng) -> dict:
+    """K13 sample_sums against its plain version over whole frames of 1, 3
+    and 16 samples, split and not: at 1080p, a 23x37 tile of the 1080p
+    state (rows 1920 apart) and 1x1; timed queued on a 1080p sample in the
+    frame's middle (it reads the sums) beside its bound and the plain
+    version."""
+    import torch
+    from ptrt_tpu_torch.render import pipeline
+
+    r = {"cases": 0, "bad": [], "max_abs_err": 0.0}
+    full = torch.from_numpy(rng.integers(0, 2 ** 32, (H, W))).to(dev)
+    tile = full[H // 4:H // 4 + 23, W // 2:W // 2 + 37]
+    for label, st in (("1080p", full), ("23x37 tile", tile),
+                      ("1x1", full[:1, :1].contiguous())):
+        h, w = st.shape
+        for split in (False, True):
+            for spp in (1, 3, 16):
+                if spp == 16 and label == "1080p":
+                    continue
+                samples = [glue_state(dev, rng, h * w, split)
+                           for _ in range(spp)]
+                runs = []
+                for fn in (pipeline.sample_sums, pipeline.sample_sums_plain):
+                    sums = state = None
+                    for s, ps in enumerate(samples):
+                        sums, state = fn(sums, ps, s, spp, st)
+                    runs.append((sums, state))
+                glue_hold(r, f"{label} {spp} spp split {split}", *runs)
+    for split in (False, True):
+        ps = glue_state(dev, rng, W * H, split)
+        sums, _ = pipeline.sample_sums(None, ps, 0, 4, full)
+        t = {"queued_ms": queued_ms(lambda: pipeline.sample_sums(
+            sums, ps, 1, 4, full)),
+            "plain_ms": cuda_ms(lambda: pipeline.sample_sums_plain(
+                sums, ps, 1, 4, full), 5),
+            # the sample's planes and the sums read, the sums written
+            **bound(4 * W * H * (12 if split else 3) * 3)}
+        t["ms"] = sum(t["queued_ms"]) / 2
+        t["last_queued_ms"] = queued_ms(lambda: pipeline.sample_sums(
+            sums, ps, 3, 4, full))
+        r["split" if split else "unsplit"] = t
+        log(f"[glue] sample_sums, a 1080p sample {'split' if split else 'unsplit'}:"
+            f" queued {t['queued_ms'][0]:.4f} / {t['queued_ms'][1]:.4f} ms "
+            f"(the last, with the scale and the PCG advance, "
+            f"{t['last_queued_ms'][0]:.4f}), plain {t['plain_ms']:.3f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+    r.update({k: r["unsplit"][k] for k in ("ms", "queued_ms", "plain_ms",
+                                           "bound_ms", "bound_by")})
+    log(f"[glue] sample_sums: {r['cases']} frames bit for bit but "
+        f"{r['bad']}")
+    assert not r["bad"], r["bad"]
+    return r
+
+
+def check_average_glue(dev, card, rng) -> dict:
+    """K13 progressive_average against its plain version (``accumulate``):
+    a restart, the same view-projection, another one, one with a NaN, keep
+    0 and 1 (int32 and int64), colours with NaN and inf, at 1080p, the
+    "fast" 672x378 and 1x1; timed queued at both sizes beside its bound
+    and the plain version."""
+    import numpy as np
+    import torch
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.scene import pt_scene
+
+    r = {"cases": 0, "bad": [], "max_abs_err": 0.0, "sizes": {}}
+    for h, w in ((H, W), (378, 672), (1, 1)):
+        color = poisoned(Vec3(*[torch.from_numpy(rng.lognormal(
+            -1.0, 1.5, (h, w)).astype(np.float32)).to(dev)
+            for _ in range(3)]), rng)
+        total = Vec3(*[torch.from_numpy(rng.lognormal(
+            0.0, 1.5, (h, w)).astype(np.float32)).to(dev) for _ in range(3)])
+        vp = torch.from_numpy(rng.normal(size=(4, 4)).astype(
+            np.float32)).to(dev)
+        moved, nan = vp.clone(), vp.clone()
+        moved[2, 1] += 1e-3
+        nan[3, 3] = float("nan")
+        count = torch.tensor(6.0, device=dev)
+        cases = {"restart": (vp, None, None), "same": (vp, vp, None),
+                 "moved": (moved, vp, None), "NaN view": (nan, nan, None)}
+        for dt in (torch.int32, torch.int64):
+            for k in (0, 1):
+                cases[f"keep {k} {dt}"] = (vp, vp, torch.tensor(
+                    k, dtype=dt, device=dev))
+        for label, (view, old, keep) in cases.items():
+            accum = None if old is None else (total, count, old)
+            glue_hold(r, f"{h}x{w} {label}",
+                      pt_scene.accumulate(color, view, accum, keep),
+                      pt_scene.accumulate_plain(color, view, accum, keep))
+        if h == 1:
+            continue
+        keep = torch.tensor(1, dtype=torch.int32, device=dev)
+        accum = (total, count, vp)
+        t = {"queued_ms": queued_ms(lambda: pt_scene.accumulate(
+            color, vp, accum, keep)),
+            "plain_ms": cuda_ms(lambda: pt_scene.accumulate_plain(
+                color, vp, accum, keep), 10),
+            # colour and sum read, sum and average written
+            **bound(12 * 4 * h * w + 2 * 64 + 12)}
+        t["ms"] = sum(t["queued_ms"]) / 2
+        r["sizes"][f"{w}x{h}"] = t
+        log(f"[glue] progressive_average {w}x{h}: queued "
+            f"{t['queued_ms'][0]:.4f} / {t['queued_ms'][1]:.4f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}) [{card}]")
+    row = r["sizes"]["672x378"]
+    r.update({k: row[k] for k in ("ms", "queued_ms", "plain_ms",
+                                  "bound_ms", "bound_by")})
+    log(f"[glue] progressive_average: {r['cases']} cases bit for bit but "
+        f"{r['bad']}")
+    assert not r["bad"], r["bad"]
+    return r
+
+
+def game_frames_against_plain(dev, frames: int, w: int = 640,
+                              h: int = 360) -> dict:
+    """The fused cube slider at w x h "fast" (640x360: traced at 224x125):
+    its eager frames from one state with the kernels and with every plain
+    stage, bit for bit: the images, the game and PCG states."""
+    from ptrt_tpu_torch import graphs
+
+    sc, runner, state0, inputs = game_runner("cube_slider", w, h, "fast",
+                                             None, dev)
+    runner.frame(state0, inputs(0), 0, sc.camera.get_view_proj())
+    start = graphs.clone_tree((state0, sc._rng_state))
+    vp0 = sc.camera.get_view_proj()
+    runs = {}
+    for mode in ("kernels", "plain"):
+        state, sc._rng_state = graphs.clone_tree(start)
+        vp, imgs = vp0, []
+        with (all_plain() if mode == "plain" else plain_glue(
+                collections.Counter())) as calls:
+            for k in range(1, frames + 1):
+                state, img, cam = runner.frame(state, inputs(k), k, vp)
+                vp = cam.get_view_proj()
+                imgs.append(img)
+        runs[mode] = (imgs, state, sc._rng_state, calls)
+    (ik, sk, rk, calls), (ip, sp, rp, _) = runs["kernels"], runs["plain"]
+    out = {"frames": frames,
+           "same": {"rgb8": same_tree(ik, ip), "state": same_tree(sk, sp),
+                    "rng": same_tree(rk, rp)},
+           "plain_calls": dict(calls or {})}
+    out["all_same"] = all(out["same"].values()) and not out["plain_calls"]
+    del sc, runner
+    return out
+
+
+def tiled_against_plain(sc) -> dict:
+    """A tile of the scene's frame (``trace_frame(tile=)``, split, 2 spp)
+    with the kernels and with every plain stage, bit for bit; and two
+    tiles traced at once on two streams, each equal to its trace alone
+    (each trace counts its rays into its own counter)."""
+    import torch
+    from ptrt_tpu_torch.render import pipeline
+
+    sc._ensure_device_state()
+    st = sc._rng_state
+    h, w = st.shape
+    args = (sc._geom, sc._mat_table, sc._light_table, len(sc.lights),
+            sc.sky(), sc.camera)
+
+    def tile(y0, x0, th, tw, index):
+        return pipeline.trace_frame(*args, st[y0:y0 + th, x0:x0 + tw], index,
+                                    tw, th, 2, 3, sc._blue_noise, split=True,
+                                    tile=(y0, x0, h, w))
+
+    a = tile(100, 333, 270, 333, 7)
+    with all_plain():
+        b = tile(100, 333, 270, 333, 7)
+    out = {"tile_same": same_tree(a, b)}
+    alone = [tile(0, 0, 540, 960, 11), tile(540, 960, 540, 960, 12)]
+    dev = st.device
+    cur = torch.cuda.current_stream(dev)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    both = []
+    for s, (y0, x0, idx) in zip(streams, ((0, 0, 11), (540, 960, 12))):
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            both.append(tile(y0, x0, 540, 960, idx))
+    for s in streams:
+        cur.wait_stream(s)
+    torch.cuda.synchronize()
+    out["streams_same"] = same_tree(alone, both)
+    out["streams_rays"] = [int(t[1].rays_traced) for t in both]
+    out["alone_rays"] = [int(t[1].rays_traced) for t in alone]
+    out["all_same"] = out["tile_same"] and out["streams_same"]
+    return out
+
+
+def glue_profile(sc, card) -> dict:
+    """One profiled replay of the scene's program: its device ms and
+    kernels, the kernels of each bounce (K1 to the next K1 of a sample)
+    and the upscale's launches."""
+    from ptrt_tpu_torch.tools import stages
+
+    sc.render_frame()
+    prof = stages.frame_profile(sc, lead_cycles=stages.SPIN_CYCLES)
+    names = prof["names"]
+    assert names is not None, "the profiler saw no device kernels"
+    at = [i for i, nm in enumerate(names) if "closest_hit_kernel" in nm]
+    bounces = [names[i:j] for i, j in zip(at, at[1:])]
+    glue = [nm[:48] for b in bounces for nm in b
+            if "direct_copy" in nm or "reduce_kernel" in nm]
+    return {"device_ms": prof["device_ms"], "launches": prof["launches"],
+            "upscale_launches": sum("upscale_bilinear" in nm for nm in names),
+            "bounce_launches": sorted({len(b) for b in bounces}),
+            "bounce_glue": glue, "top": prof["top"]}
+
+
+def check_glue(bal, hdri, card, rng) -> dict:
+    """Phase 22: K12 and K13 against their plain versions
+    (``check_upscale_glue``, ``check_count_glue``, ``check_sums_glue``,
+    ``check_average_glue``); the bench, balanced, fast, performance, hdri
+    and ultra (depth GLUE_ULTRA_DEPTH) frames, a fused game frame at "fast"
+    and a tiled frame with the kernels against every plain stage, two
+    tiles on two streams; the phase's own main path (the fast and
+    performance programs and a fused game frame) counted from zero, each
+    of the four launched and no plain version called; replays with no
+    synchronizing call; profiled replays with no copy or reduction in a
+    bounce and the upscale in one launch."""
+    import copy
+
+    from ptrt_tpu_torch import kernels
+
+    dev = bal._rng_state.device
+    out = {"upscale_bilinear": check_upscale_glue(dev, card, rng),
+           "count_rays": check_count_glue(dev, card, rng),
+           "sample_sums": check_sums_glue(dev, card, rng),
+           "progressive_average": check_average_glue(dev, card, rng)}
+
+    # whole frames: the kernels' against every plain stage's
+    perf, hperf = copy.copy(bal.perf), copy.copy(hdri.perf)
+    frames = {}
+    orbit_move = lambda sc: lambda k: orbit(sc, BAL_FRAMES + 4 + k)
+    bench_perf(bal, SPP, DEPTH)
+    frames["bench"] = frames_against_plain(bal, GLUE_FRAMES, plain=all_plain)
+    balanced(bal)
+    frames["balanced"] = frames_against_plain(bal, GLUE_FRAMES,
+                                              orbit_move(bal), all_plain)
+    for preset in ("fast", "performance"):
+        bal.set_performance_preset(preset)
+        frames[preset] = frames_against_plain(bal, GLUE_FRAMES,
+                                              plain=all_plain)
+    frames["hdri"] = frames_against_plain(hdri, GLUE_FRAMES,
+                                          orbit_move(hdri), all_plain)
+    hdri.set_performance_preset("ultra")
+    hdri.perf.max_bounce_depth = GLUE_ULTRA_DEPTH
+    frames[f"ultra depth {GLUE_ULTRA_DEPTH}"] = frames_against_plain(
+        hdri, 1, plain=all_plain)
+    hdri.perf = hperf
+    frames["fused cube slider fast"] = game_frames_against_plain(
+        dev, GLUE_FRAMES)
+    bal.perf = copy.copy(perf)
+    frames["tiled and two streams"] = tiled_against_plain(bal)
+    for name, f in frames.items():
+        log(f"[glue] {name}: with the kernels against every plain stage "
+            f"{ {k: v for k, v in f.items() if k != 'all_same'} }")
+        assert f["all_same"], (name, f)
+    out["frames"] = frames
+
+    # the phase's own main path, counted from zero: the fast and the
+    # performance programs (two frames each, the first making its program)
+    # and a fused game frame; no plain version called by their eager
+    # bodies
+    calls = collections.Counter()
+    kernels.clear_counts()
+    per_frame = {}
+    for preset in ("fast", "performance"):
+        bal.set_performance_preset(preset)
+        bal.render_frame()
+        before = kernels.counts()
+        bal.render_frame()
+        per_frame[preset] = dict(kernels.counts() - before)
+        with plain_glue(calls):
+            eager_frame(bal)
+    sc, runner, state, inputs = game_runner("cube_slider", 640, 360, "fast",
+                                            None, dev)
+    with plain_glue(calls):
+        runner.frame(state, inputs(0), 0, sc.camera.get_view_proj())
+    launches = dict(kernels.counts())
+    del sc, runner, state
+    log(f"[glue] the phase's main path launched "
+        f"{ {k: launches.get(k, 0) for k in GLUE_KERNELS} }; a fast replay "
+        f"{per_frame['fast']}, a performance replay "
+        f"{per_frame['performance']}; plain versions called {dict(calls)}")
+    assert not calls, calls
+    for k in GLUE_KERNELS:
+        assert launches.get(k, 0) > 0, (k, launches)
+    spp, depth = bal.perf.samples_per_pixel, bal.perf.max_bounce_depth
+    fast = per_frame["fast"]
+    assert (fast.get("upscale_bilinear"), fast.get("progressive_average"),
+            fast.get("sample_sums")) == (1, 1, spp), fast
+    out["launches"] = launches
+    out["replay_launches"] = per_frame
+
+    # replays: no synchronizing call; profiled, no copy or reduction in a
+    # bounce, the upscale one launch
+    syncs = {}
+    for preset in ("fast", "performance"):
+        bal.set_performance_preset(preset)
+        bal.render_frame()
+        syncs[preset] = sync_calls(bal.render_frame_device)
+    profiles = {}
+    bal.set_performance_preset("fast")
+    profiles["fast"] = glue_profile(bal, card)
+    bench_perf(bal, SPP, DEPTH)
+    profiles["bench"] = glue_profile(bal, card)
+    bal.perf = perf
+    for name, p in profiles.items():
+        log(f"[glue] a profiled {name} replay: {p['device_ms']} device ms in "
+            f"{p['launches']} kernels, the upscale {p['upscale_launches']} "
+            f"launches, a bounce {p['bounce_launches']} kernels, copies and "
+            f"reductions in the bounces {p['bounce_glue']}; top {p['top']} "
+            f"[{card}]")
+        assert not p["bounce_glue"], (name, p["bounce_glue"])
+    log(f"[glue] synchronizing calls of a replay: {syncs}")
+    assert not any(syncs.values()), syncs
+    assert profiles["fast"]["upscale_launches"] == 1, profiles["fast"]
+    assert profiles["bench"]["upscale_launches"] == 0, profiles["bench"]
+    out["profiles"] = profiles
+    out["sync_calls"] = {k: len(v) for k, v in syncs.items()}
     return out
 
 
@@ -5390,11 +5957,16 @@ def main() -> int:
     assert img.std() > 1.0, "the image is constant"
     assert all(bool(torch.isfinite(c).all()) for c in (hdr.x, hdr.y, hdr.z))
     assert launches.get("tonemap_rgb8", 0) > 0, "tonemap_rgb8 not launched"
-    for k in ("closest_hit", "any_hit", "shade_nee", "shade_scatter"):
+    for k in ("closest_hit", "any_hit", "shade_nee", "shade_scatter",
+              "count_rays"):
         # once a bounce of each sample
         assert launches.get(k, 0) == 4 * SPP * DEPTH, (k, launches)
-    # K0 once a sample; no post stack
+    # K0 and the sample sums once a sample, the progressive average once a
+    # frame; no post stack, no upscale
     assert launches.get("camera_rays", 0) == 4 * SPP, launches
+    assert launches.get("sample_sums", 0) == 4 * SPP, launches
+    assert launches.get("progressive_average", 0) == 4, launches
+    assert launches.get("upscale_bilinear", 0) == 0, launches
     for k in ("svgf_variance", "svgf_firefly", "motion_vectors"):
         assert launches.get(k, 0) == 0, (k, launches)
     assert launches.get("row_gather", 0) == 0, "the main path gathers planes"
@@ -5488,6 +6060,8 @@ def main() -> int:
     # the composite: no plain-torch bloom op between them
     per_frame = {"closest_hit": BAL_DEPTH, "any_hit": BAL_DEPTH,
                  "shade_nee": BAL_DEPTH, "shade_scatter": BAL_DEPTH,
+                 "count_rays": BAL_DEPTH, "sample_sums": 1,
+                 "progressive_average": 0, "upscale_bilinear": 0,
                  "svgf_temporal": 1, "svgf_atrous": 7, "tonemap_rgb8": 1,
                  "bloom_chain": 1, **dict.fromkeys(LAST_REPLACES, 1),
                  **dict.fromkeys(STATIC_NEVER, 0)}
@@ -5548,6 +6122,11 @@ def main() -> int:
     last = check_last_stages(bal, hdri, card, rng)
     torch.cuda.empty_cache()
 
+    # -- 22. K12 and K13 against their plain versions, whole frames ---------
+    lap("22")
+    glue = check_glue(bal, hdri, card, rng)
+    torch.cuda.empty_cache()
+
     # -- 7. the hdri scene's balanced path -----------------------------------
     lap("7")
     orbit(hdri, 0)
@@ -5579,6 +6158,7 @@ def main() -> int:
                  "shade_scatter (hdri)": BAL_DEPTH, "svgf_temporal": 1,
                  "svgf_atrous": 7, "tonemap_rgb8": 1, "bloom_chain": 1,
                  "shade_nee": 0, "shade_scatter": 0,
+                 "count_rays": BAL_DEPTH, "sample_sums": 1,
                  **dict.fromkeys(LAST_REPLACES, 1),
                  **dict.fromkeys(STATIC_NEVER, 0)}
     for k, n in per_frame.items():
@@ -5633,7 +6213,9 @@ def main() -> int:
     for k, n in (("closest_hit", 128 * 32), ("any_hit", 2 * 128 * 32),
                  ("shade_nee (hdri)", 128 * 32),
                  ("shade_scatter (hdri)", 128 * 32), ("bloom_chain", 1),
-                 ("tonemap_rgb8", 1), ("camera_rays", 128)):
+                 ("tonemap_rgb8", 1), ("camera_rays", 128),
+                 ("count_rays", 128 * 32), ("sample_sums", 128),
+                 ("progressive_average", 1), ("upscale_bilinear", 0)):
         assert ultra_launches.get(k, 0) == n, (k, ultra_launches)
     hdr = ultra.last_frame.color
     assert all(bool(torch.isfinite(c).all()) for c in (hdr.x, hdr.y, hdr.z))
@@ -6059,6 +6641,33 @@ def main() -> int:
                "graph_replays": last[k]["graph_replays"]}
               if k == "camera_rays" else {})}
           for k in LAST_REPLACES],
+        # phase 22's: K12 and K13 (the whole frames against every plain
+        # stage, the replays' launches, profiles and synchronizing calls
+        # ride on progressive_average)
+        *[{"name": k, "route": "cuda", "source": src(GLUE_SOURCES[k]),
+           "replaces": GLUE_REPLACES[k],
+           **({"also_replaces": GLUE_ALSO[k]} if k in GLUE_ALSO else {}),
+           "launches": glue["launches"].get(k, 0),
+           "launched_by": "phase 22's main path: two frames each of the "
+                          "fast and performance programs, a fused "
+                          "cube-slider frame at fast",
+           "launches_bench": launches.get(k, 0),
+           "launches_balanced": bal_launches.get(k, 0),
+           "launches_hdri_balanced": hdri_launches.get(k, 0),
+           "launches_ultra": ultra_launches.get(k, 0),
+           **{key: glue[k][key] for key in (
+               "max_abs_err", "ms", "queued_ms", "plain_ms", "bound_ms",
+               "bound_by")},
+           "library_ms": glue[k].get("library_ms"),
+           "cases_bit_for_bit": glue[k]["cases"],
+           **{key: glue[k][key] for key in ("shapes", "sizes", "split",
+                                            "unsplit") if key in glue[k]},
+           **({"frames_against_plain": glue["frames"],
+               "replay_launches": glue["replay_launches"],
+               "profiles": glue["profiles"],
+               "sync_calls": glue["sync_calls"]}
+              if k == "progressive_average" else {})}
+          for k in GLUE_KERNELS],
         *[{"name": k, "route": "cuda", "source": src("shade.cu"),
            "replaces": "ptrt_tpu/render/integrator.py:285",
            **both(k), **shade_stats[k], "library_ms": None, "lanes": W * H,
@@ -6229,6 +6838,22 @@ def main() -> int:
     for k in LAST_REPLACES:
         over[k] = {"balanced": last[k]["ms"] - last[k]["bound_ms"]}
     over["camera_rays"]["bench"] = SPP * over["camera_rays"]["balanced"]
+    # phase 22's, queued: the upscale once a scaled frame; the ray count
+    # once a bounce, the sample sums once a sample (split in a balanced
+    # frame), the progressive average once a progressive frame
+    gap = lambda t: t["ms"] - t["bound_ms"]
+    over["upscale_bilinear"] = {
+        "fast": gap(glue["upscale_bilinear"]["shapes"][
+            "672x378 -> 1920x1080"]),
+        "performance": gap(glue["upscale_bilinear"]["shapes"][
+            "1440x810 -> 1920x1080"])}
+    over["count_rays"] = {"bench": SPP * DEPTH * gap(glue["count_rays"]),
+                          "balanced": BAL_DEPTH * gap(glue["count_rays"])}
+    over["sample_sums"] = {"bench": SPP * gap(glue["sample_sums"]["unsplit"]),
+                           "balanced": gap(glue["sample_sums"]["split"])}
+    over["progressive_average"] = {
+        "bench": gap(glue["progressive_average"]["sizes"]["1920x1080"]),
+        "fast": gap(glue["progressive_average"]["sizes"]["672x378"])}
     # the dynamic frame's K4 at the wavefronts measured (bounces 0 and 1 of
     # the closest walk, bounce 0's shadow rays), its refits and codes
     gap = lambda k, w: (sum(kstats[k]["wavefront_queued_ms"][w]) / 2

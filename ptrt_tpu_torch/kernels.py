@@ -35,6 +35,7 @@ SOURCE_FLAGS = {
     "shade.cu": ["-fmad=false"], "refit.cu": ["-fmad=false"],
     "rt_shade.cu": ["-fmad=false"], "instances.cu": ["-fmad=false"],
     "motion.cu": ["-fmad=false"], "camera.cu": ["-fmad=false"],
+    "upscale.cu": ["-fmad=false"], "frame.cu": ["-fmad=false"],
 }
 SOURCES = [os.path.join(CSRC, f) for f in SOURCE_FLAGS]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -117,7 +118,8 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_svgf_atrous_info.restype = i
         lib.ptrt_svgf_atrous_info.argtypes = [i, i, i, i, p, p, p]
         for name in ("svgf_variance", "svgf_firefly", "motion_vectors",
-                     "camera_rays"):
+                     "camera_rays", "upscale_bilinear", "count_rays",
+                     "sample_sums", "progressive_average"):
             fn = getattr(lib, f"ptrt_{name}")
             fn.restype = i
             fn.argtypes = [p, p]
@@ -243,5 +245,11 @@ def vec_ptrs(name: str, v, device: torch.device) -> tuple:
 
 
 def require_supported(device: torch.device) -> None:
+    """Raise unless ``device`` is the CPU (the plain versions) or a card
+    that is there (the kernels): a CUDA request without one is refused,
+    never served by a plain version."""
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel or plain version for device {device}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{device}: no CUDA device here, and no kernel "
+                           "runs without one")

@@ -4,9 +4,13 @@ Counterpart of ``ptrt_tpu/render/pipeline.py``: ``trace_frame`` generates
 jittered camera rays (TAA + blue noise, one PCG sub-stream per sample:
 ``camera_rays``, the hand-written K0 ``csrc/camera.cu`` for CUDA tensors,
 its plain version ``camera_rays_plain`` for CPU tensors), runs the
-integrator and averages the samples (and, with ``split``, the
-denoiser's diffuse/specular/emission channels); ``upscale_bilinear`` is
-``jax.image.resize(..., "bilinear")`` in plain torch; ``tonemap_to_rgb8``
+integrator and sums the samples (``sample_sums``, K13 ``csrc/frame.cu``
+for CUDA tensors: each sample's final soft clamp and, with ``split``, the
+denoiser's diffuse/specular/emission channels; the mean and the frame's
+PCG advance at the last); ``upscale_bilinear`` is
+``jax.image.resize(..., "bilinear")`` (K12 ``csrc/upscale.cu`` for CUDA
+tensors, its plain version ``upscale_bilinear_plain`` for CPU tensors,
+both on the taps of ``resize_taps``); ``tonemap_to_rgb8``
 turns HDR into the display image through the hand-written
 ``csrc/tonemap.cu`` kernel (K6) for CUDA tensors, or its plain version for
 CPU tensors; given the bloom chain's mip 0, K6 first adds its upsample to
@@ -31,9 +35,9 @@ from ptrt_tpu_torch.core.bluenoise import next_blue_noise
 from ptrt_tpu_torch.core.color import aces_tonemap, srgb_oetf, to_rgb8
 from ptrt_tpu_torch.core.taa import halton_table as taa_halton_table
 from ptrt_tpu_torch.core.taa import taa_jitter
-from ptrt_tpu_torch.core.vec import Vec3
+from ptrt_tpu_torch.core.vec import Vec3, clamp_vector_soft
 from ptrt_tpu_torch.render import bloom as bloom_mod
-from ptrt_tpu_torch.render.integrator import trace_path
+from ptrt_tpu_torch.render.integrator import MAX_FINAL_RADIANCE, trace_bounces
 from ptrt_tpu_torch.render.ray import RayBatch
 
 
@@ -190,46 +194,187 @@ def trace_frame(geom, materials, lights, n_lights: int, sky, camera,
             raise ValueError(f"tile {tuple(tile)} of {height}x{width} lies "
                              "outside its frame")
         tile = (y0, x0, full_h, full_w)
-    sums = None
+    sums = state = None
+    # the frame's own ray counter: every sample's walks count into it
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(spp):
         sub, ray = camera_rays(camera, rng_state, frame_index, s,
                                blue_noise_tbl, tile)
-        _, out = trace_path(geom, materials, lights, n_lights, sky, ray, sub,
-                            max_depth, split=split, rr_enabled=rr_enabled,
-                            rr_start=rr_start, camera_nee=camera_nee,
-                            own_ray=True)
-        parts = (out.radiance, out.diffuse, out.specular, out.emission)
-        sums = parts if sums is None else tuple(
-            a if b is None else a + b for a, b in zip(sums, parts))
-        rays = rays + out.rays_traced
+        ps = trace_bounces(geom, materials, lights, n_lights, sky, ray, sub,
+                           max_depth, rays, split=split,
+                           rr_enabled=rr_enabled, rr_start=rr_start,
+                           camera_nee=camera_nee, own_ray=True)
+        # at the last sample the mean, and the persistent per-pixel stream
+        # advanced once a frame
+        sums, state = sample_sums(sums, ps, s, spp, rng_state)
         if s == 0:
-            first = out
-    # the persistent per-pixel stream advances once per frame
-    state, _ = prng.uniform(rng_state)
-    inv = 1.0 / float(spp)
-    color, diff, spec, emis = (None if a is None else a * inv for a in sums)
+            first = (ps.first_normal, ps.first_depth, ps.first_object_id,
+                     ps.first_roughness, ps.first_transmission)
+    rs = lambda v: (v.map(rs) if isinstance(v, Vec3)
+                    else v.reshape(height, width))
+    normal, depth, object_id, roughness, transmission = (rs(v)
+                                                         for v in first)
+    color, diff, spec, emis = sums
     return state, FrameBuffers(
         color=color, diffuse=diff, specular=spec, emission=emis,
-        normal=first.first_normal,
-        depth=first.first_depth, object_id=first.first_object_id,
-        roughness=first.first_roughness,
-        transmission=first.first_transmission, rays_traced=rays)
+        normal=normal, depth=depth, object_id=object_id,
+        roughness=roughness, transmission=transmission, rays_traced=rays)
 
 
-def _resize_axis(a: torch.Tensor, dim: int, out_n: int) -> torch.Tensor:
-    """Linear resize of one axis as ``jax.image.resize``'s bilinear: sample
-    positions ``(j + 0.5) * in / out - 0.5``, triangle weights on the two
-    neighbouring input samples, taps outside the input dropped and the
-    rest renormalised."""
-    in_n = a.shape[dim]
+# -- K13 sample_sums -----------------------------------------------------------
+
+# the soft clamp's luminance weights (core/vec.py Vec3.luminance) and the
+# floor of its divisor (clamp_vector_soft)
+LUMINANCE_WEIGHTS = (0.2126, 0.7152, 0.0722)
+LUMINANCE_FLOOR = 1e-30
+
+
+class SampleSumsArgs(ctypes.Structure):
+    """``struct SampleSumsArgs`` of ``csrc/frame.cu``."""
+
+    _fields_ = [
+        ("radiance", _P3), ("part", ctypes.c_void_p * 9),
+        ("sum", ctypes.c_void_p * 12), ("planes", ctypes.c_int),
+        ("first", ctypes.c_int), ("last", ctypes.c_int),
+        ("inv", ctypes.c_float), ("lum_w", ctypes.c_float * 3),
+        ("max_lum", ctypes.c_float), ("lum_floor", ctypes.c_float),
+        ("rng", ctypes.c_void_p), ("rng_pitch", ctypes.c_longlong),
+        ("rng_out", ctypes.c_void_p), ("h", ctypes.c_int),
+        ("w", ctypes.c_int),
+    ]
+
+
+def _channels(ps) -> tuple:
+    """A sample's (radiance, diffuse, specular, emission) planes of
+    ``ps``: the radiance before its final clamp; the split channels None
+    unless split."""
+    return (ps.accum, ps.diffuse, ps.specular, ps.emission)
+
+
+def sample_sums_plain(sums, ps, sample: int, spp: int,
+                      rng_state: torch.Tensor):
+    """Plain version of K13 ``sample_sums``."""
+    height, width = rng_state.shape
+    rs = lambda v: None if v is None else v.map(
+        lambda c: c.reshape(height, width))
+    radiance, *split = _channels(ps)
+    parts = (rs(clamp_vector_soft(radiance, MAX_FINAL_RADIANCE)),
+             *(rs(v) for v in split))
+    sums = parts if sums is None else tuple(
+        a if b is None else a + b for a, b in zip(sums, parts))
+    if sample != spp - 1:
+        return sums, None
+    state, _ = prng.uniform(rng_state)
+    inv = 1.0 / float(spp)
+    return tuple(None if a is None else a * inv for a in sums), state
+
+
+def sample_sums(sums, ps, sample: int, spp: int, rng_state: torch.Tensor):
+    """Sample ``sample`` of a frame of ``spp`` into its sums (K13): the
+    sample's radiance (``ps.accum``, a ``PathState``'s flat planes)
+    soft-clamped at ``MAX_FINAL_RADIANCE`` and, with a split state, its
+    diffuse, specular and emission channels, each added to ``sums`` (the
+    previous sample's return; None at the first sample starts them); at the
+    last sample (``sample == spp - 1``) each sum times ``1 / spp`` and the
+    frame's persistent PCG state ``rng_state`` ((H, W), rows of unit
+    stride) advanced one step.  Returns (the (colour, diffuse, specular,
+    emission) sums as (H, W) Vec3s, None where not split; the advanced
+    state, or None before the last sample).  On the card the sums are the
+    planes of one (3 or 12, H, W) tensor, which each sample's launch
+    updates in place."""
+    dev = rng_state.device
+    kernels.require_supported(dev)
+    if dev.type == "cpu":
+        return sample_sums_plain(sums, ps, sample, spp, rng_state)
+    height, width = rng_state.shape
+    n = height * width
+    if rng_state.dtype != torch.int64 or rng_state.stride(1) != 1:
+        raise ValueError("rng_state: expected int64 rows of unit stride, got "
+                         f"{rng_state.dtype} strides {rng_state.stride()}")
+    if not 0 <= sample < spp:
+        raise ValueError(f"sample {sample} of a frame of {spp}")
+    channels = _channels(ps)
+    split = channels[1] is not None
+    planes = 12 if split else 3
+    for name, v in zip(("accum", "diffuse", "specular", "emission"),
+                       channels[:4 if split else 1]):
+        for k, c in zip("xyz", (v.x, v.y, v.z)):
+            kernels.check_tensor(f"ps.{name}.{k}", c, torch.float32, 1, dev)
+            if c.numel() != n:
+                raise ValueError(f"ps.{name}.{k}: {c.numel()} lanes for the "
+                                 f"{height}x{width} frame")
+    if sums is None:
+        buf = torch.empty((planes, height, width), dtype=torch.float32,
+                          device=dev)
+        sums = tuple(Vec3(buf[3 * j], buf[3 * j + 1], buf[3 * j + 2])
+                     if 3 * j < planes else None for j in range(4))
+        first = 1
+    else:
+        first = 0
+    out = [c for v in sums if v is not None for c in (v.x, v.y, v.z)]
+    if len(out) != planes:
+        raise ValueError(f"sums: {len(out)} planes for a state of {planes}")
+    for c in out:
+        kernels.check_tensor("sums", c, torch.float32, 2, dev)
+        if tuple(c.shape) != (height, width):
+            raise ValueError(f"sums: shape {tuple(c.shape)} for the "
+                             f"{height}x{width} frame")
+    a = SampleSumsArgs()
+    acc = channels[0]
+    a.radiance = _P3(acc.x.data_ptr(), acc.y.data_ptr(), acc.z.data_ptr())
+    if split:
+        a.part = (ctypes.c_void_p * 9)(*[c.data_ptr() for v in channels[1:]
+                                         for c in (v.x, v.y, v.z)])
+    a.sum = (ctypes.c_void_p * 12)(*[c.data_ptr() for c in out])
+    a.planes, a.first = planes, first
+    a.last = int(sample == spp - 1)
+    a.inv = 1.0 / float(spp)
+    a.lum_w = (ctypes.c_float * 3)(*LUMINANCE_WEIGHTS)
+    a.max_lum, a.lum_floor = MAX_FINAL_RADIANCE, LUMINANCE_FLOOR
+    state = None
+    if a.last:
+        state = torch.empty((height, width), dtype=torch.int64, device=dev)
+        a.rng, a.rng_pitch = rng_state.data_ptr(), rng_state.stride(0)
+        a.rng_out = state.data_ptr()
+    a.h, a.w = height, width
+    rc = kernels.get_lib().ptrt_sample_sums(ctypes.addressof(a),
+                                            kernels.stream_ptr(dev))
+    kernels.launches["sample_sums"] += 1
+    kernels.check(rc, "sample_sums")
+    return sums, state
+
+
+# -- K12 upscale_bilinear --------------------------------------------------------
+
+
+class AxisTaps(NamedTuple):
+    """The bilinear resize of one axis: each output sample's two input
+    taps and their renormalised weights."""
+
+    index: torch.Tensor  # (2, out) int64
+    weight: torch.Tensor  # (2, out) float32
+
+
+_taps: dict = {}
+
+
+def resize_taps(in_n: int, out_n: int, device) -> AxisTaps:
+    """The taps of ``jax.image.resize``'s bilinear from ``in_n`` to
+    ``out_n`` samples, on ``device``, made once for each (in, out) size
+    and device (a frame captured into a CUDA graph builds no tensor from
+    host data): sample positions ``(j + 0.5) * in / out - 0.5``, triangle
+    weights on the two neighbouring input samples, taps outside the input
+    dropped and the rest renormalised."""
+    in_n, out_n = int(in_n), int(out_n)
+    key = (in_n, out_n, str(torch.device(device)))
+    if key in _taps:
+        return _taps[key]
     if out_n < in_n:
         # jax's downscale widens the triangle (antialias); not ported
         raise ValueError(f"upscale only: {in_n} -> {out_n}")
-    dev = a.device
     # jax: arange(out) + 0.5, times float32(1 / scale), minus 0.5
     inv_scale = float(np.float32(1.0 / (out_n / in_n)))
-    f = (torch.arange(out_n, dtype=torch.float32, device=dev) + 0.5) \
+    f = (torch.arange(out_n, dtype=torch.float32, device=device) + 0.5) \
         * inv_scale - 0.5
     i0 = torch.floor(f)
     taps = []
@@ -240,23 +385,73 @@ def _resize_axis(a: torch.Tensor, dim: int, out_n: int) -> torch.Tensor:
                      torch.where(inside, wgt, 0.0)))
     total = taps[0][1] + taps[1][1]
     norm = torch.where(total != 0, total, 1.0)
+    weights = [torch.where(torch.abs(total) > 1000.0 * 1.1920929e-07,
+                           wgt / norm, 0.0) for _, wgt in taps]
+    _taps[key] = AxisTaps(torch.stack([idx for idx, _ in taps]),
+                          torch.stack(weights))
+    return _taps[key]
+
+
+def _resize_axis(a: torch.Tensor, dim: int, out_n: int) -> torch.Tensor:
+    """Linear resize of one axis as ``jax.image.resize``'s bilinear, on the
+    taps of ``resize_taps``."""
+    taps = resize_taps(a.shape[dim], out_n, a.device)
     shape = [1] * a.dim()
     shape[dim] = out_n
     out = None
-    for idx, wgt in taps:
-        wn = torch.where(torch.abs(total) > 1000.0 * 1.1920929e-07,
-                         wgt / norm, 0.0).view(shape)
-        term = a.index_select(dim, idx) * wn
+    for k in range(2):
+        term = a.index_select(dim, taps.index[k]) * taps.weight[k].view(
+            shape)
         out = term if out is None else out + term
     return out
 
 
-def upscale_bilinear(img: Vec3, out_h: int, out_w: int) -> Vec3:
-    """Bilinear resize of (h, w) planes to (out_h, out_w), as the
-    reference's ``jax.image.resize(..., "bilinear")`` (rows, then
-    columns)."""
+def upscale_bilinear_plain(img: Vec3, out_h: int, out_w: int) -> Vec3:
+    """Plain version of K12 (``pipeline.upscale_bilinear``)."""
     return img.map(lambda c: _resize_axis(_resize_axis(c, 0, out_h), 1,
                                           out_w))
+
+
+class UpscaleArgs(ctypes.Structure):
+    """``struct UpscaleArgs`` of ``csrc/upscale.cu``."""
+
+    _fields_ = [
+        ("src", _P3), ("dst", _P3), ("row_index", ctypes.c_void_p),
+        ("row_weight", ctypes.c_void_p), ("col_index", ctypes.c_void_p),
+        ("col_weight", ctypes.c_void_p), ("in_h", ctypes.c_int),
+        ("in_w", ctypes.c_int), ("out_h", ctypes.c_int),
+        ("out_w", ctypes.c_int),
+    ]
+
+
+def upscale_bilinear(img: Vec3, out_h: int, out_w: int) -> Vec3:
+    """Bilinear resize of (h, w) float32 planes to (out_h, out_w), as the
+    reference's ``jax.image.resize(..., "bilinear")`` (rows, then columns):
+    K12, one launch for the three planes, which it returns as the planes of
+    one (3, out_h, out_w) tensor."""
+    dev = img.x.device
+    kernels.require_supported(dev)
+    if dev.type == "cpu":
+        return upscale_bilinear_plain(img, out_h, out_w)
+    for k, c in zip("xyz", (img.x, img.y, img.z)):
+        kernels.check_tensor(f"img.{k}", c, torch.float32, 2, dev)
+        if c.shape != img.x.shape:
+            raise ValueError(f"img.{k}: shape {tuple(c.shape)} != "
+                             f"{tuple(img.x.shape)}")
+    in_h, in_w = img.x.shape
+    rows, cols = resize_taps(in_h, out_h, dev), resize_taps(in_w, out_w, dev)
+    out = torch.empty((3, out_h, out_w), dtype=torch.float32, device=dev)
+    a = UpscaleArgs()
+    a.src = _P3(img.x.data_ptr(), img.y.data_ptr(), img.z.data_ptr())
+    a.dst = _P3(*[out[k].data_ptr() for k in range(3)])
+    a.row_index, a.row_weight = rows.index.data_ptr(), rows.weight.data_ptr()
+    a.col_index, a.col_weight = cols.index.data_ptr(), cols.weight.data_ptr()
+    a.in_h, a.in_w, a.out_h, a.out_w = in_h, in_w, out_h, out_w
+    rc = kernels.get_lib().ptrt_upscale_bilinear(ctypes.addressof(a),
+                                                 kernels.stream_ptr(dev))
+    kernels.launches["upscale_bilinear"] += 1
+    kernels.check(rc, "upscale_bilinear")
+    return Vec3(out[0], out[1], out[2])
 
 
 # -- K6 ----------------------------------------------------------------------

@@ -10,14 +10,16 @@ device, K5), with separate dirty flags for geometry, materials and
 lights, and runs the frame in the reference's order: trace at the
 render size (``render/pipeline.trace_frame``, split into the denoiser's
 channels when the denoiser is on), the progressive running average (only
-with the denoiser off), motion vectors, SVGF, bloom, the bilinear upscale to
-the display size, and the tonemap (K6).  A frame above ``SPP_DISPATCH_MAX``
+with the denoiser off; ``accumulate``, K13 ``progressive_average`` on the
+card), motion vectors, SVGF, bloom, the bilinear upscale to the display
+size (K12), and the tonemap (K6).  A frame above ``SPP_DISPATCH_MAX``
 samples (the "ultra" preset's 128) is traced in chunks of at most that
 many, as the reference dispatches it, and posted once.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -25,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ptrt_tpu_torch import graphs
+from ptrt_tpu_torch import graphs, kernels
 from ptrt_tpu_torch.core import rng as prng
 from ptrt_tpu_torch.core.bluenoise import blue_noise_table
 from ptrt_tpu_torch.core.vec import Vec3, fmax, lerp, where
@@ -133,14 +135,9 @@ def _add_chunk(acc, bufs, chunk: int, spp: int, first=None):
     return pl.FrameBuffers(*[pick(a, b) for a, b in zip(start, added)])
 
 
-def accumulate(color: Vec3, view_proj: torch.Tensor, accum, keep=None):
-    """The progressive running average: (average, (sum, count,
-    view-projection)).  ``accum``: the sum, its count (a 0-d float32
-    tensor) and the view-projection they were taken under, or None to
-    restart.  The sum goes on where ``view_proj`` has the same VALUES and
-    restarts with this frame where they differ, compared and selected on
-    the device (no value read back).  ``keep``: a 0-d integer tensor, 0 to
-    restart (a program's restart, with ``accum`` its buffers)."""
+def accumulate_plain(color: Vec3, view_proj: torch.Tensor, accum,
+                     keep=None):
+    """Plain version of K13 ``progressive_average`` (``accumulate``)."""
     if accum is None:
         total = color
         count = torch.ones((), dtype=torch.float32, device=color.x.device)
@@ -152,6 +149,80 @@ def accumulate(color: Vec3, view_proj: torch.Tensor, accum, keep=None):
         total = where(same, total + color, color)
         count = torch.where(same, count + 1.0, 1.0)
     return total * count.reciprocal(), (total, count, view_proj)
+
+
+_P3 = ctypes.c_void_p * 3
+
+
+class ProgressiveArgs(ctypes.Structure):
+    """``struct ProgressiveArgs`` of ``csrc/frame.cu``."""
+
+    _fields_ = [
+        ("color", _P3), ("total", _P3), ("count", ctypes.c_void_p),
+        ("view_proj", ctypes.c_void_p), ("vp", ctypes.c_void_p),
+        ("keep", ctypes.c_void_p), ("keep_bytes", ctypes.c_int),
+        ("avg", _P3), ("total_out", _P3), ("count_out", ctypes.c_void_p),
+        ("n", ctypes.c_longlong),
+    ]
+
+
+def accumulate(color: Vec3, view_proj: torch.Tensor, accum, keep=None):
+    """The progressive running average: (average, (sum, count,
+    view-projection)).  ``accum``: the sum, its count (a 0-d float32
+    tensor) and the view-projection they were taken under, or None to
+    restart.  The sum goes on where ``view_proj`` has the same VALUES and
+    restarts with this frame where they differ, compared and selected on
+    the device (no value read back).  ``keep``: a 0-d integer tensor, 0 to
+    restart (a program's restart, with ``accum`` its buffers).  On the card
+    K13 ``progressive_average``, one launch; the average and the new sum
+    are the planes of one (6, H, W) tensor, the count a 0-d tensor of its
+    own."""
+    dev = color.x.device
+    kernels.require_supported(dev)
+    if dev.type == "cpu":
+        return accumulate_plain(color, view_proj, accum, keep)
+    shape = tuple(color.x.shape)
+    planes = [("color", color)] + ([] if accum is None
+                                   else [("sum", accum[0])])
+    for what, v in planes:
+        for k, c in zip("xyz", (v.x, v.y, v.z)):
+            kernels.check_tensor(f"{what}.{k}", c, torch.float32, 2, dev)
+            if tuple(c.shape) != shape:
+                raise ValueError(f"{what}.{k}: shape {tuple(c.shape)} != "
+                                 f"{shape}")
+    matrices = [("view_proj", view_proj)] + ([] if accum is None
+                                             else [("accum's", accum[2])])
+    for what, m in matrices:
+        kernels.check_tensor(what, m, torch.float32, 2, dev)
+        if tuple(m.shape) != (4, 4):
+            raise ValueError(f"{what}: shape {tuple(m.shape)}, expected "
+                             "(4, 4)")
+    a = ProgressiveArgs()
+    a.color = _P3(color.x.data_ptr(), color.y.data_ptr(), color.z.data_ptr())
+    if accum is not None:
+        total, count, vp = accum
+        kernels.check_tensor("count", count, torch.float32, 0, dev)
+        a.total = _P3(total.x.data_ptr(), total.y.data_ptr(),
+                      total.z.data_ptr())
+        a.count, a.vp = count.data_ptr(), vp.data_ptr()
+        if keep is not None:
+            if keep.dtype not in (torch.int32, torch.int64):
+                raise TypeError(f"keep: {keep.dtype}, expected int32 or "
+                                "int64")
+            kernels.check_tensor("keep", keep, keep.dtype, 0, dev)
+            a.keep, a.keep_bytes = keep.data_ptr(), keep.element_size()
+    a.view_proj = view_proj.data_ptr()
+    out = torch.empty((6, *shape), dtype=torch.float32, device=dev)
+    count_out = torch.empty((), dtype=torch.float32, device=dev)
+    a.avg = _P3(*[out[k].data_ptr() for k in range(3)])
+    a.total_out = _P3(*[out[3 + k].data_ptr() for k in range(3)])
+    a.count_out, a.n = count_out.data_ptr(), color.x.numel()
+    rc = kernels.get_lib().ptrt_progressive_average(ctypes.addressof(a),
+                                                    kernels.stream_ptr(dev))
+    kernels.launches["progressive_average"] += 1
+    kernels.check(rc, "progressive_average")
+    return Vec3(out[0], out[1], out[2]), (Vec3(out[3], out[4], out[5]),
+                                          count_out, view_proj)
 
 
 def _post_frame(cfg: FrameConfig, bufs, camera, frame_index, prev_view_proj,

@@ -37,9 +37,11 @@ set takes, a digest of the records).  ``--hdri`` measures only the K3
 kernels' registers, stack and SASS digests and the HDRI stages and frame
 (``measure_hdri_only``), so that a variant of the HDRI kernels is compared
 with this tree in turns.  ``--frames`` measures only one replay of the
-1080p balanced, bench, fast, hdri balanced and ultra frame programs
+1080p balanced, bench, fast, performance, hdri balanced and ultra frame
+programs and of the fused cube slider's frame at 640x360 "fast"
 (``measure_frames``: device ms, kernels, the counted launches, host ms a
-frame), so that two trees' frames compare on one card.  ``--rt`` measures
+frame; each profiled behind a spin of the card), so that two trees'
+frames compare on one card.  ``--rt`` measures
 only the RT frame on the 1080p
 "rt" configuration (``measure_rt``: a digest of its RGB8, the
 frame profiled and split by pass and kernel, host and frame ms, K10's
@@ -1022,23 +1024,27 @@ def bench_frames(sc, out: dict) -> None:
 def measure_frames(tag: str, card: str) -> dict:
     """One profiled replay of each scene frame program at 1920x1080 (the
     frame before it made the program): balanced, bench (4 spp, depth 4, no
-    post stack), fast, hdri balanced and ultra (its chunk and post
-    programs), each with its device ms, kernels and the launches of each
-    counted kernel (``kernels.counts``), and three frames on the host
-    clock."""
+    post stack), fast, performance, hdri balanced and ultra (its chunk and
+    post programs), and of the fused cube slider's captured frame at
+    640x360 "fast" (traced at 224x125), each with its device ms, kernels
+    and the launches of each counted kernel (``kernels.counts``), and three
+    frames on the host clock."""
     from ptrt_tpu_torch import kernels
     from ptrt_tpu_torch.app.bench_scene import build_bench_scene
+    from ptrt_tpu_torch.games import cube_slider
 
     log = lambda *a: say(f"[{tag}]", *a)
     out = {"tag": tag, "card": card, "frames": {}}
 
-    def frame(name, sc, timed=3):
-        sc.render_frame()  # makes the program (or replays it)
+    def frame(name, sc, timed=3, render=None):
+        render = render or sc.render_frame
+        render()  # makes the program (or replays it)
         kernels.clear_counts()
-        r = frame_profile(sc, timed)
+        r = frame_profile(sc, timed, render=render,
+                          lead_cycles=SPIN_CYCLES)
         del r["names"], r["kernels"]  # the line stays short
         kernels.clear_counts()
-        sc.render_frame()
+        render()
         r["counts"] = dict(kernels.counts())
         out["frames"][name] = r
         log(f"{name} frame: device {r['device_ms']:.3f} ms in "
@@ -1058,7 +1064,26 @@ def measure_frames(tag: str, card: str) -> dict:
     sc.set_performance_preset("fast")
     sc.perf.samples_per_pixel = 1
     frame("fast", sc)
+    sc.set_performance_preset("performance")
+    frame("performance", sc)
     del sc
+    _, sc = cube_slider.build_scene(640, 360, "cuda")
+    sc.set_performance_preset("fast")
+    runner = cube_slider.make_runner(sc)
+    inputs = cube_slider.script_inputs
+    vp = sc.camera.get_view_proj()
+    state, _, _ = runner.frame(cube_slider.init_state(0, "cuda"), inputs(0),
+                               0, vp)
+    runner.capture(state, inputs(1), vp)
+    index = [1]
+
+    def replay():
+        index[0] += 1
+        return runner.replay(inputs(index[0]), index[0])
+
+    frame("fused cube_slider 640x360 fast", sc, render=replay)
+    runner.release()
+    del sc, runner
     sc = hdri_scene()
     sc.render_frame()
     frame("hdri balanced", sc)
@@ -1778,7 +1803,8 @@ def main(argv) -> int:
                     "HDRI stages and frame")
     ap.add_argument("--frames", action="store_true",
                     help="measure only one replay of the balanced, bench, "
-                    "fast, hdri and ultra frame programs")
+                    "fast, performance, hdri and ultra frame programs and "
+                    "of a fused game frame")
     args = ap.parse_args(argv)
     say.out = args.out and os.path.abspath(args.out)
     here = os.path.abspath(__file__)
