@@ -67,7 +67,7 @@ Phases (any failure raises, so the exit code is non-zero):
      timed frames, with the kernels' launch counts taken over exactly that
      run (K1, K2 and K3 once a bounce of each sample, no material-plane
      gather), then one frame under torch.profiler (device time, launches,
-     and 5 launches a later bounce: no t_max select before K1, no bool
+     and 4 launches a later bounce: no t_max select before K1, no bool
      cast after K2, the ray count one K13 launch), then the progressive
      average once more under
      torch.cuda.set_sync_debug_mode("error") (no host copy);
@@ -278,24 +278,34 @@ Phases (any failure raises, so the exit code is non-zero):
      balanced frame, eager and replayed, launches each of the four once
      and calls no plain version;
  22. (run right after phase 21) the frame's last plain-torch glue as
-     kernels: K12 upscale_bilinear (the games' 224x125 -> 640x360 and
-     112x62 -> 320x180, the scenes' 672x378 and 1440x810 -> 1920x1080, a
-     1x1 and a 2x3 source; planes as made and with NaN, inf and 50.0), K13
-     count_rays (bool planes all dead, all alive and random, whole and off
-     a 16-byte boundary, casts 0-2, a base), sample_sums (NaN, inf and
-     luminances above 100 in the radiance, split and unsplit, 1, 3 and 16
-     spp, at 1080p, a tile of the 1080p state and 1x1) and
-     progressive_average (a restart, the same view-projection, another,
-     one with a NaN, keep 0 and 1), each bit for bit its plain version and
-     timed queued beside its bound, its plain version and, for the upscale
-     and the counts, the one torch call that computes the same function
-     (interpolate, count_nonzero); the bench, balanced, fast, performance,
-     hdri and ultra (depth 4) frames, a fused cube-slider frame at "fast",
-     a tiled frame and two tiles on two streams with the kernels bit for
-     bit the same with every plain stage; the phase's own main path (the
-     fast and performance programs and a fused frame) counted from zero,
-     each kernel launched and no plain version called; the replays with no
-     synchronizing call; profiled fast and bench replays with no copy or
+     kernels: K12 upscale_bilinear (a tile of 128 x 8 or 32 x 8 a block;
+     the games' 224x125 -> 640x360 and 112x62 -> 320x180, the scenes'
+     672x378 and 1440x810 -> 1920x1080, a 1x1 and a 2x3 source, 333x100
+     -> 1337x1001 and 5x7 -> 13x19; planes as made and with NaN, inf and
+     50.0), K13's ray count in shade_scatter's epilogue
+     (each bounce's count equal to count_rays_plain of the same planes on
+     the bench (casts 1), balanced (split), hdri (casts 2) and ultra
+     (depth 32) traces, a depth-1 trace and a tile with its row pitch; no
+     lane dead on entry with do_nee; shade_scatter timed at bounces 0-3
+     with the count and without, in turns; the four shade_scatter
+     instantiations' registers and blocks a SM beside those they had
+     before the count),
+     sample_sums (NaN, inf and luminances above 100 in the radiance, split
+     and unsplit, 1, 3 and 16 spp, at 1080p, a tile of the 1080p state and
+     1x1) and progressive_average (a restart, the same view-projection,
+     another, one with a NaN, keep 0 and 1), each bit for bit its plain
+     version and timed queued beside its bound, its plain version and,
+     for the upscale and the count, the one torch call that computes the
+     same function (interpolate, count_nonzero); the upscale also beside
+     its first design's times (UPSCALE_FIRST); the bench, balanced, fast,
+     performance, hdri and ultra (depth 4) frames, a fused cube-slider
+     frame at "fast", a tiled frame and two tiles on two streams with the
+     kernels bit for bit the same with every plain stage (the plain count
+     after the stage's kernel: rays_traced equal); the phase's own main
+     path (the fast and performance programs and a fused frame) counted
+     from zero, each kernel launched and no plain version called; the
+     replays with no synchronizing call; profiled fast and bench replays
+     with 4 kernels a later bounce, no count_rays launch, no copy or
      reduction kernel in a bounce and the upscale in one launch.
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
@@ -328,11 +338,14 @@ K1_K2_AGREE = 0.9999
 # can move a grazing slab or triangle test either way)
 COUNT_SAMPLE, COUNT_RTOL = 256, 0.01
 # kernels a bounce of the bench frame launches (K1 of bounce 0, 1 or 2 to
-# the next K1): K1, shade_nee, K2, shade_scatter and K13 count_rays (the
-# bounce's NEE lanes and the next bounce's live lanes in one launch);
-# without the t_max select before K1, the bool cast after K2 and the casts,
-# sums and adds of the plain ray counts
-BOUNCE_LAUNCHES = 5
+# the next K1): K1, shade_nee, K2 and shade_scatter, which also counts the
+# bounce's rays (its NEE lanes and the next bounce's live lanes); without
+# the t_max select before K1, the bool cast after K2, the casts, sums and
+# adds of the plain ray counts and a count's launch of its own
+BOUNCE_LAUNCHES = 4
+# kernels.launches' name for the shade_scatter launches that carry the ray
+# count (render/shade.py COUNT_RAYS: the count has no kernel of its own)
+COUNT = "count_rays (in shade_scatter)"
 # the balanced path: timed frames, orbit step about the bench camera's
 # look-at point, and its bounce depth (the preset's)
 BAL_FRAMES, ORBIT_DEG, BAL_DEPTH = 5, 0.5, 4
@@ -376,12 +389,13 @@ SHADE_STAGED_BYTES = 48 * 1024  # shade.cu stages tables up to this size
 SCATTER_LIST_BYTES, NEE_LIST_BYTES = 1024 * 8 + 4, 1024 * 12 + 8
 STAGED_BESIDE_LISTS = 360
 # K3's HDRI kernels as designed (csrc/shade.cu): registers, resident blocks
-# of 256 threads a SM, and ptxas's spill bytes (stores, loads); each
-# kernel's mangled name holds its key
+# of 256 threads a SM, and ptxas's spill bytes (stores, loads), those of
+# shade_scatter with the ray count in its epilogue (56 / 76 and 20 / 12
+# without it); each kernel's mangled name holds its key
 HDRI_DESIGN = {"shade_nee (hdri)": (73, 3, (0, 0)),
                "shade_nee (hdri) from bounce 1": (75, 3, (0, 0)),
-               "shade_scatter (hdri)": (64, 4, (56, 76)),
-               "shade_scatter (hdri) from bounce 1": (80, 3, (20, 12))}
+               "shade_scatter (hdri)": (64, 4, (64, 80)),
+               "shade_scatter (hdri) from bounce 1": (80, 3, (36, 24))}
 HDRI_KERNELS = {"shade_nee (hdri)": "shade_nee_kernel_hdriILb0E",
                 "shade_nee (hdri) from bounce 1": "shade_nee_kernel_hdriILb1E",
                 "shade_scatter (hdri)": "shade_scatter_kernelILi1ELb1E",
@@ -5191,30 +5205,51 @@ def check_last_stages(bal, hdri, card, rng) -> dict:
 
 
 # phase 22: the frame's last plain-torch glue as kernels: K12
-# upscale_bilinear, K13 count_rays, sample_sums and progressive_average.
+# upscale_bilinear; K13's ray count (in shade_scatter), sample_sums and
+# progressive_average.
 # The upscale at each shape a frame gives it (the fused games' "fast"
 # 224x125 -> 640x360 and 112x62 -> 320x180, the scenes' "fast" 672x378 and
-# "performance" 1440x810 -> 1920x1080) and from a 1x1 and a 2x3 source;
-# the kernels' times at the first four (the scenes' "fast" shape the
-# table's line)
+# "performance" 1440x810 -> 1920x1080), from a 1x1 and a 2x3 source, and at
+# ragged sizes on both of its tile widths (333x100 -> 1337x1001: four
+# pixels a thread, rows off 16 bytes; 5x7 -> 13x19: a pixel a thread); the
+# kernels' times at the first four (the scenes' "fast" shape the table's
+# line)
 GLUE_UPSCALES = (((125, 224), (360, 640)), ((62, 112), (180, 320)),
                  ((378, 672), (1080, 1920)), ((810, 1440), (1080, 1920)),
-                 ((1, 1), (360, 640)), ((2, 3), (360, 640)))
-GLUE_KERNELS = ("upscale_bilinear", "count_rays", "sample_sums",
+                 ((1, 1), (360, 640)), ((2, 3), (360, 640)),
+                 ((100, 333), (1001, 1337)), ((7, 5), (19, 13)))
+GLUE_KERNELS = ("upscale_bilinear", COUNT, "sample_sums",
                 "progressive_average")
 # what each replaces: the reference's lines (the ray counts at :302 for
 # the live lanes, :378 and :401 for the NEE lanes; the sample sums with the
 # final clamp at integrator.py:529)
 GLUE_REPLACES = {
     "upscale_bilinear": "ptrt_tpu/render/pipeline.py:174",
-    "count_rays": "ptrt_tpu/render/integrator.py:302",
+    COUNT: "ptrt_tpu/render/integrator.py:302",
     "sample_sums": "ptrt_tpu/render/pipeline.py:119-168",
     "progressive_average": "ptrt_tpu/scene/pt_scene.py:950-958",
 }
-GLUE_ALSO = {"count_rays": ["ptrt_tpu/render/integrator.py:378,401"],
+GLUE_ALSO = {COUNT: ["ptrt_tpu/render/integrator.py:378,401"],
              "sample_sums": ["ptrt_tpu/render/integrator.py:529"]}
-GLUE_SOURCES = {"upscale_bilinear": "upscale.cu", "count_rays": "frame.cu",
+GLUE_SOURCES = {"upscale_bilinear": "upscale.cu", COUNT: "shade.cu",
                 "sample_sums": "frame.cu", "progressive_average": "frame.cu"}
+# K12's first design (one thread a pixel), queued ms at the four shapes
+# (NVIDIA H100 80GB HBM3, 700 W), printed beside this one's
+UPSCALE_FIRST = {"224x125 -> 640x360": (0.0037, 0.0039),
+                "112x62 -> 320x180": (0.0029, 0.0030),
+                "672x378 -> 1920x1080": (0.0139, 0.0143),
+                "1440x810 -> 1920x1080": (0.0242, 0.0244)}
+# the shade_scatter instantiations before the count was folded into them,
+# which it keeps: registers and resident blocks of 256 threads a SM (phase
+# 3c holds the HDRI ones' spills to HDRI_DESIGN)
+SCATTER_BEFORE = {"shade_scatter": (64, 4),
+                "shade_scatter from bounce 1": (80, 3),
+                "shade_scatter (hdri)": (64, 4),
+                "shade_scatter (hdri) from bounce 1": (80, 3)}
+# the count's launch of its own that the fused count replaced, queued ms on
+# a 1080p bounce's two planes (NVIDIA H100 80GB HBM3, 700 W): the most a
+# bounce's shade_scatter may rise
+COUNT_LAUNCH_MS = 0.0036
 # whole frames a configuration with the kernels against the plain stages;
 # the ultra frame's depth here (its 128 spp in eight chunks kept)
 GLUE_FRAMES, GLUE_ULTRA_DEPTH = 2, 4
@@ -5228,13 +5263,26 @@ def plain_glue(count=None):
     from ptrt_tpu_torch.render import integrator, pipeline
     from ptrt_tpu_torch.scene import pt_scene
 
+    from ptrt_tpu_torch.render import shade
+
     names = ((pipeline, "upscale_bilinear"), (pipeline, "sample_sums"),
-             (integrator, "count_rays"), (pt_scene, "accumulate"))
+             (pt_scene, "accumulate"))
     if count is not None:
         return swapped(counted_plain([(mod, f"{name}_plain")
-                                      for mod, name in names], count), count)
+                                      for mod, name in names]
+                                     + [(shade, "count_rays_plain")], count),
+                       count)
+
+    def plain_count(ps, nee, *a, rays=None, casts=0, next_bounce=False,
+                    base=0, **kw):
+        # the stage's kernel, then the plain count of its planes
+        shade.shade_scatter(ps, nee, *a, **kw)
+        shade.count_rays_plain(rays, ps.alive if next_bounce else None,
+                               nee.do_nee if casts else None, casts, base)
+
     return swapped([(mod, name, getattr(mod, f"{name}_plain"))
-                    for mod, name in names])
+                    for mod, name in names]
+                   + [(integrator, "shade_scatter", plain_count)])
 
 
 def all_plain():
@@ -5285,7 +5333,7 @@ def check_upscale_glue(dev, card, rng) -> dict:
                                             poisoned(img, rng, 1e-2))):
             glue_hold(r, f"{tag} {label}", pipeline.upscale_bilinear(
                 x, oh, ow), pipeline.upscale_bilinear_plain(x, oh, ow))
-        if ih < 62:
+        if tag not in UPSCALE_FIRST:
             continue
         stacked = torch.stack([img.x, img.y, img.z])[None]
         t = {"queued_ms": queued_ms(
@@ -5298,11 +5346,14 @@ def check_upscale_glue(dev, card, rng) -> dict:
             **bound(12 * (ih * iw + oh * ow))}
         t["ms"] = sum(t["queued_ms"]) / 2
         t["library_ms"] = sum(t["library_queued_ms"]) / 2
+        t["first_design_ms"] = UPSCALE_FIRST[tag]
         r["shapes"][tag] = t
         log(f"[glue] upscale_bilinear {tag}: queued {t['queued_ms'][0]:.4f}"
-            f" / {t['queued_ms'][1]:.4f} ms, plain {t['plain_ms']:.3f} ms, "
-            f"interpolate {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+            f" / {t['queued_ms'][1]:.4f} ms (the first design "
+            f"{t['first_design_ms'][0]:.4f}-{t['first_design_ms'][1]:.4f}), "
+            f"plain {t['plain_ms']:.3f} ms, interpolate "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}) [{card}]")
     row = r["shapes"]["672x378 -> 1920x1080"]
     r.update({k: row[k] for k in ("ms", "queued_ms", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by")})
@@ -5312,60 +5363,202 @@ def check_upscale_glue(dev, card, rng) -> dict:
     return r
 
 
-def check_count_glue(dev, card, rng) -> dict:
-    """K13 count_rays against its plain version: bool planes all dead, all
-    alive and random (1080p, and 1, 15, 17 and 4,099 lanes), whole and as
-    views that start off a 16-byte boundary, either plane alone, casts 0-2,
-    a base; timed queued on a 1080p bounce's two planes beside its bound,
-    the plain version and ``torch.count_nonzero`` of both planes' lanes
-    in one plane."""
+def count_bounces(sc, split, depth, samples=1, tile=None) -> dict:
+    """The bounce loop of ``sc``'s first ``samples`` samples (its camera and
+    PCG state, frame index 0, its preset's roulette; with ``tile``, (y0,
+    x0, h, w), that window of the frame with its row pitch): each bounce's
+    fused count (the counter's step over its ``shade_scatter``) against
+    ``count_rays_plain`` of the same planes, and the lanes dead on entry
+    to ``shade_scatter`` with ``do_nee`` (the count leaves them out).
+    Returns the bounces, those equal, those with such a lane, the lanes
+    alive after each bounce and the counted total."""
     import torch
-    from ptrt_tpu_torch.render import integrator
+    from ptrt_tpu_torch.render import pipeline, shade, traverse
 
-    r = {"cases": 0, "bad": [], "max_abs_err": 0.0}
+    sc._ensure_device_state()
+    g, mats, lights = sc._geom, sc._mat_table, sc._light_table
+    n_lights, sky = len(sc.lights), sc.sky()
+    env = sky.has_env_sampling
+    casts = int(env) + int(n_lights > 0)
+    p = sc.perf
+    rr = (bool(p.enable_russian_roulette),
+          int(p.russian_roulette_start_bounce))
+    st, window = sc._rng_state, None
+    if tile is not None:
+        y0, x0, th, tw = tile
+        window = (y0, x0, *st.shape)
+        st = st[y0:y0 + th, x0:x0 + tw]
+    rays = torch.zeros((), dtype=torch.int64, device=st.device)
+    equal, dead, live = [], [], []
+    for s in range(samples):
+        sub, ray = pipeline.camera_rays(sc.camera, st, 0, s, sc._blue_noise,
+                                        window)
+        ps = shade.PathState.start(ray, sub, split, env_nee=env, own=True)
+        for bounce in range(depth):
+            k1 = traverse.closest_hit_live(g, ps.o, ps.d, ps.alive)
+            nee = shade.shade_nee(ps, g, k1, mats, lights, n_lights, sky,
+                                  bounce)
+            env_sh = (traverse.any_hit(g, nee.env_o, nee.env_d, nee.env_t)
+                      if env else None)
+            in_sh = (traverse.any_hit(g, nee.shadow_o, nee.shadow_d,
+                                      nee.shadow_t) if n_lights else None)
+            dead.append((nee.do_nee & ~ps.alive).any())
+            nxt, base = bounce + 1 < depth, (ps.alive.numel() if bounce == 0
+                                             else 0)
+            before = rays.clone()
+            shade.shade_scatter(ps, nee, in_sh, mats, bounce, *rr,
+                                env_shadow=env_sh, rays=rays, casts=casts,
+                                next_bounce=nxt, base=base)
+            want = torch.zeros_like(rays)
+            shade.count_rays_plain(want, ps.alive if nxt else None,
+                                   nee.do_nee, casts, base)
+            equal.append(rays - before == want)
+            live.append(ps.alive.sum())
+    return {"bounces": len(equal), "equal": int(torch.stack(equal).sum()),
+            "dead_nee": int(torch.stack(dead).sum()),
+            "live": torch.stack(live).tolist(), "rays": int(rays),
+            "casts": casts}
+
+
+def time_count(sc, split, reps: int = 21) -> dict:
+    """``shade_scatter`` on the wavefronts of bounces 0-3 of ``sc``'s sample
+    0, queued over fresh copies of the state, with the count (as the
+    trace's loop runs it) and without, in turns (with, without, without,
+    with): {bounce: {"with": [ms, ms], "without": [ms, ms]}}."""
+    import torch
+    from ptrt_tpu_torch.render import pipeline, shade, traverse
+    from ptrt_tpu_torch.tools import stages
+
+    sc._ensure_device_state()
+    g, mats, lights = sc._geom, sc._mat_table, sc._light_table
+    n_lights, sky = len(sc.lights), sc.sky()
+    env = sky.has_env_sampling
+    casts = int(env) + int(n_lights > 0)
+    rr = int(sc.perf.russian_roulette_start_bounce)
+    sub, ray = pipeline.camera_rays(sc.camera, sc._rng_state, 0, 0,
+                                    sc._blue_noise)
+    ps = shade.PathState.start(ray, sub, split, env_nee=env)
+    rays = torch.zeros((), dtype=torch.int64, device=sub.device)
+
+    def fresh():
+        out = [ps.clone() for _ in range(reps)]
+        for c in out:
+            shade.check_state(c, mats)
+        return out
+
+    rows = {}
+    for bounce in range(DEPTH):
+        k1 = traverse.closest_hit_live(g, ps.o, ps.d, ps.alive)
+        nee = shade.shade_nee(ps, g, k1, mats, lights, n_lights, sky, bounce)
+        env_sh = (traverse.any_hit(g, nee.env_o, nee.env_d, nee.env_t)
+                  if env else None)
+        in_sh = (traverse.any_hit(g, nee.shadow_o, nee.shadow_d,
+                                  nee.shadow_t) if n_lights else None)
+        count = dict(rays=rays, casts=casts, next_bounce=bounce + 1 < DEPTH,
+                     base=ps.alive.numel() if bounce == 0 else 0)
+        fns = {"with": lambda c: shade.shade_scatter(
+                   c, nee, in_sh, mats, bounce, True, rr, env_shadow=env_sh,
+                   **count),
+               "without": lambda c: shade.shade_scatter(
+                   c, nee, in_sh, mats, bounce, True, rr, env_shadow=env_sh)}
+        t = {"with": [], "without": []}
+        for k in ("with", "without", "without", "with"):
+            t[k].append(stages.clones_ms(fns[k], fresh(), stages.SPIN_CYCLES))
+        rows[bounce] = t
+        fns["with"](ps)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_count_glue(bal, hdri, card) -> dict:
+    """K13's ray count in shade_scatter's epilogue against
+    ``count_rays_plain``, bounce by bounce (``count_bounces``): the bench
+    trace (4 spp, depth 4, casts 1), the balanced one (split), the hdri one
+    (casts 2), the ultra one (depth 32, roulette from bounce 8: the late
+    bounces have no live lane), a depth-1 trace (bounce 0 also the last)
+    and a 270x333 tile with its row pitch; ``shade_scatter`` at bounces 0-3
+    of the bench and hdri wavefronts with the count and without
+    (``time_count``: the count's share); the four shade_scatter
+    instantiations' registers and blocks a SM against SCATTER_BEFORE;
+    ``count_rays_plain`` and ``torch.count_nonzero`` on a 1080p bounce's
+    two planes beside the bound of counting them."""
+    import copy
+
+    import torch
+    from ptrt_tpu_torch.render import shade
+
+    perf, hperf = copy.copy(bal.perf), copy.copy(hdri.perf)
+    traces = {}
+    bench_perf(bal, SPP, DEPTH)
+    traces["bench"] = count_bounces(bal, False, DEPTH, SPP)
+    traces["depth 1"] = count_bounces(bal, False, 1, 2)
+    traces["tile 270x333"] = count_bounces(bal, True, DEPTH, 2,
+                                           (100, 333, 270, 333))
+    bal.perf = copy.copy(perf)
+    traces["balanced"] = count_bounces(bal, True, BAL_DEPTH)
+    traces["hdri"] = count_bounces(hdri, True, BAL_DEPTH)
+    hdri.set_performance_preset("ultra")
+    traces["ultra"] = count_bounces(hdri, False, 32)
+    hdri.perf = hperf
+    r = {"traces": traces, "cases": 0, "bad": [], "max_abs_err": 0.0}
+    for name, t in traces.items():
+        r["cases"] += t["bounces"]
+        if t["equal"] != t["bounces"] or t["dead_nee"]:
+            r["bad"].append(name)
+        log(f"[glue] the count in shade_scatter, {name}: {t['equal']} of "
+            f"{t['bounces']} bounces equal to count_rays_plain, "
+            f"{t['dead_nee']} with do_nee on a dead lane, casts "
+            f"{t['casts']}, {t['rays']} rays; live lanes after each bounce "
+            f"{t['live']}")
+    assert not r["bad"], r["bad"]
+
+    # its time: shade_scatter with the count and without, bounces 0-3
+    bench_perf(bal, SPP, DEPTH)
+    times = {"bench": time_count(bal, False), "hdri": time_count(hdri, True)}
+    bal.perf = copy.copy(perf)
+    r["bounce_times"] = times
+    added = []
+    for name, rows in times.items():
+        for b, t in rows.items():
+            add = (sum(t["with"]) - sum(t["without"])) / 2
+            added.append(add)
+            log(f"[glue] shade_scatter {name} bounce {b}: with the count "
+                f"{t['with'][0]:.4f} / {t['with'][1]:.4f} ms, without "
+                f"{t['without'][0]:.4f} / {t['without'][1]:.4f} ms: the "
+                f"count {add:+.4f} ms (its launch of its own was "
+                f"{COUNT_LAUNCH_MS} ms) [{card}]")
+    r["ms"] = sum(added) / len(added)
+    r["queued_ms"] = [min(added), max(added)]
+    info = {**shade.kernel_info(bal._mat_table, bal._light_table),
+            **shade.kernel_info(bal._mat_table, bal._light_table, True)}
+    r["instantiations"] = {}
+    for name, (regs, blocks) in SCATTER_BEFORE.items():
+        got = (info[name]["registers"], info[name]["blocks_per_sm"])
+        r["instantiations"][name] = {"registers": got[0],
+                                     "blocks_per_sm": got[1],
+                                     "before": [regs, blocks]}
+        log(f"[glue] {name}: {got[0]} registers, {got[1]} blocks a SM "
+            f"(before the count: {regs}, {blocks})")
+        assert got == (regs, blocks), (name, got, (regs, blocks))
+
+    # the function on its own: a 1080p bounce's two planes
     n = W * H
-    for size in (n, 1, 15, 17, 4099):
-        kinds = {"dead": torch.zeros(size + 8, dtype=torch.bool, device=dev),
-                 "alive": torch.ones(size + 8, dtype=torch.bool, device=dev),
-                 "random": torch.from_numpy(rng.random(size + 8) < 0.37).to(
-                     dev)}
-        for ka, a in kinds.items():
-            for kb, b in kinds.items():
-                for off in (0, 3):
-                    pa, pb = a[off:off + size], b[5:5 + size - off]
-                    for casts, base in ((0, 0), (1, size), (2, 7)):
-                        got = torch.zeros((), dtype=torch.int64, device=dev)
-                        want = got.clone()
-                        integrator.count_rays(got, pa, pb, casts, base)
-                        integrator.count_rays_plain(want, pa, pb, casts,
-                                                    base)
-                        glue_hold(r, f"{size} {ka}/{kb} +{off} casts "
-                                  f"{casts} base {base}", got, want)
-                for one, args in (("alive alone", (a, None)),
-                                  ("NEE alone", (None, b))):
-                    got = torch.zeros((), dtype=torch.int64, device=dev)
-                    want = got.clone()
-                    integrator.count_rays(got, *args, 2)
-                    integrator.count_rays_plain(want, *args, 2)
-                    glue_hold(r, f"{size} {ka}/{kb} {one}", got, want)
-    alive = torch.from_numpy(rng.random(n) < 0.6).to(dev)
-    do_nee = torch.from_numpy(rng.random(n) < 0.4).to(dev)
+    rng = torch.Generator(device=bal._rng_state.device).manual_seed(0)
+    alive = torch.rand(n, generator=rng, device=rng.device) < 0.6
+    do_nee = torch.rand(n, generator=rng, device=rng.device) < 0.4
     both = torch.cat([alive, do_nee])
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-    r["queued_ms"] = queued_ms(lambda: integrator.count_rays(
-        rays, alive, do_nee, 1))
-    r["ms"] = sum(r["queued_ms"]) / 2
-    r["plain_ms"] = cuda_ms(lambda: integrator.count_rays_plain(
+    rays = torch.zeros((), dtype=torch.int64, device=alive.device)
+    r["plain_ms"] = cuda_ms(lambda: shade.count_rays_plain(
         rays, alive, do_nee, 1), 10)
     r["library_queued_ms"] = queued_ms(lambda: torch.count_nonzero(both))
     r["library_ms"] = sum(r["library_queued_ms"]) / 2
     r.update(bound(2 * n + 16))
-    log(f"[glue] count_rays: {r['cases']} cases equal but {r['bad']}; a "
-        f"1080p bounce's two planes queued {r['queued_ms'][0]:.4f} / "
-        f"{r['queued_ms'][1]:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+    log(f"[glue] the count: {r['cases']} bounces equal, no launch of its "
+        f"own; in shade_scatter {r['ms']:+.4f} ms a bounce on average "
+        f"(from {r['queued_ms'][0]:+.4f} to {r['queued_ms'][1]:+.4f}); a "
+        f"1080p bounce's two planes plain {r['plain_ms']:.3f} ms, "
         f"count_nonzero {r['library_ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
-    assert not r["bad"], r["bad"]
     return r
 
 
@@ -5548,8 +5741,9 @@ def game_frames_against_plain(dev, frames: int, w: int = 640,
 def tiled_against_plain(sc) -> dict:
     """A tile of the scene's frame (``trace_frame(tile=)``, split, 2 spp)
     with the kernels and with every plain stage, bit for bit; and two
-    tiles traced at once on two streams, each equal to its trace alone
-    (each trace counts its rays into its own counter)."""
+    tiles traced at once on two streams, each equal to its trace alone and
+    to its trace with every plain stage (each trace counts its rays into
+    its own counter)."""
     import torch
     from ptrt_tpu_torch.render import pipeline
 
@@ -5580,17 +5774,21 @@ def tiled_against_plain(sc) -> dict:
     for s in streams:
         cur.wait_stream(s)
     torch.cuda.synchronize()
+    with all_plain():
+        plain = [tile(0, 0, 540, 960, 11), tile(540, 960, 540, 960, 12)]
     out["streams_same"] = same_tree(alone, both)
+    out["streams_plain_same"] = same_tree(plain, both)
     out["streams_rays"] = [int(t[1].rays_traced) for t in both]
     out["alone_rays"] = [int(t[1].rays_traced) for t in alone]
-    out["all_same"] = out["tile_same"] and out["streams_same"]
+    out["all_same"] = (out["tile_same"] and out["streams_same"]
+                       and out["streams_plain_same"])
     return out
 
 
 def glue_profile(sc, card) -> dict:
     """One profiled replay of the scene's program: its device ms and
-    kernels, the kernels of each bounce (K1 to the next K1 of a sample)
-    and the upscale's launches."""
+    kernels, the kernels of each bounce (K1 to the next K1 of a sample),
+    the upscale's launches and any count_rays kernel's."""
     from ptrt_tpu_torch.tools import stages
 
     sc.render_frame()
@@ -5603,6 +5801,7 @@ def glue_profile(sc, card) -> dict:
             if "direct_copy" in nm or "reduce_kernel" in nm]
     return {"device_ms": prof["device_ms"], "launches": prof["launches"],
             "upscale_launches": sum("upscale_bilinear" in nm for nm in names),
+            "count_launches": sum("count_rays" in nm for nm in names),
             "bounce_launches": sorted({len(b) for b in bounces}),
             "bounce_glue": glue, "top": prof["top"]}
 
@@ -5616,15 +5815,16 @@ def check_glue(bal, hdri, card, rng) -> dict:
     tiles on two streams; the phase's own main path (the fast and
     performance programs and a fused game frame) counted from zero, each
     of the four launched and no plain version called; replays with no
-    synchronizing call; profiled replays with no copy or reduction in a
-    bounce and the upscale in one launch."""
+    synchronizing call; profiled replays with 4 kernels a bench bounce, no
+    count_rays kernel, no copy or reduction in a bounce and the upscale in
+    one launch."""
     import copy
 
     from ptrt_tpu_torch import kernels
 
     dev = bal._rng_state.device
     out = {"upscale_bilinear": check_upscale_glue(dev, card, rng),
-           "count_rays": check_count_glue(dev, card, rng),
+           COUNT: check_count_glue(bal, hdri, card),
            "sample_sums": check_sums_glue(dev, card, rng),
            "progressive_average": check_average_glue(dev, card, rng)}
 
@@ -5709,14 +5909,19 @@ def check_glue(bal, hdri, card, rng) -> dict:
     for name, p in profiles.items():
         log(f"[glue] a profiled {name} replay: {p['device_ms']} device ms in "
             f"{p['launches']} kernels, the upscale {p['upscale_launches']} "
-            f"launches, a bounce {p['bounce_launches']} kernels, copies and "
-            f"reductions in the bounces {p['bounce_glue']}; top {p['top']} "
-            f"[{card}]")
+            f"launches, count_rays {p['count_launches']}, a bounce "
+            f"{p['bounce_launches']} kernels, copies and reductions in the "
+            f"bounces {p['bounce_glue']}; top {p['top']} [{card}]")
         assert not p["bounce_glue"], (name, p["bounce_glue"])
+        assert p["count_launches"] == 0, (name, p)
     log(f"[glue] synchronizing calls of a replay: {syncs}")
     assert not any(syncs.values()), syncs
     assert profiles["fast"]["upscale_launches"] == 1, profiles["fast"]
     assert profiles["bench"]["upscale_launches"] == 0, profiles["bench"]
+    # a bench bounce: K1, shade_nee, K2, shade_scatter (bounce 0 one more,
+    # the fill after its K1; a sample's last the next sample's set-up)
+    assert BOUNCE_LAUNCHES in profiles["bench"]["bounce_launches"], \
+        profiles["bench"]
     out["profiles"] = profiles
     out["sync_calls"] = {k: len(v) for k, v in syncs.items()}
     return out
@@ -5957,8 +6162,7 @@ def main() -> int:
     assert img.std() > 1.0, "the image is constant"
     assert all(bool(torch.isfinite(c).all()) for c in (hdr.x, hdr.y, hdr.z))
     assert launches.get("tonemap_rgb8", 0) > 0, "tonemap_rgb8 not launched"
-    for k in ("closest_hit", "any_hit", "shade_nee", "shade_scatter",
-              "count_rays"):
+    for k in ("closest_hit", "any_hit", "shade_nee", "shade_scatter", COUNT):
         # once a bounce of each sample
         assert launches.get(k, 0) == 4 * SPP * DEPTH, (k, launches)
     # K0 and the sample sums once a sample, the progressive average once a
@@ -6060,7 +6264,7 @@ def main() -> int:
     # the composite: no plain-torch bloom op between them
     per_frame = {"closest_hit": BAL_DEPTH, "any_hit": BAL_DEPTH,
                  "shade_nee": BAL_DEPTH, "shade_scatter": BAL_DEPTH,
-                 "count_rays": BAL_DEPTH, "sample_sums": 1,
+                 COUNT: BAL_DEPTH, "sample_sums": 1,
                  "progressive_average": 0, "upscale_bilinear": 0,
                  "svgf_temporal": 1, "svgf_atrous": 7, "tonemap_rgb8": 1,
                  "bloom_chain": 1, **dict.fromkeys(LAST_REPLACES, 1),
@@ -6158,7 +6362,7 @@ def main() -> int:
                  "shade_scatter (hdri)": BAL_DEPTH, "svgf_temporal": 1,
                  "svgf_atrous": 7, "tonemap_rgb8": 1, "bloom_chain": 1,
                  "shade_nee": 0, "shade_scatter": 0,
-                 "count_rays": BAL_DEPTH, "sample_sums": 1,
+                 COUNT: BAL_DEPTH, "sample_sums": 1,
                  **dict.fromkeys(LAST_REPLACES, 1),
                  **dict.fromkeys(STATIC_NEVER, 0)}
     for k, n in per_frame.items():
@@ -6214,7 +6418,7 @@ def main() -> int:
                  ("shade_nee (hdri)", 128 * 32),
                  ("shade_scatter (hdri)", 128 * 32), ("bloom_chain", 1),
                  ("tonemap_rgb8", 1), ("camera_rays", 128),
-                 ("count_rays", 128 * 32), ("sample_sums", 128),
+                 (COUNT, 128 * 32), ("sample_sums", 128),
                  ("progressive_average", 1), ("upscale_bilinear", 0)):
         assert ultra_launches.get(k, 0) == n, (k, ultra_launches)
     hdr = ultra.last_frame.color
@@ -6847,8 +7051,8 @@ def main() -> int:
             "672x378 -> 1920x1080"]),
         "performance": gap(glue["upscale_bilinear"]["shapes"][
             "1440x810 -> 1920x1080"])}
-    over["count_rays"] = {"bench": SPP * DEPTH * gap(glue["count_rays"]),
-                          "balanced": BAL_DEPTH * gap(glue["count_rays"])}
+    over[COUNT] = {"bench": SPP * DEPTH * gap(glue[COUNT]),
+                   "balanced": BAL_DEPTH * gap(glue[COUNT])}
     over["sample_sums"] = {"bench": SPP * gap(glue["sample_sums"]["unsplit"]),
                            "balanced": gap(glue["sample_sums"]["split"])}
     over["progressive_average"] = {

@@ -1,39 +1,34 @@
-// K13: the frame's glue between the walks, the shading stages and the post
-// stack, as three kernels.
+// K13: the frame's glue between the bounce loop and the post stack, as two
+// kernels.
 //
-//   count_rays           the bounce loop's ray counts
 //   sample_sums          a sample's final clamp and its add into the
 //                        frame's sums; at the last sample the 1 / spp scale
 //                        and the persistent PCG state's advance
 //   progressive_average  the progressive running average
 //
-// Replaces (the reference computes each inside its jitted frame, XLA, no
-// Pallas): ptrt_tpu/render/integrator.py :302, :378, :401 (the ray counts,
-// there in float32; the port keeps its int64 count), :529 (the final soft
-// clamp, core/vec.py clamp_vector_soft), ptrt_tpu/render/pipeline.py
-// :119-168 (the sample sums, the 1 / spp scale, prng.uniform of the
-// frame's state) and ptrt_tpu/scene/pt_scene.py :950-958 (the progressive
-// sum and average in _frame_fn).  The plain torch versions
-// (render/integrator.py count_rays_plain, render/pipeline.py
-// sample_sums_plain, scene/pt_scene.py accumulate_plain) launch 3 kernels
-// a count (a cast, a reduction, an add), ~20 a sample and ~15 a
-// progressive frame.
+// (K13's third part, the bounce loop's ray count, runs in shade_scatter's
+// epilogue, csrc/shade.cu: it had a launch of its own here until its
+// redesign.)
 //
-// What bounds them on the card: bytes, far under the launch floor at
-// every size the frames use.  count_rays reads one or two bool planes (2 MB
-// each at 1080p) and adds one int64; sample_sums reads a sample's 3 (12
+// Replaces (the reference computes each inside its jitted frame, XLA, no
+// Pallas): ptrt_tpu/render/integrator.py :529 (the final soft clamp,
+// core/vec.py clamp_vector_soft), ptrt_tpu/render/pipeline.py :119-168
+// (the sample sums, the 1 / spp scale, prng.uniform of the frame's state)
+// and ptrt_tpu/scene/pt_scene.py :950-958 (the progressive sum and average
+// in _frame_fn).  The plain torch versions (render/pipeline.py
+// sample_sums_plain, scene/pt_scene.py accumulate_plain) launch ~20
+// kernels a sample and ~15 a progressive frame.
+//
+// What bounds them on the card: bytes.  sample_sums reads a sample's 3 (12
 // split) radiance planes and, after sample 0, the sums, and writes the
 // sums (at 1080p 25-100 MB a sample, 0.007-0.030 ms); the average reads
 // the colour and the sum and writes the sum and the average (50 MB, 0.015
 // ms).  A lane runs at most ~20 operations.
 //
-// What this design does about it: one launch each, one thread a lane or
-// pixel, nothing staged.  count_rays reads 16 lanes a thread where the
-// plane is 16-byte aligned, sums a block's count in registers and shared
-// memory and adds it into the int64 counter with one atomic a block: no
-// cast, no int64 plane written.  sample_sums keeps the sums in the frame's
-// own planes across the samples' launches (a thread reads and writes only
-// its own pixel).  progressive_average compares the 16 view-projection
+// What this design does about it: one launch each, one thread a pixel,
+// nothing staged.  sample_sums keeps the sums in the frame's own planes
+// across the samples' launches (a thread reads and writes only its own
+// pixel).  progressive_average compares the 16 view-projection
 // values and reads the keep flag and the count in every thread (broadcast
 // loads), so nothing comes back to the host; one thread writes the new
 // count into a tensor of its own.  The float operations follow the plain
@@ -48,16 +43,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-struct CountRaysArgs {
-    const uint8_t* alive;       // (n_alive,) bool lanes, or null
-    long long n_alive;
-    const uint8_t* do_nee;      // (n_do_nee,) bool lanes, or null
-    long long n_do_nee;
-    long long casts;            // the weight of a do_nee lane
-    long long base;             // added once
-    long long* counter;         // 0-d int64, added into
-};
 
 struct SampleSumsArgs {
     const float* radiance[3];   // (n,) each: the sample's PathState.accum
@@ -90,68 +75,8 @@ struct ProgressiveArgs {
 
 namespace {
 
-constexpr int kCountThreads = 256, kCountMaxBlocks = 264;
 constexpr int kBlockW = 32, kBlockH = 8;
 constexpr int kAverageThreads = 256;
-
-// the nonzero bytes of a 32-bit word
-__device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
-    return static_cast<unsigned>(__popc(__vcmpne4(w, 0u))) >> 3;
-}
-
-// the nonzero lanes of a bool plane that this thread takes: 16-byte loads
-// over the aligned body, grid-stride; the head and tail bytes in block 0
-__device__ unsigned count_plane(const uint8_t* p, long long n) {
-    if (p == nullptr || n <= 0) return 0;
-    const long long mis = static_cast<long long>(
-        reinterpret_cast<uintptr_t>(p) & 15u);
-    long long head = mis == 0 ? 0 : 16 - mis;
-    if (head > n) head = n;
-    const long long body = (n - head) / 16;
-    const long long tail = head + body * 16;
-    const uint4* v = reinterpret_cast<const uint4*>(p + head);
-    unsigned c = 0;
-    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-         i < body; i += stride) {
-        const uint4 q = v[i];
-        c += nonzero_bytes(q.x) + nonzero_bytes(q.y) + nonzero_bytes(q.z) +
-             nonzero_bytes(q.w);
-    }
-    if (blockIdx.x == 0) {
-        if (threadIdx.x < head) c += p[threadIdx.x] != 0;
-        if (tail + threadIdx.x < n) c += p[tail + threadIdx.x] != 0;
-    }
-    return c;
-}
-
-// a block's sum of one value a thread, in thread 0
-__device__ unsigned long long block_sum(unsigned v) {
-    __shared__ unsigned long long warp_sums[kCountThreads / 32];
-    const unsigned s = __reduce_add_sync(0xffffffffu, v);
-    if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = s;
-    __syncthreads();
-    unsigned long long t = 0;
-    if (threadIdx.x == 0)
-        for (int k = 0; k < kCountThreads / 32; ++k) t += warp_sums[k];
-    __syncthreads();
-    return t;
-}
-
-__global__ void __launch_bounds__(kCountThreads)
-count_rays_kernel(const CountRaysArgs a) {
-    const unsigned long long alive = block_sum(count_plane(a.alive,
-                                                           a.n_alive));
-    const unsigned long long nee = block_sum(count_plane(a.do_nee,
-                                                         a.n_do_nee));
-    if (threadIdx.x != 0) return;
-    unsigned long long add =
-        alive + nee * static_cast<unsigned long long>(a.casts);
-    if (blockIdx.x == 0) add += static_cast<unsigned long long>(a.base);
-    if (add != 0)
-        atomicAdd(reinterpret_cast<unsigned long long*>(a.counter), add);
-}
 
 // torch.clamp_min against a number: a NaN operand is the result
 __device__ __forceinline__ float tmax(float a, float b) {
@@ -223,15 +148,6 @@ progressive_average_kernel(const ProgressiveArgs a) {
 }
 
 }  // namespace
-
-extern "C" int ptrt_count_rays(const CountRaysArgs* args, void* stream) {
-    const long long units = (args->n_alive + args->n_do_nee) / 16 + 1;
-    long long blocks = (units + kCountThreads - 1) / kCountThreads;
-    if (blocks > kCountMaxBlocks) blocks = kCountMaxBlocks;
-    count_rays_kernel<<<static_cast<int>(blocks), kCountThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(*args);
-    return static_cast<int>(cudaGetLastError());
-}
 
 extern "C" int ptrt_sample_sums(const SampleSumsArgs* args, void* stream) {
     if (args->planes != 3 && args->planes != 12)

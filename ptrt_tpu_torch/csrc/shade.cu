@@ -74,6 +74,28 @@
 // 5-25% at bounces 1-3, with or without spills; 2 lanes a thread measured
 // within 3% of 4; the bounce-0 kernel at 3 blocks a SM (70-80 registers)
 // lost 8-14% (PERF.md).
+//
+// shade_scatter also adds the bounce's rays into the trace's int64 counter
+// (ShadeArgs.rays; replaces ptrt_tpu/render/integrator.py :302, :378, :401,
+// the reference's ray counts): each NEE lane's shadow rays (count_casts,
+// one for the env and one for the light sample) and, but at the last
+// bounce, each lane it leaves alive for the next bounce's K1, bounce 0
+// adding the base (its walk took every lane).  A lane dead on entry adds
+// nothing: shade_nee writes do_nee false on every such lane.  One atomic a
+// block adds the block's sum, so the count costs no launch of its own (it
+// was a kernel of its own, 0.0036 ms a bounce at 1080p, half of it the
+// launch).  From bounce 1 a live lane returns its rays (its do_nee is
+// loaded with its record, its survival is the scatter's own result), a
+// thread sums its lanes in a register, a warp with __reduce_add_sync and
+// the block in shared memory.  At bounce 0, where the lane code leaves no
+// register to spare (the HDRI kernel spills), a lane returns only whether
+// it lives on: the prologue's barrier counts the block's NEE lanes from
+// their do_nee flags (__syncthreads_count) and a barrier after the lane
+// work counts the survivors.  Summing the rays in the lane code there
+// raised the HDRI kernel's spills from 56 / 76 to 68 / 92 bytes and its
+// time by 5%; counting from bounce 1 on as at bounce 0 cost 0.005 ms at
+// bounce 3, and reading the flags back from the planes after the lane work
+// 0.007 (PERF.md).  Bounces 0-3 each take 0.000-0.003 ms more.
 
 // The HDRI kernels (shade_nee_kernel_hdri, shade_scatter_kernel<.., true>;
 // launched where the sky is an HDRI, which always comes with env NEE:
@@ -105,9 +127,10 @@
 // material after the env term and shares one Lobes between its two
 // material_pdf's.  shade_nee at 3 blocks a SM (73 / 75 registers, no
 // spills; at 4, 64 registers spilled 40-68 bytes and lost 2-5%),
-// shade_scatter at 4 blocks at bounce 0 (64 registers, 56 bytes spilled;
-// 3 blocks lost 10%) and 3 from bounce 1 (80, 20 bytes; 2 blocks lost
-// 10%, 4 spilled 108 bytes and lost 8%).
+// shade_scatter at 4 blocks at bounce 0 (64 registers, 56 bytes spilled
+// before the ray count, 64 with it; 3 blocks lost 10%) and 3 from bounce 1
+// (80, 20 bytes before the count, 36 with it; 2 blocks lost 10%, 4
+// spilled 108 bytes and lost 8%).
 // 128-thread blocks and the env texels prefetched across the light sample
 // measured slower; a 16-byte texel copy gained 1-2%, texel pairs no more,
 // the quads 8%.  The two families share the G-buffer writes
@@ -214,6 +237,12 @@ struct ShadeArgs {
     const float* inst_e1[3];
     const float* inst_e2[3];
     const float* inst_mats;    // (I, 24)
+    // the trace's ray count, added by shade_scatter (rays null: none):
+    // count_base, count_casts shadow rays for each lane with do_nee, and,
+    // where count_next, the lanes it leaves alive for the next bounce's walk
+    long long* rays;           // 0-d int64, added into
+    long long count_base;
+    int count_casts, count_next;
 };
 
 namespace {
@@ -1692,9 +1721,10 @@ __device__ __forceinline__ void add_nee(const ShadeArgs& a, long long i,
 
 // shade_scatter past the NEE terms: the scatter `sc` drawn, its flags (and
 // `carry()`, the HDRI kernel's env MIS carries) where it is valid, Russian
-// roulette and the ray advance; the lane's PCG state stored.
+// roulette and the ray advance; the lane's PCG state stored.  Returns
+// whether the lane lives on.
 template <typename Carry>
-__device__ __forceinline__ void scatter_on(const ShadeArgs& a, long long i,
+__device__ __forceinline__ bool scatter_on(const ShadeArgs& a, long long i,
                                            uint32_t& s, V3 n, V3 thr,
                                            const Scatter& sc, Carry carry) {
     bool alive = sc.valid;
@@ -1724,23 +1754,38 @@ __device__ __forceinline__ void scatter_on(const ShadeArgs& a, long long i,
         a.alive[i] = 0;
     }
     a.rng[i] = static_cast<long long>(s);
+    return alive;
+}
+
+// A live lane's rays in the trace's count, where its thread sums them: the
+// next bounce's walk where it lives on (and the count takes the next
+// bounce), count_casts shadow rays where it drew its NEE samples.
+__device__ __forceinline__ unsigned lane_rays(const ShadeArgs& a,
+                                              bool lives_on, bool did_nee) {
+    return (lives_on && a.count_next != 0 ? 1u : 0u) +
+           (did_nee ? static_cast<unsigned>(a.count_casts) : 0u);
 }
 
 // One lane alive on entry to shade_scatter, with its PCG state: MIS and the
 // NEE sum, the scatter, Russian roulette and the ray advance.  It writes a
 // flag only where the plain stage may change it (alive only where the lane
-// dies), and the ray and throughput only where the lane lives on.
-__device__ void scatter_lane(const ShadeArgs& a, const float* mat_table,
-                             bool staged, long long i, uint32_t s) {
+// dies), and the ray and throughput only where the lane lives on.  Returns
+// with RAYS the lane's rays in the count (lane_rays), else whether it lives
+// on.
+template <bool RAYS>
+__device__ unsigned scatter_lane(const ShadeArgs& a, const float* mat_table,
+                                 bool staged, long long i, uint32_t s) {
     const bool split = a.split != 0;
     const Mat m = fetch_mat(a, mat_table, staged, a.hit_mesh[i]);
     const V3 n = ld3(a.normal, i);
     const bool front = a.front[i] != 0;
     const V3 d = ld3(a.d, i);
     const V3 thr = ld3(a.thr, i);
+    const bool did_nee =
+        (a.n_lights > 0 || (RAYS && a.count_casts > 0)) && a.do_nee[i] != 0;
 
     // NEE with MIS
-    if (a.n_lights > 0 && a.do_nee[i] != 0) {
+    if (a.n_lights > 0 && did_nee) {
         const float pdf = a.pdf_nee[i];
         if (pdf > 0.0f) {
             const bool lit = a.in_shadow[i] == 0;
@@ -1752,16 +1797,19 @@ __device__ void scatter_lane(const ShadeArgs& a, const float* mat_table,
     }
 
     const Scatter sc = material_scatter(s, n, front, m, d);
-    scatter_on(a, i, s, n, thr, sc, [] {});
+    const bool lives_on = scatter_on(a, i, s, n, thr, sc, [] {});
+    return RAYS ? lane_rays(a, lives_on, did_nee) : lives_on;
 }
 
 // scatter_lane in shade_scatter's HDRI kernel: the env sample's term (its
 // MIS weight from shade_nee) before the light's, and where the lane lives
 // on the env MIS carries.  The material is fetched after the env term and
 // its Lobes built once for the light's MIS pdf and the scatter
-// direction's.
-__device__ void scatter_lane_hdri(const ShadeArgs& a, const float* mat_table,
-                                  bool staged, long long i, uint32_t s) {
+// direction's.  Returns as scatter_lane<RAYS>.
+template <bool RAYS>
+__device__ unsigned scatter_lane_hdri(const ShadeArgs& a,
+                                      const float* mat_table, bool staged,
+                                      long long i, uint32_t s) {
     const bool split = a.split != 0;
     const V3 n = ld3(a.normal, i);
     const bool front = a.front[i] != 0;
@@ -1794,10 +1842,11 @@ __device__ void scatter_lane_hdri(const ShadeArgs& a, const float* mat_table,
 
     // the scatter, and the env MIS carries where the lane lives on
     const Scatter sc = material_scatter(s, n, front, m, d);
-    scatter_on(a, i, s, n, thr, sc, [&] {
+    const bool lives_on = scatter_on(a, i, s, n, thr, sc, [&] {
         a.prev_pdf[i] = material_pdf_at(b, n, v, sc.direction);
         a.prev_nee[i] = did_nee;
     });
+    return RAYS ? lane_rays(a, lives_on, did_nee) : lives_on;
 }
 
 // A block takes LANES lanes a thread, kScatterThreads * LANES neighbouring
@@ -1817,12 +1866,18 @@ shade_scatter_kernel(const ShadeArgs a) {
     __shared__ int live_lane[LANES > 1 ? kChunk : 1];
     __shared__ uint32_t live_state[LANES > 1 ? kChunk : 1];
     __shared__ int n_live;
+    // the ray count's block sums: at bounce 0 its NEE lanes, from bounce 1
+    // on its warps' sums
+    __shared__ unsigned block_nee;
+    __shared__ unsigned warp_rays[LANES > 1 ? kScatterThreads / 32 : 1];
     const long long base = static_cast<long long>(blockIdx.x) * kChunk;
     const int lanes = static_cast<int>(
         a.n - base < kChunk ? a.n - base : kChunk);
+    const bool counting = a.rays != nullptr;
     if (LANES > 1 && threadIdx.x == 0) n_live = 0;
     bool live[LANES];
     uint32_t state[LANES];
+    bool nee = false;  // at bounce 0: the thread's lane has do_nee
 #pragma unroll
     for (int k = 0; k < LANES; ++k) {
         const int j = threadIdx.x + k * kScatterThreads;
@@ -1831,6 +1886,8 @@ shade_scatter_kernel(const ShadeArgs a) {
         if (j < lanes) {
             live[k] = a.alive[base + j] != 0;
             state[k] = static_cast<uint32_t>(a.rng[base + j]);
+            if (LANES == 1 && counting && a.count_casts != 0)
+                nee = a.do_nee[base + j] != 0;
         }
     }
     const int n_mat = a.n_mats * a.mat_width;
@@ -1862,24 +1919,63 @@ shade_scatter_kernel(const ShadeArgs a) {
             }
         }
     }
-    __syncthreads();
+    if (LANES == 1) {  // the barrier also counts the block's NEE lanes
+        const int block = __syncthreads_count(nee);
+        if (threadIdx.x == 0) block_nee = static_cast<unsigned>(block);
+    } else {
+        __syncthreads();
+    }
+    // at bounce 0 whether the thread's lane lives on, from bounce 1 on its
+    // lanes' rays in the count
+    unsigned rays = 0;
     if (LANES == 1) {
         if (live[0]) {
             if constexpr (ENV)
-                scatter_lane_hdri(a, mat_table, staged, base + threadIdx.x,
-                                  state[0]);
+                rays = scatter_lane_hdri<false>(a, mat_table, staged,
+                                                base + threadIdx.x, state[0]);
             else
-                scatter_lane(a, mat_table, staged, base + threadIdx.x,
-                             state[0]);
+                rays = scatter_lane<false>(a, mat_table, staged,
+                                           base + threadIdx.x, state[0]);
         }
     } else {
         for (int k = threadIdx.x; k < n_live; k += kScatterThreads) {
             if constexpr (ENV)
-                scatter_lane_hdri(a, mat_table, staged, base + live_lane[k],
-                                  live_state[k]);
+                rays += scatter_lane_hdri<true>(a, mat_table, staged,
+                                                base + live_lane[k],
+                                                live_state[k]);
             else
-                scatter_lane(a, mat_table, staged, base + live_lane[k],
-                             live_state[k]);
+                rays += scatter_lane<true>(a, mat_table, staged,
+                                           base + live_lane[k],
+                                           live_state[k]);
+        }
+    }
+    // the ray count: at bounce 0 a barrier's count of the lanes left alive
+    // (and the NEE lanes' above: the lane code keeps no count of its own),
+    // from bounce 1 on a warp's sum in registers and the warps' in shared
+    // memory; one atomic a block into the trace's counter (block 0 adds
+    // the base)
+    if (counting) {
+        unsigned long long add = 0;
+        if (LANES == 1) {
+            const int alive = __syncthreads_count(rays);
+            add = (a.count_next != 0 ? static_cast<unsigned>(alive) : 0u) +
+                  static_cast<unsigned long long>(block_nee) *
+                      static_cast<unsigned>(a.count_casts);
+        } else {
+            const unsigned w = __reduce_add_sync(0xffffffffu, rays);
+            if (warp_lane == 0) warp_rays[threadIdx.x >> 5] = w;
+            __syncthreads();
+            if (threadIdx.x == 0) {
+#pragma unroll
+                for (int k = 0; k < kScatterThreads / 32; ++k)
+                    add += warp_rays[k];
+            }
+        }
+        if (threadIdx.x == 0) {
+            if (blockIdx.x == 0)
+                add += static_cast<unsigned long long>(a.count_base);
+            if (add != 0)
+                atomicAdd(reinterpret_cast<unsigned long long*>(a.rays), add);
         }
     }
 }

@@ -42,6 +42,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 LIBRARY = "libptrt_kernels.so"
 
+
+class Args(ctypes.Structure):
+    """Base of the kernels' argument structures (``struct ...Args`` of
+    ``csrc/*.cu`` and their parts): assigning a name that ``_fields_`` does
+    not hold raises, where a plain ``ctypes.Structure`` keeps it as a Python
+    attribute that the kernel never sees (a misspelt field would leave the
+    kernel's zero)."""
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        cls._names = frozenset(f[0] for f in cls.__dict__.get("_fields_", ()))
+
+    def __setattr__(self, name, value):
+        if name not in self._names:
+            raise AttributeError(f"{type(self).__name__} has no field "
+                                 f"{name!r}")
+        super().__setattr__(name, value)
+
+
 launches: collections.Counter = collections.Counter()
 # the kernels launched by CUDA graph replays, by name
 replays: collections.Counter = collections.Counter()
@@ -118,8 +137,8 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_svgf_atrous_info.restype = i
         lib.ptrt_svgf_atrous_info.argtypes = [i, i, i, i, p, p, p]
         for name in ("svgf_variance", "svgf_firefly", "motion_vectors",
-                     "camera_rays", "upscale_bilinear", "count_rays",
-                     "sample_sums", "progressive_average"):
+                     "camera_rays", "upscale_bilinear", "sample_sums",
+                     "progressive_average"):
             fn = getattr(lib, f"ptrt_{name}")
             fn.restype = i
             fn.argtypes = [p, p]

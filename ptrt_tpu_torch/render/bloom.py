@@ -244,14 +244,14 @@ def pyramid_regions(h: int, w: int):
     return tuple(out)
 
 
-class _Axis(ctypes.Structure):
+class _Axis(kernels.Args):
     _fields_ = [("table", ctypes.c_void_p), ("n", ctypes.c_int)]
 
 
 _P3 = ctypes.c_void_p * 3
 
 
-class ChainArgs(ctypes.Structure):
+class ChainArgs(kernels.Args):
     """``struct BloomChainArgs`` of ``csrc/bloom.cu``."""
 
     _fields_ = [

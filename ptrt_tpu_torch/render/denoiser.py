@@ -436,7 +436,7 @@ def atrous_iteration_plain(img: Vec3, variance, depth, normal: Vec3, obj_id,
 _P3 = ctypes.c_void_p * 3
 
 
-class TemporalChannel(ctypes.Structure):
+class TemporalChannel(kernels.Args):
     """``struct SvgfChannel`` of ``csrc/svgf.cu``."""
 
     _fields_ = [
@@ -448,7 +448,7 @@ class TemporalChannel(ctypes.Structure):
     ]
 
 
-class TemporalArgs(ctypes.Structure):
+class TemporalArgs(kernels.Args):
     """``struct SvgfTemporalArgs`` of ``csrc/svgf.cu``."""
 
     _fields_ = [
@@ -465,7 +465,7 @@ class TemporalArgs(ctypes.Structure):
     ]
 
 
-class AtrousArgs(ctypes.Structure):
+class AtrousArgs(kernels.Args):
     """``struct SvgfAtrousArgs`` of ``csrc/svgf.cu``."""
 
     _fields_ = [
@@ -711,14 +711,14 @@ def atrous_kernel_info(h: int, w: int, step: int) -> dict:
             "shared_bytes": launch.shared_bytes}
 
 
-class VarianceChannel(ctypes.Structure):
+class VarianceChannel(kernels.Args):
     """``struct SvgfVarianceChannel`` of ``csrc/svgf.cu``."""
 
     _fields_ = [("mean", _P3), ("m2", _P3), ("len", ctypes.c_void_p),
                 ("out", ctypes.c_void_p)]
 
 
-class VarianceArgs(ctypes.Structure):
+class VarianceArgs(kernels.Args):
     """``struct SvgfVarianceArgs`` of ``csrc/svgf.cu``."""
 
     _fields_ = [
@@ -729,7 +729,7 @@ class VarianceArgs(ctypes.Structure):
     ]
 
 
-class FireflyArgs(ctypes.Structure):
+class FireflyArgs(kernels.Args):
     """``struct SvgfFireflyArgs`` of ``csrc/svgf.cu``."""
 
     _fields_ = [

@@ -1,16 +1,16 @@
 """Wavefront path integrator — counterpart of ``ptrt_tpu/render/integrator.py``
 (``trace_path``).
 
-Each bounce is five steps over every lane of the wavefront: the
+Each bounce is four steps over every lane of the wavefront: the
 closest-hit walk (K1), ``shade_nee``, the NEE shadow walks (K2: the env
-sample's rays with env NEE, then the light's), ``shade_scatter``
+sample's rays with env NEE, then the light's) and ``shade_scatter``
 (``render/shade.py``; on the card the two shading stages are the
-hand-written K3 kernels) and the ray count (``count_rays``, K13
-``csrc/frame.cu`` for CUDA tensors: the bounce's NEE lanes and the next
-bounce's live lanes, added into the trace's int64 counter on the
-device).  Terminated lanes stay in the wavefront as dead
-lanes: K1 takes the alive plane (``traverse.closest_hit_live``), so they
-come back as misses at ``t = -1``, and every accumulation is masked.
+hand-written K3 kernels), which also adds the bounce's rays into the
+trace's int64 counter on the device (the bounce's NEE lanes and the next
+bounce's live lanes; ``shade.count_rays_plain`` on the CPU).  Terminated
+lanes stay in the wavefront as dead lanes: K1 takes the alive plane
+(``traverse.closest_hit_live``), so they come back as misses at
+``t = -1``, and every accumulation is masked.
 Radiometry matches the reference: Beer–Lambert
 interior absorption, emission on bounce 0 / after specular, one-sample NEE
 with power-2 MIS (with an HDRI, also the alias-sampled env NEE, MIS-weighted
@@ -24,12 +24,10 @@ specular throughout; NEE by the BSDF's diffuse/specular split.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
-from ptrt_tpu_torch import kernels
 from ptrt_tpu_torch.core.vec import Vec3, clamp_vector_soft
 from ptrt_tpu_torch.render import traverse
 from ptrt_tpu_torch.render.ray import RayBatch
@@ -58,55 +56,6 @@ class PathOutput(NamedTuple):
     first_transmission: torch.Tensor
 
 
-class CountRaysArgs(ctypes.Structure):
-    """``struct CountRaysArgs`` of ``csrc/frame.cu``."""
-
-    _fields_ = [
-        ("alive", ctypes.c_void_p), ("n_alive", ctypes.c_longlong),
-        ("do_nee", ctypes.c_void_p), ("n_do_nee", ctypes.c_longlong),
-        ("casts", ctypes.c_longlong), ("base", ctypes.c_longlong),
-        ("counter", ctypes.c_void_p),
-    ]
-
-
-def count_rays_plain(rays: torch.Tensor, alive=None, do_nee=None,
-                     casts: int = 0, base: int = 0) -> None:
-    """Plain version of K13 ``count_rays``."""
-    if base:
-        rays += base
-    if alive is not None:
-        rays += alive.sum()
-    if do_nee is not None and casts:
-        rays += do_nee.sum() * casts
-
-
-def count_rays(rays: torch.Tensor, alive=None, do_nee=None, casts: int = 0,
-               base: int = 0) -> None:
-    """Add to the 0-d int64 counter ``rays``, in place, ``base``, the true
-    lanes of the bool plane ``alive`` and ``casts`` times those of
-    ``do_nee`` (either plane None for none): K13, one launch, one atomic
-    add a block into the counter."""
-    dev = rays.device
-    kernels.require_supported(dev)
-    if dev.type == "cpu":
-        return count_rays_plain(rays, alive, do_nee, casts, base)
-    kernels.check_tensor("rays", rays, torch.int64, 0, dev)
-    a = CountRaysArgs()
-    if alive is not None:
-        kernels.check_tensor("alive", alive, torch.bool, alive.dim(), dev)
-        a.alive, a.n_alive = alive.data_ptr(), alive.numel()
-    if do_nee is not None and casts:
-        kernels.check_tensor("do_nee", do_nee, torch.bool, do_nee.dim(),
-                             dev)
-        a.do_nee, a.n_do_nee = do_nee.data_ptr(), do_nee.numel()
-        a.casts = int(casts)
-    a.base, a.counter = int(base), rays.data_ptr()
-    rc = kernels.get_lib().ptrt_count_rays(ctypes.addressof(a),
-                                           kernels.stream_ptr(dev))
-    kernels.launches["count_rays"] += 1
-    kernels.check(rc, "count_rays")
-
-
 def trace_bounces(geom, materials, lights, n_lights: int, sky: SkyConfig,
                   ray: RayBatch, state, max_depth: int, rays: torch.Tensor,
                   split: bool = False, rr_enabled: bool = True,
@@ -118,7 +67,7 @@ def trace_bounces(geom, materials, lights, n_lights: int, sky: SkyConfig,
     hit and shadow rays) added into ``rays``, a 0-d int64 tensor on the
     state's device.
 
-    One count a bounce, after ``shade_scatter``: the bounce's NEE lanes (a
+    One count a bounce, in ``shade_scatter``: the bounce's NEE lanes (a
     shadow ray each for the env and the light sample) and the lanes alive
     for the next bounce's closest-hit walk, the plane K1 walks there (the
     shading stages clear ``alive`` on misses and on roulette); bounce 0's
@@ -144,12 +93,9 @@ def trace_bounces(geom, materials, lights, n_lights: int, sky: SkyConfig,
                                          nee.shadow_t)
         shade_scatter(ps, nee, in_shadow, materials, bounce,
                       rr_enabled=rr_enabled, rr_start=rr_start,
-                      env_shadow=env_shadow)
-        nxt = ps.alive if bounce + 1 < max_depth else None
-        base = ps.alive.numel() if bounce == 0 else 0
-        if nxt is not None or casts or base:
-            count_rays(rays, nxt, nee.do_nee if casts else None, casts,
-                       base)
+                      env_shadow=env_shadow, rays=rays, casts=casts,
+                      next_bounce=bounce + 1 < max_depth,
+                      base=ps.alive.numel() if bounce == 0 else 0)
     return ps
 
 

@@ -24,7 +24,7 @@ SKY_DEPTH_THRESHOLD = 1e29
 _P3 = ctypes.c_void_p * 3
 
 
-class MotionArgs(ctypes.Structure):
+class MotionArgs(kernels.Args):
     """``struct MotionArgs`` of ``csrc/motion.cu``."""
 
     _fields_ = [

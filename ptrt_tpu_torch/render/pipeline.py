@@ -87,7 +87,7 @@ def camera_rays_plain(camera, rng_state: torch.Tensor, frame_index,
 _P3 = ctypes.c_void_p * 3
 
 
-class CameraRaysArgs(ctypes.Structure):
+class CameraRaysArgs(kernels.Args):
     """``struct CameraRaysArgs`` of ``csrc/camera.cu``."""
 
     _fields_ = [
@@ -229,7 +229,7 @@ LUMINANCE_WEIGHTS = (0.2126, 0.7152, 0.0722)
 LUMINANCE_FLOOR = 1e-30
 
 
-class SampleSumsArgs(ctypes.Structure):
+class SampleSumsArgs(kernels.Args):
     """``struct SampleSumsArgs`` of ``csrc/frame.cu``."""
 
     _fields_ = [
@@ -353,6 +353,7 @@ class AxisTaps(NamedTuple):
 
     index: torch.Tensor  # (2, out) int64
     weight: torch.Tensor  # (2, out) float32
+    index32: torch.Tensor  # (2, out) int32: ``index`` as K12 reads it
 
 
 _taps: dict = {}
@@ -387,8 +388,9 @@ def resize_taps(in_n: int, out_n: int, device) -> AxisTaps:
     norm = torch.where(total != 0, total, 1.0)
     weights = [torch.where(torch.abs(total) > 1000.0 * 1.1920929e-07,
                            wgt / norm, 0.0) for _, wgt in taps]
-    _taps[key] = AxisTaps(torch.stack([idx for idx, _ in taps]),
-                          torch.stack(weights))
+    index = torch.stack([idx for idx, _ in taps])
+    _taps[key] = AxisTaps(index, torch.stack(weights),
+                          index.to(torch.int32))
     return _taps[key]
 
 
@@ -412,7 +414,7 @@ def upscale_bilinear_plain(img: Vec3, out_h: int, out_w: int) -> Vec3:
                                           out_w))
 
 
-class UpscaleArgs(ctypes.Structure):
+class UpscaleArgs(kernels.Args):
     """``struct UpscaleArgs`` of ``csrc/upscale.cu``."""
 
     _fields_ = [
@@ -444,8 +446,10 @@ def upscale_bilinear(img: Vec3, out_h: int, out_w: int) -> Vec3:
     a = UpscaleArgs()
     a.src = _P3(img.x.data_ptr(), img.y.data_ptr(), img.z.data_ptr())
     a.dst = _P3(*[out[k].data_ptr() for k in range(3)])
-    a.row_index, a.row_weight = rows.index.data_ptr(), rows.weight.data_ptr()
-    a.col_index, a.col_weight = cols.index.data_ptr(), cols.weight.data_ptr()
+    a.row_index, a.row_weight = (rows.index32.data_ptr(),
+                                 rows.weight.data_ptr())
+    a.col_index, a.col_weight = (cols.index32.data_ptr(),
+                                 cols.weight.data_ptr())
     a.in_h, a.in_w, a.out_h, a.out_w = in_h, in_w, out_h, out_w
     rc = kernels.get_lib().ptrt_upscale_bilinear(ctypes.addressof(a),
                                                  kernels.stream_ptr(dev))
@@ -459,7 +463,7 @@ def upscale_bilinear(img: Vec3, out_h: int, out_w: int) -> Vec3:
 # the encode table's buckets: float bits of [0, 1] shifted right by LUT_SHIFT
 LUT_SHIFT = 16
 
-class TonemapArgs(ctypes.Structure):
+class TonemapArgs(kernels.Args):
     """``struct TonemapArgs`` of ``csrc/tonemap.cu``."""
 
     _fields_ = [

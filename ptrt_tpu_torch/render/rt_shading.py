@@ -604,7 +604,7 @@ _P = ctypes.c_void_p
 _P3 = ctypes.c_void_p * 3
 
 
-class RtArgs(ctypes.Structure):
+class RtArgs(kernels.Args):
     """``struct RtArgs`` of ``csrc/rt_shade.cu``."""
 
     _fields_ = [

@@ -91,6 +91,9 @@ from ptrt_tpu_torch.scene.materials import MaterialTable
 
 RUSSIAN_ROULETTE_MIN_PROB = 0.05
 MAX_BOUNCE_WEIGHT = 50.0
+# ``kernels.launches``' name for the shade_scatter launches that carry the
+# ray count (it has no kernel of its own)
+COUNT_RAYS = "count_rays (in shade_scatter)"
 
 
 @dataclass
@@ -366,13 +369,27 @@ def shade_scatter_plain(ps: PathState, nee: NeeRecord, in_shadow,
     ps.alive = alive
 
 
+def count_rays_plain(rays: torch.Tensor, alive=None, do_nee=None,
+                     casts: int = 0, base: int = 0) -> None:
+    """Plain version of the ray count that ``shade_scatter`` adds into the
+    0-d int64 counter ``rays`` (in place): ``base``, the true lanes of the
+    bool plane ``alive`` and ``casts`` times those of ``do_nee`` (either
+    plane None for none)."""
+    if base:
+        rays += base
+    if alive is not None:
+        rays += alive.sum()
+    if do_nee is not None and casts:
+        rays += do_nee.sum() * casts
+
+
 # -- the kernel wrappers ---------------------------------------------------------
 
 _P3 = ctypes.c_void_p * 3
 _P = ctypes.c_void_p
 
 
-class ShadeArgs(ctypes.Structure):
+class ShadeArgs(kernels.Args):
     """``struct ShadeArgs`` of ``csrc/shade.cu``."""
 
     _fields_ = [
@@ -406,6 +423,9 @@ class ShadeArgs(ctypes.Structure):
         # instances (null without them)
         ("hit_inst", _P), ("inst_e1", _P3), ("inst_e2", _P3),
         ("inst_mats", _P),
+        # the trace's ray count (shade_scatter; null: none)
+        ("rays", _P), ("count_base", ctypes.c_longlong),
+        ("count_casts", ctypes.c_int), ("count_next", ctypes.c_int),
     ]
 
 
@@ -653,12 +673,27 @@ def shade_nee(ps: PathState, geom, k1: traverse.Closest,
 def shade_scatter(ps: PathState, nee: NeeRecord, in_shadow,
                   materials: MaterialTable, bounce: int,
                   rr_enabled: bool = True, rr_start: int = 2,
-                  env_shadow=None) -> None:
+                  env_shadow=None, rays: torch.Tensor | None = None,
+                  casts: int = 0, next_bounce: bool = False,
+                  base: int = 0) -> None:
     """The second stage of a bounce (kernel ``shade_scatter``; with env NEE
     its HDRI instantiation): ``in_shadow`` is K2's answer for ``nee``'s
     light shadow rays (None without lights), ``env_shadow`` for its env
     shadow rays (None without env NEE).  Updates ``ps`` (in place on the
-    card)."""
+    card).
+
+    With ``rays``, the trace's 0-d int64 counter on the state's device, it
+    also counts the bounce's rays into it (the kernel's epilogue; on the
+    CPU ``count_rays_plain`` after the plain stage): ``base``, ``casts``
+    (0-2) shadow rays for each lane with ``nee.do_nee`` and, with
+    ``next_bounce``, the lanes left alive for the next bounce's walk."""
+    if rays is None:
+        if casts or next_bounce or base:
+            raise ValueError("the ray count's arguments come with rays, "
+                             "the trace's counter")
+    elif casts not in (0, 1, 2):
+        raise ValueError(f"casts: {casts!r}, a NEE lane casts 0-2 shadow "
+                         f"rays")
     hit = nee.hit
     inputs = [("point", "hit.point", hit.point, _F32),
               ("normal", "hit.normal", hit.normal, _F32),
@@ -685,17 +720,28 @@ def shade_scatter(ps: PathState, nee: NeeRecord, in_shadow,
                    ("env_c", "env_contrib", nee.env_c, _F32),
                    ("env_cs", "env_contrib_s", nee.env_cs, _F32)]
     n, dev, a = _checked(ps, materials, inputs)
+    if rays is not None:
+        kernels.check_tensor("rays", rays, torch.int64, 0, dev)
     if dev.type == "cpu":
-        return shade_scatter_plain(ps, nee, in_shadow, materials, bounce,
-                                   rr_enabled, rr_start, env_shadow)
+        shade_scatter_plain(ps, nee, in_shadow, materials, bounce,
+                            rr_enabled, rr_start, env_shadow)
+        if rays is not None:
+            count_rays_plain(rays, ps.alive if next_bounce else None,
+                             nee.do_nee if casts else None, casts, base)
+        return
     a.n_lights = int(has_nee)  # > 0: the NEE record is there
     a.env_nee = int(ps.env_nee)
     a.bounce = int(bounce)
     a.rr_enabled, a.rr_start = int(bool(rr_enabled)), int(rr_start)
+    if rays is not None:
+        a.rays, a.count_base = rays.data_ptr(), int(base)
+        a.count_casts, a.count_next = int(casts), int(bool(next_bounce))
     rc = kernels.get_lib().ptrt_shade_scatter(ctypes.addressof(a),
                                               kernels.stream_ptr(dev))
     name = "shade_scatter (hdri)" if ps.env_nee else "shade_scatter"
     kernels.launches[name] += 1
+    if rays is not None:  # the count rode on this launch
+        kernels.launches[COUNT_RAYS] += 1
     kernels.check(rc, name)
 
 

@@ -154,7 +154,7 @@ def accumulate_plain(color: Vec3, view_proj: torch.Tensor, accum,
 _P3 = ctypes.c_void_p * 3
 
 
-class ProgressiveArgs(ctypes.Structure):
+class ProgressiveArgs(kernels.Args):
     """``struct ProgressiveArgs`` of ``csrc/frame.cu``."""
 
     _fields_ = [

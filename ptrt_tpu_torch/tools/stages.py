@@ -11,7 +11,7 @@ Run as a script on a GPU, this file measures one tree's kernels:
     python3 ptrt_tpu_torch/tools/stages.py [--tree DIR] [--out DIR]
                                            [--bloom | --dynamic | --refill]
                                            [--sets N,N,...] [--rt] [--hdri]
-                                           [--frames]
+                                           [--frames] [--glue]
 
 ``--tree DIR`` measures the checkout in ``DIR`` (a variant of this tree or
 a later commit unpacked with ``git archive``, say) in a process of its own
@@ -40,8 +40,15 @@ with this tree in turns.  ``--frames`` measures only one replay of the
 1080p balanced, bench, fast, performance, hdri balanced and ultra frame
 programs and of the fused cube slider's frame at 640x360 "fast"
 (``measure_frames``: device ms, kernels, the counted launches, host ms a
-frame; each profiled behind a spin of the card), so that two trees'
-frames compare on one card.  ``--rt`` measures
+frame, a SHA-256 of the last frame's image and its ray count; each
+profiled behind a spin of the card), so that two trees' frames compare on
+one card.  ``--glue`` measures only the shade_scatter instantiations'
+registers and blocks a SM, both K3 stages at bounces 0-3 of the bench
+(unsplit and split) and hdri wavefronts (``time_shading``: shade_scatter
+with the ray count where the tree's takes it), and K12 at the four
+shapes the main path gives it (``measure_upscale``: queued twice beside
+its bound and ``interpolate``, a SHA-256 of its output).  ``--rt``
+measures
 only the RT frame on the 1080p
 "rt" configuration (``measure_rt``: a digest of its RGB8, the
 frame profiled and split by pass and kernel, host and frame ms, K10's
@@ -83,6 +90,8 @@ The card's name and power limit lead the output; the last line is JSON.
 from __future__ import annotations
 
 import argparse
+import hashlib
+import inspect
 import json
 import os
 import re
@@ -821,7 +830,8 @@ def time_shading(sc, split: bool, depth: int = DEPTH,
                  clones: int = 11) -> list:
     """``shade_nee`` and ``shade_scatter`` on the wavefront of each bounce
     of sample 0 of ``sc``'s camera, as ``trace_path`` runs them (K1 through
-    the alive plane, the kernels' own state and record carried on): a
+    the alive plane, the kernels' own state and record carried on,
+    ``shade_scatter`` counting the rays where the tree's does): a
     wrapper call (CUDA events) and the kernel alone (profiler) over fresh
     copies of the state, and the bytes the wavefront must move, counted
     from the plain stages run on a copy.  Under an HDRI with sampling
@@ -844,6 +854,10 @@ def time_shading(sc, split: bool, depth: int = DEPTH,
                                    sc._blue_noise)
     ps = shade.PathState.start(ray, st, split, **env_kw(env_nee=True))
     shade.check_state(ps, mats)
+    # shade_scatter counts the trace's rays where the tree's takes them
+    counted = "rays" in inspect.signature(shade.shade_scatter).parameters
+    counter = torch.zeros((), dtype=torch.int64, device=st.device)
+    casts = int(env) + int(n_lights > 0)
 
     def fresh(state):  # checked once, as trace_path does
         out = [state.clone() for _ in range(clones)]
@@ -888,8 +902,13 @@ def time_shading(sc, split: bool, depth: int = DEPTH,
             times["env_any_hit"] = {
                 "ms": cuda_ms(lambda: env_walk(kn), 20), "live": live,
                 **walk_bound(g, kn.env_t.numel(), live, 4, True)}
+        count = (dict(rays=counter, casts=casts,
+                      next_bounce=bounce + 1 < depth,
+                      base=ps.alive.numel() if bounce == 0 else 0)
+                 if counted else {})
         sca = lambda s: shade.shade_scatter(s, kn, occl, mats, bounce, True,
-                                            rr, **env_kw(env_shadow=env_occl))
+                                            rr, **env_kw(env_shadow=env_occl),
+                                            **count)
         before = pa.clone()
         shade.shade_scatter_plain(pa, pn, occl_p, mats, bounce, True, rr,
                                   **env_kw(env_shadow=env_occl_p))
@@ -1044,13 +1063,17 @@ def measure_frames(tag: str, card: str) -> dict:
                           lead_cycles=SPIN_CYCLES)
         del r["names"], r["kernels"]  # the line stays short
         kernels.clear_counts()
-        render()
+        img = render()
         r["counts"] = dict(kernels.counts())
+        r["rgb8_sha256"] = digest(img)[:16]
+        r["rays"] = (int(sc.last_frame.rays_traced)
+                     if render == sc.render_frame else None)
         out["frames"][name] = r
         log(f"{name} frame: device {r['device_ms']:.3f} ms in "
             f"{r['launches']} kernels; frames "
             f"{[round(t, 2) for t in r['frame_ms']]} ms; counted "
-            f"{r['counts']} [{card}]")
+            f"{r['counts']}; last image {r['rgb8_sha256']}, rays "
+            f"{r['rays']} [{card}]")
 
     sc = build_bench_scene(W, H, target_tris=TRIS, device="cuda")
     sc.set_performance_preset("balanced")
@@ -1089,6 +1112,106 @@ def measure_frames(tag: str, card: str) -> dict:
     frame("hdri balanced", sc)
     sc.set_performance_preset("ultra")
     frame("ultra", sc, timed=1)
+    return out
+
+
+def digest(*arrays) -> str:
+    """SHA-256 of tensors' or arrays' bytes, in order."""
+    import numpy as np
+    import torch
+
+    h = hashlib.sha256()
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+# K12's shapes on the main path: the fused games' "fast" 224x125 ->
+# 640x360 and 112x62 -> 320x180, the scenes' "fast" 672x378 and
+# "performance" 1440x810 -> 1920x1080
+UPSCALES = (((125, 224), (360, 640)), ((62, 112), (180, 320)),
+            ((378, 672), (1080, 1920)), ((810, 1440), (1080, 1920)))
+
+
+def measure_upscale(log, card: str) -> dict:
+    """K12 at ``UPSCALES``, on seeded lognormal planes: queued twice (20
+    calls behind a spin) beside its bound (each plane read and written
+    once) and ``interpolate`` of the stacked planes, and a SHA-256 of its
+    output, so that two trees' designs compare bit for bit."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ptrt_tpu_torch.core.vec import Vec3
+    from ptrt_tpu_torch.render import pipeline
+
+    rng = np.random.default_rng(24)
+    out = {}
+    for (ih, iw), (oh, ow) in UPSCALES:
+        img = Vec3(*[torch.from_numpy(rng.lognormal(-1.0, 1.5, (ih, iw))
+                                      .astype(np.float32)).cuda()
+                     for _ in range(3)])
+        stacked = torch.stack([img.x, img.y, img.z])[None]
+        up = lambda _: pipeline.upscale_bilinear(img, oh, ow)
+        lib = lambda _: F.interpolate(stacked, size=(oh, ow),
+                                      mode="bilinear", align_corners=False)
+        got = up(None)
+        r = {"queued_ms": [clones_ms(up, [None] * 21, SPIN_CYCLES)
+                           for _ in range(2)],
+             "library_ms": [clones_ms(lib, [None] * 21, SPIN_CYCLES)
+                            for _ in range(2)],
+             "sha256": digest(got.x, got.y, got.z)[:16],
+             **bound(12 * (ih * iw + oh * ow))}
+        tag = f"{iw}x{ih} -> {ow}x{oh}"
+        out[tag] = r
+        log(f"upscale_bilinear {tag}: queued "
+            f"{' / '.join(f'{t:.4f}' for t in r['queued_ms'])} ms, "
+            f"interpolate {' / '.join(f'{t:.4f}' for t in r['library_ms'])}"
+            f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); output "
+            f"{r['sha256']} [{card}]")
+    return out
+
+
+def measure_glue(tag: str, card: str) -> dict:
+    """The glue kernels' measurements for turns with another tree:
+    ``measure_upscale``, the shade_scatter instantiations' registers and
+    blocks a SM, and both K3 stages at bounces 0-3 of the bench (unsplit,
+    split) and hdri (split) wavefronts with ``time_shading``."""
+    from ptrt_tpu_torch.app.bench_scene import build_bench_scene
+    from ptrt_tpu_torch.render import shade
+
+    log = lambda *a: say(f"[{tag}]", *a)
+    out = {"tag": tag, "card": card,
+           "upscale": measure_upscale(log, card)}
+    sc = build_bench_scene(W, H, target_tris=TRIS, device="cuda")
+    sc.set_performance_preset("balanced")
+    sc.perf.samples_per_pixel = 1
+    sc.render_frame()
+    info = {**shade.kernel_info(sc._mat_table, sc._light_table),
+            **shade.kernel_info(sc._mat_table, sc._light_table, True)}
+    out["scatter"] = {k: (v["registers"], v["blocks_per_sm"])
+                      for k, v in info.items() if "scatter" in k}
+    log(f"shade_scatter registers and blocks a SM: {out['scatter']}")
+    out["shading"] = {}
+    for name, scene, splits in (("bench", sc, (False, True)),
+                                ("hdri", None, (True,))):
+        if scene is None:
+            scene = hdri_scene()
+            scene.render_frame()
+        for split in splits:
+            rows = time_shading(scene, split)
+            out["shading"][f"{name} split={split}"] = rows
+            for k in ("shade_nee", "shade_scatter"):
+                log(f"{name} split={split} {k} queued (bounces 0-3): "
+                    + " / ".join(f"{r[k]['queued_ms']:.4f}" for r in rows)
+                    + " ms, kernel "
+                    + " / ".join(f"{r[k]['kernel_ms'] or float('nan'):.4f}"
+                                 for r in rows)
+                    + " ms, bound "
+                    + " / ".join(f"{r[k]['bound_ms']:.4f}" for r in rows)
+                    + f" ms [{card}]")
     return out
 
 
@@ -1805,6 +1928,9 @@ def main(argv) -> int:
                     help="measure only one replay of the balanced, bench, "
                     "fast, performance, hdri and ultra frame programs and "
                     "of a fused game frame")
+    ap.add_argument("--glue", action="store_true",
+                    help="measure only the K3 stages at bounces 0-3 (the "
+                    "ray count in shade_scatter) and K12")
     args = ap.parse_args(argv)
     say.out = args.out and os.path.abspath(args.out)
     here = os.path.abspath(__file__)
@@ -1815,7 +1941,7 @@ def main(argv) -> int:
             [sys.executable, here] + ["--bloom"] * args.bloom
             + ["--dynamic"] * args.dynamic + ["--refill"] * args.refill
             + ["--rt"] * args.rt + ["--hdri"] * args.hdri
-            + ["--frames"] * args.frames
+            + ["--frames"] * args.frames + ["--glue"] * args.glue
             + (["--sets", args.sets] if args.sets else []),
             cwd=tree,
             stdout=subprocess.PIPE, text=True,
@@ -1848,10 +1974,12 @@ def main(argv) -> int:
         say(json.dumps(measure_rt(tag, card)))
     if args.hdri:
         say(json.dumps(measure_hdri_only(tag, card)))
+    if args.glue:
+        say(json.dumps(measure_glue(tag, card)))
     if args.frames:
         say(json.dumps(measure_frames(tag, card)))
     if not (args.refill or args.dynamic or args.sets or args.rt
-            or args.hdri or args.frames):
+            or args.hdri or args.frames or args.glue):
         say(json.dumps(measure(tag, card, args.bloom)))
     return 0
 

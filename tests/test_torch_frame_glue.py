@@ -1,7 +1,8 @@
 """The frame's glue as K12 and K13: the plain versions of
-``upscale_bilinear`` (K12, ``csrc/upscale.cu``), ``count_rays``,
-``sample_sums`` and ``progressive_average`` (K13, ``csrc/frame.cu``), and
-their dispatching entry points on the CPU.
+``upscale_bilinear`` (K12, ``csrc/upscale.cu``), the ray count (K13, in
+``shade_scatter``'s kernel, ``csrc/shade.cu``), ``sample_sums`` and
+``progressive_average`` (K13, ``csrc/frame.cu``), and their dispatching
+entry points on the CPU.
 
 On the card each entry point launches its hand-written kernel, which
 ``chip_smoke.py`` (phase 22) holds bit for bit to the plain version there;
@@ -10,26 +11,40 @@ to the composition it replaced (a copy of that code, kept in this file) bit
 for bit, and to the JAX reference where it has a counterpart:
 
 * the upscale's cached tap tables give the former ``_resize_axis``'s
-  result bit for bit, and the upscale is held to the reference's
+  result bit for bit, their int32 copy (what K12 reads) is the int64
+  index, and the upscale is held to the reference's
   ``upscale_bilinear`` (``jax.image.resize``, eager) at the games' and the
   presets' ratios and at odd sizes, within rtol 1e-5 and atol 1e-6
   (tests/test_torch_post.py's tolerance for it);
-* a 64x48 frame's ``rays_traced`` (one count a bounce, after
+* a 64x48 frame's ``rays_traced`` (one count a bounce, in
   ``shade_scatter``) is the int the former count (the live lanes before
   each K1, the NEE lanes after each ``shade_nee``) gives, and within 0.5%
   of the reference's float32 count (tests/test_torch_slice.py's bound), on
   the reference's own tables (136 triangles: the reference intersects by
-  brute force; its frame compiles in ~10 s);
+  brute force; its frame compiles in ~10 s); so is ``trace_path``'s,
+  unsplit, split and with env NEE (the HDRI scene of
+  test_torch_env_frame.py, its reference frame another ~10 s);
+* ``shade_scatter`` with the count's arguments leaves the state the plain
+  stage leaves and adds what ``count_rays_plain`` adds after it, at bounce
+  0 (with the base), a middle bounce and the last (no next walk), unsplit,
+  split and with env NEE (two shadow rays a NEE lane); no lane dead on
+  entry has ``do_nee``; the wrapper refuses a counter that is not a 0-d
+  int64 on the state's device and ``casts`` outside 0-2;
 * the sample sums (with NaN, inf and luminance above 100, split and not)
   and the progressive average (the same view-projection, another, keep 0,
   a restart) give the former composition's bits, and so do whole frames;
 * each new entry point refuses a CUDA request on a machine without CUDA
   and, for CPU tensors, takes its plain version without building or
-  loading the kernel library.
+  loading the kernel library;
+* every kernel argument structure (``kernels.Args``) refuses a field it
+  does not have.
 
-The file runs in ~20 s on one CPU core (~12 s of it the reference's frame
-program).
+The file runs in ~40 s on one CPU core (~25 s of it the reference's two
+frame programs).
 """
+
+import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -47,10 +62,14 @@ from ptrt_tpu_torch import kernels, tables
 from ptrt_tpu_torch.app.bench_scene import build_bench_scene
 from ptrt_tpu_torch.core import rng as prng
 from ptrt_tpu_torch.core.vec import Vec3, clamp_vector_soft, where
-from ptrt_tpu_torch.render import integrator, pipeline, traverse
-from ptrt_tpu_torch.render.shade import PathState, shade_nee, shade_scatter
+from ptrt_tpu_torch.render import (bloom, denoiser, integrator, motion,
+                                   pipeline, rt_shading, shade, traverse)
+from ptrt_tpu_torch.render.shade import (NeeRecord, PathState,
+                                         count_rays_plain, shade_nee,
+                                         shade_scatter)
 from ptrt_tpu_torch.scene import pt_scene
-from test_torch_env_frame import build
+from ptrt_tpu_torch.scene.materials import MaterialTable
+from test_torch_env_frame import _ref_trace, build, ref_scene
 from test_torch_shading import torch_one_thread  # noqa: F401
 from test_torch_slice import ref_np
 
@@ -138,6 +157,24 @@ def test_taps_give_the_former_resize(src, dst):
     assert got.x.shape == dst and same_bits(got, want)
 
 
+# the shapes K12 takes on the main path (the games' 224x125 -> 640x360 and
+# 112x62 -> 320x180, the scenes' 672x378 and 1440x810 -> 1920x1080) and a
+# 1x1 and a 2x3 source
+INDEX32_UPSCALES = [((125, 224), (360, 640)), ((62, 112), (180, 320)),
+                    ((378, 672), (1080, 1920)), ((810, 1440), (1080, 1920)),
+                    ((1, 1), (360, 640)), ((2, 3), (360, 640))]
+
+
+@pytest.mark.parametrize("src,dst", INDEX32_UPSCALES,
+                         ids=_ids(INDEX32_UPSCALES))
+def test_int32_taps_are_the_index(src, dst):
+    for n, m in zip(src, dst):
+        taps = pipeline.resize_taps(n, m, CPU)
+        assert taps.index32.dtype == torch.int32
+        assert taps.index32.shape == taps.index.shape == (2, m)
+        assert torch.equal(taps.index32.long(), taps.index)
+
+
 def test_taps_are_made_once_a_size_and_device():
     a = pipeline.resize_taps(62, 180, CPU)
     assert pipeline.resize_taps(62, 180, "cpu") is a
@@ -198,26 +235,57 @@ def frame():
             "ref_state": np.asarray(ref_state), "state": state, "bufs": bufs}
 
 
-def _former_count(port, n_lights):
+@pytest.fixture(scope="module")
+def env_frame():
+    """The reference's 64x48 HDRI frame of test_torch_env_frame.py (env NEE
+    and two lights, 2 spp, depth 3) and the port's tables of it."""
+    sc = ref_scene()
+    _, ref = _ref_trace(sc, False)
+    port = tables.from_reference(
+        device=CPU, geometry=ref_np(sc._geom),
+        materials=ref_np(sc._mat_table), lights=ref_np(sc._light_table),
+        sky=ref_np(sc._sky()), camera=ref_np(sc.camera),
+        rng_state=np.asarray(sc._rng_state),
+        blue_noise=np.asarray(sc._blue_noise))
+    return {"port": port, "n_lights": len(sc.lights), "ref": ref}
+
+
+def _walks(port, nee, n_lights):
+    """K2's answers for a NEE record: the light's shadow rays, the env's."""
+    g = port["geometry"]
+    in_shadow = (traverse.any_hit(g, nee.shadow_o, nee.shadow_d,
+                                  nee.shadow_t) if n_lights else None)
+    env = (traverse.any_hit(g, nee.env_o, nee.env_d, nee.env_t)
+           if nee.env_t is not None else None)
+    return in_shadow, env
+
+
+def _sample(port, s, split):
+    sub, ray = pipeline.camera_rays(port["camera"], port["rng_state"], 0, s,
+                                    port["blue_noise"])
+    return PathState.start(ray, sub, split,
+                           env_nee=port["sky"].has_env_sampling)
+
+
+def _former_count(port, n_lights, split=False):
     """The frame's rays as the bounce loop counted them before: each
-    bounce's live lanes before K1 and its NEE lanes after ``shade_nee``
-    (a shadow ray each for the light; the gradient sky has no env NEE)."""
+    bounce's live lanes before K1 and its NEE lanes after ``shade_nee`` (a
+    shadow ray each for the light and, with env NEE, the env sample)."""
     rays = 0
     sky = port["sky"]
+    casts = int(sky.has_env_sampling) + int(n_lights > 0)
     for s in range(SPP):
-        sub, ray = pipeline.camera_rays(port["camera"], port["rng_state"], 0,
-                                        s, port["blue_noise"])
-        ps = PathState.start(ray, sub, False)
+        ps = _sample(port, s, split)
         for bounce in range(DEPTH):
             rays += int(ps.alive.sum())
             k1 = traverse.closest_hit_live(port["geometry"], ps.o, ps.d,
                                            ps.alive)
             nee = shade_nee(ps, port["geometry"], k1, port["materials"],
                             port["lights"], n_lights, sky, bounce)
-            rays += int(nee.do_nee.sum())
-            occluded = traverse.any_hit(port["geometry"], nee.shadow_o,
-                                        nee.shadow_d, nee.shadow_t)
-            shade_scatter(ps, nee, occluded, port["materials"], bounce)
+            rays += casts * int(nee.do_nee.sum())
+            in_shadow, env = _walks(port, nee, n_lights)
+            shade_scatter(ps, nee, in_shadow, port["materials"], bounce,
+                          env_shadow=env)
     return rays
 
 
@@ -232,17 +300,129 @@ def test_rays_traced_as_before_and_as_the_reference(frame):
                           frame["state"].numpy().astype(np.uint32))
 
 
+@pytest.mark.parametrize("config", ["unsplit", "split", "env NEE"])
+def test_trace_path_rays_as_before_and_as_the_reference(config, frame,
+                                                        env_frame):
+    """``trace_path``'s count, summed over the frame's samples: the former
+    count's int and the reference frame's count within 0.5% (a split trace
+    takes the unsplit one's paths)."""
+    src = env_frame if config == "env NEE" else frame
+    port, n_lights = src["port"], src["n_lights"]
+    split = config == "split"
+    rays = 0
+    for s in range(SPP):
+        sub, ray = pipeline.camera_rays(port["camera"], port["rng_state"], 0,
+                                        s, port["blue_noise"])
+        _, out = integrator.trace_path(
+            port["geometry"], port["materials"], port["lights"], n_lights,
+            port["sky"], ray, sub, DEPTH, split=split, own_ray=True)
+        assert out.rays_traced.dtype == torch.int64
+        rays += int(out.rays_traced)
+    assert rays == _former_count(port, n_lights, split)
+    r = float(src["ref"].rays_traced)
+    assert abs(rays - r) <= 0.005 * r, (rays, r)
+
+
+def _same_state(a: PathState, b: PathState) -> bool:
+    return all(same_bits(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(PathState))
+
+
+# (configuration, the bounce at which the count is held): a middle bounce
+# unsplit, split and with env NEE (two shadow rays a NEE lane), bounce 0
+# (its base: the camera walk took every lane) and the last bounce (no next
+# walk to count)
+COUNT_CASES = {"unsplit": ("unsplit", 1), "split": ("split", 1),
+               "env NEE": ("env NEE", 1), "bounce 0": ("unsplit", 0),
+               "last bounce": ("env NEE", DEPTH - 1)}
+
+
+@pytest.mark.parametrize("case", list(COUNT_CASES))
+def test_shade_scatter_counts_as_the_plain_count_after_the_plain_stage(
+        case, frame, env_frame):
+    config, stop = COUNT_CASES[case]
+    src = env_frame if config == "env NEE" else frame
+    port, n_lights = src["port"], src["n_lights"]
+    g, mats, sky = port["geometry"], port["materials"], port["sky"]
+    casts = int(sky.has_env_sampling) + int(n_lights > 0)
+    assert casts == (2 if config == "env NEE" else 1)
+    ps = _sample(port, 1, config == "split")
+    for bounce in range(stop + 1):
+        k1 = traverse.closest_hit_live(g, ps.o, ps.d, ps.alive)
+        nee = shade_nee(ps, g, k1, mats, port["lights"], n_lights, sky,
+                        bounce)
+        in_shadow, env = _walks(port, nee, n_lights)
+        if bounce < stop:
+            shade_scatter(ps, nee, in_shadow, mats, bounce, env_shadow=env)
+    # the record's contract: no lane dead on entry casts a shadow ray
+    assert not bool((nee.do_nee & ~ps.alive).any())
+    assert int(nee.do_nee.sum()) > 0
+    count = dict(casts=casts, next_bounce=stop + 1 < DEPTH,
+                 base=ps.alive.numel() if stop == 0 else 0)
+    got, want = ps.clone(), ps.clone()
+    got_rays = torch.tensor(11, dtype=torch.int64)
+    want_rays = got_rays.clone()
+    shade_scatter(got, nee, in_shadow, mats, stop, env_shadow=env,
+                  rays=got_rays, **count)
+    shade.shade_scatter_plain(want, nee, in_shadow, mats, stop, True, 2,
+                              env)
+    count_rays_plain(want_rays, want.alive if count["next_bounce"] else None,
+                     nee.do_nee, casts, count["base"])
+    assert _same_state(got, want)
+    assert got_rays.dtype == torch.int64 and got_rays.dim() == 0
+    assert int(got_rays) == int(want_rays)
+    # what it counted: the base, the NEE lanes' shadow rays and the lanes
+    # left for the next walk
+    assert int(got_rays) == 11 + count["base"] + casts * int(
+        nee.do_nee.sum()) + (int(want.alive.sum()) if count["next_bounce"]
+                             else 0)
+
+
+def _count_call(dev, **count):
+    """``shade_scatter`` on 12 lanes of ``dev`` with the count's
+    arguments (a NEE record without lights or env)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    v = lambda: Vec3(*[torch.ones(12, **f32) for _ in range(3)])
+    flag = lambda val: torch.full((12,), val, dtype=torch.bool, device=dev)
+    ray = pipeline.RayBatch(v(), v(), flag(False))
+    ps = PathState.start(ray, torch.zeros(12, dtype=torch.int64,
+                                          device=dev), False)
+    hit = traverse.Hit(hit=flag(True), t=torch.ones(12, **f32), point=v(),
+                       normal=v(), front_face=flag(True),
+                       mesh_index=torch.zeros(12, dtype=torch.int32,
+                                              device=dev),
+                       u=torch.zeros(12, **f32), v=torch.zeros(12, **f32))
+    nee = NeeRecord(hit, flag(True), *[None] * 6)
+    shade_scatter(ps, nee, None, MaterialTable(torch.zeros((1, 32), **f32)),
+                  0, **count)
+
+
+@pytest.mark.parametrize("count,error", [
+    (dict(rays=torch.zeros(1, dtype=torch.int64)), "0-D"),
+    (dict(rays=torch.zeros((), dtype=torch.int32)), "int64"),
+    (dict(rays=torch.zeros((), dtype=torch.int64, device="meta")),
+     "expected cpu"),
+    (dict(rays=torch.zeros((), dtype=torch.int64), casts=3), "0-2"),
+    (dict(rays=torch.zeros((), dtype=torch.int64), casts=-1), "0-2"),
+    (dict(casts=1, base=12), "come with rays")],
+    ids=["1-d", "int32", "another device", "casts 3", "casts -1",
+         "no counter"])
+def test_the_count_refuses(count, error):
+    with pytest.raises((TypeError, ValueError), match=error):
+        _count_call(CPU, **count)
+
+
 @pytest.mark.parametrize("casts", [0, 1, 2])
 def test_count_rays_plain(casts):
     r = np.random.default_rng(casts)
     alive = torch.from_numpy(r.random(1001) < 0.3)
     do_nee = torch.from_numpy(r.random(1001) < 0.6)
     rays = torch.tensor(7, dtype=torch.int64)
-    integrator.count_rays(rays, alive, do_nee, casts, base=5)
+    count_rays_plain(rays, alive, do_nee, casts, base=5)
     assert int(rays) == (7 + 5 + int(torch.count_nonzero(alive))
                          + casts * int(torch.count_nonzero(do_nee)))
-    integrator.count_rays(rays, None, None, 2, base=0)
-    integrator.count_rays(rays, torch.zeros(9, dtype=torch.bool))
+    count_rays_plain(rays, None, None, 2, base=0)
+    count_rays_plain(rays, torch.zeros(9, dtype=torch.bool))
     assert int(rays) == (12 + int(torch.count_nonzero(alive))
                          + casts * int(torch.count_nonzero(do_nee)))
 
@@ -408,9 +588,10 @@ def _calls(dev):
     return {
         "upscale_bilinear": lambda: pipeline.upscale_bilinear(v((3, 4)), 6,
                                                               8),
-        "count_rays": lambda: integrator.count_rays(
-            torch.zeros((), dtype=torch.int64, device=dev),
-            torch.ones(12, dtype=torch.bool, device=dev)),
+        # the ray count: shade_scatter's counting call
+        "count_rays": lambda: _count_call(
+            dev, rays=torch.zeros((), dtype=torch.int64, device=dev),
+            casts=1, next_bounce=True, base=12),
         "sample_sums": lambda: pipeline.sample_sums(
             None, PathState.start(ray, rng.reshape(-1), False), 0, 1, rng),
         "progressive_average": lambda: pt_scene.accumulate(
@@ -439,3 +620,34 @@ def test_a_cuda_request_without_cuda_is_refused(kernel, no_kernels,
         call = _calls(torch.device("cuda", 0))[kernel]
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+# -- the kernels' argument structures ----------------------------------------------
+
+ARGS = [(mod, name) for mod in (bloom, denoiser, motion, pipeline,
+                                rt_shading, shade, pt_scene)
+        for name, cls in sorted(vars(mod).items())
+        if isinstance(cls, type) and issubclass(cls, ctypes.Structure)
+        and cls.__module__ == mod.__name__]
+
+
+def test_every_argument_structure_checks_its_fields():
+    assert len(ARGS) == 16
+    for mod, name in ARGS:
+        assert issubclass(getattr(mod, name), kernels.Args), name
+
+
+@pytest.mark.parametrize("mod,name", ARGS,
+                         ids=[name for _, name in ARGS])
+def test_an_argument_structure_refuses_a_misspelt_field(mod, name):
+    cls = getattr(mod, name)
+    a = cls()
+    field, kind = cls._fields_[0][:2]
+    value = 3 if issubclass(kind, (ctypes.c_int, ctypes.c_longlong,
+                                   ctypes.c_void_p)) else None
+    if value is not None:
+        setattr(a, field, value)  # its own fields it takes
+        assert getattr(a, field) == value
+    with pytest.raises(AttributeError, match="no field"):
+        setattr(a, f"{field}_", 1)
+    assert not hasattr(a, f"{field}_")
