@@ -1,0 +1,10 @@
+"""Device milliseconds a frame of the kernels ``layers/*.json`` map to
+``glue_ms``, and of every kernel no layer file maps, over the profiled stretch."""
+
+
+def read(run):
+    p = run.profile
+    if p is None:
+        return None
+    ms = p.buckets_ms.get("glue_ms", 0.0)
+    return ms if ms > 0.0 else None
