@@ -4145,10 +4145,10 @@ def program_runs(sc) -> dict:
 
 def program_stats(sc, runs0: dict) -> list:
     """Each program of ``sc`` that ran since ``program_runs`` gave
-    ``runs0``: its kind, capture s, pool bytes, the kernels one replay
-    launches and the frames it ran."""
+    ``runs0``: its kind, pool bytes, the kernels one replay launches and
+    the frames it ran (its capture's seconds are the ``program.capture``
+    span's, with ``utils.logging.tracing`` on)."""
     return [{"kind": k[0] if isinstance(k[0], str) else "rt frame",
-             "capture_s": p.stats["capture_s"],
              "pool_bytes": p.stats["pool_bytes"],
              "launches": sum(p.launches.values()),
              "frames": p.runs - runs0.get(k, 0)}

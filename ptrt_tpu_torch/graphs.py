@@ -30,7 +30,6 @@ import collections
 import dataclasses
 import gc
 import itertools
-import time
 import weakref
 from typing import Callable
 
@@ -39,6 +38,7 @@ import torch
 
 from ptrt_tpu_torch import kernels
 from ptrt_tpu_torch.core.vec import Vec3
+from ptrt_tpu_torch.utils.logging import span
 
 # -- trees of tensors ----------------------------------------------------------
 
@@ -206,9 +206,9 @@ def capture_frame(body: Callable, warmup: Callable, device,
     a new ``torch.cuda.CUDAGraph`` with its own memory pool.  Returns
     (graph, what ``body`` returned, the kernel launches one replay makes:
     the wrappers' counts during the capture, which records kernels and
-    launches none).  ``stats``: receives "capture_s" (the capture alone)
-    and "pool_bytes" (the memory the card reserved for it).  Raises if the
-    capture fails: there is no eager fall-back."""
+    launches none).  ``stats``: receives "pool_bytes" (the memory the card
+    reserved for the graph).  Raises if the capture fails: there is no
+    eager fall-back."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
@@ -223,13 +223,11 @@ def capture_frame(body: Callable, warmup: Callable, device,
     gc.collect()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
-    t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
     with kernels.recorded() as recorded:
         with torch.cuda.graph(graph):
             out = body()
     if stats is not None:
-        stats["capture_s"] = time.perf_counter() - t0
         stats["pool_bytes"] = torch.cuda.memory_reserved(device) - reserved
     return graph, out, collections.Counter(recorded)
 
@@ -366,7 +364,8 @@ class Program:
     ``values``, host numbers staged on the device (``HostValues``; None
     for none).  It writes nothing else.  The program's buffers are its
     own: copies of ``reads`` and ``state`` made at creation, but for the
-    ``Shared`` leaves of ``reads``, which it reads where they lie.  A
+    ``Shared`` leaves of ``reads``, which it reads where they lie (on the
+    card the warm-up and capture are the span ``program.capture``).  A
     caller's tensor is never written, and one it held earlier and puts
     back is a change like any other.
 
@@ -382,7 +381,9 @@ class Program:
     side stream), whose outputs are static (the next run overwrites
     them); on the CPU it calls the body on the buffers.  Either way it
     writes the new state into the state buffers, and returns the
-    outputs."""
+    outputs.  Its spans: ``program.refresh`` (the copies in),
+    ``program.stage`` and ``program.replay`` (on the CPU the body's
+    call)."""
 
     def __init__(self, body: Callable, reads: dict, state, values, device,
                  edited: tuple = ()):
@@ -402,12 +403,13 @@ class Program:
         self.graph = None
         self.outputs = None
         self.launches = collections.Counter()
-        self.stats = {"capture_s": 0.0, "pool_bytes": 0}
+        self.stats = {"pool_bytes": 0}
         self.runs = 0  # frames run
         if self.device.type == "cuda":
-            self.graph, self.outputs, self.launches = capture_frame(
-                lambda: self._call(True), lambda: self._call(False),
-                self.device, self.stats)
+            with span("program.capture"):
+                self.graph, self.outputs, self.launches = capture_frame(
+                    lambda: self._call(True), lambda: self._call(False),
+                    self.device, self.stats)
 
     def _call(self, write_back: bool):
         out, new_state = self.body(self.reads, self.state, self._staged)
@@ -436,12 +438,15 @@ class Program:
 
     def run(self, reads: dict, state, values):
         self.runs += 1
-        self._refresh(reads, state)
+        with span("program.refresh"):
+            self._refresh(reads, state)
         if values is not None:
-            self._values.stage(values)
-        if self.graph is None:
-            return self._call(True)
-        self.graph.replay()
+            with span("program.stage"):
+                self._values.stage(values)
+        with span("program.replay"):
+            if self.graph is None:
+                return self._call(True)
+            self.graph.replay()
         kernels.replays.update(self.launches)
         return self.outputs
 

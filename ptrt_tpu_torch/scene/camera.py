@@ -14,6 +14,7 @@ from ptrt_tpu_torch.core import mat as m4
 from ptrt_tpu_torch.core import rng as prng
 from ptrt_tpu_torch.core.vec import PI, Vec3, cross, normalize
 from ptrt_tpu_torch.render.ray import RayBatch
+from ptrt_tpu_torch.utils.logging import span
 
 
 @dataclass(frozen=True)
@@ -41,37 +42,42 @@ class Camera:
         """Points and numbers from the host, or 0-d float32 tensors (and
         Vec3s of them) on ``device``, as ``set_position`` passes.  The
         host numbers reach the device in one copy (``_on_device``: a
-        camera move makes no synchronizing call)."""
+        camera move makes no synchronizing call).  Spans: ``camera.stage``
+        (that copy), ``camera.math`` (the rest)."""
         leaves = []
         for p in (lookfrom, lookat, vup):
             leaves += [p.x, p.y, p.z] if isinstance(p, Vec3) else [p[0], p[1],
                                                                     p[2]]
         vals = _on_device(leaves + [vfov, aspect_ratio, focus_dist, aperture,
                                     znear, zfar], device)
-        lookfrom, lookat, vup = (Vec3(*vals[k:k + 3]) for k in (0, 3, 6))
-        vfov, aspect_ratio, focus_dist, aperture_t, near_t, far_t = vals[9:]
+        with span("camera.math"):
+            lookfrom, lookat, vup = (Vec3(*vals[k:k + 3])
+                                     for k in (0, 3, 6))
+            (vfov, aspect_ratio, focus_dist, aperture_t, near_t,
+             far_t) = vals[9:]
 
-        theta = vfov * (PI / 180.0)
-        h = torch.tan(theta / 2.0)
-        viewport_height = 2.0 * h
-        viewport_width = aspect_ratio * viewport_height
+            theta = vfov * (PI / 180.0)
+            h = torch.tan(theta / 2.0)
+            viewport_height = 2.0 * h
+            viewport_width = aspect_ratio * viewport_height
 
-        w = normalize(lookfrom - lookat)
-        u = normalize(cross(vup, w))
-        v = cross(w, u)
+            w = normalize(lookfrom - lookat)
+            u = normalize(cross(vup, w))
+            v = cross(w, u)
 
-        horizontal = u * (focus_dist * viewport_width)
-        vertical = v * (focus_dist * viewport_height)
-        llc = lookfrom - horizontal * 0.5 - vertical * 0.5 - w * focus_dist
+            horizontal = u * (focus_dist * viewport_width)
+            vertical = v * (focus_dist * viewport_height)
+            llc = (lookfrom - horizontal * 0.5 - vertical * 0.5
+                   - w * focus_dist)
 
-        view = m4.look_at(lookfrom, lookat, vup)
-        proj = m4.perspective(theta, aspect_ratio, znear, zfar)
-        return Camera(origin=lookfrom, lower_left_corner=llc,
-                      horizontal=horizontal, vertical=vertical, u=u, v=v, w=w,
-                      lens_radius=aperture_t / 2.0, view=view, proj=proj,
-                      inv_view_proj=m4.inverse(proj @ view), fov=vfov,
-                      aspect=aspect_ratio, near_clip=near_t,
-                      far_clip=far_t)
+            view = m4.look_at(lookfrom, lookat, vup)
+            proj = m4.perspective(theta, aspect_ratio, znear, zfar)
+            return Camera(origin=lookfrom, lower_left_corner=llc,
+                          horizontal=horizontal, vertical=vertical, u=u, v=v,
+                          w=w, lens_radius=aperture_t / 2.0, view=view,
+                          proj=proj, inv_view_proj=m4.inverse(proj @ view),
+                          fov=vfov, aspect=aspect_ratio, near_clip=near_t,
+                          far_clip=far_t)
 
     def ray_through(self, s: float, t: float):
         """Host-side pinhole ray through viewport coords (s, t) in [0, 1]^2:
@@ -139,17 +145,19 @@ class Camera:
 def _on_device(values: list, device) -> list:
     """0-d float32 tensors on ``device`` of ``values`` (host numbers, or 0-d
     tensors kept as they are): the host numbers, rounded to float32, in
-    one copy, on the card from pinned memory without waiting for it."""
-    device = torch.device(device)
-    host = [float(v) for v in values if not torch.is_tensor(v)]
-    staged = iter(())
-    if host:
-        buf = torch.tensor(host, dtype=torch.float32)
-        buf = (buf.pin_memory().to(device, non_blocking=True)
-               if device.type == "cuda" else buf.to(device))
-        staged = iter(buf.unbind(0))
-    return [torch.as_tensor(v, dtype=torch.float32, device=device)
-            if torch.is_tensor(v) else next(staged) for v in values]
+    one copy, on the card from pinned memory without waiting for it (the
+    span ``camera.stage``)."""
+    with span("camera.stage"):
+        device = torch.device(device)
+        host = [float(v) for v in values if not torch.is_tensor(v)]
+        staged = iter(())
+        if host:
+            buf = torch.tensor(host, dtype=torch.float32)
+            buf = (buf.pin_memory().to(device, non_blocking=True)
+                   if device.type == "cuda" else buf.to(device))
+            staged = iter(buf.unbind(0))
+        return [torch.as_tensor(v, dtype=torch.float32, device=device)
+                if torch.is_tensor(v) else next(staged) for v in values]
 
 
 def _as_vec3(x, device) -> Vec3:

@@ -48,6 +48,7 @@ from ptrt_tpu_torch.scene.camera import Camera, pixel_grid
 from ptrt_tpu_torch.scene.lights import Light, LightTable
 from ptrt_tpu_torch.scene.materials import Material, MaterialTable
 from ptrt_tpu_torch.utils.imageio import save_ppm
+from ptrt_tpu_torch.utils.logging import gpu_frame, span
 
 
 def _merged_refit_plans(entries) -> tuple:
@@ -541,14 +542,16 @@ class Scene:
 
     def set_camera(self, lookfrom, lookat, vup=(0, 1, 0), fov=60.0,
                    aperture=0.0, focus_dist=None) -> None:
-        if focus_dist is None:
-            focus_dist = float(np.linalg.norm(np.asarray(lookat, np.float64)
-                                              - np.asarray(lookfrom,
-                                                           np.float64)))
-        self.camera = Camera.make(lookfrom, lookat, vup, fov,
-                                  self.width / self.height, aperture,
-                                  focus_dist, device=self.device)
-        self.reset_accumulation()
+        """Aim the camera (the span ``camera.make``)."""
+        with span("camera.make"):
+            if focus_dist is None:
+                focus_dist = float(np.linalg.norm(
+                    np.asarray(lookat, np.float64)
+                    - np.asarray(lookfrom, np.float64)))
+            self.camera = Camera.make(lookfrom, lookat, vup, fov,
+                                      self.width / self.height, aperture,
+                                      focus_dist, device=self.device)
+            self.reset_accumulation()
 
     def set_sky_gradient(self, top, bottom) -> None:
         self.sky_color_top = tuple(top)
@@ -963,48 +966,59 @@ class Scene:
         program, or the chunk programs and the post program above
         ``SPP_DISPATCH_MAX`` spp.  Afterwards the scene's PCG state,
         denoiser history, progressive average and ``prev_view_proj`` are
-        the programs' buffers, and ``last_frame`` their FrameBuffers."""
-        cfg = self._config(bool(self.perf.progressive_accumulation))
-        self._ensure_denoiser_state(cfg)
-        reads = self._frame_reads()
-        world = graphs.signature(reads)
-        accum = (self._accum_now(cfg.render_size) if cfg.progressive
-                 else None)
-        keep = int(accum is not None)
-        state = {"den": self._denoiser_state if cfg.denoise else None,
-                 "accum": accum, "prev_vp": self.prev_view_proj}
-        # the buffers a new program starts from: the progressive average's
-        # exist before its first frame (a restart selects this frame)
-        init = dict(state, accum=(_zero_accum(cfg, self.device)
-                                  if cfg.progressive else None))
-        if cfg.spp <= SPP_DISPATCH_MAX:
-            key = ("frame", cfg)
-            prog = self._program(key, world, lambda: graphs.Program(
-                _frame_body(cfg), reads, dict(init, rng=self._rng_state),
-                (0, 0), self.device, edited=("set_geom",)))
-            rgb8, bufs = prog.run(reads, dict(state, rng=self._rng_state),
-                                  (self.frame_count, keep))
-            self._rng_state = prog.state["rng"]
-        else:
-            bufs = None
-            off = 0
-            for k, c in enumerate(spp_chunks(cfg.spp)):
-                key = ("chunk", cfg, c)
-                prog = self._program(key, world, lambda: graphs.Program(
-                    _chunk_body(cfg, c), reads,
-                    {"rng": self._rng_state,
-                     "acc": _zero_buffers(cfg, self.device)},
+        the programs' buffers, and ``last_frame`` their FrameBuffers.
+        Spans: ``frame.select`` (the configuration, the reads, their
+        signature and the frame program's lookup, so its capture at its
+        first frame; the chunk and post programs are looked up, and made,
+        after it), the programs' own, ``frame.clone`` (the RGB8's copy).
+        One ``gpu_frame`` holds every program run of the frame."""
+        with span("frame.select"):
+            cfg = self._config(bool(self.perf.progressive_accumulation))
+            self._ensure_denoiser_state(cfg)
+            reads = self._frame_reads()
+            world = graphs.signature(reads)
+            accum = (self._accum_now(cfg.render_size) if cfg.progressive
+                     else None)
+            keep = int(accum is not None)
+            state = {"den": self._denoiser_state if cfg.denoise else None,
+                     "accum": accum, "prev_vp": self.prev_view_proj}
+            # the buffers a new program starts from: the progressive
+            # average's exist before its first frame (a restart selects
+            # this frame)
+            init = dict(state, accum=(_zero_accum(cfg, self.device)
+                                      if cfg.progressive else None))
+            prog = None if cfg.spp > SPP_DISPATCH_MAX else self._program(
+                ("frame", cfg), world, lambda: graphs.Program(
+                    _frame_body(cfg), reads, dict(init, rng=self._rng_state),
                     (0, 0), self.device, edited=("set_geom",)))
-                prog.run(reads, {"rng": self._rng_state, "acc": bufs},
-                         (self.frame_count + off, int(k == 0)))
-                self._rng_state, bufs = prog.state["rng"], prog.state["acc"]
-                off += c
-            # the chunk programs write their buffers in place
-            post_reads = {"acc": bufs, "camera": reads["camera"]}
-            prog = self._program(("post", cfg), world, lambda: graphs.Program(
-                _post_body(cfg), post_reads, init, (0, 0), self.device,
-                edited=("acc",)))
-            rgb8 = prog.run(post_reads, state, (self.frame_count, keep))
+        with gpu_frame(self.device):
+            if prog is not None:
+                rgb8, bufs = prog.run(reads,
+                                      dict(state, rng=self._rng_state),
+                                      (self.frame_count, keep))
+                self._rng_state = prog.state["rng"]
+            else:
+                bufs = None
+                off = 0
+                for k, c in enumerate(spp_chunks(cfg.spp)):
+                    key = ("chunk", cfg, c)
+                    prog = self._program(key, world, lambda: graphs.Program(
+                        _chunk_body(cfg, c), reads,
+                        {"rng": self._rng_state,
+                         "acc": _zero_buffers(cfg, self.device)},
+                        (0, 0), self.device, edited=("set_geom",)))
+                    prog.run(reads, {"rng": self._rng_state, "acc": bufs},
+                             (self.frame_count + off, int(k == 0)))
+                    self._rng_state = prog.state["rng"]
+                    bufs = prog.state["acc"]
+                    off += c
+                # the chunk programs write their buffers in place
+                post_reads = {"acc": bufs, "camera": reads["camera"]}
+                prog = self._program(
+                    ("post", cfg), world, lambda: graphs.Program(
+                        _post_body(cfg), post_reads, init, (0, 0),
+                        self.device, edited=("acc",)))
+                rgb8 = prog.run(post_reads, state, (self.frame_count, keep))
         st = prog.state
         if cfg.denoise:
             self._denoiser_state = st["den"]
@@ -1013,7 +1027,10 @@ class Scene:
             self._accum_view_proj = st["accum"][2]
         self.prev_view_proj = st["prev_vp"]
         self.last_frame = bufs
-        return rgb8 if prog.graph is None else rgb8.clone()
+        if prog.graph is None:
+            return rgb8
+        with span("frame.clone"):
+            return rgb8.clone()
 
     def warmup(self, block: bool = True):
         """Render one throwaway frame of the current configuration (on the

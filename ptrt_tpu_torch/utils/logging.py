@@ -7,10 +7,20 @@ second (host clock: the caller ends each frame after the work it times is
 done, on the card after ``torch.cuda.synchronize()``), and a
 ``torch.profiler`` trace context in place of the reference's
 ``jax.profiler`` one.
+
+Beyond the reference: spans of the frame loop's host work and a GPU frame
+timer, both off until ``tracing(True)``.  ``span(name)`` times a stretch
+of host code on ``time.perf_counter`` (inside ``profiler_trace`` it is
+also a ``torch.profiler`` range of its name); ``gpu_frame(device)`` puts a
+pair of timing CUDA events around a frame's program runs on the card,
+read back by ``gpu_frames()`` once the caller has synchronized.  No span opens
+inside a captured body: a replay runs no Python, so one there would time
+the capture alone.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -109,12 +119,127 @@ class FrameStats:
         }
 
 
+# -- tracing ---------------------------------------------------------------
+# the buffers are bounded: a game left running with tracing on keeps the
+# newest spans and frames
+SPANS_KEPT = 1 << 16
+FRAMES_KEPT = 1 << 14
+
+_tracing = False
+_profiling = False  # inside profiler_trace
+_spans = collections.deque(maxlen=SPANS_KEPT)  # (name, start s, end s)
+_frames = collections.deque(maxlen=FRAMES_KEPT)  # (start s, end s, events)
+
+
+def tracing(on: bool) -> None:
+    """Turn the recording of spans and GPU frames on (emptying both
+    buffers) or off; it is off until this is called."""
+    global _tracing
+    if on and not _tracing:
+        _spans.clear()
+        _frames.clear()
+    _tracing = bool(on)
+
+
+class _NoSpan:
+    """What ``span`` and ``gpu_frame`` return while tracing is off: one
+    shared object that does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "start", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = None
+        if _profiling:
+            import torch
+
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        _spans.append((self.name, self.start, time.perf_counter()))
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context that records (``name``, start, end) on
+    ``time.perf_counter`` while tracing is on; ``NO_SPAN`` while off."""
+    return _Span(name) if _tracing else NO_SPAN
+
+
+def spans() -> list:
+    """The recorded spans, (name, start s, end s), in the order they
+    ended (an inner span before the one around it)."""
+    return list(_spans)
+
+
+class _GpuFrame:
+    __slots__ = ("stream", "events", "t0")
+
+    def __init__(self, device):
+        import torch
+
+        self.stream = torch.cuda.current_stream(device)
+        self.events = (torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+
+    def __enter__(self):
+        self.events[0].record(self.stream)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.events[1].record(self.stream)
+        _frames.append((self.t0, time.perf_counter(), self.events))
+        return False
+
+
+def gpu_frame(device):
+    """A context around the program runs of one frame (the frame
+    program's, or the chunk programs' and the post program's): while
+    tracing is on and ``device`` is a card, a timing CUDA event is recorded
+    on its current stream at each end and the pair kept with the frame's
+    host time; ``NO_SPAN`` otherwise.  Nothing is read back here."""
+    if not _tracing or device.type != "cuda":
+        return NO_SPAN
+    return _GpuFrame(device)
+
+
+def gpu_frames() -> list:
+    """(host start s, host end s, device ms between the pair's events) of
+    each recorded frame, oldest first: a game's "GPU frame ms" beside
+    its CPU frame time.  Call after synchronizing the card (an event not
+    yet reached raises)."""
+    return [(t0, t1, a.elapsed_time(b)) for t0, t1, (a, b) in _frames]
+
+
 @contextlib.contextmanager
 def profiler_trace(logdir: str = PROFILE_DIR):
     """A ``torch.profiler`` scope over the host and, where there is one, the
     card; on exit it writes a Chrome trace (``trace.json``, open it in
     Perfetto or chrome://tracing) under ``logdir``.  Yields the profiler
-    (``key_averages()`` for sums by kernel)."""
+    (``key_averages()`` for sums by kernel).  While tracing is on, each
+    span inside it is also a range of its name in the trace."""
+    global _profiling
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -123,5 +248,9 @@ def profiler_trace(logdir: str = PROFILE_DIR):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield prof
+        _profiling = True
+        try:
+            yield prof
+        finally:
+            _profiling = False
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
