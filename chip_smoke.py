@@ -173,7 +173,8 @@ Phases (any failure raises, so the exit code is non-zero):
      launches on the 98-triangle scene, the same with two instances (K4)
      and the bench scene counted from zero; its kept program, a CUDA
      graph, replayed bit for bit its eager body on each of the three with
-     a thickness and two camera changes between calls, one program made,
+     a thickness and two camera changes (an assigned Camera) between
+     calls, one program made a form of the camera (two),
      no synchronizing call in a replay, one replay's device ms and kernels,
      host ms a call eager against the program in turns),
      trace_single_ray GPU vs CPU, warmup() (the next balanced frames
@@ -306,7 +307,18 @@ Phases (any failure raises, so the exit code is non-zero):
      from zero, each kernel launched and no plain version called; the
      replays with no synchronizing call; profiled fast and bench replays
      with 4 kernels a later bounce, no count_rays launch, no copy or
-     reduction kernel in a bounce and the upscale in one launch.
+     reduction kernel in a bounce and the upscale in one launch;
+ 23. (run right after phase 22) camera_make, the camera made from its 15
+     host inputs (the frame programs' first kernel), against its plain
+     version (Camera.make's torch math) on the same inputs: the balanced
+     orbit's 720 cameras (0.5 degrees a frame), the inputs as host numbers
+     and as 0-d tensors on the card, every leaf but inv_view_proj bit for
+     bit and inv_view_proj within 1e-6 of the largest value of the float64
+     inverse of proj @ view; the leaves views of one buffer in the
+     kernel's layout; a captured launch replayed at new staged inputs;
+     timed queued beside its bound (60 bytes in, 296 out).  Its launches
+     are counted in phases 4, 5, 7 and 8: once a frame program's frame,
+     once a chunk program's and the post program's.
 Every kernel's line carries its bound: the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s or its float operations
 over 67 TFLOP/s, whichever is larger (a walk: each wavefront's own ray
@@ -2975,7 +2987,7 @@ def wire_eager(sc, thickness):
     from ptrt_tpu_torch import graphs
     from ptrt_tpu_torch.scene.pt_scene import _wire_body
 
-    reads, _, values = sc._wire_inputs(thickness)
+    _, reads, _, values = sc._wire_inputs(thickness)
     staged = graphs.HostValues(sc.device).stage(values)
     return _wire_body(sc.width, sc.height, sc.device)(reads, None, staged)[0]
 
@@ -2984,7 +2996,10 @@ def check_wire_program(name, sc, card) -> dict:
     """Phase 12: ``Scene.render_wireframe``'s kept program (a CUDA graph
     replayed every call after the first) against its eager body, bit for
     bit, at each of WIRE_CALLS (a thickness change, then the camera moved
-    twice); the scene's one program, under ("wire", W, H), made once
+    twice, each time a Camera assigned); the scene's two programs, one a
+    form of the camera (``Scene._with_camera``: under ("wire", W, H) for
+    the camera ``set_camera`` left, made in the graph, and under that key
+    and the assigned Camera's signature, copied in), each made once
     whatever the calls changed; one replay's
     synchronizing calls (sync debug mode and the profiler's trace: none),
     device ms and kernels; host ms a call, eager against the program, in
@@ -3000,7 +3015,7 @@ def check_wire_program(name, sc, card) -> dict:
         got = sc._wireframe_device(thickness)
         if not torch.equal(got, want):
             differ.append(k)
-    key = ("wire", sc.width, sc.height)
+    key = sc._wire_inputs(0.05)[0]  # the assigned Camera's program
     prog = sc._programs.get(key)
     out = {"calls": len(WIRE_CALLS), "calls_differing": differ,
            "programs_made": sc._programs.made,
@@ -3030,7 +3045,7 @@ def check_wire_program(name, sc, card) -> dict:
         f"synchronizing calls, trace waits {out['trace']['waits']}, "
         f"device-to-host copies {out['trace']['dtoh_copies']} [{card}]")
     assert not differ, (name, differ)
-    assert out["programs_made"] == 1 and out["captured"], (name, out)
+    assert out["programs_made"] == 2 and out["captured"], (name, out)
     assert not out["sync_calls"], (name, out["sync_calls"])
     assert not out["trace"]["dtoh_copies"] and not out["trace"]["waits"], (
         name, out["trace"])
@@ -4421,7 +4436,8 @@ def check_programs(dev, card, full) -> dict:
     out["balanced"] = pt_program_run(
         "balanced 1080p", full, card, PROGRAM_FRAMES,
         edit=lambda k: orbit(full, k), turn_edit=lambda i: orbit(full, i))
-    # a camera move (set_camera: the host's numbers in one pinned copy)
+    # a camera move (set_camera: the host's 15 numbers kept on the host;
+    # the frame program stages them with its values and makes the camera)
     syncs = sync_calls(lambda: orbit(full, 7))
     trace = trace_waits(lambda: orbit(full, 8))
     out["camera_move"] = {"sync_calls": syncs, "trace": trace}
@@ -5088,6 +5104,118 @@ def check_camera_last(sc, card) -> dict:
         f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}) [{card}]")
     assert not r["bad"], r["bad"]
+    return r
+
+
+# phase 23: camera_make's inputs (15 floats) and its leaves (74 floats)
+CAMERA_MAKE_BYTES = 15 * 4 + 74 * 4
+# the largest |inv_view_proj - the float64 inverse| allowed, as a share of
+# the inverse's largest value
+CAMERA_INV_RTOL = 1e-6
+
+
+def check_camera_make(sc, card) -> dict:
+    """Phase 23: ``camera_make`` against ``camera_make_plain`` on the same
+    inputs, the balanced orbit's cameras as ``Scene.set_camera`` keeps
+    them (``orbit``), given as host numbers and as 0-d tensors on the
+    card: every leaf but ``inv_view_proj`` bit for bit, and that within
+    CAMERA_INV_RTOL of the largest value of the float64 inverse of the
+    plain camera's ``proj @ view``; the leaves views of one buffer at
+    ``_LAYOUT``'s offsets; one launch a call; captured in a CUDA graph
+    with the inputs on the card and replayed at new inputs; timed queued
+    beside its bound.  The scene's camera and accumulation are put
+    back."""
+    import torch
+    from ptrt_tpu_torch import graphs, kernels
+    from ptrt_tpu_torch.scene import camera as cam_mod
+    from ptrt_tpu_torch.scene.camera import camera_make, camera_make_plain
+    from ptrt_tpu_torch.tools import stages
+
+    dev = sc.device
+    saved = (sc._camera, sc._camera_inputs, sc.frame_count, sc._accum)
+    views = round(360 / ORBIT_DEG)
+    inputs = []
+    for k in range(views):
+        orbit(sc, k)
+        inputs.append(sc._camera_inputs)
+    sc._camera, sc._camera_inputs, sc.frame_count, sc._accum = saved
+    r = {"cases": 0, "bad": [], "max_abs_err": 0.0, "inv_max_rel": 0.0,
+         "views": views}
+    bits = lambda t: t.view(torch.int32)
+
+    def hold(label, got, want):
+        r["cases"] += 1
+        exact = torch.linalg.inv((want.proj @ want.view).double())
+        rel = float((got.inv_view_proj.double() - exact).abs().max()
+                    / exact.abs().max())
+        r["inv_max_rel"] = max(r["inv_max_rel"], rel)
+        ok = rel <= CAMERA_INV_RTOL
+        for f in type(want).__dataclass_fields__:
+            if f == "inv_view_proj":
+                continue
+            for a, b in zip(graphs.tree_leaves(getattr(got, f)),
+                            graphs.tree_leaves(getattr(want, f))):
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       float((a - b).abs().max()))
+                ok = ok and torch.equal(bits(a), bits(b))
+        if not ok:
+            r["bad"].append(label)
+
+    kernels.clear_counts()
+    for k, host in enumerate(inputs):
+        staged = list(torch.tensor(host, dtype=torch.float32,
+                                   device=dev).unbind(0))
+        hold(f"orbit {k} host numbers", camera_make(host, dev),
+             camera_make_plain(host, dev))
+        hold(f"orbit {k} staged", camera_make(staged, dev),
+             camera_make_plain(staged, dev))
+    r["launches"] = kernels.counts()["camera_make"]
+    assert r["launches"] == 2 * views, r["launches"]
+    # the layout the kernel writes: one buffer, each leaf at its offset
+    cam = camera_make(inputs[1], dev)
+    base = cam.view.untyped_storage().data_ptr()
+    for name, off, n in cam_mod._LAYOUT:
+        v = getattr(cam, name)
+        first = v.x if n == 3 else v
+        assert first.untyped_storage().data_ptr() == base, name
+        assert first.data_ptr() - base == 4 * off, name
+    assert len(graphs.tree_leaves(cam)) == 29
+    # captured with the inputs on the card: each replay reads them there
+    staged = torch.tensor(inputs[0], dtype=torch.float32, device=dev)
+    args = list(staged.unbind(0))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        camera_make(args, dev)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = camera_make(args, dev)
+    replays = (7, 180, 359, 600)
+    for k in replays:
+        staged.copy_(torch.tensor(inputs[k], dtype=torch.float32))
+        graph.replay()
+        torch.cuda.synchronize()
+        hold(f"captured, replayed at orbit {k}", cap,
+             camera_make_plain(inputs[k], dev))
+    r["graph_replays"] = len(replays)
+    del graph, cap
+    r["queued_ms"] = [stages.clones_ms(lambda _: camera_make(args, dev),
+                                       [None] * 21, stages.SPIN_CYCLES)
+                      for _ in range(2)]
+    r["ms"] = sum(r["queued_ms"]) / 2
+    r["plain_ms"] = cuda_ms(lambda: camera_make_plain(inputs[3], dev), 5)
+    r.update(bound(CAMERA_MAKE_BYTES))
+    log(f"[camera] camera_make: {r['cases']} cases ({views} orbit cameras, "
+        f"host numbers and staged; {len(replays)} replays) bit for bit but "
+        f"inv_view_proj, bad {r['bad']} (other leaves' max |err| "
+        f"{r['max_abs_err']:.3g}; inv_view_proj within "
+        f"{r['inv_max_rel']:.3g} of the float64 inverse's largest value); "
+        f"{r['launches']} launches for {2 * views} calls; queued "
+        f"{r['queued_ms'][0]:.4f} / {r['queued_ms'][1]:.4f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
+        f"({r['bound_by']}, {CAMERA_MAKE_BYTES} B) [{card}]")
+    assert not r["bad"], r["bad"][:10]
     return r
 
 
@@ -5962,6 +6090,7 @@ def main() -> int:
     from ptrt_tpu_torch.build import BUILD_DIR
     from ptrt_tpu_torch.core.vec import Vec3
     from ptrt_tpu_torch.render import pipeline
+    from ptrt_tpu_torch.scene.pt_scene import spp_chunks
     from ptrt_tpu_torch.tools.walks import wavefronts
 
     assert os.path.dirname(os.path.abspath(ptrt_tpu_torch.__file__)) == pkg
@@ -6168,6 +6297,8 @@ def main() -> int:
     # K0 and the sample sums once a sample, the progressive average once a
     # frame; no post stack, no upscale
     assert launches.get("camera_rays", 0) == 4 * SPP, launches
+    # the camera made in the frame program's graph once a frame
+    assert launches.get("camera_make", 0) == 4, launches
     assert launches.get("sample_sums", 0) == 4 * SPP, launches
     assert launches.get("progressive_average", 0) == 4, launches
     assert launches.get("upscale_bilinear", 0) == 0, launches
@@ -6267,7 +6398,8 @@ def main() -> int:
                  COUNT: BAL_DEPTH, "sample_sums": 1,
                  "progressive_average": 0, "upscale_bilinear": 0,
                  "svgf_temporal": 1, "svgf_atrous": 7, "tonemap_rgb8": 1,
-                 "bloom_chain": 1, **dict.fromkeys(LAST_REPLACES, 1),
+                 "bloom_chain": 1, "camera_make": 1,
+                 **dict.fromkeys(LAST_REPLACES, 1),
                  **dict.fromkeys(STATIC_NEVER, 0)}
     for k, n in per_frame.items():
         assert bal_launches.get(k, 0) == n * BAL_FRAMES, (k, bal_launches)
@@ -6331,6 +6463,10 @@ def main() -> int:
     glue = check_glue(bal, hdri, card, rng)
     torch.cuda.empty_cache()
 
+    # -- 23. camera_make against its plain version ---------------------------
+    lap("23")
+    cam_make = check_camera_make(bal, card)
+
     # -- 7. the hdri scene's balanced path -----------------------------------
     lap("7")
     orbit(hdri, 0)
@@ -6362,7 +6498,7 @@ def main() -> int:
                  "shade_scatter (hdri)": BAL_DEPTH, "svgf_temporal": 1,
                  "svgf_atrous": 7, "tonemap_rgb8": 1, "bloom_chain": 1,
                  "shade_nee": 0, "shade_scatter": 0,
-                 COUNT: BAL_DEPTH, "sample_sums": 1,
+                 COUNT: BAL_DEPTH, "sample_sums": 1, "camera_make": 1,
                  **dict.fromkeys(LAST_REPLACES, 1),
                  **dict.fromkeys(STATIC_NEVER, 0)}
     for k, n in per_frame.items():
@@ -6419,7 +6555,9 @@ def main() -> int:
                  ("shade_scatter (hdri)", 128 * 32), ("bloom_chain", 1),
                  ("tonemap_rgb8", 1), ("camera_rays", 128),
                  (COUNT, 128 * 32), ("sample_sums", 128),
-                 ("progressive_average", 1), ("upscale_bilinear", 0)):
+                 ("progressive_average", 1), ("upscale_bilinear", 0),
+                 # once in each chunk program and in the post program
+                 ("camera_make", len(spp_chunks(128)) + 1)):
         assert ultra_launches.get(k, 0) == n, (k, ultra_launches)
     hdr = ultra.last_frame.color
     assert all(bool(torch.isfinite(c).all()) for c in (hdr.x, hdr.y, hdr.z))
@@ -6845,6 +6983,16 @@ def main() -> int:
                "graph_replays": last[k]["graph_replays"]}
               if k == "camera_rays" else {})}
           for k in LAST_REPLACES],
+        # phase 23's: the camera made in the frame programs' graphs
+        {"name": "camera_make", "route": "cuda", "source": src("camera.cu"),
+         "replaces": "ptrt_tpu/scene/camera.py:55", **both("camera_make"),
+         **{key: cam_make[key] for key in (
+             "max_abs_err", "inv_max_rel", "ms", "queued_ms", "plain_ms",
+             "bound_ms", "bound_by", "graph_replays")},
+         "library_ms": None, "cases_bit_for_bit": cam_make["cases"],
+         "bytes": CAMERA_MAKE_BYTES,
+         "launches_hdri_balanced": hdri_launches.get("camera_make", 0),
+         "launches_ultra": ultra_launches.get("camera_make", 0)},
         # phase 22's: K12 and K13 (the whole frames against every plain
         # stage, the replays' launches, profiles and synchronizing calls
         # ride on progressive_average)

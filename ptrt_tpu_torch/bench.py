@@ -42,7 +42,7 @@ from ptrt_tpu_torch.app.bench_scene import build_bench_scene
 from ptrt_tpu_torch.app.demo import card_line
 from ptrt_tpu_torch.build import BuildError
 from ptrt_tpu_torch.render import pipeline as pl
-from ptrt_tpu_torch.scene.pt_scene import program_world
+from ptrt_tpu_torch.scene.pt_scene import frame_camera, program_world
 
 BASELINE_MRAYS = 1000.0
 # (width, height, triangles) by device type; spp, depth and frames alike
@@ -70,14 +70,16 @@ def configure(sc, spp: int, depth: int) -> None:
 
 
 def _trace_body(n_lights: int, spp: int, depth: int, camera_nee: bool):
-    """The trace-only program's body: the trace of the staged frame index;
-    returns (FrameBuffers, the new PCG state)."""
+    """The trace-only program's body: the trace of the staged frame index
+    from the frame's camera (``pt_scene.frame_camera``); returns
+    (FrameBuffers, the new PCG state)."""
     def body(reads, st, values):
-        (index,) = values
+        index, cam_in = values
+        cam = frame_camera(reads, cam_in)
         rng = st["rng"]
         rng, bufs = pl.trace_frame(
             program_world(reads), reads["mats"], reads["lights"], n_lights,
-            reads["sky"], reads["camera"], rng, index, rng.shape[1],
+            reads["sky"], cam, rng, index, rng.shape[1],
             rng.shape[0], spp, depth, reads["bn"], camera_nee=camera_nee)
         return bufs, {"rng": rng}
     return body
@@ -87,18 +89,20 @@ def trace_only(sc, frame_index: int, spp: int, depth: int,
                camera_nee: bool = True):
     """The reference's ``_trace_only`` frame of the scene's tables (the
     trace, no post stack) at ``frame_index``, as a program the scene keeps
-    per (spp, depth, camera_nee) and the shapes it reads and carries: on
-    the card captured at its first frame and replayed after.  Advances
-    the scene's PCG state (afterwards the program's buffer) and returns the
-    FrameBuffers (on the card the program's, which its next frame
-    overwrites)."""
+    per (spp, depth, camera_nee; the camera's form) and the shapes it reads
+    and carries: on the card captured at its first frame and replayed
+    after.  Advances the scene's PCG state (afterwards the program's
+    buffer) and returns the FrameBuffers (on the card the program's, which
+    its next frame overwrites)."""
     reads = sc._frame_reads()
-    key = ("trace_only", spp, depth, camera_nee, len(sc.lights),
-           tuple(sc._rng_state.shape))
-    prog = sc._program(key, graphs.signature(reads), lambda: graphs.Program(
+    world = graphs.signature(reads)
+    key, reads, first, values = sc._with_camera(
+        ("trace_only", spp, depth, camera_nee, len(sc.lights),
+         tuple(sc._rng_state.shape)), reads, (0,), (int(frame_index),))
+    prog = sc._program(key, world, lambda: graphs.Program(
         _trace_body(len(sc.lights), spp, depth, camera_nee), reads,
-        {"rng": sc._rng_state}, (0,), sc.device, edited=("set_geom",)))
-    bufs = prog.run(reads, {"rng": sc._rng_state}, (int(frame_index),))
+        {"rng": sc._rng_state}, first, sc.device, edited=("set_geom",)))
+    bufs = prog.run(reads, {"rng": sc._rng_state}, values)
     sc._rng_state = prog.state["rng"]
     return bufs
 

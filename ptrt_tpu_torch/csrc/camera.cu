@@ -1,5 +1,6 @@
 // K0 camera_rays: one sample's jittered primary rays, each with its own PCG
-// sub-stream.
+// sub-stream.  camera_make (after K0 below): a camera's every value from
+// its host inputs.
 //
 // Replaces: the camera-ray part of ptrt_tpu/render/pipeline.py trace_batch
 // (:92-109): the TAA jitter (core/taa.py taa_jitter :39, the 16-entry
@@ -182,5 +183,199 @@ extern "C" int ptrt_camera_rays(const CameraRaysArgs* args, void* stream) {
                     (args->h + kBlockH - 1) / kBlockH);
     camera_rays_kernel<<<grid, dim3(kBlockW, kBlockH), 0,
                          static_cast<cudaStream_t>(stream)>>>(*args);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// camera_make: every value of a Camera (scene/camera.py) from its 15 host
+// inputs, staged on the card.
+//
+// Replaces no TPU kernel: it is Camera.make (scene/camera.py), ~100 torch
+// ops on 0-d tensors (m4.look_at, m4.perspective, proj @ view and
+// linalg.inv_ex among them), each an eager launch from the host.  In a
+// frame program it is the first kernel of the replay, reading the inputs
+// the program staged with its frame index (graphs.HostValues), so a camera
+// move costs the host the staging of 15 floats and the card one launch;
+// a camera read on the host (Scene.camera) is one launch too.
+//
+// What bounds it on the card: latency.  One thread reads 60 bytes and
+// writes 296 in ~300 float and ~150 double operations, a few microseconds
+// of one SM.
+//
+// What this design does about it: one thread, nothing staged; the inputs
+// and each output are read and written through device pointers, so it is
+// captured into a CUDA graph as it is launched.  Every value but
+// inv_view_proj is Camera.make's on the card bit for bit: each operation
+// in Camera.make's order, one rounding each (this file builds with
+// -fmad=false), the division by a host number a product with its
+// reciprocal as torch computes it, tanf and rsqrtf as torch's tan and
+// rsqrt call them, the clip terms in double as Python computes them and
+// rounded once.  inv_view_proj (which nothing in a frame reads) inverts
+// the product proj @ view, accumulated as cuBLAS does (fused multiply-adds,
+// k ascending: its bits on the card), in double: within a float32 rounding
+// of the product's exact inverse.  torch's linalg.inv_ex, an LU in float32,
+// lies up to ~1e-4 of the matrix's largest value from it for these
+// matrices (condition numbers to ~5e4), and no float32 order of operations
+// tried gave its bits, so this value is nearer the exact inverse than
+// torch's and not equal to it.
+
+struct CameraMakeArgs {
+    // lookfrom, lookat, vup (3 each), fov (degrees), aspect, focus_dist,
+    // aperture, znear, zfar: 0-d float32 on the card
+    const float* in[15];
+    float* view;           // (4, 4) row-major, each
+    float* proj;
+    float* inv_view_proj;
+    float* origin;         // 3 consecutive floats, each
+    float* lower_left_corner;
+    float* horizontal;
+    float* vertical;
+    float* u;
+    float* v;
+    float* w;
+    float* lens_radius;    // 1 float, each
+    float* fov;
+    float* aspect;
+    float* near_clip;
+    float* far_clip;
+};
+
+namespace {
+
+__device__ __forceinline__ V3 sub3(V3 a, V3 b) {
+    return V3{a.x - b.x, a.y - b.y, a.z - b.z};
+}
+__device__ __forceinline__ V3 scale3(V3 a, float s) {
+    return V3{a.x * s, a.y * s, a.z * s};
+}
+// (a.x * b.x + a.y * b.y) + a.z * b.z, each product rounded
+__device__ __forceinline__ float dot3(V3 a, V3 b) {
+    return (a.x * b.x + a.y * b.y) + a.z * b.z;
+}
+__device__ __forceinline__ V3 cross3(V3 a, V3 b) {
+    return V3{a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+              a.x * b.y - a.y * b.x};
+}
+// Vec3.normalized(): a * rsqrt(|a|^2 + 0); the sum is never -0
+__device__ __forceinline__ V3 normalize3(V3 a) {
+    return scale3(a, rsqrtf(dot3(a, a)));
+}
+__device__ __forceinline__ void put3(float* p, V3 a) {
+    p[0] = a.x;
+    p[1] = a.y;
+    p[2] = a.z;
+}
+
+// the inverse of m (row-major 4x4) into inv: LU with partial pivoting (the
+// first largest magnitude) and back substitution in double, each value
+// rounded to float32 once
+__device__ void inverse4(const float m[16], float* inv) {
+    double a[4][4], x[4][4];
+    for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j) {
+            a[i][j] = m[4 * i + j];
+            x[i][j] = i == j ? 1.0 : 0.0;
+        }
+    for (int j = 0; j < 4; ++j) {
+        int p = j;
+        for (int i = j + 1; i < 4; ++i)
+            if (fabs(a[i][j]) > fabs(a[p][j])) p = i;
+        for (int k = 0; k < 4; ++k) {
+            double t = a[j][k];
+            a[j][k] = a[p][k];
+            a[p][k] = t;
+            t = x[j][k];
+            x[j][k] = x[p][k];
+            x[p][k] = t;
+        }
+        for (int i = j + 1; i < 4; ++i) {
+            const double l = a[i][j] / a[j][j];
+            for (int k = j; k < 4; ++k) a[i][k] -= l * a[j][k];
+            for (int k = 0; k < 4; ++k) x[i][k] -= l * x[j][k];
+        }
+    }
+    for (int i = 3; i >= 0; --i)
+        for (int c = 0; c < 4; ++c) {
+            double s = x[i][c];
+            for (int k = i + 1; k < 4; ++k) s -= a[i][k] * x[k][c];
+            x[i][c] = s / a[i][i];
+        }
+    for (int i = 0; i < 4; ++i)
+        for (int c = 0; c < 4; ++c)
+            inv[4 * i + c] = static_cast<float>(x[i][c]);
+}
+
+__global__ void __launch_bounds__(1) camera_make_kernel(const CameraMakeArgs a) {
+    const V3 from{*a.in[0], *a.in[1], *a.in[2]};
+    const V3 target{*a.in[3], *a.in[4], *a.in[5]};
+    const V3 up{*a.in[6], *a.in[7], *a.in[8]};
+    const float fov = *a.in[9], aspect = *a.in[10], focus = *a.in[11];
+    const float aperture = *a.in[12], znear = *a.in[13], zfar = *a.in[14];
+
+    // the basis (Camera.make): theta = fov * float32(pi / 180), h =
+    // tan(theta / 2) (a division by 2.0: the product with 0.5)
+    const float theta = fov * static_cast<float>(3.141592653589793 / 180.0);
+    const float h = tanf(theta * 0.5f);
+    const float vh = h * 2.0f;
+    const float vw = aspect * vh;
+    const V3 w = normalize3(sub3(from, target));
+    const V3 u = normalize3(cross3(up, w));
+    const V3 v = cross3(w, u);
+    const V3 hz = scale3(u, focus * vw);
+    const V3 vt = scale3(v, focus * vh);
+    const V3 llc = sub3(sub3(sub3(from, scale3(hz, 0.5f)), scale3(vt, 0.5f)),
+                        scale3(w, focus));
+
+    // m4.look_at(lookfrom, lookat, vup)
+    const V3 f = normalize3(sub3(target, from));
+    const V3 s = normalize3(cross3(f, up));
+    const V3 uu = cross3(s, f);
+    const float view[16] = {
+        s.x, s.y, s.z, -dot3(s, from),
+        uu.x, uu.y, uu.z, -dot3(uu, from),
+        -f.x, -f.y, -f.z, dot3(f, from),
+        0.0f, 0.0f, 0.0f, 1.0f};
+
+    // m4.perspective(theta, aspect, znear, zfar): f = 1 / tan(theta / 2);
+    // the clip terms from the clip planes in double, rounded once
+    const float fp = 1.0f / h;
+    const double zn = znear, zf = zfar;
+    float proj[16] = {};
+    proj[0] = fp / aspect;
+    proj[5] = fp;
+    proj[10] = static_cast<float>((zf + zn) / (zn - zf));
+    proj[11] = static_cast<float>((2.0 * zf * zn) / (zn - zf));
+    proj[14] = -1.0f;
+
+    float vp[16];
+    for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j) {
+            float acc = 0.0f;
+            for (int k = 0; k < 4; ++k)
+                acc = fmaf(proj[4 * i + k], view[4 * k + j], acc);
+            vp[4 * i + j] = acc;
+        }
+    inverse4(vp, a.inv_view_proj);
+    for (int k = 0; k < 16; ++k) {
+        a.view[k] = view[k];
+        a.proj[k] = proj[k];
+    }
+    put3(a.origin, from);
+    put3(a.lower_left_corner, llc);
+    put3(a.horizontal, hz);
+    put3(a.vertical, vt);
+    put3(a.u, u);
+    put3(a.v, v);
+    put3(a.w, w);
+    *a.lens_radius = aperture * 0.5f;
+    *a.fov = fov;
+    *a.aspect = aspect;
+    *a.near_clip = znear;
+    *a.far_clip = zfar;
+}
+
+}  // namespace
+
+extern "C" int ptrt_camera_make(const CameraMakeArgs* args, void* stream) {
+    camera_make_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(*args);
     return static_cast<int>(cudaGetLastError());
 }

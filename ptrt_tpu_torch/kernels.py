@@ -137,8 +137,8 @@ def get_lib() -> ctypes.CDLL:
         lib.ptrt_svgf_atrous_info.restype = i
         lib.ptrt_svgf_atrous_info.argtypes = [i, i, i, i, p, p, p]
         for name in ("svgf_variance", "svgf_firefly", "motion_vectors",
-                     "camera_rays", "upscale_bilinear", "sample_sums",
-                     "progressive_average"):
+                     "camera_rays", "camera_make", "upscale_bilinear",
+                     "sample_sums", "progressive_average"):
             fn = getattr(lib, f"ptrt_{name}")
             fn.restype = i
             fn.argtypes = [p, p]

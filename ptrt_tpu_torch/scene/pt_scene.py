@@ -44,11 +44,12 @@ from ptrt_tpu_torch.render.denoiser import (DEFAULT_SETTINGS, denoise_frame,
                                             init_denoiser_state)
 from ptrt_tpu_torch.render.motion import motion_vectors
 from ptrt_tpu_torch.render.sky import SkyConfig
-from ptrt_tpu_torch.scene.camera import Camera, pixel_grid
+from ptrt_tpu_torch.scene.camera import (Camera, camera_inputs, camera_make,
+                                         pixel_grid)
 from ptrt_tpu_torch.scene.lights import Light, LightTable
 from ptrt_tpu_torch.scene.materials import Material, MaterialTable
 from ptrt_tpu_torch.utils.imageio import save_ppm
-from ptrt_tpu_torch.utils.logging import gpu_frame, span
+from ptrt_tpu_torch.utils.logging import camera_frame, gpu_frame, span
 
 
 def _merged_refit_plans(entries) -> tuple:
@@ -291,12 +292,22 @@ def program_world(reads: dict):
         iset=dataclasses.replace(reads["iset"], geom=reads["set_geom"]))
 
 
+def frame_camera(reads: dict, camera_values):
+    """A program's camera, in its body: made from the 15 inputs among its
+    staged values where it has them (``camera_make``, run first), else the
+    Camera of tensors among its reads (``Scene._with_camera``)."""
+    if camera_values:
+        return camera_make(camera_values, camera_values[0].device)
+    return reads["camera"]
+
+
 def _frame_body(cfg: FrameConfig):
-    """The frame program's body (the reference's ``_frame_fn``): the trace
-    and the post stack; returns ((rgb8, FrameBuffers), the new state)."""
+    """The frame program's body (the reference's ``_frame_fn``): the camera,
+    the trace and the post stack; returns ((rgb8, FrameBuffers), the new
+    state)."""
     def body(reads, st, values):
-        index, keep = values
-        cam = reads["camera"]
+        index, keep, cam_in = values
+        cam = frame_camera(reads, cam_in)
         rng, bufs = _trace_frame(cfg, program_world(reads), reads["mats"],
                                  reads["lights"], reads["sky"], cam,
                                  reads["bn"], st["rng"], index, cfg.spp)
@@ -313,11 +324,11 @@ def _chunk_body(cfg: FrameConfig, chunk: int):
     staged index and added to the frame's buffers (chunk 0, staged
     ``first``, starts them)."""
     def body(reads, st, values):
-        index, first = values
+        index, first, cam_in = values
+        cam = frame_camera(reads, cam_in)
         rng, bufs = _trace_frame(cfg, program_world(reads), reads["mats"],
-                                 reads["lights"], reads["sky"],
-                                 reads["camera"], reads["bn"], st["rng"],
-                                 index, chunk)
+                                 reads["lights"], reads["sky"], cam,
+                                 reads["bn"], st["rng"], index, chunk)
         return None, {"rng": rng, "acc": _add_chunk(st["acc"], bufs, chunk,
                                                     cfg.spp, first != 0)}
     return body
@@ -327,8 +338,8 @@ def _post_body(cfg: FrameConfig):
     """The post program's body (the reference's ``_post_program``) on the
     chunk programs' buffers."""
     def body(reads, st, values):
-        index, keep = values
-        cam = reads["camera"]
+        index, keep, cam_in = values
+        cam = frame_camera(reads, cam_in)
         rgb8, den, accum = _post_frame(cfg, reads["acc"], cam, index,
                                        st["prev_vp"], st["den"],
                                        st["accum"], keep)
@@ -345,9 +356,10 @@ def _wire_body(width: int, height: int, device):
     else the gradient sky (staged top, bottom and switch).  Reinhard, gamma
     1/2.2, ``*255.99`` truncated, rows flipped: ((H, W, 3) uint8, None)."""
     def body(reads, st, values):
-        thickness, top, bottom, use_sky = values
+        thickness, top, bottom, use_sky, cam_in = values
+        cam = frame_camera(reads, cam_in)
         s, t = pixel_grid(width, height, device)
-        ray = reads["camera"].get_ray_simple(s, t)
+        ray = cam.get_ray_simple(s, t)
         hit = traverse.intersect_closest(program_world(reads), ray.origin,
                                          ray.direction)
         w_bary = 1.0 - hit.u - hit.v
@@ -413,9 +425,12 @@ class Scene:
         self._sky_cache = None
         self.perf = PerformanceSettings()
         self.frame_count = 0
-        self.camera = Camera.make((0.0, 0.0, 0.0), (0.0, 3.5, 5.0),
-                                  aspect_ratio=width / height,
-                                  device=self.device)
+        # the camera: after set_camera its 15 host inputs (the programs make
+        # it from them in their graphs; a read makes it once), else the
+        # Camera assigned (copied into the programs' buffers)
+        self._camera = None
+        self._camera_inputs = camera_inputs((0.0, 0.0, 0.0), (0.0, 3.5, 5.0),
+                                            aspect_ratio=width / height)
         self._geom = None
         self._geom_dirty = True
         self._mat_table = None
@@ -540,17 +555,36 @@ class Scene:
         self.commit_light_changes()
         return lt
 
+    @property
+    def camera(self) -> Camera:
+        """The scene's camera.  After ``set_camera`` it is made from its host
+        inputs at the first read (``camera_make``: on the card one launch)
+        and kept until the next; the frame programs do not read it then,
+        but make it in their graphs."""
+        if self._camera is None:
+            self._camera = camera_make(self._camera_inputs, self.device)
+        return self._camera
+
+    @camera.setter
+    def camera(self, cam: Camera) -> None:
+        """A Camera of tensors on the scene's device, which the programs
+        copy into their buffers (those leaves that changed)."""
+        self._camera, self._camera_inputs = cam, None
+
     def set_camera(self, lookfrom, lookat, vup=(0, 1, 0), fov=60.0,
                    aperture=0.0, focus_dist=None) -> None:
-        """Aim the camera (the span ``camera.make``)."""
+        """Aim the camera: ``Camera.make``'s camera of these numbers, kept as
+        its 15 host inputs, rounded to float32 (``camera_inputs``); no
+        device work (the span ``camera.make``)."""
         with span("camera.make"):
             if focus_dist is None:
                 focus_dist = float(np.linalg.norm(
                     np.asarray(lookat, np.float64)
                     - np.asarray(lookfrom, np.float64)))
-            self.camera = Camera.make(lookfrom, lookat, vup, fov,
-                                      self.width / self.height, aperture,
-                                      focus_dist, device=self.device)
+            self._camera_inputs = camera_inputs(
+                lookfrom, lookat, vup, fov, self.width / self.height,
+                aperture, focus_dist)
+            self._camera = None
             self.reset_accumulation()
 
     def set_sky_gradient(self, top, bottom) -> None:
@@ -942,8 +976,8 @@ class Scene:
     def _frame_reads(self) -> dict:
         """What a frame program reads, grouped: the static world, the merged
         instance set's tables (``set_geom``: K5's refits write them in
-        place) and its other tables, the materials, lights, sky, camera and
-        blue noise."""
+        place) and its other tables, the materials, lights, sky and blue
+        noise (the camera: ``_with_camera``)."""
         g = self._geom
         iset = traverse.iset_of(g)
         return {"static": traverse.static_of(g),
@@ -951,8 +985,25 @@ class Scene:
                          else dataclasses.replace(iset, geom=None)),
                 "set_geom": None if iset is None else iset.geom,
                 "mats": self._mat_table, "lights": self._light_table,
-                "sky": self.sky(), "camera": self.camera,
-                "bn": self._blue_noise}
+                "sky": self.sky(), "bn": self._blue_noise}
+
+    def _with_camera(self, key: tuple, reads: dict, *values) -> tuple:
+        """A program's key, reads and host values (tuples, one per run of
+        its) with the camera added as the program takes it, by the
+        camera's form: (key, reads, *values).  After ``set_camera`` each
+        value ends in the 15 host inputs, which the body makes the camera
+        from in its graph (``frame_camera``); after a Camera was assigned
+        it is the read "camera" (copied into the program's buffers), each
+        value ends in (), and the key in the Camera's ``signature``.  A
+        program is kept per form, so a switch between the two makes no
+        program again."""
+        if self._camera_inputs is not None:
+            cam_in = self._camera_inputs
+        else:
+            cam_in = ()
+            key += (graphs.signature(self._camera),)
+            reads = dict(reads, camera=self._camera)
+        return (key, reads, *(v + (cam_in,) for v in values))
 
     def _program(self, key: tuple, world: tuple, make) -> graphs.Program:
         """The program of ``key`` on a world of signature ``world`` (of
@@ -971,15 +1022,18 @@ class Scene:
         signature and the frame program's lookup, so its capture at its
         first frame; the chunk and post programs are looked up, and made,
         after it), the programs' own, ``frame.clone`` (the RGB8's copy).
-        One ``gpu_frame`` holds every program run of the frame."""
+        One ``gpu_frame`` holds every program run of the frame; the frame is
+        counted by its camera's form (``logging.camera_frame``)."""
         with span("frame.select"):
             cfg = self._config(bool(self.perf.progressive_accumulation))
             self._ensure_denoiser_state(cfg)
-            reads = self._frame_reads()
-            world = graphs.signature(reads)
+            world_reads = self._frame_reads()
+            world = graphs.signature(world_reads)
             accum = (self._accum_now(cfg.render_size) if cfg.progressive
                      else None)
             keep = int(accum is not None)
+            key, reads, first, values = self._with_camera(
+                ("frame", cfg), world_reads, (0, 0), (self.frame_count, keep))
             state = {"den": self._denoiser_state if cfg.denoise else None,
                      "accum": accum, "prev_vp": self.prev_view_proj}
             # the buffers a new program starts from: the progressive
@@ -988,37 +1042,41 @@ class Scene:
             init = dict(state, accum=(_zero_accum(cfg, self.device)
                                       if cfg.progressive else None))
             prog = None if cfg.spp > SPP_DISPATCH_MAX else self._program(
-                ("frame", cfg), world, lambda: graphs.Program(
+                key, world, lambda: graphs.Program(
                     _frame_body(cfg), reads, dict(init, rng=self._rng_state),
-                    (0, 0), self.device, edited=("set_geom",)))
+                    first, self.device, edited=("set_geom",)))
         with gpu_frame(self.device):
             if prog is not None:
                 rgb8, bufs = prog.run(reads,
                                       dict(state, rng=self._rng_state),
-                                      (self.frame_count, keep))
+                                      values)
                 self._rng_state = prog.state["rng"]
             else:
                 bufs = None
                 off = 0
                 for k, c in enumerate(spp_chunks(cfg.spp)):
-                    key = ("chunk", cfg, c)
+                    key, reads, first, values = self._with_camera(
+                        ("chunk", cfg, c), world_reads, (0, 0),
+                        (self.frame_count + off, int(k == 0)))
                     prog = self._program(key, world, lambda: graphs.Program(
                         _chunk_body(cfg, c), reads,
                         {"rng": self._rng_state,
                          "acc": _zero_buffers(cfg, self.device)},
-                        (0, 0), self.device, edited=("set_geom",)))
+                        first, self.device, edited=("set_geom",)))
                     prog.run(reads, {"rng": self._rng_state, "acc": bufs},
-                             (self.frame_count + off, int(k == 0)))
+                             values)
                     self._rng_state = prog.state["rng"]
                     bufs = prog.state["acc"]
                     off += c
                 # the chunk programs write their buffers in place
-                post_reads = {"acc": bufs, "camera": reads["camera"]}
-                prog = self._program(
-                    ("post", cfg), world, lambda: graphs.Program(
-                        _post_body(cfg), post_reads, init, (0, 0),
-                        self.device, edited=("acc",)))
-                rgb8 = prog.run(post_reads, state, (self.frame_count, keep))
+                key, reads, first, values = self._with_camera(
+                    ("post", cfg), {"acc": bufs}, (0, 0),
+                    (self.frame_count, keep))
+                prog = self._program(key, world, lambda: graphs.Program(
+                    _post_body(cfg), reads, init, first, self.device,
+                    edited=("acc",)))
+                rgb8 = prog.run(reads, state, values)
+        camera_frame("copied" if "camera" in reads else "made")
         st = prog.state
         if cfg.denoise:
             self._denoiser_state = st["den"]
@@ -1067,28 +1125,29 @@ class Scene:
         return t
 
     def _wire_inputs(self, thickness: float) -> tuple:
-        """The wireframe body's inputs: (its reads, of ``_frame_reads``;
-        the signature of all of those, the world its program is kept
-        under, so that a wireframe keeps the frame programs; its host
-        values: the thickness, the sky's top and bottom colours and its
-        switch)."""
+        """The wireframe program's key and its body's inputs, the camera
+        taken as ``_with_camera`` gives it: (the key; its reads, of
+        ``_frame_reads``; the signature of ``_frame_reads``, the world its
+        program is kept under, so that a wireframe keeps the frame
+        programs; its host values: the thickness, the sky's top and bottom
+        colours and its switch, the camera's inputs)."""
         self._ensure_device_state()
         reads = self._frame_reads()
         world = graphs.signature(reads)
-        reads = {k: reads[k] for k in ("static", "iset", "set_geom", "mats",
-                                       "camera")}
-        values = (float(thickness),
-                  tuple(float(c) for c in self.sky_color_top),
-                  tuple(float(c) for c in self.sky_color_bottom),
-                  1.0 if self.use_sky else 0.0)
-        return reads, world, values
+        key, reads, values = self._with_camera(
+            ("wire", self.width, self.height),
+            {k: reads[k] for k in ("static", "iset", "set_geom", "mats")},
+            (float(thickness), tuple(float(c) for c in self.sky_color_top),
+             tuple(float(c) for c in self.sky_color_bottom),
+             1.0 if self.use_sky else 0.0))
+        return key, reads, world, values
 
     def _wireframe_device(self, thickness: float) -> torch.Tensor:
         """The wireframe through its program: on the card the program's
         output, which its next run overwrites."""
-        reads, world, values = self._wire_inputs(thickness)
+        key, reads, world, values = self._wire_inputs(thickness)
         prog = self._program(
-            ("wire", self.width, self.height), world,
+            key, world,
             lambda: graphs.Program(_wire_body(self.width, self.height,
                                               self.device),
                                    reads, None, values, self.device,
@@ -1100,12 +1159,13 @@ class Scene:
         (``_wire_body``: K1, and K4 on a world with instances) -> (H, W, 3)
         uint8 on the host.  It runs as a program kept in
         ``Scene._programs`` under ``("wire", width, height)`` (the
-        reference's ``_wireframe_program``), beside the frame programs of
-        the same world: on the card its first call captures a CUDA graph
-        and every later call is one replay; on the CPU the program calls
-        the body.  A thickness, sky or camera change is a new value or
-        read, not a new program; a resize is a new key.  With a viewer's
-        six frame programs one world holds seven, within
+        reference's ``_wireframe_program``; an assigned Camera's signature
+        after them, ``_with_camera``), beside the frame programs of the
+        same world: on the card its first call captures a CUDA graph and
+        every later call is one replay; on the CPU the program calls the
+        body.  A thickness, sky or camera change is a new
+        value or read, not a new program; a resize is a new key.  With a
+        viewer's six frame programs one world holds seven, within
         ``graphs.PROGRAMS_KEPT``."""
         return self._wireframe_device(thickness).cpu().numpy()
 

@@ -13,9 +13,10 @@ timer, both off until ``tracing(True)``.  ``span(name)`` times a stretch
 of host code on ``time.perf_counter`` (inside ``profiler_trace`` it is
 also a ``torch.profiler`` range of its name); ``gpu_frame(device)`` puts a
 pair of timing CUDA events around a frame's program runs on the card,
-read back by ``gpu_frames()`` once the caller has synchronized.  No span opens
-inside a captured body: a replay runs no Python, so one there would time
-the capture alone.
+read back by ``gpu_frames()`` once the caller has synchronized;
+``camera_frame(how)`` counts the frames by how their programs took the
+camera, read by ``camera_frames()``.  No span opens inside a captured
+body: a replay runs no Python, so one there would time the capture alone.
 """
 
 from __future__ import annotations
@@ -129,15 +130,17 @@ _tracing = False
 _profiling = False  # inside profiler_trace
 _spans = collections.deque(maxlen=SPANS_KEPT)  # (name, start s, end s)
 _frames = collections.deque(maxlen=FRAMES_KEPT)  # (start s, end s, events)
+_cameras = collections.Counter()  # frames by how they took their camera
 
 
 def tracing(on: bool) -> None:
-    """Turn the recording of spans and GPU frames on (emptying both
-    buffers) or off; it is off until this is called."""
+    """Turn the recording of spans, GPU frames and camera counts on
+    (emptying them) or off; it is off until this is called."""
     global _tracing
     if on and not _tracing:
         _spans.clear()
         _frames.clear()
+        _cameras.clear()
     _tracing = bool(on)
 
 
@@ -230,6 +233,22 @@ def gpu_frames() -> list:
     its CPU frame time.  Call after synchronizing the card (an event not
     yet reached raises)."""
     return [(t0, t1, a.elapsed_time(b)) for t0, t1, (a, b) in _frames]
+
+
+def camera_frame(how: str) -> None:
+    """Count one frame of ``Scene.render_frame_device``'s programs, while
+    tracing is on, by how they took its camera: "made" (in their graphs,
+    from the host inputs of ``set_camera`` they staged) or "copied" (a
+    Camera of tensors read from their buffers, the leaves that changed
+    copied in)."""
+    if _tracing:
+        _cameras[how] += 1
+
+
+def camera_frames() -> dict:
+    """The frames counted by ``camera_frame`` since tracing was turned on:
+    {"made": n, "copied": n}."""
+    return {how: _cameras[how] for how in ("made", "copied")}
 
 
 @contextlib.contextmanager

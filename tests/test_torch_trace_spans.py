@@ -5,13 +5,16 @@
   no-op object, read no clock, and a scene's frames record nothing.
 * On: an orbiting ``Scene.set_camera`` and ``render_frame_device`` record
   exactly the spans of the frame loop, in order and nested as the code
-  runs them (``camera.stage`` and ``camera.math`` inside ``camera.make``;
-  ``frame.select``, then ``program.refresh``, ``program.stage``,
-  ``program.replay``); the set-up's ``geometry.bvh8_build`` once; no
+  runs them (``camera.make``, which stages the camera's host inputs and
+  does no device work; ``frame.select``, then ``program.refresh``,
+  ``program.stage``, ``program.replay``, in which the program makes the
+  camera); the set-up's ``geometry.bvh8_build`` once; no
   ``program.capture`` (nothing is captured on the CPU) and no span inside
   a program's body; no GPU frames on the CPU.
 * The frames (RGB8, PCG state, denoiser history) are bit for bit the same
   with tracing on and off.
+* ``Camera.make`` (``set_position`` and ``look_at`` too) records
+  ``camera.stage`` and then ``camera.math`` inside ``camera.make``.
 * One ``gpu_frame`` a frame holds every program run of it: the frame
   program's, or above 16 spp the chunk programs' and the post program's
   (a stand-in context in its place, as the CPU records no events).
@@ -29,6 +32,7 @@ import torch
 
 from ptrt_tpu_torch import graphs
 from ptrt_tpu_torch.scene import pt_scene
+from ptrt_tpu_torch.scene.camera import Camera
 from ptrt_tpu_torch.scene.materials import Material, Materials
 from ptrt_tpu_torch.scene.pt_scene import Scene
 from ptrt_tpu_torch.utils import logging as plog
@@ -36,7 +40,9 @@ from test_torch_shading import torch_one_thread  # noqa: F401
 
 W, H = 24, 16
 FRAMES = 3
-CAMERA = ("camera.make", "camera.stage", "camera.math")
+CAMERA = ("camera.make",)
+# Camera.make's (set_position and look_at call it)
+CAMERA_MAKE = ("camera.make", "camera.stage", "camera.math")
 FRAME = ("frame.select", "program.refresh", "program.stage",
          "program.replay")
 
@@ -113,16 +119,29 @@ def test_on_records_the_frame_loop_spans(preset):
     loop = [s for s in spans if s[0] != "geometry.bvh8_build"]
     assert [n for n, _, _ in loop] == list(CAMERA + FRAME) * FRAMES
     for k in range(FRAMES):
-        make, stage, math, select, refresh, hv, replay = \
-            loop[7 * k:7 * k + 7]
-        assert _within(stage, make) and _within(math, make)
-        assert stage[2] <= math[1] and make[2] <= select[1]
+        make, select, refresh, hv, replay = loop[5 * k:5 * k + 5]
+        assert make[2] <= select[1]
         assert select[2] <= refresh[1] <= refresh[2] <= hv[1]
         assert hv[2] <= replay[1]
         # nothing opens inside the program's body (a replay on the card)
         assert not [s for s in spans if s is not replay
                     and _within(s, replay)]
     assert plog.gpu_frames() == []  # event pairs are for the card
+
+
+@pytest.mark.parametrize("make", [
+    lambda cam: Camera.make((0.3, 0.5, 0.0), (0.0, 0.0, 4.0), device="cpu"),
+    lambda cam: cam.set_position((0.1, 0.4, -0.2)),
+    lambda cam: cam.look_at((0.5, 0.0, 3.0))],
+    ids=["make", "set_position", "look_at"])
+def test_camera_make_records_stage_then_math_within_make(make):
+    cam = Camera.make((0.0, 0.5, 0.0), (0.0, 0.0, 4.0), device="cpu")
+    plog.tracing(True)
+    make(cam)
+    outer, stage, math = _by_start(plog.spans())
+    assert [n for n, _, _ in (outer, stage, math)] == list(CAMERA_MAKE)
+    assert _within(stage, outer) and _within(math, outer)
+    assert stage[2] <= math[1]
 
 
 @pytest.mark.parametrize("preset", ["fast", "balanced"])
